@@ -1,5 +1,5 @@
-// Shared core of the port's two attention kernels (flash_fwd.cu,
-// ragged_paged_attention.cu): one block of 4 warps owns 64 query rows
+// Shared core of the port's forward attention kernels (flash_fwd.cu,
+// ragged_paged_attention.cu; flash_bwd.cu uses its helpers): one block of 4 warps owns 64 query rows
 // (16 per warp) of one KV head and streams 64-key tiles of K and V
 // through shared memory, with the online softmax in f32 registers.
 //
@@ -28,6 +28,7 @@ constexpr int kRows = 64;       // query rows per block, 16 per warp
 constexpr int kKeys = 64;       // keys per shared-memory tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
 
@@ -192,6 +193,22 @@ struct WarpState {
         const uint32_t b1 = pack_raw(tile.v[k0 + 8][d], tile.v[k0 + 9][d]);
         mma_bf16(o[nt], a, b0, b1);
       }
+    }
+  }
+
+  // The log-sum-exp of each row's scaled scores, natural log: m is kept
+  // in log2 units of score * scale, so lse = m * ln 2 + ln l. lrow(r):
+  // pointer for warp row r, or nullptr to skip; one lane of each quad
+  // writes. A row that saw no key (l == 0) gets kNegInf.
+  template <class RowL>
+  __device__ __forceinline__ void store_lse(RowL lrow) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    if (t != 0) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* out = lrow(g + h * 8);
+      if (out != nullptr)
+        *out = l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : kNegInf;
     }
   }
 

@@ -1,0 +1,437 @@
+// Causal GQA flash-attention backward for Hopper (sm_90a).
+//
+// Replaces: paddle_tpu/kernels/flash_attention.py's backward kernels, the
+// four schedules of flash_attention_pallas_bwd: _flash_bwd_combined_kernel_res
+// (pallas_call in _bwd_call_resident, seq <= 2048), _flash_bwd_combined_kernel_str
+// (streamed, longer seq) and the split _flash_bwd_dq_kernel /
+// _flash_bwd_dkv_kernel (very long seq). The TPU needs four schedules to
+// fit 16 MB of scoped VMEM; here one design serves every length.
+//
+// Computes, from q [B, Sq, H, hd], k/v [B, Sk, KV, hd], out and dout
+// [B, Sq, H, hd] (bf16) and the forward's lse [B, H, Sq] (f32, natural
+// log of the scaled scores):
+//   P  = exp(scale * Q K^T - lse)          (causal: key j <= i + Sk - Sq)
+//   dcap_i = sum_d dO_i * O_i
+//   dS = P o (dO V^T - dcap) * scale
+//   dQ = dS K,   dK = dS^T Q,   dV = P^T dO
+// with dK and dV summed over each KV head's rep = H / KV query heads.
+// Products on mma.sync.m16n8k16 (bf16 in, f32 accumulate); P and dS are
+// rounded to bf16 only as the A operands of the second products.
+//
+// Three kernels, in order on the caller's stream:
+//   dcap — one warp per (batch, query, head) row: rowsum(dO * O) into an
+//          f32 [B, H, Sq] scratch (the XLA op of the TPU wrapper).
+//   dkdv — grid (B * KV, 64-key tiles); a block holds its K/V tile in
+//          shared memory, each warp 16 keys, and walks the rep query heads
+//          of its group and, for each, the 32-query tiles from the causal
+//          diagonal on, accumulating dK and dV in f32 registers. GQA needs
+//          neither an expanded K/V nor a reduction over the group.
+//   dq   — grid (B * H, 64-query tiles), each warp 16 queries with Q and
+//          dO fragments in registers, over the 64-key tiles up to the
+//          diagonal (K and V staged through shared memory), dQ in f32
+//          registers. Like the TPU's split dq kernel it needs no atomics
+//          and no f32 dQ buffer, and is deterministic.
+//
+// Bound on the H100: about 2.5x the forward's tensor-core work (five
+// products against two) over the same O(S * hd) bytes, so tensor-core
+// bound at training lengths. What this simple version leaves: the dkdv
+// blocks re-read each query tile from L2 once per key tile, loads are not
+// pipelined against the products, and there is no wgmma or TMA.
+#include "attention_core.cuh"
+
+namespace {
+
+using ptt::bf16;
+using ptt::mma_bf16;
+using ptt::pack_bf16;
+using ptt::pack_raw;
+
+constexpr int kThreads = 128;   // 4 warps
+constexpr int kKeyTile = 64;    // dkdv: keys per block, 16 per warp
+constexpr int kQTile = 32;      // dkdv: queries per inner step
+constexpr int kQRows = 64;      // dq: queries per block, 16 per warp
+
+// ------------------------------------------------------------------ dcap
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+dcap_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+            float* __restrict__ dcap, long rows, int Sq, int H) {
+  const long row = (long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const bf16* op = o + row * HD;
+  const bf16* dp = dout + row * HD;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = lane * 2; c < HD; c += 64) {
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(op + c));
+    const float2 d = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(dp + c));
+    acc += a.x * d.x + a.y * d.y;
+  }
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0) {
+    // row runs over [b][i][h]; dcap is [b][h][i]
+    const int h = (int)(row % H);
+    const long bi = row / H;
+    const int i = (int)(bi % Sq);
+    const long b = bi / Sq;
+    dcap[(b * H + h) * Sq + i] = acc;
+  }
+}
+
+// ------------------------------------------------------------------ dkdv
+template <int HD>
+struct DkdvSmem {
+  bf16 k[kKeyTile][HD + 8];
+  bf16 v[kKeyTile][HD + 8];
+  bf16 q[kQTile][HD + 8];
+  bf16 dout[kQTile][HD + 8];
+  float lse[kQTile];      // lse * log2(e)
+  float dcap[kQTile];
+};
+
+// Copy `rows` rows of HD bf16 (row r from src(r), or zeros for nullptr)
+// into dst[r][...]; 16-byte chunks over the block's threads.
+template <int HD, int ROWS, class Src>
+__device__ __forceinline__ void stage_rows(bf16 (*dst)[HD + 8], Src src) {
+  constexpr int kChunks = HD / 8;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const bf16* p = src(r);
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (p != nullptr) val = *reinterpret_cast<const uint4*>(p + col);
+    *reinterpret_cast<uint4*>(&dst[r][col]) = val;
+  }
+}
+
+// A fragment (16 x 16, row-major) of rows row0..row0+15, columns
+// ks*16.. of a shared tile whose rows are HD + 8 elements apart.
+template <int HD>
+__device__ __forceinline__ void a_frag(uint32_t a[4], const bf16* t,
+                                       int row0, int ks) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const bf16* r0 = t + (size_t)(row0 + g) * (HD + 8) + ks * 16 + 2 * tq;
+  const bf16* r1 = r0 + 8 * (HD + 8);
+  a[0] = *reinterpret_cast<const uint32_t*>(r0);
+  a[1] = *reinterpret_cast<const uint32_t*>(r1);
+  a[2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ dcap,
+            bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
+            int H, int KV, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DkdvSmem<HD>& sm = *reinterpret_cast<DkdvSmem<HD>*>(smem_raw);
+  const int bkv = blockIdx.x, b = bkv / KV, kvh = bkv % KV;
+  const int rep = H / KV;
+  const int k0 = blockIdx.y * kKeyTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int off = Sk - Sq;
+  const float scale_log2 = scale * ptt::kLog2e;
+
+  stage_rows<HD, kKeyTile>(sm.k, [&](int r) -> const bf16* {
+    const int j = k0 + r;
+    return j < Sk ? k + (((size_t)b * Sk + j) * KV + kvh) * HD : nullptr;
+  });
+  stage_rows<HD, kKeyTile>(sm.v, [&](int r) -> const bf16* {
+    const int j = k0 + r;
+    return j < Sk ? v + (((size_t)b * Sk + j) * KV + kvh) * HD : nullptr;
+  });
+
+  float dka[HD / 8][4], dva[HD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
+
+  // queries that can see this tile's first key: i >= k0 - off
+  const int q_first = causal ? max(0, k0 - off) : 0;
+  const int qt0 = q_first / kQTile;
+  const int n_qt = (Sq + kQTile - 1) / kQTile;
+  const int wrow = warp * 16;                 // this warp's first tile key
+
+  for (int r = 0; r < rep; ++r) {
+    const int h = kvh * rep + r;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int i0 = qt * kQTile;
+      __syncthreads();   // the previous step is done with the q/dO tiles
+      stage_rows<HD, kQTile>(sm.q, [&](int rr) -> const bf16* {
+        const int i = i0 + rr;
+        return i < Sq ? q + (((size_t)b * Sq + i) * H + h) * HD : nullptr;
+      });
+      stage_rows<HD, kQTile>(sm.dout, [&](int rr) -> const bf16* {
+        const int i = i0 + rr;
+        return i < Sq ? dout + (((size_t)b * Sq + i) * H + h) * HD : nullptr;
+      });
+      if (threadIdx.x < kQTile) {
+        const int i = i0 + threadIdx.x;
+        const size_t li = ((size_t)b * H + h) * Sq + i;
+        sm.lse[threadIdx.x] = i < Sq ? lse[li] * ptt::kLog2e : 0.f;
+        sm.dcap[threadIdx.x] = i < Sq ? dcap[li] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 32 queries
+      float s[kQTile / 8][4], dp[kQTile / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kQTile / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        uint32_t ak[4], av[4];
+        a_frag<HD>(ak, &sm.k[0][0], wrow, ks);
+        a_frag<HD>(av, &sm.v[0][0], wrow, ks);
+#pragma unroll
+        for (int nt = 0; nt < kQTile / 8; ++nt) {
+          const bf16* qr = &sm.q[nt * 8 + g][ks * 16 + 2 * t];
+          mma_bf16(s[nt], ak, *reinterpret_cast<const uint32_t*>(qr),
+                   *reinterpret_cast<const uint32_t*>(qr + 8));
+          const bf16* dr = &sm.dout[nt * 8 + g][ks * 16 + 2 * t];
+          mma_bf16(dp[nt], av, *reinterpret_cast<const uint32_t*>(dr),
+                   *reinterpret_cast<const uint32_t*>(dr + 8));
+        }
+      }
+      // P^T and dS^T in place of S^T and dP^T
+#pragma unroll
+      for (int nt = 0; nt < kQTile / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + wrow + g + (e >> 1) * 8;
+          const int jq = nt * 8 + 2 * t + (e & 1);
+          const int i = i0 + jq;
+          const bool vis = key < Sk && i < Sq && (!causal || key <= i + off);
+          const float p =
+              vis ? exp2f(s[nt][e] * scale_log2 - sm.lse[jq]) : 0.f;
+          s[nt][e] = p;
+          dp[nt][e] = p * (dp[nt][e] - sm.dcap[jq]) * scale;
+        }
+      }
+      // dV += P^T dO, dK += dS^T Q: the accumulators of n-tiles 2kk and
+      // 2kk+1 are the A fragment of k-step kk (k = queries)
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk) {
+        uint32_t ap[4], ad[4];
+        ap[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        ap[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        ap[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        ap[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        ad[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+        ad[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+        ad[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+        ad[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+        const int kq = kk * 16 + 2 * t;
+#pragma unroll
+        for (int nt = 0; nt < HD / 8; ++nt) {
+          const int d = nt * 8 + g;
+          mma_bf16(dva[nt], ap, pack_raw(sm.dout[kq][d], sm.dout[kq + 1][d]),
+                   pack_raw(sm.dout[kq + 8][d], sm.dout[kq + 9][d]));
+          mma_bf16(dka[nt], ad, pack_raw(sm.q[kq][d], sm.q[kq + 1][d]),
+                   pack_raw(sm.q[kq + 8][d], sm.q[kq + 9][d]));
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + wrow + g + hh * 8;
+    if (key >= Sk) continue;
+    const size_t base = (((size_t)b * Sk + key) * KV + kvh) * HD;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dk + base + c) =
+          pack_bf16(dka[nt][2 * hh], dka[nt][2 * hh + 1]);
+      *reinterpret_cast<uint32_t*>(dv + base + c) =
+          pack_bf16(dva[nt][2 * hh], dva[nt][2 * hh + 1]);
+    }
+  }
+}
+
+// -------------------------------------------------------------------- dq
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ dcap,
+          bf16* __restrict__ dq, int Sq, int Sk, int H, int KV, float scale,
+          int causal) {
+  __shared__ ptt::KVTile<HD> tile;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q_tile0 = blockIdx.y * kQRows;
+  const int row0 = q_tile0 + warp * 16;
+  const int off = Sk - Sq;
+  const float scale_log2 = scale * ptt::kLog2e;
+
+  // Q and dO A-fragments of this warp's rows g and g + 8, for all of hd
+  uint32_t qa[HD / 16][4], da[HD / 16][4];
+  const int r0 = row0 + g, r1 = row0 + g + 8;
+  const bf16* q0 = r0 < Sq ? q + (((size_t)b * Sq + r0) * H + h) * HD : nullptr;
+  const bf16* q1 = r1 < Sq ? q + (((size_t)b * Sq + r1) * H + h) * HD : nullptr;
+  const bf16* d0 =
+      r0 < Sq ? dout + (((size_t)b * Sq + r0) * H + h) * HD : nullptr;
+  const bf16* d1 =
+      r1 < Sq ? dout + (((size_t)b * Sq + r1) * H + h) * HD : nullptr;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const int c = ks * 16 + 2 * t;
+    qa[ks][0] = q0 ? *reinterpret_cast<const uint32_t*>(q0 + c) : 0u;
+    qa[ks][1] = q1 ? *reinterpret_cast<const uint32_t*>(q1 + c) : 0u;
+    qa[ks][2] = q0 ? *reinterpret_cast<const uint32_t*>(q0 + c + 8) : 0u;
+    qa[ks][3] = q1 ? *reinterpret_cast<const uint32_t*>(q1 + c + 8) : 0u;
+    da[ks][0] = d0 ? *reinterpret_cast<const uint32_t*>(d0 + c) : 0u;
+    da[ks][1] = d1 ? *reinterpret_cast<const uint32_t*>(d1 + c) : 0u;
+    da[ks][2] = d0 ? *reinterpret_cast<const uint32_t*>(d0 + c + 8) : 0u;
+    da[ks][3] = d1 ? *reinterpret_cast<const uint32_t*>(d1 + c + 8) : 0u;
+  }
+  float lrow[2], crow[2];
+  const size_t lbase = ((size_t)b * H + h) * Sq;
+  lrow[0] = r0 < Sq ? lse[lbase + r0] * ptt::kLog2e : 0.f;
+  lrow[1] = r1 < Sq ? lse[lbase + r1] * ptt::kLog2e : 0.f;
+  crow[0] = r0 < Sq ? dcap[lbase + r0] : 0.f;
+  crow[1] = r1 < Sq ? dcap[lbase + r1] : 0.f;
+
+  float dqa[HD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt)
+    dqa[nt][0] = dqa[nt][1] = dqa[nt][2] = dqa[nt][3] = 0.f;
+
+  int last = Sk - 1;
+  if (causal) last = min(last, q_tile0 + kQRows - 1 + off);
+  const int n_tiles = last < 0 ? 0 : last / ptt::kKeys + 1;
+  const bf16* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
+  const bf16* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * ptt::kKeys;
+    ptt::load_tile<HD>(
+        tile,
+        [&](int j) -> const bf16* {
+          return k0 + j < Sk ? kb + (size_t)(k0 + j) * KV * HD : nullptr;
+        },
+        [&](int j) -> const bf16* {
+          return k0 + j < Sk ? vb + (size_t)(k0 + j) * KV * HD : nullptr;
+        });
+    __syncthreads();
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kh = half * 32;
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const bf16* kr = &tile.k[kh + nt * 8 + g][ks * 16 + 2 * t];
+          mma_bf16(s[nt], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
+                   *reinterpret_cast<const uint32_t*>(kr + 8));
+          const bf16* vr = &tile.v[kh + nt * 8 + g][ks * 16 + 2 * t];
+          mma_bf16(dp[nt], da[ks], *reinterpret_cast<const uint32_t*>(vr),
+                   *reinterpret_cast<const uint32_t*>(vr + 8));
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          const int i = row0 + g + hh * 8;
+          const int key = k0 + kh + nt * 8 + 2 * t + (e & 1);
+          const bool vis = i < Sq && key < Sk && (!causal || key <= i + off);
+          const float p = vis ? exp2f(s[nt][e] * scale_log2 - lrow[hh]) : 0.f;
+          dp[nt][e] = p * (dp[nt][e] - crow[hh]) * scale;
+        }
+      }
+      // dQ += dS K (k = keys; K read as a col-major B operand)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t a[4];
+        a[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+        a[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+        a[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+        a[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+        const int kr = kh + kk * 16 + 2 * t;
+#pragma unroll
+        for (int nt = 0; nt < HD / 8; ++nt) {
+          const int d = nt * 8 + g;
+          mma_bf16(dqa[nt], a, pack_raw(tile.k[kr][d], tile.k[kr + 1][d]),
+                   pack_raw(tile.k[kr + 8][d], tile.k[kr + 9][d]));
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = row0 + g + hh * 8;
+    if (i >= Sq) continue;
+    bf16* out = dq + (((size_t)b * Sq + i) * H + h) * HD;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(out + nt * 8 + 2 * t) =
+          pack_bf16(dqa[nt][2 * hh], dqa[nt][2 * hh + 1]);
+  }
+}
+
+template <int HD>
+int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+           const bf16* dout, const float* lse, float* dcap, bf16* dq,
+           bf16* dk, bf16* dv, int B, int Sq, int Sk, int H, int KV,
+           float scale, int causal, cudaStream_t stream) {
+  const long rows = (long)B * Sq * H;
+  const int warps = kThreads / 32;
+  dcap_kernel<HD><<<(unsigned)((rows + warps - 1) / warps), kThreads, 0,
+                    stream>>>(o, dout, dcap, rows, Sq, H);
+  const int smem = (int)sizeof(DkdvSmem<HD>);
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 g1(B * KV, (Sk + kKeyTile - 1) / kKeyTile);
+  dkdv_kernel<HD><<<g1, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, dcap, dk, dv, Sq, Sk, H, KV, scale, causal);
+  dim3 g2(B * H, (Sq + kQRows - 1) / kQRows);
+  dq_kernel<HD><<<g2, kThreads, 0, stream>>>(q, k, v, dout, lse, dcap, dq,
+                                             Sq, Sk, H, KV, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dcap is an f32 [B, H, Sq] scratch the caller allocates. Returns the
+// launches' cudaError_t (0 on success).
+extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
+                              const void* o, const void* dout,
+                              const void* lse, void* dcap, void* dq,
+                              void* dk, void* dv, int B, int Sq, int Sk,
+                              int H, int KV, int hd, float scale, int causal,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PTT_ARGS                                                          \
+  static_cast<const bf16*>(q), static_cast<const bf16*>(k),               \
+      static_cast<const bf16*>(v), static_cast<const bf16*>(o),           \
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),     \
+      static_cast<float*>(dcap), static_cast<bf16*>(dq),                  \
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sq, Sk, H, KV,   \
+      scale, causal, s
+  if (hd == 128) return launch<128>(PTT_ARGS);
+  if (hd == 64) return launch<64>(PTT_ARGS);
+#undef PTT_ARGS
+  return (int)cudaErrorInvalidValue;
+}

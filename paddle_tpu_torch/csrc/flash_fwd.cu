@@ -2,12 +2,16 @@
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py::_flash_fwd_kernel
 // (pallas_call in _fwd_call) on the serving path's cold prefill
-// (nlp/paged.py::_attention_paged, is_prefill=True).
+// (nlp/paged.py::_attention_paged, is_prefill=True) and in the training
+// forward (nlp/llama.py::_attention), where it also writes the LSE.
 //
 // Computes out[b, i, h] = softmax(q[b, i, h] . k[b, :, h // rep]^T * scale
 // masked to keys j <= i + (Sk - Sq)) . v[b, :, h // rep], the bottom-right
 // causal alignment of mha_ref. q [B, Sq, H, hd], k/v [B, Sk, KV, hd], out
 // [B, Sq, H, hd], all bf16 and contiguous; scores and accumulation f32.
+// With a non-null `lse` [B, H, Sq] (f32) it also writes each row's
+// log-sum-exp of the scaled scores, the residual of the backward
+// (flash_bwd.cu), in the domain the TPU kernel keeps it.
 // Query head h reads KV head h / (H / KV) straight from k/v: the expanded
 // K/V is never built. Rows and keys past Sq / Sk are masked here, so any
 // Sq <= Sk runs without padding copies.
@@ -31,8 +35,8 @@ template <int HD>
 __global__ void __launch_bounds__(ptt::kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                 int Sq, int Sk, int H, int KV, float scale_log2,
-                 int causal) {
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                 float scale_log2, int causal) {
   __shared__ ptt::KVTile<HD> tile;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);
@@ -76,31 +80,39 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int i = row0 + r;
     return i < Sq ? out + (((size_t)b * Sq + i) * H + h) * HD : nullptr;
   });
+  if (lse != nullptr) {
+    st.store_lse([&](int r) -> float* {
+      const int i = row0 + r;
+      return i < Sq ? lse + ((size_t)b * H + h) * Sq + i : nullptr;
+    });
+  }
 }
 
 template <int HD>
-void launch(const void* q, const void* k, const void* v, void* o, int B,
-            int Sq, int Sk, int H, int KV, float scale, int causal,
-            cudaStream_t stream) {
+void launch(const void* q, const void* k, const void* v, void* o,
+            float* lse, int B, int Sq, int Sk, int H, int KV, float scale,
+            int causal, cudaStream_t stream) {
   dim3 grid(B * H, (Sq + ptt::kRows - 1) / ptt::kRows);
   flash_fwd_kernel<HD><<<grid, ptt::kThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, KV,
-      scale * ptt::kLog2e, causal);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk, H,
+      KV, scale * ptt::kLog2e, causal);
 }
 
 }  // namespace
 
-// Returns the launch's cudaError_t (0 on success).
+// `lse` may be null (serving). Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, int B, int Sq, int Sk, int H, int KV,
-                              int hd, float scale, int causal,
+                              void* o, void* lse, int B, int Sq, int Sk,
+                              int H, int KV, int hd, float scale, int causal,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (hd == 128) {
-    launch<128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    launch<128>(q, k, v, o, l, B, Sq, Sk, H, KV, scale, causal, s);
   } else if (hd == 64) {
-    launch<64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    launch<64>(q, k, v, o, l, B, Sq, Sk, H, KV, scale, causal, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,0 +1,224 @@
+// RMSNorm forward (saving the reciprocal RMS) and backward for Hopper
+// (sm_90a): the training stack's norm.
+//
+// Replaces: paddle_tpu/kernels/rms_norm.py::_rms_fwd_kernel (pallas_call
+// in _rms_fwd_pallas) and ::_rms_bwd_kernel (pallas_call in
+// _rms_bwd_pallas), both run twice per decoder layer
+// (nlp/llama.py::_decoder_layer).
+//
+//   forward:  r = 1 / sqrt(mean(x^2) + eps), out = x * r * w (bf16),
+//             rstd = r (f32, one per row)
+//   backward: dx = r * (w o dy) - x * (r^3 / D) * sum_j dy_j w_j x_j
+//             dw = sum over rows of dy o x o r
+// x, out, dy, dx bf16 [rows, D]; w f32 [D] (the wrapper casts it); all
+// arithmetic in f32, in the order of the TPU kernels.
+//
+// Bound on the H100: a handful of operations per element against 2 (fwd)
+// or 6 (bwd) bytes per element, far below the card's ~295 flop/byte ridge:
+// memory bound. Design: one block of 256 threads per row, 16-byte loads
+// and stores (8 bf16 a thread per vector, 1, 2 or 4 vectors a thread as
+// D needs, so D <= 8192), the row's sum of squares (fwd) or sum(dy w x)
+// (bwd) reduced over the block in f32. dw is reduced deterministically, without float
+// atomics: each backward block walks a contiguous chunk of rows and
+// writes its per-column partial sums once to an f32 [chunks, D] scratch,
+// and a second kernel sums the chunks in a fixed order, so two runs give
+// identical bits.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+constexpr int kThreads = 256;
+constexpr int kMaxVec = 4;      // 16-byte vectors per thread: D <= 8192
+// (the kernels are instantiated for VPT = 1, 2 and 4 vectors a thread)
+
+__device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(h[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float f[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return u;
+}
+
+// Sum of `v` over the block (256 threads); every thread gets the total.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) v += __shfl_xor_sync(0xffffffffu, v, w);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();              // red[] is free from the previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int i = 0; i < kThreads / 32; ++i) t += red[i];
+  return t;
+}
+
+template <int VPT>
+__global__ void __launch_bounds__(kThreads)
+rms_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+               bf16* __restrict__ out, float* __restrict__ rstd, int D,
+               float eps) {
+  __shared__ float red[kThreads / 32];
+  const size_t row = blockIdx.x;
+  const int nvec = D / 8;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * D);
+  float xv[VPT][8];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int vi = threadIdx.x + i * kThreads;
+    if (vi < nvec) {
+      unpack8(xr[vi], xv[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ss += xv[i][j] * xv[i][j];
+    }
+  }
+  const float r = 1.f / sqrtf(block_sum(ss, red) / D + eps);
+  uint4* orow = reinterpret_cast<uint4*>(out + row * D);
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int vi = threadIdx.x + i * kThreads;
+    if (vi < nvec) {
+      float o[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[j] = xv[i][j] * r * w[vi * 8 + j];
+      orow[vi] = pack8(o);
+    }
+  }
+  if (threadIdx.x == 0) rstd[row] = r;
+}
+
+template <int VPT>
+__global__ void __launch_bounds__(kThreads)
+rms_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ rstd, const bf16* __restrict__ dy,
+               bf16* __restrict__ dx, float* __restrict__ partials,
+               int rows, int D, int rows_per_chunk) {
+  __shared__ float red[kThreads / 32];
+  const int nvec = D / 8;
+  const int first = blockIdx.x * rows_per_chunk;
+  const int last = min(rows, first + rows_per_chunk);
+  float wv[VPT][8], acc[VPT][8];
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int vi = threadIdx.x + i * kThreads;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      wv[i][j] = vi < nvec ? w[vi * 8 + j] : 0.f;
+      acc[i][j] = 0.f;
+    }
+  }
+  const float inv_d = 1.f / D;
+  for (int row = first; row < last; ++row) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
+    const uint4* dr = reinterpret_cast<const uint4*>(dy + (size_t)row * D);
+    float xv[VPT][8], dyv[VPT][8];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int vi = threadIdx.x + i * kThreads;
+      if (vi < nvec) {
+        unpack8(xr[vi], xv[i]);
+        unpack8(dr[vi], dyv[i]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s += dyv[i][j] * wv[i][j] * xv[i][j];
+      }
+    }
+    s = block_sum(s, red);
+    const float r = rstd[row];
+    const float c3 = r * r * r * inv_d;
+    uint4* xo = reinterpret_cast<uint4*>(dx + (size_t)row * D);
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int vi = threadIdx.x + i * kThreads;
+      if (vi < nvec) {
+        float o[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[j] = r * (dyv[i][j] * wv[i][j]) - xv[i][j] * c3 * s;
+          acc[i][j] += dyv[i][j] * xv[i][j] * r;
+        }
+        xo[vi] = pack8(o);
+      }
+    }
+  }
+  float* part = partials + (size_t)blockIdx.x * D;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int vi = threadIdx.x + i * kThreads;
+    if (vi < nvec) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[vi * 8 + j] = acc[i][j];
+    }
+  }
+}
+
+// dw[c] = sum over chunks of partials[chunk][c], chunks in order.
+__global__ void __launch_bounds__(kThreads)
+rms_dw_kernel(const float* __restrict__ partials, float* __restrict__ dw,
+              int D, int chunks) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= D) return;
+  float s = 0.f;
+  for (int k = 0; k < chunks; ++k) s += partials[(size_t)k * D + c];
+  dw[c] = s;
+}
+
+}  // namespace
+
+// Returns the launch's cudaError_t (0 on success).
+extern "C" int rms_fwd_bf16(const void* x, const void* w, void* out,
+                            void* rstd, int rows, int D, float eps,
+                            void* stream) {
+  if (D % 8 || D > kThreads * kMaxVec * 8) return (int)cudaErrorInvalidValue;
+  const int vpt = (D / 8 + kThreads - 1) / kThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PTT_FWD(V)                                                         \
+  rms_fwd_kernel<V><<<rows, kThreads, 0, s>>>(                             \
+      static_cast<const bf16*>(x), static_cast<const float*>(w),          \
+      static_cast<bf16*>(out), static_cast<float*>(rstd), D, eps)
+  if (vpt == 1) PTT_FWD(1);
+  else if (vpt == 2) PTT_FWD(2);
+  else PTT_FWD(4);
+#undef PTT_FWD
+  return (int)cudaGetLastError();
+}
+
+// `partials` is an f32 [chunks, D] scratch; dw is f32 [D]. Returns the
+// launches' cudaError_t (0 on success).
+extern "C" int rms_bwd_bf16(const void* x, const void* w, const void* rstd,
+                            const void* dy, void* dx, void* dw,
+                            void* partials, int rows, int D, int chunks,
+                            void* stream) {
+  if (D % 8 || D > kThreads * kMaxVec * 8 || chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per = (rows + chunks - 1) / chunks;
+  const int used = (rows + per - 1) / per;
+  const int vpt = (D / 8 + kThreads - 1) / kThreads;
+#define PTT_BWD(V)                                                         \
+  rms_bwd_kernel<V><<<used, kThreads, 0, s>>>(                             \
+      static_cast<const bf16*>(x), static_cast<const float*>(w),          \
+      static_cast<const float*>(rstd), static_cast<const bf16*>(dy),      \
+      static_cast<bf16*>(dx), static_cast<float*>(partials), rows, D, per)
+  if (vpt == 1) PTT_BWD(1);
+  else if (vpt == 2) PTT_BWD(2);
+  else PTT_BWD(4);
+#undef PTT_BWD
+  rms_dw_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      static_cast<const float*>(partials), static_cast<float*>(dw), D, used);
+  return (int)cudaGetLastError();
+}

@@ -1,12 +1,37 @@
-"""RMSNorm — plain PyTorch.
+"""RMSNorm: plain PyTorch versions + the training pair of CUDA kernels.
 
-Port of paddle_tpu/kernels/rms_norm.py::rms_norm_ref, the form the
-serving path uses (the Pallas RMSNorm kernels there serve nn.functional
-and training, later slices).
+Port of paddle_tpu/kernels/rms_norm.py. `rms_norm_ref` is the plain form
+the serving path and the final norm use. `rms_norm_train` is the
+differentiable norm of the training stack (the `custom_vjp` of the JAX
+package): its forward runs `rms_norm_fwd` and saves the per-row
+reciprocal RMS, its backward runs `rms_norm_bwd`. On a CUDA tensor those
+two wrappers launch the kernels of `csrc/rms_norm.cu` (the counterparts
+of `_rms_fwd_pallas` and `_rms_bwd_pallas`); on a CPU tensor they run
+their plain twins (`_rms_fwd_twin`, `_rms_train_ref_bwd`). The CPU
+backward is written in differentiable torch ops that recompute r from x,
+so grad-of-grad works there, as the JAX package's jnp twins allow.
+
+Formulas (out = x·r·w, r = rsqrt(mean(x²) + eps)), per row:
+    dx = r·(w⊙dy) − x·(r³/D)·Σ_j dy_j w_j x_j
+    dw = Σ_rows dy ⊙ x ⊙ r
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from .. import _build
+
+# rms_fwd_bf16(x, w, out, rstd, rows, D, eps, stream)
+_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+    ctypes.c_float, ctypes.c_void_p]
+# rms_bwd_bf16(x, w, rstd, dy, dx, dw, partials, rows, D, n_chunks, stream)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    ctypes.c_void_p]
+# row chunks of the backward's deterministic dw reduction: each chunk's
+# f32 partial row is written once, then summed in chunk order
+_BWD_CHUNKS = 512
 
 
 def rms_norm_ref(x, weight=None, epsilon: float = 1e-6):
@@ -18,3 +43,132 @@ def rms_norm_ref(x, weight=None, epsilon: float = 1e-6):
     if weight is not None:
         out = out * weight.float()
     return out.to(dt)
+
+
+def _rms_fwd_twin(x, weight, epsilon):
+    """Plain version of the forward kernel: (out in x's dtype, rstd f32
+    [rows, 1])."""
+    xf = x.float()
+    rstd = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + epsilon)
+    out = (xf * rstd * weight.float()).to(x.dtype)
+    return out, rstd.reshape(-1, 1)
+
+
+def _rms_train_ref_bwd(x, weight, dy, epsilon):
+    """Plain version of the backward kernel: (dx in x's dtype, dw in
+    weight's dtype). Recomputes r from x, so it is differentiable in x,
+    weight and dy."""
+    xf, dyf, wf = x.float(), dy.float(), weight.float()
+    d = x.shape[-1]
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + epsilon)
+    dyw = dyf * wf
+    s = torch.sum(dyw * xf, dim=-1, keepdim=True)
+    dx = (r * dyw - xf * (r * r * r / d) * s).to(x.dtype)
+    dw = torch.sum((dyf * xf * r).reshape(-1, d), dim=0).to(weight.dtype)
+    return dx, dw
+
+
+def _check_rows(x, weight, what):
+    d = x.shape[-1]
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() \
+            or x.data_ptr() % 16:
+        raise TypeError(f"{what}: x must be a contiguous, 16-byte aligned "
+                        f"bf16 CUDA tensor")
+    if d % 8 or d > 8192:
+        raise ValueError(f"{what}: hidden size {d} must be a multiple of 8 "
+                         f"and at most 8192")
+    if weight.shape != (d,) or weight.device != x.device:
+        raise ValueError(f"{what}: weight {tuple(weight.shape)} does not "
+                         f"match hidden size {d} on {x.device}")
+
+
+def rms_norm_fwd(x, weight, epsilon: float = 1e-6):
+    """RMSNorm forward saving the reciprocal RMS: (out like x, rstd f32
+    [rows, 1]). On a CPU tensor: the plain twin. On a CUDA tensor: the
+    kernel (bf16 x, hidden size a multiple of 8 up to 8192; any weight
+    dtype, read as f32); anything else raises. Each launch adds one to
+    `rms_norm_fwd.launches`."""
+    if not x.is_cuda:
+        return _rms_fwd_twin(x, weight, epsilon)
+    _check_rows(x, weight, "rms_norm_fwd")
+    d = x.shape[-1]
+    rows = x.numel() // d
+    out = torch.empty_like(x)
+    rstd = torch.empty(rows, 1, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return out, rstd
+    w = weight.float().contiguous()
+    fn = _build.function("rms_norm", "rms_fwd_bf16", _FWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 rstd.data_ptr(), rows, d, float(epsilon), stream)
+    _build.check(err, "rms_fwd_bf16")
+    rms_norm_fwd.launches += 1
+    return out, rstd
+
+
+rms_norm_fwd.launches = 0
+
+
+def rms_norm_bwd(x, weight, rstd, dy, epsilon: float = 1e-6):
+    """RMSNorm backward: (dx like x, dw in weight's dtype). On a CPU
+    tensor: the plain twin, which recomputes r from x (differentiable).
+    On a CUDA tensor: the kernel, which reads the forward's `rstd`; dw
+    is summed over row chunks in a fixed order (no float atomics), so
+    two runs give identical bits. Each launch adds one to
+    `rms_norm_bwd.launches`."""
+    if not x.is_cuda:
+        return _rms_train_ref_bwd(x, weight, dy, epsilon)
+    _check_rows(x, weight, "rms_norm_bwd")
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"rms_norm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
+                         f"does not match x {tuple(x.shape)} {x.dtype}")
+    dy = dy.contiguous()
+    d = x.shape[-1]
+    rows = x.numel() // d
+    if rstd.numel() != rows or rstd.dtype != torch.float32:
+        raise ValueError(f"rms_norm_bwd: rstd must be f32 with {rows} rows")
+    rstd = rstd.contiguous()
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros_like(weight)
+    chunks = min(rows, _BWD_CHUNKS)
+    partials = torch.empty(chunks, d, dtype=torch.float32, device=x.device)
+    dw = torch.empty(d, dtype=torch.float32, device=x.device)
+    w = weight.float().contiguous()
+    fn = _build.function("rms_norm", "rms_bwd_bf16", _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
+                 dx.data_ptr(), dw.data_ptr(), partials.data_ptr(), rows, d,
+                 chunks, stream)
+    _build.check(err, "rms_bwd_bf16")
+    rms_norm_bwd.launches += 1
+    return dx, dw.to(weight.dtype)
+
+
+rms_norm_bwd.launches = 0
+
+
+class _RmsNormTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, epsilon):
+        out, rstd = rms_norm_fwd(x, weight, epsilon)
+        ctx.save_for_backward(x, weight, rstd)
+        ctx.epsilon = epsilon
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, rstd = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x, weight, rstd, dy, ctx.epsilon)
+        return dx, dw, None
+
+
+def rms_norm_train(x, weight, epsilon: float = 1e-6):
+    """Differentiable RMSNorm of the training stack: equal in value to
+    `rms_norm_ref(x, weight, epsilon)`; forward and backward are the two
+    kernels on the card, their plain twins on the CPU."""
+    x = x.contiguous()
+    return _RmsNormTrain.apply(x, weight, epsilon)

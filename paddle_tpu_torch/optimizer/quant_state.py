@@ -1,0 +1,234 @@
+"""Blockwise-quantized Adam state: 8-bit moments, and the fused AdamW.
+
+Port of paddle_tpu/optimizer/quant_state.py. The moments are stored as
+float8_e4m3 codes with one f32 scale per 256-value block (m directly, v
+in sqrt-space), about 2 bytes of state per parameter instead of 8.
+
+The update is the JAX package's single-device form,
+`adamw_q_fused(...).apply_fused(grads, state, params, grad_norm)`: one
+pass per leaf that reads g, p and both moments and writes p and the
+moments in place. On a CUDA tensor it is the kernel of `csrc/adamw_q.cu` (the
+counterpart of `_fused_adamw_kernel`); on a CPU tensor its plain version
+`fused_leaf_update_ref`. Its codes are x · (448 / amax), the kernel's
+arithmetic form. The chunked plain update the JAX package shards over a
+mesh (`scale_by_adam_q`) comes with the multi-GPU slice.
+
+The four step scalars [gscale, lr, bc1, bc2] stay on the device as an
+f32[4] tensor, as the TPU kernel reads them from SMEM, so a step never
+waits for the card. The global norm of the streamed clip is plain torch
+on the device, as it is XLA in the JAX package.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from .. import _build
+from .transform import tree_leaves
+
+BLOCK = 256
+F8 = torch.float8_e4m3fn
+# e4m3's largest finite value: block maxima are normalised to it
+F8_MAX = 448.0
+# adamw_q_fused_bf16(g, p, mc, ms, vc, vs, scalars, n, nb, b1, 1-b1, b2,
+#                    1-b2, eps, wd, stream)
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_long] * 2 + [
+    ctypes.c_float] * 6 + [ctypes.c_void_p]
+
+
+class _QTensor(NamedTuple):
+    """Blockwise-quantized tensor: float8_e4m3 codes [nb, BLOCK] + f32
+    scale [nb, 1] (x ≈ codes * scale). The second moment is stored in
+    sqrt-space."""
+    codes: torch.Tensor
+    scale: torch.Tensor
+
+
+def _q_blocks(blocks, sqrt_space: bool) -> _QTensor:
+    """blocks [c, BLOCK] f32 → f8 codes + per-block scale."""
+    if sqrt_space:
+        blocks = torch.sqrt(blocks)
+    amax = blocks.abs().amax(dim=1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-30) / F8_MAX
+    return _QTensor((blocks / scale).to(F8), scale)
+
+
+def _blocks(x, nb: int):
+    """x flattened, zero-padded to nb blocks, as f32 [nb, BLOCK]."""
+    flat = x.reshape(-1).float()
+    pad = nb * BLOCK - flat.numel()
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.view(nb, BLOCK)
+
+
+def _quantize(x, sqrt_space: bool) -> _QTensor:
+    flat = x.reshape(-1)
+    return _q_blocks(_blocks(flat, (flat.numel() + BLOCK - 1) // BLOCK),
+                     sqrt_space)
+
+
+def _global_norm_scale(grad_norm, clip_norm):
+    """Streamed ClipGradByGlobalNorm factor min(1, clip / (norm + 1e-6))
+    of the pre-clip global norm (an f32 device tensor)."""
+    return torch.clamp(clip_norm / (grad_norm + 1e-6), max=1.0)
+
+
+class ScaleByAdamQState(NamedTuple):
+    count: torch.Tensor
+    m: Any   # tree of _QTensor
+    v: Any   # tree of _QTensor
+
+
+def _zero_q(p) -> _QTensor:
+    nb = (p.numel() + BLOCK - 1) // BLOCK
+    return _QTensor(torch.zeros(nb, BLOCK, dtype=F8, device=p.device),
+                    torch.full((nb, 1), 1e-30 / F8_MAX, dtype=torch.float32,
+                               device=p.device))
+
+
+def _is_q(x) -> bool:
+    return isinstance(x, _QTensor)
+
+
+def _map_q(fn, tree, *rest):
+    """tree_map that treats each _QTensor as one leaf."""
+    if _is_q(tree) or not isinstance(tree, (dict, list, tuple)):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _map_q(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return type(tree)(_map_q(fn, t, *(r[i] for r in rest))
+                      for i, t in enumerate(tree))
+
+
+def _bias_corrections(count, b1, b2):
+    cf = count.float()
+    bc1 = 1.0 - torch.pow(torch.tensor(b1, device=cf.device), cf)
+    bc2 = 1.0 - torch.pow(torch.tensor(b2, device=cf.device), cf)
+    return bc1, bc2
+
+
+# ------------------------------------------------------------------ fused
+def fused_leaf_update_ref(scalars, g, p, mq: _QTensor, vq: _QTensor, *,
+                          b1, b2, eps, wd):
+    """The fused kernel's plain version, in place: p and the moments'
+    codes and scales are overwritten. Same arithmetic form as the
+    kernel (`_fused_adamw_kernel`): codes m·(448/amax) and
+    sqrt(v)·(448/amax), amax floored at 1e-30; the tail of a leaf that
+    is not a multiple of BLOCK is padded with zeros."""
+    gscale, lr, bc1, bc2 = scalars[0], scalars[1], scalars[2], scalars[3]
+    nb = mq.codes.shape[0]
+    inv_bc1 = 1.0 / bc1
+    rs_bc2 = torch.rsqrt(bc2)
+    gf = _blocks(g, nb) * gscale
+    m = b1 * (mq.codes.float() * mq.scale) + (1 - b1) * gf
+    sv = vq.codes.float() * vq.scale
+    v = b2 * sv * sv + (1 - b2) * gf * gf
+    sq = torch.sqrt(v)
+    upd = (m * inv_bc1) / (sq * rs_bc2 + eps)
+    pn = _blocks(p, nb) * (1.0 - lr * wd) - lr * upd
+    with torch.no_grad():
+        p.copy_(pn.reshape(-1)[:p.numel()].view(p.shape).to(p.dtype))
+        for q, x in ((mq, m), (vq, sq)):
+            amax = torch.clamp(x.abs().amax(dim=1, keepdim=True), min=1e-30)
+            q.codes.copy_((x * (F8_MAX / amax)).to(F8))
+            q.scale.copy_(amax * (1.0 / F8_MAX))
+    return p, mq, vq
+
+
+def fused_leaf_update(scalars, g, p, mq: _QTensor, vq: _QTensor, *,
+                      b1, b2, eps, wd):
+    """One leaf of the fused AdamW-8bit, in place (p, mq, vq are
+    overwritten and returned). `scalars` is the device f32[4]
+    [gscale, lr, bc1, bc2].
+
+    On a CPU tensor: the plain version. On a CUDA tensor: the kernel (p
+    and g bf16 and contiguous, codes float8_e4m3fn [nb, 256], scales f32
+    [nb, 1]); anything else raises. Each launch adds one to
+    `fused_leaf_update.launches`."""
+    if not p.is_cuda:
+        return fused_leaf_update_ref(scalars, g, p, mq, vq, b1=b1, b2=b2,
+                                     eps=eps, wd=wd)
+    n = p.numel()
+    nb = (n + BLOCK - 1) // BLOCK
+    for name, t in (("g", g), ("p", p)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.device != p.device or t.data_ptr() % 16 \
+                or t.numel() != n:
+            raise TypeError(f"fused_leaf_update: {name} must be a "
+                            f"contiguous, 16-byte aligned bf16 tensor of "
+                            f"{n} values on {p.device}")
+    for q in (mq, vq):
+        if q.codes.shape != (nb, BLOCK) or q.codes.dtype != F8 \
+                or q.scale.shape != (nb, 1) \
+                or q.scale.dtype != torch.float32 \
+                or not q.codes.is_contiguous() \
+                or not q.scale.is_contiguous() \
+                or q.codes.device != p.device:
+            raise TypeError(f"fused_leaf_update: moments must be f8 codes "
+                            f"[{nb}, {BLOCK}] and f32 scales [{nb}, 1]")
+    if scalars.shape != (4,) or scalars.dtype != torch.float32 \
+            or scalars.device != p.device:
+        raise TypeError("fused_leaf_update: scalars must be f32[4] on the "
+                        "params' device")
+    if n == 0:
+        return p, mq, vq
+    fn = _build.function("adamw_q", "adamw_q_fused_bf16", _ARGTYPES)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(g.data_ptr(), p.data_ptr(), mq.codes.data_ptr(),
+                 mq.scale.data_ptr(), vq.codes.data_ptr(),
+                 vq.scale.data_ptr(), scalars.data_ptr(), n, nb,
+                 float(b1), float(1 - b1), float(b2), float(1 - b2),
+                 float(eps), float(wd), stream)
+    _build.check(err, "adamw_q_fused_bf16")
+    fused_leaf_update.launches += 1
+    return p, mq, vq
+
+
+fused_leaf_update.launches = 0
+
+
+class FusedTransformation(NamedTuple):
+    """`init(params) -> state` and `apply_fused(grads, state, params,
+    grad_norm)`, which updates params and state in place and returns
+    them; `grad_norm` is the pre-clip global norm of `grads` (the step
+    computes it once, for its metrics and for the clip)."""
+    init: Any
+    apply_fused: Any
+
+
+def adamw_q_fused(learning_rate, b1: float = 0.9, b2: float = 0.999,
+                  eps: float = 1e-8, weight_decay: float = 0.0,
+                  clip_norm: Optional[float] = None) -> FusedTransformation:
+    """Single-transform AdamW-8bit: the state is one ScaleByAdamQState;
+    `apply_fused` runs the one-pass update per leaf. `learning_rate` may
+    be a float or a schedule of the step count."""
+    sched = (learning_rate if callable(learning_rate)
+             else (lambda _: learning_rate))
+
+    def init(params):
+        # zero state needs no data-dependent quantization
+        return ScaleByAdamQState(
+            torch.zeros((), dtype=torch.int32,
+                        device=tree_leaves(params)[0].device),
+            _map_q(_zero_q, params), _map_q(_zero_q, params))
+
+    def apply_fused(grads, state, params, grad_norm):
+        count = state.count + 1
+        bc1, bc2 = _bias_corrections(count, b1, b2)
+        dev = count.device
+        lr = torch.as_tensor(sched(state.count), dtype=torch.float32,
+                             device=dev)
+        gscale = (torch.ones((), dtype=torch.float32, device=dev)
+                  if clip_norm is None
+                  else _global_norm_scale(grad_norm, clip_norm))
+        scalars = torch.stack([gscale, lr, bc1, bc2]).float()
+        _map_q(lambda g, p, mq, vq: fused_leaf_update(
+            scalars, g, p, mq, vq, b1=b1, b2=b2, eps=eps, wd=weight_decay),
+            grads, params, state.m, state.v)
+        return params, ScaleByAdamQState(count, state.m, state.v)
+
+    return FusedTransformation(init, apply_fused)

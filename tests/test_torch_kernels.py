@@ -249,23 +249,32 @@ def test_rope_and_rms_norm_match_jax():
 
 # ------------------------------------------------------------ isolation
 def test_port_imports_no_jax():
-    """Every module of paddle_tpu_torch imports with jax and paddle_tpu
-    made unimportable."""
+    """Every module of paddle_tpu_torch, and chip_smoke.py (imported as a
+    module, not run), imports with jax, optax and paddle_tpu made
+    unimportable."""
     code = (
-        "import sys, importlib, pkgutil\n"
+        "import sys, importlib, importlib.util, pkgutil\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['optax'] = None\n"
         "sys.modules['paddle_tpu'] = None\n"
         "import paddle_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    paddle_tpu_torch.__path__, 'paddle_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'paddle_tpu_torch.serving.engine' in names\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke',\n"
+        "                                              'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "for n in ('paddle_tpu_torch.serving.engine',\n"
+        "          'paddle_tpu_torch.nlp.train',\n"
+        "          'paddle_tpu_torch.optimizer.quant_state'):\n"
+        "    assert n in names, n\n"
+        "assert not any(m in ('jax', 'optax')\n"
+        "               or m.startswith(('jax.', 'optax.', 'paddle_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=_REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 14
+    assert int(res.stdout.split()[-1]) >= 23
