@@ -10,19 +10,21 @@ non-zero:
   2. build   — compiles every kernel under paddle_tpu_torch/csrc with nvcc
                (one process per source, in parallel) and times it.
   3. kernels — each CUDA kernel against its plain PyTorch version on the
-               card, in bf16, at its main path's shapes, against a stated
+               card, in bf16, at its main paths' shapes, against a stated
                tolerance, with times (CUDA events) of the kernel, the
                plain version and, where one exists, a single PyTorch call
                computing the same function, and the bound (the larger of
                bytes over the card's memory rate and operations over its
                peak rate): the flash forward (serving shapes, and the
-               training step's B=8 x S=2048 with its LSE), ragged paged
-               attention, the flash backward at the training step's
-               B=8 x S=2048 and at B=1 x S=4096, the RMSNorm forward and
-               backward at the step's [16384, 4096], and the fused 8-bit
-               AdamW on a leaf of every size of the trained tree (the
-               stacked [11, 4096, 9472] MLP weights down to the final
-               [4096] norm).
+               training steps' B=8 x S=2048 and B=20 x S=2048 (the MoE
+               model's GQA 16/8) with its LSE), ragged paged attention,
+               the flash backward at both training shapes and at
+               B=1 x S=4096, the RMSNorm forward and backward at the
+               steps' [16384, 4096] and [40960, 2048], the fused 8-bit
+               AdamW on a leaf of every size of both trained trees, and
+               the MoE dispatch kernels (gather_wsum, gather_scale_dot)
+               at the MoE step's shapes, with the index maps of one real
+               routing of random gate logits at B=20 x S=2048.
   4. serve   — a ServingEngine at Llama-3-8B widths (all 32 layers,
                random bf16 weights from a seeded generator) answers 12
                streamed requests with prompts of 16-700 tokens, admissions
@@ -50,6 +52,17 @@ non-zero:
                evaluation: per gradient group, the kernels may be no
                further from f32 than the plain bf16 path (within a
                stated ratio), and the fault must fail that bound.
+  6. train_moe — the JAX package's single-chip MoE config (bench.py:98:
+               ~1.57B params, D 2048, 12 layers, GQA 16/8, 16 experts
+               top-2 of width 1024 plus a shared expert, capacity factor
+               1.25, V 32000, bf16 params, the same optimizer) takes 2
+               warm-up and 4 timed steps of batch 20 x 2048 through
+               `train.make_train_step(model=moe)`. Every kernel must have
+               launched exactly as often as the step implies, losses be
+               finite and fall. Then the gradient check of phase 5 at 2
+               layers, with the dispatch backward dropping each token's
+               second choice as the planted fault, and the routing of each
+               bf16 path counted against the f32 evaluation's.
 
 The last lines are the kernels JSON object, the `nvidia-smi` name/power
 line and {"ok": true, "device": {...}}. Imports nothing of JAX or of the
@@ -453,13 +466,11 @@ def _f8_step(c):
     return torch.exp2(torch.floor(torch.log2(a)) - 3)
 
 
-def _adamw_leaves():
-    """The leaves of the trained flagship tree (the train phase's
-    config), grouped by size: [(shape, names)], largest first. The step
-    launches the kernel once per leaf, on the leaf flattened, so leaves
-    of one size are the same work."""
-    from paddle_tpu_torch.nlp import llama
-    shapes = llama._shapes(llama.LlamaConfig.flagship_2b())
+def _adamw_leaves(shapes):
+    """The leaves of a trained tree (`llama._shapes` or `moe._shapes` of
+    a train phase's config), grouped by size: [(shape, names)], largest
+    first. The step launches the kernel once per leaf, on the leaf
+    flattened, so leaves of one size are the same work."""
     flat = {k: s for k, s in shapes.items() if k != "layers"}
     flat.update(shapes["layers"])
     by_size: dict = {}
@@ -472,7 +483,8 @@ def _adamw_leaves():
 def _adamw_case(shape, names, peaks, gen):
     """One leaf of the fused 8-bit AdamW from a mid-training state, the
     kernel and the plain version each on its own copy; `names` are the
-    leaves of the trained tree that have this size."""
+    leaves of the trained tree that have this size (the step launches the
+    kernel once for each)."""
     from paddle_tpu_torch.optimizer import quant_state as qs
     dev = "cuda"
     p = (0.02 * torch.randn(shape, device=dev, generator=gen)).bfloat16()
@@ -502,7 +514,7 @@ def _adamw_case(shape, names, peaks, gen):
                      - 7)
     p_ulps = ((pk.float() - pr.float()).abs() / ulp).max().item()
     res = {"shape": f"{list(shape)} ({p.numel()} values: "
-                    f"{', '.join(names)})", "leaves": len(names),
+                    f"{', '.join(names)})", "step_launches": len(names),
            "max_abs_err": (pk.float() - pr.float()).abs().max().item(),
            "param_ulps": p_ulps}
     ok = p_ulps <= 1.0
@@ -532,7 +544,179 @@ def _adamw_case(shape, names, peaks, gen):
     return res
 
 
+def _bf16_ulps(a, b):
+    """The largest |a - b| over the elements, in bf16 ulps of the larger
+    of the two magnitudes (2^(e-7) for a value of exponent e)."""
+    af, bf = a.float(), b.float()
+    mag = torch.maximum(af.abs(), bf.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((af - bf).abs() / ulp).max().item()
+
+
+def _moe_maps(gen, B=20, S=2048):
+    """The index maps of one real routing at the MoE step's shape: the
+    MoE config's `top_k_routing` (16 experts, top-2, capacity 320 of
+    2048 tokens) of random gate logits [B, S, 16], then the block's
+    expert-leading maps (`moe._routing_maps`), so empty slots and
+    capacity drops are those routing makes. The logits are N(0, 1) plus
+    an N(0, 0.5) preference per expert: balanced logits overflow no
+    expert's capacity, while the trained model's routing is skewed and
+    drops 16-37 % of its pairs (train_moe phase, PERF.md)."""
+    from paddle_tpu_torch.nlp import moe
+    cfg = moe.MoeConfig.flagship_moe()
+    E, k, C = cfg.num_experts, cfg.num_experts_per_tok, cfg.capacity(S)
+    logits = (torch.randn(B, S, E, device="cuda", generator=gen)
+              + 0.5 * torch.randn(E, device="cuda", generator=gen))
+    eidx, slot, probs, valid, _, _ = moe.top_k_routing(logits, k, C)
+    flat_g, inv_pos, inv_tok, idx_tk, w_tk = moe._routing_maps(
+        eidx, slot, probs, valid, C, E)
+    return {"B": B, "S": S, "E": E, "k": k, "C": C, "flat": flat_g,
+            "inv_pos": inv_pos, "inv_tok": inv_tok, "idx_tk": idx_tk,
+            "w_tk": w_tk,
+            # rows the data needs: tokens with a routed choice, routed
+            # (token, choice) pairs
+            "tokens_routed": int(valid.any(-1).sum().item()),
+            "pairs_routed": int(valid.sum().item())}
+
+
+def _wsum_case(label, src, idx, w, rows_read, step_launches, peaks, flush):
+    """gather_wsum at one of the MoE path's shapes against its plain
+    version: bit for bit at k=1, within one bf16 ulp per element at k=2
+    (both compute the same f32 products and sums in the same order; the
+    kernel never contracts them into FMAs, so they should agree bit for
+    bit there too, and a one-ulp allowance covers a rounding of the f32
+    sum landing on a bf16 tie). `rows_read` is the number of source rows
+    the data needs; the library yardstick is one embedding_bag call (sum
+    mode, per-sample weights in the table's dtype)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    B, M, k = idx.shape
+    D = src.shape[-1]
+    out = md.gather_wsum(src, idx, w)
+    ref = md._gather_wsum_ref(src, idx, w)
+    torch.cuda.synchronize()
+    ulps = _bf16_ulps(out, ref)
+    exact = torch.equal(out, ref)
+    if (k == 1 and not exact) or not ulps <= 1.0:
+        raise AssertionError(f"gather_wsum {label}: {ulps} bf16 ulps from "
+                             f"the plain version (bit-identical: {exact})")
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = _rel_err(out, ref, ref.abs().amax(-1) > 0)     # non-empty rows
+    del out, ref
+    bag = idx.reshape(B * M, k)
+    wb = w.reshape(B * M, k).to(src.dtype)
+    res = {"shape": f"{label}: src {list(src.shape)} -> [{B}, {M}, {D}], "
+                    f"k={k}, {rows_read} rows read",
+           "step_launches": step_launches, "path": "train_moe",
+           "max_abs_err": err, "max_rel_err": rel, "bf16_ulps": ulps,
+           "bit_identical": exact,
+           "ms": _time_ms(lambda: md.gather_wsum(src, idx, w), 20, flush),
+           "plain_ms": _time_ms(lambda: md._gather_wsum_ref(src, idx, w), 3,
+                                flush),
+           "library_ms": _time_ms(lambda: F.embedding_bag(
+               bag, src[0], mode="sum", per_sample_weights=wb), 20, flush)}
+    # rows read once, every output row written once, idx and w read; a
+    # multiply and an add per term, on the f32 units
+    nbytes = 2.0 * D * (rows_read + B * M) + 8.0 * B * M * k
+    res.update(_bound(2.0 * k * B * M * D, nbytes, peaks, peaks[2]))
+    return res
+
+
+def _scale_dot_case(label, src, idx, scale, other, rows_read, peaks,
+                    flush):
+    """gather_scale_dot at the combine backward's shape against its
+    plain version: out within one bf16 ulp per element (one f32 product
+    rounded once, in both), dot within 1e-5 x |row| |other| per slot (an
+    f32 sum of D products in another order: the rounding error of a
+    length-2048 sum is below 2048 x 2^-24 ~ 1.2e-4 of sum |x y| at worst
+    and ~sqrt(2048) x 2^-24 ~ 3e-6 of it in practice)."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    B, M = idx.shape
+    D = src.shape[-1]
+    out, dot = md.gather_scale_dot(src, idx, scale, other)
+    rout, rdot = md._gather_scale_dot_ref(src, idx, scale, other)
+    torch.cuda.synchronize()
+    ulps = _bf16_ulps(out, rout)
+    norms = (md._take_rows(src, idx).float().norm(dim=-1)
+             * other.float().norm(dim=-1))
+    dot_rel = ((dot - rdot).abs() / norms.clamp(min=1e-30)).max().item()
+    if not (ulps <= 1.0 and dot_rel <= 1e-5):
+        raise AssertionError(f"gather_scale_dot {label}: out {ulps} bf16 "
+                             f"ulps, dot {dot_rel} x |row||other|")
+    err = max((out.float() - rout.float()).abs().max().item(),
+              (dot - rdot).abs().max().item())
+    del out, rout, norms
+    res = {"shape": f"{label}: src {list(src.shape)}, other "
+                    f"{list(other.shape)}, {rows_read} src rows read",
+           "step_launches": 12, "path": "train_moe",
+           "max_abs_err": err, "max_rel_err": dot_rel, "bf16_ulps": ulps,
+           "dot_rel_err": dot_rel,
+           "ms": _time_ms(lambda: md.gather_scale_dot(src, idx, scale,
+                                                      other), 20, flush),
+           "plain_ms": _time_ms(lambda: md._gather_scale_dot_ref(
+               src, idx, scale, other), 3, flush),
+           "library_ms": None}
+    # src rows read once, every other row read, out and dot written, idx
+    # and scale read; a multiply, and a multiply-add for the dot, per value
+    nbytes = (2.0 * D * (rows_read + 2 * B * M) + 4.0 * B * M
+              + 8.0 * B * M)
+    res.update(_bound(3.0 * B * M * D, nbytes, peaks, peaks[2]))
+    return res
+
+
+def _moe_dispatch_cases(peaks, gen, flush):
+    """The two MoE kernels at the MoE step's four launch shapes: the
+    dispatch forward (k=1, token rows into 102,400 slots), the combine
+    forward and the dispatch backward (k=2, slots back into 40,960 token
+    rows: gate-prob and 0/1 weights) and the combine backward."""
+    mp = _moe_maps(gen)
+    B, S, k = mp["B"], mp["S"], mp["k"]
+    T, M = B * S, mp["E"] * B * mp["C"]
+    D = 2048
+    x = torch.randn(1, T, D, device="cuda", generator=gen).bfloat16()
+    slots = torch.randn(1, M, D, device="cuda", generator=gen).bfloat16()
+    inv_tok, flat = mp["inv_tok"], mp["flat"]
+    wsum = [
+        _wsum_case("dispatch forward", x, inv_tok.clamp(min=0)[..., None],
+                   (inv_tok >= 0).float()[..., None], mp["tokens_routed"],
+                   24, peaks, flush),
+        _wsum_case("combine forward", slots, mp["idx_tk"], mp["w_tk"],
+                   mp["pairs_routed"], 24, peaks, flush),
+        _wsum_case("dispatch backward", slots,
+                   flat.clamp(min=0).reshape(1, T, k),
+                   (flat >= 0).float().reshape(1, T, k),
+                   mp["pairs_routed"], 12, peaks, flush)]
+    # the combine backward's operands, built as _CombineWsum.backward
+    # builds them: dy is the token-row gradient, other the expert output
+    inv_pos = mp["inv_pos"]
+    live = inv_pos >= 0
+    w_slot = torch.where(live, torch.gather(
+        mp["w_tk"].reshape(1, T * k), 1, inv_pos.clamp(min=0).long()), 0.0)
+    tok = torch.where(live, torch.div(inv_pos, k, rounding_mode="floor"), 0)
+    sdot = [_scale_dot_case("combine backward", x, tok, w_slot, slots,
+                            mp["tokens_routed"], peaks, flush)]
+    # a row width the 16-byte loads cannot take is refused, not run plain
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    odd = torch.zeros(1, 4, 12, dtype=torch.bfloat16, device="cuda")
+    i1 = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
+    for call in (lambda: md.gather_wsum(odd, i1[..., None],
+                                        torch.ones(1, 2, 1, device="cuda")),
+                 lambda: md.gather_scale_dot(odd, i1, torch.ones(
+                     1, 2, device="cuda"), odd[:, :2].contiguous())):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError("a MoE gather took D = 12 on the card")
+    info = {"slots": M, "pairs": T * k, "pairs_routed": mp["pairs_routed"],
+            "tokens_routed": mp["tokens_routed"],
+            "dropped_share": 1 - mp["pairs_routed"] / (T * k),
+            "empty_slot_share": 1 - mp["pairs_routed"] / M}
+    return wsum, sdot, info
+
+
 def phase_kernels(peaks):
+    from paddle_tpu_torch.nlp import llama, moe
     H, KV, hd = 32, 8, 128
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -544,20 +728,34 @@ def phase_kernels(peaks):
              for S in (128, 512, 700)]
     flash.append(_flash_case(8, 2048, H, KV, hd, peaks, KERNEL_TOL, gen,
                              lse=True))
+    flash.append(_flash_case(20, 2048, 16, 8, hd, peaks, KERNEL_TOL, gen,
+                             lse=True))
     ragged = [_ragged_case(kind, H, KV, hd, peaks, KERNEL_TOL, gen, flush)
               for kind in ("decode", "fused", "continue")]
+    wsum, sdot, moe_info = _moe_dispatch_cases(peaks, gen, flush)
     del scratch
-    bwd = [_flash_bwd_case(B, S, H, KV, hd, peaks, gen)
-           for B, S in ((8, 2048), (1, 4096))]
-    rms_f, rms_b = _rms_cases(8 * 2048, 4096, peaks, gen)
-    adamw = [_adamw_case(shape, names, peaks, gen)
-             for shape, names in _adamw_leaves()]
+    torch.cuda.empty_cache()
+    bwd = [_flash_bwd_case(B, S, h, kv, hd, peaks, gen)
+           for B, S, h, kv in ((8, 2048, H, KV), (1, 4096, H, KV),
+                               (20, 2048, 16, 8))]
+    rms = [_rms_cases(8 * 2048, 4096, peaks, gen),
+           _rms_cases(20 * 2048, 2048, peaks, gen, eps=1e-6)]
+    adamw = []
+    for path, shapes in (
+            ("train", llama._shapes(llama.LlamaConfig.flagship_2b())),
+            ("train_moe", moe._shapes(moe.MoeConfig.flagship_moe()))):
+        for shape, names in _adamw_leaves(shapes):
+            adamw.append({"path": path,
+                          **_adamw_case(shape, names, peaks, gen)})
+            torch.cuda.empty_cache()
     cases = {"flash_attention_fwd": flash, "ragged_paged_attention": ragged,
-             "flash_attention_bwd": bwd, "rms_norm_fwd": [rms_f],
-             "rms_norm_bwd": [rms_b], "adamw_q": adamw}
+             "flash_attention_bwd": bwd,
+             "rms_norm_fwd": [f for f, _ in rms],
+             "rms_norm_bwd": [b for _, b in rms], "adamw_q": adamw,
+             "gather_wsum": wsum, "gather_scale_dot": sdot}
     _emit({"phase": "kernels", "tol": KERNEL_TOL, "lse_tol": LSE_TOL,
            "rstd_tol": RSTD_TOL, "adamw_code_frac": ADAMW_CODE_FRAC,
-           **cases})
+           "moe_routing": moe_info, **cases})
     torch.cuda.empty_cache()
     return cases
 
@@ -794,31 +992,37 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
 
 
 # -------------------------------------------------------------- 5. train
-def _train_counters():
+def _train_counters(moe: bool = False):
+    """The launch counters of a training step's kernels; with `moe`, the
+    MoE dispatch kernels too."""
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import moe_dispatch as md
     from paddle_tpu_torch.kernels import rms_norm as rn
     from paddle_tpu_torch.optimizer import quant_state as qs
-    return {"flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_bwd": fa.flash_attention_bwd,
-            "rms_norm_fwd": rn.rms_norm_fwd,
-            "rms_norm_bwd": rn.rms_norm_bwd,
-            "adamw_q": qs.fused_leaf_update}
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd": fa.flash_attention_bwd,
+                "rms_norm_fwd": rn.rms_norm_fwd,
+                "rms_norm_bwd": rn.rms_norm_bwd,
+                "adamw_q": qs.fused_leaf_update}
+    if moe:
+        counters.update({"gather_wsum": md.gather_wsum,
+                         "gather_scale_dot": md.gather_scale_dot})
+    return counters
 
 
-def phase_train(peaks, warmup: int = 2, timed: int = 4, batch: int = 8,
-                seq: int = 2048):
-    """The flagship config through the public training entry points."""
-    from paddle_tpu_torch.nlp import llama, train
-
-    cfg = llama.LlamaConfig.flagship_2b()
-    counters = _train_counters()
+def _drive_train(peaks, model, cfg, batch, counters, warmup, timed, seq):
+    """`model`'s config through the public training entry points: counters
+    zeroed, `warmup` then `timed` steps of one seeded batch, one
+    synchronize around the timed ones. Returns (result, state, tokens)."""
+    from paddle_tpu_torch.nlp import train
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tx = train.make_optimizer(1e-4, state_quant="8bit", grad_clip=1.0)
     state = train.init_state(
-        torch.Generator(device="cuda").manual_seed(SEED), cfg, tx)
-    step = train.make_train_step(cfg, tx)
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, tx,
+        model=model)
+    step = train.make_train_step(cfg, tx, model=model)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, seq))).cuda()
     torch.cuda.synchronize()
@@ -842,62 +1046,203 @@ def phase_train(peaks, warmup: int = 2, timed: int = 4, batch: int = 8,
     norms = [float(m["grad_norm"]) for m in metrics]
     steps = warmup + timed
     tok_s = batch * seq * timed / dt
-    fpt = llama.flops_per_token(cfg, seq)
-    res = {"phase": "train", "config": "flagship_2b (bench.py:120)",
-           "params": llama.num_params(cfg),
-           "widths": {"D": cfg.hidden_size, "F": cfg.intermediate_size,
-                      "L": cfg.num_hidden_layers,
-                      "H": cfg.num_attention_heads,
-                      "KV": cfg.num_key_value_heads, "V": cfg.vocab_size},
+    fpt = model.flops_per_token(cfg, seq)
+    res = {"params": model.num_params(cfg),
            "batch": batch, "seq": seq, "steps": steps, "timed_steps": timed,
            "step_ms": dt / timed * 1e3, "tokens_per_s": tok_s,
            "flops_per_token": fpt, "mfu": tok_s * fpt / peaks[0],
            "losses": losses, "grad_norms": norms,
            "peak_memory_bytes": peak, "init_s": init_s,
            "launches": launches,
-           "launches_per_step": {n: c / steps for n, c in launches.items()},
-           "nvidia_smi": _smi_line()}
-    _emit(res)
-    del state, step, tx, metrics
-    torch.cuda.empty_cache()
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"{name} never launched while training")
+           "launches_per_step": {n: c / steps for n, c in launches.items()}}
+    return res, state, tokens
+
+
+def _check_losses(res):
+    losses, norms = res["losses"], res["grad_norms"]
     if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
         raise AssertionError(f"non-finite loss or grad norm: {losses} "
                              f"{norms}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
+
+
+def phase_train(peaks, warmup: int = 2, timed: int = 4, batch: int = 8,
+                seq: int = 2048):
+    """The flagship config through the public training entry points."""
+    from paddle_tpu_torch.nlp import llama
+
+    cfg = llama.LlamaConfig.flagship_2b()
+    res, state, _ = _drive_train(peaks, llama, cfg, batch,
+                                 _train_counters(), warmup, timed, seq)
+    res = {"phase": "train", "config": "flagship_2b (bench.py:120)",
+           "widths": {"D": cfg.hidden_size, "F": cfg.intermediate_size,
+                      "L": cfg.num_hidden_layers,
+                      "H": cfg.num_attention_heads,
+                      "KV": cfg.num_key_value_heads, "V": cfg.vocab_size},
+           **res, "nvidia_smi": _smi_line()}
+    _emit(res)
+    del state
+    torch.cuda.empty_cache()
+    _check_losses(res)
+    for name, n in res["launches"].items():
+        if n < 1:
+            raise AssertionError(f"{name} never launched while training")
     return res
 
 
 @contextlib.contextmanager
-def _plain_kernels(fault: bool = False):
+def _moe_routing_probe(replay=None):
+    """Record the routing maps (eidx, slot, valid, inv) of every
+    `top_k_routing` call of the MoE model inside, per layer: layers are
+    told apart by their gate weight's view, the same tensor in a
+    forward, its recompute and a later forward over the same leaves.
+    Yields (maps {layer: maps}, repeats {"calls", "differ"}), where a
+    repeat is a later call for a layer already seen (the recompute) and
+    "differ" counts those whose maps were not the same bits. With
+    `replay` ({layer: maps} of another evaluation), each layer routes by
+    those maps instead, its gate probs and aux losses taken from its own
+    logits: dispatch and combine held at the block level."""
+    from paddle_tpu_torch.nlp import moe
+    block, route = moe.moe_block, moe.top_k_routing
+    layer_of, cur, maps = {}, [None], {}
+    repeats = {"calls": 0, "differ": 0}
+
+    def block_probe(x, lp, cfg, mesh=None):
+        cur[0] = layer_of.setdefault(lp["gate"].data_ptr(), len(layer_of))
+        return block(x, lp, cfg, mesh)
+
+    def replayed(logits, m, renormalize):
+        eidx, slot, valid, inv = m
+        E = logits.shape[-1]
+        probs_full = torch.softmax(logits.float(), dim=-1)
+        probs = torch.gather(probs_full, -1, eidx.long())
+        if renormalize:
+            probs = probs / torch.clamp(probs.sum(-1, keepdim=True),
+                                        min=1e-9)
+        first = (eidx[..., 0:1] == torch.arange(E, device=eidx.device))
+        aux = {"load_balance_loss": E * torch.sum(
+                   first.float().mean(-2) * probs_full.mean(-2), dim=-1),
+               "router_z_loss": torch.mean(
+                   torch.logsumexp(logits, dim=-1) ** 2, dim=-1)}
+        return eidx, slot, probs, valid, inv, aux
+
+    def route_probe(logits, k, capacity, renormalize=True):
+        layer = cur[0]
+        out = (route(logits, k, capacity, renormalize) if replay is None
+               else replayed(logits, replay[layer], renormalize))
+        m = (out[0], out[1], out[3], out[4])
+        if layer in maps:
+            repeats["calls"] += 1
+            repeats["differ"] += not all(torch.equal(a, b)
+                                         for a, b in zip(m, maps[layer]))
+        else:
+            maps[layer] = m
+        return out
+
+    moe.moe_block, moe.top_k_routing = block_probe, route_probe
+    try:
+        yield maps, repeats
+    finally:
+        moe.moe_block, moe.top_k_routing = block, route
+
+
+# every kernel's launches in one MoE training step (12 layers, each
+# recomputed once in the backward): dispatch and combine forwards 2 a
+# layer twice plus the dispatch backward; the combine backward; flash
+# forward twice and backward once; two norms forward twice and backward
+# once; one AdamW launch per leaf of the 16-leaf tree
+_MOE_LAUNCHES_PER_STEP = {"gather_wsum": 60, "gather_scale_dot": 12,
+                          "flash_attention_fwd": 24,
+                          "flash_attention_bwd": 12, "rms_norm_fwd": 48,
+                          "rms_norm_bwd": 24, "adamw_q": 16}
+
+
+def phase_train_moe(peaks, warmup: int = 2, timed: int = 4,
+                    batch: int = 20, seq: int = 2048):
+    """The JAX package's single-chip MoE config (bench.py:98) through
+    `train.make_train_step(model=moe)`. After the timed steps one
+    forward of the final params over the step's batch reads the aux
+    losses and each layer's share of dropped (token, choice) pairs."""
+    from paddle_tpu_torch.nlp import moe
+
+    cfg = moe.MoeConfig.flagship_moe()
+    res, state, tokens = _drive_train(peaks, moe, cfg, batch,
+                                      _train_counters(moe=True), warmup,
+                                      timed, seq)
+    with torch.no_grad(), _moe_routing_probe() as (maps, _):
+        _, aux = moe._backbone(state.params, tokens, cfg)
+    dropped = [1.0 - m[2].float().mean().item()
+               for _, m in sorted(maps.items())]
+    res = {"phase": "train_moe", "config": "flagship_moe (bench.py:98)",
+           "active_params": moe.active_params(cfg),
+           "widths": {"D": cfg.hidden_size, "L": cfg.num_hidden_layers,
+                      "H": cfg.num_attention_heads,
+                      "KV": cfg.num_key_value_heads, "V": cfg.vocab_size,
+                      "E": cfg.num_experts, "k": cfg.num_experts_per_tok,
+                      "F_expert": cfg.moe_intermediate_size,
+                      "shared": cfg.num_shared_experts,
+                      "capacity": cfg.capacity(seq)},
+           **res,
+           "final_aux": {n: float(v) for n, v in aux.items()},
+           "dropped_share_by_layer": dropped,
+           "dropped_share": float(np.mean(dropped)),
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    del state, tokens
+    torch.cuda.empty_cache()
+    _check_losses(res)
+    steps = res["steps"]
+    for name, per in _MOE_LAUNCHES_PER_STEP.items():
+        if res["launches"][name] != per * steps:
+            raise AssertionError(
+                f"{name}: {res['launches'][name]} launches in {steps} MoE "
+                f"steps, expected {per} a step")
+    return res
+
+
+@contextlib.contextmanager
+def _plain_kernels(fault=None):
     """Route the training Functions to the kernels' plain versions on
-    CUDA tensors (the reference paths of the gradient check). With
-    `fault`, the flash backward also drops dcap = rowsum(dO * O), the
-    planted control."""
+    CUDA tensors (the reference paths of the gradient checks). The
+    planted controls: fault="dcap", the flash backward also drops
+    dcap = rowsum(dO * O); fault="dispatch", the MoE dispatch backward
+    drops each token's second choice (its weight set to 0)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import moe_dispatch as md
     from paddle_tpu_torch.kernels import rms_norm as rn
     saved = (fa.flash_attention_fwd, fa.flash_attention_bwd,
-             rn.rms_norm_fwd, rn.rms_norm_bwd)
+             rn.rms_norm_fwd, rn.rms_norm_bwd, md.gather_wsum,
+             md.gather_scale_dot, md._dispatch_bwd)
 
     def bwd(q, k, v, out, lse, dout, causal=True, scale=None):
-        if fault:
+        if fault == "dcap":
             out = torch.zeros_like(out)
         return fa.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                           causal=causal, scale=scale)
+
+    def dispatch_bwd(g, flat, k):
+        B, Mk = flat.shape
+        idx = flat.clamp(min=0).reshape(B, Mk // k, k)
+        w = (flat >= 0).float().reshape(B, Mk // k, k)
+        w[..., 1] = 0.0
+        return md._gather_wsum_ref(g, idx, w)
 
     fa.flash_attention_fwd = fa.flash_attention_fwd_ref
     fa.flash_attention_bwd = bwd
     rn.rms_norm_fwd = lambda x, w, eps=1e-6: rn._rms_fwd_twin(x, w, eps)
     rn.rms_norm_bwd = lambda x, w, rstd, dy, eps=1e-6: \
         rn._rms_train_ref_bwd(x, w, dy, eps)
+    md.gather_wsum = md._gather_wsum_ref
+    md.gather_scale_dot = md._gather_scale_dot_ref
+    if fault == "dispatch":
+        md._dispatch_bwd = dispatch_bwd
     try:
         yield
     finally:
         (fa.flash_attention_fwd, fa.flash_attention_bwd, rn.rms_norm_fwd,
-         rn.rms_norm_bwd) = saved
+         rn.rms_norm_bwd, md.gather_wsum, md.gather_scale_dot,
+         md._dispatch_bwd) = saved
 
 
 _GRAD_GROUPS = {
@@ -910,12 +1255,99 @@ _GRAD_GROUPS = {
 # groups upstream of the first layer's attention backward: the dcap fault
 # must show there (the head's and the loss's values come before it)
 _FAULT_GROUPS = ("embed", "attention", "mlp", "norms")
+_MOE_GRAD_GROUPS = {
+    "embed": ("embed_tokens",),
+    "attention": ("q_proj", "k_proj", "v_proj", "o_proj"),
+    "router": ("gate",),
+    "experts": ("expert_gate_proj", "expert_up_proj", "expert_down_proj"),
+    "shared": ("shared_gate_proj", "shared_up_proj", "shared_down_proj"),
+    "norms": ("input_layernorm", "post_attention_layernorm", "norm"),
+    "head": ("lm_head",),
+}
+# groups upstream of the first dispatch backward the backward runs (the
+# last layer's): its wrong token-row gradient reaches that layer's
+# attention and norms and every weight of the layers below, so every
+# group but the head and the loss, whose values come before it
+_MOE_FAULT_GROUPS = ("embed", "attention", "router", "experts", "shared",
+                     "norms")
 # Gradient tolerance of the kernels: the same argument as the logits
 # check's. Both bf16 paths run the same bf16 GEMMs and differ only where
-# attention and the norms round, so each group's distance from an f32
-# evaluation is that of bf16 evaluation itself; the kernels may be at
-# most 1.5x the plain path's.
+# attention and the norms round (the MoE gathers agree bit for bit), so
+# each group's distance from an f32 evaluation is that of bf16
+# evaluation itself; the kernels may be at most 1.5x the plain path's.
 GRAD_VS_F32_RATIO = 1.5
+
+
+def _grad_run(loss_fn, logits_fn, c, p, tokens):
+    """One loss + backward of loss_fn(tree, tokens, c) over every leaf
+    of `p`, then a no-grad logits_fn(tree, tokens, c): (loss, per-token
+    NLL, gradients by leaf name in f32)."""
+    names, leaves = [], []
+
+    def collect(path, t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                collect(k, t[k])
+        else:
+            names.append(path)
+            leaves.append(t.detach().requires_grad_(True))
+    collect("", p)
+    live = dict(zip(names, leaves))
+    tree = {k: (live[k] if not isinstance(v, dict)
+                else {kk: live[kk] for kk in v}) for k, v in p.items()}
+    with torch.enable_grad():
+        loss = loss_fn(tree, tokens, c)
+        grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        logits = logits_fn(tree, tokens, c)
+        tgt = tokens[:, 1:].long()
+        nll = (torch.logsumexp(logits[:, :-1], -1)
+               - torch.gather(logits[:, :-1], -1, tgt[..., None])[..., 0])
+    del logits
+    g = {n: x.float() for n, x in zip(names, grads)}
+    return float(loss.detach()), nll.float().reshape(-1), g
+
+
+def _grad_ratios(res, groups):
+    """Relative RMS distance of each bf16 path's per-token losses and
+    gradient groups from the f32 evaluation's, and the kernel and fault
+    paths' distances as ratios to the plain path's."""
+    def dist(a, b):
+        return (torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(a, b)))
+                / torch.sqrt(sum((y ** 2).sum() for y in b))).item()
+
+    out = {}
+    _, nll32, g32 = res["f32"]
+    for group, keys in {"loss": None, **groups}.items():
+        c = {}
+        for n in ("kernel", "ref", "fault"):
+            _, nll, g = res[n]
+            if keys is None:
+                c[f"{n}_vs_f32"] = dist([nll], [nll32])
+            else:
+                c[f"{n}_vs_f32"] = dist([g[k] for k in keys],
+                                        [g32[k] for k in keys])
+        c["kernel_ratio"] = c["kernel_vs_f32"] / c["ref_vs_f32"]
+        c["fault_ratio"] = c["fault_vs_f32"] / c["ref_vs_f32"]
+        out[group] = c
+    out["loss_values"] = {n: r[0] for n, r in res.items()}
+    return out
+
+
+def _check_grad_ratios(out, groups, fault_groups, fault):
+    for group in ("loss", *groups):
+        c = out[group]
+        if not c["kernel_ratio"] <= GRAD_VS_F32_RATIO:
+            raise AssertionError(
+                f"{group} gradients: the kernels are {c['kernel_vs_f32']} "
+                f"from f32, more than {GRAD_VS_F32_RATIO} x the plain bf16 "
+                f"path's {c['ref_vs_f32']}")
+        if group in fault_groups and \
+                not c["fault_ratio"] > GRAD_VS_F32_RATIO:
+            raise AssertionError(
+                f"{group} gradients: the planted {fault} fault reads "
+                f"{c['fault_ratio']} x the plain path's distance, within "
+                f"the {GRAD_VS_F32_RATIO} bound: the check cannot see it")
 
 
 def phase_grad_check(layers: int = 2, seq: int = 2048):
@@ -936,91 +1368,104 @@ def phase_grad_check(layers: int = 2, seq: int = 2048):
         0, cfg.vocab_size, (1, seq))).cuda()
 
     def run(c, p):
-        names, leaves = [], []
-
-        def collect(path, t):
-            if isinstance(t, dict):
-                for k in sorted(t):
-                    collect(k, t[k])
-            else:
-                names.append(path)
-                leaves.append(t.detach().requires_grad_(True))
-        collect("", p)
-        live = dict(zip(names, leaves))
-        tree = {k: (live[k] if not isinstance(v, dict)
-                    else {kk: live[kk] for kk in v}) for k, v in p.items()}
-        with torch.enable_grad():
-            loss = llama.loss_fn(tree, tokens, c)
-            grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
-            logits = llama.forward(tree, tokens, c)
-            tgt = tokens[:, 1:].long()
-            nll = (torch.logsumexp(logits[:, :-1], -1)
-                   - torch.gather(logits[:, :-1], -1, tgt[..., None])[..., 0])
-        del logits
-        g = {n: x.float() for n, x in zip(names, grads)}
-        return float(loss.detach()), nll.float().reshape(-1), g
+        return _grad_run(llama.loss_fn, llama.forward, c, p, tokens)
 
     res = {"kernel": run(cfg, params)}
     with _plain_kernels():
         res["ref"] = run(cfg, params)
-    with _plain_kernels(fault=True):
+    with _plain_kernels(fault="dcap"):
         res["fault"] = run(cfg, params)
     p32 = tree_map(lambda t: t.float(), params)
     with _plain_kernels():
         res["f32"] = run(cfg32, p32)
     del params, p32
-
-    def dist(a, b):
-        return (torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(a, b)))
-                / torch.sqrt(sum((y ** 2).sum() for y in b))).item()
-
-    out = {}
-    _, nll32, g32 = res["f32"]
-    groups = {"loss": None, **_GRAD_GROUPS}
-    for group, keys in groups.items():
-        c = {}
-        for n in ("kernel", "ref", "fault"):
-            _, nll, g = res[n]
-            if keys is None:
-                c[f"{n}_vs_f32"] = dist([nll], [nll32])
-            else:
-                c[f"{n}_vs_f32"] = dist([g[k] for k in keys],
-                                        [g32[k] for k in keys])
-        c["kernel_ratio"] = c["kernel_vs_f32"] / c["ref_vs_f32"]
-        c["fault_ratio"] = c["fault_vs_f32"] / c["ref_vs_f32"]
-        out[group] = c
-    out["loss_values"] = {n: r[0] for n, r in res.items()}
+    out = _grad_ratios(res, _GRAD_GROUPS)
     _emit({"phase": "grad_check", "layers": layers, "seq": seq,
            "ratio_tol": GRAD_VS_F32_RATIO, "fault_groups": _FAULT_GROUPS,
            **out})
     del res
     torch.cuda.empty_cache()
-    for group in groups:
-        c = out[group]
-        if not c["kernel_ratio"] <= GRAD_VS_F32_RATIO:
-            raise AssertionError(
-                f"{group} gradients: the kernels are {c['kernel_vs_f32']} "
-                f"from f32, more than {GRAD_VS_F32_RATIO} x the plain bf16 "
-                f"path's {c['ref_vs_f32']}")
-        if group in _FAULT_GROUPS and \
-                not c["fault_ratio"] > GRAD_VS_F32_RATIO:
-            raise AssertionError(
-                f"{group} gradients: the planted dcap fault reads "
-                f"{c['fault_ratio']} x the plain path's distance, within "
-                f"the {GRAD_VS_F32_RATIO} bound: the check cannot see it")
+    _check_grad_ratios(out, _GRAD_GROUPS, _FAULT_GROUPS, "dcap")
+    return out
+
+
+def phase_grad_check_moe(layers: int = 2, seq: int = 2048):
+    """The gradient check of the MoE model at full width (bench.py:98's
+    widths, 2 layers, 1 x 2048 tokens): kernels, plain versions, plain
+    versions with the dispatch fault, f32. Each evaluation routes by its
+    own logits ("free"), and the routing of each bf16 path is counted
+    against the f32 evaluation's per layer: a near-tie that bf16 rounding
+    flips sends a token to another expert and shifts the capacity slots
+    of the tokens after it, a difference of routing, not of kernels. So
+    the bf16 paths run again with the f32 evaluation's maps ("fixed":
+    `_moe_routing_probe(replay=...)`), and the bound is held there."""
+    import dataclasses
+    from paddle_tpu_torch.nlp import moe
+    from paddle_tpu_torch.optimizer.transform import tree_map
+
+    cfg = moe.MoeConfig.flagship_moe(num_hidden_layers=layers)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    params = moe.init_params(cfg, gen, device="cuda")
+    p32 = tree_map(lambda t: t.float(), params)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, seq))).cuda()
+
+    def run(name, replay=None):
+        c, p = (cfg32, p32) if name == "f32" else (cfg, params)
+        ctx = (contextlib.nullcontext() if name == "kernel"
+               else _plain_kernels(fault="dispatch" if name == "fault"
+                                   else None))
+        with ctx, _moe_routing_probe(replay) as (maps, repeats):
+            r = _grad_run(moe.loss_fn, lambda t, tok, cc: moe.forward(
+                t, tok, cc)[0], c, p, tokens)
+        return r, maps, repeats
+
+    free, maps, repeats = {}, {}, {}
+    for name in ("f32", "kernel", "ref", "fault"):
+        free[name], maps[name], repeats[name] = run(name)
+    fixed = {"f32": free["f32"]}
+    for name in ("kernel", "ref", "fault"):
+        fixed[name], _, _ = run(name, replay=maps["f32"])
+    del params, p32
+    m32 = maps["f32"]
+    flips = {n: [int(((maps[n][l][0] != m32[l][0])
+                      | (maps[n][l][2] != m32[l][2])).sum().item())
+                 for l in sorted(m32)] for n in ("kernel", "ref", "fault")}
+    out = {"free": _grad_ratios(free, _MOE_GRAD_GROUPS),
+           "fixed": _grad_ratios(fixed, _MOE_GRAD_GROUPS)}
+    _emit({"phase": "grad_check_moe", "layers": layers, "seq": seq,
+           "ratio_tol": GRAD_VS_F32_RATIO, "held": "fixed",
+           "fault_groups": _MOE_FAULT_GROUPS,
+           "routing_diff_vs_f32_by_layer": flips,
+           "pairs_per_layer": seq * cfg.num_experts_per_tok,
+           "recompute_maps": repeats, **out})
+    del free, fixed
+    torch.cuda.empty_cache()
+    for name, r in repeats.items():
+        if r["differ"]:
+            raise AssertionError(f"{name}: {r['differ']} of {r['calls']} "
+                                 f"recomputed routings differ from the "
+                                 f"forward's")
+    _check_grad_ratios(out["fixed"], _MOE_GRAD_GROUPS, _MOE_FAULT_GROUPS,
+                       "dispatch")
     return out
 
 
 # "main": for each path that launches the kernel, the case at that
-# path's shape whose times the kernels line reports; the first path's
-# also stand at the entry's top level
+# path's shape whose times the kernels line reports (its index among the
+# kernel's cases, or among those of the path where cases name their
+# "path"); the first path's also stand at the entry's top level. A case
+# with "step_launches" is launched that often a step of its path: the
+# line adds up those cases' times per step.
 _KERNELS = {
     "flash_attention_fwd": {
         "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:51",
-        # serve: S=512, the top prefill bucket; train: B=8 S=2048 + LSE
-        "main": {"serve": 1, "train": 3}},
+        # serve: S=512, the top prefill bucket; train: B=8 S=2048 + LSE;
+        # train_moe: B=20 S=2048 H=16 + LSE
+        "main": {"serve": 1, "train": 3, "train_moe": 4}},
     "ragged_paged_attention": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
@@ -1031,44 +1476,46 @@ _KERNELS = {
         "also_replaces": ["paddle_tpu/kernels/flash_attention.py:360",
                           "paddle_tpu/kernels/flash_attention.py:446",
                           "paddle_tpu/kernels/flash_attention.py:503"],
-        "main": {"train": 0}},            # B=8 S=2048: the step's shape
+        "main": {"train": 0, "train_moe": 2}},
     "rms_norm_fwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:107",
-        "main": {"train": 0}},
+        "main": {"train": 0, "train_moe": 1}},
     "rms_norm_bwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:115",
-        "main": {"train": 0}},
+        "main": {"train": 0, "train_moe": 1}},
     "adamw_q": {
         "source": "paddle_tpu_torch/csrc/adamw_q.cu",
         "replaces": "paddle_tpu/optimizer/quant_state.py:227",
-        "main": {"train": 0}},            # the [11, 4096, 9472] leaves
+        # the largest leaves: [11, 4096, 9472]; [12, 16, 2048, 1024]
+        "main": {"train": 0, "train_moe": 0}},
+    "gather_wsum": {
+        "source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
+        "replaces": "paddle_tpu/kernels/moe_dispatch.py:244",
+        "main": {"train_moe": 1}},        # the combine forward, k=2
+    "gather_scale_dot": {
+        "source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
+        "replaces": "paddle_tpu/kernels/moe_dispatch.py:348",
+        "main": {"train_moe": 0}},        # the combine backward
 }
 _TIMES = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
-def main() -> int:
-    info = phase_device()
-    _, peaks = _peaks(info["kind"])
-    phase_build()
-    cases = phase_kernels(peaks)
-    serve = phase_serve()
-    torch.cuda.empty_cache()
-    train = phase_train(peaks)
-    phase_grad_check()
-    runs = {"serve": serve, "train": train}
+def _kernels_line(cases, runs):
     kernels = []
     for name, meta in _KERNELS.items():
         by_path = {}
         for path, i in meta["main"].items():
+            pool = [c for c in cases[name] if c.get("path", path) == path]
             by_path[path] = {"launches": runs[path]["launches"][name],
-                             **{k: cases[name][i][k] for k in _TIMES}}
-        if all("leaves" in c for c in cases[name]):
-            # one launch per leaf: the times of a whole step's leaves
-            by_path["train"]["per_step"] = {
-                k: sum(c[k] * c["leaves"] for c in cases[name])
-                for k in ("ms", "plain_ms", "bound_ms")}
+                             **{k: pool[i][k] for k in _TIMES}}
+            steps = [c for c in pool if "step_launches" in c]
+            if steps:
+                # the times of one step's launches at their shapes
+                by_path[path]["per_step"] = {
+                    k: sum(c[k] * c["step_launches"] for c in steps)
+                    for k in ("ms", "plain_ms", "bound_ms")}
         top = next(iter(by_path.values()))
         entry = {
             "name": name, "route": "cuda", "source": meta["source"],
@@ -1081,7 +1528,22 @@ def main() -> int:
         if "also_replaces" in meta:
             entry["also_replaces"] = meta["also_replaces"]
         kernels.append(entry)
-    _emit({"kernels": kernels})
+    return kernels
+
+
+def main() -> int:
+    info = phase_device()
+    _, peaks = _peaks(info["kind"])
+    phase_build()
+    cases = phase_kernels(peaks)
+    serve = phase_serve()
+    torch.cuda.empty_cache()
+    train = phase_train(peaks)
+    phase_grad_check()
+    train_moe = phase_train_moe(peaks)
+    phase_grad_check_moe()
+    runs = {"serve": serve, "train": train, "train_moe": train_moe}
+    _emit({"kernels": _kernels_line(cases, runs)})
     print(_smi_line(), flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                   "count": torch.cuda.device_count()}})

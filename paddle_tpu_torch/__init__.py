@@ -7,11 +7,15 @@ CUDA kernel for Hopper (sm_90a) under `csrc/`, built with nvcc on first
 use (`_build.py`); each kernel's wrapper runs its plain PyTorch version
 on a CPU tensor and the kernel on a CUDA tensor, never one for the other.
 
-Ported so far (the serving and single-device training slices):
+Ported so far (the serving, single-device training and MoE training
+slices):
 
     nlp.llama             LlamaConfig, init_params, params_from_numpy,
                           forward, loss_fn, fused_head_ce, flops_per_token
+    nlp.moe               MoeConfig, top_k_routing, moe_block, init_params,
+                          params_from_numpy, forward, loss_fn, the counts
     nlp.train             make_optimizer, init_state, make_train_step
+                          (model=llama or moe)
     nlp.paged             PagedKVCache, forward_paged, paged_generate,
                           ContinuousBatcher
     nlp.ragged_attention  ragged paged attention (csrc/ragged_paged_attention.cu)
@@ -19,6 +23,8 @@ Ported so far (the serving and single-device training slices):
                           (csrc/flash_fwd.cu) and backward (csrc/flash_bwd.cu)
     kernels.rms_norm      the training norm's forward and backward
                           (csrc/rms_norm.cu)
+    kernels.moe_dispatch  the MoE dispatch and combine gathers
+                          (csrc/moe_dispatch.cu)
     optimizer.quant_state 8-bit blockwise AdamW, fused update
                           (csrc/adamw_q.cu)
     optimizer.transform   the optax transformations the train step uses

@@ -1,0 +1,214 @@
+// MoE dispatch and combine row gathers for Hopper (sm_90a).
+//
+// Replaces: paddle_tpu/kernels/moe_dispatch.py::_gather_wsum_kernel
+// (pallas_call in gather_wsum_pallas) and ::_gather_scale_dot_kernel
+// (pallas_call in gather_scale_dot_pallas). On one device the MoE block
+// (nlp/moe.py::moe_block) runs the first in its dispatch forward (k = 1),
+// its combine forward and its dispatch backward (k = 2), the second in
+// its combine backward.
+//
+//   gather_wsum:      out[r] = sum_j w[r, j] * src[b, idx[r, j]]
+//                     (f32 products and sum in the order j = 0..k-1,
+//                      rounded once to bf16)
+//   gather_scale_dot: out[r] = scale[r] * src[b, idx[r]]       (bf16)
+//                     dot[r] = sum_d src[b, idx[r]][d] * other[r][d] (f32)
+// src, other, out bf16 row-major; idx int32, pre-clipped to [0, N) by
+// the caller (clamped again here, so a bad index cannot read outside
+// src); w, scale, dot f32; b = r / M is the batch row of output row r.
+//
+// Bound on the H100: memory, by random 4 KiB row reads (D = 2048 bf16)
+// with a few operations per byte. Design: one warp per output row, so a
+// row's reads are 16-byte vectors of one contiguous 4 KiB span, 32 lanes
+// side by side; each lane issues the 16-byte loads of several vectors of
+// every source row before it uses any (kUnroll vectors of each of the k
+// rows), so a warp keeps k * kUnroll * 512 bytes in flight; 8 warps a
+// block and thousands of blocks keep every SM's load slots busy. A choice
+// whose weight is 0 (an empty slot or a dropped choice: the caller clips
+// its index to row 0) skips its read. The products and the sum use
+// __fmul_rn / __fadd_rn so they are never contracted into FMAs: the
+// result is bit for bit the plain version's f32 expression.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+constexpr int kWarps = 8;                 // output rows per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxK = 8;
+
+__device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(h[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float f[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return u;
+}
+
+__device__ __forceinline__ long clamp_row(int i, int N) {
+  return (long)min(max(i, 0), N - 1);
+}
+
+// Vectors of each source row a lane loads before it uses them: more
+// rows in flight for small k, fewer registers for large k.
+template <int K>
+struct Unroll {
+  static constexpr int value = K <= 2 ? 4 : (K <= 4 ? 2 : 1);
+};
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+gather_wsum_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
+                   const float* __restrict__ w, bf16* __restrict__ out,
+                   long rows, int M, int N, int D) {
+  constexpr int U = Unroll<K>::value;
+  const long row = (long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const long b = row / M;
+  const int nvec = D >> 3;
+  const uint4* base[K];
+  float wj[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    wj[j] = __ldg(w + row * K + j);
+    base[j] = reinterpret_cast<const uint4*>(
+        src + (b * N + clamp_row(__ldg(idx + row * K + j), N)) * D);
+  }
+  uint4* orow = reinterpret_cast<uint4*>(out + row * D);
+  for (int v0 = lane; v0 < nvec; v0 += 32 * U) {
+    uint4 r[K][U];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int v = v0 + u * 32;
+        r[j][u] = (v < nvec && wj[j] != 0.f) ? __ldg(base[j] + v)
+                                             : make_uint4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int v = v0 + u * 32;
+      if (v >= nvec) break;
+      float acc[8], x[8];
+      unpack8(r[0][u], x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = __fmul_rn(x[e], wj[0]);
+#pragma unroll
+      for (int j = 1; j < K; ++j) {
+        unpack8(r[j][u], x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[e] = __fadd_rn(acc[e], __fmul_rn(x[e], wj[j]));
+      }
+      orow[v] = pack8(acc);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+gather_scale_dot_kernel(const bf16* __restrict__ src,
+                        const int* __restrict__ idx,
+                        const float* __restrict__ scale,
+                        const bf16* __restrict__ other,
+                        bf16* __restrict__ out, float* __restrict__ dot,
+                        long rows, int M, int N, int D) {
+  constexpr int U = 4;
+  const long row = (long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const long b = row / M;
+  const int nvec = D >> 3;
+  const float s = __ldg(scale + row);
+  const uint4* srow = reinterpret_cast<const uint4*>(
+      src + (b * N + clamp_row(__ldg(idx + row), N)) * D);
+  const uint4* orow = reinterpret_cast<const uint4*>(other + row * D);
+  uint4* dst = reinterpret_cast<uint4*>(out + row * D);
+  float d = 0.f;
+  for (int v0 = lane; v0 < nvec; v0 += 32 * U) {
+    uint4 xs[U], ys[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int v = v0 + u * 32;
+      xs[u] = v < nvec ? __ldg(srow + v) : make_uint4(0, 0, 0, 0);
+      ys[u] = v < nvec ? __ldg(orow + v) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int v = v0 + u * 32;
+      if (v >= nvec) break;
+      float x[8], y[8], o[8];
+      unpack8(xs[u], x);
+      unpack8(ys[u], y);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        o[e] = __fmul_rn(x[e], s);
+        d += x[e] * y[e];
+      }
+      dst[v] = pack8(o);
+    }
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) d += __shfl_xor_sync(0xffffffffu, d, m);
+  if (lane == 0) dot[row] = d;
+}
+
+}  // namespace
+
+// src [B, N, D] bf16; idx, w [B, M, k]; out [B, M, D] bf16. Returns the
+// launch's cudaError_t (0 on success).
+extern "C" int gather_wsum_bf16(const void* src, const void* idx,
+                                const void* w, void* out, int B, int N,
+                                int M, int k, int D, void* stream) {
+  if (D % 8 || k < 1 || k > kMaxK || N < 1) return (int)cudaErrorInvalidValue;
+  const long rows = (long)B * M;
+  if (rows == 0) return (int)cudaSuccess;
+  const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PTT_WSUM(K)                                                         \
+  gather_wsum_kernel<K><<<blocks, kThreads, 0, s>>>(                        \
+      static_cast<const bf16*>(src), static_cast<const int*>(idx),          \
+      static_cast<const float*>(w), static_cast<bf16*>(out), rows, M, N, D)
+  switch (k) {
+    case 1: PTT_WSUM(1); break;
+    case 2: PTT_WSUM(2); break;
+    case 3: PTT_WSUM(3); break;
+    case 4: PTT_WSUM(4); break;
+    case 5: PTT_WSUM(5); break;
+    case 6: PTT_WSUM(6); break;
+    case 7: PTT_WSUM(7); break;
+    default: PTT_WSUM(8); break;
+  }
+#undef PTT_WSUM
+  return (int)cudaGetLastError();
+}
+
+// src [B, N, D] bf16; idx, scale [B, M]; other, out [B, M, D] bf16; dot
+// [B, M] f32. Returns the launch's cudaError_t (0 on success).
+extern "C" int gather_scale_dot_bf16(const void* src, const void* idx,
+                                     const void* scale, const void* other,
+                                     void* out, void* dot, int B, int N,
+                                     int M, int D, void* stream) {
+  if (D % 8 || N < 1) return (int)cudaErrorInvalidValue;
+  const long rows = (long)B * M;
+  if (rows == 0) return (int)cudaSuccess;
+  const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
+  gather_scale_dot_kernel<<<blocks, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(src), static_cast<const int*>(idx),
+      static_cast<const float*>(scale), static_cast<const bf16*>(other),
+      static_cast<bf16*>(out), static_cast<float*>(dot), rows, M, N, D);
+  return (int)cudaGetLastError();
+}

@@ -14,8 +14,10 @@ was given) and returns a TrainState holding them. Nothing in the step
 reads a value back to the host: loss, grad norm, learning rate and the
 step count stay tensors on the device.
 
-The mesh and the pipeline schedules are the multi-GPU slice and raise
-`NotImplementedError`; the MoE model is the MoE slice.
+`model` is the module of the model trained, as in the JAX step:
+`nlp.llama` (default) or `nlp.moe`; each gives `init_params` and
+`loss_fn`. The mesh and the pipeline schedules are the multi-GPU slice
+and raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -67,12 +69,14 @@ def _single_device(mesh):
             "multi-GPU slice")
 
 
-def init_state(generator, cfg, tx, mesh=None, device="cuda") -> TrainState:
-    """Parameters (the training tree, every leaf in `cfg.param_dtype`)
-    and optimizer state, made on `device`; `generator` seeds them."""
+def init_state(generator, cfg, tx, mesh=None, device="cuda",
+               model=llama) -> TrainState:
+    """Parameters of `model` (the training tree, every leaf in
+    `cfg.param_dtype`) and optimizer state, made on `device`;
+    `generator` seeds them."""
     _single_device(mesh)
     dev = resolve_device(device)
-    params = llama.init_params(cfg, generator, device=dev, training=True)
+    params = model.init_params(cfg, generator, device=dev, training=True)
     return TrainState(torch.zeros((), dtype=torch.int32, device=dev),
                       params, tx.init(params))
 
@@ -93,10 +97,12 @@ def _value_and_grad(lfn, params, tokens):
 
 def make_train_step(cfg, tx, mesh=None,
                     num_microbatches: Optional[int] = None,
-                    grad_accum_steps: int = 1, device="cuda") -> Callable:
+                    grad_accum_steps: int = 1, device="cuda",
+                    model=llama) -> Callable:
     """Build the train step `step(state, tokens) -> (state, metrics)`,
     metrics = {"loss", "grad_norm" (pre-clip), "step"}, all device
-    tensors. The state's params and moments are updated in place.
+    tensors, for `model.loss_fn` (`nlp.llama` or `nlp.moe`). The
+    state's params and moments are updated in place.
 
     grad_accum_steps > 1 splits the batch into that many STRIDED chunks
     (chunk i holds rows i, i + n, i + 2n, ...), as the JAX step does,
@@ -114,7 +120,7 @@ def make_train_step(cfg, tx, mesh=None,
             f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
 
     def lfn(p, t):
-        return llama.loss_fn(p, t, cfg)
+        return model.loss_fn(p, t, cfg)
 
     def step_fn(state: TrainState, tokens):
         p0 = transform.tree_leaves(state.params)[0]

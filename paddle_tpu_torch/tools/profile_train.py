@@ -1,22 +1,27 @@
 """Where a training step's time goes on one NVIDIA GPU.
 
-    python -m paddle_tpu_torch.tools.profile_train [--layers 11]
+    python -m paddle_tpu_torch.tools.profile_train [--model llama|moe]
+                                                   [--layers N]
 
-Builds the flagship training config (bench.py:120: D 4096, F 9472,
-GQA 32/8, V 32000, bf16 params, 8-bit AdamW with the clip at 1.0, lr
-1e-4; random weights from a seed; batch 8 x 2048) and drives
-`train.make_train_step`:
-one untraced warm-up step, one untraced step for its wall time without
-the profiler's per-operation cost, then one step traced by
-torch.profiler.
+`--model llama` (default) builds the flagship dense config (bench.py:120:
+D 4096, F 9472, 11 layers, GQA 32/8, V 32000; batch 8 x 2048);
+`--model moe` the single-chip MoE config (bench.py:98: D 2048, 12
+layers, GQA 16/8, 16 experts top-2 of width 1024 plus a shared expert,
+V 32000; batch 20 x 2048). Both: bf16 params, 8-bit AdamW with the clip
+at 1.0, lr 1e-4, random weights from a seed, full depth unless
+`--layers` cuts it. It drives `train.make_train_step`: one untraced
+warm-up step, one untraced step for its wall time without the
+profiler's per-operation cost, then one step traced by torch.profiler.
 
 It prints one JSON line for the traced step: the host wall time (the
 step ends in a synchronize), the device time summed by kernel class
-(GEMM, flash forward, flash backward, RMSNorm, AdamW, other), the device
-busy time (the sum over kernels; one stream, so they do not overlap),
-the idle share 1 - busy / wall, the kernel launch count and the port's
-own kernel launches by wrapper. The last line names the card and its
-power limit.
+(GEMM, flash forward, flash backward, RMSNorm, AdamW, MoE dispatch,
+other; for the MoE model also "routing", the device time of the torch
+ops inside `moe.top_k_routing`'s "moe_routing" range, taken out of
+"other"), the device busy time (the sum over kernels; one stream, so
+they do not overlap), the idle share 1 - busy / wall, the kernel launch
+count and the port's own kernel launches by wrapper. The last line names
+the card and its power limit.
 """
 from __future__ import annotations
 
@@ -29,15 +34,18 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-# the flagship training batch (bench.py:369-370)
-_BATCH, _SEQ = 8, 2048
+# the training batch of each model (bench.py:369-370 and bench.py:87)
+_BATCH = {"llama": 8, "moe": 20}
+_SEQ = 2048
 _GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet", "cublas")
 # kernel symbol names of csrc/*.cu, by class
 _PORT_KERNELS = (("flash_fwd_kernel", "flash_fwd"),
                  ("dkdv_kernel", "flash_bwd"), ("dq_kernel", "flash_bwd"),
                  ("dcap_kernel", "flash_bwd"), ("rms_fwd_kernel", "rms"),
                  ("rms_bwd_kernel", "rms"), ("rms_dw_kernel", "rms"),
-                 ("adamw_q_kernel", "adamw"))
+                 ("adamw_q_kernel", "adamw"),
+                 ("gather_wsum_kernel", "moe_dispatch"),
+                 ("gather_scale_dot_kernel", "moe_dispatch"))
 
 
 def _kernel_class(name: str) -> str:
@@ -53,24 +61,34 @@ def _kernel_class(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=11)
+    ap.add_argument("--model", choices=sorted(_BATCH), default="llama")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="decoder depth (default: the config's own)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     from ..kernels import flash_attention as fa
+    from ..kernels import moe_dispatch as md
     from ..kernels import rms_norm as rn
-    from ..nlp import llama, train
+    from ..nlp import llama, moe, train
     from ..optimizer import quant_state as qs
 
-    cfg = llama.LlamaConfig.flagship_2b(num_hidden_layers=args.layers)
+    over = ({} if args.layers is None
+            else {"num_hidden_layers": args.layers})
+    if args.model == "moe":
+        model, cfg = moe, moe.MoeConfig.flagship_moe(**over)
+    else:
+        model, cfg = llama, llama.LlamaConfig.flagship_2b(**over)
+    batch = _BATCH[args.model]
     tx = train.make_optimizer(1e-4, state_quant="8bit", grad_clip=1.0)
     state = train.init_state(
-        torch.Generator(device="cuda").manual_seed(args.seed), cfg, tx)
-    step = train.make_train_step(cfg, tx)
+        torch.Generator(device="cuda").manual_seed(args.seed), cfg, tx,
+        model=model)
+    step = train.make_train_step(cfg, tx, model=model)
     tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (_BATCH, _SEQ))).cuda()
+        0, cfg.vocab_size, (batch, _SEQ))).cuda()
     state, _ = step(state, tokens)                    # warm-up, untraced
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -83,6 +101,9 @@ def main(argv=None) -> int:
                 "rms_norm_fwd": rn.rms_norm_fwd,
                 "rms_norm_bwd": rn.rms_norm_bwd,
                 "adamw_q": qs.fused_leaf_update}
+    if model is moe:
+        counters.update({"gather_wsum": md.gather_wsum,
+                         "gather_scale_dot": md.gather_scale_dot})
     for c in counters.values():
         c.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -94,17 +115,26 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
     by_class: dict = {}
     launches = 0
+    routing_us = 0.0
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
+            if ev.name == "moe_routing":
+                # the kernels of the ops launched inside the range
+                routing_us += ev.device_time_total
             continue
+        if getattr(ev, "is_user_annotation", False):
+            continue        # the range's span on the device, not a kernel
         us = ev.time_range.end - ev.time_range.start
         c = _kernel_class(ev.name)
         by_class[c] = by_class.get(c, 0.0) + us / 1e3
         launches += c != "memcpy"
     if not by_class:
         raise RuntimeError("torch.profiler recorded no device activity")
+    if routing_us:
+        by_class["routing"] = routing_us / 1e3
+        by_class["other"] = by_class.get("other", 0.0) - routing_us / 1e3
     busy = sum(by_class.values())
-    tok = _BATCH * _SEQ
+    tok = batch * _SEQ
     print(json.dumps({
         "step": "train", "traced": True, "wall_ms": wall * 1e3,
         "untraced_wall_ms": untraced * 1e3, "device_busy_ms": busy,
@@ -116,7 +146,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(json.dumps({"layers": args.layers, "batch": _BATCH, "seq": _SEQ,
+    print(json.dumps({"model": args.model,
+                      "layers": cfg.num_hidden_layers, "batch": batch,
+                      "seq": _SEQ,
                       "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}), flush=True)
     return 0
