@@ -64,6 +64,23 @@ non-zero:
                second choice as the planted fault, and the routing of each
                bf16 path counted against the f32 evaluation's.
 
+  7. eager   — the Paddle-shaped eager API's training path: an
+               ERNIE-3.0-base encoder (BASELINE config 1: V 40000, D 768,
+               12 layers, 12 heads of 64, F 3072) composed from paddle.nn
+               and paddle.incubate.nn layers (tools/eager_ernie.py), f32
+               params under O1 bf16 auto_cast, AdamW lr 2e-5 with the
+               global-norm clip, 2 warm-up and 4 timed steps of batch
+               64 x 512 (bench.py:134-181). LayerNorm forward and backward
+               must launch exactly 25 times a step, the non-causal flash
+               forward and backward 12; losses finite and falling. Then
+               the gradient check at 2 layers, batch 4 x 512, dropout 0,
+               with the LayerNorm backward dropping x̂·mean(dyw·x̂) as the
+               planted fault.
+
+The kernels phase also holds the fused LayerNorm forward and backward at
+the eager step's f32 [32768, 768] and in bf16, and the flash forward and
+backward non-causal at B=64 S=512 H=12 hd=64.
+
 The last lines are the kernels JSON object, the `nvidia-smi` name/power
 line and {"ok": true, "device": {...}}. Imports nothing of JAX or of the
 JAX package.
@@ -196,7 +213,8 @@ def _bound(flops, nbytes, peaks, flops_peak=None):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False):
+def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
+                causal: bool = True):
     """The flash forward against its plain version at one shape; with
     `lse`, as the training forward calls it, its LSE held too."""
     import torch.nn.functional as F
@@ -205,10 +223,11 @@ def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False):
     q = torch.randn(B, S, H, hd, device=dev, generator=gen).bfloat16()
     k = torch.randn(B, S, KV, hd, device=dev, generator=gen).bfloat16()
     v = torch.randn(B, S, KV, hd, device=dev, generator=gen).bfloat16()
-    out = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=lse)
-    ref = fa.flash_attention_fwd_ref(q, k, v, causal=True, return_lse=lse)
+    out = fa.flash_attention_fwd(q, k, v, causal=causal, return_lse=lse)
+    ref = fa.flash_attention_fwd_ref(q, k, v, causal=causal, return_lse=lse)
     res = {"shape": f"B={B} S={S} H={H} KV={KV} hd={hd}"
-                    + (" (LSE)" if lse else "")}
+                    + (" (LSE)" if lse else "")
+                    + ("" if causal else " non-causal")}
     if lse:
         (out, lse_k), (ref, lse_r) = out, ref
         res["lse_abs_err"] = (lse_k - lse_r).abs().max().item()
@@ -221,13 +240,13 @@ def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False):
     if not rel <= tol:
         raise AssertionError(f"flash B={B} S={S}: relative err {rel} > {tol}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True,
+    ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
                                                  return_lse=lse), 50)
     plain = _time_ms(lambda: fa.flash_attention_fwd_ref(
-        q, k, v, causal=True, return_lse=lse), 5)
+        q, k, v, causal=causal, return_lse=lse), 5)
     lib = _time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 50)
-    pairs = S * (S + 1) // 2                    # causal, Sq == Sk
+        qt, kt, vt, is_causal=causal, enable_gqa=True), 50)
+    pairs = S * (S + 1) // 2 if causal else S * S       # Sq == Sk
     flops = 4.0 * B * H * hd * pairs
     # q, k, v in; out (and the f32 LSE) written
     nbytes = 2.0 * B * S * hd * (2 * H + 2 * KV) + (4.0 * B * H * S * lse)
@@ -332,6 +351,15 @@ LSE_TOL = 5e-4
 GRAD_ROW_FLOOR = 1e-3
 # rstd is one f32 rsqrt of a 4096-term f32 sum per row: ~1e-6 relative.
 RSTD_TOL = 1e-5
+# The f32 LayerNorm: kernel and plain version compute the same f32
+# expressions and differ in summation order over a 768-value row (on an
+# H100 SXM at 700 W out and dx read <= 1e-6 of their rows' scale, mu and
+# rstd <= 3e-7); 1e-5 leaves 10x. dw and db: sums over 32,768 rows in
+# another order (1024 chunks, then in order; read <= 1.1e-6), 1e-4 of the
+# largest |value|.
+LN_F32_TOL = 1e-5
+LN_STAT_TOL = 1e-5
+LN_SUM_TOL = 1e-4
 # 8-bit AdamW: params within one bf16 ulp (of the larger of the value
 # before and after the step) of the plain version, float8
 # codes within one e4m3 step of their value, scales to 1e-6 relative, and
@@ -341,8 +369,8 @@ RSTD_TOL = 1e-5
 ADAMW_CODE_FRAC = 1e-3
 
 
-def _sdpa_grad_ms(q, k, v, dout, iters):
-    """SDPA's backward alone: forward + backward minus forward, causal,
+def _sdpa_grad_ms(q, k, v, dout, iters, causal=True):
+    """SDPA's backward alone: forward + backward minus forward,
     enable_gqa (the library yardstick; the port never calls it)."""
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
@@ -350,7 +378,7 @@ def _sdpa_grad_ms(q, k, v, dout, iters):
     dot = dout.transpose(1, 2)
 
     def fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
 
     def both():
@@ -360,7 +388,7 @@ def _sdpa_grad_ms(q, k, v, dout, iters):
         return _time_ms(both, iters) - _time_ms(fwd, iters)
 
 
-def _flash_bwd_case(B, S, H, KV, hd, peaks, gen):
+def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True):
     """dq, dk, dv from the kernel forward's (out, lse), against the plain
     backward on the same inputs; the kernel must also repeat bit for bit
     (no atomics)."""
@@ -368,10 +396,11 @@ def _flash_bwd_case(B, S, H, KV, hd, peaks, gen):
     q, k, v = (torch.randn(B, S, n, hd, device="cuda", generator=gen)
                .bfloat16() for n in (H, KV, KV))
     dout = torch.randn(B, S, H, hd, device="cuda", generator=gen).bfloat16()
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
-    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
-    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
-    ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
     torch.cuda.synchronize()
     rel = {n: _rel_err(a, b, floor=GRAD_ROW_FLOOR)
            for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
@@ -383,17 +412,18 @@ def _flash_bwd_case(B, S, H, KV, hd, peaks, gen):
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got, ref))
     del again
-    ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout),
-                  10)
+    ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                 causal=causal), 10)
     plain = _time_ms(lambda: fa.flash_attention_bwd_ref(
-        q, k, v, out, lse, dout), 2)
-    lib = _sdpa_grad_ms(q, k, v, dout, 5)
-    pairs = S * (S + 1) // 2
+        q, k, v, out, lse, dout, causal=causal), 2)
+    lib = _sdpa_grad_ms(q, k, v, dout, 5, causal)
+    pairs = S * (S + 1) // 2 if causal else S * S
     # five products over the visible pairs: QK^T again, dO V^T, P^T dO,
     # dS K, dS^T Q; bytes: q, k, v, out, dout, lse in; dq, dk, dv out
     flops = 10.0 * B * H * hd * pairs
     nbytes = 2.0 * B * S * hd * (4 * H + 4 * KV) + 4.0 * B * H * S
-    return {"shape": f"B={B} S={S} H={H} KV={KV} hd={hd}",
+    return {"shape": f"B={B} S={S} H={H} KV={KV} hd={hd}"
+                     + ("" if causal else " non-causal"),
             "max_abs_err": err, "max_rel_err": max(rel.values()),
             "rel_err": rel, "ms": ms, "plain_ms": plain, "library_ms": lib,
             **_bound(flops, nbytes, peaks)}
@@ -456,6 +486,94 @@ def _rms_cases(rows, D, peaks, gen, eps=1e-5):
            **_bound(9.0 * rows * D,
                     3.0 * rows * D * 2 + 4.0 * rows + 2.0 * D * 2, peaks,
                     peaks[2])}
+    return fwd, bwd
+
+
+def _ln_cases(rows, D, dtype, affine, peaks, gen, flush, on_path=False):
+    """The fused LayerNorm at [rows, D] (x in `dtype`; f32 weight and
+    bias, or affine-free): forward (out per row, mu, rstd) and backward
+    (dx per row, dw and db) against the plain twins, at ERNIE's eps
+    1e-12; the backward must repeat bit for bit. Times with the L2 cache
+    flushed before each call. `on_path`: the eager step's form, launched
+    25 times a step."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    eps = 1e-12
+    x = (torch.randn(rows, D, device="cuda", generator=gen) + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(D, device="cuda", generator=gen)
+    if not affine:
+        w = b = None
+    dy = torch.randn(rows, D, device="cuda", generator=gen).to(dtype)
+    out, mu, rstd = ln.layer_norm_fwd(x, w, b, eps)
+    rout, rmu, rrstd = ln._ln_fwd_twin(x, w, b, eps, affine)
+    dx, dw, db = ln.layer_norm_bwd(x, w, mu, rstd, dy, eps)
+    again = ln.layer_norm_bwd(x, w, mu, rstd, dy, eps)
+    rdx, rdw, rdb = ln._ln_ref_bwd(x, w, dy, eps, affine)
+    torch.cuda.synchronize()
+    tol = LN_F32_TOL if dtype == torch.float32 else KERNEL_TOL
+    f_rel = _rel_err(out, rout)
+    # a mean near 0 has no relative precision of its own: mu is held
+    # relative to the larger of |mu| and the row's standard deviation
+    mu_rel = ((mu - rmu).abs() / torch.maximum(rmu.abs(), 1 / rrstd)
+              ).max().item()
+    r_rel = ((rstd - rrstd).abs() / rrstd).max().item()
+    b_rel = _rel_err(dx, rdx)
+    w_rel = max(((a - r).abs().max() / r.abs().max()).item()
+                for a, r in ((dw, rdw), (db, rdb)))
+    name = (f"rows={rows} D={D} {str(dtype).replace('torch.', '')}"
+            + ("" if affine else " affine-free"))
+    if not (f_rel <= tol and mu_rel <= LN_STAT_TOL and r_rel <= LN_STAT_TOL
+            and b_rel <= tol and w_rel <= LN_SUM_TOL):
+        raise AssertionError(f"layer_norm [{name}]: out {f_rel}, mu "
+                             f"{mu_rel}, rstd {r_rel}, dx {b_rel}, dw/db "
+                             f"{w_rel}")
+    if not all(torch.equal(a, c) for a, c in zip((dx, dw, db), again)):
+        raise AssertionError(f"layer_norm bwd [{name}]: two runs differ")
+    del again
+    xg = x.detach().requires_grad_(True)
+    wl, bl = ((t.to(dtype).requires_grad_(True) for t in (w, b)) if affine
+              else (None, None))
+
+    def lib_fwd():
+        return F.layer_norm(xg, (D,), wl, bl, eps)
+
+    def lib_both():
+        torch.autograd.grad(lib_fwd(), [t for t in (xg, wl, bl)
+                                        if t is not None], dy)
+
+    es = x.element_size()
+    path = ({"path": "eager", "step_launches": 25} if on_path
+            else {"path": None})
+    fwd = {"shape": name, **path,
+           "max_abs_err": (out.float() - rout.float()).abs().max().item(),
+           "max_rel_err": f_rel, "mu_rel_err": mu_rel, "rstd_rel_err": r_rel,
+           "ms": _time_ms(lambda: ln.layer_norm_fwd(x, w, b, eps), 20,
+                          flush),
+           "plain_ms": _time_ms(lambda: ln._ln_fwd_twin(x, w, b, eps,
+                                                        affine), 5, flush),
+           "library_ms": _time_ms(lib_fwd, 20, flush),
+           # x read, out written; w, b read; mu, rstd written. ~8 f32
+           # operations a value (sum, centre, square-add, scale, affine)
+           **_bound(8.0 * rows * D, 2.0 * es * rows * D + 8.0 * D
+                    + 8.0 * rows, peaks, peaks[2])}
+    with torch.enable_grad():
+        lib_bwd = _time_ms(lib_both, 10, flush) - _time_ms(lib_fwd, 10,
+                                                          flush)
+    bwd = {"shape": name, **path,
+           "max_abs_err": max((dx.float() - rdx.float()).abs().max().item(),
+                              (dw - rdw).abs().max().item(),
+                              (db - rdb).abs().max().item()),
+           "max_rel_err": max(b_rel, w_rel), "dwdb_rel_err": w_rel,
+           "ms": _time_ms(lambda: ln.layer_norm_bwd(x, w, mu, rstd, dy, eps),
+                          20, flush),
+           "plain_ms": _time_ms(lambda: ln._ln_ref_bwd(x, w, dy, eps,
+                                                       affine), 5, flush),
+           "library_ms": lib_bwd,
+           # x, dy read, dx written; mu, rstd, w read; dw, db written.
+           # ~13 f32 operations a value
+           **_bound(13.0 * rows * D, 3.0 * es * rows * D + 8.0 * rows
+                    + 12.0 * D, peaks, peaks[2])}
     return fwd, bwd
 
 
@@ -730,14 +848,34 @@ def phase_kernels(peaks):
                              lse=True))
     flash.append(_flash_case(20, 2048, 16, 8, hd, peaks, KERNEL_TOL, gen,
                              lse=True))
+    # the eager ERNIE step's attention: non-causal, B=64 S=512 H=KV=12
+    flash.append(_flash_case(64, 512, 12, 12, 64, peaks, KERNEL_TOL, gen,
+                             lse=True, causal=False))
     ragged = [_ragged_case(kind, H, KV, hd, peaks, KERNEL_TOL, gen, flush)
               for kind in ("decode", "fused", "continue")]
     wsum, sdot, moe_info = _moe_dispatch_cases(peaks, gen, flush)
+    # the eager ERNIE step's norms (f32) and the bf16 form; then the
+    # kernels' other forms: a row of one block (D > 1024, up to the
+    # largest D), affine-free, a width whose vectors do not fill the
+    # last round of a warp or a block, a row count that is not a
+    # multiple of 8 rows a block
+    f32, bf16 = torch.float32, torch.bfloat16
+    lns = [_ln_cases(64 * 512, 768, f32, True, peaks, gen, flush,
+                     on_path=True),
+           _ln_cases(64 * 512, 768, bf16, True, peaks, gen, flush)]
+    lns += [_ln_cases(rows, D, dt, affine, peaks, gen, flush)
+            for rows, D, dt, affine in (
+                (8192, 4096, bf16, True), (8192, 4096, f32, True),
+                (4096, 8192, bf16, False), (4096, 8192, f32, True),
+                (32768, 768, f32, False), (4099, 776, bf16, True),
+                (4099, 1032, f32, False))]
     del scratch
     torch.cuda.empty_cache()
     bwd = [_flash_bwd_case(B, S, h, kv, hd, peaks, gen)
            for B, S, h, kv in ((8, 2048, H, KV), (1, 4096, H, KV),
                                (20, 2048, 16, 8))]
+    bwd.append(_flash_bwd_case(64, 512, 12, 12, 64, peaks, gen,
+                               causal=False))
     rms = [_rms_cases(8 * 2048, 4096, peaks, gen),
            _rms_cases(20 * 2048, 2048, peaks, gen, eps=1e-6)]
     adamw = []
@@ -752,9 +890,13 @@ def phase_kernels(peaks):
              "flash_attention_bwd": bwd,
              "rms_norm_fwd": [f for f, _ in rms],
              "rms_norm_bwd": [b for _, b in rms], "adamw_q": adamw,
-             "gather_wsum": wsum, "gather_scale_dot": sdot}
+             "gather_wsum": wsum, "gather_scale_dot": sdot,
+             "layer_norm_fwd": [f for f, _ in lns],
+             "layer_norm_bwd": [b for _, b in lns]}
     _emit({"phase": "kernels", "tol": KERNEL_TOL, "lse_tol": LSE_TOL,
            "rstd_tol": RSTD_TOL, "adamw_code_frac": ADAMW_CODE_FRAC,
+           "ln_f32_tol": LN_F32_TOL, "ln_stat_tol": LN_STAT_TOL,
+           "ln_sum_tol": LN_SUM_TOL,
            "moe_routing": moe_info, **cases})
     torch.cuda.empty_cache()
     return cases
@@ -1207,13 +1349,17 @@ def _plain_kernels(fault=None):
     CUDA tensors (the reference paths of the gradient checks). The
     planted controls: fault="dcap", the flash backward also drops
     dcap = rowsum(dO * O); fault="dispatch", the MoE dispatch backward
-    drops each token's second choice (its weight set to 0)."""
+    drops each token's second choice (its weight set to 0);
+    fault="ln_dx", the LayerNorm backward drops the x̂·mean(dyw·x̂) term
+    of dx."""
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.kernels import moe_dispatch as md
     from paddle_tpu_torch.kernels import rms_norm as rn
     saved = (fa.flash_attention_fwd, fa.flash_attention_bwd,
              rn.rms_norm_fwd, rn.rms_norm_bwd, md.gather_wsum,
-             md.gather_scale_dot, md._dispatch_bwd)
+             md.gather_scale_dot, md._dispatch_bwd, ln.layer_norm_fwd,
+             ln.layer_norm_bwd)
 
     def bwd(q, k, v, out, lse, dout, causal=True, scale=None):
         if fault == "dcap":
@@ -1237,12 +1383,32 @@ def _plain_kernels(fault=None):
     md.gather_scale_dot = md._gather_scale_dot_ref
     if fault == "dispatch":
         md._dispatch_bwd = dispatch_bwd
+    ln.layer_norm_fwd = lambda x, w, b, eps=1e-5: ln._ln_fwd_twin(
+        x, w, b, eps, w is not None)
+    ln.layer_norm_bwd = (
+        _ln_bwd_dropped_term if fault == "ln_dx" else
+        lambda x, w, mu, rstd, dy, eps=1e-5: ln._ln_ref_bwd(
+            x, w, dy, eps, w is not None))
     try:
         yield
     finally:
         (fa.flash_attention_fwd, fa.flash_attention_bwd, rn.rms_norm_fwd,
          rn.rms_norm_bwd, md.gather_wsum, md.gather_scale_dot,
-         md._dispatch_bwd) = saved
+         md._dispatch_bwd, ln.layer_norm_fwd, ln.layer_norm_bwd) = saved
+
+
+def _ln_bwd_dropped_term(x, weight, mu, rstd, dy, eps=1e-5):
+    """The plain LayerNorm backward with a planted fault: dx lacks the
+    x̂·mean(dyw·x̂) term (dw and db are right)."""
+    xf, dyf = x.float(), dy.float()
+    d = x.shape[-1]
+    m = torch.mean(xf, dim=-1, keepdim=True)
+    r = torch.rsqrt(torch.mean((xf - m) ** 2, dim=-1, keepdim=True) + eps)
+    xhat = (xf - m) * r
+    dyw = dyf * weight.float() if weight is not None else dyf
+    dx = (r * (dyw - torch.mean(dyw, dim=-1, keepdim=True))).to(x.dtype)
+    return (dx, torch.sum((dyf * xhat).reshape(-1, d), dim=0),
+            torch.sum(dyf.reshape(-1, d), dim=0))
 
 
 _GRAD_GROUPS = {
@@ -1308,17 +1474,18 @@ def _grad_run(loss_fn, logits_fn, c, p, tokens):
     return float(loss.detach()), nll.float().reshape(-1), g
 
 
-def _grad_ratios(res, groups):
-    """Relative RMS distance of each bf16 path's per-token losses and
-    gradient groups from the f32 evaluation's, and the kernel and fault
-    paths' distances as ratios to the plain path's."""
+def _grad_ratios(res, groups, first="loss"):
+    """Relative RMS distance of each bf16 path's per-token losses (or
+    another output, named `first`) and gradient groups from the f32
+    evaluation's, and the kernel and fault paths' distances as ratios to
+    the plain path's."""
     def dist(a, b):
         return (torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(a, b)))
                 / torch.sqrt(sum((y ** 2).sum() for y in b))).item()
 
     out = {}
     _, nll32, g32 = res["f32"]
-    for group, keys in {"loss": None, **groups}.items():
+    for group, keys in {first: None, **groups}.items():
         c = {}
         for n in ("kernel", "ref", "fault"):
             _, nll, g = res[n]
@@ -1334,8 +1501,8 @@ def _grad_ratios(res, groups):
     return out
 
 
-def _check_grad_ratios(out, groups, fault_groups, fault):
-    for group in ("loss", *groups):
+def _check_grad_ratios(out, groups, fault_groups, fault, first="loss"):
+    for group in (first, *groups):
         c = out[group]
         if not c["kernel_ratio"] <= GRAD_VS_F32_RATIO:
             raise AssertionError(
@@ -1453,6 +1620,206 @@ def phase_grad_check_moe(layers: int = 2, seq: int = 2048):
     return out
 
 
+# ------------------------------------------------------------- 7. eager
+# every kernel's launches in one eager ERNIE step: the embedding norm and
+# the two post-LN norms of each of the 12 layers, forward and backward;
+# one flash forward and backward a layer
+_EAGER_LAUNCHES_PER_STEP = {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
+                            "flash_attention_fwd": 12,
+                            "flash_attention_bwd": 12}
+
+
+def _eager_counters():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    return {"layer_norm_fwd": ln.layer_norm_fwd,
+            "layer_norm_bwd": ln.layer_norm_bwd,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd}
+
+
+def _quick_start(steps: int = 5):
+    """README.md's Quick start as written, with `import paddle_tpu_torch
+    as paddle`, on the card: a Linear-ReLU-Linear classifier of seeded
+    random data under AdamW; returns its losses, which must fall."""
+    import paddle_tpu_torch as paddle
+    paddle.seed(SEED)
+    rng = np.random.default_rng(SEED)
+    x = paddle.to_tensor(rng.standard_normal((64, 784)).astype("float32"))
+    y = paddle.to_tensor(rng.integers(0, 10, (64,)))
+    model = paddle.nn.Sequential(paddle.nn.Linear(784, 256),
+                                 paddle.nn.ReLU(), paddle.nn.Linear(256, 10))
+    opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters())
+    losses = []
+    for _ in range(steps):
+        loss = paddle.nn.CrossEntropyLoss()(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    if not loss._data.is_cuda or not losses[-1] < losses[0]:
+        raise AssertionError(f"the Quick start did not train on the card: "
+                             f"{losses}")
+    return losses
+
+
+def phase_eager(peaks):
+    """The eager API's training path at ERNIE-3.0-base width
+    (BASELINE config 1, bench.py:134-181's recipe): the encoder composed
+    from paddle.nn and paddle.incubate.nn layers
+    (`tools/eager_ernie.build_model`, dropout 0.1, attention-probability
+    dropout 0), f32 parameters under O1 bf16 auto_cast, AdamW at lr 2e-5
+    with the global-norm clip at 1.0, the same batch of 64 x 512 from
+    default_rng(0) every step: 2 warm-up then 4 timed steps of
+    loss.backward(); opt.step(); opt.clear_grad(), one synchronize after
+    the timed ones. Launch counters are zeroed before the timed steps and
+    must read exactly the step's counts. First the README's Quick start
+    trains a few steps on the card (`_quick_start`)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nlp import ernie
+    from paddle_tpu_torch.tools.eager_ernie import build_model, train_step
+
+    cfg = ernie.ErnieConfig.ernie3_base()
+    warmup, timed, batch, seq = 2, 4, 64, 512
+    paddle.set_device("gpu")
+    quick_start = _quick_start()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    paddle.seed(SEED)
+    model = build_model(paddle, cfg, dropout=0.1)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=2e-5, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(0)
+    ids = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    labels = paddle.to_tensor(rng.integers(0, cfg.num_labels, (batch,)))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses = [train_step(paddle, model, loss_fn, opt, ids, labels)
+              for _ in range(warmup)]
+    torch.cuda.synchronize()
+    counters = _eager_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        losses.append(train_step(paddle, model, loss_fn, opt, ids, labels))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(l) for l in losses]
+    tok_s = batch * seq * timed / dt
+    fpt = ernie.flops_per_token(cfg, seq)
+    res = {"phase": "eager",
+           "config": "ErnieConfig.ernie3_base (BASELINE config 1, "
+                     "bench.py:134-181), composed from layers",
+           "widths": {"V": cfg.vocab_size, "D": cfg.hidden_size,
+                      "L": cfg.num_hidden_layers,
+                      "H": cfg.num_attention_heads, "hd": cfg.head_dim,
+                      "F": cfg.intermediate_size},
+           "params": sum(p.size for p in model.parameters()),
+           "batch": batch, "seq": seq, "steps": warmup + timed,
+           "timed_steps": timed, "step_ms": dt / timed * 1e3,
+           "tokens_per_s": tok_s, "flops_per_token": fpt,
+           "mfu": tok_s * fpt / peaks[0], "losses": losses,
+           "peak_memory_bytes": peak, "init_s": init_s,
+           "launches": launches,
+           "launches_per_step": {n: c / timed for n, c in launches.items()},
+           "quick_start_losses": quick_start, "nvidia_smi": _smi_line()}
+    _emit(res)
+    del model, opt, ids, labels
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite eager loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the eager loss did not fall: {losses}")
+    for name, per in _EAGER_LAUNCHES_PER_STEP.items():
+        if launches[name] != per * timed:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches in {timed} eager steps, "
+                f"expected {per} a step")
+    return res
+
+
+def _eager_group(name: str) -> str:
+    """The gradient group of an eager ERNIE parameter."""
+    if name.endswith("_embeddings.weight"):
+        return "embed"
+    if "norm" in name:          # the norms' scales, biases, linear biases
+        return "norms"
+    if "_proj." in name:
+        return "attention"
+    if "ffn_" in name:
+        return "ffn"
+    return "head"               # pooler, classifier
+
+
+# groups upstream of the last LayerNorm, whose dx the ln_dx fault breaks
+# first: every group but the head, whose gradients (and the last layer's
+# output) come before it
+_EAGER_FAULT_GROUPS = ("embed", "attention", "ffn", "norms")
+
+
+def phase_grad_check_eager():
+    """One loss + backward of the eager ERNIE (ERNIE-3.0-base widths,
+    2 layers, dropout 0, batch 4 x 512) under O1 through the kernels, their plain
+    versions, the plain versions with the ln_dx fault, and an f32
+    evaluation (no auto_cast, plain versions) of the same f32 weights;
+    relative RMS distance of the last layer's output and of each
+    gradient group from f32."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nlp import ernie
+    from paddle_tpu_torch.tools.eager_ernie import build_model
+
+    layers, batch, seq = 2, 4, 512
+    cfg = ernie.ErnieConfig.ernie3_base(num_hidden_layers=layers)
+    paddle.set_device("gpu")
+    paddle.seed(SEED + 4)
+    model = build_model(paddle, cfg, dropout=0.0)
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(3)
+    ids = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    labels = paddle.to_tensor(rng.integers(0, cfg.num_labels, (batch,)))
+    last = {}
+    hook = model.layers[len(model.layers) - 1].register_forward_post_hook(
+        lambda layer, inputs, out: last.__setitem__("out", out))
+
+    def run(amp):
+        with paddle.amp.auto_cast(enable=amp, dtype="bfloat16"):
+            loss = loss_fn(model(ids), labels)
+        loss.backward()
+        g = {n: p.grad._data.float() for n, p in model.named_parameters()}
+        model.clear_gradients()
+        return (float(loss), last.pop("out")._data.detach().float()
+                .reshape(-1), g)
+
+    res = {"kernel": run(True)}
+    with _plain_kernels():
+        res["ref"] = run(True)
+    with _plain_kernels(fault="ln_dx"):
+        res["fault"] = run(True)
+    with _plain_kernels():
+        res["f32"] = run(False)
+    hook.remove()
+    groups: dict = {}
+    for n, _ in model.named_parameters():
+        groups.setdefault(_eager_group(n), []).append(n)
+    del model
+    out = _grad_ratios(res, groups, first="last_layer_out")
+    _emit({"phase": "grad_check_eager", "layers": layers, "batch": batch,
+           "seq": seq, "ratio_tol": GRAD_VS_F32_RATIO,
+           "fault_groups": _EAGER_FAULT_GROUPS, **out})
+    del res
+    torch.cuda.empty_cache()
+    _check_grad_ratios(out, groups, _EAGER_FAULT_GROUPS, "ln_dx",
+                       first="last_layer_out")
+    return out
+
+
 # "main": for each path that launches the kernel, the case at that
 # path's shape whose times the kernels line reports (its index among the
 # kernel's cases, or among those of the path where cases name their
@@ -1464,8 +1831,9 @@ _KERNELS = {
         "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:51",
         # serve: S=512, the top prefill bucket; train: B=8 S=2048 + LSE;
-        # train_moe: B=20 S=2048 H=16 + LSE
-        "main": {"serve": 1, "train": 3, "train_moe": 4}},
+        # train_moe: B=20 S=2048 H=16 + LSE; eager: B=64 S=512 H=12
+        # hd=64 non-causal + LSE
+        "main": {"serve": 1, "train": 3, "train_moe": 4, "eager": 5}},
     "ragged_paged_attention": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
@@ -1476,7 +1844,7 @@ _KERNELS = {
         "also_replaces": ["paddle_tpu/kernels/flash_attention.py:360",
                           "paddle_tpu/kernels/flash_attention.py:446",
                           "paddle_tpu/kernels/flash_attention.py:503"],
-        "main": {"train": 0, "train_moe": 2}},
+        "main": {"train": 0, "train_moe": 2, "eager": 3}},
     "rms_norm_fwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:107",
@@ -1498,6 +1866,14 @@ _KERNELS = {
         "source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
         "replaces": "paddle_tpu/kernels/moe_dispatch.py:348",
         "main": {"train_moe": 0}},        # the combine backward
+    "layer_norm_fwd": {
+        "source": "paddle_tpu_torch/csrc/layer_norm.cu",
+        "replaces": "paddle_tpu/kernels/layer_norm.py:38",
+        "main": {"eager": 0}},            # f32 [32768, 768]
+    "layer_norm_bwd": {
+        "source": "paddle_tpu_torch/csrc/layer_norm.cu",
+        "replaces": "paddle_tpu/kernels/layer_norm.py:53",
+        "main": {"eager": 0}},
 }
 _TIMES = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -1542,7 +1918,11 @@ def main() -> int:
     phase_grad_check()
     train_moe = phase_train_moe(peaks)
     phase_grad_check_moe()
-    runs = {"serve": serve, "train": train, "train_moe": train_moe}
+    torch.cuda.empty_cache()
+    eager = phase_eager(peaks)
+    phase_grad_check_eager()
+    runs = {"serve": serve, "train": train, "train_moe": train_moe,
+            "eager": eager}
     _emit({"kernels": _kernels_line(cases, runs)})
     print(_smi_line(), flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -7,8 +7,8 @@ CUDA kernel for Hopper (sm_90a) under `csrc/`, built with nvcc on first
 use (`_build.py`); each kernel's wrapper runs its plain PyTorch version
 on a CPU tensor and the kernel on a CUDA tensor, never one for the other.
 
-Ported so far (the serving, single-device training and MoE training
-slices):
+Ported so far (the serving, single-device training, MoE training and
+eager-API slices):
 
     nlp.llama             LlamaConfig, init_params, params_from_numpy,
                           forward, loss_fn, fused_head_ce, flops_per_token
@@ -29,6 +29,12 @@ slices):
                           (csrc/adamw_q.cu)
     optimizer.transform   the optax transformations the train step uses
     serving               ServingEngine over the batcher
+    core, ops, autograd,  the Paddle-shaped eager API: Tensor, Parameter,
+    amp, nn, optimizer,   to_tensor, the eager dispatch with AMP casts,
+    incubate              torch autograd as the tape, Layer and its
+                          layers, AdamW, the incubate fused layers
+    kernels.layer_norm    the fused LayerNorm's forward and backward
+                          (csrc/layer_norm.cu)
 
     from paddle_tpu_torch.nlp import llama
     from paddle_tpu_torch.serving import ServingEngine
@@ -44,6 +50,35 @@ slices):
     step = train.make_train_step(cfg, tx)
     state, metrics = step(state, tokens)       # tokens [B, S] on the card
 
+    import paddle_tpu_torch as paddle        # the eager API
+    model = paddle.nn.Sequential(paddle.nn.Linear(784, 256),
+                                 paddle.nn.ReLU(), paddle.nn.Linear(256, 10))
+    opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters())
+    loss = paddle.nn.CrossEntropyLoss()(model(x), y)
+    loss.backward(); opt.step(); opt.clear_grad()
+
 Entry points run on the card (`device="cuda"`) and raise without one
-unless the caller passes `device="cpu"`.
+unless the caller passes `device="cpu"`; the eager API places tensors on
+`gpu:0` unless `set_device("cpu")` was called. Importing the package
+builds nothing: each kernel is built on its first launch.
 """
+from .core.dtype import (bool_, uint8, int8, int16, int32,  # noqa: F401
+                         int64, float16, bfloat16, float32, float64,
+                         set_default_dtype, get_default_dtype)
+from .core.device import (set_device, get_device, Place,  # noqa: F401
+                          CPUPlace, CUDAPlace)
+from .core.flags import set_flags, get_flags  # noqa: F401
+from .core.random import seed  # noqa: F401
+from .core.tensor import Tensor, Parameter, to_tensor  # noqa: F401
+from . import autograd  # noqa: F401
+from .autograd import no_grad, enable_grad, set_grad_enabled  # noqa: F401
+from .ops import (zeros, ones, full, arange, add, subtract,  # noqa: F401
+                  multiply, divide, matmul, tanh, exp, reshape, transpose,
+                  split, squeeze, unsqueeze, concat, cast, sum, mean)
+from . import ops  # noqa: F401
+from . import nn  # noqa: F401
+from .nn.layer import ParamAttr  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import amp  # noqa: F401
+from . import incubate  # noqa: F401

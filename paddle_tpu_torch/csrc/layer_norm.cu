@@ -1,0 +1,399 @@
+// LayerNorm forward (saving mean and reciprocal std) and backward for
+// Hopper (sm_90a): the fused-backward norm of the eager API's fused layers
+// (incubate.nn.functional.fused_layer_norm).
+//
+// Replaces: paddle_tpu/kernels/layer_norm.py::_ln_fwd_kernel (pallas_call
+// in _ln_fwd_pallas) and ::_ln_bwd_kernel (pallas_call in _ln_bwd_pallas).
+//
+//   forward:  mu = mean(x), r = 1 / sqrt(mean((x - mu)^2) + eps),
+//             out = (x - mu) * r * w + b; mu, rstd = r saved (f32, per row)
+//   backward: xhat = (x - mu) * r, dyw = dy * w,
+//             dx = r * (dyw - mean(dyw) - xhat * mean(dyw * xhat))
+//             dw = sum over rows of dy * xhat, db = sum over rows of dy
+// x, out, dy, dx in the input dtype (f32 or bf16) [rows, D]; w, b f32 [D]
+// (the wrapper casts them), or null for the affine-free form (w = 1, b = 0);
+// all arithmetic in f32, in the order of the TPU kernels: the variance is
+// the two-pass mean of the centred squares, as the TPU kernel's
+// mean(xc * xc), not Welford and not E[x^2] - mu^2.
+//
+// Bound on the H100: ~8 (fwd) and ~12 (bwd) flops per element against 8
+// and 12 bytes per element in f32 (4 and 6 in bf16), far below the card's
+// ~295 flop/byte ridge: memory bound. At the eager ERNIE step's f32
+// [32768, 768] the forward moves ~201 MB and the backward ~302 MB.
+// Design: each row is read once into registers with 16-byte vector loads
+// (4 f32 or 8 bf16 a vector) and both passes (the mean, then the centred
+// variance) run over the registers. A row of D <= 1024 is one warp's (8
+// rows a block of 256 threads, reductions by warp shuffles only); a wider
+// row (D <= 8192) is one block's (8 warps, shuffles then shared memory).
+// Each thread holds at most 32 values of a row. dw and db are reduced
+// deterministically, without float atomics: each backward block walks a
+// contiguous chunk of rows (its warps take every 8th row), combines its
+// warps' per-column partial sums in a fixed order in shared memory and
+// writes them once to an f32 [2, chunks, D] scratch; a second kernel sums
+// the chunks in order, so two runs give identical bits.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxPerThread = 32;        // values of a row a thread holds
+
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void load(const float* p, float f[4]) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float f[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+template <>
+struct Vec<bf16> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void load(const bf16* p, float f[8]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 q = __bfloat1622float2(h[i]);
+      f[2 * i] = q.x;
+      f[2 * i + 1] = q.y;
+    }
+  }
+  __device__ __forceinline__ static void store(bf16* p, const float f[8]) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+};
+
+// Sum of `v` over the 32 * WPR threads of one row; every one of them gets
+// the total. WPR == 1: a warp's shuffles. WPR == kWarps: the whole block
+// (one row a block), through shared memory `red`.
+template <int WPR>
+__device__ __forceinline__ float row_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (WPR == 1) return v;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();              // red[] is free from the previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) t += red[i];
+  return t;
+}
+
+// WPR warps a row, VPT 16-byte vectors a thread.
+template <typename T, int WPR, int VPT>
+__global__ void __launch_bounds__(kThreads)
+ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ b, T* __restrict__ out,
+              float* __restrict__ mu, float* __restrict__ rstd, int rows,
+              int D, float eps) {
+  constexpr int kN = Vec<T>::kN;
+  constexpr int kTPR = 32 * WPR;
+  __shared__ float red[kWarps];
+  const int t = threadIdx.x % kTPR;
+  const size_t row = (size_t)blockIdx.x * (kThreads / kTPR)
+                     + threadIdx.x / kTPR;
+  if (row >= (size_t)rows) return;   // only when WPR == 1: no block barrier
+  const int nvec = D / kN;
+  const T* xr = x + row * D;
+  float v[VPT][kN];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int vi = t + i * kTPR;
+    if (vi < nvec) {
+      Vec<T>::load(xr + vi * kN, v[i]);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) s += v[i][j];
+    }
+  }
+  const float m = row_sum<WPR>(s, red) / D;
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int vi = t + i * kTPR;
+    if (vi < nvec) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        v[i][j] -= m;
+        ss += v[i][j] * v[i][j];
+      }
+    }
+  }
+  const float r = 1.f / sqrtf(row_sum<WPR>(ss, red) / D + eps);
+  T* orow = out + row * D;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int vi = t + i * kTPR;
+    if (vi < nvec) {
+      float o[kN];
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        o[j] = v[i][j] * r;
+        if (w != nullptr) o[j] = o[j] * w[vi * kN + j] + b[vi * kN + j];
+      }
+      Vec<T>::store(orow + vi * kN, o);
+    }
+  }
+  if (t == 0) {
+    mu[row] = m;
+    rstd[row] = r;
+  }
+}
+
+// Block `blockIdx.x` takes rows [first, first + per); its row groups (8
+// warps when WPR == 1, the whole block when WPR == kWarps) take every
+// (kThreads / 32 / WPR)-th of them. partials: f32 [2, gridDim.x, D]
+// (dw partials, then db partials). With WPR == 1 the dynamic shared
+// memory holds 2 * D floats.
+template <typename T, int WPR, int VPT>
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ mu, const float* __restrict__ rstd,
+              const T* __restrict__ dy, T* __restrict__ dx,
+              float* __restrict__ partials, int rows, int D, int per) {
+  constexpr int kN = Vec<T>::kN;
+  constexpr int kTPR = 32 * WPR;
+  constexpr int kGroups = kThreads / kTPR;
+  __shared__ float red[kWarps];
+  extern __shared__ float acc[];
+  const int t = threadIdx.x % kTPR;
+  const int group = threadIdx.x / kTPR;
+  const int nvec = D / kN;
+  const int first = blockIdx.x * per;
+  const int last = min(rows, first + per);
+  float adw[VPT][kN], adb[VPT][kN];
+#pragma unroll
+  for (int i = 0; i < VPT; ++i)
+#pragma unroll
+    for (int j = 0; j < kN; ++j) adw[i][j] = adb[i][j] = 0.f;
+  for (int row = first + group; row < last; row += kGroups) {
+    const T* xr = x + (size_t)row * D;
+    const T* dr = dy + (size_t)row * D;
+    const float m = mu[row], r = rstd[row];
+    float xh[VPT][kN], dyw[VPT][kN];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int vi = t + i * kTPR;
+      if (vi < nvec) {
+        float dv[kN];
+        Vec<T>::load(xr + vi * kN, xh[i]);
+        Vec<T>::load(dr + vi * kN, dv);
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          xh[i][j] = (xh[i][j] - m) * r;
+          dyw[i][j] = w != nullptr ? dv[j] * w[vi * kN + j] : dv[j];
+          s1 += dyw[i][j];
+          s2 += dyw[i][j] * xh[i][j];
+          adw[i][j] += dv[j] * xh[i][j];
+          adb[i][j] += dv[j];
+        }
+      }
+    }
+    const float m1 = row_sum<WPR>(s1, red) / D;
+    const float m2 = row_sum<WPR>(s2, red) / D;
+    T* xo = dx + (size_t)row * D;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int vi = t + i * kTPR;
+      if (vi < nvec) {
+        float o[kN];
+#pragma unroll
+        for (int j = 0; j < kN; ++j)
+          o[j] = r * (dyw[i][j] - m1 - xh[i][j] * m2);
+        Vec<T>::store(xo + vi * kN, o);
+      }
+    }
+  }
+  float* pw = partials + (size_t)blockIdx.x * D;
+  float* pb = partials + ((size_t)gridDim.x + blockIdx.x) * D;
+  if constexpr (kGroups == 1) {
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int vi = t + i * kTPR;
+      if (vi < nvec) {
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          pw[vi * kN + j] = adw[i][j];
+          pb[vi * kN + j] = adb[i][j];
+        }
+      }
+    }
+  } else {
+  // the block's row groups add their partials in group order
+  for (int c = threadIdx.x; c < 2 * D; c += kThreads) acc[c] = 0.f;
+  __syncthreads();
+  for (int g = 0; g < kGroups; ++g) {
+    if (group == g) {
+#pragma unroll
+      for (int i = 0; i < VPT; ++i) {
+        const int vi = t + i * kTPR;
+        if (vi < nvec) {
+#pragma unroll
+          for (int j = 0; j < kN; ++j) {
+            acc[vi * kN + j] += adw[i][j];
+            acc[D + vi * kN + j] += adb[i][j];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c < D; c += kThreads) {
+    pw[c] = acc[c];
+    pb[c] = acc[D + c];
+  }
+  }
+}
+
+// dw[c] and db[c]: the chunks' partials summed in chunk order.
+__global__ void __launch_bounds__(kThreads)
+ln_dwdb_kernel(const float* __restrict__ partials, float* __restrict__ dw,
+               float* __restrict__ db, int D, int chunks) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= 2 * D) return;
+  const int k = c / D, col = c % D;
+  const float* p = partials + (size_t)k * chunks * D + col;
+  float s = 0.f;
+  for (int i = 0; i < chunks; ++i) s += p[(size_t)i * D];
+  (k == 0 ? dw : db)[col] = s;
+}
+
+// Vectors a thread holds: the smallest instantiated count that covers
+// `need`, among 1, 2, 4, 6 and 8 (bf16: 1, 2, 3 and 4), so that a thread
+// holds at most kMaxPerThread values; 0 when none does.
+template <typename T>
+int pick_vpt(int need) {
+  const int opts_f32[] = {1, 2, 4, 6, 8};
+  const int opts_bf16[] = {1, 2, 3, 4};
+  const bool f32 = Vec<T>::kN == 4;
+  const int* opts = f32 ? opts_f32 : opts_bf16;
+  const int n = f32 ? 5 : 4;
+  for (int i = 0; i < n; ++i)
+    if (opts[i] >= need) return opts[i];
+  return 0;
+}
+
+#define PTT_VPT_F32(M, WPR) \
+  switch (vpt) { case 1: M(WPR, 1); break; case 2: M(WPR, 2); break;     \
+                 case 4: M(WPR, 4); break; case 6: M(WPR, 6); break;     \
+                 default: M(WPR, 8); }
+#define PTT_VPT_BF16(M, WPR) \
+  switch (vpt) { case 1: M(WPR, 1); break; case 2: M(WPR, 2); break;     \
+                 case 3: M(WPR, 3); break; default: M(WPR, 4); }
+
+template <typename T>
+int launch_fwd(const void* x, const void* w, const void* b, void* out,
+               void* mu, void* rstd, int rows, int D, float eps,
+               cudaStream_t s) {
+  constexpr int kN = Vec<T>::kN;
+  if (D % 8 || D > kThreads * kMaxPerThread || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nvec = D / kN;
+  const bool warp_row = nvec <= 32 * (kMaxPerThread / kN);
+  const int tpr = warp_row ? 32 : kThreads;
+  const int vpt = pick_vpt<T>((nvec + tpr - 1) / tpr);
+  if (vpt == 0) return (int)cudaErrorInvalidValue;
+  const int rpb = kThreads / tpr;
+  const int grid = (rows + rpb - 1) / rpb;
+#define PTT_FWD(WPR, V)                                                    \
+  ln_fwd_kernel<T, WPR, V><<<grid, kThreads, 0, s>>>(                      \
+      static_cast<const T*>(x), static_cast<const float*>(w),             \
+      static_cast<const float*>(b), static_cast<T*>(out),                 \
+      static_cast<float*>(mu), static_cast<float*>(rstd), rows, D, eps)
+  if constexpr (kN == 4) {
+    if (warp_row) { PTT_VPT_F32(PTT_FWD, 1) } else { PTT_VPT_F32(PTT_FWD, kWarps) }
+  } else {
+    if (warp_row) { PTT_VPT_BF16(PTT_FWD, 1) } else { PTT_VPT_BF16(PTT_FWD, kWarps) }
+  }
+#undef PTT_FWD
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* w, const void* mu,
+               const void* rstd, const void* dy, void* dx, void* dw,
+               void* db, void* partials, int rows, int D, int chunks,
+               cudaStream_t s) {
+  constexpr int kN = Vec<T>::kN;
+  if (D % 8 || D > kThreads * kMaxPerThread || rows < 1 || chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nvec = D / kN;
+  const bool warp_row = nvec <= 32 * (kMaxPerThread / kN);
+  const int tpr = warp_row ? 32 : kThreads;
+  const int vpt = pick_vpt<T>((nvec + tpr - 1) / tpr);
+  if (vpt == 0) return (int)cudaErrorInvalidValue;
+  const int per = (rows + chunks - 1) / chunks;
+  const int used = (rows + per - 1) / per;
+  const size_t smem = warp_row ? 2 * D * sizeof(float) : 0;
+#define PTT_BWD(WPR, V)                                                    \
+  ln_bwd_kernel<T, WPR, V><<<used, kThreads, smem, s>>>(                   \
+      static_cast<const T*>(x), static_cast<const float*>(w),             \
+      static_cast<const float*>(mu), static_cast<const float*>(rstd),     \
+      static_cast<const T*>(dy), static_cast<T*>(dx),                     \
+      static_cast<float*>(partials), rows, D, per)
+  if constexpr (kN == 4) {
+    if (warp_row) { PTT_VPT_F32(PTT_BWD, 1) } else { PTT_VPT_F32(PTT_BWD, kWarps) }
+  } else {
+    if (warp_row) { PTT_VPT_BF16(PTT_BWD, 1) } else { PTT_VPT_BF16(PTT_BWD, kWarps) }
+  }
+#undef PTT_BWD
+  ln_dwdb_kernel<<<(2 * D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      static_cast<const float*>(partials), static_cast<float*>(dw),
+      static_cast<float*>(db), D, used);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Each returns the launch's cudaError_t (0 on success). w and b are f32
+// [D] or both null (affine-free); mu and rstd f32 [rows].
+extern "C" int ln_fwd_f32(const void* x, const void* w, const void* b,
+                          void* out, void* mu, void* rstd, int rows, int D,
+                          float eps, void* stream) {
+  return launch_fwd<float>(x, w, b, out, mu, rstd, rows, D, eps,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ln_fwd_bf16(const void* x, const void* w, const void* b,
+                           void* out, void* mu, void* rstd, int rows, int D,
+                           float eps, void* stream) {
+  return launch_fwd<bf16>(x, w, b, out, mu, rstd, rows, D, eps,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// `partials` is an f32 [2, chunks, D] scratch; dw and db are f32 [D].
+extern "C" int ln_bwd_f32(const void* x, const void* w, const void* mu,
+                          const void* rstd, const void* dy, void* dx,
+                          void* dw, void* db, void* partials, int rows, int D,
+                          int chunks, void* stream) {
+  return launch_bwd<float>(x, w, mu, rstd, dy, dx, dw, db, partials, rows,
+                           D, chunks, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ln_bwd_bf16(const void* x, const void* w, const void* mu,
+                           const void* rstd, const void* dy, void* dx,
+                           void* dw, void* db, void* partials, int rows,
+                           int D, int chunks, void* stream) {
+  return launch_bwd<bf16>(x, w, mu, rstd, dy, dx, dw, db, partials, rows,
+                          D, chunks, static_cast<cudaStream_t>(stream));
+}

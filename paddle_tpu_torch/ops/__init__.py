@@ -1,0 +1,59 @@
+"""paddle_tpu_torch.ops — the functional op surface of the eager API.
+
+Port of paddle_tpu/ops/__init__.py (:28-150), holding the ops the eager
+path uses. As in the JAX package, every op is exported here and attached
+as a Tensor method, with Paddle's method aliases and the arithmetic
+operators. In-place variants (`add_`, ...) arrive with the rest of the
+eager API (ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+from ..core.tensor import Tensor
+
+from ._registry import defop, eager, as_array  # noqa: F401
+from .creation import to_tensor, zeros, ones, full, arange  # noqa: F401
+from .math import (add, subtract, multiply, divide, exp, tanh,  # noqa: F401
+                   matmul)
+from .manipulation import (reshape, transpose, squeeze,  # noqa: F401
+                           unsqueeze, cast, concat, split, getitem)
+from .reduction import sum, mean  # noqa: F401
+
+from . import creation, math, manipulation, reduction  # noqa: F401
+
+# paddle method aliases
+_ALIASES = {"sub": "subtract", "mul": "multiply", "div": "divide"}
+
+
+def _attach():
+    for fn in (add, subtract, multiply, divide, exp, tanh, matmul, reshape,
+               transpose, squeeze, unsqueeze):
+        if not hasattr(Tensor, fn.__name__):
+            setattr(Tensor, fn.__name__, fn)
+    for alias, target in _ALIASES.items():
+        setattr(Tensor, alias, getattr(Tensor, target))
+
+    def _swap(f):
+        def r(self, other):
+            return f(to_tensor(other, place=self.place), self)
+        return r
+
+    Tensor.__add__ = lambda s, o: add(s, o)
+    Tensor.__radd__ = lambda s, o: add(s, o)
+    Tensor.__sub__ = lambda s, o: subtract(s, o)
+    Tensor.__rsub__ = _swap(subtract)
+    Tensor.__mul__ = lambda s, o: multiply(s, o)
+    Tensor.__rmul__ = lambda s, o: multiply(s, o)
+    Tensor.__truediv__ = lambda s, o: divide(s, o)
+    Tensor.__rtruediv__ = _swap(divide)
+    Tensor.__matmul__ = lambda s, o: matmul(s, o)
+    Tensor.__rmatmul__ = _swap(matmul)
+
+    Tensor.sum = lambda s, axis=None, dtype=None, keepdim=False, name=None: \
+        sum(s, axis, dtype, keepdim)
+    Tensor.mean = lambda s, axis=None, keepdim=False, name=None: \
+        mean(s, axis, keepdim)
+    Tensor.split = lambda s, num_or_sections, axis=0, name=None: \
+        split(s, num_or_sections, axis)
+
+
+_attach()

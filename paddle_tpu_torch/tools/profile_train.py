@@ -1,7 +1,7 @@
 """Where a training step's time goes on one NVIDIA GPU.
 
-    python -m paddle_tpu_torch.tools.profile_train [--model llama|moe]
-                                                   [--layers N]
+    python -m paddle_tpu_torch.tools.profile_train
+        [--model llama|moe|eager_ernie] [--layers N]
 
 `--model llama` (default) builds the flagship dense config (bench.py:120:
 D 4096, F 9472, 11 layers, GQA 32/8, V 32000; batch 8 x 2048);
@@ -18,7 +18,10 @@ step ends in a synchronize), the device time summed by kernel class
 (GEMM, flash forward, flash backward, RMSNorm, AdamW, MoE dispatch,
 other; for the MoE model also "routing", the device time of the torch
 ops inside `moe.top_k_routing`'s "moe_routing" range, taken out of
-"other"), the device busy time (the sum over kernels; one stream, so
+"other"; for the eager model the LayerNorm kernels as "layer_norm", and
+the device and host time of each range: the backward's device time is
+the busy time less the other two ranges', since autograd launches it from
+its own thread), the device busy time (the sum over kernels; one stream, so
 they do not overlap), the idle share 1 - busy / wall, the kernel launch
 count and the port's own kernel launches by wrapper. The last line names
 the card and its power limit.
@@ -34,9 +37,10 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-# the training batch of each model (bench.py:369-370 and bench.py:87)
-_BATCH = {"llama": 8, "moe": 20}
-_SEQ = 2048
+# the training batch and length of each model (bench.py:369-370,
+# bench.py:87 and bench.py:134)
+_BATCH = {"llama": 8, "moe": 20, "eager_ernie": 64}
+_SEQ = {"llama": 2048, "moe": 2048, "eager_ernie": 512}
 _GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet", "cublas")
 # kernel symbol names of csrc/*.cu, by class
 _PORT_KERNELS = (("flash_fwd_kernel", "flash_fwd"),
@@ -45,7 +49,11 @@ _PORT_KERNELS = (("flash_fwd_kernel", "flash_fwd"),
                  ("rms_bwd_kernel", "rms"), ("rms_dw_kernel", "rms"),
                  ("adamw_q_kernel", "adamw"),
                  ("gather_wsum_kernel", "moe_dispatch"),
-                 ("gather_scale_dot_kernel", "moe_dispatch"))
+                 ("gather_scale_dot_kernel", "moe_dispatch"),
+                 ("ln_fwd_kernel", "layer_norm"),
+                 ("ln_bwd_kernel", "layer_norm"),
+                 ("ln_dwdb_kernel", "layer_norm"))
+_EAGER_RANGES = ("eager_forward", "eager_backward", "eager_optimizer")
 
 
 def _kernel_class(name: str) -> str:
@@ -69,6 +77,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.model == "eager_ernie":
+        return _main_eager(args)
     from ..kernels import flash_attention as fa
     from ..kernels import moe_dispatch as md
     from ..kernels import rms_norm as rn
@@ -88,7 +98,7 @@ def main(argv=None) -> int:
         model=model)
     step = train.make_train_step(cfg, tx, model=model)
     tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (batch, _SEQ))).cuda()
+        0, cfg.vocab_size, (batch, _SEQ[args.model]))).cuda()
     state, _ = step(state, tokens)                    # warm-up, untraced
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -113,14 +123,37 @@ def main(argv=None) -> int:
         state, m = step(state, tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    by_class, launches, ranges = _device_times(prof, ("moe_routing",))
+    routing_ms = ranges["moe_routing"]["device_ms"]
+    if routing_ms:
+        by_class["routing"] = routing_ms
+        by_class["other"] = by_class.get("other", 0.0) - routing_ms
+    busy = sum(by_class.values())
+    tok = batch * _SEQ[args.model]
+    print(json.dumps({
+        "step": "train", "traced": True, "wall_ms": wall * 1e3,
+        "untraced_wall_ms": untraced * 1e3, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / (wall * 1e3),
+        "device_ms_by_class": by_class, "kernel_launches": launches,
+        "port_launches": {n: c.launches for n, c in counters.items()},
+        "tokens": tok, "untraced_tokens_per_s": tok / untraced,
+        "loss": float(m["loss"])}), flush=True)
+    _print_device(args, cfg.num_hidden_layers, batch)
+    return 0
+
+
+def _device_times(prof, range_names):
+    """(device ms by kernel class, kernel launches, {range: {device_ms,
+    host_ms}}) of a traced step. A range's device time is that of the
+    kernels of the ops launched inside it on its own thread."""
     by_class: dict = {}
     launches = 0
-    routing_us = 0.0
+    ranges = {n: {"device_ms": 0.0, "host_ms": 0.0} for n in range_names}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
-            if ev.name == "moe_routing":
-                # the kernels of the ops launched inside the range
-                routing_us += ev.device_time_total
+            if ev.name in ranges:
+                ranges[ev.name]["device_ms"] += ev.device_time_total / 1e3
+                ranges[ev.name]["host_ms"] += ev.cpu_time_total / 1e3
             continue
         if getattr(ev, "is_user_annotation", False):
             continue        # the range's span on the device, not a kernel
@@ -130,27 +163,81 @@ def main(argv=None) -> int:
         launches += c != "memcpy"
     if not by_class:
         raise RuntimeError("torch.profiler recorded no device activity")
-    if routing_us:
-        by_class["routing"] = routing_us / 1e3
-        by_class["other"] = by_class.get("other", 0.0) - routing_us / 1e3
-    busy = sum(by_class.values())
-    tok = batch * _SEQ
-    print(json.dumps({
-        "step": "train", "traced": True, "wall_ms": wall * 1e3,
-        "untraced_wall_ms": untraced * 1e3, "device_busy_ms": busy,
-        "idle_share": 1.0 - busy / (wall * 1e3),
-        "device_ms_by_class": by_class, "kernel_launches": launches,
-        "port_launches": {n: c.launches for n, c in counters.items()},
-        "tokens": tok, "untraced_tokens_per_s": tok / untraced,
-        "loss": float(m["loss"])}), flush=True)
+    return by_class, launches, ranges
+
+
+def _print_device(args, layers, batch):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(json.dumps({"model": args.model,
-                      "layers": cfg.num_hidden_layers, "batch": batch,
-                      "seq": _SEQ,
+    print(json.dumps({"model": args.model, "layers": layers, "batch": batch,
+                      "seq": _SEQ[args.model],
                       "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}), flush=True)
+
+
+def _main_eager(args) -> int:
+    """The eager ERNIE step (`--model eager_ernie`)."""
+    import paddle_tpu_torch as paddle
+    from ..kernels import flash_attention as fa
+    from ..kernels import layer_norm as ln
+    from ..nlp import ernie
+    from .eager_ernie import build_model, train_step
+
+    over = ({} if args.layers is None
+            else {"num_hidden_layers": args.layers})
+    cfg = ernie.ErnieConfig.ernie3_base(**over)
+    batch, seq = _BATCH[args.model], _SEQ[args.model]
+    paddle.set_device("gpu")
+    paddle.seed(args.seed)
+    model = build_model(paddle, cfg, dropout=0.1)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=2e-5, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(args.seed)
+    ids = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    labels = paddle.to_tensor(rng.integers(0, cfg.num_labels, (batch,)))
+
+    def step(span=None):
+        return train_step(paddle, model, loss_fn, opt, ids, labels,
+                          span=span)
+
+    step()                                            # warm-up, untraced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    counters = {"layer_norm_fwd": ln.layer_norm_fwd,
+                "layer_norm_bwd": ln.layer_norm_bwd,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd": fa.flash_attention_bwd}
+    for c in counters.values():
+        c.launches = 0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        loss = step(span=torch.profiler.record_function)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_class, launches, ranges = _device_times(prof, _EAGER_RANGES)
+    busy = sum(by_class.values())
+    # autograd launches the backward from its own thread
+    ranges["eager_backward"]["device_ms"] = busy - sum(
+        ranges[n]["device_ms"] for n in ("eager_forward", "eager_optimizer"))
+    tok = batch * seq
+    print(json.dumps({
+        "step": "eager_train", "traced": True, "wall_ms": wall * 1e3,
+        "untraced_wall_ms": untraced * 1e3, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / (wall * 1e3),
+        "device_ms_by_class": by_class, "ranges": ranges,
+        "kernel_launches": launches,
+        "port_launches": {n: c.launches for n, c in counters.items()},
+        "tokens": tok, "untraced_tokens_per_s": tok / untraced,
+        "loss": float(loss)}), flush=True)
+    _print_device(args, cfg.num_hidden_layers, batch)
     return 0
 
 
