@@ -77,9 +77,34 @@ non-zero:
                with the LayerNorm backward dropping x̂·mean(dyw·x̂) as the
                planted fault.
 
+  8. eager_llama — a Llama at the flagship widths and depth (bench.py:120:
+               V 32000, D 4096, F 9472, 11 layers, GQA 32/8) composed from
+               the eager API's layers (tools/eager_llama.py: FusedRMSNorm,
+               the fused RoPE, F.flash_attention, swiglu), f32 params
+               under O1 bf16, AdamW lr 1e-4 with the global clip, 2
+               warm-up and 4 timed steps of batch 2 x 2048. The row-6
+               RMSNorm must launch exactly 23 times a step, the causal
+               flash forward and backward 11; losses falling, peak memory
+               under 80 GB. Then the gradient check at 2 layers, batch
+               1 x 2048, with the row-6 norm reading its weight one column
+               off as the planted fault.
+  9. ernie   — ERNIE-3.0-base through nlp/ernie.py with bench.py:134-181's
+               finetune step (tools/ernie_finetune.py: adamw 2e-5 over the
+               functional tree, bf16 compute), batch 64 x 512 padded to
+               lengths 128-512 under a [B, S] attention mask: 2 warm-up
+               and 4 timed steps; the key-masked head-major flash forward
+               and backward exactly 12 a step, no LayerNorm kernel. Then
+               the gradient check at 2 layers, batch 4 x 512, with the
+               flash backward's plain version dropping the key mask as
+               the planted fault.
+
 The kernels phase also holds the fused LayerNorm forward and backward at
-the eager step's f32 [32768, 768] and in bf16, and the flash forward and
-backward non-causal at B=64 S=512 H=12 hd=64.
+the eager step's f32 [32768, 768] and in bf16, the flash forward and
+backward non-causal at B=64 S=512 H=12 hd=64 and causal at the eager
+Llama's B=2 x 2048, the row-6 RMSNorm at f32 [4096, 4096], bf16
+[16384, 4096], D 776 and affine-free, and the key-masked flash in
+'bhsd' at the ERNIE step's lengths, in 'bshd', unmasked, with a batch
+row that sees no key and at an unaligned length (500).
 
 The last lines are the kernels JSON object, the `nvidia-smi` name/power
 line and {"ok": true, "device": {...}}. Imports nothing of JAX or of the
@@ -360,6 +385,11 @@ RSTD_TOL = 1e-5
 LN_F32_TOL = 1e-5
 LN_STAT_TOL = 1e-5
 LN_SUM_TOL = 1e-4
+# The f32 row-6 RMSNorm: the kernel and the plain version compute the same
+# f32 expressions, differing in the order of a row's sum of squares (and
+# rsqrtf against torch's rsqrt, ~2 ulps): ~1e-7 of the row's scale; 1e-5
+# leaves a wide margin while a wrong element or weight column reads ~1e-1.
+RMS_F32_TOL = 1e-5
 # 8-bit AdamW: params within one bf16 ulp (of the larger of the value
 # before and after the step) of the plain version, float8
 # codes within one e4m3 step of their value, scales to 1e-6 relative, and
@@ -486,6 +516,159 @@ def _rms_cases(rows, D, peaks, gen, eps=1e-5):
            **_bound(9.0 * rows * D,
                     3.0 * rows * D * 2 + 4.0 * rows + 2.0 * D * 2, peaks,
                     peaks[2])}
+    return fwd, bwd
+
+
+def _rms_fused_cases(rows, D, dtype, w_dtype, peaks, gen, flush,
+                     on_path=False):
+    """Row 6 at [rows, D] (x in `dtype`; a weight in `w_dtype`, or
+    affine-free with None) against its plain version `rms_norm_ref`: per
+    row, f32 within RMS_F32_TOL, bf16 within KERNEL_TOL; bit-identical
+    twice. Times with the L2 cache flushed before each call, beside
+    F.rms_norm. `on_path`: the eager Llama step's form, launched 23 times
+    a step."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    eps = 1e-5
+    x = (torch.randn(rows, D, device="cuda", generator=gen) + 0.3).to(dtype)
+    w = None if w_dtype is None else \
+        (1 + 0.1 * torch.randn(D, device="cuda", generator=gen)).to(w_dtype)
+    out = rn.rms_norm_fused(x, w, eps)
+    again = rn.rms_norm_fused(x, w, eps)
+    ref = rn.rms_norm_ref(x, w, eps)
+    torch.cuda.synchronize()
+    rel = _rel_err(out, ref)
+    tol = RMS_F32_TOL if dtype == torch.float32 else KERNEL_TOL
+    name = (f"rows={rows} D={D} {str(dtype).replace('torch.', '')}"
+            + (" affine-free" if w is None else
+               f" w {str(w_dtype).replace('torch.', '')}"))
+    if not rel <= tol:
+        raise AssertionError(f"rms_norm_fused [{name}]: {rel} > {tol}")
+    if not torch.equal(out, again):
+        raise AssertionError(f"rms_norm_fused [{name}]: two runs differ")
+    wl = None if w is None else w.to(dtype)
+    es = x.element_size()
+    path = ({"path": "eager_llama", "step_launches": 23} if on_path
+            else {"path": None})
+    return {"shape": name, **path,
+            "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+            "max_rel_err": rel,
+            "ms": _time_ms(lambda: rn.rms_norm_fused(x, w, eps), 20, flush),
+            "plain_ms": _time_ms(lambda: rn.rms_norm_ref(x, w, eps), 5,
+                                 flush),
+            "library_ms": _time_ms(lambda: F.rms_norm(x, (D,), wl, eps), 20,
+                                   flush),
+            # x read, out written, the weight read; ~4 f32 operations a
+            # value (square-add, scale, weight)
+            **_bound(4.0 * rows * D, 2.0 * es * rows * D
+                     + (0 if w is None else w.element_size() * D), peaks,
+                     peaks[2])}
+
+
+def _sdpa_masked_ms(q, k, v, dout, mask4, layout, iters):
+    """SDPA given the same boolean key mask ([B, 1, 1, Sk]), non-causal,
+    in its [B, H, S, D] layout: (forward ms, backward ms as forward +
+    backward minus forward). The library yardstick; the port never calls
+    it."""
+    import torch.nn.functional as F
+    t = (lambda x: x) if layout == "bhsd" else (lambda x: x.transpose(1, 2))
+    qt, kt, vt = (t(x).detach().requires_grad_(True) for x in (q, k, v))
+    dot = t(dout)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask4)
+
+    def both():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        f = _time_ms(fwd, iters)
+    with torch.enable_grad():
+        return f, _time_ms(both, iters) - _time_ms(fwd, iters)
+
+
+def _masked_flash_cases(B, S, H, hd, layout, lengths, peaks, gen, label=""):
+    """The non-causal flash forward (+ LSE) and backward with the [B, S]
+    key mask of `lengths` (keys j < lengths[b] visible; None: unmasked) in
+    `layout`, against the plain versions: output per (position, head)
+    within KERNEL_TOL and the LSE within LSE_TOL on the rows that see a
+    key, dq, dk, dv within KERNEL_TOL (GRAD_ROW_FLOOR), the backward bit
+    for bit twice. A batch row that sees no key must give exactly 0 out,
+    an LSE of -1e30 and no gradient, and a masked key dk = dv = 0 exactly
+    (the TPU kernel's semantics). Timed beside SDPA given the same
+    boolean mask."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    shape = (B, H, S, hd) if layout == "bhsd" else (B, S, H, hd)
+    q, k, v, dout = (torch.randn(shape, device="cuda", generator=gen)
+                     .bfloat16() for _ in range(4))
+    km = None if lengths is None else \
+        torch.arange(S, device="cuda")[None] < lengths[:, None]
+    kw = {"causal": False, "key_mask": km, "layout": layout}
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    ref, lse_r = fa.flash_attention_fwd_ref(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    rgot = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    bshd = (lambda x: x.transpose(1, 2)) if layout == "bhsd" else \
+        (lambda x: x)
+    seen = (torch.ones(B, dtype=torch.bool, device="cuda") if km is None
+            else km.any(1))
+    rows = seen[:, None, None].expand(B, S, H)
+    name = (f"B={B} S={S} H={H} hd={hd} {layout} "
+            + ("unmasked" if km is None else "masked") + label)
+    rel = _rel_err(bshd(out), bshd(ref), rows)
+    lse_err = (lse - lse_r)[seen].abs().max().item()
+    brel = {n: _rel_err(bshd(a), bshd(b), rows if n == "dq" else None,
+                        floor=GRAD_ROW_FLOOR)
+            for n, a, b in zip(("dq", "dk", "dv"), got, rgot)}
+    if not (rel <= KERNEL_TOL and lse_err <= LSE_TOL
+            and all(r <= KERNEL_TOL for r in brel.values())):
+        raise AssertionError(f"masked flash [{name}]: out {rel}, lse "
+                             f"{lse_err}, grads {brel}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"masked flash bwd [{name}]: two runs differ")
+    del again
+    if km is not None:
+        hidden = ~km                                # [B, S] masked keys
+        unseen = ~seen
+        if unseen.any() and not (
+                bshd(out)[unseen].eq(0).all()
+                and bool((lse[unseen] <= -1e29).all())
+                and bshd(got[0])[unseen].eq(0).all()):
+            raise AssertionError(f"masked flash [{name}]: a row that sees "
+                                 f"no key gave output or gradient")
+        if not all(bshd(g)[hidden].eq(0).all() for g in got[1:]):
+            raise AssertionError(f"masked flash [{name}]: a masked key got "
+                                 f"dk or dv")
+    visible = B * S if km is None else int(km.sum())
+    pairs = float(S) * visible                  # every query, visible keys
+    mask4 = None if km is None else km[:, None, None, :]
+    lib_f, lib_b = _sdpa_masked_ms(q, k, v, dout, mask4, layout, 10)
+    mbytes = 0.0 if km is None else B * S
+    err = lambda a, b: (a.float() - b.float()).abs().max().item()  # noqa
+    fwd = {"shape": name, "max_abs_err": err(out, ref),
+           "max_rel_err": rel, "lse_abs_err": lse_err,
+           "ms": _time_ms(lambda: fa.flash_attention_fwd(
+               q, k, v, return_lse=True, **kw), 20),
+           "plain_ms": _time_ms(lambda: fa.flash_attention_fwd_ref(
+               q, k, v, return_lse=True, **kw), 3),
+           "library_ms": lib_f,
+           # q, k, v, the mask in; out and the f32 LSE written
+           **_bound(4.0 * H * hd * pairs, 2.0 * B * S * H * hd * 4
+                    + 4.0 * B * H * S + mbytes, peaks)}
+    bwd = {"shape": name,
+           "max_abs_err": max(err(a, b) for a, b in zip(got, rgot)),
+           "max_rel_err": max(brel.values()), "rel_err": brel,
+           "ms": _time_ms(lambda: fa.flash_attention_bwd(
+               q, k, v, out, lse, dout, **kw), 10),
+           "plain_ms": _time_ms(lambda: fa.flash_attention_bwd_ref(
+               q, k, v, out, lse, dout, **kw), 2),
+           "library_ms": lib_b,
+           # five products over the visible pairs; q, k, v, out, dout,
+           # lse, the mask in, dq, dk, dv out
+           **_bound(10.0 * H * hd * pairs, 2.0 * B * S * H * hd * 8
+                    + 4.0 * B * H * S + mbytes, peaks)}
     return fwd, bwd
 
 
@@ -851,6 +1034,9 @@ def phase_kernels(peaks):
     # the eager ERNIE step's attention: non-causal, B=64 S=512 H=KV=12
     flash.append(_flash_case(64, 512, 12, 12, 64, peaks, KERNEL_TOL, gen,
                              lse=True, causal=False))
+    # the eager Llama step's: causal GQA, B=2 S=2048 + LSE
+    flash.append(_flash_case(2, 2048, H, KV, hd, peaks, KERNEL_TOL, gen,
+                             lse=True))
     ragged = [_ragged_case(kind, H, KV, hd, peaks, KERNEL_TOL, gen, flush)
               for kind in ("decode", "fused", "continue")]
     wsum, sdot, moe_info = _moe_dispatch_cases(peaks, gen, flush)
@@ -869,6 +1055,14 @@ def phase_kernels(peaks):
                 (4096, 8192, bf16, False), (4096, 8192, f32, True),
                 (32768, 768, f32, False), (4099, 776, bf16, True),
                 (4099, 1032, f32, False))]
+    # row 6: the eager Llama's f32 [4096, 4096] (23 a step), bf16 with a
+    # bf16 weight, a width off the warp's round at 4099 rows, affine-free
+    rms_fused = [_rms_fused_cases(2 * 2048, 4096, f32, f32, peaks, gen,
+                                  flush, on_path=True)]
+    rms_fused += [_rms_fused_cases(rows, D, dt, wdt, peaks, gen, flush)
+                  for rows, D, dt, wdt in (
+                      (16384, 4096, bf16, bf16), (4099, 776, f32, f32),
+                      (4099, 776, bf16, None), (4096, 4096, f32, None))]
     del scratch
     torch.cuda.empty_cache()
     bwd = [_flash_bwd_case(B, S, h, kv, hd, peaks, gen)
@@ -876,6 +1070,28 @@ def phase_kernels(peaks):
                                (20, 2048, 16, 8))]
     bwd.append(_flash_bwd_case(64, 512, 12, 12, 64, peaks, gen,
                                causal=False))
+    bwd.append(_flash_bwd_case(2, 2048, H, KV, hd, peaks, gen))
+    # the ERNIE step's key-masked head-major attention at the path's
+    # lengths; then masked 'bshd', unmasked 'bhsd', a batch row that sees
+    # no key, and an unaligned length
+    from paddle_tpu_torch.nlp import ernie
+    from paddle_tpu_torch.tools.ernie_finetune import padded_batch
+    lengths = padded_batch(ernie.ErnieConfig.ernie3_base(), 64, 512)[2] \
+        .sum(1)
+    small = torch.randint(128, 513, (16,), device="cuda", generator=gen)
+    few = torch.tensor([0, 512, 200, 77], device="cuda")
+    masked = [_masked_flash_cases(64, 512, 12, 64, "bhsd", lengths, peaks,
+                                  gen),
+              _masked_flash_cases(16, 512, 12, 64, "bshd", small, peaks,
+                                  gen),
+              _masked_flash_cases(64, 512, 12, 64, "bhsd", None, peaks, gen),
+              _masked_flash_cases(4, 512, 12, 64, "bhsd", few, peaks, gen,
+                                  " (row 0 sees no key)"),
+              _masked_flash_cases(16, 500, 12, 64, "bhsd",
+                                  small.clamp(max=500), peaks, gen)]
+    flash += [f for f, _ in masked]
+    bwd += [b for _, b in masked]
+    torch.cuda.empty_cache()
     rms = [_rms_cases(8 * 2048, 4096, peaks, gen),
            _rms_cases(20 * 2048, 2048, peaks, gen, eps=1e-6)]
     adamw = []
@@ -892,11 +1108,12 @@ def phase_kernels(peaks):
              "rms_norm_bwd": [b for _, b in rms], "adamw_q": adamw,
              "gather_wsum": wsum, "gather_scale_dot": sdot,
              "layer_norm_fwd": [f for f, _ in lns],
-             "layer_norm_bwd": [b for _, b in lns]}
+             "layer_norm_bwd": [b for _, b in lns],
+             "rms_norm_fused": rms_fused}
     _emit({"phase": "kernels", "tol": KERNEL_TOL, "lse_tol": LSE_TOL,
            "rstd_tol": RSTD_TOL, "adamw_code_frac": ADAMW_CODE_FRAC,
            "ln_f32_tol": LN_F32_TOL, "ln_stat_tol": LN_STAT_TOL,
-           "ln_sum_tol": LN_SUM_TOL,
+           "ln_sum_tol": LN_SUM_TOL, "rms_f32_tol": RMS_F32_TOL,
            "moe_routing": moe_info, **cases})
     torch.cuda.empty_cache()
     return cases
@@ -1351,7 +1568,9 @@ def _plain_kernels(fault=None):
     dcap = rowsum(dO * O); fault="dispatch", the MoE dispatch backward
     drops each token's second choice (its weight set to 0);
     fault="ln_dx", the LayerNorm backward drops the x̂·mean(dyw·x̂) term
-    of dx."""
+    of dx; fault="rms_w", the row-6 RMSNorm reads its weight one column
+    off (column j scaled by w[j - 1]); fault="mask", the flash backward
+    drops the key mask."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.kernels import moe_dispatch as md
@@ -1359,13 +1578,23 @@ def _plain_kernels(fault=None):
     saved = (fa.flash_attention_fwd, fa.flash_attention_bwd,
              rn.rms_norm_fwd, rn.rms_norm_bwd, md.gather_wsum,
              md.gather_scale_dot, md._dispatch_bwd, ln.layer_norm_fwd,
-             ln.layer_norm_bwd)
+             ln.layer_norm_bwd, rn.rms_norm_fused)
+    rms_ref = rn.rms_norm_ref
 
-    def bwd(q, k, v, out, lse, dout, causal=True, scale=None):
+    def bwd(q, k, v, out, lse, dout, causal=True, scale=None, key_mask=None,
+            layout="bshd"):
         if fault == "dcap":
             out = torch.zeros_like(out)
+        if fault == "mask":
+            key_mask = None
         return fa.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                          causal=causal, scale=scale)
+                                          causal=causal, scale=scale,
+                                          key_mask=key_mask, layout=layout)
+
+    def rms_fused(x, w=None, eps=1e-6):
+        if fault == "rms_w" and w is not None:
+            w = torch.roll(w, 1)
+        return rms_ref(x, w, eps)
 
     def dispatch_bwd(g, flat, k):
         B, Mk = flat.shape
@@ -1389,12 +1618,14 @@ def _plain_kernels(fault=None):
         _ln_bwd_dropped_term if fault == "ln_dx" else
         lambda x, w, mu, rstd, dy, eps=1e-5: ln._ln_ref_bwd(
             x, w, dy, eps, w is not None))
+    rn.rms_norm_fused = rms_fused
     try:
         yield
     finally:
         (fa.flash_attention_fwd, fa.flash_attention_bwd, rn.rms_norm_fwd,
          rn.rms_norm_bwd, md.gather_wsum, md.gather_scale_dot,
-         md._dispatch_bwd, ln.layer_norm_fwd, ln.layer_norm_bwd) = saved
+         md._dispatch_bwd, ln.layer_norm_fwd, ln.layer_norm_bwd,
+         rn.rms_norm_fused) = saved
 
 
 def _ln_bwd_dropped_term(x, weight, mu, rstd, dy, eps=1e-5):
@@ -1820,6 +2051,339 @@ def phase_grad_check_eager():
     return out
 
 
+# --------------------------------------------------------- 8. eager Llama
+# every kernel's launches in one eager Llama step: the two norms of each
+# of the 11 layers and the final norm, forward only (the backward is the
+# plain version's vjp); one causal flash forward and backward a layer
+_EAGER_LLAMA_LAUNCHES_PER_STEP = {"rms_norm_fused": 23,
+                                  "flash_attention_fwd": 11,
+                                  "flash_attention_bwd": 11}
+# one key-masked flash forward and backward a layer of the ERNIE step; its
+# norms are plain torch, as in the JAX package: no LayerNorm kernel
+_ERNIE_LAUNCHES_PER_STEP = {"flash_attention_fwd": 12,
+                            "flash_attention_bwd": 12,
+                            "layer_norm_fwd": 0, "layer_norm_bwd": 0}
+
+
+def _path_counters(names):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    every = {"rms_norm_fused": rn.rms_norm_fused,
+             "flash_attention_fwd": fa.flash_attention_fwd,
+             "flash_attention_bwd": fa.flash_attention_bwd,
+             "layer_norm_fwd": ln.layer_norm_fwd,
+             "layer_norm_bwd": ln.layer_norm_bwd}
+    return {n: every[n] for n in names}
+
+
+def _run_steps(step, counters, warmup, timed):
+    """`warmup` then `timed` calls of step() → loss (a scalar tensor or
+    Tensor), the counters zeroed between them and read after the timed
+    ones, one synchronize around those: (losses, seconds, launches, peak
+    device memory)."""
+    losses = [step() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(timed)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    return ([float(x) for x in losses], dt, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def _check_path(name, res, per_step, timed):
+    losses = res["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    if not res["peak_memory_bytes"] < 80e9:
+        raise AssertionError(f"{name}: peak memory "
+                             f"{res['peak_memory_bytes']} over 80 GB")
+    for kernel, per in per_step.items():
+        if res["launches"][kernel] != per * timed:
+            raise AssertionError(
+                f"{name}: {kernel} launched {res['launches'][kernel]} times "
+                f"in {timed} steps, expected {per} a step")
+
+
+def phase_eager_llama(peaks):
+    """A Llama at the flagship widths and depth (bench.py:120-131: V 32000,
+    D 4096, F 9472, 11 layers, GQA 32/8 of 128) composed from the eager
+    API's layers (`tools/eager_llama.build_model`: FusedRMSNorm, the fused
+    RoPE, F.flash_attention, swiglu), f32 parameters under O1 bf16
+    auto_cast, AdamW at lr 1e-4 with the global-norm clip at 1.0, the
+    same batch of 2 x 2048 from default_rng(0) every step: 2 warm-up then
+    4 timed steps. Row 6 must launch exactly 23 times a step (in f32:
+    fused_rms_norm is on neither AMP list), the causal flash forward and
+    backward 11 each; losses finite and falling, peak memory under
+    80 GB."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nlp import llama
+    from paddle_tpu_torch.tools.eager_llama import build_model, train_step
+
+    cfg = llama.LlamaConfig.flagship_2b()
+    warmup, timed, batch, seq = 2, 4, 2, 2048
+    paddle.set_device("gpu")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    paddle.seed(SEED)
+    model = build_model(paddle, cfg)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    tokens = paddle.to_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq)))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, dt, launches, peak = _run_steps(
+        lambda: train_step(paddle, model, loss_fn, opt, tokens),
+        _path_counters(_EAGER_LLAMA_LAUNCHES_PER_STEP), warmup, timed)
+    tok_s = batch * seq * timed / dt
+    fpt = llama.flops_per_token(cfg, seq)
+    res = {"phase": "eager_llama",
+           "config": "LlamaConfig.flagship_2b (bench.py:120-131), "
+                     "composed from layers",
+           "widths": {"V": cfg.vocab_size, "D": cfg.hidden_size,
+                      "F": cfg.intermediate_size,
+                      "L": cfg.num_hidden_layers,
+                      "H": cfg.num_attention_heads,
+                      "KV": cfg.num_key_value_heads, "hd": cfg.head_dim},
+           "params": sum(p.size for p in model.parameters()),
+           "batch": batch, "seq": seq, "steps": warmup + timed,
+           "timed_steps": timed, "step_ms": dt / timed * 1e3,
+           "tokens_per_s": tok_s, "flops_per_token": fpt,
+           "mfu": tok_s * fpt / peaks[0], "losses": losses,
+           "peak_memory_bytes": peak, "init_s": init_s,
+           "launches": launches,
+           "launches_per_step": {n: c / timed for n, c in launches.items()},
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    del model, opt, tokens
+    torch.cuda.empty_cache()
+    _check_path("eager_llama", res, _EAGER_LLAMA_LAUNCHES_PER_STEP, timed)
+    return res
+
+
+def phase_ernie(peaks):
+    """ERNIE-3.0-base (BASELINE config 1) through nlp/ernie.py with the
+    recipe of bench.py:134-181 (`tools/ernie_finetune.build_ernie_step`:
+    finetune_loss, its gradient over the functional tree, adamw 2e-5,
+    f32 params and bf16 compute), batch 64 x 512 padded to lengths drawn
+    uniform in 128-512 from a fixed seed and passed as the [B, S]
+    attention_mask: 2 warm-up then 4 timed steps. The key-masked
+    head-major flash forward and backward must launch exactly 12 times a
+    step each and the LayerNorm kernels never; losses finite and
+    falling."""
+    from paddle_tpu_torch.nlp import ernie
+    from paddle_tpu_torch.tools.ernie_finetune import build_ernie_step
+
+    warmup, timed, batch, seq = 2, 4, 64, 512
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, state, data, cfg = build_ernie_step(batch, seq)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    box = [state]
+
+    def one():
+        box[0], m = step(box[0], data)
+        return m["loss"]
+
+    losses, dt, launches, peak = _run_steps(
+        one, _path_counters(_ERNIE_LAUNCHES_PER_STEP), warmup, timed)
+    tok_s = batch * seq * timed / dt
+    fpt = ernie.flops_per_token(cfg, seq)
+    lengths = data[2].sum(1)
+    res = {"phase": "ernie",
+           "config": "ErnieConfig.ernie3_base (BASELINE config 1, "
+                     "bench.py:134-181) through nlp/ernie.py",
+           "widths": {"V": cfg.vocab_size, "D": cfg.hidden_size,
+                      "L": cfg.num_hidden_layers,
+                      "H": cfg.num_attention_heads, "hd": cfg.head_dim,
+                      "F": cfg.intermediate_size},
+           "params": ernie.num_params(cfg), "batch": batch, "seq": seq,
+           "valid_tokens": int(lengths.sum()),
+           "lengths": [int(lengths.min()), int(lengths.max())],
+           "steps": warmup + timed, "timed_steps": timed,
+           "step_ms": dt / timed * 1e3, "tokens_per_s": tok_s,
+           "flops_per_token": fpt, "mfu": tok_s * fpt / peaks[0],
+           "losses": losses, "peak_memory_bytes": peak, "init_s": init_s,
+           "launches": launches,
+           "launches_per_step": {n: c / timed for n, c in launches.items()},
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    del box, state, step, data
+    torch.cuda.empty_cache()
+    _check_path("ernie", res, _ERNIE_LAUNCHES_PER_STEP, timed)
+    return res
+
+
+def _eager_llama_group(name: str) -> str:
+    """The gradient group of an eager Llama parameter."""
+    if name.startswith("embed_tokens"):
+        return "embed"
+    if "norm" in name:
+        return "norms"
+    if any(p in name for p in ("q_proj", "k_proj", "v_proj", "o_proj")):
+        return "attention"
+    if any(p in name for p in ("gate_proj", "up_proj", "down_proj")):
+        return "mlp"
+    return "head"
+
+
+def phase_grad_check_eager_llama():
+    """One loss + backward of the eager Llama (flagship widths, 2 layers,
+    batch 1 x 2048) under O1 through the kernels, their plain versions,
+    the plain versions with the rms_w fault, and an f32 evaluation (no
+    auto_cast, plain versions) of the same f32 weights; relative RMS
+    distance of the last layer's output and of each gradient group from
+    f32. The norm gains are drawn as 1 + 0.1 N(0, 1): at their initial
+    1 a gain read one column off is the same gain, and the planted fault
+    could not show. The fault is in the forward of every norm, so every
+    group and the last layer's output must read it."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nlp import llama
+    from paddle_tpu_torch.tools.eager_llama import build_model, lm_loss
+
+    layers, batch, seq = 2, 1, 2048
+    cfg = llama.LlamaConfig.flagship_2b(num_hidden_layers=layers)
+    paddle.set_device("gpu")
+    paddle.seed(SEED + 5)
+    model = build_model(paddle, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if "norm" in n:
+                p._data.copy_(1 + 0.1 * torch.randn(
+                    p._data.shape, device=p._data.device, generator=gen))
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    tokens = paddle.to_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (batch, seq)))
+    last = {}
+    hook = model.layers[len(model.layers) - 1].register_forward_post_hook(
+        lambda layer, inputs, out: last.__setitem__("out", out))
+
+    def run(amp):
+        with paddle.amp.auto_cast(enable=amp, dtype="bfloat16"):
+            loss = lm_loss(loss_fn, model(tokens), tokens)
+        loss.backward()
+        g = {n: p.grad._data.float() for n, p in model.named_parameters()}
+        model.clear_gradients()
+        return (float(loss), last.pop("out")._data.detach().float()
+                .reshape(-1), g)
+
+    res = {"kernel": run(True)}
+    with _plain_kernels():
+        res["ref"] = run(True)
+    with _plain_kernels(fault="rms_w"):
+        res["fault"] = run(True)
+    with _plain_kernels():
+        res["f32"] = run(False)
+    hook.remove()
+    groups: dict = {}
+    for n, _ in model.named_parameters():
+        groups.setdefault(_eager_llama_group(n), []).append(n)
+    del model
+    fault_groups = ("last_layer_out", *groups)
+    out = _grad_ratios(res, groups, first="last_layer_out")
+    _emit({"phase": "grad_check_eager_llama", "layers": layers,
+           "batch": batch, "seq": seq, "ratio_tol": GRAD_VS_F32_RATIO,
+           "fault_groups": fault_groups, **out})
+    del res
+    torch.cuda.empty_cache()
+    _check_grad_ratios(out, groups, fault_groups, "rms_w",
+                       first="last_layer_out")
+    return out
+
+
+def _ernie_group(name: str):
+    """The gradient group of an nlp/ernie.py leaf (None: the MLM head,
+    which the finetune loss does not use)."""
+    if name.startswith("mlm"):
+        return None
+    if "embeddings" in name:
+        return "embed"
+    if "norm" in name:
+        return "norms"
+    if name.startswith("layers/") and name[7] in "qkvo":
+        return "attention"
+    if "ffn" in name:
+        return "ffn"
+    return "head"           # pooler, classifier
+
+
+# groups upstream of the last layer's attention backward, where the mask
+# fault first acts: every attention weight, the lower layer's FFN and
+# norms, and the embeddings; the head's gradients come before it
+_ERNIE_FAULT_GROUPS = ("embed", "attention", "ffn", "norms")
+
+
+def phase_grad_check_ernie():
+    """One finetune loss + backward of nlp/ernie.py (ERNIE-3.0-base
+    widths, 2 layers, batch 4 x 512 padded to lengths in 128-512) in bf16
+    compute through the kernels, their plain versions, the plain versions
+    with the mask fault (the flash backward's plain version drops the key
+    mask), and an f32 evaluation (f32 compute, plain versions) of the same
+    f32 parameters; relative RMS distance of the encoder output and of
+    each gradient group from f32."""
+    import dataclasses
+    from paddle_tpu_torch.nlp import ernie
+    from paddle_tpu_torch.nlp.train import value_and_grad
+    from paddle_tpu_torch.tools.ernie_finetune import padded_batch
+
+    layers, batch, seq = 2, 4, 512
+    cfg = ernie.ErnieConfig.ernie3_base(num_hidden_layers=layers)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = ernie.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 7))
+    ids, labels, mask = padded_batch(cfg, batch, seq, seed=SEED + 3)
+
+    def run(c):
+        loss, g = value_and_grad(
+            lambda p: ernie.finetune_loss(p, ids, labels, c,
+                                          attention_mask=mask), params)
+        with torch.no_grad():
+            seq_out = ernie.encode(params, ids, attention_mask=mask, cfg=c)
+        flat = {}
+        for k, v in g.items():
+            if isinstance(v, dict):
+                flat.update({f"{k}/{kk}": vv.float() for kk, vv in v.items()})
+            else:
+                flat[k] = v.float()
+        return float(loss), seq_out.float().reshape(-1), flat
+
+    res = {"kernel": run(cfg)}
+    with _plain_kernels():
+        res["ref"] = run(cfg)
+    with _plain_kernels(fault="mask"):
+        res["fault"] = run(cfg)
+    with _plain_kernels():
+        res["f32"] = run(cfg32)
+    groups: dict = {}
+    for n in res["f32"][2]:
+        gname = _ernie_group(n)
+        if gname is not None:
+            groups.setdefault(gname, []).append(n)
+    out = _grad_ratios(res, groups, first="encoder_out")
+    _emit({"phase": "grad_check_ernie", "layers": layers, "batch": batch,
+           "seq": seq, "lengths": mask.sum(1).tolist(),
+           "ratio_tol": GRAD_VS_F32_RATIO,
+           "fault_groups": _ERNIE_FAULT_GROUPS, **out})
+    del res, params
+    torch.cuda.empty_cache()
+    _check_grad_ratios(out, groups, _ERNIE_FAULT_GROUPS, "mask",
+                       first="encoder_out")
+    return out
+
+
 # "main": for each path that launches the kernel, the case at that
 # path's shape whose times the kernels line reports (its index among the
 # kernel's cases, or among those of the path where cases name their
@@ -1832,8 +2396,10 @@ _KERNELS = {
         "replaces": "paddle_tpu/kernels/flash_attention.py:51",
         # serve: S=512, the top prefill bucket; train: B=8 S=2048 + LSE;
         # train_moe: B=20 S=2048 H=16 + LSE; eager: B=64 S=512 H=12
-        # hd=64 non-causal + LSE
-        "main": {"serve": 1, "train": 3, "train_moe": 4, "eager": 5}},
+        # hd=64 non-causal + LSE; eager_llama: B=2 S=2048 + LSE; ernie:
+        # B=64 S=512 H=12 hd=64 bhsd key-masked + LSE
+        "main": {"serve": 1, "train": 3, "train_moe": 4, "eager": 5,
+                 "eager_llama": 6, "ernie": 7}},
     "ragged_paged_attention": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
@@ -1844,7 +2410,8 @@ _KERNELS = {
         "also_replaces": ["paddle_tpu/kernels/flash_attention.py:360",
                           "paddle_tpu/kernels/flash_attention.py:446",
                           "paddle_tpu/kernels/flash_attention.py:503"],
-        "main": {"train": 0, "train_moe": 2, "eager": 3}},
+        "main": {"train": 0, "train_moe": 2, "eager": 3, "eager_llama": 4,
+                 "ernie": 5}},
     "rms_norm_fwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:107",
@@ -1874,6 +2441,10 @@ _KERNELS = {
         "source": "paddle_tpu_torch/csrc/layer_norm.cu",
         "replaces": "paddle_tpu/kernels/layer_norm.py:53",
         "main": {"eager": 0}},
+    "rms_norm_fused": {
+        "source": "paddle_tpu_torch/csrc/rms_norm.cu",
+        "replaces": "paddle_tpu/kernels/rms_norm.py:28",
+        "main": {"eager_llama": 0}},      # f32 [4096, 4096]
 }
 _TIMES = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -1921,8 +2492,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     eager = phase_eager(peaks)
     phase_grad_check_eager()
+    eager_llama = phase_eager_llama(peaks)
+    phase_grad_check_eager_llama()
+    ernie = phase_ernie(peaks)
+    phase_grad_check_ernie()
     runs = {"serve": serve, "train": train, "train_moe": train_moe,
-            "eager": eager}
+            "eager": eager, "eager_llama": eager_llama, "ernie": ernie}
     _emit({"kernels": _kernels_line(cases, runs)})
     print(_smi_line(), flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

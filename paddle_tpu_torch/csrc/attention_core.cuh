@@ -32,6 +32,16 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
 
+// Element strides of a [batch, seq, head, head_dim] tensor whose head_dim
+// stride is 1, in either layout ('bshd' or 'bhsd'): the offset of row
+// (b, s, h) is b * this->b + s * this->s + h * this->h.
+struct Strides {
+  long long b, s, h;
+  __device__ __forceinline__ size_t at(int bi, int si, int hi) const {
+    return (size_t)(bi * b + si * s + hi * h);
+  }
+};
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

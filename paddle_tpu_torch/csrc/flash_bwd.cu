@@ -1,4 +1,5 @@
-// Causal GQA flash-attention backward for Hopper (sm_90a).
+// GQA flash-attention backward for Hopper (sm_90a): causal, or
+// bidirectional with an optional key-padding mask, in either layout.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py's backward kernels, the
 // four schedules of flash_attention_pallas_bwd: _flash_bwd_combined_kernel_res
@@ -8,21 +9,28 @@
 // fit 16 MB of scoped VMEM; here one design serves every length.
 //
 // Computes, from q [B, Sq, H, hd], k/v [B, Sk, KV, hd], out and dout
-// [B, Sq, H, hd] (bf16) and the forward's lse [B, H, Sq] (f32, natural
-// log of the scaled scores):
-//   P  = exp(scale * Q K^T - lse)          (causal: key j <= i + Sk - Sq)
+// [B, Sq, H, hd] (bf16; or the head-major [B, H, S, hd] of 'bhsd': every
+// tensor is read and written through its batch, sequence and head
+// strides) and the forward's lse [B, H, Sq] (f32, natural log of the
+// scaled scores):
+//   P  = exp(scale * Q K^T - lse) where key j is visible to query i
+//        (causal: j <= i + Sk - Sq; key mask: key_mask[b, j] != 0), else 0
 //   dcap_i = sum_d dO_i * O_i
 //   dS = P o (dO V^T - dcap) * scale
 //   dQ = dS K,   dK = dS^T Q,   dV = P^T dO
 // with dK and dV summed over each KV head's rep = H / KV query heads.
+// The mask zeroes P, not the scores (the TPU kernels' p re-mask,
+// flash_attention.py:417, :486): a masked key gets dK = dV = 0, and a row
+// that sees no key (its lse is -1e30) contributes nothing.
 // Products on mma.sync.m16n8k16 (bf16 in, f32 accumulate); P and dS are
 // rounded to bf16 only as the A operands of the second products.
 //
 // Three kernels, in order on the caller's stream:
-//   dcap — one warp per (batch, query, head) row: rowsum(dO * O) into an
+//   dcap — one warp per (batch, head, query) row: rowsum(dO * O) into an
 //          f32 [B, H, Sq] scratch (the XLA op of the TPU wrapper).
 //   dkdv — grid (B * KV, 64-key tiles); a block holds its K/V tile in
-//          shared memory, each warp 16 keys, and walks the rep query heads
+//          shared memory, each warp 16 keys (their visibilities in
+//          registers), and walks the rep query heads
 //          of its group and, for each, the 32-query tiles from the causal
 //          diagonal on, accumulating dK and dV in f32 registers. GQA needs
 //          neither an expanded K/V nor a reduction over the group.
@@ -36,12 +44,14 @@
 // products against two) over the same O(S * hd) bytes, so tensor-core
 // bound at training lengths. What this simple version leaves: the dkdv
 // blocks re-read each query tile from L2 once per key tile, loads are not
-// pipelined against the products, and there is no wgmma or TMA.
+// pipelined against the products, there is no wgmma or TMA, and key tiles
+// whose keys are all masked are still walked.
 #include "attention_core.cuh"
 
 namespace {
 
 using ptt::bf16;
+using ptt::Strides;
 using ptt::mma_bf16;
 using ptt::pack_bf16;
 using ptt::pack_raw;
@@ -52,15 +62,20 @@ constexpr int kQTile = 32;      // dkdv: queries per inner step
 constexpr int kQRows = 64;      // dq: queries per block, 16 per warp
 
 // ------------------------------------------------------------------ dcap
+// row runs over the [B, H, Sq] order of dcap
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 dcap_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-            float* __restrict__ dcap, long rows, int Sq, int H) {
+            float* __restrict__ dcap, long rows, int Sq, int H, Strides os,
+            Strides ds) {
   const long row = (long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
-  const bf16* op = o + row * HD;
-  const bf16* dp = dout + row * HD;
+  const int i = (int)(row % Sq);
+  const long bh = row / Sq;
+  const int h = (int)(bh % H), b = (int)(bh / H);
+  const bf16* op = o + os.at(b, i, h);
+  const bf16* dp = dout + ds.at(b, i, h);
   float acc = 0.f;
 #pragma unroll
   for (int c = lane * 2; c < HD; c += 64) {
@@ -72,14 +87,7 @@ dcap_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   }
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
-  if (lane == 0) {
-    // row runs over [b][i][h]; dcap is [b][h][i]
-    const int h = (int)(row % H);
-    const long bi = row / H;
-    const int i = (int)(bi % Sq);
-    const long b = bi / Sq;
-    dcap[(b * H + h) * Sq + i] = acc;
-  }
+  if (lane == 0) dcap[row] = acc;
 }
 
 // ------------------------------------------------------------------ dkdv
@@ -126,8 +134,10 @@ __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const bf16* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dcap,
+            const unsigned char* __restrict__ key_mask,
             bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
-            int H, int KV, float scale, int causal) {
+            int H, int KV, Strides qs, Strides ks, Strides vs, Strides dos,
+            Strides dks, Strides dvs, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DkdvSmem<HD>& sm = *reinterpret_cast<DkdvSmem<HD>*>(smem_raw);
   const int bkv = blockIdx.x, b = bkv / KV, kvh = bkv % KV;
@@ -140,12 +150,22 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   stage_rows<HD, kKeyTile>(sm.k, [&](int r) -> const bf16* {
     const int j = k0 + r;
-    return j < Sk ? k + (((size_t)b * Sk + j) * KV + kvh) * HD : nullptr;
+    return j < Sk ? k + ks.at(b, j, kvh) : nullptr;
   });
   stage_rows<HD, kKeyTile>(sm.v, [&](int r) -> const bf16* {
     const int j = k0 + r;
-    return j < Sk ? v + (((size_t)b * Sk + j) * KV + kvh) * HD : nullptr;
+    return j < Sk ? v + vs.at(b, j, kvh) : nullptr;
   });
+  const int wrow = warp * 16;                 // this warp's first tile key
+  // this lane's two keys (rows g and g + 8 of its warp's 16): in range
+  // and unmasked, held in registers for the whole block
+  bool key_vis[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int j = k0 + wrow + g + hh * 8;
+    key_vis[hh] =
+        j < Sk && (key_mask == nullptr || key_mask[(size_t)b * Sk + j] != 0);
+  }
 
   float dka[HD / 8][4], dva[HD / 8][4];
 #pragma unroll
@@ -157,7 +177,6 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q_first = causal ? max(0, k0 - off) : 0;
   const int qt0 = q_first / kQTile;
   const int n_qt = (Sq + kQTile - 1) / kQTile;
-  const int wrow = warp * 16;                 // this warp's first tile key
 
   for (int r = 0; r < rep; ++r) {
     const int h = kvh * rep + r;
@@ -166,11 +185,11 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       __syncthreads();   // the previous step is done with the q/dO tiles
       stage_rows<HD, kQTile>(sm.q, [&](int rr) -> const bf16* {
         const int i = i0 + rr;
-        return i < Sq ? q + (((size_t)b * Sq + i) * H + h) * HD : nullptr;
+        return i < Sq ? q + qs.at(b, i, h) : nullptr;
       });
       stage_rows<HD, kQTile>(sm.dout, [&](int rr) -> const bf16* {
         const int i = i0 + rr;
-        return i < Sq ? dout + (((size_t)b * Sq + i) * H + h) * HD : nullptr;
+        return i < Sq ? dout + dos.at(b, i, h) : nullptr;
       });
       if (threadIdx.x < kQTile) {
         const int i = i0 + threadIdx.x;
@@ -209,7 +228,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int key = k0 + wrow + g + (e >> 1) * 8;
           const int jq = nt * 8 + 2 * t + (e & 1);
           const int i = i0 + jq;
-          const bool vis = key < Sk && i < Sq && (!causal || key <= i + off);
+          const bool vis =
+              key_vis[e >> 1] && i < Sq && (!causal || key <= i + off);
           const float p =
               vis ? exp2f(s[nt][e] * scale_log2 - sm.lse[jq]) : 0.f;
           s[nt][e] = p;
@@ -246,13 +266,14 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hh = 0; hh < 2; ++hh) {
     const int key = k0 + wrow + g + hh * 8;
     if (key >= Sk) continue;
-    const size_t base = (((size_t)b * Sk + key) * KV + kvh) * HD;
+    bf16* dkr = dk + dks.at(b, key, kvh);
+    bf16* dvr = dv + dvs.at(b, key, kvh);
 #pragma unroll
     for (int nt = 0; nt < HD / 8; ++nt) {
       const int c = nt * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dk + base + c) =
+      *reinterpret_cast<uint32_t*>(dkr + c) =
           pack_bf16(dka[nt][2 * hh], dka[nt][2 * hh + 1]);
-      *reinterpret_cast<uint32_t*>(dv + base + c) =
+      *reinterpret_cast<uint32_t*>(dvr + c) =
           pack_bf16(dva[nt][2 * hh], dva[nt][2 * hh + 1]);
     }
   }
@@ -264,9 +285,11 @@ __global__ void __launch_bounds__(kThreads)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const bf16* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dcap,
-          bf16* __restrict__ dq, int Sq, int Sk, int H, int KV, float scale,
-          int causal) {
+          const unsigned char* __restrict__ key_mask, bf16* __restrict__ dq,
+          int Sq, int Sk, int H, int KV, Strides qs, Strides ks, Strides vs,
+          Strides dos, Strides dqs, float scale, int causal) {
   __shared__ ptt::KVTile<HD> tile;
+  __shared__ bool key_vis[ptt::kKeys];
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -279,12 +302,10 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // Q and dO A-fragments of this warp's rows g and g + 8, for all of hd
   uint32_t qa[HD / 16][4], da[HD / 16][4];
   const int r0 = row0 + g, r1 = row0 + g + 8;
-  const bf16* q0 = r0 < Sq ? q + (((size_t)b * Sq + r0) * H + h) * HD : nullptr;
-  const bf16* q1 = r1 < Sq ? q + (((size_t)b * Sq + r1) * H + h) * HD : nullptr;
-  const bf16* d0 =
-      r0 < Sq ? dout + (((size_t)b * Sq + r0) * H + h) * HD : nullptr;
-  const bf16* d1 =
-      r1 < Sq ? dout + (((size_t)b * Sq + r1) * H + h) * HD : nullptr;
+  const bf16* q0 = r0 < Sq ? q + qs.at(b, r0, h) : nullptr;
+  const bf16* q1 = r1 < Sq ? q + qs.at(b, r1, h) : nullptr;
+  const bf16* d0 = r0 < Sq ? dout + dos.at(b, r0, h) : nullptr;
+  const bf16* d1 = r1 < Sq ? dout + dos.at(b, r1, h) : nullptr;
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
     const int c = ks * 16 + 2 * t;
@@ -312,19 +333,24 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int last = Sk - 1;
   if (causal) last = min(last, q_tile0 + kQRows - 1 + off);
   const int n_tiles = last < 0 ? 0 : last / ptt::kKeys + 1;
-  const bf16* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
-  const bf16* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
+  const unsigned char* mrow =
+      key_mask != nullptr ? key_mask + (size_t)b * Sk : nullptr;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * ptt::kKeys;
     ptt::load_tile<HD>(
         tile,
         [&](int j) -> const bf16* {
-          return k0 + j < Sk ? kb + (size_t)(k0 + j) * KV * HD : nullptr;
+          return k0 + j < Sk ? k + ks.at(b, k0 + j, kvh) : nullptr;
         },
         [&](int j) -> const bf16* {
-          return k0 + j < Sk ? vb + (size_t)(k0 + j) * KV * HD : nullptr;
+          return k0 + j < Sk ? v + vs.at(b, k0 + j, kvh) : nullptr;
         });
+    if (threadIdx.x < ptt::kKeys) {
+      const int key = k0 + threadIdx.x;
+      key_vis[threadIdx.x] =
+          key < Sk && (mrow == nullptr || mrow[key] != 0);
+    }
     __syncthreads();
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -352,8 +378,10 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int hh = e >> 1;
           const int i = row0 + g + hh * 8;
-          const int key = k0 + kh + nt * 8 + 2 * t + (e & 1);
-          const bool vis = i < Sq && key < Sk && (!causal || key <= i + off);
+          const int kj = kh + nt * 8 + 2 * t + (e & 1);
+          const int key = k0 + kj;
+          const bool vis =
+              i < Sq && key_vis[kj] && (!causal || key <= i + off);
           const float p = vis ? exp2f(s[nt][e] * scale_log2 - lrow[hh]) : 0.f;
           dp[nt][e] = p * (dp[nt][e] - crow[hh]) * scale;
         }
@@ -382,7 +410,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hh = 0; hh < 2; ++hh) {
     const int i = row0 + g + hh * 8;
     if (i >= Sq) continue;
-    bf16* out = dq + (((size_t)b * Sq + i) * H + h) * HD;
+    bf16* out = dq + dqs.at(b, i, h);
 #pragma unroll
     for (int nt = 0; nt < HD / 8; ++nt)
       *reinterpret_cast<uint32_t*>(out + nt * 8 + 2 * t) =
@@ -390,45 +418,57 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// st: the strides of q, k, v, out, dout, dq, dk, dv, in that order
 template <int HD>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
            const bf16* dout, const float* lse, float* dcap, bf16* dq,
-           bf16* dk, bf16* dv, int B, int Sq, int Sk, int H, int KV,
-           float scale, int causal, cudaStream_t stream) {
+           bf16* dk, bf16* dv, const unsigned char* mask, int B, int Sq,
+           int Sk, int H, int KV, const Strides* st, float scale, int causal,
+           cudaStream_t stream) {
   const long rows = (long)B * Sq * H;
   const int warps = kThreads / 32;
   dcap_kernel<HD><<<(unsigned)((rows + warps - 1) / warps), kThreads, 0,
-                    stream>>>(o, dout, dcap, rows, Sq, H);
+                    stream>>>(o, dout, dcap, rows, Sq, H, st[3], st[4]);
   const int smem = (int)sizeof(DkdvSmem<HD>);
   cudaError_t err = cudaFuncSetAttribute(
       dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 g1(B * KV, (Sk + kKeyTile - 1) / kKeyTile);
   dkdv_kernel<HD><<<g1, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, dcap, dk, dv, Sq, Sk, H, KV, scale, causal);
+      q, k, v, dout, lse, dcap, mask, dk, dv, Sq, Sk, H, KV, st[0], st[1],
+      st[2], st[4], st[6], st[7], scale, causal);
   dim3 g2(B * H, (Sq + kQRows - 1) / kQRows);
-  dq_kernel<HD><<<g2, kThreads, 0, stream>>>(q, k, v, dout, lse, dcap, dq,
-                                             Sq, Sk, H, KV, scale, causal);
+  dq_kernel<HD><<<g2, kThreads, 0, stream>>>(
+      q, k, v, dout, lse, dcap, mask, dq, Sq, Sk, H, KV, st[0], st[1], st[2],
+      st[4], st[5], scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dcap is an f32 [B, H, Sq] scratch the caller allocates. Returns the
-// launches' cudaError_t (0 on success).
+// dcap is an f32 [B, H, Sq] scratch the caller allocates; `key_mask`
+// (uint8 [B, Sk]) may be null; `strides` is a host array of 24 int64: the
+// batch, sequence and head strides (in elements) of q, k, v, out, dout,
+// dq, dk and dv, in that order. Returns the launches' cudaError_t (0 on
+// success).
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const void* lse, void* dcap, void* dq,
-                              void* dk, void* dv, int B, int Sq, int Sk,
-                              int H, int KV, int hd, float scale, int causal,
-                              void* stream) {
+                              void* dk, void* dv, const void* key_mask,
+                              int B, int Sq, int Sk, int H, int KV, int hd,
+                              const long long* strides, float scale,
+                              int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Strides st[8];
+  for (int t = 0; t < 8; ++t)
+    st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
 #define PTT_ARGS                                                          \
   static_cast<const bf16*>(q), static_cast<const bf16*>(k),               \
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),           \
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),     \
       static_cast<float*>(dcap), static_cast<bf16*>(dq),                  \
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sq, Sk, H, KV,   \
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv),                     \
+      static_cast<const unsigned char*>(key_mask), B, Sq, Sk, H, KV, st,  \
       scale, causal, s
   if (hd == 128) return launch<128>(PTT_ARGS);
   if (hd == 64) return launch<64>(PTT_ARGS);

@@ -1,43 +1,59 @@
-// Causal GQA flash-attention forward for Hopper (sm_90a).
+// GQA flash-attention forward for Hopper (sm_90a): causal, or
+// bidirectional with an optional key-padding mask, in either layout.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py::_flash_fwd_kernel
 // (pallas_call in _fwd_call) on the serving path's cold prefill
-// (nlp/paged.py::_attention_paged, is_prefill=True) and in the training
-// forward (nlp/llama.py::_attention), where it also writes the LSE.
+// (nlp/paged.py::_attention_paged, is_prefill=True), in the training
+// forward (nlp/llama.py::_attention), where it also writes the LSE, in the
+// eager API's flash_attention / scaled_dot_product_attention, and in the
+// ERNIE encoder (nlp/ernie.py::_encoder_layer: head-major, key-masked).
 //
 // Computes out[b, i, h] = softmax(q[b, i, h] . k[b, :, h // rep]^T * scale
-// masked to keys j <= i + (Sk - Sq)) . v[b, :, h // rep], the bottom-right
-// causal alignment of mha_ref. q [B, Sq, H, hd], k/v [B, Sk, KV, hd], out
-// [B, Sq, H, hd], all bf16 and contiguous; scores and accumulation f32.
-// With a non-null `lse` [B, H, Sq] (f32) it also writes each row's
-// log-sum-exp of the scaled scores, the residual of the backward
-// (flash_bwd.cu), in the domain the TPU kernel keeps it.
+// over the visible keys) . v[b, :, h // rep]. Causal: key j is visible to
+// query i when j <= i + (Sk - Sq), the bottom-right alignment of mha_ref.
+// With a non-null `key_mask` (uint8 [B, Sk], nonzero = visible), key j of
+// batch row b is visible to every query of that row only where
+// key_mask[b, j] != 0; a row that sees no key writes zeros and an LSE of
+// -1e30, as the TPU kernel does (mha_ref would give uniform attention).
+// q/out [B, Sq, H, hd] and k/v [B, Sk, KV, hd] ('bshd') or [B, H, Sq, hd]
+// and [B, KV, Sk, hd] ('bhsd'): the kernel reads every tensor through its
+// batch, sequence and head strides (elements; the head_dim stride is 1),
+// so neither layout is copied into the other. bf16 in and out; scores and
+// accumulation f32. With a non-null `lse` [B, H, Sq] (f32) it also writes
+// each row's log-sum-exp of the scaled scores, the residual of the
+// backward (flash_bwd.cu), in the domain the TPU kernel keeps it.
 // Query head h reads KV head h / (H / KV) straight from k/v: the expanded
 // K/V is never built. Rows and keys past Sq / Sk are masked here, so any
-// Sq <= Sk runs without padding copies.
+// Sq and Sk run without padding copies.
 //
 // Bound on the H100: at prefill widths (hd = 128, S in the hundreds) the
 // work is ~4 * hd * (S^2 / 2) flops per (batch, head) against ~4 * S * hd
 // bytes, i.e. far above the card's ~295 flop/byte ridge: tensor-core bound.
 // Design: one block per (batch * head, 64-query tile), 4 warps x 16 rows;
-// K/V tiles of 64 keys staged in shared memory; QK^T and PV on mma.sync
-// (attention_core.cuh); the key loop stops at the tile's causal diagonal,
-// so a causal call does about half the work of a full one. Not done yet:
-// wgmma, TMA, a multi-stage copy pipeline and sharing one K/V tile among
-// the rep query heads of a group.
+// K/V tiles of 64 keys staged in shared memory, with the tile's 64 key
+// visibilities (in range and unmasked) staged beside them once per tile;
+// QK^T and PV on mma.sync (attention_core.cuh); the key loop stops at the
+// tile's causal diagonal, so a causal call does about half the work of a
+// full one. Not done yet: wgmma, TMA, a multi-stage copy pipeline, sharing
+// one K/V tile among the rep query heads of a group, and skipping K tiles
+// whose keys are all masked.
 #include "attention_core.cuh"
 
 namespace {
 
 using ptt::bf16;
+using ptt::Strides;
 
 template <int HD>
 __global__ void __launch_bounds__(ptt::kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
-                 float scale_log2, int causal) {
+                 float* __restrict__ lse,
+                 const unsigned char* __restrict__ key_mask, int Sq, int Sk,
+                 int H, int KV, Strides qs, Strides ks, Strides vs,
+                 Strides os, float scale_log2, int causal) {
   __shared__ ptt::KVTile<HD> tile;
+  __shared__ bool key_vis[ptt::kKeys];
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);
   const int warp = threadIdx.x >> 5;
@@ -48,37 +64,41 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ptt::WarpState<HD> st;
   st.init([&](int r) -> const bf16* {
     const int i = row0 + r;
-    return i < Sq ? q + (((size_t)b * Sq + i) * H + h) * HD : nullptr;
+    return i < Sq ? q + qs.at(b, i, h) : nullptr;
   });
 
   // keys past the block's last visible one never enter the loop
   int last = Sk - 1;
   if (causal) last = min(last, q_tile0 + ptt::kRows - 1 + off);
   const int n_tiles = last < 0 ? 0 : last / ptt::kKeys + 1;
-  const bf16* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
-  const bf16* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
+  const unsigned char* mrow =
+      key_mask != nullptr ? key_mask + (size_t)b * Sk : nullptr;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * ptt::kKeys;
     ptt::load_tile<HD>(
         tile,
         [&](int j) -> const bf16* {
-          return k0 + j < Sk ? kb + (size_t)(k0 + j) * KV * HD : nullptr;
+          return k0 + j < Sk ? k + ks.at(b, k0 + j, kvh) : nullptr;
         },
         [&](int j) -> const bf16* {
-          return k0 + j < Sk ? vb + (size_t)(k0 + j) * KV * HD : nullptr;
+          return k0 + j < Sk ? v + vs.at(b, k0 + j, kvh) : nullptr;
         });
+    if (threadIdx.x < ptt::kKeys) {
+      const int key = k0 + threadIdx.x;
+      key_vis[threadIdx.x] =
+          key < Sk && (mrow == nullptr || mrow[key] != 0);
+    }
     __syncthreads();
     st.step(tile, scale_log2, [&](int, int r, int j) {
-      const int key = k0 + j;
-      return key < Sk && (!causal || key <= row0 + r + off);
+      return key_vis[j] && (!causal || k0 + j <= row0 + r + off);
     });
     __syncthreads();
   }
 
   st.store([&](int r) -> bf16* {
     const int i = row0 + r;
-    return i < Sq ? out + (((size_t)b * Sq + i) * H + h) * HD : nullptr;
+    return i < Sq ? out + os.at(b, i, h) : nullptr;
   });
   if (lse != nullptr) {
     st.store_lse([&](int r) -> float* {
@@ -90,29 +110,36 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 void launch(const void* q, const void* k, const void* v, void* o,
-            float* lse, int B, int Sq, int Sk, int H, int KV, float scale,
-            int causal, cudaStream_t stream) {
+            float* lse, const unsigned char* mask, int B, int Sq, int Sk,
+            int H, int KV, const Strides* st, float scale, int causal,
+            cudaStream_t stream) {
   dim3 grid(B * H, (Sq + ptt::kRows - 1) / ptt::kRows);
   flash_fwd_kernel<HD><<<grid, ptt::kThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk, H,
-      KV, scale * ptt::kLog2e, causal);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, mask, Sq, Sk,
+      H, KV, st[0], st[1], st[2], st[3], scale * ptt::kLog2e, causal);
 }
 
 }  // namespace
 
-// `lse` may be null (serving). Returns the launch's cudaError_t (0 on
-// success).
+// `strides` is a host array of 12 int64: the batch, sequence and head
+// strides (in elements) of q, k, v and out, in that order. `lse` and
+// `key_mask` may be null. Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int B, int Sq, int Sk,
-                              int H, int KV, int hd, float scale, int causal,
-                              void* stream) {
+                              void* o, void* lse, const void* key_mask,
+                              int B, int Sq, int Sk, int H, int KV, int hd,
+                              const long long* strides, float scale,
+                              int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const unsigned char* m = static_cast<const unsigned char*>(key_mask);
+  Strides st[4];
+  for (int t = 0; t < 4; ++t)
+    st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   if (hd == 128) {
-    launch<128>(q, k, v, o, l, B, Sq, Sk, H, KV, scale, causal, s);
+    launch<128>(q, k, v, o, l, m, B, Sq, Sk, H, KV, st, scale, causal, s);
   } else if (hd == 64) {
-    launch<64>(q, k, v, o, l, B, Sq, Sk, H, KV, scale, causal, s);
+    launch<64>(q, k, v, o, l, m, B, Sq, Sk, H, KV, st, scale, causal, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,6 @@
-// RMSNorm forward (saving the reciprocal RMS) and backward for Hopper
-// (sm_90a): the training stack's norm.
+// RMSNorm kernels for Hopper (sm_90a): the training stack's forward
+// (saving the reciprocal RMS) and backward, and the eager API's fused
+// forward (row 6, at the end of this file).
 //
 // Replaces: paddle_tpu/kernels/rms_norm.py::_rms_fwd_kernel (pallas_call
 // in _rms_fwd_pallas) and ::_rms_bwd_kernel (pallas_call in
@@ -221,4 +222,153 @@ extern "C" int rms_bwd_bf16(const void* x, const void* w, const void* rstd,
   rms_dw_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       static_cast<const float*>(partials), static_cast<float*>(dw), D, used);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ row 6
+// The eager API's fused norm (incubate.nn.functional.fused_rms_norm, the
+// FusedRMSNorm layer of a Llama built from layers).
+//
+// Replaces: paddle_tpu/kernels/rms_norm.py::_rms_norm_kernel (pallas_call
+// in rms_norm_pallas), reached through the dispatch rms_norm().
+//
+//   out = x * rsqrt(mean(x^2) + eps) * w       (no statistics saved)
+// x, out [rows, D] in f32 or bf16 (out in x's dtype); w f32 [D] (the
+// wrapper casts it) or null (no weight); all arithmetic in f32, in the
+// TPU kernel's order: (x * r) * w. Its backward is not a kernel: the
+// wrapper differentiates the plain version, as the JAX package's eager
+// tape differentiates rms_norm.
+//
+// Bound on the H100: ~4 flops per element against 8 (f32) or 4 (bf16)
+// bytes: memory bound. The eager Llama's f32 [4096, 4096] reads and writes
+// 64 MB each, ~0.040 ms at 3.35 TB/s. Design, the LayerNorm forward's
+// (layer_norm.cu): a row of D <= 1024 is one warp's (8 rows a block of 256
+// threads, the sum of squares by warp shuffles only), a wider row (up to
+// 8192) one block's (8 warps, shuffles then shared memory); each row is
+// read once into registers with 16-byte loads (4 f32 or 8 bf16 a vector),
+// at most 32 values a thread, and written once, scaled.
+namespace {
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxPerThread = 32;       // values of a row a thread holds
+
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void load(const float* p, float f[4]) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float f[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+template <>
+struct Vec<bf16> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void load(const bf16* p, float f[8]) {
+    unpack8(*reinterpret_cast<const uint4*>(p), f);
+  }
+  __device__ __forceinline__ static void store(bf16* p, const float f[8]) {
+    *reinterpret_cast<uint4*>(p) = pack8(f);
+  }
+};
+
+// Sum of `v` over the 32 * WPR threads of one row; every one of them gets
+// the total. WPR == 1: a warp's shuffles; WPR == kWarps: the whole block.
+template <int WPR>
+__device__ __forceinline__ float row_sum(float v, float* red) {
+  if (WPR != 1) return block_sum(v, red);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// WPR warps a row, VPT 16-byte vectors a thread.
+template <typename T, int WPR, int VPT>
+__global__ void __launch_bounds__(kThreads)
+rms_fused_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                 T* __restrict__ out, int rows, int D, float eps) {
+  constexpr int kN = Vec<T>::kN;
+  constexpr int kTPR = 32 * WPR;
+  __shared__ float red[kWarps];
+  const int t = threadIdx.x % kTPR;
+  const size_t row = (size_t)blockIdx.x * (kThreads / kTPR)
+                     + threadIdx.x / kTPR;
+  if (row >= (size_t)rows) return;   // only when WPR == 1: no block barrier
+  const int nvec = D / kN;
+  const T* xr = x + row * D;
+  float v[VPT][kN];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int vi = t + i * kTPR;
+    if (vi < nvec) {
+      Vec<T>::load(xr + vi * kN, v[i]);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) ss += v[i][j] * v[i][j];
+    }
+  }
+  const float r = rsqrtf(row_sum<WPR>(ss, red) / D + eps);
+  T* orow = out + row * D;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int vi = t + i * kTPR;
+    if (vi < nvec) {
+      float o[kN];
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        o[j] = v[i][j] * r;
+        if (w != nullptr) o[j] = o[j] * w[vi * kN + j];
+      }
+      Vec<T>::store(orow + vi * kN, o);
+    }
+  }
+}
+
+template <typename T>
+int launch_fused(const void* x, const void* w, void* out, int rows, int D,
+                 float eps, cudaStream_t s) {
+  constexpr int kN = Vec<T>::kN;
+  if (D % 8 || D > kThreads * kMaxPerThread || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nvec = D / kN;
+  const bool warp_row = nvec <= 32 * (kMaxPerThread / kN);   // D <= 1024
+  const int tpr = warp_row ? 32 : kThreads;
+  const int need = (nvec + tpr - 1) / tpr;   // at most 32 / kN
+  const int vpt = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
+  const int rpb = kThreads / tpr;
+  const int grid = (rows + rpb - 1) / rpb;
+#define PTT_FUSED(WPR, V)                                                  \
+  rms_fused_kernel<T, WPR, V><<<grid, kThreads, 0, s>>>(                   \
+      static_cast<const T*>(x), static_cast<const float*>(w),             \
+      static_cast<T*>(out), rows, D, eps)
+#define PTT_FUSED_VPT(WPR)                                                 \
+  switch (vpt) { case 1: PTT_FUSED(WPR, 1); break;                         \
+                 case 2: PTT_FUSED(WPR, 2); break;                         \
+                 case 4: PTT_FUSED(WPR, 4); break;                         \
+                 default: PTT_FUSED(WPR, 32 / kN); }
+  if (warp_row) { PTT_FUSED_VPT(1) } else { PTT_FUSED_VPT(kWarps) }
+#undef PTT_FUSED_VPT
+#undef PTT_FUSED
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Each returns the launch's cudaError_t (0 on success). w is f32 [D] or
+// null (no weight).
+extern "C" int rms_fused_f32(const void* x, const void* w, void* out,
+                             int rows, int D, float eps, void* stream) {
+  return launch_fused<float>(x, w, out, rows, D, eps,
+                             static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rms_fused_bf16(const void* x, const void* w, void* out,
+                              int rows, int D, float eps, void* stream) {
+  return launch_fused<bf16>(x, w, out, rows, D, eps,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -1,15 +1,28 @@
 """paddle.incubate.nn — the fused layers of the eager path.
 
-Port of paddle_tpu/incubate/nn/__init__.py: `FusedLayerNorm` (:34),
-`FusedLinear` (:52), `FusedDropoutAdd` (:70) and
+Port of paddle_tpu/incubate/nn/__init__.py: `FusedRMSNorm` (:18),
+`FusedLayerNorm` (:34), `FusedLinear` (:52), `FusedDropoutAdd` (:70) and
 `FusedBiasDropoutResidualLayerNorm` (:86), each over its functional in
-`incubate.nn.functional`. `FusedRMSNorm` arrives with the eager Llama
-slice, `FusedMultiHeadAttention` and the transformer layers with the rest
-of the eager API.
+`incubate.nn.functional`. `FusedMultiHeadAttention` and the transformer
+layers arrive with the rest of the eager API.
 """
 from . import functional  # noqa: F401
 from ...nn.layer import Layer
 from ...nn import initializer as I
+
+
+class FusedRMSNorm(Layer):
+    """RMS normalization over the last axis with a learned gain, through
+    `functional.fused_rms_norm` (the row-6 kernel on the card)."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [hidden_size], default_initializer=I.Constant(1.0))
+        self._eps = epsilon
+
+    def forward(self, x):
+        return functional.fused_rms_norm(x, self.weight, epsilon=self._eps)
 
 
 class FusedLayerNorm(Layer):

@@ -4,11 +4,21 @@ Port of paddle_tpu/kernels/flash_attention.py: `mha_ref` (the exact
 reference), the Pallas forward `_flash_fwd_kernel` (Hopper counterpart
 `csrc/flash_fwd.cu`), the Pallas backward kernels (the resident,
 streamed and split schedules of `flash_attention_pallas_bwd`, one
-Hopper design in `csrc/flash_bwd.cu`) and the differentiable entry, the
-`custom_vjp` `flash_attention_fwd` there, here the autograd Function
-behind `flash_attention`. Layout is [batch, seq, heads, head_dim]
-('bshd'); k/v may have fewer heads than q (GQA). The key mask and the
-'bhsd' layout are later slices.
+Hopper design in `csrc/flash_bwd.cu`) and the differentiable entries,
+the `custom_vjp`s `flash_attention_fwd` and `flash_attention_masked`
+there, here the autograd Function behind `flash_attention` and
+`flash_attention_masked`. Layout is [batch, seq, heads, head_dim]
+('bshd') or head-major [batch, heads, seq, head_dim] ('bhsd'); k/v may
+have fewer heads than q (GQA). The kernels read every tensor through its
+strides, so neither layout is copied into the other, and take any
+sequence length: the JAX package's pad-to-block wrappers
+(`flash_attention_padded`) have no counterpart.
+
+`key_mask` [B, Sk] (nonzero = visible to every query of that batch row)
+is the bidirectional encoder's padding mask. As in the TPU kernel, a
+row whose keys are all masked gives 0 and an LSE of -1e30 (mha_ref's
+softmax would give uniform attention there), so the plain versions
+follow the kernels, not `mha_ref`.
 
 The LSE is taken in the scaled-score domain, as the TPU kernel keeps
 it: lse[b, h, i] = log Σ_j exp(scale · q_i·k_j) over the visible keys.
@@ -27,14 +37,33 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30
-# flash_fwd_bf16(q, k, v, out, lse, B, Sq, Sk, H, KV, hd, scale, causal,
-#                stream)
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-# flash_bwd_bf16(q, k, v, out, dout, lse, dcap, dq, dk, dv, B, Sq, Sk, H,
-#                KV, hd, scale, causal, stream)
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+LAYOUTS = ("bshd", "bhsd")
+# flash_fwd_bf16(q, k, v, out, lse, key_mask, B, Sq, Sk, H, KV, hd,
+#                strides[12], scale, causal, stream)
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# flash_bwd_bf16(q, k, v, out, dout, lse, dcap, dq, dk, dv, key_mask, B,
+#                Sq, Sk, H, KV, hd, strides[24], scale, causal, stream)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def block_aligned(s: int) -> bool:
+    """The JAX package's test (flash_attention.py:879) for a sequence
+    length its kernels take without padding: a multiple of 256, or one
+    lane-aligned block (s <= 256, s % 128 == 0). The port's kernels take
+    any length; `nlp/ernie.py` asks it to choose the route JAX takes."""
+    return s % 128 == 0 and (s <= 256 or s % 256 == 0)
+
+
+def _check_layout(layout):
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+
+
+def _bshd(x, layout):
+    """A 'bhsd' tensor as its [B, S, H, D] view (no copy)."""
+    return x.transpose(1, 2) if layout == "bhsd" else x
 
 
 def _expand_kv(q, k, v):
@@ -53,14 +82,18 @@ def _causal_mask(sq, sk, device):
                       device=device).tril(diagonal=sk - sq)
 
 
-def mha_ref(q, k, v, *, causal=False, scale=None, mask=None):
+def mha_ref(q, k, v, *, causal=False, bias=None, scale=None, mask=None):
     """Exact attention reference. q,k,v: [B, S, H, D] → [B, S, H, D].
-    Supports GQA: k/v may have fewer heads (H % Hkv == 0). Causal is
-    the bottom-right alignment (query i sees keys j <= i + Sk - Sq)."""
+    Supports GQA: k/v may have fewer heads (H % Hkv == 0). `bias` is
+    added to the scaled scores [B, H, Sq, Sk] (broadcastable), `mask`
+    (bool, broadcastable) hides scores. Causal is the bottom-right
+    alignment (query i sees keys j <= i + Sk - Sq)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     k, v = _expand_kv(q, k, v)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias
     if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
     if causal:
@@ -71,63 +104,67 @@ def mha_ref(q, k, v, *, causal=False, scale=None, mask=None):
     return out.to(q.dtype)
 
 
+def _visible(sq, sk, causal, key_mask, device):
+    """The [B|1, 1, Sq|1, Sk] visibility of the scores, or None."""
+    vis = _causal_mask(sq, sk, device)[None, None] if causal else None
+    if key_mask is not None:
+        km = (key_mask != 0)[:, None, None, :]
+        vis = km if vis is None else vis & km
+    return vis
+
+
 def flash_attention_fwd_ref(q, k, v, causal=True, scale=None,
-                            return_lse=False):
-    """The forward kernel's plain version: causal GQA attention with
-    Sq <= Sk, scores and accumulation in f32, output in q's dtype; with
-    `return_lse`, also the f32 LSE [B, H, Sq] of the scaled scores."""
-    if not return_lse:
-        return mha_ref(q, k, v, causal=causal, scale=scale)
+                            return_lse=False, key_mask=None, layout="bshd"):
+    """The forward kernel's plain version: GQA attention, causal (Sq <=
+    Sk) or bidirectional with an optional key mask, scores and
+    accumulation in f32, output in q's dtype and layout; with
+    `return_lse`, also the f32 LSE [B, H, Sq] of the scaled scores. A row
+    with no visible key gives 0 and an LSE of -1e30, as the kernel."""
+    _check_layout(layout)
+    q, k, v = (_bshd(t, layout) for t in (q, k, v))
+    if not return_lse and key_mask is None:
+        return _bshd(mha_ref(q, k, v, causal=causal, scale=scale), layout)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     ke, ve = _expand_kv(q, k, v)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke.float()) * scale
-    if causal:
-        cm = _causal_mask(q.shape[1], k.shape[1], q.device)
-        logits = torch.where(cm[None, None], logits, NEG_INF)
+    vis = _visible(q.shape[1], k.shape[1], causal, key_mask, q.device)
+    if vis is not None:
+        logits = torch.where(vis, logits, NEG_INF)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.exp(logits - lse[..., None])
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, ve.float())
-    return out.to(q.dtype), lse
-
-
-def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False):
-    """Flash attention forward, q [B, Sq, H, hd], k/v [B, Sk, KV, hd];
-    with `return_lse`, returns (out, lse [B, H, Sq] f32).
-
-    On a CPU tensor: the plain version. On a CUDA tensor: the kernel
-    (bf16, hd 64 or 128, Sq <= Sk when causal); anything it does not
-    take raises. Each kernel launch adds one to
-    `flash_attention_fwd.launches`."""
-    if not q.is_cuda:
-        return flash_attention_fwd_ref(q, k, v, causal=causal, scale=scale,
-                                       return_lse=return_lse)
-    B, Sq, H, hd = q.shape
-    _check(q, k, v, causal)
-    if scale is None:
-        scale = 1.0 / math.sqrt(hd)
-    out = torch.empty_like(q)
-    lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    if q.numel() == 0:
-        return (out, lse) if return_lse else out
-    fn = _build.function("flash_fwd", "flash_fwd_bf16", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr() if return_lse else None, B, Sq, k.shape[1],
-                 H, k.shape[2], hd, float(scale), int(causal), stream)
-    _build.check(err, "flash_fwd_bf16")
-    flash_attention_fwd.launches += 1
+    if key_mask is not None:
+        probs = torch.where(vis, probs, 0.0)    # an all-masked row: 0
+    out = _bshd(torch.einsum("bhqk,bkhd->bqhd", probs, ve.float())
+                .to(q.dtype), layout)
     return (out, lse) if return_lse else out
 
 
-flash_attention_fwd.launches = 0
+def _strides(t, layout):
+    """(batch, seq, head) element strides of a [B, S, H, D] or
+    [B, H, S, D] tensor."""
+    s = t.stride()
+    return (s[0], s[1], s[2]) if layout == "bshd" else (s[0], s[2], s[1])
 
 
-def _check(q, k, v, causal, extra=()):
-    B, Sq, H, hd = q.shape
-    Bk, Sk, KV, hdk = k.shape
+def _kernel_input(name, t, device):
+    """t as the kernels read it: bf16 on `device`, head_dim contiguous,
+    the other strides whole 16-byte rows, the base 16-byte aligned. A
+    tensor that is not (a sliced or broadcast view) is made contiguous."""
+    if t.dtype != torch.bfloat16 or t.device != device:
+        raise TypeError(f"{name} must be a bf16 tensor on {device}, got "
+                        f"{t.dtype} on {t.device}")
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
+            or t.data_ptr() % 16:
+        t = t.contiguous()
+    return t
+
+
+def _check(q, k, v, causal, layout, key_mask):
+    """The shapes the kernels take; returns (B, Sq, H, hd, Sk, KV)."""
+    _check_layout(layout)
+    B, Sq, H, hd = _bshd(q, layout).shape
+    Bk, Sk, KV, hdk = _bshd(k, layout).shape
     if v.shape != k.shape or Bk != B or hdk != hd:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -137,20 +174,79 @@ def _check(q, k, v, causal, extra=()):
         raise ValueError(f"causal flash needs Sq <= Sk, got {Sq} > {Sk}")
     if hd not in (64, 128):
         raise ValueError(f"head_dim {hd} not supported (64 or 128)")
-    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(extra):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
-                or t.device != q.device or t.data_ptr() % 16:
-            raise TypeError(f"{name} must be a contiguous, 16-byte aligned "
-                            f"bf16 tensor on {q.device}")
+    if key_mask is not None and (tuple(key_mask.shape) != (B, Sk)
+                                 or key_mask.device != q.device):
+        raise ValueError(f"key_mask must be [{B}, {Sk}] on {q.device}, got "
+                         f"{tuple(key_mask.shape)} on {key_mask.device}")
+    return B, Sq, H, hd, Sk, KV
+
+
+def _mask_arg(key_mask):
+    """The key mask as the kernels read it: bool (one byte, 0 or 1)
+    [B, Sk], contiguous; None stays None."""
+    if key_mask is None:
+        return None
+    km = key_mask if key_mask.dtype == torch.bool else key_mask != 0
+    return km.contiguous()
+
+
+def _stride_array(tensors, layout):
+    vals = [s for t in tensors for s in _strides(t, layout)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
+                        key_mask=None, layout="bshd"):
+    """Flash attention forward, q [B, Sq, H, hd], k/v [B, Sk, KV, hd] (or
+    their 'bhsd' forms); with `return_lse`, returns (out, lse [B, H, Sq]
+    f32). `key_mask` [B, Sk]: nonzero keys are visible.
+
+    On a CPU tensor: the plain version. On a CUDA tensor: the kernel
+    (bf16, hd 64 or 128, Sq <= Sk when causal; `out` contiguous in the
+    layout); anything it does not take raises. Each kernel launch adds one
+    to `flash_attention_fwd.launches`."""
+    if not q.is_cuda:
+        return flash_attention_fwd_ref(q, k, v, causal=causal, scale=scale,
+                                       return_lse=return_lse,
+                                       key_mask=key_mask, layout=layout)
+    B, Sq, H, hd, Sk, KV = _check(q, k, v, causal, layout, key_mask)
+    q, k, v = (_kernel_input(n, t, q.device)
+               for n, t in (("q", q), ("k", k), ("v", v)))
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if q.numel() == 0:
+        return (out, lse) if return_lse else out
+    km = _mask_arg(key_mask)
+    strides = _stride_array((q, k, v, out), layout)
+    fn = _build.function("flash_fwd", "flash_fwd_bf16", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if return_lse else None,
+                 None if km is None else km.data_ptr(), B, Sq, Sk, H, KV,
+                 hd, strides, float(scale), int(causal), stream)
+    _build.check(err, "flash_fwd_bf16")
+    flash_attention_fwd.launches += 1
+    return (out, lse) if return_lse else out
+
+
+flash_attention_fwd.launches = 0
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True,
-                            scale=None):
+                            scale=None, key_mask=None, layout="bshd"):
     """The backward kernel's plain version: (dq, dk, dv) in the inputs'
-    dtypes, from the forward's output and LSE (not through autograd).
-    f32 einsums; P = exp(scale·QKᵀ − lse), dcap = rowsum(dO·O),
+    dtypes and layout, from the forward's output and LSE (not through
+    autograd). f32 einsums; P = exp(scale·QKᵀ − lse) where visible, else
+    0 (the mask zeroes P, not the scores, so masked keys get dk = dv = 0
+    and an all-masked row contributes nothing), dcap = rowsum(dO·O),
     dS = P∘(dP − dcap)·scale; dk/dv summed over each KV head's group of
     query heads."""
+    _check_layout(layout)
+    q, k, v, out, dout = (_bshd(t, layout) for t in (q, k, v, out, dout))
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     B, Sq, H, hd = q.shape
@@ -160,9 +256,9 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True,
     dof = dout.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     p = torch.exp(s - lse.float()[..., None])
-    if causal:
-        cm = _causal_mask(Sq, Sk, q.device)
-        p = torch.where(cm[None, None], p, 0.0)
+    vis = _visible(Sq, Sk, causal, key_mask, q.device)
+    if vis is not None:
+        p = torch.where(vis, p, 0.0)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     dcap = (dof * out.float()).sum(-1).transpose(1, 2)       # [B, H, Sq]
@@ -172,12 +268,15 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True,
     if KV != H:
         dk = dk.reshape(B, Sk, KV, H // KV, hd).sum(3)
         dv = dv.reshape(B, Sk, KV, H // KV, hd).sum(3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return tuple(_bshd(g.to(t.dtype), layout)
+                 for g, t in ((dq, q), (dk, k), (dv, v)))
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None):
-    """Flash attention backward: (dq, dk, dv) from the forward's `out`
-    and `lse` [B, H, Sq] and the output cotangent `dout`.
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None,
+                        key_mask=None, layout="bshd"):
+    """Flash attention backward: (dq, dk, dv), contiguous in the layout,
+    from the forward's `out` and `lse` [B, H, Sq] and the output
+    cotangent `dout`; `key_mask` must be the forward's.
 
     On a CPU tensor: the plain version. On a CUDA tensor: the kernel
     (bf16 q/k/v/out/dout, f32 lse; the shapes the forward kernel takes);
@@ -186,29 +285,33 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None):
     `flash_attention_bwd.launches`."""
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                       causal=causal, scale=scale)
-    dout = dout.contiguous()
-    B, Sq, H, hd = q.shape
-    _check(q, k, v, causal, (("out", out), ("dout", dout)))
+                                       causal=causal, scale=scale,
+                                       key_mask=key_mask, layout=layout)
+    B, Sq, H, hd, Sk, KV = _check(q, k, v, causal, layout, key_mask)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError("out and dout must have q's shape")
+    q, k, v, out, dout = (_kernel_input(n, t, q.device) for n, t in (
+        ("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)))
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous f32 [{B}, {H}, {Sq}]")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     dcap = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    km = _mask_arg(key_mask)
+    strides = _stride_array((q, k, v, out, dout, dq, dk, dv), layout)
     fn = _build.function("flash_bwd", "flash_bwd_bf16", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), lse.data_ptr(), dcap.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq,
-                 k.shape[1], H, k.shape[2], hd, float(scale), int(causal),
-                 stream)
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 None if km is None else km.data_ptr(), B, Sq, Sk, H, KV,
+                 hd, strides, float(scale), int(causal), stream)
     _build.check(err, "flash_bwd_bf16")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -218,29 +321,41 @@ flash_attention_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The port of the `custom_vjp` around the JAX package's flash
-    attention: the forward keeps (q, k, v, out, lse), the backward runs
-    the flash backward from them (O(S) memory, no score matrix)."""
+    """The port of the `custom_vjp`s around the JAX package's flash
+    attention (causal or not, with or without a key mask): the forward
+    keeps (q, k, v, out, lse), the backward runs the flash backward from
+    them (O(S) memory, no score matrix)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, key_mask, causal, scale, layout):
         out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                       return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+                                       return_lse=True, key_mask=key_mask,
+                                       layout=layout)
+        ctx.save_for_backward(q, k, v, out, lse, key_mask)
+        ctx.causal, ctx.scale, ctx.layout = causal, scale, layout
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, key_mask = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                         causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, scale=ctx.scale,
+                                         key_mask=key_mask,
+                                         layout=ctx.layout)
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(q, k, v, causal=True, scale=None):
+def flash_attention(q, k, v, causal=True, scale=None, layout="bshd"):
     """Differentiable flash attention, q [B, Sq, H, hd], k/v
-    [B, Sk, KV, hd] → [B, Sq, H, hd]: the kernels on the card, their
-    plain versions on the CPU."""
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    return _FlashAttention.apply(q, k, v, causal, scale)
+    [B, Sk, KV, hd] → [B, Sq, H, hd] (or the 'bhsd' forms): the kernels on
+    the card, their plain versions on the CPU."""
+    return _FlashAttention.apply(q, k, v, None, causal, scale, layout)
+
+
+def flash_attention_masked(q, k, v, key_mask, scale=None, layout="bshd"):
+    """Differentiable bidirectional flash attention with a key-padding
+    mask (the JAX package's `flash_attention_masked`): key_mask [B, Sk],
+    nonzero = key visible to every query of that batch row; a row whose
+    keys are all masked gives 0. The kernels on the card, their plain
+    versions on the CPU."""
+    return _FlashAttention.apply(q, k, v, key_mask, False, scale, layout)

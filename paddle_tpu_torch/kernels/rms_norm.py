@@ -1,7 +1,14 @@
-"""RMSNorm: plain PyTorch versions + the training pair of CUDA kernels.
+"""RMSNorm: plain PyTorch versions + three CUDA kernels.
 
 Port of paddle_tpu/kernels/rms_norm.py. `rms_norm_ref` is the plain form
-the serving path and the final norm use. `rms_norm_train` is the
+the serving path and the final norm use. `rms_norm_fused` is the
+counterpart of `rms_norm_pallas` (row 6 of PERF.md's kernel table): one
+pass, no statistics, f32 or bf16 x; `rms_norm` is the JAX package's
+dispatch over it, and `rms_norm_fused_train` the differentiable norm of
+the eager API's `incubate.nn.functional.fused_rms_norm`, whose backward
+is the plain version's vjp in torch ops (`_rms_train_ref_bwd`): the JAX
+package has no backward kernel for row 6 either; its eager tape
+differentiates the function. `rms_norm_train` is the
 differentiable norm of the training stack (the `custom_vjp` of the JAX
 package): its forward runs `rms_norm_fwd` and saves the per-row
 reciprocal RMS, its backward runs `rms_norm_bwd`. On a CUDA tensor those
@@ -29,6 +36,10 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
 # rms_bwd_bf16(x, w, rstd, dy, dx, dw, partials, rows, D, n_chunks, stream)
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
     ctypes.c_void_p]
+# rms_fused_<dt>(x, w, out, rows, D, eps, stream)
+_FUSED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+    ctypes.c_float, ctypes.c_void_p]
+_FUSED_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # row chunks of the backward's deterministic dw reduction: each chunk's
 # f32 partial row is written once, then summed in chunk order
 _BWD_CHUNKS = 512
@@ -55,15 +66,18 @@ def _rms_fwd_twin(x, weight, epsilon):
 
 
 def _rms_train_ref_bwd(x, weight, dy, epsilon):
-    """Plain version of the backward kernel: (dx in x's dtype, dw in
-    weight's dtype). Recomputes r from x, so it is differentiable in x,
+    """Plain version of the backward kernel, and the vjp of
+    `rms_norm_ref`: (dx in x's dtype, dw in weight's dtype, or None
+    without a weight). Recomputes r from x, so it is differentiable in x,
     weight and dy."""
-    xf, dyf, wf = x.float(), dy.float(), weight.float()
+    xf, dyf = x.float(), dy.float()
     d = x.shape[-1]
     r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + epsilon)
-    dyw = dyf * wf
+    dyw = dyf if weight is None else dyf * weight.float()
     s = torch.sum(dyw * xf, dim=-1, keepdim=True)
     dx = (r * dyw - xf * (r * r * r / d) * s).to(x.dtype)
+    if weight is None:
+        return dx, None
     dw = torch.sum((dyf * xf * r).reshape(-1, d), dim=0).to(weight.dtype)
     return dx, dw
 
@@ -172,3 +186,76 @@ def rms_norm_train(x, weight, epsilon: float = 1e-6):
     kernels on the card, their plain twins on the CPU."""
     x = x.contiguous()
     return _RmsNormTrain.apply(x, weight, epsilon)
+
+
+def rms_norm_fused(x, weight=None, epsilon: float = 1e-6):
+    """Row 6, the counterpart of `rms_norm_pallas`: x·rsqrt(mean(x²) +
+    eps)·weight in x's dtype, no statistics. On a CPU tensor: the plain
+    version `rms_norm_ref`. On a CUDA tensor: the kernel (f32 or bf16 x,
+    hidden size a multiple of 8 up to 8192; a weight of any float dtype,
+    read as f32, or None for the affine-free form); anything else raises.
+    Each launch adds one to `rms_norm_fused.launches`."""
+    if not x.is_cuda:
+        return rms_norm_ref(x, weight, epsilon)
+    d = x.shape[-1]
+    if x.dtype not in _FUSED_DTYPES or not x.is_contiguous() \
+            or x.data_ptr() % 16:
+        raise TypeError(f"rms_norm_fused: x must be a contiguous, 16-byte "
+                        f"aligned f32 or bf16 CUDA tensor, got {x.dtype}")
+    if d % 8 or d > 8192:
+        raise ValueError(f"rms_norm_fused: hidden size {d} must be a "
+                         f"multiple of 8 and at most 8192")
+    w = None
+    if weight is not None:
+        if tuple(weight.shape) != (d,) or weight.device != x.device:
+            raise ValueError(f"rms_norm_fused: weight {tuple(weight.shape)}"
+                             f" does not match hidden size {d} on "
+                             f"{x.device}")
+        w = weight.float().contiguous()
+    rows = x.numel() // d
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    fn = _build.function("rms_norm", f"rms_fused_{_FUSED_DTYPES[x.dtype]}",
+                         _FUSED_ARGTYPES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), None if w is None else w.data_ptr(),
+                 out.data_ptr(), rows, d, float(epsilon), stream)
+    _build.check(err, "rms_fused")
+    rms_norm_fused.launches += 1
+    return out
+
+
+rms_norm_fused.launches = 0
+
+
+def rms_norm(x, weight=None, epsilon: float = 1e-6):
+    """The JAX package's dispatch (kernels/rms_norm.py:68-86): the row-6
+    kernel on a CUDA tensor, with or without a weight; the plain version
+    on a CPU tensor. It never falls back on CUDA."""
+    return rms_norm_fused(x, weight, epsilon)
+
+
+class _RmsNormFused(torch.autograd.Function):
+    """Row 6 made differentiable for the eager API: the forward is the
+    dispatch, the backward the plain version's vjp in torch ops, itself
+    differentiable (grad-of-grad works, as the JAX tape's does)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, epsilon):
+        ctx.save_for_backward(x, weight)
+        ctx.epsilon = epsilon
+        return rms_norm(x, weight, epsilon)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw = _rms_train_ref_bwd(x, weight, dy, ctx.epsilon)
+        return dx, dw, None
+
+
+def rms_norm_fused_train(x, weight=None, epsilon: float = 1e-6):
+    """Differentiable row-6 norm (weight None: affine-free): equal in
+    value to `rms_norm_ref(x, weight, epsilon)`."""
+    return _RmsNormFused.apply(x.contiguous(), weight, epsilon)

@@ -81,16 +81,18 @@ def init_state(generator, cfg, tx, mesh=None, device="cuda",
                       params, tx.init(params))
 
 
-def _value_and_grad(lfn, params, tokens):
-    """(loss, grads) of lfn(params, tokens) with respect to every leaf,
+def value_and_grad(lfn, params, *args):
+    """(loss, grads) of lfn(params, *args) with respect to every leaf,
     through detached aliases of the leaves (the caller's tensors are not
-    marked as requiring grad)."""
+    marked as requiring grad); a leaf the loss does not use gets zeros,
+    as `jax.value_and_grad` gives."""
     leaves = transform.tree_leaves(params)
     alias = {id(p): p.detach().requires_grad_(True) for p in leaves}
     live = transform.tree_map(lambda p: alias[id(p)], params)
     with torch.enable_grad():
-        loss = lfn(live, tokens)
-        grads = torch.autograd.grad(loss, [alias[id(p)] for p in leaves])
+        loss = lfn(live, *args)
+        grads = torch.autograd.grad(loss, [alias[id(p)] for p in leaves],
+                                    materialize_grads=True)
     by_id = {id(p): g for p, g in zip(leaves, grads)}
     return loss.detach(), transform.tree_map(lambda p: by_id[id(p)], params)
 
@@ -140,14 +142,14 @@ def make_train_step(cfg, tx, mesh=None,
             gsum, lsum = None, torch.zeros((), dtype=torch.float32,
                                            device=tokens.device)
             for mtoks in chunks:
-                l, g = _value_and_grad(lfn, state.params, mtoks)
+                l, g = value_and_grad(lfn, state.params, mtoks)
                 gsum = g if gsum is None else transform.tree_map(
                     torch.add, gsum, g)
                 lsum = lsum + l
             grads = transform.tree_map(lambda g: g / grad_accum_steps, gsum)
             loss = lsum / grad_accum_steps
         else:
-            loss, grads = _value_and_grad(lfn, state.params, tokens)
+            loss, grads = value_and_grad(lfn, state.params, tokens)
         grad_norm = transform.global_norm(grads)
         with torch.no_grad():
             if hasattr(tx, "apply_fused"):

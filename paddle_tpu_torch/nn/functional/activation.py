@@ -1,5 +1,5 @@
 """Activation functionals — port of paddle_tpu/nn/functional/activation.py
-(relu, gelu, tanh)."""
+(relu, gelu, silu, swish, tanh)."""
 from __future__ import annotations
 
 import torch
@@ -16,4 +16,6 @@ def _gelu_raw(x, approximate=False, name=None):
 
 
 gelu = defop("gelu", _gelu_raw)
+silu = defop("silu", lambda x, name=None: TF.silu(x))
+swish = defop("swish", lambda x, name=None: TF.silu(x))
 tanh = defop("f_tanh", lambda x, name=None: torch.tanh(x))

@@ -1,5 +1,5 @@
 """Activation and loss layers — port of paddle_tpu/nn/layers_act_loss.py
-(ReLU, GELU, Tanh, CrossEntropyLoss :77)."""
+(ReLU, GELU, SiLU/Silu, Tanh, CrossEntropyLoss :77)."""
 from __future__ import annotations
 
 from .layer import Layer
@@ -25,6 +25,8 @@ def _act_layer(fname, **fixed):
 
 ReLU = _act_layer("relu")
 GELU = _act_layer("gelu")
+SiLU = _act_layer("silu")
+Silu = SiLU  # paddle spells it Silu; keep both
 Tanh = _act_layer("tanh")
 
 

@@ -1,7 +1,7 @@
 """Where a training step's time goes on one NVIDIA GPU.
 
     python -m paddle_tpu_torch.tools.profile_train
-        [--model llama|moe|eager_ernie] [--layers N]
+        [--model llama|moe|eager_ernie|eager_llama|ernie] [--layers N]
 
 `--model llama` (default) builds the flagship dense config (bench.py:120:
 D 4096, F 9472, 11 layers, GQA 32/8, V 32000; batch 8 x 2048);
@@ -9,22 +9,31 @@ D 4096, F 9472, 11 layers, GQA 32/8, V 32000; batch 8 x 2048);
 layers, GQA 16/8, 16 experts top-2 of width 1024 plus a shared expert,
 V 32000; batch 20 x 2048). Both: bf16 params, 8-bit AdamW with the clip
 at 1.0, lr 1e-4, random weights from a seed, full depth unless
-`--layers` cuts it. It drives `train.make_train_step`: one untraced
-warm-up step, one untraced step for its wall time without the
-profiler's per-operation cost, then one step traced by torch.profiler.
+`--layers` cuts it; they drive `train.make_train_step`. The eager models
+drive their `train_step` under O1 bf16 with f32 params and AdamW with
+the global clip: `--model eager_ernie` the ERNIE-3.0-base encoder
+composed from layers (tools/eager_ernie.py; batch 64 x 512, lr 2e-5),
+`--model eager_llama` the flagship-width Llama composed from layers
+(tools/eager_llama.py; batch 2 x 2048, lr 1e-4). `--model ernie` drives
+the functional ERNIE finetune step over nlp/ernie.py
+(tools/ernie_finetune.py: batch 64 x 512 padded to lengths 128-512,
+adamw 2e-5). Each takes one untraced warm-up step, one untraced step for
+its wall time without the profiler's per-operation cost, then one step
+traced by torch.profiler.
 
 It prints one JSON line for the traced step: the host wall time (the
 step ends in a synchronize), the device time summed by kernel class
 (GEMM, flash forward, flash backward, RMSNorm, AdamW, MoE dispatch,
 other; for the MoE model also "routing", the device time of the torch
 ops inside `moe.top_k_routing`'s "moe_routing" range, taken out of
-"other"; for the eager model the LayerNorm kernels as "layer_norm", and
-the device and host time of each range: the backward's device time is
-the busy time less the other two ranges', since autograd launches it from
-its own thread), the device busy time (the sum over kernels; one stream, so
-they do not overlap), the idle share 1 - busy / wall, the kernel launch
-count and the port's own kernel launches by wrapper. The last line names
-the card and its power limit.
+"other"; the LayerNorm kernels as "layer_norm", the row-6 RMSNorm as
+"rms_fused"; for the eager models the device and host time of each
+range: the backward's device time is the busy time less the other two
+ranges', since autograd launches it from its own thread), the device
+busy time (the sum over kernels; one stream, so they do not overlap),
+the idle share 1 - busy / wall, the kernel launch count, the port's own
+kernel launches by wrapper and (eager and ERNIE steps) the peak device
+memory. The last line names the card and its power limit.
 """
 from __future__ import annotations
 
@@ -39,13 +48,16 @@ from torch.autograd import DeviceType
 
 # the training batch and length of each model (bench.py:369-370,
 # bench.py:87 and bench.py:134)
-_BATCH = {"llama": 8, "moe": 20, "eager_ernie": 64}
-_SEQ = {"llama": 2048, "moe": 2048, "eager_ernie": 512}
+_BATCH = {"llama": 8, "moe": 20, "eager_ernie": 64, "eager_llama": 2,
+          "ernie": 64}
+_SEQ = {"llama": 2048, "moe": 2048, "eager_ernie": 512, "eager_llama": 2048,
+        "ernie": 512}
 _GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet", "cublas")
 # kernel symbol names of csrc/*.cu, by class
 _PORT_KERNELS = (("flash_fwd_kernel", "flash_fwd"),
                  ("dkdv_kernel", "flash_bwd"), ("dq_kernel", "flash_bwd"),
-                 ("dcap_kernel", "flash_bwd"), ("rms_fwd_kernel", "rms"),
+                 ("dcap_kernel", "flash_bwd"),
+                 ("rms_fused_kernel", "rms_fused"), ("rms_fwd_kernel", "rms"),
                  ("rms_bwd_kernel", "rms"), ("rms_dw_kernel", "rms"),
                  ("adamw_q_kernel", "adamw"),
                  ("gather_wsum_kernel", "moe_dispatch"),
@@ -77,8 +89,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.model == "eager_ernie":
+    if args.model in ("eager_ernie", "eager_llama"):
         return _main_eager(args)
+    if args.model == "ernie":
+        return _main_ernie(args)
     from ..kernels import flash_attention as fa
     from ..kernels import moe_dispatch as md
     from ..kernels import rms_norm as rn
@@ -177,31 +191,45 @@ def _print_device(args, layers, batch):
 
 
 def _main_eager(args) -> int:
-    """The eager ERNIE step (`--model eager_ernie`)."""
+    """The eager steps (`--model eager_ernie` or `eager_llama`)."""
     import paddle_tpu_torch as paddle
     from ..kernels import flash_attention as fa
     from ..kernels import layer_norm as ln
-    from ..nlp import ernie
-    from .eager_ernie import build_model, train_step
+    from ..kernels import rms_norm as rn
+    from ..nlp import ernie, llama
+    from . import eager_ernie, eager_llama
 
     over = ({} if args.layers is None
             else {"num_hidden_layers": args.layers})
-    cfg = ernie.ErnieConfig.ernie3_base(**over)
     batch, seq = _BATCH[args.model], _SEQ[args.model]
     paddle.set_device("gpu")
     paddle.seed(args.seed)
-    model = build_model(paddle, cfg, dropout=0.1)
-    opt = paddle.optimizer.AdamW(
-        learning_rate=2e-5, parameters=model.parameters(),
-        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
-    loss_fn = paddle.nn.CrossEntropyLoss()
     rng = np.random.default_rng(args.seed)
-    ids = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
-    labels = paddle.to_tensor(rng.integers(0, cfg.num_labels, (batch,)))
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    if args.model == "eager_ernie":
+        cfg = ernie.ErnieConfig.ernie3_base(**over)
+        model, lr = eager_ernie.build_model(paddle, cfg, dropout=0.1), 2e-5
+        ids = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
+        labels = paddle.to_tensor(rng.integers(0, cfg.num_labels, (batch,)))
+
+        def run(opt, span):
+            return eager_ernie.train_step(paddle, model, loss_fn, opt, ids,
+                                          labels, span=span)
+    else:
+        cfg = llama.LlamaConfig.flagship_2b(**over)
+        model, lr = eager_llama.build_model(paddle, cfg), 1e-4
+        tokens = paddle.to_tensor(rng.integers(0, cfg.vocab_size,
+                                               (batch, seq)))
+
+        def run(opt, span):
+            return eager_llama.train_step(paddle, model, loss_fn, opt,
+                                          tokens, span=span)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=lr, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
 
     def step(span=None):
-        return train_step(paddle, model, loss_fn, opt, ids, labels,
-                          span=span)
+        return run(opt, span)
 
     step()                                            # warm-up, untraced
     torch.cuda.synchronize()
@@ -211,12 +239,14 @@ def _main_eager(args) -> int:
     untraced = time.perf_counter() - t0
     counters = {"layer_norm_fwd": ln.layer_norm_fwd,
                 "layer_norm_bwd": ln.layer_norm_bwd,
+                "rms_norm_fused": rn.rms_norm_fused,
                 "flash_attention_fwd": fa.flash_attention_fwd,
                 "flash_attention_bwd": fa.flash_attention_bwd}
     for c in counters.values():
         c.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         loss = step(span=torch.profiler.record_function)
@@ -236,7 +266,60 @@ def _main_eager(args) -> int:
         "kernel_launches": launches,
         "port_launches": {n: c.launches for n, c in counters.items()},
         "tokens": tok, "untraced_tokens_per_s": tok / untraced,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "loss": float(loss)}), flush=True)
+    _print_device(args, cfg.num_hidden_layers, batch)
+    return 0
+
+
+def _main_ernie(args) -> int:
+    """The functional ERNIE finetune step over nlp/ernie.py (`--model
+    ernie`)."""
+    from ..kernels import flash_attention as fa
+    from ..kernels import layer_norm as ln
+    from ..nlp import ernie
+    from .ernie_finetune import build_ernie_step
+
+    batch, seq = _BATCH[args.model], _SEQ[args.model]
+    cfg = ernie.ErnieConfig.ernie3_base(
+        num_labels=2, remat=False, scan_unroll=True,
+        **({} if args.layers is None
+           else {"num_hidden_layers": args.layers}))
+    step, state, data, cfg = build_ernie_step(batch, seq, cfg=cfg,
+                                              seed=args.seed)
+    state, _ = step(state, data)                      # warm-up, untraced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, data)
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd": fa.flash_attention_bwd,
+                "layer_norm_fwd": ln.layer_norm_fwd,
+                "layer_norm_bwd": ln.layer_norm_bwd}
+    for c in counters.values():
+        c.launches = 0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_class, launches, _ = _device_times(prof, ())
+    busy = sum(by_class.values())
+    tok = batch * seq
+    print(json.dumps({
+        "step": "ernie_finetune", "traced": True, "wall_ms": wall * 1e3,
+        "untraced_wall_ms": untraced * 1e3, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / (wall * 1e3),
+        "device_ms_by_class": by_class, "kernel_launches": launches,
+        "port_launches": {n: c.launches for n, c in counters.items()},
+        "tokens": tok, "valid_tokens": int(data[2].sum()),
+        "untraced_tokens_per_s": tok / untraced,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "loss": float(m["loss"])}), flush=True)
     _print_device(args, cfg.num_hidden_layers, batch)
     return 0
 

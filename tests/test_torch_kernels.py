@@ -275,7 +275,14 @@ def test_port_imports_no_jax():
         "          'paddle_tpu_torch.nn.layer',\n"
         "          'paddle_tpu_torch.optimizer.optimizers',\n"
         "          'paddle_tpu_torch.incubate.nn',\n"
-        "          'paddle_tpu_torch.kernels.layer_norm'):\n"
+        "          'paddle_tpu_torch.kernels.layer_norm',\n"
+        "          'paddle_tpu_torch.kernels.rope',\n"
+        "          'paddle_tpu_torch.nlp.ernie',\n"
+        "          'paddle_tpu_torch.tools.eager_llama',\n"
+        "          'paddle_tpu_torch.tools.ernie_finetune',\n"
+        "          'paddle_tpu_torch.incubate.nn.functional',\n"
+        "          'paddle_tpu_torch.nn.functional.attention',\n"
+        "          'paddle_tpu_torch.tools.profile_train'):\n"
         "    assert n in names, n\n"
         "assert not any(m in ('jax', 'optax')\n"
         "               or m.startswith(('jax.', 'optax.', 'paddle_tpu.'))\n"
