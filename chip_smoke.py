@@ -104,7 +104,15 @@ backward non-causal at B=64 S=512 H=12 hd=64 and causal at the eager
 Llama's B=2 x 2048, the row-6 RMSNorm at f32 [4096, 4096], bf16
 [16384, 4096], D 776 and affine-free, and the key-masked flash in
 'bhsd' at the ERNIE step's lengths, in 'bshd', unmasked, with a batch
-row that sees no key and at an unaligned length (500).
+row that sees no key and at an unaligned length (500); the flash
+forward and backward at DiT-XL/2's B=96 S=256 H=16 hd=72 non-causal
+'bhsd'; and the four kernels no path launches, at the shapes of the
+workloads they were written for: the fused adaLN forward and backward
+(rows 11-12) at DiT-XL/2's [96, 256, 1152] bf16 and at f32 [4, 100,
+776], the masked row gather (row 13) at the MoE step's combine maps, and
+the gather fused into the expert gate/up products (row 16) at its
+T 40960, E 16, M 6400, D 2048, F 1024. The kernels line lists all 18
+pallas_call rows of the JAX package.
 
 The last lines are the kernels JSON object, the `nvidia-smi` name/power
 line and {"ok": true, "device": {...}}. Imports nothing of JAX or of the
@@ -238,21 +246,30 @@ def _bound(flops, nbytes, peaks, flops_peak=None):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def _qkv(B, S, hd, gen, layout="bshd", heads=()):
+    """Random bf16 [B, S, n, hd] for each n of `heads`, contiguous in
+    `layout` ('bhsd': [B, n, S, hd])."""
+    t = [torch.randn(B, S, n, hd, device="cuda", generator=gen).bfloat16()
+         for n in heads]
+    if layout == "bhsd":
+        t = [x.transpose(1, 2).contiguous() for x in t]
+    return t
+
+
 def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
-                causal: bool = True):
+                causal: bool = True, layout: str = "bshd"):
     """The flash forward against its plain version at one shape; with
     `lse`, as the training forward calls it, its LSE held too."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
-    dev = "cuda"
-    q = torch.randn(B, S, H, hd, device=dev, generator=gen).bfloat16()
-    k = torch.randn(B, S, KV, hd, device=dev, generator=gen).bfloat16()
-    v = torch.randn(B, S, KV, hd, device=dev, generator=gen).bfloat16()
-    out = fa.flash_attention_fwd(q, k, v, causal=causal, return_lse=lse)
-    ref = fa.flash_attention_fwd_ref(q, k, v, causal=causal, return_lse=lse)
+    q, k, v = _qkv(B, S, hd, gen, layout, (H, KV, KV))
+    kw = dict(causal=causal, return_lse=lse, layout=layout)
+    out = fa.flash_attention_fwd(q, k, v, **kw)
+    ref = fa.flash_attention_fwd_ref(q, k, v, **kw)
     res = {"shape": f"B={B} S={S} H={H} KV={KV} hd={hd}"
                     + (" (LSE)" if lse else "")
-                    + ("" if causal else " non-causal")}
+                    + ("" if causal else " non-causal")
+                    + ("" if layout == "bshd" else f" {layout}")}
     if lse:
         (out, lse_k), (ref, lse_r) = out, ref
         res["lse_abs_err"] = (lse_k - lse_r).abs().max().item()
@@ -264,11 +281,10 @@ def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
     rel = _rel_err(out, ref)
     if not rel <= tol:
         raise AssertionError(f"flash B={B} S={S}: relative err {rel} > {tol}")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
-                                                 return_lse=lse), 50)
-    plain = _time_ms(lambda: fa.flash_attention_fwd_ref(
-        q, k, v, causal=causal, return_lse=lse), 5)
+    qt, kt, vt = (x if layout == "bhsd" else x.transpose(1, 2)
+                  for x in (q, k, v))
+    ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), 50)
+    plain = _time_ms(lambda: fa.flash_attention_fwd_ref(q, k, v, **kw), 5)
     lib = _time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True), 50)
     pairs = S * (S + 1) // 2 if causal else S * S       # Sq == Sk
@@ -399,13 +415,16 @@ RMS_F32_TOL = 1e-5
 ADAMW_CODE_FRAC = 1e-3
 
 
-def _sdpa_grad_ms(q, k, v, dout, iters, causal=True):
+def _sdpa_grad_ms(q, k, v, dout, iters, causal=True, layout="bshd"):
     """SDPA's backward alone: forward + backward minus forward,
     enable_gqa (the library yardstick; the port never calls it)."""
     import torch.nn.functional as F
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                  for x in (q, k, v))
-    dot = dout.transpose(1, 2)
+
+    def heads(x):
+        return x if layout == "bhsd" else x.transpose(1, 2)
+
+    qt, kt, vt = (heads(x).detach().requires_grad_(True) for x in (q, k, v))
+    dot = heads(dout)
 
     def fwd():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -418,19 +437,18 @@ def _sdpa_grad_ms(q, k, v, dout, iters, causal=True):
         return _time_ms(both, iters) - _time_ms(fwd, iters)
 
 
-def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True):
+def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True,
+                    layout="bshd"):
     """dq, dk, dv from the kernel forward's (out, lse), against the plain
     backward on the same inputs; the kernel must also repeat bit for bit
     (no atomics)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
-    q, k, v = (torch.randn(B, S, n, hd, device="cuda", generator=gen)
-               .bfloat16() for n in (H, KV, KV))
-    dout = torch.randn(B, S, H, hd, device="cuda", generator=gen).bfloat16()
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                      return_lse=True)
-    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
-    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
-    ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    q, k, v, dout = _qkv(B, S, hd, gen, layout, (H, KV, KV, H))
+    kw = dict(causal=causal, layout=layout)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
     rel = {n: _rel_err(a, b, floor=GRAD_ROW_FLOOR)
            for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
@@ -443,17 +461,18 @@ def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True):
               for a, b in zip(got, ref))
     del again
     ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
-                                                 causal=causal), 10)
+                                                 **kw), 10)
     plain = _time_ms(lambda: fa.flash_attention_bwd_ref(
-        q, k, v, out, lse, dout, causal=causal), 2)
-    lib = _sdpa_grad_ms(q, k, v, dout, 5, causal)
+        q, k, v, out, lse, dout, **kw), 2)
+    lib = _sdpa_grad_ms(q, k, v, dout, 5, causal, layout)
     pairs = S * (S + 1) // 2 if causal else S * S
     # five products over the visible pairs: QK^T again, dO V^T, P^T dO,
     # dS K, dS^T Q; bytes: q, k, v, out, dout, lse in; dq, dk, dv out
     flops = 10.0 * B * H * hd * pairs
     nbytes = 2.0 * B * S * hd * (4 * H + 4 * KV) + 4.0 * B * H * S
     return {"shape": f"B={B} S={S} H={H} KV={KV} hd={hd}"
-                     + ("" if causal else " non-causal"),
+                     + ("" if causal else " non-causal")
+                     + ("" if layout == "bshd" else f" {layout}"),
             "max_abs_err": err, "max_rel_err": max(rel.values()),
             "rel_err": rel, "ms": ms, "plain_ms": plain, "library_ms": lib,
             **_bound(flops, nbytes, peaks)}
@@ -871,7 +890,11 @@ def _moe_maps(gen, B=20, S=2048):
     eidx, slot, probs, valid, _, _ = moe.top_k_routing(logits, k, C)
     flat_g, inv_pos, inv_tok, idx_tk, w_tk = moe._routing_maps(
         eidx, slot, probs, valid, C, E)
+    # per-group form [B, S·k] (slot e·C + c of the group's E·C), the maps
+    # of the JAX `combine_gather` over eout [B, E·C, D]
+    flat_b = torch.where(valid, eidx * C + slot, -1).reshape(B, S * k)
     return {"B": B, "S": S, "E": E, "k": k, "C": C, "flat": flat_g,
+            "flat_b": flat_b.to(torch.int32),
             "inv_pos": inv_pos, "inv_tok": inv_tok, "idx_tk": idx_tk,
             "w_tk": w_tk,
             # rows the data needs: tokens with a routed choice, routed
@@ -1016,6 +1039,200 @@ def _moe_dispatch_cases(peaks, gen, flush):
     return wsum, sdot, info
 
 
+# The adaLN kernels (rows 11-12) against their plain versions: in bf16 the
+# output and dx per row within KERNEL_TOL (one bf16 rounding of the same
+# f32 values); in f32 the same f32 expressions summed in another order
+# (the row's mean and variance, a warp's shuffles against torch's
+# reduction), ~1e-7 of a row's scale: 1e-5. mu and rstd are f32 in both:
+# 1e-5 (mu absolute, rstd relative). dshift and dscale sum 256 tokens'
+# f32 terms in another order: 1e-4 of the largest |value|.
+ADALN_F32_TOL = 1e-5
+ADALN_STAT_TOL = 1e-5
+ADALN_SUM_TOL = 1e-4
+
+
+def _adaln_cases(B, N, D, dtype, peaks, gen, flush):
+    """The fused adaLN forward and backward at x [B, N, D] with per-sample
+    shift and scale [B, D] (in x's dtype, as DiT's modulation is) against
+    their plain versions; the backward must repeat bit for bit. Times
+    beside DiT's own plain chain `_modulate(_ln(x))` (and its autograd
+    backward) and `F.layer_norm` (the norm only, no modulation); no one
+    PyTorch call computes the fused function (library_ms null)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import adaln as ad
+    from paddle_tpu_torch.mix import dit
+    x = (torch.randn(B, N, D, device="cuda", generator=gen) + 0.3).to(dtype)
+    sh, sc = ((0.1 * torch.randn(B, D, device="cuda", generator=gen))
+              .to(dtype) for _ in range(2))
+    dy = torch.randn(B, N, D, device="cuda", generator=gen).to(dtype)
+    bf16 = dtype == torch.bfloat16
+    tol = KERNEL_TOL if bf16 else ADALN_F32_TOL
+    out, mu, rstd = ad.adaln_fwd(x, sh, sc)
+    rout, rmu, rrstd = ad._adaln_fwd_twin(x, sh, sc)
+    dx, dsh, dsc = ad.adaln_bwd(x, sc, mu, rstd, dy)
+    again = ad.adaln_bwd(x, sc, mu, rstd, dy)
+    rdx, rdsh, rdsc = ad._adaln_bwd_plain(x, sc, rmu, rrstd, dy)
+    torch.cuda.synchronize()
+    err = {"out": _rel_err(out, rout), "dx": _rel_err(dx, rdx,
+                                                       floor=GRAD_ROW_FLOOR),
+           "mu": (mu - rmu).abs().max().item(),
+           "rstd": ((rstd - rrstd).abs() / rrstd).max().item(),
+           "dshift": ((dsh - rdsh).abs().max() / rdsh.abs().max()).item(),
+           "dscale": ((dsc - rdsc).abs().max() / rdsc.abs().max()).item()}
+    bounds = {"out": tol, "dx": tol, "mu": ADALN_STAT_TOL,
+              "rstd": ADALN_STAT_TOL, "dshift": ADALN_SUM_TOL,
+              "dscale": ADALN_SUM_TOL}
+    label = f"[{B}, {N}, {D}] {str(dtype).split('.')[-1]}"
+    if not all(err[n] <= b for n, b in bounds.items()):
+        raise AssertionError(f"adaln {label}: errors {err} over {bounds}")
+    if not all(torch.equal(a, b) for a, b in zip((dx, dsh, dsc), again)):
+        raise AssertionError(f"adaln {label}: two backward runs differ")
+    abs_f = max((out.float() - rout.float()).abs().max().item(),
+                (mu - rmu).abs().max().item())
+    abs_b = max((a.float() - b.float()).abs().max().item()
+                for a, b in ((dx, rdx), (dsh, rdsh), (dsc, rdsc)))
+    del again, rout, rdx
+    xr = x.detach().requires_grad_(True)
+    shr, scr = (t.detach().requires_grad_(True) for t in (sh, sc))
+
+    def chain():
+        return dit._modulate(dit._ln(xr), shr, scr)
+
+    def chain_bwd():
+        torch.autograd.grad(chain(), (xr, shr, scr), dy)
+
+    def ln():
+        return F.layer_norm(xr, (D,), eps=1e-6)
+
+    def ln_bwd():
+        torch.autograd.grad(ln(), (xr,), dy)
+
+    with torch.enable_grad():
+        chain_ms, ln_ms = _time_ms(chain, 20, flush), _time_ms(ln, 20, flush)
+        chain_b = _time_ms(chain_bwd, 10, flush) - chain_ms
+        ln_b = _time_ms(ln_bwd, 10, flush) - ln_ms
+    esz = x.element_size()
+    rows, n = B * N, B * N * D
+    fwd = {"shape": label, "max_abs_err": abs_f,
+           "max_rel_err": max(err["out"], err["rstd"]), "errors": err,
+           "ms": _time_ms(lambda: ad.adaln_fwd(x, sh, sc), 20, flush),
+           "plain_ms": _time_ms(lambda: ad._adaln_fwd_twin(x, sh, sc), 5,
+                                flush),
+           "library_ms": None, "dit_chain_ms": chain_ms,
+           "layer_norm_ms_norm_only": ln_ms}
+    # x read, out written; shift/scale read; mu/rstd written (f32);
+    # ~10 f32 operations a value
+    fwd.update(_bound(10.0 * n, 2.0 * esz * n + 2.0 * esz * B * D
+                      + 8.0 * rows, peaks, peaks[2]))
+    bwd = {"shape": label, "max_abs_err": abs_b,
+           "max_rel_err": max(err["dx"], err["dshift"], err["dscale"]),
+           "errors": err, "bit_identical": True,
+           "ms": _time_ms(lambda: ad.adaln_bwd(x, sc, mu, rstd, dy), 20,
+                          flush),
+           "plain_ms": _time_ms(lambda: ad._adaln_bwd_plain(
+               x, sc, mu, rstd, dy), 5, flush),
+           "library_ms": None, "dit_chain_ms": chain_b,
+           "layer_norm_ms_norm_only": ln_b}
+    # x, dy read, dx written; scale read, mu/rstd read (f32), dshift and
+    # dscale written (f32); ~14 f32 operations a value
+    bwd.update(_bound(14.0 * n, 3.0 * esz * n + esz * B * D + 8.0 * rows
+                      + 8.0 * B * D, peaks, peaks[2]))
+    return fwd, bwd
+
+
+def _gather_rows_case(mp, peaks, gen, flush, D=2048):
+    """Row 13, the masked row gather, at the MoE step's combine: eout
+    [B, E·C, D] read through the per-group maps [B, S·k] of a real
+    routing (dropped choices -1). Bit for bit the plain version, and the
+    -1 rows exactly +0. Timed beside `src[b, idx.clamp(0)]`, one
+    unmasked indexing call (it reads row 0 for a dropped choice instead
+    of writing zeros: not the same function, so library_ms is null)."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    B, E, C = mp["B"], mp["E"], mp["C"]
+    idx = mp["flat_b"]
+    M = idx.shape[1]
+    src = torch.randn(B, E * C, D, device="cuda", generator=gen).bfloat16()
+    out = md.gather_rows_kernel(src, idx)
+    ref = md._gather_rows_ref(src, idx)
+    torch.cuda.synchronize()
+    exact = torch.equal(out, ref)
+    zero = bool((out[idx < 0].view(torch.int16) == 0).all().item())
+    if not (exact and zero):
+        raise AssertionError(f"gather_rows: bit-identical {exact}, -1 rows "
+                             f"+0 {zero}")
+    del out, ref
+    bidx = torch.arange(B, device="cuda")[:, None]
+    read = int((idx >= 0).sum().item())
+    res = {"shape": f"combine: src [{B}, {E * C}, {D}] -> [{B}, {M}, {D}], "
+                    f"{read} rows read", "path": "held",
+           "max_abs_err": 0.0, "max_rel_err": 0.0, "bit_identical": True,
+           "ms": _time_ms(lambda: md.gather_rows_kernel(src, idx), 20, flush),
+           "plain_ms": _time_ms(lambda: md._gather_rows_ref(src, idx), 3,
+                                flush),
+           "library_ms": None,
+           "unmasked_index_ms": _time_ms(
+               lambda: src[bidx, idx.clamp(min=0)], 20, flush)}
+    # the routed rows read once, every output row written, idx read
+    res.update(_bound(0.0, 2.0 * D * (read + B * M) + 4.0 * B * M, peaks))
+    return res
+
+
+def _gather_mlp_case(mp, peaks, gen, flush, D=2048, F_=1024):
+    """Row 16, the dispatch gather fused into the expert gate and up
+    products, at the MoE step's shape: tokens [T = 40960, D], the slots
+    of a real routing [E = 16, M = 6400] (-1 empty), wg and wu
+    [16, D, F] N(0, 0.02) bf16. g and u within KERNEL_TOL per row of the
+    plain version (f32 products, one rounding; the kernel accumulates
+    the same bf16 products in f32 in another order), empty slots exactly
+    0, xin bit for bit. Timed beside three PyTorch calls: an unmasked
+    index gather and two torch.bmm (library_ms null: no one call)."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    B, S, E = mp["B"], mp["S"], mp["E"]
+    T = B * S
+    idx = mp["inv_tok"].reshape(E, -1)
+    M = idx.shape[1]
+    x = torch.randn(T, D, device="cuda", generator=gen).bfloat16()
+    wg, wu = ((0.02 * torch.randn(E, D, F_, device="cuda", generator=gen))
+              .bfloat16() for _ in range(2))
+    g, u, xin = md.gather_mlp_kernel(x, idx, wg, wu)
+    rg, ru, rxin = md._gather_mlp_ref(x, idx, wg, wu)
+    torch.cuda.synchronize()
+    valid = idx >= 0
+    rel = {"g": _rel_err(g, rg, valid), "u": _rel_err(u, ru, valid)}
+    empty0 = not (g[~valid].any().item() or u[~valid].any().item())
+    exact = torch.equal(xin, rxin)
+    if not (max(rel.values()) <= KERNEL_TOL and empty0 and exact):
+        raise AssertionError(f"gather_mlp: relative errors {rel} (tol "
+                             f"{KERNEL_TOL}), empty slots 0 {empty0}, xin "
+                             f"bit-identical {exact}")
+    err = max((g.float() - rg.float()).abs().max().item(),
+              (u.float() - ru.float()).abs().max().item())
+    del g, u, xin, rg, ru, rxin
+
+    def three():
+        xi = x[idx.clamp(min=0)]
+        return torch.bmm(xi, wg), torch.bmm(xi, wu)
+
+    read = int(valid.sum().item())
+    res = {"shape": f"src [{T}, {D}], idx [{E}, {M}], wg/wu [{E}, {D}, "
+                    f"{F_}], {read} slots filled", "path": "held",
+           "max_abs_err": err, "max_rel_err": max(rel.values()),
+           "rel_err": rel, "xin_bit_identical": True,
+           "ms": _time_ms(lambda: md.gather_mlp_kernel(x, idx, wg, wu), 10,
+                          flush),
+           "plain_ms": _time_ms(lambda: md._gather_mlp_ref(x, idx, wg, wu),
+                                2, flush),
+           "library_ms": None,
+           "three_calls_ms": _time_ms(three, 10, flush)}
+    # both products over the filled slots only (an empty slot's g and u
+    # are zero rows, no product); bytes: the filled slots' rows, the
+    # weights, g and u, xin written, idx read
+    res.update(_bound(4.0 * read * D * F_,
+                      2.0 * D * read + 4.0 * E * D * F_ + 4.0 * E * M * F_
+                      + 2.0 * E * M * D + 4.0 * E * M, peaks))
+    return res
+
+
 def phase_kernels(peaks):
     from paddle_tpu_torch.nlp import llama, moe
     H, KV, hd = 32, 8, 128
@@ -1091,9 +1308,26 @@ def phase_kernels(peaks):
                                   small.clamp(max=500), peaks, gen)]
     flash += [f for f, _ in masked]
     bwd += [b for _, b in masked]
+    # DiT-XL/2's attention: B 96 x 256 patch tokens, 16 heads of 72,
+    # non-causal, head-major
+    flash.append(_flash_case(96, 256, 16, 16, 72, peaks, KERNEL_TOL, gen,
+                             lse=True, causal=False, layout="bhsd"))
+    bwd.append(_flash_bwd_case(96, 256, 16, 16, 72, peaks, gen,
+                               causal=False, layout="bhsd"))
     torch.cuda.empty_cache()
     rms = [_rms_cases(8 * 2048, 4096, peaks, gen),
            _rms_cases(20 * 2048, 2048, peaks, gen, eps=1e-6)]
+    # rows 11-12 at DiT-XL/2's [96, 256, 1152] bf16, and in f32 at a width
+    # off the warp's round (776: 194 vectors) and a token count off the
+    # backward's 32-token chunks; rows 13 and 16 at the MoE step's maps
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    adaln = [_adaln_cases(96, 256, 1152, torch.bfloat16, peaks, gen, flush),
+             _adaln_cases(4, 100, 776, torch.float32, peaks, gen, flush)]
+    mp = _moe_maps(gen)
+    rows13 = [_gather_rows_case(mp, peaks, gen, flush)]
+    rows16 = [_gather_mlp_case(mp, peaks, gen, flush)]
+    del scratch, mp
+    torch.cuda.empty_cache()
     adamw = []
     for path, shapes in (
             ("train", llama._shapes(llama.LlamaConfig.flagship_2b())),
@@ -1109,11 +1343,16 @@ def phase_kernels(peaks):
              "gather_wsum": wsum, "gather_scale_dot": sdot,
              "layer_norm_fwd": [f for f, _ in lns],
              "layer_norm_bwd": [b for _, b in lns],
-             "rms_norm_fused": rms_fused}
+             "rms_norm_fused": rms_fused,
+             "adaln_fwd": [f for f, _ in adaln],
+             "adaln_bwd": [b for _, b in adaln],
+             "gather_rows": rows13, "gather_mlp": rows16}
     _emit({"phase": "kernels", "tol": KERNEL_TOL, "lse_tol": LSE_TOL,
            "rstd_tol": RSTD_TOL, "adamw_code_frac": ADAMW_CODE_FRAC,
            "ln_f32_tol": LN_F32_TOL, "ln_stat_tol": LN_STAT_TOL,
            "ln_sum_tol": LN_SUM_TOL, "rms_f32_tol": RMS_F32_TOL,
+           "adaln_f32_tol": ADALN_F32_TOL, "adaln_stat_tol": ADALN_STAT_TOL,
+           "adaln_sum_tol": ADALN_SUM_TOL,
            "moe_routing": moe_info, **cases})
     torch.cuda.empty_cache()
     return cases
@@ -2066,14 +2305,19 @@ _ERNIE_LAUNCHES_PER_STEP = {"flash_attention_fwd": 12,
 
 
 def _path_counters(names):
+    from paddle_tpu_torch.kernels import adaln as ad
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.kernels import moe_dispatch as md
     from paddle_tpu_torch.kernels import rms_norm as rn
     every = {"rms_norm_fused": rn.rms_norm_fused,
              "flash_attention_fwd": fa.flash_attention_fwd,
              "flash_attention_bwd": fa.flash_attention_bwd,
              "layer_norm_fwd": ln.layer_norm_fwd,
-             "layer_norm_bwd": ln.layer_norm_bwd}
+             "layer_norm_bwd": ln.layer_norm_bwd,
+             "adaln_fwd": ad.adaln_fwd, "adaln_bwd": ad.adaln_bwd,
+             "gather_rows": md.gather_rows_kernel,
+             "gather_mlp": md.gather_mlp_kernel}
     return {n: every[n] for n in names}
 
 
@@ -2384,6 +2628,161 @@ def phase_grad_check_ernie():
     return out
 
 
+# ----------------------------------------------------------------- 10. DiT
+# one DiT-XL/2 step (28 blocks, per-block recompute): each block's flash
+# forward runs in the forward and again in its recompute, the backward
+# once; DiT's norm and modulation are plain torch (as in the JAX
+# package), and no MoE gather runs
+_DIT_LAUNCHES_PER_STEP = {"flash_attention_fwd": 2 * 28,
+                          "flash_attention_bwd": 28,
+                          "adaln_fwd": 0, "adaln_bwd": 0,
+                          "gather_rows": 0, "gather_mlp": 0}
+
+
+def phase_dit(peaks):
+    """DiT-XL/2 (BASELINE config 3: 32x32x4 latents, patch 2, D 1152, 28
+    blocks, 16 heads of 72, 675M params) with bench.py:184-233's recipe
+    through `tools/dit_train.build_dit_step`: f32 params, bf16 compute,
+    per-block recompute, adamw_q(1e-4) (8-bit moments), batch 96 from
+    default_rng(0), the step's draws fixed: 2 warm-up then 4 timed steps.
+    The flash forward must launch exactly 56 times a step and the
+    backward 28 (head_dim 72, non-causal, 'bhsd'), rows 11-13 and 16
+    never; losses finite and falling, peak memory under 80 GB."""
+    from paddle_tpu_torch.mix import dit
+    from paddle_tpu_torch.tools.dit_train import build_dit_step
+
+    warmup, timed, batch = 2, 4, 96
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, state, data, cfg = build_dit_step(batch)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    box = [state]
+
+    def one():
+        box[0], m = step(box[0], data)
+        return m["loss"]
+
+    losses, dt, launches, peak = _run_steps(
+        one, _path_counters(_DIT_LAUNCHES_PER_STEP), warmup, timed)
+    img_s = batch * timed / dt
+    fpi = dit.flops_per_image(cfg)
+    res = {"phase": "dit",
+           "config": "DiTConfig.dit_xl_2 (BASELINE config 3, "
+                     "bench.py:184-233) through mix/dit.py",
+           "widths": {"image": cfg.image_size, "patch": cfg.patch_size,
+                      "D": cfg.hidden_size, "L": cfg.depth,
+                      "H": cfg.num_heads, "hd": cfg.head_dim,
+                      "tokens": cfg.n_patches},
+           "params": dit.num_params(cfg), "batch": batch,
+           "steps": warmup + timed, "timed_steps": timed,
+           "step_ms": dt / timed * 1e3, "img_per_s": img_s,
+           "flops_per_image": fpi, "mfu": img_s * fpi / peaks[0],
+           "losses": losses, "peak_memory_bytes": peak, "init_s": init_s,
+           "launches": launches,
+           "launches_per_step": {n: c / timed for n, c in launches.items()},
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    del box, state, step, data
+    torch.cuda.empty_cache()
+    _check_path("dit", res, _DIT_LAUNCHES_PER_STEP, timed)
+    return res
+
+
+def _dit_group(name: str) -> str:
+    """The gradient group of a mix/dit.py leaf."""
+    if name.startswith("final"):
+        return "final"
+    if name.startswith("blocks/"):
+        leaf = name[len("blocks/"):]
+        if leaf.startswith("ada"):
+            return "ada"
+        if leaf.startswith(("qkv", "proj")):
+            return "attention"
+        return "mlp"
+    return "embed"      # patch, position, timestep and label embeddings
+
+
+# the groups the dcap fault must show in: every qkv and proj weight (the
+# last block's qkv take the faulty dq/dk/dv, the first block's all its
+# weights the faulty input gradient). The others are reported: the
+# attention branch reaches them scaled by its gate.
+_DIT_FAULT_GROUPS = ("attention",)
+
+
+def phase_grad_check_dit():
+    """One diffusion loss + backward of DiT-XL/2's widths at 2 blocks,
+    batch 16 of 32x32x4 latents with fixed draws, in bf16 compute through
+    the kernels, their plain versions, the plain versions with the dcap
+    fault (the flash backward's plain version drops rowsum(dO·O), at
+    head_dim 72), and an f32 evaluation (f32 compute, plain versions) of
+    the same f32 parameters; relative RMS distance of the model output
+    and of each gradient group from f32.
+
+    At the DiT recipe's init `ada_w`, `final_ada_w` and `final_w` are
+    zero: every gate is 0, the attention branch gets exactly zero
+    gradient and a broken flash backward would pass. So this check draws
+    those three from a seeded N(0, 0.02) first."""
+    import dataclasses
+    from paddle_tpu_torch.mix import dit
+    from paddle_tpu_torch.nlp.train import value_and_grad
+
+    layers, batch = 2, 16
+    cfg = dit.DiTConfig.dit_xl_2(depth=layers)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    params = dit.init_params(gen, cfg)
+    with torch.no_grad():
+        for t in (params["blocks"]["ada_w"], params["final_ada_w"],
+                  params["final_w"]):
+            t.normal_(0.0, 0.02, generator=gen)
+    rng = np.random.default_rng(6)
+    x0 = torch.from_numpy(rng.standard_normal(
+        (batch, cfg.in_channels, cfg.image_size, cfg.image_size))
+        .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, cfg.num_classes, (batch,))
+                         .astype(np.int32)).cuda()
+    t, eps, drop = dit.draw(torch.Generator(device="cuda").manual_seed(
+        SEED + 9), x0, cfg)
+    ab = dit._alphas_bar(1000, x0.device)[t][:, None, None, None]
+    xt = torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * eps
+    yd = torch.where(drop, torch.full_like(y, cfg.num_classes), y)
+
+    def run(c):
+        loss, g = value_and_grad(lambda p: dit.diffusion_loss_given(
+            p, x0, y, t, eps, drop, c), params)
+        with torch.no_grad():
+            out = dit.forward(params, xt, t, yd, c)
+        flat = {}
+        for k, v in g.items():
+            if isinstance(v, dict):
+                flat.update({f"{k}/{kk}": vv.float() for kk, vv in v.items()})
+            else:
+                flat[k] = v.float()
+        return float(loss), out.float().reshape(-1), flat
+
+    res = {"kernel": run(cfg)}
+    with _plain_kernels():
+        res["ref"] = run(cfg)
+    with _plain_kernels(fault="dcap"):
+        res["fault"] = run(cfg)
+    with _plain_kernels():
+        res["f32"] = run(cfg32)
+    groups: dict = {}
+    for n in res["f32"][2]:
+        groups.setdefault(_dit_group(n), []).append(n)
+    out = _grad_ratios(res, groups, first="model_out")
+    _emit({"phase": "grad_check_dit", "layers": layers, "batch": batch,
+           "head_dim": cfg.head_dim, "ratio_tol": GRAD_VS_F32_RATIO,
+           "fault_groups": _DIT_FAULT_GROUPS, **out})
+    del res, params
+    torch.cuda.empty_cache()
+    _check_grad_ratios(out, groups, _DIT_FAULT_GROUPS, "dcap",
+                       first="model_out")
+    return out
+
+
 # "main": for each path that launches the kernel, the case at that
 # path's shape whose times the kernels line reports (its index among the
 # kernel's cases, or among those of the path where cases name their
@@ -2398,11 +2797,14 @@ _KERNELS = {
         # train_moe: B=20 S=2048 H=16 + LSE; eager: B=64 S=512 H=12
         # hd=64 non-causal + LSE; eager_llama: B=2 S=2048 + LSE; ernie:
         # B=64 S=512 H=12 hd=64 bhsd key-masked + LSE
+        # dit: B=96 S=256 H=16 hd=72 bhsd non-causal + LSE
+        "rows": [1],
         "main": {"serve": 1, "train": 3, "train_moe": 4, "eager": 5,
-                 "eager_llama": 6, "ernie": 7}},
+                 "eager_llama": 6, "ernie": 7, "dit": 12}},
     "ragged_paged_attention": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
+        "rows": [18],
         "main": {"serve": 0}},            # the decode case
     "flash_attention_bwd": {
         "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
@@ -2410,41 +2812,70 @@ _KERNELS = {
         "also_replaces": ["paddle_tpu/kernels/flash_attention.py:360",
                           "paddle_tpu/kernels/flash_attention.py:446",
                           "paddle_tpu/kernels/flash_attention.py:503"],
+        "rows": [2, 3, 4, 5],
         "main": {"train": 0, "train_moe": 2, "eager": 3, "eager_llama": 4,
-                 "ernie": 5}},
+                 "ernie": 5, "dit": 10}},
     "rms_norm_fwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:107",
+        "rows": [7],
         "main": {"train": 0, "train_moe": 1}},
     "rms_norm_bwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:115",
+        "rows": [8],
         "main": {"train": 0, "train_moe": 1}},
     "adamw_q": {
         "source": "paddle_tpu_torch/csrc/adamw_q.cu",
         "replaces": "paddle_tpu/optimizer/quant_state.py:227",
+        "rows": [17],
         # the largest leaves: [11, 4096, 9472]; [12, 16, 2048, 1024]
         "main": {"train": 0, "train_moe": 0}},
     "gather_wsum": {
         "source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
         "replaces": "paddle_tpu/kernels/moe_dispatch.py:244",
+        "rows": [14],
         "main": {"train_moe": 1}},        # the combine forward, k=2
     "gather_scale_dot": {
         "source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
         "replaces": "paddle_tpu/kernels/moe_dispatch.py:348",
+        "rows": [15],
         "main": {"train_moe": 0}},        # the combine backward
     "layer_norm_fwd": {
         "source": "paddle_tpu_torch/csrc/layer_norm.cu",
         "replaces": "paddle_tpu/kernels/layer_norm.py:38",
+        "rows": [9],
         "main": {"eager": 0}},            # f32 [32768, 768]
     "layer_norm_bwd": {
         "source": "paddle_tpu_torch/csrc/layer_norm.cu",
         "replaces": "paddle_tpu/kernels/layer_norm.py:53",
+        "rows": [10],
         "main": {"eager": 0}},
     "rms_norm_fused": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:28",
+        "rows": [6],
         "main": {"eager_llama": 0}},      # f32 [4096, 4096]
+    # no path of the JAX package launches rows 11-13 and 16, nor does the
+    # port's: "held" names the case (at DiT-XL/2's or the MoE step's
+    # shapes) whose times the line reports, and dit's run counts their
+    # launches (0)
+    "adaln_fwd": {
+        "source": "paddle_tpu_torch/csrc/adaln.cu",
+        "replaces": "paddle_tpu/kernels/adaln.py:42",
+        "rows": [11], "main": {}, "held": 0, "counted_in": "dit"},
+    "adaln_bwd": {
+        "source": "paddle_tpu_torch/csrc/adaln.cu",
+        "replaces": "paddle_tpu/kernels/adaln.py:54",
+        "rows": [12], "main": {}, "held": 0, "counted_in": "dit"},
+    "gather_rows": {
+        "source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
+        "replaces": "paddle_tpu/kernels/moe_dispatch.py:80",
+        "rows": [13], "main": {}, "held": 0, "counted_in": "dit"},
+    "gather_mlp": {
+        "source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
+        "replaces": "paddle_tpu/kernels/moe_dispatch.py:553",
+        "rows": [16], "main": {}, "held": 0, "counted_in": "dit"},
 }
 _TIMES = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2463,18 +2894,29 @@ def _kernels_line(cases, runs):
                 by_path[path]["per_step"] = {
                     k: sum(c[k] * c["step_launches"] for c in steps)
                     for k in ("ms", "plain_ms", "bound_ms")}
-        top = next(iter(by_path.values()))
+        if by_path:
+            top = next(iter(by_path.values()))
+            launches = sum(r["launches"] for r in by_path.values())
+        else:
+            top = cases[name][meta["held"]]
+            launches = runs[meta["counted_in"]]["launches"][name]
         entry = {
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"],
-            "launches": sum(r["launches"] for r in by_path.values()),
+            "replaces": meta["replaces"], "rows": meta["rows"],
+            "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "max_rel_err": max(c["max_rel_err"] for c in cases[name]),
             **{k: top[k] for k in _TIMES}, "kernel_ms": top["ms"],
             "by_path": by_path}
         if "also_replaces" in meta:
             entry["also_replaces"] = meta["also_replaces"]
+        if not by_path:
+            entry["held_at"] = top["shape"]
         kernels.append(entry)
+    rows = sorted(r for k in kernels for r in k["rows"])
+    if rows != list(range(1, 19)):
+        raise AssertionError(f"the kernels line covers rows {rows}, not "
+                             f"the 18 pallas_call sites")
     return kernels
 
 
@@ -2496,8 +2938,11 @@ def main() -> int:
     phase_grad_check_eager_llama()
     ernie = phase_ernie(peaks)
     phase_grad_check_ernie()
+    dit = phase_dit(peaks)
+    phase_grad_check_dit()
     runs = {"serve": serve, "train": train, "train_moe": train_moe,
-            "eager": eager, "eager_llama": eager_llama, "ernie": ernie}
+            "eager": eager, "eager_llama": eager_llama, "ernie": ernie,
+            "dit": dit}
     _emit({"kernels": _kernels_line(cases, runs)})
     print(_smi_line(), flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -10,6 +10,17 @@
 // n8 tiles is the A layout of one k16 step), so scores never touch
 // shared or device memory. wgmma and TMA are later work.
 //
+// head_dim HD is any multiple of 8 (64, 72, 128 are instantiated). A
+// contraction over hd (Q K^T here; every such product in flash_bwd.cu)
+// takes k_steps(HD) = ceil(HD / 16) k16 steps: at HD 72 the last step
+// covers columns 64..79, whose columns 72..79 are the rows' padding.
+// Every staged row is kRow elements wide; the columns HD..kCols-1 that
+// the last k-step reads are staged as zeros, and a fragment read from
+// device memory is zero past HD (`frag_pair`), so the tail adds exact
+// zeros. Products
+// whose output runs over hd (P V, and the backward's dS K etc.) take
+// HD / 8 n8 tiles and never read the pad.
+//
 // Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4):
 //   A (16x16, row): a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)
 //                   a3 (g+8, 2t+8..)
@@ -31,6 +42,31 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
+
+// k16 steps of a contraction over hd, the columns they read (kCols:
+// head_dim, then zeros) and the staged row width (kRow: at least kCols,
+// and 8 more than a multiple of 16 elements, so the 8 rows of a warp's
+// fragment load start 4, 12, 20 or 28 words apart and fall in distinct
+// banks: HD + 8 for 64 and 128, HD + 16 for 72)
+constexpr int k_steps(int hd) { return (hd + 15) / 16; }
+template <int HD>
+struct HeadDim {
+  static_assert(HD % 8 == 0 && HD >= 16, "head_dim: a multiple of 8");
+  static constexpr int kSteps = k_steps(HD);
+  static constexpr int kCols = kSteps * 16;
+  static constexpr int kRow = HD % 16 == 0 ? HD + 8 : HD + 16;
+  static_assert(kCols >= HD, "the k16 steps must cover head_dim");
+  static_assert(kCols <= kRow,
+                "the k16 steps must stay inside a staged row");
+};
+
+// The 32-bit pair of elements c, c + 1 of a device row, or 0 from
+// column HD on (the k-step tail past head_dim); row may be nullptr.
+template <int HD>
+__device__ __forceinline__ uint32_t frag_pair(const bf16* row, int c) {
+  return (row != nullptr && c < HD)
+             ? *reinterpret_cast<const uint32_t*>(row + c) : 0u;
+}
 
 // Element strides of a [batch, seq, head, head_dim] tensor whose head_dim
 // stride is 1, in either layout ('bshd' or 'bhsd'): the offset of row
@@ -61,25 +97,26 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// K and V tiles, rows padded by 8 elements so the fragment loads of one
-// warp fall in distinct banks; 16-byte aligned for the uint4 stores.
+// K and V tiles, rows HeadDim<HD>::kRow wide so the fragment loads of
+// one warp fall in distinct banks; 16-byte aligned for the uint4 stores.
 template <int HD>
 struct alignas(16) KVTile {
-  bf16 k[kKeys][HD + 8];
-  bf16 v[kKeys][HD + 8];
+  bf16 k[kKeys][HeadDim<HD>::kRow];
+  bf16 v[kKeys][HeadDim<HD>::kRow];
 };
 
 // Stage one tile: row `j` of the tile comes from krow(j) / vrow(j), a
 // pointer to HD contiguous bf16 values, or nullptr for a key past the
-// end (zero-filled; the mask hides it). 16-byte loads.
+// end (zero-filled; the mask hides it). 16-byte loads; columns HD.. up
+// to the k-steps' reach are written as zeros.
 template <int HD, class RowK, class RowV>
 __device__ __forceinline__ void load_tile(KVTile<HD>& tile, RowK krow,
                                           RowV vrow) {
-  constexpr int kChunks = HD / 8;
+  constexpr int kChunks = HeadDim<HD>::kCols / 8;
   for (int i = threadIdx.x; i < kKeys * kChunks; i += kThreads) {
     const int row = i / kChunks, c = (i % kChunks) * 8;
-    const bf16* kp = krow(row);
-    const bf16* vp = vrow(row);
+    const bf16* kp = c < HD ? krow(row) : nullptr;
+    const bf16* vp = c < HD ? vrow(row) : nullptr;
     uint4 kz = make_uint4(0, 0, 0, 0), vz = kz;
     if (kp != nullptr) kz = *reinterpret_cast<const uint4*>(kp + c);
     if (vp != nullptr) vz = *reinterpret_cast<const uint4*>(vp + c);
@@ -92,7 +129,8 @@ __device__ __forceinline__ void load_tile(KVTile<HD>& tile, RowK krow,
 // max (log2 units) and sum of rows g and g+8 of this lane.
 template <int HD>
 struct WarpState {
-  uint32_t q[HD / 16][4];
+  static constexpr int kSteps = HeadDim<HD>::kSteps;
+  uint32_t q[kSteps][4];
   float o[HD / 8][4];
   float m[2];
   float l[2];
@@ -104,12 +142,12 @@ struct WarpState {
     const bf16* q0 = qrow(g);
     const bf16* q1 = qrow(g + 8);
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
+    for (int ks = 0; ks < kSteps; ++ks) {
       const int c = ks * 16 + 2 * t;
-      q[ks][0] = q0 ? *reinterpret_cast<const uint32_t*>(q0 + c) : 0u;
-      q[ks][1] = q1 ? *reinterpret_cast<const uint32_t*>(q1 + c) : 0u;
-      q[ks][2] = q0 ? *reinterpret_cast<const uint32_t*>(q0 + c + 8) : 0u;
-      q[ks][3] = q1 ? *reinterpret_cast<const uint32_t*>(q1 + c + 8) : 0u;
+      q[ks][0] = frag_pair<HD>(q0, c);
+      q[ks][1] = frag_pair<HD>(q1, c);
+      q[ks][2] = frag_pair<HD>(q0, c + 8);
+      q[ks][3] = frag_pair<HD>(q1, c + 8);
     }
 #pragma unroll
     for (int nt = 0; nt < HD / 8; ++nt)
@@ -131,7 +169,7 @@ struct WarpState {
     for (int nt = 0; nt < kKeys / 8; ++nt)
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
+    for (int ks = 0; ks < kSteps; ++ks) {
 #pragma unroll
       for (int nt = 0; nt < kKeys / 8; ++nt) {
         const bf16* kr = &tile.k[nt * 8 + g][ks * 16 + 2 * t];

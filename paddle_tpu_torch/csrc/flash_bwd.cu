@@ -23,7 +23,10 @@
 // flash_attention.py:417, :486): a masked key gets dK = dV = 0, and a row
 // that sees no key (its lse is -1e30) contributes nothing.
 // Products on mma.sync.m16n8k16 (bf16 in, f32 accumulate); P and dS are
-// rounded to bf16 only as the A operands of the second products.
+// rounded to bf16 only as the A operands of the second products. head_dim
+// 64, 72 or 128: the contractions over hd (S^T = K Q^T, dP^T = V dO^T,
+// S = Q K^T, dP = dO V^T) take ceil(hd / 16) k16 steps over rows whose
+// columns past hd are staged as zeros (attention_core.cuh).
 //
 // Three kernels, in order on the caller's stream:
 //   dcap — one warp per (batch, head, query) row: rowsum(dO * O) into an
@@ -93,22 +96,25 @@ dcap_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 // ------------------------------------------------------------------ dkdv
 template <int HD>
 struct DkdvSmem {
-  bf16 k[kKeyTile][HD + 8];
-  bf16 v[kKeyTile][HD + 8];
-  bf16 q[kQTile][HD + 8];
-  bf16 dout[kQTile][HD + 8];
+  static constexpr int kRow = ptt::HeadDim<HD>::kRow;
+  bf16 k[kKeyTile][kRow];
+  bf16 v[kKeyTile][kRow];
+  bf16 q[kQTile][kRow];
+  bf16 dout[kQTile][kRow];
   float lse[kQTile];      // lse * log2(e)
   float dcap[kQTile];
 };
 
 // Copy `rows` rows of HD bf16 (row r from src(r), or zeros for nullptr)
-// into dst[r][...]; 16-byte chunks over the block's threads.
+// into dst[r][...], and zeros into the columns past HD that the k-steps
+// read; 16-byte chunks over the block's threads.
 template <int HD, int ROWS, class Src>
-__device__ __forceinline__ void stage_rows(bf16 (*dst)[HD + 8], Src src) {
-  constexpr int kChunks = HD / 8;
+__device__ __forceinline__ void stage_rows(
+    bf16 (*dst)[ptt::HeadDim<HD>::kRow], Src src) {
+  constexpr int kChunks = ptt::HeadDim<HD>::kCols / 8;
   for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
     const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bf16* p = src(r);
+    const bf16* p = col < HD ? src(r) : nullptr;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (p != nullptr) val = *reinterpret_cast<const uint4*>(p + col);
     *reinterpret_cast<uint4*>(&dst[r][col]) = val;
@@ -116,13 +122,14 @@ __device__ __forceinline__ void stage_rows(bf16 (*dst)[HD + 8], Src src) {
 }
 
 // A fragment (16 x 16, row-major) of rows row0..row0+15, columns
-// ks*16.. of a shared tile whose rows are HD + 8 elements apart.
+// ks*16.. of a shared tile whose rows are HeadDim<HD>::kRow elements apart.
 template <int HD>
 __device__ __forceinline__ void a_frag(uint32_t a[4], const bf16* t,
                                        int row0, int ks) {
+  constexpr int kRow = ptt::HeadDim<HD>::kRow;
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const bf16* r0 = t + (size_t)(row0 + g) * (HD + 8) + ks * 16 + 2 * tq;
-  const bf16* r1 = r0 + 8 * (HD + 8);
+  const bf16* r0 = t + (size_t)(row0 + g) * kRow + ks * 16 + 2 * tq;
+  const bf16* r1 = r0 + 8 * kRow;
   a[0] = *reinterpret_cast<const uint32_t*>(r0);
   a[1] = *reinterpret_cast<const uint32_t*>(r1);
   a[2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
@@ -206,7 +213,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
+      for (int ks = 0; ks < ptt::HeadDim<HD>::kSteps; ++ks) {
         uint32_t ak[4], av[4];
         a_frag<HD>(ak, &sm.k[0][0], wrow, ks);
         a_frag<HD>(av, &sm.v[0][0], wrow, ks);
@@ -300,23 +307,25 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float scale_log2 = scale * ptt::kLog2e;
 
   // Q and dO A-fragments of this warp's rows g and g + 8, for all of hd
-  uint32_t qa[HD / 16][4], da[HD / 16][4];
+  // (zero past it)
+  constexpr int kSteps = ptt::HeadDim<HD>::kSteps;
+  uint32_t qa[kSteps][4], da[kSteps][4];
   const int r0 = row0 + g, r1 = row0 + g + 8;
   const bf16* q0 = r0 < Sq ? q + qs.at(b, r0, h) : nullptr;
   const bf16* q1 = r1 < Sq ? q + qs.at(b, r1, h) : nullptr;
   const bf16* d0 = r0 < Sq ? dout + dos.at(b, r0, h) : nullptr;
   const bf16* d1 = r1 < Sq ? dout + dos.at(b, r1, h) : nullptr;
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
+  for (int ks = 0; ks < kSteps; ++ks) {
     const int c = ks * 16 + 2 * t;
-    qa[ks][0] = q0 ? *reinterpret_cast<const uint32_t*>(q0 + c) : 0u;
-    qa[ks][1] = q1 ? *reinterpret_cast<const uint32_t*>(q1 + c) : 0u;
-    qa[ks][2] = q0 ? *reinterpret_cast<const uint32_t*>(q0 + c + 8) : 0u;
-    qa[ks][3] = q1 ? *reinterpret_cast<const uint32_t*>(q1 + c + 8) : 0u;
-    da[ks][0] = d0 ? *reinterpret_cast<const uint32_t*>(d0 + c) : 0u;
-    da[ks][1] = d1 ? *reinterpret_cast<const uint32_t*>(d1 + c) : 0u;
-    da[ks][2] = d0 ? *reinterpret_cast<const uint32_t*>(d0 + c + 8) : 0u;
-    da[ks][3] = d1 ? *reinterpret_cast<const uint32_t*>(d1 + c + 8) : 0u;
+    qa[ks][0] = ptt::frag_pair<HD>(q0, c);
+    qa[ks][1] = ptt::frag_pair<HD>(q1, c);
+    qa[ks][2] = ptt::frag_pair<HD>(q0, c + 8);
+    qa[ks][3] = ptt::frag_pair<HD>(q1, c + 8);
+    da[ks][0] = ptt::frag_pair<HD>(d0, c);
+    da[ks][1] = ptt::frag_pair<HD>(d1, c);
+    da[ks][2] = ptt::frag_pair<HD>(d0, c + 8);
+    da[ks][3] = ptt::frag_pair<HD>(d1, c + 8);
   }
   float lrow[2], crow[2];
   const size_t lbase = ((size_t)b * H + h) * Sq;
@@ -361,7 +370,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
+      for (int ks = 0; ks < kSteps; ++ks) {
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const bf16* kr = &tile.k[kh + nt * 8 + g][ks * 16 + 2 * t];
@@ -471,6 +480,7 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
       static_cast<const unsigned char*>(key_mask), B, Sq, Sk, H, KV, st,  \
       scale, causal, s
   if (hd == 128) return launch<128>(PTT_ARGS);
+  if (hd == 72) return launch<72>(PTT_ARGS);
   if (hd == 64) return launch<64>(PTT_ARGS);
 #undef PTT_ARGS
   return (int)cudaErrorInvalidValue;

@@ -5,8 +5,9 @@
 // (pallas_call in _fwd_call) on the serving path's cold prefill
 // (nlp/paged.py::_attention_paged, is_prefill=True), in the training
 // forward (nlp/llama.py::_attention), where it also writes the LSE, in the
-// eager API's flash_attention / scaled_dot_product_attention, and in the
-// ERNIE encoder (nlp/ernie.py::_encoder_layer: head-major, key-masked).
+// eager API's flash_attention / scaled_dot_product_attention, in the
+// ERNIE encoder (nlp/ernie.py::_encoder_layer: head-major, key-masked)
+// and in DiT's blocks (mix/dit.py::_block: head-major, non-causal, hd 72).
 //
 // Computes out[b, i, h] = softmax(q[b, i, h] . k[b, :, h // rep]^T * scale
 // over the visible keys) . v[b, :, h // rep]. Causal: key j is visible to
@@ -22,6 +23,8 @@
 // accumulation f32. With a non-null `lse` [B, H, Sq] (f32) it also writes
 // each row's log-sum-exp of the scaled scores, the residual of the
 // backward (flash_bwd.cu), in the domain the TPU kernel keeps it.
+// head_dim 64, 72 (DiT-XL/2's 1152 / 16: the QK^T contraction takes 5
+// k16 steps, the last over 8 columns of zeros, attention_core.cuh) or 128.
 // Query head h reads KV head h / (H / KV) straight from k/v: the expanded
 // K/V is never built. Rows and keys past Sq / Sk are masked here, so any
 // Sq and Sk run without padding copies.
@@ -138,6 +141,8 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
     st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   if (hd == 128) {
     launch<128>(q, k, v, o, l, m, B, Sq, Sk, H, KV, st, scale, causal, s);
+  } else if (hd == 72) {
+    launch<72>(q, k, v, o, l, m, B, Sq, Sk, H, KV, st, scale, causal, s);
   } else if (hd == 64) {
     launch<64>(q, k, v, o, l, m, B, Sq, Sk, H, KV, st, scale, causal, s);
   } else {

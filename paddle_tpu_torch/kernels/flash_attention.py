@@ -172,8 +172,8 @@ def _check(q, k, v, causal, layout, key_mask):
         raise ValueError(f"query heads {H} not a multiple of KV heads {KV}")
     if causal and Sq > Sk:
         raise ValueError(f"causal flash needs Sq <= Sk, got {Sq} > {Sk}")
-    if hd not in (64, 128):
-        raise ValueError(f"head_dim {hd} not supported (64 or 128)")
+    if hd not in (64, 72, 128):
+        raise ValueError(f"head_dim {hd} not supported (64, 72 or 128)")
     if key_mask is not None and (tuple(key_mask.shape) != (B, Sk)
                                  or key_mask.device != q.device):
         raise ValueError(f"key_mask must be [{B}, {Sk}] on {q.device}, got "
@@ -202,7 +202,7 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
     f32). `key_mask` [B, Sk]: nonzero keys are visible.
 
     On a CPU tensor: the plain version. On a CUDA tensor: the kernel
-    (bf16, hd 64 or 128, Sq <= Sk when causal; `out` contiguous in the
+    (bf16, hd 64, 72 or 128, Sq <= Sk when causal; `out` contiguous in the
     layout); anything it does not take raises. Each kernel launch adds one
     to `flash_attention_fwd.launches`."""
     if not q.is_cuda:

@@ -18,6 +18,21 @@ gathers over a pair of inverse index maps, never scatters:
     combine_wsum      expert slots → token rows, the probability-weighted
                       k-sum; its backward one gather_scale_dot over the
                       inverse map
+    gather_rows       out[b, m] = src[b, idx[b, m]], a zero row where
+                      idx < 0 (the Pallas `_gather_rows_kernel`; here
+                      `csrc/moe_dispatch.cu`); its backward the
+                      scatter-add of the JAX `_gather_rows_p_bwd`, plain
+                      torch as it is jnp there
+    combine_gather    expert slots → one row per (token, choice), a
+                      gather_rows; its backward a gather_rows over the
+                      inverse map
+    gather_mlp        the dispatch gather fused into the expert gate and
+                      up products: (g, u) = (xin·wg[e], xin·wu[e]) with
+                      xin[e, m] = src[idx[e, m]] (the Pallas
+                      `_gather_mlp_kernel`; here `csrc/moe_dispatch.cu`);
+                      its backward the JAX `_gather_mlp_bwd`: the weight
+                      and input products by torch.matmul (XLA in JAX) and
+                      the scatter back to the tokens by gather_wsum
 
 `gather_wsum` and `gather_scale_dot` launch their kernel on a CUDA tensor
 and run their plain version (`_gather_wsum_ref`, `_gather_scale_dot_ref`)
@@ -27,9 +42,12 @@ the order j = 0..k-1, one rounding to the source's dtype. Indices are
 int32 throughout, pre-clipped by the caller to valid rows; a weight of 0
 marks an empty slot or a dropped choice.
 
-The masked row gather (`gather_rows`, `combine_gather`) and the gather
-fused with the expert GEMMs (`gather_mlp`) are reached by no path of the
-JAX package on one device and are not ported here.
+No path of the JAX package launches the masked row gather or the fused
+gather-MLP kernel: its single-device MoE block takes the wsum and
+scale-dot pair, its mesh branch passes `use_pallas=False` to
+`combine_gather`, and `gather_mlp` is a measured negative result there
+(nlp/moe.py:343-349). The port holds both kernels at the MoE step's
+shapes in `chip_smoke.py`; no path of the port calls them either.
 """
 from __future__ import annotations
 
@@ -45,6 +63,12 @@ _WSUM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
 # gather_scale_dot_bf16(src, idx, scale, other, out, dot, B, N, M, D,
 #                       stream)
 _SDOT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
+# gather_rows_bf16(src, idx, out, B, N, M, D, stream)
+_ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p]
+# gather_mlp_bf16(src, idx, wg, wu, g, u, xin, T, E, M, D, F, stream)
+_MLP_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
 _MAX_K = 8
 
@@ -79,6 +103,28 @@ def _gather_scale_dot_ref(src, idx, scale, other):
     out = (rows * scale.float()[..., None]).to(src.dtype)
     dot = torch.sum(rows * other.float(), dim=-1)
     return out, dot
+
+
+def _gather_rows_ref(src, idx):
+    """Plain version of the gather_rows kernel: src [B, N, D]; idx
+    [B, M] int32 → [B, M, D], +0 rows where idx is outside [0, N)."""
+    N = src.shape[1]
+    ok = (idx >= 0) & (idx < N)
+    rows = _take_rows(src, torch.where(ok, idx, 0))
+    return torch.where(ok[..., None], rows, torch.zeros((), dtype=src.dtype,
+                                                        device=src.device))
+
+
+def _gather_mlp_ref(src, idx, wg, wu):
+    """Plain version of the gather_mlp kernel: src [T, D]; idx [E, M]
+    int32 (-1 = empty slot); wg/wu [E, D, F] → (g, u [E, M, F], xin
+    [E, M, D]) in src's dtype; the products in f32, rounded once."""
+    E, M = idx.shape
+    xin = _gather_rows_ref(src[None], idx.reshape(1, E * M))[0].reshape(
+        E, M, src.shape[-1])
+    g = torch.matmul(xin.float(), wg.float()).to(src.dtype)
+    u = torch.matmul(xin.float(), wu.float()).to(src.dtype)
+    return g, u, xin
 
 
 def _check_src(src, what):
@@ -182,6 +228,186 @@ def gather_scale_dot(src, idx, scale, other):
 
 
 gather_scale_dot.launches = 0
+
+
+def gather_rows_kernel(src, idx):
+    """Masked row gather: out[b, m] = src[b, idx[b, m]], a row of zeros
+    where idx[b, m] is -1 (or outside [0, N)), not read.
+
+    src [B, N, D]; idx [B, M] int32 → [B, M, D] in src's dtype. On a CPU
+    tensor: the plain version. On a CUDA tensor: the kernel (contiguous
+    bf16 src with D a multiple of 8, int32 idx); anything else raises.
+    Bit for bit the plain version. Each launch adds one to
+    `gather_rows_kernel.launches`."""
+    if not src.is_cuda:
+        return _gather_rows_ref(src, idx)
+    _check_src(src, "gather_rows")
+    B, N, D = src.shape
+    if idx.dim() != 2 or idx.shape[0] != B:
+        raise ValueError(f"gather_rows: idx must be [B={B}, M]; got "
+                         f"{list(idx.shape)}")
+    M = idx.shape[1]
+    _check_like(idx, (B, M), torch.int32, src.device, "gather_rows", "idx")
+    out = torch.empty(B, M, D, dtype=src.dtype, device=src.device)
+    if B * M == 0:
+        return out
+    fn = _build.function("moe_dispatch", "gather_rows_bf16", _ROWS_ARGTYPES)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(src.data_ptr(), idx.data_ptr(), out.data_ptr(), B, N, M, D,
+                 stream)
+    _build.check(err, "gather_rows_bf16")
+    gather_rows_kernel.launches += 1
+    return out
+
+
+gather_rows_kernel.launches = 0
+
+
+class _GatherRows(torch.autograd.Function):
+    """The JAX `_gather_rows_p` custom_vjp: the kernel forward; the
+    backward is the transpose of the gather, an f32 scatter-add of the
+    cotangent rows (indices may repeat), -1 rows dropped."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.n, ctx.dtype = src.shape[1], src.dtype
+        return gather_rows_kernel(src.contiguous(), idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        B, M, D = g.shape
+        N = ctx.n
+        safe = torch.where((idx >= 0) & (idx < N), idx, N).long()
+        off = (torch.arange(B, device=g.device) * (N + 1))[:, None]
+        dsrc = torch.zeros(B * (N + 1), D, dtype=torch.float32,
+                           device=g.device)
+        dsrc.index_add_(0, (safe + off).reshape(-1),
+                        g.float().reshape(B * M, D))
+        return dsrc.reshape(B, N + 1, D)[:, :N].to(ctx.dtype), None
+
+
+def gather_rows(src, idx):
+    """Differentiable masked row gather (JAX `gather_rows` with
+    use_pallas): src [B, N, D]; idx [B, M] int32, -1 = zero row →
+    [B, M, D]. The kernel on the card, its plain version on the CPU."""
+    return _GatherRows.apply(src, idx)
+
+
+class _CombineGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, eout, flat, inv_pos):
+        ctx.save_for_backward(inv_pos)
+        return gather_rows_kernel(eout.contiguous(), flat)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_pos,) = ctx.saved_tensors
+        return gather_rows_kernel(g.contiguous(), inv_pos), None, None
+
+
+def combine_gather(eout, flat, inv_pos):
+    """MoE combine as a row gather (JAX `combine_gather`): eout
+    [B, E·C, D]; flat [B, S·k] int32 (the slot of each (token, choice),
+    -1 = dropped) → [B, S·k, D]. inv_pos [B, E·C] int32 (the (token,
+    choice) position filling each slot, -1 = empty) is the inverse map of
+    the gradient: d_eout[m] = d_got[inv_pos[m]], exact because at most
+    one (token, choice) reads each slot."""
+    return _CombineGather.apply(eout, flat, inv_pos)
+
+
+def gather_mlp_kernel(src, idx, wg, wu):
+    """(g, u, xin): g/u [E, M, F] = xin · wg[e] / wu[e] with xin[e, m] =
+    src[idx[e, m]] (a zero row for -1) [E, M, D], all in src's dtype.
+
+    src [T, D]; idx [E, M] int32; wg, wu [E, D, F]. On a CPU tensor: the
+    plain version. On a CUDA tensor: the kernel (contiguous bf16 src, wg
+    and wu, D and F multiples of 8, int32 idx); anything else raises.
+    Each launch adds one to `gather_mlp_kernel.launches`."""
+    if not src.is_cuda:
+        return _gather_mlp_ref(src, idx, wg, wu)
+    what = "gather_mlp"
+    if src.dim() != 2:
+        raise ValueError(f"{what}: src must be [T, D]; got "
+                         f"{list(src.shape)}")
+    _check_src(src[None], what)
+    T, D = src.shape
+    if idx.dim() != 2:
+        raise ValueError(f"{what}: idx must be [E, M]; got "
+                         f"{list(idx.shape)}")
+    E, M = idx.shape
+    _check_like(idx, (E, M), torch.int32, src.device, what, "idx")
+    if wg.dim() != 3 or tuple(wg.shape[:2]) != (E, D):
+        raise ValueError(f"{what}: wg must be [E={E}, D={D}, F]; got "
+                         f"{list(wg.shape)}")
+    F = wg.shape[2]
+    if F % 8:
+        raise ValueError(f"{what}: F = {F} must be a multiple of 8")
+    for name, w in (("wg", wg), ("wu", wu)):
+        _check_like(w, (E, D, F), torch.bfloat16, src.device, what, name)
+        if w.data_ptr() % 16:
+            raise TypeError(f"{what}: {name} must be 16-byte aligned")
+    g = torch.empty(E, M, F, dtype=src.dtype, device=src.device)
+    u = torch.empty_like(g)
+    xin = torch.empty(E, M, D, dtype=src.dtype, device=src.device)
+    if E * M == 0:
+        return g, u, xin
+    fn = _build.function("moe_dispatch", "gather_mlp_bf16", _MLP_ARGTYPES)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(src.data_ptr(), idx.data_ptr(), wg.data_ptr(),
+                 wu.data_ptr(), g.data_ptr(), u.data_ptr(), xin.data_ptr(),
+                 T, E, M, D, F, stream)
+    _build.check(err, "gather_mlp_bf16")
+    gather_mlp_kernel.launches += 1
+    return g, u, xin
+
+
+gather_mlp_kernel.launches = 0
+
+
+class _GatherMlp(torch.autograd.Function):
+    """The JAX `gather_mlp` custom_vjp: the fused kernel forward, keeping
+    xin as the residual; the backward of `_gather_mlp_bwd`."""
+
+    @staticmethod
+    def forward(ctx, src, idx, inv_flat, w_flat, wg, wu):
+        g, u, xin = gather_mlp_kernel(src.contiguous(), idx,
+                                      wg.contiguous(), wu.contiguous())
+        ctx.save_for_backward(xin, inv_flat, w_flat, wg, wu)
+        return g, u
+
+    @staticmethod
+    def backward(ctx, dg, du):
+        xin, inv_flat, w_flat, wg, wu = ctx.saved_tensors
+        # f32 accumulation, one rounding (JAX: preferred_element_type f32)
+        xt = xin.transpose(1, 2)
+        dwg = torch.matmul(xt, dg).to(wg.dtype)
+        dwu = torch.matmul(xt, du).to(wu.dtype)
+        dxin = (torch.matmul(dg, wg.transpose(1, 2)) +
+                torch.matmul(du, wu.transpose(1, 2)))
+        E, M, D = dxin.shape
+        # back to the tokens through the forward map: the weighted gather
+        # (w zeroes dropped choices), the k-sum fused
+        dsrc = gather_wsum(dxin.reshape(1, E * M, D).contiguous(),
+                           inv_flat[None].contiguous(),
+                           w_flat[None].float().contiguous())[0]
+        return dsrc.to(xin.dtype), None, None, None, dwg, dwu
+
+
+def gather_mlp(src, idx, inv_flat, w_flat, wg, wu):
+    """Fused dispatch + gate/up projection (JAX `gather_mlp` with
+    use_pallas): (g, u) [E, M, F].
+
+    src [T, D] tokens; idx [E, M] int32, the source token of each slot
+    (-1 empty); inv_flat [T, k] int32 the forward map (the slot of each
+    (token, choice), CLIPPED to valid rows) and w_flat [T, k] its
+    validity weights (1 routed, 0 dropped), used by the backward's
+    gather of d_xin back to the tokens; wg, wu [E, D, F]. The gathered
+    rows never surface: they are the backward's residual."""
+    return _GatherMlp.apply(src, idx, inv_flat, w_flat, wg, wu)
 
 
 # ----------------------------------------------------------- dispatch

@@ -3,23 +3,32 @@
 
 The update formulas, the bias-correction powers (f32 scalars per
 parameter), decoupled decay, `apply_decay_param_fun` and the
-learning-rate multiplier are the JAX package's. Each update is plain
-torch ops on each parameter, as the JAX package runs plain jnp per
-parameter (no torch.optim, no fused multi-tensor kernel); the new value
-is written into the parameter's storage in place (JAX rebinds a new
-array). LR schedulers, L1/L2Decay objects, master weights
-(`multi_precision`, with `amp.decorate`), amsgrad and the other
-optimizers arrive with the rest of the eager API and raise
-`NotImplementedError` until then.
+learning-rate multiplier are the JAX package's. The JAX package jits each
+parameter's update into one XLA computation; here the parameters of one
+(device, dtype) group are updated together, in runs of up to 2^27
+values (`transform.grouped_chunks`, which the tree optimizers share), by
+`torch._foreach_*` ops, one multi-tensor launch per step of the formula,
+in the formula's own order (no torch.optim, no fused kernel: XLA, not
+Pallas, runs this update in JAX). The new moments are new tensors, as JAX's arrays are, so
+a `state_dict()` taken earlier keeps its values. A new parameter value
+of the parameter's dtype is written into its storage; one of another
+dtype (a bf16 parameter's f32 update without master weights, as JAX's
+`value - step` promotes) replaces the parameter's tensor, as JAX's
+`_rebind` does, and layers keep reading it through the Parameter. LR
+schedulers, L1/L2Decay objects, master weights (`multi_precision`, with
+`amp.decorate`), amsgrad and the other optimizers arrive with the rest
+of the eager API and raise `NotImplementedError` until then.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..core.tensor import Tensor
 from ..core import dtype as dtypes
+from .transform import grouped_chunks
 
 
 class _GradClipBase:
@@ -32,10 +41,41 @@ class ClipGradByGlobalNorm(_GradClipBase):
         self.clip_norm = clip_norm
 
     def __call__(self, params_grads):
-        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                            for _, g in params_grads))
-        scale = self.clip_norm / torch.clamp(gn, min=self.clip_norm)
-        return [(p, (g.float() * scale).to(g.dtype)) for p, g in params_grads]
+        """min(1, clip / global norm) times every gradient, in f32, cast
+        back to each gradient's dtype. Per (device, dtype) group the
+        squares and the scaling are multi-tensor ops; each gradient's sum
+        of squares stays its own reduction, summed in the list's order, so
+        the norm has the per-parameter formula's bits. No gradient: []."""
+        if not params_grads:
+            return []
+        grads = [g.float() for _, g in params_grads]
+        sums = [None] * len(grads)
+        for idx in grouped_chunks(grads):
+            gs = [grads[i] for i in idx]
+            for i, sq in zip(idx, torch._foreach_mul(gs, gs)):
+                sums[i] = torch.sum(sq)
+        total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        for s in sums:
+            total = total + s.to(total.device)
+        scale = self.clip_norm / torch.clamp(torch.sqrt(total),
+                                             min=self.clip_norm)
+        out = [None] * len(grads)
+        for idx in grouped_chunks(grads):
+            gs = [grads[i] for i in idx]
+            for i, g in zip(idx, torch._foreach_mul(
+                    gs, scale.to(gs[0].device))):
+                out[i] = g.to(params_grads[i][1].dtype)
+        return [(p, g) for (p, _), g in zip(params_grads, out)]
+
+
+def _rebind(p: Tensor, value: torch.Tensor) -> None:
+    """`value` becomes the parameter's tensor: a leaf that requires grad
+    as the old one did, its accumulated gradient cast along."""
+    old = p._data
+    new = value.detach().requires_grad_(old.requires_grad)
+    if old.grad is not None:
+        new.grad = old.grad.to(new.dtype)
+    p._data = new
 
 
 class Optimizer:
@@ -83,9 +123,11 @@ class Optimizer:
         return {}
 
     # -- the update ----------------------------------------------------------
-    def _update(self, value, grad, state, lr, lr_mult, wd):
-        """(param value, grad in its dtype, state, f32 lr, lr multiplier,
-        f32 decay coefficient) → (new value, new state)."""
+    def _steps(self, values, grads, states, lrs, wds):
+        """One chunk of a (device, dtype) group (`grouped_chunks`): (param
+        values, grads in the values' dtype, state dicts, per-parameter
+        lr · lr_mult and decay coefficients, f32 values as python floats)
+        → (the steps to subtract from the values, new state dicts)."""
         raise NotImplementedError
 
     def _decay_info(self, p: Optional[Tensor]) -> float:
@@ -103,25 +145,30 @@ class Optimizer:
                         if p._data.grad is not None and not p.stop_gradient]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
-        lr = self.get_lr()
-        scalars: Dict = {}
-
-        def f32(v, dev):
-            # the f32 scalars the JAX step passes its jitted update
-            key = (v, dev)
-            if key not in scalars:
-                scalars[key] = torch.tensor(v, dtype=torch.float32,
-                                            device=dev)
-            return scalars[key]
-
-        for p, g in params_grads:
-            lr_mult = p.optimize_attr.get("learning_rate", 1.0) \
-                if hasattr(p, "optimize_attr") else 1.0
-            value, dev = p._data, p._data.device
-            new_value, self._state[id(p)] = self._update(
-                value, g.to(value.dtype), self._param_state(p),
-                f32(lr, dev), lr_mult, f32(self._decay_info(p), dev))
-            value.copy_(new_value)
+        # the f32 scalars of the JAX step's jitted update: lr and the decay
+        # as f32; lr · lr_mult rounded to f32, as the f32 product
+        # `lr * lr_mult` of a per-parameter update rounds it
+        lr = np.float32(self.get_lr())
+        for idx in grouped_chunks([p._data for p, _ in params_grads]):
+            items = [params_grads[i] for i in idx]
+            values = [p._data for p, _ in items]
+            grads = [g.to(v.dtype) for (_, g), v in zip(items, values)]
+            states = [self._param_state(p) for p, _ in items]
+            lrs = [float(lr * np.float32(getattr(p, "optimize_attr", {})
+                                         .get("learning_rate", 1.0)))
+                   for p, _ in items]
+            wds = [float(np.float32(self._decay_info(p))) for p, _ in items]
+            steps, new_states = self._steps(values, grads, states, lrs, wds)
+            for (p, _), st in zip(items, new_states):
+                self._state[id(p)] = st
+            if all(s.dtype == v.dtype for s, v in zip(steps, values)):
+                torch._foreach_sub_(values, steps)
+                continue
+            # a step of another dtype promotes the value, as JAX's
+            # `value - step` does; the result replaces the parameter's
+            # tensor, as `_rebind` stores it
+            for (p, _), v, s in zip(items, values, steps):
+                _rebind(p, v - s)
         self._step_count += 1
 
     def clear_grad(self, set_to_zero=True):
@@ -181,21 +228,45 @@ class Adam(Optimizer):
                 "beta1_pow": torch.ones((), dtype=torch.float32, device=dev),
                 "beta2_pow": torch.ones((), dtype=torch.float32, device=dev)}
 
-    def _update(self, value, grad, state, lr, lr_mult, wd):
+    def _steps(self, values, grads, states, lrs, wds):
+        # the per-parameter formula's operations in its order, each one
+        # multi-tensor op over the group (in place only on temporaries)
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        fe = torch
+        # the decay terms are products with an f32 array in JAX, so a
+        # bf16 value enters them promoted to f32
+        vf = [v if v.dtype in (torch.float32, torch.float64) else v.float()
+              for v in values]
         if not self._decoupled:
-            grad = grad + wd * value
-        m1 = b1 * state["moment1"] + (1 - b1) * grad
-        m2 = b2 * state["moment2"] + (1 - b2) * torch.square(grad)
-        b1p = state["beta1_pow"] * b1
-        b2p = state["beta2_pow"] * b2
-        m1_hat = m1 / (1 - b1p)
-        m2_hat = m2 / (1 - b2p)
-        step = lr * lr_mult * m1_hat / (torch.sqrt(m2_hat) + eps)
+            grads = fe._foreach_add(grads, fe._foreach_mul(vf, wds))
+        m1 = fe._foreach_mul([s["moment1"] for s in states], b1)
+        fe._foreach_add_(m1, fe._foreach_mul(grads, 1 - b1))
+        g2 = fe._foreach_mul(grads, grads)
+        fe._foreach_mul_(g2, 1 - b2)
+        m2 = fe._foreach_mul([s["moment2"] for s in states], b2)
+        fe._foreach_add_(m2, g2)
+        del g2
+        b1p = fe._foreach_mul([s["beta1_pow"] for s in states], b1)
+        b2p = fe._foreach_mul([s["beta2_pow"] for s in states], b2)
+        # each parameter's own 0-dim bias corrections 1 - b^t (as -b^t + 1,
+        # the same rounding)
+        bc1, bc2 = fe._foreach_neg(b1p), fe._foreach_neg(b2p)
+        fe._foreach_add_(bc1, 1.0)
+        fe._foreach_add_(bc2, 1.0)
+        step = fe._foreach_div(m1, bc1)
+        den = fe._foreach_div(m2, bc2)
+        fe._foreach_sqrt_(den)
+        fe._foreach_add_(den, eps)
+        fe._foreach_mul_(step, lrs)
+        fe._foreach_div_(step, den)
+        del den
         if self._decoupled:
-            step = step + lr * lr_mult * wd * value
-        return value - step, {"moment1": m1, "moment2": m2,
-                              "beta1_pow": b1p, "beta2_pow": b2p}
+            fe._foreach_add_(step, fe._foreach_mul(
+                vf, [float(np.float32(np.float32(lr) * np.float32(wd)))
+                         for lr, wd in zip(lrs, wds)]))
+        return step, [
+            {"moment1": a, "moment2": b, "beta1_pow": c, "beta2_pow": d}
+            for a, b, c, d in zip(m1, m2, b1p, b2p)]
 
 
 class AdamW(Adam):

@@ -10,8 +10,15 @@ pass per leaf that reads g, p and both moments and writes p and the
 moments in place. On a CUDA tensor it is the kernel of `csrc/adamw_q.cu` (the
 counterpart of `_fused_adamw_kernel`); on a CPU tensor its plain version
 `fused_leaf_update_ref`. Its codes are x · (448 / amax), the kernel's
-arithmetic form. The chunked plain update the JAX package shards over a
-mesh (`scale_by_adam_q`) comes with the multi-GPU slice.
+arithmetic form.
+
+The unfused chain `adamw_q(...)` = `scale_by_adam_q` → optax-style
+`add_decayed_weights` → `scale_by_learning_rate` (`transform.chain`) is
+the JAX package's too, in plain torch ops as it is plain jnp there:
+bench.py's DiT step (`tools/dit_train.py`) uses it. It streams each leaf
+through chunks of `CHUNK_BLOCKS` blocks, as JAX's `lax.map` does, so no
+full-leaf f32 moment is built; its codes are x / (amax / 448), JAX's
+`_q_blocks`.
 
 The four step scalars [gscale, lr, bc1, bc2] stay on the device as an
 f32[4] tensor, as the TPU kernel reads them from SMEM, so a step never
@@ -26,9 +33,13 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from .. import _build
+from . import transform
 from .transform import tree_leaves
 
 BLOCK = 256
+# blocks per chunk of the unfused update: 65536 · 256 = 16M values, ~4 f32
+# transients of that size at a time (JAX's lax.map chunk)
+CHUNK_BLOCKS = 65536
 F8 = torch.float8_e4m3fn
 # e4m3's largest finite value: block maxima are normalised to it
 F8_MAX = 448.0
@@ -55,6 +66,18 @@ def _q_blocks(blocks, sqrt_space: bool) -> _QTensor:
     return _QTensor((blocks / scale).to(F8), scale)
 
 
+def _dq_blocks(q: _QTensor, sqrt_space: bool):
+    blocks = q.codes.float() * q.scale
+    return blocks * blocks if sqrt_space else blocks
+
+
+def _dequantize(q: _QTensor, shape, sqrt_space: bool):
+    n = 1
+    for s in shape:
+        n *= s
+    return _dq_blocks(q, sqrt_space).reshape(-1)[:n].reshape(shape)
+
+
 def _blocks(x, nb: int):
     """x flattened, zero-padded to nb blocks, as f32 [nb, BLOCK]."""
     flat = x.reshape(-1).float()
@@ -74,6 +97,19 @@ def _global_norm_scale(grad_norm, clip_norm):
     """Streamed ClipGradByGlobalNorm factor min(1, clip / (norm + 1e-6))
     of the pre-clip global norm (an f32 device tensor)."""
     return torch.clamp(clip_norm / (grad_norm + 1e-6), max=1.0)
+
+
+def _grads_scale(grads, clip_norm):
+    """The factor of the unfused update's streamed clip: 1 without a
+    clip, else from the f32 global norm of `grads` (JAX's
+    `_global_norm_scale`, the squares summed leaf by leaf)."""
+    dev = tree_leaves(grads)[0].device
+    if clip_norm is None:
+        return torch.ones((), dtype=torch.float32, device=dev)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for g in tree_leaves(grads):
+        total = total + torch.sum(torch.square(g.float()))
+    return torch.clamp(clip_norm / (torch.sqrt(total) + 1e-6), max=1.0)
 
 
 class ScaleByAdamQState(NamedTuple):
@@ -108,6 +144,82 @@ def _bias_corrections(count, b1, b2):
     bc1 = 1.0 - torch.pow(torch.tensor(b1, device=cf.device), cf)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, device=cf.device), cf)
     return bc1, bc2
+
+
+def _zero_state(params):
+    # zero state needs no data-dependent quantization
+    return ScaleByAdamQState(
+        torch.zeros((), dtype=torch.int32,
+                    device=tree_leaves(params)[0].device),
+        _map_q(_zero_q, params), _map_q(_zero_q, params))
+
+
+# ---------------------------------------------------------------- unfused
+def scale_by_adam_q(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                    clip_norm: Optional[float] = None
+                    ) -> transform.GradientTransformation:
+    """optax's scale_by_adam with 8-bit blockwise state (f8 codes and
+    block scales, v in sqrt-space), JAX's `scale_by_adam_q`: per leaf,
+    in chunks of `CHUNK_BLOCKS` blocks, the gradient (times the streamed
+    clip's factor when `clip_norm` is set: min(1, clip / (norm + 1e-6)))
+    updates the dequantized moments, which are quantized again; the
+    update m̂ / (sqrt(v̂) + eps) leaves in the gradient's dtype. The new
+    moments are new tensors, as JAX's."""
+
+    def update(grads, state, params=None):
+        count = state.count + 1
+        bc1, bc2 = _bias_corrections(count, b1, b2)
+        gscale = _grads_scale(grads, clip_norm)
+
+        def blockwise(gb, mq, vq):
+            g = gb.float() * gscale
+            m = b1 * _dq_blocks(mq, False) + (1 - b1) * g
+            v = b2 * _dq_blocks(vq, True) + (1 - b2) * g * g
+            upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            out_dt = gb.dtype if gb.dtype != torch.float64 else torch.float32
+            return upd.to(out_dt), _q_blocks(m, False), _q_blocks(v, True)
+
+        def leaf(g, mq, vq):
+            nb = mq.codes.shape[0]
+            flat = g.reshape(-1)
+            if nb * BLOCK != flat.numel():
+                flat = torch.nn.functional.pad(
+                    flat, (0, nb * BLOCK - flat.numel()))
+            gb = flat.view(nb, BLOCK)
+            outs = [blockwise(gb[i:i + CHUNK_BLOCKS],
+                              _QTensor(mq.codes[i:i + CHUNK_BLOCKS],
+                                       mq.scale[i:i + CHUNK_BLOCKS]),
+                              _QTensor(vq.codes[i:i + CHUNK_BLOCKS],
+                                       vq.scale[i:i + CHUNK_BLOCKS]))
+                    for i in range(0, nb, CHUNK_BLOCKS)]
+            if len(outs) == 1:
+                upd, nm, nv = outs[0]
+            else:
+                upd = torch.cat([o[0] for o in outs])
+                nm, nv = (_QTensor(torch.cat([o[j].codes for o in outs]),
+                                   torch.cat([o[j].scale for o in outs]))
+                          for j in (1, 2))
+            upd = upd.reshape(-1)[:g.numel()].view(g.shape).to(g.dtype)
+            return upd, nm, nv
+
+        out = _map_q(leaf, grads, state.m, state.v)
+        pick = (lambda j: _map_q(lambda _, o: o[j], grads, out))
+        return pick(0), ScaleByAdamQState(count, pick(1), pick(2))
+
+    return transform.GradientTransformation(_zero_state, update)
+
+
+def adamw_q(learning_rate, b1: float = 0.9, b2: float = 0.999,
+            eps: float = 1e-8, weight_decay: float = 0.0,
+            clip_norm: Optional[float] = None
+            ) -> transform.GradientTransformation:
+    """AdamW with 8-bit moments, JAX's `adamw_q`: `scale_by_adam_q`
+    (with the streamed clip), `add_decayed_weights`,
+    `scale_by_learning_rate`, chained."""
+    return transform.chain(
+        scale_by_adam_q(b1, b2, eps, clip_norm=clip_norm),
+        transform.add_decayed_weights(weight_decay),
+        transform.scale_by_learning_rate(learning_rate))
 
 
 # ------------------------------------------------------------------ fused
@@ -209,13 +321,6 @@ def adamw_q_fused(learning_rate, b1: float = 0.9, b2: float = 0.999,
     sched = (learning_rate if callable(learning_rate)
              else (lambda _: learning_rate))
 
-    def init(params):
-        # zero state needs no data-dependent quantization
-        return ScaleByAdamQState(
-            torch.zeros((), dtype=torch.int32,
-                        device=tree_leaves(params)[0].device),
-            _map_q(_zero_q, params), _map_q(_zero_q, params))
-
     def apply_fused(grads, state, params, grad_norm):
         count = state.count + 1
         bc1, bc2 = _bias_corrections(count, b1, b2)
@@ -231,4 +336,4 @@ def adamw_q_fused(learning_rate, b1: float = 0.9, b2: float = 0.999,
             grads, params, state.m, state.v)
         return params, ScaleByAdamQState(count, state.m, state.v)
 
-    return FusedTransformation(init, apply_fused)
+    return FusedTransformation(_zero_state, apply_fused)

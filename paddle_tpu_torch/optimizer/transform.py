@@ -11,7 +11,12 @@ for leaf with JAX's.
 
 Trees are nested dicts / lists / tuples of tensors. Nothing here calls
 `.item()`: counts, learning rates and norms stay tensors on the params'
-device, so a step never waits for the card.
+device, so a step never waits for the card. Each update runs over the
+tree's leaves grouped by (device, dtype), in chunks of at most
+`CHUNK_NUMEL` values (`grouped_chunks`, which the eager optimizers share),
+with `torch._foreach_*` ops, one multi-tensor op per operation of optax's
+per-leaf formula and in its order (XLA fuses these in JAX; no Pallas
+kernel is involved).
 """
 from __future__ import annotations
 
@@ -71,26 +76,89 @@ def _device(tree):
     return tree_leaves(tree)[0].device
 
 
-def _sq_sum(x):
-    """Σ x² in f32 without a full-size f32 copy of a bf16 leaf."""
-    return torch.linalg.vector_norm(x, dtype=torch.float32).square()
+# values one multi-tensor op covers at most: an update's f32 temporaries
+# (about five of a chunk's size) then stay ~2.5 GB, where one op over a
+# 2B-parameter group would hold ~40 GB at once
+CHUNK_NUMEL = 1 << 27
+
+
+def grouped_chunks(tensors):
+    """[[index, ...]]: the indices of each (device, dtype) group of
+    `tensors`, in runs of consecutive tensors of at most `CHUNK_NUMEL`
+    values (one tensor at least), in the list's order."""
+    groups = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault((t.device, t.dtype), []).append(i)
+    out = []
+    for idx in groups.values():
+        run, n = [], 0
+        for i in idx:
+            if run and n + tensors[i].numel() > CHUNK_NUMEL:
+                out.append(run)
+                run, n = [], 0
+            run.append(i)
+            n += tensors[i].numel()
+        out.append(run)
+    return out
+
+
+def _map_grouped(fn, tree, *rest):
+    """`fn(leaves, *rest_leaves) -> list` over each chunk of a (device,
+    dtype) group of `tree`'s leaves (`grouped_chunks`; and the
+    same-structured `rest`), put back in `tree`'s structure."""
+    leaves = tree_leaves(tree)
+    others = [tree_leaves(r) for r in rest]
+    out = [None] * len(leaves)
+    for idx in grouped_chunks(leaves):
+        res = fn([leaves[i] for i in idx],
+                 *([o[i] for i in idx] for o in others))
+        for i, r in zip(idx, res):
+            out[i] = r
+    return _unflatten(tree, iter(out))
+
+
+def _unflatten(tree, it):
+    """`tree`'s structure with its leaves taken from `it` in the order of
+    `tree_leaves` (sorted dict keys)."""
+    if isinstance(tree, dict):
+        vals = {k: _unflatten(tree[k], it) for k in sorted(tree)}
+        return {k: vals[k] for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_unflatten(t, it) for t in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten(t, it) for t in tree)
+    return next(it)
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt(Σ over every leaf of Σ x²), an f32 tensor on the leaves'
-    device."""
-    return torch.sqrt(sum(_sq_sum(x) for x in tree_leaves(tree)))
+    device; the per-leaf norms by `torch._foreach_norm` per chunk, their
+    squares summed in the leaves' order."""
+    leaves = tree_leaves(tree)
+    norms = [None] * len(leaves)
+    for idx in grouped_chunks(leaves):
+        for i, n in zip(idx, torch._foreach_norm(
+                [leaves[i] for i in idx], 2, dtype=torch.float32)):
+            norms[i] = n
+    total = torch.zeros((), dtype=torch.float32, device=_device(tree))
+    for n in norms:
+        total = total + n.square()
+    return torch.sqrt(total)
 
 
 def apply_updates(params, updates):
     """params + updates, IN PLACE: each parameter tensor keeps its
     storage and dtype (optax returns a new tree; the port updates the
     tree it was given and returns it)."""
-    def add(p, u):
+    def add(ps, us):
         with torch.no_grad():
-            p.copy_((p + u).to(p.dtype))
-        return p
-    return tree_map(add, params, updates)
+            if all(u.dtype == p.dtype for p, u in zip(ps, us)):
+                torch._foreach_add_(ps, us)
+            else:
+                for p, u in zip(ps, us):
+                    p.copy_((p + u).to(p.dtype))
+        return ps
+    return _map_grouped(add, params, updates)
 
 
 # ---------------------------------------------------------- transformations
@@ -122,10 +190,11 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
         g_norm = global_norm(updates)
         trigger = g_norm < max_norm
 
-        def clip(t):
-            return torch.where(trigger, t,
-                               (t / g_norm.to(t.dtype)) * max_norm)
-        return tree_map(clip, updates), state
+        def clip(ts):
+            c = torch._foreach_div(ts, g_norm.to(ts[0].dtype))
+            torch._foreach_mul_(c, max_norm)
+            return [torch.where(trigger, t, x) for t, x in zip(ts, c)]
+        return _map_grouped(clip, updates), state
 
     return GradientTransformation(lambda params: EmptyState(), update)
 
@@ -141,16 +210,31 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
             tree_map(z, params), tree_map(z, params))
 
     def update(updates, state, params=None):
-        mu = tree_map(lambda g, t: (1 - b1) * g + b1 * t, updates, state.mu)
-        nu = tree_map(lambda g, t: (1 - b2) * (g * g) + b2 * t, updates,
-                      state.nu)
         count = state.count + 1
         cf = count.float()
         bc1 = 1 - torch.pow(torch.tensor(b1, device=cf.device), cf)
         bc2 = 1 - torch.pow(torch.tensor(b2, device=cf.device), cf)
-        out = tree_map(lambda m, v: (m / bc1.to(m.dtype)) / (
-            torch.sqrt(v / bc2.to(v.dtype)) + eps), mu, nu)
-        return out, ScaleByAdamState(count, mu, nu)
+
+        def moments(gs, ms, vs):
+            mu = torch._foreach_mul(gs, 1 - b1)
+            torch._foreach_add_(mu, torch._foreach_mul(ms, b1))
+            nu = torch._foreach_mul(gs, gs)
+            torch._foreach_mul_(nu, 1 - b2)
+            torch._foreach_add_(nu, torch._foreach_mul(vs, b2))
+            return list(zip(mu, nu))
+
+        def scale(ms, vs):
+            out = torch._foreach_div(ms, bc1.to(ms[0].dtype))
+            den = torch._foreach_div(vs, bc2.to(vs[0].dtype))
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            torch._foreach_div_(out, den)
+            return out
+
+        pairs = _map_grouped(moments, updates, state.mu, state.nu)
+        mu = tree_map(lambda _, mv: mv[0], updates, pairs)
+        nu = tree_map(lambda _, mv: mv[1], updates, pairs)
+        return _map_grouped(scale, mu, nu), ScaleByAdamState(count, mu, nu)
 
     return GradientTransformation(init, update)
 
@@ -159,8 +243,9 @@ def add_decayed_weights(weight_decay: float = 0.0) -> GradientTransformation:
     def update(updates, state, params=None):
         if params is None:
             raise ValueError("add_decayed_weights needs params")
-        return tree_map(lambda g, p: g + weight_decay * p, updates,
-                        params), state
+        return _map_grouped(lambda gs, ps: torch._foreach_add(
+            gs, torch._foreach_mul(ps, weight_decay)), updates,
+            params), state
 
     return GradientTransformation(lambda params: EmptyState(), update)
 
@@ -172,7 +257,8 @@ def scale_by_learning_rate(learning_rate) -> GradientTransformation:
         return GradientTransformation(
             lambda params: EmptyState(),
             lambda updates, state, params=None: (
-                tree_map(lambda g: -learning_rate * g, updates), state))
+                _map_grouped(lambda gs: torch._foreach_mul(
+                    gs, -learning_rate), updates), state))
 
     def init(params):
         return ScaleByScheduleState(
@@ -180,7 +266,8 @@ def scale_by_learning_rate(learning_rate) -> GradientTransformation:
 
     def update(updates, state, params=None):
         step = -learning_rate(state.count)
-        return (tree_map(lambda g: step.to(g.dtype) * g, updates),
+        return (_map_grouped(lambda gs: torch._foreach_mul(
+                    gs, step.to(gs[0].dtype)), updates),
                 ScaleByScheduleState(state.count + 1))
 
     return GradientTransformation(init, update)

@@ -56,9 +56,10 @@ def build_ernie_step(batch=64, seq=512, device="cuda", cfg=None,
     def step(state, batch_):
         params, opt = state
         loss, grads = value_and_grad(loss_fn, params, *batch_)
-        updates, opt = tx.update(grads, opt, params)
-        return (transform.apply_updates(params, updates), opt), \
-            {"loss": loss}
+        with torch.profiler.record_function("optimizer"):
+            updates, opt = tx.update(grads, opt, params)
+            params = transform.apply_updates(params, updates)
+        return (params, opt), {"loss": loss}
 
     data = padded_batch(cfg, batch, seq, lengths, seed, device)
     return step, (params, tx.init(params)), data, cfg

@@ -1,7 +1,7 @@
 """Where a training step's time goes on one NVIDIA GPU.
 
     python -m paddle_tpu_torch.tools.profile_train
-        [--model llama|moe|eager_ernie|eager_llama|ernie] [--layers N]
+        [--model llama|moe|eager_ernie|eager_llama|ernie|dit] [--layers N]
 
 `--model llama` (default) builds the flagship dense config (bench.py:120:
 D 4096, F 9472, 11 layers, GQA 32/8, V 32000; batch 8 x 2048);
@@ -17,7 +17,10 @@ composed from layers (tools/eager_ernie.py; batch 64 x 512, lr 2e-5),
 (tools/eager_llama.py; batch 2 x 2048, lr 1e-4). `--model ernie` drives
 the functional ERNIE finetune step over nlp/ernie.py
 (tools/ernie_finetune.py: batch 64 x 512 padded to lengths 128-512,
-adamw 2e-5). Each takes one untraced warm-up step, one untraced step for
+adamw 2e-5); `--model dit` the DiT-XL/2 train step of BASELINE config 3
+(tools/dit_train.py: batch 96 of 32x32x4 latents, 256 patch tokens,
+adamw_q 1e-4, per-block recompute; `--layers` cuts the depth). Each
+takes one untraced warm-up step, one untraced step for
 its wall time without the profiler's per-operation cost, then one step
 traced by torch.profiler.
 
@@ -29,7 +32,8 @@ ops inside `moe.top_k_routing`'s "moe_routing" range, taken out of
 "other"; the LayerNorm kernels as "layer_norm", the row-6 RMSNorm as
 "rms_fused"; for the eager models the device and host time of each
 range: the backward's device time is the busy time less the other two
-ranges', since autograd launches it from its own thread), the device
+ranges', since autograd launches it from its own thread; for the ERNIE
+and DiT steps those of their "optimizer" range), the device
 busy time (the sum over kernels; one stream, so they do not overlap),
 the idle share 1 - busy / wall, the kernel launch count, the port's own
 kernel launches by wrapper and (eager and ERNIE steps) the peak device
@@ -49,9 +53,9 @@ from torch.autograd import DeviceType
 # the training batch and length of each model (bench.py:369-370,
 # bench.py:87 and bench.py:134)
 _BATCH = {"llama": 8, "moe": 20, "eager_ernie": 64, "eager_llama": 2,
-          "ernie": 64}
+          "ernie": 64, "dit": 96}
 _SEQ = {"llama": 2048, "moe": 2048, "eager_ernie": 512, "eager_llama": 2048,
-        "ernie": 512}
+        "ernie": 512, "dit": 256}
 _GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet", "cublas")
 # kernel symbol names of csrc/*.cu, by class
 _PORT_KERNELS = (("flash_fwd_kernel", "flash_fwd"),
@@ -64,7 +68,9 @@ _PORT_KERNELS = (("flash_fwd_kernel", "flash_fwd"),
                  ("gather_scale_dot_kernel", "moe_dispatch"),
                  ("ln_fwd_kernel", "layer_norm"),
                  ("ln_bwd_kernel", "layer_norm"),
-                 ("ln_dwdb_kernel", "layer_norm"))
+                 ("ln_dwdb_kernel", "layer_norm"),
+                 ("adaln_", "adaln"), ("gather_rows_kernel", "moe_dispatch"),
+                 ("gather_mlp_kernel", "moe_dispatch"))
 _EAGER_RANGES = ("eager_forward", "eager_backward", "eager_optimizer")
 
 
@@ -91,8 +97,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.model in ("eager_ernie", "eager_llama"):
         return _main_eager(args)
-    if args.model == "ernie":
-        return _main_ernie(args)
+    if args.model in ("ernie", "dit"):
+        return _main_step(args)
     from ..kernels import flash_attention as fa
     from ..kernels import moe_dispatch as md
     from ..kernels import rms_norm as rn
@@ -158,25 +164,38 @@ def main(argv=None) -> int:
 
 def _device_times(prof, range_names):
     """(device ms by kernel class, kernel launches, {range: {device_ms,
-    host_ms}}) of a traced step. A range's device time is that of the
-    kernels of the ops launched inside it on its own thread."""
+    host_ms}}) of a traced step. A range's device time is the sum of the
+    kernels that start inside its span on the device (the profiler's
+    user annotation of the range there: from its first kernel's start to
+    its last kernel's end; one stream, so no other range's kernels run
+    inside it)."""
     by_class: dict = {}
     launches = 0
     ranges = {n: {"device_ms": 0.0, "host_ms": 0.0} for n in range_names}
+    spans = {n: [] for n in range_names}
+    kernels = []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             if ev.name in ranges:
-                ranges[ev.name]["device_ms"] += ev.device_time_total / 1e3
                 ranges[ev.name]["host_ms"] += ev.cpu_time_total / 1e3
             continue
         if getattr(ev, "is_user_annotation", False):
-            continue        # the range's span on the device, not a kernel
-        us = ev.time_range.end - ev.time_range.start
+            if ev.name in spans:
+                spans[ev.name].append((ev.time_range.start,
+                                       ev.time_range.end))
+            continue
+        start, us = ev.time_range.start, ev.time_range.end - \
+            ev.time_range.start
+        kernels.append((start, us))
         c = _kernel_class(ev.name)
         by_class[c] = by_class.get(c, 0.0) + us / 1e3
         launches += c != "memcpy"
     if not by_class:
         raise RuntimeError("torch.profiler recorded no device activity")
+    for name, sp in spans.items():
+        ranges[name]["device_ms"] = sum(
+            us for start, us in kernels
+            if any(a <= start < b for a, b in sp)) / 1e3
     return by_class, launches, ranges
 
 
@@ -272,31 +291,53 @@ def _main_eager(args) -> int:
     return 0
 
 
-def _main_ernie(args) -> int:
+def _main_step(args) -> int:
     """The functional ERNIE finetune step over nlp/ernie.py (`--model
-    ernie`)."""
+    ernie`) and the DiT-XL/2 step over mix/dit.py (`--model dit`)."""
     from ..kernels import flash_attention as fa
-    from ..kernels import layer_norm as ln
-    from ..nlp import ernie
-    from .ernie_finetune import build_ernie_step
 
     batch, seq = _BATCH[args.model], _SEQ[args.model]
-    cfg = ernie.ErnieConfig.ernie3_base(
-        num_labels=2, remat=False, scan_unroll=True,
-        **({} if args.layers is None
-           else {"num_hidden_layers": args.layers}))
-    step, state, data, cfg = build_ernie_step(batch, seq, cfg=cfg,
-                                              seed=args.seed)
+    if args.model == "ernie":
+        from ..kernels import layer_norm as ln
+        from ..nlp import ernie
+        from .ernie_finetune import build_ernie_step
+        cfg = ernie.ErnieConfig.ernie3_base(
+            num_labels=2, remat=False, scan_unroll=True,
+            **({} if args.layers is None
+               else {"num_hidden_layers": args.layers}))
+        step, state, data, cfg = build_ernie_step(batch, seq, cfg=cfg,
+                                                  seed=args.seed)
+        layers, extra = cfg.num_hidden_layers, {
+            "valid_tokens": int(data[2].sum())}
+        counters = {"layer_norm_fwd": ln.layer_norm_fwd,
+                    "layer_norm_bwd": ln.layer_norm_bwd}
+    else:
+        from ..kernels import adaln
+        from ..kernels import moe_dispatch as md
+        from ..mix import dit
+        from .dit_train import build_dit_step
+        cfg = dit.DiTConfig.dit_xl_2(
+            **({} if args.layers is None else {"depth": args.layers}))
+        step, state, data, cfg = build_dit_step(batch, cfg=cfg,
+                                                seed=args.seed)
+        layers, extra = cfg.depth, {"flops_per_image":
+                                    dit.flops_per_image(cfg)}
+        counters = {"adaln_fwd": adaln.adaln_fwd,
+                    "adaln_bwd": adaln.adaln_bwd,
+                    "gather_rows": md.gather_rows_kernel,
+                    "gather_mlp": md.gather_mlp_kernel}
+    counters.update({"flash_attention_fwd": fa.flash_attention_fwd,
+                     "flash_attention_bwd": fa.flash_attention_bwd})
     state, _ = step(state, data)                      # warm-up, untraced
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, _ = step(state, data)
     torch.cuda.synchronize()
     untraced = time.perf_counter() - t0
-    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
-                "flash_attention_bwd": fa.flash_attention_bwd,
-                "layer_norm_fwd": ln.layer_norm_fwd,
-                "layer_norm_bwd": ln.layer_norm_bwd}
+    if args.model == "dit":
+        extra["untraced_img_per_s"] = batch / untraced
+        extra["mfu_untraced"] = (batch / untraced * extra["flops_per_image"]
+                                 / 989e12)
     for c in counters.values():
         c.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -307,20 +348,21 @@ def _main_ernie(args) -> int:
         state, m = step(state, data)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_class, launches, _ = _device_times(prof, ())
+    by_class, launches, ranges = _device_times(prof, ("optimizer",))
     busy = sum(by_class.values())
     tok = batch * seq
     print(json.dumps({
-        "step": "ernie_finetune", "traced": True, "wall_ms": wall * 1e3,
+        "step": "ernie_finetune" if args.model == "ernie" else "dit_train",
+        "ranges": ranges,
+        "traced": True, "wall_ms": wall * 1e3,
         "untraced_wall_ms": untraced * 1e3, "device_busy_ms": busy,
         "idle_share": 1.0 - busy / (wall * 1e3),
         "device_ms_by_class": by_class, "kernel_launches": launches,
         "port_launches": {n: c.launches for n, c in counters.items()},
-        "tokens": tok, "valid_tokens": int(data[2].sum()),
-        "untraced_tokens_per_s": tok / untraced,
+        "tokens": tok, **extra, "untraced_tokens_per_s": tok / untraced,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "loss": float(m["loss"])}), flush=True)
-    _print_device(args, cfg.num_hidden_layers, batch)
+    _print_device(args, layers, batch)
     return 0
 
 

@@ -274,6 +274,238 @@ def test_optimizer_state_dict_resumes():
         assert not np.array_equal(want[k], start[k])
 
 
+def test_clip_with_no_gradient():
+    """F1: ClipGradByGlobalNorm over no gradients gives [] (JAX's sum of
+    nothing), and AdamW with the clip steps before any backward."""
+    for p in (jp, tp):
+        assert p.nn.ClipGradByGlobalNorm(1.0)([]) == []
+        lin = p.nn.Linear(4, 2)
+        before = lin.weight.numpy().copy()
+        opt = p.optimizer.AdamW(1e-2, parameters=lin.parameters(),
+                                grad_clip=p.nn.ClipGradByGlobalNorm(1.0))
+        opt.step()
+        np.testing.assert_array_equal(lin.weight.numpy(), before)
+
+
+class _Scale(object):
+    """y = x @ w with w a bf16 parameter of either package."""
+
+    def __new__(cls, p, w0):
+        class Net(p.nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.w = self.create_parameter(list(w0.shape),
+                                               dtype="bfloat16")
+                self.w.set_value(w0)
+
+            def forward(self, x):
+                return p.matmul(x, self.w)
+        return Net()
+
+
+def test_bf16_param_becomes_f32_after_adam_step():
+    """F2: without master weights, one Adam/AdamW step on a bf16
+    parameter leaves it f32 (`value - step` promotes and `_rebind` stores
+    it), within 2 bf16 ulps of a step of JAX's value (the port rounds
+    (1 - b1)·g and g² to bf16 as written; XLA's CPU code keeps them in
+    f32), and the layer's next forward reads the new f32 tensor."""
+    rng = np.random.default_rng(6)
+    w0 = rng.standard_normal((8, 4)).astype(np.float32)
+    c = rng.standard_normal((8, 4)).astype(np.float32)
+    x0 = rng.standard_normal((3, 8)).astype(np.float32)
+    lr, wd = 1e-2, 0.1
+    for opt_name in ("Adam", "AdamW"):
+        def run(p):
+            net = _Scale(p, w0)
+            opt = getattr(p.optimizer, opt_name)(
+                lr, parameters=net.parameters(), weight_decay=wd)
+            # d/dw sum(w * c) = c exactly, in bf16 on both sides
+            (net.w * p.to_tensor(c).astype("bfloat16")).sum().backward()
+            opt.step()
+            opt.clear_grad()
+            y = net(p.to_tensor(x0))
+            return str(net.w.dtype), net.w.numpy(), y.numpy()
+
+        (jdt, jw, jy), (tdt, tw, ty) = _both(run)
+        assert jdt.endswith("float32") and tdt.endswith("float32"), \
+            (jdt, tdt)
+        step = lr * (1 + wd * np.abs(w0).max())
+        assert np.abs(tw - jw).max() <= 2 * 2.0 ** -8 * step, opt_name
+        for w, y in ((tw, ty), (jw, jy)):
+            _close(y, x0 @ w, 1e-6, opt_name)
+
+
+def _old_clip(params_grads, clip_norm):
+    """ClipGradByGlobalNorm as the port ran it per parameter."""
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                        for _, g in params_grads))
+    scale = clip_norm / torch.clamp(gn, min=clip_norm)
+    return [(p, (g.float() * scale).to(g.dtype)) for p, g in params_grads]
+
+
+def _old_adam_update(value, grad, state, lr, lr_mult, wd, decoupled,
+                     b1=0.9, b2=0.999, eps=1e-8):
+    """One parameter's Adam/AdamW update as the port ran it (`lr`, `wd`
+    f32 0-dim tensors)."""
+    if not decoupled:
+        grad = grad + wd * value
+    m1 = b1 * state["moment1"] + (1 - b1) * grad
+    m2 = b2 * state["moment2"] + (1 - b2) * torch.square(grad)
+    b1p = state["beta1_pow"] * b1
+    b2p = state["beta2_pow"] * b2
+    step = lr * lr_mult * (m1 / (1 - b1p)) / (torch.sqrt(m2 / (1 - b2p))
+                                              + eps)
+    if decoupled:
+        step = step + lr * lr_mult * wd * value
+    return value - step, {"moment1": m1, "moment2": m2, "beta1_pow": b1p,
+                          "beta2_pow": b2p}
+
+
+@pytest.mark.parametrize("name,clip,chunk", [
+    ("Adam", False, None), ("AdamW", False, None), ("AdamW", True, None),
+    ("AdamW", True, 64)])
+def test_fused_update_matches_per_parameter(name, clip, chunk, monkeypatch):
+    """F3: the grouped foreach update against the per-parameter one it
+    replaced, over 3 steps of f32 parameters of mixed sizes, a parameter
+    with lr multiplier 0.5 and one excluded from decay: bit for bit (the
+    same operations in the same order), the global clip's gradients
+    included; also with the groups cut into runs of at most 64 values
+    (`transform.CHUNK_NUMEL`, which bounds the multi-tensor ops'
+    temporaries)."""
+    from paddle_tpu_torch.core.tensor import Parameter
+    from paddle_tpu_torch.optimizer import transform
+    if chunk is not None:
+        monkeypatch.setattr(transform, "CHUNK_NUMEL", chunk)
+    rng = np.random.default_rng(7)
+    shapes = [(16, 8), (8,), (3, 5, 7), (1,)]
+    ps = [Parameter(torch.from_numpy(rng.standard_normal(s)
+                                     .astype(np.float32))) for s in shapes]
+    ps[1].optimize_attr["learning_rate"] = 0.5
+    excluded = ps[2].name
+    kw = {"grad_clip": tp.nn.ClipGradByGlobalNorm(0.5)} if clip else {}
+    if name == "AdamW":
+        kw["apply_decay_param_fun"] = lambda n: n != excluded
+    opt = getattr(tp.optimizer, name)(1e-2, parameters=ps, weight_decay=0.1,
+                                      **kw)
+    ref = [p._data.detach().clone() for p in ps]
+    ref_st = [None] * len(ps)
+    for _ in range(3):
+        grads = [torch.from_numpy((3 * rng.standard_normal(s))
+                                  .astype(np.float32)) for s in shapes]
+        for p, g in zip(ps, grads):
+            p._data.grad = g.clone()
+        opt.step()
+        opt.clear_grad()
+        pg = list(zip(range(len(ps)), grads))
+        if clip:
+            pg = _old_clip(pg, 0.5)
+        for (i, g), p in zip(pg, ps):
+            st = ref_st[i] or {
+                "moment1": torch.zeros_like(ref[i]),
+                "moment2": torch.zeros_like(ref[i]),
+                "beta1_pow": torch.ones(()), "beta2_pow": torch.ones(())}
+            wd = 0.0 if p.name == excluded and name == "AdamW" else 0.1
+            ref[i], ref_st[i] = _old_adam_update(
+                ref[i], g, st, torch.tensor(1e-2),
+                p.optimize_attr["learning_rate"], torch.tensor(wd),
+                name == "AdamW")
+    for p, r in zip(ps, ref):
+        assert torch.equal(p._data.detach(), r)
+
+
+def test_fused_update_launches_per_group():
+    """F3: with the global clip, a step dispatches two operators more per
+    parameter (the sum of its squares and its addition to the total, kept
+    per tensor for the norm's bits) and otherwise as many for 30
+    parameters as for 3: one
+    multi-tensor op per operation of the formula, per (device, dtype)
+    group. The per-parameter update dispatched ~20 per parameter."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from paddle_tpu_torch.core.tensor import Parameter
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def ops_per_step(n):
+        ps = [Parameter(torch.ones(4, 3)) for _ in range(n)]
+        opt = tp.optimizer.AdamW(
+            1e-3, parameters=ps, grad_clip=tp.nn.ClipGradByGlobalNorm(1.0))
+        for _ in range(2):     # the first step also builds the state
+            for p in ps:
+                p._data.grad = torch.full((4, 3), 0.5)
+            Count.n = 0
+            with Count():
+                opt.step()
+        return Count.n
+
+    assert ops_per_step(30) - ops_per_step(3) == 2 * 27
+
+
+def test_tree_adamw_matches_per_leaf():
+    """F3: the tree `adamw` (and `clip_by_global_norm`, `apply_updates`)
+    over foreach groups, bit for bit against optax's per-leaf formula as
+    the port computed it, on a tree of f32 and bf16 leaves."""
+    _tree_adamw_vs_per_leaf()
+
+
+def test_tree_adamw_matches_per_leaf_chunked(monkeypatch):
+    """The same with the groups cut into runs of at most 8 values
+    (`transform.CHUNK_NUMEL`), so that each leaf of the tree runs alone:
+    still bit for bit. The cut itself: consecutive tensors of one group
+    share a run while they fit, other dtypes go to their own."""
+    from paddle_tpu_torch.optimizer import transform as T
+    monkeypatch.setattr(T, "CHUNK_NUMEL", 8)
+    assert T.grouped_chunks([torch.ones(6), torch.ones(5, 4).bfloat16(),
+                             torch.ones(3), torch.ones(2)]) == \
+        [[0], [2, 3], [1]]
+    _tree_adamw_vs_per_leaf()
+
+
+def _tree_adamw_vs_per_leaf():
+    from paddle_tpu_torch.optimizer import transform as T
+    rng = np.random.default_rng(8)
+
+    def leaf(shape, dt):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).to(dt)
+
+    params = {"b": leaf((6,), torch.float32),
+              "a": {"w": leaf((5, 4), torch.bfloat16),
+                    "v": leaf((3,), torch.float32)}}
+    tx = T.chain(T.clip_by_global_norm(1.0), T.adamw(1e-2,
+                                                      weight_decay=0.1))
+    st = tx.init(params)
+    ref = T.tree_map(torch.clone, params)
+    mu = T.tree_map(torch.zeros_like, params)
+    nu = T.tree_map(torch.zeros_like, params)
+    for count in range(1, 4):
+        grads = T.tree_map(lambda p: leaf(tuple(p.shape), p.dtype), params)
+        upd, st = tx.update(grads, st, params)
+        params = T.apply_updates(params, upd)
+        # the per-leaf formulas
+        sq = sum(torch.linalg.vector_norm(g, dtype=torch.float32).square()
+                 for g in T.tree_leaves(grads))
+        gn = torch.sqrt(sq)
+        g2 = T.tree_map(lambda t: torch.where(
+            gn < 1.0, t, (t / gn.to(t.dtype)) * 1.0), grads)
+        mu = T.tree_map(lambda g, t: (1 - 0.9) * g + 0.9 * t, g2, mu)
+        nu = T.tree_map(lambda g, t: (1 - 0.999) * (g * g) + 0.999 * t,
+                        g2, nu)
+        bc1 = 1 - torch.pow(torch.tensor(0.9), torch.tensor(float(count)))
+        bc2 = 1 - torch.pow(torch.tensor(0.999), torch.tensor(float(count)))
+        u = T.tree_map(lambda m, v: (m / bc1.to(m.dtype)) / (
+            torch.sqrt(v / bc2.to(v.dtype)) + 1e-8), mu, nu)
+        u = T.tree_map(lambda g, p: g + 0.1 * p, u, ref)
+        u = T.tree_map(lambda g: -1e-2 * g, u)
+        ref = T.tree_map(lambda p, d: (p + d).to(p.dtype), ref, u)
+    for a, b in zip(T.tree_leaves(params), T.tree_leaves(ref)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 # ------------------------------------------------- the tiny ERNIE
 def _cfg(p):
     mod = jernie if p is jp else ternie

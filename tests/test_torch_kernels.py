@@ -282,7 +282,10 @@ def test_port_imports_no_jax():
         "          'paddle_tpu_torch.tools.ernie_finetune',\n"
         "          'paddle_tpu_torch.incubate.nn.functional',\n"
         "          'paddle_tpu_torch.nn.functional.attention',\n"
-        "          'paddle_tpu_torch.tools.profile_train'):\n"
+        "          'paddle_tpu_torch.tools.profile_train',\n"
+        "          'paddle_tpu_torch.mix.dit',\n"
+        "          'paddle_tpu_torch.kernels.adaln',\n"
+        "          'paddle_tpu_torch.tools.dit_train'):\n"
         "    assert n in names, n\n"
         "assert not any(m in ('jax', 'optax')\n"
         "               or m.startswith(('jax.', 'optax.', 'paddle_tpu.'))\n"

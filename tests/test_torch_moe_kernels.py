@@ -7,6 +7,10 @@ same numpy inputs go through the JAX Pallas kernels in interpret mode and
 through the port. `dispatch_gather` and `combine_wsum` (the autograd
 Functions) are held against the JAX package's custom VJPs: at D=128 with
 `FLAGS_pallas_interpret` (its Pallas route) and at D=64 (its jnp route).
+The masked row gather (`gather_rows`, `combine_gather`) and the gather
+fused into the expert gate/up products (`gather_mlp`) are held against
+the JAX package's with `use_pallas=True` in interpret mode, values and
+every gradient.
 
 The index maps are those of a real routing: each (token, choice) fills a
 distinct slot or is dropped, and the inverse maps name who fills each
@@ -150,13 +154,101 @@ def test_combine_wsum_matches_jax_vjp(D, interpret):
     assert not tw.grad.numpy().reshape(B, S * k)[flat < 0].any()
 
 
+def test_gather_rows_matches_jax_vjp(interpret):
+    """Row 13: gather_rows' plain version == `gather_rows_pallas(
+    interpret=True)` bit for bit, -1 rows exactly 0; its value and src
+    gradient (the scatter-add, a source row read twice summing both
+    cotangents) == the JAX custom VJP with use_pallas=True."""
+    rng = np.random.RandomState(11)
+    B, N, M, D = 2, 20, 24, 128
+    src = rng.randn(B, N, D).astype(np.float32)
+    idx = rng.randint(-1, N, (B, M)).astype(np.int32)
+    idx[0, :3] = [-1, 5, 5]
+    ct = rng.randn(B, M, D).astype(np.float32)
+    ref = jmd.gather_rows_pallas(jnp.asarray(src), jnp.asarray(idx),
+                                 interpret=True)
+    np.testing.assert_array_equal(
+        tmd.gather_rows_kernel(_t(src), _t(idx)).numpy(), np.asarray(ref))
+    jy, vjp = jax.vjp(lambda a: jmd.gather_rows(a, jnp.asarray(idx), True),
+                      jnp.asarray(src))
+    (jds,) = vjp(jnp.asarray(ct))
+    ts = _t(src).requires_grad_(True)
+    y = tmd.gather_rows(ts, _t(idx))
+    y.backward(_t(ct))
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(jy))
+    assert not y.detach().numpy()[idx < 0].any()
+    np.testing.assert_allclose(ts.grad.numpy(), np.asarray(jds), atol=TOL,
+                               rtol=TOL)
+
+
+def test_combine_gather_matches_jax_vjp(interpret):
+    """combine_gather's value and eout gradient (a gather over the
+    inverse map) == the JAX custom VJP with use_pallas=True."""
+    B, S, k, M = 1, 12, 2, 28
+    flat, inv_pos, _, _ = _maps(5, B, S, k, M)
+    rng = np.random.RandomState(6)
+    eout = rng.randn(B, M, 128).astype(np.float32)
+    ct = rng.randn(B, S * k, 128).astype(np.float32)
+    jy, vjp = jax.vjp(lambda e: jmd.combine_gather(
+        e, jnp.asarray(flat), jnp.asarray(inv_pos), True), jnp.asarray(eout))
+    (jde,) = vjp(jnp.asarray(ct))
+    te = _t(eout).requires_grad_(True)
+    y = tmd.combine_gather(te, _t(flat), _t(inv_pos))
+    y.backward(_t(ct))
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(te.grad.numpy(), np.asarray(jde))
+
+
+def test_gather_mlp_matches_jax_vjp(interpret):
+    """Row 16: gather_mlp's (g, u) and its gradients in src, wg and wu ==
+    the JAX custom VJP with use_pallas=True (its Pallas forward in
+    interpret mode), on a routing of 12 tokens, top-2, into 4 experts of
+    7 slots with dropped choices and empty slots; the plain version's
+    xin == the Pallas kernel's."""
+    S, k, E, Ms, D, F = 12, 2, 4, 7, 128, 64
+    flat, _, inv_tok, _ = _maps(9, 1, S, k, E * Ms)
+    idx = inv_tok.reshape(E, Ms)
+    inv_flat = np.clip(flat, 0, None).reshape(S, k)
+    w_flat = (flat >= 0).astype(np.float32).reshape(S, k)
+    rng = np.random.RandomState(10)
+    src = rng.randn(S, D).astype(np.float32)
+    wg = (0.1 * rng.randn(E, D, F)).astype(np.float32)
+    wu = (0.1 * rng.randn(E, D, F)).astype(np.float32)
+    cg, cu = (rng.randn(E, Ms, F).astype(np.float32) for _ in range(2))
+    _, _, jxin = jmd.gather_mlp_pallas(jnp.asarray(src), jnp.asarray(idx),
+                                       jnp.asarray(wg), jnp.asarray(wu),
+                                       interpret=True)
+    np.testing.assert_array_equal(
+        tmd.gather_mlp_kernel(_t(src), _t(idx), _t(wg), _t(wu))[2].numpy(),
+        np.asarray(jxin))
+    (jg, ju), vjp = jax.vjp(lambda a, b, c: jmd.gather_mlp(
+        a, jnp.asarray(idx), jnp.asarray(inv_flat), jnp.asarray(w_flat), b,
+        c, True), jnp.asarray(src), jnp.asarray(wg), jnp.asarray(wu))
+    jgrads = vjp((jnp.asarray(cg), jnp.asarray(cu)))
+    ts, twg, twu = (_t(a).requires_grad_(True) for a in (src, wg, wu))
+    g, u = tmd.gather_mlp(ts, _t(idx), _t(inv_flat), _t(w_flat), twg, twu)
+    torch.autograd.backward((g, u), (_t(cg), _t(cu)))
+    for a, b in ((g, jg), (u, ju)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   atol=TOL, rtol=TOL)
+    assert not g.detach().numpy()[idx < 0].any()
+    for a, b in zip((ts, twg, twu), jgrads):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), atol=TOL,
+                                   rtol=TOL)
+
+
 def test_cpu_counts_no_launch():
     """On CPU tensors the wrappers run their plain versions and count no
     launch."""
-    n0 = (tmd.gather_wsum.launches, tmd.gather_scale_dot.launches)
+    fns = (tmd.gather_wsum, tmd.gather_scale_dot, tmd.gather_rows_kernel,
+           tmd.gather_mlp_kernel)
+    n0 = [f.launches for f in fns]
     src = torch.randn(1, 4, 16)
     idx = torch.zeros(1, 3, 2, dtype=torch.int32)
     tmd.gather_wsum(src, idx, torch.ones(1, 3, 2))
     tmd.gather_scale_dot(src, idx[..., 0], torch.ones(1, 3),
                          torch.randn(1, 3, 16))
-    assert (tmd.gather_wsum.launches, tmd.gather_scale_dot.launches) == n0
+    tmd.gather_rows(src, idx[..., 0])
+    tmd.gather_mlp(src[0], idx[..., 0], idx[0], torch.ones(3, 2),
+                   torch.randn(1, 16, 8), torch.randn(1, 16, 8))
+    assert [f.launches for f in fns] == n0
