@@ -8,7 +8,10 @@ non-zero:
   1. device  — requires CUDA; prints the card, its compute capability and
                `nvidia-smi`'s name and power limit; turns TF32 off.
   2. build   — compiles every kernel under paddle_tpu_torch/csrc with nvcc
-               (one process per source, in parallel) and times it.
+               (one process per source, in parallel) and times it; counts
+               the HGMMA (wgmma) and UTMALDG (TMA load) instructions
+               `cuobjdump -sass` finds in the flash libraries, and fails
+               where either is missing.
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, in bf16, at its main paths' shapes, against a stated
                tolerance, with times (CUDA events) of the kernel, the
@@ -19,8 +22,12 @@ non-zero:
                training steps' B=8 x S=2048 and B=20 x S=2048 (the MoE
                model's GQA 16/8) with its LSE), ragged paged attention,
                the flash backward at both training shapes and at
-               B=1 x S=4096, the RMSNorm forward and backward at the
-               steps' [16384, 4096] and [40960, 2048], the fused 8-bit
+               B=1 x S=4096, both flash kernels at S=8192 (B=1, H=8,
+               KV=2: the length at which the JAX package streams its
+               backward), each flash case with its time over the library
+               call's and its bound's share of its time, the RMSNorm
+               forward and backward at the steps' [16384, 4096] and
+               [40960, 2048], the fused 8-bit
                AdamW on a leaf of every size of both trained trees, and
                the MoE dispatch kernels (gather_wsum, gather_scale_dot)
                at the MoE step's shapes, with the index maps of one real
@@ -189,8 +196,28 @@ def phase_build():
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
+    sass = _sass_counts(_build)
     _emit({"phase": "build", "seconds": round(secs, 3),
-           "sources": _build.sources(), "ptxas": ptxas})
+           "sources": _build.sources(), "ptxas": ptxas, "sass": sass})
+
+
+# the flash libraries must hold Hopper's warpgroup products (HGMMA) and
+# TMA loads (UTMALDG)
+_SASS_MARKS = ("HGMMA", "UTMALDG")
+
+
+def _sass_counts(_build):
+    """How many of each instruction in _SASS_MARKS `cuobjdump -sass` finds
+    in each flash library; raises where one is missing."""
+    counts = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run(
+            [_build.cuobjdump(), "-sass", str(_build.library_path(name))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        counts[name] = {m: sass.count(m) for m in _SASS_MARKS}
+        if not all(counts[name].values()):
+            raise AssertionError(f"{name}: no {counts[name]} in its SASS")
+    return counts
 
 
 # ------------------------------------------------------------ 3. kernels
@@ -246,6 +273,14 @@ def _bound(flops, nbytes, peaks, flops_peak=None):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def _shares(res):
+    """A flash case with its time over the library call's and its
+    bound's share of its time."""
+    res["ms_over_library"] = res["ms"] / res["library_ms"]
+    res["bound_over_ms"] = res["bound_ms"] / res["ms"]
+    return res
+
+
 def _qkv(B, S, hd, gen, layout="bshd", heads=()):
     """Random bf16 [B, S, n, hd] for each n of `heads`, contiguous in
     `layout` ('bhsd': [B, n, S, hd])."""
@@ -294,7 +329,7 @@ def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
     res.update({"max_abs_err": err, "max_rel_err": rel, "ms": ms,
                 "plain_ms": plain, "library_ms": lib,
                 **_bound(flops, nbytes, peaks)})
-    return res
+    return _shares(res)
 
 
 def _ragged_batch(kind, H, KV, hd, bs, M, gen):
@@ -470,12 +505,12 @@ def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True,
     # dS K, dS^T Q; bytes: q, k, v, out, dout, lse in; dq, dk, dv out
     flops = 10.0 * B * H * hd * pairs
     nbytes = 2.0 * B * S * hd * (4 * H + 4 * KV) + 4.0 * B * H * S
-    return {"shape": f"B={B} S={S} H={H} KV={KV} hd={hd}"
-                     + ("" if causal else " non-causal")
-                     + ("" if layout == "bshd" else f" {layout}"),
-            "max_abs_err": err, "max_rel_err": max(rel.values()),
-            "rel_err": rel, "ms": ms, "plain_ms": plain, "library_ms": lib,
-            **_bound(flops, nbytes, peaks)}
+    return _shares({"shape": f"B={B} S={S} H={H} KV={KV} hd={hd}"
+                             + ("" if causal else " non-causal")
+                             + ("" if layout == "bshd" else f" {layout}"),
+                    "max_abs_err": err, "max_rel_err": max(rel.values()),
+                    "rel_err": rel, "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, **_bound(flops, nbytes, peaks)})
 
 
 def _rms_cases(rows, D, peaks, gen, eps=1e-5):
@@ -688,7 +723,7 @@ def _masked_flash_cases(B, S, H, hd, layout, lengths, peaks, gen, label=""):
            # lse, the mask in, dq, dk, dv out
            **_bound(10.0 * H * hd * pairs, 2.0 * B * S * H * hd * 8
                     + 4.0 * B * H * S + mbytes, peaks)}
-    return fwd, bwd
+    return _shares(fwd), _shares(bwd)
 
 
 def _ln_cases(rows, D, dtype, affine, peaks, gen, flush, on_path=False):
@@ -1314,6 +1349,13 @@ def phase_kernels(peaks):
                              lse=True, causal=False, layout="bhsd"))
     bwd.append(_flash_bwd_case(96, 256, 16, 16, 72, peaks, gen,
                                causal=False, layout="bhsd"))
+    torch.cuda.empty_cache()
+    # the long-sequence length at which the JAX package switches to its
+    # streamed backward schedules (rows 2-4): S=8192, B=1, H=8, KV=2,
+    # causal + LSE (the plain comparison's f32 scores: 2 GB a tensor)
+    flash.append(_flash_case(1, 8192, 8, 2, hd, peaks, KERNEL_TOL, gen,
+                             lse=True))
+    bwd.append(_flash_bwd_case(1, 8192, 8, 2, hd, peaks, gen))
     torch.cuda.empty_cache()
     rms = [_rms_cases(8 * 2048, 4096, peaks, gen),
            _rms_cases(20 * 2048, 2048, peaks, gen, eps=1e-6)]

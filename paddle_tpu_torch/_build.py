@@ -65,6 +65,15 @@ def _nvcc() -> str:
     return nvcc
 
 
+def cuobjdump() -> str:
+    """The toolkit's `cuobjdump` beside `nvcc` (it lists a library's SASS:
+    `cuobjdump -sass lib<name>-<hash>.so`)."""
+    path = Path(_nvcc()).with_name("cuobjdump")
+    if not path.exists():
+        raise RuntimeError(f"cuobjdump not found beside {_nvcc()}")
+    return str(path)
+
+
 def build_all(names=None) -> Dict[str, str]:
     """Build every missing library in parallel (one nvcc per source);
     returns the ptxas report of each source built. Raises with the

@@ -1,25 +1,23 @@
-// Shared core of the port's forward attention kernels (flash_fwd.cu,
-// ragged_paged_attention.cu; flash_bwd.cu uses its helpers): one block of 4 warps owns 64 query rows
-// (16 per warp) of one KV head and streams 64-key tiles of K and V
-// through shared memory, with the online softmax in f32 registers.
+// Core of the ragged paged-attention kernel (ragged_paged_attention.cu):
+// one block of 4 warps owns 64 query rows (16 per warp) of one KV head
+// and streams 64-key tiles of K and V through shared memory, with the
+// online softmax in f32 registers.
 //
 // Products run on the tensor cores through mma.sync.m16n8k16 (bf16 in,
 // f32 accumulate): S = Q K^T with Q's A-fragments held in registers for
 // the whole key loop, then O += P V with P re-packed from S's
 // accumulator fragments straight into A-fragments (the C layout of two
 // n8 tiles is the A layout of one k16 step), so scores never touch
-// shared or device memory. wgmma and TMA are later work.
+// shared or device memory.
 //
 // head_dim HD is any multiple of 8 (64, 72, 128 are instantiated). A
-// contraction over hd (Q K^T here; every such product in flash_bwd.cu)
-// takes k_steps(HD) = ceil(HD / 16) k16 steps: at HD 72 the last step
+// contraction over hd (Q K^T) takes k_steps(HD) = ceil(HD / 16) k16 steps: at HD 72 the last step
 // covers columns 64..79, whose columns 72..79 are the rows' padding.
 // Every staged row is kRow elements wide; the columns HD..kCols-1 that
 // the last k-step reads are staged as zeros, and a fragment read from
 // device memory is zero past HD (`frag_pair`), so the tail adds exact
-// zeros. Products
-// whose output runs over hd (P V, and the backward's dS K etc.) take
-// HD / 8 n8 tiles and never read the pad.
+// zeros. P V, whose output runs over hd, takes HD / 8 n8 tiles and
+// never reads the pad.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4):
 //   A (16x16, row): a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)
@@ -39,7 +37,6 @@ constexpr int kRows = 64;       // query rows per block, 16 per warp
 constexpr int kKeys = 64;       // keys per shared-memory tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
 
@@ -67,16 +64,6 @@ __device__ __forceinline__ uint32_t frag_pair(const bf16* row, int c) {
   return (row != nullptr && c < HD)
              ? *reinterpret_cast<const uint32_t*>(row + c) : 0u;
 }
-
-// Element strides of a [batch, seq, head, head_dim] tensor whose head_dim
-// stride is 1, in either layout ('bshd' or 'bhsd'): the offset of row
-// (b, s, h) is b * this->b + s * this->s + h * this->h.
-struct Strides {
-  long long b, s, h;
-  __device__ __forceinline__ size_t at(int bi, int si, int hi) const {
-    return (size_t)(bi * b + si * s + hi * h);
-  }
-};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -241,22 +228,6 @@ struct WarpState {
         const uint32_t b1 = pack_raw(tile.v[k0 + 8][d], tile.v[k0 + 9][d]);
         mma_bf16(o[nt], a, b0, b1);
       }
-    }
-  }
-
-  // The log-sum-exp of each row's scaled scores, natural log: m is kept
-  // in log2 units of score * scale, so lse = m * ln 2 + ln l. lrow(r):
-  // pointer for warp row r, or nullptr to skip; one lane of each quad
-  // writes. A row that saw no key (l == 0) gets kNegInf.
-  template <class RowL>
-  __device__ __forceinline__ void store_lse(RowL lrow) const {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    if (t != 0) return;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* out = lrow(g + h * 8);
-      if (out != nullptr)
-        *out = l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : kNegInf;
     }
   }
 

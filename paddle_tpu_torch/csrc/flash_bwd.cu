@@ -9,10 +9,10 @@
 // fit 16 MB of scoped VMEM; here one design serves every length.
 //
 // Computes, from q [B, Sq, H, hd], k/v [B, Sk, KV, hd], out and dout
-// [B, Sq, H, hd] (bf16; or the head-major [B, H, S, hd] of 'bhsd': every
-// tensor is read and written through its batch, sequence and head
-// strides) and the forward's lse [B, H, Sq] (f32, natural log of the
-// scaled scores):
+// [B, Sq, H, hd] (bf16; or the head-major [B, H, S, hd] of 'bhsd': TMA
+// reads q, k, v and dout through tensor maps built from their strides,
+// the other tensors are read and written through their strides) and the
+// forward's lse [B, H, Sq] (f32, natural log of the scaled scores):
 //   P  = exp(scale * Q K^T - lse) where key j is visible to query i
 //        (causal: j <= i + Sk - Sq; key mask: key_mask[b, j] != 0), else 0
 //   dcap_i = sum_d dO_i * O_i
@@ -21,61 +21,92 @@
 // with dK and dV summed over each KV head's rep = H / KV query heads.
 // The mask zeroes P, not the scores (the TPU kernels' p re-mask,
 // flash_attention.py:417, :486): a masked key gets dK = dV = 0, and a row
-// that sees no key (its lse is -1e30) contributes nothing.
-// Products on mma.sync.m16n8k16 (bf16 in, f32 accumulate); P and dS are
-// rounded to bf16 only as the A operands of the second products. head_dim
-// 64, 72 or 128: the contractions over hd (S^T = K Q^T, dP^T = V dO^T,
-// S = Q K^T, dP = dO V^T) take ceil(hd / 16) k16 steps over rows whose
-// columns past hd are staged as zeros (attention_core.cuh).
+// that sees no key (its lse is -1e30) contributes nothing. P and dS are
+// rounded to bf16 only as the A operands of the second products.
+// head_dim 64, 72 or 128 (72: the contractions over hd take 5 k16 steps,
+// the fifth over columns TMA zero-fills; see hopper_core.cuh).
 //
-// Three kernels, in order on the caller's stream:
-//   dcap — one warp per (batch, head, query) row: rowsum(dO * O) into an
-//          f32 [B, H, Sq] scratch (the XLA op of the TPU wrapper).
-//   dkdv — grid (B * KV, 64-key tiles); a block holds its K/V tile in
-//          shared memory, each warp 16 keys (their visibilities in
-//          registers), and walks the rep query heads
-//          of its group and, for each, the 32-query tiles from the causal
-//          diagonal on, accumulating dK and dV in f32 registers. GQA needs
-//          neither an expanded K/V nor a reduction over the group.
-//   dq   — grid (B * H, 64-query tiles), each warp 16 queries with Q and
-//          dO fragments in registers, over the 64-key tiles up to the
-//          diagonal (K and V staged through shared memory), dQ in f32
-//          registers. Like the TPU's split dq kernel it needs no atomics
-//          and no f32 dQ buffer, and is deterministic.
-//
-// Bound on the H100: about 2.5x the forward's tensor-core work (five
-// products against two) over the same O(S * hd) bytes, so tensor-core
-// bound at training lengths. What this simple version leaves: the dkdv
-// blocks re-read each query tile from L2 once per key tile, loads are not
-// pipelined against the products, there is no wgmma or TMA, and key tiles
-// whose keys are all masked are still walked.
-#include "attention_core.cuh"
+// Bound on the H100: five products (QK^T again, dO V^T, P^T dO, dS K,
+// dS^T Q) over the visible pairs against O(S * hd) bytes: tensor-core
+// bound at training lengths. The first design (2.5-4.6x SDPA's time)
+// built the second products' B operands from 16-bit shared loads,
+// staged 32 queries between two barriers and ran mma.sync only. This
+// design, three kernels in order on the caller's stream:
+//   dcap — one warp per (batch, head, query) row of [B * H, Sq_pad]
+//          (Sq_pad = Sq rounded up to 128): dcap = rowsum(dO * O) and
+//          lse * log2(e), into an f32 scratch [2, B * H, Sq_pad]. Padding
+//          rows get dcap 0 and +1e30, so a query row past Sq (TMA's zero
+//          rows) gets P = exp2(0 - 1e30) = 0 with no test, and every
+//          64-query slice is a 256-byte, 16-byte-aligned bulk copy.
+//   dkdv — a block owns (b, KV head, 128 keys): two consumer warpgroups of
+//          64 keys and a producer warpgroup (setmaxnreg 24 / 240). K and V
+//          are loaded once by TMA and stay in shared memory; Q, dO (TMA)
+//          and the prep rows (bulk copies) of 64 queries stream through a
+//          two-stage mbarrier ring, over the rep query heads of the group
+//          and, for each, the query tiles from the causal diagonal on.
+//          S^T = K Q^T and dP^T = V dO^T on wgmma m64n64k16 from shared
+//          memory; P^T and dS^T stay in registers as the A operands of
+//          dV += P^T dO and dK += dS^T Q (wgmma m64n{hd}k16, dO and Q read
+//          MN-major). dK, dV accumulate in f32 registers over the whole
+//          group: GQA needs neither an expanded K/V nor a reduction. A
+//          block whose 128 keys are all masked writes zeros and walks no
+//          queries; a warpgroup skips the products of a query tile that
+//          sees none of its keys (causal).
+//   dq   — a block owns 128 query rows of one (b, head), the forward's
+//          shape: Q and dO loaded once, K and V tiles of 64 keys through
+//          the ring (only the tiles that hold a visible key), S = Q K^T
+//          and dP = dO V^T on wgmma, dS in registers as the A operand of
+//          dQ += dS K (K read MN-major). dQ in f32 registers.
+// dQ is a separate pass rather than a fixed-order reduction of partial
+// dQ tiles across the dkdv blocks: it recomputes S and dP, 7 products
+// where the bound counts 5 (so at most 5/7 of the bound's rate), but it
+// needs no atomics and no f32 dQ buffer, and every output is summed in a
+// fixed order: two runs are bit-identical.
+// Tiles wholly visible (below the diagonal, no masked or missing key)
+// take no per-element test. Not done yet: folding dQ into dkdv under a
+// fixed-order reduction, overlapping a warpgroup's elementwise work with
+// its next products, and TMA stores.
+#include "hopper_core.cuh"
 
 namespace {
 
-using ptt::bf16;
-using ptt::Strides;
-using ptt::mma_bf16;
-using ptt::pack_bf16;
-using ptt::pack_raw;
+using hop::bf16;
+using hop::Strides;
 
-constexpr int kThreads = 128;   // 4 warps
-constexpr int kKeyTile = 64;    // dkdv: keys per block, 16 per warp
-constexpr int kQTile = 32;      // dkdv: queries per inner step
-constexpr int kQRows = 64;      // dq: queries per block, 16 per warp
+constexpr int kThreads = 384;   // producer warpgroup + 2 consumers
+constexpr int kConsumers = 256;
+constexpr int kStages = 2;
+constexpr int kKN = 128;        // dkdv: keys a block, 64 a warpgroup
+constexpr int kQM = 64;         // dkdv: queries a streamed tile
+constexpr int kDqM = 128;       // dq: query rows a block, 64 a warpgroup
+constexpr int kDqN = 64;        // dq: keys a streamed tile
+constexpr int kPad = 128;       // the prep rows' padding of Sq
+constexpr float kPadLse = 1e30f;
+
+__host__ __device__ __forceinline__ int padded(int sq) {
+  return (sq + kPad - 1) / kPad * kPad;
+}
 
 // ------------------------------------------------------------------ dcap
-// row runs over the [B, H, Sq] order of dcap
+// row runs over [B * H, Sq_pad]; lse2 and dcap are the scratch's halves
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(128)
 dcap_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-            float* __restrict__ dcap, long rows, int Sq, int H, Strides os,
-            Strides ds) {
-  const long row = (long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+            const float* __restrict__ lse, float* __restrict__ lse2,
+            float* __restrict__ dcap, long rows, int Sq, int Sq_pad, int H,
+            Strides os, Strides ds) {
+  const long row = (long)blockIdx.x * 4 + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
-  const int i = (int)(row % Sq);
-  const long bh = row / Sq;
+  const int i = (int)(row % Sq_pad);
+  const long bh = row / Sq_pad;
+  if (i >= Sq) {
+    if (lane == 0) {
+      lse2[row] = kPadLse;
+      dcap[row] = 0.f;
+    }
+    return;
+  }
   const int h = (int)(bh % H), b = (int)(bh / H);
   const bf16* op = o + os.at(b, i, h);
   const bf16* dp = dout + ds.at(b, i, h);
@@ -90,395 +121,486 @@ dcap_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   }
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
-  if (lane == 0) dcap[row] = acc;
+  if (lane == 0) {
+    dcap[row] = acc;
+    lse2[row] = lse[bh * Sq + i] * hop::kLog2e;
+  }
 }
 
 // ------------------------------------------------------------------ dkdv
+// K, V [chunk][128][64]; per stage Q, dO [chunk][64][64], then the
+// stages' lse2 and dcap slices [64] f32; the barriers.
 template <int HD>
 struct DkdvSmem {
-  static constexpr int kRow = ptt::HeadDim<HD>::kRow;
-  bf16 k[kKeyTile][kRow];
-  bf16 v[kKeyTile][kRow];
-  bf16 q[kQTile][kRow];
-  bf16 dout[kQTile][kRow];
-  float lse[kQTile];      // lse * log2(e)
-  float dcap[kQTile];
+  static constexpr int kC = hop::chunks(HD);
+  static constexpr int kKBytes = kC * kKN * hop::kRowBytes;
+  static constexpr int kQBytes = kC * kQM * hop::kRowBytes;
+  static constexpr int kK = 0;
+  static constexpr int kV = kKBytes;
+  static constexpr int kQ = 2 * kKBytes;             // + stage * 2 * kQBytes
+  static constexpr int kRows = kQ + kStages * 2 * kQBytes;  // + stage * 512
+  static constexpr int kBars = kRows + kStages * 2 * kQM * 4;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
-// Copy `rows` rows of HD bf16 (row r from src(r), or zeros for nullptr)
-// into dst[r][...], and zeros into the columns past HD that the k-steps
-// read; 16-byte chunks over the block's threads.
-template <int HD, int ROWS, class Src>
-__device__ __forceinline__ void stage_rows(
-    bf16 (*dst)[ptt::HeadDim<HD>::kRow], Src src) {
-  constexpr int kChunks = ptt::HeadDim<HD>::kCols / 8;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bf16* p = col < HD ? src(r) : nullptr;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (p != nullptr) val = *reinterpret_cast<const uint4*>(p + col);
-    *reinterpret_cast<uint4*>(&dst[r][col]) = val;
-  }
-}
-
-// A fragment (16 x 16, row-major) of rows row0..row0+15, columns
-// ks*16.. of a shared tile whose rows are HeadDim<HD>::kRow elements apart.
 template <int HD>
-__device__ __forceinline__ void a_frag(uint32_t a[4], const bf16* t,
-                                       int row0, int ks) {
-  constexpr int kRow = ptt::HeadDim<HD>::kRow;
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const bf16* r0 = t + (size_t)(row0 + g) * kRow + ks * 16 + 2 * tq;
-  const bf16* r1 = r0 + 8 * kRow;
-  a[0] = *reinterpret_cast<const uint32_t*>(r0);
-  a[1] = *reinterpret_cast<const uint32_t*>(r1);
-  a[2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ dcap,
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+            const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v,
+            const __grid_constant__ CUtensorMap tm_do,
+            const float* __restrict__ lse2, const float* __restrict__ dcap,
             const unsigned char* __restrict__ key_mask,
             bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
-            int H, int KV, Strides qs, Strides ks, Strides vs, Strides dos,
-            Strides dks, Strides dvs, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  DkdvSmem<HD>& sm = *reinterpret_cast<DkdvSmem<HD>*>(smem_raw);
+            int H, int KV, Strides dks, Strides dvs, float scale,
+            int causal) {
+  using L = DkdvSmem<HD>;
+  constexpr int kC = L::kC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
   const int bkv = blockIdx.x, b = bkv / KV, kvh = bkv % KV;
   const int rep = H / KV;
-  const int k0 = blockIdx.y * kKeyTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.y * kKN;
   const int off = Sk - Sq;
-  const float scale_log2 = scale * ptt::kLog2e;
+  const int Sq_pad = padded(Sq);
+  const float scale_log2 = scale * hop::kLog2e;
+  const unsigned char* mrow =
+      key_mask != nullptr ? key_mask + (size_t)b * Sk : nullptr;
 
-  stage_rows<HD, kKeyTile>(sm.k, [&](int r) -> const bf16* {
-    const int j = k0 + r;
-    return j < Sk ? k + ks.at(b, j, kvh) : nullptr;
-  });
-  stage_rows<HD, kKeyTile>(sm.v, [&](int r) -> const bf16* {
-    const int j = k0 + r;
-    return j < Sk ? v + vs.at(b, j, kvh) : nullptr;
-  });
-  const int wrow = warp * 16;                 // this warp's first tile key
-  // this lane's two keys (rows g and g + 8 of its warp's 16): in range
-  // and unmasked, held in registers for the whole block
-  bool key_vis[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int j = k0 + wrow + g + hh * 8;
-    key_vis[hh] =
-        j < Sk && (key_mask == nullptr || key_mask[(size_t)b * Sk + j] != 0);
+  // a block whose keys are all masked: zeros, no queries walked
+  if (mrow != nullptr) {
+    const int key = k0 + (int)threadIdx.x;
+    const int vis = threadIdx.x < kKN && key < Sk && mrow[key] != 0;
+    if (!__syncthreads_or(vis)) {
+      for (int e = threadIdx.x; e < kKN * (HD / 8); e += kThreads) {
+        const int j = k0 + e / (HD / 8), c = (e % (HD / 8)) * 8;
+        if (j >= Sk) continue;
+        *reinterpret_cast<uint4*>(dk + dks.at(b, j, kvh) + c) =
+            make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(dv + dvs.at(b, j, kvh) + c) =
+            make_uint4(0, 0, 0, 0);
+      }
+      return;
+    }
+  }
+  if (threadIdx.x == 0) {
+    hop::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], kConsumers);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // query tiles from the first that can see this block's first key
+  const int qt0 = causal ? max(0, k0 - off) / kQM : 0;
+  const int n_qt = (Sq + kQM - 1) / kQM;
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------- producer
+    hop::reg_dealloc<24>();
+    if (threadIdx.x != 0) return;
+    hop::mbar_expect_tx(kv_full, 2 * kC * (kKN / hop::kBox) * hop::kBoxBytes);
+    for (int c = 0; c < kC; ++c)
+      for (int r = 0; r < kKN / hop::kBox; ++r) {
+        const int at = (c * kKN + r * hop::kBox) * hop::kRowBytes;
+        hop::tma_load(&tm_k, kv_full, smem + L::kK + at, c * hop::kBox,
+                      k0 + r * hop::kBox, kvh, b);
+        hop::tma_load(&tm_v, kv_full, smem + L::kV + at, c * hop::kBox,
+                      k0 + r * hop::kBox, kvh, b);
+      }
+    hop::Ring<kStages> ring;
+    for (int r = 0; r < rep; ++r) {
+      const int h = kvh * rep + r;
+      const size_t prow = ((size_t)b * H + h) * Sq_pad;
+      for (int qt = qt0; qt < n_qt; ++qt) {
+        hop::mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
+        uint64_t* bar = &full[ring.stage];
+        hop::mbar_expect_tx(bar, 2 * kC * hop::kBoxBytes + 2 * kQM * 4);
+        unsigned char* qb = smem + L::kQ + ring.stage * 2 * L::kQBytes;
+        unsigned char* db = qb + L::kQBytes;
+        for (int c = 0; c < kC; ++c) {
+          const int at = c * kQM * hop::kRowBytes;
+          hop::tma_load(&tm_q, bar, qb + at, c * hop::kBox, qt * kQM, h, b);
+          hop::tma_load(&tm_do, bar, db + at, c * hop::kBox, qt * kQM, h,
+                        b);
+        }
+        float* rows = reinterpret_cast<float*>(smem + L::kRows) +
+                      ring.stage * 2 * kQM;
+        hop::bulk_load(rows, lse2 + prow + qt * kQM, kQM * 4, bar);
+        hop::bulk_load(rows + kQM, dcap + prow + qt * kQM, kQM * 4, bar);
+        ring.advance();
+      }
+    }
+    return;
   }
 
-  float dka[HD / 8][4], dva[HD / 8][4];
+  // --------------------------------------------------------- consumers
+  hop::reg_alloc<240>();
+  const int w = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + w * 64;                 // the warpgroup's keys
+  int key[2];
+  bool key_vis[2];   // keys past Sk are never stored: no test needed
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
+  for (int hh = 0; hh < 2; ++hh) {
+    key[hh] = kw0 + warp * 16 + g + 8 * hh;
+    key_vis[hh] = mrow == nullptr || key[hh] >= Sk || mrow[key[hh]] != 0;
+  }
+  const bool warp_vis = __all_sync(0xffffffffu, key_vis[0] && key_vis[1]);
+  const uint32_t k_addr = hop::smem_u32(smem + L::kK) + w * 64 *
+                          hop::kRowBytes;
+  const uint32_t v_addr = hop::smem_u32(smem + L::kV) + w * 64 *
+                          hop::kRowBytes;
+  float dka[HD / 2], dva[HD / 2];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
 
-  // queries that can see this tile's first key: i >= k0 - off
-  const int q_first = causal ? max(0, k0 - off) : 0;
-  const int qt0 = q_first / kQTile;
-  const int n_qt = (Sq + kQTile - 1) / kQTile;
-
+  hop::mbar_wait(kv_full, 0);
+  hop::Ring<kStages> ring;
   for (int r = 0; r < rep; ++r) {
-    const int h = kvh * rep + r;
     for (int qt = qt0; qt < n_qt; ++qt) {
-      const int i0 = qt * kQTile;
-      __syncthreads();   // the previous step is done with the q/dO tiles
-      stage_rows<HD, kQTile>(sm.q, [&](int rr) -> const bf16* {
-        const int i = i0 + rr;
-        return i < Sq ? q + qs.at(b, i, h) : nullptr;
-      });
-      stage_rows<HD, kQTile>(sm.dout, [&](int rr) -> const bf16* {
-        const int i = i0 + rr;
-        return i < Sq ? dout + dos.at(b, i, h) : nullptr;
-      });
-      if (threadIdx.x < kQTile) {
-        const int i = i0 + threadIdx.x;
-        const size_t li = ((size_t)b * H + h) * Sq + i;
-        sm.lse[threadIdx.x] = i < Sq ? lse[li] * ptt::kLog2e : 0.f;
-        sm.dcap[threadIdx.x] = i < Sq ? dcap[li] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 32 queries
-      float s[kQTile / 8][4], dp[kQTile / 8][4];
+      hop::mbar_wait(&full[ring.stage], ring.phase);
+      const int i0 = qt * kQM;
+      // causal: no query of the tile sees a key of this warpgroup
+      if (!(causal && kw0 > i0 + kQM - 1 + off)) {
+        const uint32_t qb = hop::smem_u32(smem + L::kQ) +
+                            ring.stage * 2 * L::kQBytes;
+        const uint32_t db = qb + L::kQBytes;
+        const float* rows = reinterpret_cast<const float*>(
+                                smem + L::kRows) + ring.stage * 2 * kQM;
+        float s[kQM / 2], dp[kQM / 2];   // keys x queries
+        hop::wg_fence();
 #pragma unroll
-      for (int nt = 0; nt < kQTile / 8; ++nt)
+        for (int ks = 0; ks < hop::k_steps(HD); ++ks)
+          hop::Wgmma<kQM>::ss(
+              s, hop::desc_k(hop::k_step_addr(k_addr, kKN, ks)),
+              hop::desc_k(hop::k_step_addr(qb, kQM, ks)), ks > 0);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        for (int ks = 0; ks < hop::k_steps(HD); ++ks)
+          hop::Wgmma<kQM>::ss(
+              dp, hop::desc_k(hop::k_step_addr(v_addr, kKN, ks)),
+              hop::desc_k(hop::k_step_addr(db, kQM, ks)), ks > 0);
+        hop::wg_commit();
+        hop::wg_wait();
+        hop::fence_regs(s);
+        hop::fence_regs(dp);
+        // every query of the tile sees every key of this warp
+        const bool all_vis =
+            warp_vis && (!causal || kw0 + 63 <= i0 + off);
 #pragma unroll
-      for (int ks = 0; ks < ptt::HeadDim<HD>::kSteps; ++ks) {
-        uint32_t ak[4], av[4];
-        a_frag<HD>(ak, &sm.k[0][0], wrow, ks);
-        a_frag<HD>(av, &sm.v[0][0], wrow, ks);
-#pragma unroll
-        for (int nt = 0; nt < kQTile / 8; ++nt) {
-          const bf16* qr = &sm.q[nt * 8 + g][ks * 16 + 2 * t];
-          mma_bf16(s[nt], ak, *reinterpret_cast<const uint32_t*>(qr),
-                   *reinterpret_cast<const uint32_t*>(qr + 8));
-          const bf16* dr = &sm.dout[nt * 8 + g][ks * 16 + 2 * t];
-          mma_bf16(dp[nt], av, *reinterpret_cast<const uint32_t*>(dr),
-                   *reinterpret_cast<const uint32_t*>(dr + 8));
+        for (int i = 0; i < kQM / 2; ++i) {
+          const int hh = (i >> 1) & 1;
+          const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
+          float p = hop::exp2_fast(s[i] * scale_log2 - rows[qc]);
+          if (!all_vis) {
+            const bool vis =
+                key_vis[hh] && (!causal || key[hh] <= i0 + qc + off);
+            p = vis ? p : 0.f;
+          }
+          s[i] = p;
+          dp[i] = p * (dp[i] - rows[kQM + qc]) * scale;
         }
+        uint32_t pa[kQM / 16][4], da[kQM / 16][4];
+        hop::pack_a<kQM>(s, pa);
+        hop::pack_a<kQM>(dp, da);
+        hop::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kQM / 16; ++kk)
+          hop::Wgmma<HD>::rs(dva, pa[kk],
+                             hop::desc_mn(db + kk * 16 * hop::kRowBytes,
+                                          kQM * hop::kRowBytes));
+#pragma unroll
+        for (int kk = 0; kk < kQM / 16; ++kk)
+          hop::Wgmma<HD>::rs(dka, da[kk],
+                             hop::desc_mn(qb + kk * 16 * hop::kRowBytes,
+                                          kQM * hop::kRowBytes));
+        hop::wg_commit();
+        hop::wg_wait();
+        hop::fence_regs(dva);
+        hop::fence_regs(dka);
+        hop::fence_regs(pa);
+        hop::fence_regs(da);
       }
-      // P^T and dS^T in place of S^T and dP^T
-#pragma unroll
-      for (int nt = 0; nt < kQTile / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + wrow + g + (e >> 1) * 8;
-          const int jq = nt * 8 + 2 * t + (e & 1);
-          const int i = i0 + jq;
-          const bool vis =
-              key_vis[e >> 1] && i < Sq && (!causal || key <= i + off);
-          const float p =
-              vis ? exp2f(s[nt][e] * scale_log2 - sm.lse[jq]) : 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - sm.dcap[jq]) * scale;
-        }
-      }
-      // dV += P^T dO, dK += dS^T Q: the accumulators of n-tiles 2kk and
-      // 2kk+1 are the A fragment of k-step kk (k = queries)
-#pragma unroll
-      for (int kk = 0; kk < kQTile / 16; ++kk) {
-        uint32_t ap[4], ad[4];
-        ap[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        ap[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        ap[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        ap[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        ad[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-        ad[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-        ad[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-        ad[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-        const int kq = kk * 16 + 2 * t;
-#pragma unroll
-        for (int nt = 0; nt < HD / 8; ++nt) {
-          const int d = nt * 8 + g;
-          mma_bf16(dva[nt], ap, pack_raw(sm.dout[kq][d], sm.dout[kq + 1][d]),
-                   pack_raw(sm.dout[kq + 8][d], sm.dout[kq + 9][d]));
-          mma_bf16(dka[nt], ad, pack_raw(sm.q[kq][d], sm.q[kq + 1][d]),
-                   pack_raw(sm.q[kq + 8][d], sm.q[kq + 9][d]));
-        }
-      }
+      hop::mbar_arrive(&empty[ring.stage]);
+      ring.advance();
     }
   }
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int key = k0 + wrow + g + hh * 8;
-    if (key >= Sk) continue;
-    bf16* dkr = dk + dks.at(b, key, kvh);
-    bf16* dvr = dv + dvs.at(b, key, kvh);
+    if (key[hh] >= Sk) continue;
+    bf16* dkr = dk + dks.at(b, key[hh], kvh);
+    bf16* dvr = dv + dvs.at(b, key[hh], kvh);
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt) {
-      const int c = nt * 8 + 2 * t;
+    for (int j = 0; j < HD / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
       *reinterpret_cast<uint32_t*>(dkr + c) =
-          pack_bf16(dka[nt][2 * hh], dka[nt][2 * hh + 1]);
+          hop::pack_bf16(dka[4 * j + 2 * hh], dka[4 * j + 2 * hh + 1]);
       *reinterpret_cast<uint32_t*>(dvr + c) =
-          pack_bf16(dva[nt][2 * hh], dva[nt][2 * hh + 1]);
+          hop::pack_bf16(dva[4 * j + 2 * hh], dva[4 * j + 2 * hh + 1]);
     }
   }
 }
 
 // -------------------------------------------------------------------- dq
+// Q, dO [chunk][128][64]; per stage K then V [chunk][64][64]; barriers;
+// the key-tile states.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ dcap,
-          const unsigned char* __restrict__ key_mask, bf16* __restrict__ dq,
-          int Sq, int Sk, int H, int KV, Strides qs, Strides ks, Strides vs,
-          Strides dos, Strides dqs, float scale, int causal) {
-  __shared__ ptt::KVTile<HD> tile;
-  __shared__ bool key_vis[ptt::kKeys];
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q_tile0 = blockIdx.y * kQRows;
-  const int row0 = q_tile0 + warp * 16;
-  const int off = Sk - Sq;
-  const float scale_log2 = scale * ptt::kLog2e;
-
-  // Q and dO A-fragments of this warp's rows g and g + 8, for all of hd
-  // (zero past it)
-  constexpr int kSteps = ptt::HeadDim<HD>::kSteps;
-  uint32_t qa[kSteps][4], da[kSteps][4];
-  const int r0 = row0 + g, r1 = row0 + g + 8;
-  const bf16* q0 = r0 < Sq ? q + qs.at(b, r0, h) : nullptr;
-  const bf16* q1 = r1 < Sq ? q + qs.at(b, r1, h) : nullptr;
-  const bf16* d0 = r0 < Sq ? dout + dos.at(b, r0, h) : nullptr;
-  const bf16* d1 = r1 < Sq ? dout + dos.at(b, r1, h) : nullptr;
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    qa[ks][0] = ptt::frag_pair<HD>(q0, c);
-    qa[ks][1] = ptt::frag_pair<HD>(q1, c);
-    qa[ks][2] = ptt::frag_pair<HD>(q0, c + 8);
-    qa[ks][3] = ptt::frag_pair<HD>(q1, c + 8);
-    da[ks][0] = ptt::frag_pair<HD>(d0, c);
-    da[ks][1] = ptt::frag_pair<HD>(d1, c);
-    da[ks][2] = ptt::frag_pair<HD>(d0, c + 8);
-    da[ks][3] = ptt::frag_pair<HD>(d1, c + 8);
+struct DqSmem {
+  static constexpr int kC = hop::chunks(HD);
+  static constexpr int kQBytes = kC * kDqM * hop::kRowBytes;
+  static constexpr int kKBytes = kC * kDqN * hop::kRowBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQBytes;
+  static constexpr int kKV = 2 * kQBytes;             // + stage * 2 * kKBytes
+  static constexpr int kBars = kKV + kStages * 2 * kKBytes;
+  static constexpr int kState = kBars + 8 * (1 + 2 * kStages);
+  static int bytes(int n_state) {
+    return kState + ((n_state + 15) & ~15) + 1024;
   }
-  float lrow[2], crow[2];
-  const size_t lbase = ((size_t)b * H + h) * Sq;
-  lrow[0] = r0 < Sq ? lse[lbase + r0] * ptt::kLog2e : 0.f;
-  lrow[1] = r1 < Sq ? lse[lbase + r1] * ptt::kLog2e : 0.f;
-  crow[0] = r0 < Sq ? dcap[lbase + r0] : 0.f;
-  crow[1] = r1 < Sq ? dcap[lbase + r1] : 0.f;
+};
 
-  float dqa[HD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
-    dqa[nt][0] = dqa[nt][1] = dqa[nt][2] = dqa[nt][3] = 0.f;
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+          const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v,
+          const __grid_constant__ CUtensorMap tm_do,
+          const float* __restrict__ lse2, const float* __restrict__ dcap,
+          const unsigned char* __restrict__ key_mask, bf16* __restrict__ dq,
+          int Sq, int Sk, int H, int KV, Strides dqs, float scale,
+          int causal) {
+  using L = DqSmem<HD>;
+  constexpr int kC = L::kC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  unsigned char* tile_state = smem + L::kState;
 
-  int last = Sk - 1;
-  if (causal) last = min(last, q_tile0 + kQRows - 1 + off);
-  const int n_tiles = last < 0 ? 0 : last / ptt::kKeys + 1;
+  const int bh = blockIdx.x, b = bh / H, head = bh % H;
+  const int kvh = head / (H / KV);
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * kDqM;
+  const int off = Sk - Sq;
+  const int Sq_pad = padded(Sq);
+  const float scale_log2 = scale * hop::kLog2e;
+  const int n_tiles = hop::key_tiles(m0, kDqM, kDqN, Sq, Sk, causal);
   const unsigned char* mrow =
       key_mask != nullptr ? key_mask + (size_t)b * Sk : nullptr;
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * ptt::kKeys;
-    ptt::load_tile<HD>(
-        tile,
-        [&](int j) -> const bf16* {
-          return k0 + j < Sk ? k + ks.at(b, k0 + j, kvh) : nullptr;
-        },
-        [&](int j) -> const bf16* {
-          return k0 + j < Sk ? v + vs.at(b, k0 + j, kvh) : nullptr;
-        });
-    if (threadIdx.x < ptt::kKeys) {
-      const int key = k0 + threadIdx.x;
-      key_vis[threadIdx.x] =
-          key < Sk && (mrow == nullptr || mrow[key] != 0);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], kConsumers);
     }
-    __syncthreads();
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int kh = half * 32;
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const bf16* kr = &tile.k[kh + nt * 8 + g][ks * 16 + 2 * t];
-          mma_bf16(s[nt], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
-                   *reinterpret_cast<const uint32_t*>(kr + 8));
-          const bf16* vr = &tile.v[kh + nt * 8 + g][ks * 16 + 2 * t];
-          mma_bf16(dp[nt], da[ks], *reinterpret_cast<const uint32_t*>(vr),
-                   *reinterpret_cast<const uint32_t*>(vr + 8));
-        }
+    hop::fence_barrier_init();
+  }
+  if (mrow != nullptr)
+    hop::scan_key_tiles<kDqN>(mrow, Sk, n_tiles, tile_state);
+  __syncthreads();
+  auto state = [&](int t) -> int {
+    if (mrow != nullptr) return tile_state[t];
+    return (t + 1) * kDqN <= Sk ? 2 : 1;
+  };
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------- producer
+    hop::reg_dealloc<24>();
+    if (threadIdx.x != 0) return;
+    hop::mbar_expect_tx(q_full,
+                        2 * kC * (kDqM / hop::kBox) * hop::kBoxBytes);
+    for (int c = 0; c < kC; ++c)
+      for (int r = 0; r < kDqM / hop::kBox; ++r) {
+        const int at = (c * kDqM + r * hop::kBox) * hop::kRowBytes;
+        hop::tma_load(&tm_q, q_full, smem + L::kQ + at, c * hop::kBox,
+                      m0 + r * hop::kBox, head, b);
+        hop::tma_load(&tm_do, q_full, smem + L::kDo + at, c * hop::kBox,
+                      m0 + r * hop::kBox, head, b);
       }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hh = e >> 1;
-          const int i = row0 + g + hh * 8;
-          const int kj = kh + nt * 8 + 2 * t + (e & 1);
-          const int key = k0 + kj;
-          const bool vis =
-              i < Sq && key_vis[kj] && (!causal || key <= i + off);
-          const float p = vis ? exp2f(s[nt][e] * scale_log2 - lrow[hh]) : 0.f;
-          dp[nt][e] = p * (dp[nt][e] - crow[hh]) * scale;
-        }
+    hop::Ring<kStages> ring;
+    for (int t = 0; t < n_tiles; ++t) {
+      if (state(t) == 0) continue;
+      hop::mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
+      uint64_t* bar = &full[ring.stage];
+      hop::mbar_expect_tx(bar, 2 * kC * hop::kBoxBytes);
+      unsigned char* kb = smem + L::kKV + ring.stage * 2 * L::kKBytes;
+      for (int c = 0; c < kC; ++c) {
+        const int at = c * kDqN * hop::kRowBytes;
+        hop::tma_load(&tm_k, bar, kb + at, c * hop::kBox, t * kDqN, kvh, b);
+        hop::tma_load(&tm_v, bar, kb + L::kKBytes + at, c * hop::kBox,
+                      t * kDqN, kvh, b);
       }
-      // dQ += dS K (k = keys; K read as a col-major B operand)
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t a[4];
-        a[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-        a[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-        a[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-        a[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-        const int kr = kh + kk * 16 + 2 * t;
-#pragma unroll
-        for (int nt = 0; nt < HD / 8; ++nt) {
-          const int d = nt * 8 + g;
-          mma_bf16(dqa[nt], a, pack_raw(tile.k[kr][d], tile.k[kr + 1][d]),
-                   pack_raw(tile.k[kr + 8][d], tile.k[kr + 9][d]));
-        }
-      }
+      ring.advance();
     }
-    __syncthreads();
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  hop::reg_alloc<240>();
+  const int w = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int r_base = m0 + w * 64;
+  const int row0 = r_base + warp * 16 + g;
+  const uint32_t q_addr = hop::smem_u32(smem + L::kQ) +
+                          w * 64 * hop::kRowBytes;
+  const uint32_t do_addr = hop::smem_u32(smem + L::kDo) +
+                           w * 64 * hop::kRowBytes;
+  float lrow[2], crow[2];
+  const size_t prow = ((size_t)b * H + head) * Sq_pad;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    lrow[hh] = lse2[prow + row0 + 8 * hh];   // rows < Sq_pad
+    crow[hh] = dcap[prow + row0 + 8 * hh];
+  }
+  float dqa[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+
+  hop::mbar_wait(q_full, 0);
+  hop::Ring<kStages> ring;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = state(t);
+    if (st == 0) continue;
+    hop::mbar_wait(&full[ring.stage], ring.phase);
+    const int k0 = t * kDqN;
+    if (!(causal && k0 > r_base + 63 + off)) {
+      const uint32_t kb = hop::smem_u32(smem + L::kKV) +
+                          ring.stage * 2 * L::kKBytes;
+      const uint32_t vb = kb + L::kKBytes;
+      float s[kDqN / 2], dp[kDqN / 2];   // queries x keys
+      hop::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < hop::k_steps(HD); ++ks)
+        hop::Wgmma<kDqN>::ss(
+            s, hop::desc_k(hop::k_step_addr(q_addr, kDqM, ks)),
+            hop::desc_k(hop::k_step_addr(kb, kDqN, ks)), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < hop::k_steps(HD); ++ks)
+        hop::Wgmma<kDqN>::ss(
+            dp, hop::desc_k(hop::k_step_addr(do_addr, kDqM, ks)),
+            hop::desc_k(hop::k_step_addr(vb, kDqN, ks)), ks > 0);
+      hop::wg_commit();
+      hop::wg_wait();
+      hop::fence_regs(s);
+      hop::fence_regs(dp);
+      const bool all_vis =
+          st == 2 && (!causal || k0 + kDqN - 1 <= r_base + off);
+#pragma unroll
+      for (int i = 0; i < kDqN / 2; ++i) {
+        const int hh = (i >> 1) & 1;
+        float p = hop::exp2_fast(s[i] * scale_log2 - lrow[hh]);
+        if (!all_vis) {
+          const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          const bool vis = key < Sk &&
+                           (!causal || key <= row0 + 8 * hh + off) &&
+                           (mrow == nullptr || mrow[key] != 0);
+          p = vis ? p : 0.f;
+        }
+        dp[i] = p * (dp[i] - crow[hh]) * scale;
+      }
+      uint32_t da[kDqN / 16][4];
+      hop::pack_a<kDqN>(dp, da);
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqN / 16; ++kk)
+        hop::Wgmma<HD>::rs(dqa, da[kk],
+                           hop::desc_mn(kb + kk * 16 * hop::kRowBytes,
+                                        kDqN * hop::kRowBytes));
+      hop::wg_commit();
+      hop::wg_wait();
+      hop::fence_regs(dqa);
+      hop::fence_regs(da);
+    }
+    hop::mbar_arrive(&empty[ring.stage]);
+    ring.advance();
   }
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int i = row0 + g + hh * 8;
+    const int i = row0 + 8 * hh;
     if (i >= Sq) continue;
-    bf16* out = dq + dqs.at(b, i, h);
+    bf16* out = dq + dqs.at(b, i, head);
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(out + nt * 8 + 2 * t) =
-          pack_bf16(dqa[nt][2 * hh], dqa[nt][2 * hh + 1]);
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * t4) =
+          hop::pack_bf16(dqa[4 * j + 2 * hh], dqa[4 * j + 2 * hh + 1]);
   }
 }
 
-// st: the strides of q, k, v, out, dout, dq, dk, dv, in that order
+// st: the element strides of q, k, v, out, dout, dq, dk, dv, in that order
 template <int HD>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-           const bf16* dout, const float* lse, float* dcap, bf16* dq,
-           bf16* dk, bf16* dv, const unsigned char* mask, int B, int Sq,
-           int Sk, int H, int KV, const Strides* st, float scale, int causal,
-           cudaStream_t stream) {
-  const long rows = (long)B * Sq * H;
-  const int warps = kThreads / 32;
-  dcap_kernel<HD><<<(unsigned)((rows + warps - 1) / warps), kThreads, 0,
-                    stream>>>(o, dout, dcap, rows, Sq, H, st[3], st[4]);
-  const int smem = (int)sizeof(DkdvSmem<HD>);
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch(const CUtensorMap* tm, const bf16* o, const bf16* dout,
+           const float* lse, float* scratch, bf16* dq, bf16* dk, bf16* dv,
+           const unsigned char* mask, int B, int Sq, int Sk, int H, int KV,
+           const Strides* st, float scale, int causal, cudaStream_t stream) {
+  const int Sq_pad = padded(Sq);
+  const long rows = (long)B * H * Sq_pad;
+  float* lse2 = scratch;
+  float* dcap = scratch + rows;
+  dcap_kernel<HD><<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
+      o, dout, lse, lse2, dcap, rows, Sq, Sq_pad, H, st[3], st[4]);
+  const int smem1 = DkdvSmem<HD>::kBytes;
+  static int granted1[64], granted2[64];
+  cudaError_t err = hop::allow_smem(dkdv_kernel<HD>, smem1, granted1);
   if (err != cudaSuccess) return (int)err;
-  dim3 g1(B * KV, (Sk + kKeyTile - 1) / kKeyTile);
-  dkdv_kernel<HD><<<g1, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, dcap, mask, dk, dv, Sq, Sk, H, KV, st[0], st[1],
-      st[2], st[4], st[6], st[7], scale, causal);
-  dim3 g2(B * H, (Sq + kQRows - 1) / kQRows);
-  dq_kernel<HD><<<g2, kThreads, 0, stream>>>(
-      q, k, v, dout, lse, dcap, mask, dq, Sq, Sk, H, KV, st[0], st[1], st[2],
-      st[4], st[5], scale, causal);
+  dim3 g1(B * KV, (Sk + kKN - 1) / kKN);
+  dkdv_kernel<HD><<<g1, kThreads, smem1, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], lse2, dcap, mask, dk, dv, Sq, Sk, H, KV,
+      st[6], st[7], scale, causal);
+  const int smem2 =
+      DqSmem<HD>::bytes(mask != nullptr ? (Sk + kDqN - 1) / kDqN : 0);
+  err = hop::allow_smem(dq_kernel<HD>, smem2, granted2);
+  if (err != cudaSuccess) return (int)err;
+  dim3 g2(B * H, (Sq + kDqM - 1) / kDqM);
+  dq_kernel<HD><<<g2, kThreads, smem2, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], lse2, dcap, mask, dq, Sq, Sk, H, KV, st[5],
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dcap is an f32 [B, H, Sq] scratch the caller allocates; `key_mask`
-// (uint8 [B, Sk]) may be null; `strides` is a host array of 24 int64: the
-// batch, sequence and head strides (in elements) of q, k, v, out, dout,
-// dq, dk and dv, in that order. Returns the launches' cudaError_t (0 on
-// success).
+// `scratch`: 2 * B * H * Sq_pad f32 (Sq_pad: Sq rounded up to 128;
+// kernels/flash_attention.py::bwd_scratch_numel); `key_mask` (uint8
+// [B, Sk]) may be null; `maps` is a host array of 28 int64: the seven
+// tensor-map values (kernels/flash_attention.py::tma_dims) of q, k, v
+// and dout in turn; `strides` is a host array of 24 int64: the batch,
+// sequence and head element strides of q, k, v, out, dout, dq, dk and
+// dv, in that order. Returns the launches' cudaError_t (0 on success;
+// cudaErrorInvalidValue when a tensor map is refused).
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
-                              const void* lse, void* dcap, void* dq,
+                              const void* lse, void* scratch, void* dq,
                               void* dk, void* dv, const void* key_mask,
                               int B, int Sq, int Sk, int H, int KV, int hd,
+                              const long long* maps,
                               const long long* strides, float scale,
                               int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap tm[4];
+  const void* bases[4] = {q, k, v, dout};
+  for (int t = 0; t < 4; ++t)
+    if (!hop::encode_map(&tm[t], bases[t], maps + 7 * t))
+      return (int)cudaErrorInvalidValue;
   Strides st[8];
   for (int t = 0; t < 8; ++t)
     st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
 #define PTT_ARGS                                                          \
-  static_cast<const bf16*>(q), static_cast<const bf16*>(k),               \
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),           \
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),     \
-      static_cast<float*>(dcap), static_cast<bf16*>(dq),                  \
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv),                     \
-      static_cast<const unsigned char*>(key_mask), B, Sq, Sk, H, KV, st,  \
-      scale, causal, s
+  tm, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),        \
+      static_cast<const float*>(lse), static_cast<float*>(scratch),       \
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk),                     \
+      static_cast<bf16*>(dv), static_cast<const unsigned char*>(key_mask), \
+      B, Sq, Sk, H, KV, st, scale, causal, s
   if (hd == 128) return launch<128>(PTT_ARGS);
   if (hd == 72) return launch<72>(PTT_ARGS);
   if (hd == 64) return launch<64>(PTT_ARGS);

@@ -1,0 +1,483 @@
+// Shared core of the port's Hopper attention kernels (flash_fwd.cu,
+// flash_bwd.cu): TMA tensor-map loads into 128-byte-swizzled shared
+// tiles, mbarrier rings between one producer warp and the consumer
+// warpgroups, setmaxnreg, and wgmma with its shared-memory matrix
+// descriptors. attention_core.cuh (mma.sync, synchronous tile loads) is
+// left as the ragged paged-attention kernel uses it.
+//
+// Tiles. Every bf16 operand tile holds R rows of head_dim in chunks of 64
+// columns: chunk c is an [R][64] array of 128-byte rows, 1024-byte
+// aligned, laid out as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes it (the
+// 16-byte groups of row r XOR-ed with r % 8). One TMA box is 64 columns x
+// 64 rows (8 KB); a tile of R rows per chunk takes R / 64 boxes. A
+// head_dim of 72 takes two chunks: the second box starts at column 64
+// and TMA zero-fills its columns 72..127, which lie past the tensor's
+// innermost extent, so no copy pads q/k/v (a 144-byte row fits no
+// swizzle mode whole; the zero columns cost shared memory, not device
+// bytes).
+//
+// wgmma operands (PTX ISA, matrix descriptors; CUTLASS's GmmaDescriptor
+// has the same fields):
+//   K-major (the contraction runs along the 64-column rows): a k16 step
+//     is 32 bytes of a row, so step ks starts at chunk ks / 4, byte
+//     (ks % 4) * 32; 8-row groups are 1024 bytes apart (SBO).
+//   MN-major (the contraction runs down the rows, the transpose bit):
+//     a k16 step is 16 rows, 2048 bytes; 8-row groups 1024 bytes apart
+//     (SBO), the 64-column chunks of N `chunk_bytes` apart (LBO).
+// Accumulator of m64nN (f32, per thread of the warpgroup, g = lane / 4,
+// t = lane % 4): d[4j + e] is row 16 * warp + g + 8 * (e / 2), column
+// 8j + 2t + (e % 2). The A fragment of m64k16 from registers is the
+// mma.m16n8k16 one: a0 (g, 2t..2t+1), a1 (g+8, ..), a2 (g, 2t+8..),
+// a3 (g+8, 2t+8..), so the accumulators of n-tiles 2k, 2k+1 re-pack
+// into the A fragment of k-step k.
+#pragma once
+
+#include <cuda.h>   // CUtensorMap and its enums; cuTensorMapEncodeTiled
+                    // comes from cudaGetDriverEntryPoint: no -lcuda
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hop {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kBox = 64;                      // box: 64 columns x 64 rows
+constexpr int kBoxBytes = kBox * kBox * 2;    // 8 KB
+constexpr int kRowBytes = kBox * 2;           // one swizzled row
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 64-column chunks of a head_dim row; k16 steps of a contraction over it
+__host__ __device__ constexpr int chunks(int hd) { return (hd + kBox - 1) / kBox; }
+__host__ __device__ constexpr int k_steps(int hd) { return (hd + 15) / 16; }
+
+// Element strides of a [batch, seq, head, head_dim] tensor (either
+// layout; head_dim stride 1), for the epilogues' stores.
+struct Strides {
+  long long b, s, h;
+  __device__ __forceinline__ size_t at(int bi, int si, int hi) const {
+    return (size_t)(bi * b + si * s + hi * h);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 2^x on the special-function unit (~2 ulp; 0 for x below -126 - 24)
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------ mbarrier
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// arrive and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+// wait until the barrier's phase with parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// A ring position: stage and the parity of its current round.
+template <int STAGES>
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// ----------------------------------------------------------------- TMA
+// One box of a 4-d tensor map (head_dim, seq, head, batch) at
+// coordinates (c0..c3) into dst, completing on `bar`.
+__device__ __forceinline__ void tma_load(const CUtensorMap* map,
+                                         uint64_t* bar, void* dst, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// `bytes` (a multiple of 16, 16-byte aligned ends) from global to shared
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+      "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// ----------------------------------------------- registers and wgmma
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from touching wgmma's registers across the
+// asynchronous span: each is "rewritten" here, after the wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// shared-memory matrix descriptors, 128-byte swizzle (layout type 1)
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr,
+                                            uint32_t chunk_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((chunk_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// k16 step ks of a K-major tile of `rows` rows per chunk
+__device__ __forceinline__ uint32_t k_step_addr(uint32_t base, int rows,
+                                                int ks) {
+  return base + (ks / 4) * rows * kRowBytes + (ks % 4) * 32;
+}
+
+// wgmma.mma_async m64nNk16, bf16 in, f32 accumulate
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  // D (+)= A B, A and B from shared memory, both K-major
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // D += A B, A (four bf16x2 registers, the m64k16 A fragment) from
+  // registers, B from shared memory MN-major (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    const int one = 1;   // scale-d: accumulate
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(one));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // D (+)= A B, A and B from shared memory, both K-major
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // D += A B, A (four bf16x2 registers, the m64k16 A fragment) from
+  // registers, B from shared memory MN-major (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    const int one = 1;   // scale-d: accumulate
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(one));
+  }
+};
+
+template <>
+struct Wgmma<72> {
+  // D += A B, A (four bf16x2 registers, the m64k16 A fragment) from
+  // registers, B from shared memory MN-major (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[36],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    const int one = 1;   // scale-d: accumulate
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35"
+        "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(one));
+  }
+};
+
+// P (or dS) from an m64nN accumulator, rounded to bf16, as the A
+// fragments of the N / 16 k16 steps of the next product
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&s)[N / 2],
+                                       uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k) {
+    a[k][0] = pack_bf16(s[8 * k + 0], s[8 * k + 1]);
+    a[k][1] = pack_bf16(s[8 * k + 2], s[8 * k + 3]);
+    a[k][2] = pack_bf16(s[8 * k + 4], s[8 * k + 5]);
+    a[k][3] = pack_bf16(s[8 * k + 6], s[8 * k + 7]);
+  }
+}
+
+// Which of a row's first n_tiles key tiles of BN keys a block walks:
+// state[t] = 0 (no key visible: not walked), 1 (some key masked or past
+// Sk: the per-element test) or 2 (every key present and visible: no
+// test). mrow: the batch row's uint8 key mask. All warps of the block.
+template <int BN>
+__device__ __forceinline__ void scan_key_tiles(const unsigned char* mrow,
+                                               int Sk, int n_tiles,
+                                               unsigned char* state) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x / 32;
+  for (int t = warp; t < n_tiles; t += n_warps) {
+    bool any = false, all = true;
+    for (int j = lane; j < BN; j += 32) {
+      const int key = t * BN + j;
+      const bool v = key < Sk && mrow[key] != 0;
+      any = any || v;
+      all = all && v;
+    }
+    any = __any_sync(0xffffffffu, any);
+    all = __all_sync(0xffffffffu, all);
+    if (lane == 0) state[t] = any ? (all ? 2 : 1) : 0;
+  }
+}
+
+// Key tiles 0..n-1 of BN keys that rows m0..m0+BM-1 may see: all of Sk,
+// or, causal (bottom-right: key j <= i + Sk - Sq), up to the last row's
+// diagonal. kernels/flash_attention.py::key_tiles is the same rule.
+__host__ __device__ __forceinline__ int key_tiles(int m0, int BM, int BN,
+                                                  int Sq, int Sk,
+                                                  int causal) {
+  int last = Sk - 1;
+  const int diag = m0 + BM - 1 + Sk - Sq;
+  if (causal && diag < last) last = diag;
+  return last < 0 ? 0 : last / BN + 1;
+}
+
+// ------------------------------------------------------------ host side
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// The tensor map of a bf16 tensor from `d`, seven int64 the wrapper
+// computes (kernels/flash_attention.py::tma_dims): extents (head_dim,
+// seq, heads, batch) and the byte strides of seq, head and batch; box
+// 64 x 64 x 1 x 1, 128-byte swizzle, zero fill out of bounds. Returns
+// false when cuTensorMapEncodeTiled refuses it.
+inline bool encode_map(CUtensorMap* map, const void* base,
+                       const long long* d) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)d[0], (cuuint64_t)d[1],
+                        (cuuint64_t)d[2], (cuuint64_t)d[3]};
+  cuuint64_t strides[3] = {(cuuint64_t)d[4], (cuuint64_t)d[5],
+                           (cuuint64_t)d[6]};
+  cuuint32_t box[4] = {kBox, kBox, 1, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory on the current
+// device. The attribute is raised once per kernel and device to the
+// largest size asked so far (`granted`: the kernel's own table), so a
+// launch makes no cudaFuncSetAttribute call after the first.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes, int (&granted)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && bytes <= granted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) granted[dev] = bytes;
+  return err;
+}
+
+// dynamic shared memory, rounded up to 1024 bytes (the swizzle's period)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+}  // namespace hop

@@ -39,13 +39,26 @@ from .. import _build
 NEG_INF = -1e30
 LAYOUTS = ("bshd", "bhsd")
 # flash_fwd_bf16(q, k, v, out, lse, key_mask, B, Sq, Sk, H, KV, hd,
-#                strides[12], scale, causal, stream)
+#                maps[21], out_strides[3], scale, causal, stream)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-    ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-# flash_bwd_bf16(q, k, v, out, dout, lse, dcap, dq, dk, dv, key_mask, B,
-#                Sq, Sk, H, KV, hd, strides[24], scale, causal, stream)
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p]
+# flash_bwd_bf16(q, k, v, out, dout, lse, scratch, dq, dk, dv, key_mask,
+#                B, Sq, Sk, H, KV, hd, maps[28], strides[24], scale,
+#                causal, stream)
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-    ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p]
+# The kernels' tiles (csrc/flash_fwd.cu, csrc/flash_bwd.cu), as (rows a
+# block, keys a tile): the forward and the dq pass own 128 query rows a
+# block and walk key tiles of 128 (forward) or 64 (dq) keys; dkdv owns
+# 128 keys and walks query tiles of 64; TMA moves boxes of 64 columns x
+# 64 rows; the backward's prep rows pad Sq to a multiple of 128.
+FWD_TILES = (128, 128)
+DQ_TILES = (128, 64)
+DKDV_TILES = (128, 64)
+TMA_BOX = (64, 64, 1, 1)
+BWD_PAD = 128
 
 
 def block_aligned(s: int) -> bool:
@@ -148,13 +161,15 @@ def _strides(t, layout):
 
 
 def _kernel_input(name, t, device):
-    """t as the kernels read it: bf16 on `device`, head_dim contiguous,
-    the other strides whole 16-byte rows, the base 16-byte aligned. A
-    tensor that is not (a sliced or broadcast view) is made contiguous."""
+    """t as the kernels read it (TMA's rules): bf16 on `device`, head_dim
+    contiguous, the other strides whole 16-byte rows and not 0 over an
+    extent above 1, the base 16-byte aligned. A tensor that is not (a
+    sliced or broadcast view) is made contiguous."""
     if t.dtype != torch.bfloat16 or t.device != device:
         raise TypeError(f"{name} must be a bf16 tensor on {device}, got "
                         f"{t.dtype} on {t.device}")
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
+            or any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape)) \
             or t.data_ptr() % 16:
         t = t.contiguous()
     return t
@@ -195,6 +210,77 @@ def _stride_array(tensors, layout):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def tma_dims(t, layout):
+    """The seven values the kernels build a TMA tensor map of `t` from
+    (csrc/hopper_core.cuh::encode_map): its extents innermost first
+    (head_dim, seq, heads, batch) and the byte strides of seq, heads and
+    batch. Element (b, s, h, d) lies at byte d * 2 + s * st_s + h * st_h
+    + b * st_b from the base in either layout; the head_dim stride is 1
+    and `_kernel_input` makes the others whole 16-byte rows, as TMA
+    requires. The box (TMA_BOX) is 64 columns x 64 rows: ceil(hd / 64)
+    boxes a row, the columns past hd zero-filled."""
+    e = t.element_size()
+    if layout == "bshd":
+        (B, S, H, hd), (st_b, st_s, st_h) = t.shape, t.stride()[:3]
+    else:
+        (B, H, S, hd), (st_b, st_h, st_s) = t.shape, t.stride()[:3]
+    return (hd, S, H, B, st_s * e, st_h * e, st_b * e)
+
+
+def _map_array(tensors, layout):
+    vals = [v for t in tensors for v in tma_dims(t, layout)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def key_tiles(m0, sq, sk, causal, tiles=FWD_TILES):
+    """The key tiles rows m0.. of a block (tiles = (rows, keys) of the
+    block and of a key tile) walk before the key mask: 0 .. n - 1, where
+    n covers every key of Sk or, causal, the keys up to the diagonal of
+    the block's last row (query i sees keys j <= i + sk - sq). The
+    kernels' rule (csrc/hopper_core.cuh::key_tiles), written out for the
+    tests."""
+    bm, bn = tiles
+    last = sk - 1
+    if causal:
+        last = min(last, m0 + bm - 1 + sk - sq)
+    return 0 if last < 0 else last // bn + 1
+
+
+def key_tile_states(mask_row, n_tiles, bn):
+    """Each of a batch row's first n_tiles key tiles of bn keys, as the
+    kernels mark them before walking (scan_key_tiles): 0 when no key is
+    visible (the tile is not walked), 1 when some key is masked or past
+    Sk (a per-element test), 2 when every key is present and visible.
+    mask_row: the row's [Sk] key mask (nonzero = visible)."""
+    vis = (torch.as_tensor(mask_row) != 0).tolist()
+    out = []
+    for t in range(n_tiles):
+        seg = [vis[j] if j < len(vis) else False
+               for j in range(t * bn, (t + 1) * bn)]
+        out.append(2 if all(seg) else 1 if any(seg) else 0)
+    return out
+
+
+def query_tiles(k0, sq, sk, causal, mask_row=None, tiles=DKDV_TILES):
+    """The query tiles the backward's dkdv block of keys k0.. walks for
+    each query head of its group: none when every one of its keys is
+    masked (mask_row: the batch row's [Sk] key mask; the block writes
+    zeros), else from the first tile holding a query that sees key k0
+    (causal: i >= k0 - (sk - sq)) to the last of Sq."""
+    bk, bq = tiles
+    if mask_row is not None and not bool(
+            (torch.as_tensor(mask_row)[k0:k0 + bk] != 0).any()):
+        return range(0)
+    first = max(0, k0 - (sk - sq)) // bq if causal else 0
+    return range(first, -(-sq // bq))
+
+
+def bwd_scratch_numel(B, H, sq):
+    """f32 values of the backward's prep rows (lse * log2(e) and dcap)
+    [2, B * H, Sq_pad], Sq_pad = sq rounded up to BWD_PAD."""
+    return 2 * B * H * (-(-sq // BWD_PAD) * BWD_PAD)
+
+
 def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
                         key_mask=None, layout="bshd"):
     """Flash attention forward, q [B, Sq, H, hd], k/v [B, Sk, KV, hd] (or
@@ -220,14 +306,15 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
     if q.numel() == 0:
         return (out, lse) if return_lse else out
     km = _mask_arg(key_mask)
-    strides = _stride_array((q, k, v, out), layout)
+    maps = _map_array((q, k, v), layout)
+    strides = _stride_array((out,), layout)
     fn = _build.function("flash_fwd", "flash_fwd_bf16", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if return_lse else None,
                  None if km is None else km.data_ptr(), B, Sq, Sk, H, KV,
-                 hd, strides, float(scale), int(causal), stream)
+                 hd, maps, strides, float(scale), int(causal), stream)
     _build.check(err, "flash_fwd_bf16")
     flash_attention_fwd.launches += 1
     return (out, lse) if return_lse else out
@@ -281,8 +368,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None,
     On a CPU tensor: the plain version. On a CUDA tensor: the kernel
     (bf16 q/k/v/out/dout, f32 lse; the shapes the forward kernel takes);
     anything else raises. GQA is accumulated over each KV head's query
-    group inside the kernel. Each launch adds one to
-    `flash_attention_bwd.launches`."""
+    group inside the kernel. Each call adds one to
+    `flash_attention_bwd.launches`, whatever the number of CUDA launches
+    inside (three: dcap, dkdv, dq)."""
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                        causal=causal, scale=scale,
@@ -301,17 +389,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None,
                   for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    dcap = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(bwd_scratch_numel(B, H, Sq), dtype=torch.float32,
+                          device=q.device)
     km = _mask_arg(key_mask)
+    maps = _map_array((q, k, v, dout), layout)
     strides = _stride_array((q, k, v, out, dout, dq, dk, dv), layout)
     fn = _build.function("flash_bwd", "flash_bwd_bf16", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 dout.data_ptr(), lse.data_ptr(), dcap.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  None if km is None else km.data_ptr(), B, Sq, Sk, H, KV,
-                 hd, strides, float(scale), int(causal), stream)
+                 hd, maps, strides, float(scale), int(causal), stream)
     _build.check(err, "flash_bwd_bf16")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -1,0 +1,303 @@
+"""The flash kernels at every shape `chip_smoke.py` holds them, on one GPU.
+
+    python -m paddle_tpu_torch.tools.bench_flash [--check] [--label L]
+
+Builds `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, prints each one's
+ptxas lines and the `HGMMA` / `UTMALDG` instruction counts that
+`cuobjdump -sass` finds in its library, then, for each held shape, one
+JSON line: the kernel's and SDPA's times (CUDA events, means after one
+warm-up call; `*_graph_ms`: the same calls captured in one CUDA
+graph, the device time with no host cost) and the bound (bytes over
+3.35 TB/s or operations over 989 TFLOP/s, the larger), beside the
+forward's largest error relative to each (query, head) output vector's
+scale (and the LSE's absolute error) or the backward's (dq, dk, dv; rows below 1e-3 of the largest held
+relative to that) against the plain versions. `--check` stops after the
+errors of small and odd shapes (no timing) and exits 1 if any exceeds
+2e-2 (LSE 5e-4) or a backward is not bit-identical twice. It uses only
+the wrappers' public functions, so the same file times an older checkout
+of the package (run it from that checkout's root) in turns with this one
+on one card. The last line names the card and its power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import torch
+
+TOL, LSE_TOL, FLOOR = 2e-2, 5e-4, 1e-3
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+H, KV, HD = 32, 8, 128
+
+
+def _time_ms(fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def _graph_ms(fn, iters):
+    """Device time of one fn() with no host cost: `iters` calls captured
+    in one CUDA graph, replayed, timed with events."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()                              # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def _rel(out, ref, valid=None, floor=0.0):
+    d = (out.float() - ref.float()).abs().amax(-1)
+    r = ref.float().abs().amax(-1)
+    if valid is not None:
+        d, r = d[valid], r[valid]
+    if floor:
+        r = torch.clamp(r, min=floor * r.max().item())
+    return (d / r).max().item()
+
+
+def _bound(flops, nbytes):
+    return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def _inputs(B, S, h, kv, hd, layout, lengths, gen):
+    def make(n):
+        x = torch.randn(B, S, n, hd, device="cuda", generator=gen).bfloat16()
+        return x.transpose(1, 2).contiguous() if layout == "bhsd" else x
+    q, k, v, do = make(h), make(kv), make(kv), make(h)
+    km = None if lengths is None else \
+        torch.arange(S, device="cuda")[None] < lengths[:, None]
+    return q, k, v, do, km
+
+
+def case(B, S, h, kv, hd, causal, layout="bshd", lengths=None, gen=None,
+         which=("fwd", "bwd"), timed=True, name=""):
+    """One shape: errors against the plain versions, then times."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    q, k, v, do, km = _inputs(B, S, h, kv, hd, layout, lengths, gen)
+    kw = dict(causal=causal, layout=layout)
+    if km is not None:
+        kw["key_mask"] = km
+    bshd = (lambda x: x.transpose(1, 2)) if layout == "bhsd" else \
+        (lambda x: x)
+    seen = (torch.ones(B, dtype=torch.bool, device="cuda") if km is None
+            else km.any(1))
+    rows = seen[:, None, None].expand(B, S, h)
+    res = {"shape": name or f"B={B} S={S} H={h} KV={kv} hd={hd}"
+           + ("" if causal else " non-causal") + f" {layout}"
+           + ("" if km is None else " masked")}
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    ref, lse_r = fa.flash_attention_fwd_ref(q, k, v, return_lse=True, **kw)
+    res["fwd_rel"] = _rel(bshd(out), bshd(ref), rows)
+    res["lse_err"] = (lse - lse_r)[seen].abs().max().item()
+    ok = res["fwd_rel"] <= TOL and res["lse_err"] <= LSE_TOL
+    del ref, lse_r
+    if "bwd" in which:
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        rgot = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        res["bwd_rel"] = {
+            n: _rel(bshd(a), bshd(b), rows if n == "dq" else None, FLOOR)
+            for n, a, b in zip(("dq", "dk", "dv"), got, rgot)}
+        res["repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = ok and res["repeat"] and max(res["bwd_rel"].values()) <= TOL
+        del got, again, rgot
+    res["ok"] = ok
+    torch.cuda.empty_cache()
+    if not timed:
+        return res
+    pairs = (S * (S + 1) // 2 if causal else S * S) * B
+    if km is not None:
+        pairs = float(S) * int(km.sum())
+    heads = (lambda x: x) if layout == "bhsd" else \
+        (lambda x: x.transpose(1, 2))
+    qt, kt, vt, dot = (heads(x) for x in (q, k, v, do))
+    mask4 = None if km is None else km[:, None, None, :]
+
+    def sdpa():
+        if mask4 is None:
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask4,
+                                              enable_gqa=True)
+    if "fwd" in which:
+        res["fwd_ms"] = _time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, return_lse=True, **kw), 20)
+        res["fwd_graph_ms"] = _graph_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, return_lse=True, **kw), 20)
+        res["fwd_sdpa_ms"] = _time_ms(sdpa, 20)
+        res["fwd_sdpa_graph_ms"] = _graph_ms(sdpa, 20)
+        res["fwd_bound_ms"] = _bound(
+            4.0 * h * hd * pairs,
+            2.0 * B * S * hd * (2 * h + 2 * kv) + 4.0 * B * h * S)
+    if "bwd" in which:
+        res["bwd_ms"] = _time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, **kw), 10)
+        res["bwd_graph_ms"] = _graph_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, **kw), 10)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+
+        def fwd():
+            if mask4 is None:
+                return F.scaled_dot_product_attention(
+                    qg, kg, vg, is_causal=causal, enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask4, enable_gqa=True)
+        with torch.enable_grad():
+            both = _time_ms(lambda: torch.autograd.grad(
+                fwd(), (qg, kg, vg), dot), 5)
+            res["bwd_sdpa_ms"] = both - _time_ms(fwd, 5)
+        res["bwd_bound_ms"] = _bound(
+            10.0 * h * hd * pairs,
+            2.0 * B * S * hd * (4 * h + 4 * kv) + 4.0 * B * h * S)
+    torch.cuda.empty_cache()
+    return res
+
+
+def held(gen):
+    """The shapes chip_smoke.py holds the flash kernels at, and S=8192."""
+    from paddle_tpu_torch.nlp import ernie
+    from paddle_tpu_torch.tools.ernie_finetune import padded_batch
+    lengths = padded_batch(ernie.ErnieConfig.ernie3_base(), 64, 512)[2] \
+        .sum(1).to("cuda")
+    small = torch.randint(128, 513, (16,), device="cuda", generator=gen)
+    few = torch.tensor([0, 512, 200, 77], device="cuda")
+    fwd_only = ("fwd",)
+    return [
+        dict(B=2, S=128, h=H, kv=KV, hd=HD, causal=True, which=fwd_only),
+        dict(B=2, S=512, h=H, kv=KV, hd=HD, causal=True, which=fwd_only),
+        dict(B=2, S=700, h=H, kv=KV, hd=HD, causal=True, which=fwd_only),
+        dict(B=8, S=2048, h=H, kv=KV, hd=HD, causal=True),
+        dict(B=20, S=2048, h=16, kv=8, hd=HD, causal=True),
+        dict(B=1, S=4096, h=H, kv=KV, hd=HD, causal=True),
+        dict(B=64, S=512, h=12, kv=12, hd=64, causal=False),
+        dict(B=2, S=2048, h=H, kv=KV, hd=HD, causal=True),
+        dict(B=64, S=512, h=12, kv=12, hd=64, causal=False, layout="bhsd",
+             lengths=lengths, name="ERNIE masked bhsd"),
+        dict(B=16, S=512, h=12, kv=12, hd=64, causal=False, lengths=small),
+        dict(B=64, S=512, h=12, kv=12, hd=64, causal=False, layout="bhsd"),
+        dict(B=4, S=512, h=12, kv=12, hd=64, causal=False, layout="bhsd",
+             lengths=few, name="row 0 sees no key"),
+        dict(B=16, S=500, h=12, kv=12, hd=64, causal=False, layout="bhsd",
+             lengths=small.clamp(max=500)),
+        dict(B=96, S=256, h=16, kv=16, hd=72, causal=False, layout="bhsd"),
+        dict(B=1, S=8192, h=8, kv=2, hd=HD, causal=True),
+    ]
+
+
+def small_cases(gen):
+    """Small and odd shapes for --check: one tile, ragged Sq and Sk,
+    Sq < Sk (serving's bottom-right diagonal), every head_dim, GQA,
+    both layouts, a mask with an empty row."""
+    m = torch.tensor([0, 37, 130, 200], device="cuda")
+    out = []
+    for hd in (64, 72, 128):
+        for layout in ("bshd", "bhsd"):
+            out += [dict(B=2, S=128, h=4, kv=2, hd=hd, causal=True,
+                         layout=layout),
+                    dict(B=1, S=300, h=4, kv=1, hd=hd, causal=True,
+                         layout=layout),
+                    dict(B=2, S=200, h=2, kv=2, hd=hd, causal=False,
+                         layout=layout),
+                    dict(B=4, S=200, h=2, kv=2, hd=hd, causal=False,
+                         layout=layout, lengths=m)]
+    return out
+
+
+def sq_lt_sk(gen):
+    """Causal Sq < Sk (chunked prefill's shape): the forward and backward
+    against the plain versions."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    res = []
+    for sq, sk, hd in ((64, 300, 128), (130, 514, 64), (1, 129, 72)):
+        q = torch.randn(2, sq, 4, hd, device="cuda", generator=gen).bfloat16()
+        k, v = (torch.randn(2, sk, 2, hd, device="cuda", generator=gen)
+                .bfloat16() for _ in range(2))
+        do = torch.randn_like(q)
+        out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+        ref, lse_r = fa.flash_attention_fwd_ref(q, k, v, return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+        rgot = fa.flash_attention_bwd_ref(q, k, v, out, lse, do)
+        r = {"shape": f"Sq={sq} Sk={sk} hd={hd} causal",
+             "fwd_rel": _rel(out, ref),
+             "lse_err": (lse - lse_r).abs().max().item(),
+             "bwd_rel": {n: _rel(a, b, floor=FLOOR) for n, a, b in
+                         zip(("dq", "dk", "dv"), got, rgot)}}
+        r["ok"] = (r["fwd_rel"] <= TOL and r["lse_err"] <= LSE_TOL
+                   and max(r["bwd_rel"].values()) <= TOL)
+        res.append(r)
+    return res
+
+
+def build_report():
+    from paddle_tpu_torch import _build
+    logs = _build.build_all(["flash_fwd", "flash_bwd"])
+    rep = {}
+    for n in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run(
+            [_build.cuobjdump(), "-sass", str(_build.library_path(n))],
+            capture_output=True, text=True, check=True).stdout
+        rep[n] = {"HGMMA": sass.count("HGMMA"),
+                  "UTMALDG": sass.count("UTMALDG"),
+                  "ptxas": [ln.strip() for ln in logs.get(n, "").splitlines()
+                            if "registers" in ln or "spill" in ln
+                            or "arning" in ln or "wgmma" in ln]}
+    return rep
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_flash: CUDA is not available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ok = True
+    if args.check:
+        print(json.dumps({"build": build_report()}), flush=True)
+        for c in small_cases(gen):
+            r = case(gen=gen, timed=False, **c)
+            ok = ok and r["ok"]
+            print(json.dumps(r), flush=True)
+        for r in sq_lt_sk(gen):
+            ok = ok and r["ok"]
+            print(json.dumps(r), flush=True)
+    else:
+        for c in held(gen):
+            r = case(gen=gen, **c)
+            ok = ok and r["ok"]
+            print(json.dumps({"label": args.label, **r}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

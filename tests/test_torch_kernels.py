@@ -87,6 +87,146 @@ class TestFlash:
         assert torch.equal(out, ref)
 
 
+# ------------------------------------------- the flash kernels' host rules
+def _view(layout, hd, kind):
+    """A bf16 [2, 5, 3, hd] tensor in `layout` ('bhsd': [2, 3, 5, hd]):
+    contiguous, or sliced out of a fused [.., 3 * heads, ..] projection
+    (a view whose strides skip the other two thirds)."""
+    B, S, H = 2, 5, 3
+    if kind == "contiguous":
+        shape = (B, S, H, hd) if layout == "bshd" else (B, H, S, hd)
+        return torch.randn(shape).bfloat16()
+    if layout == "bshd":
+        return torch.randn(B, S, 3 * H, hd).bfloat16()[:, :, H:2 * H]
+    return torch.randn(B, 3 * H, S, hd).bfloat16()[:, H:2 * H]
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "sliced"])
+@pytest.mark.parametrize("hd", [64, 72, 128])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_tma_dims_address_every_element(layout, hd, kind):
+    """The tensor map the kernels build (extents head_dim, seq, heads,
+    batch; byte strides of seq, heads, batch) puts element (b, s, h, d)
+    at the byte torch keeps it at, in either layout and for a strided
+    view; the strides are whole 16-byte rows (TMA's rule), and
+    ceil(hd / 64) boxes of 64 columns cover a row, the columns past hd
+    outside the map's extent (zero-filled)."""
+    t = _view(layout, hd, kind)
+    dims = tfa.tma_dims(t, layout)
+    B, S, H, D = tfa._bshd(t, layout).shape
+    assert dims[:4] == (D, S, H, B) == (hd, 5, 3, 2)
+    st_s, st_h, st_b = dims[4:]
+    assert all(x % 16 == 0 and x > 0 for x in dims[4:])
+    view = tfa._bshd(t, layout)            # [B, S, H, hd] view, no copy
+    for b in range(B):
+        for si in range(S):
+            for h in range(H):
+                for d in (0, 1, hd - 1):
+                    el = (view[b, si, h, d:].storage_offset()
+                          - t.storage_offset())
+                    assert d * 2 + si * st_s + h * st_h + b * st_b == 2 * el
+    boxes = -(-hd // tfa.TMA_BOX[0])
+    assert boxes * tfa.TMA_BOX[0] >= hd > (boxes - 1) * tfa.TMA_BOX[0]
+    assert tfa.TMA_BOX[0] * t.element_size() == 128     # one swizzle row
+
+
+@pytest.mark.parametrize("kind", ["broadcast", "odd_stride"])
+def test_kernel_input_meets_tma_rules(kind):
+    """A view TMA cannot read (a head broadcast with stride 0, a seq
+    stride that is no whole 16-byte row) is made contiguous; a view it
+    can read is passed as it is."""
+    base = torch.randn(2, 5, 1, 64).bfloat16()
+    if kind == "broadcast":
+        t = base.expand(2, 5, 4, 64)
+    else:
+        t = torch.randn(2, 5, 4, 68).bfloat16()[..., :64]
+    assert tfa._kernel_input("k", t, t.device).is_contiguous()
+    ok = torch.randn(2, 5, 12, 64).bfloat16()[:, :, 4:8]
+    assert tfa._kernel_input("k", ok, ok.device) is ok
+
+
+def _visible(sq, sk, causal, mask_row):
+    vis = np.ones((sq, sk), bool)
+    if causal:
+        vis &= np.arange(sk)[None] <= np.arange(sq)[:, None] + sk - sq
+    if mask_row is not None:
+        vis &= np.asarray(mask_row)[None] != 0
+    return vis
+
+
+_WALKS = [  # (sq, sk, causal, mask_row)
+    (1, 1, True, None), (128, 128, True, None), (300, 300, True, None),
+    (64, 300, True, None), (130, 514, True, None), (1, 129, True, None),
+    (513, 700, True, None), (200, 200, False, None),
+    (200, 200, False, [0] * 200), (200, 200, False, [1] * 37 + [0] * 163),
+    (500, 500, False, ([1] * 60 + [0] * 70) * 3 + [1] * 110),
+    (512, 512, False, [0] * 130 + [1] * 200 + [0] * 182)]
+
+
+@pytest.mark.parametrize("tiles", [tfa.FWD_TILES, tfa.DQ_TILES],
+                         ids=["fwd", "dq"])
+@pytest.mark.parametrize("sq,sk,causal,mask_row", _WALKS)
+def test_key_tile_walk_covers_visible_pairs_once(sq, sk, causal, mask_row,
+                                                 tiles):
+    """The forward's and the dq pass's walk: a block of rows visits the
+    key tiles below its causal bound whose state is not 0. Every visible
+    (query, key) pair lies in exactly one walked (block, tile); the first
+    tile past the bound holds no key any row of the block sees, the last
+    within it one; a state-2
+    tile (no per-element test) holds only present, visible keys; a row
+    that sees no key walks no tile."""
+    bm, bn = tiles
+    vis = _visible(sq, sk, causal, mask_row)
+    covered = np.zeros((sq, sk), int)
+    for m0 in range(0, sq, bm):
+        n = tfa.key_tiles(m0, sq, sk, causal, tiles)
+        assert n <= -(-sk // bn)
+        assert not vis[m0:m0 + bm, n * bn:].any()
+        if n and mask_row is None:          # the bound is tight
+            assert vis[m0:m0 + bm, (n - 1) * bn:n * bn].any()
+        states = (tfa.key_tile_states(mask_row, n, bn)
+                  if mask_row is not None else
+                  [2 if (t + 1) * bn <= sk else 1 for t in range(n)])
+        for t, st in enumerate(states):
+            keys = slice(t * bn, (t + 1) * bn)
+            if st == 0:
+                assert not vis[:, keys].any()
+                continue
+            if st == 2:
+                assert (t + 1) * bn <= sk
+                assert mask_row is None or all(mask_row[keys])
+            covered[m0:m0 + bm, keys] += 1
+        if mask_row is not None and not any(mask_row):
+            assert all(st == 0 for st in states)
+    assert (covered[vis] == 1).all()
+
+
+@pytest.mark.parametrize("sq,sk,causal,mask_row", _WALKS)
+def test_query_tile_walk_covers_visible_pairs_once(sq, sk, causal, mask_row):
+    """The backward's dkdv walk: a block of keys visits, for each query
+    head of its group, the query tiles from its causal bound to Sq, and
+    none when all its keys are masked. Every visible pair lies in exactly
+    one walked (key block, query tile); every query before the first
+    walked tile sees none of the block's keys; the prep rows (padded to
+    BWD_PAD) hold every walked tile and every dq block's rows."""
+    bk, bq = tfa.DKDV_TILES
+    vis = _visible(sq, sk, causal, mask_row)
+    covered = np.zeros((sq, sk), int)
+    pad = tfa.bwd_scratch_numel(1, 1, sq) // 2
+    assert pad % tfa.BWD_PAD == 0 and pad >= sq
+    for k0 in range(0, sk, bk):
+        walked = tfa.query_tiles(k0, sq, sk, causal, mask_row)
+        if len(walked):
+            assert not vis[:walked[0] * bq, k0:k0 + bk].any()
+            assert (walked[-1] + 1) * bq <= pad
+        else:
+            assert not vis[:, k0:k0 + bk].any()
+        for qt in walked:
+            covered[qt * bq:(qt + 1) * bq, k0:k0 + bk] += 1
+    assert (covered[vis] == 1).all()
+    assert -(-sq // tfa.DQ_TILES[0]) * tfa.DQ_TILES[0] <= pad
+
+
 # --------------------------------------------------------------- ragged
 N, BS, KVH, HD, HQ, M = 32, 4, 2, 8, 4, 5
 
