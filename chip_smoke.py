@@ -10,8 +10,9 @@ non-zero:
   2. build   — compiles every kernel under paddle_tpu_torch/csrc with nvcc
                (one process per source, in parallel) and times it; counts
                the HGMMA (wgmma) and UTMALDG (TMA load) instructions
-               `cuobjdump -sass` finds in the flash libraries, and fails
-               where either is missing.
+               `cuobjdump -sass` finds in the flash libraries and the
+               LDGSTS (cp.async) ones in the ragged library, and fails
+               where one is missing.
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, in bf16, at its main paths' shapes, against a stated
                tolerance, with times (CUDA events) of the kernel, the
@@ -25,8 +26,12 @@ non-zero:
                B=1 x S=4096, both flash kernels at S=8192 (B=1, H=8,
                KV=2: the length at which the JAX package streams its
                backward), each flash case with its time over the library
-               call's and its bound's share of its time, the RMSNorm
-               forward and backward at the steps' [16384, 4096] and
+               call's and its bound's share of its time, ragged paged
+               attention also at full 1024-key chains of 8 and 32 decode
+               rows, each of its shapes twice (bit-identical) and also
+               timed in one CUDA graph (device time), the RMSNorm
+               forward (its graph time too, and F.rms_norm's) and
+               backward at the steps' [16384, 4096] and
                [40960, 2048], the fused 8-bit
                AdamW on a leaf of every size of both trained trees, and
                the MoE dispatch kernels (gather_wsum, gather_scale_dot)
@@ -202,19 +207,21 @@ def phase_build():
 
 
 # the flash libraries must hold Hopper's warpgroup products (HGMMA) and
-# TMA loads (UTMALDG)
-_SASS_MARKS = ("HGMMA", "UTMALDG")
+# TMA loads (UTMALDG); the ragged library its cp.async copies (LDGSTS)
+_SASS_MARKS = {"flash_fwd": ("HGMMA", "UTMALDG"),
+               "flash_bwd": ("HGMMA", "UTMALDG"),
+               "ragged_paged_attention": ("LDGSTS",)}
 
 
 def _sass_counts(_build):
     """How many of each instruction in _SASS_MARKS `cuobjdump -sass` finds
-    in each flash library; raises where one is missing."""
+    in each library named there; raises where one is missing."""
     counts = {}
-    for name in ("flash_fwd", "flash_bwd"):
+    for name, marks in _SASS_MARKS.items():
         sass = subprocess.run(
             [_build.cuobjdump(), "-sass", str(_build.library_path(name))],
             capture_output=True, text=True, timeout=300, check=True).stdout
-        counts[name] = {m: sass.count(m) for m in _SASS_MARKS}
+        counts[name] = {m: sass.count(m) for m in marks}
         if not all(counts[name].values()):
             raise AssertionError(f"{name}: no {counts[name]} in its SASS")
     return counts
@@ -332,76 +339,28 @@ def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
     return _shares(res)
 
 
-def _ragged_batch(kind, H, KV, hd, bs, M, gen):
-    """The ragged kernel's inputs at a main-path shape:
-      decode   — 8 rows of 1 query, live lengths 1..1024 with block-size
-                 boundaries, one all-invalid row;
-      fused    — those 8 decode rows padded to a 256-wide prefill row,
-                 only column 0 valid, positions clamped as the fused step
-                 clamps them, plus the prefill row;
-      continue — one row continuing a chunked prefill: 64 queries at
-                 positions 512..575 over a 36-block chain, the diagonal
-                 crossing its last 4 blocks."""
-    dev = "cuda"
-    maxpos = M * bs - 1
-    if kind == "continue":
-        pos = 512 + np.arange(64, dtype=np.int32)[None]
-        val = np.ones(pos.shape, np.bool_)
-    else:
-        P = 1 if kind == "decode" else 256
-        lengths = [1, bs, bs + 1, 2 * bs, 300, 511, M * bs, 0]
-        # decode row: the query at position L - 1 sees the row's L keys
-        pos = np.stack([np.minimum(max(L - 1, 0) + np.arange(P), maxpos)
-                        for L in lengths]).astype(np.int32)
-        val = np.zeros(pos.shape, np.bool_)
-        val[:, 0] = np.array(lengths) > 0
-        if kind == "fused":
-            pos = np.concatenate([pos, np.arange(P, dtype=np.int32)[None]])
-            val = np.concatenate([val, np.ones((1, P), np.bool_)])
-    R, P = pos.shape
-    need = -(-np.where(val, pos + 1, 0).max(axis=1) // bs)
-    rng = np.random.RandomState(SEED)
-    N = int(need.sum()) + 8
-    perm = list(rng.permutation(N))
-    table = np.zeros((R, M), np.int32)
-    for r, n in enumerate(need):
-        table[r, :n] = [perm.pop() for _ in range(n)]
-    kp = torch.randn(N, bs, KV, hd, device=dev, generator=gen).bfloat16()
-    vp = torch.randn(N, bs, KV, hd, device=dev, generator=gen).bfloat16()
-    q = torch.randn(R, P, H, hd, device=dev, generator=gen).bfloat16()
-    t = [torch.from_numpy(a).to(dev) for a in (table, pos, val)]
-    return (q, kp, vp, *t), (pos, val)
-
-
-def _ragged_case(kind, H, KV, hd, peaks, tol, gen, flush):
+def _ragged_case(kind, H, KV, hd, gen, flush):
+    """Row 18 at one of bench_kernels' held batches (decode, fused,
+    continue, full8, full32) against its plain version, twice: within
+    KERNEL_TOL (bench_kernels.TOL, the same 2e-2), invalid queries zero
+    and the two outputs bit-identical; timed with the host in the loop
+    and in one CUDA graph (`graph_ms`, device time, over pool copies
+    that exceed the L2), beside the plain version's time."""
     from paddle_tpu_torch.nlp import ragged_attention as ra
+    from paddle_tpu_torch.tools import bench_kernels as bk
     bs, M = 16, 64
-    args, (pos, val) = _ragged_batch(kind, H, KV, hd, bs, M, gen)
-    out = ra.ragged_paged_attention(*args)
-    ref = ra.ragged_paged_attention_ref(*args)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    rel = _rel_err(out, ref, args[5])
-    if not rel <= tol:
-        raise AssertionError(f"ragged {kind}: relative err {rel} > {tol}")
-    if (out[~args[5]] != 0).any().item():
-        raise AssertionError(f"ragged {kind}: invalid queries not zero")
-    ms = _time_ms(lambda: ra.ragged_paged_attention(*args), 50, flush)
-    plain = _time_ms(lambda: ra.ragged_paged_attention_ref(*args), 5, flush)
+    args, (pos, val) = bk.ragged_batch(kind, H, KV, hd, bs, M, gen, SEED)
     R, P = pos.shape
-    # what this data needs: each row's live K and V once (keys up to its
-    # largest valid position), q of valid queries, every output row, and
-    # the table entries, positions and validity the walk reads
     live = np.where(val, pos + 1, 0).max(axis=1)
-    kv_bytes = 2 * 2 * KV * hd * int(live.sum())
-    nbytes = (kv_bytes + 2 * H * hd * (int(val.sum()) + R * P)
-              + 4 * int(np.ceil(live / bs).sum()) + 5 * R * P)
-    flops = 4.0 * H * hd * float(np.where(val, pos + 1, 0).sum())
-    return {"shape": f"{kind} R={R} P={P} H={H} KV={KV} hd={hd} bs={bs} "
-                     f"M={M} live={live.tolist()}",
-            "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-            "plain_ms": plain, "library_ms": None,
-            **_bound(flops, nbytes, peaks)}
+    res = bk.ragged_case(args, pos, val,
+                         f"{kind} R={R} P={P} H={H} KV={KV} hd={hd} "
+                         f"bs={bs} M={M} live={live.tolist()}", flush=flush)
+    if not res["ok"]:
+        raise AssertionError(f"ragged {kind}: {res}")
+    res["plain_ms"] = _time_ms(
+        lambda: ra.ragged_paged_attention_ref(*args), 5, flush)
+    res["library_ms"] = None
+    return res
 
 
 # bf16 tolerance of a kernel against its plain version, relative to the
@@ -519,6 +478,7 @@ def _rms_cases(rows, D, peaks, gen, eps=1e-5):
     plain twins; the backward must repeat bit for bit."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import rms_norm as rn
+    from paddle_tpu_torch.tools.bench_flash import _graph_ms
     x = torch.randn(rows, D, device="cuda", generator=gen).bfloat16()
     w = (1 + 0.1 * torch.randn(D, device="cuda", generator=gen)).bfloat16()
     dy = torch.randn(rows, D, device="cuda", generator=gen).bfloat16()
@@ -552,8 +512,11 @@ def _rms_cases(rows, D, peaks, gen, eps=1e-5):
            "max_abs_err": (out.float() - rout.float()).abs().max().item(),
            "max_rel_err": f_rel, "rstd_rel_err": r_rel,
            "ms": _time_ms(lambda: rn.rms_norm_fwd(x, w, eps), 20),
+           "graph_ms": _graph_ms(lambda: rn.rms_norm_fwd(x, w, eps), 20),
            "plain_ms": _time_ms(lambda: rn._rms_fwd_twin(x, w, eps), 5),
            "library_ms": _time_ms(lambda: F.rms_norm(x, (D,), w, eps), 20),
+           "library_graph_ms": _graph_ms(
+               lambda: F.rms_norm(x, (D,), w, eps), 20),
            **_bound(4.0 * rows * D,
                     2.0 * rows * D * 2 + 2.0 * D + 4.0 * rows, peaks,
                     peaks[2])}
@@ -1289,8 +1252,12 @@ def phase_kernels(peaks):
     # the eager Llama step's: causal GQA, B=2 S=2048 + LSE
     flash.append(_flash_case(2, 2048, H, KV, hd, peaks, KERNEL_TOL, gen,
                              lse=True))
-    ragged = [_ragged_case(kind, H, KV, hd, peaks, KERNEL_TOL, gen, flush)
-              for kind in ("decode", "fused", "continue")]
+    # the serve path's decode, fused and continuing batches, then full
+    # chains of 1024 keys: the serve phase's 8 rows at max_total_len,
+    # bench.py's batch-32 decode
+    ragged = [_ragged_case(kind, H, KV, hd, gen, flush)
+              for kind in ("decode", "fused", "continue", "full8",
+                           "full32")]
     wsum, sdot, moe_info = _moe_dispatch_cases(peaks, gen, flush)
     # the eager ERNIE step's norms (f32) and the bf16 form; then the
     # kernels' other forms: a row of one block (D > 1024, up to the
@@ -2929,7 +2896,8 @@ def _kernels_line(cases, runs):
         for path, i in meta["main"].items():
             pool = [c for c in cases[name] if c.get("path", path) == path]
             by_path[path] = {"launches": runs[path]["launches"][name],
-                             **{k: pool[i][k] for k in _TIMES}}
+                             **{k: pool[i][k] for k in _TIMES
+                                + ("graph_ms",) if k in pool[i]}}
             steps = [c for c in pool if "step_launches" in c]
             if steps:
                 # the times of one step's launches at their shapes
@@ -2950,6 +2918,8 @@ def _kernels_line(cases, runs):
             "max_rel_err": max(c["max_rel_err"] for c in cases[name]),
             **{k: top[k] for k in _TIMES}, "kernel_ms": top["ms"],
             "by_path": by_path}
+        if "graph_ms" in top:
+            entry["graph_ms"] = top["graph_ms"]
         if "also_replaces" in meta:
             entry["also_replaces"] = meta["also_replaces"]
         if not by_path:

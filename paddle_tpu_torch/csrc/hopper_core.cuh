@@ -2,8 +2,8 @@
 // flash_bwd.cu): TMA tensor-map loads into 128-byte-swizzled shared
 // tiles, mbarrier rings between one producer warp and the consumer
 // warpgroups, setmaxnreg, and wgmma with its shared-memory matrix
-// descriptors. attention_core.cuh (mma.sync, synchronous tile loads) is
-// left as the ragged paged-attention kernel uses it.
+// descriptors; ragged_paged_attention.cu also takes its smem_u32 and
+// allow_smem. attention_core.cuh holds the mma.sync fragments.
 //
 // Tiles. Every bf16 operand tile holds R rows of head_dim in chunks of 64
 // columns: chunk c is an [R][64] array of 128-byte rows, 1024-byte

@@ -11,22 +11,41 @@
 //             rstd = r (f32, one per row)
 //   backward: dx = r * (w o dy) - x * (r^3 / D) * sum_j dy_j w_j x_j
 //             dw = sum over rows of dy o x o r
-// x, out, dy, dx bf16 [rows, D]; w f32 [D] (the wrapper casts it); all
+// x, out, dy, dx bf16 [rows, D]; the forward reads w in its own dtype
+// (bf16 or f32), the backward f32 [D] (the wrapper casts it); all
 // arithmetic in f32, in the order of the TPU kernels.
 //
-// Bound on the H100: a handful of operations per element against 2 (fwd)
-// or 6 (bwd) bytes per element, far below the card's ~295 flop/byte ridge:
-// memory bound. Design: one block of 256 threads per row, 16-byte loads
-// and stores (8 bf16 a thread per vector, 1, 2 or 4 vectors a thread as
-// D needs, so D <= 8192), the row's sum of squares (fwd) or sum(dy w x)
-// (bwd) reduced over the block in f32. dw is reduced deterministically, without float
-// atomics: each backward block walks a contiguous chunk of rows and
-// writes its per-column partial sums once to an f32 [chunks, D] scratch,
-// and a second kernel sums the chunks in a fixed order, so two runs give
+// Bound on the H100: a handful of operations per element against 4 (fwd:
+// x read, out written) or 6 (bwd) bytes per element, far below the card's
+// ~295 flop/byte ridge: memory bound. The training steps' [40960, 2048]
+// and [16384, 4096] forwards move 336 and 268 MB, 0.100 and 0.080 ms at
+// 3.35 TB/s.
+//
+// Forward design. A row is held in registers by one warp (D <= 2048, as
+// 8 bf16 16-byte vectors a lane at D 2048), two (D <= 4096) or four
+// (D <= 8192), and its sum of squares reduced by warp shuffles alone; a
+// row of two or four warps adds their sums through shared memory under a
+// named barrier of just those warps, double-buffered by row parity, so
+// no block-wide barrier is taken per row. The grid is persistent: as many
+// 128-thread blocks as fit on the card at once, whose warp teams walk
+// the rows with a stride, and each lane loads its weight vectors once
+// (16-byte loads, bf16 or f32 as given) and keeps them in registers.
+// The next row's loads are issued before the current row's reduction,
+// so a row's latency hides behind the one before it.
+//
+// Backward design: one block of 256 threads per row, 16-byte loads and
+// stores (8 bf16 a thread per vector, 1, 2 or 4 vectors a thread as D
+// needs, so D <= 8192), the row's sum(dy w x) reduced over the block in
+// f32. dw is reduced deterministically, without float atomics: each
+// backward block walks a contiguous chunk of rows and writes its
+// per-column partial sums once to an f32 [chunks, D] scratch, and a
+// second kernel sums the chunks in a fixed order, so two runs give
 // identical bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -67,39 +86,114 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-template <int VPT>
-__global__ void __launch_bounds__(kThreads)
-rms_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
-               bf16* __restrict__ out, float* __restrict__ rstd, int D,
-               float eps) {
-  __shared__ float red[kThreads / 32];
-  const size_t row = blockIdx.x;
+// A lane's 8 weights of one 16-byte vector (bf16) or two (f32), kept in
+// registers for the block's life.
+template <typename WT>
+struct WVec;
+
+template <>
+struct WVec<bf16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const bf16* p) {
+    v = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void get(float f[8]) const { unpack8(v, f); }
+};
+
+template <>
+struct WVec<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = reinterpret_cast<const float4*>(p)[0];
+    b = reinterpret_cast<const float4*>(p)[1];
+  }
+  __device__ __forceinline__ void get(float f[8]) const {
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  }
+};
+
+// Rows of WPR warps each (a team), VPT 16-byte vectors a lane; the grid's
+// teams walk the rows with a stride. Blocks of 128 threads: at ~150
+// registers a thread (the current and the next row and the weights, held
+// in registers) three fit on an SM where one block of 256 would leave
+// room for just one.
+constexpr int kFwdThreads = 128;
+
+template <typename WT, int WPR, int VPT>
+__global__ void __launch_bounds__(kFwdThreads)
+rms_fwd_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
+               bf16* __restrict__ out, float* __restrict__ rstd, int rows,
+               int D, float eps) {
+  constexpr int kTPR = 32 * WPR;              // threads a row
+  constexpr int kTeams = kFwdThreads / kTPR;     // rows a block holds
+  __shared__ float red[2][kFwdThreads / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int team = warp / WPR, t = threadIdx.x % kTPR;
   const int nvec = D / 8;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * D);
-  float xv[VPT][8];
-  float ss = 0.f;
+  WVec<WT> wv[VPT];
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
-    const int vi = threadIdx.x + i * kThreads;
-    if (vi < nvec) {
-      unpack8(xr[vi], xv[i]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) ss += xv[i][j] * xv[i][j];
-    }
+    const int vi = t + i * kTPR;
+    if (vi < nvec) wv[i].load(w + vi * 8);
   }
-  const float r = 1.f / sqrtf(block_sum(ss, red) / D + eps);
-  uint4* orow = reinterpret_cast<uint4*>(out + row * D);
+  const int stride = gridDim.x * kTeams;
+  int row = blockIdx.x * kTeams + team;
+  uint4 cur[VPT], nxt[VPT];
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
-    const int vi = threadIdx.x + i * kThreads;
-    if (vi < nvec) {
-      float o[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = xv[i][j] * r * w[vi * 8 + j];
-      orow[vi] = pack8(o);
-    }
+    const int vi = t + i * kTPR;
+    if (row < rows && vi < nvec)
+      cur[i] = reinterpret_cast<const uint4*>(x + (size_t)row * D)[vi];
   }
-  if (threadIdx.x == 0) rstd[row] = r;
+  for (int parity = 0; row < rows; row += stride, parity ^= 1) {
+    const int next = row + stride;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int vi = t + i * kTPR;
+      if (next < rows && vi < nvec)
+        nxt[i] = reinterpret_cast<const uint4*>(x + (size_t)next * D)[vi];
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      if (t + i * kTPR < nvec) {
+        float f[8];
+        unpack8(cur[i], f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ss += f[j] * f[j];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (WPR > 1) {
+      // the team's warps only: named barrier 1 + team over kTPR threads
+      if (lane == 0) red[parity][warp] = ss;
+      asm volatile("bar.sync %0, %1;\n" :: "r"(1 + team), "r"(kTPR)
+                   : "memory");
+      ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < WPR; ++i) ss += red[parity][team * WPR + i];
+    }
+    const float r = 1.f / sqrtf(ss / D + eps);
+    uint4* orow = reinterpret_cast<uint4*>(out + (size_t)row * D);
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int vi = t + i * kTPR;
+      if (vi < nvec) {
+        float f[8], g[8], o[8];
+        unpack8(cur[i], f);
+        wv[i].get(g);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) o[j] = f[j] * r * g[j];
+        orow[vi] = pack8(o);
+      }
+    }
+    if (t == 0) rstd[row] = r;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) cur[i] = nxt[i];
+  }
 }
 
 template <int VPT>
@@ -178,24 +272,61 @@ rms_dw_kernel(const float* __restrict__ partials, float* __restrict__ dw,
   dw[c] = s;
 }
 
+// The persistent grid: as many blocks as fit on the card at once, asked
+// of the runtime once per kernel and device.
+template <typename WT, int WPR, int VPT>
+cudaError_t launch_fwd(const void* x, const void* w, void* out, void* rstd,
+                       int rows, int D, float eps, cudaStream_t s) {
+  constexpr int kTeams = kFwdThreads / (32 * WPR);
+  static int resident[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int full = dev < 64 ? resident[dev] : 0;
+  if (full == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, rms_fwd_kernel<WT, WPR, VPT>, kFwdThreads, 0);
+    if (err != cudaSuccess) return err;
+    full = sms * std::max(per_sm, 1);
+    if (dev < 64) resident[dev] = full;
+  }
+  const int grid = std::max(1, std::min((rows + kTeams - 1) / kTeams, full));
+  rms_fwd_kernel<WT, WPR, VPT><<<grid, kFwdThreads, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<const WT*>(w),
+      static_cast<bf16*>(out), static_cast<float*>(rstd), rows, D, eps);
+  return cudaGetLastError();
+}
+
+template <typename WT>
+cudaError_t dispatch_fwd(const void* x, const void* w, void* out, void* rstd,
+                         int rows, int D, float eps, cudaStream_t s) {
+  const int nvec = D / 8;
+  if (nvec <= 32) return launch_fwd<WT, 1, 1>(x, w, out, rstd, rows, D, eps, s);
+  if (nvec <= 64) return launch_fwd<WT, 1, 2>(x, w, out, rstd, rows, D, eps, s);
+  if (nvec <= 128)
+    return launch_fwd<WT, 1, 4>(x, w, out, rstd, rows, D, eps, s);
+  if (nvec <= 256)
+    return launch_fwd<WT, 1, 8>(x, w, out, rstd, rows, D, eps, s);
+  if (nvec <= 512)
+    return launch_fwd<WT, 2, 8>(x, w, out, rstd, rows, D, eps, s);
+  return launch_fwd<WT, 4, 8>(x, w, out, rstd, rows, D, eps, s);
+}
+
 }  // namespace
 
-// Returns the launch's cudaError_t (0 on success).
+// w is bf16 (w_bf16 != 0) or f32 [D], 16-byte aligned. Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int rms_fwd_bf16(const void* x, const void* w, void* out,
                             void* rstd, int rows, int D, float eps,
-                            void* stream) {
-  if (D % 8 || D > kThreads * kMaxVec * 8) return (int)cudaErrorInvalidValue;
-  const int vpt = (D / 8 + kThreads - 1) / kThreads;
+                            int w_bf16, void* stream) {
+  if (D % 8 || D > kThreads * kMaxVec * 8 || rows < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_FWD(V)                                                         \
-  rms_fwd_kernel<V><<<rows, kThreads, 0, s>>>(                             \
-      static_cast<const bf16*>(x), static_cast<const float*>(w),          \
-      static_cast<bf16*>(out), static_cast<float*>(rstd), D, eps)
-  if (vpt == 1) PTT_FWD(1);
-  else if (vpt == 2) PTT_FWD(2);
-  else PTT_FWD(4);
-#undef PTT_FWD
-  return (int)cudaGetLastError();
+  return (int)(w_bf16 ? dispatch_fwd<bf16>(x, w, out, rstd, rows, D, eps, s)
+                      : dispatch_fwd<float>(x, w, out, rstd, rows, D, eps, s));
 }
 
 // `partials` is an f32 [chunks, D] scratch; dw is f32 [D]. Returns the

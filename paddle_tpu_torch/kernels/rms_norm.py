@@ -30,9 +30,9 @@ import torch
 
 from .. import _build
 
-# rms_fwd_bf16(x, w, out, rstd, rows, D, eps, stream)
+# rms_fwd_bf16(x, w, out, rstd, rows, D, eps, w_bf16, stream)
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # rms_bwd_bf16(x, w, rstd, dy, dx, dw, partials, rows, D, n_chunks, stream)
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
     ctypes.c_void_p]
@@ -99,8 +99,9 @@ def _check_rows(x, weight, what):
 def rms_norm_fwd(x, weight, epsilon: float = 1e-6):
     """RMSNorm forward saving the reciprocal RMS: (out like x, rstd f32
     [rows, 1]). On a CPU tensor: the plain twin. On a CUDA tensor: the
-    kernel (bf16 x, hidden size a multiple of 8 up to 8192; any weight
-    dtype, read as f32); anything else raises. Each launch adds one to
+    kernel (bf16 x, hidden size a multiple of 8 up to 8192; a bf16 or f32
+    weight is read as it is, in the kernel, any other dtype cast to f32
+    first); anything else raises. Each launch adds one to
     `rms_norm_fwd.launches`."""
     if not x.is_cuda:
         return _rms_fwd_twin(x, weight, epsilon)
@@ -111,12 +112,16 @@ def rms_norm_fwd(x, weight, epsilon: float = 1e-6):
     rstd = torch.empty(rows, 1, dtype=torch.float32, device=x.device)
     if rows == 0:
         return out, rstd
-    w = weight.float().contiguous()
+    w = weight if weight.dtype in (torch.bfloat16, torch.float32) \
+        else weight.float()
+    if not w.is_contiguous() or w.data_ptr() % 16:
+        w = w.clone(memory_format=torch.contiguous_format)
     fn = _build.function("rms_norm", "rms_fwd_bf16", _FWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 rstd.data_ptr(), rows, d, float(epsilon), stream)
+                 rstd.data_ptr(), rows, d, float(epsilon),
+                 int(w.dtype == torch.bfloat16), stream)
     _build.check(err, "rms_fwd_bf16")
     rms_norm_fwd.launches += 1
     return out, rstd

@@ -1,0 +1,311 @@
+"""Rows 7 and 18 of PERF.md's kernel table (the RMSNorm forward and ragged
+paged attention) at every shape `chip_smoke.py` holds them, on one GPU.
+
+    python -m paddle_tpu_torch.tools.bench_kernels [--check] [--label L]
+
+For each held shape one JSON line: the kernel's error against its plain
+version, whether two calls give identical bits, and its times two ways.
+`ms` has the host in the loop: CUDA events around calls made one after
+another (for row 18 with the L2 cache flushed before each call, outside
+the timed span), as `chip_smoke.py` times kernels. `graph_ms` is device
+time: the calls captured in one CUDA graph and replayed; row 18's calls
+rotate over copies of the pools that together exceed twice the 50 MB
+L2, so each call finds its K and V cold, as a decode step's layers do.
+Beside them: the bound (bytes over 3.35 TB/s or operations over the
+peak rate, the larger) and its share of each time; for row 7 also
+`F.rms_norm`'s times. Row 18's shapes (Llama-3-8B widths: H 32, KV 8,
+hd 128, bs 16, a 64-block table): decode (8 rows, live 1..1024 keys, one
+all-invalid), fused (those rows padded to 256 plus a prefill row),
+continue (64 queries at 512..575), full8 and full32 (8 and 32 decode
+rows of 1024 live keys each). Row 7's: the dense step's [16384, 4096]
+and the MoE step's [40960, 2048], bf16 x and weight.
+
+`--check` runs small and odd shapes instead (no timing): row 18 at hd 64
+and 128, GQA groups 1 to 32, P 1, 3 and 40, block sizes 16 and 48,
+random live lengths with invalid rows; row 7 at widths off the warp's
+round and up to 8192, bf16, f32 and f16 weights. It exits 1 if any case
+is out of tolerance (2e-2 of each output vector's scale) or not
+bit-identical twice.
+
+The file uses only the wrappers' public functions and their plain
+versions, so the same file times an older checkout of the package (run
+it from that checkout's root) in turns with this one on one card. The
+last line names the card and its power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import math
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from .bench_flash import _graph_ms, _rel
+
+TOL = 2e-2
+PEAK_FLOPS, PEAK_BYTES, PEAK_F32 = 989e12, 3.35e12, 67e12
+L2_BYTES = 50e6
+H, KV, HD, BS, M = 32, 8, 128, 16, 64
+RAGGED_KINDS = ("decode", "fused", "continue", "full8", "full32")
+RMS_SHAPES = ((16384, 4096, 1e-5), (40960, 2048, 1e-6))
+
+
+def time_ms(fn, iters, flush=None):
+    """Mean time of fn() with the host in the loop (CUDA events), after
+    one warm-up call; with `flush`, run before each call outside its
+    timed span."""
+    fn()
+    torch.cuda.synchronize()
+    if flush is None:
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / iters
+    pairs = []
+    for _ in range(iters):
+        flush()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def bound(flops, nbytes, flops_peak=PEAK_FLOPS):
+    """The least time for the work, ms, and what bounds it."""
+    t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+# --------------------------------------------------------------- row 18
+def ragged_batch(kind, h, kv, hd, bs, m, gen, seed=0):
+    """Row 18's inputs at a held shape:
+      decode   — 8 rows of 1 query, live lengths 1..1024 with block-size
+                 boundaries, one all-invalid row;
+      fused    — those 8 decode rows padded to a 256-wide prefill row,
+                 only column 0 valid, positions clamped as the fused step
+                 clamps them, plus the prefill row;
+      continue — one row continuing a chunked prefill: 64 queries at
+                 positions 512..575 over a 36-block chain, the diagonal
+                 crossing its last 4 blocks;
+      full8, full32 — 8 or 32 decode rows, every one with m * bs live
+                 keys.
+    Returns (q, k_pool, v_pool, table, positions, valid) on the card and
+    the numpy positions and validity."""
+    dev = "cuda"
+    maxpos = m * bs - 1
+    if kind == "continue":
+        pos = 512 + np.arange(64, dtype=np.int32)[None]
+        val = np.ones(pos.shape, np.bool_)
+    elif kind.startswith("full"):
+        pos = np.full((int(kind[4:]), 1), maxpos, np.int32)
+        val = np.ones(pos.shape, np.bool_)
+    else:
+        P = 1 if kind == "decode" else 256
+        lengths = [1, bs, bs + 1, 2 * bs, 300, 511, m * bs, 0]
+        # decode row: the query at position L - 1 sees the row's L keys
+        pos = np.stack([np.minimum(max(L - 1, 0) + np.arange(P), maxpos)
+                        for L in lengths]).astype(np.int32)
+        val = np.zeros(pos.shape, np.bool_)
+        val[:, 0] = np.array(lengths) > 0
+        if kind == "fused":
+            pos = np.concatenate([pos, np.arange(P, dtype=np.int32)[None]])
+            val = np.concatenate([val, np.ones((1, P), np.bool_)])
+    R, P = pos.shape
+    need = -(-np.where(val, pos + 1, 0).max(axis=1) // bs)
+    rng = np.random.RandomState(seed)
+    N = int(need.sum()) + 8
+    perm = list(rng.permutation(N))
+    table = np.zeros((R, m), np.int32)
+    for r, n in enumerate(need):
+        table[r, :n] = [perm.pop() for _ in range(n)]
+    kp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).bfloat16()
+    vp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).bfloat16()
+    q = torch.randn(R, P, h, hd, device=dev, generator=gen).bfloat16()
+    t = [torch.from_numpy(a).to(dev) for a in (table, pos, val)]
+    return (q, kp, vp, *t), (pos, val)
+
+
+def ragged_work(pos, val, h, kv, hd, bs):
+    """(flops, bytes) this data needs: each row's live K and V once (keys
+    up to its largest valid position), q of valid queries, every output
+    row, the table entries, positions and validity the walk reads."""
+    R, P = pos.shape
+    live = np.where(val, pos + 1, 0).max(axis=1)
+    nbytes = (2 * 2 * kv * hd * int(live.sum())
+              + 2 * h * hd * (int(val.sum()) + R * P)
+              + 4 * int(np.ceil(live / bs).sum()) + 5 * R * P)
+    flops = 4.0 * h * hd * float(np.where(val, pos + 1, 0).sum())
+    return flops, nbytes
+
+
+def ragged_case(args, pos, val, label, timed=True, flush=None):
+    """Row 18 against its plain version at one batch, twice; then times."""
+    from paddle_tpu_torch.nlp import ragged_attention as ra
+    q, kp = args[0], args[1]
+    out = ra.ragged_paged_attention(*args)
+    again = ra.ragged_paged_attention(*args)
+    ref = ra.ragged_paged_attention_ref(*args)
+    valid = args[5]
+    res = {"kernel": "ragged_paged_attention", "shape": label,
+           "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "max_rel_err": _rel(out, ref, valid),
+           "invalid_zero": not (out[~valid] != 0).any().item(),
+           "repeat": torch.equal(out, again)}
+    res["ok"] = (res["max_rel_err"] <= TOL and res["invalid_zero"]
+                 and res["repeat"])
+    del out, again, ref
+    if not timed:
+        return res
+    flops, nbytes = ragged_work(pos, val, q.shape[2], kp.shape[2],
+                                q.shape[3], kp.shape[1])
+    res.update(bound(flops, nbytes))
+    res["ms"] = time_ms(lambda: ra.ragged_paged_attention(*args), 50, flush)
+    pool = 2 * kp.numel() * kp.element_size()
+    n = max(1, min(64, math.ceil(2 * L2_BYTES / pool)))
+    copies = [args] + [(args[0], args[1].clone(), args[2].clone(), *args[3:])
+                       for _ in range(n - 1)]
+    turn = itertools.cycle(copies)
+    res["graph_ms"] = _graph_ms(
+        lambda: ra.ragged_paged_attention(*next(turn)), 60)
+    res["pool_copies"] = n
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["graph_bound_share"] = res["bound_ms"] / res["graph_ms"]
+    del copies
+    torch.cuda.empty_cache()
+    return res
+
+
+def ragged_random(R, P, h, kv, hd, bs, m, gen, rng):
+    """A random batch: live lengths in [0, m * bs], P queries a row ending
+    at its last key (rows shorter than P left-pad as invalid), row 0 all
+    invalid, distinct random chains."""
+    lengths = rng.randint(1, m * bs + 1, size=R)
+    lengths[0] = 0
+    pos = np.zeros((R, P), np.int32)
+    val = np.zeros((R, P), np.bool_)
+    for r, L in enumerate(lengths):
+        j = L - P + np.arange(P)
+        pos[r] = np.clip(j, 0, m * bs - 1)
+        val[r] = (j >= 0) & (L > 0)
+    N = R * m + 5
+    table = rng.permutation(N)[:R * m].reshape(R, m).astype(np.int32)
+    kp = torch.randn(N, bs, kv, hd, device="cuda", generator=gen).bfloat16()
+    vp = torch.randn(N, bs, kv, hd, device="cuda", generator=gen).bfloat16()
+    q = torch.randn(R, P, h, hd, device="cuda", generator=gen).bfloat16()
+    t = [torch.from_numpy(a).to("cuda") for a in (table, pos, val)]
+    return (q, kp, vp, *t), (pos, val)
+
+
+def ragged_checks(gen):
+    rng = np.random.RandomState(1)
+    out = []
+    for hd in (64, 128):
+        for h, kv in ((8, 8), (32, 8), (16, 1), (32, 1)):
+            for R, P, bs, m in ((3, 1, 16, 8), (40, 1, 48, 6),
+                                (5, 3, 16, 20), (2, 40, 48, 12)):
+                args, (pos, val) = ragged_random(R, P, h, kv, hd, bs, m,
+                                                 gen, rng)
+                out.append(ragged_case(
+                    args, pos, val, f"R={R} P={P} H={h} KV={kv} hd={hd} "
+                    f"bs={bs} M={m}", timed=False))
+    return out
+
+
+# ---------------------------------------------------------------- row 7
+def rms_case(rows, d, eps, gen, w_dtype=torch.bfloat16, timed=True):
+    """Row 7 against its plain twin at [rows, d] (bf16 x), twice; then
+    times beside F.rms_norm's."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    x = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(w_dtype)
+    out, rstd = rn.rms_norm_fwd(x, w, eps)
+    out2, rstd2 = rn.rms_norm_fwd(x, w, eps)
+    rout, rrstd = rn._rms_fwd_twin(x, w, eps)
+    res = {"kernel": "rms_norm_fwd",
+           "shape": f"rows={rows} D={d} w={str(w_dtype)[6:]}",
+           "max_abs_err": (out.float() - rout.float()).abs().max().item(),
+           "max_rel_err": _rel(out, rout),
+           "rstd_rel_err": ((rstd - rrstd).abs() / rrstd).max().item(),
+           "repeat": torch.equal(out, out2) and torch.equal(rstd, rstd2)}
+    res["ok"] = (res["max_rel_err"] <= TOL and res["rstd_rel_err"] <= 1e-5
+                 and res["repeat"])
+    if not timed:
+        return res
+    res.update(bound(4.0 * rows * d, 4.0 * rows * d + 2.0 * d + 4.0 * rows,
+                     PEAK_F32))
+    res["ms"] = time_ms(lambda: rn.rms_norm_fwd(x, w, eps), 20)
+    res["graph_ms"] = _graph_ms(lambda: rn.rms_norm_fwd(x, w, eps), 20)
+    res["library_ms"] = time_ms(lambda: F.rms_norm(x, (d,), w, eps), 20)
+    res["library_graph_ms"] = _graph_ms(
+        lambda: F.rms_norm(x, (d,), w, eps), 20)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["graph_bound_share"] = res["bound_ms"] / res["graph_ms"]
+    return res
+
+
+def rms_checks(gen):
+    out = []
+    for rows, d in ((1, 8), (7, 776), (4099, 1024), (4099, 2056),
+                    (333, 4096), (65, 6144), (4099, 8192)):
+        for wdt in (torch.bfloat16, torch.float32, torch.float16):
+            out.append(rms_case(rows, d, 1e-6, gen, wdt, timed=False))
+    return out
+
+
+def held(gen):
+    """Every held shape, timed: rows 18, then 7."""
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush():                          # 256 MB > the 50 MB L2
+        scratch.zero_()
+
+    res = []
+    for kind in RAGGED_KINDS:
+        args, (pos, val) = ragged_batch(kind, H, KV, HD, BS, M, gen)
+        R, P = pos.shape
+        res.append(ragged_case(
+            args, pos, val, f"{kind} R={R} P={P} H={H} KV={KV} hd={HD} "
+            f"bs={BS} M={M}", flush=flush))
+        del args
+    del scratch
+    torch.cuda.empty_cache()
+    res += [rms_case(rows, d, eps, gen) for rows, d, eps in RMS_SHAPES]
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_kernels: CUDA is not available", file=sys.stderr)
+        return 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = (ragged_checks(gen) + rms_checks(gen)) if args.check \
+        else held(gen)
+    ok = True
+    for r in cases:
+        ok = ok and r["ok"]
+        print(json.dumps({"label": args.label, **r}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

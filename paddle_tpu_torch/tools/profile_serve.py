@@ -42,7 +42,7 @@ _GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet", "cublas")
 def _kernel_class(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return "flash_fwd"
-    if "ragged_kernel" in name:
+    if "ragged_" in name:            # the split and the merge kernel
         return "ragged_paged_attention"
     if any(m in name for m in _GEMM_MARKS):
         return "gemm"
