@@ -11,8 +11,8 @@ non-zero:
                (one process per source, in parallel) and times it; counts
                the HGMMA (wgmma) and UTMALDG (TMA load) instructions
                `cuobjdump -sass` finds in the flash libraries and the
-               LDGSTS (cp.async) ones in the ragged library, and fails
-               where one is missing.
+               LDGSTS (cp.async) ones in the ragged and the two norm
+               libraries, and fails where one is missing.
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, in bf16, at its main paths' shapes, against a stated
                tolerance, with times (CUDA events) of the kernel, the
@@ -31,8 +31,10 @@ non-zero:
                rows, each of its shapes twice (bit-identical) and also
                timed in one CUDA graph (device time), the RMSNorm
                forward (its graph time too, and F.rms_norm's) and
-               backward at the steps' [16384, 4096] and
-               [40960, 2048], the fused 8-bit
+               backward (its graph time too, the one ATen backward's
+               beside it, and the kernels one call launches: the walk
+               and the fold, no cast of the bf16 weight) at the steps'
+               [16384, 4096] and [40960, 2048], the fused 8-bit
                AdamW on a leaf of every size of both trained trees, and
                the MoE dispatch kernels (gather_wsum, gather_scale_dot)
                at the MoE step's shapes, with the index maps of one real
@@ -207,10 +209,12 @@ def phase_build():
 
 
 # the flash libraries must hold Hopper's warpgroup products (HGMMA) and
-# TMA loads (UTMALDG); the ragged library its cp.async copies (LDGSTS)
+# TMA loads (UTMALDG); the ragged library and the two norm libraries (the
+# backward walks' rings) their cp.async copies (LDGSTS)
 _SASS_MARKS = {"flash_fwd": ("HGMMA", "UTMALDG"),
                "flash_bwd": ("HGMMA", "UTMALDG"),
-               "ragged_paged_attention": ("LDGSTS",)}
+               "ragged_paged_attention": ("LDGSTS",),
+               "rms_norm": ("LDGSTS",), "layer_norm": ("LDGSTS",)}
 
 
 def _sass_counts(_build):
@@ -472,12 +476,43 @@ def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True,
                     "library_ms": lib, **_bound(flops, nbytes, peaks)})
 
 
+def _launched(fn, marks, calls: int = 3):
+    """The kernels `calls` calls of fn() launch (torch.profiler, after one
+    warm-up call): raises unless every one matches one of `marks` and
+    each mark is seen, i.e. the wrapper launches its own kernels and
+    nothing else (no cast of the weight or of dw). The profiler has been
+    seen to drop a kernel of a programmatic dependent pair, never to add
+    one: a missing mark is looked for once more before it fails, a
+    launch of anything else fails at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        other = [n for n in names if not any(m in n for m in marks)]
+        if other:
+            raise AssertionError(f"expected launches of {marks} only, "
+                                 f"{calls} calls launched {names}")
+        if all(any(m in n for n in names) for m in marks):
+            return list(marks)
+    raise AssertionError(f"expected launches of {marks}, {calls} calls "
+                         f"launched {names}, twice")
+
+
 def _rms_cases(rows, D, peaks, gen, eps=1e-5):
-    """The training norm at [rows, D] (bf16 x, bf16 weight): forward
-    (out per row, rstd) and backward (dx per row, dw over D) against the
-    plain twins; the backward must repeat bit for bit."""
+    """The training norm at [rows, D] (bf16 x, the paths' bf16 weight):
+    forward (out per row, rstd) and backward (dx per row, dw over D, in
+    the weight's dtype) against the plain twins; the backward must
+    repeat bit for bit and launch its walk and fold only."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import rms_norm as rn
+    from paddle_tpu_torch.tools import bench_kernels as bk
     from paddle_tpu_torch.tools.bench_flash import _graph_ms
     x = torch.randn(rows, D, device="cuda", generator=gen).bfloat16()
     w = (1 + 0.1 * torch.randn(D, device="cuda", generator=gen)).bfloat16()
@@ -499,15 +534,6 @@ def _rms_cases(rows, D, peaks, gen, eps=1e-5):
                              f", dx {b_rel}, dw {w_rel}")
     if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
         raise AssertionError("rms bwd: two runs differ")
-    xg = x.detach().requires_grad_(True)
-    wg = w.detach().requires_grad_(True)
-
-    def lib_fwd():
-        return F.rms_norm(xg, (D,), wg, eps)
-
-    def lib_both():
-        torch.autograd.grad(lib_fwd(), (xg, wg), dy)
-
     fwd = {"shape": f"rows={rows} D={D}",
            "max_abs_err": (out.float() - rout.float()).abs().max().item(),
            "max_rel_err": f_rel, "rstd_rel_err": r_rel,
@@ -520,16 +546,26 @@ def _rms_cases(rows, D, peaks, gen, eps=1e-5):
            **_bound(4.0 * rows * D,
                     2.0 * rows * D * 2 + 2.0 * D + 4.0 * rows, peaks,
                     peaks[2])}
-    with torch.enable_grad():
-        lib_bwd = _time_ms(lib_both, 10) - _time_ms(lib_fwd, 10)
+    # the one ATen call for the backward: the fused RMSNorm backward on
+    # its forward's rstd
+    lib = bk.rms_library(x, w, dy, eps)
+
+    def call():
+        return rn.rms_norm_bwd(x, w, rstd, dy, eps)
+
+    if dw.dtype != w.dtype:
+        raise AssertionError(f"rms bwd: dw {dw.dtype}, weight {w.dtype}")
     bwd = {"shape": f"rows={rows} D={D}",
            "max_abs_err": max((dx.float() - rdx.float()).abs().max().item(),
                               (dw.float() - rdw.float()).abs().max().item()),
            "max_rel_err": max(b_rel, w_rel), "dw_rel_err": w_rel,
-           "ms": _time_ms(lambda: rn.rms_norm_bwd(x, w, rstd, dy, eps), 20),
+           "weight": str(w.dtype).replace("torch.", ""),
+           "launched": _launched(call, ("rms_bwd_kernel", "rms_dw_kernel")),
+           "ms": _time_ms(call, 20), "graph_ms": _graph_ms(call, 20),
            "plain_ms": _time_ms(
                lambda: rn._rms_train_ref_bwd(x, w, dy, eps), 5),
-           "library_ms": lib_bwd,
+           "library_ms": _time_ms(lib, 20),
+           "library_graph_ms": _graph_ms(lib, 20),
            **_bound(9.0 * rows * D,
                     3.0 * rows * D * 2 + 4.0 * rows + 2.0 * D * 2, peaks,
                     peaks[2])}
@@ -693,11 +729,13 @@ def _ln_cases(rows, D, dtype, affine, peaks, gen, flush, on_path=False):
     """The fused LayerNorm at [rows, D] (x in `dtype`; f32 weight and
     bias, or affine-free): forward (out per row, mu, rstd) and backward
     (dx per row, dw and db) against the plain twins, at ERNIE's eps
-    1e-12; the backward must repeat bit for bit. Times with the L2 cache
-    flushed before each call. `on_path`: the eager step's form, launched
-    25 times a step."""
+    1e-12; the backward must repeat bit for bit and launch its walk and
+    fold only. Times with the L2 cache flushed before each call, and the
+    backward's also in one CUDA graph, beside the one ATen backward's.
+    `on_path`: the eager step's form, launched 25 times a step."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.tools.bench_flash import _graph_ms
     eps = 1e-12
     x = (torch.randn(rows, D, device="cuda", generator=gen) + 0.5).to(dtype)
     w = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
@@ -738,10 +776,6 @@ def _ln_cases(rows, D, dtype, affine, peaks, gen, flush, on_path=False):
     def lib_fwd():
         return F.layer_norm(xg, (D,), wl, bl, eps)
 
-    def lib_both():
-        torch.autograd.grad(lib_fwd(), [t for t in (xg, wl, bl)
-                                        if t is not None], dy)
-
     es = x.element_size()
     path = ({"path": "eager", "step_launches": 25} if on_path
             else {"path": None})
@@ -757,19 +791,29 @@ def _ln_cases(rows, D, dtype, affine, peaks, gen, flush, on_path=False):
            # operations a value (sum, centre, square-add, scale, affine)
            **_bound(8.0 * rows * D, 2.0 * es * rows * D + 8.0 * D
                     + 8.0 * rows, peaks, peaks[2])}
-    with torch.enable_grad():
-        lib_bwd = _time_ms(lib_both, 10, flush) - _time_ms(lib_fwd, 10,
-                                                          flush)
+    # the one ATen call for the backward, on ATen's own forward's mean
+    # and rstd (the weight and bias in x's dtype, as ATen takes them)
+    wn, bn = (None, None) if wl is None else (wl.detach(), bl.detach())
+    _, lmu, lrstd = torch.ops.aten.native_layer_norm(x, [D], wn, bn, eps)
+
+    def lib_bwd():
+        return torch.ops.aten.native_layer_norm_backward(
+            dy, x, [D], lmu, lrstd, wn, bn, [True, affine, affine])
+
+    def call():
+        return ln.layer_norm_bwd(x, w, mu, rstd, dy, eps)
+
     bwd = {"shape": name, **path,
            "max_abs_err": max((dx.float() - rdx.float()).abs().max().item(),
                               (dw - rdw).abs().max().item(),
                               (db - rdb).abs().max().item()),
            "max_rel_err": max(b_rel, w_rel), "dwdb_rel_err": w_rel,
-           "ms": _time_ms(lambda: ln.layer_norm_bwd(x, w, mu, rstd, dy, eps),
-                          20, flush),
+           "launched": _launched(call, ("ln_bwd_kernel", "ln_dwdb_kernel")),
+           "ms": _time_ms(call, 20, flush), "graph_ms": _graph_ms(call, 20),
            "plain_ms": _time_ms(lambda: ln._ln_ref_bwd(x, w, dy, eps,
                                                        affine), 5, flush),
-           "library_ms": lib_bwd,
+           "library_ms": _time_ms(lib_bwd, 20, flush),
+           "library_graph_ms": _graph_ms(lib_bwd, 20),
            # x, dy read, dx written; mu, rstd, w read; dw, db written.
            # ~13 f32 operations a value
            **_bound(13.0 * rows * D, 3.0 * es * rows * D + 8.0 * rows

@@ -16,24 +16,38 @@
 // the two-pass mean of the centred squares, as the TPU kernel's
 // mean(xc * xc), not Welford and not E[x^2] - mu^2.
 //
-// Bound on the H100: ~8 (fwd) and ~12 (bwd) flops per element against 8
+// Bound on the H100: ~8 (fwd) and ~13 (bwd) flops per element against 8
 // and 12 bytes per element in f32 (4 and 6 in bf16), far below the card's
 // ~295 flop/byte ridge: memory bound. At the eager ERNIE step's f32
-// [32768, 768] the forward moves ~201 MB and the backward ~302 MB.
-// Design: each row is read once into registers with 16-byte vector loads
-// (4 f32 or 8 bf16 a vector) and both passes (the mean, then the centred
-// variance) run over the registers. A row of D <= 1024 is one warp's (8
-// rows a block of 256 threads, reductions by warp shuffles only); a wider
-// row (D <= 8192) is one block's (8 warps, shuffles then shared memory).
-// Each thread holds at most 32 values of a row. dw and db are reduced
-// deterministically, without float atomics: each backward block walks a
-// contiguous chunk of rows (its warps take every 8th row), combines its
-// warps' per-column partial sums in a fixed order in shared memory and
-// writes them once to an f32 [2, chunks, D] scratch; a second kernel sums
-// the chunks in order, so two runs give identical bits.
+// [32768, 768] the forward moves ~201 MB and the backward ~302 MB, 0.060
+// and 0.090 ms at 3.35 TB/s.
+//
+// Forward design: each row is read once into registers with 16-byte
+// vector loads (4 f32 or 8 bf16 a vector) and both passes (the mean, then
+// the centred variance) run over the registers. A row of D <= 1024 is one
+// warp's (8 rows a block of 256 threads, reductions by warp shuffles
+// only); a wider row (D <= 8192) is one block's (8 warps, shuffles then
+// shared memory). Each thread holds at most 32 values of a row.
+//
+// Backward design: the walk of norm_bwd_core.cuh (a persistent grid of
+// warp teams, 1 warp a row up to D 1024, 2, 4 or 8 up to 8192, each lane
+// holding at most 32 values of a row; x, dy, mu and rstd two rows ahead in
+// a cp.async ring; the row's sum(dyw) and sum(dyw xhat) by shuffles and
+// the team's named barrier), the weight loaded once per lane; each block
+// writes one f32 partial row of dw and one of db (its teams added in
+// order), and ln_dwdb_kernel folds them in a fixed order. What held the
+// previous design back (warp rows walking 32-row chunks; H100 SXM at 700
+// W, one CUDA graph: 0.213 ms at f32 [32768, 768], 42 % of the bound): each
+// row's x and dy loaded synchronously with no prefetch, the weight re-read
+// from device memory per element and row, 8 barrier rounds to add a
+// block's row groups, and a 6-block fold at D 768 whose threads each
+// summed 1024 chunks in one chain: 0.057 ms alone, a quarter of the call.
+// This design: 0.116 ms, 78 % of the bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "norm_bwd_core.cuh"
 
 namespace {
 
@@ -159,123 +173,67 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Block `blockIdx.x` takes rows [first, first + per); its row groups (8
-// warps when WPR == 1, the whole block when WPR == kWarps) take every
-// (kThreads / 32 / WPR)-th of them. partials: f32 [2, gridDim.x, D]
-// (dw partials, then db partials). With WPR == 1 the dynamic shared
-// memory holds 2 * D floats.
+// The backward's walk: WPR warps a row, VPT vectors a lane, the weight's
+// values of the lane's vectors held in registers (1 when affine-free: dy
+// times 1 is dy, bit for bit).
 template <typename T, int WPR, int VPT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(nbw::kThreads)
 ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ mu, const float* __restrict__ rstd,
               const T* __restrict__ dy, T* __restrict__ dx,
-              float* __restrict__ partials, int rows, int D, int per) {
+              float* __restrict__ partials, int rows, int D, int n_teams) {
   constexpr int kN = Vec<T>::kN;
   constexpr int kTPR = 32 * WPR;
-  constexpr int kGroups = kThreads / kTPR;
-  __shared__ float red[kWarps];
-  extern __shared__ float acc[];
-  const int t = threadIdx.x % kTPR;
-  const int group = threadIdx.x / kTPR;
-  const int nvec = D / kN;
-  const int first = blockIdx.x * per;
-  const int last = min(rows, first + per);
-  float adw[VPT][kN], adb[VPT][kN];
+  const int t = threadIdx.x % kTPR, nvec = D / kN;
+  float wv[VPT][kN], acc[2][VPT][kN];
 #pragma unroll
-  for (int i = 0; i < VPT; ++i)
+  for (int i = 0; i < VPT; ++i) {
+    const int v = t + i * kTPR;
+    if (w != nullptr && v < nvec) {
+      Vec<float>::load(w + v * kN, wv[i]);
+      if constexpr (kN == 8) Vec<float>::load(w + v * kN + 4, wv[i] + 4);
+    } else {
 #pragma unroll
-    for (int j = 0; j < kN; ++j) adw[i][j] = adb[i][j] = 0.f;
-  for (int row = first + group; row < last; row += kGroups) {
-    const T* xr = x + (size_t)row * D;
-    const T* dr = dy + (size_t)row * D;
-    const float m = mu[row], r = rstd[row];
-    float xh[VPT][kN], dyw[VPT][kN];
-    float s1 = 0.f, s2 = 0.f;
+      for (int j = 0; j < kN; ++j) wv[i][j] = 1.f;
+    }
 #pragma unroll
-    for (int i = 0; i < VPT; ++i) {
-      const int vi = t + i * kTPR;
-      if (vi < nvec) {
-        float dv[kN];
-        Vec<T>::load(xr + vi * kN, xh[i]);
-        Vec<T>::load(dr + vi * kN, dv);
+    for (int j = 0; j < kN; ++j) acc[0][i][j] = acc[1][i][j] = 0.f;
+  }
+  const float* const stat[2] = {mu, rstd};
+  nbw::walk<T, WPR, VPT, 2, 2, 2>(
+      x, dy, dx, stat, partials, rows, D, n_teams, acc,
+      [&](int i, const float (&st)[2], const float (&xv)[kN],
+          const float (&dv)[kN], float (&s)[2]) {
 #pragma unroll
         for (int j = 0; j < kN; ++j) {
-          xh[i][j] = (xh[i][j] - m) * r;
-          dyw[i][j] = w != nullptr ? dv[j] * w[vi * kN + j] : dv[j];
-          s1 += dyw[i][j];
-          s2 += dyw[i][j] * xh[i][j];
-          adw[i][j] += dv[j] * xh[i][j];
-          adb[i][j] += dv[j];
+          const float xh = (xv[j] - st[0]) * st[1];
+          const float dyw = dv[j] * wv[i][j];
+          s[0] += dyw;
+          s[1] += dyw * xh;
+          acc[0][i][j] += dv[j] * xh;
+          acc[1][i][j] += dv[j];
         }
-      }
-    }
-    const float m1 = row_sum<WPR>(s1, red) / D;
-    const float m2 = row_sum<WPR>(s2, red) / D;
-    T* xo = dx + (size_t)row * D;
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) {
-      const int vi = t + i * kTPR;
-      if (vi < nvec) {
-        float o[kN];
-#pragma unroll
-        for (int j = 0; j < kN; ++j)
-          o[j] = r * (dyw[i][j] - m1 - xh[i][j] * m2);
-        Vec<T>::store(xo + vi * kN, o);
-      }
-    }
-  }
-  float* pw = partials + (size_t)blockIdx.x * D;
-  float* pb = partials + ((size_t)gridDim.x + blockIdx.x) * D;
-  if constexpr (kGroups == 1) {
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) {
-      const int vi = t + i * kTPR;
-      if (vi < nvec) {
+      },
+      [&](int i, const float (&st)[2], const float (&s)[2],
+          const float (&xv)[kN], const float (&dv)[kN], float (&o)[kN]) {
+        const float m1 = s[0] / D, m2 = s[1] / D;
 #pragma unroll
         for (int j = 0; j < kN; ++j) {
-          pw[vi * kN + j] = adw[i][j];
-          pb[vi * kN + j] = adb[i][j];
+          const float xh = (xv[j] - st[0]) * st[1];
+          o[j] = st[1] * (dv[j] * wv[i][j] - m1 - xh * m2);
         }
-      }
-    }
-  } else {
-  // the block's row groups add their partials in group order
-  for (int c = threadIdx.x; c < 2 * D; c += kThreads) acc[c] = 0.f;
-  __syncthreads();
-  for (int g = 0; g < kGroups; ++g) {
-    if (group == g) {
-#pragma unroll
-      for (int i = 0; i < VPT; ++i) {
-        const int vi = t + i * kTPR;
-        if (vi < nvec) {
-#pragma unroll
-          for (int j = 0; j < kN; ++j) {
-            acc[vi * kN + j] += adw[i][j];
-            acc[D + vi * kN + j] += adb[i][j];
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  for (int c = threadIdx.x; c < D; c += kThreads) {
-    pw[c] = acc[c];
-    pb[c] = acc[D + c];
-  }
-  }
+      });
 }
 
-// dw[c] and db[c]: the chunks' partials summed in chunk order.
-__global__ void __launch_bounds__(kThreads)
+// dw[c] and db[c]: the partial rows' columns c and D + c, folded in the
+// plan's fixed order.
+__global__ void __launch_bounds__(nbw::kFoldThreads)
 ln_dwdb_kernel(const float* __restrict__ partials, float* __restrict__ dw,
-               float* __restrict__ db, int D, int chunks) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= 2 * D) return;
-  const int k = c / D, col = c % D;
-  const float* p = partials + (size_t)k * chunks * D + col;
-  float s = 0.f;
-  for (int i = 0; i < chunks; ++i) s += p[(size_t)i * D];
-  (k == 0 ? dw : db)[col] = s;
+               float* __restrict__ db, int n_parts, int D, int cols) {
+  nbw::fold(partials, n_parts, 2 * D, cols, [&](int c, float v) {
+    if (c < D) dw[c] = v;
+    else db[c - D] = v;
+  });
 }
 
 // Vectors a thread holds: the smallest instantiated count that covers
@@ -330,37 +288,45 @@ int launch_fwd(const void* x, const void* w, const void* b, void* out,
 }
 
 template <typename T>
+cudaError_t bwd_resident(int warps, int vpt, int* per_sm) {
+  return nbw::dispatch<32 / Vec<T>::kN>(warps, vpt, [&](auto wpr, auto v) {
+    constexpr int WPR = decltype(wpr)::value, VPT = decltype(v)::value;
+    static int granted[64] = {};
+    return nbw::resident(ln_bwd_kernel<T, WPR, VPT>,
+                         nbw::Layout<T, WPR, VPT, 2>::kBytes, granted,
+                         per_sm);
+  });
+}
+
+template <typename T>
 int launch_bwd(const void* x, const void* w, const void* mu,
                const void* rstd, const void* dy, void* dx, void* dw,
-               void* db, void* partials, int rows, int D, int chunks,
-               cudaStream_t s) {
-  constexpr int kN = Vec<T>::kN;
-  if (D % 8 || D > kThreads * kMaxPerThread || rows < 1 || chunks < 1)
+               void* db, void* partials, int rows, int D, int warps,
+               int vpt, int blocks, int cols, cudaStream_t s) {
+  if (D % 8 || D > kThreads * kMaxPerThread || rows < 1 || blocks < 1 ||
+      (cols != 8 && cols != 16 && cols != 32))
     return (int)cudaErrorInvalidValue;
-  const int nvec = D / kN;
-  const bool warp_row = nvec <= 32 * (kMaxPerThread / kN);
-  const int tpr = warp_row ? 32 : kThreads;
-  const int vpt = pick_vpt<T>((nvec + tpr - 1) / tpr);
-  if (vpt == 0) return (int)cudaErrorInvalidValue;
-  const int per = (rows + chunks - 1) / chunks;
-  const int used = (rows + per - 1) / per;
-  const size_t smem = warp_row ? 2 * D * sizeof(float) : 0;
-#define PTT_BWD(WPR, V)                                                    \
-  ln_bwd_kernel<T, WPR, V><<<used, kThreads, smem, s>>>(                   \
-      static_cast<const T*>(x), static_cast<const float*>(w),             \
-      static_cast<const float*>(mu), static_cast<const float*>(rstd),     \
-      static_cast<const T*>(dy), static_cast<T*>(dx),                     \
-      static_cast<float*>(partials), rows, D, per)
-  if constexpr (kN == 4) {
-    if (warp_row) { PTT_VPT_F32(PTT_BWD, 1) } else { PTT_VPT_F32(PTT_BWD, kWarps) }
-  } else {
-    if (warp_row) { PTT_VPT_BF16(PTT_BWD, 1) } else { PTT_VPT_BF16(PTT_BWD, kWarps) }
-  }
-#undef PTT_BWD
-  ln_dwdb_kernel<<<(2 * D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(partials), static_cast<float*>(dw),
-      static_cast<float*>(db), D, used);
-  return (int)cudaGetLastError();
+  cudaError_t err = nbw::dispatch<32 / Vec<T>::kN>(
+      warps, vpt, [&](auto wpr, auto v) {
+        constexpr int WPR = decltype(wpr)::value, VPT = decltype(v)::value;
+        using L = nbw::Layout<T, WPR, VPT, 2>;
+        if (D / Vec<T>::kN > VPT * L::kTPR) return cudaErrorInvalidValue;
+        static int granted[64] = {};
+        cudaError_t e = nbw::allow_smem(ln_bwd_kernel<T, WPR, VPT>,
+                                        L::kBytes, granted);
+        if (e != cudaSuccess) return e;
+        ln_bwd_kernel<T, WPR, VPT><<<blocks, nbw::kThreads, L::kBytes, s>>>(
+            static_cast<const T*>(x), static_cast<const float*>(w),
+            static_cast<const float*>(mu), static_cast<const float*>(rstd),
+            static_cast<const T*>(dy), static_cast<T*>(dx),
+            static_cast<float*>(partials), rows, D, blocks * L::kTeams);
+        return cudaGetLastError();
+      });
+  if (err != cudaSuccess) return (int)err;
+  return (int)nbw::launch_fold(ln_dwdb_kernel, 2 * D, cols, s,
+                               static_cast<const float*>(partials),
+                               static_cast<float*>(dw),
+                               static_cast<float*>(db), blocks, D, cols);
 }
 
 }  // namespace
@@ -381,19 +347,35 @@ extern "C" int ln_fwd_bf16(const void* x, const void* w, const void* b,
                           static_cast<cudaStream_t>(stream));
 }
 
-// `partials` is an f32 [2, chunks, D] scratch; dw and db are f32 [D].
+// The backward with the plan of kernels/norm_bwd.py::bwd_plan: teams of
+// `warps` warps holding `vpt` vectors a lane, `blocks` walk blocks (one
+// f32 [2, D] partial row each in `partials`: dw's, then db's), a fold of
+// `cols` columns a block. w f32 [D], 16-byte aligned, or null
+// (affine-free); dw and db f32 [D].
 extern "C" int ln_bwd_f32(const void* x, const void* w, const void* mu,
                           const void* rstd, const void* dy, void* dx,
                           void* dw, void* db, void* partials, int rows, int D,
-                          int chunks, void* stream) {
+                          int warps, int vpt, int blocks, int cols,
+                          void* stream) {
   return launch_bwd<float>(x, w, mu, rstd, dy, dx, dw, db, partials, rows,
-                           D, chunks, static_cast<cudaStream_t>(stream));
+                           D, warps, vpt, blocks, cols,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ln_bwd_bf16(const void* x, const void* w, const void* mu,
                            const void* rstd, const void* dy, void* dx,
                            void* dw, void* db, void* partials, int rows,
-                           int D, int chunks, void* stream) {
+                           int D, int warps, int vpt, int blocks, int cols,
+                           void* stream) {
   return launch_bwd<bf16>(x, w, mu, rstd, dy, dx, dw, db, partials, rows,
-                          D, chunks, static_cast<cudaStream_t>(stream));
+                          D, warps, vpt, blocks, cols,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// Walk blocks of the (bf16 or f32 x, warps, vpt) backward that fit on one
+// multiprocessor, into *per_sm. Returns a cudaError_t.
+extern "C" int ln_bwd_resident(int x_bf16, int warps, int vpt,
+                               int* per_sm) {
+  return (int)(x_bf16 ? bwd_resident<bf16>(warps, vpt, per_sm)
+                      : bwd_resident<float>(warps, vpt, per_sm));
 }

@@ -1,0 +1,397 @@
+// Shared core of the two norm backward kernels (rms_norm.cu's
+// rms_bwd_kernel, layer_norm.cu's ln_bwd_kernel): the row walk of a
+// persistent grid of warp teams fed by a cp.async ring, the block's
+// fixed-order combine of its teams' column sums into one partial row, and
+// the fold of the partial rows into dw (and db).
+//
+// The walk. A block is 256 threads; a row is owned by a team of WPR warps
+// (1, 2, 4 or 8), whose lanes hold VPT 16-byte vectors of it (lane t
+// vectors t, t + 32 WPR, ...), so a lane keeps at most 32 values of a row
+// and its dw/db column sums for the block's life in f32 registers. Team g
+// of the grid walks the rows [g * rows / teams, (g + 1) * rows / teams).
+// Each row's x and dy vectors, and its statistics (rstd; mu and rstd),
+// land in a three-stage shared-memory ring by cp.async, issued two rows
+// ahead, so a team has two rows in flight while it computes a third. Each
+// lane reads back only the vectors it copied itself: cp.async.wait_group
+// makes a thread's own copies visible to it, so the ring needs no barrier
+// between lanes, and a stage is refilled only after the lane's last read
+// of it fed a store. (A 1-D bulk copy would fill a row with one
+// instruction, but every lane of the team would then track the mbarrier's
+// phase, and a stage could be refilled only after a barrier of the whole
+// team had released it.) A row is read twice from the ring: the first
+// pass forms the lane's part of the row sums, which warp shuffles and, for
+// a team of several warps, a named barrier over just that team's threads
+// (double-buffered by row parity) turn into the row's totals; the second
+// pass writes dx. No block-wide barrier is taken per row.
+//
+// The column sums. When its rows are done, each lane stores its sums into
+// its own slots of its team's ring; after one block barrier the block adds
+// its teams' sums in team order and writes one f32 partial row, so there
+// are as many partial rows as blocks. The fold kernel, a programmatic
+// dependent launch, sums them: a block of 256 threads takes `cols`
+// columns, each column cut into 256 / cols fixed segments of the partial
+// rows, each segment summed in row order, then the segments in order. No
+// float atomics: the order depends on the plan alone, so two runs give
+// identical bits. The plan (team shape, grid, fold widths) is computed on
+// the host from the shapes (kernels/norm_bwd.py::bwd_plan), so every
+// launch can be captured in a CUDA graph.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace nbw {
+
+typedef __nv_bfloat16 bf16;
+constexpr int kThreads = 256;       // a walk block: 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 3;          // ring depth: two rows ahead
+constexpr int kFoldThreads = 256;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// 16 bytes, bypassing L1 (each vector is read once)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The kN values of one 16-byte vector, as f32.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void unpack(const uint4& u,
+                                                float (&f)[4]) {
+    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+  }
+  __device__ __forceinline__ static uint4 pack(const float (&f)[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+
+template <>
+struct Vec<bf16> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u,
+                                                float (&f)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __bfloat1622float2(h[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  __device__ __forceinline__ static uint4 pack(const float (&f)[8]) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return u;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Shared memory of one walk block: per team, the ring's data, uint4
+// [kStages][2][kSlots] (x, then dy; a lane's vector v of a row sits in
+// slot v), then its statistics, f32 [kStages][NST][kTPR] (a lane's own
+// copy in column t).
+template <typename T, int WPR, int VPT, int NST>
+struct Layout {
+  static constexpr int kN = Vec<T>::kN;
+  static constexpr int kTPR = 32 * WPR;            // threads a team
+  static constexpr int kTeams = kThreads / kTPR;
+  static constexpr int kSlots = VPT * kTPR;        // vectors of a row
+  static constexpr int kDataBytes = kStages * 2 * kSlots * 16;
+  static constexpr int kTeamBytes = kDataBytes + kStages * NST * kTPR * 4;
+  static constexpr int kBytes = kTeams * kTeamBytes;
+};
+
+// The NSUM row sums of a team: warp shuffles, then, for a team of several
+// warps, the warps' totals through shared memory under the team's own
+// named barrier (1 + team; 0 is __syncthreads'). `red` is this row's
+// half of a buffer double-buffered by row parity: a warp can write the
+// next row's half while a slower one still reads this one, and cannot
+// reach the row after before that one has passed the next barrier.
+template <int WPR, int NSUM>
+__device__ __forceinline__ void team_sum(float (&s)[NSUM],
+                                         float (*red)[NSUM], int warp,
+                                         int lane, int team) {
+#pragma unroll
+  for (int k = 0; k < NSUM; ++k)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
+  if constexpr (WPR > 1) {
+    if (lane == 0)
+#pragma unroll
+      for (int k = 0; k < NSUM; ++k) red[warp][k] = s[k];
+    asm volatile("bar.sync %0, %1;\n" :: "r"(1 + team), "r"(32 * WPR)
+                 : "memory");
+#pragma unroll
+    for (int k = 0; k < NSUM; ++k) {
+      s[k] = 0.f;
+#pragma unroll
+      for (int i = 0; i < WPR; ++i) s[k] += red[team * WPR + i][k];
+    }
+  }
+}
+
+// One walk block's work: its teams walk their rows, then the block writes
+// its partial row partials[blockIdx.x] (f32 [NACC * D]: accumulator a's
+// column c at a * D + c). For each row, with st its NST statistics:
+//   first(i, st, x, dy, s)      adds the lane's vector i to its NSUM sums
+//   second(i, st, s, x, dy, o)  with s the row's totals: o = dx's vector i
+// acc[a][i][j] are the lane's column sums (the lambdas add to them).
+template <typename T, int WPR, int VPT, int NSUM, int NST, int NACC,
+          class First, class Second>
+__device__ __forceinline__ void walk(
+    const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+    const float* const (&stat)[NST], float* __restrict__ partials, int rows,
+    int D, int n_teams, float (&acc)[NACC][VPT][Vec<T>::kN], First first,
+    Second second) {
+  using L = Layout<T, WPR, VPT, NST>;
+  constexpr int kN = L::kN;
+  static_assert(NACC * kN / 4 <= 2 * kStages,
+                "a lane's column sums fit in its own ring slots");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2][kWarps][NSUM];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int team = warp / WPR, t = threadIdx.x % L::kTPR;
+  uint4* data = reinterpret_cast<uint4*>(smem + team * L::kTeamBytes);
+  float* stats = reinterpret_cast<float*>(smem + team * L::kTeamBytes +
+                                          L::kDataBytes);
+  const int nvec = D / kN;
+  const int g = blockIdx.x * L::kTeams + team;
+  const int lo = (int)((long long)g * rows / n_teams);
+  const int hi = (int)((long long)(g + 1) * rows / n_teams);
+
+  // row `row`'s vectors and statistics into ring stage `stage`; one
+  // commit group per call, empty past the team's rows
+  auto issue = [&](int row, int stage) {
+    if (row < hi) {
+      const uint4* xs = reinterpret_cast<const uint4*>(x + (size_t)row * D);
+      const uint4* ds = reinterpret_cast<const uint4*>(dy + (size_t)row * D);
+      uint4* sx = data + stage * 2 * L::kSlots;
+#pragma unroll
+      for (int i = 0; i < VPT; ++i) {
+        const int v = t + i * L::kTPR;
+        if (v < nvec) {
+          cp_async16(sx + v, xs + v);
+          cp_async16(sx + L::kSlots + v, ds + v);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NST; ++k)
+        cp_async4(stats + (stage * NST + k) * L::kTPR + t, stat[k] + row);
+    }
+    cp_async_commit();
+  };
+
+  issue(lo, 0);
+  issue(lo + 1, 1);
+  int stage = 0, parity = 0;
+  for (int row = lo; row < hi; ++row) {
+    issue(row + 2, stage == 0 ? kStages - 1 : stage - 1);
+    cp_async_wait<kStages - 1>();             // this row's group landed
+    const uint4* sx = data + stage * 2 * L::kSlots;
+    float st[NST];
+#pragma unroll
+    for (int k = 0; k < NST; ++k)
+      st[k] = stats[(stage * NST + k) * L::kTPR + t];
+    float s[NSUM];
+#pragma unroll
+    for (int k = 0; k < NSUM; ++k) s[k] = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int v = t + i * L::kTPR;
+      if (v < nvec) {
+        float xv[kN], dv[kN];
+        Vec<T>::unpack(sx[v], xv);
+        Vec<T>::unpack(sx[L::kSlots + v], dv);
+        first(i, st, xv, dv, s);
+      }
+    }
+    team_sum<WPR, NSUM>(s, red[parity], warp, lane, team);
+    uint4* orow = reinterpret_cast<uint4*>(dx + (size_t)row * D);
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int v = t + i * L::kTPR;
+      if (v < nvec) {
+        float xv[kN], dv[kN], o[kN];
+        Vec<T>::unpack(sx[v], xv);
+        Vec<T>::unpack(sx[L::kSlots + v], dv);
+        second(i, st, s, xv, dv, o);
+        orow[v] = Vec<T>::pack(o);
+      }
+    }
+    stage = stage == kStages - 1 ? 0 : stage + 1;
+    parity ^= 1;
+  }
+  cp_async_wait<0>();
+  // the fold may launch now; it waits for this grid's partial rows
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // the lane's sums of vector v into its own slots v of the team's ring
+  // (4 columns a slot: accumulator a's quarter q in slot plane a*kN/4 + q)
+  float4* planes = reinterpret_cast<float4*>(data);
+#pragma unroll
+  for (int a = 0; a < NACC; ++a)
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int v = t + i * L::kTPR;
+      if (v < nvec)
+#pragma unroll
+        for (int q = 0; q < kN / 4; ++q)
+          planes[(a * (kN / 4) + q) * L::kSlots + v] =
+              make_float4(acc[a][i][4 * q], acc[a][i][4 * q + 1],
+                          acc[a][i][4 * q + 2], acc[a][i][4 * q + 3]);
+    }
+  __syncthreads();
+  // the block's partial row: its teams' sums added in team order
+  const int C = NACC * D;
+  float* prow = partials + (size_t)blockIdx.x * C;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const int a = c / D, col = c - a * D;
+    const int off = ((a * (kN / 4) + (col % kN) / 4) * L::kSlots
+                     + col / kN) * 4 + col % 4;
+    float sum = 0.f;
+#pragma unroll
+    for (int tm = 0; tm < L::kTeams; ++tm)
+      sum += reinterpret_cast<const float*>(smem + tm * L::kTeamBytes)[off];
+    prow[c] = sum;
+  }
+}
+
+// The fold of n_parts partial rows of C columns: column c's sum goes to
+// put(c, value). A programmatic dependent of the walk: it waits for the
+// walk's grid before reading (a no-op when launched plainly).
+template <class Put>
+__device__ __forceinline__ void fold(const float* __restrict__ partials,
+                                     int n_parts, int C, int cols,
+                                     Put put) {
+  __shared__ float seg_sum[kFoldThreads];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int segs = kFoldThreads / cols;
+  const int col = threadIdx.x % cols, seg = threadIdx.x / cols;
+  const int c = blockIdx.x * cols + col;
+  const int p0 = (int)((long long)seg * n_parts / segs);
+  const int p1 = (int)((long long)(seg + 1) * n_parts / segs);
+  float s = 0.f;
+  if (c < C) {
+#pragma unroll 4
+    for (int p = p0; p < p1; ++p) s += partials[(size_t)p * C + c];
+  }
+  seg_sum[threadIdx.x] = s;
+  __syncthreads();
+  if (seg == 0 && c < C) {
+    float total = 0.f;
+    for (int k = 0; k < segs; ++k) total += seg_sum[k * cols + col];
+    put(c, total);
+  }
+}
+
+// ---------------------------------------------------------------- host
+// Calls f(WPR, VPT) (std::integral_constant arguments) for an
+// instantiated team shape: one warp with a VPT of kOneWarp, or 2, 4 or 8
+// warps with VMAX vectors a lane; cudaErrorInvalidValue for any other.
+template <int VMAX, class F>
+cudaError_t dispatch(int warps, int vpt, F&& f) {
+  using std::integral_constant;
+  if (warps == 1) {
+    switch (vpt) {
+      case 1: return f(integral_constant<int, 1>{}, integral_constant<int, 1>{});
+      case 2: return f(integral_constant<int, 1>{}, integral_constant<int, 2>{});
+      case 4: return f(integral_constant<int, 1>{}, integral_constant<int, 4>{});
+      case 6:
+        if constexpr (VMAX == 8)
+          return f(integral_constant<int, 1>{}, integral_constant<int, 6>{});
+        break;
+      case 8:
+        if constexpr (VMAX == 8)
+          return f(integral_constant<int, 1>{}, integral_constant<int, 8>{});
+        break;
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (vpt != VMAX) return cudaErrorInvalidValue;
+  switch (warps) {
+    case 2: return f(integral_constant<int, 2>{}, integral_constant<int, VMAX>{});
+    case 4: return f(integral_constant<int, 4>{}, integral_constant<int, VMAX>{});
+    case 8: return f(integral_constant<int, 8>{}, integral_constant<int, VMAX>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device (asked once per device: `granted` is the kernel's own table).
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes, int (&granted)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && bytes <= granted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) granted[dev] = bytes;
+  return err;
+}
+
+// Blocks of `kernel` (kThreads threads, `bytes` of dynamic shared memory)
+// that fit on one multiprocessor at once.
+template <class Kernel>
+inline cudaError_t resident(Kernel kernel, int bytes, int (&granted)[64],
+                            int* per_sm) {
+  cudaError_t err = allow_smem(kernel, bytes, granted);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                       kThreads, bytes);
+}
+
+// The fold as a programmatic dependent launch of the walk just enqueued
+// on `s`: its blocks are scheduled as the walk's finish, and wait for it.
+template <class Kernel, class... Args>
+inline cudaError_t launch_fold(Kernel kernel, int C, int cols,
+                               cudaStream_t s, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((C + cols - 1) / cols);
+  cfg.blockDim = dim3(kFoldThreads);
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+}  // namespace nbw

@@ -11,15 +11,16 @@
 //             rstd = r (f32, one per row)
 //   backward: dx = r * (w o dy) - x * (r^3 / D) * sum_j dy_j w_j x_j
 //             dw = sum over rows of dy o x o r
-// x, out, dy, dx bf16 [rows, D]; the forward reads w in its own dtype
-// (bf16 or f32), the backward f32 [D] (the wrapper casts it); all
+// x, out, dy, dx bf16 [rows, D]; both read w in its own dtype (bf16 or
+// f32) and the backward writes dw in it (the f32 sum rounded once); all
 // arithmetic in f32, in the order of the TPU kernels.
 //
 // Bound on the H100: a handful of operations per element against 4 (fwd:
-// x read, out written) or 6 (bwd) bytes per element, far below the card's
-// ~295 flop/byte ridge: memory bound. The training steps' [40960, 2048]
-// and [16384, 4096] forwards move 336 and 268 MB, 0.100 and 0.080 ms at
-// 3.35 TB/s.
+// x read, out written) or 6 (bwd: x, dy read, dx written) bytes per
+// element, far below the card's ~295 flop/byte ridge: memory bound. The
+// training steps' [40960, 2048] and [16384, 4096] forwards move 336 and
+// 268 MB, 0.100 and 0.080 ms at 3.35 TB/s; their backwards 503 and 403
+// MB, 0.150 and 0.120 ms.
 //
 // Forward design. A row is held in registers by one warp (D <= 2048, as
 // 8 bf16 16-byte vectors a lane at D 2048), two (D <= 4096) or four
@@ -33,26 +34,34 @@
 // The next row's loads are issued before the current row's reduction,
 // so a row's latency hides behind the one before it.
 //
-// Backward design: one block of 256 threads per row, 16-byte loads and
-// stores (8 bf16 a thread per vector, 1, 2 or 4 vectors a thread as D
-// needs, so D <= 8192), the row's sum(dy w x) reduced over the block in
-// f32. dw is reduced deterministically, without float atomics: each
-// backward block walks a contiguous chunk of rows and writes its
-// per-column partial sums once to an f32 [chunks, D] scratch, and a
-// second kernel sums the chunks in a fixed order, so two runs give
-// identical bits.
+// Backward design: the walk of norm_bwd_core.cuh (a persistent grid of
+// warp teams, 1 warp a row up to D 1024, 2, 4 or 8 up to 8192, each lane
+// holding 4 bf16 vectors of a row at most; x, dy and rstd two rows ahead
+// in a cp.async ring; the row's sum(dy w x) by shuffles and the team's
+// named barrier), with the weight loaded once per lane in its own dtype;
+// each block writes one f32 partial row of dw, and rms_dw_kernel folds
+// them in a fixed order and writes dw in the weight's dtype. What held
+// the previous design back (one 256-thread block a row walking 512 fixed
+// chunks; H100 SXM at 700 W, one CUDA graph: 0.212 ms at [16384, 4096],
+// 0.226 at [40960, 2048], 57 % and 67 % of the bound): each row's x and
+// dy loaded synchronously with nothing in flight behind them, two block-wide
+// barriers a row, a 16- or 8-block fold whose threads each summed 512
+// partials in one chain (0.019 / 0.015 ms alone), and two casts of the
+// weight and of dw around the call (0.005 ms). This design: 0.156 and
+// 0.191 ms, 77 % and 79 % of the bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "norm_bwd_core.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 constexpr int kThreads = 256;
-constexpr int kMaxVec = 4;      // 16-byte vectors per thread: D <= 8192
-// (the kernels are instantiated for VPT = 1, 2 and 4 vectors a thread)
+constexpr int kMaxVec = 4;      // 16-byte vectors a thread of 256: D <= 8192
 
 __device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -196,80 +205,94 @@ rms_fwd_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
   }
 }
 
-template <int VPT>
-__global__ void __launch_bounds__(kThreads)
-rms_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+// The backward's walk: WPR warps a row, VPT bf16 vectors a lane, the
+// weight's 8 values a vector held in registers in its own dtype.
+template <typename WT, int WPR, int VPT>
+__global__ void __launch_bounds__(nbw::kThreads)
+rms_bwd_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
                const float* __restrict__ rstd, const bf16* __restrict__ dy,
                bf16* __restrict__ dx, float* __restrict__ partials,
-               int rows, int D, int rows_per_chunk) {
-  __shared__ float red[kThreads / 32];
-  const int nvec = D / 8;
-  const int first = blockIdx.x * rows_per_chunk;
-  const int last = min(rows, first + rows_per_chunk);
-  float wv[VPT][8], acc[VPT][8];
+               int rows, int D, int n_teams) {
+  constexpr int kTPR = 32 * WPR;
+  const int t = threadIdx.x % kTPR, nvec = D / 8;
+  WVec<WT> wv[VPT];
+  float acc[1][VPT][8];
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
-    const int vi = threadIdx.x + i * kThreads;
+    if (t + i * kTPR < nvec) wv[i].load(w + (t + i * kTPR) * 8);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      wv[i][j] = vi < nvec ? w[vi * 8 + j] : 0.f;
-      acc[i][j] = 0.f;
-    }
+    for (int j = 0; j < 8; ++j) acc[0][i][j] = 0.f;
   }
   const float inv_d = 1.f / D;
-  for (int row = first; row < last; ++row) {
-    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
-    const uint4* dr = reinterpret_cast<const uint4*>(dy + (size_t)row * D);
-    float xv[VPT][8], dyv[VPT][8];
-    float s = 0.f;
+  const float* const stat[1] = {rstd};
+  nbw::walk<bf16, WPR, VPT, 1, 1, 1>(
+      x, dy, dx, stat, partials, rows, D, n_teams, acc,
+      [&](int i, const float (&st)[1], const float (&xv)[8],
+          const float (&dv)[8], float (&s)[1]) {
+        float g[8];
+        wv[i].get(g);
 #pragma unroll
-    for (int i = 0; i < VPT; ++i) {
-      const int vi = threadIdx.x + i * kThreads;
-      if (vi < nvec) {
-        unpack8(xr[vi], xv[i]);
-        unpack8(dr[vi], dyv[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s += dyv[i][j] * wv[i][j] * xv[i][j];
-      }
-    }
-    s = block_sum(s, red);
-    const float r = rstd[row];
-    const float c3 = r * r * r * inv_d;
-    uint4* xo = reinterpret_cast<uint4*>(dx + (size_t)row * D);
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) {
-      const int vi = threadIdx.x + i * kThreads;
-      if (vi < nvec) {
-        float o[8];
+        for (int j = 0; j < 8; ++j) s[0] += dv[j] * g[j] * xv[j];
+      },
+      [&](int i, const float (&st)[1], const float (&s)[1],
+          const float (&xv)[8], const float (&dv)[8], float (&o)[8]) {
+        const float r = st[0];
+        const float c3 = r * r * r * inv_d;
+        float g[8];
+        wv[i].get(g);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          o[j] = r * (dyv[i][j] * wv[i][j]) - xv[i][j] * c3 * s;
-          acc[i][j] += dyv[i][j] * xv[i][j] * r;
+          o[j] = r * (dv[j] * g[j]) - xv[j] * c3 * s[0];
+          acc[0][i][j] += dv[j] * xv[j] * r;
         }
-        xo[vi] = pack8(o);
-      }
-    }
-  }
-  float* part = partials + (size_t)blockIdx.x * D;
-#pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int vi = threadIdx.x + i * kThreads;
-    if (vi < nvec) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) part[vi * 8 + j] = acc[i][j];
-    }
-  }
+      });
 }
 
-// dw[c] = sum over chunks of partials[chunk][c], chunks in order.
-__global__ void __launch_bounds__(kThreads)
-rms_dw_kernel(const float* __restrict__ partials, float* __restrict__ dw,
-              int D, int chunks) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= D) return;
-  float s = 0.f;
-  for (int k = 0; k < chunks; ++k) s += partials[(size_t)k * D + c];
-  dw[c] = s;
+// dw[c] = the partial rows' column c, folded in the plan's fixed order,
+// rounded once to the weight's dtype.
+template <typename WT>
+__global__ void __launch_bounds__(nbw::kFoldThreads)
+rms_dw_kernel(const float* __restrict__ partials, WT* __restrict__ dw,
+              int n_parts, int D, int cols) {
+  nbw::fold(partials, n_parts, D, cols,
+            [&](int c, float v) { dw[c] = nbw::from_f32<WT>(v); });
+}
+
+template <typename WT>
+cudaError_t bwd_resident(int warps, int vpt, int* per_sm) {
+  return nbw::dispatch<4>(warps, vpt, [&](auto wpr, auto v) {
+    constexpr int WPR = decltype(wpr)::value, VPT = decltype(v)::value;
+    static int granted[64] = {};
+    return nbw::resident(rms_bwd_kernel<WT, WPR, VPT>,
+                         nbw::Layout<bf16, WPR, VPT, 1>::kBytes, granted,
+                         per_sm);
+  });
+}
+
+template <typename WT>
+cudaError_t launch_bwd(const void* x, const void* w, const void* rstd,
+                       const void* dy, void* dx, void* dw, void* partials,
+                       int rows, int D, int warps, int vpt, int blocks,
+                       int cols, cudaStream_t s) {
+  cudaError_t err = nbw::dispatch<4>(warps, vpt, [&](auto wpr, auto v) {
+    constexpr int WPR = decltype(wpr)::value, VPT = decltype(v)::value;
+    using L = nbw::Layout<bf16, WPR, VPT, 1>;
+    if (D / 8 > VPT * L::kTPR) return cudaErrorInvalidValue;
+    static int granted[64] = {};
+    cudaError_t e = nbw::allow_smem(rms_bwd_kernel<WT, WPR, VPT>, L::kBytes,
+                                    granted);
+    if (e != cudaSuccess) return e;
+    rms_bwd_kernel<WT, WPR, VPT><<<blocks, nbw::kThreads, L::kBytes, s>>>(
+        static_cast<const bf16*>(x), static_cast<const WT*>(w),
+        static_cast<const float*>(rstd), static_cast<const bf16*>(dy),
+        static_cast<bf16*>(dx), static_cast<float*>(partials), rows, D,
+        blocks * L::kTeams);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  return nbw::launch_fold(rms_dw_kernel<WT>, D, cols, s,
+                          static_cast<const float*>(partials),
+                          static_cast<WT*>(dw), blocks, D, cols);
 }
 
 // The persistent grid: as many blocks as fit on the card at once, asked
@@ -329,30 +352,33 @@ extern "C" int rms_fwd_bf16(const void* x, const void* w, void* out,
                       : dispatch_fwd<float>(x, w, out, rstd, rows, D, eps, s));
 }
 
-// `partials` is an f32 [chunks, D] scratch; dw is f32 [D]. Returns the
-// launches' cudaError_t (0 on success).
+// The backward with the plan of kernels/norm_bwd.py::bwd_plan: teams of
+// `warps` warps holding `vpt` vectors a lane, `blocks` walk blocks (one
+// f32 [D] partial row each in `partials`), a fold of `cols` columns a
+// block. w and dw are bf16 (w_bf16 != 0) or f32 [D], 16-byte aligned.
+// Returns the launches' cudaError_t (0 on success).
 extern "C" int rms_bwd_bf16(const void* x, const void* w, const void* rstd,
                             const void* dy, void* dx, void* dw,
-                            void* partials, int rows, int D, int chunks,
+                            void* partials, int rows, int D, int w_bf16,
+                            int warps, int vpt, int blocks, int cols,
                             void* stream) {
-  if (D % 8 || D > kThreads * kMaxVec * 8 || chunks < 1)
+  if (D % 8 || D > kThreads * kMaxVec * 8 || rows < 1 || blocks < 1 ||
+      (cols != 8 && cols != 16 && cols != 32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per = (rows + chunks - 1) / chunks;
-  const int used = (rows + per - 1) / per;
-  const int vpt = (D / 8 + kThreads - 1) / kThreads;
-#define PTT_BWD(V)                                                         \
-  rms_bwd_kernel<V><<<used, kThreads, 0, s>>>(                             \
-      static_cast<const bf16*>(x), static_cast<const float*>(w),          \
-      static_cast<const float*>(rstd), static_cast<const bf16*>(dy),      \
-      static_cast<bf16*>(dx), static_cast<float*>(partials), rows, D, per)
-  if (vpt == 1) PTT_BWD(1);
-  else if (vpt == 2) PTT_BWD(2);
-  else PTT_BWD(4);
-#undef PTT_BWD
-  rms_dw_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(partials), static_cast<float*>(dw), D, used);
-  return (int)cudaGetLastError();
+  return (int)(w_bf16 ? launch_bwd<bf16>(x, w, rstd, dy, dx, dw, partials,
+                                         rows, D, warps, vpt, blocks, cols, s)
+                      : launch_bwd<float>(x, w, rstd, dy, dx, dw, partials,
+                                          rows, D, warps, vpt, blocks, cols,
+                                          s));
+}
+
+// Walk blocks of the (w_bf16, warps, vpt) backward that fit on one
+// multiprocessor, into *per_sm. Returns a cudaError_t.
+extern "C" int rms_bwd_resident(int w_bf16, int warps, int vpt,
+                                int* per_sm) {
+  return (int)(w_bf16 ? bwd_resident<bf16>(warps, vpt, per_sm)
+                      : bwd_resident<float>(warps, vpt, per_sm));
 }
 
 // ------------------------------------------------------------------ row 6

@@ -25,17 +25,15 @@ import ctypes
 import torch
 
 from .. import _build
+from . import norm_bwd
 
 # ln_fwd_<dt>(x, w, b, out, mu, rstd, rows, D, eps, stream)
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
     ctypes.c_float, ctypes.c_void_p]
-# ln_bwd_<dt>(x, w, mu, rstd, dy, dx, dw, db, partials, rows, D, chunks,
-#             stream)
-_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+# ln_bwd_<dt>(x, w, mu, rstd, dy, dx, dw, db, partials, rows, D, warps,
+#             vpt, blocks, fold_cols, stream)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p]
-# row chunks of the backward's deterministic dw/db reduction: each
-# chunk's f32 partial rows are written once, then summed in chunk order
-_BWD_CHUNKS = 1024
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -109,13 +107,15 @@ def _check_dy(x, dy, what):
 
 
 def _param(t, d, device, what):
-    """A weight or bias as the kernel reads it: contiguous f32 [D]."""
+    """A weight or bias as the kernels read it: contiguous, 16-byte
+    aligned f32 [D] (an f32 parameter as it is)."""
     if t is None:
         return None
     if tuple(t.shape) != (d,) or t.device != device:
         raise ValueError(f"{what}: parameter {tuple(t.shape)} does not "
                          f"match hidden size {d} on {device}")
-    return t.float().contiguous()
+    t = t.float().contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def layer_norm_fwd(x, weight, bias, epsilon: float = 1e-5):
@@ -159,9 +159,9 @@ def layer_norm_bwd(x, weight, mu, rstd, dy, epsilon: float = 1e-5):
     """LayerNorm backward: (dx like x, dw f32 [D], db f32 [D]); weight
     None is the affine-free form (w = 1). On a CPU tensor: the plain twin,
     which recomputes mu and r from x. On a CUDA tensor: the kernel, which
-    reads the forward's `mu` and `rstd`; dw and db are summed over row
-    chunks in a fixed order (no float atomics), so two runs give
-    identical bits. Each launch adds one to `layer_norm_bwd.launches`."""
+    reads the forward's `mu` and `rstd`; dw and db are summed in the
+    fixed order of `norm_bwd.bwd_plan` (no float atomics), so two runs
+    give identical bits. Each launch adds one to `layer_norm_bwd.launches`."""
     affine = weight is not None
     if not x.is_cuda:
         return _ln_ref_bwd(x, weight, dy, epsilon, affine)
@@ -178,10 +178,12 @@ def layer_norm_bwd(x, weight, mu, rstd, dy, epsilon: float = 1e-5):
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, *torch.zeros(2, d, dtype=torch.float32, device=x.device)
+    x_bf16 = int(x.dtype == torch.bfloat16)
+    plan = norm_bwd.device_plan(x.device, "layer_norm", "ln_bwd_resident",
+                                x_bf16, rows, d, 16 // x.element_size(), 2)
     dw = torch.empty(d, dtype=torch.float32, device=x.device)
     db = torch.empty(d, dtype=torch.float32, device=x.device)
-    chunks = min(rows, _BWD_CHUNKS)
-    partials = torch.empty(2, chunks, d, dtype=torch.float32,
+    partials = torch.empty(plan.blocks, 2, d, dtype=torch.float32,
                            device=x.device)
     fn = _build.function("layer_norm", f"ln_bwd_{_KERNEL_DTYPES[x.dtype]}",
                          _BWD_ARGTYPES)
@@ -190,7 +192,8 @@ def layer_norm_bwd(x, weight, mu, rstd, dy, epsilon: float = 1e-5):
         err = fn(x.data_ptr(), w.data_ptr() if affine else None,
                  mu.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
                  dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                 partials.data_ptr(), rows, d, chunks, stream)
+                 partials.data_ptr(), rows, d, plan.warps, plan.vpt,
+                 plan.blocks, plan.fold_cols, stream)
     _build.check(err, "ln_bwd")
     layer_norm_bwd.launches += 1
     return dx, dw, db

@@ -29,20 +29,19 @@ import ctypes
 import torch
 
 from .. import _build
+from . import norm_bwd
 
 # rms_fwd_bf16(x, w, out, rstd, rows, D, eps, w_bf16, stream)
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-# rms_bwd_bf16(x, w, rstd, dy, dx, dw, partials, rows, D, n_chunks, stream)
-_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+# rms_bwd_bf16(x, w, rstd, dy, dx, dw, partials, rows, D, w_bf16, warps,
+#              vpt, blocks, fold_cols, stream)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
 # rms_fused_<dt>(x, w, out, rows, D, eps, stream)
 _FUSED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
     ctypes.c_float, ctypes.c_void_p]
 _FUSED_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# row chunks of the backward's deterministic dw reduction: each chunk's
-# f32 partial row is written once, then summed in chunk order
-_BWD_CHUNKS = 512
 
 
 def rms_norm_ref(x, weight=None, epsilon: float = 1e-6):
@@ -96,6 +95,16 @@ def _check_rows(x, weight, what):
                          f"match hidden size {d} on {x.device}")
 
 
+def _kernel_weight(weight):
+    """The weight as the kernels read it: bf16 or f32 as it is, any other
+    dtype cast to f32; contiguous and 16-byte aligned."""
+    w = weight if weight.dtype in (torch.bfloat16, torch.float32) \
+        else weight.float()
+    if not w.is_contiguous() or w.data_ptr() % 16:
+        w = w.clone(memory_format=torch.contiguous_format)
+    return w
+
+
 def rms_norm_fwd(x, weight, epsilon: float = 1e-6):
     """RMSNorm forward saving the reciprocal RMS: (out like x, rstd f32
     [rows, 1]). On a CPU tensor: the plain twin. On a CUDA tensor: the
@@ -112,10 +121,7 @@ def rms_norm_fwd(x, weight, epsilon: float = 1e-6):
     rstd = torch.empty(rows, 1, dtype=torch.float32, device=x.device)
     if rows == 0:
         return out, rstd
-    w = weight if weight.dtype in (torch.bfloat16, torch.float32) \
-        else weight.float()
-    if not w.is_contiguous() or w.data_ptr() % 16:
-        w = w.clone(memory_format=torch.contiguous_format)
+    w = _kernel_weight(weight)
     fn = _build.function("rms_norm", "rms_fwd_bf16", _FWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -133,10 +139,11 @@ rms_norm_fwd.launches = 0
 def rms_norm_bwd(x, weight, rstd, dy, epsilon: float = 1e-6):
     """RMSNorm backward: (dx like x, dw in weight's dtype). On a CPU
     tensor: the plain twin, which recomputes r from x (differentiable).
-    On a CUDA tensor: the kernel, which reads the forward's `rstd`; dw
-    is summed over row chunks in a fixed order (no float atomics), so
-    two runs give identical bits. Each launch adds one to
-    `rms_norm_bwd.launches`."""
+    On a CUDA tensor: the kernel, which reads the forward's `rstd` and a
+    bf16 or f32 weight as it is (any other dtype cast to f32 first) and
+    writes dw in that dtype; dw is summed in the fixed order of
+    `norm_bwd.bwd_plan` (no float atomics), so two runs give identical
+    bits. Each launch adds one to `rms_norm_bwd.launches`."""
     if not x.is_cuda:
         return _rms_train_ref_bwd(x, weight, dy, epsilon)
     _check_rows(x, weight, "rms_norm_bwd")
@@ -144,6 +151,8 @@ def rms_norm_bwd(x, weight, rstd, dy, epsilon: float = 1e-6):
         raise ValueError(f"rms_norm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
                          f"does not match x {tuple(x.shape)} {x.dtype}")
     dy = dy.contiguous()
+    if dy.data_ptr() % 16:
+        raise TypeError("rms_norm_bwd: dy must be 16-byte aligned")
     d = x.shape[-1]
     rows = x.numel() // d
     if rstd.numel() != rows or rstd.dtype != torch.float32:
@@ -152,19 +161,23 @@ def rms_norm_bwd(x, weight, rstd, dy, epsilon: float = 1e-6):
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, torch.zeros_like(weight)
-    chunks = min(rows, _BWD_CHUNKS)
-    partials = torch.empty(chunks, d, dtype=torch.float32, device=x.device)
-    dw = torch.empty(d, dtype=torch.float32, device=x.device)
-    w = weight.float().contiguous()
+    w = _kernel_weight(weight)
+    w_bf16 = int(w.dtype == torch.bfloat16)
+    plan = norm_bwd.device_plan(x.device, "rms_norm", "rms_bwd_resident",
+                                w_bf16, rows, d, 8, 1)
+    partials = torch.empty(plan.blocks, d, dtype=torch.float32,
+                           device=x.device)
+    dw = torch.empty(d, dtype=w.dtype, device=x.device)
     fn = _build.function("rms_norm", "rms_bwd_bf16", _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
                  dx.data_ptr(), dw.data_ptr(), partials.data_ptr(), rows, d,
-                 chunks, stream)
+                 w_bf16, plan.warps, plan.vpt, plan.blocks, plan.fold_cols,
+                 stream)
     _build.check(err, "rms_bwd_bf16")
     rms_norm_bwd.launches += 1
-    return dx, dw.to(weight.dtype)
+    return dx, dw if dw.dtype == weight.dtype else dw.to(weight.dtype)
 
 
 rms_norm_bwd.launches = 0

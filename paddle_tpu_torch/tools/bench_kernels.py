@@ -1,31 +1,51 @@
-"""Rows 7 and 18 of PERF.md's kernel table (the RMSNorm forward and ragged
-paged attention) at every shape `chip_smoke.py` holds them, on one GPU.
+"""Rows 7, 8, 10 and 18 of PERF.md's kernel table (the RMSNorm forward
+and backward, the LayerNorm backward and ragged paged attention) at
+every shape `chip_smoke.py` holds them, on one GPU.
 
-    python -m paddle_tpu_torch.tools.bench_kernels [--check] [--label L]
+    python -m paddle_tpu_torch.tools.bench_kernels [--check]
+        [--rows 7,8,10,18] [--label L]
 
 For each held shape one JSON line: the kernel's error against its plain
 version, whether two calls give identical bits, and its times two ways.
 `ms` has the host in the loop: CUDA events around calls made one after
-another (for row 18 with the L2 cache flushed before each call, outside
-the timed span), as `chip_smoke.py` times kernels. `graph_ms` is device
-time: the calls captured in one CUDA graph and replayed; row 18's calls
-rotate over copies of the pools that together exceed twice the 50 MB
-L2, so each call finds its K and V cold, as a decode step's layers do.
-Beside them: the bound (bytes over 3.35 TB/s or operations over the
-peak rate, the larger) and its share of each time; for row 7 also
-`F.rms_norm`'s times. Row 18's shapes (Llama-3-8B widths: H 32, KV 8,
-hd 128, bs 16, a 64-block table): decode (8 rows, live 1..1024 keys, one
-all-invalid), fused (those rows padded to 256 plus a prefill row),
-continue (64 queries at 512..575), full8 and full32 (8 and 32 decode
-rows of 1024 live keys each). Row 7's: the dense step's [16384, 4096]
-and the MoE step's [40960, 2048], bf16 x and weight.
+another (for row 18 and row 10 with the L2 cache flushed before each
+call, outside the timed span), as `chip_smoke.py` times kernels.
+`graph_ms` is device time: the calls captured in one CUDA graph and
+replayed; row 18's calls rotate over copies of the pools that together
+exceed twice the 50 MB L2, so each call finds its K and V cold, as a
+decode step's layers do. Beside them: the bound (bytes over 3.35 TB/s or
+operations over the peak rate, the larger) and its share of each time;
+for row 7 also `F.rms_norm`'s times. Row 18's shapes (Llama-3-8B widths:
+H 32, KV 8, hd 128, bs 16, a 64-block table): decode (8 rows, live
+1..1024 keys, one all-invalid), fused (those rows padded to 256 plus a
+prefill row), continue (64 queries at 512..575), full8 and full32 (8 and
+32 decode rows of 1024 live keys each). Row 7's and row 8's: the dense
+step's [16384, 4096] and the MoE step's [40960, 2048], bf16 x and
+weight. Row 10's: the eager ERNIE step's f32 [32768, 768] and the other
+forms `chip_smoke.py` holds (bf16, D 4096 and 8192, affine-free, 4099
+rows at D 776 and 1032).
+
+Rows 8 and 10 also report the one ATen call that computes the same
+backward, timed the same two ways (`library_ms`, `library_graph_ms`):
+row 10 `aten.native_layer_norm_backward` on the statistics of ATen's
+own forward (the weight cast to x's dtype outside the timed span), row 8
+`aten._fused_rms_norm_backward` on `aten._fused_rms_norm`'s rstd. And
+the profiler's device time of
+each kernel of one wrapper call, over calls replayed from one CUDA
+graph: `walk_ms` (the row walk), `fold_ms` (the launch that folds the
+dw/db partial rows), `other_ms` (any other launch of the call, such as
+a cast) and `fold_tail_ms`, the time from the walk's end to the fold's
+end, which is what the fold adds to the call when the two overlap.
 
 `--check` runs small and odd shapes instead (no timing): row 18 at hd 64
 and 128, GQA groups 1 to 32, P 1, 3 and 40, block sizes 16 and 48,
-random live lengths with invalid rows; row 7 at widths off the warp's
-round and up to 8192, bf16, f32 and f16 weights. It exits 1 if any case
-is out of tolerance (2e-2 of each output vector's scale) or not
-bit-identical twice.
+random live lengths with invalid rows; rows 7 and 8 at widths off the
+warp's round and up to 8192, bf16, f32 and f16 weights, 1 to 4099 rows;
+row 10 at D 8 to 8192, f32 and bf16, affine and affine-free, 1 to 4099
+rows. It exits 1 if any case is out of tolerance (2e-2 of each output
+vector's scale; f32 LayerNorm dx 1e-5; an f32 dw or db 1e-4 of its
+largest value, a dw rounded to bf16 or f16 2e-2) or not bit-identical
+twice.
 
 The file uses only the wrappers' public functions and their plain
 versions, so the same file times an older checkout of the package (run
@@ -40,6 +60,7 @@ import json
 import math
 import subprocess
 import sys
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -52,6 +73,16 @@ L2_BYTES = 50e6
 H, KV, HD, BS, M = 32, 8, 128, 16, 64
 RAGGED_KINDS = ("decode", "fused", "continue", "full8", "full32")
 RMS_SHAPES = ((16384, 4096, 1e-5), (40960, 2048, 1e-6))
+_F32, _BF16 = torch.float32, torch.bfloat16
+# row 10 as chip_smoke.py holds it: (rows, D, dtype, affine), the eager
+# ERNIE step's form first
+LN_SHAPES = ((32768, 768, _F32, True), (32768, 768, _BF16, True),
+             (8192, 4096, _BF16, True), (8192, 4096, _F32, True),
+             (4096, 8192, _BF16, False), (4096, 8192, _F32, True),
+             (32768, 768, _F32, False), (4099, 776, _BF16, True),
+             (4099, 1032, _F32, False))
+LN_F32_TOL, LN_SUM_TOL = 1e-5, 1e-4
+ROWS = (7, 8, 10, 18)
 
 
 def time_ms(fn, iters, flush=None):
@@ -264,38 +295,224 @@ def rms_checks(gen):
     return out
 
 
-def held(gen):
-    """Every held shape, timed: rows 18, then 7."""
+# ------------------------------------------------------- rows 8 and 10
+def kernel_split(fn, iters, walk_mark, fold_mark):
+    """Device time of each kernel of one fn() (torch.profiler over one
+    replay of `iters` calls captured in a CUDA graph, so no host gap
+    separates them): the row walk's, the fold's, the rest's, and the
+    mean time from a walk's end to the next fold's end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()                              # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    del graph
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    us, tails, walk_end = defaultdict(float), [], None
+    for e in evs:
+        dur = e.time_range.end - e.time_range.start
+        if fold_mark in e.name:
+            us["fold"] += dur
+            if walk_end is not None:
+                tails.append(e.time_range.end - walk_end)
+        elif walk_mark in e.name:
+            us["walk"] += dur
+            walk_end = e.time_range.end
+        else:
+            us["other"] += dur
+    out = {f"{k}_ms": us[k] / iters / 1e3 for k in ("walk", "fold", "other")}
+    out["fold_tail_ms"] = (sum(tails) / len(tails) / 1e3 if tails
+                           else None)
+    return out
+
+
+def rms_library(x, w, dy, eps):
+    """The one ATen call for the RMSNorm backward: the fused backward on
+    the fused forward's rstd."""
+    d = x.shape[-1]
+    rstd = torch.ops.aten._fused_rms_norm(x, [d], w, eps)[1]
+    return lambda: torch.ops.aten._fused_rms_norm_backward(
+        dy, x, [d], rstd, w, [True, True])
+
+
+def rms_bwd_case(rows, d, eps, gen, w_dtype=torch.bfloat16, timed=True):
+    """Row 8 against its plain twin at [rows, d] (bf16 x and dy), twice;
+    then times beside the ATen backward's."""
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    x = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(w_dtype)
+    dy = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+    _, rstd = rn.rms_norm_fwd(x, w, eps)
+    dx, dw = rn.rms_norm_bwd(x, w, rstd, dy, eps)
+    dx2, dw2 = rn.rms_norm_bwd(x, w, rstd, dy, eps)
+    rdx, rdw = rn._rms_train_ref_bwd(x, w, dy, eps)
+    res = {"kernel": "rms_norm_bwd",
+           "shape": f"rows={rows} D={d} w={str(w_dtype)[6:]}",
+           "max_abs_err": max((dx.float() - rdx.float()).abs().max().item(),
+                              (dw.float() - rdw.float()).abs().max().item()),
+           "max_rel_err": _rel(dx, rdx),
+           "dw_rel_err": ((dw.float() - rdw.float()).abs().max()
+                          / rdw.float().abs().max()).item(),
+           "dw_dtype": str(dw.dtype)[6:],
+           "repeat": torch.equal(dx, dx2) and torch.equal(dw, dw2)}
+    # an f32 dw differs from the twin's by the summation order alone
+    dw_tol = LN_SUM_TOL if w_dtype == torch.float32 else TOL
+    res["ok"] = (res["max_rel_err"] <= TOL and res["dw_rel_err"] <= dw_tol
+                 and res["repeat"] and dw.dtype == w.dtype)
+    if not timed:
+        return res
+    # x, dy read, dx written; rstd, w read; dw written
+    res.update(bound(9.0 * rows * d, 6.0 * rows * d + 4.0 * rows
+                     + 2.0 * w.element_size() * d, PEAK_F32))
+
+    def call():
+        return rn.rms_norm_bwd(x, w, rstd, dy, eps)
+
+    res["ms"] = time_ms(call, 20)
+    res["graph_ms"] = _graph_ms(call, 20)
+    res.update(kernel_split(call, 10, "rms_bwd_kernel", "rms_dw_kernel"))
+    lib = rms_library(x, w, dy, eps)
+    res["library_ms"] = time_ms(lib, 20)
+    res["library_graph_ms"] = _graph_ms(lib, 20)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["graph_bound_share"] = res["bound_ms"] / res["graph_ms"]
+    return res
+
+
+def ln_bwd_case(rows, d, dtype, affine, gen, flush=None, timed=True):
+    """Row 10 against its plain twin at [rows, d] (x and dy in `dtype`,
+    f32 weight or affine-free), at ERNIE's eps 1e-12, twice; then times
+    beside `aten.native_layer_norm_backward`'s."""
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    eps = 1e-12
+    x = (torch.randn(rows, d, device="cuda", generator=gen) + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(d, device="cuda", generator=gen)
+    if not affine:
+        w = b = None
+    dy = torch.randn(rows, d, device="cuda", generator=gen).to(dtype)
+    _, mu, rstd = ln.layer_norm_fwd(x, w, b, eps)
+    dx, dw, db = ln.layer_norm_bwd(x, w, mu, rstd, dy, eps)
+    again = ln.layer_norm_bwd(x, w, mu, rstd, dy, eps)
+    rdx, rdw, rdb = ln._ln_ref_bwd(x, w, dy, eps, affine)
+    sums = max(((a - r).abs().max() / r.abs().max()).item()
+               for a, r in ((dw, rdw), (db, rdb)))
+    res = {"kernel": "layer_norm_bwd",
+           "shape": f"rows={rows} D={d} {str(dtype)[6:]}"
+                    + ("" if affine else " affine-free"),
+           "max_abs_err": max((dx.float() - rdx.float()).abs().max().item(),
+                              (dw - rdw).abs().max().item(),
+                              (db - rdb).abs().max().item()),
+           "max_rel_err": _rel(dx, rdx), "dwdb_rel_err": sums,
+           "repeat": all(torch.equal(a, c)
+                         for a, c in zip((dx, dw, db), again))}
+    tol = LN_F32_TOL if dtype == torch.float32 else TOL
+    res["ok"] = (res["max_rel_err"] <= tol and sums <= LN_SUM_TOL
+                 and res["repeat"])
+    if not timed:
+        return res
+    es = x.element_size()
+    # x, dy read, dx written; mu, rstd, w read; dw, db written
+    res.update(bound(13.0 * rows * d, 3.0 * es * rows * d + 8.0 * rows
+                     + 12.0 * d, PEAK_F32))
+
+    def call():
+        return ln.layer_norm_bwd(x, w, mu, rstd, dy, eps)
+
+    res["ms"] = time_ms(call, 20, flush)
+    res["graph_ms"] = _graph_ms(call, 20)
+    res.update(kernel_split(call, 10, "ln_bwd_kernel", "ln_dwdb_kernel"))
+    wl = None if w is None else w.to(dtype)
+    bl = None if b is None else b.to(dtype)
+    _, lmu, lrstd = torch.ops.aten.native_layer_norm(x, [d], wl, bl, eps)
+
+    def lib():
+        return torch.ops.aten.native_layer_norm_backward(
+            dy, x, [d], lmu, lrstd, wl, bl, [True, affine, affine])
+
+    res["library_ms"] = time_ms(lib, 20, flush)
+    res["library_graph_ms"] = _graph_ms(lib, 20)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["graph_bound_share"] = res["bound_ms"] / res["graph_ms"]
+    return res
+
+
+def norm_bwd_checks(gen):
+    out = []
+    for rows, d in ((1, 8), (7, 776), (4099, 136), (4099, 1024),
+                    (4099, 2056), (333, 4096), (65, 6144), (4099, 8192)):
+        for wdt in (torch.bfloat16, torch.float32, torch.float16):
+            out.append(rms_bwd_case(rows, d, 1e-6, gen, wdt, timed=False))
+    for rows, d in ((1, 8), (3, 24), (4099, 136), (4099, 776), (7, 1032),
+                    (4099, 2056), (333, 4096), (65, 6144), (4099, 8192)):
+        for dt in (_F32, _BF16):
+            for affine in (True, False):
+                out.append(ln_bwd_case(rows, d, dt, affine, gen,
+                                       timed=False))
+    return out
+
+
+def held(gen, rows=ROWS):
+    """Every held shape of the table rows `rows`, timed: rows 18, 10, 7,
+    then 8."""
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def flush():                          # 256 MB > the 50 MB L2
         scratch.zero_()
 
     res = []
-    for kind in RAGGED_KINDS:
+    for kind in RAGGED_KINDS if 18 in rows else ():
         args, (pos, val) = ragged_batch(kind, H, KV, HD, BS, M, gen)
         R, P = pos.shape
         res.append(ragged_case(
             args, pos, val, f"{kind} R={R} P={P} H={H} KV={KV} hd={HD} "
             f"bs={BS} M={M}", flush=flush))
         del args
+    for n, d, dt, affine in LN_SHAPES if 10 in rows else ():
+        res.append(ln_bwd_case(n, d, dt, affine, gen, flush))
+        torch.cuda.empty_cache()
     del scratch
     torch.cuda.empty_cache()
-    res += [rms_case(rows, d, eps, gen) for rows, d, eps in RMS_SHAPES]
+    if 7 in rows:
+        res += [rms_case(n, d, eps, gen) for n, d, eps in RMS_SHAPES]
+    if 8 in rows:
+        res += [rms_bwd_case(n, d, eps, gen) for n, d, eps in RMS_SHAPES]
     return res
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--rows", default=",".join(map(str, ROWS)),
+                    help="table rows to run, of 7, 8, 10 and 18")
     ap.add_argument("--label", default="")
     args = ap.parse_args(argv)
+    rows = tuple(int(r) for r in args.rows.split(","))
+    if not set(rows) <= set(ROWS):
+        ap.error(f"--rows takes rows of {ROWS}")
     if not torch.cuda.is_available():
         print("bench_kernels: CUDA is not available", file=sys.stderr)
         return 1
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = (ragged_checks(gen) + rms_checks(gen)) if args.check \
-        else held(gen)
+    if args.check:
+        cases = ((ragged_checks(gen) if 18 in rows else [])
+                 + (rms_checks(gen) if 7 in rows else [])
+                 + (norm_bwd_checks(gen) if {8, 10} & set(rows) else []))
+    else:
+        cases = held(gen, rows)
     ok = True
     for r in cases:
         ok = ok and r["ok"]
