@@ -10,8 +10,9 @@ non-zero:
   2. build   — compiles every kernel under paddle_tpu_torch/csrc with nvcc
                (one process per source, in parallel) and times it; counts
                the HGMMA (wgmma) and UTMALDG (TMA load) instructions
-               `cuobjdump -sass` finds in the flash libraries and the
-               LDGSTS (cp.async) ones in the ragged and the two norm
+               `cuobjdump -sass` finds in the flash and gather-MLP
+               libraries (the latter's LDGSTS and UTMASTG too) and the
+               LDGSTS (cp.async) ones in the ragged and the three norm
                libraries, and fails where one is missing.
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, in bf16, at its main paths' shapes, against a stated
@@ -208,13 +209,17 @@ def phase_build():
            "sources": _build.sources(), "ptxas": ptxas, "sass": sass})
 
 
-# the flash libraries must hold Hopper's warpgroup products (HGMMA) and
-# TMA loads (UTMALDG); the ragged library and the two norm libraries (the
-# backward walks' rings) their cp.async copies (LDGSTS)
+# the flash libraries and gather_mlp must hold Hopper's warpgroup
+# products (HGMMA) and TMA loads (UTMALDG); gather_mlp also its gathered
+# rows' cp.async copies (LDGSTS) and xin's TMA stores (UTMASTG); the
+# ragged library and the three norm libraries (the backward walks' rings)
+# their cp.async copies (LDGSTS)
 _SASS_MARKS = {"flash_fwd": ("HGMMA", "UTMALDG"),
                "flash_bwd": ("HGMMA", "UTMALDG"),
+               "gather_mlp": ("HGMMA", "UTMALDG", "LDGSTS", "UTMASTG"),
                "ragged_paged_attention": ("LDGSTS",),
-               "rms_norm": ("LDGSTS",), "layer_norm": ("LDGSTS",)}
+               "rms_norm": ("LDGSTS",), "layer_norm": ("LDGSTS",),
+               "adaln": ("LDGSTS",)}
 
 
 def _sass_counts(_build):
@@ -1103,6 +1108,7 @@ def _adaln_cases(B, N, D, dtype, peaks, gen, flush):
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import adaln as ad
     from paddle_tpu_torch.mix import dit
+    from paddle_tpu_torch.tools.bench_flash import _graph_ms
     x = (torch.randn(B, N, D, device="cuda", generator=gen) + 0.3).to(dtype)
     sh, sc = ((0.1 * torch.randn(B, D, device="cuda", generator=gen))
               .to(dtype) for _ in range(2))
@@ -1158,6 +1164,7 @@ def _adaln_cases(B, N, D, dtype, peaks, gen, flush):
     fwd = {"shape": label, "max_abs_err": abs_f,
            "max_rel_err": max(err["out"], err["rstd"]), "errors": err,
            "ms": _time_ms(lambda: ad.adaln_fwd(x, sh, sc), 20, flush),
+           "graph_ms": _graph_ms(lambda: ad.adaln_fwd(x, sh, sc), 20),
            "plain_ms": _time_ms(lambda: ad._adaln_fwd_twin(x, sh, sc), 5,
                                 flush),
            "library_ms": None, "dit_chain_ms": chain_ms,
@@ -1171,6 +1178,8 @@ def _adaln_cases(B, N, D, dtype, peaks, gen, flush):
            "errors": err, "bit_identical": True,
            "ms": _time_ms(lambda: ad.adaln_bwd(x, sc, mu, rstd, dy), 20,
                           flush),
+           "graph_ms": _graph_ms(lambda: ad.adaln_bwd(x, sc, mu, rstd, dy),
+                                 20),
            "plain_ms": _time_ms(lambda: ad._adaln_bwd_plain(
                x, sc, mu, rstd, dy), 5, flush),
            "library_ms": None, "dit_chain_ms": chain_b,
@@ -1226,8 +1235,11 @@ def _gather_mlp_case(mp, peaks, gen, flush, D=2048, F_=1024):
     [16, D, F] N(0, 0.02) bf16. g and u within KERNEL_TOL per row of the
     plain version (f32 products, one rounding; the kernel accumulates
     the same bf16 products in f32 in another order), empty slots exactly
-    0, xin bit for bit. Timed beside three PyTorch calls: an unmasked
-    index gather and two torch.bmm (library_ms null: no one call)."""
+    0, xin bit for bit, two calls bit-identical. Timed with the host in
+    the loop and in one CUDA graph, beside three PyTorch calls (an
+    unmasked index gather and two torch.bmm; library_ms null: no one
+    call) and beside what the MoE step runs for the same products: the
+    dispatch gather (row 14) and two torch.matmul."""
     from paddle_tpu_torch.kernels import moe_dispatch as md
     B, S, E = mp["B"], mp["S"], mp["E"]
     T = B * S
@@ -1236,36 +1248,57 @@ def _gather_mlp_case(mp, peaks, gen, flush, D=2048, F_=1024):
     x = torch.randn(T, D, device="cuda", generator=gen).bfloat16()
     wg, wu = ((0.02 * torch.randn(E, D, F_, device="cuda", generator=gen))
               .bfloat16() for _ in range(2))
+    from paddle_tpu_torch.tools.bench_flash import _graph_ms
+    from paddle_tpu_torch.tools.bench_kernels import slot_blocks
     g, u, xin = md.gather_mlp_kernel(x, idx, wg, wu)
+    again = md.gather_mlp_kernel(x, idx, wg, wu)
     rg, ru, rxin = md._gather_mlp_ref(x, idx, wg, wu)
     torch.cuda.synchronize()
     valid = idx >= 0
     rel = {"g": _rel_err(g, rg, valid), "u": _rel_err(u, ru, valid)}
     empty0 = not (g[~valid].any().item() or u[~valid].any().item())
     exact = torch.equal(xin, rxin)
-    if not (max(rel.values()) <= KERNEL_TOL and empty0 and exact):
+    repeat = all(torch.equal(a, b) for a, b in zip((g, u, xin), again))
+    if not (max(rel.values()) <= KERNEL_TOL and empty0 and exact
+            and repeat):
         raise AssertionError(f"gather_mlp: relative errors {rel} (tol "
                              f"{KERNEL_TOL}), empty slots 0 {empty0}, xin "
-                             f"bit-identical {exact}")
+                             f"bit-identical {exact}, two calls "
+                             f"bit-identical {repeat}")
     err = max((g.float() - rg.float()).abs().max().item(),
               (u.float() - ru.float()).abs().max().item())
-    del g, u, xin, rg, ru, rxin
+    del g, u, xin, again, rg, ru, rxin
+    # 64-slot blocks: the wholly empty ones get no products
+    blocks = slot_blocks(idx, T)
 
     def three():
         xi = x[idx.clamp(min=0)]
         return torch.bmm(xi, wg), torch.bmm(xi, wu)
 
+    def step_path():
+        # what the MoE step runs instead (nlp/moe.py::moe_block): the
+        # dispatch gather (row 14, k = 1), then the two expert products
+        xi = md.dispatch_gather(x[None], mp["inv_tok"], mp["flat"],
+                                mp["k"]).reshape(E, M, D)
+        return torch.matmul(xi, wg), torch.matmul(xi, wu)
+
     read = int(valid.sum().item())
     res = {"shape": f"src [{T}, {D}], idx [{E}, {M}], wg/wu [{E}, {D}, "
                     f"{F_}], {read} slots filled", "path": "held",
            "max_abs_err": err, "max_rel_err": max(rel.values()),
-           "rel_err": rel, "xin_bit_identical": True,
+           "rel_err": rel, "xin_bit_identical": True, "bit_identical": True,
+           "slot_blocks_64": blocks,
            "ms": _time_ms(lambda: md.gather_mlp_kernel(x, idx, wg, wu), 10,
                           flush),
+           "graph_ms": _graph_ms(
+               lambda: md.gather_mlp_kernel(x, idx, wg, wu), 10),
            "plain_ms": _time_ms(lambda: md._gather_mlp_ref(x, idx, wg, wu),
                                 2, flush),
            "library_ms": None,
-           "three_calls_ms": _time_ms(three, 10, flush)}
+           "three_calls_ms": _time_ms(three, 10, flush),
+           "three_calls_graph_ms": _graph_ms(three, 10),
+           "moe_step_path_ms": _time_ms(step_path, 10, flush),
+           "moe_step_path_graph_ms": _graph_ms(step_path, 10)}
     # both products over the filled slots only (an empty slot's g and u
     # are zero rows, no product); bytes: the filled slots' rows, the
     # weights, g and u, xin written, idx read
@@ -2926,7 +2959,7 @@ _KERNELS = {
         "replaces": "paddle_tpu/kernels/moe_dispatch.py:80",
         "rows": [13], "main": {}, "held": 0, "counted_in": "dit"},
     "gather_mlp": {
-        "source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
+        "source": "paddle_tpu_torch/csrc/gather_mlp.cu",
         "replaces": "paddle_tpu/kernels/moe_dispatch.py:553",
         "rows": [16], "main": {}, "held": 0, "counted_in": "dit"},
 }

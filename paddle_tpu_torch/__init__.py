@@ -24,7 +24,8 @@ eager-API slices):
     kernels.rms_norm      the training norm's forward and backward
                           (csrc/rms_norm.cu)
     kernels.moe_dispatch  the MoE dispatch and combine gathers
-                          (csrc/moe_dispatch.cu)
+                          (csrc/moe_dispatch.cu) and the gather fused
+                          into the expert products (csrc/gather_mlp.cu)
     optimizer.quant_state 8-bit blockwise AdamW, fused update
                           (csrc/adamw_q.cu)
     optimizer.transform   the optax transformations the train step uses

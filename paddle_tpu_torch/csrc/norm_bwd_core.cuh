@@ -1,12 +1,17 @@
-// Shared core of the two norm backward kernels (rms_norm.cu's
-// rms_bwd_kernel, layer_norm.cu's ln_bwd_kernel): the row walk of a
-// persistent grid of warp teams fed by a cp.async ring, the block's
-// fixed-order combine of its teams' column sums into one partial row, and
-// the fold of the partial rows into dw (and db).
+// Shared core of the three norm backward kernels (rms_norm.cu's
+// rms_bwd_kernel, layer_norm.cu's ln_bwd_kernel, adaln.cu's
+// adaln_bwd_kernel): the row walk of a persistent grid of warp teams fed
+// by a cp.async ring, the block's fixed-order combine of its teams'
+// column sums into one partial row, and the fold of the partial rows into
+// dw (and db; adaLN's per-sample dscale and dshift). The RMSNorm and
+// LayerNorm grids split all rows among their teams (walk); the adaLN grid
+// walks (sample, segment) ranges, one partial row each (walk_range), so
+// no range spans two samples' weights or sums.
 //
 // The walk. A block is 256 threads; a row is owned by a team of WPR warps
 // (1, 2, 4 or 8), whose lanes hold VPT 16-byte vectors of it (lane t
-// vectors t, t + 32 WPR, ...), so a lane keeps at most 32 values of a row
+// vectors t, t + 32 WPR, ...; 8-byte vectors where a row is not a whole
+// number of 16-byte ones), so a lane keeps at most 32 values of a row
 // and its dw/db column sums for the block's life in f32 registers. Team g
 // of the grid walks the rows [g * rows / teams, (g + 1) * rows / teams).
 // Each row's x and dy vectors, and its statistics (rstd; mu and rstd),
@@ -59,6 +64,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
+// 8 bytes (an 8-byte slot: rows that are whole 8-byte, not 16-byte,
+// multiples)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
@@ -71,12 +82,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// The kN values of one 16-byte vector, as f32.
-template <typename T>
+// The VB-byte slot a lane copies and reads back: a 16-byte vector, or an
+// 8-byte one where rows are not whole 16-byte multiples (bf16 rows of D %
+// 8 == 4 values).
+template <int VB>
+struct Slot;
+template <>
+struct Slot<16> {
+  typedef uint4 type;
+  __device__ __forceinline__ static void copy(void* dst, const void* src) {
+    cp_async16(dst, src);
+  }
+};
+template <>
+struct Slot<8> {
+  typedef uint2 type;
+  __device__ __forceinline__ static void copy(void* dst, const void* src) {
+    cp_async8(dst, src);
+  }
+};
+
+// The kN values of one VB-byte vector, as f32.
+template <typename T, int VB = 16>
 struct Vec;
 
 template <>
-struct Vec<float> {
+struct Vec<float, 16> {
   static constexpr int kN = 4;
   __device__ __forceinline__ static void unpack(const uint4& u,
                                                 float (&f)[4]) {
@@ -90,7 +121,7 @@ struct Vec<float> {
 };
 
 template <>
-struct Vec<bf16> {
+struct Vec<bf16, 16> {
   static constexpr int kN = 8;
   __device__ __forceinline__ static void unpack(const uint4& u,
                                                 float (&f)[8]) {
@@ -112,6 +143,25 @@ struct Vec<bf16> {
   }
 };
 
+template <>
+struct Vec<bf16, 8> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void unpack(const uint2& u,
+                                                float (&f)[4]) {
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+  }
+  __device__ __forceinline__ static uint2 pack(const float (&f)[4]) {
+    __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]);
+    __nv_bfloat162 b = __floats2bfloat162_rn(f[2], f[3]);
+    return make_uint2(*reinterpret_cast<uint32_t*>(&a),
+                      *reinterpret_cast<uint32_t*>(&b));
+  }
+};
+
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
@@ -121,17 +171,17 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Shared memory of one walk block: per team, the ring's data, uint4
-// [kStages][2][kSlots] (x, then dy; a lane's vector v of a row sits in
-// slot v), then its statistics, f32 [kStages][NST][kTPR] (a lane's own
+// Shared memory of one walk block: per team, the ring's data, VB-byte
+// slots [kStages][2][kSlots] (x, then dy; a lane's vector v of a row sits
+// in slot v), then its statistics, f32 [kStages][NST][kTPR] (a lane's own
 // copy in column t).
-template <typename T, int WPR, int VPT, int NST>
+template <typename T, int WPR, int VPT, int NST, int VB = 16>
 struct Layout {
-  static constexpr int kN = Vec<T>::kN;
+  static constexpr int kN = Vec<T, VB>::kN;
   static constexpr int kTPR = 32 * WPR;            // threads a team
   static constexpr int kTeams = kThreads / kTPR;
   static constexpr int kSlots = VPT * kTPR;        // vectors of a row
-  static constexpr int kDataBytes = kStages * 2 * kSlots * 16;
+  static constexpr int kDataBytes = kStages * 2 * kSlots * VB;
   static constexpr int kTeamBytes = kDataBytes + kStages * NST * kTPR * 4;
   static constexpr int kBytes = kTeams * kTeamBytes;
 };
@@ -166,48 +216,56 @@ __device__ __forceinline__ void team_sum(float (&s)[NSUM],
   }
 }
 
-// One walk block's work: its teams walk their rows, then the block writes
-// its partial row partials[blockIdx.x] (f32 [NACC * D]: accumulator a's
-// column c at a * D + c). For each row, with st its NST statistics:
+// One walk block's work over rows [row0, row0 + rows), which n_teams teams
+// share, this block's teams being team0, team0 + 1, ...: the teams walk
+// their rows, then the block writes its partial row prow() (f32 [NACC *
+// D]: accumulator a's column c at a * D + c; asked for only then, so its
+// address holds no register through the walk). For each row, with st its NST
+// statistics:
 //   first(i, st, x, dy, s)      adds the lane's vector i to its NSUM sums
 //   second(i, st, s, x, dy, o)  with s the row's totals: o = dx's vector i
-// acc[a][i][j] are the lane's column sums (the lambdas add to them).
+// acc[a][i][j] are the lane's column sums (the lambdas add to them). A
+// block that walks several ranges (one per call) takes a __syncthreads()
+// between calls: the partial row reads the ring that the next call's
+// copies refill.
 template <typename T, int WPR, int VPT, int NSUM, int NST, int NACC,
-          class First, class Second>
-__device__ __forceinline__ void walk(
+          int VB = 16, class Prow, class First, class Second>
+__device__ __forceinline__ void walk_range(
     const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
-    const float* const (&stat)[NST], float* __restrict__ partials, int rows,
-    int D, int n_teams, float (&acc)[NACC][VPT][Vec<T>::kN], First first,
-    Second second) {
-  using L = Layout<T, WPR, VPT, NST>;
+    const float* const (&stat)[NST], Prow prow, int row0, int rows,
+    int team0, int n_teams, int D,
+    float (&acc)[NACC][VPT][Vec<T, VB>::kN], First first, Second second) {
+  using L = Layout<T, WPR, VPT, NST, VB>;
+  using S = typename Slot<VB>::type;
   constexpr int kN = L::kN;
-  static_assert(NACC * kN / 4 <= 2 * kStages,
+  constexpr int kFS = VB / 4;                  // f32 sums a slot holds
+  static_assert(NACC * kN / kFS <= 2 * kStages,
                 "a lane's column sums fit in its own ring slots");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[2][kWarps][NSUM];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int team = warp / WPR, t = threadIdx.x % L::kTPR;
-  uint4* data = reinterpret_cast<uint4*>(smem + team * L::kTeamBytes);
+  S* data = reinterpret_cast<S*>(smem + team * L::kTeamBytes);
   float* stats = reinterpret_cast<float*>(smem + team * L::kTeamBytes +
                                           L::kDataBytes);
   const int nvec = D / kN;
-  const int g = blockIdx.x * L::kTeams + team;
-  const int lo = (int)((long long)g * rows / n_teams);
-  const int hi = (int)((long long)(g + 1) * rows / n_teams);
+  const int g = team0 + team;
+  const int lo = row0 + (int)((long long)g * rows / n_teams);
+  const int hi = row0 + (int)((long long)(g + 1) * rows / n_teams);
 
   // row `row`'s vectors and statistics into ring stage `stage`; one
   // commit group per call, empty past the team's rows
   auto issue = [&](int row, int stage) {
     if (row < hi) {
-      const uint4* xs = reinterpret_cast<const uint4*>(x + (size_t)row * D);
-      const uint4* ds = reinterpret_cast<const uint4*>(dy + (size_t)row * D);
-      uint4* sx = data + stage * 2 * L::kSlots;
+      const S* xs = reinterpret_cast<const S*>(x + (size_t)row * D);
+      const S* ds = reinterpret_cast<const S*>(dy + (size_t)row * D);
+      S* sx = data + stage * 2 * L::kSlots;
 #pragma unroll
       for (int i = 0; i < VPT; ++i) {
         const int v = t + i * L::kTPR;
         if (v < nvec) {
-          cp_async16(sx + v, xs + v);
-          cp_async16(sx + L::kSlots + v, ds + v);
+          Slot<VB>::copy(sx + v, xs + v);
+          Slot<VB>::copy(sx + L::kSlots + v, ds + v);
         }
       }
 #pragma unroll
@@ -223,7 +281,7 @@ __device__ __forceinline__ void walk(
   for (int row = lo; row < hi; ++row) {
     issue(row + 2, stage == 0 ? kStages - 1 : stage - 1);
     cp_async_wait<kStages - 1>();             // this row's group landed
-    const uint4* sx = data + stage * 2 * L::kSlots;
+    const S* sx = data + stage * 2 * L::kSlots;
     float st[NST];
 #pragma unroll
     for (int k = 0; k < NST; ++k)
@@ -236,22 +294,22 @@ __device__ __forceinline__ void walk(
       const int v = t + i * L::kTPR;
       if (v < nvec) {
         float xv[kN], dv[kN];
-        Vec<T>::unpack(sx[v], xv);
-        Vec<T>::unpack(sx[L::kSlots + v], dv);
+        Vec<T, VB>::unpack(sx[v], xv);
+        Vec<T, VB>::unpack(sx[L::kSlots + v], dv);
         first(i, st, xv, dv, s);
       }
     }
     team_sum<WPR, NSUM>(s, red[parity], warp, lane, team);
-    uint4* orow = reinterpret_cast<uint4*>(dx + (size_t)row * D);
+    S* orow = reinterpret_cast<S*>(dx + (size_t)row * D);
 #pragma unroll
     for (int i = 0; i < VPT; ++i) {
       const int v = t + i * L::kTPR;
       if (v < nvec) {
         float xv[kN], dv[kN], o[kN];
-        Vec<T>::unpack(sx[v], xv);
-        Vec<T>::unpack(sx[L::kSlots + v], dv);
+        Vec<T, VB>::unpack(sx[v], xv);
+        Vec<T, VB>::unpack(sx[L::kSlots + v], dv);
         second(i, st, s, xv, dv, o);
-        orow[v] = Vec<T>::pack(o);
+        orow[v] = Vec<T, VB>::pack(o);
       }
     }
     stage = stage == kStages - 1 ? 0 : stage + 1;
@@ -262,8 +320,8 @@ __device__ __forceinline__ void walk(
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
   // the lane's sums of vector v into its own slots v of the team's ring
-  // (4 columns a slot: accumulator a's quarter q in slot plane a*kN/4 + q)
-  float4* planes = reinterpret_cast<float4*>(data);
+  // (kFS columns a slot: accumulator a's part q in slot plane a*kN/kFS + q)
+  float* planes = reinterpret_cast<float*>(data);
 #pragma unroll
   for (int a = 0; a < NACC; ++a)
 #pragma unroll
@@ -271,45 +329,75 @@ __device__ __forceinline__ void walk(
       const int v = t + i * L::kTPR;
       if (v < nvec)
 #pragma unroll
-        for (int q = 0; q < kN / 4; ++q)
-          planes[(a * (kN / 4) + q) * L::kSlots + v] =
-              make_float4(acc[a][i][4 * q], acc[a][i][4 * q + 1],
-                          acc[a][i][4 * q + 2], acc[a][i][4 * q + 3]);
+        for (int q = 0; q < kN / kFS; ++q) {
+          float* slot = planes + ((a * (kN / kFS) + q) * L::kSlots + v) * kFS;
+          if constexpr (kFS == 4)
+            *reinterpret_cast<float4*>(slot) = make_float4(
+                acc[a][i][4 * q], acc[a][i][4 * q + 1], acc[a][i][4 * q + 2],
+                acc[a][i][4 * q + 3]);
+          else
+            *reinterpret_cast<float2*>(slot) =
+                make_float2(acc[a][i][2 * q], acc[a][i][2 * q + 1]);
+        }
     }
   __syncthreads();
   // the block's partial row: its teams' sums added in team order
   const int C = NACC * D;
-  float* prow = partials + (size_t)blockIdx.x * C;
+  float* out = prow();
   for (int c = threadIdx.x; c < C; c += kThreads) {
     const int a = c / D, col = c - a * D;
-    const int off = ((a * (kN / 4) + (col % kN) / 4) * L::kSlots
-                     + col / kN) * 4 + col % 4;
+    const int off = ((a * (kN / kFS) + (col % kN) / kFS) * L::kSlots
+                     + col / kN) * kFS + col % kFS;
     float sum = 0.f;
 #pragma unroll
     for (int tm = 0; tm < L::kTeams; ++tm)
       sum += reinterpret_cast<const float*>(smem + tm * L::kTeamBytes)[off];
-    prow[c] = sum;
+    out[c] = sum;
   }
 }
 
-// The fold of n_parts partial rows of C columns: column c's sum goes to
-// put(c, value). A programmatic dependent of the walk: it waits for the
-// walk's grid before reading (a no-op when launched plainly).
-template <class Put>
-__device__ __forceinline__ void fold(const float* __restrict__ partials,
-                                     int n_parts, int C, int cols,
-                                     Put put) {
+// The walk of a persistent grid over all `rows` rows: team g of the grid
+// (block g / kTeams) walks [g * rows / n_teams, (g + 1) * rows / n_teams),
+// and block b writes partial row b of partials (f32 [gridDim.x, NACC * D]).
+template <typename T, int WPR, int VPT, int NSUM, int NST, int NACC,
+          class First, class Second>
+__device__ __forceinline__ void walk(
+    const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+    const float* const (&stat)[NST], float* __restrict__ partials, int rows,
+    int D, int n_teams, float (&acc)[NACC][VPT][Vec<T>::kN], First first,
+    Second second) {
+  walk_range<T, WPR, VPT, NSUM, NST, NACC>(
+      x, dy, dx, stat,
+      [&]() { return partials + (size_t)blockIdx.x * NACC * D; }, 0, rows,
+      blockIdx.x * Layout<T, WPR, VPT, NST>::kTeams, n_teams, D, acc, first,
+      second);
+}
+
+// The fold of C columns, column c holding n partial values at
+// partials[base + p * stride], p = 0..n-1, where parts(c, n, base,
+// stride) says which: column c's sum goes to put(c, value). A block of
+// kFoldThreads takes `cols` columns, each cut into kFoldThreads / cols
+// fixed segments of its parts, a segment summed in part order, then the
+// segments in order. A programmatic dependent of the walk: it waits for
+// the walk's grid before reading (a no-op when launched plainly).
+template <class Parts, class Put>
+__device__ __forceinline__ void fold_parts(const float* __restrict__ partials,
+                                           int C, int cols, Parts parts,
+                                           Put put) {
   __shared__ float seg_sum[kFoldThreads];
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int segs = kFoldThreads / cols;
   const int col = threadIdx.x % cols, seg = threadIdx.x / cols;
   const int c = blockIdx.x * cols + col;
-  const int p0 = (int)((long long)seg * n_parts / segs);
-  const int p1 = (int)((long long)(seg + 1) * n_parts / segs);
   float s = 0.f;
   if (c < C) {
+    int n;
+    size_t base, stride;
+    parts(c, n, base, stride);
+    const int p0 = (int)((long long)seg * n / segs);
+    const int p1 = (int)((long long)(seg + 1) * n / segs);
 #pragma unroll 4
-    for (int p = p0; p < p1; ++p) s += partials[(size_t)p * C + c];
+    for (int p = p0; p < p1; ++p) s += partials[base + (size_t)p * stride];
   }
   seg_sum[threadIdx.x] = s;
   __syncthreads();
@@ -318,6 +406,20 @@ __device__ __forceinline__ void fold(const float* __restrict__ partials,
     for (int k = 0; k < segs; ++k) total += seg_sum[k * cols + col];
     put(c, total);
   }
+}
+
+// The fold of n_parts partial rows of C columns (every column's parts).
+template <class Put>
+__device__ __forceinline__ void fold(const float* __restrict__ partials,
+                                     int n_parts, int C, int cols,
+                                     Put put) {
+  fold_parts(partials, C, cols,
+             [&](int c, int& n, size_t& base, size_t& stride) {
+               n = n_parts;
+               base = c;
+               stride = C;
+             },
+             put);
 }
 
 // ---------------------------------------------------------------- host

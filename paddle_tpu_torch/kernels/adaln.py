@@ -29,18 +29,17 @@ import ctypes
 import torch
 
 from .. import _build
+from . import norm_bwd
 
 EPS = 1e-6
 # adaln_fwd(x, shift, scale, out, mu, rstd, B, N, D, eps, is_bf16, stream)
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-# adaln_bwd(x, scale, mu, rstd, dy, dx, dshift, dscale, part, B, N, D,
-#           is_bf16, stream)
-_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+# adaln_bwd(x, scale, mu, rstd, dy, dx, dshift, dscale, partials, B, N, D,
+#           x_kind, scale_bf16, warps, vpt, blocks, cols, stream)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
     ctypes.c_void_p]
-# tokens a backward block sums (csrc/adaln.cu kChunk), and the widest row
-# its registers hold (12 vectors of 4 a lane)
-_CHUNK = 32
+# the widest row the forward's registers hold (12 vectors of 4 a lane)
 _MAX_D = 1536
 
 
@@ -114,6 +113,16 @@ def _row_param(t, B, D, device, what, name):
     return t.float().contiguous()
 
 
+def _x_kind(dtype, D):
+    """(x_kind, values a vector) of csrc/adaln.cu's backward: f32 rows in
+    16-byte vectors of 4; bf16 rows in 16-byte vectors of 8, or, where D %
+    8 == 4 leaves rows that are not whole 16-byte multiples, in 8-byte
+    vectors of 4."""
+    if dtype == torch.float32:
+        return 0, 4
+    return (1, 8) if D % 8 == 0 else (2, 4)
+
+
 def adaln_fwd(x, shift, scale, epsilon: float = EPS):
     """(out, mu, rstd) of the fused LN + modulate: x [B, N, D]; shift and
     scale [B, D] → out in x's dtype, mu/rstd f32 [B, N, 1].
@@ -151,9 +160,11 @@ def adaln_bwd(x, scale, mu, rstd, dy):
 
     On a CPU tensor: the plain version. On a CUDA tensor: the kernel
     (x and dy contiguous of one dtype, f32 or bf16, D as the forward);
-    anything else raises. The per-sample sums are taken in a fixed order
-    (no atomics): two runs give the same bits. Each launch adds one to
-    `adaln_bwd.launches`."""
+    anything else raises; scale is read as f32 or bf16, any other dtype
+    cast to f32. The kernel walks the sample pieces of
+    `norm_bwd.adaln_plan` and folds each sample's partial rows in a fixed
+    order (no atomics): two runs give the same bits. Each launch adds one
+    to `adaln_bwd.launches`."""
     if not x.is_cuda:
         return _adaln_bwd_plain(x, scale, mu, rstd, dy)
     B, N, D = _check(x, "adaln_bwd")
@@ -166,21 +177,28 @@ def adaln_bwd(x, scale, mu, rstd, dy):
                 or t.device != x.device or not t.is_contiguous():
             raise TypeError(f"adaln_bwd: {name} must be a contiguous f32 "
                             f"[{B}, {N}, 1] on {x.device}")
-    sc = _row_param(scale, B, D, x.device, "adaln_bwd", "scale")
+    if scale.dtype == torch.bfloat16 and tuple(scale.shape) == (B, D) \
+            and scale.device == x.device:
+        sc = scale.contiguous()
+    else:
+        sc = _row_param(scale, B, D, x.device, "adaln_bwd", "scale")
     dx = torch.empty_like(x)
     dsh = torch.empty(B, D, dtype=torch.float32, device=x.device)
     dsc = torch.empty(B, D, dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return dx, dsh.zero_(), dsc.zero_()
-    part = torch.empty(B, -(-N // _CHUNK), 2, D, dtype=torch.float32,
-                       device=x.device)
+    kind, vec = _x_kind(x.dtype, D)
+    plan = norm_bwd.device_adaln_plan(x.device, B, N, D, vec, kind)
+    partials = torch.empty(plan.blocks + B, 2, D, dtype=torch.float32,
+                           device=x.device)
     fn = _build.function("adaln", "adaln_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), sc.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
                  dy.data_ptr(), dx.data_ptr(), dsh.data_ptr(),
-                 dsc.data_ptr(), part.data_ptr(), B, N, D,
-                 int(x.dtype == torch.bfloat16), stream)
+                 dsc.data_ptr(), partials.data_ptr(), B, N, D, kind,
+                 int(sc.dtype == torch.bfloat16), plan.warps, plan.vpt,
+                 plan.blocks, plan.fold_cols, stream)
     _build.check(err, "adaln_bwd")
     adaln_bwd.launches += 1
     return dx, dsh, dsc

@@ -29,7 +29,7 @@ gathers over a pair of inverse index maps, never scatters:
     gather_mlp        the dispatch gather fused into the expert gate and
                       up products: (g, u) = (xin·wg[e], xin·wu[e]) with
                       xin[e, m] = src[idx[e, m]] (the Pallas
-                      `_gather_mlp_kernel`; here `csrc/moe_dispatch.cu`);
+                      `_gather_mlp_kernel`; here `csrc/gather_mlp.cu`);
                       its backward the JAX `_gather_mlp_bwd`: the weight
                       and input products by torch.matmul (XLA in JAX) and
                       the scatter back to the tokens by gather_wsum
@@ -52,10 +52,12 @@ shapes in `chip_smoke.py`; no path of the port calls them either.
 from __future__ import annotations
 
 import ctypes
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from .. import _build
+from .norm_bwd import sm_count
 
 # gather_wsum_bf16(src, idx, w, out, B, N, M, k, D, stream)
 _WSUM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
@@ -67,10 +69,14 @@ _SDOT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
 # gather_rows_bf16(src, idx, out, B, N, M, D, stream)
 _ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
-# gather_mlp_bf16(src, idx, wg, wu, g, u, xin, T, E, M, D, F, stream)
+# gather_mlp_bf16(src, idx, wg, wu, g, u, xin, T, E, M, D, F, maps, plan,
+#                 grid, stream)
 _MLP_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-    ctypes.c_void_p]
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 _MAX_K = 8
+# csrc/gather_mlp.cu: a tile is two halves of MLP_HALF slots (one a
+# consumer warpgroup) x MLP_COLS columns of F
+MLP_HALF, MLP_COLS = 64, 128
 
 
 def _take_rows(src, idx):
@@ -318,6 +324,81 @@ def combine_gather(eout, flat, inv_pos):
     return _CombineGather.apply(eout, flat, inv_pos)
 
 
+class MlpPlan(NamedTuple):
+    halves: int        # H: MLP_HALF-slot halves an expert
+    f_tiles: int       # tiles of MLP_COLS columns of F
+    grid: int          # the persistent grid: one block an SM
+
+
+def mlp_plan(E: int, M: int, F: int, n_sm: int) -> MlpPlan:
+    """The shape-given part of csrc/gather_mlp.cu's walk: the halves, the
+    F tiles and the grid (no more blocks than tiles could be)."""
+    H = -(-M // MLP_HALF)
+    nf = -(-F // MLP_COLS)
+    return MlpPlan(H, nf, max(1, min(n_sm, E * -(-H // 2) * nf)))
+
+
+def mlp_tiles(plan: MlpPlan,
+              halves: List[Tuple[List[int], List[int]]]
+              ) -> List[Tuple[int, int, int, int]]:
+    """The walk's tiles in order, (expert, first half, second half or -1,
+    first column of F): each expert's live halves (`mlp_halves`) two at a
+    time, the experts one after another, F innermost, so the F tiles of
+    one pair run side by side (and re-gather its rows from L2), then the
+    pairs of one expert (whose weights stay in L2). Block b of the grid
+    takes tiles b, b + grid, ...; dead halves get no tile."""
+    out = []
+    for e, (live, _) in enumerate(halves):
+        for j in range(0, len(live), 2):
+            second = live[j + 1] if j + 1 < len(live) else -1
+            out += [(e, live[j], second, f * MLP_COLS)
+                    for f in range(plan.f_tiles)]
+    return out
+
+
+def mlp_live_halves(idx, T: int):
+    """[E, H] bool: which MLP_HALF-slot half of each expert holds a filled
+    slot (idx in [0, T)); slots past M count as empty."""
+    E, M = idx.shape
+    H = -(-M // MLP_HALF)
+    filled = torch.zeros(E, H * MLP_HALF, dtype=torch.bool,
+                         device=idx.device)
+    filled[:, :M] = (idx >= 0) & (idx < T)
+    return filled.reshape(E, H, MLP_HALF).any(-1)
+
+
+def mlp_halves(idx, T: int) -> List[Tuple[List[int], List[int]]]:
+    """Each expert's (live halves, dead halves), each in slot order: what
+    the plan kernel of csrc/gather_mlp.cu writes. The products run over
+    the live halves two at a time; a dead half gets zero rows of g, u and
+    xin and no products."""
+    live = mlp_live_halves(idx, T).cpu()
+    return [([h for h in range(live.shape[1]) if live[e, h]],
+             [h for h in range(live.shape[1]) if not live[e, h]])
+            for e in range(live.shape[0])]
+
+
+def mlp_scratch_ints(E: int, M: int) -> int:
+    """int32s of the plan's scratch: live and dead half lists [E, H] each
+    and their counts [E, 2]."""
+    return 2 * E * -(-M // MLP_HALF) + 2 * E
+
+
+def mlp_tma_dims(E: int, M: int, D: int, F: int) -> List[int]:
+    """The 35 values csrc/gather_mlp.cu builds its five TMA tensor maps
+    from (csrc/hopper_core.cuh::encode_map: extents innermost first, then
+    the byte strides of dimensions 1-3; box 64 x 64, 128-byte swizzle,
+    zero fill): wg and wu [E, D, F] as (F, D, E, 1), read in boxes of 64
+    columns of F by 64 rows of D; xin [E, M, D] as (D, M, E, 1), g and u
+    [E, M, F] as (F, M, E, 1), written in boxes of 64 columns by 64 slots.
+    Rows are D or F bf16 values, whole 16-byte multiples since both are
+    multiples of 8."""
+    w = [F, D, E, 1, 2 * F, 2 * D * F, 2 * E * D * F]
+    x = [D, M, E, 1, 2 * D, 2 * M * D, 2 * E * M * D]
+    o = [F, M, E, 1, 2 * F, 2 * M * F, 2 * E * M * F]
+    return w + w + x + o + o
+
+
 def gather_mlp_kernel(src, idx, wg, wu):
     """(g, u, xin): g/u [E, M, F] = xin · wg[e] / wu[e] with xin[e, m] =
     src[idx[e, m]] (a zero row for -1) [E, M, D], all in src's dtype.
@@ -354,12 +435,20 @@ def gather_mlp_kernel(src, idx, wg, wu):
     xin = torch.empty(E, M, D, dtype=src.dtype, device=src.device)
     if E * M == 0:
         return g, u, xin
-    fn = _build.function("moe_dispatch", "gather_mlp_bf16", _MLP_ARGTYPES)
+    index = src.device.index if src.device.index is not None \
+        else torch.cuda.current_device()
+    plan = mlp_plan(E, M, F, sm_count(index))
+    vals = mlp_tma_dims(E, M, D, F)
+    maps = (ctypes.c_longlong * len(vals))(*vals)
+    scratch = torch.empty(mlp_scratch_ints(E, M), dtype=torch.int32,
+                          device=src.device)
+    fn = _build.function("gather_mlp", "gather_mlp_bf16", _MLP_ARGTYPES)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(src.data_ptr(), idx.data_ptr(), wg.data_ptr(),
                  wu.data_ptr(), g.data_ptr(), u.data_ptr(), xin.data_ptr(),
-                 T, E, M, D, F, stream)
+                 T, E, M, D, F, maps, scratch.data_ptr(), plan.grid,
+                 stream)
     _build.check(err, "gather_mlp_bf16")
     gather_mlp_kernel.launches += 1
     return g, u, xin

@@ -1,15 +1,16 @@
-"""Rows 7, 8, 10 and 18 of PERF.md's kernel table (the RMSNorm forward
-and backward, the LayerNorm backward and ragged paged attention) at
-every shape `chip_smoke.py` holds them, on one GPU.
+"""Rows 7, 8, 10, 11, 12, 16 and 18 of PERF.md's kernel table (the
+RMSNorm forward and backward, the LayerNorm backward, the adaLN forward
+and backward, the gather fused into the MoE expert products and ragged
+paged attention) at every shape `chip_smoke.py` holds them, on one GPU.
 
     python -m paddle_tpu_torch.tools.bench_kernels [--check]
-        [--rows 7,8,10,18] [--label L]
+        [--rows 7,8,10,11,12,16,18] [--label L]
 
 For each held shape one JSON line: the kernel's error against its plain
 version, whether two calls give identical bits, and its times two ways.
 `ms` has the host in the loop: CUDA events around calls made one after
-another (for row 18 and row 10 with the L2 cache flushed before each
-call, outside the timed span), as `chip_smoke.py` times kernels.
+another (for rows 18, 10, 11, 12 and 16 with the L2 cache flushed before
+each call, outside the timed span), as `chip_smoke.py` times kernels.
 `graph_ms` is device time: the calls captured in one CUDA graph and
 replayed; row 18's calls rotate over copies of the pools that together
 exceed twice the 50 MB L2, so each call finds its K and V cold, as a
@@ -23,29 +24,43 @@ prefill row), continue (64 queries at 512..575), full8 and full32 (8 and
 step's [16384, 4096] and the MoE step's [40960, 2048], bf16 x and
 weight. Row 10's: the eager ERNIE step's f32 [32768, 768] and the other
 forms `chip_smoke.py` holds (bf16, D 4096 and 8192, affine-free, 4099
-rows at D 776 and 1032).
+rows at D 776 and 1032). Rows 11 and 12: DiT-XL/2's [96, 256, 1152]
+bf16 and f32 [4, 100, 776], shift and scale in x's dtype. Row 16: T
+40960, E 16, M 6400, D 2048, F 1024 at this tool's own draw of the MoE
+step's routing (`moe_maps`; its fill and its census of wholly empty,
+partly filled and full 64-slot blocks are printed) and with every slot
+filled (random tokens), beside the three PyTorch calls `chip_smoke.py`
+times (an index gather, two `torch.bmm`).
 
-Rows 8 and 10 also report the one ATen call that computes the same
-backward, timed the same two ways (`library_ms`, `library_graph_ms`):
-row 10 `aten.native_layer_norm_backward` on the statistics of ATen's
-own forward (the weight cast to x's dtype outside the timed span), row 8
+Rows 8, 10 and 12 also report the one ATen call that computes the same
+backward (row 12: the norm alone), timed the same two ways
+(`library_ms`, `library_graph_ms`; row 12 `library_norm_only_*`): row 10
+`aten.native_layer_norm_backward` on the statistics of ATen's own
+forward (the weight cast to x's dtype outside the timed span), row 12
+the same without weight at [B·N, D], row 8
 `aten._fused_rms_norm_backward` on `aten._fused_rms_norm`'s rstd. And
-the profiler's device time of
-each kernel of one wrapper call, over calls replayed from one CUDA
-graph: `walk_ms` (the row walk), `fold_ms` (the launch that folds the
-dw/db partial rows), `other_ms` (any other launch of the call, such as
-a cast) and `fold_tail_ms`, the time from the walk's end to the fold's
-end, which is what the fold adds to the call when the two overlap.
+the profiler's device time of each kernel of one wrapper call, over calls
+replayed from one CUDA graph: `walk_ms` (the row walk), `fold_ms` (the
+launch that folds the column-sum partial rows), `other_ms` (any other
+launch of the call, such as a cast) and `fold_tail_ms`, the time from
+the walk's end to the fold's end, which is what the fold adds to the
+call when the two overlap. Row 11 stands beside `F.layer_norm` (the norm
+alone).
 
 `--check` runs small and odd shapes instead (no timing): row 18 at hd 64
 and 128, GQA groups 1 to 32, P 1, 3 and 40, block sizes 16 and 48,
 random live lengths with invalid rows; rows 7 and 8 at widths off the
 warp's round and up to 8192, bf16, f32 and f16 weights, 1 to 4099 rows;
 row 10 at D 8 to 8192, f32 and bf16, affine and affine-free, 1 to 4099
-rows. It exits 1 if any case is out of tolerance (2e-2 of each output
-vector's scale; f32 LayerNorm dx 1e-5; an f32 dw or db 1e-4 of its
-largest value, a dw rounded to bf16 or f16 2e-2) or not bit-identical
-twice.
+rows; row 12 at B 1 to 5, N 1, 7 and 257, bf16 D 772 (8-byte vectors),
+1152 and 1536 and f32 D 776; row 16 at M off the 128-slot tile (1, 64,
+131, 200, 320, 700), D 8 to 2048 (520 off the 64-column step), F 8 to
+1024 (776 off the 128-column tile), an expert with every slot empty and
+one with every slot filled, token T - 1 among the slots. It exits 1 if
+any case is out of tolerance (2e-2 of each output vector's scale; f32
+LayerNorm and adaLN dx 1e-5; an f32 dw, db, dscale or dshift 1e-4 of
+its largest value, a dw rounded to bf16 or f16 2e-2; row 16's empty
+slots exactly 0 and xin bit for bit) or not bit-identical twice.
 
 The file uses only the wrappers' public functions and their plain
 versions, so the same file times an older checkout of the package (run
@@ -82,7 +97,12 @@ LN_SHAPES = ((32768, 768, _F32, True), (32768, 768, _BF16, True),
              (32768, 768, _F32, False), (4099, 776, _BF16, True),
              (4099, 1032, _F32, False))
 LN_F32_TOL, LN_SUM_TOL = 1e-5, 1e-4
-ROWS = (7, 8, 10, 18)
+ROWS = (7, 8, 10, 11, 12, 16, 18)
+# rows 11 and 12 as chip_smoke.py holds them: DiT-XL/2's [96, 256, 1152]
+# bf16 and an f32 width off the warp's round
+ADALN_SHAPES = ((96, 256, 1152, _BF16), (4, 100, 776, _F32))
+ADALN_F32_TOL = 1e-5
+GRAD_ROW_FLOOR = 1e-3
 
 
 def time_ms(fn, iters, flush=None):
@@ -465,9 +485,273 @@ def norm_bwd_checks(gen):
     return out
 
 
+# ------------------------------------------------------- rows 11 and 12
+def adaln_case(B, N, D, dtype, gen, flush=None, timed=True, rows=(11, 12)):
+    """Rows 11 and 12 against their plain versions at x [B, N, D] with
+    per-sample shift and scale [B, D] in x's dtype (as DiT's modulation
+    is), the backward on the forward kernel's mu and rstd and twice; then
+    times: row 11 beside `F.layer_norm` (the norm alone), row 12 beside
+    `aten.native_layer_norm_backward` at [B·N, D] with no weight (the
+    norm alone: no per-sample scale, no dshift or dscale) and with the
+    profiler's split of one call (walk, fold or sum, the rest)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import adaln as ad
+    x = (torch.randn(B, N, D, device="cuda", generator=gen) + 0.3).to(dtype)
+    sh, sc = ((0.1 * torch.randn(B, D, device="cuda", generator=gen))
+              .to(dtype) for _ in range(2))
+    dy = torch.randn(B, N, D, device="cuda", generator=gen).to(dtype)
+    tol = TOL if dtype == _BF16 else ADALN_F32_TOL
+    label = f"[{B}, {N}, {D}] {str(dtype)[6:]}"
+    out, mu, rstd = ad.adaln_fwd(x, sh, sc)
+    out2, mu2, rstd2 = ad.adaln_fwd(x, sh, sc)
+    rout, rmu, rrstd = ad._adaln_fwd_twin(x, sh, sc)
+    res = []
+    if 11 in rows:
+        f = {"kernel": "adaln_fwd", "shape": label,
+             "max_abs_err": (out.float() - rout.float()).abs().max().item(),
+             "max_rel_err": _rel(out, rout),
+             "mu_abs_err": (mu - rmu).abs().max().item(),
+             "rstd_rel_err": ((rstd - rrstd).abs() / rrstd).max().item(),
+             "repeat": all(torch.equal(a, c) for a, c in
+                           zip((out, mu, rstd), (out2, mu2, rstd2)))}
+        f["ok"] = (f["max_rel_err"] <= tol and f["mu_abs_err"] <= 1e-5
+                   and f["rstd_rel_err"] <= 1e-5 and f["repeat"])
+        res.append(f)
+    if 12 in rows:
+        dx, dsh, dsc = ad.adaln_bwd(x, sc, mu, rstd, dy)
+        again = ad.adaln_bwd(x, sc, mu, rstd, dy)
+        rdx, rdsh, rdsc = ad._adaln_bwd_plain(x, sc, rmu, rrstd, dy)
+        sums = max(((a - r).abs().max() / r.abs().max()).item()
+                   for a, r in ((dsh, rdsh), (dsc, rdsc)))
+        b = {"kernel": "adaln_bwd", "shape": label,
+             "max_abs_err": max((a.float() - r.float()).abs().max().item()
+                                for a, r in ((dx, rdx), (dsh, rdsh),
+                                             (dsc, rdsc))),
+             "max_rel_err": _rel(dx, rdx, floor=GRAD_ROW_FLOOR),
+             "sums_rel_err": sums,
+             "repeat": all(torch.equal(a, c)
+                           for a, c in zip((dx, dsh, dsc), again))}
+        b["ok"] = (b["max_rel_err"] <= tol and sums <= LN_SUM_TOL
+                   and b["repeat"])
+        res.append(b)
+        del again, rdx
+    del out2, rout
+    if not timed:
+        return res
+    es, n = x.element_size(), B * N * D
+    for r in res:
+        if r["kernel"] == "adaln_fwd":
+            # x read, out written; shift/scale read; mu/rstd written
+            r.update(bound(10.0 * n, 2.0 * es * n + 2.0 * es * B * D
+                           + 8.0 * B * N, PEAK_F32))
+
+            def call():
+                return ad.adaln_fwd(x, sh, sc)
+
+            def lib():
+                return F.layer_norm(x, (D,), eps=1e-6)
+        else:
+            # x, dy read, dx written; scale, mu/rstd read; dshift and
+            # dscale written (f32)
+            r.update(bound(14.0 * n, 3.0 * es * n + es * B * D + 8.0 * B * N
+                           + 8.0 * B * D, PEAK_F32))
+
+            def call():
+                return ad.adaln_bwd(x, sc, mu, rstd, dy)
+
+            x2, dy2 = x.reshape(B * N, D), dy.reshape(B * N, D)
+            _, lmu, lrstd = torch.ops.aten.native_layer_norm(
+                x2, [D], None, None, 1e-6)
+
+            def lib():
+                return torch.ops.aten.native_layer_norm_backward(
+                    dy2, x2, [D], lmu, lrstd, None, None,
+                    [True, False, False])
+
+            r.update(kernel_split(call, 10, "adaln_bwd_kernel",
+                                  "adaln_bwd_sum_kernel"))
+        r["ms"] = time_ms(call, 20, flush)
+        r["graph_ms"] = _graph_ms(call, 20)
+        r["library_norm_only_ms"] = time_ms(lib, 20, flush)
+        r["library_norm_only_graph_ms"] = _graph_ms(lib, 20)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["graph_bound_share"] = r["bound_ms"] / r["graph_ms"]
+    return res
+
+
+def adaln_checks(gen):
+    out = []
+    for D, dt in ((772, _BF16), (1152, _BF16), (1536, _BF16), (776, _F32)):
+        for B, N in ((1, 1), (1, 7), (1, 257), (5, 7), (3, 257)):
+            out += adaln_case(B, N, D, dt, gen, timed=False, rows=(12,))
+    return out
+
+
+# --------------------------------------------------------------- row 16
+def moe_maps(gen, B=20, S=2048):
+    """The slot map of one real routing at the MoE step's shape, as
+    chip_smoke.py's `_moe_maps` draws it (its own draws, so its own
+    fill): the MoE config's `top_k_routing` of N(0, 1) gate logits plus
+    an N(0, 0.5) preference per expert, then `moe._routing_maps`'s
+    expert-leading map → idx [E, B·C] int32, the token of each slot (-1
+    empty), slot (e, b, c) at e·B·C + b·C + c."""
+    from paddle_tpu_torch.nlp import moe
+    cfg = moe.MoeConfig.flagship_moe()
+    E, k, C = cfg.num_experts, cfg.num_experts_per_tok, cfg.capacity(S)
+    logits = (torch.randn(B, S, E, device="cuda", generator=gen)
+              + 0.5 * torch.randn(E, device="cuda", generator=gen))
+    eidx, slot, probs, valid, _, _ = moe.top_k_routing(logits, k, C)
+    inv_tok = moe._routing_maps(eidx, slot, probs, valid, C, E)[2]
+    return B * S, inv_tok.reshape(E, -1).contiguous()
+
+
+def slot_blocks(idx, T, rows=64):
+    """How many `rows`-slot blocks of idx [E, M] are wholly empty, partly
+    filled and full (a slot past M counts as empty)."""
+    E, M = idx.shape
+    nb = -(-M // rows)
+    v = torch.zeros(E, nb * rows, dtype=torch.bool, device=idx.device)
+    v[:, :M] = (idx >= 0) & (idx < T)
+    n = v.reshape(E, nb, rows).sum(-1)
+    return {"blocks": E * nb, "empty": int((n == 0).sum()),
+            "partly": int(((n > 0) & (n < rows)).sum()),
+            "full": int((n == rows).sum())}
+
+
+def random_slots(T, E, M, gen, rng):
+    """idx [E, M] with groups of 64 slots filled from the front to random
+    depths, expert 0 wholly empty and expert 1 wholly filled (E >= 2),
+    random distinct tokens, token T - 1 among them."""
+    fill = np.zeros((E, M), bool)
+    for e in range(E):
+        for g0 in range(0, M, 64):
+            n = min(64, M - g0)
+            fill[e, g0:g0 + rng.randint(0, n + 1)] = True
+    fill[0] = False
+    if E > 1:
+        fill[1] = True
+    tok = rng.randint(0, T, size=(E, M))
+    filled = np.argwhere(fill)
+    if len(filled):
+        tok[tuple(filled[0])] = T - 1
+    idx = np.where(fill, tok, -1).astype(np.int32)
+    return torch.from_numpy(idx).to("cuda")
+
+
+def gather_mlp_case(T, idx, D, F, gen, flush=None, timed=True, label=""):
+    """Row 16 against its plain version: src [T, D], idx [E, M], wg and
+    wu [E, D, F] N(0, 0.02) bf16; g and u within 2e-2 a row over the
+    filled slots, empty slots exactly 0, xin bit for bit, twice the same
+    bits. Then times beside the three PyTorch calls chip_smoke.py times:
+    `x[idx.clamp(min=0)]` and two `torch.bmm` (not the same function:
+    they read row 0 for an empty slot)."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    E, M = idx.shape
+    x = torch.randn(T, D, device="cuda", generator=gen).bfloat16()
+    wg, wu = ((0.02 * torch.randn(E, D, F, device="cuda", generator=gen))
+              .bfloat16() for _ in range(2))
+    g, u, xin = md.gather_mlp_kernel(x, idx, wg, wu)
+    again = md.gather_mlp_kernel(x, idx, wg, wu)
+    rg, ru, rxin = md._gather_mlp_ref(x, idx, wg, wu)
+    valid = (idx >= 0) & (idx < T)
+    read = int(valid.sum())
+    res = {"kernel": "gather_mlp",
+           "shape": label or f"T={T} E={E} M={M} D={D} F={F}",
+           "filled": read, **{f"blocks64_{k}": v for k, v in
+                              slot_blocks(idx, T).items()},
+           "max_abs_err": max((g.float() - rg.float()).abs().max().item(),
+                              (u.float() - ru.float()).abs().max().item()),
+           "max_rel_err": max(_rel(g, rg, valid) if read else 0.0,
+                              _rel(u, ru, valid) if read else 0.0),
+           "empty_zero": not (g[~valid].any().item()
+                              or u[~valid].any().item()),
+           "xin_exact": torch.equal(xin, rxin),
+           "repeat": all(torch.equal(a, c)
+                         for a, c in zip((g, u, xin), again))}
+    res["ok"] = (res["max_rel_err"] <= TOL and res["empty_zero"]
+                 and res["xin_exact"] and res["repeat"])
+    del g, u, xin, again, rg, ru, rxin
+    if not timed:
+        return res
+    # both products over the filled slots; the filled slots' rows, the
+    # weights, g and u, xin written, idx read
+    res.update(bound(4.0 * read * D * F,
+                     2.0 * D * read + 4.0 * E * D * F + 4.0 * E * M * F
+                     + 2.0 * E * M * D + 4.0 * E * M))
+
+    def call():
+        return md.gather_mlp_kernel(x, idx, wg, wu)
+
+    def three():
+        xi = x[idx.clamp(min=0)]
+        return torch.bmm(xi, wg), torch.bmm(xi, wu)
+
+    res["ms"] = time_ms(call, 10, flush)
+    res["graph_ms"] = _graph_ms(call, 10)
+    res["three_calls_ms"] = time_ms(three, 10, flush)
+    res["three_calls_graph_ms"] = _graph_ms(three, 10)
+    res["under_load"] = under_load(call)
+    res["three_calls_under_load"] = under_load(three)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["graph_bound_share"] = res["bound_ms"] / res["graph_ms"]
+    torch.cuda.empty_cache()
+    return res
+
+
+def under_load(fn, seconds=2.0):
+    """fn() called back to back for `seconds`: its mean time with the host
+    in the loop, and `nvidia-smi`'s SM clock and power draw sampled
+    meanwhile (median of the samples), to tell a kernel held back by the
+    card's power limit."""
+    import threading
+    import time
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True).stdout.split(",")
+            samples.append((float(out[0]), float(out[1])))
+            time.sleep(0.1)
+
+    fn()
+    torch.cuda.synchronize()
+    th = threading.Thread(target=sample)
+    th.start()
+    t0, n = time.perf_counter(), 0
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        n += 10
+    ms = (time.perf_counter() - t0) / n * 1e3
+    stop.set()
+    th.join()
+    def median(k):
+        vals = sorted(x[k] for x in samples)
+        return vals[len(vals) // 2] if vals else None
+
+    return {"loop_ms": ms, "sm_mhz": median(0), "power_w": median(1),
+            "samples": len(samples)}
+
+
+def gather_mlp_checks(gen):
+    rng = np.random.RandomState(2)
+    out = []
+    for T, E, M, D, F in ((1000, 3, 200, 520, 776), (4099, 4, 320, 2048,
+                                                     1024),
+                          (77, 2, 131, 64, 136), (5, 3, 1, 8, 8),
+                          (3000, 2, 700, 1032, 200), (64, 5, 64, 128, 128)):
+        out.append(gather_mlp_case(T, random_slots(T, E, M, gen, rng), D, F,
+                                   gen, timed=False))
+    return out
+
+
 def held(gen, rows=ROWS):
-    """Every held shape of the table rows `rows`, timed: rows 18, 10, 7,
-    then 8."""
+    """Every held shape of the table rows `rows`, timed: rows 18, 10, 11
+    and 12, 16, 7, then 8."""
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def flush():                          # 256 MB > the 50 MB L2
@@ -484,6 +768,17 @@ def held(gen, rows=ROWS):
     for n, d, dt, affine in LN_SHAPES if 10 in rows else ():
         res.append(ln_bwd_case(n, d, dt, affine, gen, flush))
         torch.cuda.empty_cache()
+    for B, N, D, dt in ADALN_SHAPES if {11, 12} & set(rows) else ():
+        res += adaln_case(B, N, D, dt, gen, flush, rows=rows)
+    if 16 in rows:
+        T, idx = moe_maps(gen)
+        res.append(gather_mlp_case(T, idx, 2048, 1024, gen, flush,
+                                   label="the MoE step's routing"))
+        # every slot filled: no half-tile to skip, every tile whole
+        full = torch.randint(0, T, idx.shape, device="cuda", generator=gen,
+                             dtype=torch.int32)
+        res.append(gather_mlp_case(T, full, 2048, 1024, gen, flush,
+                                   label="every slot filled"))
     del scratch
     torch.cuda.empty_cache()
     if 7 in rows:
@@ -497,7 +792,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--rows", default=",".join(map(str, ROWS)),
-                    help="table rows to run, of 7, 8, 10 and 18")
+                    help="table rows to run, of " + ", ".join(map(str, ROWS)))
     ap.add_argument("--label", default="")
     args = ap.parse_args(argv)
     rows = tuple(int(r) for r in args.rows.split(","))
@@ -510,7 +805,9 @@ def main(argv=None) -> int:
     if args.check:
         cases = ((ragged_checks(gen) if 18 in rows else [])
                  + (rms_checks(gen) if 7 in rows else [])
-                 + (norm_bwd_checks(gen) if {8, 10} & set(rows) else []))
+                 + (norm_bwd_checks(gen) if {8, 10} & set(rows) else [])
+                 + (adaln_checks(gen) if 12 in rows else [])
+                 + (gather_mlp_checks(gen) if 16 in rows else []))
     else:
         cases = held(gen, rows)
     ok = True

@@ -2,7 +2,8 @@
 
 On a CPU tensor `gather_wsum` and `gather_scale_dot` run their plain
 PyTorch versions, so these tests pin the arithmetic that the CUDA kernels
-of `csrc/moe_dispatch.cu` are held to on the card (`chip_smoke.py`): the
+of `csrc/moe_dispatch.cu` and `csrc/gather_mlp.cu` are held to on the
+card (`chip_smoke.py`): the
 same numpy inputs go through the JAX Pallas kernels in interpret mode and
 through the port. `dispatch_gather` and `combine_wsum` (the autograd
 Functions) are held against the JAX package's custom VJPs: at D=128 with

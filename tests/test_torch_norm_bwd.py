@@ -1,11 +1,13 @@
-"""The launch plan of the two norm backward kernels (kernels/norm_bwd.py:
-rows 8 and 10 of PERF.md's table, `rms_norm_bwd` and `layer_norm_bwd`)
-and their plain twins, on the CPU.
+"""The launch plan of the three norm backward kernels (kernels/norm_bwd.py:
+rows 8, 10 and 12 of PERF.md's table, `rms_norm_bwd`, `layer_norm_bwd`
+and `adaln_bwd`) and the first two's plain twins, on the CPU.
 
-The kernels of `csrc/rms_norm.cu` and `csrc/layer_norm.cu` run only on
-the card (`chip_smoke.py`, `tools/bench_kernels.py --check`); what they
-share with the host is the plan, which these tests hold: every row is
-walked by exactly one team and every partial row folded exactly once.
+The kernels of `csrc/rms_norm.cu`, `csrc/layer_norm.cu` and
+`csrc/adaln.cu` run only on the card (`chip_smoke.py`,
+`tools/bench_kernels.py --check`); what they share with the host is the
+plan, which these tests hold: every row is walked by exactly one team and
+every partial row folded exactly once (adaLN's per sample, none spanning
+two).
 (The order of the sums shows only in the card's f32 results, which
 those two hold bit for bit twice and against the twins.) The plain
 twins are held against the JAX Pallas backward kernels in
@@ -64,6 +66,62 @@ def test_plan_covers_every_row_and_partial_once(rows, D, vec, n_acc, n_sm,
         parts[lo:hi] += 1
     assert (parts == 1).all()
     assert len(norm_bwd.fold_segments(plan)) == plan.fold_segs
+    assert plan.fold_cols * plan.fold_segs == norm_bwd.THREADS
+
+
+# (B, N, D, values a vector, SMs, resident blocks): DiT-XL/2's [96, 256,
+# 1152] bf16, the f32 [4, 100, 776] held case, one token, odd token counts,
+# more samples than the card's blocks, a bf16 width of 8-byte vectors, a
+# small card
+ADALN_PLANS = [(96, 256, 1152, 8, 132, 2), (4, 100, 776, 4, 132, 2),
+               (1, 1, 772, 4, 132, 2), (1, 7, 1536, 8, 132, 2),
+               (1, 257, 1152, 8, 132, 2), (5, 7, 776, 4, 132, 1),
+               (300, 3, 1152, 8, 132, 2), (3, 257, 772, 4, 7, 3),
+               (2, 1, 8, 8, 1, 1)]
+
+
+@pytest.mark.parametrize("B,N,D,vec,n_sm,resident", ADALN_PLANS)
+def test_adaln_plan_walks_every_row_once_per_sample(B, N, D, vec, n_sm,
+                                                    resident):
+    """Every row of x [B·N, D] is walked by exactly one team; no piece
+    crosses a sample, so a piece's weight and sums are one sample's; the
+    pieces' partial rows are distinct; every sample's partial rows are
+    listed exactly once, in block order, each written by a piece of that
+    sample; the fold's segments cover them once."""
+    plan = norm_bwd.adaln_plan(B, N, D, vec, n_sm, resident)
+    assert plan.teams * 32 * plan.warps == norm_bwd.THREADS
+    assert 1 <= plan.blocks <= max(n_sm * resident, 1)
+    assert plan.blocks <= B * N
+    seen = np.zeros(B * N, np.int64)
+    writer = {}
+    for k in range(plan.blocks):
+        pieces = norm_bwd.adaln_pieces(plan, B, N, k)
+        assert (pieces[0][1], pieces[-1][2]) == \
+            norm_bwd.adaln_block_rows(plan, B * N, k)
+        for b, lo, hi in pieces:
+            assert b * N <= lo < hi <= (b + 1) * N
+            last = lo
+            for team in range(plan.teams):
+                tlo, thi = norm_bwd.adaln_team_rows(plan, lo, hi, team)
+                assert tlo == last and tlo <= thi
+                seen[tlo:thi] += 1
+                last = thi
+            assert last == hi
+            p = norm_bwd.adaln_partial_row(k, b)
+            assert p not in writer and p < plan.blocks + B
+            writer[p] = b
+    assert (seen == 1).all()
+    listed = []
+    for b in range(B):
+        parts = norm_bwd.adaln_sample_parts(plan, B, N, b)
+        assert parts == sorted(parts)
+        assert [writer[p] for p in parts] == [b] * len(parts)
+        listed += parts
+        covered = np.zeros(len(parts), np.int64)
+        for lo, hi in norm_bwd.adaln_fold_segments(plan, len(parts)):
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+    assert sorted(listed) == sorted(writer)
     assert plan.fold_cols * plan.fold_segs == norm_bwd.THREADS
 
 
