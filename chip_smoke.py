@@ -113,6 +113,36 @@ non-zero:
                flash backward's plain version dropping the key mask as
                the planted fault.
 
+  10. generate — bench.py's serving runs through nlp/generation.py at the
+               flagship 2B widths (random bf16 weights), by
+               tools/bench.py's protocol: the prefill of an 8192-token
+               prompt (bench.py:236, exactly 11 flash launches a
+               prefill), greedy decode of 128 tokens after 512 at batch
+               8 from the bf16 tree and from quantize_for_serving(bits=8)'s
+               and at batch 32 from the w8 tree (bench.py:270, :389-393),
+               the decode step replayed from one CUDA graph. Checks: the
+               graph-replayed tokens equal the eager step's (batch 8, 16
+               tokens; 11 flash launches in the prefill, none decoding);
+               a sampled decode through the graph repeats from one seed;
+               the w8 logits within 5e-2 of the bf16 tree's (max |diff|
+               over max |logit|) at the JAX test's tiny config, and at
+               the flagship widths no further from them than a twin of
+               the int8 rounding (noise of the same size) is, a planted
+               scale fault outside that bound; the
+               flash prefill's logits at 2 layers no further from an f32
+               evaluation than the use_flash=False bf16 path's (within
+               the serve phase's ratio), a planted off-by-one outside it.
+  11. long8k — bench.py:381: the flagship 2B at 2 x 8192, 8-bit AdamW,
+               clip 1.0, 2 warm-up and 4 timed steps; launches exactly as
+               the step implies (the flash backward above S 2048, where
+               the JAX package streams, rows 2-4); losses falling.
+  12. layer8b — bench.py:308: one Llama-3-8B layer, batch 1, S 4096 and
+               8192, 1 warm-up and 8 timed gradients of sum(y.float()**2)
+               through tools/bench.run_8b_layer; MFU by bench.py:344-346.
+  13. train05b — bench.py:372-376: the ~0.5B config with f32 params and
+               the tree adamw (f32 moments) behind the clip, 16 x 2048,
+               2 warm-up and 4 timed steps; no 8-bit AdamW launch.
+
 The kernels phase also holds the fused LayerNorm forward and backward at
 the eager step's f32 [32768, 768] and in bf16, the flash forward and
 backward non-causal at B=64 S=512 H=12 hd=64 and causal at the eager
@@ -126,8 +156,15 @@ workloads they were written for: the fused adaLN forward and backward
 (rows 11-12) at DiT-XL/2's [96, 256, 1152] bf16 and at f32 [4, 100,
 776], the masked row gather (row 13) at the MoE step's combine maps, and
 the gather fused into the expert gate/up products (row 16) at its
-T 40960, E 16, M 6400, D 2048, F 1024. The kernels line lists all 18
-pallas_call rows of the JAX package.
+T 40960, E 16, M 6400, D 2048, F 1024; and the shapes of phases 10-13:
+the flash forward at B=1 S=8192 H=32 KV=8 (the prefill), the forward
+and backward at B=2 S=8192 (long8k), B=1 S=4096 and 8192 (the 8B
+layer) and B=16 S=2048 H=16 KV=8 (the 0.5B; plain versions at S=8192
+one KV head's group at a time), the RMSNorm pair at [8192, 4096],
+[4096, 4096] and [32768, 2048] with an f32 weight. The kernels line
+lists all 18 pallas_call rows of the JAX package, each kernel's times
+and launches by path; the flash backward's launches also by the JAX
+package's rows (2-4 above S 2048, 5 at or below).
 
 The last lines are the kernels JSON object, the `nvidia-smi` name/power
 line and {"ok": true, "device": {...}}. Imports nothing of JAX or of the
@@ -307,16 +344,53 @@ def _qkv(B, S, hd, gen, layout="bshd", heads=()):
     return t
 
 
+def _fwd_ref_by_kv_head(q, k, v, **kw):
+    """The flash forward's plain version ('bshd') over one KV head and its
+    query heads at a time, concatenated over the heads: the same
+    function, with f32 scores of one group at a time (at B=2 S=8192
+    H=32 all heads' scores take 17 GB a tensor)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    KV = k.shape[2]
+    rep = q.shape[2] // KV
+    outs = [fa.flash_attention_fwd_ref(q[:, :, g * rep:(g + 1) * rep],
+                                       k[:, :, g:g + 1], v[:, :, g:g + 1],
+                                       **kw) for g in range(KV)]
+    if kw.get("return_lse"):
+        return (torch.cat([o for o, _ in outs], 2),
+                torch.cat([lse for _, lse in outs], 1))
+    return torch.cat(outs, 2)
+
+
+def _bwd_ref_by_kv_head(q, k, v, out, lse, dout, **kw):
+    """The flash backward's plain version ('bshd') one KV head's group at
+    a time, as `_fwd_ref_by_kv_head`: dk and dv of a KV head depend on
+    its own query heads only."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    KV = k.shape[2]
+    rep = q.shape[2] // KV
+    grads = []
+    for g in range(KV):
+        h = slice(g * rep, (g + 1) * rep)
+        grads.append(fa.flash_attention_bwd_ref(
+            q[:, :, h], k[:, :, g:g + 1], v[:, :, g:g + 1], out[:, :, h],
+            lse[:, h], dout[:, :, h], **kw))
+    return tuple(torch.cat(x, 2) for x in zip(*grads))
+
+
 def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
-                causal: bool = True, layout: str = "bshd"):
+                causal: bool = True, layout: str = "bshd",
+                by_kv_head: bool = False):
     """The flash forward against its plain version at one shape; with
-    `lse`, as the training forward calls it, its LSE held too."""
+    `lse`, as the training forward calls it, its LSE held too; with
+    `by_kv_head`, the plain version one KV head's group at a time."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     q, k, v = _qkv(B, S, hd, gen, layout, (H, KV, KV))
     kw = dict(causal=causal, return_lse=lse, layout=layout)
+    plain_fn = _fwd_ref_by_kv_head if by_kv_head \
+        else fa.flash_attention_fwd_ref
     out = fa.flash_attention_fwd(q, k, v, **kw)
-    ref = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    ref = plain_fn(q, k, v, **kw)
     res = {"shape": f"B={B} S={S} H={H} KV={KV} hd={hd}"
                     + (" (LSE)" if lse else "")
                     + ("" if causal else " non-causal")
@@ -334,8 +408,9 @@ def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
         raise AssertionError(f"flash B={B} S={S}: relative err {rel} > {tol}")
     qt, kt, vt = (x if layout == "bhsd" else x.transpose(1, 2)
                   for x in (q, k, v))
+    del ref
     ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), 50)
-    plain = _time_ms(lambda: fa.flash_attention_fwd_ref(q, k, v, **kw), 5)
+    plain = _time_ms(lambda: plain_fn(q, k, v, **kw), 2 if by_kv_head else 5)
     lib = _time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True), 50)
     pairs = S * (S + 1) // 2 if causal else S * S       # Sq == Sk
@@ -441,17 +516,19 @@ def _sdpa_grad_ms(q, k, v, dout, iters, causal=True, layout="bshd"):
 
 
 def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True,
-                    layout="bshd"):
+                    layout="bshd", by_kv_head: bool = False):
     """dq, dk, dv from the kernel forward's (out, lse), against the plain
-    backward on the same inputs; the kernel must also repeat bit for bit
-    (no atomics)."""
+    backward on the same inputs (with `by_kv_head`, one KV head's group
+    at a time); the kernel must also repeat bit for bit (no atomics)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     q, k, v, dout = _qkv(B, S, hd, gen, layout, (H, KV, KV, H))
     kw = dict(causal=causal, layout=layout)
+    plain_fn = _bwd_ref_by_kv_head if by_kv_head \
+        else fa.flash_attention_bwd_ref
     out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-    ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    ref = plain_fn(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
     rel = {n: _rel_err(a, b, floor=GRAD_ROW_FLOOR)
            for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
@@ -462,11 +539,11 @@ def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True,
         raise AssertionError(f"flash bwd B={B} S={S}: two runs differ")
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got, ref))
-    del again
+    del again, ref, got
     ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
                                                  **kw), 10)
-    plain = _time_ms(lambda: fa.flash_attention_bwd_ref(
-        q, k, v, out, lse, dout, **kw), 2)
+    plain = _time_ms(lambda: plain_fn(q, k, v, out, lse, dout, **kw),
+                     1 if by_kv_head else 2)
     lib = _sdpa_grad_ms(q, k, v, dout, 5, causal, layout)
     pairs = S * (S + 1) // 2 if causal else S * S
     # five products over the visible pairs: QK^T again, dO V^T, P^T dO,
@@ -510,8 +587,22 @@ def _launched(fn, marks, calls: int = 3):
                          f"launched {names}, twice")
 
 
-def _rms_cases(rows, D, peaks, gen, eps=1e-5):
-    """The training norm at [rows, D] (bf16 x, the paths' bf16 weight):
+def _rms_library_ms(fn, same_dtype):
+    """The ATen RMSNorm call's times; none where x and the weight differ
+    in dtype, which ATen's fused RMSNorm does not take (F.rms_norm then
+    runs its unfused composite, in another output dtype)."""
+    if not same_dtype:
+        return {"library_ms": None, "library_graph_ms": None,
+                "library": "none: ATen's fused RMSNorm takes x and the "
+                           "weight in one dtype"}
+    from paddle_tpu_torch.tools.bench_flash import _graph_ms
+    return {"library_ms": _time_ms(fn, 20), "library_graph_ms":
+            _graph_ms(fn, 20)}
+
+
+def _rms_cases(rows, D, peaks, gen, eps=1e-5, w_dtype=torch.bfloat16):
+    """The training norm at [rows, D] (bf16 x, the path's weight: bf16,
+    or f32 for the f32-param trees):
     forward (out per row, rstd) and backward (dx per row, dw over D, in
     the weight's dtype) against the plain twins; the backward must
     repeat bit for bit and launch its walk and fold only."""
@@ -520,7 +611,7 @@ def _rms_cases(rows, D, peaks, gen, eps=1e-5):
     from paddle_tpu_torch.tools import bench_kernels as bk
     from paddle_tpu_torch.tools.bench_flash import _graph_ms
     x = torch.randn(rows, D, device="cuda", generator=gen).bfloat16()
-    w = (1 + 0.1 * torch.randn(D, device="cuda", generator=gen)).bfloat16()
+    w = (1 + 0.1 * torch.randn(D, device="cuda", generator=gen)).to(w_dtype)
     dy = torch.randn(rows, D, device="cuda", generator=gen).bfloat16()
     out, rstd = rn.rms_norm_fwd(x, w, eps)
     rout, rrstd = rn._rms_fwd_twin(x, w, eps)
@@ -539,28 +630,29 @@ def _rms_cases(rows, D, peaks, gen, eps=1e-5):
                              f", dx {b_rel}, dw {w_rel}")
     if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
         raise AssertionError("rms bwd: two runs differ")
-    fwd = {"shape": f"rows={rows} D={D}",
+    wname = str(w_dtype).replace("torch.", "")
+    fwd = {"shape": f"rows={rows} D={D}"
+                    + ("" if w_dtype == torch.bfloat16 else f" w {wname}"),
            "max_abs_err": (out.float() - rout.float()).abs().max().item(),
            "max_rel_err": f_rel, "rstd_rel_err": r_rel,
            "ms": _time_ms(lambda: rn.rms_norm_fwd(x, w, eps), 20),
            "graph_ms": _graph_ms(lambda: rn.rms_norm_fwd(x, w, eps), 20),
            "plain_ms": _time_ms(lambda: rn._rms_fwd_twin(x, w, eps), 5),
-           "library_ms": _time_ms(lambda: F.rms_norm(x, (D,), w, eps), 20),
-           "library_graph_ms": _graph_ms(
-               lambda: F.rms_norm(x, (D,), w, eps), 20),
+           **_rms_library_ms(lambda: F.rms_norm(x, (D,), w, eps),
+                             w.dtype == x.dtype),
            **_bound(4.0 * rows * D,
                     2.0 * rows * D * 2 + 2.0 * D + 4.0 * rows, peaks,
                     peaks[2])}
     # the one ATen call for the backward: the fused RMSNorm backward on
     # its forward's rstd
-    lib = bk.rms_library(x, w, dy, eps)
+    lib = bk.rms_library(x, w, dy, eps) if w.dtype == x.dtype else None
 
     def call():
         return rn.rms_norm_bwd(x, w, rstd, dy, eps)
 
     if dw.dtype != w.dtype:
         raise AssertionError(f"rms bwd: dw {dw.dtype}, weight {w.dtype}")
-    bwd = {"shape": f"rows={rows} D={D}",
+    bwd = {"shape": fwd["shape"],
            "max_abs_err": max((dx.float() - rdx.float()).abs().max().item(),
                               (dw.float() - rdw.float()).abs().max().item()),
            "max_rel_err": max(b_rel, w_rel), "dw_rel_err": w_rel,
@@ -569,8 +661,7 @@ def _rms_cases(rows, D, peaks, gen, eps=1e-5):
            "ms": _time_ms(call, 20), "graph_ms": _graph_ms(call, 20),
            "plain_ms": _time_ms(
                lambda: rn._rms_train_ref_bwd(x, w, dy, eps), 5),
-           "library_ms": _time_ms(lib, 20),
-           "library_graph_ms": _graph_ms(lib, 20),
+           **_rms_library_ms(lib, lib is not None),
            **_bound(9.0 * rows * D,
                     3.0 * rows * D * 2 + 4.0 * rows + 2.0 * D * 2, peaks,
                     peaks[2])}
@@ -1401,8 +1492,34 @@ def phase_kernels(peaks):
                              lse=True))
     bwd.append(_flash_bwd_case(1, 8192, 8, 2, hd, peaks, gen))
     torch.cuda.empty_cache()
+    # bench.py's headline runs (the generate, long8k, layer8b and train05b
+    # phases), at their attention shapes: the prefill of an 8192-token
+    # prompt (no LSE); long8k's B=2 x 8192, the 8B layer's B=1 x 4096
+    # and x 8192 (above S 2048, where the JAX package streams its
+    # backward, rows 2-4); the 0.5B's B=16 x 2048, GQA 16/8. The plain
+    # versions at S=8192 run one KV head's group at a time.
+    flash.append(_flash_case(1, 8192, H, KV, hd, peaks, KERNEL_TOL, gen,
+                             by_kv_head=True))
+    for B_, S_, by in ((2, 8192, True), (1, 4096, False), (1, 8192, True)):
+        flash.append(_flash_case(B_, S_, H, KV, hd, peaks, KERNEL_TOL, gen,
+                                 lse=True, by_kv_head=by))
+        torch.cuda.empty_cache()
+    flash.append(_flash_case(16, 2048, 16, 8, hd, peaks, KERNEL_TOL, gen,
+                             lse=True))
+    for B_, S_ in ((2, 8192), (1, 8192)):
+        bwd.append(_flash_bwd_case(B_, S_, H, KV, hd, peaks, gen,
+                                   by_kv_head=True))
+        torch.cuda.empty_cache()
+    bwd.append(_flash_bwd_case(16, 2048, 16, 8, hd, peaks, gen))
+    torch.cuda.empty_cache()
+    # the dense and MoE steps' rows (long8k's 2 x 8192 rows are the dense
+    # step's 16384), the 8B layer's 8192 and 4096 rows, and the 0.5B's
+    # 16 x 2048 rows with its f32 weight
     rms = [_rms_cases(8 * 2048, 4096, peaks, gen),
-           _rms_cases(20 * 2048, 2048, peaks, gen, eps=1e-6)]
+           _rms_cases(20 * 2048, 2048, peaks, gen, eps=1e-6),
+           _rms_cases(8192, 4096, peaks, gen),
+           _rms_cases(4096, 4096, peaks, gen),
+           _rms_cases(16 * 2048, 2048, peaks, gen, w_dtype=torch.float32)]
     # rows 11-12 at DiT-XL/2's [96, 256, 1152] bf16, and in f32 at a width
     # off the warp's round (776: 194 vectors) and a token count off the
     # backward's 32-token chunks; rows 13 and 16 at the MoE step's maps
@@ -1694,15 +1811,18 @@ def _train_counters(moe: bool = False):
     return counters
 
 
-def _drive_train(peaks, model, cfg, batch, counters, warmup, timed, seq):
+def _drive_train(peaks, model, cfg, batch, counters, warmup, timed, seq,
+                 state_quant="8bit"):
     """`model`'s config through the public training entry points: counters
     zeroed, `warmup` then `timed` steps of one seeded batch, one
-    synchronize around the timed ones. Returns (result, state, tokens)."""
+    synchronize around the timed ones; `state_quant` "8bit" (the fused
+    8-bit AdamW) or None (the tree adamw behind a global-norm clip).
+    Returns (result, state, tokens)."""
     from paddle_tpu_torch.nlp import train
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tx = train.make_optimizer(1e-4, state_quant="8bit", grad_clip=1.0)
+    tx = train.make_optimizer(1e-4, state_quant=state_quant, grad_clip=1.0)
     state = train.init_state(
         torch.Generator(device="cuda").manual_seed(SEED), cfg, tx,
         model=model)
@@ -1731,7 +1851,7 @@ def _drive_train(peaks, model, cfg, batch, counters, warmup, timed, seq):
     steps = warmup + timed
     tok_s = batch * seq * timed / dt
     fpt = model.flops_per_token(cfg, seq)
-    res = {"params": model.num_params(cfg),
+    res = {"params": model.num_params(cfg), "state_quant": state_quant,
            "batch": batch, "seq": seq, "steps": steps, "timed_steps": timed,
            "step_ms": dt / timed * 1e3, "tokens_per_s": tok_s,
            "flops_per_token": fpt, "mfu": tok_s * fpt / peaks[0],
@@ -2869,6 +2989,386 @@ def phase_grad_check_dit():
     return out
 
 
+# ------------------------------------- 10. generate (bench.py's serving)
+GEN_PROMPT = 8192               # bench.py:236 run_prefill
+DEC_PROMPT, DEC_NEW = 512, 128  # bench.py:270 run_decode
+# The w8 logits against the bf16 tree's: max |difference| over max
+# |logit| within the JAX package's own bound
+# (tests/test_generation.py:337-338), held at that test's config (the
+# tiny Llama, 2 layers, a batch of 2 x 8 tokens). The bound does not
+# carry over to the flagship widths: there every weight's int8 rounding
+# (~0.9 % of its column's scale) moves the logits of 11 random layers by
+# more (max |diff| / max |logit| read 0.115 on an H100 SXM at 700 W),
+# for JAX's quantizer as for the port's (the CPU tests hold the two
+# equal). There the w8 logits are
+# held to a twin of that rounding: the bf16 tree with every quantized
+# weight moved by noise uniform in +-scale / 2, the rounding's own
+# distribution. A faithful w8 path is as far from the bf16 logits as the
+# twin (relative RMS distance; 1.5x for the spread between two such
+# draws, as LOGITS_VS_F32_RATIO); a planted fault, each layer's scales
+# read from the next layer's, must land outside.
+W8_LOGITS_TOL = 5e-2
+W8_NOISE_RATIO = 1.5
+# the prefill logits check: 2 layers, a prompt of this many tokens
+CHECK_LAYERS, CHECK_PROMPT = 2, 4096
+
+
+def _prefill_logits_check(params, cfg):
+    """One prompt through `generation.forward_cached` at 2 layers, four
+    ways: bf16 through the flash prefill ("kernel"), bf16 with
+    use_flash=False (the grouped f32-score path, "ref"), the kernel with
+    a planted off-by-one (its keys and values shifted one position on,
+    "fault") and an f32 evaluation of the same weights ("f32",
+    use_flash=False). Returns each bf16 path's relative RMS distance from
+    the f32 logits and the kernel's and the fault's as ratios to the
+    plain path's, as `_logits_check`."""
+    import dataclasses
+    from paddle_tpu_torch.nlp import generation
+    c2 = dataclasses.replace(cfg, num_hidden_layers=CHECK_LAYERS)
+    p2 = dict(params)
+    p2["layers"] = {k: v[:CHECK_LAYERS] for k, v in params["layers"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    prompt = torch.randint(0, cfg.vocab_size, (1, CHECK_PROMPT),
+                           device="cuda", generator=gen)
+    flash = generation.flash_attention_fwd
+
+    def shifted(q, k, v, causal=True, **kw):
+        def shift(t):
+            return torch.cat([t[:, :1], t[:, :-1]], dim=1)
+        return flash(q, shift(k), shift(v), causal, **kw)
+
+    runs = {"kernel": c2, "ref": dataclasses.replace(c2, use_flash=False),
+            "fault": c2, "f32": dataclasses.replace(
+                c2, dtype=torch.float32, use_flash=False)}
+    out = {}
+    for name, c in runs.items():
+        cache = generation.init_cache(c, 1, CHECK_PROMPT + 64)
+        generation.flash_attention_fwd = shifted if name == "fault" \
+            else flash
+        try:
+            out[name], _ = generation.forward_cached(p2, prompt, cache, 0, c)
+        finally:
+            generation.flash_attention_fwd = flash
+        del cache
+    f32 = out.pop("f32")
+
+    def rel(a):
+        return ((a - f32).norm() / f32.norm()).item()
+
+    res = {f"{n}_vs_f32": rel(a) for n, a in out.items()}
+    res["kernel_ratio"] = res["kernel_vs_f32"] / res["ref_vs_f32"]
+    res["fault_ratio"] = res["fault_vs_f32"] / res["ref_vs_f32"]
+    res.update({"layers": CHECK_LAYERS, "prompt": CHECK_PROMPT})
+    return res
+
+
+def _decode_graph_check(params, cfg, batch=8, new_tokens=16):
+    """`generate`'s decode step eagerly and replayed from its CUDA graph,
+    each after its own prefill of one prompt (batch x DEC_PROMPT): the
+    tokens must be identical, the prefill must launch the flash forward
+    once a layer and the decode steps (capture and replays) never; a
+    second call of the graphed one (a new prefill, the same graph) must
+    give the same tokens again."""
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention_fwd
+    from paddle_tpu_torch.nlp import generation
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, DEC_PROMPT),
+                           device="cuda", generator=gen)
+    res, toks = {}, {}
+    for graphed in (False, True):
+        g = generation._Generate(params, cfg, batch, DEC_PROMPT, new_tokens,
+                                 1.0, 0, 1.0, True, None, 0, None, "cuda",
+                                 graphed)
+        flash_attention_fwd.launches = 0
+        g.prefill(prompt)
+        pre = flash_attention_fwd.launches
+        flash_attention_fwd.launches = 0
+        g.decode()
+        torch.cuda.synchronize()
+        name = "graph" if graphed else "eager"
+        res[name] = {"prefill_flash_launches": pre,
+                     "decode_flash_launches": flash_attention_fwd.launches}
+        toks[name] = g.out.clone()
+        if graphed:
+            toks["graph_again"] = g(prompt)
+        del g
+    res["tokens_equal"] = bool(torch.equal(toks["eager"], toks["graph"]))
+    res["again_equal"] = bool(torch.equal(toks["graph"],
+                                          toks["graph_again"]))
+    res["tokens_row0"] = toks["graph"][0].tolist()
+    return res
+
+
+def _int8_noise_twin(params, q, gen):
+    """The bf16 tree with each weight that `q` quantizes moved by noise
+    uniform in +-scale / 2 (its column's int8 step)."""
+    def twin(w, scale):
+        u = torch.rand(w.shape, device=w.device, generator=gen) - 0.5
+        return (w.float() + u * scale).to(w.dtype)
+
+    out = dict(params)
+    out["layers"] = dict(params["layers"])
+    for tree, qt in ((out["layers"], q["layers"]), (out, q)):
+        for name in [k[:-len(":scale")] for k in qt if k.endswith(":scale")]:
+            tree[name] = twin(tree[name], qt[name + ":scale"])
+    return out
+
+
+def _w8_logits_check(params, cfg, batch=8):
+    """The prefill logits of `quantize_for_serving(bits=8)`'s tree against
+    the bf16 tree's: at the JAX test's config (max |diff| / max |logit|,
+    held to W8_LOGITS_TOL), then at the flagship widths and full depth
+    (batch x DEC_PROMPT): the w8 tree, its int8-noise twin and the
+    planted fault, each as relative RMS and max distance from the bf16
+    logits, with the share of positions whose greedy token agrees."""
+    from paddle_tpu_torch.nlp import generation, llama
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def logits(tree, c, prompt):
+        cache = generation.init_cache(c, prompt.shape[0],
+                                      prompt.shape[1] + 1)
+        return generation.forward_cached(tree, prompt, cache, 0, c)[0]
+
+    def max_rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    tcfg = llama.LlamaConfig.tiny(use_flash=False, num_hidden_layers=2)
+    tiny = llama.init_params(tcfg, gen)
+    tprompt = torch.randint(0, tcfg.vocab_size, (2, 8), device="cuda",
+                            generator=gen)
+    res = {"jax_test_config": {"max_rel_err": max_rel(
+        logits(generation.quantize_for_serving(tiny, 8), tcfg, tprompt),
+        logits(tiny, tcfg, tprompt))}}
+    prompt = torch.randint(0, cfg.vocab_size, (batch, DEC_PROMPT),
+                           device="cuda", generator=gen)
+    ref = logits(params, cfg, prompt)
+    q = generation.quantize_for_serving(params, 8)
+    fault = dict(q)
+    fault["layers"] = {k: v.roll(1, 0) if k.endswith(":scale") else v
+                       for k, v in q["layers"].items()}
+    for name, tree in (("w8", q), ("noise_twin", None), ("fault", fault)):
+        if tree is None:
+            tree = _int8_noise_twin(params, q, gen)
+        lg = logits(tree, cfg, prompt)
+        res[name] = {"rms_rel": ((lg - ref).norm() / ref.norm()).item(),
+                     "max_rel_err": max_rel(lg, ref),
+                     "greedy_agree": (lg.argmax(-1) == ref.argmax(-1))
+                     .float().mean().item()}
+        del lg, tree
+    res["w8_ratio"] = res["w8"]["rms_rel"] / res["noise_twin"]["rms_rel"]
+    res["fault_ratio"] = res["fault"]["rms_rel"] / \
+        res["noise_twin"]["rms_rel"]
+    return res
+
+
+def _sampled_check(params, cfg, batch=8, new_tokens=8):
+    """Sampling through the CUDA graph (the generator's state registered
+    with it): two runs from one seed give the same tokens, in range."""
+    from paddle_tpu_torch.nlp import generation
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, 64), device="cuda",
+                           generator=gen)
+    outs = [generation.generate(
+        params, prompt, cfg, max_new_tokens=new_tokens, greedy=False,
+        temperature=0.8, top_k=50, top_p=0.9,
+        key=torch.Generator(device="cuda").manual_seed(7))
+        for _ in range(2)]
+    return {"equal": bool(torch.equal(*outs)),
+            "in_range": bool(((outs[0] >= 0)
+                              & (outs[0] < cfg.vocab_size)).all()),
+            "distinct_tokens": int(outs[0].unique().numel())}
+
+
+def phase_generate(peaks):
+    """bench.py's serving runs through `nlp/generation.py` at the flagship
+    2B widths (random bf16 weights): the prefill of an 8192-token prompt
+    (bench.py:236), greedy decode of 128 tokens after 512 at batch 8 from
+    the bf16 tree and from `quantize_for_serving(bits=8)`'s, and at batch
+    32 from the w8 tree (bench.py:270, :389-393), each by
+    `tools/bench.py`'s protocol; then the checks."""
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention_fwd
+    from paddle_tpu_torch.nlp import llama
+    from paddle_tpu_torch.tools import bench
+    cfg = llama.LlamaConfig.flagship_2b(
+        max_position_embeddings=GEN_PROMPT + 256)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    L = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_fwd.launches = 0
+    prefill = bench.run_prefill(GEN_PROMPT, timed=4, cfg=cfg, params=params)
+    prefill.update({"prompt": GEN_PROMPT, "prefills": 5,
+                    "flash_launches": flash_attention_fwd.launches,
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    dcfg = llama.LlamaConfig.flagship_2b(
+        max_position_embeddings=DEC_PROMPT + DEC_NEW)
+    decode = {}
+    for name, batch, bits in (("bf16_b8", 8, None), ("w8_b8", 8, 8),
+                              ("w8_b32", 32, 8)):
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention_fwd.launches = 0
+        r = bench.run_decode(batch, DEC_PROMPT, DEC_NEW, timed=3,
+                             weight_only=bits, cfg=dcfg, params=params)
+        r.update({"batch": batch, "weight_only": bits, "calls": 4,
+                  "step_ms": r["generate_ms"] / DEC_NEW,
+                  "flash_launches": flash_attention_fwd.launches,
+                  "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+        decode[name] = r
+    graph = _decode_graph_check(params, dcfg)
+    sampled = _sampled_check(params, dcfg)
+    w8 = _w8_logits_check(params, dcfg)
+    torch.cuda.empty_cache()
+    logits = _prefill_logits_check(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    res = {"phase": "generate",
+           "config": "flagship_2b (bench.py:120) via bench.py:236, :270",
+           "widths": {"D": cfg.hidden_size, "F": cfg.intermediate_size,
+                      "L": L, "H": cfg.num_attention_heads,
+                      "KV": cfg.num_key_value_heads, "V": cfg.vocab_size},
+           "param_init_s": init_s, "prefill": prefill, "decode": decode,
+           "graph_check": graph, "sampled_check": sampled,
+           "w8_logits": w8, "w8_logits_tol": W8_LOGITS_TOL,
+           "w8_noise_ratio_tol": W8_NOISE_RATIO,
+           "prefill_logits_check": logits,
+           "logits_vs_f32_ratio_tol": LOGITS_VS_F32_RATIO,
+           "launches": {"flash_attention_fwd": prefill["flash_launches"]},
+           "seq": GEN_PROMPT, "nvidia_smi": _smi_line()}
+    _emit(res)
+    if prefill["flash_launches"] != L * prefill["prefills"]:
+        raise AssertionError(f"{prefill['flash_launches']} flash launches "
+                             f"in {prefill['prefills']} prefills, expected "
+                             f"{L} each")
+    for name, r in decode.items():
+        if r["flash_launches"] != L * r["calls"]:
+            raise AssertionError(f"decode {name}: {r['flash_launches']} "
+                                 f"flash launches in {r['calls']} calls, "
+                                 f"expected {L} each (the prefill)")
+    for name in ("eager", "graph"):
+        if graph[name] != {"prefill_flash_launches": L,
+                           "decode_flash_launches": 0}:
+            raise AssertionError(f"{name} decode: launches {graph[name]}, "
+                                 f"expected {L} a prefill and 0 decoding")
+    if not (graph["tokens_equal"] and graph["again_equal"]):
+        raise AssertionError(f"the graph-replayed tokens differ from the "
+                             f"eager step's: {graph}")
+    if not (sampled["equal"] and sampled["in_range"]):
+        raise AssertionError(f"sampled decode: {sampled}")
+    if not w8["jax_test_config"]["max_rel_err"] <= W8_LOGITS_TOL:
+        raise AssertionError(f"w8 logits at the JAX test's config: "
+                             f"{w8['jax_test_config']} from the bf16 "
+                             f"tree's, more than {W8_LOGITS_TOL}")
+    if not w8["w8_ratio"] <= W8_NOISE_RATIO:
+        raise AssertionError(f"w8 logits: {w8['w8_ratio']} x their int8 "
+                             f"noise twin's distance: {w8}")
+    if not w8["fault_ratio"] > W8_NOISE_RATIO:
+        raise AssertionError(f"w8 logits: the planted scale fault reads "
+                             f"{w8['fault_ratio']} x, within the bound: "
+                             f"{w8}")
+    if not logits["kernel_ratio"] <= LOGITS_VS_F32_RATIO:
+        raise AssertionError(f"prefill logits: the flash prefill is "
+                             f"{logits['kernel_ratio']} x the plain bf16 "
+                             f"path's distance from f32: {logits}")
+    if not logits["fault_ratio"] > LOGITS_VS_F32_RATIO:
+        raise AssertionError(f"prefill logits: the planted off-by-one reads "
+                             f"{logits['fault_ratio']} x, within the bound: "
+                             f"{logits}")
+    return res
+
+
+# ------------------------------ 11-13. long8k, layer8b, train05b (bench.py)
+# launches a dense step makes: with per-layer recompute the forward
+# kernels run twice a layer (the forward and the backward's recompute),
+# two RMSNorms a layer; the 8-bit AdamW once a leaf
+def _dense_launches_per_step(cfg, adamw_q: bool):
+    from paddle_tpu_torch.nlp import llama
+    L, fwd = cfg.num_hidden_layers, 2 if cfg.remat else 1
+    shapes = llama._shapes(cfg)
+    leaves = len(shapes) - 1 + len(shapes["layers"])
+    return {"flash_attention_fwd": fwd * L, "flash_attention_bwd": L,
+            "rms_norm_fwd": 2 * fwd * L, "rms_norm_bwd": 2 * L,
+            "adamw_q": leaves if adamw_q else 0}
+
+
+def _check_launches(name, res, per_step, steps):
+    for k, n in per_step.items():
+        if res["launches"][k] != n * steps:
+            raise AssertionError(f"{name}: {k} launched {res['launches'][k]}"
+                                 f" times in {steps} steps, expected {n} a "
+                                 f"step")
+
+
+def _dense_phase(peaks, name, config, cfg, batch, seq, state_quant,
+                 warmup=2, timed=4):
+    from paddle_tpu_torch.nlp import llama
+    res, state, _ = _drive_train(peaks, llama, cfg, batch, _train_counters(),
+                                 warmup, timed, seq, state_quant=state_quant)
+    res = {"phase": name, "config": config,
+           "widths": {"D": cfg.hidden_size, "F": cfg.intermediate_size,
+                      "L": cfg.num_hidden_layers,
+                      "H": cfg.num_attention_heads,
+                      "KV": cfg.num_key_value_heads, "V": cfg.vocab_size,
+                      "param_dtype": str(cfg.param_dtype)},
+           **res, "nvidia_smi": _smi_line()}
+    _emit(res)
+    del state
+    torch.cuda.empty_cache()
+    _check_losses(res)
+    _check_launches(name, res, _dense_launches_per_step(
+        cfg, state_quant is not None), res["steps"])
+    return res
+
+
+def phase_long8k(peaks):
+    """bench.py:381: the flagship 2B at 2 x 8192, 8-bit AdamW, clip 1.0."""
+    from paddle_tpu_torch.nlp import llama
+    cfg = llama.LlamaConfig.flagship_2b(max_position_embeddings=8192)
+    return _dense_phase(peaks, "long8k", "flagship_2b at 2 x 8192 "
+                        "(bench.py:381)", cfg, 2, 8192, "8bit")
+
+
+def phase_train05b(peaks):
+    """bench.py:372-376: the round-1 ~0.5B config, f32 params, the tree
+    adamw (f32 moments) behind a clip of 1.0, at 16 x 2048."""
+    from paddle_tpu_torch.tools import bench
+    return _dense_phase(peaks, "train05b", "cfg05 (bench.py:372-376), "
+                        "f32 Adam", bench.cfg_05b(), 16, 2048, None)
+
+
+def phase_layer8b(peaks, timed=8):
+    """bench.py:308: one Llama-3-8B layer, batch 1, S 4096 and 8192,
+    through `tools/bench.run_8b_layer` (1 warm-up and `timed` steps of
+    the weights' gradient); MFU by bench.py:344-346's count."""
+    from paddle_tpu_torch.tools import bench
+    counters = {n: c for n, c in _train_counters().items()
+                if n != "adamw_q"}
+    runs = {}
+    for seq in (4096, 8192):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        r = bench.run_8b_layer(seq, timed_steps=timed)
+        res = {"phase": "layer8b", "config": "llama3_8b, 1 layer "
+               "(bench.py:308)", "batch": 1, "seq": seq, "steps": 1 + timed,
+               **r, "tokens_per_s": seq / r["step_ms"] * 1e3,
+               "launches": {n: c.launches for n, c in counters.items()},
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "nvidia_smi": _smi_line()}
+        _emit(res)
+        if not (np.isfinite(res["mfu"]) and res["mfu"] > 0):
+            raise AssertionError(f"layer8b S={seq}: MFU {res['mfu']}")
+        _check_launches(f"layer8b S={seq}", res, {
+            "flash_attention_fwd": 1, "flash_attention_bwd": 1,
+            "rms_norm_fwd": 2, "rms_norm_bwd": 2}, res["steps"])
+        runs[f"layer8b_{seq // 1024}k"] = res
+    return runs
+
+
 # "main": for each path that launches the kernel, the case at that
 # path's shape whose times the kernels line reports (its index among the
 # kernel's cases, or among those of the path where cases name their
@@ -2883,10 +3383,14 @@ _KERNELS = {
         # train_moe: B=20 S=2048 H=16 + LSE; eager: B=64 S=512 H=12
         # hd=64 non-causal + LSE; eager_llama: B=2 S=2048 + LSE; ernie:
         # B=64 S=512 H=12 hd=64 bhsd key-masked + LSE
-        # dit: B=96 S=256 H=16 hd=72 bhsd non-causal + LSE
+        # dit: B=96 S=256 H=16 hd=72 bhsd non-causal + LSE; generate: the
+        # prefill, B=1 S=8192; long8k: B=2 S=8192 + LSE; layer8b: B=1
+        # S=4096 and 8192 + LSE; train05b: B=16 S=2048 H=16 + LSE
         "rows": [1],
         "main": {"serve": 1, "train": 3, "train_moe": 4, "eager": 5,
-                 "eager_llama": 6, "ernie": 7, "dit": 12}},
+                 "eager_llama": 6, "ernie": 7, "dit": 12, "generate": 14,
+                 "long8k": 15, "layer8b_4k": 16, "layer8b_8k": 17,
+                 "train05b": 18}},
     "ragged_paged_attention": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
@@ -2900,23 +3404,28 @@ _KERNELS = {
                           "paddle_tpu/kernels/flash_attention.py:503"],
         "rows": [2, 3, 4, 5],
         "main": {"train": 0, "train_moe": 2, "eager": 3, "eager_llama": 4,
-                 "ernie": 5, "dit": 10}},
+                 "ernie": 5, "dit": 10, "long8k": 12, "layer8b_4k": 1,
+                 "layer8b_8k": 13, "train05b": 14}},
     "rms_norm_fwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:107",
         "rows": [7],
-        "main": {"train": 0, "train_moe": 1}},
+        # long8k's 2 x 8192 rows are the dense step's [16384, 4096]
+        "main": {"train": 0, "train_moe": 1, "long8k": 0, "layer8b_4k": 3,
+                 "layer8b_8k": 2, "train05b": 4}},
     "rms_norm_bwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:115",
         "rows": [8],
-        "main": {"train": 0, "train_moe": 1}},
+        "main": {"train": 0, "train_moe": 1, "long8k": 0, "layer8b_4k": 3,
+                 "layer8b_8k": 2, "train05b": 4}},
     "adamw_q": {
         "source": "paddle_tpu_torch/csrc/adamw_q.cu",
         "replaces": "paddle_tpu/optimizer/quant_state.py:227",
         "rows": [17],
-        # the largest leaves: [11, 4096, 9472]; [12, 16, 2048, 1024]
-        "main": {"train": 0, "train_moe": 0}},
+        # the largest leaves: [11, 4096, 9472]; [12, 16, 2048, 1024];
+        # long8k trains the dense step's tree
+        "main": {"train": 0, "train_moe": 0, "long8k": ("train", 0)}},
     "gather_wsum": {
         "source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
         "replaces": "paddle_tpu/kernels/moe_dispatch.py:244",
@@ -2964,6 +3473,9 @@ _KERNELS = {
         "rows": [16], "main": {}, "held": 0, "counted_in": "dit"},
 }
 _TIMES = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+# the JAX package's flash backward streams (rows 2-4) above this length
+# (`_RESIDENT_MAX_SEQ`, flash_attention.py:274) and runs row 5 below it
+_RESIDENT_MAX_SEQ = 2048
 
 
 def _kernels_line(cases, runs):
@@ -2971,7 +3483,9 @@ def _kernels_line(cases, runs):
     for name, meta in _KERNELS.items():
         by_path = {}
         for path, i in meta["main"].items():
-            pool = [c for c in cases[name] if c.get("path", path) == path]
+            # a path whose case is another path's names it: (path, index)
+            of, i = i if isinstance(i, tuple) else (path, i)
+            pool = [c for c in cases[name] if c.get("path", of) == of]
             by_path[path] = {"launches": runs[path]["launches"][name],
                              **{k: pool[i][k] for k in _TIMES
                                 + ("graph_ms",) if k in pool[i]}}
@@ -2999,6 +3513,11 @@ def _kernels_line(cases, runs):
             entry["graph_ms"] = top["graph_ms"]
         if "also_replaces" in meta:
             entry["also_replaces"] = meta["also_replaces"]
+            # the JAX package's rows by length: streamed 2-4, resident 5
+            streamed = sum(r["launches"] for p, r in by_path.items()
+                           if runs[p].get("seq", 0) > _RESIDENT_MAX_SEQ)
+            entry["launches_by_row"] = {"2-4": streamed,
+                                        "5": launches - streamed}
         if not by_path:
             entry["held_at"] = top["shape"]
         kernels.append(entry)
@@ -3029,9 +3548,14 @@ def main() -> int:
     phase_grad_check_ernie()
     dit = phase_dit(peaks)
     phase_grad_check_dit()
+    generate = phase_generate(peaks)
+    long8k = phase_long8k(peaks)
+    layer8b = phase_layer8b(peaks)
+    train05b = phase_train05b(peaks)
     runs = {"serve": serve, "train": train, "train_moe": train_moe,
             "eager": eager, "eager_llama": eager_llama, "ernie": ernie,
-            "dit": dit}
+            "dit": dit, "generate": generate, "long8k": long8k, **layer8b,
+            "train05b": train05b}
     _emit({"kernels": _kernels_line(cases, runs)})
     print(_smi_line(), flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -76,7 +76,8 @@ from . import autograd  # noqa: F401
 from .autograd import no_grad, enable_grad, set_grad_enabled  # noqa: F401
 from .ops import (zeros, ones, full, arange, add, subtract,  # noqa: F401
                   multiply, divide, matmul, tanh, exp, reshape, transpose,
-                  split, squeeze, unsqueeze, concat, cast, sum, mean)
+                  split, squeeze, unsqueeze, concat, cast, sum, mean,
+                  equal, not_equal)
 from . import ops  # noqa: F401
 from . import nn  # noqa: F401
 from .nn.layer import ParamAttr  # noqa: F401

@@ -26,8 +26,8 @@ from .device import Place, _device
 
 def _from_numpy(a: np.ndarray, device) -> torch.Tensor:
     """A numpy array (ml_dtypes bfloat16 included) as a torch tensor on
-    `device`."""
-    a = np.ascontiguousarray(a)
+    `device`, of the array's own shape (0-d stays 0-d)."""
+    a = np.asarray(a, order="C")
     if not a.flags.writeable:
         a = a.copy()
     if a.dtype.name == "bfloat16":

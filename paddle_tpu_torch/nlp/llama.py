@@ -14,7 +14,8 @@ views (`unbind`, whose backward stacks the layer grads once), and
 `jax.checkpoint(..., nothing_saveable)` is `torch.utils.checkpoint`
 with `use_reentrant=False`: only each layer's input is kept, the layer
 is recomputed in the backward. Attention runs the flash kernels
-(`kernels.flash_attention.flash_attention`), the two norms of each
+(`kernels.flash_attention.flash_attention`; the exact `mha_ref` with
+`use_flash=False`, as in the JAX package), the two norms of each
 layer the RMSNorm kernels (`kernels.rms_norm.rms_norm_train`); the
 final norm, the loss, RoPE, SiLU, the embedding gather and every GEMM
 are plain torch, as they are jnp/XLA in the JAX package.
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, mha_ref
 from ..kernels.rms_norm import rms_norm_ref, rms_norm_train
 from ..kernels.rope import apply_rope_half, rope_freqs
 
@@ -62,6 +63,9 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16         # compute dtype
     param_dtype: Any = torch.float32    # storage dtype of the training tree
     remat: bool = True                  # recompute each layer in backward
+    # attention through the flash kernels; False runs the exact `mha_ref`
+    # (the JAX package's switch, which its generation tests turn off)
+    use_flash: bool = True
     # loss path: True routes loss_fn through fused_head_ce (no [B, S, V]
     # f32 logits kept for the backward)
     fused_ce: bool = False
@@ -204,7 +208,10 @@ def _attention(x, lp, cfg: LlamaConfig, cos, sin):
     k = (x @ lp["k_proj"].to(cd)).reshape(B, S, KV, hd)
     v = (x @ lp["v_proj"].to(cd)).reshape(B, S, KV, hd)
     q, k = apply_rope_half(q, k, cos, sin)
-    o = flash_attention(q, k, v, True, None)
+    if cfg.use_flash:
+        o = flash_attention(q, k, v, True, None)
+    else:
+        o = mha_ref(q, k, v, causal=True)
     return o.reshape(B, S, H * hd) @ lp["o_proj"].to(cd)
 
 

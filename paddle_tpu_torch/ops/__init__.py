@@ -17,8 +17,10 @@ from .math import (add, subtract, multiply, divide, exp, tanh,  # noqa: F401
 from .manipulation import (reshape, transpose, squeeze,  # noqa: F401
                            unsqueeze, cast, concat, split, getitem)
 from .reduction import sum, mean  # noqa: F401
+from .comparison import equal, not_equal  # noqa: F401
 
-from . import creation, math, manipulation, reduction  # noqa: F401
+from . import (comparison, creation, math, manipulation,  # noqa: F401
+               reduction)
 
 # paddle method aliases
 _ALIASES = {"sub": "subtract", "mul": "multiply", "div": "divide"}
@@ -26,7 +28,7 @@ _ALIASES = {"sub": "subtract", "mul": "multiply", "div": "divide"}
 
 def _attach():
     for fn in (add, subtract, multiply, divide, exp, tanh, matmul, reshape,
-               transpose, squeeze, unsqueeze):
+               transpose, squeeze, unsqueeze, equal, not_equal):
         if not hasattr(Tensor, fn.__name__):
             setattr(Tensor, fn.__name__, fn)
     for alias, target in _ALIASES.items():
@@ -47,6 +49,10 @@ def _attach():
     Tensor.__rtruediv__ = _swap(divide)
     Tensor.__matmul__ = lambda s, o: matmul(s, o)
     Tensor.__rmatmul__ = _swap(matmul)
+    # elementwise, as paddle_tpu/ops/__init__.py:169-170; __hash__ stays
+    # id (core/tensor.py), so dicts and sets of Tensors key on identity
+    Tensor.__eq__ = lambda s, o: equal(s, o)
+    Tensor.__ne__ = lambda s, o: not_equal(s, o)
 
     Tensor.sum = lambda s, axis=None, dtype=None, keepdim=False, name=None: \
         sum(s, axis, dtype, keepdim)

@@ -9,9 +9,11 @@ from ._registry import defop
 
 
 def _other(y, like):
-    """The second operand: a tensor as it is, a python scalar as it is
-    (torch keeps x's dtype, as jax's weak types do), an array-like on x's
-    device."""
+    """The second operand: a tensor as it is, a python scalar as it is,
+    an array-like on x's device. A python scalar keeps a float x's dtype,
+    as jax's weak types do; with an integer x, a python float gives
+    torch's default float dtype, float32, where the JAX package (under
+    `jax_enable_x64`) gives float64: a recorded divergence."""
     if isinstance(y, (torch.Tensor, bool, int, float, complex)):
         return y
     return torch.as_tensor(np.asarray(y), device=like.device)

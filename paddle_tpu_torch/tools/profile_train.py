@@ -1,15 +1,20 @@
 """Where a training step's time goes on one NVIDIA GPU.
 
     python -m paddle_tpu_torch.tools.profile_train
-        [--model llama|moe|eager_ernie|eager_llama|ernie|dit] [--layers N]
+        [--model llama|moe|long8k|train05b|eager_ernie|eager_llama|ernie|dit]
+        [--layers N]
 
 `--model llama` (default) builds the flagship dense config (bench.py:120:
 D 4096, F 9472, 11 layers, GQA 32/8, V 32000; batch 8 x 2048);
 `--model moe` the single-chip MoE config (bench.py:98: D 2048, 12
 layers, GQA 16/8, 16 experts top-2 of width 1024 plus a shared expert,
-V 32000; batch 20 x 2048). Both: bf16 params, 8-bit AdamW with the clip
-at 1.0, lr 1e-4, random weights from a seed, full depth unless
-`--layers` cuts it; they drive `train.make_train_step`. The eager models
+V 32000; batch 20 x 2048); `--model long8k` the flagship at 2 x 8192
+(bench.py:381). All three: bf16 params, 8-bit AdamW with the clip at
+1.0, lr 1e-4. `--model train05b` is bench.py:372-376's ~0.5B config
+(D 2048, F 5632, 8 layers, GQA 16/8; batch 16 x 2048) with f32 params
+and the tree adamw behind the clip. Each: random weights from a seed,
+full depth unless `--layers` cuts it; they drive
+`train.make_train_step`. The eager models
 drive their `train_step` under O1 bf16 with f32 params and AdamW with
 the global clip: `--model eager_ernie` the ERNIE-3.0-base encoder
 composed from layers (tools/eager_ernie.py; batch 64 x 512, lr 2e-5),
@@ -42,6 +47,7 @@ memory. The last line names the card and its power limit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -53,9 +59,9 @@ from torch.autograd import DeviceType
 # the training batch and length of each model (bench.py:369-370,
 # bench.py:87 and bench.py:134)
 _BATCH = {"llama": 8, "moe": 20, "eager_ernie": 64, "eager_llama": 2,
-          "ernie": 64, "dit": 96}
+          "ernie": 64, "dit": 96, "long8k": 2, "train05b": 16}
 _SEQ = {"llama": 2048, "moe": 2048, "eager_ernie": 512, "eager_llama": 2048,
-        "ernie": 512, "dit": 256}
+        "ernie": 512, "dit": 256, "long8k": 8192, "train05b": 2048}
 _GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet", "cublas")
 # kernel symbol names of csrc/*.cu, by class
 _PORT_KERNELS = (("flash_fwd_kernel", "flash_fwd"),
@@ -109,10 +115,16 @@ def main(argv=None) -> int:
             else {"num_hidden_layers": args.layers})
     if args.model == "moe":
         model, cfg = moe, moe.MoeConfig.flagship_moe(**over)
+    elif args.model == "train05b":
+        from .bench import cfg_05b
+        model, cfg = llama, dataclasses.replace(cfg_05b(), **over)
     else:
-        model, cfg = llama, llama.LlamaConfig.flagship_2b(**over)
+        model, cfg = llama, llama.LlamaConfig.flagship_2b(
+            max_position_embeddings=_SEQ[args.model], **over)
     batch = _BATCH[args.model]
-    tx = train.make_optimizer(1e-4, state_quant="8bit", grad_clip=1.0)
+    tx = train.make_optimizer(
+        1e-4, state_quant=None if args.model == "train05b" else "8bit",
+        grad_clip=1.0)
     state = train.init_state(
         torch.Generator(device="cuda").manual_seed(args.seed), cfg, tx,
         model=model)

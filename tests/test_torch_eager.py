@@ -205,6 +205,99 @@ def test_amp_o1_output_dtype(name):
 
 
 # --------------------------------------------------------- optimizer
+# ------------------------------------------------ F4-F7
+# F4: 0-d data keeps its shape through every path into a Tensor
+_ZERO_D = {
+    "int": lambda p: p.to_tensor(3),
+    "float": lambda p: p.to_tensor(2.5),
+    "bool": lambda p: p.to_tensor(True),
+    "np_float32": lambda p: p.to_tensor(np.float32(2)),
+    "array_0d": lambda p: p.to_tensor(np.array(1.5, np.float32)),
+    "tensor_ctor": lambda p: p.Tensor(np.array(4, np.int32)),
+    "set_value": lambda p: p.to_tensor(np.float32(1)).set_value(
+        np.array(3, np.float32)),
+    "rsub": lambda p: 1 - p.to_tensor(np.ones((2, 3), np.float32)).mean(),
+    "rtruediv": lambda p: 2 / p.to_tensor(np.full((4,), 2, np.float32)).sum(),
+    "rsub_float": lambda p: 1.5 - p.to_tensor(2.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ZERO_D))
+def test_zero_d_keeps_its_shape(name):
+    j, t = _both(_ZERO_D[name])
+    assert t.shape == j.shape == [], (t.shape, j.shape)
+    assert _dtype_name(t) == _dtype_name(j)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j.numpy()))
+
+
+# F5: == and != are the elementwise equal / not_equal, bool Tensors
+_EQ = {
+    "eq": lambda p: p.to_tensor([1., 2.]) == p.to_tensor([1., 3.]),
+    "ne": lambda p: p.to_tensor([1., 2.]) != p.to_tensor([1., 3.]),
+    "broadcast": lambda p: p.to_tensor([[1.], [2.]]) == p.to_tensor(
+        [1., 2., 3.]),
+    "scalar": lambda p: p.to_tensor([1, 2, 3]) != 2,
+    "int_float": lambda p: p.to_tensor([1, 2]) == p.to_tensor([1., 2.5]),
+    "method": lambda p: p.to_tensor([0., 5.]).equal(p.to_tensor([0., 4.])),
+    "op": lambda p: p.not_equal(p.to_tensor([True, False]),
+                                p.to_tensor([True, True])),
+    "zero_d": lambda p: p.to_tensor(2.0) == 2.0,
+}
+
+
+@pytest.mark.parametrize("name", sorted(_EQ))
+def test_eq_ne_are_elementwise(name):
+    j, t = _both(_EQ[name])
+    assert t.shape == j.shape
+    assert _dtype_name(t) == _dtype_name(j) == "bool"
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j.numpy()))
+    assert t.stop_gradient and j.stop_gradient
+
+
+def test_eq_records_no_gradient_and_tensors_key_on_identity():
+    def run(p):
+        x = p.to_tensor(np.array([1., 2.], np.float32), stop_gradient=False)
+        e = x == x
+        y = p.to_tensor(np.array([1., 2.], np.float32))
+        keyed = {x: "x", y: "y"}
+        return (e.stop_gradient, e.numpy().tolist(), len(keyed), keyed[y],
+                len({x, y, x}), hash(x) == id(x))
+
+    j, t = _both(run)
+    assert j == t == (True, [True, True], 2, "y", 2, True)
+
+
+# F6 (recorded divergence): dtypes are the framework's dtype objects.
+# They equal paddle.float32; unlike the JAX package's numpy dtypes they do
+# not equal their names, as in Paddle itself.
+def test_dtype_compares_to_dtype_objects_not_names():
+    x = tp.to_tensor([1.0])
+    assert x.dtype == tp.float32 and x.dtype != "float32"
+    assert tp.get_default_dtype() is tp.float32 is torch.float32
+    jx = jp.to_tensor([1.0])
+    assert jx.dtype == jp.float32 and jx.dtype == "float32"
+
+
+# F7 (recorded divergence): an integer tensor with a python float, and the
+# mean of an integer tensor, give the default float dtype (float32); the
+# JAX package gives float64 under jax_enable_x64.
+_PROMOTE = {
+    "mul": lambda p: p.to_tensor([1, 2]) * 2.0,
+    "add": lambda p: p.to_tensor([1, 2]) + 1.5,
+    "rtruediv": lambda p: 1 / p.to_tensor([1, 2]),
+    "mean": lambda p: p.mean(p.to_tensor([1, 2])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PROMOTE))
+def test_int_promotes_to_the_default_float_dtype(name):
+    j, t = _both(_PROMOTE[name])
+    assert t.dtype == tp.get_default_dtype() == tp.float32
+    assert _dtype_name(j) == "float64"
+    assert t.shape == j.shape
+    np.testing.assert_allclose(t.numpy(), np.asarray(j.numpy()), rtol=1e-6)
+
+
 def test_adamw_global_clip_five_steps():
     """AdamW (decay 0.01, bias excluded by apply_decay_param_fun) with
     ClipGradByGlobalNorm(1.0) on a Linear, f32, 5 steps: the parameters
