@@ -447,6 +447,65 @@ def _ragged_case(kind, H, KV, hd, gen, flush):
     return res
 
 
+def _ragged_option_case(kind, H, KV, hd, gen, flush):
+    """Row 18's int8 option ("int8 <batch>", a `_ragged_case` batch over
+    int8 twins of its pools) or its suffix option (a `bench_kernels`
+    SPEC_KINDS shape: chain verify, tree verify, draft step) against the
+    plain version as `_ragged_case` holds it (KERNEL_TOL, invalid queries
+    zero, bit-identical twice, host and CUDA-graph times, the bound from
+    this data's live bytes), plus a planted control that must read above
+    KERNEL_TOL: the kernel run with each block's scales taken from the
+    block before (int8; the bf16 pools are drawn with per-block
+    magnitudes 1/4 to 4, as real K/V vary) or with the slab visibility
+    shifted by one row (suffix), held to the sound plain version."""
+    from paddle_tpu_torch.nlp import ragged_attention as ra
+    from paddle_tpu_torch.tools import bench_kernels as bk
+    bs, M = 16, 64
+    if kind.startswith("int8 "):
+        args, (pos, val) = bk.ragged_batch(kind[5:], H, KV, hd, bs, M, gen,
+                                           SEED)
+        N = args[1].shape[0]
+        f = torch.exp2(torch.rand(N, device="cuda", generator=gen) * 4 - 2)
+        kc, vc, opts = bk.quantize_pools(
+            (args[1].float() * f[:, None, None, None]).bfloat16(),
+            (args[2].float() * f[:, None, None, None]).bfloat16())
+        args = (args[0], kc, vc, *args[3:])
+        bad = {"k_scale": opts["k_scale"].roll(1),
+               "v_scale": opts["v_scale"].roll(1)}
+        control = "each block's scales from the block before"
+    else:
+        args, (pos, val), opts = bk.ragged_spec_batch(kind, H, KV, hd, bs, M,
+                                                      gen, SEED)
+        bad = dict(opts, suffix_vis=opts["suffix_vis"].roll(1, dims=-1)
+                   .contiguous())
+        control = "the slab visibility shifted by one row"
+    R, P = pos.shape
+    live = np.where(val, pos + 1, 0).max(axis=1)
+    slab = "" if "suffix_k" not in opts else \
+        f" S={opts['suffix_k'].shape[1]}"
+    res = bk.ragged_case(args, pos, val,
+                         f"{kind} R={R} P={P}{slab} H={H} KV={KV} hd={hd} "
+                         f"bs={bs} M={M} live={live.tolist()}", flush=flush,
+                         opts=opts)
+    if not res["ok"]:
+        raise AssertionError(f"ragged {kind}: {res}")
+    ref = ra.ragged_paged_attention_ref(*args, **opts)
+    res["control"] = control
+    res["control_rel_err"] = _rel_err(
+        ra.ragged_paged_attention(*args, **{**opts, **bad}), ref,
+        args[5][:, :, None] & (ref.float().abs().amax(-1) > 0))
+    if not res["control_rel_err"] > KERNEL_TOL:
+        raise AssertionError(f"ragged {kind}: the planted control ({control})"
+                             f" reads {res['control_rel_err']}, within "
+                             f"{KERNEL_TOL}: the check cannot see it")
+    res["plain_ms"] = _time_ms(
+        lambda: ra.ragged_paged_attention_ref(*args, **opts), 5, flush)
+    res["library_ms"] = None
+    del ref, args, opts, bad
+    torch.cuda.empty_cache()
+    return res
+
+
 # bf16 tolerance of a kernel against its plain version, relative to the
 # scale of each query head's output vector (`_rel_err`). Both versions
 # compute in f32 and round the output to bf16; two roundings of nearly
@@ -1426,6 +1485,13 @@ def phase_kernels(peaks):
     ragged = [_ragged_case(kind, H, KV, hd, gen, flush)
               for kind in ("decode", "fused", "continue", "full8",
                            "full32")]
+    # row 18's two options at serve_quant_spec's shapes: the int8 pool
+    # at the decode, fused and full-chain batches; the suffix slab at the
+    # chain verify (spec_k 4), the tree verify ([2, 2, 1]) and a draft step
+    ragged_int8 = [_ragged_option_case(f"int8 {kind}", H, KV, hd, gen, flush)
+                   for kind in ("decode", "fused", "full32")]
+    ragged_suffix = [_ragged_option_case(kind, H, KV, hd, gen, flush)
+                     for kind in ("verify_chain", "verify_tree", "draft")]
     wsum, sdot, moe_info = _moe_dispatch_cases(peaks, gen, flush)
     # the eager ERNIE step's norms (f32) and the bf16 form; then the
     # kernels' other forms: a row of one block (D > 1024, up to the
@@ -1540,6 +1606,8 @@ def phase_kernels(peaks):
                           **_adamw_case(shape, names, peaks, gen)})
             torch.cuda.empty_cache()
     cases = {"flash_attention_fwd": flash, "ragged_paged_attention": ragged,
+             "ragged_paged_attention_int8": ragged_int8,
+             "ragged_paged_attention_suffix": ragged_suffix,
              "flash_attention_bwd": bwd,
              "rms_norm_fwd": [f for f, _ in rms],
              "rms_norm_bwd": [b for _, b in rms], "adamw_q": adamw,
@@ -1578,9 +1646,10 @@ def _off_by_one(paged):
     def flash_fault(q, k, v, causal=True, scale=None):
         return flash(q, shift(k), shift(v), causal=causal, scale=scale)
 
-    def ragged_fault(q, k_pool, v_pool, table, positions, valid=None):
+    def ragged_fault(q, k_pool, v_pool, table, positions, valid=None,
+                     **opts):
         return ragged(q, k_pool, v_pool, table, (positions - 1).clamp(min=0),
-                      valid)
+                      valid, **opts)
 
     paged.flash_attention_fwd_ref = flash_fault
     paged.ragged_paged_attention_ref = ragged_fault
@@ -1630,7 +1699,7 @@ def _logits_check(params, cfg):
             "f32": (dataclasses.replace(cfg, dtype=torch.float32), "ref")}
     res = {}
     for name, (c, impl) in runs.items():
-        k, v = paged.init_pool(c, B * M, bs, device=dev)
+        k, v, _, _ = paged.init_pool(c, B * M, bs, device=dev)
         cache = paged.PagedKVCache(k, v, table,
                                    torch.zeros(B, dtype=torch.int32,
                                                device=dev))
@@ -1788,6 +1857,248 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
            "logits_check": check,
            "logits_vs_f32_ratio_tol": LOGITS_VS_F32_RATIO,
            "nvidia_smi": _smi_line()}
+    _emit(res)
+    return res
+
+
+# ---------------------------------------------------- 4b. serve_quant_spec
+# (name, engine kwargs, the plain twin its tokens are matched against):
+# (a) int8 weights and KV, plain decode; (b) int8 KV with a full-depth
+# chain draft of 4 (the draft is the target: nearly everything accepts,
+# driving multi-row commits and int8 scale growth); (c) a [2, 2, 1] tree
+# drafted from the first 8 layers' int8 quantization over the fp pool (a
+# truncated draft of random weights accepts little: the reject path)
+_QUANT_SPEC_CASES = (
+    ("a", dict(weight_dtype="int8", kv_dtype="int8"), None),
+    ("b", dict(kv_dtype="int8", speculative=True, spec_k=4), "b_twin"),
+    ("c", dict(speculative=True, spec_tree=[2, 2, 1], draft_layers=8,
+               spec_draft_w8=True), "c_twin"),
+)
+_QUANT_SPEC_TWINS = {"b_twin": dict(kv_dtype="int8"), "c_twin": {}}
+
+
+def _serve_burst(params, cfg, prompts, budget, kw):
+    """One ServingEngine at the phase's sizing with `kw`, warmed by one
+    short request, then `prompts` submitted at once with the launch
+    counters zeroed just before and read just after. Checks that every
+    request finishes with `budget` in-vocabulary tokens and the pool
+    drains; returns the tokens, rates, TTFTs, peak memory (from before
+    the engine's construction: the int8 trees are made there), launches
+    by option and the burst's own speculative counters."""
+    from paddle_tpu_torch.kernels.flash_attention import \
+        flash_attention_fwd as flash
+    from paddle_tpu_torch.nlp.ragged_attention import \
+        ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving import RequestState, ServingEngine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(params, cfg, max_batch=8, block_size=16,
+                        max_total_len=1024, max_new_tokens=budget,
+                        max_prefill_bucket=512, start=True, **kw)
+    build_s = time.perf_counter() - t0
+    try:
+        eng.generate(prompts[0][:16], max_new_tokens=2, timeout=600)
+        s0 = eng.batcher.spec.as_dict()
+        flash.launches = rpa.launches = 0
+        rpa.launches_int8 = rpa.launches_suffix = 0
+        t_start = time.monotonic()
+        reqs = [eng.submit(p) for p in prompts]
+        for r in reqs:
+            r.wait(timeout=900)
+        t_end = time.monotonic()
+        if not eng.drain(timeout=120):
+            raise AssertionError(f"{kw}: the engine did not drain")
+        launches = {"flash_attention_fwd": flash.launches,
+                    "ragged_paged_attention": rpa.launches,
+                    "ragged_paged_attention_int8": rpa.launches_int8,
+                    "ragged_paged_attention_suffix": rpa.launches_suffix}
+        peak = torch.cuda.max_memory_allocated()
+        snap = eng.snapshot()
+        s1 = eng.batcher.spec.as_dict()
+    finally:
+        clean = eng.shutdown(timeout=120)
+        del eng
+    if not clean:
+        raise AssertionError(f"{kw}: engine shutdown was not clean")
+    for i, r in enumerate(reqs):
+        if r.state is not RequestState.FINISHED:
+            raise AssertionError(f"{kw}: request {i} ended {r.state.name}: "
+                                 f"{r.error!r}")
+        if len(r.tokens) != budget or not all(
+                0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"{kw}: request {i}: bad output {r.tokens}")
+    if snap["gauges"]["kv_blocks_in_use"] != 0:
+        raise AssertionError(f"{kw}: {snap['gauges']['kv_blocks_in_use']} "
+                             f"KV blocks leaked")
+    ttft = np.array([r.first_token_time - r.submit_time for r in reqs])
+    ntok = sum(len(r.tokens) for r in reqs)
+    burst = {k: s1[k] - s0[k] for k in ("steps", "slot_sweeps", "drafted",
+                                        "accepted", "emitted")}
+    sweeps = max(burst["slot_sweeps"], 1)
+    return {"kw": kw, "tokens": [list(r.tokens) for r in reqs],
+            "tokens_generated": ntok, "wall_s": t_end - t_start,
+            "tokens_per_s": ntok / (t_end - t_start),
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "peak_memory_bytes": peak, "engine_build_s": build_s,
+            "launches": launches, "fused_steps": snap["gauges"]["fused_steps"],
+            "quantization": snap["quantization"], "spec_burst": burst,
+            "accepted_per_sweep": burst["accepted"] / sweeps,
+            "tokens_per_sweep": burst["emitted"] / sweeps}
+
+
+def _verify_logits_check(params, cfg):
+    """The verify's logits through the kernels against an f32 evaluation:
+    a cold prefill of 4 ragged prompts writes int8 pools (flash, the int8
+    write), then a chain verify of 5 tokens (spec_k 4) and a tree verify
+    of [2, 2, 1] (11 nodes) score the read-only pool plus the slab
+    (`_forward_spec`: row 18's int8 and suffix options at once). Four
+    ways, each on its own pools: bf16 with the kernels, bf16 with the
+    plain versions, the plain versions with the slab visibility shifted
+    by one row (the planted fault), and f32 with the plain versions.
+    Returns each verify's relative RMS distances from f32 and the
+    kernel's and fault's ratios to the plain bf16 path's."""
+    import dataclasses
+    from paddle_tpu_torch.nlp import paged
+    from paddle_tpu_torch.serving.speculative import SpecConfig
+    dev = "cuda"
+    bs, P = 16, 300
+    lengths = torch.tensor([300, 150, 257, 64], dtype=torch.int32,
+                           device=dev)
+    B = len(lengths)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    toks = torch.randint(1, cfg.vocab_size, (B, P + 11), device=dev,
+                         generator=gen)
+    M = -(-(P + 11) // bs)
+    table = torch.arange(B * M, dtype=torch.int32, device=dev).view(B, M)
+    pos = torch.arange(P, dtype=torch.int32, device=dev)[None].expand(B, P)
+    sc = SpecConfig(tree=[2, 2, 1])
+    verifies = {
+        "chain": (5, torch.arange(5, device=dev),
+                  torch.tril(torch.ones(5, 5, dtype=torch.bool,
+                                        device=dev))),
+        "tree": (sc.slab_rows(), torch.tensor(sc.row_levels(), device=dev),
+                 torch.tensor(sc.ancestor_mask(), device=dev))}
+    runs = {"kernel": (cfg, "kernel"), "ref": (cfg, "ref"),
+            "fault": (cfg, "ref"),
+            "f32": (dataclasses.replace(cfg, dtype=torch.float32), "ref")}
+    res = {}
+    for name, (c, impl) in runs.items():
+        k, v, ks, vs = paged.init_pool(c, B * M, bs, device=dev,
+                                       kv_dtype="int8")
+        cache = paged.PagedKVCache(k, v, table,
+                                   torch.zeros(B, dtype=torch.int32,
+                                               device=dev), ks, vs)
+        _, cache = paged.forward_paged(params, toks[:, :P], cache, pos,
+                                       pos < lengths[:, None], c,
+                                       is_prefill=True, attention_impl=impl)
+        res[name] = {}
+        for vname, (S, lv, vis) in verifies.items():
+            if name == "fault":
+                vis = vis.roll(1, dims=-1)
+            shape = (c.num_hidden_layers, B, S, c.num_key_value_heads,
+                     c.head_dim)
+            sk = torch.zeros(shape, dtype=c.dtype, device=dev)
+            sv = torch.zeros_like(sk)
+            lg, _, _ = paged._forward_spec(
+                params, params["layers"], toks[:, P:P + S], cache,
+                lengths[:, None] + lv[None], lengths, sk, sv, 0, c, vis=vis,
+                attention_impl=impl)
+            res[name][vname] = lg
+        del k, v, ks, vs, cache, sk, sv
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    out = {}
+    for vname in verifies:
+        f32 = res["f32"][vname]
+        c = {f"{n}_vs_f32": rel(res[n][vname], f32)
+             for n in ("kernel", "ref", "fault")}
+        c["kernel_ratio"] = c["kernel_vs_f32"] / c["ref_vs_f32"]
+        c["fault_ratio"] = c["fault_vs_f32"] / c["ref_vs_f32"]
+        c["greedy_agree_kernel_f32"] = (
+            res["kernel"][vname].argmax(-1) == f32.argmax(-1)
+        ).float().mean().item()
+        out[vname] = c
+    return out
+
+
+def phase_serve_quant_spec(layers: int = 32, n_requests: int = 8,
+                           budget: int = 32):
+    """Quantized and speculative serving at Llama-3-8B widths (random bf16
+    weights from the seed, `layers` layers): 8 requests of 16-700 prompt
+    tokens through ServingEngine as (a), (b) and (c) of
+    `_QUANT_SPEC_CASES`, and (b)'s and (c)'s plain twins (the same kv and
+    weight dtypes, no speculation). Each must finish every request and
+    drain the pool; row 18's int8 option must launch in (a) and (b) and
+    its suffix option in (b) and (c) (and not where the case cannot reach
+    them); the full-depth chain must accept more than one token a sweep
+    on average. The spec tokens' match rate against the plain twin is
+    reported (greedy near-ties round differently on the two paths).
+    Then `_verify_logits_check`."""
+    from paddle_tpu_torch.nlp import llama
+    cfg = llama.LlamaConfig.llama3_8b(num_hidden_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device="cuda")
+    rng = np.random.RandomState(SEED + 3)
+    lengths = rng.randint(16, 513, n_requests)
+    lengths[[2, 5]] = rng.randint(513, 701, 2)        # chunked prefill
+    prompts = [rng.randint(1, cfg.vocab_size, int(n)).tolist()
+               for n in lengths]
+    t0 = time.perf_counter()
+    runs = {}
+    for name, kw, twin in _QUANT_SPEC_CASES:
+        if twin is not None:
+            runs[twin] = _serve_burst(params, cfg, prompts, budget,
+                                      _QUANT_SPEC_TWINS[twin])
+        runs[name] = _serve_burst(params, cfg, prompts, budget, kw)
+    for name, _, twin in _QUANT_SPEC_CASES:
+        r = runs[name]
+        if twin is not None:
+            ref = runs[twin]["tokens"]
+            pairs = [(x, y) for a, b in zip(ref, r["tokens"])
+                     for x, y in zip(a, b)]
+            r["match_rate_vs_plain_twin"] = sum(x == y for x, y in pairs) \
+                / len(pairs)
+        n = r["launches"]
+        want_int8 = "kv_dtype" in r["kw"]
+        want_suffix = bool(r["kw"].get("speculative"))
+        if (n["ragged_paged_attention_int8"] >= 1) != want_int8 or \
+                (n["ragged_paged_attention_suffix"] >= 1) != want_suffix or \
+                n["flash_attention_fwd"] < 1:
+            raise AssertionError(f"({name}) {r['kw']}: launches {n}")
+    if not runs["b"]["accepted_per_sweep"] > 1.0:
+        raise AssertionError(f"(b): the full-depth chain accepted "
+                             f"{runs['b']['accepted_per_sweep']} a sweep")
+    serve_s = time.perf_counter() - t0
+    check = _verify_logits_check(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    _emit({"phase": "verify_logits_check",
+           "ratio_tol": LOGITS_VS_F32_RATIO, **check})
+    for name, c in check.items():
+        if not c["kernel_ratio"] <= LOGITS_VS_F32_RATIO:
+            raise AssertionError(
+                f"{name} verify logits: the kernels are {c['kernel_vs_f32']}"
+                f" from f32, more than {LOGITS_VS_F32_RATIO} x the plain "
+                f"bf16 path's {c['ref_vs_f32']}: {c}")
+        if not c["fault_ratio"] > LOGITS_VS_F32_RATIO:
+            raise AssertionError(
+                f"{name} verify logits: the shifted slab visibility reads "
+                f"{c['fault_ratio']} x the plain bf16 path's distance, "
+                f"within the {LOGITS_VS_F32_RATIO} bound: {c}")
+    cases = {name: {k: v for k, v in r.items() if k != "tokens"}
+             for name, r in runs.items()}
+    launches = {k: sum(runs[n]["launches"][k] for n, _, _ in
+                       _QUANT_SPEC_CASES)
+                for k in runs["a"]["launches"]}
+    res = {"phase": "serve_quant_spec", "layers": layers,
+           "requests": n_requests, "budget": budget,
+           "prompt_lengths": lengths.tolist(), "cases": cases,
+           "launches": launches, "serve_s": serve_s,
+           "verify_logits_check": check, "nvidia_smi": _smi_line()}
     _emit(res)
     return res
 
@@ -3387,7 +3698,8 @@ _KERNELS = {
         # prefill, B=1 S=8192; long8k: B=2 S=8192 + LSE; layer8b: B=1
         # S=4096 and 8192 + LSE; train05b: B=16 S=2048 H=16 + LSE
         "rows": [1],
-        "main": {"serve": 1, "train": 3, "train_moe": 4, "eager": 5,
+        "main": {"serve": 1, "serve_quant_spec": 1, "train": 3,
+                 "train_moe": 4, "eager": 5,
                  "eager_llama": 6, "ernie": 7, "dit": 12, "generate": 14,
                  "long8k": 15, "layer8b_4k": 16, "layer8b_8k": 17,
                  "train05b": 18}},
@@ -3395,7 +3707,21 @@ _KERNELS = {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
         "rows": [18],
-        "main": {"serve": 0}},            # the decode case
+        # the decode case; its count takes every launch, of any option
+        "main": {"serve": 0, "serve_quant_spec": 0}},
+    # row 18's two options, counted apart: `quantized=True` (int8 pools)
+    # held at the int8 decode batch, `suffix=True` (the speculative slab)
+    # at the chain verify
+    "ragged_paged_attention_int8": {
+        "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
+        "option": "quantized=True", "rows": [18],
+        "main": {"serve_quant_spec": 0}},
+    "ragged_paged_attention_suffix": {
+        "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
+        "option": "suffix=True", "rows": [18],
+        "main": {"serve_quant_spec": 0}},
     "flash_attention_bwd": {
         "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:277",
@@ -3511,6 +3837,8 @@ def _kernels_line(cases, runs):
             "by_path": by_path}
         if "graph_ms" in top:
             entry["graph_ms"] = top["graph_ms"]
+        if "option" in meta:
+            entry["option"] = meta["option"]
         if "also_replaces" in meta:
             entry["also_replaces"] = meta["also_replaces"]
             # the JAX package's rows by length: streamed 2-4, resident 5
@@ -3521,7 +3849,7 @@ def _kernels_line(cases, runs):
         if not by_path:
             entry["held_at"] = top["shape"]
         kernels.append(entry)
-    rows = sorted(r for k in kernels for r in k["rows"])
+    rows = sorted({r for k in kernels for r in k["rows"]})
     if rows != list(range(1, 19)):
         raise AssertionError(f"the kernels line covers rows {rows}, not "
                              f"the 18 pallas_call sites")
@@ -3534,6 +3862,8 @@ def main() -> int:
     phase_build()
     cases = phase_kernels(peaks)
     serve = phase_serve()
+    torch.cuda.empty_cache()
+    quant_spec = phase_serve_quant_spec()
     torch.cuda.empty_cache()
     train = phase_train(peaks)
     phase_grad_check()
@@ -3552,7 +3882,8 @@ def main() -> int:
     long8k = phase_long8k(peaks)
     layer8b = phase_layer8b(peaks)
     train05b = phase_train05b(peaks)
-    runs = {"serve": serve, "train": train, "train_moe": train_moe,
+    runs = {"serve": serve, "serve_quant_spec": quant_spec, "train": train,
+            "train_moe": train_moe,
             "eager": eager, "eager_llama": eager_llama, "ernie": ernie,
             "dit": dit, "generate": generate, "long8k": long8k, **layer8b,
             "train05b": train05b}

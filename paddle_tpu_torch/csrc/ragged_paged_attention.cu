@@ -1,25 +1,36 @@
 // Ragged paged attention for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/nlp/ragged_attention.py::_rpa_kernel (pallas_call
-// in ragged_paged_attention) without its int8-pool and suffix-slab
-// options: every decode row, every fused prefill+decode batch and every
-// chunked-prefill continuation of the serving path.
+// in ragged_paged_attention) with both of its compiled options: every
+// decode row, every fused prefill+decode batch and every chunked-prefill
+// continuation of the serving path, over an fp pool or an int8 one
+// (`quantized=True`: int8 K/V codes with one f32 scale per pool block),
+// and the speculative draft and verify's suffix slab (`suffix=True`: K/V
+// rows that exist only in the caller's slab, folded into the same
+// softmax as one more chunk).
 //
 // Computes, for each row r and query p: query head h of q[r, p] attends to
 // the chain keys j <= positions[r, p] of KV head h / (H / KV), where chain
-// key j lives at pool block table[r, j / bs], slot j % bs. Invalid queries
-// (valid[r, p] == 0) write zeros. q [R, P, H, hd], pools [N, bs, KV, hd]
-// (one layer), out [R, P, H, hd] bf16; table, positions int32; valid one
-// byte per query. The pool write of the same call happens before this
-// kernel (nlp/paged.py::_attention_paged), so a cold row sees its own keys.
+// key j lives at pool block table[r, j / bs], slot j % bs, and, with a
+// slab, to the slab rows s of suffix_k/v[r] with suffix_vis[r, p, s] set;
+// one softmax runs over both. Invalid queries (valid[r, p] == 0) write
+// zeros. q [R, P, H, hd], pools [N, bs, KV, hd] (one layer) bf16 or int8
+// with k_scale/v_scale [N] f32 (code x scale is the value), slab
+// [R, S, KV, hd] bf16 (S <= 64), suffix_vis [R, P, S] one byte each, out
+// [R, P, H, hd] bf16; table, positions int32; valid one byte per query.
+// The pool write of the same call happens before this kernel
+// (nlp/paged.py::_attention_paged), so a cold row sees its own keys.
 //
 // Bound on the H100: memory. Each (row, KV head) reads its live K and V
-// once, bs * hd * 2 bytes per block each, for ~4 * rep flops a byte, far
-// below the ~295 flop/byte ridge; a decode step of 8 rows of 1024 keys at
-// Llama-3-8B widths moves 33.5 MB, 0.010 ms at 3.35 TB/s. The TPU kernel
-// reads only the LIVE chain instead of gathering the table's full width,
-// and so does this one. What the card needs beyond that is enough bytes in
-// flight: a decode step has only R * KV (row, KV head) pairs.
+// once, bs * hd * 2 bytes per block each (bs * hd int8 codes and a 4-byte
+// scale from an int8 pool), for ~4 * rep flops a byte (8 * rep int8),
+// far below the ~295 flop/byte ridge; a decode step of 8 rows of 1024
+// keys at Llama-3-8B widths moves 33.5 MB (fp) or 16.8 MB (int8), 0.010
+// or 0.005 ms at 3.35 TB/s. The slab adds S * hd * 2 bytes of K and V a
+// (row, KV head), at most 64 rows. The TPU kernel reads only the LIVE
+// chain instead of gathering the table's full width, and so does this
+// one. What the card needs beyond that is enough bytes in flight: a
+// decode step has only R * KV (row, KV head) pairs.
 //
 // Design.
 //  * The chain is split across blocks. The grid is (row, KV head, query
@@ -30,23 +41,41 @@
 //    the keys [s * split_keys, min((s + 1) * split_keys, live)), live being
 //    one past the largest valid position of its tile; a split past live
 //    exits at once, and a tile with no valid query reads no K/V.
+//  * The slab is the last split of each (row, KV head, tile): one stage of
+//    up to 64 slab rows, folded by the same code with the visibility bits
+//    of each query (a 64-bit mask a row) in place of the causal limit, as
+//    the TPU kernel folds it at its extra chunk c == nchunks.
 //  * The query tile is sized to the work. A narrow tile (P * rep <= 16:
-//    decode) is one GQA group of 16 / rep positions, 16 rows (the mma M);
-//    its 4 warps take 16 keys each of every stage and are merged through
-//    shared memory at the end. A wide tile (chunked and fused prefill) is
-//    64 rows, 16 a warp, each warp taking all 64 keys of a stage.
+//    decode, a draft step) is one GQA group of 16 / rep positions, 16 rows
+//    (the mma M); its 4 warps take 16 keys each of every stage and are
+//    merged through shared memory at the end. A wide tile (chunked and
+//    fused prefill, the verify's k + 1 or tree rows) is 64 rows, 16 a
+//    warp, each warp taking all 64 keys of a stage.
 //  * The copies are pipelined: a ring of 3 (hd 128) or 4 (hd 64) stages
-//    of 64 keys of K and V, filled with cp.async (16-byte LDGSTS, which
-//    suits the pool's 256- or 128-byte rows; zero-filled past the split),
-//    so two stages are in flight while a third one's products run. A
-//    split's table entries are read into shared memory once, before the
-//    ring starts (the int8 pool's per-block scales would sit beside them).
-//  * Outputs. A query whose visible keys all lie in split 0 gets its final
-//    bf16 output from split 0, as does an invalid query (zeros). Any other
-//    query gets, from each split holding some of its keys, an f32 partial:
-//    O unnormalised, the running max in log2 units and the sum. Then
-//    ragged_merge_kernel folds each such query's partials in split order.
-//    No atomics: two runs give identical bits.
+//    of 64 keys of K and V (4 or 6 of int8 codes), filled with cp.async
+//    (16-byte LDGSTS, which suits the pool's 256- or 128-byte bf16 rows
+//    and its 128- or 64-byte int8 rows; zero-filled past the split), so
+//    all but one stage are in flight while that one's products run. A split's table entries, and an
+//    int8 pool's two scales a block, are read into shared memory once,
+//    before the ring starts.
+//  * int8 pools. A landed stage's codes are widened to bf16 into one
+//    staging stage (|code| <= 127 is exact in bf16), and the fragment
+//    path runs unchanged on them; in a narrow tile each warp widens only
+//    the 16 keys it folds (no block barrier), in a wide one the block
+//    widens the stage together; each key's K scale multiplies its f32
+//    score column after the product and its V scale the probability
+//    column before P.V (the row sum takes the unscaled probabilities), so
+//    no dequantized value is rounded to bf16. A block of scale 0 gives
+//    exact zeros, as its dequantized codes do.
+//  * Outputs. Without a slab, a query whose visible keys all lie in split
+//    0 gets its final bf16 output from split 0, as does an invalid query
+//    (zeros). Any other query gets, from each split holding some of its
+//    keys, an f32 partial: O unnormalised, the running max in log2 units
+//    and the sum. With a slab every valid query has keys in the slab, so
+//    every valid query gets partials, the slab's last, and the merge
+//    writes every output row (zeros for invalid queries). Then
+//    ragged_merge_kernel folds each query's partials in split order, the
+//    slab's last. No atomics: two runs give identical bits.
 //  * Products on mma.sync m16n8k16 (attention_core.cuh), online softmax
 //    in f32; V's B fragments by ldmatrix.trans. The work is memory bound,
 //    and wgmma's M of 64 would be mostly padding in decode.
@@ -60,20 +89,32 @@ using ptt::kNegInf;
 
 constexpr int kThreads = 128;     // 4 warps
 constexpr int kStageKeys = 64;    // keys of K and of V per ring stage
+constexpr int kMaxSlab = 64;      // slab rows: one stage
 
-// A staged K or V row is HD + 8 elements, so the 8 rows of a fragment
-// load or of an ldmatrix start 4 banks apart.
-template <int HD>
+// A staged bf16 K or V row is HD + 8 elements, so the 8 rows of a
+// fragment load or of an ldmatrix start 4 banks apart. An int8 pool's
+// ring holds the codes (rows of HD bytes), plus one bf16 staging stage
+// they are widened into, plus each ring stage's per-key K and V scales;
+// its stages are half the bytes, so it runs one (hd 128) or two (hd 64)
+// more of them in about the shared memory of the bf16 ring (two blocks
+// still fit a multiprocessor).
+template <int HD, bool Q8>
 struct Ring {
   static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
   static constexpr int kRow = HD + 8;
-  static constexpr int kStages = HD == 128 ? 3 : 4;
+  static constexpr int kStages = HD == 128 ? (Q8 ? 4 : 3) : (Q8 ? 6 : 4);
   static constexpr int kStage = 2 * kStageKeys * kRow;   // K, then V
-  static constexpr int kBytes = kStages * kStage * (int)sizeof(bf16);
+  static constexpr int kStageBytes = kStage * (int)sizeof(bf16);
+  static constexpr int kCodeStage = 2 * kStageKeys * HD;  // int8 bytes
+  static constexpr int kRingBytes =
+      Q8 ? kStages * kCodeStage + kStageBytes : kStages * kStageBytes;
+  static constexpr int kScaleBytes =
+      Q8 ? kStages * 2 * kStageKeys * (int)sizeof(float) : 0;
+  static constexpr int kBytes = kRingBytes + kScaleBytes;
 };
 
 // 16 bytes from device to shared memory, asynchronously; zeros if !full.
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(hop::smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
@@ -99,25 +140,45 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       : "memory");
 }
 
+// Four int8 codes as two bf16 pairs (exact: |code| <= 127), without the
+// quarter-rate int-to-float converts: code c's byte with its sign bit
+// flipped is c + 128, placed as the low byte of the f32 2^23 (exponent
+// byte 0x4B) it reads 2^23 + 128 + c, and one subtraction leaves c.
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  constexpr float kMagic = 8388736.f;       // 2^23 + 128
+  const float c0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650));
+  const float c1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651));
+  const float c2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652));
+  const float c3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653));
+  return make_uint2(ptt::pack_bf16(c0 - kMagic, c1 - kMagic),
+                    ptt::pack_bf16(c2 - kMagic, c3 - kMagic));
+}
+
 // One warp's 16 query rows: Q's A fragments, the O accumulator, and for
-// rows g and g + 8 of this lane the running max (log2 units), the sum
-// and the last chain key the row sees (-1: none).
+// rows g and g + 8 of this lane the running max (log2 units), the sum,
+// the last chain key the row sees (-1: none) and, in the slab split, the
+// slab rows it sees (bit s: row s).
 template <int HD>
 struct Rows {
   uint32_t q[HD / 16][4];
   float o[HD / 8][4];
   float m[2], l[2];
   int lim[2];
+  unsigned long long vm[2];
 };
 
 // Fold NK staged keys into a warp's rows: K rows ks, V rows vs (row
-// stride Ring<HD>::kRow), chain key key0 first. Scores are scaled by
-// scale * log2(e) so exp2 gives the weights.
-template <int HD, int NK>
+// stride Ring<HD>::kRow), key0 the first key's chain key (slab row for
+// SLAB). Scores are scaled by scale * log2(e) so exp2 gives the weights.
+// Q8: the staged rows are codes; kss / vss hold each staged key's K and
+// V scale.
+template <int HD, int NK, bool Q8, bool SLAB>
 __device__ __forceinline__ void fold(Rows<HD>& st, const bf16* ks,
                                      const bf16* vs, int key0,
-                                     float scale_log2) {
-  constexpr int kRow = Ring<HD>::kRow;
+                                     float scale_log2, const float* kss,
+                                     const float* vss) {
+  constexpr int kRow = HD + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float s[NK / 8][4];
 #pragma unroll
@@ -132,15 +193,19 @@ __device__ __forceinline__ void fold(Rows<HD>& st, const bf16* ks,
                     *reinterpret_cast<const uint32_t*>(kr + 8));
     }
   }
-  // mask (key j visible to a row iff j <= its lim), then each row's max
-  // over these keys: a row's scores sit in the 4 lanes of its quad
+  // mask (key j visible to a row iff j <= its lim, or its slab bit), then
+  // each row's max over these keys: a row's scores sit in the 4 lanes of
+  // its quad
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int nt = 0; nt < NK / 8; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1, j = key0 + nt * 8 + 2 * t + (e & 1);
-      s[nt][e] = j <= st.lim[h] ? s[nt][e] * scale_log2 : kNegInf;
+      const int h = e >> 1, lk = nt * 8 + 2 * t + (e & 1), j = key0 + lk;
+      const bool seen = SLAB ? ((st.vm[h] >> j) & 1ull) != 0
+                             : j <= st.lim[h];
+      const float sc = Q8 ? scale_log2 * kss[lk] : scale_log2;
+      s[nt][e] = seen ? s[nt][e] * sc : kNegInf;
       mx[h] = fmaxf(mx[h], s[nt][e]);
     }
   }
@@ -179,6 +244,18 @@ __device__ __forceinline__ void fold(Rows<HD>& st, const bf16* ks,
     st.o[nt][2] *= alpha[1];
     st.o[nt][3] *= alpha[1];
   }
+  // an int8 pool's V scale per key column of P (the sum above took P
+  // unscaled)
+  if constexpr (Q8) {
+#pragma unroll
+    for (int nt = 0; nt < NK / 8; ++nt) {
+      const float v0 = vss[nt * 8 + 2 * t], v1 = vss[nt * 8 + 2 * t + 1];
+      s[nt][0] *= v0;
+      s[nt][1] *= v1;
+      s[nt][2] *= v0;
+      s[nt][3] *= v1;
+    }
+  }
   // O += P V: the accumulators of key n-tiles 2kk, 2kk+1 are the A
   // fragment of k-step kk; V's B fragments of head_dim n-tiles 2dp,
   // 2dp+1 come from one transposed ldmatrix (keys 0-7 / 8-15 x columns
@@ -201,31 +278,64 @@ __device__ __forceinline__ void fold(Rows<HD>& st, const bf16* ks,
   }
 }
 
+struct Args {
+  const bf16* q;
+  const void* k_pool;              // bf16, or int8 codes with k_scale
+  const void* v_pool;
+  const float* k_scale;            // [N] f32; null for an fp pool
+  const float* v_scale;
+  const int* table;
+  const int* positions;
+  const unsigned char* valid;
+  const bf16* suffix_k;            // [R, S, KV, hd]; null without a slab
+  const bf16* suffix_v;
+  const unsigned char* suffix_vis; // [R, P, S]
+  bf16* out;
+  float* part_o;                   // [n_splits (+ 1), R * P * H, hd] f32
+  float* part_ml;                  // [n_splits (+ 1), R * P * H, 2]
+  int P, H, KV, N, bs, M, S, split_keys, n_splits;
+  float scale_log2;
+};
+
 // Where a block's results go.
 struct Sink {
   bf16* out;
-  float* part_o;           // [n_splits, R * P * H, hd] f32
-  float* part_ml;          // [n_splits, R * P * H, 2]: max, sum
+  float* part_o;
+  float* part_ml;
   const int* positions;
   const unsigned char* valid;
   size_t rows;             // R * P * H
   int max_keys, split_keys, split;
+  bool slab;               // the call has a slab (its split is the last)
+  bool is_slab;            // this block folds the slab
 
-  // Splits holding query qi's visible keys (0: an invalid query).
+  // Pool splits holding query qi's visible chain keys (0: an invalid
+  // query, or one that sees no chain key).
   __device__ __forceinline__ int splits_of(int qi) const {
     if (!valid[qi]) return 0;
     const int n = min(positions[qi] + 1, max_keys);
     return n > 0 ? (n + split_keys - 1) / split_keys : 0;
   }
 
-  // Columns c.. c + NC - 1 of output row `row` ((r * P + p) * H + head),
-  // whose query needs `ns` splits: O unnormalised, with its max and sum.
+  // What this block writes for query qi: 0 nothing, 1 its final bf16
+  // output, 2 an f32 partial.
+  __device__ __forceinline__ int action(int qi) const {
+    const int ns = splits_of(qi);
+    if (slab) {
+      if (!valid[qi]) return 0;
+      return is_slab || split < ns ? 2 : 0;
+    }
+    if (ns <= 1) return split == 0 ? 1 : 0;
+    return split < ns ? 2 : 0;
+  }
+
+  // Columns c.. c + NC - 1 of output row `row` ((r * P + p) * H + head):
+  // O unnormalised, with its max and sum.
   template <int HD, int NC>
   __device__ __forceinline__ void put(const float (&o)[NC], float mx,
-                                      float sum, int ns, size_t row,
+                                      float sum, int act, size_t row,
                                       int c) const {
-    if (ns <= 1) {
-      if (split != 0) return;
+    if (act == 1) {
       const float inv = sum > 0.f ? 1.f / sum : 0.f;
       uint32_t w[NC / 2];
 #pragma unroll
@@ -236,7 +346,7 @@ struct Sink {
         *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
       else
         *reinterpret_cast<uint32_t*>(dst) = w[0];
-    } else if (split < ns) {
+    } else if (act == 2) {
       const size_t at = (size_t)split * rows + row;
       float* dst = part_o + at * HD + c;
       if constexpr (NC == 4)
@@ -249,101 +359,59 @@ struct Sink {
   }
 };
 
-template <int HD, bool NARROW>
+// SLAB: the call has a slab (suffix_k non-null), whose split is the last
+// of each tile; a call without one compiles none of the slab's code.
+template <int HD, bool NARROW, bool Q8, bool SLAB>
 __global__ void __launch_bounds__(kThreads)
-ragged_split_kernel(const bf16* __restrict__ q,
-                    const bf16* __restrict__ k_pool,
-                    const bf16* __restrict__ v_pool,
-                    const int* __restrict__ table,
-                    const int* __restrict__ positions,
-                    const unsigned char* __restrict__ valid,
-                    bf16* __restrict__ out, float* __restrict__ part_o,
-                    float* __restrict__ part_ml, int P, int H, int KV, int N,
-                    int bs, int M, int split_keys, int n_splits,
-                    float scale_log2) {
-  using RG = Ring<HD>;
+ragged_split_kernel(const Args a) {
+  using RG = Ring<HD, Q8>;
   constexpr int kTileRows = NARROW ? 16 : 64;
+  constexpr int kRow = RG::kRow;
   extern __shared__ __align__(16) unsigned char smem[];
+  // fp: the bf16 ring. int8: the code ring, then the bf16 staging stage,
+  // then the per-key scales of each ring stage
   bf16* ring = reinterpret_cast<bf16*>(smem);
+  signed char* codes = reinterpret_cast<signed char*>(smem);
+  bf16* staged = reinterpret_cast<bf16*>(smem + RG::kStages * RG::kCodeStage);
+  float* key_sc = reinterpret_cast<float*>(smem + RG::kRingBytes);
   int* s_tab = reinterpret_cast<int*>(smem + RG::kBytes);
   __shared__ int s_live;
+  const int P = a.P, H = a.H, KV = a.KV, bs = a.bs, M = a.M;
+  const int n_all = a.n_splits + (SLAB ? 1 : 0);
   const int rep = H / KV, tile_pos = kTileRows / rep;
   const int r = blockIdx.x, kvh = blockIdx.y;
-  const int split = blockIdx.z % n_splits;
-  const int p0 = blockIdx.z / n_splits * tile_pos;
+  const int split = blockIdx.z % n_all;
+  const bool slab = SLAB && split == a.n_splits;
+  const int p0 = blockIdx.z / n_all * tile_pos;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int max_keys = M * bs;
 
-  // One round trip before the walk: the tile's positions (its live
-  // chain: keys up to its largest valid position) and the table entries
-  // of this split's whole key range, loaded together.
-  const int k_lo = split * split_keys;
-  const int kb0 = k_lo / bs;
-  const int nb = k_lo < max_keys
-                     ? (min(k_lo + split_keys, max_keys) - 1) / bs - kb0 + 1
-                     : 0;
-  int seen = 0;
-  if (threadIdx.x < tile_pos && p0 + threadIdx.x < P) {
-    const int i = r * P + p0 + threadIdx.x;
-    const int ok = valid[i], pos = positions[i];
-    seen = ok ? pos + 1 : 0;
-  }
-  if (threadIdx.x == 0) s_live = 0;
-  __syncthreads();
-  if (seen > 0) atomicMax(&s_live, seen);
-  for (int i = threadIdx.x; i < nb; i += kThreads)
-    s_tab[i] = min(max(table[(size_t)r * M + kb0 + i], 0), N - 1);
-  __syncthreads();
-  const int live = min(s_live, max_keys);
-  if (split > 0 && k_lo >= live) return;    // split 0 writes the finals
-  const int k_hi = min(k_lo + split_keys, live);
-  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kStageKeys - 1) /
-                                        kStageKeys : 0;
-
-  // Stage `tile` of the split into ring slot `slot`: each thread copies
-  // one 16-byte column chunk of every (kThreads / chunks)-th key.
-  constexpr int kChunks = HD / 8;
-  const int chunk = threadIdx.x % kChunks;
-  auto load_stage = [&](int tile, int slot) {
-    bf16* ks = ring + slot * RG::kStage;
-    bf16* vs = ks + kStageKeys * RG::kRow;
-#pragma unroll
-    for (int j = threadIdx.x / kChunks; j < kStageKeys;
-         j += kThreads / kChunks) {
-      const int key = k_lo + tile * kStageKeys + j;
-      const bool in = key < k_hi;
-      size_t off = 0;
-      if (in) {
-        const int b = key / bs;
-        off = (((size_t)s_tab[b - kb0] * bs + (key - b * bs)) * KV + kvh) *
-                  HD + chunk * 8;
-      }
-      cp_async16(ks + j * RG::kRow + chunk * 8, k_pool + off, in);
-      cp_async16(vs + j * RG::kRow + chunk * 8, v_pool + off, in);
-    }
-  };
-#pragma unroll
-  for (int i = 0; i < RG::kStages - 1; ++i) {
-    if (i < n_tiles) load_stage(i, i);
-    cp_async_commit();
-  }
-
-  // this warp's rows, loaded while the first stages are in flight: tile
-  // row rr is position p0 + rr / rep, head kvh * rep + rr % rep
+  // this warp's rows: tile row rr is position p0 + rr / rep, head
+  // kvh * rep + rr % rep
   const int row0 = NARROW ? 0 : warp * 16;
   Rows<HD> st;
-  {
+  auto load_rows = [&]() {
     const bf16* qr[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int rr = row0 + g + 8 * h, p = p0 + rr / rep;
       qr[h] = nullptr;
       st.lim[h] = -1;
+      st.vm[h] = 0ull;
       if (p < P) {
         const int i = r * P + p;
-        qr[h] = q + ((size_t)i * H + kvh * rep + rr % rep) * HD;
-        if (valid[i]) st.lim[h] = positions[i];
+        qr[h] = a.q + ((size_t)i * H + kvh * rep + rr % rep) * HD;
+        if (a.valid[i]) {
+          st.lim[h] = a.positions[i];
+          if constexpr (SLAB) {
+            if (slab) {
+              const unsigned char* vis = a.suffix_vis + (size_t)i * a.S;
+              for (int j = 0; j < a.S; ++j)
+                if (vis[j]) st.vm[h] |= 1ull << j;
+            }
+          }
+        }
       }
     }
     auto pair = [&](int h, int c) -> uint32_t {
@@ -363,41 +431,198 @@ ragged_split_kernel(const bf16* __restrict__ q,
       st.o[nt][0] = st.o[nt][1] = st.o[nt][2] = st.o[nt][3] = 0.f;
     st.m[0] = st.m[1] = kNegInf;
     st.l[0] = st.l[1] = 0.f;
-  }
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    cp_async_wait<RG::kStages - 2>();       // stage `tile` has landed
-    __syncthreads();                        // and the slot refilled next
-                                            // is no longer read
-    const int next = tile + RG::kStages - 1;
-    if (next < n_tiles) load_stage(next, next % RG::kStages);
+  };
+  // each thread copies one 16-byte column chunk of every
+  // (kThreads / chunks)-th key of a bf16 stage
+  constexpr int kChunks = HD / 8;
+  const int chunk = threadIdx.x % kChunks;
+
+  if (slab) {
+    if constexpr (SLAB) {
+    // the slab split: its S rows as one stage, straight into a bf16
+    // stage (the int8 kernel's staging stage)
+    bf16* ks = Q8 ? staged : ring;
+    bf16* vs = ks + kStageKeys * kRow;
+#pragma unroll
+    for (int j = threadIdx.x / kChunks; j < kStageKeys;
+         j += kThreads / kChunks) {
+      const bool in = j < a.S;
+      const size_t off =
+          in ? (((size_t)r * a.S + j) * KV + kvh) * HD + chunk * 8 : 0;
+      cp_async16(ks + j * kRow + chunk * 8, a.suffix_k + off, in);
+      cp_async16(vs + j * kRow + chunk * 8, a.suffix_v + off, in);
+    }
     cp_async_commit();
-    const bf16* ks = ring + (tile % RG::kStages) * RG::kStage;
-    const bf16* vs = ks + kStageKeys * RG::kRow;
-    const int key0 = k_lo + tile * kStageKeys;
+    load_rows();
+    cp_async_wait<0>();
+    __syncthreads();
     if (NARROW)
-      fold<HD, 16>(st, ks + warp * 16 * RG::kRow, vs + warp * 16 * RG::kRow,
-                   key0 + warp * 16, scale_log2);
+      fold<HD, 16, false, true>(st, ks + warp * 16 * kRow,
+                                vs + warp * 16 * kRow, warp * 16,
+                                a.scale_log2, nullptr, nullptr);
     else
-      fold<HD, 64>(st, ks, vs, key0, scale_log2);
+      fold<HD, 64, false, true>(st, ks, vs, 0, a.scale_log2, nullptr,
+                                nullptr);
+    }
+  } else {
+    // One round trip before the walk: the tile's positions (its live
+    // chain: keys up to its largest valid position) and the table entries
+    // (and an int8 pool's scales) of this split's whole key range.
+    const int k_lo = split * a.split_keys;
+    const int kb0 = k_lo / bs;
+    const int nb = k_lo < max_keys
+                       ? (min(k_lo + a.split_keys, max_keys) - 1) / bs - kb0 + 1
+                       : 0;
+    const int nb_max = (a.split_keys + bs - 1) / bs + 1;
+    float* s_ks = reinterpret_cast<float*>(s_tab + nb_max);
+    float* s_vs = s_ks + nb_max;
+    int seen = 0;
+    if (threadIdx.x < tile_pos && p0 + threadIdx.x < P) {
+      const int i = r * P + p0 + threadIdx.x;
+      const int ok = a.valid[i], pos = a.positions[i];
+      seen = ok ? pos + 1 : 0;
+    }
+    if (threadIdx.x == 0) s_live = 0;
+    __syncthreads();
+    if (seen > 0) atomicMax(&s_live, seen);
+    for (int i = threadIdx.x; i < nb; i += kThreads) {
+      const int b = min(max(a.table[(size_t)r * M + kb0 + i], 0), a.N - 1);
+      s_tab[i] = b;
+      if constexpr (Q8) {
+        s_ks[i] = a.k_scale[b];
+        s_vs[i] = a.v_scale[b];
+      }
+    }
+    __syncthreads();
+    const int live = min(s_live, max_keys);
+    // split 0 writes the finals of a call without a slab; with one, the
+    // merge writes every output
+    if ((split > 0 || SLAB) && k_lo >= live) return;
+    const int k_hi = min(k_lo + a.split_keys, live);
+    const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kStageKeys - 1) /
+                                          kStageKeys : 0;
+
+    // Stage `tile` of the split into ring slot `slot`. int8: rows of HD
+    // bytes, kChunks / 2 chunks a row; the chunk-0 thread of each key
+    // also stores the key's two scales (0 past the split).
+    auto load_stage = [&](int tile, int slot) {
+      constexpr int kCh = Q8 ? HD / 16 : kChunks;
+      const int ch = threadIdx.x % kCh;
+#pragma unroll
+      for (int j = threadIdx.x / kCh; j < kStageKeys; j += kThreads / kCh) {
+        const int key = k_lo + tile * kStageKeys + j;
+        const bool in = key < k_hi;
+        size_t off = 0;
+        int bi = 0;
+        if (in) {
+          const int b = key / bs;
+          bi = b - kb0;
+          off = (((size_t)s_tab[bi] * bs + (key - b * bs)) * KV + kvh) * HD;
+        }
+        if constexpr (Q8) {
+          signed char* ks = codes + slot * RG::kCodeStage;
+          signed char* vs = ks + kStageKeys * HD;
+          const signed char* kp = static_cast<const signed char*>(a.k_pool);
+          const signed char* vp = static_cast<const signed char*>(a.v_pool);
+          cp_async16(ks + j * HD + ch * 16, kp + off + ch * 16, in);
+          cp_async16(vs + j * HD + ch * 16, vp + off + ch * 16, in);
+          if (ch == 0) {
+            float* sc = key_sc + slot * 2 * kStageKeys;
+            sc[j] = in ? s_ks[bi] : 0.f;
+            sc[kStageKeys + j] = in ? s_vs[bi] : 0.f;
+          }
+        } else {
+          bf16* ks = ring + slot * RG::kStage;
+          bf16* vs = ks + kStageKeys * kRow;
+          const bf16* kp = static_cast<const bf16*>(a.k_pool);
+          const bf16* vp = static_cast<const bf16*>(a.v_pool);
+          cp_async16(ks + j * kRow + ch * 8, kp + off + ch * 8, in);
+          cp_async16(vs + j * kRow + ch * 8, vp + off + ch * 8, in);
+        }
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < RG::kStages - 1; ++i) {
+      if (i < n_tiles) load_stage(i, i);
+      cp_async_commit();
+    }
+    load_rows();              // while the first stages are in flight
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      cp_async_wait<RG::kStages - 2>();     // stage `tile` has landed
+      __syncthreads();                      // and the slot refilled next
+                                            // (and the staging stage) is
+                                            // no longer read
+      const int next = tile + RG::kStages - 1;
+      if (next < n_tiles) load_stage(next, next % RG::kStages);
+      cp_async_commit();
+      const int slot = tile % RG::kStages;
+      const bf16* ks;
+      const float* kss = nullptr;
+      const float* vss = nullptr;
+      if constexpr (Q8) {
+        // widen the landed codes to bf16, 16 codes at a time: in a narrow
+        // tile each warp its own 16 keys of K and V (rows warp * 16.. and
+        // 64 + warp * 16..), which only it reads; in a wide tile the block
+        // the whole stage
+        const signed char* src = codes + slot * RG::kCodeStage;
+        auto widen = [&](int row, int col) {
+          const uint4 w =
+              *reinterpret_cast<const uint4*>(src + row * HD + col);
+          const uint2 a = widen4(w.x), b = widen4(w.y), c = widen4(w.z),
+                      d = widen4(w.w);
+          uint4* dst = reinterpret_cast<uint4*>(staged + row * kRow + col);
+          dst[0] = make_uint4(a.x, a.y, b.x, b.y);
+          dst[1] = make_uint4(c.x, c.y, d.x, d.y);
+        };
+        constexpr int kCh = HD / 16;          // 16-code chunks a row
+        if (NARROW) {
+          for (int c = lane; c < 32 * kCh; c += 32) {
+            const int r = c / kCh;
+            widen((r < 16 ? 0 : kStageKeys - 16) + warp * 16 + r,
+                  (c % kCh) * 16);
+          }
+          __syncwarp();
+        } else {
+          for (int c = threadIdx.x; c < 2 * kStageKeys * kCh; c += kThreads)
+            widen(c / kCh, (c % kCh) * 16);
+          __syncthreads();
+        }
+        ks = staged;
+        kss = key_sc + slot * 2 * kStageKeys;
+        vss = kss + kStageKeys;
+      } else {
+        ks = ring + slot * RG::kStage;
+      }
+      const bf16* vs = ks + kStageKeys * kRow;
+      const int key0 = k_lo + tile * kStageKeys;
+      if (NARROW)
+        fold<HD, 16, Q8, false>(
+            st, ks + warp * 16 * kRow, vs + warp * 16 * kRow,
+            key0 + warp * 16, a.scale_log2,
+            Q8 ? kss + warp * 16 : nullptr, Q8 ? vss + warp * 16 : nullptr);
+      else
+        fold<HD, 64, Q8, false>(st, ks, vs, key0, a.scale_log2, kss, vss);
+    }
   }
   cp_async_wait<0>();
   // the merge may launch now; it waits for this grid's partials
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   __syncthreads();                          // the ring is free
 
-  const Sink sink{out, part_o, part_ml, positions, valid,
-                  (size_t)gridDim.x * P * H, max_keys, split_keys, split};
+  const Sink sink{a.out, a.part_o, a.part_ml, a.positions, a.valid,
+                  (size_t)gridDim.x * P * H, max_keys, a.split_keys, split,
+                  SLAB, slab};
   if (!NARROW) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int rr = row0 + g + 8 * h, p = p0 + rr / rep;
       if (p >= P) continue;
-      const int qi = r * P + p, ns = sink.splits_of(qi);
+      const int qi = r * P + p, act = sink.action(qi);
       const size_t row = (size_t)qi * H + kvh * rep + rr % rep;
 #pragma unroll
       for (int nt = 0; nt < HD / 8; ++nt) {
         const float o2[2] = {st.o[nt][2 * h], st.o[nt][2 * h + 1]};
-        sink.put<HD, 2>(o2, st.m[h], st.l[h], ns, row, nt * 8 + 2 * t);
+        sink.put<HD, 2>(o2, st.m[h], st.l[h], act, row, nt * 8 + 2 * t);
       }
     }
     return;
@@ -439,14 +664,16 @@ ragged_split_kernel(const bf16* __restrict__ q,
       o4[3] += f * v.w;
     }
     const int qi = r * P + p0 + rr / rep;
-    sink.put<HD, 4>(o4, mx, sum, sink.splits_of(qi),
+    sink.put<HD, 4>(o4, mx, sum, sink.action(qi),
                     (size_t)qi * H + kvh * rep + rr % rep, c);
   }
 }
 
-// One warp per output row: the query's partials of splits 0.. ns - 1,
-// folded in that order (rows whose query needs one split or none were
-// written by ragged_split_kernel).
+// One warp per output row: the query's partials of pool splits 0.. ns - 1
+// and then, with a slab, the slab's (partial `slab`), folded in that
+// order. Without a slab, rows whose query needs one split or none were
+// written by ragged_split_kernel; with one, this kernel writes every row
+// (zeros for an invalid query).
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 ragged_merge_kernel(const int* __restrict__ positions,
@@ -454,26 +681,37 @@ ragged_merge_kernel(const int* __restrict__ positions,
                     const float* __restrict__ part_o,
                     const float* __restrict__ part_ml,
                     bf16* __restrict__ out, int rows, int H, int max_keys,
-                    int split_keys) {
+                    int split_keys, int slab) {
   constexpr int kPer = HD / 32;             // columns a lane: 4 or 2
   const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int qi = row / H;
-  if (!valid[qi]) return;
+  const int c = (threadIdx.x & 31) * kPer;
+  bf16* dst = out + (size_t)row * HD + c;
+  if (!valid[qi]) {
+    // the split kernel writes no output of a call with a slab
+    if (slab >= 0)
+      for (int i = 0; i < kPer / 2; ++i)
+        reinterpret_cast<uint32_t*>(dst)[i] = 0u;
+    return;
+  }
   const int n = min(positions[qi] + 1, max_keys);
   const int ns = n > 0 ? (n + split_keys - 1) / split_keys : 0;
-  if (ns <= 1) return;
+  if (slab < 0 && ns <= 1) return;
+  const int nf = ns + (slab >= 0 ? 1 : 0);  // partials folded
   // launched as a programmatic dependent of ragged_split_kernel: wait for
   // its partials (a no-op when launched plainly)
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const int c = (threadIdx.x & 31) * kPer;
   float mx = kNegInf;
-  for (int s = 0; s < ns; ++s)
+  for (int i = 0; i < nf; ++i) {
+    const int s = i < ns ? i : slab;
     mx = fmaxf(mx, part_ml[2 * ((size_t)s * rows + row)]);
+  }
   float sum = 0.f, o[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) o[i] = 0.f;
-  for (int s = 0; s < ns; ++s) {
+  for (int i = 0; i < nf; ++i) {
+    const int s = i < ns ? i : slab;
     const size_t at = (size_t)s * rows + row;
     const float2 ml = *reinterpret_cast<const float2*>(part_ml + 2 * at);
     const float f = exp2f(ml.x - mx);
@@ -488,43 +726,34 @@ ragged_merge_kernel(const int* __restrict__ positions,
       v[0] = u.x; v[1] = u.y;
     }
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) o[i] += f * v[i];
+    for (int j = 0; j < kPer; ++j) o[j] += f * v[j];
   }
   const float inv = sum > 0.f ? 1.f / sum : 0.f;
-  bf16* dst = out + (size_t)row * HD + c;
 #pragma unroll
   for (int i = 0; i < kPer / 2; ++i)
     reinterpret_cast<uint32_t*>(dst)[i] =
         ptt::pack_bf16(o[2 * i] * inv, o[2 * i + 1] * inv);
 }
 
-template <int HD, bool NARROW>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* table, const int* positions,
-                   const unsigned char* valid, void* o, float* part_o,
-                   float* part_ml, int R, int P, int H, int KV, int N,
-                   int bs, int M, int split_keys, int n_splits, float scale,
-                   cudaStream_t stream) {
+template <int HD, bool NARROW, bool Q8, bool SLAB>
+cudaError_t launch(const Args& a, int R, cudaStream_t stream) {
   static int granted[64] = {};
-  const int tile_pos = (NARROW ? 16 : 64) / (H / KV);
-  const int n_pt = (P + tile_pos - 1) / tile_pos;
-  const int smem = Ring<HD>::kBytes +
-                   4 * ((split_keys + bs - 1) / bs + 1);
-  cudaError_t err =
-      hop::allow_smem(ragged_split_kernel<HD, NARROW>, smem, granted);
+  const int tile_pos = (NARROW ? 16 : 64) / (a.H / a.KV);
+  const int n_pt = (a.P + tile_pos - 1) / tile_pos;
+  const int n_all = a.n_splits + (SLAB ? 1 : 0);
+  const int nb_max = (a.split_keys + a.bs - 1) / a.bs + 1;
+  const int smem = Ring<HD, Q8>::kBytes + 4 * nb_max * (Q8 ? 3 : 1);
+  cudaError_t err = hop::allow_smem(ragged_split_kernel<HD, NARROW, Q8, SLAB>,
+                                    smem, granted);
   if (err != cudaSuccess) return err;
-  ragged_split_kernel<HD, NARROW>
-      <<<dim3(R, KV, n_pt * n_splits), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
-      static_cast<const bf16*>(vp), table, positions, valid,
-      static_cast<bf16*>(o), part_o, part_ml, P, H, KV, N, bs, M,
-      split_keys, n_splits, scale * ptt::kLog2e);
-  if (n_splits > 1) {
+  ragged_split_kernel<HD, NARROW, Q8, SLAB>
+      <<<dim3(R, a.KV, n_pt * n_all), kThreads, smem, stream>>>(a);
+  if (a.n_splits > 1 || SLAB) {
     // a programmatic dependent launch: the merge's blocks are scheduled
     // as the split kernel's finish their walks, and wait for its results
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const int rows = R * P * H;
+    const int rows = R * a.P * a.H;
     cudaLaunchAttribute attr;
     attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
     attr.val.programmaticStreamSerializationAllowed = 1;
@@ -534,11 +763,11 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
     cfg.stream = stream;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, ragged_merge_kernel<HD>, positions, valid,
-                              static_cast<const float*>(part_o),
-                              static_cast<const float*>(part_ml),
-                              static_cast<bf16*>(o), rows, H, M * bs,
-                              split_keys);
+    return cudaLaunchKernelEx(&cfg, ragged_merge_kernel<HD>, a.positions,
+                              a.valid, static_cast<const float*>(a.part_o),
+                              static_cast<const float*>(a.part_ml), a.out,
+                              rows, a.H, a.M * a.bs, a.split_keys,
+                              SLAB ? a.n_splits : -1);
   }
   return cudaGetLastError();
 }
@@ -547,30 +776,59 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 
 // The host's split plan (nlp/ragged_attention.py::split_plan) gives
 // `narrow` (16-row query tiles; H / KV must divide 16), `split_keys` (a
-// positive multiple of 64) and `n_splits`; with n_splits > 1, part_o and
-// part_ml are f32 [n_splits, R * P * H, hd] and [n_splits, R * P * H, 2]
-// scratch. H / KV must divide 64. Returns the launches' cudaError_t (0 on
-// success).
+// positive multiple of 64) and `n_splits`. k_scale/v_scale non-null mark
+// int8 pools (f32 [N] scales); suffix_k non-null adds the slab (S rows,
+// 1 <= S <= 64, with suffix_v and suffix_vis). With n_splits > 1 or a
+// slab, part_o and part_ml are f32 [n_splits (+ 1 with a slab), R * P * H,
+// hd] and [.., 2] scratch. H / KV must divide 64. Returns the launches'
+// cudaError_t (0 on success).
 extern "C" int ragged_paged_attention_bf16(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* table, const void* positions, const void* valid, void* o,
-    void* part_o, void* part_ml, int R, int P, int H, int KV, int hd,
-    int N, int bs, int M, int narrow, int split_keys, int n_splits,
-    float scale, void* stream) {
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* positions, const void* valid, const void* suffix_k,
+    const void* suffix_v, const void* suffix_vis, void* o, void* part_o,
+    void* part_ml, int R, int P, int H, int KV, int hd, int N, int bs, int M,
+    int S, int narrow, int split_keys, int n_splits, float scale,
+    void* stream) {
+  const bool q8 = k_scale != nullptr, slab = suffix_k != nullptr;
   if (KV <= 0 || H % KV != 0 || 64 % (H / KV) != 0 ||
       (narrow && 16 % (H / KV) != 0) || split_keys <= 0 ||
       split_keys % kStageKeys != 0 || n_splits < 1 || bs < 1 ||
-      (n_splits > 1 && (part_o == nullptr || part_ml == nullptr)))
+      (q8 && v_scale == nullptr) ||
+      (slab && (suffix_v == nullptr || suffix_vis == nullptr || S < 1 ||
+                S > kMaxSlab)) ||
+      ((n_splits > 1 || slab) && (part_o == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = static_cast<const bf16*>(q);
+  a.k_pool = k_pool;
+  a.v_pool = v_pool;
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.table = static_cast<const int*>(table);
+  a.positions = static_cast<const int*>(positions);
+  a.valid = static_cast<const unsigned char*>(valid);
+  a.suffix_k = static_cast<const bf16*>(suffix_k);
+  a.suffix_v = static_cast<const bf16*>(suffix_v);
+  a.suffix_vis = static_cast<const unsigned char*>(suffix_vis);
+  a.out = static_cast<bf16*>(o);
+  a.part_o = static_cast<float*>(part_o);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.P = P;
+  a.H = H;
+  a.KV = KV;
+  a.N = N;
+  a.bs = bs;
+  a.M = M;
+  a.S = slab ? S : 0;
+  a.split_keys = split_keys;
+  a.n_splits = n_splits;
+  a.scale_log2 = scale * ptt::kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* tab = static_cast<const int*>(table);
-  const int* pos = static_cast<const int*>(positions);
-  const unsigned char* val = static_cast<const unsigned char*>(valid);
-  float* po = static_cast<float*>(part_o);
-  float* pm = static_cast<float*>(part_ml);
-#define PTT_RAGGED(HD, NW)                                                 \
-  launch<HD, NW>(q, k_pool, v_pool, tab, pos, val, o, po, pm, R, P, H, KV, \
-                 N, bs, M, split_keys, n_splits, scale, s)
+#define PTT_Q8(HD, NW, SL)                                            \
+  (q8 ? launch<HD, NW, true, SL>(a, R, s) : launch<HD, NW, false, SL>(a, R, s))
+#define PTT_RAGGED(HD, NW) \
+  (slab ? PTT_Q8(HD, NW, true) : PTT_Q8(HD, NW, false))
   cudaError_t err;
   if (hd == 128)
     err = narrow ? PTT_RAGGED(128, true) : PTT_RAGGED(128, false);
@@ -579,5 +837,6 @@ extern "C" int ragged_paged_attention_bf16(
   else
     err = cudaErrorInvalidValue;
 #undef PTT_RAGGED
+#undef PTT_Q8
   return (int)err;
 }

@@ -1,11 +1,14 @@
 """Paged KV-cache serving: block-table cache + ragged batch admission.
 
-Port of paddle_tpu/nlp/paged.py, parts (a) and (b): the block pool and
-its allocator, the pool write, the paged attention, `forward_paged`,
-`paged_generate`, and the `ContinuousBatcher` with bucketed and chunked
-prefill, fused prefill+decode steps and lock-step decode chunks. Prefix
-caching, speculative decoding, int8 KV, the tensor-parallel mesh and KV
-export/import are later slices.
+Port of paddle_tpu/nlp/paged.py: the block pool and its allocator, the
+pool write (fp, or int8 codes with per-(layer, block) scales), the paged
+attention, `forward_paged`, `paged_generate`, the speculative score path
+(`_forward_spec`) and the `ContinuousBatcher` with bucketed and chunked
+prefill, fused prefill+decode steps, lock-step decode chunks, int8
+weights (`weight_dtype`), the int8 KV pool (`kv_dtype`) and
+self-speculative decoding (chain and tree drafts, verify-then-commit).
+Prefix caching, the tensor-parallel mesh and KV export/import are later
+slices.
 
 Design, as in the JAX package:
   * the pool is one [L, N_blocks, block_size, KV, hd] tensor pair shared
@@ -25,13 +28,20 @@ Where PyTorch differs:
     (XLA's `mode="drop"`), so the write needs no data-dependent shape and
     no host sync. No table entry ever names it;
   * the batcher runs eagerly: no AOT executables, so no compile counter.
-    Decode still syncs with the host once per chunk.
+    Decode still syncs with the host once per chunk, a speculative tick
+    once (tokens, counts and acceptance in one read);
+  * the int8 write rescales the blocks it touches unconditionally (an
+    exact identity where no scale grew) where JAX skips the rescale by a
+    `lax.cond` on any growth: the port's test would be a host sync in
+    every layer of every step.
 
 Attention backends: on CUDA the batcher and `paged_generate` run the
 CUDA kernels (flash forward for cold prefill, ragged paged attention
-for everything else), on the CPU their plain PyTorch versions; the
-device decides, and nothing swaps the plain versions in on the card.
-`forward_paged(attention_impl="ref")` alone runs the plain versions on
+for everything else: its int8 option over an int8 pool, its suffix-slab
+option for the speculative draft and verify), on the CPU their plain
+PyTorch versions; the device decides, and nothing swaps the plain
+versions in on the card. `forward_paged(attention_impl="ref")` and
+`_forward_spec(attention_impl="ref")` alone run the plain versions on
 CUDA tensors, as the reference that the kernels' logits are held to.
 """
 from __future__ import annotations
@@ -42,12 +52,15 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..quantization import kv as kvq
+from ..serving.speculative import SpecConfig, SpecStats
 from ..kernels.flash_attention import flash_attention_fwd, \
     flash_attention_fwd_ref
 from ..kernels.rms_norm import rms_norm_ref
 from ..kernels.rope import apply_rope_half, rope_freqs
 from . import llama
-from .generation import _final_head_cached, _mlp_cached, _sample, _wq
+from .generation import (_final_head_cached, _mlp_cached, _sample, _wq,
+                         quantize_for_serving)
 from .ragged_attention import (ragged_paged_attention,
                                ragged_paged_attention_ref,
                                resolve_attention_impl)
@@ -56,11 +69,14 @@ from .ragged_attention import (ragged_paged_attention,
 class PagedKVCache(NamedTuple):
     """k/v: [L, N_blocks + 1, block_size, KV, hd] (the last block is the
     write sink); table: [B, M] int32 block ids; lengths: [B] int32
-    tokens currently cached."""
+    tokens currently cached; k_scale/v_scale: [L, N_blocks + 1] f32
+    per-(layer, block) scales of an int8 pool (None for fp)."""
     k: torch.Tensor
     v: torch.Tensor
     table: torch.Tensor
     lengths: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def block_size(self) -> int:
@@ -147,15 +163,24 @@ class _Admission(NamedTuple):
 
 
 def init_pool(cfg: llama.LlamaConfig, num_blocks: int, block_size: int,
-              device="cuda"):
-    """Zeroed K/V pools [L, num_blocks + 1, block_size, KV, hd] in the
-    compute dtype (block `num_blocks` is the write sink)."""
+              device="cuda", kv_dtype: str = "fp"):
+    """Zeroed K/V pools [L, num_blocks + 1, block_size, KV, hd] (block
+    `num_blocks` is the write sink) → (k, v, k_scale, v_scale). The fp
+    pool stores the compute dtype with no scales (None); kv_dtype="int8"
+    stores int8 codes plus zeroed [L, num_blocks + 1] f32 per-(layer,
+    block) abs-max scales — scale 0 is the never-written sentinel that
+    dequantizes to the same exact zeros a fresh fp pool holds."""
     L, KV, hd = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                  cfg.head_dim)
     shape = (L, num_blocks + 1, block_size, KV, hd)
     dev = torch.device(device)
+    if kvq.resolve_kv_dtype(kv_dtype) == "int8":
+        return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape[:2], dtype=torch.float32, device=dev),
+                torch.zeros(shape[:2], dtype=torch.float32, device=dev))
     return (torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            torch.zeros(shape, dtype=cfg.dtype, device=dev))
+            torch.zeros(shape, dtype=cfg.dtype, device=dev), None, None)
 
 
 def build_table(allocator: BlockAllocator, lengths, max_len: int,
@@ -178,29 +203,88 @@ def _pool_slots(table, positions, valid, num_blocks: int, block_size: int):
 
 
 def _write_pool(pool, slots, new):
-    """Scatter new [B, P, KV, hd] rows into one layer's pool
-    [N + 1, bs, KV, hd] at `slots` (from `_pool_slots`), in place."""
+    """Scatter new [B, P, KV, hd] rows into a pool of blocks
+    [NB, bs, KV, hd] (one layer's, sink included) at `slots` (from
+    `_pool_slots`), in place."""
     flat = pool.view(-1, *pool.shape[2:])
     flat.index_copy_(0, slots.reshape(-1),
-                     new.reshape(-1, *new.shape[2:]).to(pool.dtype))
+                     new.reshape(-1, *pool.shape[2:]).to(pool.dtype))
+
+
+def _write_pool_int8(pool, scale, slots, new):
+    """int8 twin of `_write_pool`: quantize new [B, P, KV, hd] rows into
+    an int8 pool of blocks [NB, bs, KV, hd] at `slots`, keeping ONE
+    abs-max scale a block in `scale` [NB] (quantization.kv holds the
+    math), in place. Grow-only: where this call's writes raise a block's
+    abs-max, the block's existing codes rescale once under the new scale.
+    The blocks this call touches (B * P of them, the sink for invalid
+    slots) are rescaled unconditionally: with no growth the rescale is an
+    exact identity (ratio 1.0), and skipping it would need a host sync.
+    Duplicate targets gather, rescale and store identical contents, so
+    the order of a duplicate store does not matter; the same holds for
+    the abs-max scatter, a max. Returns the just-written rows dequantized
+    at the committed scales (f32), so the cold-prefill flash attends over
+    exactly what the pool now stores."""
+    bs = pool.shape[1]
+    flat_slots = slots.reshape(-1)
+    tgt = torch.div(flat_slots, bs, rounding_mode="floor")
+    new32 = new.float().reshape(-1, *pool.shape[2:])
+    amax = torch.zeros_like(scale).scatter_reduce_(
+        0, tgt, new32.abs().amax(dim=(1, 2)), "amax")
+    scale2 = torch.maximum(scale, kvq.scale_of(amax))
+    grow = (scale[tgt], scale2[tgt])
+    pool.index_copy_(0, tgt, kvq.rescale_codes(
+        pool[tgt], grow[0][:, None, None, None], grow[1][:, None, None, None]))
+    scale.copy_(scale2)
+    s_tok = grow[1][:, None, None]
+    codes = kvq.quantize(new32, s_tok)
+    pool.view(-1, *pool.shape[2:]).index_copy_(0, flat_slots, codes)
+    return kvq.dequantize(codes, s_tok).reshape(new.shape)
 
 
 def _paged_gqa_attention(q, k_pool, v_pool, table, positions, valid,
-                         impl: str = "ref"):
+                         impl: str = "ref", k_scale=None, v_scale=None):
     """q [B, P, H, hd] against the pool through the table, per-query
     causal (query p sees keys j <= positions[b, p]); invalid queries
-    give zeros. impl "kernel": the ragged CUDA kernel; "ref": its plain
-    version (the JAX package's "xla" gather)."""
+    give zeros. k_scale/v_scale [N + 1] (this layer's) mark an int8 pool.
+    impl "kernel": the ragged CUDA kernel; "ref": its plain version (the
+    JAX package's "xla" gather, dequantized after the gather)."""
     fn = ragged_paged_attention if impl == "kernel" \
         else ragged_paged_attention_ref
-    return fn(q, k_pool, v_pool, table, positions, valid)
+    return fn(q, k_pool, v_pool, table, positions, valid, k_scale=k_scale,
+              v_scale=v_scale)
+
+
+def _spec_gqa_attention(q, pk, pv, table, base_len, sk, sv, vis,
+                        k_scale=None, v_scale=None, impl: str = "ref"):
+    """The speculative score path's attention: q [B, P, H, hd] over the
+    committed pool history PLUS the draft/verify slab. The pool is
+    READ-ONLY here: pool key j is visible iff j < base_len[b] (nothing
+    speculative has been written), and slab row s (sk/sv [B, S, KV, hd])
+    to query p iff vis[p, s] — the chain's causal triangle or the packed
+    tree's ancestor-or-self mask. One softmax runs over both: row 18's
+    suffix-slab option ("kernel") or its plain version ("ref"), every
+    query valid (inactive slots score values the caller discards). Slab
+    rows stay full precision over an int8 pool."""
+    B, P = q.shape[:2]
+    S = sk.shape[1]
+    fn = ragged_paged_attention if impl == "kernel" \
+        else ragged_paged_attention_ref
+    positions = (base_len.to(torch.int32) - 1)[:, None].expand(B, P)
+    return fn(q, pk, pv, table, positions.contiguous(),
+              torch.ones((B, P), dtype=torch.bool, device=q.device),
+              k_scale=k_scale, v_scale=v_scale, suffix_k=sk, suffix_v=sv,
+              suffix_vis=vis[None].expand(B, P, S).contiguous())
 
 
 def _attention_paged(x, lp, cfg, cos, sin, pk, pv, table, positions, valid,
-                     slots, is_prefill, attention_impl: str):
-    """One layer's attention: write the new K/V into the pool (in place),
-    then attend. Cold prefill attends within the batch (flash); decode,
-    continuing and fused rows attend through the table."""
+                     slots, is_prefill, attention_impl: str, pks=None,
+                     pvs=None):
+    """One layer's attention: write the new K/V into the pool (in place;
+    quantized on the write when pks/pvs carry this layer's int8 block
+    scales), then attend. Cold prefill attends within the batch (flash)
+    over the rows as the pool now stores them; decode, continuing and
+    fused rows attend through the table."""
     B, P, D = x.shape
     H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                  cfg.head_dim)
@@ -209,8 +293,14 @@ def _attention_paged(x, lp, cfg, cos, sin, pk, pv, table, positions, valid,
     k = (x @ _wq(lp, "k_proj", cd)).reshape(B, P, KV, hd)
     v = (x @ _wq(lp, "v_proj", cd)).reshape(B, P, KV, hd)
     q, k = apply_rope_half(q, k, cos, sin, positions)
-    _write_pool(pk, slots, k)
-    _write_pool(pv, slots, v)
+    if pks is None:
+        _write_pool(pk, slots, k)
+        _write_pool(pv, slots, v)
+    else:
+        # every consumer sees the quantize → dequantize roundtrip of this
+        # call's own writes
+        k = _write_pool_int8(pk, pks, slots, k).to(cd)
+        v = _write_pool_int8(pv, pvs, slots, v).to(cd)
     if is_prefill:
         # the prompt attends only to itself: causal self-attention over
         # the right-padded batch (rows past a request's length compute
@@ -220,7 +310,8 @@ def _attention_paged(x, lp, cfg, cos, sin, pk, pv, table, positions, valid,
         o = fa(q, k, v, causal=True)
     else:
         o = _paged_gqa_attention(q, pk, pv, table, positions, valid,
-                                 impl=attention_impl)
+                                 impl=attention_impl, k_scale=pks,
+                                 v_scale=pvs)
     return o.reshape(B, P, H * hd) @ _wq(lp, "o_proj", cd)
 
 
@@ -244,12 +335,15 @@ def forward_paged(params, tokens, cache: PagedKVCache, positions, valid,
                           device=x.device)
     slots = _pool_slots(table, positions, valid, cache.num_blocks, bs)
     layers = params["layers"]
+    q8 = cache.k_scale is not None
     for li in range(cfg.num_hidden_layers):
         lp = {name: w[li] for name, w in layers.items()}
         h = rms_norm_ref(x, lp["input_layernorm"], cfg.rms_norm_eps)
         x = x + _attention_paged(h, lp, cfg, cos, sin, cache.k[li],
                                  cache.v[li], table, positions, valid, slots,
-                                 is_prefill, impl)
+                                 is_prefill, impl,
+                                 cache.k_scale[li] if q8 else None,
+                                 cache.v_scale[li] if q8 else None)
         h = rms_norm_ref(x, lp["post_attention_layernorm"],
                          cfg.rms_norm_eps)
         x = x + _mlp_cached(h, lp, cfg)
@@ -257,6 +351,60 @@ def forward_paged(params, tokens, cache: PagedKVCache, positions, valid,
     visible_len = (positions[:, -1] + 1).to(cache.lengths.dtype)
     return logits, cache._replace(
         lengths=torch.maximum(cache.lengths, visible_len))
+
+
+def _forward_spec(params, layers, tokens, cache: PagedKVCache, positions,
+                  base_len, slab_k, slab_v, row0: int, cfg, vis=None,
+                  attention_impl: str = "auto"):
+    """The speculative score-path forward: tokens [B, P] at per-request
+    absolute `positions`, attending to the committed pool (READ-ONLY,
+    visibility < base_len) plus the spec slab (previously drafted rows
+    and this call's own). The new tokens' per-layer K/V land in slab rows
+    [row0, row0 + P) of slab_k/slab_v [depth, B, S, KV, hd] (in place) —
+    NEVER the pool: verify-then-commit writes only accepted rows
+    afterwards, so a rejected draft token cannot reach the pool or an
+    int8 block's scale. `layers` may be a truncated stack (the draft's;
+    the slab's depth matches it) or the draft-from-w8 tree; embed, norm
+    and head come from the full `params`. `vis` [P, S] bool gives each
+    query its visible slab rows (None = the chain's causal triangle
+    relative to row0). `attention_impl` as in `forward_paged`. Returns
+    (logits [B, P, V] f32, slab_k, slab_v)."""
+    impl = resolve_attention_impl(attention_impl, cache.k.device)
+    cd = cfg.dtype
+    table = cache.table.to(torch.int32).contiguous()
+    positions = positions.to(torch.int32).contiguous()
+    T_rope = table.shape[1] * cache.block_size
+    x = params["embed_tokens"][tokens.long()].to(cd)
+    cos, sin = rope_freqs(cfg.head_dim, T_rope, cfg.rope_theta,
+                          device=x.device)
+    B, P = tokens.shape
+    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    S = slab_k.shape[2]
+    if vis is None:
+        ar = torch.arange(S, device=x.device)
+        vis = ar[None, :] <= (row0 + torch.arange(P, device=x.device))[:, None]
+    q8 = cache.k_scale is not None
+    for li in range(slab_k.shape[0]):
+        lp = {name: w[li] for name, w in layers.items()}
+        h = rms_norm_ref(x, lp["input_layernorm"], cfg.rms_norm_eps)
+        q = (h @ _wq(lp, "q_proj", cd)).reshape(B, P, H, hd)
+        k = (h @ _wq(lp, "k_proj", cd)).reshape(B, P, KV, hd)
+        v = (h @ _wq(lp, "v_proj", cd)).reshape(B, P, KV, hd)
+        q, k = apply_rope_half(q, k, cos, sin, positions)
+        # slab rows pass through the slab (== pool compute) dtype, the
+        # roundtrip a pool write-then-gather gives plain decode
+        slab_k[li, :, row0:row0 + P] = k.to(slab_k.dtype)
+        slab_v[li, :, row0:row0 + P] = v.to(slab_v.dtype)
+        a = _spec_gqa_attention(q, cache.k[li], cache.v[li], table, base_len,
+                                slab_k[li], slab_v[li], vis,
+                                cache.k_scale[li] if q8 else None,
+                                cache.v_scale[li] if q8 else None, impl)
+        x = x + a.reshape(B, P, H * hd) @ _wq(lp, "o_proj", cd)
+        h = rms_norm_ref(x, lp["post_attention_layernorm"],
+                         cfg.rms_norm_eps)
+        x = x + _mlp_cached(h, lp, cfg)
+    return _final_head_cached(params, x, cfg), slab_k, slab_v
 
 
 def paged_generate(params, tokens, lengths, cfg: llama.LlamaConfig,
@@ -283,7 +431,7 @@ def paged_generate(params, tokens, lengths, cfg: llama.LlamaConfig,
         allocator = BlockAllocator(n)
     table, owned = build_table(allocator, lengths_np, max_total, block_size,
                                dev)
-    k, v = init_pool(cfg, allocator.num_blocks, block_size, dev)
+    k, v, _, _ = init_pool(cfg, allocator.num_blocks, block_size, dev)
     cache = PagedKVCache(k, v, table,
                          torch.zeros((B,), dtype=torch.int32, device=dev))
     lengths = torch.as_tensor(lengths_np, dtype=torch.int32, device=dev)
@@ -333,6 +481,23 @@ class ContinuousBatcher:
     `decode_stall_steps` counts standalone prefill calls that ran while
     slots were decoding (the unfused cost).
 
+    Quantized serving: `weight_dtype="int8"` serves the tree through
+    `generation.quantize_for_serving(bits=8)` (a tree that already holds
+    codes and scales passes through); `kv_dtype="int8"` stores the pools
+    as int8 codes with per-(layer, block) abs-max scales, quantized on
+    every commit write (`quantization.kv`).
+
+    Self-speculative decoding (`speculative=True`): a draft — the same
+    model truncated to `draft_layers` (None = full depth), or its int8
+    quantization with `spec_draft_w8` — proposes `spec_k` tokens (a chain)
+    or a token tree (`spec_tree=[b0, b1, ...]`, spec_k derived) per slot
+    off the committed pool; the target scores them in ONE call over the
+    read-only pool plus the slab, accepts the longest greedy-matching
+    path plus one corrected token, and commits only the accepted rows,
+    one row at a time in order (int8 scales grow as sequential decode's).
+    `submit(speculative=False)` opts one request out (its verify rows
+    ride along with acceptance 0).
+
     Usage:
         cb = ContinuousBatcher(params, cfg, max_batch=2, block_size=16,
                                max_total_len=256, max_new_tokens=16)
@@ -348,6 +513,12 @@ class ContinuousBatcher:
                  prefill_buckets: Optional[Sequence[int]] = None,
                  max_prefill_bucket: int = 512,
                  fused_prefill: bool = True, fused_units: int = 1,
+                 weight_dtype: Optional[str] = None,
+                 kv_dtype: Optional[str] = None,
+                 speculative: bool = False, spec_k: int = 4,
+                 draft_layers: Optional[int] = None,
+                 spec_tree: Optional[Sequence[int]] = None,
+                 spec_draft_w8: bool = False,
                  device="cuda"):
         self.device = resolve_device(device)
         if params["embed_tokens"].device.type != self.device.type:
@@ -355,7 +526,38 @@ class ContinuousBatcher:
                 f"params live on {params['embed_tokens'].device}, the "
                 f"batcher on {self.device}: load them with "
                 f"llama.params_from_numpy(..., device=...)")
+        self.weight_dtype = "fp" if weight_dtype in (None, "fp") \
+            else weight_dtype
+        if self.weight_dtype not in ("fp", "int8"):
+            raise ValueError(
+                f"weight_dtype must be 'fp'/'int8' (or None), "
+                f"got {weight_dtype!r}")
+        if self.weight_dtype == "int8" and not any(
+                k.endswith(":scale") for k in params["layers"]):
+            params = quantize_for_serving(params, bits=8)
+        self.kv_dtype = kvq.resolve_kv_dtype(kv_dtype)
         self.params, self.cfg = params, cfg
+        self.speculative = bool(speculative)
+        self._spec_cfg = SpecConfig(spec_k, draft_layers,
+                                    num_layers=cfg.num_hidden_layers,
+                                    tree=spec_tree, draft_w8=spec_draft_w8)
+        self.spec_k = self._spec_cfg.k
+        self.spec_tree = self._spec_cfg.tree
+        self._draft_depth = self._spec_cfg.depth(cfg.num_hidden_layers)
+        # draft-from-w8: the truncated stack quantized ONCE, only when the
+        # target serves fp weights (an int8 target's layers already are)
+        self._spec_dlayers = None
+        if self.speculative and self._spec_cfg.draft_w8 \
+                and self.weight_dtype == "fp":
+            trunc = {k: w[:self._draft_depth]
+                     for k, w in params["layers"].items()}
+            self._spec_dlayers = quantize_for_serving(
+                {"layers": trunc}, bits=8)["layers"]
+        self.spec = SpecStats()
+        # per-request spec opt-out, and the [B] device mirror of per-slot
+        # participation (rebuilt after admission or retirement)
+        self._no_spec: set = set()
+        self._spec_ok_dev = None
         self.B, self.bs = max_batch, block_size
         # the device picks the backend: the kernels on CUDA
         self.attention_impl = resolve_attention_impl("auto", self.device)
@@ -395,12 +597,13 @@ class ContinuousBatcher:
         self.prefill_chunk_calls = 0  # prefill rows computed
         nb = num_blocks or (max_batch * self.M)
         self.alloc = BlockAllocator(nb)
-        k, v = init_pool(cfg, nb, block_size, self.device)
+        k, v, ks, vs = init_pool(cfg, nb, block_size, self.device,
+                                 kv_dtype=self.kv_dtype)
         dev = self.device
         self.cache = PagedKVCache(
             k, v, torch.zeros((max_batch, self.M), dtype=torch.int32,
                               device=dev),
-            torch.zeros((max_batch,), dtype=torch.int32, device=dev))
+            torch.zeros((max_batch,), dtype=torch.int32, device=dev), ks, vs)
         self.active = [False] * max_batch
         self.slot_req: List[Optional[int]] = [None] * max_batch
         self.slot_blocks: List[Optional[List[int]]] = [None] * max_batch
@@ -421,16 +624,22 @@ class ContinuousBatcher:
 
     # -- public surface ----------------------------------------------------
     def submit(self, tokens, stop_token_id: Optional[int] = None,
-               max_new_tokens: Optional[int] = None) -> int:
+               max_new_tokens: Optional[int] = None,
+               speculative: Optional[bool] = None) -> int:
         """Queue a request. `stop_token_id` finishes THIS request early
         when emitted (in addition to the batcher-wide eos).
         `max_new_tokens` caps this request's budget (<= the batcher-wide
-        max — the block table width is sized for it)."""
+        max — the block table width is sized for it).
+        `speculative=False` opts THIS request out of the spec pipeline
+        (plain greedy decode inside a spec batcher); None inherits the
+        batcher default."""
         toks = list(map(int, tokens))
         mn = self.validate(len(toks), max_new_tokens)
         rid = self._next_rid
         self._next_rid += 1
         stop = -1 if stop_token_id is None else int(stop_token_id)
+        if speculative is False:
+            self._no_spec.add(rid)
         self.queue.append((rid, toks, stop, mn))
         self.outputs[rid] = []
         self._delivered[rid] = 0
@@ -458,13 +667,29 @@ class ContinuousBatcher:
         mn = self.max_new if max_new_tokens is None else int(max_new_tokens)
         return -(-(prompt_len + mn) // self.bs)
 
+    def kv_block_bytes(self) -> int:
+        """Device bytes ONE pool block occupies (all layers, K+V pools,
+        the int8 scale pool's overhead included): quantization.kv's
+        kv_block_bytes under this batcher's geometry and kv_dtype."""
+        cfg = self.cfg
+        return kvq.kv_block_bytes(
+            cfg.num_hidden_layers, self.bs, cfg.num_key_value_heads,
+            cfg.head_dim, self.kv_dtype,
+            fp_itemsize=torch.empty((), dtype=cfg.dtype).element_size())
+
     def kv_pool_bytes(self) -> int:
-        """Device bytes of the K/V pools (the sink block included)."""
-        return (self.cache.k.numel() * self.cache.k.element_size()
-                + self.cache.v.numel() * self.cache.v.element_size())
+        """KV pool footprint: capacity blocks x kv_block_bytes() (the
+        write sink, one block past the capacity, is not counted)."""
+        return self.alloc.num_blocks * self.kv_block_bytes()
+
+    def kv_bytes_per_token(self) -> float:
+        """Device bytes one cached token costs (and one decode step's
+        gather moves per live token): kv_block_bytes / block_size."""
+        return self.kv_block_bytes() / self.bs
 
     def weight_bytes(self) -> int:
-        """Device bytes of the parameter tree."""
+        """Device bytes of the parameter tree (codes and scales for an
+        int8 tree)."""
         leaves = [w for k, w in self.params.items() if k != "layers"]
         leaves += list(self.params["layers"].values())
         return sum(w.numel() * w.element_size() for w in leaves)
@@ -494,12 +719,14 @@ class ContinuousBatcher:
             if entry[0] == rid:
                 del self.queue[i]
                 self._delivered.pop(rid, None)
+                self._no_spec.discard(rid)
                 return True
         for i, (rec, _done) in enumerate(self._pending):
             if rec.rid == rid:
                 self._rollback([rec])
                 del self._pending[i]
                 self._delivered.pop(rid, None)
+                self._no_spec.discard(rid)
                 return True
         for slot in range(self.B):
             if self.active[slot] and self.slot_req[slot] == rid:
@@ -543,6 +770,13 @@ class ContinuousBatcher:
         P = len(toks)
         need = -(-(P + mn) // self.bs)
         blocks = self.alloc.allocate(need)
+        if self.kv_dtype == "int8":
+            # a recycled block keeps its previous tenant's scale: reset it
+            # to the never-written sentinel so quantization depends only
+            # on what THIS request writes (admission, not the hot path)
+            idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+            self.cache.k_scale[:, idx] = 0.0
+            self.cache.v_scale[:, idx] = 0.0
         return _Admission(slot, rid, list(toks), stop, mn, need, blocks,
                           self._suffix_chunks(0, P))
 
@@ -583,9 +817,9 @@ class ContinuousBatcher:
         Gp = self._group_pad(len(items))
         rows, pos, val, tab, li = self._pack_prefill_rows(items, Pb, Gp)
         rows, pos, val, tab = self._to_dev(rows, pos, val, tab)
-        sub = PagedKVCache(self.cache.k, self.cache.v, tab,
-                           torch.zeros((Gp,), dtype=torch.int32,
-                                       device=self.device))
+        sub = self.cache._replace(
+            table=tab, lengths=torch.zeros((Gp,), dtype=torch.int32,
+                                           device=self.device))
         logits, _ = forward_paged(self.params, rows, sub, pos, val,
                                   self.cfg, is_prefill=cold,
                                   attention_impl=self.attention_impl)
@@ -627,6 +861,7 @@ class ContinuousBatcher:
         self.budget[rec.slot] = rec.mn - 1
         self.stop[rec.slot] = rec.stop
         self._dev_state = None        # host slot state diverged from device
+        self._spec_ok_dev = None      # slot occupancy changed
         self.outputs[rec.rid].append(first)
         if ((self.eos is not None and first == self.eos)
                 or first == rec.stop or self.budget[rec.slot] <= 0):
@@ -803,10 +1038,10 @@ class ContinuousBatcher:
                 Pb, dtype=torch.int32, device=dev)[None], max=maxpos)
             dval = torch.zeros((B, Pb), dtype=torch.bool, device=dev)
             dval[:, 0] = active
-            sub = PagedKVCache(
-                self.cache.k, self.cache.v,
-                torch.cat([self.cache.table, ptab], 0),
-                torch.zeros((B + Gt,), dtype=torch.int32, device=dev))
+            sub = self.cache._replace(
+                table=torch.cat([self.cache.table, ptab], 0),
+                lengths=torch.zeros((B + Gt,), dtype=torch.int32,
+                                    device=dev))
             logits, _ = forward_paged(
                 self.params, torch.cat([dtok, prows], 0), sub,
                 torch.cat([dpos, ppos], 0), torch.cat([dval, pval], 0),
@@ -844,6 +1079,274 @@ class ContinuousBatcher:
                 entries[0][1] += 1
         return toks
 
+    # -- self-speculative decoding (draft, verify in one call, commit only
+    #    the accepted rows) -------------------------------------------------
+    def spec_stats(self) -> Dict:
+        """Speculative-decoding accounting: config + the SpecStats
+        counters. `enabled` False (and config only) when the batcher
+        decodes plain."""
+        d = {"enabled": self.speculative, "backend": self.attention_impl}
+        d.update(self._spec_cfg.as_dict(self.cfg.num_hidden_layers))
+        d.update(self.spec.as_dict())
+        return d
+
+    def _draft_stack(self):
+        """The draft's layers: the draft-from-w8 tree, or the target's
+        first `depth` layers (views, no copy)."""
+        if self._spec_dlayers is not None:
+            return self._spec_dlayers
+        return {k: w[:self._draft_depth]
+                for k, w in self.params["layers"].items()}
+
+    def _slab(self, depth: int, rows: int):
+        cfg = self.cfg
+        shape = (depth, self.B, rows, cfg.num_key_value_heads, cfg.head_dim)
+        return (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                torch.zeros(shape, dtype=cfg.dtype, device=self.device))
+
+    def _spec_draft(self, active):
+        """The chain draft: spec_k autoregressive proposals per slot off
+        the draft stack, reading the committed pool READ-ONLY (layers
+        0..depth-1 of the target's pool ARE the draft's cache) with its
+        own proposals riding the slab. Returns drafts [B, spec_k]."""
+        K, c = self.spec_k, self.cache
+        maxpos = self.M * self.bs - 1
+        layers = self._draft_stack()
+        sk, sv = self._slab(self._draft_depth, K)
+        tok, out = self.cur_tok, []
+        for j in range(K):
+            pos = torch.clamp(c.lengths[:, None] + j, max=maxpos)
+            logits, sk, sv = _forward_spec(
+                self.params, layers, tok[:, None], c, pos, c.lengths, sk, sv,
+                j, self.cfg, attention_impl=self.attention_impl)
+            nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+            tok = torch.where(active, nxt, tok)
+            out.append(tok)
+        return torch.stack(out, dim=1)
+
+    def _spec_tree_draft(self, active):
+        """The tree draft: level by level, one draft-stack forward scores
+        ALL of the level's nodes at once (each node's slab visibility is
+        its ancestor path) and top-k proposes tree[j] children per node —
+        child 0 is the node's argmax, so the tree holds the chain draft's
+        path. Level j's nodes land in slab rows [offs[j], offs[j+1]); the
+        last level's proposals are never forwarded here (the verify
+        computes their K/V). Returns drafts [B, spec_k] in slab-row order."""
+        sc, c, B, dev = self._spec_cfg, self.cache, self.B, self.device
+        tree = sc.tree
+        D = len(tree)
+        sizes, offs = sc.level_sizes(), sc.level_offsets()
+        Sd = offs[D]                 # draft slab: root + levels 1..D-1
+        maxpos = self.M * self.bs - 1
+        A = sc.ancestor_mask()
+        layers = self._draft_stack()
+        sk, sv = self._slab(self._draft_depth, Sd)
+        tok = self.cur_tok
+        toks, out = tok[:, None], []
+        for j in range(D):
+            w = sizes[j]
+            vis = torch.tensor([row[:Sd] for row in A[offs[j]:offs[j + 1]]],
+                               dtype=torch.bool, device=dev)
+            pos = torch.clamp(c.lengths + j, max=maxpos)[:, None].expand(B, w)
+            logits, sk, sv = _forward_spec(
+                self.params, layers, toks, c, pos, c.lengths, sk, sv,
+                offs[j], self.cfg, vis=vis,
+                attention_impl=self.attention_impl)
+            top = torch.topk(logits, tree[j], dim=-1).indices  # [B, w, b]
+            nxt = top.reshape(B, w * tree[j]).to(torch.int32)
+            toks = torch.where(active[:, None], nxt, tok[:, None])
+            out.append(toks)
+        return torch.cat(out, dim=1)
+
+    def _commit_rows(self, sk, sv, rows, pos, emit):
+        """Verify-then-commit: write the accepted rows' slab K/V into the
+        pool, every layer at once, one row at a time in order (the int8
+        pool's grow-only scales then evolve as sequential decode's).
+        Row r of slot b is slab row rows[b, r] at position pos[b, r],
+        written where emit[b, r] (else to the sink): k + 1 masked writes
+        a tick, no host read."""
+        c, cfg, B = self.cache, self.cfg, self.B
+        L, NB = cfg.num_hidden_layers, c.num_blocks + 1
+        pools = [c.k.view(L * NB, *c.k.shape[2:]),
+                 c.v.view(L * NB, *c.v.shape[2:])]
+        scales = None if c.k_scale is None else \
+            [c.k_scale.view(-1), c.v_scale.view(-1)]
+        # each layer's blocks sit NB past the previous layer's
+        off = (torch.arange(L, device=self.device) * (NB * self.bs))[:, None]
+        b_idx = torch.arange(B, device=self.device)
+        for r in range(rows.shape[1]):
+            slots = _pool_slots(c.table, pos[:, r:r + 1], emit[:, r:r + 1],
+                                c.num_blocks, self.bs)[:, 0]
+            lslots = (slots[None] + off).reshape(L * B, 1)
+            for i, slab in enumerate((sk, sv)):
+                new = slab[:, b_idx, rows[:, r].long()].reshape(
+                    L * B, 1, *slab.shape[3:])
+                if scales is None:
+                    _write_pool(pools[i], lslots, new)
+                else:
+                    _write_pool_int8(pools[i], scales[i], lslots, new)
+
+    def _accept(self, g, tok, active, budget, stop, n_acc):
+        """Emit g[:, 0..n_acc] per slot, truncated at the budget and at
+        the first eos/stop emitted (tokens after an end never emit) — the
+        `_emit_one` stopping rule over rows. Returns (emit [B, P] bool,
+        n_emit, last token, budget', active')."""
+        eos = -1 if self.eos is None else int(self.eos)
+        P = g.shape[1]
+        idx = torch.arange(P, device=self.device)[None, :]
+        is_end = ((g == eos) | (g == stop[:, None])).to(torch.int32)
+        ends_before = torch.cumsum(is_end, dim=1) - is_end
+        emit = (idx <= n_acc[:, None]) & (idx < budget[:, None]) \
+            & (ends_before == 0) & active[:, None]
+        n_emit = emit.sum(dim=1, dtype=torch.int32)
+        last = torch.gather(g, 1, torch.clamp(n_emit - 1, min=0)[:, None]
+                            .long())[:, 0]
+        last = torch.where(active & (n_emit > 0), last, tok)
+        budget2 = budget - n_emit
+        active2 = active & (budget2 > 0) & (last != eos) & (last != stop)
+        return emit, n_emit, last, budget2, active2
+
+    def _spec_verify(self, drafts, active, budget, stop, spec_ok):
+        """The chain verify: score all spec_k + 1 positions (cur_tok + the
+        proposals) in ONE full-depth pass over the read-only pool + slab,
+        accept the longest prefix of proposals matching the target's own
+        greedy tokens plus one corrected token, then commit only those
+        rows. Returns (n_emit, n_acc, out tokens [B, k + 1], last,
+        budget', active')."""
+        c, K, dev = self.cache, self.spec_k, self.device
+        P = K + 1
+        maxpos = self.M * self.bs - 1
+        tok = self.cur_tok
+        toks_in = torch.cat([tok[:, None], drafts], dim=1)
+        pos = torch.clamp(c.lengths[:, None]
+                          + torch.arange(P, device=dev)[None], max=maxpos)
+        sk, sv = self._slab(self.cfg.num_hidden_layers, P)
+        logits, sk, sv = _forward_spec(
+            self.params, self.params["layers"], toks_in, c, pos, c.lengths,
+            sk, sv, 0, self.cfg, attention_impl=self.attention_impl)
+        g = torch.argmax(logits, dim=-1).to(torch.int32)        # [B, P]
+        match = (drafts == g[:, :K]).to(torch.int32)
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1, dtype=torch.int32)
+        n_acc = torch.where(spec_ok, n_acc, 0)
+        emit, n_emit, last, budget2, active2 = self._accept(
+            g, tok, active, budget, stop, n_acc)
+        rows = torch.arange(P, device=dev)[None].expand(self.B, P)
+        self._commit_rows(sk, sv, rows, pos, emit)
+        return n_emit, n_acc, torch.where(emit, g, 0), last, budget2, active2
+
+    def _spec_tree_verify(self, drafts, active, budget, stop, spec_ok):
+        """The tree verify: score the whole packed tree (root + every
+        drafted node, slab visibility = the ancestor mask) in ONE
+        full-depth pass, then walk it level by level following the
+        target's own greedy tokens: at each accepted node the child whose
+        draft token equals the target's continuation extends the path
+        (top-k children are distinct, so at most one matches). The
+        accepted path's rows — and only those — commit as the chain's.
+        Returns the chain verify's tuple, sized to the path (depth + 1)."""
+        c, sc, dev, B = self.cache, self._spec_cfg, self.device, self.B
+        tree = sc.tree
+        D = len(tree)
+        offs = sc.level_offsets()
+        S = sc.slab_rows()
+        maxpos = self.M * self.bs - 1
+        A = torch.tensor(sc.ancestor_mask(), dtype=torch.bool, device=dev)
+        lv = torch.tensor(sc.row_levels(), dtype=torch.int32, device=dev)
+        tok = self.cur_tok
+        toks_in = torch.cat([tok[:, None], drafts], dim=1)      # [B, S]
+        # siblings share a position; visibility separates them
+        pos = torch.clamp(c.lengths[:, None] + lv[None], max=maxpos)
+        sk, sv = self._slab(self.cfg.num_hidden_layers, S)
+        logits, sk, sv = _forward_spec(
+            self.params, self.params["layers"], toks_in, c, pos, c.lengths,
+            sk, sv, 0, self.cfg, vis=A, attention_impl=self.attention_impl)
+        g = torch.argmax(logits, dim=-1).to(torch.int32)        # [B, S]
+        cur = torch.zeros((B,), dtype=torch.long, device=dev)
+        ci = torch.zeros_like(cur)
+        alive = spec_ok
+        n_acc = torch.zeros((B,), dtype=torch.int32, device=dev)
+        path = [cur]
+        for j in range(1, D + 1):
+            b = tree[j - 1]
+            crows = offs[j] + ci[:, None] * b \
+                + torch.arange(b, device=dev)[None]
+            ctoks = torch.gather(toks_in, 1, crows)
+            tgt = torch.gather(g, 1, cur[:, None])
+            hit = (ctoks == tgt) & alive[:, None]
+            has = hit.any(dim=1)
+            ci2 = ci * b + torch.argmax(hit.to(torch.int32), dim=1)
+            cur = torch.where(has, offs[j] + ci2, cur)
+            ci = torch.where(has, ci2, ci)
+            n_acc = n_acc + has.to(torch.int32)
+            alive = has
+            path.append(cur)
+        path = torch.stack(path, dim=1)                         # [B, D + 1]
+        out_g = torch.gather(g, 1, path)
+        emit, n_emit, last, budget2, active2 = self._accept(
+            out_g, tok, active, budget, stop, n_acc)
+        pos_path = torch.clamp(c.lengths[:, None]
+                               + torch.arange(D + 1, device=dev)[None],
+                               max=maxpos)
+        self._commit_rows(sk, sv, path, pos_path, emit)
+        return n_emit, n_acc, torch.where(emit, out_g, 0), last, budget2, \
+            active2
+
+    def _step_spec(self):
+        """One speculative tick: the draft proposes, the target verifies
+        and commits only the accepted rows. Returns (out tokens
+        [B, width], n_emit [B]) as host arrays — ONE host read a tick
+        (tokens, counts and acceptance together)."""
+        if self._dev_state is None:
+            self._dev_state = self._upload_slot_state()
+        active, budget, stop = self._dev_state
+        if self._spec_ok_dev is None:
+            self._spec_ok_dev = torch.tensor(
+                [self.slot_req[s] is not None
+                 and self.slot_req[s] not in self._no_spec
+                 for s in range(self.B)], dtype=torch.bool,
+                device=self.device)
+        tree = self.spec_tree is not None
+        drafts = (self._spec_tree_draft if tree else self._spec_draft)(active)
+        n_emit, n_acc, out, last, budget, active2 = (
+            self._spec_tree_verify if tree else self._spec_verify)(
+            drafts, active, budget, stop, self._spec_ok_dev)
+        self.cache = self.cache._replace(lengths=self.cache.lengths + n_emit)
+        B, W = out.shape
+        host = torch.cat([out.reshape(-1), n_emit, n_acc]).cpu().numpy()
+        out, n_emit, n_acc = (host[:B * W].reshape(B, W),
+                              host[B * W:B * (W + 1)], host[B * (W + 1):])
+        self.cur_tok = last
+        self._dev_state = (active2, budget, stop)
+        spec = [s for s in range(self.B) if self.active[s]
+                and self.slot_req[s] not in self._no_spec]
+        self.spec.record_step(
+            drafted=self.spec_k * len(spec), accepted=int(n_acc.sum()),
+            emitted=int(n_emit.sum()), slots=self.active.count(True),
+            depths=[int(n_acc[s]) for s in spec])
+        return out, n_emit
+
+    def _spec_any(self) -> bool:
+        """True when at least one ACTIVE slot takes part in speculation;
+        with every active request opted out the plain chunk step is
+        strictly better than a draft + verify emitting one token."""
+        return any(self.active[s] and self.slot_req[s] not in self._no_spec
+                   for s in range(self.B))
+
+    def _emit_spec(self, decoding, out, n_emit) -> None:
+        """Deliver one spec tick's emitted tokens (the host mirror of the
+        device stopping rule) and retire finished slots."""
+        for slot in decoding:
+            rid = self.slot_req[slot]
+            for j in range(int(n_emit[slot])):
+                self.outputs[rid].append(int(out[slot, j]))
+                self.budget[slot] -= 1
+            o = self.outputs[rid]
+            done = (self.budget[slot] <= 0
+                    or (self.eos is not None and o and o[-1] == self.eos)
+                    or (self.stop[slot] >= 0 and o
+                        and o[-1] == self.stop[slot]))
+            if done:
+                self._retire(slot)
+
     def _retire(self, slot: int) -> None:
         rid = self.slot_req[slot]
         self.alloc.free(self.slot_blocks[slot])
@@ -853,6 +1356,8 @@ class ContinuousBatcher:
         self.slot_blocks[slot] = None
         self.stop[slot] = -1
         self._dev_state = None        # host slot state diverged from device
+        self._spec_ok_dev = None      # slot occupancy changed
+        self._no_spec.discard(rid)
 
     def _drain_queue(self) -> None:
         """Prepare queued requests into the pending pipeline while a batch
@@ -910,6 +1415,15 @@ class ContinuousBatcher:
             # slots committed by a fused admission AFTER the device call
             # must not read this chunk's token rows
             decoding = [s for s in range(self.B) if self.active[s]]
+            if self.speculative and not self._fuse_now() \
+                    and self._spec_any():
+                # a speculative tick emits up to spec_k + 1 tokens a slot;
+                # admissions still ride the fused path (greedy tokens do
+                # not depend on which step kind emits them)
+                out, n_emit = self._step_spec()
+                self._emit_spec(decoding, out, n_emit)
+                self._admit()
+                return self._drain_emitted()
             toks = self._step_fused() if self._fuse_now() \
                 else self._step_decode()
             for slot in decoding:

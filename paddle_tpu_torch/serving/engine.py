@@ -23,11 +23,18 @@ work, then joins the thread.
 The batcher's device work runs on the engine thread; the kernel
 wrappers launch on that thread's current CUDA stream.
 
+Quantized serving (`weight_dtype`, `kv_dtype`) and self-speculative
+decoding (`speculative`, `spec_k`, `draft_layers`, `spec_tree`,
+`spec_draft_w8`) pass through to the batcher; `snapshot()` carries
+their resolved config and accounting, and the `spec_*` gauges and the
+`spec_accept_depth` histogram track acceptance.
+
 Not ported yet, so accepted only at their off value (anything else
-raises NotImplementedError naming the later slice): prefix caching,
-speculative decoding, int8 weights/KV, the tensor-parallel mesh, SLOs,
-tracing, the watchdog, fault injection and disaggregated roles (KV
-import/export).
+raises NotImplementedError naming the later slice): prefix caching, the
+tensor-parallel mesh, SLOs, tracing, the watchdog, fault injection
+(with it, the quarantine's spec fallback) and disaggregated roles (KV
+import/export). `spec_attention_impl` is taken only as None: the port
+has no backend switch, the device decides.
 """
 from __future__ import annotations
 
@@ -44,13 +51,6 @@ __all__ = ["ServingEngine", "EngineStopped"]
 # kwarg: (its off value, the later slice that ports it)
 _UNPORTED = {
     "prefix_cache": (False, "prefix caching"),
-    "speculative": (False, "speculative decoding"),
-    "spec_k": (4, "speculative decoding"),
-    "spec_tree": (None, "speculative decoding"),
-    "spec_draft_w8": (False, "speculative decoding"),
-    "spec_attention_impl": (None, "speculative decoding"),
-    "weight_dtype": (None, "quantized serving"),
-    "kv_dtype": (None, "quantized serving"),
     "mesh": (None, "multi-GPU serving"),
     "slo": (False, "SLO tracking"),
     "trace": (False, "serving traces"),
@@ -93,18 +93,25 @@ class ServingEngine:
                  start: bool = True, idle_poll_s: float = 0.05,
                  prefill_buckets=None, max_prefill_bucket: int = 512,
                  fused_prefill: bool = True, fused_units: int = 1,
-                 device="cuda",
+                 weight_dtype: Optional[str] = None,
+                 kv_dtype: Optional[str] = None,
+                 speculative: bool = False, spec_k: int = 4,
+                 draft_layers: Optional[int] = None, spec_tree=None,
+                 spec_draft_w8: bool = False,
+                 spec_attention_impl: Optional[str] = None, device="cuda",
                  clock=time.monotonic, **unported):
+        if spec_attention_impl is not None:
+            raise NotImplementedError(
+                f"spec_attention_impl={spec_attention_impl!r}: the port has "
+                f"no backend switch (the device decides: the kernels on "
+                f"CUDA, their plain versions on the CPU); pass None")
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(
                     f"ServingEngine() got an unexpected keyword argument "
                     f"{name!r}")
             off, later = _UNPORTED[name]
-            ok = value in (None, "fp") if name in ("weight_dtype",
-                                                   "kv_dtype") \
-                else value == off
-            if not ok:
+            if value != off:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported yet ({later} is a "
                     f"later slice of the PyTorch port); pass {off!r}")
@@ -116,8 +123,14 @@ class ServingEngine:
             prefill_buckets=prefill_buckets,
             max_prefill_bucket=max_prefill_bucket,
             fused_prefill=fused_prefill, fused_units=fused_units,
-            device=device)
+            weight_dtype=weight_dtype, kv_dtype=kv_dtype,
+            speculative=speculative, spec_k=spec_k,
+            draft_layers=draft_layers, spec_tree=spec_tree,
+            spec_draft_w8=spec_draft_w8, device=device)
         self.attention_impl = self.batcher.attention_impl
+        self.weight_dtype = self.batcher.weight_dtype
+        self.kv_dtype = self.batcher.kv_dtype
+        self.speculative = self.batcher.speculative
         self.metrics = metrics or MetricsRegistry()
         self._clock = clock
         self._idle_poll_s = idle_poll_s
@@ -161,6 +174,15 @@ class ServingEngine:
         self._g_decode_stalls = m.gauge("decode_stall_steps")
         m.gauge("kv_pool_bytes").set(self.batcher.kv_pool_bytes())
         m.gauge("weight_bytes").set(self.batcher.weight_bytes())
+        # speculative decoding: acceptance per verify sweep (zeros with
+        # spec off), and the per-(sweep, slot) accepted path lengths
+        self._g_spec_steps = m.gauge("spec_steps")
+        self._g_spec_accept = m.gauge("spec_accept_rate")
+        self._g_spec_tps = m.gauge("spec_tokens_per_step")
+        self._g_spec_accepted = m.gauge("spec_accepted_tokens")
+        self._h_spec_depth = m.histogram(
+            "spec_accept_depth",
+            buckets=[0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0])
         if start:
             self.start()
 
@@ -328,6 +350,16 @@ class ServingEngine:
             snap["allocator"] = dict(self._alloc_stats)
             snap["attention_impl"] = self.attention_impl
             snap["device"] = str(self.batcher.device)
+            b = self.batcher
+            snap["quantization"] = {
+                "weight_dtype": self.weight_dtype,
+                "kv_dtype": self.kv_dtype,
+                "weight_bytes": b.weight_bytes(),
+                "kv_pool_bytes": b.kv_pool_bytes(),
+                "kv_block_bytes": b.kv_block_bytes(),
+                "kv_bytes_per_token": b.kv_bytes_per_token(),
+            }
+            snap["speculative"] = b.spec_stats()
         return snap
 
     # ---- engine thread ---------------------------------------------------
@@ -513,3 +545,10 @@ class ServingEngine:
         self._g_fused_steps.set(b.fused_steps)
         self._g_fused_units.set(b.fused_unit_count)
         self._g_decode_stalls.set(b.decode_stall_steps)
+        sp = b.spec
+        self._g_spec_steps.set(sp.steps)
+        self._g_spec_accept.set(sp.accept_rate())
+        self._g_spec_tps.set(sp.tokens_per_step())
+        self._g_spec_accepted.set(sp.accepted)
+        for d in sp.drain_depths():
+            self._h_spec_depth.observe(float(d))

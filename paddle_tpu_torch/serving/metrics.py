@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
 
@@ -65,12 +65,17 @@ class Histogram:
     Keeps a bounded ring of raw observations (default 2048): count/sum
     are exact over the histogram's lifetime, percentiles are over the
     most recent window — the steady-state view a serving dashboard
-    wants, without unbounded memory on long-lived engines."""
+    wants, without unbounded memory on long-lived engines.
+
+    `buckets` (optional, ascending upper bounds; +Inf implicit) adds
+    EXACT lifetime cumulative bucket counts next to the ring
+    (`buckets()`, and `summary()["buckets"]`)."""
 
     __slots__ = ("name", "_lock", "_ring", "_cap", "_count", "_sum",
-                 "_min", "_max")
+                 "_min", "_max", "_bounds", "_bucket_counts")
 
-    def __init__(self, name: str, lock: threading.RLock, cap: int = 2048):
+    def __init__(self, name: str, lock: threading.RLock, cap: int = 2048,
+                 buckets: Optional[List[float]] = None):
         self.name = name
         self._lock = lock
         self._ring: List[float] = []
@@ -79,6 +84,10 @@ class Histogram:
         self._sum = 0.0
         self._min: Optional[float] = None
         self._max: Optional[float] = None
+        self._bounds: Optional[List[float]] = \
+            None if buckets is None else sorted(float(b) for b in buckets)
+        self._bucket_counts: Optional[List[int]] = \
+            None if buckets is None else [0] * len(self._bounds)
 
     def observe(self, v: float) -> None:
         v = float(v)
@@ -91,6 +100,26 @@ class Histogram:
             self._sum += v
             self._min = v if self._min is None else min(self._min, v)
             self._max = v if self._max is None else max(self._max, v)
+            if self._bounds is not None:
+                # per-bucket counts here; buckets() renders them
+                # cumulative
+                for i, b in enumerate(self._bounds):
+                    if v <= b:
+                        self._bucket_counts[i] += 1
+                        break
+
+    def buckets(self) -> Optional[List[Tuple[float, int]]]:
+        """Lifetime-exact CUMULATIVE (le, count) pairs (the +Inf bucket
+        is the lifetime count and is implicit), or None when this
+        histogram was created without a bucket ladder."""
+        with self._lock:
+            if self._bounds is None:
+                return None
+            out, acc = [], 0
+            for b, c in zip(self._bounds, self._bucket_counts):
+                acc += c
+                out.append((b, acc))
+            return out
 
     @staticmethod
     def _percentile(sorted_vals: List[float], q: float) -> float:
@@ -114,7 +143,8 @@ class Histogram:
             if not self._count:
                 return {"count": 0}
             vals = sorted(self._ring)
-            return {
+            out = {} if self._bounds is None else {"buckets": self.buckets()}
+            return {**out,
                 "count": self._count,
                 "sum": self._sum,
                 "mean": self._sum / self._count,
@@ -177,11 +207,14 @@ class MetricsRegistry:
                 self._gauges[name] = Gauge(name, self._lock)
             return self._gauges[name]
 
-    def histogram(self, name: str, cap: int = 2048) -> Histogram:
-        """Get-or-create histogram `name`."""
+    def histogram(self, name: str, cap: int = 2048,
+                  buckets: Optional[List[float]] = None) -> Histogram:
+        """Get-or-create histogram `name`; `buckets` (first creation
+        only) arms exact cumulative bucket counts."""
         with self._lock:
             if name not in self._histograms:
-                self._histograms[name] = Histogram(name, self._lock, cap)
+                self._histograms[name] = Histogram(name, self._lock, cap,
+                                                   buckets=buckets)
             return self._histograms[name]
 
     def timer(self, name: str) -> _Timer:

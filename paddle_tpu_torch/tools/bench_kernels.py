@@ -20,7 +20,11 @@ for row 7 also `F.rms_norm`'s times. Row 18's shapes (Llama-3-8B widths:
 H 32, KV 8, hd 128, bs 16, a 64-block table): decode (8 rows, live
 1..1024 keys, one all-invalid), fused (those rows padded to 256 plus a
 prefill row), continue (64 queries at 512..575), full8 and full32 (8 and
-32 decode rows of 1024 live keys each). Row 7's and row 8's: the dense
+32 decode rows of 1024 live keys each); decode, fused and full32 again
+over int8 twins of the pools (one scale a block); and the suffix slab at
+the speculative shapes (8 rows of committed lengths 0..1000): a chain
+verify (P = S = 5), a tree verify of [2, 2, 1] (P = S = 11) and a draft
+step (P 1, S 4). Row 7's and row 8's: the dense
 step's [16384, 4096] and the MoE step's [40960, 2048], bf16 x and
 weight. Row 10's: the eager ERNIE step's f32 [32768, 768] and the other
 forms `chip_smoke.py` holds (bf16, D 4096 and 8192, affine-free, 4099
@@ -49,7 +53,9 @@ alone).
 
 `--check` runs small and odd shapes instead (no timing): row 18 at hd 64
 and 128, GQA groups 1 to 32, P 1, 3 and 40, block sizes 16 and 48,
-random live lengths with invalid rows; rows 7 and 8 at widths off the
+random live lengths with invalid rows, each over the fp pool, the int8
+pool (a never-written block of scale 0 among them) and with slabs of 1,
+7 and 64 rows of random visibility; rows 7 and 8 at widths off the
 warp's round and up to 8192, bf16, f32 and f16 weights, 1 to 4099 rows;
 row 10 at D 8 to 8192, f32 and bf16, affine and affine-free, 1 to 4099
 rows; row 12 at B 1 to 5, N 1, 7 and 257, bf16 D 772 (8-byte vectors),
@@ -187,48 +193,141 @@ def ragged_batch(kind, h, kv, hd, bs, m, gen, seed=0):
     return (q, kp, vp, *t), (pos, val)
 
 
-def ragged_work(pos, val, h, kv, hd, bs):
+def ragged_work(pos, val, h, kv, hd, bs, opts=None):
     """(flops, bytes) this data needs: each row's live K and V once (keys
-    up to its largest valid position), q of valid queries, every output
-    row, the table entries, positions and validity the walk reads."""
+    up to its largest valid position; an int8 pool's codes and each live
+    block's two scales), q of valid queries, every output row, the table
+    entries, positions and validity the walk reads; with a slab, its K
+    and V rows, the visibility bytes and the products with the slab rows
+    each valid query sees."""
+    opts = opts or {}
     R, P = pos.shape
     live = np.where(val, pos + 1, 0).max(axis=1)
-    nbytes = (2 * 2 * kv * hd * int(live.sum())
+    blocks = int(np.ceil(live / bs).sum())
+    q8 = opts.get("k_scale") is not None
+    nbytes = ((2 if q8 else 4) * kv * hd * int(live.sum())
               + 2 * h * hd * (int(val.sum()) + R * P)
-              + 4 * int(np.ceil(live / bs).sum()) + 5 * R * P)
-    flops = 4.0 * h * hd * float(np.where(val, pos + 1, 0).sum())
-    return flops, nbytes
+              + (12 if q8 else 4) * blocks + 5 * R * P)
+    keys = float(np.where(val, pos + 1, 0).sum())
+    if opts.get("suffix_k") is not None:
+        S = opts["suffix_k"].shape[1]
+        nbytes += 4 * R * S * kv * hd + R * P * S
+        vis = opts["suffix_vis"].cpu().numpy() & val[:, :, None]
+        keys += float(vis.sum())
+    return 4.0 * h * hd * keys, nbytes
 
 
-def ragged_case(args, pos, val, label, timed=True, flush=None):
-    """Row 18 against its plain version at one batch, twice; then times."""
+def quantize_pools(kp, vp, zero_blocks=0):
+    """int8 twins of bf16 pools as the commit write stores them: one
+    scale a block (its abs-max / 127) and the codes under it. The first
+    `zero_blocks` blocks are never-written ones (codes 0, scale 0).
+    Returns (k codes, v codes, {"k_scale": .., "v_scale": ..})."""
+    from paddle_tpu_torch.quantization import kv as kvq
+    out = []
+    for p in (kp, vp):
+        sc = kvq.scale_of(p.float().abs().amax(dim=(1, 2, 3)))
+        sc[:zero_blocks] = 0.0
+        codes = kvq.quantize(p.float(), sc[:, None, None, None])
+        out.append((codes, sc))
+    return out[0][0], out[1][0], {"k_scale": out[0][1],
+                                  "v_scale": out[1][1]}
+
+
+def tree_vis(tree):
+    """The ancestor-or-self mask of a packed draft tree (branching
+    `tree`, serving.speculative's layout), [S, S] bool numpy."""
+    from paddle_tpu_torch.serving.speculative import SpecConfig
+    return np.array(SpecConfig(tree=tree).ancestor_mask(), np.bool_)
+
+
+# the speculative paths' slab shapes at serve_quant_spec's sizes: the
+# chain verify of spec_k 4 (P = S = 5, the causal triangle), the tree
+# verify of [2, 2, 1] (P = S = 11, the ancestor mask) and a chain draft
+# step (P 1 of a 4-row slab, at its second row)
+SPEC_KINDS = ("verify_chain", "verify_tree", "draft")
+
+
+def ragged_spec_batch(kind, h, kv, hd, bs, m, gen, seed=0):
+    """Row 18's suffix-slab inputs at a speculative shape: 8 rows whose
+    committed lengths are 1..1000 keys and 0 (an inactive slot, which
+    sees only the slab), every query valid at position base_len - 1 (the
+    pool is read-only; the slab holds the call's own rows). Returns the
+    batch as `ragged_batch` does, and the options (slab and visibility)."""
+    dev = "cuda"
+    base = np.array([1, bs, bs + 1, 2 * bs, 300, 511, 1000, 0], np.int32)
+    R = len(base)
+    if kind == "verify_chain":
+        P = S = 5
+        vis = np.tril(np.ones((S, S), np.bool_))
+    elif kind == "verify_tree":
+        vis = tree_vis([2, 2, 1])
+        P = S = vis.shape[0]
+    else:
+        # draft step 1 of 4: its own row and the root's
+        P, S = 1, 4
+        vis = np.arange(S)[None] <= 1
+    pos = np.repeat(base[:, None] - 1, P, axis=1)
+    val = np.ones((R, P), np.bool_)
+    need = -(-np.maximum(base, 1) // bs)
+    rng = np.random.RandomState(seed)
+    N = int(need.sum()) + 8
+    perm = list(rng.permutation(N))
+    table = np.zeros((R, m), np.int32)
+    for r, n in enumerate(need):
+        table[r, :n] = [perm.pop() for _ in range(n)]
+    kp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).bfloat16()
+    vp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).bfloat16()
+    q = torch.randn(R, P, h, hd, device=dev, generator=gen).bfloat16()
+    t = [torch.from_numpy(a).to(dev) for a in (table, pos, val)]
+    opts = {"suffix_k": torch.randn(R, S, kv, hd, device=dev,
+                                    generator=gen).bfloat16(),
+            "suffix_v": torch.randn(R, S, kv, hd, device=dev,
+                                    generator=gen).bfloat16(),
+            "suffix_vis": torch.from_numpy(
+                np.ascontiguousarray(np.broadcast_to(vis, (R, P, S)))
+            ).to(dev)}
+    return (q, kp, vp, *t), (pos, val), opts
+
+
+def ragged_case(args, pos, val, label, timed=True, flush=None, opts=None):
+    """Row 18 against its plain version at one batch, twice; then times.
+    `opts`: the int8 pool's scales and / or the slab, passed to both."""
     from paddle_tpu_torch.nlp import ragged_attention as ra
+    opts = opts or {}
     q, kp = args[0], args[1]
-    out = ra.ragged_paged_attention(*args)
-    again = ra.ragged_paged_attention(*args)
-    ref = ra.ragged_paged_attention_ref(*args)
+    out = ra.ragged_paged_attention(*args, **opts)
+    again = ra.ragged_paged_attention(*args, **opts)
+    ref = ra.ragged_paged_attention_ref(*args, **opts)
     valid = args[5]
+    # a query head whose reference is exactly zero (its keys all in
+    # never-written int8 blocks of scale 0) has no scale to be relative
+    # to: it must be exactly zero
+    scale = ref.float().abs().amax(-1)
+    held = valid[:, :, None] & (scale > 0)
     res = {"kernel": "ragged_paged_attention", "shape": label,
            "max_abs_err": (out.float() - ref.float()).abs().max().item(),
-           "max_rel_err": _rel(out, ref, valid),
+           "max_rel_err": _rel(out, ref, held),
            "invalid_zero": not (out[~valid] != 0).any().item(),
+           "zero_exact": not (out.float().abs().amax(-1)[
+               valid[:, :, None] & (scale == 0)] != 0).any().item(),
            "repeat": torch.equal(out, again)}
     res["ok"] = (res["max_rel_err"] <= TOL and res["invalid_zero"]
-                 and res["repeat"])
+                 and res["zero_exact"] and res["repeat"])
     del out, again, ref
     if not timed:
         return res
     flops, nbytes = ragged_work(pos, val, q.shape[2], kp.shape[2],
-                                q.shape[3], kp.shape[1])
+                                q.shape[3], kp.shape[1], opts)
     res.update(bound(flops, nbytes))
-    res["ms"] = time_ms(lambda: ra.ragged_paged_attention(*args), 50, flush)
+    res["ms"] = time_ms(lambda: ra.ragged_paged_attention(*args, **opts), 50,
+                        flush)
     pool = 2 * kp.numel() * kp.element_size()
     n = max(1, min(64, math.ceil(2 * L2_BYTES / pool)))
     copies = [args] + [(args[0], args[1].clone(), args[2].clone(), *args[3:])
                        for _ in range(n - 1)]
     turn = itertools.cycle(copies)
     res["graph_ms"] = _graph_ms(
-        lambda: ra.ragged_paged_attention(*next(turn)), 60)
+        lambda: ra.ragged_paged_attention(*next(turn), **opts), 60)
     res["pool_copies"] = n
     res["bound_share"] = res["bound_ms"] / res["ms"]
     res["graph_bound_share"] = res["bound_ms"] / res["graph_ms"]
@@ -258,6 +357,29 @@ def ragged_random(R, P, h, kv, hd, bs, m, gen, rng):
     return (q, kp, vp, *t), (pos, val)
 
 
+def ragged_options(args, S, q8, gen, rng):
+    """The options of one check: int8 twins of the pools (the first block
+    never written) and / or a slab of S rows with random visibility
+    (about half the rows a query, one query row seeing none)."""
+    q, kp, vp = args[:3]
+    R, P, _, hd = q.shape
+    kv = kp.shape[2]
+    opts = {}
+    if q8:
+        kc, vc, opts = quantize_pools(kp, vp, zero_blocks=1)
+        args = (q, kc, vc, *args[3:])
+    if S:
+        vis = rng.rand(R, P, S) < 0.5
+        vis[0, 0] = False
+        opts.update(
+            suffix_k=torch.randn(R, S, kv, hd, device="cuda",
+                                 generator=gen).bfloat16(),
+            suffix_v=torch.randn(R, S, kv, hd, device="cuda",
+                                 generator=gen).bfloat16(),
+            suffix_vis=torch.from_numpy(vis).to("cuda"))
+    return args, opts
+
+
 def ragged_checks(gen):
     rng = np.random.RandomState(1)
     out = []
@@ -267,9 +389,15 @@ def ragged_checks(gen):
                                 (5, 3, 16, 20), (2, 40, 48, 12)):
                 args, (pos, val) = ragged_random(R, P, h, kv, hd, bs, m,
                                                  gen, rng)
-                out.append(ragged_case(
-                    args, pos, val, f"R={R} P={P} H={h} KV={kv} hd={hd} "
-                    f"bs={bs} M={m}", timed=False))
+                label = f"R={R} P={P} H={h} KV={kv} hd={hd} bs={bs} M={m}"
+                # the fp pool alone, then the int8 pool, a slab of 1, 7 or
+                # 64 rows over either pool
+                for q8, S in ((False, 0), (True, 0), (False, 1 + 6 * (R % 2)),
+                              (True, 64)):
+                    a, opts = ragged_options(args, S, q8, gen, rng)
+                    out.append(ragged_case(
+                        a, pos, val, f"{label} int8={q8} S={S}", timed=False,
+                        opts=opts))
     return out
 
 
@@ -764,7 +892,23 @@ def held(gen, rows=ROWS):
         res.append(ragged_case(
             args, pos, val, f"{kind} R={R} P={P} H={H} KV={KV} hd={HD} "
             f"bs={BS} M={M}", flush=flush))
+        if kind in ("decode", "fused", "full32"):
+            kc, vc, opts = quantize_pools(args[1], args[2])
+            res.append(ragged_case(
+                (args[0], kc, vc, *args[3:]), pos, val, f"int8 {kind} R={R} "
+                f"P={P} H={H} KV={KV} hd={HD} bs={BS} M={M}", flush=flush,
+                opts=opts))
+            del kc, vc, opts
         del args
+    for kind in SPEC_KINDS if 18 in rows else ():
+        args, (pos, val), opts = ragged_spec_batch(kind, H, KV, HD, BS, M,
+                                                   gen)
+        R, P = pos.shape
+        res.append(ragged_case(
+            args, pos, val, f"{kind} R={R} P={P} S="
+            f"{opts['suffix_k'].shape[1]} H={H} KV={KV} hd={HD} bs={BS} "
+            f"M={M}", flush=flush, opts=opts))
+        del args, opts
     for n, d, dt, affine in LN_SHAPES if 10 in rows else ():
         res.append(ln_bwd_case(n, d, dt, affine, gen, flush))
         torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 """Where a serving step's time goes on one NVIDIA GPU.
 
     python -m paddle_tpu_torch.tools.profile_serve [--layers 32]
+        [--kw '{"kv_dtype": "int8", "speculative": true, "spec_k": 4}']
 
 Builds a ContinuousBatcher at Llama-3-8B widths (random bf16 weights
 from a seed) and drives it through its public `submit`/`step` in four
@@ -15,6 +16,11 @@ steps, each traced by torch.profiler:
                   forward over 8 decode rows padded to the 512 bucket
                   plus the prefill row, then chunk-1 decode steps;
   decode8         a plain decode chunk of 8 rows.
+
+`--kw` passes batcher keyword arguments (JSON): with `weight_dtype` /
+`kv_dtype` the steps run the quantized path, and with `speculative` each
+decode step is a speculative tick (draft, verify, commit; ragged
+attention's suffix option), the fused step staying a plain chunk.
 
 For each traced step it prints one JSON line: the host wall time (the
 step ends in its own device->host copy), the device time summed by
@@ -94,6 +100,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kw", type=json.loads, default={},
+                    help="ContinuousBatcher keyword arguments, as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: CUDA is not available")
@@ -106,7 +114,7 @@ def main(argv=None) -> int:
     params = llama.init_params(cfg, gen, device="cuda")
     cb = ContinuousBatcher(params, cfg, max_batch=8, block_size=16,
                            max_total_len=1024, max_new_tokens=128,
-                           max_prefill_bucket=512)
+                           max_prefill_bucket=512, **args.kw)
     rng = np.random.RandomState(args.seed)
 
     def prompt(n):
@@ -127,6 +135,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"layers": args.layers, "chunk": cb.chunk,
+                      "kw": args.kw, "spec": cb.spec.as_dict(),
                       "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}), flush=True)
     return 0

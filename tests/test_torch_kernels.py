@@ -428,7 +428,9 @@ def test_port_imports_no_jax():
         "          'paddle_tpu_torch.tools.dit_train',\n"
         "          'paddle_tpu_torch.nlp.generation',\n"
         "          'paddle_tpu_torch.ops.comparison',\n"
-        "          'paddle_tpu_torch.tools.bench'):\n"
+        "          'paddle_tpu_torch.tools.bench',\n"
+        "          'paddle_tpu_torch.quantization.kv',\n"
+        "          'paddle_tpu_torch.serving.speculative'):\n"
         "    assert n in names, n\n"
         "assert not any(m in ('jax', 'optax')\n"
         "               or m.startswith(('jax.', 'optax.', 'paddle_tpu.'))\n"

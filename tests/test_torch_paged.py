@@ -114,7 +114,7 @@ def test_forward_paged_matches_jax(models):
     jk = jnp.zeros((L, N, bs, KV, hd), jnp.float32)
     jcache = jpaged.PagedKVCache(jk, jk, jnp.asarray(table),
                                  jnp.zeros((B,), jnp.int32))
-    tk, tv = tpaged.init_pool(tcfg, N, bs, device="cpu")
+    tk, tv, _, _ = tpaged.init_pool(tcfg, N, bs, device="cpu")
     tcache = tpaged.PagedKVCache(tk, tv, torch.from_numpy(table),
                                  torch.zeros((B,), dtype=torch.int32))
     pos = np.broadcast_to(np.arange(P), (B, P)).astype(np.int32)

@@ -106,17 +106,17 @@ def test_submit_cancel_and_shutdown(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    {"prefix_cache": True}, {"speculative": True}, {"spec_k": 3},
-    {"weight_dtype": "int8"}, {"kv_dtype": "int8"}, {"mesh": object()},
+    {"prefix_cache": True}, {"mesh": object()},
     {"slo": True}, {"trace": True}, {"watchdog_s": 1.0},
     {"fault_injector": object()}, {"role": "prefill"},
-    {"spec_tree": [2, 2]}, {"spec_draft_w8": True},
     {"spec_attention_impl": "pallas"},
 ])
 def test_unported_options_raise(setup, kw):
-    """Options of later slices are accepted only at their off value."""
+    """Options of later slices are accepted only at their off value, and
+    the spec backend switch only as None (the device decides)."""
     tcfg, tparams, _ = setup
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError,
+                       match="later slice|no backend switch"):
         ServingEngine(tparams, tcfg, device="cpu", start=False, **kw,
                       **ENGINE_KW)
 
