@@ -41,18 +41,36 @@ non-zero:
                at the MoE step's shapes, with the index maps of one real
                routing of random gate logits at B=20 x S=2048.
   4. serve   — a ServingEngine at Llama-3-8B widths (all 32 layers,
-               random bf16 weights from a seeded generator) answers 12
-               streamed requests with prompts of 16-700 tokens, admissions
-               landing mid-decode. Kernel launch counters are zeroed just
-               before and read just after; both kernels must have run,
-               a fused prefill+decode step must have happened and the KV
-               pool must drain. Then one fixed batch (cold prefill,
-               continuing chunk, decode) runs through the kernels, their
-               plain versions, the plain versions with a planted
-               off-by-one fault, and an f32 evaluation: the kernels'
-               logits may be no further from f32 than the plain bf16
-               path's (within a stated ratio), and the fault must fail
-               that same bound.
+               random bf16 weights from a seeded generator) with the JAX
+               engine's defaults (prefix cache, trace, SLOs) captures
+               every step shape as a CUDA graph in `warmup()` (85 at
+               this sizing; its seconds and the graph pool's memory are
+               reported), then answers 12 streamed requests with prompts
+               of 16-700 tokens, admissions landing mid-decode, every
+               step a graph replay. Kernel launch counters (which the
+               replays keep true) are zeroed just before and read just
+               after; both kernels must have run, `compile_count` must
+               not move, a fused prefill+decode step must have happened
+               and the KV pool must drain. The graph check: the warmed
+               batcher and its eager twin serve the same prompts and
+               must give identical tokens (decode-only chunk walls side
+               by side), and the decode graph replayed on stale slot
+               state (the planted control) must not. Then one fixed
+               batch (cold prefill, continuing chunk, decode) runs
+               through the kernels, their plain versions, the plain
+               versions with a planted off-by-one fault, and an f32
+               evaluation: the kernels' logits may be no further from
+               f32 than the plain bf16 path's (within a stated ratio),
+               and the fault must fail that same bound.
+  4a. serve_prefix — 8 requests sharing a 384-token prefix (own suffixes
+               of 16-128 tokens) through a warmed engine with the prefix
+               cache on and then off: hit tokens > 0, TTFTs warm and
+               cold, the token match rate warm against cold, the pool
+               drained; then a whole-prompt copy-on-write hit over the
+               int8 pool (383 tokens served from the cache).
+  4b. serve_quant_spec — int8 weights and KV, speculation over int8 KV
+               and a tree from an int8 draft, each beside its plain
+               twin, step shapes captured lazily.
   5. train   — the JAX package's flagship single-chip training config
                (bench.py:120: ~2.1B params, D 4096, F 9472, 11 layers,
                GQA 32/8, V 32000, bf16 params, 8-bit AdamW with the
@@ -173,6 +191,7 @@ JAX package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -1749,10 +1768,153 @@ def _logits_check(params, cfg):
 LOGITS_VS_F32_RATIO = 1.5
 
 
-def phase_serve(layers: int = 32, n_requests: int = 12):
+# The serve sizing's step shapes: the bucket ladder 8 ... 512 (7 buckets)
+# x group sizes {1, 2, 4, 8} x {cold, cached} (56 standalone prefills),
+# the 7 buckets x 4 fused row counts (28), and the decode chunk.
+SERVE_GRAPHS = 7 * 4 * 2 + 7 * 4 + 1
+
+
+def _warmup_prompt(cfg):
+    """A 16-token prompt of its own for an engine's warm-up request: a
+    burst prompt's leading block would stay in the prefix cache (on by
+    default) and turn that request's cold prefill into a continuation."""
+    return np.random.RandomState(SEED + 7).randint(
+        1, cfg.vocab_size, 16).tolist()
+
+
+def _counter_objs():
     from paddle_tpu_torch.kernels.flash_attention import flash_attention_fwd
-    from paddle_tpu_torch.nlp import llama
     from paddle_tpu_torch.nlp.ragged_attention import ragged_paged_attention
+    return {"flash_attention_fwd": (flash_attention_fwd, "launches"),
+            "ragged_paged_attention": (ragged_paged_attention, "launches"),
+            "ragged_paged_attention_int8": (ragged_paged_attention,
+                                            "launches_int8"),
+            "ragged_paged_attention_suffix": (ragged_paged_attention,
+                                              "launches_suffix")}
+
+
+def _zero_serve_counters() -> None:
+    for obj, attr in _counter_objs().values():
+        setattr(obj, attr, 0)
+
+
+def _read_serve_counters() -> dict:
+    return {n: getattr(obj, attr) for n, (obj, attr) in
+            _counter_objs().items()}
+
+
+def _release() -> None:
+    """Free what a dropped batcher held on the card: its step graphs
+    close over the batcher (a reference cycle), so its params, pool and
+    graph memory pool go only when the cycle collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _memory() -> dict:
+    torch.cuda.synchronize()
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "peak_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _drive_batch(cb, prompts, budget, chunk_walls=None):
+    """Submit `prompts` to a batcher at once and step it to the end;
+    with `chunk_walls`, append the wall time (ms, each step ending in its
+    own host read) of every step that was a plain decode chunk: nothing
+    queued or pending, every slot decoding. Returns the tokens."""
+    rids = [cb.submit(p, max_new_tokens=budget) for p in prompts]
+    while any(cb.active) or cb.queue or cb._pending:
+        plain = (chunk_walls is not None and not cb.queue
+                 and not cb._pending and all(cb.active))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cb.step()
+        if plain:
+            chunk_walls.append((time.perf_counter() - t0) * 1e3)
+    return [list(cb.outputs[r]) for r in rids]
+
+
+class _StaleDecode:
+    """The graph check's planted control: the decode chunk's graph
+    replayed with only its block table refreshed — tokens, lengths and
+    the active/budget/stop mirrors stay whatever the last replay left in
+    its static inputs. A graph that reads stale inputs must show."""
+
+    def __init__(self, entry):
+        self.entry = entry
+
+    def __call__(self, **inputs):
+        e = self.entry
+        e.static["table"].copy_(inputs["table"])
+        e.graph.replay()
+        return e.out
+
+
+def _graph_check(params, cfg, graphed, n_requests: int = 8,
+                 budget: int = 24):
+    """The graphed batcher (the serve engine's, warmed: every step a
+    replay) against its eager twin (`_graphed=False`: the same steps run
+    eagerly, the kernels launched, nothing captured) on the same
+    prompts: the tokens must be identical, and the decode-only chunks'
+    walls are reported side by side. Then the planted control: the
+    graphed batcher again with its decode graph replayed on stale slot
+    state (`_StaleDecode`) must read different tokens."""
+    from paddle_tpu_torch.nlp import paged
+    rng = np.random.RandomState(SEED + 4)
+    prompts = [rng.randint(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.randint(150, 257, n_requests)]
+    eager = paged.ContinuousBatcher(
+        params, cfg, max_batch=8, block_size=16, max_total_len=1024,
+        max_new_tokens=32, max_prefill_bucket=512, prefix_cache=True,
+        _graphed=False)
+    walls = {"graphed": [], "eager": []}
+    c0 = graphed.compile_count
+    want = _drive_batch(eager, prompts, budget, walls["eager"])
+    del eager
+    _release()
+    got = _drive_batch(graphed, prompts, budget, walls["graphed"])
+    if graphed.compile_count != c0:
+        raise AssertionError(f"graph check: {graphed.compile_count - c0} "
+                             f"shapes captured after warmup")
+    key = next(iter(graphed._chunk_cache))
+    live = graphed._chunk_cache[key]
+    if not live.graphed:
+        raise AssertionError("graph check: the decode entry is not a graph")
+    graphed._chunk_cache[key] = _StaleDecode(live)
+    try:
+        stale = _drive_batch(graphed, prompts, budget)
+    finally:
+        graphed._chunk_cache[key] = live
+    same = sum(a == b for x, y in zip(want, got) for a, b in zip(x, y))
+    stale_same = sum(a == b for x, y in zip(want, stale)
+                     for a, b in zip(x, y))
+    n = sum(len(x) for x in want)
+    res = {"phase": "graph_check", "requests": n_requests,
+           "budget": budget, "tokens": n, "identical": got == want,
+           "tokens_equal": same, "control_tokens_equal": stale_same,
+           "control_detected": stale != want,
+           "decode_chunk_wall_ms": walls,
+           "decode_chunk_wall_ms_median": {
+               k: float(np.median(v)) if v else None
+               for k, v in walls.items()},
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    if got != want:
+        raise AssertionError(f"graph check: the graphed batcher's tokens "
+                             f"differ from its eager twin's ({same} of {n} "
+                             f"equal)")
+    if stale == want:
+        raise AssertionError("graph check: the decode graph replayed on "
+                             "stale slot state read the same tokens: the "
+                             "check cannot see stale inputs")
+    if not walls["graphed"] or not walls["eager"]:
+        raise AssertionError(f"graph check: no decode-only chunk: {walls}")
+    return res
+
+
+def phase_serve(layers: int = 32, n_requests: int = 12):
+    from paddle_tpu_torch.nlp import llama
     from paddle_tpu_torch.serving import RequestState, ServingEngine
 
     cfg = llama.LlamaConfig.llama3_8b(num_hidden_layers=layers)
@@ -1761,10 +1923,25 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
     params = llama.init_params(cfg, gen, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    # the JAX engine's defaults (prefix cache, trace, SLOs on); every
+    # step shape captured before the loop starts
     eng = ServingEngine(params, cfg, max_batch=8, block_size=16,
                         max_total_len=1024, max_new_tokens=32,
-                        max_prefill_bucket=512, prefix_cache=False,
-                        start=True)
+                        max_prefill_bucket=512, start=False)
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = _memory()
+    t0 = time.perf_counter()
+    graphs = eng.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    mem_after = _memory()
+    if graphs != SERVE_GRAPHS or eng.batcher.compile_count != SERVE_GRAPHS:
+        raise AssertionError(f"warmup captured {graphs} step shapes "
+                             f"({eng.batcher.compile_count} in the memo), "
+                             f"not {SERVE_GRAPHS}")
+    if eng.health()["ready"] is not False:
+        raise AssertionError("health() ready before start()")
+    eng.start()
     rng = np.random.RandomState(SEED)
     lengths = rng.randint(16, 513, n_requests)
     lengths[[3, 7]] = rng.randint(513, 701, 2)        # chunked prefill
@@ -1772,10 +1949,13 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
     prompts = [rng.randint(1, cfg.vocab_size, int(n)).tolist()
                for n in lengths]
     try:
-        # warm-up: cuBLAS handles and the allocator, outside the counts
-        eng.generate(prompts[0][:16], max_new_tokens=2, timeout=600)
-        flash_attention_fwd.launches = 0
-        ragged_paged_attention.launches = 0
+        # warm-up: cuBLAS handles and the allocator, outside the counts;
+        # its own prompt, so the prefix cache holds no block of the burst
+        eng.generate(_warmup_prompt(cfg), max_new_tokens=2, timeout=600)
+        if not eng.health()["ready"]:
+            raise AssertionError(f"health() not ready: {eng.health()}")
+        cc_before = eng.batcher.compile_count
+        _zero_serve_counters()
         torch.cuda.reset_peak_memory_stats()
         t_start = time.monotonic()
         # 3 at once (a cold prefill with nothing decoding), then each
@@ -1796,11 +1976,12 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
         consumer.join(timeout=60)
         if not eng.drain(timeout=120):
             raise AssertionError("engine did not drain")
-        launches = {"flash_attention_fwd": flash_attention_fwd.launches,
-                    "ragged_paged_attention":
-                        ragged_paged_attention.launches}
+        launches = _read_serve_counters()
+        cc_after = eng.batcher.compile_count
         peak = torch.cuda.max_memory_allocated()
         snap = eng.snapshot()
+        health = eng.health()
+        prom = eng.metrics.to_prometheus()
     finally:
         clean = eng.shutdown(timeout=120)
     if not clean:
@@ -1819,11 +2000,19 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
         raise AssertionError("no fused prefill+decode step ran")
     if g["kv_blocks_in_use"] != 0:
         raise AssertionError(f"{g['kv_blocks_in_use']} KV blocks leaked")
-    for name, n in launches.items():
-        if n < 1:
+    if cc_after != cc_before:
+        raise AssertionError(f"compile_count moved through the burst: "
+                             f"{cc_before} -> {cc_after}")
+    for name in ("flash_attention_fwd", "ragged_paged_attention"):
+        if launches[name] < 1:
             raise AssertionError(f"{name} never launched while serving")
+    if "slo_burn_rate_ttft_s_p99" not in prom or health["status"] != \
+            "HEALTHY":
+        raise AssertionError(f"observability: {health}")
+    # the batcher-level graph check, on the serve engine's warmed batcher
+    graph = _graph_check(params, cfg, eng.batcher)
     del eng
-    torch.cuda.empty_cache()
+    _release()
     check = _logits_check(params, cfg)
     _emit({"phase": "logits_check", "ratio_tol": LOGITS_VS_F32_RATIO,
            **check})
@@ -1850,14 +2039,180 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
            "tokens_per_s": ntok / (t_end - t_start),
            "ttft_p50_s": float(np.percentile(ttft, 50)),
            "ttft_p99_s": float(np.percentile(ttft, 99)),
+           "warmup_graphs": graphs, "warmup_s": warmup_s,
+           "memory_before_warmup": mem_before,
+           "memory_after_warmup": mem_after,
+           "graph_pool_reserved_bytes": mem_after["reserved"]
+           - mem_before["reserved"],
+           "compile_count_before_burst": cc_before,
+           "compile_count_after_burst": cc_after,
            "peak_memory_bytes": peak, "param_init_s": init_s,
-           "launches": launches, "fused_steps": g["fused_steps"],
+           "launches": launches, "launches_by": "graph replay",
+           "fused_steps": g["fused_steps"],
            "decode_stall_steps": g["decode_stall_steps"],
            "prefill_pad_tokens": g["prefill_pad_tokens"],
+           "health": {k: health[k] for k in ("status", "ready")},
+           "slo_verdict": health["slo"]["verdict"],
+           "decode_chunk_wall_ms": graph["decode_chunk_wall_ms_median"],
+           "graph_check": {k: graph[k] for k in
+                           ("identical", "control_detected", "tokens")},
            "logits_check": check,
            "logits_vs_f32_ratio_tol": LOGITS_VS_F32_RATIO,
            "nvidia_smi": _smi_line()}
     _emit(res)
+    return res
+
+
+# ------------------------------------------------------- 4a. serve_prefix
+PREFIX_TOKENS = 384             # 24 blocks of 16
+
+
+def _prefix_burst(params, cfg, prompts, budget, kw):
+    """One ServingEngine at the serve sizing with `kw`, every step shape
+    captured first; `prompts` submitted at once with the launch counters
+    zeroed just before and read just after. Returns the tokens, TTFTs,
+    launches and the prefix statistics; the pool must drain."""
+    from paddle_tpu_torch.serving import RequestState, ServingEngine
+    eng = ServingEngine(params, cfg, max_batch=8, block_size=16,
+                        max_total_len=1024, max_new_tokens=budget,
+                        max_prefill_bucket=512, start=False, **kw)
+    try:
+        eng.warmup()
+        eng.start()
+        _zero_serve_counters()
+        t0 = time.monotonic()
+        reqs = [eng.submit(p) for p in prompts]
+        for r in reqs:
+            r.wait(timeout=900)
+        wall = time.monotonic() - t0
+        if not eng.drain(timeout=120):
+            raise AssertionError(f"{kw}: the engine did not drain")
+        launches = _read_serve_counters()
+        snap = eng.snapshot()
+    finally:
+        clean = eng.shutdown(timeout=120)
+        del eng
+        _release()
+    if not clean:
+        raise AssertionError(f"{kw}: engine shutdown was not clean")
+    for i, r in enumerate(reqs):
+        if r.state is not RequestState.FINISHED or len(r.tokens) != budget:
+            raise AssertionError(f"{kw}: request {i} ended {r.state.name} "
+                                 f"with {len(r.tokens)} tokens: {r.error!r}")
+    if snap["allocator"]["blocks_in_use"] != 0:
+        raise AssertionError(f"{kw}: {snap['allocator']['blocks_in_use']} "
+                             f"KV blocks leaked")
+    ttft = np.array([r.first_token_time - r.submit_time for r in reqs])
+    return {"tokens": [list(r.tokens) for r in reqs], "wall_s": wall,
+            "ttft_s": ttft.tolist(),
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "launches": launches, "prefix_cache": snap["prefix_cache"],
+            "allocator": snap["allocator"],
+            "compile_count": snap["gauges"]["compile_count"]}
+
+
+def _match_rate(a, b) -> float:
+    pairs = [(x, y) for p, q in zip(a, b) for x, y in zip(p, q)]
+    return sum(x == y for x, y in pairs) / len(pairs)
+
+
+def phase_serve_prefix(layers: int = 32, n_requests: int = 8,
+                       budget: int = 16):
+    """Prefix caching at Llama-3-8B widths (random bf16 weights from the
+    seed): 8 requests sharing a 384-token prefix, each with its own
+    16-128 token suffix, submitted at once to a warmed engine with the
+    prefix cache on, then to one with it off. The warm run must hit
+    (hit tokens > 0) and both must drain; the TTFTs and the token match
+    rate of warm against cold are reported (a rate: warm requests
+    continue through row 18 where cold ones prefill through row 1).
+    Then one full-prefix copy-on-write hit over the int8 pool: the same
+    384-token prompt twice, the second a whole-prompt hit that copies
+    its last block (codes and scales) and recomputes one token."""
+    from paddle_tpu_torch.nlp import llama
+    cfg = llama.LlamaConfig.llama3_8b(num_hidden_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device="cuda")
+    rng = np.random.RandomState(SEED + 5)
+    prefix = rng.randint(1, cfg.vocab_size, PREFIX_TOKENS).tolist()
+    suffixes = rng.randint(16, 129, n_requests)
+    prompts = [prefix + rng.randint(1, cfg.vocab_size, int(n)).tolist()
+               for n in suffixes]
+    t0 = time.perf_counter()
+    warm = _prefix_burst(params, cfg, prompts, budget, {})
+    cold = _prefix_burst(params, cfg, prompts, budget,
+                         {"prefix_cache": False})
+    pc = warm["prefix_cache"]
+    if not pc["hit_tokens"] > 0:
+        raise AssertionError(f"the shared prefix never hit: {pc}")
+    for name, r in (("warm", warm), ("cold", cold)):
+        for k in ("flash_attention_fwd", "ragged_paged_attention"):
+            if r["launches"][k] < 1:
+                raise AssertionError(f"serve_prefix {name}: {k} never "
+                                     f"launched: {r['launches']}")
+    # the copy-on-write full hit over the int8 pool (lazily captured)
+    from paddle_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(params, cfg, max_batch=8, block_size=16,
+                        max_total_len=1024, max_new_tokens=budget,
+                        max_prefill_bucket=512, kv_dtype="int8")
+    try:
+        _zero_serve_counters()
+        out1 = eng.generate(prefix, timeout=600)
+        hit0 = eng.snapshot()["prefix_cache"]["hit_tokens"]
+        out2 = eng.generate(prefix, timeout=600)
+        if not eng.drain(timeout=120):
+            raise AssertionError("int8 COW: the engine did not drain")
+        cow_launches = _read_serve_counters()
+        snap = eng.snapshot()
+        pcs, blocks = snap["prefix_cache"], \
+            snap["allocator"]["blocks_in_use"]
+    finally:
+        clean = eng.shutdown(timeout=120)
+        del eng
+        _release()
+    cow_hit = pcs["hit_tokens"] - hit0
+    if not clean or blocks != 0:
+        raise AssertionError(f"int8 COW: clean {clean}, {blocks} blocks "
+                             f"leaked")
+    if cow_hit != PREFIX_TOKENS - 1:
+        raise AssertionError(f"int8 COW: the full hit served {cow_hit} "
+                             f"tokens, not {PREFIX_TOKENS - 1}")
+    if cow_launches["ragged_paged_attention_int8"] < 1:
+        raise AssertionError(f"int8 COW: launches {cow_launches}")
+    launches = {k: warm["launches"][k] + cold["launches"][k]
+                + cow_launches[k] for k in warm["launches"]}
+    res = {"phase": "serve_prefix", "layers": layers,
+           "requests": n_requests, "budget": budget,
+           "prefix_tokens": PREFIX_TOKENS,
+           "suffix_lengths": suffixes.tolist(),
+           "hit_tokens": pc["hit_tokens"], "hit_rate": pc["hit_rate"],
+           "prefix_cache": pc,
+           "ttft_p50_s": {"warm": warm["ttft_p50_s"],
+                          "cold": cold["ttft_p50_s"]},
+           "ttft_p99_s": {"warm": warm["ttft_p99_s"],
+                          "cold": cold["ttft_p99_s"]},
+           "wall_s": {"warm": warm["wall_s"], "cold": cold["wall_s"]},
+           "tokens_per_s": {k: n_requests * budget / r["wall_s"]
+                            for k, r in (("warm", warm), ("cold", cold))},
+           "match_rate_warm_vs_cold": _match_rate(warm["tokens"],
+                                                  cold["tokens"]),
+           "first_token_match_warm_vs_cold": _match_rate(
+               [t[:1] for t in warm["tokens"]],
+               [t[:1] for t in cold["tokens"]]),
+           "graphs": {"warm": warm["compile_count"],
+                      "cold": cold["compile_count"]},
+           "launches_by_run": {"warm": warm["launches"],
+                               "cold": cold["launches"],
+                               "int8_cow": cow_launches},
+           "launches": launches,
+           "int8_cow": {"hit_tokens": cow_hit,
+                        "match_rate_vs_first": _match_rate([out1],
+                                                           [out2])},
+           "serve_s": time.perf_counter() - t0,
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    del params
+    _release()
     return res
 
 
@@ -1890,7 +2245,7 @@ def _serve_burst(params, cfg, prompts, budget, kw):
     from paddle_tpu_torch.nlp.ragged_attention import \
         ragged_paged_attention as rpa
     from paddle_tpu_torch.serving import RequestState, ServingEngine
-    torch.cuda.empty_cache()
+    _release()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = ServingEngine(params, cfg, max_batch=8, block_size=16,
@@ -1898,7 +2253,7 @@ def _serve_burst(params, cfg, prompts, budget, kw):
                         max_prefill_bucket=512, start=True, **kw)
     build_s = time.perf_counter() - t0
     try:
-        eng.generate(prompts[0][:16], max_new_tokens=2, timeout=600)
+        eng.generate(_warmup_prompt(cfg), max_new_tokens=2, timeout=600)
         s0 = eng.batcher.spec.as_dict()
         flash.launches = rpa.launches = 0
         rpa.launches_int8 = rpa.launches_suffix = 0
@@ -1919,6 +2274,7 @@ def _serve_burst(params, cfg, prompts, budget, kw):
     finally:
         clean = eng.shutdown(timeout=120)
         del eng
+        _release()
     if not clean:
         raise AssertionError(f"{kw}: engine shutdown was not clean")
     for i, r in enumerate(reqs):
@@ -1942,6 +2298,7 @@ def _serve_burst(params, cfg, prompts, budget, kw):
             "ttft_p50_s": float(np.percentile(ttft, 50)),
             "ttft_p99_s": float(np.percentile(ttft, 99)),
             "peak_memory_bytes": peak, "engine_build_s": build_s,
+            "graphs_captured_lazily": snap["gauges"]["compile_count"],
             "launches": launches, "fused_steps": snap["gauges"]["fused_steps"],
             "quantization": snap["quantization"], "spec_burst": burst,
             "accepted_per_sweep": burst["accepted"] / sweeps,
@@ -3698,7 +4055,8 @@ _KERNELS = {
         # prefill, B=1 S=8192; long8k: B=2 S=8192 + LSE; layer8b: B=1
         # S=4096 and 8192 + LSE; train05b: B=16 S=2048 H=16 + LSE
         "rows": [1],
-        "main": {"serve": 1, "serve_quant_spec": 1, "train": 3,
+        "main": {"serve": 1, "serve_prefix": 1, "serve_quant_spec": 1,
+                 "train": 3,
                  "train_moe": 4, "eager": 5,
                  "eager_llama": 6, "ernie": 7, "dit": 12, "generate": 14,
                  "long8k": 15, "layer8b_4k": 16, "layer8b_8k": 17,
@@ -3708,7 +4066,7 @@ _KERNELS = {
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
         "rows": [18],
         # the decode case; its count takes every launch, of any option
-        "main": {"serve": 0, "serve_quant_spec": 0}},
+        "main": {"serve": 0, "serve_prefix": 0, "serve_quant_spec": 0}},
     # row 18's two options, counted apart: `quantized=True` (int8 pools)
     # held at the int8 decode batch, `suffix=True` (the speculative slab)
     # at the chain verify
@@ -3716,7 +4074,7 @@ _KERNELS = {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
         "option": "quantized=True", "rows": [18],
-        "main": {"serve_quant_spec": 0}},
+        "main": {"serve_quant_spec": 0, "serve_prefix": 0}},
     "ragged_paged_attention_suffix": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
@@ -3862,9 +4220,10 @@ def main() -> int:
     phase_build()
     cases = phase_kernels(peaks)
     serve = phase_serve()
-    torch.cuda.empty_cache()
+    _release()
+    serve_prefix = phase_serve_prefix()
     quant_spec = phase_serve_quant_spec()
-    torch.cuda.empty_cache()
+    _release()
     train = phase_train(peaks)
     phase_grad_check()
     train_moe = phase_train_moe(peaks)
@@ -3882,7 +4241,8 @@ def main() -> int:
     long8k = phase_long8k(peaks)
     layer8b = phase_layer8b(peaks)
     train05b = phase_train05b(peaks)
-    runs = {"serve": serve, "serve_quant_spec": quant_spec, "train": train,
+    runs = {"serve": serve, "serve_prefix": serve_prefix,
+            "serve_quant_spec": quant_spec, "train": train,
             "train_moe": train_moe,
             "eager": eager, "eager_llama": eager_llama, "ernie": ernie,
             "dit": dit, "generate": generate, "long8k": long8k, **layer8b,

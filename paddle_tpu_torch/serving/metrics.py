@@ -7,16 +7,27 @@ and histograms behind one lock, with a plain-dict `snapshot()` so tests,
 benchmarks and an eventual HTTP frontend read one consistent view
 without scraping.
 
-Host-side only (no torch): the JAX package's `serving/metrics.py`
-without the profiler span its timer opened there.
+Profiler integration: `MetricsRegistry.timer(name)` is a context
+manager that both observes wall time into a histogram AND opens a
+`torch.profiler.record_function` span of the same name, so engine
+phases (admission, the step) land in a torch profiler trace next to
+the device work they launch. `to_prometheus()` renders the registry in
+the Prometheus text format. Host-side otherwise: torch is imported only
+by the timer's span.
 """
 from __future__ import annotations
 
+import re
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "LATENCY_BUCKETS"]
+
+# Prometheus metric names: [a-zA-Z_:][a-zA-Z0-9_:]* — everything else
+# (the registry's dotted names like "serving.step_s") maps to "_"
+_PROM_NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
 
 
 class Counter:
@@ -53,10 +64,22 @@ class Gauge:
         with self._lock:
             self._value = v
 
+    def add(self, v: float) -> None:
+        with self._lock:
+            self._value += v
+
     @property
     def value(self) -> float:
         with self._lock:
             return self._value
+
+
+# Default cumulative-bucket ladder for latency histograms exported as
+# native Prometheus histograms (seconds; +Inf is implicit) — wide
+# enough for TTFT under capture-cliff conditions, fine enough for
+# inter-token gaps.
+LATENCY_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                   0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 
 
 class Histogram:
@@ -128,6 +151,31 @@ class Histogram:
                   max(0, int(round(q * (len(sorted_vals) - 1)))))
         return sorted_vals[idx]
 
+    def percentile(self, q: float, since: int = 0) -> Optional[float]:
+        """Nearest-rank percentile (q in [0, 1]) over the recent
+        observation window, or None before the first observation —
+        benchmark emitters read arbitrary quantiles (itl_ms_p99 & co)
+        without re-implementing the windowing. `since` drops the first
+        `since` lifetime observations (as counted by summary()["count"])
+        from the window first, so a bench can rank only the samples
+        recorded inside its timed region (e.g. skip the warmup request's
+        compile-tainted inter-token gaps); observations that already
+        fell off the ring are skipped implicitly."""
+        with self._lock:
+            if not self._ring:
+                return None
+            vals = self._ring
+            if since > 0:
+                if self._count <= self._cap:
+                    ordered = vals
+                else:
+                    start = self._count % self._cap
+                    ordered = vals[start:] + vals[:start]
+                vals = ordered[max(0, since - (self._count - len(ordered))):]
+                if not vals:
+                    return None
+            return self._percentile(sorted(vals), q)
+
     def summary(self) -> Dict[str, float]:
         """Lifetime and windowed statistics, under EXPLICIT keys so a
         long-lived engine's dashboard can't misread them: `count` /
@@ -161,23 +209,28 @@ class Histogram:
 
 
 class _Timer:
-    """Wall-time span → histogram observation. The measured interval
-    stays readable on `.elapsed` after exit so derived metrics share the
-    one measurement."""
+    """Wall-time span → histogram observation + profiler span. The
+    measured interval stays readable on `.elapsed` after exit so derived
+    metrics share the one measurement."""
 
-    __slots__ = ("_hist", "_t0", "elapsed")
+    __slots__ = ("_hist", "_span", "_t0", "elapsed")
 
-    def __init__(self, hist: Histogram):
+    def __init__(self, hist: Histogram, span):
         self._hist = hist
+        self._span = span
         self._t0 = None
         self.elapsed: Optional[float] = None
 
     def __enter__(self):
+        if self._span is not None:
+            self._span.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self.elapsed = time.perf_counter() - self._t0
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
         self._hist.observe(self.elapsed)
         return False
 
@@ -217,9 +270,16 @@ class MetricsRegistry:
                                                    buckets=buckets)
             return self._histograms[name]
 
-    def timer(self, name: str) -> _Timer:
-        """Time a block into histogram `name`."""
-        return _Timer(self.histogram(name))
+    def timer(self, name: str, record_event: bool = True) -> _Timer:
+        """Time a block into histogram `name` and (by default) into a
+        `torch.profiler.record_function` span of the same name, so
+        serving phases appear on a profiler timeline next to the device
+        steps."""
+        span = None
+        if record_event:
+            import torch
+            span = torch.profiler.record_function(name)
+        return _Timer(self.histogram(name), span)
 
     def snapshot(self) -> Dict[str, Dict]:
         with self._lock:
@@ -229,3 +289,78 @@ class MetricsRegistry:
                 "histograms": {n: h.summary()
                                for n, h in self._histograms.items()},
             }
+
+    def to_prometheus(self, prefix: str = "paddle_tpu_") -> str:
+        """Render every metric in the Prometheus text exposition
+        format (version 0.0.4): an HTTP `/metrics` handler returns
+        exactly this string with content type
+        ``text/plain; version=0.0.4``.
+
+        Counters render as ``<prefix><name>_total``, gauges as
+        ``<prefix><name>``, histograms as Prometheus *summaries*
+        (``{quantile="0.5|0.9|0.95|0.99"}`` over the recent window,
+        plus lifetime ``_sum`` / ``_count``). Registry names are
+        sanitized to the Prometheus charset (``serving.step_s`` →
+        ``serving_step_s``). One atomic snapshot backs the whole
+        rendering, so cross-metric invariants hold within a scrape.
+
+        Histograms created with a bucket ladder ADDITIONALLY export a
+        native histogram family ``<prefix><name>_hist`` — cumulative
+        ``_bucket{le="..."}`` series (lifetime-exact counts, ``+Inf``
+        included) plus ``_hist_sum`` / ``_hist_count`` — so an
+        external Prometheus can compute its own burn rates instead of
+        trusting the in-process windowed quantiles. The ``_hist``
+        suffix keeps the summary and histogram as two distinct
+        families, which a strict 0.0.4 parser requires."""
+        with self._lock:
+            # ONE lock acquisition (RLock — snapshot() re-enters) for
+            # the summary snapshot AND the bucket counts: an observe()
+            # landing between two separate reads would render a finite
+            # le bucket above the +Inf count — a non-monotone
+            # histogram Prometheus rejects into NaN quantiles
+            snap = self.snapshot()
+            hist_buckets = {}
+            for n, h in self._histograms.items():
+                cum = h.buckets()
+                if cum is not None:
+                    hist_buckets[n] = cum
+        lines: List[str] = []
+
+        def san(name: str) -> str:
+            return _PROM_NAME_RE.sub("_", name)
+
+        def num(v) -> str:
+            return repr(float(v))
+
+        for name, v in snap["counters"].items():
+            # the _total suffix is part of the family name in the
+            # 0.0.4 text format — a TYPE line for the bare name would
+            # leave the actual samples typed "unknown"
+            base = prefix + san(name) + "_total"
+            lines.append(f"# TYPE {base} counter")
+            lines.append(f"{base} {num(v)}")
+        for name, v in snap["gauges"].items():
+            base = prefix + san(name)
+            lines.append(f"# TYPE {base} gauge")
+            lines.append(f"{base} {num(v)}")
+        for name, s in snap["histograms"].items():
+            base = prefix + san(name)
+            lines.append(f"# TYPE {base} summary")
+            for q, key in ((0.5, "p50"), (0.9, "p90"),
+                           (0.95, "p95"), (0.99, "p99")):
+                if key in s:
+                    lines.append(f'{base}{{quantile="{q}"}} {num(s[key])}')
+            lines.append(f"{base}_sum {num(s.get('sum', 0.0))}")
+            lines.append(f"{base}_count {num(s.get('count', 0))}")
+            cum = hist_buckets.get(name)
+            if cum is not None:
+                hb = base + "_hist"
+                lines.append(f"# TYPE {hb} histogram")
+                for le, count in cum:
+                    lines.append(
+                        f'{hb}_bucket{{le="{le}"}} {num(count)}')
+                lines.append(f'{hb}_bucket{{le="+Inf"}} '
+                             f'{num(s.get("count", 0))}')
+                lines.append(f"{hb}_sum {num(s.get('sum', 0.0))}")
+                lines.append(f"{hb}_count {num(s.get('count', 0))}")
+        return "\n".join(lines) + "\n"

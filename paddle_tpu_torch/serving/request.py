@@ -18,8 +18,8 @@ before admission). Terminal states free the request's KV blocks back to
 the pool and close the channel.
 
 Host-side only (no torch): the JAX package's `serving/request.py`
-without the fields of the quarantine, speculative and KV-transfer
-paths, which this package does not port yet.
+without the fields of the quarantine, speculative-fallback and
+KV-transfer paths, which this package does not port yet.
 """
 from __future__ import annotations
 
@@ -123,6 +123,7 @@ class GenerationRequest:
         self.first_token_time: Optional[float] = None
         self.finish_time: Optional[float] = None
         self.admitted_index: Optional[int] = None   # global admission order
+        self.trace_id: Optional[str] = None         # serving.trace timeline
 
         self._cancel = threading.Event()
         self._done = threading.Event()

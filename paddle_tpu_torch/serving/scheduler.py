@@ -12,9 +12,13 @@ KV-block need fits the pool right now, and otherwise defers the WHOLE queue
 ones forever, and the engine has already validated at submit time that
 every queued request fits an empty pool, so deferral always resolves.
 
+A `prefer` predicate breaks ties within an effective-priority level:
+the engine passes its cached-prefix preference, so a request whose
+prefix the cache holds right now is served before eviction recycles
+those blocks.
+
 Host-side only (no torch): the JAX package's `serving/scheduler.py`
-without the prefix-cache preference and the quarantine requeue, which
-this package does not port yet.
+without the quarantine requeue, which belongs to fault tolerance.
 """
 from __future__ import annotations
 
@@ -71,26 +75,46 @@ class AdmissionQueue:
                 _Entry(int(priority), self._seq, self._clock(), item))
             self._seq += 1
 
-    def _key(self, e: _Entry, now: float):
+    def _key(self, e: _Entry, now: float,
+             prefer: Optional[Callable[[object], bool]] = None):
         aged = int((now - e.enq_time) / self.aging_interval_s) \
             if self.aging_interval_s > 0 else 0
-        return (e.priority - aged, e.seq)
+        if prefer is None:
+            return (e.priority - aged, e.seq)
+        # preference is a TIE-BREAK within an effective-priority level:
+        # it can reorder equals (cache-aware admission) but never jump
+        # a lower-priority request over a higher one
+        return (e.priority - aged, 0 if prefer(e.item) else 1, e.seq)
+
+    def pop(self, fits: Optional[Callable[[object], bool]] = None,
+            prefer: Optional[Callable[[object], bool]] = None):
+        """Remove and return the best (aged-priority, FIFO) item, or
+        None when empty. With `fits`, the best item is returned only
+        when fits(item) is True; otherwise the queue DEFERS as a whole
+        (returns None). With `prefer`, items for which prefer(item) is
+        True win ties WITHIN an effective priority level; FIFO still
+        breaks remaining ties."""
+        got = self.pop_many(1, fits=fits, prefer=prefer)
+        return got[0] if got else None
 
     def pop_many(self, k: int,
-                 fits: Optional[Callable[[object], bool]] = None
+                 fits: Optional[Callable[[object], bool]] = None,
+                 prefer: Optional[Callable[[object], bool]] = None
                  ) -> List[object]:
         """Pop up to `k` best items under ONE lock acquisition and one
         consistent clock reading — the engine's admission round takes a
         whole burst at once (the burst then prefills in one call
-        batcher-side). Head-of-line deferral: the best REMAINING item
-        failing `fits` stops the round. `fits` is called once per
-        accepted item, so callers may account resources (KV blocks)
-        inside it."""
+        batcher-side). Same semantics as `pop` applied repeatedly:
+        head-of-line deferral (the best REMAINING item failing `fits`
+        stops the round), `prefer` tie-breaks within an effective-
+        priority level. `fits` is called once per accepted item, so
+        callers may account resources (KV blocks) inside it."""
         out: List[object] = []
         with self._lock:
             now = self._clock()
             while len(out) < k and self._items:
-                best = min(self._items, key=lambda e: self._key(e, now))
+                best = min(self._items,
+                           key=lambda e: self._key(e, now, prefer))
                 if fits is not None and not fits(best.item):
                     break
                 self._items.remove(best)

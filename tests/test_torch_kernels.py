@@ -430,7 +430,11 @@ def test_port_imports_no_jax():
         "          'paddle_tpu_torch.ops.comparison',\n"
         "          'paddle_tpu_torch.tools.bench',\n"
         "          'paddle_tpu_torch.quantization.kv',\n"
-        "          'paddle_tpu_torch.serving.speculative'):\n"
+        "          'paddle_tpu_torch.serving.speculative',\n"
+        "          'paddle_tpu_torch.serving.cache',\n"
+        "          'paddle_tpu_torch.serving.trace',\n"
+        "          'paddle_tpu_torch.serving.slo',\n"
+        "          'paddle_tpu_torch.serving.profiling'):\n"
         "    assert n in names, n\n"
         "assert not any(m in ('jax', 'optax')\n"
         "               or m.startswith(('jax.', 'optax.', 'paddle_tpu.'))\n"

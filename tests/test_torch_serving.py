@@ -106,14 +106,16 @@ def test_submit_cancel_and_shutdown(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    {"prefix_cache": True}, {"mesh": object()},
-    {"slo": True}, {"trace": True}, {"watchdog_s": 1.0},
-    {"fault_injector": object()}, {"role": "prefill"},
-    {"spec_attention_impl": "pallas"},
+    {"role": "decode"}, {"mesh": object()},
+    {"spec_attention_impl": "xla"}, {"watchdog_s": 0.0},
+    {"watchdog_s": 1.0}, {"fault_injector": object()},
+    {"role": "prefill"}, {"spec_attention_impl": "pallas"},
 ])
 def test_unported_options_raise(setup, kw):
     """Options of later slices are accepted only at their off value, and
-    the spec backend switch only as None (the device decides)."""
+    the spec backend switch only as None (the device decides). Prefix
+    caching, tracing and SLOs are ported: test_torch_serve_observability
+    holds their defaults."""
     tcfg, tparams, _ = setup
     with pytest.raises(NotImplementedError,
                        match="later slice|no backend switch"):
