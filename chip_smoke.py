@@ -71,6 +71,21 @@ non-zero:
   4b. serve_quant_spec — int8 weights and KV, speculation over int8 KV
                and a tree from an int8 draft, each beside its plain
                twin, step shapes captured lazily.
+  4c. serve_robust — at the serve sizing, one weight tree shared by
+               every engine: (a) quarantine on a warmed engine (a
+               rid-scoped poison fails only its request, a step-scoped
+               transient convicts nobody and its riders retry; a failed
+               speculative verify over int8 KV turns speculation off for
+               its riders, so row 18's suffix option stops), with the
+               probes capturing nothing; KV snapshots exported, imported
+               in place and exported again byte-identical (fp and int8
+               pools), a wrong fingerprint refused; (b) a disaggregated
+               prefill/decode Router (every request migrates, zero
+               prefill on the decode replica); (c) a 2-replica Router
+               with the watchdog and auto_restart: a finite hang wedges
+               r0, its requests fail over to r1 with strict-prefix
+               streams, the supervisor rebuilds r0 while r1 serves and
+               r0 rejoins; (d) an HttpFrontend on 127.0.0.1:0 over it.
   5. train   — the JAX package's flagship single-chip training config
                (bench.py:120: ~2.1B params, D 4096, F 9472, 11 layers,
                GQA 32/8, V 32000, bf16 params, 8-bit AdamW with the
@@ -1924,10 +1939,12 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     # the JAX engine's defaults (prefix cache, trace, SLOs on); every
-    # step shape captured before the loop starts
+    # step shape captured before the loop starts; the watchdog on (no
+    # rule armed: what it costs a burst)
     eng = ServingEngine(params, cfg, max_batch=8, block_size=16,
                         max_total_len=1024, max_new_tokens=32,
-                        max_prefill_bucket=512, start=False)
+                        max_prefill_bucket=512,
+                        watchdog_s=ROBUST_WATCHDOG_S, start=False)
     torch.cuda.reset_peak_memory_stats()
     mem_before = _memory()
     t0 = time.perf_counter()
@@ -2007,7 +2024,7 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched while serving")
     if "slo_burn_rate_ttft_s_p99" not in prom or health["status"] != \
-            "HEALTHY":
+            "HEALTHY" or health["watchdog_trips"] != 0:
         raise AssertionError(f"observability: {health}")
     # the batcher-level graph check, on the serve engine's warmed batcher
     graph = _graph_check(params, cfg, eng.batcher)
@@ -2051,7 +2068,9 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
            "fused_steps": g["fused_steps"],
            "decode_stall_steps": g["decode_stall_steps"],
            "prefill_pad_tokens": g["prefill_pad_tokens"],
-           "health": {k: health[k] for k in ("status", "ready")},
+           "health": {k: health[k] for k in ("status", "ready",
+                                             "watchdog_trips")},
+           "watchdog_s": ROBUST_WATCHDOG_S,
            "slo_verdict": health["slo"]["verdict"],
            "decode_chunk_wall_ms": graph["decode_chunk_wall_ms_median"],
            "graph_check": {k: graph[k] for k in
@@ -2456,6 +2475,684 @@ def phase_serve_quant_spec(layers: int = 32, n_requests: int = 8,
            "prompt_lengths": lengths.tolist(), "cases": cases,
            "launches": launches, "serve_s": serve_s,
            "verify_logits_check": check, "nvidia_smi": _smi_line()}
+    _emit(res)
+    return res
+
+
+# ------------------------------------------------------- 4c. serve_robust
+# the prefill ladder cut to the buckets the phase's prompts use (16-700
+# tokens: one chunk of <= 128 or <= 512, or 512 + a remainder)
+ROBUST_KW = dict(max_batch=8, block_size=16, max_total_len=1024,
+                 prefill_buckets=(128, 512))
+ROBUST_WATCHDOG_S = 3.0
+ROBUST_HANG_S = 10.0            # finite: the wedged thread returns
+
+
+def _robust_prompts(cfg, seed, n=8):
+    """`n` prompts of 16-700 tokens (two above 512: chunked prefill)."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(16, 513, n)
+    lengths[[2 % n, 5 % n]] = rng.randint(513, 701, 2)
+    return [rng.randint(1, cfg.vocab_size, int(x)).tolist() for x in lengths]
+
+
+def _robust_burst(submit, prompts, budget, total, on_token=None,
+                  prebuilt=None):
+    """Submit `prompts` at once through `submit`, wait for every request;
+    the kernels' launch counters are zeroed just before and added to
+    `total` just after. `prebuilt` maps an index to a ready
+    GenerationRequest. Returns (requests, wall seconds, launches)."""
+    _zero_serve_counters()
+    t0 = time.monotonic()
+    reqs = []
+    for i, p in enumerate(prompts):
+        if prebuilt and i in prebuilt:
+            reqs.append(submit(prebuilt[i]))
+        else:
+            kw = {} if on_token is None else {"on_token": on_token(i)}
+            reqs.append(submit(p, max_new_tokens=budget, **kw))
+    for r in reqs:
+        if not r.wait(timeout=600):
+            raise AssertionError(f"request {r.request_id} never ended")
+    wall = time.monotonic() - t0
+    launches = _read_serve_counters()
+    for k, v in launches.items():
+        total[k] += v
+    return reqs, wall, launches
+
+
+def _robust_rates(reqs, wall):
+    ttft = np.array([r.first_token_time - r.submit_time for r in reqs
+                     if r.first_token_time is not None])
+    ntok = sum(len(r.tokens) for r in reqs)
+    return {"tokens": ntok, "wall_s": wall, "tokens_per_s": ntok / wall,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99))}
+
+
+def _first_divergence(want, reqs):
+    """Where each request's tokens first leave `want`'s (None: never)."""
+    return [next((j for j, (x, y) in enumerate(zip(a, r.tokens)) if x != y),
+                 None) for a, r in zip(want, reqs)]
+
+
+def _require(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def _require_finished(reqs, budget, vocab, label, skip=()):
+    from paddle_tpu_torch.serving import RequestState
+    for i, r in enumerate(reqs):
+        if i in skip:
+            continue
+        _require(r.state is RequestState.FINISHED,
+                 f"{label}: request {i} ended {r.state.name} "
+                 f"({r.finish_reason}): {r.error!r}")
+        _require(len(r.tokens) == budget and all(
+            0 <= t < vocab for t in r.tokens),
+            f"{label}: request {i}: bad output {r.tokens}")
+
+
+def _require_launched(launches, names, label):
+    for n in names:
+        _require(launches[n] >= 1, f"{label}: {n} never launched: "
+                 f"{launches}")
+
+
+def _snapshot_roundtrip(b, prompt, label):
+    """On a stopped engine's batcher: serve `prompt` (alone, speculation
+    off) to its second token, export its KV (timed, host copy included),
+    and let the request decode on to its budget uninterrupted. Import the
+    snapshot back into the same pool (timed; every pool tensor keeps its
+    storage), export again and require the two snapshots byte-identical
+    (codes, and an int8 pool's scales); a snapshot whose fingerprint
+    names another block size must be refused. Then the imported request
+    decodes to its budget through the same plain-chunk graph, one slot
+    active, and its tokens must equal the uninterrupted run's bit for
+    bit: an import that put a block or a scale where decode does not
+    read it would change them."""
+    import dataclasses
+    rid = b.submit(prompt, max_new_tokens=32, speculative=False)
+    while len(b.outputs.get(rid, [])) < 2:
+        b.step()
+    c = b.cache
+    ptrs = [t.data_ptr() for t in (c.k, c.v, c.k_scale, c.v_scale)
+            if t is not None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = b.export_kv(rid)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    at_export = len(b.outputs[rid])
+    b.run()
+    uninterrupted = list(b.outputs[rid])
+    b.release(rid)
+    _require(len(uninterrupted) == 32, f"{label}: the uninterrupted run "
+             f"gave {len(uninterrupted)} tokens")
+    t0 = time.perf_counter()
+    rid2 = b.import_kv(snap)
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t0) * 1e3
+    c = b.cache
+    _require([t.data_ptr() for t in (c.k, c.v, c.k_scale, c.v_scale)
+              if t is not None] == ptrs,
+             f"{label}: the import rebound a pool tensor")
+    again = b.export_kv(rid2)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        x, y = getattr(snap, name), getattr(again, name)
+        _require((x is None) == (y is None) and (x is None or (
+            x.dtype == y.dtype and x.tobytes() == y.tobytes())),
+            f"{label}: snapshot {name} changed through export, import, "
+            f"export")
+    bad = dataclasses.replace(
+        snap, fingerprint=dict(snap.fingerprint, block_size=2 * b.bs))
+    try:
+        b.import_kv(bad)
+    except ValueError:
+        refused = True
+    else:
+        refused = False
+    _require(refused, f"{label}: a wrong fingerprint was imported")
+    b.run()
+    resumed = list(b.outputs[rid2])
+    b.release(rid2)
+    _require(resumed == uninterrupted,
+             f"{label}: the imported request decoded {resumed}, the "
+             f"uninterrupted one {uninterrupted}")
+    return {"prompt_tokens": len(prompt), "blocks": snap.n_blocks,
+            "mib": snap.nbytes / 2 ** 20, "export_ms": export_ms,
+            "import_ms": import_ms, "pool_dtype":
+            snap.fingerprint["pool_dtype"], "byte_identical": True,
+            "wrong_fingerprint_refused": True,
+            "tokens_at_export": at_export,
+            "resumed_equals_uninterrupted": True}
+
+
+def _robust_quarantine(params, cfg, total):
+    """(a) One warmed engine (the watchdog on): a clean burst, then a
+    rid-scoped poison over the same prompts (only its request fails; each
+    survivor's tokens are set beside its clean run's), then a step-scoped
+    transient (nobody convicted; its riders retry and finish); then an
+    int8-KV speculative engine (chain of 4) whose first verify fails:
+    every rider re-admits with speculation off, so row 18's suffix option
+    launches before the fault and never after. The pool drains after
+    each case; the probes capture nothing."""
+    from paddle_tpu_torch.nlp.ragged_attention import \
+        ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving import (FaultInjector, GenerationRequest,
+                                          InjectedFault, ServingEngine)
+    V = cfg.vocab_size
+    out = {}
+    inj = FaultInjector(seed=SEED)
+    # the prefix cache off: the poison burst serves the clean burst's
+    # prompts and must prefill them as the clean burst did, so that its
+    # survivors can be held to their clean runs
+    eng = ServingEngine(params, cfg, max_new_tokens=32,
+                        watchdog_s=ROBUST_WATCHDOG_S, fault_injector=inj,
+                        prefix_cache=False, start=False, **ROBUST_KW)
+    try:
+        t0 = time.perf_counter()
+        graphs = eng.warmup()
+        torch.cuda.synchronize()
+        out["warmup_graphs"], out["warmup_s"] = graphs, \
+            time.perf_counter() - t0
+        out["ladder"] = list(eng.batcher.prefill_buckets)
+        eng.start()
+        cc = eng.batcher.compile_count
+
+        def quarantines():
+            return eng.health()["quarantines"]
+
+        # clean
+        clean_prompts = _robust_prompts(cfg, SEED + 20)
+        reqs, wall, n = _robust_burst(eng.submit, clean_prompts, 32, total)
+        _require_finished(reqs, 32, V, "(a) clean")
+        _require_launched(n, ("flash_attention_fwd",
+                              "ragged_paged_attention"), "(a) clean")
+        out["clean"] = {**_robust_rates(reqs, wall), "launches": n}
+        out["clean_tokens"] = [list(r.tokens) for r in reqs]
+        # rid-scoped poison, armed at the culprit's first streamed token
+        q0 = quarantines()
+        armed = []
+
+        def arm(tok):
+            if not armed:
+                armed.append(culprit.request_id)
+                inj.fail_on_rid(culprit.request_id)
+        culprit = GenerationRequest(clean_prompts[3], max_new_tokens=32,
+                                    on_token=arm)
+        reqs, wall, n = _robust_burst(eng.submit, clean_prompts, 32, total,
+                                      prebuilt={3: culprit})
+        _require(culprit.finish_reason == "quarantine_culprit" and
+                 0 < len(culprit.tokens) < 32,
+                 f"(a) poison: the culprit ended {culprit.state.name} "
+                 f"({culprit.finish_reason}) after {len(culprit.tokens)}")
+        _require_finished(reqs, 32, V, "(a) poison", skip=(3,))
+        _require_launched(n, ("flash_attention_fwd",
+                              "ragged_paged_attention"), "(a) poison")
+        h = eng.health()
+        # the survivors against the clean burst (the same prompts): where
+        # each first leaves its clean run, for those restored in place,
+        # those requeued and those the quarantine did not touch
+        agree = {}
+        for i, r in enumerate(reqs):
+            if i == 3:
+                continue
+            events = eng.trace.timeline(r.trace_id)["events"]
+            how = ("restored" if any(e["kind"] == "restored"
+                                     for e in events) else
+                   "requeued" if any(e["kind"] == "requeued"
+                                     for e in events) else "untouched")
+            agree.setdefault(how, []).append(
+                _first_divergence([out["clean_tokens"][i]], [r])[0])
+        out["poison"] = {**_robust_rates(reqs, wall), "launches": n,
+                         "convicted": [armed[0]],
+                         "quarantines": h["quarantines"] - q0,
+                         "requests_restored": h["requests_restored"],
+                         "requests_requeued": h["requests_requeued"],
+                         "culprit_tokens_streamed": len(culprit.tokens),
+                         "survivor_first_divergence_vs_clean": agree}
+        # step-scoped transient: allocator pressure on the 4th call of
+        # the burst; no probe reproduces it, its riders retry
+        inj.heal()
+        q1 = quarantines()
+        inj.exhaust_on_step(inj.stats()["calls"] + 4)
+        prompts = _robust_prompts(cfg, SEED + 22)
+        reqs, wall, n = _robust_burst(eng.submit, prompts, 32, total)
+        _require_finished(reqs, 32, V, "(a) transient")
+        retried = [i for i, r in enumerate(reqs) if r.retries]
+        _require(retried and max(r.retries for r in reqs) == 1,
+                 f"(a) transient: retries {[r.retries for r in reqs]}")
+        _require(quarantines() - q1 == 1, "(a) transient: no quarantine")
+        _require_launched(n, ("flash_attention_fwd",
+                              "ragged_paged_attention"), "(a) transient")
+        out["transient"] = {**_robust_rates(reqs, wall), "launches": n,
+                            "retried_requests": retried,
+                            "convicted": []}
+        _require(eng.batcher.compile_count == cc,
+                 f"(a) the quarantine captured: {cc} -> "
+                 f"{eng.batcher.compile_count}")
+        out["compile_count"] = [cc, eng.batcher.compile_count]
+        _require(eng.drain(timeout=60) and
+                 eng.snapshot()["gauges"]["kv_blocks_in_use"] == 0,
+                 "(a) the pool did not drain")
+        out["health"] = {k: eng.health()[k] for k in (
+            "status", "step_faults", "quarantines", "requests_restored",
+            "requests_requeued", "requests_retried", "requests_failed",
+            "watchdog_trips")}
+    finally:
+        _require(eng.shutdown(timeout=120), "(a) shutdown was not clean")
+    # the engine thread is gone: the batcher serves this thread now
+    snap_prompt = np.random.RandomState(SEED + 27).randint(
+        1, cfg.vocab_size, 700).tolist()
+    out["snapshot_fp"] = _snapshot_roundtrip(eng.batcher, snap_prompt,
+                                             "(a) fp snapshot")
+    del eng
+    _release()
+
+    class SpecFault(FaultInjector):
+        """Fails the first speculative verify (transient), after the
+        draft has run; notes row 18's suffix launches at that moment."""
+        at_fault = None
+        rids = None
+
+        def check(self, mode, rids, probe=False):
+            if mode == "spec_verify" and self.at_fault is None:
+                self.at_fault = rpa.launches_suffix
+                self.rids = list(rids)
+                raise InjectedFault("injected verify fault", transient=True)
+            super().check(mode, rids, probe=probe)
+
+    sinj = SpecFault()
+    eng = ServingEngine(params, cfg, max_new_tokens=96, kv_dtype="int8",
+                        speculative=True, spec_k=4, fault_injector=sinj,
+                        start=False, **ROBUST_KW)
+    try:
+        t0 = time.perf_counter()
+        graphs = eng.warmup()
+        out["spec_warmup_graphs"], out["spec_warmup_s"] = graphs, \
+            time.perf_counter() - t0
+        cc = eng.batcher.compile_count
+        prompts = _robust_prompts(cfg, SEED + 23)
+        _zero_serve_counters()
+        t0 = time.monotonic()
+        reqs = [eng.submit(p, max_new_tokens=96) for p in prompts]
+        eng.start()
+        for r in reqs:
+            r.wait(timeout=600)
+        wall = time.monotonic() - t0
+        n = _read_serve_counters()
+        for k, v in n.items():
+            total[k] += v
+        _require_finished(reqs, 96, V, "(a) spec")
+        _require(sinj.at_fault is not None and sinj.at_fault >= 1,
+                 f"(a) spec: the suffix option did not launch before the "
+                 f"fault ({sinj.at_fault})")
+        # every request still decoding rides a spec tick (none runs while
+        # a prefill is pending): each rider re-admits with speculation
+        # off, so no spec tick can follow
+        _require(sinj.rids and sum(r.spec_opt_out for r in reqs) ==
+                 len(sinj.rids),
+                 f"(a) spec: {len(sinj.rids)} rode the failed tick, opt-outs "
+                 f"{[r.spec_opt_out for r in reqs]}")
+        _require(n["ragged_paged_attention_suffix"] == sinj.at_fault,
+                 f"(a) spec: the suffix option launched after the fault: "
+                 f"{sinj.at_fault} -> {n['ragged_paged_attention_suffix']}")
+        _require_launched(n, ("flash_attention_fwd",
+                              "ragged_paged_attention_int8"), "(a) spec")
+        _require(eng.batcher.compile_count == cc,
+                 "(a) spec: the quarantine captured")
+        _require(eng.drain(timeout=60) and
+                 eng.snapshot()["gauges"]["kv_blocks_in_use"] == 0,
+                 "(a) spec: the pool did not drain")
+        out["spec"] = {**_robust_rates(reqs, wall), "launches": n,
+                       "suffix_launches_at_fault": sinj.at_fault,
+                       "riders_of_failed_tick": len(sinj.rids),
+                       "retries": [r.retries for r in reqs]}
+    finally:
+        _require(eng.shutdown(timeout=120), "(a) spec shutdown not clean")
+    out["snapshot_int8"] = _snapshot_roundtrip(eng.batcher, snap_prompt,
+                                               "(a) int8 snapshot")
+    del eng
+    _release()
+    return out
+
+
+def _robust_disaggregated(params, cfg, clean_prompts, clean_tokens, total):
+    """(b) Router(disaggregated=True): a prefill-role and a decode-role
+    replica serve the clean burst's prompts; every request migrates once
+    and the decode replica runs no prefill. Tokens are compared with the
+    monolithic engine's (the clean burst): the match rate is reported."""
+    from paddle_tpu_torch.serving import Router
+    r = Router(params, cfg, replicas=2, disaggregated=True,
+               per_replica=[{"role": "prefill"}, {"role": "decode"}],
+               max_new_tokens=32, start=False, **ROBUST_KW)
+    try:
+        t0 = time.perf_counter()
+        graphs = r.warmup()
+        warm_s = time.perf_counter() - t0
+        r.start()
+        streamed = [[] for _ in clean_prompts]
+        reqs, wall, n = _robust_burst(
+            r.submit, clean_prompts, 32, total,
+            on_token=lambda i: streamed[i].append)
+        _require_finished(reqs, 32, cfg.vocab_size, "(b)")
+        pre, dec = r.engines
+        h = r.health()
+        _require(h["migrations"] == len(reqs),
+                 f"(b): {h['migrations']} migrations for {len(reqs)}")
+        _require(dec.batcher.prefill_chunk_calls == 0 and
+                 dec.batcher.imported_kv == len(reqs) and
+                 pre.batcher.exported_kv == len(reqs),
+                 f"(b): decode prefill chunks "
+                 f"{dec.batcher.prefill_chunk_calls}, imported "
+                 f"{dec.batcher.imported_kv}, exported "
+                 f"{pre.batcher.exported_kv}")
+        _require(streamed == [list(q.tokens) for q in reqs],
+                 "(b): a client stream re-emitted or lost a token")
+        _require_launched(n, ("flash_attention_fwd",
+                              "ragged_paged_attention"), "(b)")
+        pairs = [(x, y) for a, b in zip(clean_tokens, reqs)
+                 for x, y in zip(a, b.tokens)]
+
+        handoffs = [e["handoff_s"] for e in r.snapshot()["migration_log"]]
+        res = {**_robust_rates(reqs, wall), "launches": n,
+               "warmup_graphs": graphs, "warmup_s": warm_s,
+               "migrations": h["migrations"],
+               "migration_mib": h["migration_bytes"] / 2 ** 20,
+               "handoff_s_p50": float(np.percentile(handoffs, 50)),
+               "decode_prefill_chunks": dec.batcher.prefill_chunk_calls,
+               "match_rate_vs_monolithic":
+                   sum(x == y for x, y in pairs) / len(pairs),
+               "first_divergence_vs_monolithic":
+                   _first_divergence(clean_tokens, reqs),
+               "bit_identical_to_monolithic":
+                   [list(q.tokens) for q in reqs] == clean_tokens}
+    finally:
+        _require(r.shutdown(timeout=120), "(b) shutdown was not clean")
+    del r
+    _release()
+    return res
+
+
+def _sse(host, port, prompt, budget):
+    """POST /v1/stream; returns (routed replica, tokens, final event)."""
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    conn.request("POST", "/v1/stream",
+                 json.dumps({"prompt": prompt, "max_new_tokens": budget}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    _require(resp.status == 200, f"(d) /v1/stream answered {resp.status}")
+    events, cur = [], None
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        line = line.decode().rstrip("\n")
+        if line.startswith("event: "):
+            cur = line[7:]
+        elif line.startswith("data: "):
+            events.append((cur or "data", json.loads(line[6:])))
+            cur = None
+    conn.close()
+    _require(events and events[0][0] == "routed" and events[-1][0] ==
+             "done", f"(d) SSE events {events[:1]} ... {events[-1:]}")
+    return (events[0][1]["replica"],
+            [d["token"] for k, d in events if k == "data"], events[-1][1])
+
+
+def _http(host, port, method, path, payload=None):
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    try:
+        conn.request(method, path,
+                     None if payload is None else json.dumps(payload),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _robust_failover(params, cfg, clean_tokens, total):
+    """(c) Router(replicas=2, auto_restart=True), both replicas warmed,
+    the watchdog on: a finite hang wedges r0 mid-burst, the watchdog
+    trips, r0's requests continue on r1 (each client stream before the
+    failover a strict prefix of its final one), a second wave lands on r1
+    while the supervisor rebuilds r0 — its warmup capturing graphs while
+    r1 replays its own — and r0 passes the readiness probe and rejoins.
+    (d) Then an HttpFrontend on 127.0.0.1:0 over the same router."""
+    from paddle_tpu_torch.serving import FaultInjector, HttpFrontend, Router
+
+    class Stamped(FaultInjector):
+        """Notes when each real device call reaches the gate."""
+
+        def __init__(self, seed):
+            super().__init__(seed)
+            self.stamps = []
+
+        def check(self, mode, rids, probe=False):
+            if not probe:
+                self.stamps.append(time.monotonic())
+            super().check(mode, rids, probe=probe)
+
+    injs = [Stamped(SEED), Stamped(SEED + 1)]
+    r = Router(params, cfg, replicas=2, auto_restart=True,
+               watchdog_s=ROBUST_WATCHDOG_S, max_new_tokens=32,
+               per_replica=[{"fault_injector": injs[0]},
+                            {"fault_injector": injs[1]}],
+               restart_opts={"poll_s": 0.05, "probe_timeout_s": 300.0},
+               start=False, **ROBUST_KW)
+    out = {}
+    fe = None
+    # the respawn's stages, from the supervisor's own calls: the replica
+    # built (the trip to here is detection and teardown), its warmup
+    build, stamps = r._build_replica, {}
+
+    def timed_build(i):
+        stamps["build_start"] = time.monotonic()
+        eng = build(i)
+        warm = eng.warmup
+
+        def timed_warmup():
+            t = time.monotonic()
+            n = warm()
+            stamps["warmup"] = (t, time.monotonic())
+            return n
+        eng.warmup = timed_warmup
+        return eng
+    r._build_replica = timed_build
+    try:
+        t0 = time.perf_counter()
+        out["warmup_graphs"] = r.warmup()
+        out["warmup_s"] = time.perf_counter() - t0
+        r.start()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = _memory()
+        prompts = _robust_prompts(cfg, SEED + 20)
+        ready = threading.Event()
+        armed = []
+        streamed = [[] for _ in prompts]
+        handles = []
+
+        def on_token(i):
+            def cb(tok):
+                streamed[i].append(tok)
+                if not armed and ready.wait(30) and \
+                        handles[i].replica_id == "r0":
+                    armed.append(injs[0].stats()["calls"] + 1)
+                    injs[0].hang_on_step(armed[0], ROBUST_HANG_S)
+            return cb
+
+        def submit(p, **kw):
+            q = r.submit(p, **kw)
+            handles.append(q)
+            return q
+
+        _zero_serve_counters()
+        t_burst = time.monotonic()
+        for i, p in enumerate(prompts):
+            submit(p, max_new_tokens=32, on_token=on_token(i))
+        ready.set()
+        old_r0 = r.engines[0]
+        deadline = time.monotonic() + 300
+        while old_r0.health()["status"] != "UNHEALTHY":
+            _require(time.monotonic() < deadline, "(c) r0 never tripped")
+            time.sleep(0.005)
+        t_trip = time.monotonic()
+        detect_s = t_trip - injs[0].stamps[armed[0] - 1]
+        tok_r1 = r.engines[1].metrics.counter("tokens_generated").value
+        # a second wave while r0 is rebuilt: only r1 can take it
+        wave = [submit(p, max_new_tokens=32) for p in
+                _robust_prompts(cfg, SEED + 24, n=4)]
+        while not (r.health()["replica_restarts"] >= 1 and
+                   r.health()["serving_replicas"] == 2):
+            _require(time.monotonic() < deadline, "(c) r0 never rejoined")
+            time.sleep(0.01)
+        t_rejoin = time.monotonic()
+        served_meanwhile = r.engines[1].metrics.counter(
+            "tokens_generated").value - tok_r1
+        for q in handles:
+            _require(q.wait(timeout=600), "(c) a request never ended")
+        wall = time.monotonic() - t_burst
+        n = _read_serve_counters()
+        for k, v in n.items():
+            total[k] += v
+        peak = torch.cuda.max_memory_allocated()
+        _require_finished(handles, 32, cfg.vocab_size, "(c)")
+        h = r.health()
+        snap = r.snapshot()
+        fo = snap["failover_log"]
+        _require(h["failovers"] >= 1 and fo, f"(c) no failover: {h}")
+        moved = {e["router_rid"]: e for e in fo}
+        for q in handles:
+            if q.request_id in moved:
+                kept = moved[q.request_id]["tokens_kept"]
+                _require(0 <= kept < len(q.tokens),
+                         f"(c) kept {kept} of {len(q.tokens)}")
+        _require(streamed == [list(q.tokens) for q in handles[:8]],
+                 "(c) a client stream re-emitted or lost a token")
+        _require(r.engines[0] is not old_r0, "(c) r0 was not respawned")
+        sup = h["supervisor"]["r0"]
+        _require(sup["state"] == "SERVING" and sup["restarts"] == 1,
+                 f"(c) supervisor: {sup}")
+        new_r0 = r.engines[0]
+        _require(new_r0.batcher.compile_count == sup["warm_compile_count"],
+                 "(c) the respawned replica captured after readiness")
+        _require_launched(n, ("flash_attention_fwd",
+                              "ragged_paged_attention"), "(c)")
+        pairs = [(x, y) for a, b in zip(clean_tokens, handles[:8])
+                 for x, y in zip(a, b.tokens)]
+        post = [r.submit(p[:64], max_new_tokens=8)
+                for p in _robust_prompts(cfg, SEED + 25, n=4)]
+        for q in post:
+            _require(q.result(timeout=300), "(c) post-rejoin request")
+        _require("r0" in {q.replica_id for q in post},
+                 f"(c) the respawned r0 took no traffic: "
+                 f"{[q.replica_id for q in post]}")
+        out.update(_robust_rates(handles, wall))
+        out.update({
+            "launches": n, "watchdog_s": ROBUST_WATCHDOG_S,
+            "hang_s": ROBUST_HANG_S, "detect_s": detect_s,
+            "respawn_s": t_rejoin - t_trip,
+            "respawn_stages_s": {
+                "trip_to_build": stamps["build_start"] - t_trip,
+                "build": stamps["warmup"][0] - stamps["build_start"],
+                "warmup": stamps["warmup"][1] - stamps["warmup"][0],
+                "probe_and_rejoin": t_rejoin - stamps["warmup"][1]},
+            "restart_failures": sup["restart_failures"],
+            "r1_tokens_during_respawn": served_meanwhile,
+            "failovers": h["failovers"],
+            "failover_via": sorted({e.get("via", "") for e in fo}),
+            "tokens_kept": [e["tokens_kept"] for e in fo],
+            "peak_memory_bytes": peak, "memory_before_burst": mem0,
+            "respawn_warm_compile_count": sup["warm_compile_count"],
+            "match_rate_vs_monolithic":
+                sum(x == y for x, y in pairs) / len(pairs),
+            "first_divergence_vs_monolithic":
+                _first_divergence(clean_tokens, handles[:8])})
+        # (d) the HTTP frontend over the same fleet
+        fe = HttpFrontend(r, host="127.0.0.1", port=0,
+                          shutdown_router=False)
+        host, port = fe.start()
+        rng = np.random.RandomState(SEED + 26)
+        short = [rng.randint(1, cfg.vocab_size, 12).tolist()
+                 for _ in range(2)]
+        gens = []
+        for p in short:
+            st, body = _http(host, port, "POST", "/v1/generate",
+                             {"prompt": p, "max_new_tokens": 16})
+            _require(st == 200, f"(d) /v1/generate answered {st}: {body}")
+            gens.append(json.loads(body))
+            _require(len(gens[-1]["tokens"]) == 16,
+                     f"(d) generate: {gens[-1]}")
+        for attempt in range(4):
+            rep, toks, final = _sse(host, port, short[0], 16)
+            if rep == gens[0]["replica"]:
+                break
+        _require(rep == gens[0]["replica"] and toks == gens[0]["tokens"],
+                 f"(d) SSE on {rep}: {toks}; generate on "
+                 f"{gens[0]['replica']}: {gens[0]['tokens']}")
+        st, body = _http(host, port, "GET", "/health")
+        _require(st == 200, f"(d) /health answered {st}")
+        st, metrics = _http(host, port, "GET", "/metrics")
+        text = metrics.decode()
+        _require(st == 200 and 'replica="r0"' in text and
+                 'replica="r1"' in text, "(d) /metrics lacks the labels")
+        out["frontend"] = {"generate_replicas": [g["replica"] for g in gens],
+                           "sse_replica": rep, "sse_attempts": attempt + 1,
+                           "sse_equals_generate": True,
+                           "health_status": json.loads(body)["status"],
+                           "metrics_bytes": len(metrics)}
+    finally:
+        if fe is not None:
+            fe.shutdown()
+        clean = r.shutdown(timeout=120)
+    _require(clean, "(c) shutdown was not clean")
+    del r
+    _release()
+    return out
+
+
+def phase_serve_robust(layers: int = 32):
+    """Serving robustness on one card at Llama-3-8B widths (random bf16
+    weights from the seed, `layers` layers, one weight tree shared by
+    every engine and replica): (a) quarantine — a rid-scoped poison fails
+    only its request, a step-scoped transient convicts nobody and its
+    riders retry, a failed speculative verify (int8 KV, chain of 4) turns
+    speculation off for its riders; (b) disaggregated prefill and decode
+    replicas with KV snapshot migration, and the snapshot round trip over
+    the fp and the int8 pool; (c) failover and respawn after a watchdog
+    trip; (d) the HTTP frontend. Every hard check raises."""
+    from paddle_tpu_torch.nlp import llama
+    t_phase = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_8b(num_hidden_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device="cuda")
+    _release()
+    total = {k: 0 for k in _counter_objs()}
+    res = {"phase": "serve_robust", "layers": layers,
+           "ladder": list(ROBUST_KW["prefill_buckets"])}
+    t0 = time.perf_counter()
+    res["quarantine"] = _robust_quarantine(params, cfg, total)
+    res["quarantine_s"] = time.perf_counter() - t0
+    clean_tokens = res["quarantine"].pop("clean_tokens")
+    _emit({"phase": "serve_robust.quarantine", **res["quarantine"]})
+    t0 = time.perf_counter()
+    res["disaggregated"] = _robust_disaggregated(
+        params, cfg, _robust_prompts(cfg, SEED + 20), clean_tokens, total)
+    res["disaggregated_s"] = time.perf_counter() - t0
+    _emit({"phase": "serve_robust.disaggregated", **res["disaggregated"]})
+    t0 = time.perf_counter()
+    res["failover"] = _robust_failover(params, cfg, clean_tokens, total)
+    res["failover_s"] = time.perf_counter() - t0
+    del params
+    _release()
+    res["launches"] = total
+    _require_launched(total, tuple(total), "serve_robust")
+    res["seconds"] = time.perf_counter() - t_phase
+    res["nvidia_smi"] = _smi_line()
     _emit(res)
     return res
 
@@ -4056,7 +4753,7 @@ _KERNELS = {
         # S=4096 and 8192 + LSE; train05b: B=16 S=2048 H=16 + LSE
         "rows": [1],
         "main": {"serve": 1, "serve_prefix": 1, "serve_quant_spec": 1,
-                 "train": 3,
+                 "serve_robust": 1, "train": 3,
                  "train_moe": 4, "eager": 5,
                  "eager_llama": 6, "ernie": 7, "dit": 12, "generate": 14,
                  "long8k": 15, "layer8b_4k": 16, "layer8b_8k": 17,
@@ -4066,7 +4763,8 @@ _KERNELS = {
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
         "rows": [18],
         # the decode case; its count takes every launch, of any option
-        "main": {"serve": 0, "serve_prefix": 0, "serve_quant_spec": 0}},
+        "main": {"serve": 0, "serve_prefix": 0, "serve_quant_spec": 0,
+                 "serve_robust": 0}},
     # row 18's two options, counted apart: `quantized=True` (int8 pools)
     # held at the int8 decode batch, `suffix=True` (the speculative slab)
     # at the chain verify
@@ -4074,12 +4772,13 @@ _KERNELS = {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
         "option": "quantized=True", "rows": [18],
-        "main": {"serve_quant_spec": 0, "serve_prefix": 0}},
+        "main": {"serve_quant_spec": 0, "serve_prefix": 0,
+                 "serve_robust": 0}},
     "ragged_paged_attention_suffix": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
         "option": "suffix=True", "rows": [18],
-        "main": {"serve_quant_spec": 0}},
+        "main": {"serve_quant_spec": 0, "serve_robust": 0}},
     "flash_attention_bwd": {
         "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:277",
@@ -4224,6 +4923,8 @@ def main() -> int:
     serve_prefix = phase_serve_prefix()
     quant_spec = phase_serve_quant_spec()
     _release()
+    robust = phase_serve_robust()
+    _release()
     train = phase_train(peaks)
     phase_grad_check()
     train_moe = phase_train_moe(peaks)
@@ -4242,7 +4943,8 @@ def main() -> int:
     layer8b = phase_layer8b(peaks)
     train05b = phase_train05b(peaks)
     runs = {"serve": serve, "serve_prefix": serve_prefix,
-            "serve_quant_spec": quant_spec, "train": train,
+            "serve_quant_spec": quant_spec, "serve_robust": robust,
+            "train": train,
             "train_moe": train_moe,
             "eager": eager, "eager_llama": eager_llama, "ernie": ernie,
             "dit": dit, "generate": generate, "long8k": long8k, **layer8b,

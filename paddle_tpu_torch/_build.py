@@ -11,6 +11,16 @@ returns a nonzero `cudaError_t`.
 
 `build_all()` starts one `nvcc` per source at once and waits for all of
 them, so the build takes as long as the slowest source.
+
+LAUNCH COUNTERS. Each wrapper keeps its counts as attributes of itself
+(`flash_attention_fwd.launches`) and adds to them through `count` where
+it launches its kernel. A CUDA graph's capture records launches without
+running them: while a thread is inside `capture_tally()`, its counts go
+to the tally that yields and the shared counters are left alone, so a
+capture on one thread never takes back another thread's launches.
+`add_counts` puts a replay's recorded launches onto the shared counters.
+The shared counters change under one lock, so threads that launch or
+replay at once lose no update.
 """
 from __future__ import annotations
 
@@ -20,8 +30,9 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
@@ -34,6 +45,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 # ptxas register/shared-memory report per source, from the last build
 build_log: Dict[str, str] = {}
+_count_lock = threading.Lock()
+_capturing = threading.local()
 
 
 def sources() -> List[str]:
@@ -137,3 +150,33 @@ def check(err: int, what: str) -> None:
     """Raise when a C entry point returned a nonzero cudaError_t."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def count(wrapper, attr: str = "launches", n: int = 1) -> None:
+    """Add `n` to `wrapper.<attr>`, or to this thread's capture tally
+    while it is inside `capture_tally()`."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        tally[(wrapper, attr)] = tally.get((wrapper, attr), 0) + n
+        return
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)
+
+
+def add_counts(tally: Dict[Tuple[object, str], int]) -> None:
+    """Add a tally from `capture_tally()` to the shared counters."""
+    with _count_lock:
+        for (wrapper, attr), n in tally.items():
+            setattr(wrapper, attr, getattr(wrapper, attr) + n)
+
+
+@contextmanager
+def capture_tally() -> Iterator[Dict[Tuple[object, str], int]]:
+    """Count this thread's launches into the dict this yields, not into
+    the shared counters, until the block ends."""
+    tally: Dict[Tuple[object, str], int] = {}
+    _capturing.tally = tally
+    try:
+        yield tally
+    finally:
+        _capturing.tally = None

@@ -147,7 +147,7 @@ def adaln_fwd(x, shift, scale, epsilon: float = EPS):
                  mu.data_ptr(), rstd.data_ptr(), B, N, D, float(epsilon),
                  int(x.dtype == torch.bfloat16), stream)
     _build.check(err, "adaln_fwd")
-    adaln_fwd.launches += 1
+    _build.count(adaln_fwd)
     return out, mu, rstd
 
 
@@ -200,7 +200,7 @@ def adaln_bwd(x, scale, mu, rstd, dy):
                  int(sc.dtype == torch.bfloat16), plan.warps, plan.vpt,
                  plan.blocks, plan.fold_cols, stream)
     _build.check(err, "adaln_bwd")
-    adaln_bwd.launches += 1
+    _build.count(adaln_bwd)
     return dx, dsh, dsc
 
 

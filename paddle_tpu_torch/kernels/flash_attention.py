@@ -316,7 +316,7 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
                  None if km is None else km.data_ptr(), B, Sq, Sk, H, KV,
                  hd, maps, strides, float(scale), int(causal), stream)
     _build.check(err, "flash_fwd_bf16")
-    flash_attention_fwd.launches += 1
+    _build.count(flash_attention_fwd)
     return (out, lse) if return_lse else out
 
 
@@ -403,7 +403,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None,
                  None if km is None else km.data_ptr(), B, Sq, Sk, H, KV,
                  hd, maps, strides, float(scale), int(causal), stream)
     _build.check(err, "flash_bwd_bf16")
-    flash_attention_bwd.launches += 1
+    _build.count(flash_attention_bwd)
     return dq, dk, dv
 
 

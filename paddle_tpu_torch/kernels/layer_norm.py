@@ -148,7 +148,7 @@ def layer_norm_fwd(x, weight, bias, epsilon: float = 1e-5):
                  mu.data_ptr(), rstd.data_ptr(), rows, d, float(epsilon),
                  stream)
     _build.check(err, "ln_fwd")
-    layer_norm_fwd.launches += 1
+    _build.count(layer_norm_fwd)
     return out, mu, rstd
 
 
@@ -195,7 +195,7 @@ def layer_norm_bwd(x, weight, mu, rstd, dy, epsilon: float = 1e-5):
                  partials.data_ptr(), rows, d, plan.warps, plan.vpt,
                  plan.blocks, plan.fold_cols, stream)
     _build.check(err, "ln_bwd")
-    layer_norm_bwd.launches += 1
+    _build.count(layer_norm_bwd)
     return dx, dw, db
 
 

@@ -184,7 +184,7 @@ def gather_wsum(src, idx, w):
         err = fn(src.data_ptr(), idx.data_ptr(), w.data_ptr(),
                  out.data_ptr(), B, N, M, k, D, stream)
     _build.check(err, "gather_wsum_bf16")
-    gather_wsum.launches += 1
+    _build.count(gather_wsum)
     return out
 
 
@@ -229,7 +229,7 @@ def gather_scale_dot(src, idx, scale, other):
                  other.data_ptr(), out.data_ptr(), dot.data_ptr(), B, N, M,
                  D, stream)
     _build.check(err, "gather_scale_dot_bf16")
-    gather_scale_dot.launches += 1
+    _build.count(gather_scale_dot)
     return out, dot
 
 
@@ -263,7 +263,7 @@ def gather_rows_kernel(src, idx):
         err = fn(src.data_ptr(), idx.data_ptr(), out.data_ptr(), B, N, M, D,
                  stream)
     _build.check(err, "gather_rows_bf16")
-    gather_rows_kernel.launches += 1
+    _build.count(gather_rows_kernel)
     return out
 
 
@@ -450,7 +450,7 @@ def gather_mlp_kernel(src, idx, wg, wu):
                  T, E, M, D, F, maps, scratch.data_ptr(), plan.grid,
                  stream)
     _build.check(err, "gather_mlp_bf16")
-    gather_mlp_kernel.launches += 1
+    _build.count(gather_mlp_kernel)
     return g, u, xin
 
 

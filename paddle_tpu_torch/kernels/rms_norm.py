@@ -129,7 +129,7 @@ def rms_norm_fwd(x, weight, epsilon: float = 1e-6):
                  rstd.data_ptr(), rows, d, float(epsilon),
                  int(w.dtype == torch.bfloat16), stream)
     _build.check(err, "rms_fwd_bf16")
-    rms_norm_fwd.launches += 1
+    _build.count(rms_norm_fwd)
     return out, rstd
 
 
@@ -176,7 +176,7 @@ def rms_norm_bwd(x, weight, rstd, dy, epsilon: float = 1e-6):
                  w_bf16, plan.warps, plan.vpt, plan.blocks, plan.fold_cols,
                  stream)
     _build.check(err, "rms_bwd_bf16")
-    rms_norm_bwd.launches += 1
+    _build.count(rms_norm_bwd)
     return dx, dw if dw.dtype == weight.dtype else dw.to(weight.dtype)
 
 
@@ -241,7 +241,7 @@ def rms_norm_fused(x, weight=None, epsilon: float = 1e-6):
         err = fn(x.data_ptr(), None if w is None else w.data_ptr(),
                  out.data_ptr(), rows, d, float(epsilon), stream)
     _build.check(err, "rms_fused")
-    rms_norm_fused.launches += 1
+    _build.count(rms_norm_fused)
     return out
 
 

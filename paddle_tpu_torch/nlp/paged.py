@@ -9,8 +9,9 @@ and chunked prefill, fused prefill+decode steps, lock-step decode
 chunks, prefix caching with copy-on-write, int8 weights
 (`weight_dtype`), the int8 KV pool (`kv_dtype`), self-speculative
 decoding (chain and tree drafts, verify-then-commit), the trace hooks,
-the flight recorder and the sampled step profiler. The tensor-parallel
-mesh and KV export/import are later slices.
+the flight recorder, the sampled step profiler, the fault-injection
+gate at every device-call boundary, the quarantine's probes and the
+per-request KV export/import. The tensor-parallel mesh is a later slice.
 
 Design, as in the JAX package:
   * the pool is one [L, N_blocks, block_size, KV, hd] tensor pair shared
@@ -44,7 +45,12 @@ Where PyTorch differs:
   * the int8 write rescales the blocks it touches unconditionally (an
     exact identity where no scale grew) where JAX skips the rescale by a
     `lax.cond` on any growth: the port's test would be a host sync in
-    every layer of every step.
+    every layer of every step;
+  * `import_kv` writes the snapshot into the live pool IN PLACE (the
+    captured graphs hold the pool's storage; JAX builds a new pool), and
+    the quarantine's probes, which in JAX discard a functional result,
+    run the graphs that write the pool and then put back every block
+    they touched, so a probe leaves the pool as it found it.
 
 Attention backends: on CUDA the batcher and `paged_generate` run the
 CUDA kernels (flash forward for cold prefill, ragged paged attention
@@ -65,6 +71,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from .. import _build
 from .._device import resolve_device
 from ..quantization import kv as kvq
 from ..serving.cache import PrefixCacheIndex
@@ -650,15 +657,25 @@ def paged_generate(params, tokens, lengths, cfg: llama.LlamaConfig,
     return torch.stack(out, dim=1), allocator, owned
 
 
-# the Python launch counters of the kernels a batcher step reaches
-_COUNTERS = ((flash_attention_fwd, "launches"),
-             (ragged_paged_attention, "launches"),
-             (ragged_paged_attention, "launches_int8"),
-             (ragged_paged_attention, "launches_suffix"))
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A pool slice as the host array a KVSnapshot carries: bf16 as its
+    uint16 bit patterns (numpy has no bfloat16), anything else as
+    itself."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
 
 
-def _read_counters() -> List[int]:
-    return [getattr(o, a) for o, a in _COUNTERS]
+def _from_host(a, pool_dtype: str, dtype: torch.dtype, device):
+    """The inverse of `_to_host` for a snapshot whose fingerprint names
+    `pool_dtype`: bf16 bit patterns (uint16, or a JAX snapshot's
+    ml_dtypes array, viewed) back to a bf16 tensor on `device`."""
+    from ..serving.kvtransfer import host_bits
+    a = np.ascontiguousarray(host_bits(a, pool_dtype))
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
 class _StepGraph:
@@ -688,10 +705,11 @@ class _StepGraph:
         the batcher's state). The steps return tokens, not logits, so
         no graph holds a [G, Pb, V] logits buffer.
       * LAUNCH COUNTERS. The kernel wrappers count when they run, and a
-        replay runs none. The entry records how far each counter moved
-        while the capture recorded the step's launches, takes that back
-        (the capture itself launched nothing), and adds it at every
-        replay, so the counters stay true.
+        replay runs none. The capture counts into a tally of its own
+        thread (`_build.capture_tally`), which other threads' launches
+        and replays never touch, and every replay adds that tally to
+        the shared counters (`_build.add_counts`), so the counters stay
+        true while another batcher captures or replays at once.
       * NO FALLBACK. A capture that fails raises; no step runs eagerly
         in place of its graph.
     """
@@ -703,7 +721,7 @@ class _StepGraph:
         self.graph = None
         self.static: Dict[str, torch.Tensor] = {}
         self.out = None
-        self.deltas: List[int] = []
+        self.deltas: Dict[Tuple[object, str], int] = {}
         if graphed:
             self._capture(idle, pool)
 
@@ -715,7 +733,6 @@ class _StepGraph:
         with torch.cuda.stream(side):
             self.fn(**self.static)
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = _read_counters()
         graph = torch.cuda.CUDAGraph()
         # OTHER THREADS run while a lazy capture is under way (request
         # submitters, a caller's own work on the card). "global" would
@@ -724,13 +741,11 @@ class _StepGraph:
         # a copy from pageable host memory) made by the capturing thread
         # itself, which is what would break the graph; "relaxed" would
         # let that through unnoticed.
-        with torch.cuda.graph(graph, pool=pool,
-                              capture_error_mode="thread_local"):
+        with _build.capture_tally() as tally, \
+                torch.cuda.graph(graph, pool=pool,
+                                 capture_error_mode="thread_local"):
             out = self.fn(**self.static)
-        after = _read_counters()
-        self.deltas = [a - b for a, b in zip(after, before)]
-        for (obj, attr), b in zip(_COUNTERS, before):
-            setattr(obj, attr, b)
+        self.deltas = tally
         self.graph, self.out = graph, out
 
     @property
@@ -743,8 +758,7 @@ class _StepGraph:
         for name, t in inputs.items():
             self.static[name].copy_(t)
         self.graph.replay()
-        for (obj, attr), d in zip(_COUNTERS, self.deltas):
-            setattr(obj, attr, getattr(obj, attr) + d)
+        _build.add_counts(self.deltas)
         return self.out
 
 
@@ -841,7 +855,7 @@ class ContinuousBatcher:
                  spec_draft_w8: bool = False,
                  trace=None, flight_recorder_cap: int = 64,
                  profile_sample_every: int = 64,
-                 replica_id: str = "r0",
+                 fault_injector=None, replica_id: str = "r0",
                  device="cuda", _graphed: bool = True):
         self.device = resolve_device(device)
         if params["embed_tokens"].device.type != self.device.type:
@@ -850,6 +864,15 @@ class ContinuousBatcher:
                 f"batcher on {self.device}: load them with "
                 f"llama.params_from_numpy(..., device=...)")
         self.replica_id = str(replica_id)
+        # chaos harness: an optional serving.faults.FaultInjector consulted
+        # at every device-call boundary (`_gate`) — fail / hang / pass,
+        # deterministically. The attach notification lets an injector
+        # that follows a replica slot across supervisor respawns re-arm
+        # per-incarnation rules (any object with a check() works here)
+        self._fault = fault_injector
+        if fault_injector is not None and hasattr(fault_injector,
+                                                  "attach"):
+            fault_injector.attach(replica_id)
         self.weight_dtype = "fp" if weight_dtype in (None, "fp") \
             else weight_dtype
         if self.weight_dtype not in ("fp", "int8"):
@@ -1011,6 +1034,10 @@ class ContinuousBatcher:
         self._next_rid = 0
         self._delivered: Dict[int, int] = {}   # rid -> tokens handed out
         self._just_finished: List[int] = []
+        # KV transfer (serving/kvtransfer.py holds the container)
+        self.exported_kv = 0
+        self.imported_kv = 0
+        self.imported_kv_bytes = 0
 
     # -- public surface ----------------------------------------------------
     def submit(self, tokens, stop_token_id: Optional[int] = None,
@@ -1223,6 +1250,215 @@ class ContinuousBatcher:
             self._trace_emit(v.rid, "requeued", reason="poisoned_sibling")
         self.queue[:0] = [(v.rid, v.toks, v.stop, v.mn) for v in victims]
 
+    # -- KV transfer (serving/kvtransfer.py holds the container) ----------
+    def kv_fingerprint(self) -> Dict[str, Any]:
+        """Model/pool-shape identity a KVSnapshot must match to be
+        importable here — kvtransfer.check_compatible compares these key
+        for key. `pool_dtype` carries the JAX package's dtype names
+        ("bfloat16", "float32", "int8"), so snapshots cross between the
+        two packages."""
+        return {
+            "num_layers": int(self.cfg.num_hidden_layers),
+            "num_key_value_heads": int(self.cfg.num_key_value_heads),
+            "head_dim": int(self.cfg.head_dim),
+            "block_size": self.bs,
+            "kv_dtype": self.kv_dtype,
+            "pool_dtype": str(self.cache.k.dtype).replace("torch.", ""),
+        }
+
+    def export_kv(self, rid: int):
+        """Snapshot an in-flight request's paged KV into a portable host
+        container (serving.kvtransfer.KVSnapshot): one gather over
+        exactly the blocks its chain has written — never the whole pool
+        — copied to the host, plus the matching int8 scale entries and
+        the host bookkeeping (tokens, remaining budget, stop id) an
+        `import_kv` needs to resume decode elsewhere. A bf16 pool's
+        blocks travel as their uint16 bit patterns.
+
+        Only an ACTIVE decode slot is exportable: queued/pending requests
+        have no KV worth moving, and finished ones have released their
+        blocks — ValueError for both. Migration boundary, not the decode
+        hot path: the host copy IS the transfer."""
+        slot = None
+        for s in range(self.B):
+            if self.active[s] and self.slot_req[s] == rid:
+                slot = s
+                break
+        if slot is None:
+            raise ValueError(
+                f"request {rid} holds no active decode slot — only "
+                f"in-flight decode state is exportable")
+        gen = list(self.outputs.get(rid, []))
+        prompt = list(self.slot_tokens[slot] or [])
+        # the last emitted token's KV is not written yet (decode writes
+        # token t's KV while producing t+1) — the same arithmetic _retire
+        # uses when registering the prefix
+        written = len(prompt) + len(gen) - 1
+        if written != int(self.cache.lengths[slot]):
+            raise RuntimeError(
+                f"slot {slot} device length diverged from host "
+                f"bookkeeping — mid-commit state is not exportable")
+        nw = -(-written // self.bs)
+        chain = list(self.slot_blocks[slot][:nw])
+        c = self.cache
+        idx = torch.tensor(chain, dtype=torch.long, device=self.device)
+        host = [_to_host(c.k.index_select(1, idx)),
+                _to_host(c.v.index_select(1, idx))]
+        if c.k_scale is not None:
+            host += [_to_host(c.k_scale.index_select(1, idx)),
+                     _to_host(c.v_scale.index_select(1, idx))]
+        ks, vs = (host[2], host[3]) if len(host) == 4 else (None, None)
+        from ..serving.kvtransfer import KVSnapshot
+        snap = KVSnapshot(
+            k=host[0], v=host[1], k_scale=ks, v_scale=vs,
+            tokens=prompt + gen, prompt_len=len(prompt),
+            budget=int(self.budget[slot]),
+            stop_token_id=int(self.stop[slot]),
+            tail_valid=written - (nw - 1) * self.bs,
+            fingerprint=self.kv_fingerprint(),
+            src_blocks=chain, src_replica=self.replica_id)
+        self.exported_kv += 1
+        self._trace_emit(rid, "exported", slot=slot, blocks=nw,
+                         bytes=snap.nbytes, tokens=len(snap.tokens))
+        return snap
+
+    def import_blocks_needed(self, snap) -> int:
+        """Pool blocks `import_kv(snap)` will draw — the head-of-line
+        check an engine's import queue runs before popping: written + the
+        unwritten last token + the remaining budget, exactly P + max_new
+        at the source."""
+        return -(-(len(snap.tokens) + int(snap.budget)) // self.bs)
+
+    def import_kv(self, snap, speculative: bool = False,
+                  on_rid=None) -> int:
+        """Adopt a KVSnapshot: allocate a fresh chain, write the block
+        codes AND their int8 scales into the live pool IN PLACE (every
+        captured graph holds the pool's storage, so the pool is never
+        rebound; the unwritten tail blocks get the 0.0 never-written
+        scale sentinel, like a fresh admission's), register the written
+        full blocks in the prefix index so siblings hit, and activate a
+        slot that resumes decode at len(tokens) with ZERO prefill chunks.
+        No memo key moves, so nothing is captured. Returns the new rid;
+        its outputs list is pre-seeded with the snapshot's generated
+        tokens and `_delivered` already covers them, so nothing
+        re-emits.
+
+        `speculative=False` (default) opts the imported request out of
+        the spec pipeline (the draft state did not travel). `on_rid` is
+        called with the assigned rid before any trace event fires.
+
+        Raises ValueError on fingerprint/shape mismatch and RuntimeError
+        when no slot or blocks are free — callers gate on `free_slots()`
+        / `import_blocks_needed()` first."""
+        from ..serving import kvtransfer
+        fp = self.kv_fingerprint()
+        problems = kvtransfer.check_compatible(snap.fingerprint, fp)
+        if problems:
+            raise ValueError(
+                "KV snapshot incompatible with this batcher: "
+                + "; ".join(problems))
+        toks = [int(t) for t in snap.tokens]
+        P = int(snap.prompt_len)
+        gen = toks[P:]
+        budget = int(snap.budget)
+        if not gen:
+            raise ValueError(
+                "snapshot carries no generated token — export happens "
+                "at or after the first decode commit")
+        if budget < 1:
+            raise ValueError(
+                "snapshot budget exhausted — the source should have "
+                "retired this request, nothing to resume")
+        written = len(toks) - 1
+        nw = -(-written // self.bs)
+        if nw != int(snap.k.shape[1]):
+            raise ValueError(
+                f"snapshot carries {int(snap.k.shape[1])} blocks but "
+                f"its {written} written tokens span {nw}")
+        total = written + 1 + budget      # == P + max_new at the source
+        if total > self.max_total:
+            raise ValueError(
+                f"resumed request needs {total} total tokens, over "
+                f"this batcher's max_total_len {self.max_total}")
+        need = -(-total // self.bs)
+        reserved = {e[0].slot for e in self._pending}
+        slot = None
+        for s in range(self.B):
+            if not self.active[s] and s not in reserved:
+                slot = s
+                break
+        if slot is None:
+            raise RuntimeError("no free batch slot for KV import")
+        if need > self.alloc.free_blocks:
+            raise RuntimeError(
+                f"KV import needs {need} blocks, pool has "
+                f"{self.alloc.free_blocks} free")
+        fresh = self.alloc.allocate(need)
+        c, dev = self.cache, self.device
+        idx = torch.tensor(fresh[:nw], dtype=torch.long, device=dev)
+        pdt = fp["pool_dtype"]
+        c.k.index_copy_(1, idx, _from_host(snap.k, pdt, c.k.dtype, dev))
+        c.v.index_copy_(1, idx, _from_host(snap.v, pdt, c.v.dtype, dev))
+        if c.k_scale is not None:
+            # fingerprint equality guarantees the snapshot carries scales
+            # whenever the local pool is quantized
+            fidx = torch.tensor(fresh, dtype=torch.long, device=dev)
+            for pool, host in ((c.k_scale, snap.k_scale),
+                               (c.v_scale, snap.v_scale)):
+                sc = torch.zeros((pool.shape[0], need), dtype=torch.float32,
+                                 device=dev)
+                sc[:, :nw] = _from_host(host, "float32", torch.float32, dev)
+                pool.index_copy_(1, fidx, sc)
+        row = fresh + [0] * (self.M - need)
+        c.table[slot] = torch.tensor(row, dtype=torch.int32)
+        c.lengths[slot] = written
+        self.cur_tok[slot] = gen[-1]
+        rid = self._next_rid
+        self._next_rid += 1
+        if on_rid is not None:
+            on_rid(rid)
+        self.outputs[rid] = list(gen)
+        self._delivered[rid] = len(gen)
+        self.active[slot] = True
+        self.slot_req[slot] = rid
+        self.slot_blocks[slot] = list(fresh)
+        self.slot_tokens[slot] = toks[:P]
+        self.budget[slot] = budget
+        self.stop[slot] = int(snap.stop_token_id)
+        self._dev_stale = True        # slot occupancy changed
+        self._spec_ok_stale = True
+        if not speculative:
+            self._no_spec.add(rid)
+        if self._pcache is not None:
+            # the written prefix's full blocks (prompt AND generated, like
+            # _retire's registration) become visible to siblings at once;
+            # their KV is already written, so mark_cached now
+            n_full = written // self.bs
+            if n_full:
+                self.alloc.mark_cached(self._pcache.insert(
+                    toks[:n_full * self.bs], fresh[:n_full]))
+        self.imported_kv += 1
+        self.imported_kv_bytes += snap.nbytes
+        self._trace_emit(rid, "imported", slot=slot, blocks=need,
+                         bytes=snap.nbytes, resumed_tokens=len(gen),
+                         src_replica=snap.src_replica)
+        return rid
+
+    def release_device_memory(self) -> None:
+        """Drop the captured step graphs (and with them the graph memory
+        pool) and the KV pool — for a torn-down engine's batcher, once
+        its thread has exited; the batcher serves nothing afterwards.
+        The weights are the caller's (replicas share them)."""
+        for memo in (self._prefill_cache, self._fused_cache,
+                     self._chunk_cache, self._spec_cache):
+            memo.clear()
+        self._graph_pool = None
+        c = self.cache
+        self.cache = c._replace(
+            k=c.k.new_zeros((0,)), v=c.v.new_zeros((0,)),
+            k_scale=None if c.k_scale is None else c.k_scale.new_zeros((0,)),
+            v_scale=None if c.v_scale is None else c.v_scale.new_zeros((0,)))
+
     def _upload_slot_state(self) -> None:
         """Host slot lists → the persistent device mirrors, by copy (a
         replay reads fixed storage), only after admission or retirement
@@ -1355,6 +1591,15 @@ class ContinuousBatcher:
         return device_s
 
     # -- bucketed / chunked / batched prefill ------------------------------
+    def _gate(self, mode: str, rids, probe: bool = False) -> None:
+        """Fault-injection hook at the device-call boundary: a no-op in
+        production (no injector), the chaos harness's seam in tests and
+        `chip_smoke.py`. Called AFTER `_record_tick` so an injected
+        failure's tick is the flight ring's last record, like a real
+        device fault's would be."""
+        if self._fault is not None:
+            self._fault.check(mode, rids, probe=probe)
+
     def _bucket_for(self, S: int) -> int:
         """Smallest ladder bucket that fits S tokens; with bucketing
         disabled the bucket IS the exact length."""
@@ -1698,6 +1943,7 @@ class ContinuousBatcher:
             cold=cold, final=final, stalls_decode=any(self.active),
             compile_hit=(Gp, bucket, cold, self.attention_impl)
             + self._skey + self._qkey in self._prefill_cache)
+        self._gate("prefill", unit_rids)
         t0 = time.perf_counter()
         self._apply_cow([e[0] for e in entries if e[1] == 0])
         t_prof = self._profile_t0()
@@ -1735,6 +1981,96 @@ class ContinuousBatcher:
         except Exception:
             self._fail_pending()
             raise
+
+    # -- quarantine probes (engine thread only, failure path only) --------
+    def _save_blocks(self, blocks: Sequence[int]):
+        """What a probe may write, saved so it can be put back: the K/V
+        of `blocks` and the whole int8 scale pools (small: [L, N + 1])."""
+        c = self.cache
+        idx = torch.tensor(list(blocks), dtype=torch.long,
+                           device=self.device)
+        kv = (c.k.index_select(1, idx), c.v.index_select(1, idx))
+        sc = None if c.k_scale is None else (c.k_scale.clone(),
+                                             c.v_scale.clone())
+        return idx, kv, sc
+
+    def _restore_blocks(self, saved) -> None:
+        idx, (k, v), sc = saved
+        c = self.cache
+        c.k.index_copy_(1, idx, k)
+        c.v.index_copy_(1, idx, v)
+        if sc is not None:
+            c.k_scale.copy_(sc[0])
+            c.v_scale.copy_(sc[1])
+
+    def probe_decode_slot(self, slot: int) -> None:
+        """Re-run the failed tick's decode chunk for ONE slot in
+        isolation: the (warmed) plain chunk runs with every other slot
+        inactive, so only this slot's computation can raise. Commits
+        NOTHING: the step's advanced slot state is never kept, and the
+        pool writes it makes — this slot's own blocks at positions >= its
+        length, plus an int8 pool's scale growth, which rescales the
+        codes below — are put back from a copy taken before the call.
+        Raises whatever the device (or the fault injector) raises;
+        returning means the slot is clean. Failure path only."""
+        rid = self.slot_req[slot]
+        self._gate("probe", [rid], probe=True)
+        c, dev = self.cache, self.device
+        length = int(c.lengths[slot])
+        chain = self.slot_blocks[slot]
+        touched = chain[length // self.bs:
+                        min(len(chain), -(-(length + self.chunk) // self.bs))]
+        saved = self._save_blocks(touched)
+        act = torch.zeros((self.B,), dtype=torch.bool)
+        act[slot] = True
+        try:
+            out = self._chunk_exe()(
+                table=c.table, tok=self.cur_tok, lengths=c.lengths,
+                budget=torch.tensor(self.budget, dtype=torch.int32,
+                                    device=dev),
+                active=act.to(dev),
+                stop=torch.tensor(self.stop, dtype=torch.int32, device=dev))
+            # a host read makes a data-dependent device failure surface
+            # HERE, attributed to this slot
+            out[0].cpu()
+        finally:
+            self._restore_blocks(saved)
+
+    def probe_queued(self, rid: int) -> None:
+        """Re-run a QUEUED request's first prefill chunk in isolation:
+        prepare its blocks, run one standalone single-record prefill (a
+        warmed (1, bucket) ladder shape), then roll everything back — the
+        queue entry, the prefix index and the allocator end as they were
+        (`_rollback`), and the blocks the call wrote are put back from a
+        copy. A failed prefill/fused call requeues its pending records
+        (`_fail_pending`), so this is how the engine's quarantine
+        re-executes the failing tick's prefill units one record at a
+        time. Raises what the device raises; a pool too tight to
+        re-prepare returns silently (inconclusive is NOT a conviction).
+        No-op for a rid not in the queue."""
+        entry = next((e for e in self.queue if e[0] == rid), None)
+        if entry is None:
+            return
+        _, toks, stop, mn = entry
+        self._gate("probe", [rid], probe=True)
+        c = self.cache
+        scales = None if c.k_scale is None else (c.k_scale.clone(),
+                                                 c.v_scale.clone())
+        try:
+            rec = self._prepare_admission(-1, rid, toks, stop, mn,
+                                          quiet=True)
+        except RuntimeError:
+            return        # pool exhausted mid-quarantine: inconclusive
+        idx, kv, _ = self._save_blocks(rec.fresh)
+        try:
+            start, end, bucket = rec.chunks[0]
+            self._apply_cow([rec])
+            firsts = self._prefill_call([(rec, start, end)], bucket,
+                                        cold=start == 0)
+            firsts.cpu()
+        finally:
+            self._rollback([rec])
+            self._restore_blocks((idx, kv, scales))
 
     def _pop_fused_units(self):
         """The units ONE fused call carries, in unit order: the head unit,
@@ -1827,6 +2163,7 @@ class ContinuousBatcher:
             "decode", rids=decode_rids,
             compile_hit=(self.chunk, self.attention_impl) + self._skey
             + self._qkey in self._chunk_cache)
+        self._gate("decode", decode_rids)
         self._upload_slot_state()
         exe = self._chunk_exe()
         t_prof = self._profile_t0()
@@ -1905,6 +2242,8 @@ class ContinuousBatcher:
                 bucket=bucket, group_pad=Gp, rows=Gt,
                 compile_hit=(Gt, bucket, self.attention_impl) + self._skey
                 + self._qkey in self._fused_cache)
+            self._gate("fused",
+                       decode_rids + [r for u in unit_rids for r in u])
             t0 = time.perf_counter()
             self._apply_cow([e[0] for entries, _, _ in groups
                              for e in entries if e[1] == 0])
@@ -2215,6 +2554,7 @@ class ContinuousBatcher:
         self._record_tick(
             "spec_draft", rids=decode_rids, k=self.spec_k,
             compile_hit=self._spec_key("draft") in self._spec_cache)
+        self._gate("spec_draft", decode_rids)
         t0 = time.perf_counter()
         live = self._slot_inputs()
         draft_exe = self._spec_draft_exe()
@@ -2227,6 +2567,7 @@ class ContinuousBatcher:
         self._record_tick(
             "spec_verify", rids=decode_rids, k=self.spec_k,
             compile_hit=self._spec_key("verify") in self._spec_cache)
+        self._gate("spec_verify", decode_rids)
         t1 = time.perf_counter()
         verify_exe = self._spec_verify_exe()
         t_prof = self._profile_t0()

@@ -350,9 +350,9 @@ def ragged_paged_attention(q, k_pool, v_pool, table, positions, valid=None,
                  int(plan.narrow), plan.split_keys, plan.n_splits,
                  1.0 / math.sqrt(hd), stream)
     _build.check(err, "ragged_paged_attention_bf16")
-    ragged_paged_attention.launches += 1
-    ragged_paged_attention.launches_int8 += int(q8)
-    ragged_paged_attention.launches_suffix += int(slab)
+    _build.count(ragged_paged_attention)
+    _build.count(ragged_paged_attention, "launches_int8", int(q8))
+    _build.count(ragged_paged_attention, "launches_suffix", int(slab))
     return out
 
 

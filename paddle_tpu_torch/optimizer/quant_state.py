@@ -296,7 +296,7 @@ def fused_leaf_update(scalars, g, p, mq: _QTensor, vq: _QTensor, *,
                  float(b1), float(1 - b1), float(b2), float(1 - b2),
                  float(eps), float(wd), stream)
     _build.check(err, "adamw_q_fused_bf16")
-    fused_leaf_update.launches += 1
+    _build.count(fused_leaf_update)
     return p, mq, vq
 
 

@@ -15,12 +15,35 @@ thread owns the batcher; everything else talks through locks/channels:
         deliver tokens → request channels (+ on_token)   ── request.py
         update metrics / SLO / trace                     ── metrics.py
 
-A request whose on_token callback raises fails ONLY that request. A
-device-step failure dumps the flight recorder (`last_flight_dump`,
-`last_flight_dump_json`, `flight_dump_path`) and fails every in-flight
-request with the error attached (the JAX engine's conservative
-fallback; its quarantine is a later slice). shutdown(drain=True) stops
-admissions, drains in-flight work, then joins the thread.
+Robustness, as in the JAX engine. A request whose on_token callback
+raises fails ONLY that request. A device-step failure dumps the flight
+recorder (`last_flight_dump`, `last_flight_dump_json`,
+`flight_dump_path`) and enters the quarantine: the flight recorder's
+last record names the failing tick's mode and requests, each suspect is
+re-executed alone (a decode slot through the warmed plain chunk, a
+prefill record as a standalone (1, bucket) call), and only convicted
+culprits fail. Innocents keep their KV (exported and re-imported in
+place) or requeue at the front of the admission queue and resume from
+`prompt + tokens`; victims of a failed `spec_*` tick re-admit with
+speculation off. A culprit whose failure looks transient
+(`retry_transient`: an `InjectedFault(transient=True)` or a
+`torch.cuda.OutOfMemoryError` by default) gets `max_retries` backoff
+re-admissions. Eight consecutive failed steps blow a fuse that marks the
+engine broken. The watchdog (`watchdog_s`, with `watchdog_compile_grace`
+until `warmup()` has run) fails the requests stranded by a hung device
+call and flips `health()` to UNHEALTHY. `serving.faults.FaultInjector`
+drives every one of these paths deterministically.
+
+A CUDA error that poisons the context (an illegal address) makes every
+later probe and step raise too: the fuse then marks the engine broken,
+and only a new process recovers the card.
+
+Roles: a "prefill" engine finishes each request at its first committed
+token and hands its KV over as a snapshot on `req.kv_snapshot` (reason
+"prefill_complete"); `submit_import()` adopts one, `drain_export()`
+hands the in-flight set's KV out before a supervisor's teardown.
+shutdown(drain=True) stops admissions, drains in-flight work, then
+joins the thread.
 
 The batcher's device work runs on the engine thread; the kernel
 wrappers launch, and the step graphs replay, on that thread's current
@@ -41,13 +64,10 @@ decoding (`speculative`, `spec_k`, `draft_layers`, `spec_tree`,
 their resolved config and accounting, and the `spec_*` gauges and the
 `spec_accept_depth` histogram track acceptance.
 
-Not ported yet, so accepted only at their off value (anything else
+Not ported yet, so accepted only at its off value (anything else
 raises NotImplementedError naming the later slice): the tensor-parallel
-mesh, the watchdog, fault injection (with it, the quarantine and its
-spec fallback) and disaggregated roles (KV import/export); their tuning
-kwargs are not taken at all. The fault-tolerance fields of `health()`
-keep their keys and read 0. `spec_attention_impl` is taken only as
-None: the port has no backend switch, the device decides.
+mesh. `spec_attention_impl` is taken only as None: the port has no
+backend switch, the device decides.
 """
 from __future__ import annotations
 
@@ -56,31 +76,49 @@ import threading
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
+from .kvtransfer import KVSnapshot, check_compatible
 from .metrics import LATENCY_BUCKETS, MetricsRegistry
 from .request import GenerationRequest, RequestState
 from .scheduler import AdmissionQueue, QueueFullError
 from .slo import SloTracker
 from .trace import TraceSink
 
-__all__ = ["ServingEngine", "EngineStopped"]
+__all__ = ["ServingEngine", "EngineStopped", "HungStepError"]
 
 # kwarg: (its off value, the later slice that ports it)
 _UNPORTED = {
     "mesh": (None, "multi-GPU serving"),
-    "watchdog_s": (None, "fault tolerance"),
-    "fault_injector": (None, "fault tolerance"),
-    "role": ("both", "disaggregated serving"),
 }
 
-# health(): a step fault inside this window reads DEGRADED (the JAX
-# engine's health_window_s default, a fault-tolerance tuning kwarg)
-_HEALTH_WINDOW_S = 30.0
 # recently completed request shapes kept for recent_prompts()
 _RECENT_PROMPTS = 8
+# livelock fuse: this many consecutive failed steps fail everything in
+# flight and mark the engine broken
+_MAX_FAULT_STREAK = 8
 
 
 class EngineStopped(RuntimeError):
     """submit() after shutdown began."""
+
+
+class HungStepError(RuntimeError):
+    """A device step exceeded the watchdog deadline: the engine thread
+    is presumed wedged inside a device call that will never return.
+    Attached as the terminal error to every stranded request and kept
+    on `last_flight_dump` — `health()` reports UNHEALTHY from the
+    moment the watchdog trips."""
+
+
+def _default_transient(error: BaseException) -> bool:
+    """The default retry predicate: injected faults flagged transient
+    (`serving.faults.InjectedFault(transient=True)`) and the card's
+    out-of-memory error (`torch.cuda.OutOfMemoryError`, the port's
+    counterpart of XLA's RESOURCE_EXHAUSTED: allocator pressure passes,
+    a retry after backoff usually lands) are worth re-admitting;
+    everything else is treated as deterministic and fails fast."""
+    import torch
+    return bool(getattr(error, "transient", False)) \
+        or isinstance(error, torch.cuda.OutOfMemoryError)
 
 
 class ServingEngine:
@@ -99,7 +137,8 @@ class ServingEngine:
     live on that device (`nlp.llama.params_from_numpy` / `init_params`).
     `start=False` builds the engine with the loop parked — requests queue
     up until `start()`; `warmup()` between the two captures every step
-    shape. The batcher's step graphs close over the batcher, so a dropped
+    shape. Replicas built from one `params` tree share its tensors
+    (`Router` hands the same tree to every engine). The batcher's step graphs close over the batcher, so a dropped
     engine's device memory (weights, pool, graph pool) is freed when the
     cycle collector runs: `gc.collect()` after `shutdown()` and `del`
     frees it at once.
@@ -126,12 +165,19 @@ class ServingEngine:
                  warmup: bool = False,
                  trace: bool = True, flight_recorder_cap: int = 64,
                  flight_dump_path: Optional[str] = None,
+                 quarantine: bool = True, max_retries: int = 2,
+                 retry_backoff_s: float = 0.05,
+                 retry_transient=None,
+                 watchdog_s: Optional[float] = None,
+                 watchdog_compile_grace: float = 16.0,
+                 health_window_s: float = 30.0,
+                 fault_injector=None,
                  slo: bool = True,
                  slo_objectives: Optional[Dict[str, float]] = None,
                  slo_opts: Optional[Dict] = None,
                  profile_sample_every: int = 64,
-                 replica_id: str = "r0", device="cuda",
-                 clock=time.monotonic, **unported):
+                 replica_id: str = "r0", role: str = "both",
+                 device="cuda", clock=time.monotonic, **unported):
         if spec_attention_impl is not None:
             raise NotImplementedError(
                 f"spec_attention_impl={spec_attention_impl!r}: the port has "
@@ -148,7 +194,23 @@ class ServingEngine:
                     f"{name}={value!r} is not ported yet ({later} is a "
                     f"later slice of the PyTorch port); pass {off!r}")
         self.replica_id = str(replica_id)
-        self.role = "both"
+        # disaggregated serving: a "prefill" engine finishes every
+        # request at its first committed token and surrenders its KV as
+        # a snapshot on `req.kv_snapshot` (reason "prefill_complete") for
+        # a decode replica to adopt via submit_import(); a "decode" engine
+        # serves normally but is the adoption target a disaggregated
+        # Router migrates to; "both" is the monolithic behavior. Every
+        # role accepts plain submits (probes, standalone use)
+        role = str(role)
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(
+                f"role must be 'prefill', 'decode' or 'both', "
+                f"got {role!r}")
+        self.role = role
+        if role == "prefill":
+            # the surrender happens at the first committed token: a spec
+            # draft/verify sweep would never complete before it
+            speculative = False
         # per-request timelines + the batcher's flight recorder; max_live
         # covers every request the engine can hold open at once (queued +
         # in flight), so the sink's bound never displaces a running one
@@ -171,6 +233,7 @@ class ServingEngine:
             spec_draft_w8=spec_draft_w8, trace=self.trace,
             flight_recorder_cap=flight_recorder_cap,
             profile_sample_every=profile_sample_every,
+            fault_injector=fault_injector,
             replica_id=self.replica_id, device=device)
         self.attention_impl = self.batcher.attention_impl
         self.weight_dtype = self.batcher.weight_dtype
@@ -192,8 +255,37 @@ class ServingEngine:
         self._alloc_stats = self.batcher.alloc.stats()
         self._prefix_stats = self.batcher.prefix_stats()
         self._recent_prompts: List[Tuple[List[int], int]] = []
+        # fault tolerance: quarantine-by-probe on step failures,
+        # transient-culprit retries with exponential backoff, the
+        # hung-step watchdog and the health surface a router polls
+        self._quarantine_on = bool(quarantine)
+        self._max_retries = int(max_retries)
+        self._retry_backoff_s = float(retry_backoff_s)
+        self._retry_transient = retry_transient or _default_transient
+        self._watchdog_s = watchdog_s
+        # compile-vs-hang: until warmup() has run, a step may pay a lazy
+        # CUDA-graph capture (~0.5 s a shape at 32 layers), so every
+        # deadline is multiplied by this grace; a warmed engine gets none
+        self._wd_grace = max(1.0, float(watchdog_compile_grace))
+        self._health_window_s = float(health_window_s)
+        self._parked: List[List] = []       # [ready_time, request]
+        # pending KV-snapshot adoptions, (snapshot, request) in arrival
+        # order — activated ahead of fresh admissions
+        self._imports: List = []
+        # drain-and-export rendezvous (supervisor teardown): the caller's
+        # box the engine thread fills with (snapshot, request) pairs
+        self._drain_export_box: Optional[List] = None
+        self._wedged = False
         self._warmed = False                # warmup() ran
+        # livelock fuse tripped: the engine declared itself UNHEALTHY
+        # (reason string) and stopped serving
+        self._broken: Optional[str] = None
         self._last_fault_t: Optional[float] = None
+        self._fault_streak = 0              # consecutive failed steps
+        self._flight_seq = self.batcher.flight.seq
+        self._step_t0: Optional[float] = None   # the watchdog reads this
+        self._wd_thread: Optional[threading.Thread] = None
+        self._wd_stop = threading.Event()
         self._last_dump_error: Optional[str] = None
 
         m = self.metrics
@@ -243,15 +335,20 @@ class ServingEngine:
         self._h_spec_depth = m.histogram(
             "spec_accept_depth",
             buckets=[0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0])
-        # the counters health() reads; the fault-tolerance ones stay 0
-        # until that slice lands (same keys as the JAX engine's)
+        # fault-tolerance surface: the counters health() aggregates
         self._c_step_faults = m.counter("step_faults")
         self._c_quarantines = m.counter("quarantines")
         self._c_requeued = m.counter("requests_requeued")
-        self._c_restored = m.counter("requests_restored")
         self._c_retried = m.counter("requests_retried")
         self._c_watchdog = m.counter("watchdog_trips")
         self._c_dump_errors = m.counter("flight_dump_errors")
+        # KV-transfer surface: snapshots exported (prefill-role handoffs,
+        # drain-and-export, failover attachment) and imported, plus
+        # quarantine innocents restored slot-in-place
+        self._c_kv_exports = m.counter("kv_exports")
+        self._c_kv_imports = m.counter("kv_imports")
+        self._c_restored = m.counter("requests_restored")
+        self._c_handoffs = m.counter("prefill_handoffs")
 
         # SLO engine: declarative objectives over dual rolling windows,
         # fed from the observations the histograms record; a BREACH
@@ -298,6 +395,11 @@ class ServingEngine:
                     target=self._loop, name="paddle-tpu-torch-serving",
                     daemon=True)
                 self._thread.start()
+            if self._watchdog_s is not None and self._wd_thread is None:
+                self._wd_thread = threading.Thread(
+                    target=self._watchdog_loop,
+                    name="paddle-tpu-torch-watchdog", daemon=True)
+                self._wd_thread.start()
         return self
 
     def submit(self, prompt, *, priority: int = 0,
@@ -359,15 +461,71 @@ class ServingEngine:
             self._work.notify_all()
         return req
 
-    def submit_import(self, snapshot, req=None):
-        raise NotImplementedError(
-            "KV-snapshot import is not ported yet (disaggregated serving "
-            "is a later slice of the PyTorch port)")
+    def submit_import(self, snapshot: KVSnapshot,
+                      req: Optional[GenerationRequest] = None
+                      ) -> GenerationRequest:
+        """Queue a portable KV snapshot for adoption: the engine thread
+        activates it via `ContinuousBatcher.import_kv` — fresh blocks,
+        the codes AND int8 scales written into the pool in place, prefix
+        index registered — ahead of cold admissions, and decode resumes
+        at `len(snapshot.tokens)` with ZERO prefill chunks.
 
-    def drain_export(self, timeout: float = 2.0):
-        raise NotImplementedError(
-            "KV-snapshot export is not ported yet (disaggregated serving "
-            "is a later slice of the PyTorch port)")
+        `req` is the handle to resume; its `tokens` must already hold
+        exactly the snapshot's generated tokens. None builds a new
+        handle whose `tokens` are pre-seeded — they appear in result(),
+        only NEW tokens stream. Fail-fast like submit(): fingerprint
+        mismatch, misaligned handle tokens and a chain the pool can
+        NEVER hold raise ValueError here, and anything but a KVSnapshot
+        TypeError. EngineStopped after shutdown began."""
+        if not isinstance(snapshot, KVSnapshot):
+            raise TypeError(f"submit_import takes a KVSnapshot, not "
+                            f"{type(snapshot).__name__}")
+        b = self.batcher
+        problems = check_compatible(snapshot.fingerprint,
+                                    b.kv_fingerprint())
+        if problems:
+            self._c_rejected.inc()
+            raise ValueError("KV snapshot incompatible with this "
+                             "engine: " + "; ".join(problems))
+        if b.import_blocks_needed(snapshot) > b.alloc.num_blocks:
+            self._c_rejected.inc()
+            raise ValueError(
+                f"snapshot needs {b.import_blocks_needed(snapshot)} KV "
+                f"blocks but the pool holds {b.alloc.num_blocks}")
+        gen = list(snapshot.tokens[snapshot.prompt_len:])
+        if req is None:
+            req = GenerationRequest(
+                list(snapshot.tokens[:snapshot.prompt_len]),
+                max_new_tokens=len(gen) + int(snapshot.budget),
+                stop_token_id=(None if snapshot.stop_token_id < 0
+                               else snapshot.stop_token_id))
+            req.tokens = list(gen)
+        elif len(req.tokens) != len(gen):
+            self._c_rejected.inc()
+            raise ValueError(
+                f"handle carries {len(req.tokens)} streamed tokens but "
+                f"the snapshot generated {len(gen)} — resume would "
+                f"misalign the stream")
+        with self._work:
+            if self._stop or not self._accepting:
+                raise EngineStopped("engine is shutting down")
+            now = self._clock()
+            if req.submit_time is None:
+                req.submit_time = now
+                if req.timeout_s is not None:
+                    req.deadline = now + req.timeout_s
+                self._c_submitted.inc()
+            if self.trace is not None:
+                if req.trace_id is None:
+                    req.trace_id = self.trace.start()
+                self.trace.emit(req.trace_id, "import_enqueued",
+                                blocks=snapshot.n_blocks,
+                                bytes=snapshot.nbytes,
+                                resumed_tokens=len(gen),
+                                src_replica=snapshot.src_replica)
+            self._imports.append((snapshot, req))
+            self._work.notify_all()
+        return req
 
     def generate(self, prompt, timeout: Optional[float] = None,
                  **kw) -> List[int]:
@@ -392,21 +550,57 @@ class ServingEngine:
 
     @property
     def is_idle(self) -> bool:
-        """Nothing queued and nothing in flight."""
+        """Nothing queued, parked, pending import or in flight."""
         with self._lock:
-            return not self._running and not len(self.queue)
+            return (not self._running and not len(self.queue)
+                    and not self._parked and not self._imports)
 
     def drain(self, timeout: Optional[float] = None) -> bool:
-        """Block until queue + in-flight are empty; False on timeout."""
+        """Block until queue + parked retries + pending imports +
+        in-flight are empty; False on timeout. Returns promptly after a
+        watchdog trip (the stranded set is already failed)."""
         deadline = None if timeout is None else self._clock() + timeout
         with self._work:
-            while self._running or len(self.queue):
+            while (self._running or len(self.queue) or self._parked
+                   or self._imports):
                 rem = self._idle_poll_s if deadline is None else \
                     min(self._idle_poll_s, deadline - self._clock())
                 if rem <= 0:
                     return False
                 self._work.wait(rem)
         return True
+
+    def drain_export(self, timeout: float = 2.0) -> List:
+        """Stop admissions and hand every in-flight request's KV out as
+        (snapshot, request) pairs — the supervisor's pre-teardown move,
+        so a respawned replica resumes them via submit_import() without
+        re-prefill. The engine thread runs the export (it owns the
+        batcher); this caller blocks until it does or `timeout` passes.
+
+        Returned pairs keep their handles OPEN — the caller MUST either
+        re-import them or fail them. Requests with nothing exportable and
+        everything queued/parked fail here with reason
+        "drained_for_restart", which the Router's failover re-places.
+        Returns [] when the loop is not running / wedged / broken."""
+        box: List = []
+        with self._work:
+            if (self._thread is None or self._wedged
+                    or self._broken is not None or self._stop):
+                return []
+            self._accepting = False
+            self._drain_export_box = box
+            self._work.notify_all()
+            deadline = self._clock() + timeout
+            # the engine thread performs the whole drain under ONE lock
+            # hold, so the box is either untouched or complete — on
+            # timeout withdraw the order; the caller proceeds cold
+            while self._drain_export_box is not None:
+                rem = deadline - self._clock()
+                if rem <= 0:
+                    self._drain_export_box = None
+                    return []
+                self._work.wait(min(self._idle_poll_s, rem))
+        return box
 
     def shutdown(self, drain: bool = True,
                  timeout: Optional[float] = None) -> bool:
@@ -425,9 +619,17 @@ class ServingEngine:
         with self._work:
             self._stop = True
             self._work.notify_all()
+        self._wd_stop.set()
+        if self._wd_thread is not None:
+            self._wd_thread.join(1.0)
         if self._thread is not None:
             budget = (None if deadline is None
                       else max(0.0, deadline - self._clock()))
+            if self._wedged:
+                # the engine thread is presumed wedged inside a device
+                # call; every handle was already failed by the watchdog,
+                # so a bounded join leaves the daemon thread behind
+                budget = 1.0 if budget is None else min(budget, 1.0)
             self._thread.join(budget)
             if self._thread.is_alive():
                 return False
@@ -437,7 +639,16 @@ class ServingEngine:
         return clean
 
     def _cancel_pending_locked(self) -> None:
-        """Cancel everything queued + in flight (lock held)."""
+        """Cancel everything queued + parked + pending imports + in
+        flight (lock held)."""
+        for _, req in self._parked:
+            self._finish_locked(req, RequestState.CANCELLED,
+                                "engine_shutdown")
+        self._parked.clear()
+        for _snap, req in self._imports:
+            self._finish_locked(req, RequestState.CANCELLED,
+                                "engine_shutdown")
+        self._imports.clear()
         for req in self.queue.clear():
             self._finish_locked(req, RequestState.CANCELLED,
                                 "engine_shutdown")
@@ -491,11 +702,12 @@ class ServingEngine:
                 "role": self.role,
                 "queue_depth": len(self.queue),
                 "in_flight": len(self._running),
-                "parked_retries": 0,
-                "pending_imports": 0,
+                "parked_retries": len(self._parked),
+                "pending_imports": len(self._imports),
                 "kv_utilization": (stats["blocks_in_use"]
                                    / stats["capacity_blocks"]),
-                "accepting": self._accepting and not self._stop,
+                "accepting": self._accepting and not self._stop
+                and not self._wedged and self._broken is None,
             }
 
     def recent_prompts(self) -> List[Tuple[List[int], int]]:
@@ -505,18 +717,22 @@ class ServingEngine:
             return [(list(p), mn) for p, mn in self._recent_prompts]
 
     def health(self) -> Dict:
-        """Per-replica health: `status` "HEALTHY" (no recent faults) or
-        "DEGRADED" (a step fault inside the last 30 s; the engine keeps
-        serving). `ready` reads whether warmup() has run and the loop is
-        live. The fault-tolerance counters (quarantines, requeues,
-        retries, watchdog trips) read 0: that slice is not ported."""
+        """Per-replica health, the signal a router polls: `status` is
+        "HEALTHY" (no recent faults), "DEGRADED" (a step fault or
+        quarantine inside the last `health_window_s` — the engine
+        recovered and keeps serving) or "UNHEALTHY" (the watchdog
+        tripped or the fault fuse blew: the engine no longer serves).
+        `ready` reads whether warmup() has run and the loop is live. The
+        counters cover the engine's lifetime."""
         with self._lock:
             return self._health_locked()
 
     def _health_locked(self) -> Dict:
         now = self._clock()
-        if (self._last_fault_t is not None
-                and now - self._last_fault_t <= _HEALTH_WINDOW_S):
+        if self._wedged or self._broken is not None:
+            status = "UNHEALTHY"
+        elif (self._last_fault_t is not None
+              and now - self._last_fault_t <= self._health_window_s):
             status = "DEGRADED"
         else:
             status = "HEALTHY"
@@ -529,8 +745,9 @@ class ServingEngine:
             "spec_backend": self.attention_impl if self.speculative
             else None,
             "ready": (self._warmed and self._thread is not None
+                      and not self._wedged and self._broken is None
                       and not self._stop),
-            "broken": None,
+            "broken": self._broken,
             "step_faults": self._c_step_faults.value,
             "quarantines": self._c_quarantines.value,
             "requests_requeued": self._c_requeued.value,
@@ -541,7 +758,7 @@ class ServingEngine:
             "flight_dump_errors": self._c_dump_errors.value,
             "last_fault_age_s": (None if self._last_fault_t is None
                                  else now - self._last_fault_t),
-            "parked_retries": 0,
+            "parked_retries": len(self._parked),
             "slo": self._slo_eval(),
         }
 
@@ -644,16 +861,35 @@ class ServingEngine:
     def _loop(self) -> None:
         while True:
             with self._work:
+                if self._wedged:
+                    return    # the watchdog tore everything down already
+                if self._broken is not None:
+                    return    # the fault fuse declared the engine dead
                 if self._stop:
                     # exit path owns the batcher: cancel whatever is
                     # left so no consumer stays blocked on its channel
                     self._cancel_pending_locked()
                     return
+                if self._drain_export_box is not None:
+                    # supervisor teardown: hand the in-flight set's KV
+                    # out before anything else reshapes it
+                    self._drain_export_locked()
                 self._reap_queued_locked()
                 self._reap_running_locked()
+                self._release_parked_locked()
+                self._process_imports_locked()
                 self._admit_locked()
                 self._update_gauges_locked()
-                if not self._running and not len(self.queue):
+                if (not self._running and not len(self.queue)
+                        and not self._imports):
+                    if self._parked:
+                        # a backoff retry is the only pending work:
+                        # sleep just until the earliest one is ready
+                        delay = min(e[0] for e in self._parked) \
+                            - self._clock()
+                        if delay > 0:
+                            self._work.wait(min(self._idle_poll_s, delay))
+                        continue
                     if not self._accepting:
                         return            # graceful drain complete
                     self._work.notify_all()      # wake drain() waiters
@@ -663,13 +899,35 @@ class ServingEngine:
             # touched from this thread, so submit()/cancel() stay
             # responsive during device work
             timer = self.metrics.timer("serving.step_s")
+            self._step_t0 = self._clock()    # the watchdog arms on this
             try:
                 with timer:
                     emitted, finished = self.batcher.step()
             except Exception as e:        # device-step boundary
+                self._step_t0 = None
+                if self._wedged:
+                    continue  # the watchdog already failed the stranded set
+                # forensics FIRST: the dump captures the queue/pool state
+                # at failure, before recovery reshuffles the in-flight set
                 self._record_failure_dump(e)
-                self._fail_all_running(e)
+                self._fault_streak += 1
+                ticked = self.batcher.flight.seq != self._flight_seq
+                if (self._quarantine_on and ticked
+                        and self._fault_streak <= _MAX_FAULT_STREAK):
+                    self._quarantine(e)
+                else:
+                    # no tick recorded (an admission-time failure: no basis
+                    # to convict) or the fuse blew: fail everything
+                    self._fail_all_running(e)
+                    if self._fault_streak > _MAX_FAULT_STREAK:
+                        self._mark_broken("fault_streak", e)
+                self._flight_seq = self.batcher.flight.seq
                 continue
+            self._step_t0 = None
+            self._fault_streak = 0
+            self._flight_seq = self.batcher.flight.seq
+            if self._wedged:
+                continue      # stranded set already failed; don't dispatch
             self._dispatch(emitted, finished, step_dt=timer.elapsed)
 
     def _reap_queued_locked(self) -> None:
@@ -679,6 +937,15 @@ class ServingEngine:
             state = (RequestState.CANCELLED if req.cancel_requested
                      else RequestState.TIMED_OUT)
             self._finish_locked(req, state, "reaped_in_queue")
+        # parked backoff retries honor cancellation/deadlines too
+        dead = [e for e in self._parked
+                if e[1].cancel_requested or self._expired(e[1], now)]
+        if dead:
+            self._parked = [e for e in self._parked if e not in dead]
+            for _, req in dead:
+                state = (RequestState.CANCELLED if req.cancel_requested
+                         else RequestState.TIMED_OUT)
+                self._finish_locked(req, state, "reaped_parked")
 
     def _reap_running_locked(self) -> None:
         now = self._clock()
@@ -693,6 +960,13 @@ class ServingEngine:
 
     def _expired(self, req: GenerationRequest, now: float) -> bool:
         return req.deadline is not None and now > req.deadline
+
+    @staticmethod
+    def _effective(req: GenerationRequest) -> List[int]:
+        """The prompt a (re-)admission actually prefills: the original
+        prompt plus every token already streamed — a requeued victim
+        resumes decode from where the failed step stopped."""
+        return req.prompt + req.tokens if req.tokens else req.prompt
 
     def _admit_locked(self) -> None:
         b = self.batcher
@@ -709,7 +983,8 @@ class ServingEngine:
 
             def prefer(r):
                 if id(r) not in warm:
-                    warm[id(r)] = b.prefix_cached_tokens(r.prompt) > 0
+                    warm[id(r)] = b.prefix_cached_tokens(
+                        self._effective(r)) > 0
                 return warm[id(r)]
         budget = {"blocks": b.alloc.free_blocks}
 
@@ -717,8 +992,9 @@ class ServingEngine:
             # cached-aware: a prompt whose prefix an in-flight request
             # already pins needs fewer blocks of its own. pop_many calls
             # fits once per ACCEPTED item, so the budget is debited here
-            n = b.blocks_needed(len(r.prompt), r.max_new_tokens,
-                                tokens=r.prompt)
+            eff = self._effective(r)
+            n = b.blocks_needed(len(eff), r.max_new_tokens - len(r.tokens),
+                                tokens=eff)
             if n > budget["blocks"]:
                 return False
             budget["blocks"] -= n
@@ -735,8 +1011,16 @@ class ServingEngine:
                          else RequestState.TIMED_OUT)
                 self._finish_locked(req, state, "reaped_at_admission")
                 continue
-            rid = b.submit(req.prompt, stop_token_id=req.stop_token_id,
-                           max_new_tokens=req.max_new_tokens)
+            # resume-aware: a quarantine/retry re-admission carries the
+            # tokens already streamed as part of its prompt (warm through
+            # the prefix cache) with the remaining budget; a request that
+            # rode a failed spec tick re-admits with speculation off
+            resumed = bool(req.tokens) or req.admit_time is not None
+            rid = b.submit(self._effective(req),
+                           stop_token_id=req.stop_token_id,
+                           max_new_tokens=req.max_new_tokens
+                           - len(req.tokens),
+                           speculative=False if req.spec_opt_out else None)
             req.request_id = rid
             req.state = RequestState.PREFILL
             if self.trace is not None and req.trace_id is not None:
@@ -744,16 +1028,100 @@ class ServingEngine:
                 # retired) resolve to this request's timeline via rid
                 self.trace.alias(rid, req.trace_id)
                 self.trace.emit(req.trace_id, "admitted", rid=rid,
-                                resumed=False,
+                                resumed=resumed,
                                 queue_wait_s=now - req.submit_time)
-            req.admit_time = now
-            req.admitted_index = self._admit_seq
-            self._admit_seq += 1
-            self._h_wait.observe(now - req.submit_time)
-            if self._slo is not None:
-                self._slo.record_queue_wait(now - req.submit_time)
-            self._c_admitted.inc()
+            if not resumed:
+                # first admission only: queue wait measures the original
+                # arrival, not recovery churn
+                req.admit_time = now
+                req.admitted_index = self._admit_seq
+                self._admit_seq += 1
+                self._h_wait.observe(now - req.submit_time)
+                if self._slo is not None:
+                    self._slo.record_queue_wait(now - req.submit_time)
+                self._c_admitted.inc()
             self._running[rid] = req
+
+    def _process_imports_locked(self) -> None:
+        """Activate pending KV-snapshot adoptions (engine thread, lock
+        held) BEFORE fresh admissions: an import resumes a request that
+        already streamed tokens. Head-of-line in arrival order: when the
+        head does not fit (slot/blocks) the whole line waits."""
+        b = self.batcher
+        now = self._clock()
+        while self._imports:
+            snap, req = self._imports[0]
+            if req.cancel_requested or self._expired(req, now):
+                self._imports.pop(0)
+                state = (RequestState.CANCELLED if req.cancel_requested
+                         else RequestState.TIMED_OUT)
+                self._finish_locked(req, state, "reaped_pending_import")
+                continue
+            if (b.free_slots() <= 0
+                    or b.import_blocks_needed(snap) > b.alloc.free_blocks):
+                break
+            self._imports.pop(0)
+            on_rid = None
+            if self.trace is not None and req.trace_id is not None:
+                tid = req.trace_id
+                # alias the rid the instant import_kv assigns it, so the
+                # batcher's own "imported" emit lands on this timeline
+                on_rid = lambda r: self.trace.alias(r, tid)  # noqa: E731
+            try:
+                rid = b.import_kv(snap, on_rid=on_rid)
+            except Exception as e:    # per-request boundary
+                self._finish_locked(req, RequestState.FAILED,
+                                    "kv_import_failed", error=e)
+                continue
+            req.request_id = rid
+            req.state = RequestState.DECODING
+            if req.admit_time is None:
+                req.admit_time = now
+                req.admitted_index = self._admit_seq
+                self._admit_seq += 1
+                self._c_admitted.inc()
+            self._c_kv_imports.inc()
+            self._running[rid] = req
+
+    def _drain_export_locked(self) -> None:
+        """Engine-thread half of drain_export() (lock held): export every
+        in-flight request's KV into the caller's box as a (snapshot,
+        request) pair — the handle stays OPEN — and fail everything that
+        cannot travel with "drained_for_restart" so the Router's failover
+        re-places it. Runs under ONE lock hold."""
+        box = self._drain_export_box
+        b = self.batcher
+        for rid, req in list(self._running.items()):
+            snap = None
+            if not req.cancel_requested:
+                try:
+                    snap = b.export_kv(rid)
+                except Exception:     # this request re-prefills instead
+                    snap = None
+            b.abort(rid)
+            b.release(rid)
+            self._last_emit.pop(rid, None)
+            if snap is not None:
+                self._c_kv_exports.inc()
+                box.append((snap, req))
+            else:
+                self._finish_locked(req, RequestState.FAILED,
+                                    "drained_for_restart")
+        self._running.clear()
+        # pending adoptions already carry their snapshots
+        for snap, req in self._imports:
+            box.append((snap, req))
+        self._imports.clear()
+        for _, req in self._parked:
+            self._finish_locked(req, RequestState.FAILED,
+                                "drained_for_restart")
+        self._parked.clear()
+        for req in self.queue.clear():
+            self._finish_locked(req, RequestState.FAILED,
+                                "drained_for_restart")
+        self._drain_export_box = None
+        self._update_gauges_locked()
+        self._work.notify_all()
 
     def _dispatch(self, emitted: Dict[int, List[int]],
                   finished: List[int],
@@ -767,6 +1135,9 @@ class ServingEngine:
         if self.trace is not None and step_dt is not None:
             # the sink-side twin of the serving.step_s timer span
             self.trace.span("engine.step", dur=step_dt, tokens=ntok)
+        # prefill-role surrender: requests that produced their first
+        # token(s) this step but did NOT finish hand their KV over
+        handoffs: List[int] = []
         for rid, toks in emitted.items():
             # the token bridge runs lock-free on the engine thread so
             # submit()/cancel() stay responsive; rid-keyed dict ops are
@@ -813,6 +1184,10 @@ class ServingEngine:
                 if traced:
                     self.trace.emit(req.trace_id, "decode_emit",
                                     n=len(toks))
+                if self.role == "prefill" and rid not in finished:
+                    handoffs.append(rid)
+        for rid in handoffs:
+            self._surrender(rid)
         with self._work:
             for rid in finished:
                 self.batcher.release(rid)    # tokens already delivered
@@ -823,6 +1198,41 @@ class ServingEngine:
                                     self._finish_reason(req))
             self._update_gauges_locked()
             self._work.notify_all()
+
+    def _surrender(self, rid: int) -> None:
+        """Prefill-role handoff (engine thread): the request committed
+        its first token(s). Export its KV, attach the snapshot to the
+        handle and FINISH it with reason "prefill_complete"; a
+        disaggregated Router migrates the snapshot to a decode replica
+        and the client stream continues. When the export fails the
+        snapshot stays None and the Router re-prefills warm from
+        `prompt + tokens`."""
+        with self._work:
+            req = self._running.get(rid)
+        if req is None:
+            return
+        snap = None
+        try:
+            snap = self.batcher.export_kv(rid)
+        except Exception:             # this handoff re-prefills instead
+            snap = None
+        self.batcher.abort(rid)
+        self.batcher.release(rid)
+        with self._work:
+            self._running.pop(rid, None)
+            self._last_emit.pop(rid, None)
+            req.kv_snapshot = snap
+            self._c_handoffs.inc()
+            if snap is not None:
+                self._c_kv_exports.inc()
+            if self.trace is not None and req.trace_id is not None:
+                self.trace.emit(
+                    req.trace_id, "prefill_complete",
+                    exported=snap is not None,
+                    bytes=0 if snap is None else snap.nbytes,
+                    tokens_kept=len(req.tokens))
+            self._finish_locked(req, RequestState.FINISHED,
+                                "prefill_complete")
 
     def _finish_reason(self, req: GenerationRequest) -> str:
         last = req.tokens[-1] if req.tokens else None
@@ -863,13 +1273,237 @@ class ServingEngine:
         req._finish(state, reason, error=error, now=self._clock())
         self._work.notify_all()
 
+    # ---- fault tolerance -------------------------------------------------
+    def _quarantine(self, error: BaseException) -> None:
+        """Step-failure recovery (engine thread): convict by re-running
+        the failing tick's suspects one at a time, FAIL (or park for a
+        backoff retry) only the culprits, and recover every innocent —
+        restored slot-in-place through export/import (the failed call
+        committed nothing), or requeued at the front of the admission
+        queue to resume from `prompt + tokens`.
+
+        Suspects come from the flight recorder's last record: decode
+        slot rids for a decode or spec tick, decode rids + unit rids for
+        a fused tick, unit rids for a standalone prefill (the batcher
+        already rolled those back onto its queue). A suspect whose solo
+        probe raises is a culprit; when NO probe reproduces the failure
+        every suspect is a transient culprit and is charged a retry, so
+        recovery converges. A failed `spec_*` tick indicts the spec
+        pipeline: every survivor re-admits with speculation off."""
+        b = self.batcher
+        records = b.flight.records()
+        rec = records[-1] if records else {}
+        mode = rec.get("mode")
+        if mode == "fused":
+            suspects = list(rec.get("decode_rids", [])) + \
+                [r for u in rec.get("units", []) for r in u]
+        else:       # "decode" | "prefill" | "spec_*" all carry rids
+            suspects = list(rec.get("rids", []))
+        spec_tick = str(mode or "").startswith("spec")
+        with self._lock:
+            self._c_step_faults.inc()
+            self._c_quarantines.inc()
+            self._last_fault_t = self._clock()
+            suspects = [r for r in suspects if r in self._running]
+        # probes run OUTSIDE the lock (device work) and UNDER the
+        # watchdog: a probe can hang exactly like the step did
+        culprits: Dict[int, BaseException] = {}
+        for rid in suspects:
+            slot = next((s for s in range(b.B)
+                         if b.active[s] and b.slot_req[s] == rid), None)
+            self._step_t0 = self._clock()
+            try:
+                if slot is not None:
+                    b.probe_decode_slot(slot)
+                else:
+                    b.probe_queued(rid)
+            except Exception as pe:   # a solo re-run raised: convicted
+                culprits[rid] = pe
+            finally:
+                self._step_t0 = None
+            if self._wedged:
+                return        # a hung probe tripped the watchdog
+        convicted = bool(culprits)
+        if not convicted:
+            culprits = {rid: error for rid in suspects}
+        with self._work:
+            order = sorted(self._running.items(),
+                           key=lambda kv: kv[1].admitted_index or 0)
+            victims: List[GenerationRequest] = []
+            restorable: List = []        # (request, snapshot) innocents
+            for rid, req in order:
+                snap = None
+                if rid not in culprits and not req.cancel_requested:
+                    # slot-in-place recovery: the failed call committed
+                    # nothing, so an innocent's slot state is intact —
+                    # export its KV now and re-import it below
+                    try:
+                        snap = b.export_kv(rid)
+                    except Exception:  # degrades to the requeue path
+                        snap = None
+                b.abort(rid)
+                b.release(rid)
+                self._last_emit.pop(rid, None)
+                if spec_tick:
+                    req.spec_opt_out = True
+                if rid in culprits:
+                    self._retry_or_fail_locked(req, culprits[rid],
+                                               convicted)
+                elif snap is not None:
+                    restorable.append((req, snap))
+                else:
+                    victims.append(req)
+            self._running.clear()
+            for req, snap in restorable:
+                try:
+                    rid2 = b.import_kv(snap)
+                except Exception:     # requeue instead: cold, not lost
+                    victims.append(req)
+                    continue
+                req.request_id = rid2
+                self._running[rid2] = req
+                self._c_kv_exports.inc()
+                self._c_kv_imports.inc()
+                self._c_restored.inc()
+                if self.trace is not None and req.trace_id is not None:
+                    self.trace.alias(rid2, req.trace_id)
+                    self.trace.emit(req.trace_id, "restored",
+                                    reason="quarantine_victim", rid=rid2,
+                                    tokens_kept=len(req.tokens),
+                                    re_prefill=0, spec_fallback=spec_tick)
+            for req in victims:
+                self._c_requeued.inc()
+                if self.trace is not None and req.trace_id is not None:
+                    self.trace.emit(req.trace_id, "requeued",
+                                    reason="quarantine_victim",
+                                    tokens_kept=len(req.tokens),
+                                    spec_fallback=spec_tick)
+            self.queue.requeue(victims)
+            self._update_gauges_locked()
+            self._work.notify_all()
+
+    def _retry_or_fail_locked(self, req: GenerationRequest,
+                              error: BaseException,
+                              convicted: bool) -> None:
+        """A quarantined culprit's fate: transient-looking failures (per
+        the `retry_transient` predicate) park for an exponential-backoff
+        re-admission until `max_retries` is spent; everything else — and
+        an exhausted budget — is terminal FAILED."""
+        try:
+            transient = bool(self._retry_transient(error))
+        except Exception:             # a broken predicate fails fast
+            transient = False
+        if transient and req.retries < self._max_retries:
+            req.retries += 1
+            self._c_retried.inc()
+            backoff = self._retry_backoff_s * (2.0 ** (req.retries - 1))
+            if self.trace is not None and req.trace_id is not None:
+                self.trace.emit(req.trace_id, "retried",
+                                retries=req.retries, backoff_s=backoff,
+                                convicted=convicted, error=repr(error))
+            self._parked.append([self._clock() + backoff, req])
+        else:
+            reason = ("retries_exhausted" if transient
+                      else "quarantine_culprit")
+            self._finish_locked(req, RequestState.FAILED, reason,
+                                error=error)
+
+    def _release_parked_locked(self) -> None:
+        """Move backoff-expired retries to the front of the admission
+        queue (they held admission before; fresh traffic waits)."""
+        if not self._parked:
+            return
+        now = self._clock()
+        ready = [e[1] for e in self._parked if e[0] <= now]
+        if ready:
+            self._parked = [e for e in self._parked if e[0] > now]
+            self.queue.requeue(ready)
+
+    def _watchdog_loop(self) -> None:
+        """Monitor thread: a device step still running past `watchdog_s`
+        means the engine thread is wedged inside a call that may never
+        return — dump forensics, flip health to UNHEALTHY and fail the
+        stranded requests' HANDLES (the batcher belongs to the wedged
+        thread). Until warmup() has run, the deadline is multiplied by
+        the compile grace: any step may be paying a lazy capture."""
+        poll = max(0.005, min(0.05, self._watchdog_s / 4.0))
+        while not self._wd_stop.wait(poll):
+            t0 = self._step_t0
+            if t0 is None or self._wedged:
+                continue
+            deadline = self._watchdog_s
+            if not self._warmed:
+                deadline *= self._wd_grace
+            stuck = self._clock() - t0
+            if stuck > deadline:
+                self._trip_watchdog(stuck)
+
+    def _trip_watchdog(self, stuck_s: float) -> None:
+        err = HungStepError(
+            f"device step exceeded the {self._watchdog_s}s watchdog "
+            f"deadline ({stuck_s:.3f}s and counting) — engine thread "
+            f"presumed wedged; see last_flight_dump for the hung tick's "
+            f"mode and unit composition")
+        # forensics first: the flight ring's last record IS the hung
+        # tick (recorded before its device call)
+        self._record_failure_dump(err)
+        with self._work:
+            if self._wedged:
+                return
+            self._wedged = True
+            self._accepting = False
+            self._c_watchdog.inc()
+            self._c_step_faults.inc()
+            self._last_fault_t = self._clock()
+            stranded = list(self._running.items())
+            self._running.clear()
+            parked = [e[1] for e in self._parked]
+            self._parked.clear()
+            queued = self.queue.clear()
+            for _, req in stranded:
+                self._finish_locked(req, RequestState.FAILED,
+                                    "watchdog_hung_step", error=err)
+            for req in parked + queued:
+                self._finish_locked(req, RequestState.FAILED,
+                                    "watchdog_engine_unhealthy", error=err)
+            self._work.notify_all()
+
+    def _mark_broken(self, reason: str, error: BaseException) -> None:
+        """Fault-fuse verdict (engine thread): the engine declares itself
+        UNHEALTHY without a wedged thread — in-flight requests were
+        already failed by `_fail_all_running`; queued and parked ones
+        fail here with `fault_streak_engine_unhealthy` (the Router
+        re-places them, a supervisor respawns this replica)."""
+        with self._work:
+            if self._broken is not None:
+                return
+            self._broken = reason
+            self._accepting = False
+            parked = [e[1] for e in self._parked]
+            self._parked.clear()
+            for req in parked + self.queue.clear():
+                self._finish_locked(req, RequestState.FAILED,
+                                    "fault_streak_engine_unhealthy",
+                                    error=error)
+            self._update_gauges_locked()
+            self._work.notify_all()
+
     def _fail_all_running(self, error: BaseException) -> None:
-        """A device step raised: every in-flight request fails with the
-        step error attached and its blocks return to the pool."""
+        """The conservative step-failure fallback (quarantine off, no
+        tick recorded, or the fuse blew): every in-flight request fails
+        with the step error attached. The failed call committed nothing,
+        so each request's KV is still exportable — a snapshot rides the
+        handle (`kv_snapshot`) so a Router failing it over imports it
+        instead of re-prefilling."""
         with self._work:
             self._c_step_faults.inc()
             self._last_fault_t = self._clock()
             for rid, req in list(self._running.items()):
+                try:
+                    req.kv_snapshot = self.batcher.export_kv(rid)
+                    self._c_kv_exports.inc()
+                except Exception:     # this victim re-prefills instead
+                    req.kv_snapshot = None
                 self.batcher.abort(rid)
                 self.batcher.release(rid)
                 self._finish_locked(req, RequestState.FAILED,

@@ -15,11 +15,15 @@ State machine (engine-thread writes, any thread reads):
 
 QUEUED can jump straight to CANCELLED / TIMED_OUT / FAILED (reaped
 before admission). Terminal states free the request's KV blocks back to
-the pool and close the channel.
+the pool and close the channel. One loop exists off the happy path:
+the engine's quarantine may requeue an in-flight request after a step
+failure, re-entering PREFILL from PREFILL or DECODING — the request
+resumes from `prompt + tokens`, so the channel only ever sees each
+token once.
 
-Host-side only (no torch): the JAX package's `serving/request.py`
-without the fields of the quarantine, speculative-fallback and
-KV-transfer paths, which this package does not port yet.
+Host-side only (no torch): the port's copy of the JAX package's
+`serving/request.py`, the quarantine, speculative-fallback and
+KV-transfer fields included.
 """
 from __future__ import annotations
 
@@ -92,7 +96,14 @@ class GenerationRequest:
     emitted (per-request — rides the ContinuousBatcher's per-slot stop
     support). `on_token` is called in the engine thread per generated
     token; if it raises, only THIS request fails (the engine's
-    exception boundary)."""
+    exception boundary).
+
+    Fault tolerance: `retries` counts backoff re-admissions the
+    engine's quarantine granted this request as a transient-failure
+    culprit (victims of SOMEONE ELSE'S fault are requeued without
+    consuming it). A re-admitted request resumes from
+    `prompt + tokens` — already-streamed tokens are never re-emitted
+    or lost — and `request_id` moves to the new batcher rid."""
 
     def __init__(self, prompt, *, priority: int = 0,
                  max_new_tokens: Optional[int] = None,
@@ -123,6 +134,18 @@ class GenerationRequest:
         self.first_token_time: Optional[float] = None
         self.finish_time: Optional[float] = None
         self.admitted_index: Optional[int] = None   # global admission order
+        self.retries = 0          # transient-culprit re-admissions used
+        # quarantine's plain-decode fallback: set when this request rode
+        # a FAILED speculative tick — its re-admissions opt out of the
+        # spec pipeline
+        self.spec_opt_out = False
+        # portable KV attached at a handoff boundary
+        # (serving.kvtransfer.KVSnapshot, or None): a prefill-role engine
+        # surrenders the request's KV here at "prefill_complete" and a
+        # failing engine attaches it on the way down — the Router imports
+        # it at the destination instead of re-prefilling, falling back to
+        # warm re-prefill when it is None
+        self.kv_snapshot = None
         self.trace_id: Optional[str] = None         # serving.trace timeline
 
         self._cancel = threading.Event()

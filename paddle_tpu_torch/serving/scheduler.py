@@ -17,8 +17,11 @@ the engine passes its cached-prefix preference, so a request whose
 prefix the cache holds right now is served before eviction recycles
 those blocks.
 
-Host-side only (no torch): the JAX package's `serving/scheduler.py`
-without the quarantine requeue, which belongs to fault tolerance.
+`requeue(items)` puts recovered in-flight work (the quarantine's
+victims, backoff-expired retries) in front of every waiting request.
+
+Host-side only (no torch): the port's copy of the JAX package's
+`serving/scheduler.py`.
 """
 from __future__ import annotations
 
@@ -49,6 +52,12 @@ class AdmissionQueue:
     9 intervals competes with fresh priority-0 traffic. Ties (same
     effective priority) break by submission order."""
 
+    # requeued items outrank every real priority level; aging can only
+    # make real priorities SMALLER over time, but never by anywhere near
+    # this much (2^30 aging intervals), so front entries stay in front
+    # without freezing the aging math
+    _FRONT_PRIORITY = -(1 << 30)
+
     def __init__(self, max_depth: int = 256,
                  aging_interval_s: float = 2.0,
                  clock: Callable[[], float] = time.monotonic):
@@ -59,6 +68,7 @@ class AdmissionQueue:
         self._clock = clock
         self._items: List[_Entry] = []
         self._seq = 0
+        self._front = 0        # decreasing seqs for front-requeued items
         self._lock = threading.Lock()
 
     def __len__(self) -> int:
@@ -135,3 +145,27 @@ class AdmissionQueue:
             items = [e.item for e in self._items]
             self._items.clear()
             return items
+
+    def requeue(self, items) -> None:
+        """Insert `items` at the FRONT of the queue — before every
+        waiting request at any priority, preserving the given order
+        among themselves (a later requeue batch goes in front of an
+        earlier one). The engine's quarantine/retry paths use this to
+        re-admit recovered in-flight work before fresh traffic.
+        Deliberately exempt from `max_depth`: these items already held
+        admission once, and bouncing them on backpressure would turn
+        recovery into data loss."""
+        with self._lock:
+            now = self._clock()
+            for item in reversed(list(items)):
+                self._front -= 1
+                self._items.append(_Entry(self._FRONT_PRIORITY,
+                                          self._front, now, item))
+
+    def peek(self):
+        """The item pop() would consider next (no removal)."""
+        with self._lock:
+            if not self._items:
+                return None
+            now = self._clock()
+            return min(self._items, key=lambda e: self._key(e, now)).item

@@ -434,6 +434,11 @@ def test_port_imports_no_jax():
         "          'paddle_tpu_torch.serving.cache',\n"
         "          'paddle_tpu_torch.serving.trace',\n"
         "          'paddle_tpu_torch.serving.slo',\n"
+        "          'paddle_tpu_torch.serving.faults',\n"
+        "          'paddle_tpu_torch.serving.kvtransfer',\n"
+        "          'paddle_tpu_torch.serving.router',\n"
+        "          'paddle_tpu_torch.serving.supervisor',\n"
+        "          'paddle_tpu_torch.serving.frontend',\n"
         "          'paddle_tpu_torch.serving.profiling'):\n"
         "    assert n in names, n\n"
         "assert not any(m in ('jax', 'optax')\n"

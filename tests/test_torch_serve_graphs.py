@@ -19,6 +19,9 @@ admissions, retirements and every step kind; greedy tokens equal the
 JAX batcher's; the prefill entry's first tokens (the LM head on the
 read rows only) equal the argmax of `forward_paged`'s full logits.
 """
+import sys
+import threading
+
 import numpy as np
 import pytest
 
@@ -363,3 +366,55 @@ def test_step_graph_eager_entry_calls_its_step():
     x = torch.arange(3.0)
     assert torch.equal(e(x=x), x + 1)
     assert seen == [x] and not e.graphed and e.idle is idle
+
+
+def test_capture_tally_is_not_touched_by_concurrent_replays():
+    """A capture counts into its own thread's tally while other threads
+    launch and replay at once: the capture leaves the shared counters
+    alone, the replays' additions all land, and the tally holds only the
+    capturing thread's launches (the graphs of two replicas on one
+    card, one respawning while the other serves)."""
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention_fwd
+    from paddle_tpu_torch.nlp.ragged_attention import ragged_paged_attention
+
+    class _Replayed:
+        def replay(self):
+            pass
+
+    entry = tpaged._StepGraph(lambda x: x, {"x": torch.zeros(1)},
+                              graphed=False)
+    entry.graph, entry.static, entry.out = _Replayed(), {"x": torch.zeros(1)}, 0
+    entry.deltas = {(flash_attention_fwd, "launches"): 1,
+                    (ragged_paged_attention, "launches"): 32}
+    n, replayers = 2000, 3
+    f0, r0 = flash_attention_fwd.launches, ragged_paged_attention.launches
+    tallies, go = [], threading.Barrier(replayers + 1)
+
+    def capture():
+        go.wait()
+        with _build.capture_tally() as tally:
+            for _ in range(n):
+                _build.count(ragged_paged_attention)
+        tallies.append(dict(tally))
+
+    def replay():
+        go.wait()
+        for _ in range(n):
+            entry(x=torch.zeros(1))
+            _build.count(flash_attention_fwd)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=capture)] + [
+            threading.Thread(target=replay) for _ in range(replayers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(interval)
+    assert tallies == [{(ragged_paged_attention, "launches"): n}]
+    assert flash_attention_fwd.launches - f0 == replayers * n * 2
+    assert ragged_paged_attention.launches - r0 == replayers * n * 32

@@ -13,6 +13,7 @@ Prometheus export working.
 import inspect
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -287,14 +288,15 @@ _SHARED = ("prefix_cache", "trace", "slo", "warmup", "flight_recorder_cap",
            "max_total_len", "max_new_tokens", "chunk", "max_queue_depth",
            "fused_prefill", "fused_units", "max_prefill_bucket",
            "speculative", "spec_k", "mesh", "watchdog_s", "fault_injector",
-           "role")
+           "role", "quarantine", "max_retries", "retry_backoff_s",
+           "retry_transient", "watchdog_compile_grace", "health_window_s")
 
 
 def test_engine_defaults_match_jax(models):
     """ServingEngine(params, cfg, device="cpu") takes the JAX engine's
-    defaults — prefix caching, the trace and SLOs on — each off value is
-    accepted, the unported options still raise NotImplementedError and
-    fault tolerance's tuning kwargs are not taken at all; health() and
+    defaults — prefix caching, the trace and SLOs on, and fault
+    tolerance's tuning kwargs — each off value is accepted, the mesh (the
+    one option not ported) still raises NotImplementedError; health() and
     load() have the JAX engine's keys."""
     jcfg, jparams, tcfg, tparams = models
     jsig = inspect.signature(jengine.ServingEngine.__init__).parameters
@@ -323,18 +325,20 @@ def test_engine_defaults_match_jax(models):
     assert off.trace is None and off.batcher._pcache is None
     assert off.health()["slo"] is None
     assert off.snapshot()["prefix_cache"] == {"enabled": False}
-    for kw in ({"mesh": object()}, {"watchdog_s": 1.0},
-               {"fault_injector": object()}, {"role": "decode"}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ServingEngine(tparams, tcfg, device="cpu", start=False, **kw,
-                          **ENGINE_KW)
-    for kw in ({"quarantine": True}, {"max_retries": 2},
-               {"retry_backoff_s": 0.1}, {"health_window_s": 30.0},
-               {"watchdog_compile_grace": 16.0}):
-        with pytest.raises(TypeError, match="unexpected keyword"):
-            ServingEngine(tparams, tcfg, device="cpu", start=False, **kw,
-                          **ENGINE_KW)
-    for e in (eng, off):
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ServingEngine(tparams, tcfg, device="cpu", start=False,
+                      mesh=object(), **ENGINE_KW)
+    for name in ("quarantine", "max_retries", "retry_backoff_s",
+                 "retry_transient", "watchdog_compile_grace",
+                 "health_window_s", "watchdog_s", "fault_injector", "role"):
+        assert name in tsig, name
+    tuned = ServingEngine(tparams, tcfg, device="cpu", start=False,
+                          quarantine=False, max_retries=0,
+                          retry_backoff_s=0.1, health_window_s=5.0,
+                          watchdog_compile_grace=2.0, watchdog_s=1.0,
+                          role="decode", **ENGINE_KW)
+    assert tuned.health()["role"] == "decode"
+    for e in (eng, off, tuned):
         assert e.shutdown(timeout=10)
 
 
@@ -356,11 +360,18 @@ def test_engine_serves_with_observability(models, tmp_path):
     with pytest.raises(RuntimeError, match="before start"):
         eng.warmup()
     prompts = _prompts(32, (9, 17, 5))
-    reqs = [eng.submit(q) for q in prompts]
     cap = {}
     t = threading.Thread(target=lambda: cap.update(
         eng.capture_profile(steps=1, timeout=60)))
     t.start()
+    # the window must be armed before the traffic it is to capture: the
+    # whole burst takes ~0.15 s, and a thread that reaches arm_capture()
+    # only after the last tick waits out its timeout with nothing fenced
+    armed_by = time.monotonic() + 60
+    while not eng.batcher.profiler.capture_active():
+        assert time.monotonic() < armed_by, "capture window never armed"
+        time.sleep(0.001)
+    reqs = [eng.submit(q) for q in prompts]
     outs = [r.result(timeout=120) for r in reqs]
     again = eng.generate(prompts[0], timeout=120)
     t.join(timeout=60)

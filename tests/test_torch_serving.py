@@ -2,7 +2,8 @@
 `generate` and `stream` are identical to the JAX batcher's for the same
 prompts (f32 tiny model, weights carried across with
 `params_from_numpy`), admissions land mid-decode (fused steps), the pool
-drains, and what the port does not serve yet is refused by name.
+drains, the roles, the watchdog and fault injection do what they say,
+and what the port does not serve yet is refused by name.
 """
 import threading
 
@@ -106,16 +107,13 @@ def test_submit_cancel_and_shutdown(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    {"role": "decode"}, {"mesh": object()},
-    {"spec_attention_impl": "xla"}, {"watchdog_s": 0.0},
-    {"watchdog_s": 1.0}, {"fault_injector": object()},
-    {"role": "prefill"}, {"spec_attention_impl": "pallas"},
+    {"mesh": object()},
+    {"spec_attention_impl": "xla"}, {"spec_attention_impl": "pallas"},
 ])
 def test_unported_options_raise(setup, kw):
-    """Options of later slices are accepted only at their off value, and
-    the spec backend switch only as None (the device decides). Prefix
-    caching, tracing and SLOs are ported: test_torch_serve_observability
-    holds their defaults."""
+    """The tensor-parallel mesh is a later slice, accepted only at its
+    off value; the spec backend switch only as None (the device
+    decides)."""
     tcfg, tparams, _ = setup
     with pytest.raises(NotImplementedError,
                        match="later slice|no backend switch"):
@@ -123,20 +121,86 @@ def test_unported_options_raise(setup, kw):
                       **ENGINE_KW)
 
 
+@pytest.mark.parametrize("kw", [
+    {"role": "decode"}, {"role": "prefill"}, {"watchdog_s": 0.0},
+    {"watchdog_s": 1.0}, {"fault_injector": "injector"},
+])
+def test_ported_options_work(setup, kw):
+    """The roles, the watchdog and fault injection are ported: each
+    option builds an engine that does what it says on the prompts the
+    JAX batcher's outputs were taken for."""
+    from paddle_tpu_torch.serving import FaultInjector, RequestFailed
+    tcfg, tparams, ref = setup
+    prompts = _prompts()
+    if kw.get("fault_injector") == "injector":
+        kw = {"fault_injector": FaultInjector().fail_on_rid(0)}
+    eng = ServingEngine(tparams, tcfg, device="cpu", start=False, **kw,
+                        **ENGINE_KW)
+    try:
+        if "role" in kw:
+            assert eng.role == kw["role"] and eng.health()["role"] == \
+                kw["role"]
+            req = eng.submit(prompts[1])
+            eng.start()
+            out = req.result(timeout=120)
+            if kw["role"] == "prefill":
+                # surrendered at the first committed token, KV attached
+                assert req.finish_reason == "prefill_complete"
+                assert out == ref[1][:len(out)] and len(out) < len(ref[1])
+                assert req.kv_snapshot is not None
+            else:
+                assert out == ref[1]
+        elif kw.get("watchdog_s") == 0.0:
+            # a zero deadline trips at the first device call
+            req = eng.submit(prompts[1])
+            eng.start()
+            with pytest.raises(RequestFailed):
+                req.result(timeout=120)
+            assert eng.health()["watchdog_trips"] == 1
+            assert eng.health()["status"] == "UNHEALTHY"
+        elif "watchdog_s" in kw:
+            eng.start()
+            assert eng.generate(prompts[1], timeout=120) == ref[1]
+            assert eng.health()["watchdog_trips"] == 0
+        else:
+            # rid 0 is poisoned: only it fails, the other finishes
+            r0, r1 = eng.submit(prompts[0]), eng.submit(prompts[1])
+            eng.start()
+            with pytest.raises(RequestFailed):
+                r0.result(timeout=120)
+            assert r1.result(timeout=120) == ref[1]
+            assert eng.health()["quarantines"] >= 1
+    finally:
+        eng.shutdown(drain=False, timeout=10)
+
+
 def test_off_values_accepted_and_kv_export_refused(setup):
+    """Every option at its off value builds; unknown kwargs raise
+    TypeError; KV transfer is ported, and refuses what it cannot serve:
+    drain_export() on a parked engine exports nothing, and an object that
+    is not a snapshot is refused with TypeError before anything is
+    queued or counted."""
     tcfg, tparams, _ = setup
     eng = ServingEngine(tparams, tcfg, device="cpu", start=False,
                         prefix_cache=False, speculative=False, slo=False,
                         trace=False, kv_dtype="fp", role="both",
-                        mesh=None, watchdog_s=None, **ENGINE_KW)
-    with pytest.raises(NotImplementedError):
-        eng.drain_export()
-    with pytest.raises(NotImplementedError):
+                        mesh=None, watchdog_s=None, fault_injector=None,
+                        **ENGINE_KW)
+    assert eng.drain_export() == []
+    before = (eng.load(), eng.health(), eng._c_rejected.value,
+              eng._c_submitted.value)
+    with pytest.raises(TypeError, match="KVSnapshot"):
         eng.submit_import(object())
+    assert eng._imports == [] and eng.load()["pending_imports"] == 0
+    assert (eng.load(), eng.health(), eng._c_rejected.value,
+            eng._c_submitted.value) == before
     for unknown in ({"no_such_option": 1}, {"attention_impl": "ref"}):
         with pytest.raises(TypeError):
             ServingEngine(tparams, tcfg, device="cpu", start=False,
                           **unknown, **ENGINE_KW)
+    with pytest.raises(ValueError, match="role"):
+        ServingEngine(tparams, tcfg, device="cpu", start=False,
+                      role="router", **ENGINE_KW)
     assert eng.shutdown(timeout=10)
 
 
