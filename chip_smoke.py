@@ -176,6 +176,36 @@ non-zero:
                the tree adamw (f32 moments) behind the clip, 16 x 2048,
                2 warm-up and 4 timed steps; no 8-bit AdamW launch.
 
+  14. predict — `inference.create_predictor` serving the flagship 2B
+               (generate's tree of random bf16 weights, written by
+               `inference.llm.save_llm` into a temporary directory): the dense greedy run (8
+               prompts of 512, 128 new; the flash prefill, then the
+               decode step from one CUDA graph), the paged run (8
+               right-padded prompts of 128-512, block 64; row 18 each
+               decode step) and the int8 weight-only run, twice each;
+               tokens equal to `generate` / `paged_generate` called
+               directly; exactly 11 flash launches a run, row 18 only in
+               the paged runs; write and load seconds, tokens/s.
+  15. resnet50 — BASELINE config 0 on the eager API
+               (`tools/resnet_train.py`): resnet50 at 224x224, batch 256,
+               Momentum 0.9, weight decay 1e-4, PiecewiseDecay from 0.1,
+               in f32 with TF32 and under O1 bf16; device-fed (2 warm-up
+               and 4 timed steps) and loader-fed (one epoch of 8192
+               seeded uint8 256x320 images, 4 batches a worker, through
+               RandomResizedCrop, RandomHorizontalFlip, Normalize and
+               Transpose in 8 DataLoader workers over the shared-memory
+               ring): images/s, MFU (6 x the forward's conv and fc MACs
+               an image), peak memory, the loader's start-up and its
+               steady images/s and wait share; the losses must fall and
+               the BatchNorm statistics move. Then grad_check_resnet:
+               resnet18 (2 x 3 x 64 x 64, f32, TF32 off) forward and one
+               Momentum step on the card against the port's CPU run, a
+               BatchNorm given torch's momentum convention and the
+               Nesterov update as the planted faults.
+  16. beam   — BeamSearchDecoder over an LSTMCell (hidden 512, vocab
+               8000, batch 32, beam 4, 32 steps): the best beam's score
+               against the teacher-forced sum of its log-probabilities.
+
 The kernels phase also holds the fused LayerNorm forward and backward at
 the eager step's f32 [32768, 768] and in bf16, the flash forward and
 backward non-causal at B=64 S=512 H=12 hd=64 and causal at the eager
@@ -194,7 +224,9 @@ the flash forward at B=1 S=8192 H=32 KV=8 (the prefill), the forward
 and backward at B=2 S=8192 (long8k), B=1 S=4096 and 8192 (the 8B
 layer) and B=16 S=2048 H=16 KV=8 (the 0.5B; plain versions at S=8192
 one KV head's group at a time), the RMSNorm pair at [8192, 4096],
-[4096, 4096] and [32768, 2048] with an f32 weight. The kernels line
+[4096, 4096] and [32768, 2048] with an f32 weight; and the predict
+phase's flash prefill at B=8 S=512 and its paged decode (8 rows of 640
+keys in blocks of 64). The kernels line
 lists all 18 pallas_call rows of the JAX package, each kernel's times
 and launches by path; the flash backward's launches also by the JAX
 package's rows (2-4 above S 2048, 5 at or below).
@@ -220,6 +252,8 @@ SEED = 0
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit: dense bf16
 # tensor-core FLOP/s, HBM bytes/s, and f32 FLOP/s outside the tensor cores
 _H100_SXM_PEAKS = (989e12, 3.35e12, 67e12)
+# the same sheet's dense TF32 tensor-core rate
+_TF32_PEAK = 495e12
 
 
 def _emit(obj) -> None:
@@ -457,16 +491,16 @@ def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
     return _shares(res)
 
 
-def _ragged_case(kind, H, KV, hd, gen, flush):
+def _ragged_case(kind, H, KV, hd, gen, flush, bs=16, M=64):
     """Row 18 at one of bench_kernels' held batches (decode, fused,
-    continue, full8, full32) against its plain version, twice: within
+    continue, full8, full32; blocks of `bs` keys, chains of up to `M`
+    blocks) against its plain version, twice: within
     KERNEL_TOL (bench_kernels.TOL, the same 2e-2), invalid queries zero
     and the two outputs bit-identical; timed with the host in the loop
     and in one CUDA graph (`graph_ms`, device time, over pool copies
     that exceed the L2), beside the plain version's time."""
     from paddle_tpu_torch.nlp import ragged_attention as ra
     from paddle_tpu_torch.tools import bench_kernels as bk
-    bs, M = 16, 64
     args, (pos, val) = bk.ragged_batch(kind, H, KV, hd, bs, M, gen, SEED)
     R, P = pos.shape
     live = np.where(val, pos + 1, 0).max(axis=1)
@@ -1519,6 +1553,9 @@ def phase_kernels(peaks):
     ragged = [_ragged_case(kind, H, KV, hd, gen, flush)
               for kind in ("decode", "fused", "continue", "full8",
                            "full32")]
+    # the predictor's paged decode (phase predict) at its last step: 8
+    # rows of 640 live keys in blocks of 64
+    ragged.append(_ragged_case("full8", H, KV, hd, gen, flush, bs=64, M=10))
     # row 18's two options at serve_quant_spec's shapes: the int8 pool
     # at the decode, fused and full-chain batches; the suffix slab at the
     # chain verify (spec_k 4), the tree verify ([2, 2, 1]) and a draft step
@@ -1606,6 +1643,8 @@ def phase_kernels(peaks):
         torch.cuda.empty_cache()
     flash.append(_flash_case(16, 2048, 16, 8, hd, peaks, KERNEL_TOL, gen,
                              lse=True))
+    # the inference predictor's prefill (phase predict): 8 prompts of 512
+    flash.append(_flash_case(8, 512, H, KV, hd, peaks, KERNEL_TOL, gen))
     for B_, S_ in ((2, 8192), (1, 8192)):
         bwd.append(_flash_bwd_case(B_, S_, H, KV, hd, peaks, gen,
                                    by_kv_head=True))
@@ -4550,7 +4589,8 @@ def phase_generate(peaks):
     (bench.py:236), greedy decode of 128 tokens after 512 at batch 8 from
     the bf16 tree and from `quantize_for_serving(bits=8)`'s, and at batch
     32 from the w8 tree (bench.py:270, :389-393), each by
-    `tools/bench.py`'s protocol; then the checks."""
+    `tools/bench.py`'s protocol; then the checks. Returns the result
+    and the tree, as {"params": ...}, for phase_predict."""
     from paddle_tpu_torch.kernels.flash_attention import flash_attention_fwd
     from paddle_tpu_torch.nlp import llama
     from paddle_tpu_torch.tools import bench
@@ -4588,6 +4628,8 @@ def phase_generate(peaks):
     w8 = _w8_logits_check(params, dcfg)
     torch.cuda.empty_cache()
     logits = _prefill_logits_check(params, cfg)
+    # phase_predict serves the same tree
+    tree = {"params": params}
     del params
     torch.cuda.empty_cache()
     res = {"phase": "generate",
@@ -4642,7 +4684,7 @@ def phase_generate(peaks):
         raise AssertionError(f"prefill logits: the planted off-by-one reads "
                              f"{logits['fault_ratio']} x, within the bound: "
                              f"{logits}")
-    return res
+    return res, tree
 
 
 # ------------------------------ 11-13. long8k, layer8b, train05b (bench.py)
@@ -4734,6 +4776,461 @@ def phase_layer8b(peaks, timed=8):
     return runs
 
 
+# ------------------------------- 14. predict (inference.create_predictor)
+PRED_BATCH, PRED_PROMPT, PRED_NEW = 8, 512, 128
+PRED_BLOCK = 64
+
+
+def _predict_prompts(vocab):
+    """The dense run's 8 prompts of 512 tokens, and the paged run's 8
+    right-padded prompts of 128-512 tokens (pad 0; the longest 512)."""
+    rng = np.random.default_rng(SEED)
+    dense = rng.integers(1, vocab, (PRED_BATCH, PRED_PROMPT)).astype(np.int32)
+    lengths = rng.integers(128, PRED_PROMPT + 1, PRED_BATCH)
+    lengths[0] = PRED_PROMPT
+    padded = rng.integers(1, vocab, (PRED_BATCH, PRED_PROMPT)).astype(
+        np.int32)
+    padded[np.arange(PRED_PROMPT)[None] >= lengths[:, None]] = 0
+    return dense, padded, lengths
+
+
+def phase_predict(peaks, tree):
+    """`inference.create_predictor` serving an LLM at the flagship 2B
+    widths (bench.py:120): phase_generate's tree of random bf16 weights
+    (taken out of `tree`, so that it is freed once written) is written
+    with `save_llm` into a temporary directory and each predictor loads
+    it. Three configs, each run twice (the second run timed): the
+    dense greedy run (8 prompts of 512, 128 new tokens: the flash prefill,
+    row 1, then the decode step replayed from one CUDA graph), the paged
+    run (8 right-padded prompts of 128-512, block 64: row 1's prefill and
+    row 18's ragged paged attention each decode step) and
+    `enable_weight_only("int8")`'s dense run. Every run's tokens must
+    equal those of `generation.generate` / `paged_generate` called
+    directly on the tree in memory (and on its int8 quantization); counts
+    are zeroed before each predictor run and read after it: row 1 exactly
+    L a prefill, row 18 at least once in a paged run and never in a dense
+    one."""
+    import os
+    import tempfile
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.inference import llm
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention_fwd
+    from paddle_tpu_torch.nlp import generation, llama, paged
+    from paddle_tpu_torch.nlp.ragged_attention import ragged_paged_attention
+    cfg = llama.LlamaConfig.flagship_2b(
+        max_position_embeddings=PRED_PROMPT + PRED_NEW)
+    L = cfg.num_hidden_layers
+    params = tree.pop("params")
+    dense, padded, lengths = _predict_prompts(cfg.vocab_size)
+    # the references: the same tree through the generation entry points
+    want = {"dense": generation.generate(params, dense, cfg,
+                                         max_new_tokens=PRED_NEW),
+            "paged": paged.paged_generate(params, padded, lengths, cfg,
+                                          max_new_tokens=PRED_NEW,
+                                          block_size=PRED_BLOCK)[0]}
+    w8 = generation.quantize_for_serving(params, bits=8)
+    want["int8"] = generation.generate(w8, dense, cfg,
+                                       max_new_tokens=PRED_NEW)
+    del w8
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    counters = {"flash_attention_fwd": flash_attention_fwd,
+                "ragged_paged_attention": ragged_paged_attention}
+    totals = {n: 0 for n in counters}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "flagship_2b")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llm.save_llm(prefix, params, cfg)
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(prefix + llm.LLM_SUFFIX)
+        del params
+        torch.cuda.empty_cache()
+        for name, ids in (("dense", dense), ("paged", padded),
+                          ("int8", dense)):
+            c = inference.Config(prefix)
+            c.enable_llm_generation(max_new_tokens=PRED_NEW)
+            if name == "int8":
+                c.enable_weight_only("int8")
+            if name == "paged":
+                c.enable_paged_kv(block_size=PRED_BLOCK)
+            t0 = time.perf_counter()
+            pred = inference.create_predictor(c)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            outs, walls, launches = [], [], []
+            for _ in range(2):
+                for ctr in counters.values():
+                    ctr.launches = 0
+                pred.get_input_handle("input_ids").copy_from_cpu(ids)
+                t0 = time.perf_counter()
+                pred.run()
+                walls.append(time.perf_counter() - t0)
+                launches.append({n: ctr.launches
+                                 for n, ctr in counters.items()})
+                outs.append(pred.get_output_handle(
+                    "generated_ids").copy_to_cpu())
+            for la in launches:
+                for n, v in la.items():
+                    totals[n] += v
+            runs[name] = {
+                "load_s": load_s, "first_run_s": walls[0],
+                "run_s": walls[1],
+                "tokens_per_s": PRED_BATCH * PRED_NEW / walls[1],
+                "launches_per_run": launches,
+                "tokens_equal_direct": all(
+                    np.array_equal(o, want[name]) for o in outs),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            if name == "paged":
+                runs[name]["allocator"] = pred._paged_stats
+                runs[name]["prompt_lengths"] = lengths.tolist()
+            del pred
+            torch.cuda.empty_cache()
+    res = {"phase": "predict",
+           "config": "flagship_2b (bench.py:120) through "
+                     "inference.create_predictor",
+           "widths": {"D": cfg.hidden_size, "F": cfg.intermediate_size,
+                      "L": L, "H": cfg.num_attention_heads,
+                      "KV": cfg.num_key_value_heads, "V": cfg.vocab_size},
+           "batch": PRED_BATCH, "prompt": PRED_PROMPT, "new": PRED_NEW,
+           "block_size": PRED_BLOCK, "write_s": write_s,
+           "file_bytes": file_bytes, "runs": runs, "launches": totals,
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    for name, r in runs.items():
+        if not r["tokens_equal_direct"]:
+            raise AssertionError(f"predict {name}: the predictor's tokens "
+                                 f"differ from the direct call's")
+        for la in r["launches_per_run"]:
+            if la["flash_attention_fwd"] != L:
+                raise AssertionError(f"predict {name}: {la} launches, "
+                                     f"expected {L} flash a prefill")
+            ragged = la["ragged_paged_attention"]
+            if (name == "paged") != (ragged >= 1):
+                raise AssertionError(f"predict {name}: {ragged} ragged "
+                                     f"launches")
+    return res
+
+
+# ------------------------------------ 15. resnet50 (BASELINE config 0)
+RESNET_BATCH, RESNET_SIZE = 256, 224
+# the loader-fed epoch: 4 batches for each worker, so that each builds
+# batches after its first and the steady state shows past start-up
+RESNET_LOADER_WORKERS = 8
+RESNET_LOADER_IMAGES = 4 * RESNET_LOADER_WORKERS * RESNET_BATCH
+# the ResNet gradient check: the card's resnet18 forward and one Momentum
+# step against the port's CPU run, relative to the logits' and the
+# step's largest magnitudes (tests/test_torch_vision.py's tolerances)
+RESNET_LOGITS_TOL = 1e-4
+RESNET_STEP_TOL = 1e-4
+
+
+def _bn_state(model):
+    return [b._data.clone() for _, b in model.named_buffers()]
+
+
+def _resnet_device_fed(paddle, rt, amp, warmup=2, timed=4):
+    """A fresh resnet50 (seeded) trained on one batch already on the
+    card: `warmup` then `timed` steps, one synchronize after the timed
+    ones."""
+    paddle.seed(SEED)
+    model, opt, sched = rt.build(paddle, 50, batch=RESNET_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = paddle.to_tensor(torch.randn(RESNET_BATCH, 3, RESNET_SIZE,
+                                     RESNET_SIZE, device="cuda",
+                                     generator=gen))
+    y = paddle.to_tensor(torch.randint(0, 1000, (RESNET_BATCH,),
+                                       device="cuda", generator=gen))
+    bn0 = _bn_state(model)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [rt.train_step(paddle, model, opt, sched, x, y, amp)
+              for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        losses.append(rt.train_step(paddle, model, opt, sched, x, y, amp))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(_bn_state(model), bn0))
+    return model, opt, sched, {
+        "steps": warmup + timed, "timed_steps": timed,
+        "step_ms": dt / timed * 1e3, "images_per_s": RESNET_BATCH * timed / dt,
+        "losses": [float(v) for v in losses],
+        "bn_stats_max_move": moved,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _resnet_loader_fed(paddle, rt, model, opt, sched, amp, loader):
+    """The same model fed by `loader` (`rt.image_pipeline`) for one
+    epoch. Start-up is the time from `iter()` (which forks the workers)
+    to the first batch. The steady window runs from the arrival of the
+    last batch of the first round (one batch a worker) to the arrival of
+    the epoch's last batch: its images/s and the share of it the host
+    spent blocked in the loader's __next__ (the wait share) are the
+    loader's steady state; the epoch's wall time covers both."""
+    from paddle_tpu_torch.io import dataloader as dl_mod
+    workers = loader.num_workers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = iter(loader)
+    ring = isinstance(it, dl_mod._MultiProcessIter) and it.ring is not None
+    waits, arrivals, losses = [], [], []
+    while True:
+        w0 = time.perf_counter()
+        try:
+            x, y = next(it)
+        except StopIteration:
+            break
+        arrivals.append(time.perf_counter())
+        waits.append(arrivals[-1] - w0)
+        losses.append(rt.train_step(paddle, model, opt, sched, x, y, amp))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k0 = workers - 1
+    steady_s = arrivals[-1] - arrivals[k0]
+    steady_batches = len(arrivals) - 1 - k0
+    return {"steps": len(losses), "workers": workers,
+            "images": len(loader.dataset), "wall_s": wall,
+            "images_per_s": len(loader.dataset) / wall,
+            "startup_s": arrivals[0] - t0,
+            "steady_batches": steady_batches, "steady_s": steady_s,
+            "steady_images_per_s": steady_batches * loader.batch_size
+            / steady_s,
+            "steady_step_ms": steady_s / steady_batches * 1e3,
+            "steady_loader_wait_share": sum(waits[k0 + 1:]) / steady_s,
+            "loader_wait_s": sum(waits), "loader_wait_share":
+            sum(waits) / wall, "shm_ring": ring,
+            "losses": [float(v) for v in losses]}
+
+
+def phase_resnet50(peaks):
+    """BASELINE config 0: the eager `resnet50(num_classes=1000)` at
+    224x224, batch 256, by He et al. 2016 §3.4's recipe
+    (`tools/resnet_train.py`: Momentum 0.9, weight decay 1e-4,
+    PiecewiseDecay from 0.1), in f32 (TF32 convolutions and products, as
+    cuDNN runs them by default; off again after this phase) and under
+    `amp.auto_cast(level="O1", dtype="bfloat16")`. Device-fed: one seeded
+    batch already on the card, 2 warm-up and 4 timed steps. Loader-fed:
+    one epoch of `image_pipeline`'s RESNET_LOADER_IMAGES images, 4
+    batches for each of its 8 workers, made once for both runs. MFU counts 3 x 2 x the
+    forward's convolution and classifier MACs an image (`forward_macs`)
+    against the card's TF32 or bf16 peak. Fails unless every loss is
+    finite, the device-fed losses fall and the BatchNorm running
+    statistics moved."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.io import shm_ring
+    from paddle_tpu_torch.tools import resnet_train as rt
+    paddle.set_device("gpu")
+    torch.cuda.empty_cache()
+    macs = rt.forward_macs(paddle, rt.build(paddle, 50)[0], RESNET_SIZE)
+    flops_per_image = 3 * 2 * macs
+    t0 = time.perf_counter()
+    loader = rt.image_pipeline(paddle, n=RESNET_LOADER_IMAGES,
+                               hw=(256, 320), batch=RESNET_BATCH,
+                               workers=RESNET_LOADER_WORKERS,
+                               size=RESNET_SIZE, seed=SEED)
+    res = {"phase": "resnet50",
+           "config": "resnet50 (BASELINE config 0), 224x224, batch 256, "
+                     "He et al. 2016 §3.4",
+           "forward_macs": macs, "flops_per_image": flops_per_image,
+           "loader_images": RESNET_LOADER_IMAGES,
+           "loader_setup_s": time.perf_counter() - t0,
+           "shm_ring_native": shm_ring.native_available(), "runs": {}}
+    for name, amp, peak in (("f32_tf32", None, _TF32_PEAK),
+                            ("o1_bf16", "bfloat16", peaks[0])):
+        tf32 = amp is None
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            model, opt, sched, dev = _resnet_device_fed(paddle, rt, amp)
+            dev["mfu"] = dev["images_per_s"] * flops_per_image / peak
+            fed = _resnet_loader_fed(paddle, rt, model, opt, sched, amp,
+                                     loader)
+            fed["mfu"] = fed["images_per_s"] * flops_per_image / peak
+            fed["steady_mfu"] = fed["steady_images_per_s"] * \
+                flops_per_image / peak
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        res["runs"][name] = {"device_fed": dev, "loader_fed": fed,
+                             "peak_flops": peak}
+        del model, opt, sched
+        torch.cuda.empty_cache()
+    res["nvidia_smi"] = _smi_line()
+    _emit(res)
+    if not res["shm_ring_native"]:
+        raise AssertionError("the DataLoader's native shm ring did not build")
+    for name, r in res["runs"].items():
+        dev = r["device_fed"]
+        losses = dev["losses"] + r["loader_fed"]["losses"]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"resnet50 {name}: non-finite loss {losses}")
+        if not dev["losses"][-1] < dev["losses"][0]:
+            raise AssertionError(f"resnet50 {name}: the loss did not fall: "
+                                 f"{dev['losses']}")
+        if not dev["bn_stats_max_move"] > 0:
+            raise AssertionError(f"resnet50 {name}: the BatchNorm running "
+                                 f"statistics did not move")
+        if not r["loader_fed"]["shm_ring"]:
+            raise AssertionError(f"resnet50 {name}: the loader did not use "
+                                 f"the shared-memory ring")
+    return res
+
+
+def _resnet18_run(paddle, state, x, y, device, bn_momentum=0.9,
+                  nesterov=False):
+    """resnet18 from `state` (numpy) on `device`: one training forward,
+    the loss, its backward and one Momentum step → (logits, loss, the
+    parameters and running statistics after the step), as numpy."""
+    paddle.set_device(device)
+    model = paddle.vision.models.resnet18(num_classes=1000)
+    model.set_state_dict(state)
+    for layer in model.sublayers():
+        if isinstance(layer, paddle.nn.BatchNorm2D):
+            layer._momentum = bn_momentum
+    opt = paddle.optimizer.Momentum(0.1, momentum=0.9, weight_decay=1e-4,
+                                    use_nesterov=nesterov,
+                                    parameters=model.parameters())
+    logits = model(paddle.to_tensor(x))
+    loss = paddle.nn.functional.cross_entropy(logits, paddle.to_tensor(y))
+    loss.backward()
+    opt.step()
+    out = (logits.numpy(), float(loss),
+           {k: v.numpy().copy() for k, v in model.state_dict().items()})
+    paddle.set_device("gpu")
+    return out
+
+
+def phase_grad_check_resnet():
+    """resnet18's training forward and one Momentum step (lr 0.1,
+    momentum 0.9, weight decay 1e-4) on the card against the port's CPU
+    run from the same weights, 2 x 3 x 64 x 64 f32, with TF32 off for
+    the check (set here, restored after it): the logits within
+    RESNET_LOGITS_TOL of their largest magnitude; after the step, every
+    parameter within RESNET_STEP_TOL of the parameters' largest move and
+    every BatchNorm running statistic within it of the statistics'
+    largest move. Two planted faults must each read above the bound on
+    the part it moves: the card's BatchNorm given torch's momentum
+    convention (0.1 where Paddle's 0.9 means it) on the statistics, and
+    the Nesterov update in place of the plain one on the parameters."""
+    import paddle_tpu_torch as paddle
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        paddle.set_device("cpu")
+        paddle.seed(SEED)
+        model = paddle.vision.models.resnet18(num_classes=1000)
+        state = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+        stats = {k for k, _ in model.named_buffers()}
+        rng = np.random.default_rng(SEED)
+        x = rng.standard_normal((2, 3, 64, 64)).astype(np.float32)
+        y = rng.integers(0, 1000, (2,))
+        cpu = _resnet18_run(paddle, state, x, y, "cpu")
+        card = _resnet18_run(paddle, state, x, y, "gpu")
+        bn_fault = _resnet18_run(paddle, state, x, y, "gpu",
+                                 bn_momentum=0.1)
+        step_fault = _resnet18_run(paddle, state, x, y, "gpu",
+                                   nesterov=True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+    def step_err(run, keys):
+        moves = max(float(np.abs(cpu[2][k] - state[k]).max()) for k in keys)
+        return max(float(np.abs(run[2][k] - cpu[2][k]).max())
+                   for k in keys) / moves
+
+    params = [k for k in state if k not in stats]
+    logits_err = float(np.abs(card[0] - cpu[0]).max()) / \
+        float(np.abs(cpu[0]).max())
+    res = {"phase": "grad_check_resnet", "model": "resnet18",
+           "input": [2, 3, 64, 64], "logits_rel_err": logits_err,
+           "loss_cpu": cpu[1], "loss_card": card[1],
+           "param_step_rel_err": step_err(card, params),
+           "stats_step_rel_err": step_err(card, stats),
+           "bn_fault_stats_step_rel_err": step_err(bn_fault, stats),
+           "nesterov_fault_param_step_rel_err": step_err(step_fault, params),
+           "logits_tol": RESNET_LOGITS_TOL, "step_tol": RESNET_STEP_TOL,
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    if not logits_err <= RESNET_LOGITS_TOL:
+        raise AssertionError(f"resnet18 logits: {res}")
+    if not (res["param_step_rel_err"] <= RESNET_STEP_TOL
+            and res["stats_step_rel_err"] <= RESNET_STEP_TOL):
+        raise AssertionError(f"resnet18 Momentum step: {res}")
+    if not (res["bn_fault_stats_step_rel_err"] > RESNET_STEP_TOL
+            and res["nesterov_fault_param_step_rel_err"] > RESNET_STEP_TOL):
+        raise AssertionError(f"resnet18: a planted fault reads within "
+                             f"the bound: {res}")
+    return res
+
+
+# ------------------------------------------------------------- 16. beam
+BEAM_SCORE_TOL = 1e-4
+
+
+def phase_beam():
+    """`nn.BeamSearchDecoder` over an `nn.LSTMCell` (hidden 512, an
+    Embedding and an output Linear over a vocabulary of 8000; seeded
+    weights and initial states), batch 32, beam 4, 32 steps through
+    `nn.dynamic_decode` on the card. The best beam's score must equal the
+    teacher-forced sum of the cell's log-probabilities along that beam
+    (to its first end token), within BEAM_SCORE_TOL relative."""
+    import paddle_tpu_torch as paddle
+    B, K, V, Hd, T, end = 32, 4, 8000, 512, 32, 1
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    cell = paddle.nn.LSTMCell(Hd, Hd)
+    emb = paddle.nn.Embedding(V, Hd)
+    proj = paddle.nn.Linear(Hd, V)
+    rng = np.random.default_rng(SEED)
+    h0 = rng.standard_normal((B, Hd)).astype(np.float32) * 0.5
+    c0 = rng.standard_normal((B, Hd)).astype(np.float32) * 0.5
+    dec = paddle.nn.BeamSearchDecoder(cell, start_token=0, end_token=end,
+                                      beam_size=K, embedding_fn=emb,
+                                      output_fn=proj)
+    t0 = time.perf_counter()
+    with paddle.no_grad():
+        out, states, lengths = paddle.nn.dynamic_decode(
+            dec, inits=(paddle.to_tensor(h0), paddle.to_tensor(c0)),
+            max_step_num=T, return_length=True)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    beams = out.numpy()                          # [B, steps, K]
+    best = beams[:, :, 0]
+    scores = states[1].numpy()[:, 0]
+    # teacher forcing along the best beam, stopping after its first end
+    with paddle.no_grad():
+        st = (paddle.to_tensor(h0), paddle.to_tensor(c0))
+        tok = np.zeros(B, np.int64)
+        total = np.zeros(B, np.float64)
+        done = np.zeros(B, bool)
+        for t in range(best.shape[1]):
+            h, st = cell(emb(paddle.to_tensor(tok)), st)
+            logp = paddle.nn.functional.log_softmax(proj(h), axis=-1).numpy()
+            total += np.where(done, 0.0, logp[np.arange(B), best[:, t]])
+            done |= best[:, t] == end
+            tok = best[:, t].astype(np.int64)
+    err = float(np.max(np.abs(total - scores) / np.abs(total)))
+    res = {"phase": "beam", "cell": "LSTMCell", "hidden": Hd, "vocab": V,
+           "batch": B, "beam": K, "max_steps": T, "steps": best.shape[1],
+           "decode_s": decode_s, "score_rel_err": err,
+           "score_tol": BEAM_SCORE_TOL,
+           "mean_best_score": float(scores.mean()),
+           "finished": int((lengths.numpy()[:, 0] < best.shape[1]).sum()),
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    if beams.shape[0] != B or beams.shape[2] != K or beams.shape[1] > T:
+        raise AssertionError(f"beam output shape {beams.shape}")
+    if not err <= BEAM_SCORE_TOL:
+        raise AssertionError(f"beam scores: {res}")
+    return res
+
+
 # "main": for each path that launches the kernel, the case at that
 # path's shape whose times the kernels line reports (its index among the
 # kernel's cases, or among those of the path where cases name their
@@ -4750,21 +5247,23 @@ _KERNELS = {
         # B=64 S=512 H=12 hd=64 bhsd key-masked + LSE
         # dit: B=96 S=256 H=16 hd=72 bhsd non-causal + LSE; generate: the
         # prefill, B=1 S=8192; long8k: B=2 S=8192 + LSE; layer8b: B=1
-        # S=4096 and 8192 + LSE; train05b: B=16 S=2048 H=16 + LSE
+        # S=4096 and 8192 + LSE; train05b: B=16 S=2048 H=16 + LSE;
+        # predict: the predictor's prefill, B=8 S=512
         "rows": [1],
         "main": {"serve": 1, "serve_prefix": 1, "serve_quant_spec": 1,
                  "serve_robust": 1, "train": 3,
                  "train_moe": 4, "eager": 5,
                  "eager_llama": 6, "ernie": 7, "dit": 12, "generate": 14,
                  "long8k": 15, "layer8b_4k": 16, "layer8b_8k": 17,
-                 "train05b": 18}},
+                 "train05b": 18, "predict": 19}},
     "ragged_paged_attention": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
         "rows": [18],
-        # the decode case; its count takes every launch, of any option
+        # the decode case; its count takes every launch, of any option;
+        # predict: 8 rows of 640 keys in blocks of 64
         "main": {"serve": 0, "serve_prefix": 0, "serve_quant_spec": 0,
-                 "serve_robust": 0}},
+                 "serve_robust": 0, "predict": 5}},
     # row 18's two options, counted apart: `quantized=True` (int8 pools)
     # held at the int8 decode batch, `suffix=True` (the speculative slab)
     # at the chain verify
@@ -4913,42 +5412,64 @@ def _kernels_line(cases, runs):
     return kernels
 
 
+_PHASE_SECONDS: dict = {}
+
+
+def _timed(fn, *args):
+    """fn(*args), its wall seconds added to _PHASE_SECONDS[fn's name]."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        name = fn.__name__.removeprefix("phase_")
+        _PHASE_SECONDS[name] = _PHASE_SECONDS.get(name, 0.0) + \
+            time.perf_counter() - t0
+
+
 def main() -> int:
-    info = phase_device()
+    t0 = time.perf_counter()
+    info = _timed(phase_device)
     _, peaks = _peaks(info["kind"])
-    phase_build()
-    cases = phase_kernels(peaks)
-    serve = phase_serve()
+    _timed(phase_build)
+    cases = _timed(phase_kernels, peaks)
+    serve = _timed(phase_serve)
     _release()
-    serve_prefix = phase_serve_prefix()
-    quant_spec = phase_serve_quant_spec()
+    serve_prefix = _timed(phase_serve_prefix)
+    quant_spec = _timed(phase_serve_quant_spec)
     _release()
-    robust = phase_serve_robust()
+    robust = _timed(phase_serve_robust)
     _release()
-    train = phase_train(peaks)
-    phase_grad_check()
-    train_moe = phase_train_moe(peaks)
-    phase_grad_check_moe()
+    train = _timed(phase_train, peaks)
+    _timed(phase_grad_check)
+    train_moe = _timed(phase_train_moe, peaks)
+    _timed(phase_grad_check_moe)
     torch.cuda.empty_cache()
-    eager = phase_eager(peaks)
-    phase_grad_check_eager()
-    eager_llama = phase_eager_llama(peaks)
-    phase_grad_check_eager_llama()
-    ernie = phase_ernie(peaks)
-    phase_grad_check_ernie()
-    dit = phase_dit(peaks)
-    phase_grad_check_dit()
-    generate = phase_generate(peaks)
-    long8k = phase_long8k(peaks)
-    layer8b = phase_layer8b(peaks)
-    train05b = phase_train05b(peaks)
+    eager = _timed(phase_eager, peaks)
+    _timed(phase_grad_check_eager)
+    eager_llama = _timed(phase_eager_llama, peaks)
+    _timed(phase_grad_check_eager_llama)
+    ernie = _timed(phase_ernie, peaks)
+    _timed(phase_grad_check_ernie)
+    dit = _timed(phase_dit, peaks)
+    _timed(phase_grad_check_dit)
+    generate, tree = _timed(phase_generate, peaks)
+    predict = _timed(phase_predict, peaks, tree)
+    long8k = _timed(phase_long8k, peaks)
+    layer8b = _timed(phase_layer8b, peaks)
+    train05b = _timed(phase_train05b, peaks)
+    torch.cuda.empty_cache()
+    _timed(phase_resnet50, peaks)
+    _timed(phase_grad_check_resnet)
+    _timed(phase_beam)
     runs = {"serve": serve, "serve_prefix": serve_prefix,
             "serve_quant_spec": quant_spec, "serve_robust": robust,
             "train": train,
             "train_moe": train_moe,
             "eager": eager, "eager_llama": eager_llama, "ernie": ernie,
-            "dit": dit, "generate": generate, "long8k": long8k, **layer8b,
-            "train05b": train05b}
+            "dit": dit, "generate": generate, "predict": predict,
+            "long8k": long8k, **layer8b, "train05b": train05b}
+    _emit({"phase_seconds": _PHASE_SECONDS,
+           "main_s": time.perf_counter() - t0})
     _emit({"kernels": _kernels_line(cases, runs)})
     print(_smi_line(), flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -36,6 +36,14 @@ eager-API slices):
                           layers, AdamW, the incubate fused layers
     kernels.layer_norm    the fused LayerNorm's forward and backward
                           (csrc/layer_norm.cu)
+    inference             Config, create_predictor, the LLM predictor
+                          (inference.llm: save_llm, load_llm, LLMPredictor)
+    vision                ResNet models, transforms, FakeData
+    io                    Dataset, samplers, DataLoader with the
+                          shared-memory worker ring (io/native/shm_ring.cc)
+    nn (conv, rnn)        convolutions, pools, BatchNorm, GroupNorm,
+                          the RNN cells and layers, BeamSearchDecoder
+    optimizer.lr          the learning-rate schedulers; SGD and Momentum
 
     from paddle_tpu_torch.nlp import llama
     from paddle_tpu_torch.serving import ServingEngine
@@ -76,11 +84,14 @@ from . import autograd  # noqa: F401
 from .autograd import no_grad, enable_grad, set_grad_enabled  # noqa: F401
 from .ops import (zeros, ones, full, arange, add, subtract,  # noqa: F401
                   multiply, divide, matmul, tanh, exp, reshape, transpose,
-                  split, squeeze, unsqueeze, concat, cast, sum, mean,
-                  equal, not_equal)
+                  flatten, split, squeeze, unsqueeze, concat, stack, cast,
+                  sum, mean, equal, not_equal)
 from . import ops  # noqa: F401
 from . import nn  # noqa: F401
 from .nn.layer import ParamAttr  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import amp  # noqa: F401
 from . import incubate  # noqa: F401
+from . import io  # noqa: F401
+from . import vision  # noqa: F401
+from . import inference  # noqa: F401

@@ -612,6 +612,7 @@ def paged_generate(params, tokens, lengths, cfg: llama.LlamaConfig,
                    num_blocks: Optional[int] = None,
                    temperature: float = 1.0, top_k: int = 0,
                    top_p: float = 1.0, greedy: bool = True,
+                   pad_token_id: int = 0,
                    generator: Optional[torch.Generator] = None,
                    device="cuda"):
     """Ragged batched generation over one shared block pool.
@@ -619,7 +620,9 @@ def paged_generate(params, tokens, lengths, cfg: llama.LlamaConfig,
     tokens [B, P_max] right-padded prompts; lengths [B] real prompt
     lengths (requests may differ). Returns (ids [B, max_new_tokens]
     int32 tensor, allocator, owned) — `owned` is the per-request block
-    lists; free them back to the allocator when each request completes."""
+    lists; free them back to the allocator when each request completes.
+    `pad_token_id` is accepted and unused, as in the JAX function: the
+    lengths, not the pad id, mark where each prompt ends."""
     dev = resolve_device(device)
     tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
     lengths_np = np.asarray(lengths)

@@ -1,5 +1,5 @@
 """Activation functionals — port of paddle_tpu/nn/functional/activation.py
-(relu, gelu, silu, swish, tanh)."""
+(relu, gelu, silu, swish, tanh, log_softmax)."""
 from __future__ import annotations
 
 import torch
@@ -19,3 +19,7 @@ gelu = defop("gelu", _gelu_raw)
 silu = defop("silu", lambda x, name=None: TF.silu(x))
 swish = defop("swish", lambda x, name=None: TF.silu(x))
 tanh = defop("f_tanh", lambda x, name=None: torch.tanh(x))
+
+
+log_softmax = defop("log_softmax", lambda x, axis=-1, dtype=None, name=None:
+                    torch.log_softmax(x, dim=axis))

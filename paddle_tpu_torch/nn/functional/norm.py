@@ -1,12 +1,26 @@
 """Normalization functionals — port of paddle_tpu/nn/functional/norm.py
-(:28, :49): the plain layer_norm and rms_norm. The fused-backward
-LayerNorm kernels run through incubate.nn.functional.fused_layer_norm,
-as in the JAX package."""
+(:28, :49, :84, :143, :158): the plain layer_norm and rms_norm,
+batch_norm, group_norm and instance_norm. The fused-backward LayerNorm
+kernels run through incubate.nn.functional.fused_layer_norm, as in the
+JAX package.
+
+batch_norm goes to `torch.nn.functional.batch_norm` (cuDNN on the card;
+XLA fuses the JAX package's jnp expression): it normalizes with the
+biased batch variance and, in training, updates the running statistics
+in place with the unbiased one, outside autograd, as the JAX package's
+`_rebind` does (:118). Paddle's `momentum` weighs the old statistic
+(0.9), torch's the new one, so the call passes 1 - momentum. Under AMP
+O1 `batch_norm` is a black-list op: its inputs arrive in f32 and the
+statistics are computed in f32 (the JAX package takes its running
+statistics from the bf16 input; a recorded divergence).
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as TF
 
-from ...ops._registry import eager
+from ...core.tensor import Tensor
+from ...ops._registry import as_array, eager
 
 
 def _layer_norm_raw(x, weight, bias, epsilon, begin_norm_axis):
@@ -52,3 +66,74 @@ def rms_norm(x, weight=None, bias=None, epsilon=1e-6, begin_norm_axis=-1,
         return rms_norm_ref(a[0], a[1] if len(a) > 1 else None, epsilon)
 
     return eager(raw, tuple(args), {}, name="rms_norm")
+
+
+def _channel_axis(data_format, ndim):
+    return 1 if data_format.startswith("NC") else ndim - 1
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5, data_format="NCHW",
+               use_global_stats=None, name=None):
+    use_batch_stats = training and not (use_global_stats is True)
+    update = use_batch_stats and isinstance(running_mean, Tensor)
+    rm = as_array(running_mean) if not use_batch_stats or update else None
+    rv = as_array(running_var) if not use_batch_stats or update else None
+    args = [x]
+    if weight is not None:
+        args.append(weight)
+    if bias is not None:
+        args.append(bias)
+
+    def raw(*a):
+        xx = a[0]
+        w = a[1] if weight is not None else None
+        b = a[-1] if bias is not None else None
+        c_axis = _channel_axis(data_format, xx.ndim)
+        if c_axis != 1:
+            xx = xx.movedim(c_axis, 1)
+        out = TF.batch_norm(xx, rm, rv, w, b, training=use_batch_stats,
+                            momentum=1.0 - momentum, eps=epsilon)
+        return out.movedim(1, c_axis) if c_axis != 1 else out
+
+    return eager(raw, tuple(args), {}, name="batch_norm")
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    args = [x]
+    if weight is not None:
+        args.append(weight)
+    if bias is not None:
+        args.append(bias)
+
+    def raw(*a):
+        xx = a[0]
+        w = a[1] if weight is not None else None
+        b = a[-1] if bias is not None else None
+        c_axis = _channel_axis(data_format, xx.ndim)
+        if c_axis != 1:
+            xx = xx.movedim(c_axis, 1)
+        out = TF.group_norm(xx, num_groups, w, b, epsilon)
+        return out.movedim(1, c_axis) if c_axis != 1 else out
+
+    return eager(raw, tuple(args), {}, name="group_norm")
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Each (sample, channel) plane normalized by its own statistics; the
+    running statistics are accepted and, as in the JAX package, unused."""
+    args = [x]
+    if weight is not None:
+        args.append(weight)
+    if bias is not None:
+        args.append(bias)
+
+    def raw(*a):
+        w = a[1] if weight is not None else None
+        b = a[-1] if bias is not None else None
+        return TF.instance_norm(a[0], weight=w, bias=b, eps=eps)
+
+    return eager(raw, tuple(args), {}, name="instance_norm")

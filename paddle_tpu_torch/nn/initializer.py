@@ -1,5 +1,6 @@
 """Parameter initializers — port of paddle_tpu/nn/initializer.py
-(Constant, Normal, Uniform and the Xavier pair the layers default to).
+(Constant, Normal, Uniform, the Xavier pair the layers default to and
+the Kaiming pair the convolutions use).
 Each draws from the seeded generator of the current place's device
 (core/random.py) and returns a torch tensor there."""
 from __future__ import annotations
@@ -85,4 +86,33 @@ class XavierUniform(Initializer):
         fi = self.fan_in or fi
         fo = self.fan_out or fo
         limit = self.gain * math.sqrt(6.0 / (fi + fo))
+        return Uniform(-limit, limit)(shape, dtype)
+
+
+def _kaiming_gain(nonlinearity, slope):
+    if nonlinearity in ("relu", "leaky_relu"):
+        return math.sqrt(2.0 / (1 + slope ** 2))
+    return 1.0
+
+
+class KaimingNormal(Initializer):
+    def __init__(self, fan_in=None, negative_slope=0.0, nonlinearity="relu"):
+        self.fan_in, self.slope = fan_in, negative_slope
+        self.nonlinearity = nonlinearity
+
+    def __call__(self, shape, dtype):
+        fi = self.fan_in or _fans(shape)[0]
+        std = _kaiming_gain(self.nonlinearity, self.slope) / math.sqrt(fi)
+        return Normal(0.0, std)(shape, dtype)
+
+
+class KaimingUniform(Initializer):
+    def __init__(self, fan_in=None, negative_slope=0.0, nonlinearity="relu"):
+        self.fan_in, self.slope = fan_in, negative_slope
+        self.nonlinearity = nonlinearity
+
+    def __call__(self, shape, dtype):
+        fi = self.fan_in or _fans(shape)[0]
+        limit = _kaiming_gain(self.nonlinearity, self.slope) * \
+            math.sqrt(3.0 / fi)
         return Uniform(-limit, limit)(shape, dtype)

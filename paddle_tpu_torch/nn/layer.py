@@ -4,7 +4,9 @@ Port of paddle_tpu/nn/layer.py: parameters are eager Parameters (torch
 tensors that require grad); `named_parameters` walks the same
 composition in the same order as the JAX package, so the same layers give
 the same structured names, and `set_state_dict` takes the dict of numpy
-arrays a JAX model's `state_dict()` gives (or Tensors). Buffers,
+arrays a JAX model's `state_dict()` gives (or Tensors). Buffers (JAX
+`nn/layer.py:155-215`: BatchNorm's `_mean` and `_variance`) sit in
+`state_dict` after the parameters under the JAX package's names.
 `Layer.to` (moving or casting a built model) and `apply` arrive with the
 rest of the eager API: parameters are created on the current place.
 """
@@ -54,6 +56,8 @@ class Layer:
         # object.__setattr__: our __setattr__ consults these dicts
         object.__setattr__(self, "_parameters", OrderedDict())
         object.__setattr__(self, "_sub_layers", OrderedDict())
+        object.__setattr__(self, "_buffers", OrderedDict())
+        object.__setattr__(self, "_non_persistable_buffer_names", set())
         self.training = True
         self._dtype = dtypes.convert_dtype(dtype)
         self._forward_pre_hooks = OrderedDict()
@@ -64,6 +68,7 @@ class Layer:
     def __setattr__(self, name, value):
         params = self.__dict__.get("_parameters")
         subs = self.__dict__.get("_sub_layers")
+        bufs = self.__dict__.get("_buffers")
         if isinstance(value, Parameter):
             if params is None:
                 raise RuntimeError(
@@ -78,6 +83,8 @@ class Layer:
             subs[name] = value
             params.pop(name, None)
             self.__dict__.pop(name, None)
+        elif bufs is not None and name in bufs:
+            bufs[name] = value
         elif params is not None and name in params:
             if value is None:
                 del params[name]
@@ -92,7 +99,7 @@ class Layer:
 
     def __getattr__(self, name):
         # only called when normal lookup fails
-        for store in ("_parameters", "_sub_layers"):
+        for store in ("_parameters", "_sub_layers", "_buffers"):
             d = self.__dict__.get(store)
             if d is not None and name in d:
                 return d[name]
@@ -100,7 +107,7 @@ class Layer:
             f"'{self.__class__.__name__}' object has no attribute '{name}'")
 
     def __delattr__(self, name):
-        for store in ("_parameters", "_sub_layers"):
+        for store in ("_parameters", "_sub_layers", "_buffers"):
             d = self.__dict__.get(store)
             if d is not None and name in d:
                 del d[name]
@@ -123,9 +130,28 @@ class Layer:
         p.need_clip = attr.need_clip
         return p
 
+    def add_parameter(self, name: str, parameter: Optional[Parameter]):
+        if parameter is None:
+            self._parameters.pop(name, None)
+            self.__dict__[name] = None
+        else:
+            self._parameters[name] = parameter
+        return parameter
+
     def add_sublayer(self, name: str, sublayer: "Layer"):
         self._sub_layers[str(name)] = sublayer
         return sublayer
+
+    def register_buffer(self, name: str, tensor: Optional[Tensor],
+                        persistable: bool = True):
+        """A tensor the layer keeps and no optimizer updates (BatchNorm's
+        running statistics); persistable buffers go into `state_dict`."""
+        if tensor is not None and not isinstance(tensor, Tensor):
+            tensor = Tensor(tensor)
+        self._buffers[name] = tensor
+        if not persistable:
+            self._non_persistable_buffer_names.add(name)
+        return tensor
 
     # ---- iteration ---------------------------------------------------------
     def named_parameters(self, prefix="", include_sublayers=True
@@ -165,13 +191,35 @@ class Layer:
     def sublayers(self, include_self=False):
         return [l for _, l in self.named_sublayers(include_self=include_self)]
 
+    def named_buffers(self, prefix="", include_sublayers=True):
+        seen = set()
+        for name, layer in self.named_sublayers(prefix=prefix,
+                                                include_self=True):
+            for bname, b in layer._buffers.items():
+                if b is None or id(b) in seen:
+                    continue
+                seen.add(id(b))
+                yield (f"{name}.{bname}" if name else bname), b
+            if not include_sublayers:
+                break
+
+    def buffers(self, include_sublayers=True):
+        return [b for _, b in self.named_buffers(
+            include_sublayers=include_sublayers)]
+
     # ---- state dict ---------------------------------------------------------
     def state_dict(self, destination=None, include_sublayers=True,
                    structured_name_prefix="", use_hook=True):
         out = destination if destination is not None else OrderedDict()
-        for name, p in self.named_parameters(
-                prefix=structured_name_prefix.rstrip(".")):
+        prefix = structured_name_prefix.rstrip(".")
+        for name, p in self.named_parameters(prefix=prefix):
             out[name] = p
+        for name, layer in self.named_sublayers(prefix=prefix,
+                                                include_self=True):
+            for bname, b in layer._buffers.items():
+                if b is None or bname in layer._non_persistable_buffer_names:
+                    continue
+                out[f"{name}.{bname}" if name else bname] = b
         return out
 
     def set_state_dict(self, state_dict, use_structured_name=True):

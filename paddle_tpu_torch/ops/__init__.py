@@ -14,8 +14,9 @@ from ._registry import defop, eager, as_array  # noqa: F401
 from .creation import to_tensor, zeros, ones, full, arange  # noqa: F401
 from .math import (add, subtract, multiply, divide, exp, tanh,  # noqa: F401
                    matmul)
-from .manipulation import (reshape, transpose, squeeze,  # noqa: F401
-                           unsqueeze, cast, concat, split, getitem)
+from .manipulation import (reshape, transpose, flatten,  # noqa: F401
+                           squeeze, unsqueeze, cast, concat, stack, split,
+                           getitem)
 from .reduction import sum, mean  # noqa: F401
 from .comparison import equal, not_equal  # noqa: F401
 
@@ -28,7 +29,7 @@ _ALIASES = {"sub": "subtract", "mul": "multiply", "div": "divide"}
 
 def _attach():
     for fn in (add, subtract, multiply, divide, exp, tanh, matmul, reshape,
-               transpose, squeeze, unsqueeze, equal, not_equal):
+               transpose, flatten, squeeze, unsqueeze, equal, not_equal):
         if not hasattr(Tensor, fn.__name__):
             setattr(Tensor, fn.__name__, fn)
     for alias, target in _ALIASES.items():

@@ -1,6 +1,6 @@
 """Shape, layout and indexing ops — port of paddle_tpu/ops/manipulation.py
-(the ones the eager path uses: reshape, transpose, squeeze, unsqueeze,
-concat, split, cast and basic-slicing getitem)."""
+(the ones the eager path uses: reshape, transpose, flatten, squeeze,
+unsqueeze, concat, stack, split, cast and basic-slicing getitem)."""
 from __future__ import annotations
 
 import numpy as np
@@ -26,6 +26,17 @@ reshape = defop("reshape",
                 lambda x, shape, name=None: torch.reshape(x, _shape_arg(shape)))
 transpose = defop("transpose", lambda x, perm, name=None:
                   x.permute([int(p) for p in perm]))
+
+
+def _flatten_raw(x, start_axis=0, stop_axis=-1, name=None):
+    nd = x.ndim
+    if nd == 0:
+        return x.reshape(1)
+    s, e = start_axis % nd, stop_axis % nd
+    return x.reshape(tuple(x.shape[:s]) + (-1,) + tuple(x.shape[e + 1:]))
+
+
+flatten = defop("flatten", _flatten_raw)
 squeeze = defop("squeeze", lambda x, axis=None, name=None:
                 x.squeeze() if axis is None else x.squeeze(_axes(axis)))
 
@@ -49,6 +60,11 @@ def concat(x, axis=0, name=None):
         axis = int(axis.item())
     return eager(lambda *arrs: torch.cat(arrs, dim=axis), tuple(x), {},
                  name="concat")
+
+
+def stack(x, axis=0, name=None):
+    return eager(lambda *arrs: torch.stack(arrs, dim=int(axis)), tuple(x),
+                 {}, name="stack")
 
 
 def _split_raw(x, num_or_sections, axis=0):

@@ -1,5 +1,6 @@
 """Optimizers of the eager API — port of paddle_tpu/optimizer/optimizers.py
-(:52 ClipGradByGlobalNorm, :64 Optimizer, :298 Adam, :349 AdamW).
+(:52 ClipGradByGlobalNorm, :64 Optimizer, :211 SGD, :222 Momentum,
+:298 Adam, :349 AdamW).
 
 The update formulas, the bias-correction powers (f32 scalars per
 parameter), decoupled decay, `apply_decay_param_fun` and the
@@ -14,8 +15,9 @@ a `state_dict()` taken earlier keeps its values. A new parameter value
 of the parameter's dtype is written into its storage; one of another
 dtype (a bf16 parameter's f32 update without master weights, as JAX's
 `value - step` promotes) replaces the parameter's tensor, as JAX's
-`_rebind` does, and layers keep reading it through the Parameter. LR
-schedulers, L1/L2Decay objects, master weights (`multi_precision`, with
+`_rebind` does, and layers keep reading it through the Parameter. The
+learning rate is a float or an `lr.LRScheduler`, read once a step.
+L1/L2Decay objects, master weights (`multi_precision`, with
 `amp.decorate`), amsgrad and the other optimizers arrive with the rest
 of the eager API and raise `NotImplementedError` until then.
 """
@@ -28,6 +30,7 @@ import torch
 
 from ..core.tensor import Tensor
 from ..core import dtype as dtypes
+from .lr import LRScheduler
 from .transform import grouped_chunks
 
 
@@ -79,8 +82,8 @@ def _rebind(p: Tensor, value: torch.Tensor) -> None:
 
 
 class Optimizer:
-    """Base: the learning rate (a float), weight decay, clipping,
-    per-parameter state and its state_dict."""
+    """Base: the learning rate (a float or an LRScheduler), weight decay,
+    clipping, per-parameter state and its state_dict."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
@@ -89,10 +92,6 @@ class Optimizer:
             raise ValueError(
                 "parameters=None: pass model.parameters() (the static-graph "
                 "global-collection mode is not supported; eager only)")
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "learning-rate schedulers arrive with the rest of the eager "
-                "API (optimizer/lr.py); pass a float")
         if weight_decay is not None and \
                 not isinstance(weight_decay, (int, float)):
             raise NotImplementedError(
@@ -109,8 +108,23 @@ class Optimizer:
         self._state: Dict[int, Dict[str, torch.Tensor]] = {}
         self._step_count = 0
 
+    # -- lr ------------------------------------------------------------------
     def get_lr(self) -> float:
-        return float(self._learning_rate)
+        sched = self._lr_scheduler
+        return float(sched() if sched is not None else self._learning_rate)
+
+    def set_lr(self, value: float):
+        if self._lr_scheduler is not None:
+            raise RuntimeError("set_lr cannot override an LRScheduler")
+        self._learning_rate = value
+
+    def set_lr_scheduler(self, scheduler):
+        self._learning_rate = scheduler
+
+    @property
+    def _lr_scheduler(self):
+        lr = self._learning_rate
+        return lr if isinstance(lr, LRScheduler) else None
 
     # -- state ---------------------------------------------------------------
     def _param_state(self, p: Tensor) -> Dict[str, torch.Tensor]:
@@ -179,17 +193,22 @@ class Optimizer:
 
     # -- persistence ----------------------------------------------------------
     def state_dict(self):
-        """The moments by parameter name (`{name}.{key}`), and the step."""
+        """The moments by parameter name (`{name}.{key}`), the step and,
+        with a scheduler, its state under "LR_Scheduler"."""
         out = {"_step_count": self._step_count}
         for p in self._parameter_list:
             st = self._state.get(id(p))
             if st:
                 for k, v in st.items():
                     out[f"{p.name}.{k}"] = Tensor(v)
+        if self._lr_scheduler is not None:
+            out["LR_Scheduler"] = self._lr_scheduler.state_dict()
         return out
 
     def set_state_dict(self, state):
         self._step_count = int(state.get("_step_count", 0))
+        if "LR_Scheduler" in state and self._lr_scheduler is not None:
+            self._lr_scheduler.set_state_dict(state["LR_Scheduler"])
         for p in self._parameter_list:
             st = {}
             for k, v in state.items():
@@ -199,6 +218,61 @@ class Optimizer:
                     st[k[len(p.name) + 1:]] = t.to(p._data.device).clone()
             if st:
                 self._state[id(p)] = st
+
+
+def _promoted(values):
+    """The values as the JAX update's decay term sees them: a product
+    with the f32 array `wd` promotes a bf16 or f16 value to f32."""
+    return [v if v.dtype in (torch.float32, torch.float64) else v.float()
+            for v in values]
+
+
+class SGD(Optimizer):
+    """paddle SGD: value - lr · (grad + wd · value)."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+
+    def _steps(self, values, grads, states, lrs, wds):
+        g = torch._foreach_add(grads, torch._foreach_mul(_promoted(values),
+                                                         wds))
+        torch._foreach_mul_(g, lrs)
+        return g, states
+
+
+class Momentum(Optimizer):
+    """paddle Momentum: v = mu · v + (grad + wd · value); the step is v,
+    or grad + mu · v with Nesterov, times lr. The velocity has the
+    parameter's dtype (f32 once a bf16 parameter's f32 decay term has
+    promoted it, as in the JAX update)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _init_state(self, p):
+        return {"velocity": torch.zeros_like(p._data)}
+
+    def _steps(self, values, grads, states, lrs, wds):
+        mu = self._momentum
+        g = torch._foreach_add(grads, torch._foreach_mul(_promoted(values),
+                                                         wds))
+        vel = torch._foreach_mul([s["velocity"].to(gi.dtype)
+                                  for s, gi in zip(states, g)], mu)
+        torch._foreach_add_(vel, g)
+        if self._nesterov:
+            step = torch._foreach_add(g, torch._foreach_mul(vel, mu))
+            torch._foreach_mul_(step, lrs)
+        else:
+            step = torch._foreach_mul(vel, lrs)
+        return step, [{"velocity": v} for v in vel]
 
 
 class Adam(Optimizer):
@@ -235,8 +309,7 @@ class Adam(Optimizer):
         fe = torch
         # the decay terms are products with an f32 array in JAX, so a
         # bf16 value enters them promoted to f32
-        vf = [v if v.dtype in (torch.float32, torch.float64) else v.float()
-              for v in values]
+        vf = _promoted(values)
         if not self._decoupled:
             grads = fe._foreach_add(grads, fe._foreach_mul(vf, wds))
         m1 = fe._foreach_mul([s["moment1"] for s in states], b1)

@@ -1,7 +1,8 @@
 """Where a training step's time goes on one NVIDIA GPU.
 
     python -m paddle_tpu_torch.tools.profile_train
-        [--model llama|moe|long8k|train05b|eager_ernie|eager_llama|ernie|dit]
+        [--model llama|moe|long8k|train05b|eager_ernie|eager_llama|ernie|dit
+                 |resnet50]
         [--layers N]
 
 `--model llama` (default) builds the flagship dense config (bench.py:120:
@@ -24,7 +25,20 @@ the functional ERNIE finetune step over nlp/ernie.py
 (tools/ernie_finetune.py: batch 64 x 512 padded to lengths 128-512,
 adamw 2e-5); `--model dit` the DiT-XL/2 train step of BASELINE config 3
 (tools/dit_train.py: batch 96 of 32x32x4 latents, 256 patch tokens,
-adamw_q 1e-4, per-block recompute; `--layers` cuts the depth). Each
+adamw_q 1e-4, per-block recompute; `--layers` cuts the depth).
+`--model resnet50` trains BASELINE config 0 on the eager API
+(tools/resnet_train.py: resnet50 at 224x224, batch 256 of one seeded
+batch on the card, Momentum 0.9 with weight decay 1e-4 under
+PiecewiseDecay), once in f32 with TF32 convolutions and once under O1
+bf16; its classes are the convolutions (cuDNN's fprop / dgrad / wgrad
+kernels, the layout transforms around them and the cuBLAS GEMMs it runs
+1x1 convolutions on; the classifier's GEMM, ~1.5 GFLOP a step, falls in
+the same class), BatchNorm, the optimizer (the kernels inside its
+"resnet_optimizer" range) and the elementwise rest (ReLU, the residual
+adds, gradient accumulation, O1's casts), with the 12 kernels that take
+the most device time; the backward's device time is the busy time less
+the forward's and the optimizer's, since autograd launches it from its
+own thread. Each
 takes one untraced warm-up step, one untraced step for
 its wall time without the profiler's per-operation cost, then one step
 traced by torch.profiler.
@@ -59,9 +73,11 @@ from torch.autograd import DeviceType
 # the training batch and length of each model (bench.py:369-370,
 # bench.py:87 and bench.py:134)
 _BATCH = {"llama": 8, "moe": 20, "eager_ernie": 64, "eager_llama": 2,
-          "ernie": 64, "dit": 96, "long8k": 2, "train05b": 16}
+          "ernie": 64, "dit": 96, "long8k": 2, "train05b": 16,
+          "resnet50": 256}
 _SEQ = {"llama": 2048, "moe": 2048, "eager_ernie": 512, "eager_llama": 2048,
-        "ernie": 512, "dit": 256, "long8k": 8192, "train05b": 2048}
+        "ernie": 512, "dit": 256, "long8k": 8192, "train05b": 2048,
+        "resnet50": 224}
 _GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet", "cublas")
 # kernel symbol names of csrc/*.cu, by class
 _PORT_KERNELS = (("flash_fwd_kernel", "flash_fwd"),
@@ -105,6 +121,8 @@ def main(argv=None) -> int:
         return _main_eager(args)
     if args.model in ("ernie", "dit"):
         return _main_step(args)
+    if args.model == "resnet50":
+        return _main_resnet(args)
     from ..kernels import flash_attention as fa
     from ..kernels import moe_dispatch as md
     from ..kernels import rms_norm as rn
@@ -131,12 +149,11 @@ def main(argv=None) -> int:
     step = train.make_train_step(cfg, tx, model=model)
     tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (batch, _SEQ[args.model]))).cuda()
-    state, _ = step(state, tokens)                    # warm-up, untraced
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, _ = step(state, tokens)
-    torch.cuda.synchronize()
-    untraced = time.perf_counter() - t0
+
+    def run(span):
+        nonlocal state
+        state, m = step(state, tokens)
+        return m
 
     counters = {"flash_attention_fwd": fa.flash_attention_fwd,
                 "flash_attention_bwd": fa.flash_attention_bwd,
@@ -146,27 +163,15 @@ def main(argv=None) -> int:
     if model is moe:
         counters.update({"gather_wsum": md.gather_wsum,
                          "gather_scale_dot": md.gather_scale_dot})
-    for c in counters.values():
-        c.launches = 0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, tokens)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    m, untraced, wall, prof = _profile_step(run, counters.values())
     by_class, launches, ranges = _device_times(prof, ("moe_routing",))
     routing_ms = ranges["moe_routing"]["device_ms"]
     if routing_ms:
         by_class["routing"] = routing_ms
         by_class["other"] = by_class.get("other", 0.0) - routing_ms
-    busy = sum(by_class.values())
     tok = batch * _SEQ[args.model]
     print(json.dumps({
-        "step": "train", "traced": True, "wall_ms": wall * 1e3,
-        "untraced_wall_ms": untraced * 1e3, "device_busy_ms": busy,
-        "idle_share": 1.0 - busy / (wall * 1e3),
-        "device_ms_by_class": by_class, "kernel_launches": launches,
+        "step": "train", **_summary(by_class, launches, wall, untraced),
         "port_launches": {n: c.launches for n, c in counters.items()},
         "tokens": tok, "untraced_tokens_per_s": tok / untraced,
         "loss": float(m["loss"])}), flush=True)
@@ -174,17 +179,66 @@ def main(argv=None) -> int:
     return 0
 
 
-def _device_times(prof, range_names):
+def _profile_step(step, counters=()):
+    """`step(span)` called untraced twice with span None (a warm-up,
+    then once for its wall time without the profiler's per-operation
+    cost), then once traced by torch.profiler with
+    `span=torch.profiler.record_function`, after `counters`' launches
+    and the peak memory were reset → (the traced call's result, the
+    untraced and the traced call's seconds, the profile). Each call ends
+    in a synchronize."""
+    step(None)                                        # warm-up, untraced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(None)
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = step(torch.profiler.record_function)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, untraced, wall, prof
+
+
+def _summary(by_class, launches, wall, untraced) -> dict:
+    """The fields every traced step prints: wall times, the device busy
+    time (the sum over kernels; one stream, so they do not overlap), the
+    idle share 1 - busy / wall, the device ms by class, the launches."""
+    busy = sum(by_class.values())
+    return {"traced": True, "wall_ms": wall * 1e3,
+            "untraced_wall_ms": untraced * 1e3, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / (wall * 1e3),
+            "device_ms_by_class": by_class, "kernel_launches": launches}
+
+
+def _backward_rest(by_class, ranges, backward, others):
+    """Autograd launches the backward from its own thread, outside the
+    backward range's span on the device: its device time is the busy
+    time less the other ranges'."""
+    ranges[backward]["device_ms"] = sum(by_class.values()) - sum(
+        ranges[n]["device_ms"] for n in others)
+
+
+def _device_times(prof, range_names, classify=_kernel_class, relabel=None,
+                  by_name=None):
     """(device ms by kernel class, kernel launches, {range: {device_ms,
-    host_ms}}) of a traced step. A range's device time is the sum of the
-    kernels that start inside its span on the device (the profiler's
-    user annotation of the range there: from its first kernel's start to
-    its last kernel's end; one stream, so no other range's kernels run
-    inside it)."""
-    by_class: dict = {}
-    launches = 0
+    host_ms}}) of a traced step. `classify` names a kernel's class from
+    its symbol. A range's device time is the sum of the kernels that
+    start inside its span on the device (the profiler's user annotation
+    of the range there: from its first kernel's start to its last
+    kernel's end; one stream, so no other range's kernels run inside
+    it). `relabel`, a (range, class, new class) triple, moves the
+    kernels of that class that start inside the range into the new
+    class. `by_name`, when given, gathers the device ms by kernel."""
     ranges = {n: {"device_ms": 0.0, "host_ms": 0.0} for n in range_names}
-    spans = {n: [] for n in range_names}
+    spans = {n: [] for n in range_names + ((relabel[0],) if relabel
+                                           else ())}
     kernels = []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -196,18 +250,27 @@ def _device_times(prof, range_names):
                 spans[ev.name].append((ev.time_range.start,
                                        ev.time_range.end))
             continue
-        start, us = ev.time_range.start, ev.time_range.end - \
-            ev.time_range.start
-        kernels.append((start, us))
-        c = _kernel_class(ev.name)
-        by_class[c] = by_class.get(c, 0.0) + us / 1e3
-        launches += c != "memcpy"
-    if not by_class:
+        start = ev.time_range.start
+        kernels.append((start, (ev.time_range.end - start) / 1e3,
+                        classify(ev.name), ev.name))
+    if not kernels:
         raise RuntimeError("torch.profiler recorded no device activity")
-    for name, sp in spans.items():
+
+    def inside(start, name):
+        return any(a <= start < b for a, b in spans[name])
+
+    by_class: dict = {}
+    launches = 0
+    for start, ms, c, name in kernels:
+        if relabel and c == relabel[1] and inside(start, relabel[0]):
+            c = relabel[2]
+        by_class[c] = by_class.get(c, 0.0) + ms
+        launches += c != "memcpy"
+        if by_name is not None:
+            by_name[name] = by_name.get(name, 0.0) + ms
+    for name in range_names:
         ranges[name]["device_ms"] = sum(
-            us for start, us in kernels
-            if any(a <= start < b for a, b in sp)) / 1e3
+            ms for start, ms, _, _ in kernels if inside(start, name))
     return by_class, launches, ranges
 
 
@@ -258,43 +321,20 @@ def _main_eager(args) -> int:
     opt = paddle.optimizer.AdamW(
         learning_rate=lr, parameters=model.parameters(),
         grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
-
-    def step(span=None):
-        return run(opt, span)
-
-    step()                                            # warm-up, untraced
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step()
-    torch.cuda.synchronize()
-    untraced = time.perf_counter() - t0
     counters = {"layer_norm_fwd": ln.layer_norm_fwd,
                 "layer_norm_bwd": ln.layer_norm_bwd,
                 "rms_norm_fused": rn.rms_norm_fused,
                 "flash_attention_fwd": fa.flash_attention_fwd,
                 "flash_attention_bwd": fa.flash_attention_bwd}
-    for c in counters.values():
-        c.launches = 0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.reset_peak_memory_stats()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        loss = step(span=torch.profiler.record_function)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    loss, untraced, wall, prof = _profile_step(
+        lambda span: run(opt, span), counters.values())
     by_class, launches, ranges = _device_times(prof, _EAGER_RANGES)
-    busy = sum(by_class.values())
-    # autograd launches the backward from its own thread
-    ranges["eager_backward"]["device_ms"] = busy - sum(
-        ranges[n]["device_ms"] for n in ("eager_forward", "eager_optimizer"))
+    _backward_rest(by_class, ranges, "eager_backward",
+                   ("eager_forward", "eager_optimizer"))
     tok = batch * seq
     print(json.dumps({
-        "step": "eager_train", "traced": True, "wall_ms": wall * 1e3,
-        "untraced_wall_ms": untraced * 1e3, "device_busy_ms": busy,
-        "idle_share": 1.0 - busy / (wall * 1e3),
-        "device_ms_by_class": by_class, "ranges": ranges,
-        "kernel_launches": launches,
+        "step": "eager_train", **_summary(by_class, launches, wall, untraced),
+        "ranges": ranges,
         "port_launches": {n: c.launches for n, c in counters.items()},
         "tokens": tok, "untraced_tokens_per_s": tok / untraced,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -340,41 +380,89 @@ def _main_step(args) -> int:
                     "gather_mlp": md.gather_mlp_kernel}
     counters.update({"flash_attention_fwd": fa.flash_attention_fwd,
                      "flash_attention_bwd": fa.flash_attention_bwd})
-    state, _ = step(state, data)                      # warm-up, untraced
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, _ = step(state, data)
-    torch.cuda.synchronize()
-    untraced = time.perf_counter() - t0
+
+    def run(span):
+        nonlocal state
+        state, m = step(state, data)
+        return m
+
+    m, untraced, wall, prof = _profile_step(run, counters.values())
     if args.model == "dit":
         extra["untraced_img_per_s"] = batch / untraced
         extra["mfu_untraced"] = (batch / untraced * extra["flops_per_image"]
                                  / 989e12)
-    for c in counters.values():
-        c.launches = 0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.reset_peak_memory_stats()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, data)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     by_class, launches, ranges = _device_times(prof, ("optimizer",))
-    busy = sum(by_class.values())
     tok = batch * seq
     print(json.dumps({
         "step": "ernie_finetune" if args.model == "ernie" else "dit_train",
-        "ranges": ranges,
-        "traced": True, "wall_ms": wall * 1e3,
-        "untraced_wall_ms": untraced * 1e3, "device_busy_ms": busy,
-        "idle_share": 1.0 - busy / (wall * 1e3),
-        "device_ms_by_class": by_class, "kernel_launches": launches,
+        "ranges": ranges, **_summary(by_class, launches, wall, untraced),
         "port_launches": {n: c.launches for n, c in counters.items()},
         "tokens": tok, **extra, "untraced_tokens_per_s": tok / untraced,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "loss": float(m["loss"])}), flush=True)
     _print_device(args, layers, batch)
+    return 0
+
+
+# cuDNN's convolution kernels (implicit-GEMM fprop, dgrad and wgrad, and
+# the layout transforms around them) and the BatchNorm kernels, by name
+_CONV_MARKS = ("fprop", "dgrad", "wgrad", "conv", "Conv", "implicit",
+               "nchwToNhwc", "nhwcToNchw")
+_BN_MARKS = ("bn_fw", "bn_bw", "batch_norm", "BatchNorm", "batchnorm")
+_RESNET_RANGES = ("resnet_forward", "resnet_backward", "resnet_optimizer")
+
+
+def _resnet_class(name: str) -> str:
+    if any(m in name for m in _BN_MARKS):
+        return "bn"
+    if any(m in name for m in _CONV_MARKS + _GEMM_MARKS):
+        return "conv"
+    if "Memcpy" in name or "Memset" in name:
+        return "memcpy"
+    return "elementwise"
+
+
+def _main_resnet(args) -> int:
+    """BASELINE config 0's step on the eager API, f32 (TF32) and O1."""
+    import paddle_tpu_torch as paddle
+    from . import resnet_train as rt
+
+    batch, size = _BATCH["resnet50"], _SEQ["resnet50"]
+    paddle.set_device("gpu")
+    for name, amp in (("f32_tf32", None), ("o1_bf16", "bfloat16")):
+        torch.backends.cuda.matmul.allow_tf32 = amp is None
+        torch.backends.cudnn.allow_tf32 = amp is None
+        paddle.seed(args.seed)
+        model, opt, sched = rt.build(paddle, 50, batch=batch)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        x = paddle.to_tensor(torch.randn(batch, 3, size, size,
+                                         device="cuda", generator=gen))
+        y = paddle.to_tensor(torch.randint(0, 1000, (batch,),
+                                           device="cuda", generator=gen))
+        loss, untraced, wall, prof = _profile_step(
+            lambda span: rt.train_step(paddle, model, opt, sched, x, y, amp,
+                                       span=span))
+        top: dict = {}
+        by_class, launches, ranges = _device_times(
+            prof, _RESNET_RANGES, classify=_resnet_class,
+            relabel=("resnet_optimizer", "elementwise", "optimizer"),
+            by_name=top)
+        _backward_rest(by_class, ranges, "resnet_backward",
+                       ("resnet_forward", "resnet_optimizer"))
+        print(json.dumps({
+            "step": f"resnet50_{name}",
+            **_summary(by_class, launches, wall, untraced),
+            "ranges": ranges,
+            "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])
+                                   [:12]),
+            "images": batch, "untraced_images_per_s": batch / untraced,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "loss": float(loss)}), flush=True)
+        del model, opt, sched, x, y
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _print_device(args, 50, batch)
     return 0
 
 
