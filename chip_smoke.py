@@ -136,6 +136,24 @@ non-zero:
                under 80 GB. Then the gradient check at 2 layers, batch
                1 x 2048, with the row-6 norm reading its weight one column
                off as the planted fault.
+  8a. eager_llama_o2 — the same Llama under O2: `amp.decorate(model,
+               opt, level="O2")` casts every parameter, AdamW (lr 1e-4,
+               the global clip, weight_decay=L2Decay(0.01)) keeps f32
+               masters; run (a) in bf16, run (b) in f16 with
+               GradScaler(2**15) driven as scaler.minimize(opt,
+               scaler.scale(loss)); 2 warm-up and 4 timed steps each.
+               Row 6 exactly 23 a step and the flash pair 11 + 11, all in
+               the run's dtype (counted by dtype) and none in the other;
+               step ms, tokens/s, MFU, peak memory against phase 8's,
+               losses, the scale's trajectory. Then
+               grad_check_eager_llama_f16: phase 8's check at 2 layers
+               under O2 f16 (loss times 2**15), the same planted fault.
+  8b. eager_o2 — phase 7's recipe under O2 f16 with GradScaler(2**15):
+               the LayerNorm pair 25 + 25 and the flash pair 12 + 12 a
+               timed step, all in f16; between the timed steps one
+               step's loss is multiplied by inf, and the scaler must
+               skip it (every parameter and master bit-identical),
+               halve the scale, and the later losses be finite.
   9. ernie   — ERNIE-3.0-base through nlp/ernie.py with bench.py:134-181's
                finetune step (tools/ernie_finetune.py: adamw 2e-5 over the
                functional tree, bf16 compute), batch 64 x 512 padded to
@@ -206,7 +224,14 @@ non-zero:
                8000, batch 32, beam 4, 32 steps): the best beam's score
                against the teacher-forced sum of its log-probabilities.
 
-The kernels phase also holds the fused LayerNorm forward and backward at
+The kernels phase also holds the f16 options (the O2 runs' forms) of
+the flash forward and backward at the eager Llama's B=2 x 2048 GQA 32/8
+causal and the eager ERNIE's B=64 x 512 H=12 hd=64, of row 6 at
+[4096, 4096] and of the LayerNorm pair at [32768, 768], within
+F16_TOL, bit-identical twice, each with a planted control above the
+bound, and row 6 in bf16 at [4096, 4096] (run (a)'s form); the build
+phase counts the flash libraries' HGMMA and UTMALDG by element type.
+It holds the fused LayerNorm forward and backward at
 the eager step's f32 [32768, 768] and in bf16, the flash forward and
 backward non-causal at B=64 S=512 H=12 hd=64 and causal at the eager
 Llama's B=2 x 2048, the row-6 RMSNorm at f32 [4096, 4096], bf16
@@ -329,7 +354,10 @@ _SASS_MARKS = {"flash_fwd": ("HGMMA", "UTMALDG"),
 
 def _sass_counts(_build):
     """How many of each instruction in _SASS_MARKS `cuobjdump -sass` finds
-    in each library named there; raises where one is missing."""
+    in each library named there; raises where one is missing. The flash
+    libraries' counts also by the kernels' element type ("by_dtype":
+    the functions whose mangled names hold __nv_bfloat16 or __half), each
+    of which must hold them too."""
     counts = {}
     for name, marks in _SASS_MARKS.items():
         sass = subprocess.run(
@@ -338,6 +366,18 @@ def _sass_counts(_build):
         counts[name] = {m: sass.count(m) for m in marks}
         if not all(counts[name].values()):
             raise AssertionError(f"{name}: no {counts[name]} in its SASS")
+        if name.startswith("flash_"):
+            by = {"bf16": {m: 0 for m in marks}, "f16": {m: 0 for m in marks}}
+            for fn in sass.split("Function : ")[1:]:
+                head = fn.split("\n", 1)[0]
+                tag = "f16" if "__half" in head else \
+                    "bf16" if "bfloat16" in head else None
+                for m in marks:
+                    if tag is not None:
+                        by[tag][m] += fn.count(m)
+            counts[name]["by_dtype"] = by
+            if not all(v for d in by.values() for v in d.values()):
+                raise AssertionError(f"{name}: {by} by dtype in its SASS")
     return counts
 
 
@@ -402,10 +442,10 @@ def _shares(res):
     return res
 
 
-def _qkv(B, S, hd, gen, layout="bshd", heads=()):
-    """Random bf16 [B, S, n, hd] for each n of `heads`, contiguous in
-    `layout` ('bhsd': [B, n, S, hd])."""
-    t = [torch.randn(B, S, n, hd, device="cuda", generator=gen).bfloat16()
+def _qkv(B, S, hd, gen, layout="bshd", heads=(), dtype=torch.bfloat16):
+    """Random [B, S, n, hd] in `dtype` for each n of `heads`, contiguous
+    in `layout` ('bhsd': [B, n, S, hd])."""
+    t = [torch.randn(B, S, n, hd, device="cuda", generator=gen).to(dtype)
          for n in heads]
     if layout == "bhsd":
         t = [x.transpose(1, 2).contiguous() for x in t]
@@ -447,13 +487,14 @@ def _bwd_ref_by_kv_head(q, k, v, out, lse, dout, **kw):
 
 def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
                 causal: bool = True, layout: str = "bshd",
-                by_kv_head: bool = False):
+                by_kv_head: bool = False, dtype=torch.bfloat16):
     """The flash forward against its plain version at one shape; with
     `lse`, as the training forward calls it, its LSE held too; with
-    `by_kv_head`, the plain version one KV head's group at a time."""
+    `by_kv_head`, the plain version one KV head's group at a time; the
+    inputs in `dtype` (bf16, or f16: the kernel's f16 option)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
-    q, k, v = _qkv(B, S, hd, gen, layout, (H, KV, KV))
+    q, k, v = _qkv(B, S, hd, gen, layout, (H, KV, KV), dtype)
     kw = dict(causal=causal, return_lse=lse, layout=layout)
     plain_fn = _fwd_ref_by_kv_head if by_kv_head \
         else fa.flash_attention_fwd_ref
@@ -462,7 +503,8 @@ def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
     res = {"shape": f"B={B} S={S} H={H} KV={KV} hd={hd}"
                     + (" (LSE)" if lse else "")
                     + ("" if causal else " non-causal")
-                    + ("" if layout == "bshd" else f" {layout}")}
+                    + ("" if layout == "bshd" else f" {layout}")
+                    + ("" if dtype == torch.bfloat16 else " f16")}
     if lse:
         (out, lse_k), (ref, lse_r) = out, ref
         res["lse_abs_err"] = (lse_k - lse_r).abs().max().item()
@@ -588,6 +630,14 @@ def _ragged_option_case(kind, H, KV, hd, gen, flush):
 # of its second products, as the forward rounds P) and the RMSNorm
 # outputs per row.
 KERNEL_TOL = 2e-2
+# The f16 options (rows 1-6, 9-10 under O2 f16): 2.5 * 2^-11 of the
+# vector's largest |value|, 2.5 f16 ulps of a largest element at the top
+# of its binade. Stricter than the bf16 bound taken bit for bit (2e-2 is
+# 2.5 * 2^-7 at bf16's 7 mantissa bits, which at f16's 10 would be
+# 2.4e-3): the kernel's and the plain version's outputs, each rounded
+# to f16 once, may already be one ulp (2^-10 of the value) apart.
+F16_TOL = 1.25e-3
+_TOLS = {torch.bfloat16: KERNEL_TOL, torch.float16: F16_TOL}
 # The LSE is f32 in both versions: a sum of ~S exp terms in another order
 # (and exp2 of log2-scaled scores in the kernel) moves a value near
 # log(2048) + 1 ~ 8.6 by ~1e-5; 5e-4 leaves a margin of 50x.
@@ -643,12 +693,14 @@ def _sdpa_grad_ms(q, k, v, dout, iters, causal=True, layout="bshd"):
 
 
 def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True,
-                    layout="bshd", by_kv_head: bool = False):
+                    layout="bshd", by_kv_head: bool = False,
+                    dtype=torch.bfloat16, tol=KERNEL_TOL):
     """dq, dk, dv from the kernel forward's (out, lse), against the plain
     backward on the same inputs (with `by_kv_head`, one KV head's group
-    at a time); the kernel must also repeat bit for bit (no atomics)."""
+    at a time) within `tol`; the kernel must also repeat bit for bit (no
+    atomics). The inputs in `dtype` (bf16, or the f16 option)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
-    q, k, v, dout = _qkv(B, S, hd, gen, layout, (H, KV, KV, H))
+    q, k, v, dout = _qkv(B, S, hd, gen, layout, (H, KV, KV, H), dtype)
     kw = dict(causal=causal, layout=layout)
     plain_fn = _bwd_ref_by_kv_head if by_kv_head \
         else fa.flash_attention_bwd_ref
@@ -659,9 +711,9 @@ def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True,
     torch.cuda.synchronize()
     rel = {n: _rel_err(a, b, floor=GRAD_ROW_FLOOR)
            for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
-    if not all(r <= KERNEL_TOL for r in rel.values()):
+    if not all(r <= tol for r in rel.values()):
         raise AssertionError(f"flash bwd B={B} S={S}: relative errors {rel}"
-                             f" > {KERNEL_TOL}")
+                             f" > {tol}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash bwd B={B} S={S}: two runs differ")
     err = max((a.float() - b.float()).abs().max().item()
@@ -679,7 +731,8 @@ def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True,
     nbytes = 2.0 * B * S * hd * (4 * H + 4 * KV) + 4.0 * B * H * S
     return _shares({"shape": f"B={B} S={S} H={H} KV={KV} hd={hd}"
                              + ("" if causal else " non-causal")
-                             + ("" if layout == "bshd" else f" {layout}"),
+                             + ("" if layout == "bshd" else f" {layout}")
+                             + ("" if dtype == torch.bfloat16 else " f16"),
                     "max_abs_err": err, "max_rel_err": max(rel.values()),
                     "rel_err": rel, "ms": ms, "plain_ms": plain,
                     "library_ms": lib, **_bound(flops, nbytes, peaks)})
@@ -802,7 +855,7 @@ def _rms_fused_cases(rows, D, dtype, w_dtype, peaks, gen, flush,
     row, f32 within RMS_F32_TOL, bf16 within KERNEL_TOL; bit-identical
     twice. Times with the L2 cache flushed before each call, beside
     F.rms_norm. `on_path`: the eager Llama step's form, launched 23 times
-    a step."""
+    a step (a path name: that path's; True: eager_llama's)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import rms_norm as rn
     eps = 1e-5
@@ -814,7 +867,7 @@ def _rms_fused_cases(rows, D, dtype, w_dtype, peaks, gen, flush,
     ref = rn.rms_norm_ref(x, w, eps)
     torch.cuda.synchronize()
     rel = _rel_err(out, ref)
-    tol = RMS_F32_TOL if dtype == torch.float32 else KERNEL_TOL
+    tol = _TOLS.get(dtype, RMS_F32_TOL)
     name = (f"rows={rows} D={D} {str(dtype).replace('torch.', '')}"
             + (" affine-free" if w is None else
                f" w {str(w_dtype).replace('torch.', '')}"))
@@ -824,7 +877,8 @@ def _rms_fused_cases(rows, D, dtype, w_dtype, peaks, gen, flush,
         raise AssertionError(f"rms_norm_fused [{name}]: two runs differ")
     wl = None if w is None else w.to(dtype)
     es = x.element_size()
-    path = ({"path": "eager_llama", "step_launches": 23} if on_path
+    path = ({"path": on_path if isinstance(on_path, str) else
+             "eager_llama", "step_launches": 23} if on_path
             else {"path": None})
     return {"shape": name, **path,
             "max_abs_err": (out.float() - ref.float()).abs().max().item(),
@@ -948,21 +1002,23 @@ def _masked_flash_cases(B, S, H, hd, layout, lengths, peaks, gen, label=""):
     return _shares(fwd), _shares(bwd)
 
 
-def _ln_cases(rows, D, dtype, affine, peaks, gen, flush, on_path=False):
-    """The fused LayerNorm at [rows, D] (x in `dtype`; f32 weight and
-    bias, or affine-free): forward (out per row, mu, rstd) and backward
+def _ln_cases(rows, D, dtype, affine, peaks, gen, flush, on_path=False,
+              w_dtype=torch.float32):
+    """The fused LayerNorm at [rows, D] (x in `dtype`; weight and bias in
+    `w_dtype`, or affine-free): forward (out per row, mu, rstd) and backward
     (dx per row, dw and db) against the plain twins, at ERNIE's eps
     1e-12; the backward must repeat bit for bit and launch its walk and
     fold only. Times with the L2 cache flushed before each call, and the
     backward's also in one CUDA graph, beside the one ATen backward's.
-    `on_path`: the eager step's form, launched 25 times a step."""
+    `on_path`: the eager step's form, launched 25 times a step (a path
+    name: that path's; True: eager's)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.tools.bench_flash import _graph_ms
     eps = 1e-12
     x = (torch.randn(rows, D, device="cuda", generator=gen) + 0.5).to(dtype)
-    w = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
-    b = 0.1 * torch.randn(D, device="cuda", generator=gen)
+    w = (1 + 0.1 * torch.randn(D, device="cuda", generator=gen)).to(w_dtype)
+    b = (0.1 * torch.randn(D, device="cuda", generator=gen)).to(w_dtype)
     if not affine:
         w = b = None
     dy = torch.randn(rows, D, device="cuda", generator=gen).to(dtype)
@@ -972,7 +1028,7 @@ def _ln_cases(rows, D, dtype, affine, peaks, gen, flush, on_path=False):
     again = ln.layer_norm_bwd(x, w, mu, rstd, dy, eps)
     rdx, rdw, rdb = ln._ln_ref_bwd(x, w, dy, eps, affine)
     torch.cuda.synchronize()
-    tol = LN_F32_TOL if dtype == torch.float32 else KERNEL_TOL
+    tol = _TOLS.get(dtype, LN_F32_TOL)
     f_rel = _rel_err(out, rout)
     # a mean near 0 has no relative precision of its own: mu is held
     # relative to the larger of |mu| and the row's standard deviation
@@ -983,7 +1039,9 @@ def _ln_cases(rows, D, dtype, affine, peaks, gen, flush, on_path=False):
     w_rel = max(((a - r).abs().max() / r.abs().max()).item()
                 for a, r in ((dw, rdw), (db, rdb)))
     name = (f"rows={rows} D={D} {str(dtype).replace('torch.', '')}"
-            + ("" if affine else " affine-free"))
+            + ("" if affine else " affine-free")
+            + ("" if w_dtype == torch.float32 or not affine else
+               f" w {str(w_dtype).replace('torch.', '')}"))
     if not (f_rel <= tol and mu_rel <= LN_STAT_TOL and r_rel <= LN_STAT_TOL
             and b_rel <= tol and w_rel <= LN_SUM_TOL):
         raise AssertionError(f"layer_norm [{name}]: out {f_rel}, mu "
@@ -1000,8 +1058,8 @@ def _ln_cases(rows, D, dtype, affine, peaks, gen, flush, on_path=False):
         return F.layer_norm(xg, (D,), wl, bl, eps)
 
     es = x.element_size()
-    path = ({"path": "eager", "step_launches": 25} if on_path
-            else {"path": None})
+    path = ({"path": on_path if isinstance(on_path, str) else "eager",
+             "step_launches": 25} if on_path else {"path": None})
     fwd = {"shape": name, **path,
            "max_abs_err": (out.float() - rout.float()).abs().max().item(),
            "max_rel_err": f_rel, "mu_rel_err": mu_rel, "rstd_rel_err": r_rel,
@@ -1526,6 +1584,98 @@ def _gather_mlp_case(mp, peaks, gen, flush, D=2048, F_=1024):
     return res
 
 
+def _f16_controls(name, checks):
+    """The planted controls of an f16 case: each (label, error) must read
+    above F16_TOL, or the check could not see that fault."""
+    out = {label: err for label, err in checks}
+    low = {k: v for k, v in out.items() if not v > F16_TOL}
+    if low:
+        raise AssertionError(f"{name}: planted controls {low} read within "
+                             f"F16_TOL {F16_TOL}")
+    return out
+
+
+def _f16_kernel_cases(peaks, gen, flush):
+    """The f16 options at the O2 paths' shapes, within F16_TOL of their
+    plain versions, bit-identical twice, each with a planted control that
+    must read above the bound: the flash forward (+ LSE) and backward at
+    the eager Llama's [2, 2048, 32/8, 128] causal and the eager ERNIE's
+    [64, 512, 12, 64] (controls: the plain forward with the keys shifted
+    one position, the plain backward without dcap); row 6 at [4096,
+    4096] with an f16 weight (control: the weight read one column off);
+    rows 9-10 at [32768, 768] with f16 weight and bias (controls: the
+    forward's weight one column off, the backward without the
+    x̂·mean(dyw·x̂) term). Returns (flash fwd, flash bwd, rms_fused,
+    layer_norm fwd, layer_norm bwd) case lists, each case tagged with its
+    O2 path."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    f16 = torch.float16
+    fwd, bwd = [], []
+    for path, (B, S, H, KV, hd, causal) in (
+            ("eager_llama_o2_f16", (2, 2048, 32, 8, 128, True)),
+            ("eager_o2", (64, 512, 12, 12, 64, False))):
+        f = _flash_case(B, S, H, KV, hd, peaks, F16_TOL, gen, lse=True,
+                        causal=causal, dtype=f16)
+        b = _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=causal,
+                            dtype=f16, tol=F16_TOL)
+        q, k, v, dout = _qkv(B, S, hd, gen, "bshd", (H, KV, KV, H), f16)
+        kw = dict(causal=causal)
+        out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        again = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"flash fwd f16 [{f['shape']}]: two runs "
+                                 f"differ")
+        del again
+        shifted = fa.flash_attention_fwd_ref(q, torch.roll(k, 1, 1), v,
+                                             **kw)
+        f["dtype"] = b["dtype"] = "f16"
+        f["path"] = b["path"] = path
+        f["planted"] = _f16_controls(f["shape"], [(
+            "keys_shifted_one", _rel_err(out, shifted))])
+        del shifted
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        nodcap = fa.flash_attention_bwd_ref(q, k, v, torch.zeros_like(out),
+                                            lse, dout, **kw)
+        b["planted"] = _f16_controls(b["shape"], [(
+            "dcap_dropped", max(_rel_err(a, r, floor=GRAD_ROW_FLOOR)
+                                for a, r in zip(got[:2], nodcap[:2])))])
+        del q, k, v, dout, out, lse, got, nodcap
+        torch.cuda.empty_cache()
+        fwd.append(f)
+        bwd.append(b)
+    rms = _rms_fused_cases(2 * 2048, 4096, f16, f16, peaks, gen, flush,
+                           on_path="eager_llama_o2_f16")
+    x = (torch.randn(2 * 2048, 4096, device="cuda", generator=gen)
+         + 0.3).to(f16)
+    w = (1 + 0.1 * torch.randn(4096, device="cuda", generator=gen)).to(f16)
+    rms["dtype"] = "f16"
+    rms["planted"] = _f16_controls(rms["shape"], [(
+        "weight_one_column_off", _rel_err(
+            rn.rms_norm_fused(x, w, 1e-5),
+            rn.rms_norm_ref(x, torch.roll(w, 1), 1e-5)))])
+    lf, lb = _ln_cases(64 * 512, 768, f16, True, peaks, gen, flush,
+                       on_path="eager_o2", w_dtype=f16)
+    x = (torch.randn(64 * 512, 768, device="cuda", generator=gen)
+         + 0.5).to(f16)
+    w = (1 + 0.1 * torch.randn(768, device="cuda", generator=gen)).to(f16)
+    bias = (0.1 * torch.randn(768, device="cuda", generator=gen)).to(f16)
+    dy = torch.randn(64 * 512, 768, device="cuda", generator=gen).to(f16)
+    out, mu, rstd = ln.layer_norm_fwd(x, w, bias, 1e-12)
+    lf["dtype"] = lb["dtype"] = "f16"
+    lf["planted"] = _f16_controls(lf["shape"], [(
+        "weight_one_column_off", _rel_err(out, ln._ln_fwd_twin(
+            x, torch.roll(w, 1), bias, 1e-12, True)[0]))])
+    lb["planted"] = _f16_controls(lb["shape"], [(
+        "dx_term_dropped", _rel_err(
+            ln.layer_norm_bwd(x, w, mu, rstd, dy, 1e-12)[0],
+            _ln_bwd_dropped_term(x, w, mu, rstd, dy, 1e-12)[0]))])
+    del x, w, bias, dy, out, mu, rstd
+    torch.cuda.empty_cache()
+    return fwd, bwd, [rms], [lf], [lb]
+
+
 def phase_kernels(peaks):
     from paddle_tpu_torch.nlp import llama, moe
     H, KV, hd = 32, 8, 128
@@ -1678,6 +1828,21 @@ def phase_kernels(peaks):
             adamw.append({"path": path,
                           **_adamw_case(shape, names, peaks, gen)})
             torch.cuda.empty_cache()
+    # the f16 options at the O2 paths' shapes (rows 1-6, 9-10); then row
+    # 6 in bf16 with a bf16 weight at the eager Llama's [4096, 4096], the
+    # O2 bf16 run's form
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    f16_fwd, f16_bwd, f16_rms, f16_lnf, f16_lnb = _f16_kernel_cases(
+        peaks, gen, flush)
+    flash += f16_fwd
+    bwd += f16_bwd
+    rms_fused += f16_rms
+    rms_fused.append(_rms_fused_cases(2 * 2048, 4096, torch.bfloat16,
+                                      torch.bfloat16, peaks, gen, flush,
+                                      on_path="eager_llama_o2_bf16"))
+    lns += [(f16_lnf[0], f16_lnb[0])]
+    del scratch
+    torch.cuda.empty_cache()
     cases = {"flash_attention_fwd": flash, "ragged_paged_attention": ragged,
              "ragged_paged_attention_int8": ragged_int8,
              "ragged_paged_attention_suffix": ragged_suffix,
@@ -1691,7 +1856,8 @@ def phase_kernels(peaks):
              "adaln_fwd": [f for f, _ in adaln],
              "adaln_bwd": [b for _, b in adaln],
              "gather_rows": rows13, "gather_mlp": rows16}
-    _emit({"phase": "kernels", "tol": KERNEL_TOL, "lse_tol": LSE_TOL,
+    _emit({"phase": "kernels", "tol": KERNEL_TOL, "f16_tol": F16_TOL,
+           "lse_tol": LSE_TOL,
            "rstd_tol": RSTD_TOL, "adamw_code_frac": ADAMW_CODE_FRAC,
            "ln_f32_tol": LN_F32_TOL, "ln_stat_tol": LN_STAT_TOL,
            "ln_sum_tol": LN_SUM_TOL, "rms_f32_tol": RMS_F32_TOL,
@@ -4158,6 +4324,350 @@ def phase_grad_check_eager_llama():
     return out
 
 
+# ------------------------------------------------------- 8a. O2 mixed precision
+# the O2 runs launch what the O1 runs do, in the run's dtype: row 6 and
+# the causal flash pair in the eager Llama's step, the LayerNorm pair and
+# the non-causal flash pair in the eager ERNIE's
+_DT_TAGS = {"bfloat16": "bf16", "float16": "f16"}
+
+
+def _zero_counts(counters):
+    from paddle_tpu_torch import _build
+    for c in counters.values():
+        _build.reset_counts(c)
+
+
+def _read_counts(counters):
+    """(launches, launches by dtype) of each counter."""
+    from paddle_tpu_torch import _build
+    return ({n: c.launches for n, c in counters.items()},
+            {n: _build.launches_by_dtype(c) for n, c in counters.items()})
+
+
+def _check_dtype_launches(name, by_dtype, per_step, steps, tag):
+    """Every kernel of `per_step` launched exactly per_step * steps times
+    in dtype `tag` and never in another."""
+    for kernel, per in per_step.items():
+        got = by_dtype[kernel]
+        want = {t: (per * steps if t == tag else 0) for t in got}
+        if got != want:
+            raise AssertionError(f"{name}: {kernel} launched {got} by dtype "
+                                 f"in {steps} steps, expected {want}")
+
+
+def _masters(opt):
+    return [st["master"] for st in opt._state.values() if "master" in st]
+
+
+def _eager_llama_o2_run(paddle, cfg, dtype, peaks, batch, seq, warmup,
+                        timed):
+    """One O2 run of the eager Llama (see phase_eager_llama_o2)."""
+    from paddle_tpu_torch.nlp import llama
+    from paddle_tpu_torch.tools.eager_llama import build_model, train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    paddle.seed(SEED)
+    model = build_model(paddle, cfg)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters(),
+        weight_decay=paddle.regularizer.L2Decay(0.01),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    model, opt = paddle.amp.decorate(model, opt, level="O2", dtype=dtype)
+    scaler = (paddle.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+              if dtype == "float16" else None)
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    tokens = paddle.to_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq)))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    scales = []
+
+    def step():
+        loss = train_step(paddle, model, loss_fn, opt, tokens,
+                          amp_dtype=dtype, amp_level="O2", scaler=scaler)
+        if scaler is not None:
+            scales.append(scaler._scale)
+        return loss
+
+    counters = _path_counters(_EAGER_LLAMA_LAUNCHES_PER_STEP)
+    losses = [float(step()) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    out = [step() for _ in range(timed)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, by_dtype = _read_counts(counters)
+    losses += [float(x) for x in out]
+    tok_s = batch * seq * timed / dt
+    fpt = llama.flops_per_token(cfg, seq)
+    res = {"dtype": dtype, "param_dtypes": sorted({
+               str(p.dtype).replace("torch.", "")
+               for p in model.parameters()}),
+           "masters": len(_masters(opt)), "init_s": init_s,
+           "step_ms": dt / timed * 1e3, "tokens_per_s": tok_s,
+           "mfu": tok_s * fpt / peaks[0], "losses": losses,
+           "loss_scale": scales or None,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "launches_by_dtype": by_dtype}
+    del model, opt, tokens, scaler
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_eager_llama_o2(peaks, o1):
+    """The eager Llama of phase eager_llama (flagship widths and depth,
+    bench.py:120-131; batch 2 x 2048 from default_rng(0); 2 warm-up and 4
+    timed steps) under O2: `paddle.amp.decorate(model, opt, level="O2")`
+    casts every parameter, AdamW (lr 1e-4, the global-norm clip at 1.0,
+    weight_decay=paddle.regularizer.L2Decay(0.01), decoupled) keeps f32
+    master weights. Run (a) in bf16, PaddleNLP's default pretraining
+    precision; run (b) in f16 with GradScaler(init_loss_scaling=2**15),
+    driven as scaler.minimize(opt, scaler.scale(loss)). In each run the
+    flash pair must launch exactly 11 + 11 times a step and row 6 23
+    times, all in the run's dtype and none in the other; losses finite
+    and falling; peak memory under 80 GB, reported against the O1
+    phase's."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nlp import llama
+
+    cfg = llama.LlamaConfig.flagship_2b()
+    warmup, timed, batch, seq = 2, 4, 2, 2048
+    paddle.set_device("gpu")
+    runs = {}
+    for dtype in ("bfloat16", "float16"):
+        r = _eager_llama_o2_run(paddle, cfg, dtype, peaks, batch, seq,
+                                warmup, timed)
+        r["peak_memory_over_o1"] = \
+            r["peak_memory_bytes"] / o1["peak_memory_bytes"]
+        runs[_DT_TAGS[dtype]] = r
+    res = {"phase": "eager_llama_o2",
+           "config": "LlamaConfig.flagship_2b (bench.py:120-131), "
+                     "composed from layers, amp.decorate O2",
+           "optimizer": "AdamW lr 1e-4, ClipGradByGlobalNorm(1.0), "
+                        "weight_decay=L2Decay(0.01), multi_precision",
+           "batch": batch, "seq": seq, "steps": warmup + timed,
+           "timed_steps": timed, "flops_per_token":
+               llama.flops_per_token(cfg, seq),
+           "o1_step_ms": o1["step_ms"], "runs": runs,
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    for tag, r in runs.items():
+        _check_path(f"eager_llama_o2 ({tag})", r,
+                    _EAGER_LLAMA_LAUNCHES_PER_STEP, timed)
+        _check_dtype_launches(f"eager_llama_o2 ({tag})",
+                              r["launches_by_dtype"],
+                              _EAGER_LLAMA_LAUNCHES_PER_STEP, timed, tag)
+        if r["param_dtypes"] != [r["dtype"]] or not r["masters"]:
+            raise AssertionError(f"eager_llama_o2 ({tag}): parameters "
+                                 f"{r['param_dtypes']}, {r['masters']} "
+                                 f"masters after decorate")
+    return {f"eager_llama_o2_{t}": {"launches": r["launches"], "seq": seq}
+            for t, r in runs.items()}
+
+
+def _bits(opt, model):
+    """Every parameter's and master's tensor, copied."""
+    return ([p._data.detach().clone() for p in model.parameters()]
+            + [m.clone() for m in _masters(opt)])
+
+
+def phase_eager_o2(peaks):
+    """Phase eager's recipe (ERNIE-3.0-base composed from layers, BASELINE
+    config 1; dropout 0.1; AdamW lr 2e-5 with the global-norm clip at
+    1.0; the same 64 x 512 batch every step) under O2 f16:
+    `amp.decorate(level="O2", dtype="float16")` and
+    GradScaler(init_loss_scaling=2**15), driven as
+    scaler.minimize(opt, scaler.scale(loss)). 2 warm-up steps, 2 timed
+    steps, the planted overflow step, 2 more timed steps. The LayerNorm
+    pair must launch 25 + 25 times a timed step and the non-causal flash
+    pair 12 + 12, all in f16. The control: one step's loss is multiplied
+    by inf inside the step; the scaler must skip its update (every
+    parameter and master bit-identical before and after it), halve the
+    scale, and the steps after it must have finite losses."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nlp import ernie
+    from paddle_tpu_torch.tools.eager_ernie import build_model, train_step
+
+    cfg = ernie.ErnieConfig.ernie3_base()
+    warmup, batch, seq = 2, 64, 512
+    paddle.set_device("gpu")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    paddle.seed(SEED)
+    model = build_model(paddle, cfg, dropout=0.1)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=2e-5, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                     dtype="float16")
+    scaler = paddle.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    ce = paddle.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(0)
+    ids = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    labels = paddle.to_tensor(rng.integers(0, cfg.num_labels, (batch,)))
+    scales = []
+
+    def step(loss_fn=ce):
+        loss = train_step(paddle, model, loss_fn, opt, ids, labels,
+                          amp_dtype="float16", amp_level="O2",
+                          scaler=scaler)
+        scales.append(scaler._scale)
+        return loss
+
+    counters = _eager_counters()
+    losses = [float(step()) for _ in range(warmup)]
+    secs, timed = 0.0, 0
+    launches = {n: 0 for n in counters}
+    by_dtype = {n: {} for n in counters}
+    planted = {}
+    for part in range(2):
+        torch.cuda.synchronize()
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        out = [step() for _ in range(2)]
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        timed += 2
+        losses += [float(x) for x in out]
+        got, got_dt = _read_counts(counters)
+        for n in counters:
+            launches[n] += got[n]
+            for t, c in got_dt[n].items():
+                by_dtype[n][t] = by_dtype[n].get(t, 0) + c
+        if part == 0:
+            # the planted overflow step, between the timed ones
+            before = _bits(opt, model)
+            scale = scaler._scale
+            bad = float(step(lambda logits, y: ce(logits, y)
+                             * float("inf")))
+            after = _bits(opt, model)
+            planted = {"loss": bad, "scale_before": scale,
+                       "scale_after": scaler._scale,
+                       "skipped_bit_identical": all(
+                           torch.equal(a, b) for a, b in zip(before, after)),
+                       "tensors_compared": len(before)}
+            del before, after
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = batch * seq * timed / secs
+    fpt = ernie.flops_per_token(cfg, seq)
+    res = {"phase": "eager_o2",
+           "config": "ErnieConfig.ernie3_base (BASELINE config 1, "
+                     "bench.py:134-181), composed from layers, amp.decorate "
+                     "O2 f16, GradScaler(2**15)",
+           "batch": batch, "seq": seq, "timed_steps": timed,
+           "step_ms": secs / timed * 1e3, "tokens_per_s": tok_s,
+           "mfu": tok_s * fpt / peaks[0], "losses": losses,
+           "loss_scale": scales, "planted_overflow": planted,
+           "peak_memory_bytes": peak, "launches": launches,
+           "launches_by_dtype": by_dtype, "nvidia_smi": _smi_line()}
+    _emit(res)
+    del model, opt, ids, labels, scaler
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"eager_o2: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"eager_o2: the loss did not fall: {losses}")
+    if np.isfinite(planted["loss"]) or not planted["skipped_bit_identical"]:
+        raise AssertionError(f"eager_o2: the overflow step was not skipped "
+                             f"bit for bit: {planted}")
+    if planted["scale_after"] != planted["scale_before"] / 2:
+        raise AssertionError(f"eager_o2: the scale went "
+                             f"{planted['scale_before']} -> "
+                             f"{planted['scale_after']} on the overflow step,"
+                             f" not halved")
+    for name, per in _EAGER_LAUNCHES_PER_STEP.items():
+        if launches[name] != per * timed:
+            raise AssertionError(
+                f"eager_o2: {name}: {launches[name]} launches in {timed} "
+                f"steps, expected {per} a step")
+    _check_dtype_launches("eager_o2", by_dtype, _EAGER_LAUNCHES_PER_STEP,
+                          timed, "f16")
+    return {"launches": launches, "seq": seq}
+
+
+# the loss scale of the f16 gradient check: GradScaler's initial 2**15,
+# so the f16 backward sees the gradients at the size O2 training gives it
+GRAD_F16_LOSS_SCALE = 2.0 ** 15
+
+
+def phase_grad_check_eager_llama_f16():
+    """phase_grad_check_eager_llama under O2 f16: the eager Llama at the
+    flagship widths, 2 layers, batch 1 x 2048, its parameters cast to f16
+    by amp.decorate (the norm gains drawn 1 + 0.1 N(0, 1) first). One
+    loss (times 2**15, as GradScaler scales it) + backward under
+    auto_cast O2 f16 through the kernels, their plain versions and the
+    plain versions with the rms_w fault; the f32 evaluation runs the same
+    f16-rounded weights cast to f32 (no auto_cast, plain versions). Each
+    gradient group's distance from f32 (gradients divided by the scale in
+    f32): the kernels must be within 1.5x the plain f16 path's, the fault
+    above it."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nlp import llama
+    from paddle_tpu_torch.tools.eager_llama import build_model, lm_loss
+
+    layers, batch, seq = 2, 1, 2048
+    cfg = llama.LlamaConfig.flagship_2b(num_hidden_layers=layers)
+    paddle.set_device("gpu")
+    paddle.seed(SEED + 5)
+    model = build_model(paddle, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if "norm" in n:
+                p._data.copy_(1 + 0.1 * torch.randn(
+                    p._data.shape, device=p._data.device, generator=gen))
+    model = paddle.amp.decorate(model, level="O2", dtype="float16")
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    tokens = paddle.to_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (batch, seq)))
+    last = {}
+    hook = model.layers[len(model.layers) - 1].register_forward_post_hook(
+        lambda layer, inputs, out: last.__setitem__("out", out))
+    s = GRAD_F16_LOSS_SCALE
+
+    def run(amp):
+        with paddle.amp.auto_cast(enable=amp, level="O2", dtype="float16"):
+            loss = lm_loss(loss_fn, model(tokens), tokens)
+        (loss * (s if amp else 1.0)).backward()
+        g = {n: p.grad._data.float() / (s if amp else 1.0)
+             for n, p in model.named_parameters()}
+        model.clear_gradients()
+        return (float(loss), last.pop("out")._data.detach().float()
+                .reshape(-1), g)
+
+    res = {"kernel": run(True)}
+    with _plain_kernels():
+        res["ref"] = run(True)
+    with _plain_kernels(fault="rms_w"):
+        res["fault"] = run(True)
+    model.float()
+    with _plain_kernels():
+        res["f32"] = run(False)
+    hook.remove()
+    groups: dict = {}
+    for n, _ in model.named_parameters():
+        groups.setdefault(_eager_llama_group(n), []).append(n)
+    del model
+    finite = all(bool(torch.isfinite(x).all()) for r in res.values()
+                 for x in r[2].values())
+    fault_groups = ("last_layer_out", *groups)
+    out = _grad_ratios(res, groups, first="last_layer_out")
+    _emit({"phase": "grad_check_eager_llama_f16", "layers": layers,
+           "batch": batch, "seq": seq, "loss_scale": s,
+           "ratio_tol": GRAD_VS_F32_RATIO, "fault_groups": fault_groups,
+           "finite": finite, **out})
+    del res
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError("grad_check_eager_llama_f16: a gradient is "
+                             "not finite")
+    _check_grad_ratios(out, groups, fault_groups, "rms_w",
+                       first="last_layer_out")
+    return out
+
+
 def _ernie_group(name: str):
     """The gradient group of an nlp/ernie.py leaf (None: the MLM head,
     which the finetune loss does not use)."""
@@ -5250,12 +5760,16 @@ _KERNELS = {
         # S=4096 and 8192 + LSE; train05b: B=16 S=2048 H=16 + LSE;
         # predict: the predictor's prefill, B=8 S=512
         "rows": [1],
+        # the O2 runs: bf16 at eager_llama's shape; the f16 option at the
+        # eager Llama's and the eager ERNIE's (each the 21st case of its
+        # path's pool: the 20 untagged ones come first)
         "main": {"serve": 1, "serve_prefix": 1, "serve_quant_spec": 1,
                  "serve_robust": 1, "train": 3,
                  "train_moe": 4, "eager": 5,
                  "eager_llama": 6, "ernie": 7, "dit": 12, "generate": 14,
                  "long8k": 15, "layer8b_4k": 16, "layer8b_8k": 17,
-                 "train05b": 18, "predict": 19}},
+                 "train05b": 18, "predict": 19, "eager_llama_o2_bf16": 6,
+                 "eager_llama_o2_f16": 20, "eager_o2": 20}},
     "ragged_paged_attention": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
@@ -5287,7 +5801,8 @@ _KERNELS = {
         "rows": [2, 3, 4, 5],
         "main": {"train": 0, "train_moe": 2, "eager": 3, "eager_llama": 4,
                  "ernie": 5, "dit": 10, "long8k": 12, "layer8b_4k": 1,
-                 "layer8b_8k": 13, "train05b": 14}},
+                 "layer8b_8k": 13, "train05b": 14, "eager_llama_o2_bf16": 4,
+                 "eager_llama_o2_f16": 15, "eager_o2": 15}},
     "rms_norm_fwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:107",
@@ -5322,17 +5837,20 @@ _KERNELS = {
         "source": "paddle_tpu_torch/csrc/layer_norm.cu",
         "replaces": "paddle_tpu/kernels/layer_norm.py:38",
         "rows": [9],
-        "main": {"eager": 0}},            # f32 [32768, 768]
+        # f32 [32768, 768]; eager_o2: f16 [32768, 768]
+        "main": {"eager": 0, "eager_o2": 0}},
     "layer_norm_bwd": {
         "source": "paddle_tpu_torch/csrc/layer_norm.cu",
         "replaces": "paddle_tpu/kernels/layer_norm.py:53",
         "rows": [10],
-        "main": {"eager": 0}},
+        "main": {"eager": 0, "eager_o2": 0}},
     "rms_norm_fused": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:28",
         "rows": [6],
-        "main": {"eager_llama": 0}},      # f32 [4096, 4096]
+        # f32 [4096, 4096]; the O2 runs: bf16 and f16 [4096, 4096]
+        "main": {"eager_llama": 0, "eager_llama_o2_bf16": 0,
+                 "eager_llama_o2_f16": 0}},
     # no path of the JAX package launches rows 11-13 and 16, nor does the
     # port's: "held" names the case (at DiT-XL/2's or the MoE step's
     # shapes) whose times the line reports, and dit's run counts their
@@ -5393,6 +5911,11 @@ def _kernels_line(cases, runs):
             "by_path": by_path}
         if "graph_ms" in top:
             entry["graph_ms"] = top["graph_ms"]
+        f16 = [c for c in cases[name] if c.get("dtype") == "f16"]
+        if f16:
+            # the f16 option at its first O2 path's shape
+            entry["f16"] = {k: f16[0][k] for k in _TIMES
+                            + ("max_rel_err", "planted")}
         if "option" in meta:
             entry["option"] = meta["option"]
         if "also_replaces" in meta:
@@ -5448,6 +5971,9 @@ def main() -> int:
     _timed(phase_grad_check_eager)
     eager_llama = _timed(phase_eager_llama, peaks)
     _timed(phase_grad_check_eager_llama)
+    llama_o2 = _timed(phase_eager_llama_o2, peaks, eager_llama)
+    _timed(phase_grad_check_eager_llama_f16)
+    eager_o2 = _timed(phase_eager_o2, peaks)
     ernie = _timed(phase_ernie, peaks)
     _timed(phase_grad_check_ernie)
     dit = _timed(phase_dit, peaks)
@@ -5467,7 +5993,8 @@ def main() -> int:
             "train_moe": train_moe,
             "eager": eager, "eager_llama": eager_llama, "ernie": ernie,
             "dit": dit, "generate": generate, "predict": predict,
-            "long8k": long8k, **layer8b, "train05b": train05b}
+            "long8k": long8k, **layer8b, "train05b": train05b,
+            **llama_o2, "eager_o2": eager_o2}
     _emit({"phase_seconds": _PHASE_SECONDS,
            "main_s": time.perf_counter() - t0})
     _emit({"kernels": _kernels_line(cases, runs)})

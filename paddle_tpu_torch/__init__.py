@@ -30,10 +30,13 @@ eager-API slices):
                           (csrc/adamw_q.cu)
     optimizer.transform   the optax transformations the train step uses
     serving               ServingEngine over the batcher
-    core, ops, autograd,  the Paddle-shaped eager API: Tensor, Parameter,
-    amp, nn, optimizer,   to_tensor, the eager dispatch with AMP casts,
-    incubate              torch autograd as the tape, Layer and its
-                          layers, AdamW, the incubate fused layers
+    core, ops, autograd,  the Paddle-shaped eager API: Tensor and its
+    amp, nn, optimizer,   operators, Parameter, to_tensor, the eager
+    incubate,             dispatch with AMP casts, torch autograd as the
+    regularizer           tape, Layer and its layers, SGD, Momentum,
+                          Adam(W) with master weights, the clips and
+                          decays, amp.decorate (O2) and GradScaler, the
+                          incubate fused layers
     kernels.layer_norm    the fused LayerNorm's forward and backward
                           (csrc/layer_norm.cu)
     inference             Config, create_predictor, the LLM predictor
@@ -95,3 +98,9 @@ from . import incubate  # noqa: F401
 from . import io  # noqa: F401
 from . import vision  # noqa: F401
 from . import inference  # noqa: F401
+
+# paddle.regularizer (the JAX package's namespace of the same name)
+from .optimizer.optimizers import L1Decay as _L1, L2Decay as _L2
+import types as _t
+regularizer = _t.SimpleNamespace(L1Decay=_L1, L2Decay=_L2)
+del _t, _L1, _L2

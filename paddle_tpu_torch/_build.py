@@ -19,6 +19,9 @@ running them: while a thread is inside `capture_tally()`, its counts go
 to the tally that yields and the shared counters are left alone, so a
 capture on one thread never takes back another thread's launches.
 `add_counts` puts a replay's recorded launches onto the shared counters.
+A kernel of more than one input dtype also counts its launches by dtype
+(`launches_bf16`, `launches_f16`, `launches_f32`: `count_dtype`;
+`launches_by_dtype` reads them, `reset_counts` zeroes them all).
 The shared counters change under one lock, so threads that launch or
 replay at once lose no update.
 """
@@ -161,6 +164,32 @@ def count(wrapper, attr: str = "launches", n: int = 1) -> None:
         return
     with _count_lock:
         setattr(wrapper, attr, getattr(wrapper, attr) + n)
+
+
+DTYPE_TAGS = {"torch.float32": "f32", "torch.bfloat16": "bf16",
+              "torch.float16": "f16"}
+
+
+def count_dtype(wrapper, dtype) -> None:
+    """One launch of `wrapper`'s kernel on inputs of `dtype`: `launches`
+    and `launches_<tag>` each gain one."""
+    count(wrapper)
+    count(wrapper, f"launches_{DTYPE_TAGS[str(dtype)]}")
+
+
+def launches_by_dtype(wrapper) -> Dict[str, int]:
+    """{tag: launches} of a wrapper that counts by dtype."""
+    return {t: getattr(wrapper, f"launches_{t}")
+            for t in DTYPE_TAGS.values()
+            if hasattr(wrapper, f"launches_{t}")}
+
+
+def reset_counts(wrapper) -> None:
+    """Zero `launches` and every `launches_<option or dtype>` count."""
+    with _count_lock:
+        for attr in list(vars(wrapper)):
+            if attr == "launches" or attr.startswith("launches_"):
+                setattr(wrapper, attr, 0)
 
 
 def add_counts(tally: Dict[Tuple[object, str], int]) -> None:

@@ -50,6 +50,7 @@ def _new_name() -> str:
 
 class Tensor:
     __slots__ = ("_data", "_sg", "_leaf", "name", "__weakref__", "__dict__")
+    _version = 0      # bumped by each in-place write (`__setitem__`)
 
     def __init__(self, data, stop_gradient: bool = True,
                  name: Optional[str] = None):
@@ -102,6 +103,16 @@ class Tensor:
     def is_leaf(self) -> bool:
         return self._leaf
 
+    @property
+    def trainable(self) -> bool:
+        """Paddle's `trainable`, tied to stop_gradient: setting it False
+        stops the gradient, as on a Paddle parameter."""
+        return not self._sg
+
+    @trainable.setter
+    def trainable(self, value: bool) -> None:
+        self.stop_gradient = not value
+
     # ---- basic properties -------------------------------------------------
     @property
     def shape(self):
@@ -148,6 +159,10 @@ class Tensor:
 
     cast = astype
 
+    def clone(self) -> "Tensor":
+        from .. import ops
+        return ops.assign(self)
+
     def detach(self) -> "Tensor":
         return Tensor(self._data.detach(), stop_gradient=True, name=self.name)
 
@@ -191,6 +206,10 @@ class Tensor:
     def __getitem__(self, idx) -> "Tensor":
         from .. import ops
         return ops.getitem(self, idx)
+
+    def __setitem__(self, idx, value) -> None:
+        from .. import ops
+        ops.setitem_(self, idx, value)
 
     # ---- in-place helpers -------------------------------------------------
     def set_value(self, value) -> "Tensor":

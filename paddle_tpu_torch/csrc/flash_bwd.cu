@@ -9,7 +9,10 @@
 // fit 16 MB of scoped VMEM; here one design serves every length.
 //
 // Computes, from q [B, Sq, H, hd], k/v [B, Sk, KV, hd], out and dout
-// [B, Sq, H, hd] (bf16; or the head-major [B, H, S, hd] of 'bhsd': TMA
+// [B, Sq, H, hd] (bf16, or f16 through flash_bwd_f16: one type for all
+// five, the same kernel templates instantiated for each, as the TPU
+// kernels compute in their inputs' dtype; or the head-major [B, H, S, hd]
+// of 'bhsd': TMA
 // reads q, k, v and dout through tensor maps built from their strides,
 // the other tensors are read and written through their strides) and the
 // forward's lse [B, H, Sq] (f32, natural log of the scaled scores):
@@ -22,7 +25,13 @@
 // The mask zeroes P, not the scores (the TPU kernels' p re-mask,
 // flash_attention.py:417, :486): a masked key gets dK = dV = 0, and a row
 // that sees no key (its lse is -1e30) contributes nothing. P and dS are
-// rounded to bf16 only as the A operands of the second products.
+// rounded to the input type only as the A operands of the second
+// products. In f16 that rounding is where the two types part: f16 keeps
+// 3 more mantissa bits but flushes |dS| below 2^-24 to zero (and rounds
+// it coarsely below 2^-14), where bf16 keeps f32's exponent range; a
+// dS that small adds less than the f32 sums' own rounding to dQ and dK
+// at the scales a loss scaler keeps the gradients in, and chip_smoke.py's
+// f16 gradient check holds the result to the plain f16 path.
 // head_dim 64, 72 or 128 (72: the contractions over hd take 5 k16 steps,
 // the fifth over columns TMA zero-fills; see hopper_core.cuh).
 //
@@ -70,7 +79,6 @@
 
 namespace {
 
-using hop::bf16;
 using hop::Strides;
 
 constexpr int kThreads = 384;   // producer warpgroup + 2 consumers
@@ -89,9 +97,9 @@ __host__ __device__ __forceinline__ int padded(int sq) {
 
 // ------------------------------------------------------------------ dcap
 // row runs over [B * H, Sq_pad]; lse2 and dcap are the scratch's halves
-template <int HD>
+template <class T, int HD>
 __global__ void __launch_bounds__(128)
-dcap_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+dcap_kernel(const T* __restrict__ o, const T* __restrict__ dout,
             const float* __restrict__ lse, float* __restrict__ lse2,
             float* __restrict__ dcap, long rows, int Sq, int Sq_pad, int H,
             Strides os, Strides ds) {
@@ -108,15 +116,13 @@ dcap_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
     return;
   }
   const int h = (int)(bh % H), b = (int)(bh / H);
-  const bf16* op = o + os.at(b, i, h);
-  const bf16* dp = dout + ds.at(b, i, h);
+  const T* op = o + os.at(b, i, h);
+  const T* dp = dout + ds.at(b, i, h);
   float acc = 0.f;
 #pragma unroll
   for (int c = lane * 2; c < HD; c += 64) {
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(op + c));
-    const float2 d = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(dp + c));
+    const float2 a = hop::load2<T>(op + c);
+    const float2 d = hop::load2<T>(dp + c);
     acc += a.x * d.x + a.y * d.y;
   }
 #pragma unroll
@@ -143,7 +149,7 @@ struct DkdvSmem {
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int HD>
+template <class T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             const __grid_constant__ CUtensorMap tm_k,
@@ -151,7 +157,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             const __grid_constant__ CUtensorMap tm_do,
             const float* __restrict__ lse2, const float* __restrict__ dcap,
             const unsigned char* __restrict__ key_mask,
-            bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
+            T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk,
             int H, int KV, Strides dks, Strides dvs, float scale,
             int causal) {
   using L = DkdvSmem<HD>;
@@ -279,12 +285,12 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
         hop::wg_fence();
 #pragma unroll
         for (int ks = 0; ks < hop::k_steps(HD); ++ks)
-          hop::Wgmma<kQM>::ss(
+          hop::Wgmma<kQM, T>::ss(
               s, hop::desc_k(hop::k_step_addr(k_addr, kKN, ks)),
               hop::desc_k(hop::k_step_addr(qb, kQM, ks)), ks > 0);
 #pragma unroll
         for (int ks = 0; ks < hop::k_steps(HD); ++ks)
-          hop::Wgmma<kQM>::ss(
+          hop::Wgmma<kQM, T>::ss(
               dp, hop::desc_k(hop::k_step_addr(v_addr, kKN, ks)),
               hop::desc_k(hop::k_step_addr(db, kQM, ks)), ks > 0);
         hop::wg_commit();
@@ -308,17 +314,17 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
           dp[i] = p * (dp[i] - rows[kQM + qc]) * scale;
         }
         uint32_t pa[kQM / 16][4], da[kQM / 16][4];
-        hop::pack_a<kQM>(s, pa);
-        hop::pack_a<kQM>(dp, da);
+        hop::pack_a<kQM, T>(s, pa);
+        hop::pack_a<kQM, T>(dp, da);
         hop::wg_fence();
 #pragma unroll
         for (int kk = 0; kk < kQM / 16; ++kk)
-          hop::Wgmma<HD>::rs(dva, pa[kk],
+          hop::Wgmma<HD, T>::rs(dva, pa[kk],
                              hop::desc_mn(db + kk * 16 * hop::kRowBytes,
                                           kQM * hop::kRowBytes));
 #pragma unroll
         for (int kk = 0; kk < kQM / 16; ++kk)
-          hop::Wgmma<HD>::rs(dka, da[kk],
+          hop::Wgmma<HD, T>::rs(dka, da[kk],
                              hop::desc_mn(qb + kk * 16 * hop::kRowBytes,
                                           kQM * hop::kRowBytes));
         hop::wg_commit();
@@ -336,15 +342,15 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (key[hh] >= Sk) continue;
-    bf16* dkr = dk + dks.at(b, key[hh], kvh);
-    bf16* dvr = dv + dvs.at(b, key[hh], kvh);
+    T* dkr = dk + dks.at(b, key[hh], kvh);
+    T* dvr = dv + dvs.at(b, key[hh], kvh);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int c = 8 * j + 2 * t4;
       *reinterpret_cast<uint32_t*>(dkr + c) =
-          hop::pack_bf16(dka[4 * j + 2 * hh], dka[4 * j + 2 * hh + 1]);
+          hop::pack2<T>(dka[4 * j + 2 * hh], dka[4 * j + 2 * hh + 1]);
       *reinterpret_cast<uint32_t*>(dvr + c) =
-          hop::pack_bf16(dva[4 * j + 2 * hh], dva[4 * j + 2 * hh + 1]);
+          hop::pack2<T>(dva[4 * j + 2 * hh], dva[4 * j + 2 * hh + 1]);
     }
   }
 }
@@ -367,14 +373,14 @@ struct DqSmem {
   }
 };
 
-template <int HD>
+template <class T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           const __grid_constant__ CUtensorMap tm_k,
           const __grid_constant__ CUtensorMap tm_v,
           const __grid_constant__ CUtensorMap tm_do,
           const float* __restrict__ lse2, const float* __restrict__ dcap,
-          const unsigned char* __restrict__ key_mask, bf16* __restrict__ dq,
+          const unsigned char* __restrict__ key_mask, T* __restrict__ dq,
           int Sq, int Sk, int H, int KV, Strides dqs, float scale,
           int causal) {
   using L = DqSmem<HD>;
@@ -481,12 +487,12 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       hop::wg_fence();
 #pragma unroll
       for (int ks = 0; ks < hop::k_steps(HD); ++ks)
-        hop::Wgmma<kDqN>::ss(
+        hop::Wgmma<kDqN, T>::ss(
             s, hop::desc_k(hop::k_step_addr(q_addr, kDqM, ks)),
             hop::desc_k(hop::k_step_addr(kb, kDqN, ks)), ks > 0);
 #pragma unroll
       for (int ks = 0; ks < hop::k_steps(HD); ++ks)
-        hop::Wgmma<kDqN>::ss(
+        hop::Wgmma<kDqN, T>::ss(
             dp, hop::desc_k(hop::k_step_addr(do_addr, kDqM, ks)),
             hop::desc_k(hop::k_step_addr(vb, kDqN, ks)), ks > 0);
       hop::wg_commit();
@@ -509,11 +515,11 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         dp[i] = p * (dp[i] - crow[hh]) * scale;
       }
       uint32_t da[kDqN / 16][4];
-      hop::pack_a<kDqN>(dp, da);
+      hop::pack_a<kDqN, T>(dp, da);
       hop::wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kDqN / 16; ++kk)
-        hop::Wgmma<HD>::rs(dqa, da[kk],
+        hop::Wgmma<HD, T>::rs(dqa, da[kk],
                            hop::desc_mn(kb + kk * 16 * hop::kRowBytes,
                                         kDqN * hop::kRowBytes));
       hop::wg_commit();
@@ -529,81 +535,96 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int hh = 0; hh < 2; ++hh) {
     const int i = row0 + 8 * hh;
     if (i >= Sq) continue;
-    bf16* out = dq + dqs.at(b, i, head);
+    T* out = dq + dqs.at(b, i, head);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * t4) =
-          hop::pack_bf16(dqa[4 * j + 2 * hh], dqa[4 * j + 2 * hh + 1]);
+          hop::pack2<T>(dqa[4 * j + 2 * hh], dqa[4 * j + 2 * hh + 1]);
   }
 }
 
 // st: the element strides of q, k, v, out, dout, dq, dk, dv, in that order
-template <int HD>
-int launch(const CUtensorMap* tm, const bf16* o, const bf16* dout,
-           const float* lse, float* scratch, bf16* dq, bf16* dk, bf16* dv,
+template <class T, int HD>
+int launch(const CUtensorMap* tm, const T* o, const T* dout,
+           const float* lse, float* scratch, T* dq, T* dk, T* dv,
            const unsigned char* mask, int B, int Sq, int Sk, int H, int KV,
            const Strides* st, float scale, int causal, cudaStream_t stream) {
   const int Sq_pad = padded(Sq);
   const long rows = (long)B * H * Sq_pad;
   float* lse2 = scratch;
   float* dcap = scratch + rows;
-  dcap_kernel<HD><<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
+  dcap_kernel<T, HD><<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
       o, dout, lse, lse2, dcap, rows, Sq, Sq_pad, H, st[3], st[4]);
   const int smem1 = DkdvSmem<HD>::kBytes;
   static int granted1[64], granted2[64];
-  cudaError_t err = hop::allow_smem(dkdv_kernel<HD>, smem1, granted1);
+  cudaError_t err = hop::allow_smem(dkdv_kernel<T, HD>, smem1, granted1);
   if (err != cudaSuccess) return (int)err;
   dim3 g1(B * KV, (Sk + kKN - 1) / kKN);
-  dkdv_kernel<HD><<<g1, kThreads, smem1, stream>>>(
+  dkdv_kernel<T, HD><<<g1, kThreads, smem1, stream>>>(
       tm[0], tm[1], tm[2], tm[3], lse2, dcap, mask, dk, dv, Sq, Sk, H, KV,
       st[6], st[7], scale, causal);
   const int smem2 =
       DqSmem<HD>::bytes(mask != nullptr ? (Sk + kDqN - 1) / kDqN : 0);
-  err = hop::allow_smem(dq_kernel<HD>, smem2, granted2);
+  err = hop::allow_smem(dq_kernel<T, HD>, smem2, granted2);
   if (err != cudaSuccess) return (int)err;
   dim3 g2(B * H, (Sq + kDqM - 1) / kDqM);
-  dq_kernel<HD><<<g2, kThreads, smem2, stream>>>(
+  dq_kernel<T, HD><<<g2, kThreads, smem2, stream>>>(
       tm[0], tm[1], tm[2], tm[3], lse2, dcap, mask, dq, Sq, Sk, H, KV, st[5],
       scale, causal);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// `scratch`: 2 * B * H * Sq_pad f32 (Sq_pad: Sq rounded up to 128;
-// kernels/flash_attention.py::bwd_scratch_numel); `key_mask` (uint8
-// [B, Sk]) may be null; `maps` is a host array of 28 int64: the seven
-// tensor-map values (kernels/flash_attention.py::tma_dims) of q, k, v
-// and dout in turn; `strides` is a host array of 24 int64: the batch,
-// sequence and head element strides of q, k, v, out, dout, dq, dk and
-// dv, in that order. Returns the launches' cudaError_t (0 on success;
-// cudaErrorInvalidValue when a tensor map is refused).
-extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
-                              const void* o, const void* dout,
-                              const void* lse, void* scratch, void* dq,
-                              void* dk, void* dv, const void* key_mask,
-                              int B, int Sq, int Sk, int H, int KV, int hd,
-                              const long long* maps,
-                              const long long* strides, float scale,
-                              int causal, void* stream) {
+template <class T>
+int run(const void* q, const void* k, const void* v, const void* o,
+        const void* dout, const void* lse, void* scratch, void* dq, void* dk,
+        void* dv, const void* key_mask, int B, int Sq, int Sk, int H, int KV,
+        int hd, const long long* maps, const long long* strides,
+        float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap tm[4];
   const void* bases[4] = {q, k, v, dout};
   for (int t = 0; t < 4; ++t)
-    if (!hop::encode_map(&tm[t], bases[t], maps + 7 * t))
+    if (!hop::encode_map(&tm[t], bases[t], maps + 7 * t,
+                         hop::tma_type<T>()))
       return (int)cudaErrorInvalidValue;
   Strides st[8];
   for (int t = 0; t < 8; ++t)
     st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
 #define PTT_ARGS                                                          \
-  tm, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),        \
+  tm, static_cast<const T*>(o), static_cast<const T*>(dout),              \
       static_cast<const float*>(lse), static_cast<float*>(scratch),       \
-      static_cast<bf16*>(dq), static_cast<bf16*>(dk),                     \
-      static_cast<bf16*>(dv), static_cast<const unsigned char*>(key_mask), \
-      B, Sq, Sk, H, KV, st, scale, causal, s
-  if (hd == 128) return launch<128>(PTT_ARGS);
-  if (hd == 72) return launch<72>(PTT_ARGS);
-  if (hd == 64) return launch<64>(PTT_ARGS);
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),      \
+      static_cast<const unsigned char*>(key_mask), B, Sq, Sk, H, KV, st,  \
+      scale, causal, s
+  if (hd == 128) return launch<T, 128>(PTT_ARGS);
+  if (hd == 72) return launch<T, 72>(PTT_ARGS);
+  if (hd == 64) return launch<T, 64>(PTT_ARGS);
 #undef PTT_ARGS
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+// q, k, v, out, dout, dq, dk and dv all bf16 (flash_bwd_bf16) or all f16
+// (flash_bwd_f16). `scratch`: 2 * B * H * Sq_pad f32 (Sq_pad: Sq rounded
+// up to 128; kernels/flash_attention.py::bwd_scratch_numel); `key_mask`
+// (uint8 [B, Sk]) may be null; `maps` is a host array of 28 int64: the
+// seven tensor-map values (kernels/flash_attention.py::tma_dims) of q, k,
+// v and dout in turn; `strides` is a host array of 24 int64: the batch,
+// sequence and head element strides of q, k, v, out, dout, dq, dk and
+// dv, in that order. Returns the launches' cudaError_t (0 on success;
+// cudaErrorInvalidValue when a tensor map is refused).
+#define PTT_BWD_ENTRY(NAME, T)                                               \
+  extern "C" int NAME(const void* q, const void* k, const void* v,           \
+                      const void* o, const void* dout, const void* lse,      \
+                      void* scratch, void* dq, void* dk, void* dv,           \
+                      const void* key_mask, int B, int Sq, int Sk, int H,    \
+                      int KV, int hd, const long long* maps,                 \
+                      const long long* strides, float scale, int causal,     \
+                      void* stream) {                                        \
+    return run<T>(q, k, v, o, dout, lse, scratch, dq, dk, dv, key_mask, B,   \
+                  Sq, Sk, H, KV, hd, maps, strides, scale, causal, stream);  \
+  }
+PTT_BWD_ENTRY(flash_bwd_bf16, hop::bf16)
+PTT_BWD_ENTRY(flash_bwd_f16, hop::f16)
+#undef PTT_BWD_ENTRY

@@ -19,8 +19,11 @@
 // q/out [B, Sq, H, hd] and k/v [B, Sk, KV, hd] ('bshd') or [B, H, Sq, hd]
 // and [B, KV, Sk, hd] ('bhsd'): TMA reads q, k and v through tensor maps
 // built from their strides, and out is written through its strides, so
-// neither layout is copied into the other. bf16 in and out; scores and
-// accumulation f32. With a non-null `lse` [B, H, Sq] (f32) it also writes
+// neither layout is copied into the other. bf16 or f16 in and out (one
+// type for q, k, v and out: flash_fwd_bf16 and flash_fwd_f16, the same
+// kernel template instantiated for each, as the TPU kernel computes in its
+// input's dtype); scores and accumulation f32, P rounded to the input type
+// as the A operand of P.V. With a non-null `lse` [B, H, Sq] (f32) it also writes
 // each row's log-sum-exp of the scaled scores, the residual of the
 // backward (flash_bwd.cu), in the domain the TPU kernel keeps it.
 // head_dim 64, 72 (DiT-XL/2's 1152 / 16) or 128. Query head h reads KV
@@ -67,7 +70,6 @@
 
 namespace {
 
-using hop::bf16;
 using hop::Strides;
 
 constexpr int kBN = 128;        // keys a tile
@@ -92,12 +94,12 @@ struct FwdSmem {
   }
 };
 
-template <int HD>
+template <class T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
-                 bf16* __restrict__ out, float* __restrict__ lse,
+                 T* __restrict__ out, float* __restrict__ lse,
                  const unsigned char* __restrict__ key_mask, int Sq, int Sk,
                  int H, int KV, Strides os, float scale_log2, int causal) {
   using L = FwdSmem<HD>;
@@ -195,7 +197,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       hop::wg_fence();
 #pragma unroll
       for (int ks = 0; ks < hop::k_steps(HD); ++ks)
-        hop::Wgmma<kBN>::ss(
+        hop::Wgmma<kBN, T>::ss(
             s, hop::desc_k(hop::k_step_addr(q_addr, kBM, ks)),
             hop::desc_k(hop::k_step_addr(kb, kBN, ks)), ks > 0);
       hop::wg_commit();
@@ -251,11 +253,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       uint32_t pa[kBN / 16][4];
-      hop::pack_a<kBN>(s, pa);
+      hop::pack_a<kBN, T>(s, pa);
       hop::wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        hop::Wgmma<HD>::rs(o, pa[kk],
+        hop::Wgmma<HD, T>::rs(o, pa[kk],
                            hop::desc_mn(vb + kk * 16 * hop::kRowBytes,
                                         kBN * hop::kRowBytes));
       hop::wg_commit();
@@ -275,10 +277,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int i = row0 + 8 * hh;
     if (i >= Sq) continue;
     const float inv = l_run[hh] > 0.f ? 1.f / l_run[hh] : 0.f;
-    bf16* orow = out + os.at(b, i, head);
+    T* orow = out + os.at(b, i, head);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) = hop::pack_bf16(
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) = hop::pack2<T>(
           o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
     if (lse != nullptr && t4 == 0)
       lse[((size_t)b * H + head) * Sq + i] =
@@ -287,51 +289,65 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int HD>
-int launch(const CUtensorMap* maps, bf16* o, float* lse,
+template <class T, int HD>
+int launch(const CUtensorMap* maps, T* o, float* lse,
            const unsigned char* mask, int B, int Sq, int Sk, int H, int KV,
            Strides os, float scale, int causal, cudaStream_t stream) {
   const int n_state = mask != nullptr ? (Sk + kBN - 1) / kBN : 0;
   const int smem = FwdSmem<HD>::bytes(n_state);
   static int granted[64];
-  cudaError_t err = hop::allow_smem(flash_fwd_kernel<HD>, smem, granted);
+  cudaError_t err = hop::allow_smem(flash_fwd_kernel<T, HD>, smem, granted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Sq + kBM - 1) / kBM);
-  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], o, lse, mask, Sq, Sk, H, KV, os,
       scale * hop::kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
+template <class T>
+int run(const void* q, const void* k, const void* v, void* o, void* lse,
+        const void* key_mask, int B, int Sq, int Sk, int H, int KV, int hd,
+        const long long* maps, const long long* out_strides, float scale,
+        int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap tm[3];
+  const void* bases[3] = {q, k, v};
+  for (int t = 0; t < 3; ++t)
+    if (!hop::encode_map(&tm[t], bases[t], maps + 7 * t,
+                         hop::tma_type<T>()))
+      return (int)cudaErrorInvalidValue;
+  Strides os{out_strides[0], out_strides[1], out_strides[2]};
+  float* l = static_cast<float*>(lse);
+  T* out = static_cast<T*>(o);
+  const unsigned char* m = static_cast<const unsigned char*>(key_mask);
+  if (hd == 128) return launch<T, 128>(tm, out, l, m, B, Sq, Sk, H, KV, os,
+                                       scale, causal, s);
+  if (hd == 72) return launch<T, 72>(tm, out, l, m, B, Sq, Sk, H, KV, os,
+                                     scale, causal, s);
+  if (hd == 64) return launch<T, 64>(tm, out, l, m, B, Sq, Sk, H, KV, os,
+                                     scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// q, k, v and out all bf16 (flash_fwd_bf16) or all f16 (flash_fwd_f16).
 // `maps` is a host array of 21 int64: for q, k and v in turn, the seven
 // tensor-map values of kernels/flash_attention.py::tma_dims (extents
 // head_dim, seq, heads, batch; byte strides of seq, head, batch).
 // `out_strides`: the batch, sequence and head element strides of out.
 // `lse` and `key_mask` may be null. Returns the launch's cudaError_t (0 on
 // success; cudaErrorInvalidValue when a tensor map is refused).
-extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, void* lse, const void* key_mask,
-                              int B, int Sq, int Sk, int H, int KV, int hd,
-                              const long long* maps,
-                              const long long* out_strides, float scale,
-                              int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CUtensorMap tm[3];
-  const void* bases[3] = {q, k, v};
-  for (int t = 0; t < 3; ++t)
-    if (!hop::encode_map(&tm[t], bases[t], maps + 7 * t))
-      return (int)cudaErrorInvalidValue;
-  Strides os{out_strides[0], out_strides[1], out_strides[2]};
-  float* l = static_cast<float*>(lse);
-  bf16* out = static_cast<bf16*>(o);
-  const unsigned char* m = static_cast<const unsigned char*>(key_mask);
-  if (hd == 128) return launch<128>(tm, out, l, m, B, Sq, Sk, H, KV, os,
-                                    scale, causal, s);
-  if (hd == 72) return launch<72>(tm, out, l, m, B, Sq, Sk, H, KV, os,
-                                  scale, causal, s);
-  if (hd == 64) return launch<64>(tm, out, l, m, B, Sq, Sk, H, KV, os,
-                                  scale, causal, s);
-  return (int)cudaErrorInvalidValue;
-}
+#define PTT_FWD_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(const void* q, const void* k, const void* v, void* o, \
+                      void* lse, const void* key_mask, int B, int Sq,       \
+                      int Sk, int H, int KV, int hd, const long long* maps, \
+                      const long long* out_strides, float scale,            \
+                      int causal, void* stream) {                           \
+    return run<T>(q, k, v, o, lse, key_mask, B, Sq, Sk, H, KV, hd, maps,    \
+                  out_strides, scale, causal, stream);                      \
+  }
+PTT_FWD_ENTRY(flash_fwd_bf16, hop::bf16)
+PTT_FWD_ENTRY(flash_fwd_f16, hop::f16)
+#undef PTT_FWD_ENTRY

@@ -10,8 +10,11 @@
 //   backward: xhat = (x - mu) * r, dyw = dy * w,
 //             dx = r * (dyw - mean(dyw) - xhat * mean(dyw * xhat))
 //             dw = sum over rows of dy * xhat, db = sum over rows of dy
-// x, out, dy, dx in the input dtype (f32 or bf16) [rows, D]; w, b f32 [D]
-// (the wrapper casts them), or null for the affine-free form (w = 1, b = 0);
+// x, out, dy, dx in the input dtype (f32, bf16 or f16: ln_*_f32, _bf16
+// and _f16, one template each, as the TPU kernels compute in their input's
+// dtype) [rows, D]; w, b f32 [D] (the wrapper casts them; with f16 x an
+// f16 pair is read as it is, the O2 form, so no cast runs around the
+// call), or null for the affine-free form (w = 1, b = 0);
 // all arithmetic in f32, in the order of the TPU kernels: the variance is
 // the two-pass mean of the centred squares, as the TPU kernel's
 // mean(xc * xc), not Welford and not E[x^2] - mu^2.
@@ -44,8 +47,11 @@
 // summed 1024 chunks in one chain: 0.057 ms alone, a quarter of the call.
 // This design: 0.116 ms, 78 % of the bound.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "norm_bwd_core.cuh"
 
@@ -94,6 +100,33 @@ struct Vec<bf16> {
   }
 };
 
+template <>
+struct Vec<__half> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void load(const __half* p, float f[8]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 q = __half22float2(h[i]);
+      f[2 * i] = q.x;
+      f[2 * i + 1] = q.y;
+    }
+  }
+  __device__ __forceinline__ static void store(__half* p, const float f[8]) {
+    uint4 u;
+    __half2* h = reinterpret_cast<__half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+};
+
+// one weight or bias value as f32, read in its own dtype
+__device__ __forceinline__ float wval(float w) { return w; }
+__device__ __forceinline__ float wval(__half w) { return __half2float(w); }
+
 // Sum of `v` over the 32 * WPR threads of one row; every one of them gets
 // the total. WPR == 1: a warp's shuffles. WPR == kWarps: the whole block
 // (one row a block), through shared memory `red`.
@@ -112,11 +145,12 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
   return t;
 }
 
-// WPR warps a row, VPT 16-byte vectors a thread.
-template <typename T, int WPR, int VPT>
+// WPR warps a row, VPT 16-byte vectors a thread; w and b of WT (f32, or
+// f16 with f16 x).
+template <typename T, typename WT, int WPR, int VPT>
 __global__ void __launch_bounds__(kThreads)
-ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ b, T* __restrict__ out,
+ln_fwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
+              const WT* __restrict__ b, T* __restrict__ out,
               float* __restrict__ mu, float* __restrict__ rstd, int rows,
               int D, float eps) {
   constexpr int kN = Vec<T>::kN;
@@ -162,7 +196,8 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < kN; ++j) {
         o[j] = v[i][j] * r;
-        if (w != nullptr) o[j] = o[j] * w[vi * kN + j] + b[vi * kN + j];
+        if (w != nullptr)
+          o[j] = o[j] * wval(w[vi * kN + j]) + wval(b[vi * kN + j]);
       }
       Vec<T>::store(orow + vi * kN, o);
     }
@@ -175,10 +210,10 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
 
 // The backward's walk: WPR warps a row, VPT vectors a lane, the weight's
 // values of the lane's vectors held in registers (1 when affine-free: dy
-// times 1 is dy, bit for bit).
-template <typename T, int WPR, int VPT>
+// times 1 is dy, bit for bit); the weight of WT (f32, or f16 with f16 x).
+template <typename T, typename WT, int WPR, int VPT>
 __global__ void __launch_bounds__(nbw::kThreads)
-ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+ln_bwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
               const float* __restrict__ mu, const float* __restrict__ rstd,
               const T* __restrict__ dy, T* __restrict__ dx,
               float* __restrict__ partials, int rows, int D, int n_teams) {
@@ -190,8 +225,12 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   for (int i = 0; i < VPT; ++i) {
     const int v = t + i * kTPR;
     if (w != nullptr && v < nvec) {
-      Vec<float>::load(w + v * kN, wv[i]);
-      if constexpr (kN == 8) Vec<float>::load(w + v * kN + 4, wv[i] + 4);
+      if constexpr (std::is_same<WT, float>::value) {
+        Vec<float>::load(w + v * kN, wv[i]);
+        if constexpr (kN == 8) Vec<float>::load(w + v * kN + 4, wv[i] + 4);
+      } else {
+        Vec<WT>::load(w + v * kN, wv[i]);   // 8 f16 weights, kN == 8
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < kN; ++j) wv[i][j] = 1.f;
@@ -259,7 +298,7 @@ int pick_vpt(int need) {
   switch (vpt) { case 1: M(WPR, 1); break; case 2: M(WPR, 2); break;     \
                  case 3: M(WPR, 3); break; default: M(WPR, 4); }
 
-template <typename T>
+template <typename T, typename WT = float>
 int launch_fwd(const void* x, const void* w, const void* b, void* out,
                void* mu, void* rstd, int rows, int D, float eps,
                cudaStream_t s) {
@@ -274,9 +313,9 @@ int launch_fwd(const void* x, const void* w, const void* b, void* out,
   const int rpb = kThreads / tpr;
   const int grid = (rows + rpb - 1) / rpb;
 #define PTT_FWD(WPR, V)                                                    \
-  ln_fwd_kernel<T, WPR, V><<<grid, kThreads, 0, s>>>(                      \
-      static_cast<const T*>(x), static_cast<const float*>(w),             \
-      static_cast<const float*>(b), static_cast<T*>(out),                 \
+  ln_fwd_kernel<T, WT, WPR, V><<<grid, kThreads, 0, s>>>(                  \
+      static_cast<const T*>(x), static_cast<const WT*>(w),                \
+      static_cast<const WT*>(b), static_cast<T*>(out),                    \
       static_cast<float*>(mu), static_cast<float*>(rstd), rows, D, eps)
   if constexpr (kN == 4) {
     if (warp_row) { PTT_VPT_F32(PTT_FWD, 1) } else { PTT_VPT_F32(PTT_FWD, kWarps) }
@@ -287,18 +326,18 @@ int launch_fwd(const void* x, const void* w, const void* b, void* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename WT = float>
 cudaError_t bwd_resident(int warps, int vpt, int* per_sm) {
   return nbw::dispatch<32 / Vec<T>::kN>(warps, vpt, [&](auto wpr, auto v) {
     constexpr int WPR = decltype(wpr)::value, VPT = decltype(v)::value;
     static int granted[64] = {};
-    return nbw::resident(ln_bwd_kernel<T, WPR, VPT>,
+    return nbw::resident(ln_bwd_kernel<T, WT, WPR, VPT>,
                          nbw::Layout<T, WPR, VPT, 2>::kBytes, granted,
                          per_sm);
   });
 }
 
-template <typename T>
+template <typename T, typename WT = float>
 int launch_bwd(const void* x, const void* w, const void* mu,
                const void* rstd, const void* dy, void* dx, void* dw,
                void* db, void* partials, int rows, int D, int warps,
@@ -312,11 +351,12 @@ int launch_bwd(const void* x, const void* w, const void* mu,
         using L = nbw::Layout<T, WPR, VPT, 2>;
         if (D / Vec<T>::kN > VPT * L::kTPR) return cudaErrorInvalidValue;
         static int granted[64] = {};
-        cudaError_t e = nbw::allow_smem(ln_bwd_kernel<T, WPR, VPT>,
+        cudaError_t e = nbw::allow_smem(ln_bwd_kernel<T, WT, WPR, VPT>,
                                         L::kBytes, granted);
         if (e != cudaSuccess) return e;
-        ln_bwd_kernel<T, WPR, VPT><<<blocks, nbw::kThreads, L::kBytes, s>>>(
-            static_cast<const T*>(x), static_cast<const float*>(w),
+        ln_bwd_kernel<T, WT, WPR, VPT>
+            <<<blocks, nbw::kThreads, L::kBytes, s>>>(
+            static_cast<const T*>(x), static_cast<const WT*>(w),
             static_cast<const float*>(mu), static_cast<const float*>(rstd),
             static_cast<const T*>(dy), static_cast<T*>(dx),
             static_cast<float*>(partials), rows, D, blocks * L::kTeams);
@@ -347,6 +387,16 @@ extern "C" int ln_fwd_bf16(const void* x, const void* w, const void* b,
                           static_cast<cudaStream_t>(stream));
 }
 
+// f16 x and out; w and b f16 (w_f16 != 0) or f32 [D], or both null.
+extern "C" int ln_fwd_f16(const void* x, const void* w, const void* b,
+                          void* out, void* mu, void* rstd, int rows, int D,
+                          float eps, int w_f16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w_f16 ? launch_fwd<__half, __half>(x, w, b, out, mu, rstd, rows, D,
+                                            eps, s)
+               : launch_fwd<__half>(x, w, b, out, mu, rstd, rows, D, eps, s);
+}
+
 // The backward with the plan of kernels/norm_bwd.py::bwd_plan: teams of
 // `warps` warps holding `vpt` vectors a lane, `blocks` walk blocks (one
 // f32 [2, D] partial row each in `partials`: dw's, then db's), a fold of
@@ -372,10 +422,29 @@ extern "C" int ln_bwd_bf16(const void* x, const void* w, const void* mu,
                           static_cast<cudaStream_t>(stream));
 }
 
-// Walk blocks of the (bf16 or f32 x, warps, vpt) backward that fit on one
+// f16 x, dy, dx; w f16 (w_f16 != 0) or f32 [D], or null; dw, db f32.
+extern "C" int ln_bwd_f16(const void* x, const void* w, const void* mu,
+                          const void* rstd, const void* dy, void* dx,
+                          void* dw, void* db, void* partials, int rows,
+                          int D, int warps, int vpt, int blocks, int cols,
+                          int w_f16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w_f16 ? launch_bwd<__half, __half>(x, w, mu, rstd, dy, dx, dw, db,
+                                            partials, rows, D, warps, vpt,
+                                            blocks, cols, s)
+               : launch_bwd<__half>(x, w, mu, rstd, dy, dx, dw, db, partials,
+                                    rows, D, warps, vpt, blocks, cols, s);
+}
+
+// Walk blocks of the (x_kind: 0 f32, 1 bf16, 2 f16 with an f32 weight,
+// 3 f16 with an f16 weight; warps, vpt) backward that fit on one
 // multiprocessor, into *per_sm. Returns a cudaError_t.
-extern "C" int ln_bwd_resident(int x_bf16, int warps, int vpt,
+extern "C" int ln_bwd_resident(int x_kind, int warps, int vpt,
                                int* per_sm) {
-  return (int)(x_bf16 ? bwd_resident<bf16>(warps, vpt, per_sm)
-                      : bwd_resident<float>(warps, vpt, per_sm));
+  switch (x_kind) {
+    case 3: return (int)bwd_resident<__half, __half>(warps, vpt, per_sm);
+    case 2: return (int)bwd_resident<__half>(warps, vpt, per_sm);
+    case 1: return (int)bwd_resident<bf16>(warps, vpt, per_sm);
+    default: return (int)bwd_resident<float>(warps, vpt, per_sm);
+  }
 }

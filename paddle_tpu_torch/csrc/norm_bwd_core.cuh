@@ -43,6 +43,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -162,6 +163,31 @@ struct Vec<bf16, 8> {
   }
 };
 
+// f16 rows (layer_norm.cu's ln_bwd_f16): 16-byte vectors only, since
+// the LayerNorm takes D a multiple of 8
+template <>
+struct Vec<__half, 16> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u,
+                                                float (&f)[8]) {
+    const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __half22float2(h[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  __device__ __forceinline__ static uint4 pack(const float (&f)[8]) {
+    uint4 u;
+    __half2* h = reinterpret_cast<__half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
+    return u;
+  }
+};
+
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
@@ -169,6 +195,10 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // Shared memory of one walk block: per team, the ring's data, VB-byte

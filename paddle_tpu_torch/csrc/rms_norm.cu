@@ -50,6 +50,7 @@
 // weight and of dw around the call (0.005 ms). This design: 0.156 and
 // 0.191 ms, 77 % and 79 % of the bound.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -389,9 +390,11 @@ extern "C" int rms_bwd_resident(int w_bf16, int warps, int vpt,
 // in rms_norm_pallas), reached through the dispatch rms_norm().
 //
 //   out = x * rsqrt(mean(x^2) + eps) * w       (no statistics saved)
-// x, out [rows, D] in f32 or bf16 (out in x's dtype); w f32 [D] (the
-// wrapper casts it) or null (no weight); all arithmetic in f32, in the
-// TPU kernel's order: (x * r) * w. Its backward is not a kernel: the
+// x, out [rows, D] in f32, bf16 or f16 (out in x's dtype; rms_fused_f32,
+// _bf16 and _f16, one kernel template, as the TPU kernel computes in its
+// input's dtype); w f32 [D] (the wrapper casts it) or, with f16 x, f16 or
+// f32 read in its own dtype, or null (no weight); all arithmetic in f32,
+// in the TPU kernel's order: (x * r) * w. Its backward is not a kernel: the
 // wrapper differentiates the plain version, as the JAX package's eager
 // tape differentiates rms_norm.
 //
@@ -434,6 +437,32 @@ struct Vec<bf16> {
   }
 };
 
+template <>
+struct Vec<__half> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void load(const __half* p, float f[8]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 q = __half22float2(h[i]);
+      f[2 * i] = q.x;
+      f[2 * i + 1] = q.y;
+    }
+  }
+  __device__ __forceinline__ static void store(__half* p, const float f[8]) {
+    uint4 u;
+    __half2* h = reinterpret_cast<__half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+};
+
+// one weight as f32, read in its own dtype
+__device__ __forceinline__ float wval(float w) { return w; }
+__device__ __forceinline__ float wval(__half w) { return __half2float(w); }
+
 // Sum of `v` over the 32 * WPR threads of one row; every one of them gets
 // the total. WPR == 1: a warp's shuffles; WPR == kWarps: the whole block.
 template <int WPR>
@@ -445,9 +474,9 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
 }
 
 // WPR warps a row, VPT 16-byte vectors a thread.
-template <typename T, int WPR, int VPT>
+template <typename T, typename WT, int WPR, int VPT>
 __global__ void __launch_bounds__(kThreads)
-rms_fused_kernel(const T* __restrict__ x, const float* __restrict__ w,
+rms_fused_kernel(const T* __restrict__ x, const WT* __restrict__ w,
                  T* __restrict__ out, int rows, int D, float eps) {
   constexpr int kN = Vec<T>::kN;
   constexpr int kTPR = 32 * WPR;
@@ -479,14 +508,14 @@ rms_fused_kernel(const T* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < kN; ++j) {
         o[j] = v[i][j] * r;
-        if (w != nullptr) o[j] = o[j] * w[vi * kN + j];
+        if (w != nullptr) o[j] = o[j] * wval(w[vi * kN + j]);
       }
       Vec<T>::store(orow + vi * kN, o);
     }
   }
 }
 
-template <typename T>
+template <typename T, typename WT>
 int launch_fused(const void* x, const void* w, void* out, int rows, int D,
                  float eps, cudaStream_t s) {
   constexpr int kN = Vec<T>::kN;
@@ -500,8 +529,8 @@ int launch_fused(const void* x, const void* w, void* out, int rows, int D,
   const int rpb = kThreads / tpr;
   const int grid = (rows + rpb - 1) / rpb;
 #define PTT_FUSED(WPR, V)                                                  \
-  rms_fused_kernel<T, WPR, V><<<grid, kThreads, 0, s>>>(                   \
-      static_cast<const T*>(x), static_cast<const float*>(w),             \
+  rms_fused_kernel<T, WT, WPR, V><<<grid, kThreads, 0, s>>>(               \
+      static_cast<const T*>(x), static_cast<const WT*>(w),                \
       static_cast<T*>(out), rows, D, eps)
 #define PTT_FUSED_VPT(WPR)                                                 \
   switch (vpt) { case 1: PTT_FUSED(WPR, 1); break;                         \
@@ -520,12 +549,21 @@ int launch_fused(const void* x, const void* w, void* out, int rows, int D,
 // null (no weight).
 extern "C" int rms_fused_f32(const void* x, const void* w, void* out,
                              int rows, int D, float eps, void* stream) {
-  return launch_fused<float>(x, w, out, rows, D, eps,
+  return launch_fused<float, float>(x, w, out, rows, D, eps,
                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rms_fused_bf16(const void* x, const void* w, void* out,
                               int rows, int D, float eps, void* stream) {
-  return launch_fused<bf16>(x, w, out, rows, D, eps,
-                            static_cast<cudaStream_t>(stream));
+  return launch_fused<bf16, float>(x, w, out, rows, D, eps,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// f16 x and out; w f16 (w_f16 != 0) or f32 [D], or null.
+extern "C" int rms_fused_f16(const void* x, const void* w, void* out,
+                             int rows, int D, float eps, int w_f16,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w_f16 ? launch_fused<__half, __half>(x, w, out, rows, D, eps, s)
+               : launch_fused<__half, float>(x, w, out, rows, D, eps, s);
 }

@@ -25,7 +25,10 @@ it: lse[b, h, i] = log Σ_j exp(scale · q_i·k_j) over the visible keys.
 
 `flash_attention_fwd` and `flash_attention_bwd` run the kernel on a CUDA
 tensor and the plain version on a CPU tensor; there is no fallback
-between the two.
+between the two. The kernels take bf16 or f16 (one dtype for every
+tensor of a call), as the TPU kernels compute in their input's dtype;
+each wrapper counts its launches by dtype too (`launches_bf16`,
+`launches_f16`).
 """
 from __future__ import annotations
 
@@ -38,12 +41,12 @@ from .. import _build
 
 NEG_INF = -1e30
 LAYOUTS = ("bshd", "bhsd")
-# flash_fwd_bf16(q, k, v, out, lse, key_mask, B, Sq, Sk, H, KV, hd,
+# flash_fwd_<dt>(q, k, v, out, lse, key_mask, B, Sq, Sk, H, KV, hd,
 #                maps[21], out_strides[3], scale, causal, stream)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
-# flash_bwd_bf16(q, k, v, out, dout, lse, scratch, dq, dk, dv, key_mask,
+# flash_bwd_<dt>(q, k, v, out, dout, lse, scratch, dq, dk, dv, key_mask,
 #                B, Sq, Sk, H, KV, hd, maps[28], strides[24], scale,
 #                causal, stream)
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
@@ -59,6 +62,8 @@ DQ_TILES = (128, 64)
 DKDV_TILES = (128, 64)
 TMA_BOX = (64, 64, 1, 1)
 BWD_PAD = 128
+# the dtypes the kernels take, by their entry points' suffix
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def block_aligned(s: int) -> bool:
@@ -160,14 +165,18 @@ def _strides(t, layout):
     return (s[0], s[1], s[2]) if layout == "bshd" else (s[0], s[2], s[1])
 
 
-def _kernel_input(name, t, device):
-    """t as the kernels read it (TMA's rules): bf16 on `device`, head_dim
-    contiguous, the other strides whole 16-byte rows and not 0 over an
-    extent above 1, the base 16-byte aligned. A tensor that is not (a
-    sliced or broadcast view) is made contiguous."""
-    if t.dtype != torch.bfloat16 or t.device != device:
-        raise TypeError(f"{name} must be a bf16 tensor on {device}, got "
-                        f"{t.dtype} on {t.device}")
+def _kernel_input(name, t, device, dtype=None):
+    """t as the kernels read it (TMA's rules): `dtype` (bf16 or f16, the
+    call's one dtype; None: t's own) on `device`, head_dim contiguous, the other strides
+    whole 16-byte rows and not 0 over an extent above 1, the base 16-byte
+    aligned. A tensor that is not (a sliced or broadcast view) is made
+    contiguous."""
+    dtype = t.dtype if dtype is None else dtype
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the flash kernels take bf16 or f16, got {dtype}")
+    if t.dtype != dtype or t.device != device:
+        raise TypeError(f"{name} must be a {dtype} tensor on {device} (q's "
+                        f"dtype), got {t.dtype} on {t.device}")
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
             or any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape)) \
             or t.data_ptr() % 16:
@@ -288,15 +297,17 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
     f32). `key_mask` [B, Sk]: nonzero keys are visible.
 
     On a CPU tensor: the plain version. On a CUDA tensor: the kernel
-    (bf16, hd 64, 72 or 128, Sq <= Sk when causal; `out` contiguous in the
-    layout); anything it does not take raises. Each kernel launch adds one
-    to `flash_attention_fwd.launches`."""
+    (q, k and v all bf16 or all f16, hd 64, 72 or 128, Sq <= Sk when
+    causal; `out` contiguous in the layout); anything it does not take
+    raises. Each kernel launch adds one to `flash_attention_fwd.launches`
+    and to its dtype's `launches_bf16` or `launches_f16`."""
     if not q.is_cuda:
         return flash_attention_fwd_ref(q, k, v, causal=causal, scale=scale,
                                        return_lse=return_lse,
                                        key_mask=key_mask, layout=layout)
     B, Sq, H, hd, Sk, KV = _check(q, k, v, causal, layout, key_mask)
-    q, k, v = (_kernel_input(n, t, q.device)
+    dt = q.dtype
+    q, k, v = (_kernel_input(n, t, q.device, dt)
                for n, t in (("q", q), ("k", k), ("v", v)))
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
@@ -308,19 +319,22 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
     km = _mask_arg(key_mask)
     maps = _map_array((q, k, v), layout)
     strides = _stride_array((out,), layout)
-    fn = _build.function("flash_fwd", "flash_fwd_bf16", _ARGTYPES)
+    sym = f"flash_fwd_{KERNEL_DTYPES[dt]}"
+    fn = _build.function("flash_fwd", sym, _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if return_lse else None,
                  None if km is None else km.data_ptr(), B, Sq, Sk, H, KV,
                  hd, maps, strides, float(scale), int(causal), stream)
-    _build.check(err, "flash_fwd_bf16")
-    _build.count(flash_attention_fwd)
+    _build.check(err, sym)
+    _build.count_dtype(flash_attention_fwd, dt)
     return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_bf16 = 0
+flash_attention_fwd.launches_f16 = 0
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True,
@@ -366,11 +380,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None,
     cotangent `dout`; `key_mask` must be the forward's.
 
     On a CPU tensor: the plain version. On a CUDA tensor: the kernel
-    (bf16 q/k/v/out/dout, f32 lse; the shapes the forward kernel takes);
-    anything else raises. GQA is accumulated over each KV head's query
+    (q/k/v/out/dout all bf16 or all f16, f32 lse; the shapes the forward
+    kernel takes); anything else raises. GQA is accumulated over each KV head's query
     group inside the kernel. Each call adds one to
-    `flash_attention_bwd.launches`, whatever the number of CUDA launches
-    inside (three: dcap, dkdv, dq)."""
+    `flash_attention_bwd.launches` (and its dtype's count), whatever the
+    number of CUDA launches inside (three: dcap, dkdv, dq)."""
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                        causal=causal, scale=scale,
@@ -378,7 +392,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None,
     B, Sq, H, hd, Sk, KV = _check(q, k, v, causal, layout, key_mask)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError("out and dout must have q's shape")
-    q, k, v, out, dout = (_kernel_input(n, t, q.device) for n, t in (
+    dt = q.dtype
+    q, k, v, out, dout = (_kernel_input(n, t, q.device, dt) for n, t in (
         ("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)))
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
@@ -394,7 +409,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None,
     km = _mask_arg(key_mask)
     maps = _map_array((q, k, v, dout), layout)
     strides = _stride_array((q, k, v, out, dout, dq, dk, dv), layout)
-    fn = _build.function("flash_bwd", "flash_bwd_bf16", _BWD_ARGTYPES)
+    sym = f"flash_bwd_{KERNEL_DTYPES[dt]}"
+    fn = _build.function("flash_bwd", sym, _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -402,12 +418,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None,
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  None if km is None else km.data_ptr(), B, Sq, Sk, H, KV,
                  hd, maps, strides, float(scale), int(causal), stream)
-    _build.check(err, "flash_bwd_bf16")
-    _build.count(flash_attention_bwd)
+    _build.check(err, sym)
+    _build.count_dtype(flash_attention_bwd, dt)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_bf16 = 0
+flash_attention_bwd.launches_f16 = 0
 
 
 class _FlashAttention(torch.autograd.Function):

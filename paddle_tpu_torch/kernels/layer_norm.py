@@ -17,6 +17,12 @@ per row, dyw = dy·w:
     dx = r·(dyw − mean(dyw) − x̂·mean(dyw·x̂))
     dw = Σ_rows dy ⊙ x̂ ;  db = Σ_rows dy
 Affine-free (weight and bias None) is the w = 1, no dw/db case.
+
+The kernels take f32, bf16 or f16 x (the TPU kernels compute in their
+input's dtype) and read the weight and bias as f32, or, with f16 x and
+an f16 pair (O2's form), as f16 in the kernel; each wrapper also counts
+its launches by dtype (`launches_f32`, `launches_bf16`,
+`launches_f16`).
 """
 from __future__ import annotations
 
@@ -34,7 +40,14 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
 #             vpt, blocks, fold_cols, stream)
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p]
-_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the f16 entries take an int w_f16 before the stream
+_F16_ARGTYPES = {"fwd": _FWD_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p],
+                 "bwd": _BWD_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]}
+_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                  torch.float16: "f16"}
+# ln_bwd_resident's x_kind
+# (3: f16 x with an f16 weight)
+_X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def layer_norm_ref(x, weight=None, bias=None, epsilon: float = 1e-5):
@@ -87,7 +100,7 @@ def _check_rows(x, what):
     if x.dtype not in _KERNEL_DTYPES or not x.is_contiguous() \
             or x.data_ptr() % 16:
         raise TypeError(f"{what}: x must be a contiguous, 16-byte aligned "
-                        f"f32 or bf16 CUDA tensor, got {x.dtype}")
+                        f"f32, bf16 or f16 CUDA tensor, got {x.dtype}")
     if d % 8 or d > 8192:
         raise ValueError(f"{what}: hidden size {d} must be a multiple of 8 "
                          f"and at most 8192")
@@ -106,53 +119,78 @@ def _check_dy(x, dy, what):
     return dy
 
 
-def _param(t, d, device, what):
+def _param(t, d, device, what, f16=False):
     """A weight or bias as the kernels read it: contiguous, 16-byte
-    aligned f32 [D] (an f32 parameter as it is)."""
+    aligned f32 [D] (an f32 parameter as it is), or with `f16` the f16
+    parameter as it is."""
     if t is None:
         return None
     if tuple(t.shape) != (d,) or t.device != device:
         raise ValueError(f"{what}: parameter {tuple(t.shape)} does not "
                          f"match hidden size {d} on {device}")
-    t = t.float().contiguous()
+    t = (t if f16 else t.float()).contiguous()
     return t.clone() if t.data_ptr() % 16 else t
+
+
+def _f16_params(x, *params):
+    """Whether the kernels read the parameters as f16: f16 x with every
+    given parameter f16 (the O2 form)."""
+    return x.dtype == torch.float16 and all(
+        p is None or p.dtype == torch.float16 for p in params) and \
+        any(p is not None for p in params)
+
+
+def _function(x, which, w16):
+    """The C entry point for x's dtype and the extra (w_f16,) argument
+    the f16 entry points take."""
+    dt = _KERNEL_DTYPES[x.dtype]
+    if dt != "f16":
+        return _build.function("layer_norm", f"ln_{which}_{dt}",
+                               _FWD_ARGTYPES if which == "fwd"
+                               else _BWD_ARGTYPES), ()
+    return _build.function("layer_norm", f"ln_{which}_f16",
+                           _F16_ARGTYPES[which]), (int(w16),)
 
 
 def layer_norm_fwd(x, weight, bias, epsilon: float = 1e-5):
     """LayerNorm forward saving its statistics: (out like x, mu and rstd
     f32 [rows, 1]). weight and bias are both given (affine) or both None.
-    On a CPU tensor: the plain twin. On a CUDA tensor: the kernel (f32 or
-    bf16 x, hidden size a multiple of 8 up to 8192; weight and bias read
-    as f32); anything else raises. Each launch adds one to
-    `layer_norm_fwd.launches`."""
+    On a CPU tensor: the plain twin. On a CUDA tensor: the kernel (f32,
+    bf16 or f16 x, hidden size a multiple of 8 up to 8192; weight and bias
+    read as f32, or as f16 where x and both are f16); anything else
+    raises. Each launch adds one to
+    `layer_norm_fwd.launches` and to its x dtype's count."""
     affine = weight is not None
     if not x.is_cuda:
         return _ln_fwd_twin(x, weight, bias, epsilon, affine)
     d = _check_rows(x, "layer_norm_fwd")
     if affine != (bias is not None):
         raise ValueError("layer_norm_fwd: weight and bias go together")
-    w = _param(weight, d, x.device, "layer_norm_fwd")
-    b = _param(bias, d, x.device, "layer_norm_fwd")
+    w16 = _f16_params(x, weight, bias)
+    w = _param(weight, d, x.device, "layer_norm_fwd", w16)
+    b = _param(bias, d, x.device, "layer_norm_fwd", w16)
     rows = x.numel() // d
     out = torch.empty_like(x)
     mu = torch.empty(rows, 1, dtype=torch.float32, device=x.device)
     rstd = torch.empty(rows, 1, dtype=torch.float32, device=x.device)
     if rows == 0:
         return out, mu, rstd
-    fn = _build.function("layer_norm", f"ln_fwd_{_KERNEL_DTYPES[x.dtype]}",
-                         _FWD_ARGTYPES)
+    fn, extra = _function(x, "fwd", w16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr() if affine else None,
                  b.data_ptr() if affine else None, out.data_ptr(),
                  mu.data_ptr(), rstd.data_ptr(), rows, d, float(epsilon),
-                 stream)
+                 *extra, stream)
     _build.check(err, "ln_fwd")
-    _build.count(layer_norm_fwd)
+    _build.count_dtype(layer_norm_fwd, x.dtype)
     return out, mu, rstd
 
 
 layer_norm_fwd.launches = 0
+layer_norm_fwd.launches_f32 = 0
+layer_norm_fwd.launches_bf16 = 0
+layer_norm_fwd.launches_f16 = 0
 
 
 def layer_norm_bwd(x, weight, mu, rstd, dy, epsilon: float = 1e-5):
@@ -161,7 +199,8 @@ def layer_norm_bwd(x, weight, mu, rstd, dy, epsilon: float = 1e-5):
     which recomputes mu and r from x. On a CUDA tensor: the kernel, which
     reads the forward's `mu` and `rstd`; dw and db are summed in the
     fixed order of `norm_bwd.bwd_plan` (no float atomics), so two runs
-    give identical bits. Each launch adds one to `layer_norm_bwd.launches`."""
+    give identical bits. Each launch adds one to `layer_norm_bwd.launches`
+    and to its x dtype's count."""
     affine = weight is not None
     if not x.is_cuda:
         return _ln_ref_bwd(x, weight, dy, epsilon, affine)
@@ -174,32 +213,35 @@ def layer_norm_bwd(x, weight, mu, rstd, dy, epsilon: float = 1e-5):
             raise ValueError(f"layer_norm_bwd: {name} must be f32 with "
                              f"{rows} rows on {x.device}")
     mu, rstd = mu.contiguous(), rstd.contiguous()
-    w = _param(weight, d, x.device, "layer_norm_bwd")
+    w16 = _f16_params(x, weight)
+    w = _param(weight, d, x.device, "layer_norm_bwd", w16)
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, *torch.zeros(2, d, dtype=torch.float32, device=x.device)
-    x_bf16 = int(x.dtype == torch.bfloat16)
     plan = norm_bwd.device_plan(x.device, "layer_norm", "ln_bwd_resident",
-                                x_bf16, rows, d, 16 // x.element_size(), 2)
+                                3 if w16 else _X_KIND[x.dtype], rows, d,
+                                16 // x.element_size(), 2)
     dw = torch.empty(d, dtype=torch.float32, device=x.device)
     db = torch.empty(d, dtype=torch.float32, device=x.device)
     partials = torch.empty(plan.blocks, 2, d, dtype=torch.float32,
                            device=x.device)
-    fn = _build.function("layer_norm", f"ln_bwd_{_KERNEL_DTYPES[x.dtype]}",
-                         _BWD_ARGTYPES)
+    fn, extra = _function(x, "bwd", w16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr() if affine else None,
                  mu.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
                  dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
                  partials.data_ptr(), rows, d, plan.warps, plan.vpt,
-                 plan.blocks, plan.fold_cols, stream)
+                 plan.blocks, plan.fold_cols, *extra, stream)
     _build.check(err, "ln_bwd")
-    _build.count(layer_norm_bwd)
+    _build.count_dtype(layer_norm_bwd, x.dtype)
     return dx, dw, db
 
 
 layer_norm_bwd.launches = 0
+layer_norm_bwd.launches_f32 = 0
+layer_norm_bwd.launches_bf16 = 0
+layer_norm_bwd.launches_f16 = 0
 
 
 class _LnBwd(torch.autograd.Function):

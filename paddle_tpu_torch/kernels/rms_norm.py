@@ -3,7 +3,8 @@
 Port of paddle_tpu/kernels/rms_norm.py. `rms_norm_ref` is the plain form
 the serving path and the final norm use. `rms_norm_fused` is the
 counterpart of `rms_norm_pallas` (row 6 of PERF.md's kernel table): one
-pass, no statistics, f32 or bf16 x; `rms_norm` is the JAX package's
+pass, no statistics, f32, bf16 or f16 x (its launches also counted by
+dtype: `launches_f32`, `launches_bf16`, `launches_f16`); `rms_norm` is the JAX package's
 dispatch over it, and `rms_norm_fused_train` the differentiable norm of
 the eager API's `incubate.nn.functional.fused_rms_norm`, whose backward
 is the plain version's vjp in torch ops (`_rms_train_ref_bwd`): the JAX
@@ -38,10 +39,13 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
 #              vpt, blocks, fold_cols, stream)
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
-# rms_fused_<dt>(x, w, out, rows, D, eps, stream)
+# rms_fused_<dt>(x, w, out, rows, D, eps, stream); rms_fused_f16 takes
+# an int w_f16 before the stream
 _FUSED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
     ctypes.c_float, ctypes.c_void_p]
-_FUSED_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_FUSED_F16_ARGTYPES = _FUSED_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+_FUSED_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                 torch.float16: "f16"}
 
 
 def rms_norm_ref(x, weight=None, epsilon: float = 1e-6):
@@ -209,17 +213,19 @@ def rms_norm_train(x, weight, epsilon: float = 1e-6):
 def rms_norm_fused(x, weight=None, epsilon: float = 1e-6):
     """Row 6, the counterpart of `rms_norm_pallas`: x·rsqrt(mean(x²) +
     eps)·weight in x's dtype, no statistics. On a CPU tensor: the plain
-    version `rms_norm_ref`. On a CUDA tensor: the kernel (f32 or bf16 x,
-    hidden size a multiple of 8 up to 8192; a weight of any float dtype,
-    read as f32, or None for the affine-free form); anything else raises.
-    Each launch adds one to `rms_norm_fused.launches`."""
+    version `rms_norm_ref`. On a CUDA tensor: the kernel (f32, bf16 or
+    f16 x, hidden size a multiple of 8 up to 8192; a weight of any float
+    dtype, read as f32 (with f16 x an f16 weight is read as it is), or
+    None for the affine-free form); anything else raises. Each launch adds
+    one to `rms_norm_fused.launches` and to its x dtype's count."""
     if not x.is_cuda:
         return rms_norm_ref(x, weight, epsilon)
     d = x.shape[-1]
     if x.dtype not in _FUSED_DTYPES or not x.is_contiguous() \
             or x.data_ptr() % 16:
         raise TypeError(f"rms_norm_fused: x must be a contiguous, 16-byte "
-                        f"aligned f32 or bf16 CUDA tensor, got {x.dtype}")
+                        f"aligned f32, bf16 or f16 CUDA tensor, got "
+                        f"{x.dtype}")
     if d % 8 or d > 8192:
         raise ValueError(f"rms_norm_fused: hidden size {d} must be a "
                          f"multiple of 8 and at most 8192")
@@ -229,23 +235,32 @@ def rms_norm_fused(x, weight=None, epsilon: float = 1e-6):
             raise ValueError(f"rms_norm_fused: weight {tuple(weight.shape)}"
                              f" does not match hidden size {d} on "
                              f"{x.device}")
-        w = weight.float().contiguous()
+        w = weight if x.dtype == weight.dtype == torch.float16 \
+            else weight.float()
+        w = w.contiguous()
     rows = x.numel() // d
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    fn = _build.function("rms_norm", f"rms_fused_{_FUSED_DTYPES[x.dtype]}",
-                         _FUSED_ARGTYPES)
+    f16 = x.dtype == torch.float16
+    sym = f"rms_fused_{_FUSED_DTYPES[x.dtype]}"
+    fn = _build.function("rms_norm", sym,
+                         _FUSED_F16_ARGTYPES if f16 else _FUSED_ARGTYPES)
+    extra = (int(w is not None and w.dtype == torch.float16),) if f16 \
+        else ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), None if w is None else w.data_ptr(),
-                 out.data_ptr(), rows, d, float(epsilon), stream)
-    _build.check(err, "rms_fused")
-    _build.count(rms_norm_fused)
+                 out.data_ptr(), rows, d, float(epsilon), *extra, stream)
+    _build.check(err, sym)
+    _build.count_dtype(rms_norm_fused, x.dtype)
     return out
 
 
 rms_norm_fused.launches = 0
+rms_norm_fused.launches_f32 = 0
+rms_norm_fused.launches_bf16 = 0
+rms_norm_fused.launches_f16 = 0
 
 
 def rms_norm(x, weight=None, epsilon: float = 1e-6):

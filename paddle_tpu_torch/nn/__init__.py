@@ -31,4 +31,5 @@ from .decode import BeamSearchDecoder, dynamic_decode  # noqa: F401
 from .layers_act_loss import (ReLU, GELU, SiLU, Silu, Tanh,  # noqa: F401
                               CrossEntropyLoss)
 # grad-clip classes live in paddle.nn too (reference re-export)
-from ..optimizer.optimizers import ClipGradByGlobalNorm  # noqa: F401
+from ..optimizer.optimizers import (ClipGradByGlobalNorm,  # noqa: F401
+                                    ClipGradByNorm, ClipGradByValue)

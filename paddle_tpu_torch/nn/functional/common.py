@@ -5,13 +5,15 @@ from __future__ import annotations
 import torch
 
 from ...ops._registry import as_array, eager
+from ...ops.math import _promote
 from ...core.tensor import Tensor
 from ...core import random as prandom
 
 
 def _linear_raw(x, weight, bias=None, name=None):
-    # paddle weight layout is [in_features, out_features]: x @ w
-    out = torch.matmul(x, weight)
+    # paddle weight layout is [in_features, out_features]: x @ w, in the
+    # operands' promoted dtype, as jnp.matmul computes it
+    out = torch.matmul(*_promote(x, weight))
     if bias is not None:
         out = out + bias
     return out
@@ -35,6 +37,11 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     if not training or p == 0.0:
         return x if isinstance(x, Tensor) else Tensor(x)
     keep = 1.0 - p
+    if keep == 0.0 and axis is None:
+        # every element dropped: zeros, as `_dropout_raw` gives
+        # (paddle_tpu/nn/functional/common.py:30-37); with `axis` the JAX
+        # package divides by keep and raises, and so does this
+        return eager(lambda a: a * 0, (x,), {}, name="dropout")
     scale = 1.0 / keep if mode == "upscale_in_train" else 1.0
     axes = None if axis is None else \
         ([axis] if isinstance(axis, int) else list(axis))

@@ -13,6 +13,15 @@ in place with the unbiased one, outside autograd, as the JAX package's
 O1 `batch_norm` is a black-list op: its inputs arrive in f32 and the
 statistics are computed in f32 (the JAX package takes its running
 statistics from the bf16 input; a recorded divergence).
+
+Dtypes are the JAX package's (`_batch_norm_raw`, `_group_norm_raw` and
+`instance_norm` there compute in jnp, where the weight, the bias and, in
+eval, the running statistics promote the input): the output has the
+promoted dtype of x, the weight and bias given, and the running
+statistics where they are read. A bf16 input with f32 weights gives f32;
+without a weight, BatchNorm gives bf16 in training and f32 in eval. The
+torch call runs in that dtype: a cast is launched only where the dtypes
+differ.
 """
 from __future__ import annotations
 
@@ -72,6 +81,16 @@ def _channel_axis(data_format, ndim):
     return 1 if data_format.startswith("NC") else ndim - 1
 
 
+def _promoted(*ts):
+    """The tensors (None kept) cast to their promoted dtype: the dtype
+    of the JAX package's jnp expression over them."""
+    dt = None
+    for t in ts:
+        if t is not None:
+            dt = t.dtype if dt is None else torch.promote_types(dt, t.dtype)
+    return [None if t is None else t.to(dt) for t in ts]
+
+
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5, data_format="NCHW",
                use_global_stats=None, name=None):
@@ -92,8 +111,18 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         c_axis = _channel_axis(data_format, xx.ndim)
         if c_axis != 1:
             xx = xx.movedim(c_axis, 1)
-        out = TF.batch_norm(xx, rm, rv, w, b, training=use_batch_stats,
+        # torch computes in one dtype: the promoted one of x, the affine
+        # and the statistics; the output takes the JAX dtype, where the
+        # statistics promote only when they are read (eval)
+        odt = (_promoted(xx, w, b) if use_batch_stats else
+               _promoted(xx, w, b, rm))[0].dtype
+        xx, w, b, rmc, rvc = _promoted(xx, w, b, rm, rv)
+        out = TF.batch_norm(xx, rmc, rvc, w, b, training=use_batch_stats,
                             momentum=1.0 - momentum, eps=epsilon)
+        if update and rmc is not rm:
+            rm.copy_(rmc)
+            rv.copy_(rvc)
+        out = out.to(odt)
         return out.movedim(1, c_axis) if c_axis != 1 else out
 
     return eager(raw, tuple(args), {}, name="batch_norm")
@@ -114,6 +143,7 @@ def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
         c_axis = _channel_axis(data_format, xx.ndim)
         if c_axis != 1:
             xx = xx.movedim(c_axis, 1)
+        xx, w, b = _promoted(xx, w, b)
         out = TF.group_norm(xx, num_groups, w, b, epsilon)
         return out.movedim(1, c_axis) if c_axis != 1 else out
 
@@ -134,6 +164,7 @@ def instance_norm(x, running_mean=None, running_var=None, weight=None,
     def raw(*a):
         w = a[1] if weight is not None else None
         b = a[-1] if bias is not None else None
-        return TF.instance_norm(a[0], weight=w, bias=b, eps=eps)
+        xx, w, b = _promoted(a[0], w, b)
+        return TF.instance_norm(xx, weight=w, bias=b, eps=eps)
 
     return eager(raw, tuple(args), {}, name="instance_norm")

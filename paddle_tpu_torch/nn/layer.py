@@ -7,15 +7,19 @@ the same structured names, and `set_state_dict` takes the dict of numpy
 arrays a JAX model's `state_dict()` gives (or Tensors). Buffers (JAX
 `nn/layer.py:155-215`: BatchNorm's `_mean` and `_variance`) sit in
 `state_dict` after the parameters under the JAX package's names.
-`Layer.to` (moving or casting a built model) and `apply` arrive with the
-rest of the eager API: parameters are created on the current place.
+`Layer.to` casts (and moves) the parameters and buffers of a built model
+by rebinding each tensor's storage, so the Parameter objects, and with
+them an optimizer's list and state, stay the same; `float`, `half`,
+`bfloat16` and `astype` are its dtype forms, as in the JAX package
+(`paddle_tpu/nn/layer.py:197-300`).
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.tensor import Tensor, Parameter
 from ..core import dtype as dtypes
@@ -191,6 +195,12 @@ class Layer:
     def sublayers(self, include_self=False):
         return [l for _, l in self.named_sublayers(include_self=include_self)]
 
+    def children(self):
+        return [l for l in self._sub_layers.values() if l is not None]
+
+    def named_children(self):
+        return [(n, l) for n, l in self._sub_layers.items() if l is not None]
+
     def named_buffers(self, prefix="", include_sublayers=True):
         seen = set()
         for name, layer in self.named_sublayers(prefix=prefix,
@@ -245,7 +255,10 @@ class Layer:
                 missing.append(k)
         return missing, unexpected
 
-    # ---- mode ---------------------------------------------------------------
+    load_dict = set_state_dict
+    set_dict = set_state_dict
+
+    # ---- mode / dtype / device ---------------------------------------------
     def train(self):
         for layer in self.sublayers(include_self=True):
             layer.training = True
@@ -255,6 +268,48 @@ class Layer:
         for layer in self.sublayers(include_self=True):
             layer.training = False
         return self
+
+    def apply(self, fn: Callable):
+        """fn(layer) for this layer and then every sublayer, in the JAX
+        package's order (pre-order)."""
+        for layer in self.sublayers(include_self=True):
+            fn(layer)
+        return self
+
+    def to(self, device=None, dtype=None, blocking=None):
+        """Cast the floating parameters and buffers to `dtype` and/or
+        move every parameter and buffer to `device` (a place or its
+        name); each Tensor keeps its identity and its leaf state."""
+        dev = None
+        if device is not None:
+            from ..core.device import Place
+            from ..core.tensor import _place_device
+            dev = device.torch_device if isinstance(device, Place) else \
+                _place_device(device)
+        d = None if dtype is None else dtypes.convert_dtype(dtype)
+        tensors = list(self.parameters()) + list(self.buffers())
+        for t in tensors:
+            cast = d is not None and t._data.is_floating_point() \
+                and t._data.dtype != d
+            if cast or (dev is not None and t._data.device != dev):
+                _rebind_leaf(t, t._data.to(device=dev, dtype=d if cast
+                                           else None))
+        if d is not None:
+            for layer in self.sublayers(include_self=True):
+                layer._dtype = d
+        return self
+
+    def astype(self, dtype):
+        return self.to(dtype=dtype)
+
+    def float(self):
+        return self.to(dtype="float32")
+
+    def bfloat16(self):
+        return self.to(dtype="bfloat16")
+
+    def half(self):
+        return self.to(dtype="float16")
 
     def clear_gradients(self):
         for p in self.parameters():
@@ -305,6 +360,13 @@ class Layer:
         if lines:
             return main + "\n" + "\n".join(lines) + "\n)"
         return main + ")"
+
+
+def _rebind_leaf(t: Tensor, value: torch.Tensor) -> None:
+    """`value` becomes the leaf `t`'s tensor, requiring grad as the old
+    one did (the JAX package's `p._data = ...` rebinding); an accumulated
+    gradient is dropped."""
+    t._data = value.detach().requires_grad_(t._data.requires_grad)
 
 
 class _HookRemover:

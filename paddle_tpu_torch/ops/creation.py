@@ -1,6 +1,6 @@
 """Tensor creation ops — port of paddle_tpu/ops/creation.py (the ones the
-eager path uses: to_tensor, zeros, ones, full, arange). Tensors go to
-the current place (core/device.py)."""
+eager path uses: to_tensor, zeros, ones, full, arange, assign). Tensors
+go to the current place (core/device.py)."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,6 +9,7 @@ import torch
 from ..core.tensor import Tensor, to_tensor  # noqa: F401  (re-exported)
 from ..core import dtype as dtypes
 from ..core.device import _device
+from ._registry import eager
 
 
 def _dt(dtype, default=None):
@@ -59,3 +60,20 @@ def arange(start=0, end=None, step=1, dtype=None, name=None) -> Tensor:
             dtype = dtypes.get_default_dtype()
     return Tensor(torch.arange(start, end, step, dtype=_dt(dtype),
                                device=_device()))
+
+
+def assign(x, output=None) -> Tensor:
+    """A copy of x (paddle_tpu/ops/creation.py:130): recorded for
+    autograd when x is, as the JAX package's `a + 0`; with `output`, the
+    copy is written into it."""
+    out = eager(lambda a: a.clone(),
+                (x if isinstance(x, Tensor) else to_tensor(x),), {},
+                name="assign")
+    if output is not None:
+        output.set_value(out)
+        return output
+    return out
+
+
+def clone(x) -> Tensor:
+    return assign(x)

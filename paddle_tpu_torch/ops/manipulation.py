@@ -1,6 +1,11 @@
 """Shape, layout and indexing ops — port of paddle_tpu/ops/manipulation.py
 (the ones the eager path uses: reshape, transpose, flatten, squeeze,
-unsqueeze, concat, stack, split, cast and basic-slicing getitem)."""
+unsqueeze, concat, stack, split, cast, getitem and setitem_).
+
+`squeeze(x, axis=k)` on an axis longer than 1 returns x unchanged, as
+Paddle documents; the JAX package raises ValueError there (a recorded
+divergence). Slices with a negative step reverse, as in JAX: torch has
+no negative step, so those axes are flipped first and sliced forward."""
 from __future__ import annotations
 
 import numpy as np
@@ -100,6 +105,84 @@ def _norm_index(idx):
     return idx
 
 
+def _dims_taken(i) -> int:
+    """Input axes one index element consumes."""
+    if i is None or i is Ellipsis:
+        return 0
+    if isinstance(i, torch.Tensor) and i.dtype == torch.bool:
+        return max(i.ndim, 1)
+    return 1
+
+
+def _forward_steps(nidx, shape):
+    """(axes to flip, an index with only positive steps) equal to `nidx`
+    on a tensor of `shape`: a slice s:e:-k over an axis of n becomes,
+    on that axis flipped, the forward slice from n-1-first to n-1-last
+    by k."""
+    items = nidx if isinstance(nidx, tuple) else (nidx,)
+    if not any(isinstance(i, slice) and i.step is not None and i.step < 0
+               for i in items):
+        return (), nidx
+    used = sum(_dims_taken(i) for i in items)
+    flips, out, d = [], [], 0
+    for i in items:
+        if i is Ellipsis:
+            d += len(shape) - used
+        elif isinstance(i, slice) and i.step is not None and i.step < 0:
+            n = shape[d]
+            r = range(*i.indices(n))
+            i = slice(n - 1 - r[0], n - r[-1], -i.step) if len(r) else \
+                slice(0, 0)
+            flips.append(d)
+        out.append(i)
+        d += _dims_taken(i)
+    return tuple(flips), tuple(out)
+
+
+def _getitem_raw(a, nidx):
+    flips, fidx = _forward_steps(nidx, a.shape)
+    return (a.flip(flips) if flips else a)[fidx]
+
+
 def getitem(x, idx):
     nidx = _norm_index(idx)
-    return eager(lambda a: a[nidx], (x,), {}, name="getitem")
+    return eager(lambda a: _getitem_raw(a, nidx), (x,), {}, name="getitem")
+
+
+def _setitem_raw(a, nidx, v):
+    flips, fidx = _forward_steps(nidx, a.shape)
+    out = a.flip(flips) if flips else a.clone()
+    if not isinstance(v, (torch.Tensor, bool, int, float)):
+        v = torch.as_tensor(np.asarray(v), device=a.device)
+    out[fidx] = v.to(a.dtype) if isinstance(v, torch.Tensor) else v
+    return out.flip(flips) if flips else out
+
+
+def setitem_(x, idx, value):
+    """`x[idx] = value` (paddle_tpu/ops/manipulation.py:437), in x's
+    dtype. As the JAX tape does, the write is recorded when x or value
+    is differentiable under grad mode: x then takes the new value and
+    its place in the graph (a non-leaf). Otherwise a leaf x keeps its
+    storage and the value is copied in. x's `_version` goes up by one."""
+    nidx = _norm_index(idx)
+    if isinstance(value, Tensor):
+        out = eager(lambda a, v: _setitem_raw(a, nidx, v), (x, value), {},
+                    name="setitem")
+    else:
+        out = eager(lambda a: _setitem_raw(a, nidx, value), (x,), {},
+                    name="setitem")
+    recorded = not out._leaf
+    if recorded or not x._leaf:
+        if not recorded and not x.stop_gradient:
+            # as the JAX package's adopt_inplace: an unrecorded write to
+            # a non-leaf would corrupt the graph it belongs to
+            raise RuntimeError(
+                "in-place modification of a non-leaf tensor while gradient "
+                "recording is off would corrupt the autograd graph; "
+                "detach() first or perform the update out-of-place")
+        x._data, x._sg, x._leaf = out._data, out._sg, out._leaf
+    else:
+        with torch.no_grad():
+            x._data.copy_(out._data)
+    x._version += 1
+    return x

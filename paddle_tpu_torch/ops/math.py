@@ -1,5 +1,5 @@
 """Elementwise math and matmul — port of paddle_tpu/ops/math.py (the ops
-the eager path uses)."""
+the eager path and the Tensor protocol use)."""
 from __future__ import annotations
 
 import numpy as np
@@ -26,8 +26,47 @@ multiply = defop("multiply",
                  lambda x, y, name=None: torch.mul(x, _other(y, x)))
 divide = defop("divide",
                lambda x, y, name=None: torch.true_divide(x, _other(y, x)))
+def _bools_as_int32(x, y):
+    """jnp's floor_divide, mod and power of two bool arrays compute in
+    int32; torch has none of them for bool."""
+    if x.dtype == torch.bool and isinstance(y, torch.Tensor) \
+            and y.dtype == torch.bool:
+        return x.int(), y.int()
+    return x, y
+
+
+floor_divide = defop("floor_divide", lambda x, y, name=None:
+                     torch.floor_divide(*_bools_as_int32(x, _other(y, x))))
+# jnp.mod: the remainder takes the divisor's sign, as torch.remainder's
+mod = defop("mod", lambda x, y, name=None:
+            torch.remainder(*_bools_as_int32(x, _other(y, x))))
+remainder = mod
+floor_mod = mod
+pow = defop("pow", lambda x, y, name=None:
+            torch.pow(*_bools_as_int32(x, _other(y, x))))
 exp = defop("exp", lambda x, name=None: torch.exp(x))
 tanh = defop("tanh", lambda x, name=None: torch.tanh(x))
+# jnp.abs of a bool array is the array
+abs = defop("abs", lambda x, name=None:
+            x if x.dtype == torch.bool else torch.abs(x))
+neg = defop("neg", lambda x, name=None: torch.neg(x))
+
+bitwise_and = defop("bitwise_and", lambda x, y, name=None:
+                    torch.bitwise_and(x, _other(y, x)))
+bitwise_or = defop("bitwise_or", lambda x, y, name=None:
+                   torch.bitwise_or(x, _other(y, x)))
+bitwise_xor = defop("bitwise_xor", lambda x, y, name=None:
+                    torch.bitwise_xor(x, _other(y, x)))
+bitwise_not = defop("bitwise_not", lambda x, name=None: torch.bitwise_not(x))
+
+
+def _promote(x, y):
+    """x and y in the dtype jnp.matmul computes in: their promoted type
+    (torch.promote_types agrees with JAX's lattice for the float and
+    integer pairs of the eager API). Operands of that dtype pass as they
+    are, so an auto_cast route that already cast them launches no cast."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
 
 
 def _matmul_raw(x, y, transpose_x=False, transpose_y=False, name=None):
@@ -35,7 +74,7 @@ def _matmul_raw(x, y, transpose_x=False, transpose_y=False, name=None):
         x = x.transpose(-1, -2)
     if transpose_y and y.ndim > 1:
         y = y.transpose(-1, -2)
-    return torch.matmul(x, y)
+    return torch.matmul(*_promote(x, y))
 
 
 matmul = defop("matmul", _matmul_raw)

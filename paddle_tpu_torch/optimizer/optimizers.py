@@ -1,25 +1,34 @@
 """Optimizers of the eager API — port of paddle_tpu/optimizer/optimizers.py
-(:52 ClipGradByGlobalNorm, :64 Optimizer, :211 SGD, :222 Momentum,
-:298 Adam, :349 AdamW).
+(:30 ClipGradByValue, :41 ClipGradByNorm, :52 ClipGradByGlobalNorm,
+:64 Optimizer, :211 SGD, :222 Momentum, :298 Adam, :349 AdamW, :445
+L1Decay and L2Decay).
 
 The update formulas, the bias-correction powers (f32 scalars per
-parameter), decoupled decay, `apply_decay_param_fun` and the
-learning-rate multiplier are the JAX package's. The JAX package jits each
-parameter's update into one XLA computation; here the parameters of one
-(device, dtype) group are updated together, in runs of up to 2^27
-values (`transform.grouped_chunks`, which the tree optimizers share), by
+parameter), decoupled decay, `apply_decay_param_fun`, the regularizers
+(L1Decay adds c·sign(w) to the gradient; L2Decay, like a float, flows
+into the update as `wd`), amsgrad, master weights and the learning-rate
+multiplier are the JAX package's. The JAX package jits each parameter's
+update into one XLA computation; here the parameters of one (device,
+dtype) group are updated together, in runs of up to 2^27 values
+(`transform.grouped_chunks`, which the tree optimizers share), by
 `torch._foreach_*` ops, one multi-tensor launch per step of the formula,
 in the formula's own order (no torch.optim, no fused kernel: XLA, not
-Pallas, runs this update in JAX). The new moments are new tensors, as JAX's arrays are, so
-a `state_dict()` taken earlier keeps its values. A new parameter value
-of the parameter's dtype is written into its storage; one of another
-dtype (a bf16 parameter's f32 update without master weights, as JAX's
-`value - step` promotes) replaces the parameter's tensor, as JAX's
-`_rebind` does, and layers keep reading it through the Parameter. The
-learning rate is a float or an `lr.LRScheduler`, read once a step.
-L1/L2Decay objects, master weights (`multi_precision`, with
-`amp.decorate`), amsgrad and the other optimizers arrive with the rest
-of the eager API and raise `NotImplementedError` until then.
+Pallas, runs this update in JAX). The new moments are new tensors, as
+JAX's arrays are, so a `state_dict()` taken earlier keeps its values. A
+new parameter value of the parameter's dtype is written into its
+storage; one of another dtype (a bf16 parameter's f32 update without
+master weights, as JAX's `value - step` promotes) replaces the
+parameter's tensor, as JAX's `_rebind` does, and layers keep reading it
+through the Parameter. The learning rate is a float or an
+`lr.LRScheduler`, read once a step.
+
+Master weights (`multi_precision`, set by `amp.decorate`): an f16 or
+bf16 parameter gets an f32 `master` in its state, made from the
+parameter's value at its first step (after decorate's cast, as in the
+JAX package). The clip acts on the gradients as they come; the update
+runs on the masters (one multi-tensor pass over a group, in place), and
+each group's parameters take the masters rounded to their dtype in one
+multi-tensor copy. `state_dict` carries `"<name>.master"`.
 """
 from __future__ import annotations
 
@@ -37,6 +46,52 @@ from .transform import grouped_chunks
 class _GradClipBase:
     def __call__(self, params_grads):
         raise NotImplementedError
+
+
+def _grad_groups(params_grads):
+    """Indices of the gradients by (device, dtype) group, in order."""
+    groups = {}
+    for i, (_, g) in enumerate(params_grads):
+        groups.setdefault((g.device, g.dtype), []).append(i)
+    return groups.values()
+
+
+class ClipGradByValue(_GradClipBase):
+    """Each gradient clipped to [min, max] (min defaults to -max)."""
+
+    def __init__(self, max, min=None):
+        self.max = max
+        self.min = -max if min is None else min
+
+    def __call__(self, params_grads):
+        out = [g for _, g in params_grads]
+        for idx in _grad_groups(params_grads):
+            gs = torch._foreach_clamp_min([out[i] for i in idx], self.min)
+            torch._foreach_clamp_max_(gs, self.max)
+            for i, g in zip(idx, gs):
+                out[i] = g
+        return [(p, g) for (p, _), g in zip(params_grads, out)]
+
+
+class ClipGradByNorm(_GradClipBase):
+    """Each gradient times min(1, clip_norm / its own L2 norm), in its
+    dtype: one multi-tensor norm and scaling per (device, dtype)
+    group."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = clip_norm
+
+    def __call__(self, params_grads):
+        out = [g for _, g in params_grads]
+        for idx in _grad_groups(params_grads):
+            gs = [out[i] for i in idx]
+            norms = torch._foreach_clamp_min(torch._foreach_norm(gs), 1e-12)
+            scales = torch._foreach_reciprocal(norms)
+            torch._foreach_mul_(scales, self.clip_norm)
+            torch._foreach_clamp_max_(scales, 1.0)
+            for i, g in zip(idx, torch._foreach_mul(gs, scales)):
+                out[i] = g
+        return [(p, g) for (p, _), g in zip(params_grads, out)]
 
 
 class ClipGradByGlobalNorm(_GradClipBase):
@@ -92,19 +147,11 @@ class Optimizer:
             raise ValueError(
                 "parameters=None: pass model.parameters() (the static-graph "
                 "global-collection mode is not supported; eager only)")
-        if weight_decay is not None and \
-                not isinstance(weight_decay, (int, float)):
-            raise NotImplementedError(
-                "L1Decay/L2Decay objects arrive with the rest of the eager "
-                "API; pass a float coefficient")
-        if multi_precision:
-            raise NotImplementedError(
-                "master weights (multi_precision) arrive with amp.decorate "
-                "(O2) in the rest of the eager API")
         self._parameter_list = list(parameters)
         self._learning_rate = learning_rate
         self._weight_decay = weight_decay
         self._grad_clip = grad_clip
+        self._multi_precision = multi_precision
         self._state: Dict[int, Dict[str, torch.Tensor]] = {}
         self._step_count = 0
 
@@ -130,7 +177,11 @@ class Optimizer:
     def _param_state(self, p: Tensor) -> Dict[str, torch.Tensor]:
         st = self._state.get(id(p))
         if st is None:
-            st = self._state[id(p)] = self._init_state(p)
+            st = self._init_state(p)
+            if self._multi_precision and p._data.dtype in (
+                    dtypes.float16, dtypes.bfloat16):
+                st["master"] = p._data.detach().float()
+            self._state[id(p)] = st
         return st
 
     def _init_state(self, p: Tensor) -> Dict[str, torch.Tensor]:
@@ -144,14 +195,21 @@ class Optimizer:
         → (the steps to subtract from the values, new state dicts)."""
         raise NotImplementedError
 
-    def _decay_info(self, p: Optional[Tensor]) -> float:
+    def _decay_info(self, p: Optional[Tensor]):
+        """→ (coeff, is_l1). L1 decay is applied to the gradient in
+        step() (c·sign(w)); L2 or a float flows into the update as
+        `wd`."""
         wd = self._weight_decay
         if wd is None:
-            return 0.0
+            return 0.0, False
         fn = getattr(self, "_apply_decay_param_fun", None)
         if fn is not None and p is not None and not fn(p.name):
-            return 0.0
-        return float(wd)
+            return 0.0, False
+        if isinstance(wd, L1Decay):
+            return float(wd._coeff), True
+        if isinstance(wd, L2Decay):
+            return float(wd._coeff), False
+        return float(wd), False
 
     @torch.no_grad()
     def step(self):
@@ -163,26 +221,56 @@ class Optimizer:
         # as f32; lr · lr_mult rounded to f32, as the f32 product
         # `lr * lr_mult` of a per-parameter update rounds it
         lr = np.float32(self.get_lr())
-        for idx in grouped_chunks([p._data for p, _ in params_grads]):
+        # the values the update runs on: the f32 master where there is one
+        masters = [self._param_state(p).get("master")
+                   for p, _ in params_grads]
+        vals = [p._data if m is None else m
+                for (p, _), m in zip(params_grads, masters)]
+        for idx in grouped_chunks(vals):
             items = [params_grads[i] for i in idx]
-            values = [p._data for p, _ in items]
-            grads = [g.to(v.dtype) for (_, g), v in zip(items, values)]
-            states = [self._param_state(p) for p, _ in items]
+            values = [vals[i] for i in idx]
+            grads = [g for _, g in items]
+            if any(g.dtype != v.dtype for g, v in zip(grads, values)):
+                # the gradients in their values' dtype (a master's f32),
+                # as JAX's `g.astype(value.dtype)`: one multi-tensor copy
+                grads, raw = [torch.empty_like(v) for v in values], grads
+                torch._foreach_copy_(grads, raw)
+            states = [{k: v for k, v in self._state[id(p)].items()
+                       if k != "master"} for p, _ in items]
             lrs = [float(lr * np.float32(getattr(p, "optimize_attr", {})
                                          .get("learning_rate", 1.0)))
                    for p, _ in items]
-            wds = [float(np.float32(self._decay_info(p))) for p, _ in items]
+            decays = [self._decay_info(p) for p, _ in items]
+            l1 = [j for j, (c, is_l1) in enumerate(decays) if is_l1 and c]
+            if l1:
+                pen = torch._foreach_mul(
+                    torch._foreach_sign([values[j] for j in l1]),
+                    [decays[j][0] for j in l1])
+                for j, t in zip(l1, pen):
+                    grads[j] = grads[j] + t
+            wds = [0.0 if is_l1 else float(np.float32(c))
+                   for c, is_l1 in decays]
             steps, new_states = self._steps(values, grads, states, lrs, wds)
-            for (p, _), st in zip(items, new_states):
+            for i, (p, _), st in zip(idx, items, new_states):
+                if masters[i] is not None:
+                    st["master"] = masters[i]
                 self._state[id(p)] = st
             if all(s.dtype == v.dtype for s, v in zip(steps, values)):
                 torch._foreach_sub_(values, steps)
-                continue
-            # a step of another dtype promotes the value, as JAX's
-            # `value - step` does; the result replaces the parameter's
-            # tensor, as `_rebind` stores it
-            for (p, _), v, s in zip(items, values, steps):
-                _rebind(p, v - s)
+            else:
+                # a step of another dtype promotes the value, as JAX's
+                # `value - step` does; the result replaces the parameter's
+                # tensor, as `_rebind` stores it (no master here: a master
+                # is f32, and so are its steps)
+                for (p, _), v, s in zip(items, values, steps):
+                    _rebind(p, v - s)
+            # the masters rounded back into their parameters, one
+            # multi-tensor copy (the group's parameters share a dtype)
+            back = [i for i in idx if masters[i] is not None]
+            if back:
+                torch._foreach_copy_([params_grads[i][0]._data
+                                      for i in back],
+                                     [masters[i] for i in back])
         self._step_count += 1
 
     def clear_grad(self, set_to_zero=True):
@@ -191,16 +279,24 @@ class Optimizer:
 
     clear_gradients = clear_grad
 
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        loss.backward()
+        self.step()
+        return None, None
+
     # -- persistence ----------------------------------------------------------
     def state_dict(self):
-        """The moments by parameter name (`{name}.{key}`), the step and,
-        with a scheduler, its state under "LR_Scheduler"."""
+        """The moments and masters by parameter name (`{name}.{key}`),
+        the step and, with a scheduler, its state under "LR_Scheduler".
+        A master is copied: the update writes it in place."""
         out = {"_step_count": self._step_count}
         for p in self._parameter_list:
             st = self._state.get(id(p))
             if st:
                 for k, v in st.items():
-                    out[f"{p.name}.{k}"] = Tensor(v)
+                    out[f"{p.name}.{k}"] = Tensor(
+                        v.clone() if k == "master" else v)
         if self._lr_scheduler is not None:
             out["LR_Scheduler"] = self._lr_scheduler.state_dict()
         return out
@@ -258,7 +354,9 @@ class Momentum(Optimizer):
         self._nesterov = use_nesterov
 
     def _init_state(self, p):
-        return {"velocity": torch.zeros_like(p._data)}
+        return {"velocity": torch.zeros_like(
+            p._data, dtype=torch.float32 if self._multi_precision
+            else None)}
 
     def _steps(self, values, grads, states, lrs, wds):
         mu = self._momentum
@@ -284,23 +382,24 @@ class Adam(Optimizer):
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
                  use_multi_tensor=False, name=None, amsgrad=False, **kw):
-        if amsgrad:
-            raise NotImplementedError(
-                "amsgrad arrives with the rest of the eager API")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
+        self._amsgrad = amsgrad
 
     def _init_state(self, p):
-        dt = torch.float32 if p.dtype in (dtypes.float16, dtypes.bfloat16) \
-            else p.dtype
+        dt = torch.float32 if self._multi_precision or p.dtype in (
+            dtypes.float16, dtypes.bfloat16) else p.dtype
         dev = p._data.device
-        return {"moment1": torch.zeros(p.shape, dtype=dt, device=dev),
-                "moment2": torch.zeros(p.shape, dtype=dt, device=dev),
-                "beta1_pow": torch.ones((), dtype=torch.float32, device=dev),
-                "beta2_pow": torch.ones((), dtype=torch.float32, device=dev)}
+        st = {"moment1": torch.zeros(p.shape, dtype=dt, device=dev),
+              "moment2": torch.zeros(p.shape, dtype=dt, device=dev),
+              "beta1_pow": torch.ones((), dtype=torch.float32, device=dev),
+              "beta2_pow": torch.ones((), dtype=torch.float32, device=dev)}
+        if self._amsgrad:
+            st["moment2_max"] = torch.zeros(p.shape, dtype=dt, device=dev)
+        return st
 
     def _steps(self, values, grads, states, lrs, wds):
         # the per-parameter formula's operations in its order, each one
@@ -327,7 +426,10 @@ class Adam(Optimizer):
         fe._foreach_add_(bc1, 1.0)
         fe._foreach_add_(bc2, 1.0)
         step = fe._foreach_div(m1, bc1)
-        den = fe._foreach_div(m2, bc2)
+        if self._amsgrad:
+            m2max = fe._foreach_maximum([s["moment2_max"] for s in states],
+                                        m2)
+        den = fe._foreach_div(m2max if self._amsgrad else m2, bc2)
         fe._foreach_sqrt_(den)
         fe._foreach_add_(den, eps)
         fe._foreach_mul_(step, lrs)
@@ -337,9 +439,12 @@ class Adam(Optimizer):
             fe._foreach_add_(step, fe._foreach_mul(
                 vf, [float(np.float32(np.float32(lr) * np.float32(wd)))
                          for lr, wd in zip(lrs, wds)]))
-        return step, [
-            {"moment1": a, "moment2": b, "beta1_pow": c, "beta2_pow": d}
-            for a, b, c, d in zip(m1, m2, b1p, b2p)]
+        new = [{"moment1": a, "moment2": b, "beta1_pow": c, "beta2_pow": d}
+               for a, b, c, d in zip(m1, m2, b1p, b2p)]
+        if self._amsgrad:
+            for st, mx in zip(new, m2max):
+                st["moment2_max"] = mx
+        return step, new
 
 
 class AdamW(Adam):
@@ -355,3 +460,18 @@ class AdamW(Adam):
                          weight_decay, grad_clip, lazy_mode, multi_precision,
                          name=name)
         self._apply_decay_param_fun = apply_decay_param_fun
+
+
+class L1Decay:
+    """paddle.regularizer.L1Decay: coeff · sign(w) added to the
+    gradient."""
+
+    def __init__(self, coeff=0.0):
+        self._coeff = coeff
+
+
+class L2Decay:
+    """paddle.regularizer.L2Decay: coeff · w, as a float weight_decay."""
+
+    def __init__(self, coeff=0.0):
+        self._coeff = coeff

@@ -1,6 +1,7 @@
 """The flash kernels at every shape `chip_smoke.py` holds them, on one GPU.
 
     python -m paddle_tpu_torch.tools.bench_flash [--check] [--label L]
+        [--dtype bf16|f16]
 
 Builds `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, prints each one's
 ptxas lines and the `HGMMA` / `UTMALDG` instruction counts that
@@ -13,7 +14,9 @@ forward's largest error relative to each (query, head) output vector's
 scale (and the LSE's absolute error) or the backward's (dq, dk, dv; rows below 1e-3 of the largest held
 relative to that) against the plain versions. `--check` stops after the
 errors of small and odd shapes (no timing) and exits 1 if any exceeds
-2e-2 (LSE 5e-4) or a backward is not bit-identical twice. It uses only
+2e-2 (LSE 5e-4) or a backward is not bit-identical twice. `--dtype f16`
+runs every case in f16 (the kernels' f16 option), held to 1.25e-3: the
+same 2.5 ulps of the vector's largest element that 2e-2 is in bf16. It uses only
 the wrappers' public functions, so the same file times an older checkout
 of the package (run it from that checkout's root) in turns with this one
 on one card. The last line names the card and its power limit.
@@ -28,6 +31,9 @@ import sys
 import torch
 
 TOL, LSE_TOL, FLOOR = 2e-2, 5e-4, 1e-3
+# the inputs' dtype and its tolerance (2.5 ulps of the largest element)
+DTYPES = {"bf16": (torch.bfloat16, 2e-2), "f16": (torch.float16, 1.25e-3)}
+_DT = torch.bfloat16
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 H, KV, HD = 32, 8, 128
 
@@ -83,7 +89,7 @@ def _bound(flops, nbytes):
 
 def _inputs(B, S, h, kv, hd, layout, lengths, gen):
     def make(n):
-        x = torch.randn(B, S, n, hd, device="cuda", generator=gen).bfloat16()
+        x = torch.randn(B, S, n, hd, device="cuda", generator=gen).to(_DT)
         return x.transpose(1, 2).contiguous() if layout == "bhsd" else x
     q, k, v, do = make(h), make(kv), make(kv), make(h)
     km = None if lengths is None else \
@@ -232,9 +238,9 @@ def sq_lt_sk(gen):
     from paddle_tpu_torch.kernels import flash_attention as fa
     res = []
     for sq, sk, hd in ((64, 300, 128), (130, 514, 64), (1, 129, 72)):
-        q = torch.randn(2, sq, 4, hd, device="cuda", generator=gen).bfloat16()
+        q = torch.randn(2, sq, 4, hd, device="cuda", generator=gen).to(_DT)
         k, v = (torch.randn(2, sk, 2, hd, device="cuda", generator=gen)
-                .bfloat16() for _ in range(2))
+                .to(_DT) for _ in range(2))
         do = torch.randn_like(q)
         out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
         ref, lse_r = fa.flash_attention_fwd_ref(q, k, v, return_lse=True)
@@ -271,7 +277,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--label", default="")
+    ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     args = ap.parse_args(argv)
+    global _DT, TOL
+    _DT, TOL = DTYPES[args.dtype]
     if not torch.cuda.is_available():
         print("bench_flash: CUDA is not available", file=sys.stderr)
         return 1

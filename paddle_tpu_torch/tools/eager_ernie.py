@@ -109,20 +109,21 @@ def build_model(paddle, cfg, dropout: float = 0.1):
 
 
 def train_step(paddle, model, loss_fn, opt, ids, labels,
-               amp_dtype="bfloat16", span=None):
-    """One step of the finetune recipe: forward and loss under O1
-    auto_cast in `amp_dtype` (None: f32 throughout), backward, the
-    optimizer's step, clear_grad. Returns the loss Tensor. `span(name)`,
-    when given, is a context manager entered around each of the three
-    parts ("eager_forward", "eager_backward", "eager_optimizer"), as
-    the profile tool marks them."""
+               amp_dtype="bfloat16", span=None, amp_level="O1", scaler=None):
+    """One step of the finetune recipe: forward and loss under auto_cast
+    at `amp_level` ("O1", or "O2" for a model and optimizer passed
+    through `paddle.amp.decorate`) in `amp_dtype` (None: f32
+    throughout), backward, the optimizer's step, clear_grad; with a
+    `GradScaler`, the backward and step are `scaler.minimize(opt,
+    scaler.scale(loss))`. Returns the loss Tensor. `span(name)`, when
+    given, is a context manager entered around each of the three parts
+    ("eager_forward", "eager_backward", "eager_optimizer"), as the
+    profile tool marks them."""
+    from .eager_llama import _backward_and_step
     span = span or (lambda name: contextlib.nullcontext())
     with span("eager_forward"), paddle.amp.auto_cast(
-            enable=amp_dtype is not None, dtype=amp_dtype or "bfloat16"):
+            enable=amp_dtype is not None, dtype=amp_dtype or "bfloat16",
+            level=amp_level):
         loss = loss_fn(model(ids), labels)
-    with span("eager_backward"):
-        loss.backward()
-    with span("eager_optimizer"):
-        opt.step()
-        opt.clear_grad()
+    _backward_and_step(loss, opt, scaler, span)
     return loss

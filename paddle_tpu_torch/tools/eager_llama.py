@@ -108,19 +108,37 @@ def lm_loss(loss_fn, logits, tokens):
 
 
 def train_step(paddle, model, loss_fn, opt, tokens, amp_dtype="bfloat16",
-               span=None):
-    """One step of the recipe: forward and loss under O1 auto_cast in
-    `amp_dtype` (None: f32 throughout), backward, the optimizer's step,
-    clear_grad. Returns the loss Tensor. `span(name)`, when given, is a
-    context manager entered around each of the three parts
-    ("eager_forward", "eager_backward", "eager_optimizer")."""
+               span=None, amp_level="O1", scaler=None):
+    """One step of the recipe: forward and loss under auto_cast at
+    `amp_level` ("O1", or "O2" for a model and optimizer passed through
+    `paddle.amp.decorate`) in `amp_dtype` (None: f32 throughout),
+    backward, the optimizer's step, clear_grad; with a `GradScaler`, the
+    backward and step are `scaler.minimize(opt, scaler.scale(loss))`.
+    Returns the loss Tensor. `span(name)`, when given, is a context
+    manager entered around each of the three parts ("eager_forward",
+    "eager_backward", "eager_optimizer")."""
     span = span or (lambda name: contextlib.nullcontext())
     with span("eager_forward"), paddle.amp.auto_cast(
-            enable=amp_dtype is not None, dtype=amp_dtype or "bfloat16"):
+            enable=amp_dtype is not None, dtype=amp_dtype or "bfloat16",
+            level=amp_level):
         loss = lm_loss(loss_fn, model(tokens), tokens)
-    with span("eager_backward"):
-        loss.backward()
-    with span("eager_optimizer"):
-        opt.step()
-        opt.clear_grad()
+    _backward_and_step(loss, opt, scaler, span)
     return loss
+
+
+def _backward_and_step(loss, opt, scaler, span):
+    """loss.backward() and opt.step(), or with a scaler
+    `scaler.minimize(opt, scaler.scale(loss))` (its backward and its
+    unscale, check and step, all in the "eager_backward" span), then
+    opt.clear_grad()."""
+    if scaler is None:
+        with span("eager_backward"):
+            loss.backward()
+        with span("eager_optimizer"):
+            opt.step()
+            opt.clear_grad()
+        return
+    with span("eager_backward"):
+        scaler.minimize(opt, scaler.scale(loss))
+    with span("eager_optimizer"):
+        opt.clear_grad()

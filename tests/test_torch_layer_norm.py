@@ -205,8 +205,12 @@ def test_wrappers_refuse_what_the_kernel_cannot_take():
         else:
             with pytest.raises(ValueError):
                 tln._check_rows(x, "t")
+    # f32, bf16 and f16 rows are the kernels' (f16 since the O2 option);
+    # f64 is not
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        assert tln._check_rows(torch.zeros(2, 16, dtype=dt), "t") == 16
     with pytest.raises(TypeError):
-        tln._check_rows(torch.zeros(2, 16, dtype=torch.float16), "t")
+        tln._check_rows(torch.zeros(2, 16, dtype=torch.float64), "t")
     # a contiguous view one element into its storage: 4 bytes off
     x = torch.zeros(2, 16)
     odd = torch.zeros(33)[1:].view(2, 16)
