@@ -224,7 +224,42 @@ non-zero:
                8000, batch 32, beam 4, 32 steps): the best beam's score
                against the teacher-forced sum of its log-probabilities.
 
-The kernels phase also holds the f16 options (the O2 runs' forms) of
+The f32 and f16 paths (run after phases 5 and 7):
+  5a. train_f32 — phase 5's flagship at `LlamaConfig(dtype=float32,
+               param_dtype=float32)`, full widths and depth, batch
+               F32_TRAIN_BATCH (16, the largest multiple of 8 that fits)
+               x 2048, the tree AdamW (f32 moments) behind the clip at
+               1.0, lr 1e-4, 1 warm-up and 2 timed steps: the f32 flash
+               pair (csrc/flash_f32.cu, TF32 tensor cores) and rows 7-8
+               in f32 at exactly the dense step's counts, none in another
+               dtype; losses finite and falling. The GEMMs stay
+               torch.matmul at PyTorch's default (full f32).
+  5b. train_f16 — the same entry points at dtype=float16 (f32
+               parameters), full widths, 2 layers, 2 + 2 steps: rows 7-8
+               and the flash pair in f16 at their exact counts; losses
+               finite.
+  5c. grad_check_f32 — one loss + backward at 2 layers, S 2048, f32,
+               through the kernels, their plain f32 versions and the
+               plain versions with the dcap fault: each gradient group
+               (and the per-token losses) within F32_GRAD_TOL of the plain
+               path, the fault at least 10 times that.
+  7a. eager_f32 — phase 7's ERNIE recipe in f32 with no auto_cast: the
+               flash pair 12 + 12 and LayerNorm 25 + 25 a step, all in
+               f32; losses falling; MFU against the GEMMs' f32 rate.
+
+The kernels phase holds the f32 option of rows 1-5 (within F32_TOL,
+the LSE within F32_LSE_TOL) at the eager ERNIE's [64, 512, 12, 64]
+non-causal, the flagship's [16, 2048, 32/8, 128] causal and DiT's
+[96, 256, 16, 72] 'bhsd', the f16 flash pair at the f16 trainer's
+[16, 2048, 32/8, 128], and rows 7-8 in f32 (within RMS_F32_TOL) and f16
+(within one f16 ulp of each row's scale) at [32768, 4096] with an f32
+weight: each bit-identical on a second call, with a planted control
+(keys shifted one position, dcap dropped, the weight one column off) at
+least 10 times above its bound, its bound from the TF32 rate (495
+TFLOP/s) or the bytes, and the library call's time (SDPA in f32,
+F.rms_norm and ATen's fused RMSNorm backward where x and the weight
+share a dtype). The kernels phase also holds the f16 options (the O2
+runs' forms) of
 the flash forward and backward at the eager Llama's B=2 x 2048 GQA 32/8
 causal and the eager ERNIE's B=64 x 512 H=12 hd=64, of row 6 at
 [4096, 4096] and of the LayerNorm pair at [32768, 768], within
@@ -346,6 +381,7 @@ def phase_build():
 # their cp.async copies (LDGSTS)
 _SASS_MARKS = {"flash_fwd": ("HGMMA", "UTMALDG"),
                "flash_bwd": ("HGMMA", "UTMALDG"),
+               "flash_f32": ("HMMA", "UTMALDG"),
                "gather_mlp": ("HGMMA", "UTMALDG", "LDGSTS", "UTMASTG"),
                "ragged_paged_attention": ("LDGSTS",),
                "rms_norm": ("LDGSTS",), "layer_norm": ("LDGSTS",),
@@ -366,7 +402,7 @@ def _sass_counts(_build):
         counts[name] = {m: sass.count(m) for m in marks}
         if not all(counts[name].values()):
             raise AssertionError(f"{name}: no {counts[name]} in its SASS")
-        if name.startswith("flash_"):
+        if name in ("flash_fwd", "flash_bwd"):
             by = {"bf16": {m: 0 for m in marks}, "f16": {m: 0 for m in marks}}
             for fn in sass.split("Function : ")[1:]:
                 head = fn.split("\n", 1)[0]
@@ -442,6 +478,18 @@ def _shares(res):
     return res
 
 
+def _dt_label(dtype) -> str:
+    """A case's dtype in its shape label: nothing for bf16."""
+    return {torch.bfloat16: "", torch.float16: " f16",
+            torch.float32: " f32"}[dtype]
+
+
+def _flops_peak(dtype):
+    """The tensor-core rate a flash case's bound takes: TF32 for the f32
+    kernels, else the bf16/fp16 rate (None: peaks[0])."""
+    return _TF32_PEAK if dtype == torch.float32 else None
+
+
 def _qkv(B, S, hd, gen, layout="bshd", heads=(), dtype=torch.bfloat16):
     """Random [B, S, n, hd] in `dtype` for each n of `heads`, contiguous
     in `layout` ('bhsd': [B, n, S, hd])."""
@@ -491,7 +539,8 @@ def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
     """The flash forward against its plain version at one shape; with
     `lse`, as the training forward calls it, its LSE held too; with
     `by_kv_head`, the plain version one KV head's group at a time; the
-    inputs in `dtype` (bf16, or f16: the kernel's f16 option)."""
+    inputs in `dtype` (bf16; f16 or f32: the kernel's f16 or f32 option,
+    whose bound takes the element's bytes and, in f32, the TF32 rate)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     q, k, v = _qkv(B, S, hd, gen, layout, (H, KV, KV), dtype)
@@ -504,13 +553,14 @@ def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
                     + (" (LSE)" if lse else "")
                     + ("" if causal else " non-causal")
                     + ("" if layout == "bshd" else f" {layout}")
-                    + ("" if dtype == torch.bfloat16 else " f16")}
+                    + _dt_label(dtype)}
     if lse:
         (out, lse_k), (ref, lse_r) = out, ref
         res["lse_abs_err"] = (lse_k - lse_r).abs().max().item()
-        if not res["lse_abs_err"] <= LSE_TOL:
+        lse_tol = F32_LSE_TOL if dtype == torch.float32 else LSE_TOL
+        if not res["lse_abs_err"] <= lse_tol:
             raise AssertionError(f"flash B={B} S={S}: lse err "
-                                 f"{res['lse_abs_err']} > {LSE_TOL}")
+                                 f"{res['lse_abs_err']} > {lse_tol}")
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     rel = _rel_err(out, ref)
@@ -526,10 +576,11 @@ def _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse: bool = False,
     pairs = S * (S + 1) // 2 if causal else S * S       # Sq == Sk
     flops = 4.0 * B * H * hd * pairs
     # q, k, v in; out (and the f32 LSE) written
-    nbytes = 2.0 * B * S * hd * (2 * H + 2 * KV) + (4.0 * B * H * S * lse)
+    nbytes = (q.element_size() * B * S * hd * (2 * H + 2 * KV)
+              + (4.0 * B * H * S * lse))
     res.update({"max_abs_err": err, "max_rel_err": rel, "ms": ms,
                 "plain_ms": plain, "library_ms": lib,
-                **_bound(flops, nbytes, peaks)})
+                **_bound(flops, nbytes, peaks, _flops_peak(dtype))})
     return _shares(res)
 
 
@@ -661,6 +712,28 @@ LN_SUM_TOL = 1e-4
 # rsqrtf against torch's rsqrt, ~2 ulps): ~1e-7 of the row's scale; 1e-5
 # leaves a wide margin while a wrong element or weight column reads ~1e-1.
 RMS_F32_TOL = 1e-5
+# The f32 flash option (rows 1-5) multiplies on TF32 tensor cores (10
+# mantissa bits, each operand rounded to nearest: 2^-11 relative); its
+# plain version computes in full f32. The scores' products and dQ's take
+# three TF32 parts (~2^-21), the others one, so out, dk and dv carry the
+# rounding of P (or dS) and of V, dO or Q in each term: ~1e-3 of a
+# vector's largest value at most. 2.5e-3 is 5 such roundings of the
+# largest term; a key shifted one position reads ~1, a dropped dcap ~1.
+F32_TOL = 2.5e-3
+# Its LSE: the scores carry ~2^-21 of their scale (three TF32 parts), so
+# the LSE, f32 in both versions, keeps LSE_TOL's argument: ~1e-5 apart.
+F32_LSE_TOL = 1e-4
+# The f16 training norms (rows 7-8, the f16 trainer's): kernel and plain
+# version compute the same f32 expressions and round out and dx to f16
+# once, so an element may land one f16 ulp apart: held per row to one
+# ulp of the row's largest value (`_f16_ulps` <= 1).
+F16_ULPS = 1.0
+# The f32 trainer's gradient check (grad_check_f32): the kernel path and
+# the plain f32 path differ only by the flash kernels' TF32 roundings
+# (~2^-11 a term, averaged over a step's tokens), so each gradient
+# group's relative RMS distance is ~1e-4; 2e-3 bounds it, and the
+# planted fault (dcap dropped) must read 10 times above.
+F32_GRAD_TOL = 2e-3
 # 8-bit AdamW: params within one bf16 ulp (of the larger of the value
 # before and after the step) of the plain version, float8
 # codes within one e4m3 step of their value, scales to 1e-6 relative, and
@@ -698,7 +771,7 @@ def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True,
     """dq, dk, dv from the kernel forward's (out, lse), against the plain
     backward on the same inputs (with `by_kv_head`, one KV head's group
     at a time) within `tol`; the kernel must also repeat bit for bit (no
-    atomics). The inputs in `dtype` (bf16, or the f16 option)."""
+    atomics). The inputs in `dtype` (bf16, or the f16 or f32 option)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     q, k, v, dout = _qkv(B, S, hd, gen, layout, (H, KV, KV, H), dtype)
     kw = dict(causal=causal, layout=layout)
@@ -728,14 +801,16 @@ def _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=True,
     # five products over the visible pairs: QK^T again, dO V^T, P^T dO,
     # dS K, dS^T Q; bytes: q, k, v, out, dout, lse in; dq, dk, dv out
     flops = 10.0 * B * H * hd * pairs
-    nbytes = 2.0 * B * S * hd * (4 * H + 4 * KV) + 4.0 * B * H * S
+    nbytes = (q.element_size() * B * S * hd * (4 * H + 4 * KV)
+              + 4.0 * B * H * S)
     return _shares({"shape": f"B={B} S={S} H={H} KV={KV} hd={hd}"
                              + ("" if causal else " non-causal")
                              + ("" if layout == "bshd" else f" {layout}")
-                             + ("" if dtype == torch.bfloat16 else " f16"),
+                             + _dt_label(dtype),
                     "max_abs_err": err, "max_rel_err": max(rel.values()),
                     "rel_err": rel, "ms": ms, "plain_ms": plain,
-                    "library_ms": lib, **_bound(flops, nbytes, peaks)})
+                    "library_ms": lib,
+                    **_bound(flops, nbytes, peaks, _flops_peak(dtype))})
 
 
 def _launched(fn, marks, calls: int = 3):
@@ -780,49 +855,84 @@ def _rms_library_ms(fn, same_dtype):
             _graph_ms(fn, 20)}
 
 
-def _rms_cases(rows, D, peaks, gen, eps=1e-5, w_dtype=torch.bfloat16):
-    """The training norm at [rows, D] (bf16 x, the path's weight: bf16,
-    or f32 for the f32-param trees):
-    forward (out per row, rstd) and backward (dx per row, dw over D, in
-    the weight's dtype) against the plain twins; the backward must
+def _f16_ulps(out, ref) -> float:
+    """The largest error of a row (the last dimension) in f16 ulps of
+    that row's largest |ref|: max over rows of max |out - ref| /
+    ulp(max |ref|)."""
+    d = (out.float() - ref.float()).abs().amax(-1)
+    m = ref.float().abs().amax(-1).clamp(min=2.0 ** -14)
+    return (d / torch.exp2(torch.floor(torch.log2(m)) - 10)).max().item()
+
+
+def _norm_err(out, ref, dtype):
+    """(error, bound) of a training norm's output against its plain
+    version in x's `dtype`: f16 in ulps of each row's largest value
+    (F16_ULPS); f32 relative to it (RMS_F32_TOL); bf16 the same
+    (KERNEL_TOL)."""
+    if dtype == torch.float16:
+        return _f16_ulps(out, ref), F16_ULPS
+    return _rel_err(out, ref), (RMS_F32_TOL if dtype == torch.float32
+                                else KERNEL_TOL)
+
+
+def _rms_cases(rows, D, peaks, gen, eps=1e-5, w_dtype=torch.bfloat16,
+               dtype=torch.bfloat16):
+    """The training norm at [rows, D] (x in `dtype`: bf16, or the f16
+    and f32 options; the path's weight: bf16, or f32 for the f32-param
+    trees): forward (out per row, rstd) and backward (dx per row, dw over
+    D, in the weight's dtype) against the plain twins within
+    `_norm_err`'s bound (dw relative to its largest value: KERNEL_TOL in
+    bf16, an f16 ulp in f16, RMS_F32_TOL in f32); the backward must
     repeat bit for bit and launch its walk and fold only."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import rms_norm as rn
     from paddle_tpu_torch.tools import bench_kernels as bk
     from paddle_tpu_torch.tools.bench_flash import _graph_ms
-    x = torch.randn(rows, D, device="cuda", generator=gen).bfloat16()
+    x = torch.randn(rows, D, device="cuda", generator=gen).to(dtype)
     w = (1 + 0.1 * torch.randn(D, device="cuda", generator=gen)).to(w_dtype)
-    dy = torch.randn(rows, D, device="cuda", generator=gen).bfloat16()
+    dy = torch.randn(rows, D, device="cuda", generator=gen).to(dtype)
     out, rstd = rn.rms_norm_fwd(x, w, eps)
+    out2, rstd2 = rn.rms_norm_fwd(x, w, eps)
     rout, rrstd = rn._rms_fwd_twin(x, w, eps)
     dx, dw = rn.rms_norm_bwd(x, w, rstd, dy, eps)
     dx2, dw2 = rn.rms_norm_bwd(x, w, rstd, dy, eps)
     rdx, rdw = rn._rms_train_ref_bwd(x, w, dy, eps)
     torch.cuda.synchronize()
-    f_rel = _rel_err(out, rout)
+    f_rel, tol = _norm_err(out, rout, dtype)
     r_rel = ((rstd - rrstd).abs() / rrstd.abs()).max().item()
-    b_rel = _rel_err(dx, rdx)
-    w_rel = ((dw.float() - rdw.float()).abs().max()
-             / rdw.float().abs().max()).item()
-    if not (f_rel <= KERNEL_TOL and r_rel <= RSTD_TOL
-            and b_rel <= KERNEL_TOL and w_rel <= KERNEL_TOL):
-        raise AssertionError(f"rms [{rows}, {D}]: out {f_rel}, rstd {r_rel}"
-                             f", dx {b_rel}, dw {w_rel}")
-    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
-        raise AssertionError("rms bwd: two runs differ")
+    b_rel, _ = _norm_err(dx, rdx, dtype)
+    w_rel, w_tol = _norm_err(dw[None], rdw[None], w.dtype)
+    if dtype == torch.bfloat16:
+        w_tol = KERNEL_TOL
+    if not (f_rel <= tol and r_rel <= RSTD_TOL
+            and b_rel <= tol and w_rel <= w_tol):
+        raise AssertionError(f"rms [{rows}, {D}] {dtype}: out {f_rel}, "
+                             f"rstd {r_rel}, dx {b_rel}, dw {w_rel}")
+    if not (torch.equal(out, out2) and torch.equal(rstd, rstd2)
+            and torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+        raise AssertionError(f"rms [{rows}, {D}] {dtype}: two runs differ")
+    del out2, rstd2
+    if not (out.dtype == dx.dtype == dtype and dw.dtype == w.dtype):
+        raise AssertionError(f"rms [{rows}, {D}]: out {out.dtype}, dx "
+                             f"{dx.dtype}, dw {dw.dtype} for x {dtype}, "
+                             f"weight {w.dtype}")
     wname = str(w_dtype).replace("torch.", "")
+    es = x.element_size()
     fwd = {"shape": f"rows={rows} D={D}"
-                    + ("" if w_dtype == torch.bfloat16 else f" w {wname}"),
+                    + ("" if w_dtype == dtype == torch.bfloat16
+                       else f" w {wname}") + _dt_label(dtype),
            "max_abs_err": (out.float() - rout.float()).abs().max().item(),
-           "max_rel_err": f_rel, "rstd_rel_err": r_rel,
+           "max_rel_err": _rel_err(out, rout), "rstd_rel_err": r_rel,
+           "bound": tol, **({"f16_ulps": f_rel}
+                            if dtype == torch.float16 else {}),
            "ms": _time_ms(lambda: rn.rms_norm_fwd(x, w, eps), 20),
            "graph_ms": _graph_ms(lambda: rn.rms_norm_fwd(x, w, eps), 20),
            "plain_ms": _time_ms(lambda: rn._rms_fwd_twin(x, w, eps), 5),
            **_rms_library_ms(lambda: F.rms_norm(x, (D,), w, eps),
                              w.dtype == x.dtype),
            **_bound(4.0 * rows * D,
-                    2.0 * rows * D * 2 + 2.0 * D + 4.0 * rows, peaks,
-                    peaks[2])}
+                    2.0 * es * rows * D + w.element_size() * D
+                    + 4.0 * rows, peaks, peaks[2])}
     # the one ATen call for the backward: the fused RMSNorm backward on
     # its forward's rstd
     lib = bk.rms_library(x, w, dy, eps) if w.dtype == x.dtype else None
@@ -835,7 +945,10 @@ def _rms_cases(rows, D, peaks, gen, eps=1e-5, w_dtype=torch.bfloat16):
     bwd = {"shape": fwd["shape"],
            "max_abs_err": max((dx.float() - rdx.float()).abs().max().item(),
                               (dw.float() - rdw.float()).abs().max().item()),
-           "max_rel_err": max(b_rel, w_rel), "dw_rel_err": w_rel,
+           "max_rel_err": max(_rel_err(dx, rdx), _rel_err(dw, rdw)),
+           "dw_rel_err": _rel_err(dw, rdw), "bound": tol,
+           **({"f16_ulps": max(b_rel, w_rel)}
+              if dtype == torch.float16 else {}),
            "weight": str(w.dtype).replace("torch.", ""),
            "launched": _launched(call, ("rms_bwd_kernel", "rms_dw_kernel")),
            "ms": _time_ms(call, 20), "graph_ms": _graph_ms(call, 20),
@@ -843,8 +956,8 @@ def _rms_cases(rows, D, peaks, gen, eps=1e-5, w_dtype=torch.bfloat16):
                lambda: rn._rms_train_ref_bwd(x, w, dy, eps), 5),
            **_rms_library_ms(lib, lib is not None),
            **_bound(9.0 * rows * D,
-                    3.0 * rows * D * 2 + 4.0 * rows + 2.0 * D * 2, peaks,
-                    peaks[2])}
+                    3.0 * es * rows * D + 4.0 * rows
+                    + 2.0 * w.element_size() * D, peaks, peaks[2])}
     return fwd, bwd
 
 
@@ -1584,22 +1697,23 @@ def _gather_mlp_case(mp, peaks, gen, flush, D=2048, F_=1024):
     return res
 
 
-def _f16_controls(name, checks):
-    """The planted controls of an f16 case: each (label, error) must read
-    above F16_TOL, or the check could not see that fault."""
+def _planted(name, checks, bound):
+    """The planted controls of a case: each (label, error) must read at
+    least 10 times `bound`, or the check could not see that fault."""
     out = {label: err for label, err in checks}
-    low = {k: v for k, v in out.items() if not v > F16_TOL}
+    low = {k: v for k, v in out.items() if not v >= 10 * bound}
     if low:
-        raise AssertionError(f"{name}: planted controls {low} read within "
-                             f"F16_TOL {F16_TOL}")
+        raise AssertionError(f"{name}: planted controls {low} read under "
+                             f"10 x the bound {bound}")
     return out
 
 
 def _f16_kernel_cases(peaks, gen, flush):
     """The f16 options at the O2 paths' shapes, within F16_TOL of their
     plain versions, bit-identical twice, each with a planted control that
-    must read above the bound: the flash forward (+ LSE) and backward at
-    the eager Llama's [2, 2048, 32/8, 128] causal and the eager ERNIE's
+    must read at least 10 times the bound: the flash forward (+ LSE) and
+    backward at the eager Llama's [2, 2048, 32/8, 128] causal and the
+    eager ERNIE's
     [64, 512, 12, 64] (controls: the plain forward with the keys shifted
     one position, the plain backward without dcap); row 6 at [4096,
     4096] with an f16 weight (control: the weight read one column off);
@@ -1632,15 +1746,16 @@ def _f16_kernel_cases(peaks, gen, flush):
                                              **kw)
         f["dtype"] = b["dtype"] = "f16"
         f["path"] = b["path"] = path
-        f["planted"] = _f16_controls(f["shape"], [(
-            "keys_shifted_one", _rel_err(out, shifted))])
+        f["planted"] = _planted(f["shape"], [(
+            "keys_shifted_one", _rel_err(out, shifted))], F16_TOL)
         del shifted
         got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
         nodcap = fa.flash_attention_bwd_ref(q, k, v, torch.zeros_like(out),
                                             lse, dout, **kw)
-        b["planted"] = _f16_controls(b["shape"], [(
+        b["planted"] = _planted(b["shape"], [(
             "dcap_dropped", max(_rel_err(a, r, floor=GRAD_ROW_FLOOR)
-                                for a, r in zip(got[:2], nodcap[:2])))])
+                                for a, r in zip(got[:2], nodcap[:2])))],
+            F16_TOL)
         del q, k, v, dout, out, lse, got, nodcap
         torch.cuda.empty_cache()
         fwd.append(f)
@@ -1651,10 +1766,10 @@ def _f16_kernel_cases(peaks, gen, flush):
          + 0.3).to(f16)
     w = (1 + 0.1 * torch.randn(4096, device="cuda", generator=gen)).to(f16)
     rms["dtype"] = "f16"
-    rms["planted"] = _f16_controls(rms["shape"], [(
+    rms["planted"] = _planted(rms["shape"], [(
         "weight_one_column_off", _rel_err(
             rn.rms_norm_fused(x, w, 1e-5),
-            rn.rms_norm_ref(x, torch.roll(w, 1), 1e-5)))])
+            rn.rms_norm_ref(x, torch.roll(w, 1), 1e-5)))], F16_TOL)
     lf, lb = _ln_cases(64 * 512, 768, f16, True, peaks, gen, flush,
                        on_path="eager_o2", w_dtype=f16)
     x = (torch.randn(64 * 512, 768, device="cuda", generator=gen)
@@ -1664,16 +1779,119 @@ def _f16_kernel_cases(peaks, gen, flush):
     dy = torch.randn(64 * 512, 768, device="cuda", generator=gen).to(f16)
     out, mu, rstd = ln.layer_norm_fwd(x, w, bias, 1e-12)
     lf["dtype"] = lb["dtype"] = "f16"
-    lf["planted"] = _f16_controls(lf["shape"], [(
+    lf["planted"] = _planted(lf["shape"], [(
         "weight_one_column_off", _rel_err(out, ln._ln_fwd_twin(
-            x, torch.roll(w, 1), bias, 1e-12, True)[0]))])
-    lb["planted"] = _f16_controls(lb["shape"], [(
+            x, torch.roll(w, 1), bias, 1e-12, True)[0]))], F16_TOL)
+    lb["planted"] = _planted(lb["shape"], [(
         "dx_term_dropped", _rel_err(
             ln.layer_norm_bwd(x, w, mu, rstd, dy, 1e-12)[0],
-            _ln_bwd_dropped_term(x, w, mu, rstd, dy, 1e-12)[0]))])
+            _ln_bwd_dropped_term(x, w, mu, rstd, dy, 1e-12)[0]))], F16_TOL)
     del x, w, bias, dy, out, mu, rstd
     torch.cuda.empty_cache()
     return fwd, bwd, [rms], [lf], [lb]
+
+
+# The f32 trainer's batch (train_f32, train_f16 and the f32 kernel cases
+# at its shapes): the largest multiple of 8 at 2048 tokens whose step
+# fits in the card's 80 GB inside this script. f32 parameters,
+# gradients and moments take 33.6 GB and the tree AdamW's temporaries
+# lift the peak to 73.2 GB at batch 8, 16 and 24 alike in a fresh
+# process; after the earlier phases batch 24's backward found 14.5 GB
+# of the pool fragmented and ran out, and at 32 the [B, 2048, 32000]
+# f32 logits do not fit at all (H100 80GB HBM3).
+F32_TRAIN_BATCH = 16
+
+
+def _f32_kernel_cases(peaks, gen, flush):
+    """The f32 options of rows 1-5 and the f16 and f32 options of rows 7-8
+    at the f32 and f16 paths' shapes, each within its bound of its plain
+    version, bit-identical on a second call, with a planted control at
+    least 10 times above the bound: the flash forward (+ LSE; control the
+    keys shifted one position) and backward (control dcap dropped) in f32
+    at the eager ERNIE's [64, 512, 12, 64] non-causal (eager_f32), the
+    flagship's [F32_TRAIN_BATCH, 2048, 32/8, 128] causal (train_f32) and
+    DiT-XL/2's [96, 256, 16, 72] 'bhsd' (no f32 path: held); the f16
+    flash pair at the f16 trainer's shape (train_f16); rows 7-8 at
+    [F32_TRAIN_BATCH * 2048, 4096] in f32 (train_f32) and in f16
+    (train_f16), each with an f32 weight (control: the weight one column
+    off). Returns (flash fwd, flash bwd, rms fwd, rms bwd) case lists."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    f32, f16 = torch.float32, torch.float16
+    fwd, bwd = [], []
+    # at the trainers' batch the plain versions run one KV head's group at
+    # a time (all heads' f32 scores: 8.6 GB a tensor at batch 16)
+    for path, dt, (B, S, H, KV, hd, causal, layout) in (
+            ("eager_f32", f32, (64, 512, 12, 12, 64, False, "bshd")),
+            ("train_f32", f32, (F32_TRAIN_BATCH, 2048, 32, 8, 128, True,
+                                "bshd")),
+            ("held", f32, (96, 256, 16, 16, 72, False, "bhsd")),
+            ("train_f16", f16, (F32_TRAIN_BATCH, 2048, 32, 8, 128, True,
+                                "bshd"))):
+        tol = F32_TOL if dt == f32 else F16_TOL
+        by = path.startswith("train")
+        f = _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse=True,
+                        causal=causal, layout=layout, dtype=dt,
+                        by_kv_head=by)
+        b = _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=causal,
+                            layout=layout, dtype=dt, tol=tol, by_kv_head=by)
+        fwd_ref = _fwd_ref_by_kv_head if by else fa.flash_attention_fwd_ref
+        bwd_ref = _bwd_ref_by_kv_head if by else fa.flash_attention_bwd_ref
+        q, k, v, dout = _qkv(B, S, hd, gen, layout, (H, KV, KV, H), dt)
+        kw = dict(causal=causal, layout=layout)
+        out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        again = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"flash fwd [{f['shape']}]: two runs "
+                                 f"differ")
+        del again
+        seq = 2 if layout == "bhsd" else 1
+        shifted = fwd_ref(q, torch.roll(k, 1, seq), v, **kw)
+        f["dtype"] = b["dtype"] = _dt_label(dt).strip()
+        f["path"] = b["path"] = path
+        f["bound"] = b["bound"] = tol
+        f["planted"] = _planted(f["shape"], [(
+            "keys_shifted_one", _rel_err(fa._bshd(out, layout),
+                                         fa._bshd(shifted, layout)))], tol)
+        del shifted
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        nodcap = bwd_ref(q, k, v, torch.zeros_like(out), lse, dout, **kw)
+        b["planted"] = _planted(b["shape"], [(
+            "dcap_dropped", max(_rel_err(fa._bshd(a, layout),
+                                         fa._bshd(r, layout),
+                                         floor=GRAD_ROW_FLOOR)
+                                for a, r in zip(got[:2], nodcap[:2])))], tol)
+        del q, k, v, dout, out, lse, got, nodcap
+        torch.cuda.empty_cache()
+        fwd.append(f)
+        bwd.append(b)
+    rf, rb = [], []
+    rows, D, eps = F32_TRAIN_BATCH * 2048, 4096, 1e-5
+    for path, dt in (("train_f32", f32), ("train_f16", f16)):
+        cf, cb = _rms_cases(rows, D, peaks, gen, eps=eps, w_dtype=f32,
+                            dtype=dt)
+        x = torch.randn(rows, D, device="cuda", generator=gen).to(dt)
+        w = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
+        dy = torch.randn(rows, D, device="cuda", generator=gen).to(dt)
+        off = torch.roll(w, 1)
+        out, rstd = rn.rms_norm_fwd(x, w, eps)
+        dx, _ = rn.rms_norm_bwd(x, w, rstd, dy, eps)
+        cf["planted"] = _planted(cf["shape"], [(
+            "weight_one_column_off",
+            _norm_err(out, rn._rms_fwd_twin(x, off, eps)[0], dt)[0])],
+            cf["bound"])
+        cb["planted"] = _planted(cb["shape"], [(
+            "weight_one_column_off",
+            _norm_err(dx, rn._rms_train_ref_bwd(x, off, dy, eps)[0],
+                      dt)[0])], cb["bound"])
+        for c in (cf, cb):
+            c["dtype"] = _dt_label(dt).strip()
+            c["path"] = path
+        rf.append(cf)
+        rb.append(cb)
+        del x, w, dy, off, out, rstd, dx
+        torch.cuda.empty_cache()
+    return fwd, bwd, rf, rb
 
 
 def phase_kernels(peaks):
@@ -1841,12 +2059,22 @@ def phase_kernels(peaks):
                                       torch.bfloat16, peaks, gen, flush,
                                       on_path="eager_llama_o2_bf16"))
     lns += [(f16_lnf[0], f16_lnb[0])]
+    # the f32 options of rows 1-5 and the f16 / f32 options of rows 7-8
+    # at the f32 and f16 paths' shapes
+    f32_fwd, f32_bwd, f32_rf, f32_rb = _f32_kernel_cases(peaks, gen, flush)
+    flash += [c for c in f32_fwd if c["dtype"] == "f16"]
+    bwd += [c for c in f32_bwd if c["dtype"] == "f16"]
+    rms += list(zip(f32_rf, f32_rb))
     del scratch
     torch.cuda.empty_cache()
     cases = {"flash_attention_fwd": flash, "ragged_paged_attention": ragged,
              "ragged_paged_attention_int8": ragged_int8,
              "ragged_paged_attention_suffix": ragged_suffix,
              "flash_attention_bwd": bwd,
+             "flash_attention_fwd_f32": [c for c in f32_fwd
+                                         if c["dtype"] == "f32"],
+             "flash_attention_bwd_f32": [c for c in f32_bwd
+                                         if c["dtype"] == "f32"],
              "rms_norm_fwd": [f for f, _ in rms],
              "rms_norm_bwd": [b for _, b in rms], "adamw_q": adamw,
              "gather_wsum": wsum, "gather_scale_dot": sdot,
@@ -1857,7 +2085,8 @@ def phase_kernels(peaks):
              "adaln_bwd": [b for _, b in adaln],
              "gather_rows": rows13, "gather_mlp": rows16}
     _emit({"phase": "kernels", "tol": KERNEL_TOL, "f16_tol": F16_TOL,
-           "lse_tol": LSE_TOL,
+           "lse_tol": LSE_TOL, "f32_tol": F32_TOL,
+           "f32_lse_tol": F32_LSE_TOL, "f16_ulps": F16_ULPS,
            "rstd_tol": RSTD_TOL, "adamw_code_frac": ADAMW_CODE_FRAC,
            "ln_f32_tol": LN_F32_TOL, "ln_stat_tol": LN_STAT_TOL,
            "ln_sum_tol": LN_SUM_TOL, "rms_f32_tol": RMS_F32_TOL,
@@ -3401,8 +3630,7 @@ def _drive_train(peaks, model, cfg, batch, counters, warmup, timed, seq,
         0, cfg.vocab_size, (batch, seq))).cuda()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    for c in counters.values():
-        c.launches = 0
+    _zero_counts(counters)
     metrics = []
     for _ in range(warmup):
         state, m = step(state, tokens)
@@ -3414,7 +3642,7 @@ def _drive_train(peaks, model, cfg, batch, counters, warmup, timed, seq,
         metrics.append(m)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {n: c.launches for n, c in counters.items()}
+    launches, by_dtype = _read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
@@ -3428,6 +3656,7 @@ def _drive_train(peaks, model, cfg, batch, counters, warmup, timed, seq,
            "losses": losses, "grad_norms": norms,
            "peak_memory_bytes": peak, "init_s": init_s,
            "launches": launches,
+           "launches_by_dtype": {n: d for n, d in by_dtype.items() if d},
            "launches_per_step": {n: c / steps for n, c in launches.items()}}
     return res, state, tokens
 
@@ -3463,6 +3692,86 @@ def phase_train(peaks, warmup: int = 2, timed: int = 4, batch: int = 8,
         if n < 1:
             raise AssertionError(f"{name} never launched while training")
     return res
+
+
+def _f32_option_launches(by_dtype):
+    """The flash pair's f32 launches under the kernels line's names of
+    the f32 option (its own source, flash_f32.cu)."""
+    return {f"{k}_f32": by_dtype.get(k, {}).get("f32", 0)
+            for k in ("flash_attention_fwd", "flash_attention_bwd")}
+
+
+def _train_dtype_phase(peaks, name, cfg, batch, warmup, timed, tag,
+                       seq=2048):
+    """`cfg` (the flagship's widths at a compute dtype other than bf16,
+    f32 parameters) through `_drive_train` with the tree AdamW behind the
+    global clip (`make_optimizer(1e-4, state_quant=None, grad_clip=1.0)`):
+    losses finite; the flash pair and rows 7-8 exactly as the dense step
+    implies, all in dtype `tag` and none in another."""
+    from paddle_tpu_torch.nlp import llama
+    res, state, _ = _drive_train(peaks, llama, cfg, batch,
+                                 _train_counters(), warmup, timed, seq,
+                                 state_quant=None)
+    res["launches"].update(_f32_option_launches(res["launches_by_dtype"]))
+    tok_s, fpt = res["tokens_per_s"], res["flops_per_token"]
+    res = {"phase": name,
+           "config": f"flagship_2b (bench.py:120) at dtype {cfg.dtype}, "
+                     f"param_dtype {cfg.param_dtype}",
+           "widths": {"D": cfg.hidden_size, "F": cfg.intermediate_size,
+                      "L": cfg.num_hidden_layers,
+                      "H": cfg.num_attention_heads,
+                      "KV": cfg.num_key_value_heads, "V": cfg.vocab_size},
+           "optimizer": "adamw lr 1e-4 (f32 moments), global clip 1.0",
+           **res,
+           # the GEMMs run torch.matmul at PyTorch's default: full f32
+           # (FFMA, 67 TFLOP/s) in f32, the fp16 tensor cores in f16
+           "mfu_f32": tok_s * fpt / peaks[2], "mfu_tf32": tok_s * fpt
+           / _TF32_PEAK, "gemm_precision": str(cfg.dtype),
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    del state
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(res["losses"])) \
+            or not all(np.isfinite(res["grad_norms"])):
+        raise AssertionError(f"{name}: non-finite loss or grad norm: "
+                             f"{res['losses']} {res['grad_norms']}")
+    per_step = {k: n for k, n in _dense_launches_per_step(cfg, False).items()
+                if k != "adamw_q"}
+    _check_launches(name, res, per_step, res["steps"])
+    _check_dtype_launches(name, res["launches_by_dtype"], per_step,
+                          res["steps"], tag)
+    return res
+
+
+def phase_train_f32(peaks, warmup: int = 1, timed: int = 2):
+    """The flagship config (bench.py:120: D 4096, F 9472, 11 layers, GQA
+    32/8, V 32000) at `LlamaConfig(dtype=float32, param_dtype=float32)`,
+    batch F32_TRAIN_BATCH x 2048 (~10 s a step in full f32, so 1 warm-up
+    and 2 timed steps), through the public training entry points: rows
+    1, 5, 7 and 8 in f32 at their exact per-step counts, losses finite
+    and falling."""
+    from paddle_tpu_torch.nlp import llama
+    cfg = llama.LlamaConfig.flagship_2b(dtype=torch.float32,
+                                        param_dtype=torch.float32)
+    res = _train_dtype_phase(peaks, "train_f32", cfg, F32_TRAIN_BATCH,
+                             warmup, timed, "f32")
+    _check_losses(res)
+    return res
+
+
+def phase_train_f16(peaks, layers: int = 2, warmup: int = 2,
+                    timed: int = 2):
+    """The flagship widths at 2 layers and `LlamaConfig(dtype=float16)`
+    (f32 parameters, as the JAX package's default param_dtype), batch
+    F32_TRAIN_BATCH x 2048, 2 + 2 steps: rows 7-8 and the flash pair in
+    f16 at their exact per-step counts, losses finite."""
+    from paddle_tpu_torch.nlp import llama
+    cfg = llama.LlamaConfig.flagship_2b(num_hidden_layers=layers,
+                                        dtype=torch.float16,
+                                        param_dtype=torch.float32)
+    return _train_dtype_phase(peaks, "train_f16", cfg, F32_TRAIN_BATCH,
+                              warmup, timed, "f16")
 
 
 @contextlib.contextmanager
@@ -3802,6 +4111,73 @@ def phase_grad_check(layers: int = 2, seq: int = 2048):
     return out
 
 
+def phase_grad_check_f32(layers: int = 2, seq: int = 2048):
+    """The f32 trainer's gradient check: one loss + backward of `loss_fn`
+    at the flagship widths, 2 layers, `LlamaConfig(dtype=float32)` with
+    f32 parameters, through the kernels, their plain f32 versions and the
+    plain versions with the dcap fault. The relative RMS distance of the
+    per-token losses and of each gradient group between the kernels and
+    the plain path must be at most F32_GRAD_TOL, and the fault's at least
+    10 times that in the groups it reaches."""
+    from paddle_tpu_torch.nlp import llama
+
+    cfg = llama.LlamaConfig.flagship_2b(num_hidden_layers=layers,
+                                        dtype=torch.float32,
+                                        param_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    params = llama.init_params(cfg, gen, device="cuda", training=True)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, seq))).cuda()
+
+    def run():
+        return _grad_run(llama.loss_fn, llama.forward, cfg, params, tokens)
+
+    def dist(a, b):
+        return (torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(a, b)))
+                / torch.sqrt(sum((y ** 2).sum() for y in b))).item()
+
+    counters = _train_counters()
+    _zero_counts(counters)
+    kernel = run()
+    _, by_dtype = _read_counts(counters)
+    with _plain_kernels():
+        ref = run()
+    with _plain_kernels(fault="dcap"):
+        fault = run()
+    del params
+    out = {}
+    for group, keys in {"loss": None, **_GRAD_GROUPS}.items():
+        def pick(r):
+            return [r[1]] if keys is None else [r[2][k] for k in keys]
+        out[group] = {"kernel_vs_plain": dist(pick(kernel), pick(ref)),
+                      "fault_vs_plain": dist(pick(fault), pick(ref))}
+    out["loss_values"] = {"kernel": kernel[0], "plain": ref[0],
+                          "fault": fault[0]}
+    _emit({"phase": "grad_check_f32", "layers": layers, "seq": seq,
+           "tol": F32_GRAD_TOL, "fault": "dcap",
+           "fault_groups": _FAULT_GROUPS, "launches_by_dtype": by_dtype,
+           **out})
+    del kernel, ref, fault
+    torch.cuda.empty_cache()
+    for group in ("loss", *_GRAD_GROUPS):
+        c = out[group]
+        if not c["kernel_vs_plain"] <= F32_GRAD_TOL:
+            raise AssertionError(f"grad_check_f32 {group}: the kernels are "
+                                 f"{c['kernel_vs_plain']} from the plain f32"
+                                 f" path, over {F32_GRAD_TOL}")
+        if group in _FAULT_GROUPS and \
+                not c["fault_vs_plain"] >= 10 * F32_GRAD_TOL:
+            raise AssertionError(f"grad_check_f32 {group}: the dcap fault "
+                                 f"reads {c['fault_vs_plain']}, under 10 x "
+                                 f"{F32_GRAD_TOL}")
+    for kernel_name in ("flash_attention_fwd", "flash_attention_bwd",
+                        "rms_norm_fwd", "rms_norm_bwd"):
+        if not by_dtype[kernel_name].get("f32"):
+            raise AssertionError(f"grad_check_f32: {kernel_name} launched "
+                                 f"{by_dtype[kernel_name]} by dtype")
+    return out
+
+
 def phase_grad_check_moe(layers: int = 2, seq: int = 2048):
     """The gradient check of the MoE model at full width (bench.py:98's
     widths, 2 layers, 1 x 2048 tokens): kernels, plain versions, plain
@@ -3910,26 +4286,20 @@ def _quick_start(steps: int = 5):
     return losses
 
 
-def phase_eager(peaks):
-    """The eager API's training path at ERNIE-3.0-base width
-    (BASELINE config 1, bench.py:134-181's recipe): the encoder composed
-    from paddle.nn and paddle.incubate.nn layers
-    (`tools/eager_ernie.build_model`, dropout 0.1, attention-probability
-    dropout 0), f32 parameters under O1 bf16 auto_cast, AdamW at lr 2e-5
-    with the global-norm clip at 1.0, the same batch of 64 x 512 from
-    default_rng(0) every step: 2 warm-up then 4 timed steps of
-    loss.backward(); opt.step(); opt.clear_grad(), one synchronize after
-    the timed ones. Launch counters are zeroed before the timed steps and
-    must read exactly the step's counts. First the README's Quick start
-    trains a few steps on the card (`_quick_start`)."""
-    import paddle_tpu_torch as paddle
+def _eager_ernie_steps(paddle, amp_dtype, warmup=2, timed=4, batch=64,
+                       seq=512):
+    """bench.py:134-181's finetune recipe on the eager ERNIE-3.0-base
+    (BASELINE config 1; `tools/eager_ernie.build_model`, dropout 0.1,
+    attention-probability dropout 0; AdamW at lr 2e-5 with the global-norm
+    clip at 1.0; the same batch of `batch` x `seq` from default_rng(0)
+    every step): `warmup` then `timed` steps of loss.backward();
+    opt.step(); opt.clear_grad() under auto_cast in `amp_dtype` (None: f32
+    throughout), the eager counters zeroed before the timed steps (one
+    synchronize after them). Returns the run's fields of a phase line."""
     from paddle_tpu_torch.nlp import ernie
     from paddle_tpu_torch.tools.eager_ernie import build_model, train_step
 
     cfg = ernie.ErnieConfig.ernie3_base()
-    warmup, timed, batch, seq = 2, 4, 64, 512
-    paddle.set_device("gpu")
-    quick_start = _quick_start()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3944,41 +4314,52 @@ def phase_eager(peaks):
     labels = paddle.to_tensor(rng.integers(0, cfg.num_labels, (batch,)))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    losses = [train_step(paddle, model, loss_fn, opt, ids, labels)
-              for _ in range(warmup)]
-    torch.cuda.synchronize()
     counters = _eager_counters()
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        losses.append(train_step(paddle, model, loss_fn, opt, ids, labels))
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {n: c.launches for n, c in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(l) for l in losses]
-    tok_s = batch * seq * timed / dt
-    fpt = ernie.flops_per_token(cfg, seq)
-    res = {"phase": "eager",
-           "config": "ErnieConfig.ernie3_base (BASELINE config 1, "
-                     "bench.py:134-181), composed from layers",
-           "widths": {"V": cfg.vocab_size, "D": cfg.hidden_size,
+    losses, dt, launches, peak = _run_steps(
+        lambda: train_step(paddle, model, loss_fn, opt, ids, labels,
+                           amp_dtype=amp_dtype), counters, warmup, timed)
+    res = {"widths": {"V": cfg.vocab_size, "D": cfg.hidden_size,
                       "L": cfg.num_hidden_layers,
                       "H": cfg.num_attention_heads, "hd": cfg.head_dim,
                       "F": cfg.intermediate_size},
            "params": sum(p.size for p in model.parameters()),
+           "param_dtypes": sorted({str(p.dtype).replace("torch.", "")
+                                   for p in model.parameters()}),
            "batch": batch, "seq": seq, "steps": warmup + timed,
            "timed_steps": timed, "step_ms": dt / timed * 1e3,
-           "tokens_per_s": tok_s, "flops_per_token": fpt,
-           "mfu": tok_s * fpt / peaks[0], "losses": losses,
-           "peak_memory_bytes": peak, "init_s": init_s,
+           "tokens_per_s": batch * seq * timed / dt,
+           "flops_per_token": ernie.flops_per_token(cfg, seq),
+           "losses": losses, "peak_memory_bytes": peak, "init_s": init_s,
            "launches": launches,
-           "launches_per_step": {n: c / timed for n, c in launches.items()},
-           "quick_start_losses": quick_start, "nvidia_smi": _smi_line()}
-    _emit(res)
+           "launches_by_dtype": _read_counts(counters)[1]}
     del model, opt, ids, labels
     torch.cuda.empty_cache()
+    return res
+
+
+def phase_eager(peaks):
+    """The eager API's training path at ERNIE-3.0-base width
+    (`_eager_ernie_steps`: the encoder composed from paddle.nn and
+    paddle.incubate.nn layers), f32 parameters under O1 bf16 auto_cast,
+    2 warm-up then 4 timed steps of 64 x 512. Launch counters are zeroed
+    before the timed steps and must read exactly the step's counts.
+    First the README's Quick start trains a few steps on the card
+    (`_quick_start`)."""
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    quick_start = _quick_start()
+    run = _eager_ernie_steps(paddle, "bfloat16")
+    tok_s, fpt, timed = (run["tokens_per_s"], run["flops_per_token"],
+                         run["timed_steps"])
+    res = {"phase": "eager",
+           "config": "ErnieConfig.ernie3_base (BASELINE config 1, "
+                     "bench.py:134-181), composed from layers",
+           **run, "mfu": tok_s * fpt / peaks[0],
+           "launches_per_step": {n: c / timed
+                                 for n, c in run["launches"].items()},
+           "quick_start_losses": quick_start, "nvidia_smi": _smi_line()}
+    _emit(res)
+    losses, launches = res["losses"], res["launches"]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite eager loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -3988,6 +4369,39 @@ def phase_eager(peaks):
             raise AssertionError(
                 f"{name}: {launches[name]} launches in {timed} eager steps, "
                 f"expected {per} a step")
+    return res
+
+
+def phase_eager_f32(peaks):
+    """Phase eager's recipe (`_eager_ernie_steps`: ERNIE-3.0-base composed
+    from layers, 2 warm-up and 4 timed steps of 64 x 512) in f32 with no
+    auto_cast, the precision of PaddleNLP's finetune scripts without
+    --fp16: the flash pair exactly 12 + 12 a step and the LayerNorm pair
+    25 + 25, all in f32 and none in another dtype; losses finite and
+    falling. MFU against the f32 rate of the GEMMs (torch.matmul at
+    PyTorch's default, full f32: 67 TFLOP/s; the flash kernels run on
+    TF32 tensor cores)."""
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    run = _eager_ernie_steps(paddle, None)
+    run["launches"].update(_f32_option_launches(run["launches_by_dtype"]))
+    tok_s, fpt, timed = (run["tokens_per_s"], run["flops_per_token"],
+                         run["timed_steps"])
+    res = {"phase": "eager_f32",
+           "config": "ErnieConfig.ernie3_base (BASELINE config 1, "
+                     "bench.py:134-181), composed from layers, f32, no "
+                     "auto_cast",
+           **run, "mfu_f32": tok_s * fpt / peaks[2],
+           "mfu_tf32": tok_s * fpt / _TF32_PEAK,
+           "gemm_precision": "float32",
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    if res["param_dtypes"] != ["float32"]:
+        raise AssertionError(f"eager_f32: parameters {res['param_dtypes']}")
+    _check_path("eager_f32", res, _EAGER_LAUNCHES_PER_STEP, timed)
+    _check_dtype_launches("eager_f32", res["launches_by_dtype"],
+                          _EAGER_LAUNCHES_PER_STEP, timed, "f32")
     return res
 
 
@@ -4099,13 +4513,12 @@ def _path_counters(names):
 
 def _run_steps(step, counters, warmup, timed):
     """`warmup` then `timed` calls of step() → loss (a scalar tensor or
-    Tensor), the counters zeroed between them and read after the timed
-    ones, one synchronize around those: (losses, seconds, launches, peak
-    device memory)."""
+    Tensor), the counters (and their counts by dtype) zeroed between them
+    and read after the timed ones, one synchronize around those: (losses,
+    seconds, launches, peak device memory)."""
     losses = [step() for _ in range(warmup)]
     torch.cuda.synchronize()
-    for c in counters.values():
-        c.launches = 0
+    _zero_counts(counters)
     t0 = time.perf_counter()
     losses += [step() for _ in range(timed)]
     torch.cuda.synchronize()
@@ -5769,7 +6182,26 @@ _KERNELS = {
                  "eager_llama": 6, "ernie": 7, "dit": 12, "generate": 14,
                  "long8k": 15, "layer8b_4k": 16, "layer8b_8k": 17,
                  "train05b": 18, "predict": 19, "eager_llama_o2_bf16": 6,
-                 "eager_llama_o2_f16": 20, "eager_o2": 20}},
+                 "eager_llama_o2_f16": 20, "eager_o2": 20,
+                 # the f16 trainer's B=F32_TRAIN_BATCH S=2048 + LSE
+                 "train_f16": 20}},
+    # the f32 option of rows 1-5 (TF32 tensor cores, its own source),
+    # counted apart: launches_f32 of the wrappers; eager_f32 at B=64
+    # S=512 H=12 hd=64 non-causal, train_f32 at B=F32_TRAIN_BATCH S=2048
+    # H=32 KV=8 causal, each + LSE (DiT's hd 72 'bhsd' held, no f32 path)
+    "flash_attention_fwd_f32": {
+        "source": "paddle_tpu_torch/csrc/flash_f32.cu",
+        "replaces": "paddle_tpu/kernels/flash_attention.py:51",
+        "option": "f32", "rows": [1],
+        "main": {"eager_f32": 0, "train_f32": 0}},
+    "flash_attention_bwd_f32": {
+        "source": "paddle_tpu_torch/csrc/flash_f32.cu",
+        "replaces": "paddle_tpu/kernels/flash_attention.py:277",
+        "also_replaces": ["paddle_tpu/kernels/flash_attention.py:360",
+                          "paddle_tpu/kernels/flash_attention.py:446",
+                          "paddle_tpu/kernels/flash_attention.py:503"],
+        "option": "f32", "rows": [2, 3, 4, 5],
+        "main": {"eager_f32": 0, "train_f32": 0}},
     "ragged_paged_attention": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
@@ -5802,20 +6234,23 @@ _KERNELS = {
         "main": {"train": 0, "train_moe": 2, "eager": 3, "eager_llama": 4,
                  "ernie": 5, "dit": 10, "long8k": 12, "layer8b_4k": 1,
                  "layer8b_8k": 13, "train05b": 14, "eager_llama_o2_bf16": 4,
-                 "eager_llama_o2_f16": 15, "eager_o2": 15}},
+                 "eager_llama_o2_f16": 15, "eager_o2": 15, "train_f16": 15}},
     "rms_norm_fwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:107",
         "rows": [7],
-        # long8k's 2 x 8192 rows are the dense step's [16384, 4096]
+        # long8k's 2 x 8192 rows are the dense step's [16384, 4096]; the
+        # f32 and f16 options at [F32_TRAIN_BATCH * 2048, 4096], f32 weight
         "main": {"train": 0, "train_moe": 1, "long8k": 0, "layer8b_4k": 3,
-                 "layer8b_8k": 2, "train05b": 4}},
+                 "layer8b_8k": 2, "train05b": 4, "train_f32": 5,
+                 "train_f16": 5}},
     "rms_norm_bwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:115",
         "rows": [8],
         "main": {"train": 0, "train_moe": 1, "long8k": 0, "layer8b_4k": 3,
-                 "layer8b_8k": 2, "train05b": 4}},
+                 "layer8b_8k": 2, "train05b": 4, "train_f32": 5,
+                 "train_f16": 5}},
     "adamw_q": {
         "source": "paddle_tpu_torch/csrc/adamw_q.cu",
         "replaces": "paddle_tpu/optimizer/quant_state.py:227",
@@ -5837,13 +6272,14 @@ _KERNELS = {
         "source": "paddle_tpu_torch/csrc/layer_norm.cu",
         "replaces": "paddle_tpu/kernels/layer_norm.py:38",
         "rows": [9],
-        # f32 [32768, 768]; eager_o2: f16 [32768, 768]
-        "main": {"eager": 0, "eager_o2": 0}},
+        # f32 [32768, 768] (eager_f32 runs the eager step's f32 form);
+        # eager_o2: f16 [32768, 768]
+        "main": {"eager": 0, "eager_o2": 0, "eager_f32": ("eager", 0)}},
     "layer_norm_bwd": {
         "source": "paddle_tpu_torch/csrc/layer_norm.cu",
         "replaces": "paddle_tpu/kernels/layer_norm.py:53",
         "rows": [10],
-        "main": {"eager": 0, "eager_o2": 0}},
+        "main": {"eager": 0, "eager_o2": 0, "eager_f32": ("eager", 0)}},
     "rms_norm_fused": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:28",
@@ -5911,11 +6347,15 @@ def _kernels_line(cases, runs):
             "by_path": by_path}
         if "graph_ms" in top:
             entry["graph_ms"] = top["graph_ms"]
-        f16 = [c for c in cases[name] if c.get("dtype") == "f16"]
-        if f16:
-            # the f16 option at its first O2 path's shape
-            entry["f16"] = {k: f16[0][k] for k in _TIMES
-                            + ("max_rel_err", "planted")}
+        for tag in ("f16", "f32"):
+            opt = [c for c in cases[name] if c.get("dtype") == tag]
+            keys = _TIMES + ("max_rel_err", "planted", "path", "bound",
+                             "lse_abs_err", "f16_ulps")
+            if opt:
+                # the option at its first path's shape, then every case
+                entry[tag] = {k: opt[0][k] for k in keys if k in opt[0]}
+                entry[f"{tag}_cases"] = [{k: c[k] for k in keys if k in c}
+                                         for c in opt]
         if "option" in meta:
             entry["option"] = meta["option"]
         if "also_replaces" in meta:
@@ -5964,11 +6404,17 @@ def main() -> int:
     _release()
     train = _timed(phase_train, peaks)
     _timed(phase_grad_check)
+    torch.cuda.empty_cache()
+    train_f32 = _timed(phase_train_f32, peaks)
+    train_f16 = _timed(phase_train_f16, peaks)
+    _timed(phase_grad_check_f32)
+    torch.cuda.empty_cache()
     train_moe = _timed(phase_train_moe, peaks)
     _timed(phase_grad_check_moe)
     torch.cuda.empty_cache()
     eager = _timed(phase_eager, peaks)
     _timed(phase_grad_check_eager)
+    eager_f32 = _timed(phase_eager_f32, peaks)
     eager_llama = _timed(phase_eager_llama, peaks)
     _timed(phase_grad_check_eager_llama)
     llama_o2 = _timed(phase_eager_llama_o2, peaks, eager_llama)
@@ -5994,7 +6440,8 @@ def main() -> int:
             "eager": eager, "eager_llama": eager_llama, "ernie": ernie,
             "dit": dit, "generate": generate, "predict": predict,
             "long8k": long8k, **layer8b, "train05b": train05b,
-            **llama_o2, "eager_o2": eager_o2}
+            **llama_o2, "eager_o2": eager_o2, "eager_f32": eager_f32,
+            "train_f32": train_f32, "train_f16": train_f16}
     _emit({"phase_seconds": _PHASE_SECONDS,
            "main_s": time.perf_counter() - t0})
     _emit({"kernels": _kernels_line(cases, runs)})

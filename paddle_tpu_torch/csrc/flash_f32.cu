@@ -1,0 +1,918 @@
+// GQA flash attention in f32 for Hopper (sm_90a), forward and backward,
+// on TF32 tensor cores: the f32 option of the flash kernels.
+//
+// Replaces, for f32 q, k and v: paddle_tpu/kernels/flash_attention.py's
+// _flash_fwd_kernel (pallas_call in _fwd_call) and its backward kernels
+// (_bwd_call_resident's, and the streamed and split schedules of
+// flash_attention_pallas_bwd): the TPU kernels compute in q's dtype and
+// write out, dq, dk and dv in it. The f32 finetune of ERNIE (the eager
+// encoder's scaled_dot_product_attention) and the training stack at
+// LlamaConfig(dtype=float32) reach them.
+//
+// Computes what flash_fwd.cu and flash_bwd.cu compute (their headers give
+// the formulas): causal with the bottom-right alignment, or bidirectional
+// with an optional uint8 [B, Sk] key mask (a row that sees no key writes
+// zeros and an LSE of -1e30; the backward's mask zeroes P); 'bshd' or
+// 'bhsd' through strides (TMA reads q, k, v and dout through tensor maps,
+// outputs are written through their strides); GQA without an expanded K/V;
+// head_dim 64, 72 or 128; any Sq and Sk (TMA zero-fills past them); the f32
+// LSE of the scaled scores; a backward whose sums run in a fixed order
+// (no atomics: two runs are bit-identical). q, k, v, out, dout, dq, dk
+// and dv are all f32.
+//
+// Precision. Every product runs on mma.sync.m16n8k8 with TF32 operands
+// (10 mantissa bits) and f32 accumulation. Each operand value is rounded
+// to TF32 (cvt.rna: to nearest, ties away) as its fragment is formed in
+// registers; none is left to the tensor core's truncation. The products
+// that give the scores, S = Q K^T in the forward and S, dP = dO V^T in
+// the backward, split each operand into hi = rna(x) and lo = x - hi and
+// sum three products (hi hi + hi lo + lo hi) of each k8 step into a
+// fresh tile, which is then added to the f32 sum on the CUDA cores: the
+// tensor core's own accumulation truncates to f32 against the running
+// sum (~2^-23 of |dP| ~ 11 a step), and dS = P (dP - dcap) cancels where
+// a row sees few keys (causal row 0: dP - dcap is the residue of O's
+// rounding, ~1e-3), so dP must carry f32's accuracy, as the plain
+// version's does. The scores then carry ~2^-22 of their scale: the LSE
+// keeps f32's accuracy, and P and dS no TF32 error of the scores. The
+// second products (O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K)
+// take single TF32 parts, P and dS rounded from their f32 registers:
+// ~2^-11 relative per term (~1e-3 of a vector's scale at most).
+//
+// Bound on the H100: the same flops as the 16-bit kernels (4 hd per
+// visible pair forward, 10 backward) against twice their bytes, at the
+// 495 TFLOP/s TF32 rate: tensor-core bound at training lengths. This is
+// the first f32 design, plain and right rather than fast:
+//   - a block is one producer warpgroup, whose thread 0 issues every TMA
+//     copy into a two-stage mbarrier ring (hopper_core.cuh), and eight
+//     consumer warps of 16 rows each; setmaxnreg gives the producer 24
+//     registers and the consumers 240 (without it nine or twelve warps
+//     cap a thread at 168 registers, and the accumulators spill);
+//   - tiles are 128-byte-swizzled [chunk][rows][32] f32 boxes (32 columns
+//     x 16 rows); a lane reads its fragment values from them with scalar
+//     shared loads, which the swizzle keeps free of bank conflicts;
+//   - P (and dS) go from an m16n8 accumulator into the A fragment of the
+//     next product without a shuffle: the contraction over a tile's 8 keys
+//     is taken in a permuted order (the lane holding columns 2t, 2t + 1
+//     supplies k = t and k = t + 4), and the B fragment reads the value
+//     rows in that same order;
+//   - tile sizes follow the 227 KB a block may hold at hd 128 in f32:
+//     forward 128 query rows a block over 64-key tiles (Q 64 KB, two
+//     stages of K and V 128 KB); dq 128 rows over 32-key tiles (Q and dO
+//     128 KB, the ring 64 KB); dkdv 128 resident keys over 16-query
+//     tiles (K and V 128 KB, the ring 32 KB: at 32 queries its
+//     accumulators spill at hd 128).
+// Not done yet (PERF.md): wgmma, which takes TF32 operands K-major only
+// (V, dO, Q and K would need transposed copies in shared memory),
+// ldmatrix fragment loads, and rounding each tile once instead of once
+// per fragment.
+#include "hopper_core.cuh"
+
+namespace {
+
+using hop::Strides;
+
+constexpr int kCols = hop::row_elems<float>();   // 32: one swizzled row
+constexpr int kBoxRows = 16;                     // TMA box: 32 x 16 f32
+constexpr int kBoxBytes = kCols * kBoxRows * 4;  // 2 KB
+constexpr int kRowBytes = hop::kRowBytes;        // 128
+constexpr int kWarps = 8;                        // consumer warps, 16 rows
+constexpr int kConsumers = 32 * kWarps;
+constexpr int kThreads = 128 + kConsumers;       // + the producer warpgroup
+constexpr int kStages = 2;
+constexpr int kBM = 128;       // forward and dq: query rows a block
+constexpr int kFwdBN = 64;     // forward: keys a tile
+constexpr int kDqBN = 32;      // dq: keys a tile
+constexpr int kKN = 128;       // dkdv: keys a block
+constexpr int kQM = 16;        // dkdv: queries a tile
+constexpr int kPad = 128;      // the prep rows' padding of Sq
+constexpr float kPadLse = 1e30f;
+
+static_assert(kCols * 4 == kRowBytes, "a chunk row is one swizzle row");
+static_assert(kBoxRows % 8 == 0 && kFwdBN % kBoxRows == 0 &&
+              kDqBN % kBoxRows == 0 && kQM % kBoxRows == 0 &&
+              kBM % kBoxRows == 0 && kKN % kBoxRows == 0,
+              "tiles are whole boxes, boxes whole 8-row swizzle atoms");
+static_assert(kBM == 16 * kWarps && kKN == 16 * kWarps,
+              "each consumer warp owns 16 rows of a block");
+
+__host__ __device__ constexpr int chunks(int hd) {
+  return hop::chunks_of<float>(hd);
+}
+
+__host__ __device__ __forceinline__ int padded(int sq) {
+  return (sq + kPad - 1) / kPad * kPad;
+}
+
+// Element (r, col) of a swizzled tile of R rows a chunk: chunk col / 32,
+// its row r, 16-byte group (col % 32) / 4 XOR-ed with r % 8 (as TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B writes it into 1024-byte-aligned chunks)
+template <int R>
+__device__ __forceinline__ float lds(const float* tile, int r, int col) {
+  return tile[((col >> 5) * R + r) * kCols +
+              ((((col >> 2) & 7) ^ (r & 7)) << 2) + (col & 3)];
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return u;
+}
+
+// One operand value as TF32: hi = rna(x) and, when Split, lo = x - hi
+// (exact in f32; its own low bits are below the products' f32 sums)
+template <bool Split>
+struct Frag;
+template <>
+struct Frag<false> {
+  uint32_t h;
+  __device__ __forceinline__ void set(float x) { h = tf32(x); }
+};
+template <>
+struct Frag<true> {
+  uint32_t h, l;
+  __device__ __forceinline__ void set(float x) {
+    h = tf32(x);
+    l = __float_as_uint(x - __uint_as_float(h));
+  }
+};
+
+__device__ __forceinline__ void mma_raw(float* d, uint32_t a0, uint32_t a1,
+                                        uint32_t a2, uint32_t a3,
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d (an m16n8 accumulator: d[0], d[1] row g, columns 2t, 2t + 1; d[2],
+// d[3] row g + 8) += A B over one k8 step. A fragment (m16k8, row):
+// a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4);
+// B (k8n8, col): b[0] (t, g), b[1] (t + 4, g). g = lane / 4, t = lane % 4.
+template <bool Split>
+__device__ __forceinline__ void mma(float* d, const Frag<Split> (&a)[4],
+                                    const Frag<Split> (&b)[2]) {
+  mma_raw(d, a[0].h, a[1].h, a[2].h, a[3].h, b[0].h, b[1].h);
+  if constexpr (Split) {
+    mma_raw(d, a[0].h, a[1].h, a[2].h, a[3].h, b[0].l, b[1].l);
+    mma_raw(d, a[0].l, a[1].l, a[2].l, a[3].l, b[0].h, b[1].h);
+  }
+}
+
+// acc[4n..] += X_w Y^T over HD columns: X a tile of RX rows a chunk whose
+// rows x0.., x0 + 15 are this warp's; Y a tile of RY rows a chunk, N of
+// them (rows 0..N-1). The scores' products: split, each k8 step summed
+// apart and added to acc in f32.
+template <int HD, int N, int RX, int RY>
+__device__ __forceinline__ void rows_dot(float* acc, const float* x, int x0,
+                                         const float* y, int g, int t4) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 8; ++ks) {
+    Frag<true> a[4];
+    a[0].set(lds<RX>(x, x0 + g, 8 * ks + t4));
+    a[1].set(lds<RX>(x, x0 + g + 8, 8 * ks + t4));
+    a[2].set(lds<RX>(x, x0 + g, 8 * ks + t4 + 4));
+    a[3].set(lds<RX>(x, x0 + g + 8, 8 * ks + t4 + 4));
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      Frag<true> b[2];
+      b[0].set(lds<RY>(y, 8 * n + g, 8 * ks + t4));
+      b[1].set(lds<RY>(y, 8 * n + g, 8 * ks + t4 + 4));
+      float step[4] = {0.f, 0.f, 0.f, 0.f};
+      mma<true>(step, a, b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * n + e] += step[e];
+    }
+  }
+}
+
+// acc[4n..] (16 x HD) += P Y: P the warp's 16 x K accumulator (p[4j + e]
+// as acc's layout), Y a tile of RY rows a chunk, rows 0..K-1 contracted.
+// Step j takes keys 8j..8j+7 in the order k = t <-> key 8j + 2t, k = t + 4
+// <-> key 8j + 2t + 1, so p's registers are the A fragment as they are.
+template <int HD, int K, int RY>
+__device__ __forceinline__ void p_times(float* acc, const float* p,
+                                        const float* y, int g, int t4) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    Frag<false> a[4];
+    a[0].set(p[4 * j + 0]);
+    a[1].set(p[4 * j + 2]);
+    a[2].set(p[4 * j + 1]);
+    a[3].set(p[4 * j + 3]);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      Frag<false> b[2];
+      b[0].set(lds<RY>(y, 8 * j + 2 * t4, 8 * n + g));
+      b[1].set(lds<RY>(y, 8 * j + 2 * t4 + 1, 8 * n + g));
+      mma<false>(acc + 4 * n, a, b);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- forward
+// Q [chunk][128][32]; per stage K then V [chunk][64][32]; the barriers;
+// the key-tile states.
+template <int HD>
+struct FwdSmem {
+  static constexpr int kC = chunks(HD);
+  static constexpr int kQBytes = kC * kBM * kRowBytes;
+  static constexpr int kKVBytes = kC * kFwdBN * kRowBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kKV = kQBytes;
+  static constexpr int kBars = kKV + kStages * 2 * kKVBytes;
+  static constexpr int kState = kBars + 8 * (1 + 2 * kStages);
+  static_assert(kQBytes % 1024 == 0 && kKVBytes % 1024 == 0,
+                "tiles keep the swizzle's 1024-byte period");
+  static int bytes(int n_state) {
+    return kState + ((n_state + 15) & ~15) + 1024;
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+           const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, float* __restrict__ out,
+           float* __restrict__ lse, const unsigned char* __restrict__ key_mask,
+           int Sq, int Sk, int H, int KV, Strides os, float scale_log2,
+           int causal) {
+  using L = FwdSmem<HD>;
+  constexpr int kC = L::kC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  unsigned char* tile_state = smem + L::kState;
+
+  const int bh = blockIdx.x, b = bh / H, head = bh % H;
+  const int kvh = head / (H / KV);
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * kBM;   // heavy blocks first
+  const int off = Sk - Sq;
+  const int n_tiles = hop::key_tiles(m0, kBM, kFwdBN, Sq, Sk, causal);
+  const unsigned char* mrow =
+      key_mask != nullptr ? key_mask + (size_t)b * Sk : nullptr;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], kConsumers);
+    }
+    hop::fence_barrier_init();
+  }
+  if (mrow != nullptr)
+    hop::scan_key_tiles<kFwdBN>(mrow, Sk, n_tiles, tile_state);
+  __syncthreads();
+  // 0: no visible key (not walked); 1: per-element test; 2: all visible
+  auto state = [&](int t) -> int {
+    if (mrow != nullptr) return tile_state[t];
+    return (t + 1) * kFwdBN <= Sk ? 2 : 1;
+  };
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------- producer
+    hop::reg_dealloc<24>();
+    if (threadIdx.x != 0) return;
+    hop::mbar_expect_tx(q_full, kC * (kBM / kBoxRows) * kBoxBytes);
+    for (int c = 0; c < kC; ++c)
+      for (int r = 0; r < kBM / kBoxRows; ++r)
+        hop::tma_load(&tm_q, q_full,
+                      smem + L::kQ + (c * kBM + r * kBoxRows) * kRowBytes,
+                      c * kCols, m0 + r * kBoxRows, head, b);
+    hop::Ring<kStages> ring;
+    for (int t = 0; t < n_tiles; ++t) {
+      if (state(t) == 0) continue;
+      hop::mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
+      uint64_t* bar = &full[ring.stage];
+      hop::mbar_expect_tx(bar, 2 * kC * (kFwdBN / kBoxRows) * kBoxBytes);
+      unsigned char* kb = smem + L::kKV + ring.stage * 2 * L::kKVBytes;
+      for (int c = 0; c < kC; ++c)
+        for (int r = 0; r < kFwdBN / kBoxRows; ++r) {
+          const int at = (c * kFwdBN + r * kBoxRows) * kRowBytes;
+          const int key = t * kFwdBN + r * kBoxRows;
+          hop::tma_load(&tm_k, bar, kb + at, c * kCols, key, kvh, b);
+          hop::tma_load(&tm_v, bar, kb + L::kKVBytes + at, c * kCols, key,
+                        kvh, b);
+        }
+      ring.advance();
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  hop::reg_alloc<240>();
+  const int warp = threadIdx.x / 32 - 4, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r_base = m0 + warp * 16;             // the warp's 16 rows
+  const int row0 = r_base + g;                   // this thread's rows:
+                                                 // row0, row0 + 8
+  const float* qs = reinterpret_cast<const float*>(smem + L::kQ);
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {hop::kNegInf, hop::kNegInf};
+  float l_run[2] = {0.f, 0.f};   // this thread's part of the row sums
+  hop::mbar_wait(q_full, 0);
+  hop::Ring<kStages> ring;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = state(t);
+    if (st == 0) continue;
+    hop::mbar_wait(&full[ring.stage], ring.phase);
+    const int k0 = t * kFwdBN;
+    if (!(causal && k0 > r_base + 15 + off)) {
+      const float* kt = reinterpret_cast<const float*>(
+          smem + L::kKV + ring.stage * 2 * L::kKVBytes);
+      const float* vt = kt + L::kKVBytes / 4;
+      float s[kFwdBN / 2];
+#pragma unroll
+      for (int i = 0; i < kFwdBN / 2; ++i) s[i] = 0.f;
+      rows_dot<HD, kFwdBN, kBM, kFwdBN>(s, qs, warp * 16, kt, g, t4);
+      const bool all_vis =
+          st == 2 && (!causal || k0 + kFwdBN - 1 <= r_base + off);
+      float mx[2] = {hop::kNegInf, hop::kNegInf};
+#pragma unroll
+      for (int i = 0; i < kFwdBN / 2; ++i) {
+        const int hh = (i >> 1) & 1;
+        bool vis = true;
+        if (!all_vis) {
+          const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          vis = key < Sk && (!causal || key <= row0 + 8 * hh + off) &&
+                (mrow == nullptr || mrow[key] != 0);
+        }
+        s[i] = vis ? s[i] * scale_log2 : hop::kNegInf;
+        mx[hh] = fmaxf(mx[hh], s[i]);
+      }
+      float alpha[2], m_new[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        m_new[hh] = fmaxf(m_run[hh], mx[hh]);
+        alpha[hh] = exp2f(m_run[hh] - m_new[hh]);
+        m_run[hh] = m_new[hh];
+        l_run[hh] *= alpha[hh];
+      }
+#pragma unroll
+      for (int i = 0; i < kFwdBN / 2; ++i) {
+        const int hh = (i >> 1) & 1;
+        s[i] = s[i] > 0.5f * hop::kNegInf ? hop::exp2_fast(s[i] - m_new[hh])
+                                          : 0.f;
+        l_run[hh] += s[i];
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      p_times<HD, kFwdBN, kFwdBN>(o, s, vt, g, t4);
+    }
+    hop::mbar_arrive(&empty[ring.stage]);
+    ring.advance();
+  }
+
+  // epilogue: the row sums over the quad, O / l, the LSE
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], 1);
+    l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], 2);
+    const int i = row0 + 8 * hh;
+    if (i >= Sq) continue;
+    const float inv = l_run[hh] > 0.f ? 1.f / l_run[hh] : 0.f;
+    float* orow = out + os.at(b, i, head);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * t4) = make_float2(
+          o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+    if (lse != nullptr && t4 == 0)
+      lse[((size_t)b * H + head) * Sq + i] =
+          l_run[hh] > 0.f ? m_run[hh] * hop::kLn2 + logf(l_run[hh])
+                          : hop::kNegInf;
+  }
+}
+
+// --------------------------------------------------------------- dcap
+// One warp per (batch, head, query) row of [B * H, Sq_pad]: dcap =
+// rowsum(dO * O) and lse * log2(e), into the f32 scratch's halves; rows
+// past Sq get dcap 0 and +1e30 (P = exp2(0 - 1e30) = 0 with no test).
+template <int HD>
+__global__ void __launch_bounds__(128)
+dcap_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+            const float* __restrict__ lse, float* __restrict__ lse2,
+            float* __restrict__ dcap, long rows, int Sq, int Sq_pad, int H,
+            Strides os, Strides ds) {
+  const long row = (long)blockIdx.x * 4 + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const int i = (int)(row % Sq_pad);
+  const long bh = row / Sq_pad;
+  if (i >= Sq) {
+    if (lane == 0) {
+      lse2[row] = kPadLse;
+      dcap[row] = 0.f;
+    }
+    return;
+  }
+  const int h = (int)(bh % H), b = (int)(bh / H);
+  const float* op = o + os.at(b, i, h);
+  const float* dp = dout + ds.at(b, i, h);
+  float acc = 0.f;
+#pragma unroll
+  for (int c = lane * 2; c < HD; c += 64) {
+    const float2 a = *reinterpret_cast<const float2*>(op + c);
+    const float2 d = *reinterpret_cast<const float2*>(dp + c);
+    acc += a.x * d.x + a.y * d.y;
+  }
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0) {
+    dcap[row] = acc;
+    lse2[row] = lse[bh * Sq + i] * hop::kLog2e;
+  }
+}
+
+// ---------------------------------------------------------------- dkdv
+// K, V [chunk][128][32]; per stage Q, dO [chunk][16][32]; then the
+// stages' lse2 and dcap slices [16] f32; the barriers.
+template <int HD>
+struct DkdvSmem {
+  static constexpr int kC = chunks(HD);
+  static constexpr int kKBytes = kC * kKN * kRowBytes;
+  static constexpr int kQBytes = kC * kQM * kRowBytes;
+  static constexpr int kK = 0;
+  static constexpr int kV = kKBytes;
+  static constexpr int kQ = 2 * kKBytes;             // + stage * 2 * kQBytes
+  static constexpr int kRows = kQ + kStages * 2 * kQBytes;
+  static constexpr int kBars = kRows + kStages * 2 * kQM * 4;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kKBytes % 1024 == 0 && kQBytes % 1024 == 0,
+                "tiles keep the swizzle's 1024-byte period");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+            const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v,
+            const __grid_constant__ CUtensorMap tm_do,
+            const float* __restrict__ lse2, const float* __restrict__ dcap,
+            const unsigned char* __restrict__ key_mask,
+            float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
+            int H, int KV, Strides dks, Strides dvs, float scale,
+            int causal) {
+  using L = DkdvSmem<HD>;
+  constexpr int kC = L::kC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bkv = blockIdx.x, b = bkv / KV, kvh = bkv % KV;
+  const int rep = H / KV;
+  const int k0 = blockIdx.y * kKN;
+  const int off = Sk - Sq;
+  const int Sq_pad = padded(Sq);
+  const float scale_log2 = scale * hop::kLog2e;
+  const unsigned char* mrow =
+      key_mask != nullptr ? key_mask + (size_t)b * Sk : nullptr;
+
+  // a block whose keys are all masked: zeros, no queries walked
+  if (mrow != nullptr) {
+    const int key = k0 + (int)threadIdx.x;
+    const int vis = threadIdx.x < kKN && key < Sk && mrow[key] != 0;
+    if (!__syncthreads_or(vis)) {
+      for (int e = threadIdx.x; e < kKN * (HD / 4); e += kThreads) {
+        const int j = k0 + e / (HD / 4), c = (e % (HD / 4)) * 4;
+        if (j >= Sk) continue;
+        *reinterpret_cast<float4*>(dk + dks.at(b, j, kvh) + c) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dv + dvs.at(b, j, kvh) + c) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      return;
+    }
+  }
+  if (threadIdx.x == 0) {
+    hop::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], kConsumers);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // query tiles from the first that can see this block's first key
+  const int qt0 = causal ? max(0, k0 - off) / kQM : 0;
+  const int n_qt = (Sq + kQM - 1) / kQM;
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------- producer
+    hop::reg_dealloc<24>();
+    if (threadIdx.x != 0) return;
+    hop::mbar_expect_tx(kv_full, 2 * kC * (kKN / kBoxRows) * kBoxBytes);
+    for (int c = 0; c < kC; ++c)
+      for (int r = 0; r < kKN / kBoxRows; ++r) {
+        const int at = (c * kKN + r * kBoxRows) * kRowBytes;
+        hop::tma_load(&tm_k, kv_full, smem + L::kK + at, c * kCols,
+                      k0 + r * kBoxRows, kvh, b);
+        hop::tma_load(&tm_v, kv_full, smem + L::kV + at, c * kCols,
+                      k0 + r * kBoxRows, kvh, b);
+      }
+    hop::Ring<kStages> ring;
+    for (int r = 0; r < rep; ++r) {
+      const int h = kvh * rep + r;
+      const size_t prow = ((size_t)b * H + h) * Sq_pad;
+      for (int qt = qt0; qt < n_qt; ++qt) {
+        hop::mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
+        uint64_t* bar = &full[ring.stage];
+        hop::mbar_expect_tx(bar, 2 * kC * (kQM / kBoxRows) * kBoxBytes +
+                                     2 * kQM * 4);
+        unsigned char* qb = smem + L::kQ + ring.stage * 2 * L::kQBytes;
+        unsigned char* db = qb + L::kQBytes;
+        for (int c = 0; c < kC; ++c)
+          for (int rr = 0; rr < kQM / kBoxRows; ++rr) {
+            const int at = (c * kQM + rr * kBoxRows) * kRowBytes;
+            const int q = qt * kQM + rr * kBoxRows;
+            hop::tma_load(&tm_q, bar, qb + at, c * kCols, q, h, b);
+            hop::tma_load(&tm_do, bar, db + at, c * kCols, q, h, b);
+          }
+        float* rows = reinterpret_cast<float*>(smem + L::kRows) +
+                      ring.stage * 2 * kQM;
+        hop::bulk_load(rows, lse2 + prow + qt * kQM, kQM * 4, bar);
+        hop::bulk_load(rows + kQM, dcap + prow + qt * kQM, kQM * 4, bar);
+        ring.advance();
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  hop::reg_alloc<240>();
+  const int warp = threadIdx.x / 32 - 4, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + warp * 16;              // the warp's keys
+  int key[2];
+  bool key_vis[2];   // keys past Sk are never stored: no test needed
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    key[hh] = kw0 + g + 8 * hh;
+    key_vis[hh] = mrow == nullptr || key[hh] >= Sk || mrow[key[hh]] != 0;
+  }
+  const bool warp_vis = __all_sync(0xffffffffu, key_vis[0] && key_vis[1]);
+  const float* ks_ = reinterpret_cast<const float*>(smem + L::kK);
+  const float* vs_ = reinterpret_cast<const float*>(smem + L::kV);
+  float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  hop::mbar_wait(kv_full, 0);
+  hop::Ring<kStages> ring;
+  for (int r = 0; r < rep; ++r) {
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      hop::mbar_wait(&full[ring.stage], ring.phase);
+      const int i0 = qt * kQM;
+      // causal: no query of the tile sees a key of this warp
+      if (!(causal && kw0 > i0 + kQM - 1 + off)) {
+        const float* qt_ = reinterpret_cast<const float*>(
+            smem + L::kQ + ring.stage * 2 * L::kQBytes);
+        const float* dt_ = qt_ + L::kQBytes / 4;
+        const float* rows = reinterpret_cast<const float*>(
+                                smem + L::kRows) + ring.stage * 2 * kQM;
+        float s[kQM / 2], dp[kQM / 2];   // keys x queries
+#pragma unroll
+        for (int i = 0; i < kQM / 2; ++i) s[i] = dp[i] = 0.f;
+        rows_dot<HD, kQM, kKN, kQM>(s, ks_, warp * 16, qt_, g, t4);
+        rows_dot<HD, kQM, kKN, kQM>(dp, vs_, warp * 16, dt_, g, t4);
+        // every query of the tile sees every key of this warp
+        const bool all_vis =
+            warp_vis && (!causal || kw0 + 15 <= i0 + off);
+#pragma unroll
+        for (int i = 0; i < kQM / 2; ++i) {
+          const int hh = (i >> 1) & 1;
+          const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
+          float p = hop::exp2_fast(s[i] * scale_log2 - rows[qc]);
+          if (!all_vis) {
+            const bool vis =
+                key_vis[hh] && (!causal || key[hh] <= i0 + qc + off);
+            p = vis ? p : 0.f;
+          }
+          s[i] = p;
+          dp[i] = p * (dp[i] - rows[kQM + qc]) * scale;
+        }
+        p_times<HD, kQM, kQM>(dva, s, dt_, g, t4);
+        p_times<HD, kQM, kQM>(dka, dp, qt_, g, t4);
+      }
+      hop::mbar_arrive(&empty[ring.stage]);
+      ring.advance();
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (key[hh] >= Sk) continue;
+    float* dkr = dk + dks.at(b, key[hh], kvh);
+    float* dvr = dv + dvs.at(b, key[hh], kvh);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      *reinterpret_cast<float2*>(dkr + c) =
+          make_float2(dka[4 * j + 2 * hh], dka[4 * j + 2 * hh + 1]);
+      *reinterpret_cast<float2*>(dvr + c) =
+          make_float2(dva[4 * j + 2 * hh], dva[4 * j + 2 * hh + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ dq
+// Q, dO [chunk][128][32]; per stage K then V [chunk][32][32]; barriers;
+// the key-tile states.
+template <int HD>
+struct DqSmem {
+  static constexpr int kC = chunks(HD);
+  static constexpr int kQBytes = kC * kBM * kRowBytes;
+  static constexpr int kKBytes = kC * kDqBN * kRowBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQBytes;
+  static constexpr int kKV = 2 * kQBytes;             // + stage * 2 * kKBytes
+  static constexpr int kBars = kKV + kStages * 2 * kKBytes;
+  static constexpr int kState = kBars + 8 * (1 + 2 * kStages);
+  static_assert(kQBytes % 1024 == 0 && kKBytes % 1024 == 0,
+                "tiles keep the swizzle's 1024-byte period");
+  static int bytes(int n_state) {
+    return kState + ((n_state + 15) & ~15) + 1024;
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+          const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v,
+          const __grid_constant__ CUtensorMap tm_do,
+          const float* __restrict__ lse2, const float* __restrict__ dcap,
+          const unsigned char* __restrict__ key_mask, float* __restrict__ dq,
+          int Sq, int Sk, int H, int KV, Strides dqs, float scale,
+          int causal) {
+  using L = DqSmem<HD>;
+  constexpr int kC = L::kC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  unsigned char* tile_state = smem + L::kState;
+
+  const int bh = blockIdx.x, b = bh / H, head = bh % H;
+  const int kvh = head / (H / KV);
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * kBM;
+  const int off = Sk - Sq;
+  const int Sq_pad = padded(Sq);
+  const float scale_log2 = scale * hop::kLog2e;
+  const int n_tiles = hop::key_tiles(m0, kBM, kDqBN, Sq, Sk, causal);
+  const unsigned char* mrow =
+      key_mask != nullptr ? key_mask + (size_t)b * Sk : nullptr;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], kConsumers);
+    }
+    hop::fence_barrier_init();
+  }
+  if (mrow != nullptr)
+    hop::scan_key_tiles<kDqBN>(mrow, Sk, n_tiles, tile_state);
+  __syncthreads();
+  auto state = [&](int t) -> int {
+    if (mrow != nullptr) return tile_state[t];
+    return (t + 1) * kDqBN <= Sk ? 2 : 1;
+  };
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------- producer
+    hop::reg_dealloc<24>();
+    if (threadIdx.x != 0) return;
+    hop::mbar_expect_tx(q_full, 2 * kC * (kBM / kBoxRows) * kBoxBytes);
+    for (int c = 0; c < kC; ++c)
+      for (int r = 0; r < kBM / kBoxRows; ++r) {
+        const int at = (c * kBM + r * kBoxRows) * kRowBytes;
+        hop::tma_load(&tm_q, q_full, smem + L::kQ + at, c * kCols,
+                      m0 + r * kBoxRows, head, b);
+        hop::tma_load(&tm_do, q_full, smem + L::kDo + at, c * kCols,
+                      m0 + r * kBoxRows, head, b);
+      }
+    hop::Ring<kStages> ring;
+    for (int t = 0; t < n_tiles; ++t) {
+      if (state(t) == 0) continue;
+      hop::mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
+      uint64_t* bar = &full[ring.stage];
+      hop::mbar_expect_tx(bar, 2 * kC * (kDqBN / kBoxRows) * kBoxBytes);
+      unsigned char* kb = smem + L::kKV + ring.stage * 2 * L::kKBytes;
+      for (int c = 0; c < kC; ++c)
+        for (int r = 0; r < kDqBN / kBoxRows; ++r) {
+          const int at = (c * kDqBN + r * kBoxRows) * kRowBytes;
+          const int key = t * kDqBN + r * kBoxRows;
+          hop::tma_load(&tm_k, bar, kb + at, c * kCols, key, kvh, b);
+          hop::tma_load(&tm_v, bar, kb + L::kKBytes + at, c * kCols, key,
+                        kvh, b);
+        }
+      ring.advance();
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  hop::reg_alloc<240>();
+  const int warp = threadIdx.x / 32 - 4, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r_base = m0 + warp * 16;
+  const int row0 = r_base + g;
+  const float* qs = reinterpret_cast<const float*>(smem + L::kQ);
+  const float* dos = reinterpret_cast<const float*>(smem + L::kDo);
+  float lrow[2], crow[2];
+  const size_t prow = ((size_t)b * H + head) * Sq_pad;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    lrow[hh] = lse2[prow + row0 + 8 * hh];   // rows < Sq_pad
+    crow[hh] = dcap[prow + row0 + 8 * hh];
+  }
+  float dqa[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+
+  hop::mbar_wait(q_full, 0);
+  hop::Ring<kStages> ring;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = state(t);
+    if (st == 0) continue;
+    hop::mbar_wait(&full[ring.stage], ring.phase);
+    const int k0 = t * kDqBN;
+    if (!(causal && k0 > r_base + 15 + off)) {
+      const float* kt = reinterpret_cast<const float*>(
+          smem + L::kKV + ring.stage * 2 * L::kKBytes);
+      const float* vt = kt + L::kKBytes / 4;
+      float s[kDqBN / 2], dp[kDqBN / 2];   // queries x keys
+#pragma unroll
+      for (int i = 0; i < kDqBN / 2; ++i) s[i] = dp[i] = 0.f;
+      rows_dot<HD, kDqBN, kBM, kDqBN>(s, qs, warp * 16, kt, g, t4);
+      rows_dot<HD, kDqBN, kBM, kDqBN>(dp, dos, warp * 16, vt, g, t4);
+      const bool all_vis =
+          st == 2 && (!causal || k0 + kDqBN - 1 <= r_base + off);
+#pragma unroll
+      for (int i = 0; i < kDqBN / 2; ++i) {
+        const int hh = (i >> 1) & 1;
+        float p = hop::exp2_fast(s[i] * scale_log2 - lrow[hh]);
+        if (!all_vis) {
+          const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          const bool vis = key < Sk &&
+                           (!causal || key <= row0 + 8 * hh + off) &&
+                           (mrow == nullptr || mrow[key] != 0);
+          p = vis ? p : 0.f;
+        }
+        dp[i] = p * (dp[i] - crow[hh]) * scale;
+      }
+      p_times<HD, kDqBN, kDqBN>(dqa, dp, kt, g, t4);
+    }
+    hop::mbar_arrive(&empty[ring.stage]);
+    ring.advance();
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = row0 + 8 * hh;
+    if (i >= Sq) continue;
+    float* orow = dq + dqs.at(b, i, head);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * t4) =
+          make_float2(dqa[4 * j + 2 * hh], dqa[4 * j + 2 * hh + 1]);
+  }
+}
+
+// ---------------------------------------------------------------- host
+bool encode_maps(CUtensorMap* tm, const void* const* bases, int n,
+                 const long long* maps) {
+  for (int t = 0; t < n; ++t)
+    if (!hop::encode_map(&tm[t], bases[t], maps + 7 * t,
+                         hop::tma_type<float>(), kCols, kBoxRows))
+      return false;
+  return true;
+}
+
+template <int HD>
+int launch_fwd(const CUtensorMap* tm, float* o, float* lse,
+               const unsigned char* mask, int B, int Sq, int Sk, int H,
+               int KV, Strides os, float scale, int causal, cudaStream_t s) {
+  const int n_state = mask != nullptr ? (Sk + kFwdBN - 1) / kFwdBN : 0;
+  const int smem = FwdSmem<HD>::bytes(n_state);
+  static int granted[64];
+  cudaError_t err = hop::allow_smem(fwd_kernel<HD>, smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Sq + kBM - 1) / kBM);
+  fwd_kernel<HD><<<grid, kThreads, smem, s>>>(
+      tm[0], tm[1], tm[2], o, lse, mask, Sq, Sk, H, KV, os,
+      scale * hop::kLog2e, causal);
+  return (int)cudaGetLastError();
+}
+
+// st: the element strides of q, k, v, out, dout, dq, dk, dv, in that order
+template <int HD>
+int launch_bwd(const CUtensorMap* tm, const float* o, const float* dout,
+               const float* lse, float* scratch, float* dq, float* dk,
+               float* dv, const unsigned char* mask, int B, int Sq, int Sk,
+               int H, int KV, const Strides* st, float scale, int causal,
+               cudaStream_t s) {
+  const int Sq_pad = padded(Sq);
+  const long rows = (long)B * H * Sq_pad;
+  float* lse2 = scratch;
+  float* dcap = scratch + rows;
+  dcap_kernel<HD><<<(unsigned)((rows + 3) / 4), 128, 0, s>>>(
+      o, dout, lse, lse2, dcap, rows, Sq, Sq_pad, H, st[3], st[4]);
+  const int smem1 = DkdvSmem<HD>::kBytes;
+  static int granted1[64], granted2[64];
+  cudaError_t err = hop::allow_smem(dkdv_kernel<HD>, smem1, granted1);
+  if (err != cudaSuccess) return (int)err;
+  dim3 g1(B * KV, (Sk + kKN - 1) / kKN);
+  dkdv_kernel<HD><<<g1, kThreads, smem1, s>>>(
+      tm[0], tm[1], tm[2], tm[3], lse2, dcap, mask, dk, dv, Sq, Sk, H, KV,
+      st[6], st[7], scale, causal);
+  const int smem2 =
+      DqSmem<HD>::bytes(mask != nullptr ? (Sk + kDqBN - 1) / kDqBN : 0);
+  err = hop::allow_smem(dq_kernel<HD>, smem2, granted2);
+  if (err != cudaSuccess) return (int)err;
+  dim3 g2(B * H, (Sq + kBM - 1) / kBM);
+  dq_kernel<HD><<<g2, kThreads, smem2, s>>>(
+      tm[0], tm[1], tm[2], tm[3], lse2, dcap, mask, dq, Sq, Sk, H, KV, st[5],
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v and out f32; the arguments of flash_fwd.cu's flash_fwd_bf16
+// (`maps`: 21 int64, the tensor-map values of
+// kernels/flash_attention.py::tma_dims for q, k and v; `out_strides`: the
+// batch, sequence and head element strides of out; `lse` and `key_mask`
+// may be null). Returns the launch's cudaError_t (0 on success;
+// cudaErrorInvalidValue when a tensor map is refused or hd is not 64, 72
+// or 128).
+extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
+                             void* o, void* lse, const void* key_mask, int B,
+                             int Sq, int Sk, int H, int KV, int hd,
+                             const long long* maps,
+                             const long long* out_strides, float scale,
+                             int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap tm[3];
+  const void* bases[3] = {q, k, v};
+  if (!encode_maps(tm, bases, 3, maps)) return (int)cudaErrorInvalidValue;
+  Strides os{out_strides[0], out_strides[1], out_strides[2]};
+  float* out = static_cast<float*>(o);
+  float* l = static_cast<float*>(lse);
+  const unsigned char* m = static_cast<const unsigned char*>(key_mask);
+  if (hd == 128)
+    return launch_fwd<128>(tm, out, l, m, B, Sq, Sk, H, KV, os, scale,
+                           causal, s);
+  if (hd == 72)
+    return launch_fwd<72>(tm, out, l, m, B, Sq, Sk, H, KV, os, scale,
+                          causal, s);
+  if (hd == 64)
+    return launch_fwd<64>(tm, out, l, m, B, Sq, Sk, H, KV, os, scale,
+                          causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q, k, v, out, dout, dq, dk and dv f32; the arguments of flash_bwd.cu's
+// flash_bwd_bf16 (`scratch`: 2 * B * H * Sq_pad f32, Sq_pad = Sq rounded
+// up to 128; `maps`: 28 int64 for q, k, v and dout; `strides`: 24 int64,
+// the batch, sequence and head element strides of q, k, v, out, dout, dq,
+// dk and dv). Returns the launches' cudaError_t (0 on success).
+extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout,
+                             const void* lse, void* scratch, void* dq,
+                             void* dk, void* dv, const void* key_mask, int B,
+                             int Sq, int Sk, int H, int KV, int hd,
+                             const long long* maps,
+                             const long long* strides, float scale,
+                             int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap tm[4];
+  const void* bases[4] = {q, k, v, dout};
+  if (!encode_maps(tm, bases, 4, maps)) return (int)cudaErrorInvalidValue;
+  Strides st[8];
+  for (int t = 0; t < 8; ++t)
+    st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
+#define PTT_ARGS                                                          \
+  tm, static_cast<const float*>(o), static_cast<const float*>(dout),      \
+      static_cast<const float*>(lse), static_cast<float*>(scratch),       \
+      static_cast<float*>(dq), static_cast<float*>(dk),                   \
+      static_cast<float*>(dv),                                            \
+      static_cast<const unsigned char*>(key_mask), B, Sq, Sk, H, KV, st,  \
+      scale, causal, s
+  if (hd == 128) return launch_bwd<128>(PTT_ARGS);
+  if (hd == 72) return launch_bwd<72>(PTT_ARGS);
+  if (hd == 64) return launch_bwd<64>(PTT_ARGS);
+#undef PTT_ARGS
+  return (int)cudaErrorInvalidValue;
+}

@@ -10,7 +10,10 @@
 // flash_bwd.cu instantiate both; T names the type): the two share the
 // tiles, the swizzle and the descriptors below, and differ only in the
 // wgmma instruction's input type, the TMA map's element type (tma_type)
-// and the rounding of P and dS into A fragments (pack2).
+// and the rounding of P and dS into A fragments (pack2). flash_f32.cu
+// takes f32 operands on the same TMA maps and swizzle: a 128-byte row
+// holds row_elems<T>() values (64 of 16 bits, 32 floats), so a head_dim
+// row takes chunks_of<T>(hd) chunks and the box is that many columns.
 //
 // Tiles. Every 16-bit operand tile holds R rows of head_dim in chunks of 64
 // columns: chunk c is an [R][64] array of 128-byte rows, 1024-byte
@@ -61,6 +64,21 @@ constexpr float kLn2 = 0.6931471805599453f;
 // 64-column chunks of a head_dim row; k16 steps of a contraction over it
 __host__ __device__ constexpr int chunks(int hd) { return (hd + kBox - 1) / kBox; }
 __host__ __device__ constexpr int k_steps(int hd) { return (hd + 15) / 16; }
+
+// Values of T in one 128-byte swizzled row (a box's and a chunk's
+// columns), and the chunks of a head_dim row of T
+template <class T>
+__host__ __device__ constexpr int row_elems() {
+  return kRowBytes / (int)sizeof(T);
+}
+template <class T>
+__host__ __device__ constexpr int chunks_of(int hd) {
+  return (hd + row_elems<T>() - 1) / row_elems<T>();
+}
+static_assert(row_elems<bf16>() == kBox && chunks_of<f16>(72) == chunks(72),
+              "16-bit chunks are the 64-column ones");
+static_assert(row_elems<float>() == 32 && chunks_of<float>(72) == 3,
+              "an f32 chunk is 32 columns: hd 72 takes three");
 
 // Element strides of a [batch, seq, head, head_dim] tensor (either
 // layout; head_dim stride 1), for the epilogues' stores.
@@ -127,6 +145,10 @@ constexpr CUtensorMapDataType tma_type<bf16>() {
 template <>
 constexpr CUtensorMapDataType tma_type<f16>() {
   return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+template <>
+constexpr CUtensorMapDataType tma_type<float>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 }
 
 // ------------------------------------------------------------ mbarrier
@@ -398,23 +420,25 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// The tensor map of a 16-bit tensor (bf16 unless `type` says f16) from
-// `d`, seven int64 the wrapper computes
+// The tensor map of a tensor of `type` (bf16 unless it says f16 or f32)
+// from `d`, seven int64 the wrapper computes
 // (kernels/flash_attention.py::tma_dims): extents (head_dim, seq, heads,
-// batch) and the byte strides of seq, head and batch; box 64 x 64 x 1 x 1,
-// 128-byte swizzle, zero fill out of bounds. Returns false when
-// cuTensorMapEncodeTiled refuses it.
+// batch) and the byte strides of seq, head and batch; box box_cols x
+// box_rows x 1 x 1 (64 x 64 for 16-bit types; box_cols * the element
+// size must be the 128-byte swizzle row), 128-byte swizzle, zero fill out
+// of bounds. Returns false when cuTensorMapEncodeTiled refuses it.
 inline bool encode_map(CUtensorMap* map, const void* base,
                        const long long* d,
                        CUtensorMapDataType type =
-                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       int box_cols = kBox, int box_rows = kBox) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return false;
   cuuint64_t dims[4] = {(cuuint64_t)d[0], (cuuint64_t)d[1],
                         (cuuint64_t)d[2], (cuuint64_t)d[3]};
   cuuint64_t strides[3] = {(cuuint64_t)d[4], (cuuint64_t)d[5],
                            (cuuint64_t)d[6]};
-  cuuint32_t box[4] = {kBox, kBox, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
   cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, type, 4,
             const_cast<void*>(base), dims, strides, box, estr,

@@ -7,54 +7,60 @@
 // _rms_bwd_pallas), both run twice per decoder layer
 // (nlp/llama.py::_decoder_layer).
 //
-//   forward:  r = 1 / sqrt(mean(x^2) + eps), out = x * r * w (bf16),
-//             rstd = r (f32, one per row)
+//   forward:  r = 1 / sqrt(mean(x^2) + eps), out = x * r * w (x's
+//             dtype), rstd = r (f32, one per row)
 //   backward: dx = r * (w o dy) - x * (r^3 / D) * sum_j dy_j w_j x_j
 //             dw = sum over rows of dy o x o r
-// x, out, dy, dx bf16 [rows, D]; both read w in its own dtype (bf16 or
-// f32) and the backward writes dw in it (the f32 sum rounded once); all
+// x, out, dy, dx [rows, D] in one dtype T: bf16 (rms_fwd_bf16,
+// rms_bwd_bf16), f16 or f32 (_f16, _f32), one kernel template each, as
+// the TPU kernels write out and dx in x's dtype. Both read w in its own
+// dtype where it is x's or f32 (WT; the wrapper casts any other to f32)
+// and the backward writes dw in it (the f32 sum rounded once); all
 // arithmetic in f32, in the order of the TPU kernels.
 //
-// Bound on the H100: a handful of operations per element against 4 (fwd:
-// x read, out written) or 6 (bwd: x, dy read, dx written) bytes per
-// element, far below the card's ~295 flop/byte ridge: memory bound. The
-// training steps' [40960, 2048] and [16384, 4096] forwards move 336 and
-// 268 MB, 0.100 and 0.080 ms at 3.35 TB/s; their backwards 503 and 403
-// MB, 0.150 and 0.120 ms.
+// Bound on the H100: a handful of operations per element against 2 * e
+// (fwd: x read, out written) or 3 * e (bwd: x, dy read, dx written)
+// bytes per element of e bytes, far below the card's ~295 flop/byte
+// ridge: memory bound. The bf16 training steps' [40960, 2048] and
+// [16384, 4096] forwards move 336 and 268 MB, 0.100 and 0.080 ms at 3.35
+// TB/s; their backwards 503 and 403 MB, 0.150 and 0.120 ms; an f32 x
+// doubles each.
 //
-// Forward design. A row is held in registers by one warp (D <= 2048, as
-// 8 bf16 16-byte vectors a lane at D 2048), two (D <= 4096) or four
-// (D <= 8192), and its sum of squares reduced by warp shuffles alone; a
-// row of two or four warps adds their sums through shared memory under a
-// named barrier of just those warps, double-buffered by row parity, so
-// no block-wide barrier is taken per row. The grid is persistent: as many
-// 128-thread blocks as fit on the card at once, whose warp teams walk
-// the rows with a stride, and each lane loads its weight vectors once
-// (16-byte loads, bf16 or f32 as given) and keeps them in registers.
-// The next row's loads are issued before the current row's reduction,
-// so a row's latency hides behind the one before it.
+// Forward design. A row is held in registers by one warp (D <= 2048 in
+// 16 bits, as 8 16-byte vectors a lane; 1024 in f32), two, four or (f32,
+// D > 4096) eight warps, and its sum of squares reduced by warp shuffles
+// alone; a row of several warps adds their sums through shared memory
+// under a named barrier of just those warps, double-buffered by row
+// parity, so no block-wide barrier is taken per row. The grid is
+// persistent: as many blocks (128 threads, or one row of eight warps) as
+// fit on the card at once, whose warp teams walk the rows with a stride,
+// and each lane loads its weights once (16-byte loads, in the weight's
+// dtype) and keeps them in registers. The next row's loads are issued
+// before the current row's reduction, so a row's latency hides behind
+// the one before it.
 //
 // Backward design: the walk of norm_bwd_core.cuh (a persistent grid of
-// warp teams, 1 warp a row up to D 1024, 2, 4 or 8 up to 8192, each lane
-// holding 4 bf16 vectors of a row at most; x, dy and rstd two rows ahead
-// in a cp.async ring; the row's sum(dy w x) by shuffles and the team's
-// named barrier), with the weight loaded once per lane in its own dtype;
-// each block writes one f32 partial row of dw, and rms_dw_kernel folds
-// them in a fixed order and writes dw in the weight's dtype. What held
-// the previous design back (one 256-thread block a row walking 512 fixed
-// chunks; H100 SXM at 700 W, one CUDA graph: 0.212 ms at [16384, 4096],
-// 0.226 at [40960, 2048], 57 % and 67 % of the bound): each row's x and
-// dy loaded synchronously with nothing in flight behind them, two block-wide
-// barriers a row, a 16- or 8-block fold whose threads each summed 512
-// partials in one chain (0.019 / 0.015 ms alone), and two casts of the
-// weight and of dw around the call (0.005 ms). This design: 0.156 and
-// 0.191 ms, 77 % and 79 % of the bound.
+// warp teams, 1 warp a row up to 32 vectors, 2, 4 or 8 up to D 8192,
+// each lane holding 32 values of a row at most; x, dy and rstd two rows
+// ahead in a cp.async ring; the row's sum(dy w x) by shuffles and the
+// team's named barrier), with the weight loaded once per lane in its own
+// dtype; each block writes one f32 partial row of dw, and rms_dw_kernel
+// folds them in a fixed order and writes dw in the weight's dtype. What
+// held the previous design back (one 256-thread block a row walking 512
+// fixed chunks; H100 SXM at 700 W, one CUDA graph: 0.212 ms at [16384,
+// 4096], 0.226 at [40960, 2048], 57 % and 67 % of the bound): each row's
+// x and dy loaded synchronously with nothing in flight behind them, two
+// block-wide barriers a row, a 16- or 8-block fold whose threads each
+// summed 512 partials in one chain (0.019 / 0.015 ms alone), and two
+// casts of the weight and of dw around the call (0.005 ms). This design:
+// 0.156 and 0.191 ms, 77 % and 79 % of the bound.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "norm_bwd_core.cuh"
 
@@ -96,56 +102,58 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-// A lane's 8 weights of one 16-byte vector (bf16) or two (f32), kept in
-// registers for the block's life.
-template <typename WT>
-struct WVec;
-
-template <>
-struct WVec<bf16> {
-  uint4 v;
-  __device__ __forceinline__ void load(const bf16* p) {
-    v = *reinterpret_cast<const uint4*>(p);
+// A lane's weights of one 16-byte vector of x (kN values of T) in the
+// weight's dtype WT, kept packed in registers for the block's life: one
+// 16-byte vector of weights, or two (an f32 weight beside 16-bit x).
+template <typename T, typename WT>
+struct WVec {
+  static constexpr int kN = nbw::Vec<T>::kN;
+  static constexpr int kWN = nbw::Vec<WT>::kN;    // weights a vector
+  static constexpr int kV = kN / kWN;
+  static_assert(kV * kWN == kN, "whole weight vectors an x vector");
+  uint4 v[kV];
+  __device__ __forceinline__ void load(const WT* p) {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) v[i] = reinterpret_cast<const uint4*>(p)[i];
   }
-  __device__ __forceinline__ void get(float f[8]) const { unpack8(v, f); }
-};
-
-template <>
-struct WVec<float> {
-  float4 a, b;
-  __device__ __forceinline__ void load(const float* p) {
-    a = reinterpret_cast<const float4*>(p)[0];
-    b = reinterpret_cast<const float4*>(p)[1];
-  }
-  __device__ __forceinline__ void get(float f[8]) const {
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  __device__ __forceinline__ void get(float (&f)[kN]) const {
+#pragma unroll
+    for (int i = 0; i < kV; ++i)
+      nbw::Vec<WT>::unpack(v[i],
+                           *reinterpret_cast<float(*)[kWN]>(f + i * kWN));
   }
 };
 
 // Rows of WPR warps each (a team), VPT 16-byte vectors a lane; the grid's
-// teams walk the rows with a stride. Blocks of 128 threads: at ~150
-// registers a thread (the current and the next row and the weights, held
-// in registers) three fit on an SM where one block of 256 would leave
-// room for just one.
+// teams walk the rows with a stride. Blocks of 128 threads (a team of
+// eight warps: 256): at ~150 registers a thread (the current and the next
+// row and the weights, held in registers) three fit on an SM where one
+// block of 256 would leave room for just one.
 constexpr int kFwdThreads = 128;
 
-template <typename WT, int WPR, int VPT>
-__global__ void __launch_bounds__(kFwdThreads)
-rms_fwd_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
-               bf16* __restrict__ out, float* __restrict__ rstd, int rows,
+template <int WPR>
+__host__ __device__ constexpr int fwd_block() {
+  return 32 * WPR > kFwdThreads ? 32 * WPR : kFwdThreads;
+}
+
+template <typename T, typename WT, int WPR, int VPT>
+__global__ void __launch_bounds__(fwd_block<WPR>())
+rms_fwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
+               T* __restrict__ out, float* __restrict__ rstd, int rows,
                int D, float eps) {
+  constexpr int kBlock = fwd_block<WPR>();
+  constexpr int kN = nbw::Vec<T>::kN;
   constexpr int kTPR = 32 * WPR;              // threads a row
-  constexpr int kTeams = kFwdThreads / kTPR;     // rows a block holds
-  __shared__ float red[2][kFwdThreads / 32];
+  constexpr int kTeams = kBlock / kTPR;       // rows a block holds
+  __shared__ float red[2][kBlock / 32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int team = warp / WPR, t = threadIdx.x % kTPR;
-  const int nvec = D / 8;
-  WVec<WT> wv[VPT];
+  const int nvec = D / kN;
+  WVec<T, WT> wv[VPT];
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
     const int vi = t + i * kTPR;
-    if (vi < nvec) wv[i].load(w + vi * 8);
+    if (vi < nvec) wv[i].load(w + vi * kN);
   }
   const int stride = gridDim.x * kTeams;
   int row = blockIdx.x * kTeams + team;
@@ -168,10 +176,10 @@ rms_fwd_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < VPT; ++i) {
       if (t + i * kTPR < nvec) {
-        float f[8];
-        unpack8(cur[i], f);
+        float f[kN];
+        nbw::Vec<T>::unpack(cur[i], f);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) ss += f[j] * f[j];
+        for (int j = 0; j < kN; ++j) ss += f[j] * f[j];
       }
     }
 #pragma unroll
@@ -192,12 +200,12 @@ rms_fwd_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
     for (int i = 0; i < VPT; ++i) {
       const int vi = t + i * kTPR;
       if (vi < nvec) {
-        float f[8], g[8], o[8];
-        unpack8(cur[i], f);
+        float f[kN], g[kN], o[kN];
+        nbw::Vec<T>::unpack(cur[i], f);
         wv[i].get(g);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) o[j] = f[j] * r * g[j];
-        orow[vi] = pack8(o);
+        for (int j = 0; j < kN; ++j) o[j] = f[j] * r * g[j];
+        orow[vi] = nbw::Vec<T>::pack(o);
       }
     }
     if (t == 0) rstd[row] = r;
@@ -206,43 +214,44 @@ rms_fwd_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
   }
 }
 
-// The backward's walk: WPR warps a row, VPT bf16 vectors a lane, the
-// weight's 8 values a vector held in registers in its own dtype.
-template <typename WT, int WPR, int VPT>
+// The backward's walk: WPR warps a row, VPT vectors of x a lane, the
+// weight's values of those vectors held in registers in its own dtype.
+template <typename T, typename WT, int WPR, int VPT>
 __global__ void __launch_bounds__(nbw::kThreads)
-rms_bwd_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
-               const float* __restrict__ rstd, const bf16* __restrict__ dy,
-               bf16* __restrict__ dx, float* __restrict__ partials,
+rms_bwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
+               const float* __restrict__ rstd, const T* __restrict__ dy,
+               T* __restrict__ dx, float* __restrict__ partials,
                int rows, int D, int n_teams) {
+  constexpr int kN = nbw::Vec<T>::kN;
   constexpr int kTPR = 32 * WPR;
-  const int t = threadIdx.x % kTPR, nvec = D / 8;
-  WVec<WT> wv[VPT];
-  float acc[1][VPT][8];
+  const int t = threadIdx.x % kTPR, nvec = D / kN;
+  WVec<T, WT> wv[VPT];
+  float acc[1][VPT][kN];
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
-    if (t + i * kTPR < nvec) wv[i].load(w + (t + i * kTPR) * 8);
+    if (t + i * kTPR < nvec) wv[i].load(w + (t + i * kTPR) * kN);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[0][i][j] = 0.f;
+    for (int j = 0; j < kN; ++j) acc[0][i][j] = 0.f;
   }
   const float inv_d = 1.f / D;
   const float* const stat[1] = {rstd};
-  nbw::walk<bf16, WPR, VPT, 1, 1, 1>(
+  nbw::walk<T, WPR, VPT, 1, 1, 1>(
       x, dy, dx, stat, partials, rows, D, n_teams, acc,
-      [&](int i, const float (&st)[1], const float (&xv)[8],
-          const float (&dv)[8], float (&s)[1]) {
-        float g[8];
+      [&](int i, const float (&st)[1], const float (&xv)[kN],
+          const float (&dv)[kN], float (&s)[1]) {
+        float g[kN];
         wv[i].get(g);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[0] += dv[j] * g[j] * xv[j];
+        for (int j = 0; j < kN; ++j) s[0] += dv[j] * g[j] * xv[j];
       },
       [&](int i, const float (&st)[1], const float (&s)[1],
-          const float (&xv)[8], const float (&dv)[8], float (&o)[8]) {
+          const float (&xv)[kN], const float (&dv)[kN], float (&o)[kN]) {
         const float r = st[0];
         const float c3 = r * r * r * inv_d;
-        float g[8];
+        float g[kN];
         wv[i].get(g);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < kN; ++j) {
           o[j] = r * (dv[j] * g[j]) - xv[j] * c3 * s[0];
           acc[0][i][j] += dv[j] * xv[j] * r;
         }
@@ -259,34 +268,40 @@ rms_dw_kernel(const float* __restrict__ partials, WT* __restrict__ dw,
             [&](int c, float v) { dw[c] = nbw::from_f32<WT>(v); });
 }
 
-template <typename WT>
+// 16-byte vectors of x a lane may hold: 4 of 16 bits, 8 of f32 (32
+// values either way)
+template <typename T>
+__host__ __device__ constexpr int vmax() { return 32 / nbw::Vec<T>::kN; }
+
+template <typename T, typename WT>
 cudaError_t bwd_resident(int warps, int vpt, int* per_sm) {
-  return nbw::dispatch<4>(warps, vpt, [&](auto wpr, auto v) {
+  return nbw::dispatch<vmax<T>()>(warps, vpt, [&](auto wpr, auto v) {
     constexpr int WPR = decltype(wpr)::value, VPT = decltype(v)::value;
     static int granted[64] = {};
-    return nbw::resident(rms_bwd_kernel<WT, WPR, VPT>,
-                         nbw::Layout<bf16, WPR, VPT, 1>::kBytes, granted,
+    return nbw::resident(rms_bwd_kernel<T, WT, WPR, VPT>,
+                         nbw::Layout<T, WPR, VPT, 1>::kBytes, granted,
                          per_sm);
   });
 }
 
-template <typename WT>
+template <typename T, typename WT>
 cudaError_t launch_bwd(const void* x, const void* w, const void* rstd,
                        const void* dy, void* dx, void* dw, void* partials,
                        int rows, int D, int warps, int vpt, int blocks,
                        int cols, cudaStream_t s) {
-  cudaError_t err = nbw::dispatch<4>(warps, vpt, [&](auto wpr, auto v) {
+  cudaError_t err = nbw::dispatch<vmax<T>()>(warps, vpt, [&](auto wpr,
+                                                             auto v) {
     constexpr int WPR = decltype(wpr)::value, VPT = decltype(v)::value;
-    using L = nbw::Layout<bf16, WPR, VPT, 1>;
-    if (D / 8 > VPT * L::kTPR) return cudaErrorInvalidValue;
+    using L = nbw::Layout<T, WPR, VPT, 1>;
+    if (D / nbw::Vec<T>::kN > VPT * L::kTPR) return cudaErrorInvalidValue;
     static int granted[64] = {};
-    cudaError_t e = nbw::allow_smem(rms_bwd_kernel<WT, WPR, VPT>, L::kBytes,
-                                    granted);
+    cudaError_t e = nbw::allow_smem(rms_bwd_kernel<T, WT, WPR, VPT>,
+                                    L::kBytes, granted);
     if (e != cudaSuccess) return e;
-    rms_bwd_kernel<WT, WPR, VPT><<<blocks, nbw::kThreads, L::kBytes, s>>>(
-        static_cast<const bf16*>(x), static_cast<const WT*>(w),
-        static_cast<const float*>(rstd), static_cast<const bf16*>(dy),
-        static_cast<bf16*>(dx), static_cast<float*>(partials), rows, D,
+    rms_bwd_kernel<T, WT, WPR, VPT><<<blocks, nbw::kThreads, L::kBytes, s>>>(
+        static_cast<const T*>(x), static_cast<const WT*>(w),
+        static_cast<const float*>(rstd), static_cast<const T*>(dy),
+        static_cast<T*>(dx), static_cast<float*>(partials), rows, D,
         blocks * L::kTeams);
     return cudaGetLastError();
   });
@@ -298,10 +313,11 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* rstd,
 
 // The persistent grid: as many blocks as fit on the card at once, asked
 // of the runtime once per kernel and device.
-template <typename WT, int WPR, int VPT>
+template <typename T, typename WT, int WPR, int VPT>
 cudaError_t launch_fwd(const void* x, const void* w, void* out, void* rstd,
                        int rows, int D, float eps, cudaStream_t s) {
-  constexpr int kTeams = kFwdThreads / (32 * WPR);
+  constexpr int kBlock = fwd_block<WPR>();
+  constexpr int kTeams = kBlock / (32 * WPR);
   static int resident[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -312,74 +328,122 @@ cudaError_t launch_fwd(const void* x, const void* w, void* out, void* rstd,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, rms_fwd_kernel<WT, WPR, VPT>, kFwdThreads, 0);
+          &per_sm, rms_fwd_kernel<T, WT, WPR, VPT>, kBlock, 0);
     if (err != cudaSuccess) return err;
     full = sms * std::max(per_sm, 1);
     if (dev < 64) resident[dev] = full;
   }
   const int grid = std::max(1, std::min((rows + kTeams - 1) / kTeams, full));
-  rms_fwd_kernel<WT, WPR, VPT><<<grid, kFwdThreads, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const WT*>(w),
-      static_cast<bf16*>(out), static_cast<float*>(rstd), rows, D, eps);
+  rms_fwd_kernel<T, WT, WPR, VPT><<<grid, kBlock, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const WT*>(w),
+      static_cast<T*>(out), static_cast<float*>(rstd), rows, D, eps);
   return cudaGetLastError();
 }
 
-template <typename WT>
+template <typename T, typename WT>
 cudaError_t dispatch_fwd(const void* x, const void* w, void* out, void* rstd,
                          int rows, int D, float eps, cudaStream_t s) {
-  const int nvec = D / 8;
-  if (nvec <= 32) return launch_fwd<WT, 1, 1>(x, w, out, rstd, rows, D, eps, s);
-  if (nvec <= 64) return launch_fwd<WT, 1, 2>(x, w, out, rstd, rows, D, eps, s);
-  if (nvec <= 128)
-    return launch_fwd<WT, 1, 4>(x, w, out, rstd, rows, D, eps, s);
-  if (nvec <= 256)
-    return launch_fwd<WT, 1, 8>(x, w, out, rstd, rows, D, eps, s);
-  if (nvec <= 512)
-    return launch_fwd<WT, 2, 8>(x, w, out, rstd, rows, D, eps, s);
-  return launch_fwd<WT, 4, 8>(x, w, out, rstd, rows, D, eps, s);
+  const int nvec = D / nbw::Vec<T>::kN;
+#define PTT_FWD(WPR, VPT) \
+  return launch_fwd<T, WT, WPR, VPT>(x, w, out, rstd, rows, D, eps, s)
+  if (nvec <= 32) PTT_FWD(1, 1);
+  if (nvec <= 64) PTT_FWD(1, 2);
+  if (nvec <= 128) PTT_FWD(1, 4);
+  if (nvec <= 256) PTT_FWD(1, 8);
+  if (nvec <= 512) PTT_FWD(2, 8);
+  if constexpr (nbw::Vec<T>::kN == 4) {       // f32 rows above D 4096
+    if (nvec > 1024) PTT_FWD(8, 8);
+  }
+  PTT_FWD(4, 8);
+#undef PTT_FWD
 }
 
-}  // namespace
+// The x and weight types of the entry points: x T, the weight T (w_x !=
+// 0) or f32
+template <typename T, class F>
+cudaError_t by_weight(int w_x, F&& f) {
+  if constexpr (std::is_same<T, float>::value) {
+    return f(float{});
+  } else {
+    return w_x ? f(T{}) : f(float{});
+  }
+}
 
-// w is bf16 (w_bf16 != 0) or f32 [D], 16-byte aligned. Returns the
-// launch's cudaError_t (0 on success).
-extern "C" int rms_fwd_bf16(const void* x, const void* w, void* out,
-                            void* rstd, int rows, int D, float eps,
-                            int w_bf16, void* stream) {
+template <typename T>
+int fwd_entry(const void* x, const void* w, void* out, void* rstd, int rows,
+              int D, float eps, int w_x, void* stream) {
   if (D % 8 || D > kThreads * kMaxVec * 8 || rows < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(w_bf16 ? dispatch_fwd<bf16>(x, w, out, rstd, rows, D, eps, s)
-                      : dispatch_fwd<float>(x, w, out, rstd, rows, D, eps, s));
+  return (int)by_weight<T>(w_x, [&](auto wt) {
+    using WT = decltype(wt);
+    return dispatch_fwd<T, WT>(x, w, out, rstd, rows, D, eps, s);
+  });
 }
 
-// The backward with the plan of kernels/norm_bwd.py::bwd_plan: teams of
-// `warps` warps holding `vpt` vectors a lane, `blocks` walk blocks (one
-// f32 [D] partial row each in `partials`), a fold of `cols` columns a
-// block. w and dw are bf16 (w_bf16 != 0) or f32 [D], 16-byte aligned.
-// Returns the launches' cudaError_t (0 on success).
-extern "C" int rms_bwd_bf16(const void* x, const void* w, const void* rstd,
-                            const void* dy, void* dx, void* dw,
-                            void* partials, int rows, int D, int w_bf16,
-                            int warps, int vpt, int blocks, int cols,
-                            void* stream) {
+template <typename T>
+int bwd_entry(const void* x, const void* w, const void* rstd, const void* dy,
+              void* dx, void* dw, void* partials, int rows, int D, int w_x,
+              int warps, int vpt, int blocks, int cols, void* stream) {
   if (D % 8 || D > kThreads * kMaxVec * 8 || rows < 1 || blocks < 1 ||
       (cols != 8 && cols != 16 && cols != 32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(w_bf16 ? launch_bwd<bf16>(x, w, rstd, dy, dx, dw, partials,
-                                         rows, D, warps, vpt, blocks, cols, s)
-                      : launch_bwd<float>(x, w, rstd, dy, dx, dw, partials,
-                                          rows, D, warps, vpt, blocks, cols,
-                                          s));
+  return (int)by_weight<T>(w_x, [&](auto wt) {
+    using WT = decltype(wt);
+    return launch_bwd<T, WT>(x, w, rstd, dy, dx, dw, partials, rows, D,
+                             warps, vpt, blocks, cols, s);
+  });
 }
 
-// Walk blocks of the (w_bf16, warps, vpt) backward that fit on one
-// multiprocessor, into *per_sm. Returns a cudaError_t.
-extern "C" int rms_bwd_resident(int w_bf16, int warps, int vpt,
-                                int* per_sm) {
-  return (int)(w_bf16 ? bwd_resident<bf16>(warps, vpt, per_sm)
-                      : bwd_resident<float>(warps, vpt, per_sm));
+}  // namespace
+
+// x and out bf16, f16 or f32 [rows, D] (rms_fwd_bf16, _f16, _f32), rstd
+// f32 [rows]; w [D], 16-byte aligned, in x's dtype (w_x != 0; f32 x: f32,
+// whatever w_x says) or f32. Returns the launch's cudaError_t (0 on
+// success).
+#define PTT_RMS_FWD(NAME, T)                                               \
+  extern "C" int NAME(const void* x, const void* w, void* out, void* rstd, \
+                      int rows, int D, float eps, int w_x, void* stream) { \
+    return fwd_entry<T>(x, w, out, rstd, rows, D, eps, w_x, stream);       \
+  }
+PTT_RMS_FWD(rms_fwd_bf16, bf16)
+PTT_RMS_FWD(rms_fwd_f16, __half)
+PTT_RMS_FWD(rms_fwd_f32, float)
+#undef PTT_RMS_FWD
+
+// The backward with the plan of kernels/norm_bwd.py::bwd_plan: teams of
+// `warps` warps holding `vpt` vectors a lane, `blocks` walk blocks (one
+// f32 [D] partial row each in `partials`), a fold of `cols` columns a
+// block. x, dy and dx in one dtype (rms_bwd_bf16, _f16, _f32); w and dw
+// in x's dtype (w_x != 0) or f32 [D], 16-byte aligned. Returns the
+// launches' cudaError_t (0 on success).
+#define PTT_RMS_BWD(NAME, T)                                                \
+  extern "C" int NAME(const void* x, const void* w, const void* rstd,       \
+                      const void* dy, void* dx, void* dw, void* partials,   \
+                      int rows, int D, int w_x, int warps, int vpt,         \
+                      int blocks, int cols, void* stream) {                 \
+    return bwd_entry<T>(x, w, rstd, dy, dx, dw, partials, rows, D, w_x,     \
+                        warps, vpt, blocks, cols, stream);                  \
+  }
+PTT_RMS_BWD(rms_bwd_bf16, bf16)
+PTT_RMS_BWD(rms_bwd_f16, __half)
+PTT_RMS_BWD(rms_bwd_f32, float)
+#undef PTT_RMS_BWD
+
+// Walk blocks of the (kind, warps, vpt) backward that fit on one
+// multiprocessor, into *per_sm; kind (kernels/rms_norm.py::_BWD_KINDS):
+// 0 f32 x, 1 bf16 x with an f32 weight, 2 bf16 x and weight, 3 f16 x
+// with an f32 weight, 4 f16 x and weight. Returns a cudaError_t.
+extern "C" int rms_bwd_resident(int kind, int warps, int vpt, int* per_sm) {
+  switch (kind) {
+    case 0: return (int)bwd_resident<float, float>(warps, vpt, per_sm);
+    case 1: return (int)bwd_resident<bf16, float>(warps, vpt, per_sm);
+    case 2: return (int)bwd_resident<bf16, bf16>(warps, vpt, per_sm);
+    case 3: return (int)bwd_resident<__half, float>(warps, vpt, per_sm);
+    case 4: return (int)bwd_resident<__half, __half>(warps, vpt, per_sm);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------------ row 6

@@ -4,7 +4,8 @@ Port of paddle_tpu/kernels/flash_attention.py: `mha_ref` (the exact
 reference), the Pallas forward `_flash_fwd_kernel` (Hopper counterpart
 `csrc/flash_fwd.cu`), the Pallas backward kernels (the resident,
 streamed and split schedules of `flash_attention_pallas_bwd`, one
-Hopper design in `csrc/flash_bwd.cu`) and the differentiable entries,
+Hopper design in `csrc/flash_bwd.cu`; the f32 option of both, on TF32
+tensor cores, in `csrc/flash_f32.cu`) and the differentiable entries,
 the `custom_vjp`s `flash_attention_fwd` and `flash_attention_masked`
 there, here the autograd Function behind `flash_attention` and
 `flash_attention_masked`. Layout is [batch, seq, heads, head_dim]
@@ -25,10 +26,13 @@ it: lse[b, h, i] = log Σ_j exp(scale · q_i·k_j) over the visible keys.
 
 `flash_attention_fwd` and `flash_attention_bwd` run the kernel on a CUDA
 tensor and the plain version on a CPU tensor; there is no fallback
-between the two. The kernels take bf16 or f16 (one dtype for every
-tensor of a call), as the TPU kernels compute in their input's dtype;
-each wrapper counts its launches by dtype too (`launches_bf16`,
-`launches_f16`).
+between the two. The kernels take bf16, f16 or f32 (one dtype for
+every tensor of a call), as the TPU kernels compute in their input's
+dtype; each wrapper counts its launches by dtype too (`launches_bf16`,
+`launches_f16`, `launches_f32`). The f32 kernels multiply on TF32
+tensor cores: the scores' products in three TF32 parts (hi·hi + hi·lo +
+lo·hi, ~f32 accuracy), the second products (P·V, Pᵀ·dO, dSᵀ·Q, dS·K)
+in one, each operand rounded to nearest (2⁻¹¹ relative).
 """
 from __future__ import annotations
 
@@ -62,8 +66,21 @@ DQ_TILES = (128, 64)
 DKDV_TILES = (128, 64)
 TMA_BOX = (64, 64, 1, 1)
 BWD_PAD = 128
+# The f32 kernels' (csrc/flash_f32.cu): twice the bytes a value, so
+# 64-key forward tiles, 32-key dq tiles and 16-query dkdv tiles; a box of
+# 32 columns (one 128-byte swizzle row of f32) x 16 rows; the same
+# padding of Sq.
+FWD_TILES_F32 = (128, 64)
+DQ_TILES_F32 = (128, 32)
+DKDV_TILES_F32 = (128, 16)
+TMA_BOX_F32 = (32, 16, 1, 1)
 # the dtypes the kernels take, by their entry points' suffix
-KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16"}
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16",
+                 torch.float32: "f32"}
+# the libraries (csrc/<name>.cu) of the forward and backward entry points
+_LIBRARIES = {"bf16": ("flash_fwd", "flash_bwd"),
+              "f16": ("flash_fwd", "flash_bwd"),
+              "f32": ("flash_f32", "flash_f32")}
 
 
 def block_aligned(s: int) -> bool:
@@ -166,18 +183,20 @@ def _strides(t, layout):
 
 
 def _kernel_input(name, t, device, dtype=None):
-    """t as the kernels read it (TMA's rules): `dtype` (bf16 or f16, the
-    call's one dtype; None: t's own) on `device`, head_dim contiguous, the other strides
-    whole 16-byte rows and not 0 over an extent above 1, the base 16-byte
-    aligned. A tensor that is not (a sliced or broadcast view) is made
-    contiguous."""
+    """t as the kernels read it (TMA's rules): `dtype` (bf16, f16 or f32,
+    the call's one dtype; None: t's own) on `device`, head_dim contiguous,
+    the other strides whole 16-byte rows and not 0 over an extent above 1,
+    the base 16-byte aligned. A tensor that is not (a sliced or broadcast
+    view) is made contiguous."""
     dtype = t.dtype if dtype is None else dtype
     if dtype not in KERNEL_DTYPES:
-        raise TypeError(f"the flash kernels take bf16 or f16, got {dtype}")
+        raise TypeError(f"the flash kernels take bf16, f16 or f32, got "
+                        f"{dtype}")
     if t.dtype != dtype or t.device != device:
         raise TypeError(f"{name} must be a {dtype} tensor on {device} (q's "
                         f"dtype), got {t.dtype} on {t.device}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
+    row = 16 // t.element_size()          # elements in 16 bytes
+    if t.stride(-1) != 1 or any(s % row for s in t.stride()[:3]) \
             or any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape)) \
             or t.data_ptr() % 16:
         t = t.contiguous()
@@ -223,11 +242,12 @@ def tma_dims(t, layout):
     """The seven values the kernels build a TMA tensor map of `t` from
     (csrc/hopper_core.cuh::encode_map): its extents innermost first
     (head_dim, seq, heads, batch) and the byte strides of seq, heads and
-    batch. Element (b, s, h, d) lies at byte d * 2 + s * st_s + h * st_h
-    + b * st_b from the base in either layout; the head_dim stride is 1
-    and `_kernel_input` makes the others whole 16-byte rows, as TMA
-    requires. The box (TMA_BOX) is 64 columns x 64 rows: ceil(hd / 64)
-    boxes a row, the columns past hd zero-filled."""
+    batch. Element (b, s, h, d) lies at byte d * e + s * st_s + h * st_h
+    + b * st_b from the base in either layout (e the element size); the
+    head_dim stride is 1 and `_kernel_input` makes the others whole
+    16-byte rows, as TMA requires. The box (TMA_BOX; TMA_BOX_F32) is one
+    128-byte swizzle row of columns (64 of 16 bits, 32 f32): ceil(hd /
+    columns) boxes a row, the columns past hd zero-filled."""
     e = t.element_size()
     if layout == "bshd":
         (B, S, H, hd), (st_b, st_s, st_h) = t.shape, t.stride()[:3]
@@ -297,10 +317,11 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
     f32). `key_mask` [B, Sk]: nonzero keys are visible.
 
     On a CPU tensor: the plain version. On a CUDA tensor: the kernel
-    (q, k and v all bf16 or all f16, hd 64, 72 or 128, Sq <= Sk when
-    causal; `out` contiguous in the layout); anything it does not take
-    raises. Each kernel launch adds one to `flash_attention_fwd.launches`
-    and to its dtype's `launches_bf16` or `launches_f16`."""
+    (q, k and v all bf16, all f16 or all f32, hd 64, 72 or 128, Sq <= Sk
+    when causal; `out` contiguous in the layout, in q's dtype); anything
+    it does not take raises. Each kernel launch adds one to
+    `flash_attention_fwd.launches` and to its dtype's `launches_bf16`,
+    `launches_f16` or `launches_f32`."""
     if not q.is_cuda:
         return flash_attention_fwd_ref(q, k, v, causal=causal, scale=scale,
                                        return_lse=return_lse,
@@ -319,8 +340,9 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
     km = _mask_arg(key_mask)
     maps = _map_array((q, k, v), layout)
     strides = _stride_array((out,), layout)
-    sym = f"flash_fwd_{KERNEL_DTYPES[dt]}"
-    fn = _build.function("flash_fwd", sym, _ARGTYPES)
+    tag = KERNEL_DTYPES[dt]
+    sym = f"flash_fwd_{tag}"
+    fn = _build.function(_LIBRARIES[tag][0], sym, _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -335,6 +357,7 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, return_lse=False,
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_bf16 = 0
 flash_attention_fwd.launches_f16 = 0
+flash_attention_fwd.launches_f32 = 0
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True,
@@ -380,8 +403,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None,
     cotangent `dout`; `key_mask` must be the forward's.
 
     On a CPU tensor: the plain version. On a CUDA tensor: the kernel
-    (q/k/v/out/dout all bf16 or all f16, f32 lse; the shapes the forward
-    kernel takes); anything else raises. GQA is accumulated over each KV head's query
+    (q/k/v/out/dout all bf16, all f16 or all f32, f32 lse; the shapes
+    the forward kernel takes); anything else raises. GQA is accumulated over each KV head's query
     group inside the kernel. Each call adds one to
     `flash_attention_bwd.launches` (and its dtype's count), whatever the
     number of CUDA launches inside (three: dcap, dkdv, dq)."""
@@ -409,8 +432,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None,
     km = _mask_arg(key_mask)
     maps = _map_array((q, k, v, dout), layout)
     strides = _stride_array((q, k, v, out, dout, dq, dk, dv), layout)
-    sym = f"flash_bwd_{KERNEL_DTYPES[dt]}"
-    fn = _build.function("flash_bwd", sym, _BWD_ARGTYPES)
+    tag = KERNEL_DTYPES[dt]
+    sym = f"flash_bwd_{tag}"
+    fn = _build.function(_LIBRARIES[tag][1], sym, _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -426,6 +450,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None,
 flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_bf16 = 0
 flash_attention_bwd.launches_f16 = 0
+flash_attention_bwd.launches_f32 = 0
 
 
 class _FlashAttention(torch.autograd.Function):

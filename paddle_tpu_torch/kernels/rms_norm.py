@@ -14,8 +14,10 @@ differentiable norm of the training stack (the `custom_vjp` of the JAX
 package): its forward runs `rms_norm_fwd` and saves the per-row
 reciprocal RMS, its backward runs `rms_norm_bwd`. On a CUDA tensor those
 two wrappers launch the kernels of `csrc/rms_norm.cu` (the counterparts
-of `_rms_fwd_pallas` and `_rms_bwd_pallas`); on a CPU tensor they run
-their plain twins (`_rms_fwd_twin`, `_rms_train_ref_bwd`). The CPU
+of `_rms_fwd_pallas` and `_rms_bwd_pallas`, in bf16, f16 or f32 x, out
+and dx in x's dtype as the JAX kernels write them; launches also
+counted by x's dtype); on a CPU tensor they run their plain twins
+(`_rms_fwd_twin`, `_rms_train_ref_bwd`). The CPU
 backward is written in differentiable torch ops that recompute r from x,
 so grad-of-grad works there, as the JAX package's jnp twins allow.
 
@@ -32,10 +34,11 @@ import torch
 from .. import _build
 from . import norm_bwd
 
-# rms_fwd_bf16(x, w, out, rstd, rows, D, eps, w_bf16, stream)
+# rms_fwd_<dt>(x, w, out, rstd, rows, D, eps, w_x, stream); w_x: the
+# weight is in x's dtype (else f32)
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-# rms_bwd_bf16(x, w, rstd, dy, dx, dw, partials, rows, D, w_bf16, warps,
+# rms_bwd_<dt>(x, w, rstd, dy, dx, dw, partials, rows, D, w_x, warps,
 #              vpt, blocks, fold_cols, stream)
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
@@ -44,8 +47,14 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
 _FUSED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
     ctypes.c_float, ctypes.c_void_p]
 _FUSED_F16_ARGTYPES = _FUSED_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
-_FUSED_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
-                 torch.float16: "f16"}
+# the x dtypes of the three kernels, by their entry points' suffix
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
+# csrc/rms_norm.cu::rms_bwd_resident's kinds: (x dtype, weight in x's
+# dtype) -> kind
+_BWD_KINDS = {(torch.float32, True): 0, (torch.bfloat16, False): 1,
+              (torch.bfloat16, True): 2, (torch.float16, False): 3,
+              (torch.float16, True): 4}
 
 
 def rms_norm_ref(x, weight=None, epsilon: float = 1e-6):
@@ -87,10 +96,10 @@ def _rms_train_ref_bwd(x, weight, dy, epsilon):
 
 def _check_rows(x, weight, what):
     d = x.shape[-1]
-    if x.dtype != torch.bfloat16 or not x.is_contiguous() \
+    if x.dtype not in _DTYPES or not x.is_contiguous() \
             or x.data_ptr() % 16:
         raise TypeError(f"{what}: x must be a contiguous, 16-byte aligned "
-                        f"bf16 CUDA tensor")
+                        f"bf16, f16 or f32 CUDA tensor, got {x.dtype}")
     if d % 8 or d > 8192:
         raise ValueError(f"{what}: hidden size {d} must be a multiple of 8 "
                          f"and at most 8192")
@@ -99,10 +108,10 @@ def _check_rows(x, weight, what):
                          f"match hidden size {d} on {x.device}")
 
 
-def _kernel_weight(weight):
-    """The weight as the kernels read it: bf16 or f32 as it is, any other
-    dtype cast to f32; contiguous and 16-byte aligned."""
-    w = weight if weight.dtype in (torch.bfloat16, torch.float32) \
+def _kernel_weight(weight, x):
+    """The weight as the kernels read it: in x's dtype or f32 as it is,
+    any other dtype cast to f32; contiguous and 16-byte aligned."""
+    w = weight if weight.dtype in (x.dtype, torch.float32) \
         else weight.float()
     if not w.is_contiguous() or w.data_ptr() % 16:
         w = w.clone(memory_format=torch.contiguous_format)
@@ -112,10 +121,10 @@ def _kernel_weight(weight):
 def rms_norm_fwd(x, weight, epsilon: float = 1e-6):
     """RMSNorm forward saving the reciprocal RMS: (out like x, rstd f32
     [rows, 1]). On a CPU tensor: the plain twin. On a CUDA tensor: the
-    kernel (bf16 x, hidden size a multiple of 8 up to 8192; a bf16 or f32
-    weight is read as it is, in the kernel, any other dtype cast to f32
-    first); anything else raises. Each launch adds one to
-    `rms_norm_fwd.launches`."""
+    kernel (bf16, f16 or f32 x, hidden size a multiple of 8 up to 8192; a
+    weight in x's dtype or f32 is read as it is, in the kernel, any other
+    dtype cast to f32 first); anything else raises. Each launch adds one
+    to `rms_norm_fwd.launches` and to its x dtype's count."""
     if not x.is_cuda:
         return _rms_fwd_twin(x, weight, epsilon)
     _check_rows(x, weight, "rms_norm_fwd")
@@ -125,29 +134,34 @@ def rms_norm_fwd(x, weight, epsilon: float = 1e-6):
     rstd = torch.empty(rows, 1, dtype=torch.float32, device=x.device)
     if rows == 0:
         return out, rstd
-    w = _kernel_weight(weight)
-    fn = _build.function("rms_norm", "rms_fwd_bf16", _FWD_ARGTYPES)
+    w = _kernel_weight(weight, x)
+    sym = f"rms_fwd_{_DTYPES[x.dtype]}"
+    fn = _build.function("rms_norm", sym, _FWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                  rstd.data_ptr(), rows, d, float(epsilon),
-                 int(w.dtype == torch.bfloat16), stream)
-    _build.check(err, "rms_fwd_bf16")
-    _build.count(rms_norm_fwd)
+                 int(w.dtype == x.dtype), stream)
+    _build.check(err, sym)
+    _build.count_dtype(rms_norm_fwd, x.dtype)
     return out, rstd
 
 
 rms_norm_fwd.launches = 0
+rms_norm_fwd.launches_f32 = 0
+rms_norm_fwd.launches_bf16 = 0
+rms_norm_fwd.launches_f16 = 0
 
 
 def rms_norm_bwd(x, weight, rstd, dy, epsilon: float = 1e-6):
     """RMSNorm backward: (dx like x, dw in weight's dtype). On a CPU
     tensor: the plain twin, which recomputes r from x (differentiable).
-    On a CUDA tensor: the kernel, which reads the forward's `rstd` and a
-    bf16 or f32 weight as it is (any other dtype cast to f32 first) and
-    writes dw in that dtype; dw is summed in the fixed order of
-    `norm_bwd.bwd_plan` (no float atomics), so two runs give identical
-    bits. Each launch adds one to `rms_norm_bwd.launches`."""
+    On a CUDA tensor: the kernel (bf16, f16 or f32 x and dy), which reads
+    the forward's `rstd` and a weight in x's dtype or f32 as it is (any
+    other dtype cast to f32 first) and writes dw in that dtype; dw is
+    summed in the fixed order of `norm_bwd.bwd_plan` (no float atomics),
+    so two runs give identical bits. Each launch adds one to
+    `rms_norm_bwd.launches` and to its x dtype's count."""
     if not x.is_cuda:
         return _rms_train_ref_bwd(x, weight, dy, epsilon)
     _check_rows(x, weight, "rms_norm_bwd")
@@ -165,26 +179,31 @@ def rms_norm_bwd(x, weight, rstd, dy, epsilon: float = 1e-6):
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, torch.zeros_like(weight)
-    w = _kernel_weight(weight)
-    w_bf16 = int(w.dtype == torch.bfloat16)
+    w = _kernel_weight(weight, x)
+    w_x = w.dtype == x.dtype
     plan = norm_bwd.device_plan(x.device, "rms_norm", "rms_bwd_resident",
-                                w_bf16, rows, d, 8, 1)
+                                _BWD_KINDS[(x.dtype, w_x)], rows, d,
+                                16 // x.element_size(), 1)
     partials = torch.empty(plan.blocks, d, dtype=torch.float32,
                            device=x.device)
     dw = torch.empty(d, dtype=w.dtype, device=x.device)
-    fn = _build.function("rms_norm", "rms_bwd_bf16", _BWD_ARGTYPES)
+    sym = f"rms_bwd_{_DTYPES[x.dtype]}"
+    fn = _build.function("rms_norm", sym, _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
                  dx.data_ptr(), dw.data_ptr(), partials.data_ptr(), rows, d,
-                 w_bf16, plan.warps, plan.vpt, plan.blocks, plan.fold_cols,
-                 stream)
-    _build.check(err, "rms_bwd_bf16")
-    _build.count(rms_norm_bwd)
+                 int(w_x), plan.warps, plan.vpt, plan.blocks,
+                 plan.fold_cols, stream)
+    _build.check(err, sym)
+    _build.count_dtype(rms_norm_bwd, x.dtype)
     return dx, dw if dw.dtype == weight.dtype else dw.to(weight.dtype)
 
 
 rms_norm_bwd.launches = 0
+rms_norm_bwd.launches_f32 = 0
+rms_norm_bwd.launches_bf16 = 0
+rms_norm_bwd.launches_f16 = 0
 
 
 class _RmsNormTrain(torch.autograd.Function):
@@ -221,7 +240,7 @@ def rms_norm_fused(x, weight=None, epsilon: float = 1e-6):
     if not x.is_cuda:
         return rms_norm_ref(x, weight, epsilon)
     d = x.shape[-1]
-    if x.dtype not in _FUSED_DTYPES or not x.is_contiguous() \
+    if x.dtype not in _DTYPES or not x.is_contiguous() \
             or x.data_ptr() % 16:
         raise TypeError(f"rms_norm_fused: x must be a contiguous, 16-byte "
                         f"aligned f32, bf16 or f16 CUDA tensor, got "
@@ -243,7 +262,7 @@ def rms_norm_fused(x, weight=None, epsilon: float = 1e-6):
     if rows == 0:
         return out
     f16 = x.dtype == torch.float16
-    sym = f"rms_fused_{_FUSED_DTYPES[x.dtype]}"
+    sym = f"rms_fused_{_DTYPES[x.dtype]}"
     fn = _build.function("rms_norm", sym,
                          _FUSED_F16_ARGTYPES if f16 else _FUSED_ARGTYPES)
     extra = (int(w is not None and w.dtype == torch.float16),) if f16 \

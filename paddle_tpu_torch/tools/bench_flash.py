@@ -1,7 +1,7 @@
 """The flash kernels at every shape `chip_smoke.py` holds them, on one GPU.
 
     python -m paddle_tpu_torch.tools.bench_flash [--check] [--label L]
-        [--dtype bf16|f16]
+        [--dtype bf16|f16|f32]
 
 Builds `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, prints each one's
 ptxas lines and the `HGMMA` / `UTMALDG` instruction counts that
@@ -16,7 +16,10 @@ relative to that) against the plain versions. `--check` stops after the
 errors of small and odd shapes (no timing) and exits 1 if any exceeds
 2e-2 (LSE 5e-4) or a backward is not bit-identical twice. `--dtype f16`
 runs every case in f16 (the kernels' f16 option), held to 1.25e-3: the
-same 2.5 ulps of the vector's largest element that 2e-2 is in bf16. It uses only
+same 2.5 ulps of the vector's largest element that 2e-2 is in bf16.
+`--dtype f32` runs the f32 option (csrc/flash_f32.cu, TF32 tensor
+cores) held to chip_smoke.py's F32_TOL 2.5e-3 and LSE 1e-4, its bound
+at the TF32 rate (495 TFLOP/s). It uses only
 the wrappers' public functions, so the same file times an older checkout
 of the package (run it from that checkout's root) in turns with this one
 on one card. The last line names the card and its power limit.
@@ -31,8 +34,12 @@ import sys
 import torch
 
 TOL, LSE_TOL, FLOOR = 2e-2, 5e-4, 1e-3
-# the inputs' dtype and its tolerance (2.5 ulps of the largest element)
-DTYPES = {"bf16": (torch.bfloat16, 2e-2), "f16": (torch.float16, 1.25e-3)}
+# the inputs' dtype, its tolerance (2.5 ulps of the largest element;
+# f32: five TF32 roundings of the largest term), the LSE's and the
+# tensor-core rate of the bound
+DTYPES = {"bf16": (torch.bfloat16, 2e-2, 5e-4, 989e12),
+          "f16": (torch.float16, 1.25e-3, 5e-4, 989e12),
+          "f32": (torch.float32, 2.5e-3, 1e-4, 495e12)}
 _DT = torch.bfloat16
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 H, KV, HD = 32, 8, 128
@@ -157,7 +164,7 @@ def case(B, S, h, kv, hd, causal, layout="bshd", lengths=None, gen=None,
         res["fwd_sdpa_graph_ms"] = _graph_ms(sdpa, 20)
         res["fwd_bound_ms"] = _bound(
             4.0 * h * hd * pairs,
-            2.0 * B * S * hd * (2 * h + 2 * kv) + 4.0 * B * h * S)
+            _DT.itemsize * B * S * hd * (2 * h + 2 * kv) + 4.0 * B * h * S)
     if "bwd" in which:
         res["bwd_ms"] = _time_ms(lambda: fa.flash_attention_bwd(
             q, k, v, out, lse, do, **kw), 10)
@@ -177,7 +184,7 @@ def case(B, S, h, kv, hd, causal, layout="bshd", lengths=None, gen=None,
             res["bwd_sdpa_ms"] = both - _time_ms(fwd, 5)
         res["bwd_bound_ms"] = _bound(
             10.0 * h * hd * pairs,
-            2.0 * B * S * hd * (4 * h + 4 * kv) + 4.0 * B * h * S)
+            _DT.itemsize * B * S * hd * (4 * h + 4 * kv) + 4.0 * B * h * S)
     torch.cuda.empty_cache()
     return res
 
@@ -279,8 +286,8 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     args = ap.parse_args(argv)
-    global _DT, TOL
-    _DT, TOL = DTYPES[args.dtype]
+    global _DT, TOL, LSE_TOL, PEAK_FLOPS
+    _DT, TOL, LSE_TOL, PEAK_FLOPS = DTYPES[args.dtype]
     if not torch.cuda.is_available():
         print("bench_flash: CUDA is not available", file=sys.stderr)
         return 1

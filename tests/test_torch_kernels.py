@@ -88,30 +88,34 @@ class TestFlash:
 
 
 # ------------------------------------------- the flash kernels' host rules
-def _view(layout, hd, kind):
-    """A bf16 [2, 5, 3, hd] tensor in `layout` ('bhsd': [2, 3, 5, hd]):
-    contiguous, or sliced out of a fused [.., 3 * heads, ..] projection
-    (a view whose strides skip the other two thirds)."""
+def _view(layout, hd, kind, dtype=torch.bfloat16):
+    """A [2, 5, 3, hd] tensor of `dtype` in `layout` ('bhsd': [2, 3, 5,
+    hd]): contiguous, or sliced out of a fused [.., 3 * heads, ..]
+    projection (a view whose strides skip the other two thirds)."""
     B, S, H = 2, 5, 3
     if kind == "contiguous":
         shape = (B, S, H, hd) if layout == "bshd" else (B, H, S, hd)
-        return torch.randn(shape).bfloat16()
+        return torch.randn(shape).to(dtype)
     if layout == "bshd":
-        return torch.randn(B, S, 3 * H, hd).bfloat16()[:, :, H:2 * H]
-    return torch.randn(B, 3 * H, S, hd).bfloat16()[:, H:2 * H]
+        return torch.randn(B, S, 3 * H, hd).to(dtype)[:, :, H:2 * H]
+    return torch.randn(B, 3 * H, S, hd).to(dtype)[:, H:2 * H]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["2-byte", "4-byte"])
 @pytest.mark.parametrize("kind", ["contiguous", "sliced"])
 @pytest.mark.parametrize("hd", [64, 72, 128])
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
-def test_tma_dims_address_every_element(layout, hd, kind):
+def test_tma_dims_address_every_element(layout, hd, kind, dtype):
     """The tensor map the kernels build (extents head_dim, seq, heads,
     batch; byte strides of seq, heads, batch) puts element (b, s, h, d)
-    at the byte torch keeps it at, in either layout and for a strided
-    view; the strides are whole 16-byte rows (TMA's rule), and
-    ceil(hd / 64) boxes of 64 columns cover a row, the columns past hd
+    at the byte torch keeps it at, in either layout, for a strided view
+    and for 2- and 4-byte elements; the strides are whole 16-byte rows
+    (TMA's rule), and ceil(hd / columns) boxes cover a row (64 columns of
+    16 bits, 32 of f32: one 128-byte swizzle row), the columns past hd
     outside the map's extent (zero-filled)."""
-    t = _view(layout, hd, kind)
+    t = _view(layout, hd, kind, dtype)
+    e = t.element_size()
     dims = tfa.tma_dims(t, layout)
     B, S, H, D = tfa._bshd(t, layout).shape
     assert dims[:4] == (D, S, H, B) == (hd, 5, 3, 2)
@@ -124,24 +128,32 @@ def test_tma_dims_address_every_element(layout, hd, kind):
                 for d in (0, 1, hd - 1):
                     el = (view[b, si, h, d:].storage_offset()
                           - t.storage_offset())
-                    assert d * 2 + si * st_s + h * st_h + b * st_b == 2 * el
-    boxes = -(-hd // tfa.TMA_BOX[0])
-    assert boxes * tfa.TMA_BOX[0] >= hd > (boxes - 1) * tfa.TMA_BOX[0]
-    assert tfa.TMA_BOX[0] * t.element_size() == 128     # one swizzle row
+                    assert d * e + si * st_s + h * st_h + b * st_b == e * el
+    box = tfa.TMA_BOX_F32 if e == 4 else tfa.TMA_BOX
+    boxes = -(-hd // box[0])
+    assert boxes * box[0] >= hd > (boxes - 1) * box[0]
+    assert box[0] * e == 128                            # one swizzle row
+    if e == 4:     # the f32 kernels' tiles are whole boxes of rows
+        assert all(n % box[1] == 0 for n in tfa.FWD_TILES_F32
+                   + tfa.DQ_TILES_F32 + tfa.DKDV_TILES_F32)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["2-byte", "4-byte"])
 @pytest.mark.parametrize("kind", ["broadcast", "odd_stride"])
-def test_kernel_input_meets_tma_rules(kind):
+def test_kernel_input_meets_tma_rules(kind, dtype):
     """A view TMA cannot read (a head broadcast with stride 0, a seq
-    stride that is no whole 16-byte row) is made contiguous; a view it
-    can read is passed as it is."""
-    base = torch.randn(2, 5, 1, 64).bfloat16()
+    stride that is no whole 16-byte row: 8 bytes past one) is made
+    contiguous; a view it can read is passed as it is, for 2- and 4-byte
+    elements."""
+    base = torch.randn(2, 5, 1, 64).to(dtype)
     if kind == "broadcast":
         t = base.expand(2, 5, 4, 64)
     else:
-        t = torch.randn(2, 5, 4, 68).bfloat16()[..., :64]
+        pad = 8 // base.element_size()
+        t = torch.randn(2, 5, 4, 64 + pad).to(dtype)[..., :64]
     assert tfa._kernel_input("k", t, t.device).is_contiguous()
-    ok = torch.randn(2, 5, 12, 64).bfloat16()[:, :, 4:8]
+    ok = torch.randn(2, 5, 12, 64).to(dtype)[:, :, 4:8]
     assert tfa._kernel_input("k", ok, ok.device) is ok
 
 
