@@ -247,6 +247,49 @@ The f32 and f16 paths (run after phases 5 and 7):
                flash pair 12 + 12 and LayerNorm 25 + 25 a step, all in
                f32; losses falling; MFU against the GEMMs' f32 rate.
 
+The f16 and f32 options of rows 14, 15, 17 and 18:
+  4d. serve_f16, serve_f32 (after serve_robust) — phase 4 with weights
+               in f16 / f32 (its graph check left to bf16), then an
+               int8-KV engine with a speculative chain of 4; every
+               request finishes, the pool drains, row 18 runs only in
+               the run's dtype (fp by graph replay, int8, suffix, each
+               >= 1). The logits check: f16 within 1.5 x the plain f16
+               path's distance from an f32 evaluation; f32 within 1.5 x
+               the distance of a twin whose plain flash takes
+               TF32-rounded operands (the f32 flash kernel multiplies on
+               TF32), the off-by-one above both; and row 18 alone (the
+               flash prefill on its plain version) no farther from the
+               plain f32 path in the chunk and decode steps than a plain
+               ragged attention RAGGED_F32_TOL off, which the plain
+               ragged attention on TF32 operands must exceed.
+  5d. train_p32 (after grad_check) — phase 5's recipe at
+               `flagship_2b(param_dtype=float32)`, the JAX default: bf16
+               compute, f32 parameters, 8-bit moments; row 17 exactly 12
+               launches a step, all f32; the flash pair and rows 7-8 at
+               the dense counts in bf16; losses falling.
+  6a. train_moe_f32, train_moe_f16, grad_check_moe_f32 (after
+               grad_check_moe) — the MoE config at dtype = param_dtype =
+               float32 (12 layers, batch MOE_BATCH, 1 + 2 steps)
+               and float16 (2 layers, 2 + 2 steps), 8-bit AdamW: rows
+               14, 15 and 17 and the flash and norm kernels at exactly
+               the step's counts, all in the run's dtype; f32 losses
+               falling, f16 finite. Then the f32 MoE's gradients at 2
+               layers against the plain f32 path, routing by the plain
+               path's maps: <= F32_GRAD_TOL a group, the dispatch
+               backward's second choice dropped at least 10 x that.
+The kernels phase holds those options at the paths' shapes
+(`_dtype_option_cases`): rows 14-15 at the MoE maps in f32 and f16, bit
+for bit, each with a planted control 10 ulps or more off; row 17 over
+every leaf size of the three trees, p within 2 f32 ulps / 1 f16 ulp,
+codes within one e4m3 step, the decay-without-lr control 10 x above;
+row 18 in f16 (F16_TOL) and f32 (RAGGED_F32_TOL, on FFMA) at the decode,
+fused and full32 batches, over int8 pools and with the chain and tree
+verify's slabs, each with a planted control 10 x above; the f16 flash
+backward also at [1, 300, 4/1, 72] causal (held); the build phase
+counts rows 14, 15, 17 and 18's functions by element type and requires
+LDGSTS in every ragged split kernel, HMMA in the bf16 and f16 ones and
+none in the f32 ones.
+
 The kernels phase holds the f32 option of rows 1-5 (within F32_TOL,
 the LSE within F32_LSE_TOL) at the eager ERNIE's [64, 512, 12, 64]
 non-causal, the flagship's [16, 2048, 32/8, 128] causal and DiT's
@@ -300,6 +343,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -388,13 +432,67 @@ _SASS_MARKS = {"flash_fwd": ("HGMMA", "UTMALDG"),
                "adaln": ("LDGSTS",)}
 
 
+# the template argument of a kernel's mangled name: its element type
+_SASS_TYPE = re.compile(r"kernelI(13__nv_bfloat16|6__half|f)")
+_SASS_TAGS = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+
+
+def _sass_by_function(sass, marks):
+    """{function: (element type or None, {mark: count}, instructions)}
+    of one library's `cuobjdump -sass` listing."""
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        head, body = fn.split("\n", 1)
+        m = _SASS_TYPE.search(head)
+        out[head.strip()] = (_SASS_TAGS[m.group(1)] if m else None,
+                             {k: body.count(k) for k in marks},
+                             body.count(";"))
+    return out
+
+
+def _typed_sass(_build):
+    """Rows 14, 15, 17 and 18 by element type: each library's functions
+    whose template argument is bf16, f16 or f32, with their instruction
+    count and LDGSTS / HMMA / FFMA counts. Raises unless every ragged
+    split kernel holds LDGSTS (its cp.async ring), every bf16 and f16 one
+    HMMA (the mma.sync products), the f32 ones none (FFMA), and every
+    library has functions of all three types."""
+    out = {}
+    marks = ("LDGSTS", "HMMA", "FFMA")
+    for name in ("moe_dispatch", "adamw_q", "ragged_paged_attention"):
+        sass = subprocess.run(
+            [_build.cuobjdump(), "-sass", str(_build.library_path(name))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        fns = _sass_by_function(sass, marks)
+        by = {}
+        for head, (tag, counts, n) in fns.items():
+            if tag is None:
+                continue
+            d = by.setdefault(tag, {"functions": 0, "instructions": 0,
+                                    **{k: 0 for k in marks}})
+            d["functions"] += 1
+            d["instructions"] += n
+            for k, v in counts.items():
+                d[k] += v
+            if "ragged_split_kernel" in head and (
+                    not counts["LDGSTS"]
+                    or (tag == "f32") == bool(counts["HMMA"])):
+                raise AssertionError(f"{name}: {head} has {counts}")
+        if sorted(by) != ["bf16", "f16", "f32"]:
+            raise AssertionError(f"{name}: element types {sorted(by)} in "
+                                 f"its SASS")
+        out[name] = by
+    return out
+
+
 def _sass_counts(_build):
     """How many of each instruction in _SASS_MARKS `cuobjdump -sass` finds
     in each library named there; raises where one is missing. The flash
     libraries' counts also by the kernels' element type ("by_dtype":
     the functions whose mangled names hold __nv_bfloat16 or __half), each
-    of which must hold them too."""
-    counts = {}
+    of which must hold them too; rows 14, 15, 17 and 18 by element type
+    (`_typed_sass`)."""
+    counts = {"typed": _typed_sass(_build)}
     for name, marks in _SASS_MARKS.items():
         sass = subprocess.run(
             [_build.cuobjdump(), "-sass", str(_build.library_path(name))],
@@ -608,61 +706,79 @@ def _ragged_case(kind, H, KV, hd, gen, flush, bs=16, M=64):
     return res
 
 
-def _ragged_option_case(kind, H, KV, hd, gen, flush):
+def _ragged_option_case(kind, H, KV, hd, gen, flush, dtype=torch.bfloat16,
+                        path=None):
     """Row 18's int8 option ("int8 <batch>", a `_ragged_case` batch over
-    int8 twins of its pools) or its suffix option (a `bench_kernels`
-    SPEC_KINDS shape: chain verify, tree verify, draft step) against the
-    plain version as `_ragged_case` holds it (KERNEL_TOL, invalid queries
-    zero, bit-identical twice, host and CUDA-graph times, the bound from
-    this data's live bytes), plus a planted control that must read above
-    KERNEL_TOL: the kernel run with each block's scales taken from the
-    block before (int8; the bf16 pools are drawn with per-block
-    magnitudes 1/4 to 4, as real K/V vary) or with the slab visibility
-    shifted by one row (suffix), held to the sound plain version."""
+    int8 twins of its pools), its suffix option (a `bench_kernels`
+    SPEC_KINDS shape: chain verify, tree verify, draft step) or, for the
+    f16 and f32 options, its fp pools at a `_ragged_case` batch, against
+    the plain version as `_ragged_case` holds it (_RAGGED_TOLS[dtype],
+    invalid queries zero, bit-identical twice, host and CUDA-graph times,
+    the bound from this data's live bytes), plus a planted control that
+    must read above the bound (10 times it for f16 and f32): the kernel
+    run with each block's scales taken from the block before (int8; the
+    fp pools are drawn with per-block magnitudes 1/4 to 4, as real K/V
+    vary), with the slab visibility shifted by one row (suffix) or with
+    every position one short (fp: each query loses its own key), held to
+    the sound plain version. q, the fp pools and the slab in `dtype`."""
     from paddle_tpu_torch.nlp import ragged_attention as ra
     from paddle_tpu_torch.tools import bench_kernels as bk
     bs, M = 16, 64
-    if kind.startswith("int8 "):
+    tol = _RAGGED_TOLS[dtype]
+    bad_args = None
+    if kind in bk.SPEC_KINDS:
+        args, (pos, val), opts = bk.ragged_spec_batch(kind, H, KV, hd, bs, M,
+                                                      gen, SEED, dtype)
+        bad = dict(opts, suffix_vis=opts["suffix_vis"].roll(1, dims=-1)
+                   .contiguous())
+        control = "the slab visibility shifted by one row"
+    elif kind.startswith("int8 "):
         args, (pos, val) = bk.ragged_batch(kind[5:], H, KV, hd, bs, M, gen,
-                                           SEED)
+                                           SEED, dtype)
         N = args[1].shape[0]
         f = torch.exp2(torch.rand(N, device="cuda", generator=gen) * 4 - 2)
         kc, vc, opts = bk.quantize_pools(
-            (args[1].float() * f[:, None, None, None]).bfloat16(),
-            (args[2].float() * f[:, None, None, None]).bfloat16())
+            (args[1].float() * f[:, None, None, None]).to(dtype),
+            (args[2].float() * f[:, None, None, None]).to(dtype))
         args = (args[0], kc, vc, *args[3:])
         bad = {"k_scale": opts["k_scale"].roll(1),
                "v_scale": opts["v_scale"].roll(1)}
         control = "each block's scales from the block before"
     else:
-        args, (pos, val), opts = bk.ragged_spec_batch(kind, H, KV, hd, bs, M,
-                                                      gen, SEED)
-        bad = dict(opts, suffix_vis=opts["suffix_vis"].roll(1, dims=-1)
-                   .contiguous())
-        control = "the slab visibility shifted by one row"
+        args, (pos, val) = bk.ragged_batch(kind, H, KV, hd, bs, M, gen, SEED,
+                                           dtype)
+        opts, bad = {}, {}
+        bad_args = (*args[:4], (args[4] - 1).clamp(min=0), *args[5:])
+        control = "every position one short"
     R, P = pos.shape
     live = np.where(val, pos + 1, 0).max(axis=1)
     slab = "" if "suffix_k" not in opts else \
         f" S={opts['suffix_k'].shape[1]}"
     res = bk.ragged_case(args, pos, val,
                          f"{kind} R={R} P={P}{slab} H={H} KV={KV} hd={hd} "
-                         f"bs={bs} M={M} live={live.tolist()}", flush=flush,
-                         opts=opts)
+                         f"bs={bs} M={M} live={live.tolist()}"
+                         + _dt_label(dtype), flush=flush, opts=opts,
+                         tol=tol)
     if not res["ok"]:
-        raise AssertionError(f"ragged {kind}: {res}")
+        raise AssertionError(f"ragged {kind}{_dt_label(dtype)}: {res}")
     ref = ra.ragged_paged_attention_ref(*args, **opts)
     res["control"] = control
     res["control_rel_err"] = _rel_err(
-        ra.ragged_paged_attention(*args, **{**opts, **bad}), ref,
-        args[5][:, :, None] & (ref.float().abs().amax(-1) > 0))
-    if not res["control_rel_err"] > KERNEL_TOL:
-        raise AssertionError(f"ragged {kind}: the planted control ({control})"
-                             f" reads {res['control_rel_err']}, within "
-                             f"{KERNEL_TOL}: the check cannot see it")
+        ra.ragged_paged_attention(*(bad_args or args), **{**opts, **bad}),
+        ref, args[5][:, :, None] & (ref.float().abs().amax(-1) > 0))
+    floor = tol if dtype == torch.bfloat16 else 10 * tol
+    if not res["control_rel_err"] > floor:
+        raise AssertionError(f"ragged {kind}{_dt_label(dtype)}: the planted "
+                             f"control ({control}) reads "
+                             f"{res['control_rel_err']}, within {floor}: "
+                             f"the check cannot see it")
+    if dtype != torch.bfloat16:
+        res.update(dtype=_dt_label(dtype).strip(), bound=tol, path=path,
+                   planted={control: res["control_rel_err"]})
     res["plain_ms"] = _time_ms(
         lambda: ra.ragged_paged_attention_ref(*args, **opts), 5, flush)
     res["library_ms"] = None
-    del ref, args, opts, bad
+    del ref, args, opts, bad, bad_args
     torch.cuda.empty_cache()
     return res
 
@@ -740,7 +856,20 @@ F32_GRAD_TOL = 2e-3
 # at most 0.1 % of codes different: both versions compute the same f32
 # expressions, but the kernel contracts multiply-adds into FMAs, so a
 # value within an ulp of a float8 rounding boundary may round either way.
+# The f16 option rounds p once, as bf16 does: one f16 ulp. The f32 option
+# does not round p to a narrower type, so it evaluates the plain
+# version's expressions in their order with no contraction (adamw_q.cu):
+# two f32 ulps of p.
 ADAMW_CODE_FRAC = 1e-3
+ADAMW_PARAM_ULPS = {torch.bfloat16: 1.0, torch.float16: 1.0,
+                    torch.float32: 2.0}
+# Row 18's f32 option multiplies on FFMA in full f32, as its plain version
+# does (cuBLAS f32 einsums, TF32 off); the two differ in summation order
+# and in exp2 of log2-scaled scores against exp: ~1e-7 of a vector's
+# scale. 2e-5 leaves a wide margin while one key lost reads ~1e-1.
+RAGGED_F32_TOL = 2e-5
+_RAGGED_TOLS = {torch.bfloat16: KERNEL_TOL, torch.float16: F16_TOL,
+                torch.float32: RAGGED_F32_TOL}
 
 
 def _sdpa_grad_ms(q, k, v, dout, iters, causal=True, layout="bshd"):
@@ -1236,15 +1365,19 @@ def _adamw_leaves(shapes):
             for _, group in sorted(by_size.items(), reverse=True)]
 
 
-def _adamw_case(shape, names, peaks, gen):
+def _adamw_case(shape, names, peaks, gen, dtype=torch.bfloat16):
     """One leaf of the fused 8-bit AdamW from a mid-training state, the
     kernel and the plain version each on its own copy; `names` are the
     leaves of the trained tree that have this size (the step launches the
-    kernel once for each)."""
+    kernel once for each). g and p in `dtype`: bf16, or the f16 and f32
+    options (p within ADAMW_PARAM_ULPS of the plain version, each with a
+    planted control: the plain version decaying p by wd instead of
+    lr * wd, which must read 10 times the bound)."""
     from paddle_tpu_torch.optimizer import quant_state as qs
+    from paddle_tpu_torch.tools.bench_flash import _graph_ms
     dev = "cuda"
-    p = (0.02 * torch.randn(shape, device=dev, generator=gen)).bfloat16()
-    g = (1e-3 * torch.randn(shape, device=dev, generator=gen)).bfloat16()
+    p = (0.02 * torch.randn(shape, device=dev, generator=gen)).to(dtype)
+    g = (1e-3 * torch.randn(shape, device=dev, generator=gen)).to(dtype)
     m0 = 1e-3 * torch.randn(shape, device=dev, generator=gen)
     v0 = 1e-6 * torch.rand(shape, device=dev, generator=gen)
     mq, vq = qs._quantize(m0, False), qs._quantize(v0, True)
@@ -1260,20 +1393,26 @@ def _adamw_case(shape, names, peaks, gen):
     pk, mk, vk = copy()
     pr, mr, vr = copy()
     qs.fused_leaf_update(sc, g, pk, mk, vk, **hp)
+    again = copy()
+    qs.fused_leaf_update(sc, g, *again, **hp)
     qs.fused_leaf_update_ref(sc, g, pr, mr, vr, **hp)
     torch.cuda.synchronize()
-    # one bf16 ulp of the parameter's magnitude before or after the step:
-    # where p and lr * update cancel, the result inherits the f32
-    # rounding of the terms that cancelled, not of the tiny result
-    mag = torch.maximum(p.float().abs(), pr.float().abs())
-    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -126)))
-                     - 7)
-    p_ulps = ((pk.float() - pr.float()).abs() / ulp).max().item()
+    repeat = (torch.equal(again[0], pk)
+              and all(torch.equal(a.codes, b.codes)
+                      and torch.equal(a.scale, b.scale)
+                      for a, b in ((again[1], mk), (again[2], vk))))
+    del again
+    # ulps of the parameter's magnitude before or after the step: where p
+    # and lr * update cancel, the result inherits the f32 rounding of the
+    # terms that cancelled, not of the tiny result
+    p_ulps = _ulps(pk, pr, dtype, p)
+    bound = ADAMW_PARAM_ULPS[dtype]
     res = {"shape": f"{list(shape)} ({p.numel()} values: "
-                    f"{', '.join(names)})", "step_launches": len(names),
+                    f"{', '.join(names)})" + _dt_label(dtype),
+           "step_launches": len(names),
            "max_abs_err": (pk.float() - pr.float()).abs().max().item(),
-           "param_ulps": p_ulps}
-    ok = p_ulps <= 1.0
+           "param_ulps": p_ulps, "repeat": repeat}
+    ok = p_ulps <= bound and repeat
     for name, a, b in (("m", mk, mr), ("v", vk, vr)):
         ca, cb = a.codes.float(), b.codes.float()
         steps = ((ca - cb).abs() / _f8_step(torch.maximum(ca.abs(),
@@ -1287,25 +1426,49 @@ def _adamw_case(shape, names, peaks, gen):
     if not ok:
         raise AssertionError(f"adamw_q {list(shape)}: {res}")
     res["max_rel_err"] = max(res["m_scale_rel"], res["v_scale_rel"])
+    if dtype != torch.bfloat16:
+        pc, mc, vc = copy()
+        qs.fused_leaf_update_ref(sc, g, pc, mc, vc,
+                                 **dict(hp, wd=hp["wd"] / 1e-4))
+        res["dtype"] = _dt_label(dtype).strip()
+        res["bound"] = f"{bound} {res['dtype']} ulp"
+        res["planted"] = _planted(res["shape"], [(
+            "decay_without_lr", _ulps(pk, pc, dtype, p))], bound)
+        del pc, mc, vc
     n, nb = p.numel(), mq.codes.shape[0]
     res["ms"] = _time_ms(lambda: qs.fused_leaf_update(sc, g, pk, mk, vk,
                                                       **hp), 20)
+    res["graph_ms"] = _graph_ms(lambda: qs.fused_leaf_update(
+        sc, g, pk, mk, vk, **hp), 10)
     res["plain_ms"] = _time_ms(lambda: qs.fused_leaf_update_ref(
         sc, g, pr, mr, vr, **hp), 3)
     res["library_ms"] = None
-    # g, p read and p written (bf16); both moments' codes read and
-    # written; their scales read and written; ~25 f32 operations a value
-    res.update(_bound(25.0 * n, 6.0 * n + 4.0 * n + 16.0 * nb + 16, peaks,
-                      peaks[2]))
+    # g, p read and p written (in the leaf's dtype); both moments' codes
+    # read and written; their scales read and written; ~25 f32 operations
+    # a value
+    es = p.element_size()
+    res.update(_bound(25.0 * n, 3.0 * es * n + 4.0 * n + 16.0 * nb + 16,
+                      peaks, peaks[2]))
     return res
 
 
-def _bf16_ulps(a, b):
-    """The largest |a - b| over the elements, in bf16 ulps of the larger
-    of the two magnitudes (2^(e-7) for a value of exponent e)."""
+# mantissa bits and the smallest ulp (subnormal spacing) of each type
+_MANT = {torch.bfloat16: (7, 2.0 ** -133), torch.float16: (10, 2.0 ** -24),
+         torch.float32: (23, 2.0 ** -149)}
+
+
+def _ulps(a, b, dtype, before=None):
+    """The largest |a - b| over the elements, in ulps of `dtype` at the
+    largest magnitude of a, b (and `before`, the value before a step):
+    2^(e - mantissa bits) for a value of exponent e, never below the
+    type's subnormal spacing."""
+    bits, tiny = _MANT[dtype]
     af, bf = a.float(), b.float()
-    mag = torch.maximum(af.abs(), bf.abs()).clamp(min=2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    mag = torch.maximum(af.abs(), bf.abs())
+    if before is not None:
+        mag = torch.maximum(mag, before.float().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -126)))
+                     - bits).clamp(min=tiny)
     return ((af - bf).abs() / ulp).max().item()
 
 
@@ -1339,113 +1502,166 @@ def _moe_maps(gen, B=20, S=2048):
             "pairs_routed": int(valid.sum().item())}
 
 
-def _wsum_case(label, src, idx, w, rows_read, step_launches, peaks, flush):
+def _wsum_case(label, src, idx, w, rows_read, step_launches, peaks, flush,
+               path="train_moe"):
     """gather_wsum at one of the MoE path's shapes against its plain
     version: bit for bit at k=1, within one bf16 ulp per element at k=2
     (both compute the same f32 products and sums in the same order; the
     kernel never contracts them into FMAs, so they should agree bit for
     bit there too, and a one-ulp allowance covers a rounding of the f32
-    sum landing on a bf16 tie). `rows_read` is the number of source rows
-    the data needs; the library yardstick is one embedding_bag call (sum
-    mode, per-sample weights in the table's dtype)."""
+    sum landing on a bf16 tie); the f16 and f32 options bit for bit at
+    every k, with a planted control (the plain version reading each
+    choice's next row) at least 10 ulps off. `rows_read` is the number of
+    source rows the data needs; the library yardstick is one embedding_bag
+    call (sum mode, per-sample weights in the table's dtype)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import moe_dispatch as md
+    from paddle_tpu_torch.tools.bench_flash import _graph_ms
     B, M, k = idx.shape
     D = src.shape[-1]
+    dt = src.dtype
     out = md.gather_wsum(src, idx, w)
+    again = md.gather_wsum(src, idx, w)
     ref = md._gather_wsum_ref(src, idx, w)
     torch.cuda.synchronize()
-    ulps = _bf16_ulps(out, ref)
+    ulps = _ulps(out, ref, dt)
     exact = torch.equal(out, ref)
-    if (k == 1 and not exact) or not ulps <= 1.0:
-        raise AssertionError(f"gather_wsum {label}: {ulps} bf16 ulps from "
-                             f"the plain version (bit-identical: {exact})")
+    if (k == 1 or dt != torch.bfloat16) and not exact or not ulps <= 1.0 \
+            or not torch.equal(out, again):
+        raise AssertionError(f"gather_wsum {label}{_dt_label(dt)}: {ulps} "
+                             f"ulps from the plain version (bit-identical: "
+                             f"{exact})")
     err = (out.float() - ref.float()).abs().max().item()
     rel = _rel_err(out, ref, ref.abs().amax(-1) > 0)     # non-empty rows
-    del out, ref
+    planted = None
+    if dt != torch.bfloat16:
+        shifted = md._gather_wsum_ref(src, (idx + 1) % src.shape[1], w)
+        planted = _planted(label, [("next_row", _ulps(out, shifted, dt))],
+                           1.0)
+        del shifted
+    del out, ref, again
     bag = idx.reshape(B * M, k)
-    wb = w.reshape(B * M, k).to(src.dtype)
+    wb = w.reshape(B * M, k).to(dt)
     res = {"shape": f"{label}: src {list(src.shape)} -> [{B}, {M}, {D}], "
-                    f"k={k}, {rows_read} rows read",
-           "step_launches": step_launches, "path": "train_moe",
-           "max_abs_err": err, "max_rel_err": rel, "bf16_ulps": ulps,
+                    f"k={k}, {rows_read} rows read" + _dt_label(dt),
+           "step_launches": step_launches, "path": path,
+           "max_abs_err": err, "max_rel_err": rel, "ulps": ulps,
            "bit_identical": exact,
            "ms": _time_ms(lambda: md.gather_wsum(src, idx, w), 20, flush),
+           "graph_ms": _graph_ms(lambda: md.gather_wsum(src, idx, w), 20),
            "plain_ms": _time_ms(lambda: md._gather_wsum_ref(src, idx, w), 3,
                                 flush),
            "library_ms": _time_ms(lambda: F.embedding_bag(
                bag, src[0], mode="sum", per_sample_weights=wb), 20, flush)}
+    if planted is not None:
+        res.update(dtype=_dt_label(dt).strip(), bound="bit for bit",
+                   planted=planted)
     # rows read once, every output row written once, idx and w read; a
     # multiply and an add per term, on the f32 units
-    nbytes = 2.0 * D * (rows_read + B * M) + 8.0 * B * M * k
+    nbytes = src.element_size() * D * (rows_read + B * M) + 8.0 * B * M * k
     res.update(_bound(2.0 * k * B * M * D, nbytes, peaks, peaks[2]))
     return res
 
 
 def _scale_dot_case(label, src, idx, scale, other, rows_read, peaks,
-                    flush):
+                    flush, path="train_moe", step_launches=12):
     """gather_scale_dot at the combine backward's shape against its
     plain version: out within one bf16 ulp per element (one f32 product
-    rounded once, in both), dot within 1e-5 x |row| |other| per slot (an
-    f32 sum of D products in another order: the rounding error of a
-    length-2048 sum is below 2048 x 2^-24 ~ 1.2e-4 of sum |x y| at worst
-    and ~sqrt(2048) x 2^-24 ~ 3e-6 of it in practice)."""
+    rounded once, in both; the f16 and f32 options bit for bit), dot
+    within 1e-5 x |row| |other| per slot (an f32 sum of D products in
+    another order: the rounding error of a length-2048 sum is below
+    2048 x 2^-24 ~ 1.2e-4 of sum |x y| at worst and ~sqrt(2048) x 2^-24
+    ~ 3e-6 of it in practice). The f16 and f32 options also have planted
+    controls: the plain version without the scale (out) and with `other`
+    one row down (dot), each at least 10 times its bound."""
     from paddle_tpu_torch.kernels import moe_dispatch as md
+    from paddle_tpu_torch.tools.bench_flash import _graph_ms
     B, M = idx.shape
     D = src.shape[-1]
+    dt = src.dtype
     out, dot = md.gather_scale_dot(src, idx, scale, other)
+    out2, dot2 = md.gather_scale_dot(src, idx, scale, other)
     rout, rdot = md._gather_scale_dot_ref(src, idx, scale, other)
     torch.cuda.synchronize()
-    ulps = _bf16_ulps(out, rout)
+    ulps = _ulps(out, rout, dt)
     norms = (md._take_rows(src, idx).float().norm(dim=-1)
-             * other.float().norm(dim=-1))
-    dot_rel = ((dot - rdot).abs() / norms.clamp(min=1e-30)).max().item()
-    if not (ulps <= 1.0 and dot_rel <= 1e-5):
-        raise AssertionError(f"gather_scale_dot {label}: out {ulps} bf16 "
-                             f"ulps, dot {dot_rel} x |row||other|")
+             * other.float().norm(dim=-1)).clamp(min=1e-30)
+    dot_rel = ((dot - rdot).abs() / norms).max().item()
+    exact = torch.equal(out, rout)
+    if not (ulps <= 1.0 and dot_rel <= 1e-5) or (
+            dt != torch.bfloat16 and not exact) or not (
+            torch.equal(out, out2) and torch.equal(dot, dot2)):
+        raise AssertionError(f"gather_scale_dot {label}{_dt_label(dt)}: out "
+                             f"{ulps} ulps (bit-identical: {exact}), dot "
+                             f"{dot_rel} x |row||other|")
     err = max((out.float() - rout.float()).abs().max().item(),
               (dot - rdot).abs().max().item())
-    del out, rout, norms
+    planted = None
+    if dt != torch.bfloat16:
+        pout, _ = md._gather_scale_dot_ref(src, idx, torch.ones_like(scale),
+                                           other)
+        _, pdot = md._gather_scale_dot_ref(src, idx, scale,
+                                           other.roll(1, dims=1))
+        live = scale != 0
+        planted = _planted(label, [
+            ("scale_dropped", _ulps(out[live], pout[live], dt))], 1.0)
+        planted.update(_planted(label, [
+            ("other_one_row_down",
+             ((dot - pdot).abs() / norms).max().item())], 1e-5))
+        del pout, pdot
+    del out, rout, norms, out2, dot2
     res = {"shape": f"{label}: src {list(src.shape)}, other "
-                    f"{list(other.shape)}, {rows_read} src rows read",
-           "step_launches": 12, "path": "train_moe",
-           "max_abs_err": err, "max_rel_err": dot_rel, "bf16_ulps": ulps,
+                    f"{list(other.shape)}, {rows_read} src rows read"
+                    + _dt_label(dt),
+           "step_launches": step_launches, "path": path,
+           "max_abs_err": err, "max_rel_err": dot_rel, "ulps": ulps,
            "dot_rel_err": dot_rel,
            "ms": _time_ms(lambda: md.gather_scale_dot(src, idx, scale,
                                                       other), 20, flush),
+           "graph_ms": _graph_ms(lambda: md.gather_scale_dot(
+               src, idx, scale, other), 20),
            "plain_ms": _time_ms(lambda: md._gather_scale_dot_ref(
                src, idx, scale, other), 3, flush),
            "library_ms": None}
+    if planted is not None:
+        res.update(dtype=_dt_label(dt).strip(),
+                   bound="out bit for bit; dot 1e-5 x |row||other|",
+                   planted=planted)
     # src rows read once, every other row read, out and dot written, idx
     # and scale read; a multiply, and a multiply-add for the dot, per value
-    nbytes = (2.0 * D * (rows_read + 2 * B * M) + 4.0 * B * M
-              + 8.0 * B * M)
+    nbytes = (src.element_size() * D * (rows_read + 2 * B * M)
+              + 4.0 * B * M + 8.0 * B * M)
     res.update(_bound(3.0 * B * M * D, nbytes, peaks, peaks[2]))
     return res
 
 
-def _moe_dispatch_cases(peaks, gen, flush):
+def _moe_dispatch_cases(peaks, gen, flush, dtype=torch.bfloat16,
+                        path="train_moe", layers=12):
     """The two MoE kernels at the MoE step's four launch shapes: the
     dispatch forward (k=1, token rows into 102,400 slots), the combine
     forward and the dispatch backward (k=2, slots back into 40,960 token
-    rows: gate-prob and 0/1 weights) and the combine backward."""
+    rows: gate-prob and 0/1 weights) and the combine backward; rows in
+    `dtype`, each shape's launches a step counted for `layers` layers
+    (each recomputed once: dispatch and combine forwards 2 a layer, the
+    two backwards 1)."""
     mp = _moe_maps(gen)
     B, S, k = mp["B"], mp["S"], mp["k"]
     T, M = B * S, mp["E"] * B * mp["C"]
     D = 2048
-    x = torch.randn(1, T, D, device="cuda", generator=gen).bfloat16()
-    slots = torch.randn(1, M, D, device="cuda", generator=gen).bfloat16()
+    L = layers
+    x = torch.randn(1, T, D, device="cuda", generator=gen).to(dtype)
+    slots = torch.randn(1, M, D, device="cuda", generator=gen).to(dtype)
     inv_tok, flat = mp["inv_tok"], mp["flat"]
     wsum = [
         _wsum_case("dispatch forward", x, inv_tok.clamp(min=0)[..., None],
                    (inv_tok >= 0).float()[..., None], mp["tokens_routed"],
-                   24, peaks, flush),
+                   2 * L, peaks, flush, path),
         _wsum_case("combine forward", slots, mp["idx_tk"], mp["w_tk"],
-                   mp["pairs_routed"], 24, peaks, flush),
+                   mp["pairs_routed"], 2 * L, peaks, flush, path),
         _wsum_case("dispatch backward", slots,
                    flat.clamp(min=0).reshape(1, T, k),
                    (flat >= 0).float().reshape(1, T, k),
-                   mp["pairs_routed"], 12, peaks, flush)]
+                   mp["pairs_routed"], L, peaks, flush, path)]
     # the combine backward's operands, built as _CombineWsum.backward
     # builds them: dy is the token-row gradient, other the expert output
     inv_pos = mp["inv_pos"]
@@ -1454,10 +1670,11 @@ def _moe_dispatch_cases(peaks, gen, flush):
         mp["w_tk"].reshape(1, T * k), 1, inv_pos.clamp(min=0).long()), 0.0)
     tok = torch.where(live, torch.div(inv_pos, k, rounding_mode="floor"), 0)
     sdot = [_scale_dot_case("combine backward", x, tok, w_slot, slots,
-                            mp["tokens_routed"], peaks, flush)]
+                            mp["tokens_routed"], peaks, flush, path, L)]
     # a row width the 16-byte loads cannot take is refused, not run plain
     from paddle_tpu_torch.kernels import moe_dispatch as md
-    odd = torch.zeros(1, 4, 12, dtype=torch.bfloat16, device="cuda")
+    odd_d = 12 if torch.tensor([], dtype=dtype).element_size() == 2 else 6
+    odd = torch.zeros(1, 4, odd_d, dtype=dtype, device="cuda")
     i1 = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
     for call in (lambda: md.gather_wsum(odd, i1[..., None],
                                         torch.ones(1, 2, 1, device="cuda")),
@@ -1467,7 +1684,8 @@ def _moe_dispatch_cases(peaks, gen, flush):
             call()
         except ValueError:
             continue
-        raise AssertionError("a MoE gather took D = 12 on the card")
+        raise AssertionError(f"a MoE gather took D = {odd_d} of {dtype} on "
+                             f"the card")
     info = {"slots": M, "pairs": T * k, "pairs_routed": mp["pairs_routed"],
             "tokens_routed": mp["tokens_routed"],
             "dropped_share": 1 - mp["pairs_routed"] / (T * k),
@@ -1719,7 +1937,9 @@ def _f16_kernel_cases(peaks, gen, flush):
     4096] with an f16 weight (control: the weight read one column off);
     rows 9-10 at [32768, 768] with f16 weight and bias (controls: the
     forward's weight one column off, the backward without the
-    x̂·mean(dyw·x̂) term). Returns (flash fwd, flash bwd, rms_fused,
+    x̂·mean(dyw·x̂) term); the flash pair also at [1, 300, 4/1, 72]
+    causal, where dQ += dS·K once read over F16_TOL with dS one f16
+    operand (held, on no path). Returns (flash fwd, flash bwd, rms_fused,
     layer_norm fwd, layer_norm bwd) case lists, each case tagged with its
     O2 path."""
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1727,9 +1947,13 @@ def _f16_kernel_cases(peaks, gen, flush):
     from paddle_tpu_torch.kernels import rms_norm as rn
     f16 = torch.float16
     fwd, bwd = [], []
+    # the odd shape whose dq read over F16_TOL while dS entered dQ += dS K
+    # as one f16 operand (hd 72, S 300 off the tiles, GQA 4:1, causal):
+    # held on no path
     for path, (B, S, H, KV, hd, causal) in (
             ("eager_llama_o2_f16", (2, 2048, 32, 8, 128, True)),
-            ("eager_o2", (64, 512, 12, 12, 64, False))):
+            ("eager_o2", (64, 512, 12, 12, 64, False)),
+            ("held", (1, 300, 4, 1, 72, True))):
         f = _flash_case(B, S, H, KV, hd, peaks, F16_TOL, gen, lse=True,
                         causal=causal, dtype=f16)
         b = _flash_bwd_case(B, S, H, KV, hd, peaks, gen, causal=causal,
@@ -1814,7 +2038,12 @@ def _f32_kernel_cases(peaks, gen, flush):
     flash pair at the f16 trainer's shape (train_f16); rows 7-8 at
     [F32_TRAIN_BATCH * 2048, 4096] in f32 (train_f32) and in f16
     (train_f16), each with an f32 weight (control: the weight one column
-    off). Returns (flash fwd, flash bwd, rms fwd, rms bwd) case lists."""
+    off). The MoE trainers' (MOE_BATCH x 2048, GQA 16/8): the flash
+    pair in f32 (train_moe_f32) and f16 (train_moe_f16), rows 7-8 at
+    [MOE_BATCH * 2048, 2048] in f32 (f32 weight) and f16 (f16
+    weight); train_p32's rows 7-8, bf16 x with an f32 weight at [8 *
+    2048, 4096]. Returns (flash fwd, flash bwd, rms fwd, rms bwd) case
+    lists."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import rms_norm as rn
     f32, f16 = torch.float32, torch.float16
@@ -1827,7 +2056,11 @@ def _f32_kernel_cases(peaks, gen, flush):
                                 "bshd")),
             ("held", f32, (96, 256, 16, 16, 72, False, "bhsd")),
             ("train_f16", f16, (F32_TRAIN_BATCH, 2048, 32, 8, 128, True,
-                                "bshd"))):
+                                "bshd")),
+            ("train_moe_f32", f32, (MOE_BATCH, 2048, 16, 8, 128, True,
+                                    "bshd")),
+            ("train_moe_f16", f16, (MOE_BATCH, 2048, 16, 8, 128, True,
+                                    "bshd"))):
         tol = F32_TOL if dt == f32 else F16_TOL
         by = path.startswith("train")
         f = _flash_case(B, S, H, KV, hd, peaks, tol, gen, lse=True,
@@ -1866,12 +2099,17 @@ def _f32_kernel_cases(peaks, gen, flush):
         fwd.append(f)
         bwd.append(b)
     rf, rb = [], []
-    rows, D, eps = F32_TRAIN_BATCH * 2048, 4096, 1e-5
-    for path, dt in (("train_f32", f32), ("train_f16", f16)):
-        cf, cb = _rms_cases(rows, D, peaks, gen, eps=eps, w_dtype=f32,
+    bf16 = torch.bfloat16
+    for path, dt, wdt, rows, D, eps in (
+            ("train_f32", f32, f32, F32_TRAIN_BATCH * 2048, 4096, 1e-5),
+            ("train_f16", f16, f32, F32_TRAIN_BATCH * 2048, 4096, 1e-5),
+            ("train_p32", bf16, f32, 8 * 2048, 4096, 1e-5),
+            ("train_moe_f32", f32, f32, MOE_BATCH * 2048, 2048, 1e-6),
+            ("train_moe_f16", f16, f16, MOE_BATCH * 2048, 2048, 1e-6)):
+        cf, cb = _rms_cases(rows, D, peaks, gen, eps=eps, w_dtype=wdt,
                             dtype=dt)
         x = torch.randn(rows, D, device="cuda", generator=gen).to(dt)
-        w = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
+        w = (1 + 0.1 * torch.randn(D, device="cuda", generator=gen)).to(wdt)
         dy = torch.randn(rows, D, device="cuda", generator=gen).to(dt)
         off = torch.roll(w, 1)
         out, rstd = rn.rms_norm_fwd(x, w, eps)
@@ -1885,13 +2123,70 @@ def _f32_kernel_cases(peaks, gen, flush):
             _norm_err(dx, rn._rms_train_ref_bwd(x, off, dy, eps)[0],
                       dt)[0])], cb["bound"])
         for c in (cf, cb):
-            c["dtype"] = _dt_label(dt).strip()
+            if dt != bf16:
+                c["dtype"] = _dt_label(dt).strip()
             c["path"] = path
         rf.append(cf)
         rb.append(cb)
         del x, w, dy, off, out, rstd, dx
         torch.cuda.empty_cache()
     return fwd, bwd, rf, rb
+
+
+# The MoE trainers' batch (train_moe, bench.py's; train_moe_f32 and
+# train_moe_f16, and the f16 and f32 cases at their shapes, the largest
+# of 20, 16, 12, 8 and 4 that fits: 20 too, as f32 parameters, gradients
+# and activations take about twice the bf16 step's 15.2 GB).
+MOE_BATCH = 20
+
+
+def _dtype_option_cases(peaks, gen, flush):
+    """The f16 and f32 options of rows 14, 15, 17 and 18 at their paths'
+    shapes, each within its bound of the plain version, bit-identical
+    twice, with a planted control at least 10 times the bound: the MoE
+    dispatch kernels at the MoE step's maps (B = MOE_BATCH) in f32
+    (train_moe_f32, 12 layers) and f16 (train_moe_f16, 2 layers); the
+    fused 8-bit AdamW over every leaf size of the f32 flagship tree
+    (train_p32), the f32 MoE tree (train_moe_f32) and the 2-layer f16 MoE
+    tree (train_moe_f16); ragged paged attention in f16 (serve_f16) and
+    f32 (serve_f32) at the decode, fused and full32 batches, over int8
+    pools at the decode and full32 batches, and with the chain and tree
+    verify's slabs. Returns {kernel name: cases}, each case tagged with
+    its dtype and path."""
+    from paddle_tpu_torch.nlp import llama, moe
+    f16, f32 = torch.float16, torch.float32
+    out = {k: [] for k in ("gather_wsum", "gather_scale_dot", "adamw_q",
+                           "ragged_paged_attention",
+                           "ragged_paged_attention_int8",
+                           "ragged_paged_attention_suffix")}
+    for path, dt, layers in (("train_moe_f32", f32, 12),
+                             ("train_moe_f16", f16, 2)):
+        wsum, sdot, _ = _moe_dispatch_cases(peaks, gen, flush, dt, path,
+                                            layers)
+        out["gather_wsum"] += wsum
+        out["gather_scale_dot"] += sdot
+        torch.cuda.empty_cache()
+    for path, dt, shapes in (
+            ("train_p32", f32, llama._shapes(llama.LlamaConfig.flagship_2b())),
+            ("train_moe_f32", f32,
+             moe._shapes(moe.MoeConfig.flagship_moe())),
+            ("train_moe_f16", f16, moe._shapes(
+                moe.MoeConfig.flagship_moe(num_hidden_layers=2)))):
+        for shape, names in _adamw_leaves(shapes):
+            out["adamw_q"].append({"path": path, **_adamw_case(
+                shape, names, peaks, gen, dt)})
+            torch.cuda.empty_cache()
+    H, KV, hd = 32, 8, 128
+    for path, dt in (("serve_f16", f16), ("serve_f32", f32)):
+        for name, kinds in (
+                ("ragged_paged_attention", ("decode", "fused", "full32")),
+                ("ragged_paged_attention_int8", ("int8 decode",
+                                                 "int8 full32")),
+                ("ragged_paged_attention_suffix", ("verify_chain",
+                                                   "verify_tree"))):
+            out[name] += [_ragged_option_case(kind, H, KV, hd, gen, flush,
+                                              dt, path) for kind in kinds]
+    return out
 
 
 def phase_kernels(peaks):
@@ -2065,6 +2360,22 @@ def phase_kernels(peaks):
     flash += [c for c in f32_fwd if c["dtype"] == "f16"]
     bwd += [c for c in f32_bwd if c["dtype"] == "f16"]
     rms += list(zip(f32_rf, f32_rb))
+    # the f16 and f32 options of rows 14, 15, 17 and 18, and the
+    # serving paths' flash prefill at the top bucket in f16 and f32
+    opts = _dtype_option_cases(peaks, gen, flush)
+    wsum += opts["gather_wsum"]
+    sdot += opts["gather_scale_dot"]
+    adamw += opts["adamw_q"]
+    ragged += opts["ragged_paged_attention"]
+    ragged_int8 += opts["ragged_paged_attention_int8"]
+    ragged_suffix += opts["ragged_paged_attention_suffix"]
+    serve_f32 = []
+    for path, dt in (("serve_f16", torch.float16),
+                     ("serve_f32", torch.float32)):
+        c = _flash_case(2, 512, H, KV, hd, peaks, _TOLS.get(dt, F32_TOL),
+                        gen, dtype=dt)
+        c.update(dtype=_dt_label(dt).strip(), path=path)
+        (flash if dt == torch.float16 else serve_f32).append(c)
     del scratch
     torch.cuda.empty_cache()
     cases = {"flash_attention_fwd": flash, "ragged_paged_attention": ragged,
@@ -2072,7 +2383,7 @@ def phase_kernels(peaks):
              "ragged_paged_attention_suffix": ragged_suffix,
              "flash_attention_bwd": bwd,
              "flash_attention_fwd_f32": [c for c in f32_fwd
-                                         if c["dtype"] == "f32"],
+                                         if c["dtype"] == "f32"] + serve_f32,
              "flash_attention_bwd_f32": [c for c in f32_bwd
                                          if c["dtype"] == "f32"],
              "rms_norm_fwd": [f for f, _ in rms],
@@ -2092,6 +2403,9 @@ def phase_kernels(peaks):
            "ln_sum_tol": LN_SUM_TOL, "rms_f32_tol": RMS_F32_TOL,
            "adaln_f32_tol": ADALN_F32_TOL, "adaln_stat_tol": ADALN_STAT_TOL,
            "adaln_sum_tol": ADALN_SUM_TOL,
+           "ragged_f32_tol": RAGGED_F32_TOL,
+           "adamw_param_ulps": {str(k): v for k, v in
+                                ADAMW_PARAM_ULPS.items()},
            "moe_routing": moe_info, **cases})
     torch.cuda.empty_cache()
     return cases
@@ -2099,12 +2413,24 @@ def phase_kernels(peaks):
 
 # -------------------------------------------------------------- 4. serve
 @contextlib.contextmanager
+def _patched(mod, **fns):
+    """`mod`'s attributes replaced by `fns` inside, restored after."""
+    old = {k: getattr(mod, k) for k in fns}
+    for k, f in fns.items():
+        setattr(mod, k, f)
+    try:
+        yield
+    finally:
+        for k, f in old.items():
+            setattr(mod, k, f)
+
+
 def _off_by_one(paged):
-    """Plant an off-by-one fault in forward_paged's plain attention, the
-    control that shows the logits check can see a fault: the ragged path
-    hides each query's own key (positions - 1), and the cold-prefill path
-    shifts the keys and values by one position (query i loses key i and
-    sees key 0 twice)."""
+    """An off-by-one fault in forward_paged's plain attention (for
+    `_patched`), the control that shows the logits check can see a
+    fault: the ragged path hides each query's own key (positions - 1),
+    and the cold-prefill path shifts the keys and values by one position
+    (query i loses key i and sees key 0 twice)."""
     flash, ragged = paged.flash_attention_fwd_ref, \
         paged.ragged_paged_attention_ref
 
@@ -2119,13 +2445,51 @@ def _off_by_one(paged):
         return ragged(q, k_pool, v_pool, table, (positions - 1).clamp(min=0),
                       valid, **opts)
 
-    paged.flash_attention_fwd_ref = flash_fault
-    paged.ragged_paged_attention_ref = ragged_fault
-    try:
-        yield
-    finally:
-        paged.flash_attention_fwd_ref = flash
-        paged.ragged_paged_attention_ref = ragged
+    return {"flash_attention_fwd_ref": flash_fault,
+            "ragged_paged_attention_ref": ragged_fault}
+
+
+def _tf32_operands(paged):
+    """forward_paged's plain flash and ragged attention fed q, k and v
+    (or the pools) rounded to TF32 (`_tf32`), for `_patched`: an f32
+    path carrying the operand rounding of a kernel that multiplies on
+    TF32 tensor cores, as the f32 flash kernel does."""
+    flash, ragged = paged.flash_attention_fwd_ref, \
+        paged.ragged_paged_attention_ref
+
+    def flash_tf32(q, k, v, causal=True, scale=None):
+        return flash(_tf32(q), _tf32(k), _tf32(v), causal=causal,
+                     scale=scale)
+
+    def ragged_tf32(q, k_pool, v_pool, *args, **opts):
+        return ragged(_tf32(q), _tf32(k_pool), _tf32(v_pool), *args, **opts)
+
+    return {"flash_attention_fwd_ref": flash_tf32,
+            "ragged_paged_attention_ref": ragged_tf32}
+
+
+def _tf32(x):
+    """f32 x rounded to TF32's 10 mantissa bits (to nearest, ties away
+    from zero), as the tensor cores take f32 operands."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _ragged_at_bound(paged, tol, seed):
+    """forward_paged's plain ragged attention with each output vector
+    (query, head) moved by uniform noise of up to `tol` of its largest
+    element, for `_patched`: an attention exactly as far off as the
+    kernels phase lets row 18 be (`_rel_err` <= tol), seeded."""
+    ragged = paged.ragged_paged_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def noisy(*args, **opts):
+        o = ragged(*args, **opts)
+        u = torch.rand(o.shape, generator=gen, device=o.device,
+                       dtype=o.dtype)
+        return o + tol * o.abs().amax(-1, keepdim=True) * (2 * u - 1)
+
+    return {"ragged_paged_attention_ref": noisy}
 
 
 def _logits_check(params, cfg):
@@ -2133,13 +2497,26 @@ def _logits_check(params, cfg):
     prompts (the flash kernel), a continuing 64-token chunk of each (the
     ragged kernel, as a chunked prefill runs it), then one decode step;
     the chunk and decode tokens are fixed, not sampled. It runs four
-    ways, each on its own pool: bf16 with the kernels ("kernel"), bf16
-    with their plain versions ("ref"), bf16 with the plain versions and
-    a planted off-by-one fault ("fault", `_off_by_one`), and an f32
-    evaluation of the plain versions ("f32": the same bf16 weights, cast
-    to f32 where they are used). Returns, for each step, each bf16
+    ways, each on its own pool: in cfg.dtype (bf16 or f16) with the
+    kernels ("kernel"), with their plain versions ("ref"), with the plain
+    versions and a planted off-by-one fault ("fault", `_off_by_one`), and
+    an f32 evaluation of the plain versions ("f32": the same weights,
+    cast to f32 where they are used). Returns, for each step, each
     path's relative RMS distance from the f32 logits, and the kernel and
-    fault paths' distances as ratios to the plain bf16 path's."""
+    fault paths' distances as ratios to the plain path's.
+
+    In f32 the plain path is itself the f32 evaluation, and the f32
+    flash kernel multiplies on TF32, whose rounding 32 random layers
+    amplify as they amplify bf16's: the yardstick is then a twin
+    ("twin": the plain path with the flash operands rounded to TF32),
+    and the kernel and fault paths' distances from the plain f32 path
+    are returned as ratios to the twin's. Row 18, on FFMA in f32, is
+    then held on its own, in the chunk and decode steps: the kernel path
+    with the flash prefill on its plain version ("ragged") against the
+    plain path whose ragged attention sits at RAGGED_F32_TOL
+    ("ragged_at_bound", `_ragged_at_bound`), its distance as
+    "ragged_ratio"; the control, the plain ragged attention on TF32
+    operands ("ragged_tf32"), as "ragged_control_ratio"."""
     import dataclasses
     from paddle_tpu_torch.nlp import paged
     dev = "cuda"
@@ -2162,18 +2539,32 @@ def _logits_check(params, cfg):
     pos = lengths[:, None] + C
     steps.append((toks[:, P + C:], pos, torch.ones_like(pos, dtype=bool),
                   False))
-    runs = {"kernel": (cfg, "kernel"), "ref": (cfg, "ref"),
-            "fault": (cfg, "ref"),
-            "f32": (dataclasses.replace(cfg, dtype=torch.float32), "ref")}
+    f32 = cfg.dtype == torch.float32
+    # name: (config, attention_impl, forward_paged's functions replaced)
+    runs = {"kernel": (cfg, "kernel", {}), "ref": (cfg, "ref", {}),
+            "fault": (cfg, "ref", _off_by_one(paged))}
+    if f32:
+        tf32 = _tf32_operands(paged)
+        runs.update({
+            "twin": (cfg, "ref", {"flash_attention_fwd_ref":
+                                  tf32["flash_attention_fwd_ref"]}),
+            "ragged": (cfg, "kernel", {"flash_attention_fwd":
+                                       paged.flash_attention_fwd_ref}),
+            "ragged_at_bound": (cfg, "ref", _ragged_at_bound(
+                paged, RAGGED_F32_TOL, SEED + 6)),
+            "ragged_tf32": (cfg, "ref", {"ragged_paged_attention_ref":
+                                         tf32["ragged_paged_attention_ref"]})})
+    else:
+        runs["f32"] = (dataclasses.replace(cfg, dtype=torch.float32), "ref",
+                       {})
     res = {}
-    for name, (c, impl) in runs.items():
+    for name, (c, impl, fns) in runs.items():
         k, v, _, _ = paged.init_pool(c, B * M, bs, device=dev)
         cache = paged.PagedKVCache(k, v, table,
                                    torch.zeros(B, dtype=torch.int32,
                                                device=dev))
         res[name] = []
-        with (_off_by_one(paged) if name == "fault"
-              else contextlib.nullcontext()):
+        with _patched(paged, **fns):
             for tk, ps, vl, cold in steps:
                 lg, cache = paged.forward_paged(params, tk, cache, ps, vl,
                                                 c, is_prefill=cold,
@@ -2186,15 +2577,33 @@ def _logits_check(params, cfg):
 
     out = {}
     for i, step in enumerate(("prefill", "chunk", "decode")):
-        f32 = res["f32"][i]
-        c = {f"{n}_vs_f32": rel(res[n][i], f32)
+        if f32:
+            ref = res["ref"][i]
+            c = {f"{n}_vs_ref": rel(res[n][i], ref)
+                 for n in ("kernel", "fault", "twin")}
+            c["kernel_ratio"] = c["kernel_vs_ref"] / c["twin_vs_ref"]
+            c["fault_ratio"] = c["fault_vs_ref"] / c["twin_vs_ref"]
+            c["greedy_agree_kernel_ref"] = (
+                res["kernel"][i].argmax(-1) == ref.argmax(-1)
+            ).float().mean().item()
+            if step != "prefill":
+                c.update({f"{n}_vs_ref": rel(res[n][i], ref) for n in
+                          ("ragged", "ragged_at_bound", "ragged_tf32")})
+                c["ragged_ratio"] = c["ragged_vs_ref"] \
+                    / c["ragged_at_bound_vs_ref"]
+                c["ragged_control_ratio"] = c["ragged_tf32_vs_ref"] \
+                    / c["ragged_at_bound_vs_ref"]
+            out[step] = c
+            continue
+        f32l = res["f32"][i]
+        c = {f"{n}_vs_f32": rel(res[n][i], f32l)
              for n in ("kernel", "ref", "fault")}
         c["kernel_vs_ref"] = rel(res["kernel"][i], res["ref"][i])
         c["kernel_ratio"] = c["kernel_vs_f32"] / c["ref_vs_f32"]
         c["fault_ratio"] = c["fault_vs_f32"] / c["ref_vs_f32"]
         for n in ("kernel", "ref"):
             c[f"greedy_agree_{n}_f32"] = (
-                res[n][i].argmax(-1) == f32.argmax(-1)).float().mean().item()
+                res[n][i].argmax(-1) == f32l.argmax(-1)).float().mean().item()
         out[step] = c
     return out
 
@@ -2362,11 +2771,70 @@ def _graph_check(params, cfg, graphed, n_requests: int = 8,
     return res
 
 
-def phase_serve(layers: int = 32, n_requests: int = 12):
+def _serve_requests(cfg, n_requests):
+    """The serve burst's requests: prompt lengths 16-512 and two of
+    513-700 (chunked prefill), budgets 32, 24, 16 in turn, tokens from
+    the seed. Returns (lengths, budgets, prompts)."""
+    rng = np.random.RandomState(SEED)
+    lengths = rng.randint(16, 513, n_requests)
+    lengths[[3, 7]] = rng.randint(513, 701, 2)        # chunked prefill
+    budgets = [(32, 24, 16)[i % 3] for i in range(n_requests)]
+    prompts = [rng.randint(1, cfg.vocab_size, int(n)).tolist()
+               for n in lengths]
+    return lengths, budgets, prompts
+
+
+def _serve_stream(eng, prompts, budgets):
+    """The serve burst on a started engine: 3 requests at once (a cold
+    prefill with nothing decoding), then each later one as soon as the
+    one before it streams a token, the first one's stream() consumed on
+    a thread. Returns (requests, streamed tokens, start, end)."""
+    t_start = time.monotonic()
+    reqs = [eng.submit(prompts[i], max_new_tokens=budgets[i])
+            for i in range(3)]
+    streamed: list = []
+    consumer = threading.Thread(
+        target=lambda: streamed.extend(reqs[0].stream()))
+    consumer.start()
+    for i in range(3, len(prompts)):
+        while not reqs[-1].tokens and not reqs[-1].done:
+            time.sleep(0.002)
+        reqs.append(eng.submit(prompts[i], max_new_tokens=budgets[i]))
+    for r in reqs:
+        r.wait(timeout=900)
+    t_end = time.monotonic()
+    consumer.join(timeout=60)
+    return reqs, streamed, t_start, t_end
+
+
+def phase_serve(layers: int = 32, n_requests: int = 12,
+                dtype=torch.bfloat16, spec_requests: int = 8,
+                spec_budget: int = 16):
+    """Serving at Llama-3-8B widths (random weights in `dtype` from the
+    seed, `layers` layers; serve_f16 and serve_f32 run it in f16 and
+    f32): the default engine (prefix cache, trace, SLOs, the watchdog),
+    every step shape captured by `warmup()` (SERVE_GRAPHS graphs), then
+    a burst of `n_requests` with admissions mid-decode
+    (`_serve_requests`, `_serve_stream`): every request finishes, the
+    pool drains, `compile_count` stays flat, rows 1 and 18 launch by
+    graph replay and only in `dtype`. bf16 then runs the graph check
+    (`_graph_check`); f16 and f32 run an int8-KV engine with a
+    speculative chain of 4 (`_serve_burst`: `spec_requests` prompts of
+    16-700 tokens, `spec_budget` tokens each; bf16's is
+    phase_serve_quant_spec's (b)), where row 18's int8 and suffix
+    options launch, only in `dtype`. Then the logits check
+    (`_logits_check`), each yardstick with its planted control above."""
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.kernels.flash_attention import \
+        flash_attention_fwd as flash
     from paddle_tpu_torch.nlp import llama
+    from paddle_tpu_torch.nlp.ragged_attention import \
+        ragged_paged_attention as rpa
     from paddle_tpu_torch.serving import RequestState, ServingEngine
 
-    cfg = llama.LlamaConfig.llama3_8b(num_hidden_layers=layers)
+    tag = _build.DTYPE_TAGS[str(dtype)]
+    name = "serve" if dtype == torch.bfloat16 else f"serve_{tag}"
+    cfg = llama.LlamaConfig.llama3_8b(num_hidden_layers=layers, dtype=dtype)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = llama.init_params(cfg, gen, device="cuda")
@@ -2387,47 +2855,31 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
     warmup_s = time.perf_counter() - t0
     mem_after = _memory()
     if graphs != SERVE_GRAPHS or eng.batcher.compile_count != SERVE_GRAPHS:
-        raise AssertionError(f"warmup captured {graphs} step shapes "
+        raise AssertionError(f"{name}: warmup captured {graphs} step shapes "
                              f"({eng.batcher.compile_count} in the memo), "
                              f"not {SERVE_GRAPHS}")
     if eng.health()["ready"] is not False:
-        raise AssertionError("health() ready before start()")
+        raise AssertionError(f"{name}: health() ready before start()")
     eng.start()
-    rng = np.random.RandomState(SEED)
-    lengths = rng.randint(16, 513, n_requests)
-    lengths[[3, 7]] = rng.randint(513, 701, 2)        # chunked prefill
-    budgets = [(32, 24, 16)[i % 3] for i in range(n_requests)]
-    prompts = [rng.randint(1, cfg.vocab_size, int(n)).tolist()
-               for n in lengths]
+    lengths, budgets, prompts = _serve_requests(cfg, n_requests)
     try:
         # warm-up: cuBLAS handles and the allocator, outside the counts;
         # its own prompt, so the prefix cache holds no block of the burst
         eng.generate(_warmup_prompt(cfg), max_new_tokens=2, timeout=600)
         if not eng.health()["ready"]:
-            raise AssertionError(f"health() not ready: {eng.health()}")
+            raise AssertionError(f"{name}: health() not ready: "
+                                 f"{eng.health()}")
         cc_before = eng.batcher.compile_count
-        _zero_serve_counters()
+        for obj in (flash, rpa):
+            _build.reset_counts(obj)
         torch.cuda.reset_peak_memory_stats()
-        t_start = time.monotonic()
-        # 3 at once (a cold prefill with nothing decoding), then each
-        # later request as soon as the one before it streams a token
-        reqs = [eng.submit(prompts[i], max_new_tokens=budgets[i])
-                for i in range(3)]
-        streamed: list = []
-        consumer = threading.Thread(
-            target=lambda: streamed.extend(reqs[0].stream()))
-        consumer.start()
-        for i in range(3, n_requests):
-            while not reqs[-1].tokens and not reqs[-1].done:
-                time.sleep(0.002)
-            reqs.append(eng.submit(prompts[i], max_new_tokens=budgets[i]))
-        for r in reqs:
-            r.wait(timeout=900)
-        t_end = time.monotonic()
-        consumer.join(timeout=60)
+        reqs, streamed, t_start, t_end = _serve_stream(eng, prompts,
+                                                       budgets)
         if not eng.drain(timeout=120):
-            raise AssertionError("engine did not drain")
+            raise AssertionError(f"{name}: the engine did not drain")
         launches = _read_serve_counters()
+        by_dtype = {"flash_attention_fwd": _build.launches_by_dtype(flash),
+                    "ragged_paged_attention": _build.launches_by_dtype(rpa)}
         cc_after = eng.batcher.compile_count
         peak = torch.cuda.max_memory_allocated()
         snap = eng.snapshot()
@@ -2436,52 +2888,92 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
     finally:
         clean = eng.shutdown(timeout=120)
     if not clean:
-        raise AssertionError("engine shutdown was not clean")
+        raise AssertionError(f"{name}: engine shutdown was not clean")
     for i, r in enumerate(reqs):
         if r.state is not RequestState.FINISHED:
-            raise AssertionError(f"request {i} ended {r.state.name}: "
-                                 f"{r.error!r}")
+            raise AssertionError(f"{name}: request {i} ended "
+                                 f"{r.state.name}: {r.error!r}")
         if len(r.tokens) != budgets[i] or not all(
                 0 <= t < cfg.vocab_size for t in r.tokens):
-            raise AssertionError(f"request {i}: bad output {r.tokens}")
+            raise AssertionError(f"{name}: request {i}: bad output "
+                                 f"{r.tokens}")
     if streamed != reqs[0].tokens:
-        raise AssertionError("stream() disagrees with the result")
+        raise AssertionError(f"{name}: stream() disagrees with the result")
     g = snap["gauges"]
     if g["fused_steps"] < 1:
-        raise AssertionError("no fused prefill+decode step ran")
+        raise AssertionError(f"{name}: no fused prefill+decode step ran")
     if g["kv_blocks_in_use"] != 0:
-        raise AssertionError(f"{g['kv_blocks_in_use']} KV blocks leaked")
+        raise AssertionError(f"{name}: {g['kv_blocks_in_use']} KV blocks "
+                             f"leaked")
     if cc_after != cc_before:
-        raise AssertionError(f"compile_count moved through the burst: "
-                             f"{cc_before} -> {cc_after}")
-    for name in ("flash_attention_fwd", "ragged_paged_attention"):
-        if launches[name] < 1:
-            raise AssertionError(f"{name} never launched while serving")
+        raise AssertionError(f"{name}: compile_count moved through the "
+                             f"burst: {cc_before} -> {cc_after}")
+    _require_launched(launches, ("flash_attention_fwd",
+                                 "ragged_paged_attention"), name)
     if "slo_burn_rate_ttft_s_p99" not in prom or health["status"] != \
             "HEALTHY" or health["watchdog_trips"] != 0:
-        raise AssertionError(f"observability: {health}")
-    # the batcher-level graph check, on the serve engine's warmed batcher
-    graph = _graph_check(params, cfg, eng.batcher)
+        raise AssertionError(f"{name}: observability: {health}")
+    graph = spec = None
+    if dtype == torch.bfloat16:
+        # the batcher-level graph check, on the serve engine's warmed
+        # batcher (the step graphs are captured alike in every dtype)
+        graph = _graph_check(params, cfg, eng.batcher)
     del eng
     _release()
+    if dtype != torch.bfloat16:
+        rng = np.random.RandomState(SEED + 5)
+        spec_lengths = rng.randint(16, 513, spec_requests)
+        spec_lengths[[2, 5]] = rng.randint(513, 701, 2)  # chunked prefill
+        spec = _serve_burst(params, cfg, [
+            rng.randint(1, cfg.vocab_size, int(n)).tolist()
+            for n in spec_lengths], spec_budget,
+            dict(kv_dtype="int8", speculative=True, spec_k=4))
+        spec.pop("tokens")
+        spec.update(requests=spec_requests, budget=spec_budget,
+                    prompt_lengths=spec_lengths.tolist())
+        _require_launched(spec["launches"], (
+            "flash_attention_fwd", "ragged_paged_attention_int8",
+            "ragged_paged_attention_suffix"), f"{name} int8 spec")
+    for label, bd in (("burst", by_dtype),
+                      ("int8 spec", spec and spec["launches_by_dtype"])):
+        for kernel, d in (bd or {}).items():
+            if any(n for t, n in d.items() if t != tag):
+                raise AssertionError(f"{name} {label}: {kernel} launched "
+                                     f"{d} by dtype, outside {tag}")
     check = _logits_check(params, cfg)
-    _emit({"phase": "logits_check", "ratio_tol": LOGITS_VS_F32_RATIO,
-           **check})
-    for name, c in check.items():
+    del params
+    _release()
+    _emit({"phase": f"{name}.logits_check",
+           "ratio_tol": LOGITS_VS_F32_RATIO, **check})
+    for step, c in check.items():
         if not c["kernel_ratio"] <= LOGITS_VS_F32_RATIO:
-            raise AssertionError(
-                f"{name} logits: the kernels are {c['kernel_vs_f32']} from "
-                f"f32, more than {LOGITS_VS_F32_RATIO} x the plain bf16 "
-                f"path's {c['ref_vs_f32']}: {c}")
+            raise AssertionError(f"{name} {step} logits: the kernels read "
+                                 f"{c['kernel_ratio']} x the yardstick's "
+                                 f"distance, above {LOGITS_VS_F32_RATIO}: "
+                                 f"{c}")
         if not c["fault_ratio"] > LOGITS_VS_F32_RATIO:
-            raise AssertionError(
-                f"{name} logits: the planted off-by-one fault reads "
-                f"{c['fault_ratio']} x the plain bf16 path's distance, "
-                f"within the {LOGITS_VS_F32_RATIO} bound: the check "
-                f"cannot see it: {c}")
+            raise AssertionError(f"{name} {step} logits: the planted "
+                                 f"off-by-one reads {c['fault_ratio']} x the "
+                                 f"yardstick's distance, within "
+                                 f"{LOGITS_VS_F32_RATIO}: the check cannot "
+                                 f"see it: {c}")
+        if "ragged_ratio" in c and not c["ragged_ratio"] <= 1.0:
+            raise AssertionError(f"{name} {step} logits: row 18 alone reads "
+                                 f"{c['ragged_ratio']} x the distance of an "
+                                 f"attention {RAGGED_F32_TOL} off: {c}")
+        if "ragged_ratio" in c and not c["ragged_control_ratio"] > 1.0:
+            raise AssertionError(f"{name} {step} logits: row 18 on TF32 "
+                                 f"operands reads {c['ragged_control_ratio']}"
+                                 f" x, within the bound: {c}")
+    total = dict(launches)
+    if spec is not None:
+        total = {k: n + spec["launches"][k] for k, n in launches.items()}
+    if tag == "f32":
+        # the kernels line's names: the f32 flash option counts apart
+        total["flash_attention_fwd_f32"] = total.pop("flash_attention_fwd")
     ttft = np.array([r.first_token_time - r.submit_time for r in reqs])
     ntok = sum(len(r.tokens) for r in reqs)
-    res = {"phase": "serve", "layers": layers,
+    res = {"phase": name, "layers": layers, "dtype": tag,
            "widths": {"D": cfg.hidden_size, "H": cfg.num_attention_heads,
                       "KV": cfg.num_key_value_heads, "hd": cfg.head_dim,
                       "F": cfg.intermediate_size, "V": cfg.vocab_size},
@@ -2498,7 +2990,9 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
            "compile_count_before_burst": cc_before,
            "compile_count_after_burst": cc_after,
            "peak_memory_bytes": peak, "param_init_s": init_s,
-           "launches": launches, "launches_by": "graph replay",
+           "launches": total, "launches_burst": launches,
+           "launches_burst_by_dtype": by_dtype,
+           "launches_by": "graph replay",
            "fused_steps": g["fused_steps"],
            "decode_stall_steps": g["decode_stall_steps"],
            "prefill_pad_tokens": g["prefill_pad_tokens"],
@@ -2506,14 +3000,25 @@ def phase_serve(layers: int = 32, n_requests: int = 12):
                                              "watchdog_trips")},
            "watchdog_s": ROBUST_WATCHDOG_S,
            "slo_verdict": health["slo"]["verdict"],
-           "decode_chunk_wall_ms": graph["decode_chunk_wall_ms_median"],
-           "graph_check": {k: graph[k] for k in
-                           ("identical", "control_detected", "tokens")},
-           "logits_check": check,
-           "logits_vs_f32_ratio_tol": LOGITS_VS_F32_RATIO,
+           "int8_spec": spec, "logits_check": check,
+           "logits_ratio_tol": LOGITS_VS_F32_RATIO,
            "nvidia_smi": _smi_line()}
+    if graph is not None:
+        res["decode_chunk_wall_ms"] = graph["decode_chunk_wall_ms_median"]
+        res["graph_check"] = {k: graph[k] for k in
+                              ("identical", "control_detected", "tokens")}
     _emit(res)
     return res
+
+
+def phase_serve_f16(layers: int = 32):
+    """`phase_serve` in f16."""
+    return phase_serve(layers, dtype=torch.float16)
+
+
+def phase_serve_f32(layers: int = 32):
+    """`phase_serve` in f32."""
+    return phase_serve(layers, dtype=torch.float32)
 
 
 # ------------------------------------------------------- 4a. serve_prefix
@@ -2693,6 +3198,7 @@ def _serve_burst(params, cfg, prompts, budget, kw):
     drains; returns the tokens, rates, TTFTs, peak memory (from before
     the engine's construction: the int8 trees are made there), launches
     by option and the burst's own speculative counters."""
+    from paddle_tpu_torch import _build
     from paddle_tpu_torch.kernels.flash_attention import \
         flash_attention_fwd as flash
     from paddle_tpu_torch.nlp.ragged_attention import \
@@ -2708,8 +3214,8 @@ def _serve_burst(params, cfg, prompts, budget, kw):
     try:
         eng.generate(_warmup_prompt(cfg), max_new_tokens=2, timeout=600)
         s0 = eng.batcher.spec.as_dict()
-        flash.launches = rpa.launches = 0
-        rpa.launches_int8 = rpa.launches_suffix = 0
+        _build.reset_counts(flash)
+        _build.reset_counts(rpa)
         t_start = time.monotonic()
         reqs = [eng.submit(p) for p in prompts]
         for r in reqs:
@@ -2721,6 +3227,8 @@ def _serve_burst(params, cfg, prompts, budget, kw):
                     "ragged_paged_attention": rpa.launches,
                     "ragged_paged_attention_int8": rpa.launches_int8,
                     "ragged_paged_attention_suffix": rpa.launches_suffix}
+        by_dtype = {"flash_attention_fwd": _build.launches_by_dtype(flash),
+                    "ragged_paged_attention": _build.launches_by_dtype(rpa)}
         peak = torch.cuda.max_memory_allocated()
         snap = eng.snapshot()
         s1 = eng.batcher.spec.as_dict()
@@ -2752,7 +3260,8 @@ def _serve_burst(params, cfg, prompts, budget, kw):
             "ttft_p99_s": float(np.percentile(ttft, 99)),
             "peak_memory_bytes": peak, "engine_build_s": build_s,
             "graphs_captured_lazily": snap["gauges"]["compile_count"],
-            "launches": launches, "fused_steps": snap["gauges"]["fused_steps"],
+            "launches": launches, "launches_by_dtype": by_dtype,
+            "fused_steps": snap["gauges"]["fused_steps"],
             "quantization": snap["quantization"], "spec_burst": burst,
             "accepted_per_sweep": burst["accepted"] / sweeps,
             "tokens_per_sweep": burst["emitted"] / sweeps}
@@ -3774,6 +4283,67 @@ def phase_train_f16(peaks, layers: int = 2, warmup: int = 2,
                               warmup, timed, "f16")
 
 
+def phase_train_p32(peaks, warmup: int = 2, timed: int = 4, batch: int = 8,
+                    seq: int = 2048):
+    """phase_train's recipe (bf16 compute, 8-bit AdamW with the streamed
+    clip at 1.0, lr 1e-4, batch 8 x 2048) at `LlamaConfig.flagship_2b(
+    param_dtype=float32)`, the JAX package's default parameter dtype: f32
+    parameters, 8-bit moments. Row 17 exactly once a leaf a step, all in
+    f32; the flash pair and rows 7-8 at the dense step's counts, all in
+    bf16 (rows 7-8 with the f32 weight); losses fall."""
+    from paddle_tpu_torch.nlp import llama
+    cfg = llama.LlamaConfig.flagship_2b(param_dtype=torch.float32)
+    res, state, _ = _drive_train(peaks, llama, cfg, batch,
+                                 _train_counters(), warmup, timed, seq)
+    res = {"phase": "train_p32",
+           "config": "flagship_2b (bench.py:120) at param_dtype float32",
+           "widths": {"D": cfg.hidden_size, "F": cfg.intermediate_size,
+                      "L": cfg.num_hidden_layers,
+                      "H": cfg.num_attention_heads,
+                      "KV": cfg.num_key_value_heads, "V": cfg.vocab_size},
+           "optimizer": "8-bit AdamW (fused), lr 1e-4, streamed clip 1.0",
+           **res, "nvidia_smi": _smi_line()}
+    _emit(res)
+    del state
+    torch.cuda.empty_cache()
+    _check_losses(res)
+    per_step = _dense_launches_per_step(cfg, True)
+    _check_launches("train_p32", res, per_step, res["steps"])
+    _check_dtype_launches("train_p32", res["launches_by_dtype"],
+                          {"adamw_q": per_step["adamw_q"]}, res["steps"],
+                          "f32")
+    _check_dtype_launches("train_p32", res["launches_by_dtype"],
+                          {k: n for k, n in per_step.items()
+                           if k != "adamw_q"}, res["steps"], "bf16")
+    return res
+
+
+def _moe_launches_per_step(cfg):
+    """Every kernel's launches in one MoE training step of cfg's depth L
+    (each layer recomputed once in the backward with cfg.remat): the
+    dispatch and combine forwards (row 14) twice a layer plus the
+    dispatch backward, the combine backward (row 15) once; the flash and
+    norm kernels as the dense step; row 17 once a leaf."""
+    from paddle_tpu_torch.nlp import moe
+    L, fwd = cfg.num_hidden_layers, 2 if cfg.remat else 1
+    shapes = moe._shapes(cfg)
+    return {"gather_wsum": (2 * fwd + 1) * L, "gather_scale_dot": L,
+            "flash_attention_fwd": fwd * L, "flash_attention_bwd": L,
+            "rms_norm_fwd": 2 * fwd * L, "rms_norm_bwd": 2 * L,
+            "adamw_q": len(shapes) - 1 + len(shapes["layers"])}
+
+
+def phase_train_moe_f32(peaks, warmup: int = 1, timed: int = 2):
+    """`phase_train_moe` in f32 at full depth, 1 + 2 steps."""
+    return phase_train_moe(peaks, warmup, timed, dtype=torch.float32)
+
+
+def phase_train_moe_f16(peaks, warmup: int = 2, timed: int = 2):
+    """`phase_train_moe` in f16 at 2 layers, 2 + 2 steps."""
+    return phase_train_moe(peaks, warmup, timed, dtype=torch.float16,
+                           layers=2)
+
+
 @contextlib.contextmanager
 def _moe_routing_probe(replay=None):
     """Record the routing maps (eidx, slot, valid, inv) of every
@@ -3830,34 +4400,38 @@ def _moe_routing_probe(replay=None):
         moe.moe_block, moe.top_k_routing = block, route
 
 
-# every kernel's launches in one MoE training step (12 layers, each
-# recomputed once in the backward): dispatch and combine forwards 2 a
-# layer twice plus the dispatch backward; the combine backward; flash
-# forward twice and backward once; two norms forward twice and backward
-# once; one AdamW launch per leaf of the 16-leaf tree
-_MOE_LAUNCHES_PER_STEP = {"gather_wsum": 60, "gather_scale_dot": 12,
-                          "flash_attention_fwd": 24,
-                          "flash_attention_bwd": 12, "rms_norm_fwd": 48,
-                          "rms_norm_bwd": 24, "adamw_q": 16}
-
-
 def phase_train_moe(peaks, warmup: int = 2, timed: int = 4,
-                    batch: int = 20, seq: int = 2048):
-    """The JAX package's single-chip MoE config (bench.py:98) through
-    `train.make_train_step(model=moe)`. After the timed steps one
-    forward of the final params over the step's batch reads the aux
-    losses and each layer's share of dropped (token, choice) pairs."""
+                    batch: int = MOE_BATCH, seq: int = 2048,
+                    dtype=torch.bfloat16, layers: int = 12):
+    """The JAX package's single-chip MoE config (bench.py:98) at dtype =
+    param_dtype = `dtype` (train_moe_f32 and train_moe_f16 run it in f32
+    and f16) and `layers` layers, through `train.make_train_step(
+    model=moe)` with the 8-bit AdamW (lr 1e-4, streamed clip 1.0), batch
+    x 2048: every kernel launched exactly as the step implies
+    (`_moe_launches_per_step`: rows 14, 15 and 17, the flash pair and
+    rows 7-8), all in `dtype`; losses finite, and falling but in f16 (2
+    layers, 2 + 2 steps). After the timed steps one forward of the final
+    params over the step's batch reads the aux losses and each layer's
+    share of dropped (token, choice) pairs."""
+    from paddle_tpu_torch import _build
     from paddle_tpu_torch.nlp import moe
 
-    cfg = moe.MoeConfig.flagship_moe()
+    tag = _build.DTYPE_TAGS[str(dtype)]
+    name = "train_moe" if dtype == torch.bfloat16 else f"train_moe_{tag}"
+    cfg = moe.MoeConfig.flagship_moe(num_hidden_layers=layers, dtype=dtype,
+                                     param_dtype=dtype)
     res, state, tokens = _drive_train(peaks, moe, cfg, batch,
                                       _train_counters(moe=True), warmup,
                                       timed, seq)
+    res["launches"].update(_f32_option_launches(res["launches_by_dtype"]))
     with torch.no_grad(), _moe_routing_probe() as (maps, _):
         _, aux = moe._backbone(state.params, tokens, cfg)
     dropped = [1.0 - m[2].float().mean().item()
                for _, m in sorted(maps.items())]
-    res = {"phase": "train_moe", "config": "flagship_moe (bench.py:98)",
+    tok_s, fpt = res["tokens_per_s"], res["flops_per_token"]
+    res = {"phase": name,
+           "config": f"flagship_moe (bench.py:98) at dtype {dtype}, "
+                     f"param_dtype {dtype}, {layers} layers",
            "active_params": moe.active_params(cfg),
            "widths": {"D": cfg.hidden_size, "L": cfg.num_hidden_layers,
                       "H": cfg.num_attention_heads,
@@ -3866,21 +4440,31 @@ def phase_train_moe(peaks, warmup: int = 2, timed: int = 4,
                       "F_expert": cfg.moe_intermediate_size,
                       "shared": cfg.num_shared_experts,
                       "capacity": cfg.capacity(seq)},
+           "optimizer": "8-bit AdamW (fused), lr 1e-4, streamed clip 1.0",
            **res,
            "final_aux": {n: float(v) for n, v in aux.items()},
            "dropped_share_by_layer": dropped,
            "dropped_share": float(np.mean(dropped)),
            "nvidia_smi": _smi_line()}
+    if dtype == torch.float32:
+        # the GEMMs run torch.matmul at PyTorch's default: full f32
+        # (FFMA, 67 TFLOP/s)
+        res.update(mfu_f32=tok_s * fpt / peaks[2],
+                   allow_tf32=torch.backends.cuda.matmul.allow_tf32)
     _emit(res)
     del state, tokens
     torch.cuda.empty_cache()
-    _check_losses(res)
-    steps = res["steps"]
-    for name, per in _MOE_LAUNCHES_PER_STEP.items():
-        if res["launches"][name] != per * steps:
-            raise AssertionError(
-                f"{name}: {res['launches'][name]} launches in {steps} MoE "
-                f"steps, expected {per} a step")
+    if dtype == torch.float16:
+        if not all(np.isfinite(res["losses"])) \
+                or not all(np.isfinite(res["grad_norms"])):
+            raise AssertionError(f"{name}: non-finite loss or grad norm: "
+                                 f"{res['losses']} {res['grad_norms']}")
+    else:
+        _check_losses(res)
+    per_step = _moe_launches_per_step(cfg)
+    _check_launches(name, res, per_step, res["steps"])
+    _check_dtype_launches(name, res["launches_by_dtype"], per_step,
+                          res["steps"], tag)
     return res
 
 
@@ -4239,6 +4823,82 @@ def phase_grad_check_moe(layers: int = 2, seq: int = 2048):
                                  f"forward's")
     _check_grad_ratios(out["fixed"], _MOE_GRAD_GROUPS, _MOE_FAULT_GROUPS,
                        "dispatch")
+    return out
+
+
+def phase_grad_check_moe_f32(layers: int = 2, seq: int = 2048):
+    """The MoE model's gradient check in f32: one loss + backward at the
+    MoE widths, 2 layers, 1 x 2048 tokens, `MoeConfig(dtype=float32,
+    param_dtype=float32)`, through the kernels, their plain f32 versions
+    and the plain versions with the dispatch fault (row 14's backward
+    dropping each token's second choice), all routing by the plain
+    path's maps (`_moe_routing_probe(replay=...)`: a near-tie flipped by
+    the flash kernel's TF32 would move tokens between experts, a
+    difference of routing, not of kernels). The relative RMS distance of
+    the per-token losses and of each gradient group between the kernels
+    and the plain path must be at most F32_GRAD_TOL, and the fault's at
+    least 10 times that in the groups it reaches; rows 14 and 15 must
+    have run in f32."""
+    from paddle_tpu_torch.nlp import moe
+    cfg = moe.MoeConfig.flagship_moe(num_hidden_layers=layers,
+                                     dtype=torch.float32,
+                                     param_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    params = moe.init_params(cfg, gen, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, seq))).cuda()
+
+    def run(replay=None):
+        with _moe_routing_probe(replay) as (maps, _):
+            r = _grad_run(moe.loss_fn, lambda t, tok, cc: moe.forward(
+                t, tok, cc)[0], cfg, params, tokens)
+        return r, maps
+
+    def dist(a, b):
+        return (torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(a, b)))
+                / torch.sqrt(sum((y ** 2).sum() for y in b))).item()
+
+    with _plain_kernels():
+        ref, maps = run()
+    counters = _train_counters(moe=True)
+    _zero_counts(counters)
+    kernel, _ = run(maps)
+    _, by_dtype = _read_counts(counters)
+    with _plain_kernels(fault="dispatch"):
+        fault, _ = run(maps)
+    del params
+    out = {}
+    for group, keys in {"loss": None, **_MOE_GRAD_GROUPS}.items():
+        def pick(r):
+            return [r[1]] if keys is None else [r[2][k] for k in keys]
+        out[group] = {"kernel_vs_plain": dist(pick(kernel), pick(ref)),
+                      "fault_vs_plain": dist(pick(fault), pick(ref))}
+    out["loss_values"] = {"kernel": kernel[0], "plain": ref[0],
+                          "fault": fault[0]}
+    _emit({"phase": "grad_check_moe_f32", "layers": layers, "seq": seq,
+           "tol": F32_GRAD_TOL, "fault": "dispatch",
+           "fault_groups": _MOE_FAULT_GROUPS, "launches_by_dtype": by_dtype,
+           **out})
+    del kernel, ref, fault
+    torch.cuda.empty_cache()
+    for group in ("loss", *_MOE_GRAD_GROUPS):
+        c = out[group]
+        if not c["kernel_vs_plain"] <= F32_GRAD_TOL:
+            raise AssertionError(f"grad_check_moe_f32 {group}: the kernels "
+                                 f"are {c['kernel_vs_plain']} from the plain"
+                                 f" f32 path, over {F32_GRAD_TOL}")
+        if group in _MOE_FAULT_GROUPS and \
+                not c["fault_vs_plain"] >= 10 * F32_GRAD_TOL:
+            raise AssertionError(f"grad_check_moe_f32 {group}: the dispatch "
+                                 f"fault reads {c['fault_vs_plain']}, under "
+                                 f"10 x {F32_GRAD_TOL}")
+    for kernel_name in ("gather_wsum", "gather_scale_dot",
+                        "flash_attention_fwd", "flash_attention_bwd",
+                        "rms_norm_fwd", "rms_norm_bwd"):
+        if not by_dtype[kernel_name].get("f32") or any(
+                n for t, n in by_dtype[kernel_name].items() if t != "f32"):
+            raise AssertionError(f"grad_check_moe_f32: {kernel_name} "
+                                 f"launched {by_dtype[kernel_name]} by dtype")
     return out
 
 
@@ -6184,7 +6844,12 @@ _KERNELS = {
                  "train05b": 18, "predict": 19, "eager_llama_o2_bf16": 6,
                  "eager_llama_o2_f16": 20, "eager_o2": 20,
                  # the f16 trainer's B=F32_TRAIN_BATCH S=2048 + LSE
-                 "train_f16": 20}},
+                 "train_f16": 20,
+                 # train_p32: train's bf16 B=8 S=2048 + LSE; the f16 MoE
+                 # trainer's B=MOE_BATCH S=2048 H=16 + LSE; serve_f16:
+                 # B=2 S=512, the top prefill bucket
+                 "train_p32": ("train", 3), "train_moe_f16": 20,
+                 "serve_f16": 20}},
     # the f32 option of rows 1-5 (TF32 tensor cores, its own source),
     # counted apart: launches_f32 of the wrappers; eager_f32 at B=64
     # S=512 H=12 hd=64 non-causal, train_f32 at B=F32_TRAIN_BATCH S=2048
@@ -6193,7 +6858,10 @@ _KERNELS = {
         "source": "paddle_tpu_torch/csrc/flash_f32.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:51",
         "option": "f32", "rows": [1],
-        "main": {"eager_f32": 0, "train_f32": 0}},
+        # train_moe_f32: B=MOE_BATCH S=2048 H=16 KV=8 + LSE;
+        # serve_f32: B=2 S=512
+        "main": {"eager_f32": 0, "train_f32": 0, "train_moe_f32": 0,
+                 "serve_f32": 0}},
     "flash_attention_bwd_f32": {
         "source": "paddle_tpu_torch/csrc/flash_f32.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:277",
@@ -6201,15 +6869,18 @@ _KERNELS = {
                           "paddle_tpu/kernels/flash_attention.py:446",
                           "paddle_tpu/kernels/flash_attention.py:503"],
         "option": "f32", "rows": [2, 3, 4, 5],
-        "main": {"eager_f32": 0, "train_f32": 0}},
+        "main": {"eager_f32": 0, "train_f32": 0, "train_moe_f32": 0}},
     "ragged_paged_attention": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
         "rows": [18],
         # the decode case; its count takes every launch, of any option;
-        # predict: 8 rows of 640 keys in blocks of 64
+        # predict: 8 rows of 640 keys in blocks of 64; serve_f16 /
+        # serve_f32: the f16 and f32 options' decode (the first case of
+        # the path after the 6 bf16 ones)
         "main": {"serve": 0, "serve_prefix": 0, "serve_quant_spec": 0,
-                 "serve_robust": 0, "predict": 5}},
+                 "serve_robust": 0, "predict": 5, "serve_f16": 6,
+                 "serve_f32": 6}},
     # row 18's two options, counted apart: `quantized=True` (int8 pools)
     # held at the int8 decode batch, `suffix=True` (the speculative slab)
     # at the chain verify
@@ -6218,12 +6889,13 @@ _KERNELS = {
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
         "option": "quantized=True", "rows": [18],
         "main": {"serve_quant_spec": 0, "serve_prefix": 0,
-                 "serve_robust": 0}},
+                 "serve_robust": 0, "serve_f16": 3, "serve_f32": 3}},
     "ragged_paged_attention_suffix": {
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/nlp/ragged_attention.py:89",
         "option": "suffix=True", "rows": [18],
-        "main": {"serve_quant_spec": 0, "serve_robust": 0}},
+        "main": {"serve_quant_spec": 0, "serve_robust": 0, "serve_f16": 3,
+                 "serve_f32": 3}},
     "flash_attention_bwd": {
         "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:277",
@@ -6234,7 +6906,8 @@ _KERNELS = {
         "main": {"train": 0, "train_moe": 2, "eager": 3, "eager_llama": 4,
                  "ernie": 5, "dit": 10, "long8k": 12, "layer8b_4k": 1,
                  "layer8b_8k": 13, "train05b": 14, "eager_llama_o2_bf16": 4,
-                 "eager_llama_o2_f16": 15, "eager_o2": 15, "train_f16": 15}},
+                 "eager_llama_o2_f16": 15, "eager_o2": 15, "train_f16": 15,
+                 "train_p32": ("train", 0), "train_moe_f16": 15}},
     "rms_norm_fwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:107",
@@ -6243,31 +6916,38 @@ _KERNELS = {
         # f32 and f16 options at [F32_TRAIN_BATCH * 2048, 4096], f32 weight
         "main": {"train": 0, "train_moe": 1, "long8k": 0, "layer8b_4k": 3,
                  "layer8b_8k": 2, "train05b": 4, "train_f32": 5,
-                 "train_f16": 5}},
+                 "train_f16": 5, "train_p32": 5, "train_moe_f32": 5,
+                 "train_moe_f16": 5}},
     "rms_norm_bwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:115",
         "rows": [8],
         "main": {"train": 0, "train_moe": 1, "long8k": 0, "layer8b_4k": 3,
                  "layer8b_8k": 2, "train05b": 4, "train_f32": 5,
-                 "train_f16": 5}},
+                 "train_f16": 5, "train_p32": 5, "train_moe_f32": 5,
+                 "train_moe_f16": 5}},
     "adamw_q": {
         "source": "paddle_tpu_torch/csrc/adamw_q.cu",
         "replaces": "paddle_tpu/optimizer/quant_state.py:227",
         "rows": [17],
         # the largest leaves: [11, 4096, 9472]; [12, 16, 2048, 1024];
-        # long8k trains the dense step's tree
-        "main": {"train": 0, "train_moe": 0, "long8k": ("train", 0)}},
+        # long8k trains the dense step's tree; the f32 option over
+        # train_p32's and train_moe_f32's trees, the f16 over
+        # train_moe_f16's [2, 16, 2048, 1024]
+        "main": {"train": 0, "train_moe": 0, "long8k": ("train", 0),
+                 "train_p32": 0, "train_moe_f32": 0, "train_moe_f16": 0}},
     "gather_wsum": {
         "source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
         "replaces": "paddle_tpu/kernels/moe_dispatch.py:244",
         "rows": [14],
-        "main": {"train_moe": 1}},        # the combine forward, k=2
+        # the combine forward, k=2; its f32 and f16 options
+        "main": {"train_moe": 1, "train_moe_f32": 1, "train_moe_f16": 1}},
     "gather_scale_dot": {
         "source": "paddle_tpu_torch/csrc/moe_dispatch.cu",
         "replaces": "paddle_tpu/kernels/moe_dispatch.py:348",
         "rows": [15],
-        "main": {"train_moe": 0}},        # the combine backward
+        # the combine backward; its f32 and f16 options
+        "main": {"train_moe": 0, "train_moe_f32": 0, "train_moe_f16": 0}},
     "layer_norm_fwd": {
         "source": "paddle_tpu_torch/csrc/layer_norm.cu",
         "replaces": "paddle_tpu/kernels/layer_norm.py:38",
@@ -6349,8 +7029,10 @@ def _kernels_line(cases, runs):
             entry["graph_ms"] = top["graph_ms"]
         for tag in ("f16", "f32"):
             opt = [c for c in cases[name] if c.get("dtype") == tag]
-            keys = _TIMES + ("max_rel_err", "planted", "path", "bound",
-                             "lse_abs_err", "f16_ulps")
+            keys = _TIMES + ("graph_ms", "max_rel_err", "planted", "path",
+                             "bound", "lse_abs_err", "f16_ulps", "ulps",
+                             "param_ulps",
+                             "step_launches")
             if opt:
                 # the option at its first path's shape, then every case
                 entry[tag] = {k: opt[0][k] for k in keys if k in opt[0]}
@@ -6402,8 +7084,13 @@ def main() -> int:
     _release()
     robust = _timed(phase_serve_robust)
     _release()
+    serve_f16 = _timed(phase_serve_f16)
+    serve_f32 = _timed(phase_serve_f32)
+    _release()
     train = _timed(phase_train, peaks)
     _timed(phase_grad_check)
+    torch.cuda.empty_cache()
+    train_p32 = _timed(phase_train_p32, peaks)
     torch.cuda.empty_cache()
     train_f32 = _timed(phase_train_f32, peaks)
     train_f16 = _timed(phase_train_f16, peaks)
@@ -6411,6 +7098,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_moe = _timed(phase_train_moe, peaks)
     _timed(phase_grad_check_moe)
+    torch.cuda.empty_cache()
+    train_moe_f32 = _timed(phase_train_moe_f32, peaks)
+    train_moe_f16 = _timed(phase_train_moe_f16, peaks)
+    _timed(phase_grad_check_moe_f32)
     torch.cuda.empty_cache()
     eager = _timed(phase_eager, peaks)
     _timed(phase_grad_check_eager)
@@ -6441,7 +7132,10 @@ def main() -> int:
             "dit": dit, "generate": generate, "predict": predict,
             "long8k": long8k, **layer8b, "train05b": train05b,
             **llama_o2, "eager_o2": eager_o2, "eager_f32": eager_f32,
-            "train_f32": train_f32, "train_f16": train_f16}
+            "train_f32": train_f32, "train_f16": train_f16,
+            "train_p32": train_p32, "train_moe_f32": train_moe_f32,
+            "train_moe_f16": train_moe_f16, "serve_f16": serve_f16,
+            "serve_f32": serve_f32}
     _emit({"phase_seconds": _PHASE_SECONDS,
            "main_s": time.perf_counter() - t0})
     _emit({"kernels": _kernels_line(cases, runs)})

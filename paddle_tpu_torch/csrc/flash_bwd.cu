@@ -31,7 +31,13 @@
 // it coarsely below 2^-14), where bf16 keeps f32's exponent range; a
 // dS that small adds less than the f32 sums' own rounding to dQ and dK
 // at the scales a loss scaler keeps the gradients in, and chip_smoke.py's
-// f16 gradient check holds the result to the plain f16 path.
+// f16 gradient check holds the result to the plain f16 path. In f16 the
+// dq pass sums dP's k16 steps apart, each product into a fresh f32
+// accumulator (the tensor core truncates a sum against its running
+// value): where a causal row sees one key, dP - dcap is 0 in exact
+// arithmetic, and the truncation residue of five k16 steps at hd 72
+// put that row's dQ past 2.5 f16 ulps (S 300, GQA 4:1); bf16's bound
+// does not see it, and the bf16 kernel keeps one chain.
 // head_dim 64, 72 or 128 (72: the contractions over hd take 5 k16 steps,
 // the fifth over columns TMA zero-fills; see hopper_core.cuh).
 //
@@ -75,6 +81,8 @@
 // take no per-element test. Not done yet: folding dQ into dkdv under a
 // fixed-order reduction, overlapping a warpgroup's elementwise work with
 // its next products, and TMA stores.
+#include <type_traits>
+
 #include "hopper_core.cuh"
 
 namespace {
@@ -490,15 +498,41 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         hop::Wgmma<kDqN, T>::ss(
             s, hop::desc_k(hop::k_step_addr(q_addr, kDqM, ks)),
             hop::desc_k(hop::k_step_addr(kb, kDqN, ks)), ks > 0);
+      if constexpr (std::is_same<T, hop::f16>::value) {
+        hop::wg_commit();
+        hop::wg_wait();
+        hop::fence_regs(s);
+        // f16: dP's k16 steps each into a fresh accumulator, summed in
+        // f32. The tensor core's accumulation truncates against the
+        // running sum, and dS = P (dP - dcap) cancels where a row sees
+        // few keys (causal row 0: dP = dcap exactly), so the truncation
+        // residue reached 1.4-1.7e-3 of the floored scale at hd 72 (five
+        // k16 steps), past F16_TOL; f16's 1.25e-3 sees what bf16's 2e-2
+        // does not
 #pragma unroll
-      for (int ks = 0; ks < hop::k_steps(HD); ++ks)
-        hop::Wgmma<kDqN, T>::ss(
-            dp, hop::desc_k(hop::k_step_addr(do_addr, kDqM, ks)),
-            hop::desc_k(hop::k_step_addr(vb, kDqN, ks)), ks > 0);
-      hop::wg_commit();
-      hop::wg_wait();
-      hop::fence_regs(s);
-      hop::fence_regs(dp);
+        for (int ks = 0; ks < hop::k_steps(HD); ++ks) {
+          float t[kDqN / 2];
+          hop::wg_fence();
+          hop::Wgmma<kDqN, T>::ss(
+              t, hop::desc_k(hop::k_step_addr(do_addr, kDqM, ks)),
+              hop::desc_k(hop::k_step_addr(vb, kDqN, ks)), false);
+          hop::wg_commit();
+          hop::wg_wait();
+          hop::fence_regs(t);
+#pragma unroll
+          for (int i = 0; i < kDqN / 2; ++i) dp[i] = ks ? dp[i] + t[i] : t[i];
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < hop::k_steps(HD); ++ks)
+          hop::Wgmma<kDqN, T>::ss(
+              dp, hop::desc_k(hop::k_step_addr(do_addr, kDqM, ks)),
+              hop::desc_k(hop::k_step_addr(vb, kDqN, ks)), ks > 0);
+        hop::wg_commit();
+        hop::wg_wait();
+        hop::fence_regs(s);
+        hop::fence_regs(dp);
+      }
       const bool all_vis =
           st == 2 && (!causal || k0 + kDqN - 1 <= r_base + off);
 #pragma unroll

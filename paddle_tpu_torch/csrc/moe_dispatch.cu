@@ -12,16 +12,19 @@
 //
 //   gather_wsum:      out[r] = sum_j w[r, j] * src[b, idx[r, j]]
 //                     (f32 products and sum in the order j = 0..k-1,
-//                      rounded once to bf16)
-//   gather_scale_dot: out[r] = scale[r] * src[b, idx[r]]       (bf16)
+//                      rounded once to src's type)
+//   gather_scale_dot: out[r] = scale[r] * src[b, idx[r]]   (src's type)
 //                     dot[r] = sum_d src[b, idx[r]][d] * other[r][d] (f32)
-// src, other, out bf16 row-major; idx int32, pre-clipped to [0, N) by
-// the caller (clamped again here, so a bad index cannot read outside
-// src); w, scale, dot f32; b = r / M is the batch row of output row r.
+// src, other, out row-major in one element type T: bf16, f16 or f32 for
+// these two (the TPU kernels compute in the rows' dtype), bf16 for
+// gather_rows; idx int32, pre-clipped to [0, N) by the caller (clamped
+// again here, so a bad index cannot read outside src); w, scale, dot
+// f32; b = r / M is the batch row of output row r. A row is a whole
+// number of 16-byte vectors: 8 bf16 or f16 values, 4 f32.
 //
-// Bound on the H100: memory, by random 4 KiB row reads (D = 2048 bf16)
-// with a few operations per byte. Design: one warp per output row, so a
-// row's reads are 16-byte vectors of one contiguous 4 KiB span, 32 lanes
+// Bound on the H100: memory, by random 4 KiB row reads (D = 2048 bf16;
+// 8 KiB in f32) with a few operations per byte. Design: one warp per
+// output row, so a row's reads are 16-byte vectors of one contiguous span, 32 lanes
 // side by side; each lane issues the 16-byte loads of several vectors of
 // every source row before it uses any (kUnroll vectors of each of the k
 // rows), so a warp keeps k * kUnroll * 512 bytes in flight; 8 warps a
@@ -36,33 +39,77 @@
 // gather_rows is bound as gather_wsum is (memory, random rows), with a
 // copy kernel of its own.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 constexpr int kWarps = 8;                 // output rows per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxK = 8;
 
-__device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// A 16-byte vector of T as N = 2^kShift f32 values, and back (round to
+// nearest even, as torch's .to() rounds): 8 bf16 or f16, 4 f32.
+template <class T>
+struct Vec;
+template <>
+struct Vec<bf16> {
+  static constexpr int N = 8, kShift = 3;
+  static __device__ __forceinline__ void unpack(const uint4& u, float f[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = __bfloat1622float2(h[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __bfloat1622float2(h[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
   }
-}
-
-__device__ __forceinline__ uint4 pack8(const float f[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+  static __device__ __forceinline__ uint4 pack(const float f[8]) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
-}
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return u;
+  }
+};
+template <>
+struct Vec<f16> {
+  static constexpr int N = 8, kShift = 3;
+  static __device__ __forceinline__ void unpack(const uint4& u, float f[8]) {
+    const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __half22float2(h[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float f[8]) {
+    uint4 u;
+    __half2* h = reinterpret_cast<__half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
+    return u;
+  }
+};
+template <>
+struct Vec<float> {
+  static constexpr int N = 4, kShift = 2;
+  static __device__ __forceinline__ void unpack(const uint4& u, float f[4]) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float f[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
 
 __device__ __forceinline__ long clamp_row(int i, int N) {
   return (long)min(max(i, 0), N - 1);
@@ -75,17 +122,18 @@ struct Unroll {
   static constexpr int value = K <= 2 ? 4 : (K <= 4 ? 2 : 1);
 };
 
-template <int K>
+template <class T, int K>
 __global__ void __launch_bounds__(kThreads)
-gather_wsum_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
-                   const float* __restrict__ w, bf16* __restrict__ out,
+gather_wsum_kernel(const T* __restrict__ src, const int* __restrict__ idx,
+                   const float* __restrict__ w, T* __restrict__ out,
                    long rows, int M, int N, int D) {
   constexpr int U = Unroll<K>::value;
+  constexpr int E = Vec<T>::N;
   const long row = (long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
   const long b = row / M;
-  const int nvec = D >> 3;
+  const int nvec = D >> Vec<T>::kShift;
   const uint4* base[K];
   float wj[K];
 #pragma unroll
@@ -110,35 +158,37 @@ gather_wsum_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
     for (int u = 0; u < U; ++u) {
       const int v = v0 + u * 32;
       if (v >= nvec) break;
-      float acc[8], x[8];
-      unpack8(r[0][u], x);
+      float acc[E], x[E];
+      Vec<T>::unpack(r[0][u], x);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = __fmul_rn(x[e], wj[0]);
+      for (int e = 0; e < E; ++e) acc[e] = __fmul_rn(x[e], wj[0]);
 #pragma unroll
       for (int j = 1; j < K; ++j) {
-        unpack8(r[j][u], x);
+        Vec<T>::unpack(r[j][u], x);
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
+        for (int e = 0; e < E; ++e)
           acc[e] = __fadd_rn(acc[e], __fmul_rn(x[e], wj[j]));
       }
-      orow[v] = pack8(acc);
+      orow[v] = Vec<T>::pack(acc);
     }
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-gather_scale_dot_kernel(const bf16* __restrict__ src,
+gather_scale_dot_kernel(const T* __restrict__ src,
                         const int* __restrict__ idx,
                         const float* __restrict__ scale,
-                        const bf16* __restrict__ other,
-                        bf16* __restrict__ out, float* __restrict__ dot,
+                        const T* __restrict__ other,
+                        T* __restrict__ out, float* __restrict__ dot,
                         long rows, int M, int N, int D) {
   constexpr int U = 4;
+  constexpr int E = Vec<T>::N;
   const long row = (long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
   const long b = row / M;
-  const int nvec = D >> 3;
+  const int nvec = D >> Vec<T>::kShift;
   const float s = __ldg(scale + row);
   const uint4* srow = reinterpret_cast<const uint4*>(
       src + (b * N + clamp_row(__ldg(idx + row), N)) * D);
@@ -157,15 +207,15 @@ gather_scale_dot_kernel(const bf16* __restrict__ src,
     for (int u = 0; u < U; ++u) {
       const int v = v0 + u * 32;
       if (v >= nvec) break;
-      float x[8], y[8], o[8];
-      unpack8(xs[u], x);
-      unpack8(ys[u], y);
+      float x[E], y[E], o[E];
+      Vec<T>::unpack(xs[u], x);
+      Vec<T>::unpack(ys[u], y);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < E; ++e) {
         o[e] = __fmul_rn(x[e], s);
         d += x[e] * y[e];
       }
-      dst[v] = pack8(o);
+      dst[v] = Vec<T>::pack(o);
     }
   }
 #pragma unroll
@@ -210,22 +260,19 @@ gather_rows_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
   }
 }
 
-}  // namespace
-
-// src [B, N, D] bf16; idx, w [B, M, k]; out [B, M, D] bf16. Returns the
-// launch's cudaError_t (0 on success).
-extern "C" int gather_wsum_bf16(const void* src, const void* idx,
-                                const void* w, void* out, int B, int N,
-                                int M, int k, int D, void* stream) {
-  if (D % 8 || k < 1 || k > kMaxK || N < 1) return (int)cudaErrorInvalidValue;
+template <class T>
+int wsum(const void* src, const void* idx, const void* w, void* out, int B,
+         int N, int M, int k, int D, void* stream) {
+  if ((D * (int)sizeof(T)) % 16 || k < 1 || k > kMaxK || N < 1)
+    return (int)cudaErrorInvalidValue;
   const long rows = (long)B * M;
   if (rows == 0) return (int)cudaSuccess;
   const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PTT_WSUM(K)                                                         \
-  gather_wsum_kernel<K><<<blocks, kThreads, 0, s>>>(                        \
-      static_cast<const bf16*>(src), static_cast<const int*>(idx),          \
-      static_cast<const float*>(w), static_cast<bf16*>(out), rows, M, N, D)
+  gather_wsum_kernel<T, K><<<blocks, kThreads, 0, s>>>(                     \
+      static_cast<const T*>(src), static_cast<const int*>(idx),             \
+      static_cast<const float*>(w), static_cast<T*>(out), rows, M, N, D)
   switch (k) {
     case 1: PTT_WSUM(1); break;
     case 2: PTT_WSUM(2); break;
@@ -240,23 +287,52 @@ extern "C" int gather_wsum_bf16(const void* src, const void* idx,
   return (int)cudaGetLastError();
 }
 
-// src [B, N, D] bf16; idx, scale [B, M]; other, out [B, M, D] bf16; dot
-// [B, M] f32. Returns the launch's cudaError_t (0 on success).
-extern "C" int gather_scale_dot_bf16(const void* src, const void* idx,
-                                     const void* scale, const void* other,
-                                     void* out, void* dot, int B, int N,
-                                     int M, int D, void* stream) {
-  if (D % 8 || N < 1) return (int)cudaErrorInvalidValue;
+template <class T>
+int scale_dot(const void* src, const void* idx, const void* scale,
+              const void* other, void* out, void* dot, int B, int N, int M,
+              int D, void* stream) {
+  if ((D * (int)sizeof(T)) % 16 || N < 1) return (int)cudaErrorInvalidValue;
   const long rows = (long)B * M;
   if (rows == 0) return (int)cudaSuccess;
   const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-  gather_scale_dot_kernel<<<blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(src), static_cast<const int*>(idx),
-      static_cast<const float*>(scale), static_cast<const bf16*>(other),
-      static_cast<bf16*>(out), static_cast<float*>(dot), rows, M, N, D);
+  gather_scale_dot_kernel<T><<<blocks, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(src), static_cast<const int*>(idx),
+      static_cast<const float*>(scale), static_cast<const T*>(other),
+      static_cast<T*>(out), static_cast<float*>(dot), rows, M, N, D);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// src [B, N, D]; idx, w [B, M, k]; out [B, M, D]; src and out in the
+// entry point's type (gather_wsum_bf16, _f16, _f32), D * its size a
+// multiple of 16 bytes. Returns the launch's cudaError_t (0 on success).
+#define PTT_WSUM_ENTRY(NAME, T)                                             \
+  extern "C" int NAME(const void* src, const void* idx, const void* w,      \
+                      void* out, int B, int N, int M, int k, int D,         \
+                      void* stream) {                                       \
+    return wsum<T>(src, idx, w, out, B, N, M, k, D, stream);                \
+  }
+PTT_WSUM_ENTRY(gather_wsum_bf16, bf16)
+PTT_WSUM_ENTRY(gather_wsum_f16, f16)
+PTT_WSUM_ENTRY(gather_wsum_f32, float)
+#undef PTT_WSUM_ENTRY
+
+// src [B, N, D]; idx, scale [B, M]; other, out [B, M, D], in the entry
+// point's type (gather_scale_dot_bf16, _f16, _f32); dot [B, M] f32.
+// Returns the launch's cudaError_t (0 on success).
+#define PTT_SDOT_ENTRY(NAME, T)                                             \
+  extern "C" int NAME(const void* src, const void* idx, const void* scale,  \
+                      const void* other, void* out, void* dot, int B,       \
+                      int N, int M, int D, void* stream) {                  \
+    return scale_dot<T>(src, idx, scale, other, out, dot, B, N, M, D,       \
+                        stream);                                            \
+  }
+PTT_SDOT_ENTRY(gather_scale_dot_bf16, bf16)
+PTT_SDOT_ENTRY(gather_scale_dot_f16, f16)
+PTT_SDOT_ENTRY(gather_scale_dot_f32, float)
+#undef PTT_SDOT_ENTRY
 
 // src [B, N, D] bf16; idx [B, M] int32 (-1 = a zero row); out [B, M, D]
 // bf16. Returns the launch's cudaError_t (0 on success).

@@ -14,20 +14,23 @@
 // key j lives at pool block table[r, j / bs], slot j % bs, and, with a
 // slab, to the slab rows s of suffix_k/v[r] with suffix_vis[r, p, s] set;
 // one softmax runs over both. Invalid queries (valid[r, p] == 0) write
-// zeros. q [R, P, H, hd], pools [N, bs, KV, hd] (one layer) bf16 or int8
-// with k_scale/v_scale [N] f32 (code x scale is the value), slab
-// [R, S, KV, hd] bf16 (S <= 64), suffix_vis [R, P, S] one byte each, out
-// [R, P, H, hd] bf16; table, positions int32; valid one byte per query.
+// zeros. q [R, P, H, hd], pools [N, bs, KV, hd] (one layer) in q's type T
+// or int8 with k_scale/v_scale [N] f32 (code x scale is the value), slab
+// [R, S, KV, hd] in T (S <= 64), suffix_vis [R, P, S] one byte each, out
+// [R, P, H, hd] in T; table, positions int32; valid one byte per query.
+// T is bf16, f16 or f32 (ragged_paged_attention_bf16, _f16, _f32): the
+// TPU kernel computes in the pools' dtype.
 // The pool write of the same call happens before this kernel
 // (nlp/paged.py::_attention_paged), so a cold row sees its own keys.
 //
 // Bound on the H100: memory. Each (row, KV head) reads its live K and V
-// once, bs * hd * 2 bytes per block each (bs * hd int8 codes and a 4-byte
-// scale from an int8 pool), for ~4 * rep flops a byte (8 * rep int8),
-// far below the ~295 flop/byte ridge; a decode step of 8 rows of 1024
-// keys at Llama-3-8B widths moves 33.5 MB (fp) or 16.8 MB (int8), 0.010
-// or 0.005 ms at 3.35 TB/s. The slab adds S * hd * 2 bytes of K and V a
-// (row, KV head), at most 64 rows. The TPU kernel reads only the LIVE
+// once, bs * hd * sizeof(T) bytes per block each (bs * hd int8 codes and
+// a 4-byte scale from an int8 pool), for ~4 * rep flops a 16-bit byte
+// (8 * rep int8, 2 * rep f32), far below the ~295 flop/byte ridge of the
+// tensor cores and the ~20 of f32 FFMA; a decode step of 8 rows of 1024
+// keys at Llama-3-8B widths moves 33.5 MB (16-bit), 67.1 MB (f32) or 16.8
+// MB (int8), 0.010, 0.020 or 0.005 ms at 3.35 TB/s. The slab adds
+// S * hd * sizeof(T) bytes of K and V a (row, KV head), at most 64 rows. The TPU kernel reads only the LIVE
 // chain instead of gathering the table's full width, and so does this
 // one. What the card needs beyond that is enough bytes in flight: a
 // decode step has only R * KV (row, KV head) pairs.
@@ -52,23 +55,26 @@
 //    fused prefill, the verify's k + 1 or tree rows) is 64 rows, 16 a
 //    warp, each warp taking all 64 keys of a stage.
 //  * The copies are pipelined: a ring of 3 (hd 128) or 4 (hd 64) stages
-//    of 64 keys of K and V (4 or 6 of int8 codes), filled with cp.async
-//    (16-byte LDGSTS, which suits the pool's 256- or 128-byte bf16 rows
-//    and its 128- or 64-byte int8 rows; zero-filled past the split), so
+//    of 64 keys of K and V (4 or 6 of int8 codes; f32: 2 or 3, since an
+//    f32 stage is twice the bytes and three at hd 128 with the tile's Q
+//    would not fit 227 KB), filled with cp.async (16-byte LDGSTS, which
+//    suits the pool's 256- or 128-byte 16-bit rows, 512- or 256-byte f32
+//    ones and 128- or 64-byte int8 rows; zero-filled past the split), so
 //    all but one stage are in flight while that one's products run. A split's table entries, and an
 //    int8 pool's two scales a block, are read into shared memory once,
 //    before the ring starts.
-//  * int8 pools. A landed stage's codes are widened to bf16 into one
-//    staging stage (|code| <= 127 is exact in bf16), and the fragment
+//  * int8 pools. A landed stage's codes are widened to T into one
+//    staging stage (|code| <= 127 is exact in bf16, f16 and f32), and the
+//    fragment
 //    path runs unchanged on them; in a narrow tile each warp widens only
 //    the 16 keys it folds (no block barrier), in a wide one the block
 //    widens the stage together; each key's K scale multiplies its f32
 //    score column after the product and its V scale the probability
 //    column before P.V (the row sum takes the unscaled probabilities), so
-//    no dequantized value is rounded to bf16. A block of scale 0 gives
+//    no dequantized value is rounded to T. A block of scale 0 gives
 //    exact zeros, as its dequantized codes do.
 //  * Outputs. Without a slab, a query whose visible keys all lie in split
-//    0 gets its final bf16 output from split 0, as does an invalid query
+//    0 gets its final output (in T) from split 0, as does an invalid query
 //    (zeros). Any other query gets, from each split holding some of its
 //    keys, an f32 partial: O unnormalised, the running max in log2 units
 //    and the sum. With a slab every valid query has keys in the slab, so
@@ -76,41 +82,69 @@
 //    writes every output row (zeros for invalid queries). Then
 //    ragged_merge_kernel folds each query's partials in split order, the
 //    slab's last. No atomics: two runs give identical bits.
-//  * Products on mma.sync m16n8k16 (attention_core.cuh), online softmax
-//    in f32; V's B fragments by ldmatrix.trans. The work is memory bound,
-//    and wgmma's M of 64 would be mostly padding in decode.
+//  * Products: bf16 and f16 on mma.sync m16n8k16 (attention_core.cuh),
+//    V's B fragments by ldmatrix.trans (b16 serves both); online softmax
+//    in f32. The work is memory bound, and wgmma's M of 64 would be
+//    mostly padding in decode. f32 on FFMA in full f32, as the plain
+//    version computes (mma.sync takes 16-bit operands at k16, ldmatrix
+//    moves b16, and TF32 would round q, K, P and V): the same tiles, the
+//    lanes holding the same C-fragment elements (row g or g + 8, key or
+//    column 2t, 2t + 1 of each n8 tile), so the softmax and the outputs
+//    are shared. Q K^T reads the tile's Q rows (staged in shared memory
+//    once, float4) against K rows (float4); P V takes each key's
+//    probabilities from the quad that holds them (shuffles) against V
+//    rows (float2). At decode sizes an f32 step is still bound by its
+//    pool bytes (~2 * rep flops a byte against FFMA's ~20).
 #include "attention_core.cuh"
 #include "hopper_core.cuh"
 
 namespace {
 
 using ptt::bf16;
+using ptt::f16;
 using ptt::kNegInf;
 
 constexpr int kThreads = 128;     // 4 warps
 constexpr int kStageKeys = 64;    // keys of K and of V per ring stage
 constexpr int kMaxSlab = 64;      // slab rows: one stage
 
-// A staged bf16 K or V row is HD + 8 elements, so the 8 rows of a
-// fragment load or of an ldmatrix start 4 banks apart. An int8 pool's
-// ring holds the codes (rows of HD bytes), plus one bf16 staging stage
-// they are widened into, plus each ring stage's per-key K and V scales;
-// its stages are half the bytes, so it runs one (hd 128) or two (hd 64)
-// more of them in about the shared memory of the bf16 ring (two blocks
-// still fit a multiprocessor).
-template <int HD, bool Q8>
+// Values of element type T in one 16-byte copy; a staged K or V row is
+// HD + kVec of them, so the 8 rows of a fragment load or of an ldmatrix
+// start 4 banks apart.
+template <class T>
+struct Elem {
+  static constexpr int kVec = 16 / (int)sizeof(T);
+  static constexpr bool kF32 = sizeof(T) == 4;
+};
+
+// The ring of staged K and V, in T. An int8 pool's ring holds the codes
+// (rows of HD bytes), plus one T staging stage they are widened into,
+// plus each ring stage's per-key K and V scales; its stages are half the
+// bytes of a 16-bit one, so it runs one (hd 128) or two (hd 64) more of
+// them in about the shared memory of the 16-bit ring (two blocks still
+// fit a multiprocessor). An f32 stage is twice a 16-bit one's bytes: 2
+// (hd 128) or 3 (hd 64) stages, one block a multiprocessor beside the
+// tile's staged Q rows (kQNarrow or kQWide bytes: f32 only, HD + 4
+// floats a row).
+template <int HD, bool Q8, class T>
 struct Ring {
   static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
-  static constexpr int kRow = HD + 8;
-  static constexpr int kStages = HD == 128 ? (Q8 ? 4 : 3) : (Q8 ? 6 : 4);
+  static constexpr bool kF32 = Elem<T>::kF32;
+  static constexpr int kRow = HD + Elem<T>::kVec;
+  static constexpr int kStages =
+      kF32 ? (HD == 128 ? (Q8 ? 4 : 2) : (Q8 ? 6 : 3))
+           : (HD == 128 ? (Q8 ? 4 : 3) : (Q8 ? 6 : 4));
   static constexpr int kStage = 2 * kStageKeys * kRow;   // K, then V
-  static constexpr int kStageBytes = kStage * (int)sizeof(bf16);
+  static constexpr int kStageBytes = kStage * (int)sizeof(T);
   static constexpr int kCodeStage = 2 * kStageKeys * HD;  // int8 bytes
   static constexpr int kRingBytes =
       Q8 ? kStages * kCodeStage + kStageBytes : kStages * kStageBytes;
   static constexpr int kScaleBytes =
       Q8 ? kStages * 2 * kStageKeys * (int)sizeof(float) : 0;
   static constexpr int kBytes = kRingBytes + kScaleBytes;
+  static constexpr int kQRow = HD + 4;
+  static constexpr int kQNarrow = kF32 ? 16 * kQRow * (int)sizeof(float) : 0;
+  static constexpr int kQWide = kF32 ? 64 * kQRow * (int)sizeof(float) : 0;
 };
 
 // 16 bytes from device to shared memory, asynchronously; zeros if !full.
@@ -130,9 +164,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Four 8x8 bf16 matrices, transposed; lane l gives the address of row
+// Four 8x8 16-bit matrices, transposed; lane l gives the address of row
 // l % 8 of matrix l / 8, and r[i] holds matrix i's B fragment half.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -140,10 +174,12 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       : "memory");
 }
 
-// Four int8 codes as two bf16 pairs (exact: |code| <= 127), without the
+// Four int8 codes widened exactly (|code| <= 127), without the
 // quarter-rate int-to-float converts: code c's byte with its sign bit
 // flipped is c + 128, placed as the low byte of the f32 2^23 (exponent
-// byte 0x4B) it reads 2^23 + 128 + c, and one subtraction leaves c.
+// byte 0x4B) it reads 2^23 + 128 + c, and one subtraction leaves c. As
+// two packed pairs of a 16-bit T, or as four floats.
+template <class T>
 __device__ __forceinline__ uint2 widen4(uint32_t w) {
   const uint32_t u = w ^ 0x80808080u;
   constexpr float kMagic = 8388736.f;       // 2^23 + 128
@@ -151,17 +187,34 @@ __device__ __forceinline__ uint2 widen4(uint32_t w) {
   const float c1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651));
   const float c2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652));
   const float c3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653));
-  return make_uint2(ptt::pack_bf16(c0 - kMagic, c1 - kMagic),
-                    ptt::pack_bf16(c2 - kMagic, c3 - kMagic));
+  return make_uint2(ptt::Mma<T>::pack(c0 - kMagic, c1 - kMagic),
+                    ptt::Mma<T>::pack(c2 - kMagic, c3 - kMagic));
 }
 
-// One warp's 16 query rows: Q's A fragments, the O accumulator, and for
-// rows g and g + 8 of this lane the running max (log2 units), the sum,
-// the last chain key the row sees (-1: none) and, in the slab split, the
-// slab rows it sees (bit s: row s).
+__device__ __forceinline__ float4 widen4_f32(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  constexpr float kMagic = 8388736.f;       // 2^23 + 128
+  return make_float4(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - kMagic,
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - kMagic,
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - kMagic,
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - kMagic);
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// One warp's 16 query rows: Q's A fragments (16-bit types) or its rows
+// staged in shared memory (f32, `qs`), the O accumulator, and for rows g
+// and g + 8 of this lane the running max (log2 units), the sum, the last
+// chain key the row sees (-1: none) and, in the slab split, the slab rows
+// it sees (bit s: row s).
 template <int HD>
 struct Rows {
   uint32_t q[HD / 16][4];
+  const float* qs;
   float o[HD / 8][4];
   float m[2], l[2];
   int lim[2];
@@ -169,28 +222,53 @@ struct Rows {
 };
 
 // Fold NK staged keys into a warp's rows: K rows ks, V rows vs (row
-// stride Ring<HD>::kRow), key0 the first key's chain key (slab row for
-// SLAB). Scores are scaled by scale * log2(e) so exp2 gives the weights.
-// Q8: the staged rows are codes; kss / vss hold each staged key's K and
-// V scale.
-template <int HD, int NK, bool Q8, bool SLAB>
-__device__ __forceinline__ void fold(Rows<HD>& st, const bf16* ks,
-                                     const bf16* vs, int key0,
-                                     float scale_log2, const float* kss,
-                                     const float* vss) {
-  constexpr int kRow = HD + 8;
+// stride Ring<HD, Q8, T>::kRow), key0 the first key's chain key (slab row
+// for SLAB). Scores are scaled by scale * log2(e) so exp2 gives the
+// weights. Q8: the staged rows are widened codes; kss / vss hold each
+// staged key's K and V scale. Every lane ends holding the C-fragment
+// elements of the mma layout (rows g, g + 8; columns 2t, 2t + 1 of each
+// n8 tile), whether the products ran on mma.sync (16-bit) or FFMA (f32).
+template <class T, int HD, int NK, bool Q8, bool SLAB>
+__device__ __forceinline__ void fold(Rows<HD>& st, const T* ks, const T* vs,
+                                     int key0, float scale_log2,
+                                     const float* kss, const float* vss) {
+  constexpr int kRow = HD + Elem<T>::kVec;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float s[NK / 8][4];
 #pragma unroll
   for (int nt = 0; nt < NK / 8; ++nt)
     s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  if constexpr (Elem<T>::kF32) {
+    // S = Q K^T on FFMA: rows g and g + 8 against keys 2t, 2t + 1 of
+    // each n8 tile, four columns of head_dim a step
+    constexpr int kQRow = HD + 4;
+    const float* qa_row = st.qs + g * kQRow;
+    const float* qb_row = qa_row + 8 * kQRow;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      const float4 qa = *reinterpret_cast<const float4*>(qa_row + d);
+      const float4 qb = *reinterpret_cast<const float4*>(qb_row + d);
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int nt = 0; nt < NK / 8; ++nt) {
+        const float* kr = ks + (nt * 8 + 2 * t) * kRow + d;
+        const float4 k0 = *reinterpret_cast<const float4*>(kr);
+        const float4 k1 = *reinterpret_cast<const float4*>(kr + kRow);
+        s[nt][0] = dot4(qa, k0, s[nt][0]);
+        s[nt][1] = dot4(qa, k1, s[nt][1]);
+        s[nt][2] = dot4(qb, k0, s[nt][2]);
+        s[nt][3] = dot4(qb, k1, s[nt][3]);
+      }
+    }
+  } else {
 #pragma unroll
-    for (int nt = 0; nt < NK / 8; ++nt) {
-      const bf16* kr = ks + (nt * 8 + g) * kRow + kk * 16 + 2 * t;
-      ptt::mma_bf16(s[nt], st.q[kk], *reinterpret_cast<const uint32_t*>(kr),
-                    *reinterpret_cast<const uint32_t*>(kr + 8));
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < NK / 8; ++nt) {
+        const T* kr = ks + (nt * 8 + g) * kRow + kk * 16 + 2 * t;
+        ptt::Mma<T>::run(s[nt], st.q[kk],
+                         *reinterpret_cast<const uint32_t*>(kr),
+                         *reinterpret_cast<const uint32_t*>(kr + 8));
+      }
     }
   }
   // mask (key j visible to a row iff j <= its lim, or its slab bit), then
@@ -256,50 +334,97 @@ __device__ __forceinline__ void fold(Rows<HD>& st, const bf16* ks,
       s[nt][3] *= v1;
     }
   }
-  // O += P V: the accumulators of key n-tiles 2kk, 2kk+1 are the A
-  // fragment of k-step kk; V's B fragments of head_dim n-tiles 2dp,
-  // 2dp+1 come from one transposed ldmatrix (keys 0-7 / 8-15 x columns
-  // 0-7 / 8-15 of the pair)
-  const int vr = (lane & 7) + ((lane >> 3) & 1) * 8, vc = (lane >> 4) * 8;
+  if constexpr (Elem<T>::kF32) {
+    // O += P V on FFMA: key j's probabilities for rows g and g + 8 sit in
+    // lane j % 8 / 2 of the quad, element j % 2 of n-tile j / 8; each
+    // lane takes columns 2t, 2t + 1 of every head_dim n8 tile of V's row j
+    const int quad = lane & ~3;
 #pragma unroll
-  for (int kk = 0; kk < NK / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = ptt::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    a[1] = ptt::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    a[2] = ptt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[3] = ptt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    for (int nt = 0; nt < NK / 8; ++nt) {
 #pragma unroll
-    for (int dp = 0; dp < HD / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_t(b, vs + (kk * 16 + vr) * kRow + dp * 16 + vc);
-      ptt::mma_bf16(st.o[2 * dp], a, b[0], b[1]);
-      ptt::mma_bf16(st.o[2 * dp + 1], a, b[2], b[3]);
+      for (int jj = 0; jj < 8; ++jj) {
+        const int src = quad | (jj >> 1);
+        const float pa = __shfl_sync(0xffffffffu, s[nt][jj & 1], src);
+        const float pb = __shfl_sync(0xffffffffu, s[nt][2 + (jj & 1)], src);
+        const float* vr = vs + (nt * 8 + jj) * kRow + 2 * t;
+#pragma unroll
+        for (int dn = 0; dn < HD / 8; ++dn) {
+          const float2 v = *reinterpret_cast<const float2*>(vr + dn * 8);
+          st.o[dn][0] = fmaf(pa, v.x, st.o[dn][0]);
+          st.o[dn][1] = fmaf(pa, v.y, st.o[dn][1]);
+          st.o[dn][2] = fmaf(pb, v.x, st.o[dn][2]);
+          st.o[dn][3] = fmaf(pb, v.y, st.o[dn][3]);
+        }
+      }
+    }
+  } else {
+    // O += P V: the accumulators of key n-tiles 2kk, 2kk+1 are the A
+    // fragment of k-step kk; V's B fragments of head_dim n-tiles 2dp,
+    // 2dp+1 come from one transposed ldmatrix (keys 0-7 / 8-15 x columns
+    // 0-7 / 8-15 of the pair)
+    const int vr = (lane & 7) + ((lane >> 3) & 1) * 8, vc = (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = ptt::Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = ptt::Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = ptt::Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = ptt::Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_t(b, vs + (kk * 16 + vr) * kRow + dp * 16 + vc);
+        ptt::Mma<T>::run(st.o[2 * dp], a, b[0], b[1]);
+        ptt::Mma<T>::run(st.o[2 * dp + 1], a, b[2], b[3]);
+      }
     }
   }
 }
 
 struct Args {
-  const bf16* q;
-  const void* k_pool;              // bf16, or int8 codes with k_scale
+  const void* q;                   // T
+  const void* k_pool;              // T, or int8 codes with k_scale
   const void* v_pool;
   const float* k_scale;            // [N] f32; null for an fp pool
   const float* v_scale;
   const int* table;
   const int* positions;
   const unsigned char* valid;
-  const bf16* suffix_k;            // [R, S, KV, hd]; null without a slab
-  const bf16* suffix_v;
+  const void* suffix_k;            // [R, S, KV, hd] T; null without a slab
+  const void* suffix_v;
   const unsigned char* suffix_vis; // [R, P, S]
-  bf16* out;
+  void* out;                       // T
   float* part_o;                   // [n_splits (+ 1), R * P * H, hd] f32
   float* part_ml;                  // [n_splits (+ 1), R * P * H, 2]
   int P, H, KV, N, bs, M, S, split_keys, n_splits;
   float scale_log2;
 };
 
+// NC outputs o / sum (0 where sum is 0) written to dst in T
+template <class T, int NC>
+__device__ __forceinline__ void store_out(T* dst, const float (&o)[NC],
+                                          float inv) {
+  if constexpr (Elem<T>::kF32) {
+    if constexpr (NC == 4)
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(o[0] * inv, o[1] * inv, o[2] * inv, o[3] * inv);
+    else
+      *reinterpret_cast<float2*>(dst) = make_float2(o[0] * inv, o[1] * inv);
+  } else {
+    uint32_t w[NC / 2];
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i)
+      w[i] = ptt::Mma<T>::pack(o[2 * i] * inv, o[2 * i + 1] * inv);
+    if constexpr (NC == 4)
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    else
+      *reinterpret_cast<uint32_t*>(dst) = w[0];
+  }
+}
+
 // Where a block's results go.
 struct Sink {
-  bf16* out;
+  void* out;
   float* part_o;
   float* part_ml;
   const int* positions;
@@ -317,8 +442,8 @@ struct Sink {
     return n > 0 ? (n + split_keys - 1) / split_keys : 0;
   }
 
-  // What this block writes for query qi: 0 nothing, 1 its final bf16
-  // output, 2 an f32 partial.
+  // What this block writes for query qi: 0 nothing, 1 its final output,
+  // 2 an f32 partial.
   __device__ __forceinline__ int action(int qi) const {
     const int ns = splits_of(qi);
     if (slab) {
@@ -331,21 +456,13 @@ struct Sink {
 
   // Columns c.. c + NC - 1 of output row `row` ((r * P + p) * H + head):
   // O unnormalised, with its max and sum.
-  template <int HD, int NC>
+  template <class T, int HD, int NC>
   __device__ __forceinline__ void put(const float (&o)[NC], float mx,
                                       float sum, int act, size_t row,
                                       int c) const {
     if (act == 1) {
       const float inv = sum > 0.f ? 1.f / sum : 0.f;
-      uint32_t w[NC / 2];
-#pragma unroll
-      for (int i = 0; i < NC / 2; ++i)
-        w[i] = ptt::pack_bf16(o[2 * i] * inv, o[2 * i + 1] * inv);
-      bf16* dst = out + row * HD + c;
-      if constexpr (NC == 4)
-        *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
-      else
-        *reinterpret_cast<uint32_t*>(dst) = w[0];
+      store_out<T, NC>(static_cast<T*>(out) + row * HD + c, o, inv);
     } else if (act == 2) {
       const size_t at = (size_t)split * rows + row;
       float* dst = part_o + at * HD + c;
@@ -361,20 +478,25 @@ struct Sink {
 
 // SLAB: the call has a slab (suffix_k non-null), whose split is the last
 // of each tile; a call without one compiles none of the slab's code.
-template <int HD, bool NARROW, bool Q8, bool SLAB>
+template <class T, int HD, bool NARROW, bool Q8, bool SLAB>
 __global__ void __launch_bounds__(kThreads)
 ragged_split_kernel(const Args a) {
-  using RG = Ring<HD, Q8>;
+  using RG = Ring<HD, Q8, T>;
   constexpr int kTileRows = NARROW ? 16 : 64;
   constexpr int kRow = RG::kRow;
+  constexpr int kVec = Elem<T>::kVec;
+  constexpr int kQRow = RG::kQRow;
   extern __shared__ __align__(16) unsigned char smem[];
-  // fp: the bf16 ring. int8: the code ring, then the bf16 staging stage,
-  // then the per-key scales of each ring stage
-  bf16* ring = reinterpret_cast<bf16*>(smem);
+  // fp: the T ring. int8: the code ring, then the T staging stage, then
+  // the per-key scales of each ring stage. Then (f32) the tile's Q rows,
+  // then the split's table entries (and an int8 pool's scales)
+  T* ring = reinterpret_cast<T*>(smem);
   signed char* codes = reinterpret_cast<signed char*>(smem);
-  bf16* staged = reinterpret_cast<bf16*>(smem + RG::kStages * RG::kCodeStage);
+  T* staged = reinterpret_cast<T*>(smem + RG::kStages * RG::kCodeStage);
   float* key_sc = reinterpret_cast<float*>(smem + RG::kRingBytes);
-  int* s_tab = reinterpret_cast<int*>(smem + RG::kBytes);
+  float* s_q = reinterpret_cast<float*>(smem + RG::kBytes);
+  int* s_tab = reinterpret_cast<int*>(
+      smem + RG::kBytes + (NARROW ? RG::kQNarrow : RG::kQWide));
   __shared__ int s_live;
   const int P = a.P, H = a.H, KV = a.KV, bs = a.bs, M = a.M;
   const int n_all = a.n_splits + (SLAB ? 1 : 0);
@@ -386,13 +508,14 @@ ragged_split_kernel(const Args a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int max_keys = M * bs;
+  const T* qg = static_cast<const T*>(a.q);
 
   // this warp's rows: tile row rr is position p0 + rr / rep, head
   // kvh * rep + rr % rep
   const int row0 = NARROW ? 0 : warp * 16;
   Rows<HD> st;
   auto load_rows = [&]() {
-    const bf16* qr[2];
+    const T* qr[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int rr = row0 + g + 8 * h, p = p0 + rr / rep;
@@ -401,7 +524,7 @@ ragged_split_kernel(const Args a) {
       st.vm[h] = 0ull;
       if (p < P) {
         const int i = r * P + p;
-        qr[h] = a.q + ((size_t)i * H + kvh * rep + rr % rep) * HD;
+        qr[h] = qg + ((size_t)i * H + kvh * rep + rr % rep) * HD;
         if (a.valid[i]) {
           st.lim[h] = a.positions[i];
           if constexpr (SLAB) {
@@ -414,17 +537,32 @@ ragged_split_kernel(const Args a) {
         }
       }
     }
-    auto pair = [&](int h, int c) -> uint32_t {
-      return qr[h] != nullptr
-                 ? *reinterpret_cast<const uint32_t*>(qr[h] + c) : 0u;
-    };
+    if constexpr (Elem<T>::kF32) {
+      // the tile's Q rows into shared memory, by the whole block (zeros
+      // past P); the folds read them after the next block barrier
+      for (int i = threadIdx.x; i < kTileRows * (HD / 4); i += kThreads) {
+        const int rr = i / (HD / 4), c = (i % (HD / 4)) * 4;
+        const int p = p0 + rr / rep;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (p < P)
+          v = *reinterpret_cast<const float4*>(
+              qg + ((size_t)(r * P + p) * H + kvh * rep + rr % rep) * HD + c);
+        *reinterpret_cast<float4*>(s_q + rr * kQRow + c) = v;
+      }
+      st.qs = s_q + row0 * kQRow;
+    } else {
+      auto pair = [&](int h, int c) -> uint32_t {
+        return qr[h] != nullptr
+                   ? *reinterpret_cast<const uint32_t*>(qr[h] + c) : 0u;
+      };
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      st.q[kk][0] = pair(0, c);
-      st.q[kk][1] = pair(1, c);
-      st.q[kk][2] = pair(0, c + 8);
-      st.q[kk][3] = pair(1, c + 8);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int c = kk * 16 + 2 * t;
+        st.q[kk][0] = pair(0, c);
+        st.q[kk][1] = pair(1, c);
+        st.q[kk][2] = pair(0, c + 8);
+        st.q[kk][3] = pair(1, c + 8);
+      }
     }
 #pragma unroll
     for (int nt = 0; nt < HD / 8; ++nt)
@@ -433,36 +571,38 @@ ragged_split_kernel(const Args a) {
     st.l[0] = st.l[1] = 0.f;
   };
   // each thread copies one 16-byte column chunk of every
-  // (kThreads / chunks)-th key of a bf16 stage
-  constexpr int kChunks = HD / 8;
+  // (kThreads / chunks)-th key of a T stage
+  constexpr int kChunks = HD / kVec;
   const int chunk = threadIdx.x % kChunks;
 
   if (slab) {
     if constexpr (SLAB) {
-    // the slab split: its S rows as one stage, straight into a bf16
-    // stage (the int8 kernel's staging stage)
-    bf16* ks = Q8 ? staged : ring;
-    bf16* vs = ks + kStageKeys * kRow;
+    // the slab split: its S rows as one stage, straight into a T stage
+    // (the int8 kernel's staging stage)
+    T* ks = Q8 ? staged : ring;
+    T* vs = ks + kStageKeys * kRow;
 #pragma unroll
     for (int j = threadIdx.x / kChunks; j < kStageKeys;
          j += kThreads / kChunks) {
       const bool in = j < a.S;
       const size_t off =
-          in ? (((size_t)r * a.S + j) * KV + kvh) * HD + chunk * 8 : 0;
-      cp_async16(ks + j * kRow + chunk * 8, a.suffix_k + off, in);
-      cp_async16(vs + j * kRow + chunk * 8, a.suffix_v + off, in);
+          in ? (((size_t)r * a.S + j) * KV + kvh) * HD + chunk * kVec : 0;
+      cp_async16(ks + j * kRow + chunk * kVec,
+                 static_cast<const T*>(a.suffix_k) + off, in);
+      cp_async16(vs + j * kRow + chunk * kVec,
+                 static_cast<const T*>(a.suffix_v) + off, in);
     }
     cp_async_commit();
     load_rows();
     cp_async_wait<0>();
     __syncthreads();
     if (NARROW)
-      fold<HD, 16, false, true>(st, ks + warp * 16 * kRow,
-                                vs + warp * 16 * kRow, warp * 16,
-                                a.scale_log2, nullptr, nullptr);
+      fold<T, HD, 16, false, true>(st, ks + warp * 16 * kRow,
+                                   vs + warp * 16 * kRow, warp * 16,
+                                   a.scale_log2, nullptr, nullptr);
     else
-      fold<HD, 64, false, true>(st, ks, vs, 0, a.scale_log2, nullptr,
-                                nullptr);
+      fold<T, HD, 64, false, true>(st, ks, vs, 0, a.scale_log2, nullptr,
+                                   nullptr);
     }
   } else {
     // One round trip before the walk: the tile's positions (its live
@@ -503,8 +643,8 @@ ragged_split_kernel(const Args a) {
                                           kStageKeys : 0;
 
     // Stage `tile` of the split into ring slot `slot`. int8: rows of HD
-    // bytes, kChunks / 2 chunks a row; the chunk-0 thread of each key
-    // also stores the key's two scales (0 past the split).
+    // bytes, HD / 16 chunks a row; the chunk-0 thread of each key also
+    // stores the key's two scales (0 past the split).
     auto load_stage = [&](int tile, int slot) {
       constexpr int kCh = Q8 ? HD / 16 : kChunks;
       const int ch = threadIdx.x % kCh;
@@ -532,12 +672,12 @@ ragged_split_kernel(const Args a) {
             sc[kStageKeys + j] = in ? s_vs[bi] : 0.f;
           }
         } else {
-          bf16* ks = ring + slot * RG::kStage;
-          bf16* vs = ks + kStageKeys * kRow;
-          const bf16* kp = static_cast<const bf16*>(a.k_pool);
-          const bf16* vp = static_cast<const bf16*>(a.v_pool);
-          cp_async16(ks + j * kRow + ch * 8, kp + off + ch * 8, in);
-          cp_async16(vs + j * kRow + ch * 8, vp + off + ch * 8, in);
+          T* ks = ring + slot * RG::kStage;
+          T* vs = ks + kStageKeys * kRow;
+          const T* kp = static_cast<const T*>(a.k_pool);
+          const T* vp = static_cast<const T*>(a.v_pool);
+          cp_async16(ks + j * kRow + ch * kVec, kp + off + ch * kVec, in);
+          cp_async16(vs + j * kRow + ch * kVec, vp + off + ch * kVec, in);
         }
       }
     };
@@ -556,11 +696,11 @@ ragged_split_kernel(const Args a) {
       if (next < n_tiles) load_stage(next, next % RG::kStages);
       cp_async_commit();
       const int slot = tile % RG::kStages;
-      const bf16* ks;
+      const T* ks;
       const float* kss = nullptr;
       const float* vss = nullptr;
       if constexpr (Q8) {
-        // widen the landed codes to bf16, 16 codes at a time: in a narrow
+        // widen the landed codes to T, 16 codes at a time: in a narrow
         // tile each warp its own 16 keys of K and V (rows warp * 16.. and
         // 64 + warp * 16..), which only it reads; in a wide tile the block
         // the whole stage
@@ -568,11 +708,20 @@ ragged_split_kernel(const Args a) {
         auto widen = [&](int row, int col) {
           const uint4 w =
               *reinterpret_cast<const uint4*>(src + row * HD + col);
-          const uint2 a = widen4(w.x), b = widen4(w.y), c = widen4(w.z),
-                      d = widen4(w.w);
-          uint4* dst = reinterpret_cast<uint4*>(staged + row * kRow + col);
-          dst[0] = make_uint4(a.x, a.y, b.x, b.y);
-          dst[1] = make_uint4(c.x, c.y, d.x, d.y);
+          if constexpr (Elem<T>::kF32) {
+            float4* dst = reinterpret_cast<float4*>(staged + row * kRow +
+                                                    col);
+            dst[0] = widen4_f32(w.x);
+            dst[1] = widen4_f32(w.y);
+            dst[2] = widen4_f32(w.z);
+            dst[3] = widen4_f32(w.w);
+          } else {
+            const uint2 a = widen4<T>(w.x), b = widen4<T>(w.y),
+                        c = widen4<T>(w.z), d = widen4<T>(w.w);
+            uint4* dst = reinterpret_cast<uint4*>(staged + row * kRow + col);
+            dst[0] = make_uint4(a.x, a.y, b.x, b.y);
+            dst[1] = make_uint4(c.x, c.y, d.x, d.y);
+          }
         };
         constexpr int kCh = HD / 16;          // 16-code chunks a row
         if (NARROW) {
@@ -593,15 +742,16 @@ ragged_split_kernel(const Args a) {
       } else {
         ks = ring + slot * RG::kStage;
       }
-      const bf16* vs = ks + kStageKeys * kRow;
+      const T* vs = ks + kStageKeys * kRow;
       const int key0 = k_lo + tile * kStageKeys;
       if (NARROW)
-        fold<HD, 16, Q8, false>(
+        fold<T, HD, 16, Q8, false>(
             st, ks + warp * 16 * kRow, vs + warp * 16 * kRow,
             key0 + warp * 16, a.scale_log2,
             Q8 ? kss + warp * 16 : nullptr, Q8 ? vss + warp * 16 : nullptr);
       else
-        fold<HD, 64, Q8, false>(st, ks, vs, key0, a.scale_log2, kss, vss);
+        fold<T, HD, 64, Q8, false>(st, ks, vs, key0, a.scale_log2, kss,
+                                   vss);
     }
   }
   cp_async_wait<0>();
@@ -622,7 +772,7 @@ ragged_split_kernel(const Args a) {
 #pragma unroll
       for (int nt = 0; nt < HD / 8; ++nt) {
         const float o2[2] = {st.o[nt][2 * h], st.o[nt][2 * h + 1]};
-        sink.put<HD, 2>(o2, st.m[h], st.l[h], act, row, nt * 8 + 2 * t);
+        sink.put<T, HD, 2>(o2, st.m[h], st.l[h], act, row, nt * 8 + 2 * t);
       }
     }
     return;
@@ -664,8 +814,8 @@ ragged_split_kernel(const Args a) {
       o4[3] += f * v.w;
     }
     const int qi = r * P + p0 + rr / rep;
-    sink.put<HD, 4>(o4, mx, sum, sink.action(qi),
-                    (size_t)qi * H + kvh * rep + rr % rep, c);
+    sink.put<T, HD, 4>(o4, mx, sum, sink.action(qi),
+                       (size_t)qi * H + kvh * rep + rr % rep, c);
   }
 }
 
@@ -674,25 +824,30 @@ ragged_split_kernel(const Args a) {
 // order. Without a slab, rows whose query needs one split or none were
 // written by ragged_split_kernel; with one, this kernel writes every row
 // (zeros for an invalid query).
-template <int HD>
+template <class T, int HD>
 __global__ void __launch_bounds__(kThreads)
 ragged_merge_kernel(const int* __restrict__ positions,
                     const unsigned char* __restrict__ valid,
                     const float* __restrict__ part_o,
                     const float* __restrict__ part_ml,
-                    bf16* __restrict__ out, int rows, int H, int max_keys,
+                    T* __restrict__ out, int rows, int H, int max_keys,
                     int split_keys, int slab) {
   constexpr int kPer = HD / 32;             // columns a lane: 4 or 2
   const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int qi = row / H;
   const int c = (threadIdx.x & 31) * kPer;
-  bf16* dst = out + (size_t)row * HD + c;
+  T* dst = out + (size_t)row * HD + c;
   if (!valid[qi]) {
     // the split kernel writes no output of a call with a slab
-    if (slab >= 0)
-      for (int i = 0; i < kPer / 2; ++i)
-        reinterpret_cast<uint32_t*>(dst)[i] = 0u;
+    if (slab >= 0) {
+      if constexpr (Elem<T>::kF32) {
+        for (int i = 0; i < kPer; ++i) dst[i] = 0.f;
+      } else {
+        for (int i = 0; i < kPer / 2; ++i)
+          reinterpret_cast<uint32_t*>(dst)[i] = 0u;
+      }
+    }
     return;
   }
   const int n = min(positions[qi] + 1, max_keys);
@@ -729,24 +884,30 @@ ragged_merge_kernel(const int* __restrict__ positions,
     for (int j = 0; j < kPer; ++j) o[j] += f * v[j];
   }
   const float inv = sum > 0.f ? 1.f / sum : 0.f;
+  if constexpr (Elem<T>::kF32) {
+    store_out<T, kPer>(dst, o, inv);
+  } else {
 #pragma unroll
-  for (int i = 0; i < kPer / 2; ++i)
-    reinterpret_cast<uint32_t*>(dst)[i] =
-        ptt::pack_bf16(o[2 * i] * inv, o[2 * i + 1] * inv);
+    for (int i = 0; i < kPer / 2; ++i)
+      reinterpret_cast<uint32_t*>(dst)[i] =
+          ptt::Mma<T>::pack(o[2 * i] * inv, o[2 * i + 1] * inv);
+  }
 }
 
-template <int HD, bool NARROW, bool Q8, bool SLAB>
+template <class T, int HD, bool NARROW, bool Q8, bool SLAB>
 cudaError_t launch(const Args& a, int R, cudaStream_t stream) {
   static int granted[64] = {};
   const int tile_pos = (NARROW ? 16 : 64) / (a.H / a.KV);
   const int n_pt = (a.P + tile_pos - 1) / tile_pos;
   const int n_all = a.n_splits + (SLAB ? 1 : 0);
   const int nb_max = (a.split_keys + a.bs - 1) / a.bs + 1;
-  const int smem = Ring<HD, Q8>::kBytes + 4 * nb_max * (Q8 ? 3 : 1);
-  cudaError_t err = hop::allow_smem(ragged_split_kernel<HD, NARROW, Q8, SLAB>,
-                                    smem, granted);
+  using RG = Ring<HD, Q8, T>;
+  const int smem = RG::kBytes + (NARROW ? RG::kQNarrow : RG::kQWide) +
+                   4 * nb_max * (Q8 ? 3 : 1);
+  cudaError_t err = hop::allow_smem(
+      ragged_split_kernel<T, HD, NARROW, Q8, SLAB>, smem, granted);
   if (err != cudaSuccess) return err;
-  ragged_split_kernel<HD, NARROW, Q8, SLAB>
+  ragged_split_kernel<T, HD, NARROW, Q8, SLAB>
       <<<dim3(R, a.KV, n_pt * n_all), kThreads, smem, stream>>>(a);
   if (a.n_splits > 1 || SLAB) {
     // a programmatic dependent launch: the merge's blocks are scheduled
@@ -763,33 +924,23 @@ cudaError_t launch(const Args& a, int R, cudaStream_t stream) {
     cfg.stream = stream;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, ragged_merge_kernel<HD>, a.positions,
+    return cudaLaunchKernelEx(&cfg, ragged_merge_kernel<T, HD>, a.positions,
                               a.valid, static_cast<const float*>(a.part_o),
-                              static_cast<const float*>(a.part_ml), a.out,
-                              rows, a.H, a.M * a.bs, a.split_keys,
-                              SLAB ? a.n_splits : -1);
+                              static_cast<const float*>(a.part_ml),
+                              static_cast<T*>(a.out), rows, a.H, a.M * a.bs,
+                              a.split_keys, SLAB ? a.n_splits : -1);
   }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// The host's split plan (nlp/ragged_attention.py::split_plan) gives
-// `narrow` (16-row query tiles; H / KV must divide 16), `split_keys` (a
-// positive multiple of 64) and `n_splits`. k_scale/v_scale non-null mark
-// int8 pools (f32 [N] scales); suffix_k non-null adds the slab (S rows,
-// 1 <= S <= 64, with suffix_v and suffix_vis). With n_splits > 1 or a
-// slab, part_o and part_ml are f32 [n_splits (+ 1 with a slab), R * P * H,
-// hd] and [.., 2] scratch. H / KV must divide 64. Returns the launches'
-// cudaError_t (0 on success).
-extern "C" int ragged_paged_attention_bf16(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* k_scale, const void* v_scale, const void* table,
-    const void* positions, const void* valid, const void* suffix_k,
-    const void* suffix_v, const void* suffix_vis, void* o, void* part_o,
-    void* part_ml, int R, int P, int H, int KV, int hd, int N, int bs, int M,
-    int S, int narrow, int split_keys, int n_splits, float scale,
-    void* stream) {
+template <class T>
+int run(const void* q, const void* k_pool, const void* v_pool,
+        const void* k_scale, const void* v_scale, const void* table,
+        const void* positions, const void* valid, const void* suffix_k,
+        const void* suffix_v, const void* suffix_vis, void* o, void* part_o,
+        void* part_ml, int R, int P, int H, int KV, int hd, int N, int bs,
+        int M, int S, int narrow, int split_keys, int n_splits, float scale,
+        void* stream) {
   const bool q8 = k_scale != nullptr, slab = suffix_k != nullptr;
   if (KV <= 0 || H % KV != 0 || 64 % (H / KV) != 0 ||
       (narrow && 16 % (H / KV) != 0) || split_keys <= 0 ||
@@ -800,7 +951,7 @@ extern "C" int ragged_paged_attention_bf16(
       ((n_splits > 1 || slab) && (part_o == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a;
-  a.q = static_cast<const bf16*>(q);
+  a.q = q;
   a.k_pool = k_pool;
   a.v_pool = v_pool;
   a.k_scale = static_cast<const float*>(k_scale);
@@ -808,10 +959,10 @@ extern "C" int ragged_paged_attention_bf16(
   a.table = static_cast<const int*>(table);
   a.positions = static_cast<const int*>(positions);
   a.valid = static_cast<const unsigned char*>(valid);
-  a.suffix_k = static_cast<const bf16*>(suffix_k);
-  a.suffix_v = static_cast<const bf16*>(suffix_v);
+  a.suffix_k = suffix_k;
+  a.suffix_v = suffix_v;
   a.suffix_vis = static_cast<const unsigned char*>(suffix_vis);
-  a.out = static_cast<bf16*>(o);
+  a.out = o;
   a.part_o = static_cast<float*>(part_o);
   a.part_ml = static_cast<float*>(part_ml);
   a.P = P;
@@ -825,8 +976,9 @@ extern "C" int ragged_paged_attention_bf16(
   a.n_splits = n_splits;
   a.scale_log2 = scale * ptt::kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_Q8(HD, NW, SL)                                            \
-  (q8 ? launch<HD, NW, true, SL>(a, R, s) : launch<HD, NW, false, SL>(a, R, s))
+#define PTT_Q8(HD, NW, SL)                                          \
+  (q8 ? launch<T, HD, NW, true, SL>(a, R, s)                        \
+      : launch<T, HD, NW, false, SL>(a, R, s))
 #define PTT_RAGGED(HD, NW) \
   (slab ? PTT_Q8(HD, NW, true) : PTT_Q8(HD, NW, false))
   cudaError_t err;
@@ -840,3 +992,34 @@ extern "C" int ragged_paged_attention_bf16(
 #undef PTT_Q8
   return (int)err;
 }
+
+}  // namespace
+
+// The host's split plan (nlp/ragged_attention.py::split_plan) gives
+// `narrow` (16-row query tiles; H / KV must divide 16), `split_keys` (a
+// positive multiple of 64) and `n_splits`. q, an fp pool, the slab and o
+// are in the entry point's type (ragged_paged_attention_bf16, _f16,
+// _f32). k_scale/v_scale non-null mark int8 pools (f32 [N] scales);
+// suffix_k non-null adds the slab (S rows, 1 <= S <= 64, with suffix_v
+// and suffix_vis). With n_splits > 1 or a slab, part_o and part_ml are
+// f32 [n_splits (+ 1 with a slab), R * P * H, hd] and [.., 2] scratch.
+// H / KV must divide 64. Returns the launches' cudaError_t (0 on
+// success).
+#define PTT_RAGGED_ENTRY(NAME, T)                                           \
+  extern "C" int NAME(                                                      \
+      const void* q, const void* k_pool, const void* v_pool,                \
+      const void* k_scale, const void* v_scale, const void* table,          \
+      const void* positions, const void* valid, const void* suffix_k,       \
+      const void* suffix_v, const void* suffix_vis, void* o, void* part_o,  \
+      void* part_ml, int R, int P, int H, int KV, int hd, int N, int bs,    \
+      int M, int S, int narrow, int split_keys, int n_splits, float scale,  \
+      void* stream) {                                                       \
+    return run<T>(q, k_pool, v_pool, k_scale, v_scale, table, positions,    \
+                  valid, suffix_k, suffix_v, suffix_vis, o, part_o,         \
+                  part_ml, R, P, H, KV, hd, N, bs, M, S, narrow,            \
+                  split_keys, n_splits, scale, stream);                     \
+  }
+PTT_RAGGED_ENTRY(ragged_paged_attention_bf16, bf16)
+PTT_RAGGED_ENTRY(ragged_paged_attention_f16, f16)
+PTT_RAGGED_ENTRY(ragged_paged_attention_f32, float)
+#undef PTT_RAGGED_ENTRY

@@ -59,11 +59,11 @@ import torch
 from .. import _build
 from .norm_bwd import sm_count
 
-# gather_wsum_bf16(src, idx, w, out, B, N, M, k, D, stream)
+# gather_wsum_{bf16,f16,f32}(src, idx, w, out, B, N, M, k, D, stream)
 _WSUM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
-# gather_scale_dot_bf16(src, idx, scale, other, out, dot, B, N, M, D,
-#                       stream)
+# gather_scale_dot_{bf16,f16,f32}(src, idx, scale, other, out, dot, B, N,
+#                                 M, D, stream)
 _SDOT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
 # gather_rows_bf16(src, idx, out, B, N, M, D, stream)
@@ -133,14 +133,25 @@ def _gather_mlp_ref(src, idx, wg, wu):
     return g, u, xin
 
 
-def _check_src(src, what):
-    if src.dim() != 3 or src.dtype != torch.bfloat16 \
+# the element types of the wsum and scale-dot kernels (the TPU kernels
+# compute in the rows' dtype), as the entry points' suffixes
+_ROW_TAGS = ("bf16", "f16", "f32")
+
+
+def _tag(t):
+    """The entry-point suffix of t's dtype (None for another dtype)."""
+    return _build.DTYPE_TAGS.get(str(t.dtype))
+
+
+def _check_src(src, what, tags=("bf16",)):
+    if src.dim() != 3 or _tag(src) not in tags \
             or not src.is_contiguous() or src.data_ptr() % 16:
         raise TypeError(f"{what}: src must be a contiguous, 16-byte aligned "
-                        f"bf16 CUDA tensor [B, N, D]")
-    if src.shape[2] % 8:
-        raise ValueError(f"{what}: the row width D = {src.shape[2]} must be "
-                         f"a multiple of 8 (16-byte rows)")
+                        f"{' or '.join(tags)} CUDA tensor [B, N, D]; got "
+                        f"{src.dtype}")
+    if src.shape[2] * src.element_size() % 16:
+        raise ValueError(f"{what}: the row width D = {src.shape[2]} must "
+                         f"make whole 16-byte vectors of {src.dtype}")
     if src.shape[1] < 1:
         raise ValueError(f"{what}: src has no rows to gather from")
 
@@ -160,11 +171,13 @@ def gather_wsum(src, idx, w):
     src [B, N, D]; idx [B, M, k] int32, PRE-CLIPPED to [0, N); w
     [B, M, k] f32, 0 at empty slots and dropped choices → [B, M, D] in
     src's dtype. On a CPU tensor: the plain version. On a CUDA tensor: the
-    kernel (bf16 src with D a multiple of 8, int32 idx, f32 w, k <= 8);
-    anything else raises. Each launch adds one to `gather_wsum.launches`."""
+    kernel (bf16, f16 or f32 src whose rows are whole 16-byte vectors,
+    int32 idx, f32 w, k <= 8); anything else raises. Each launch adds one
+    to `gather_wsum.launches` and to its dtype's `launches_bf16`,
+    `launches_f16` or `launches_f32`."""
     if not src.is_cuda:
         return _gather_wsum_ref(src, idx, w)
-    _check_src(src, "gather_wsum")
+    _check_src(src, "gather_wsum", _ROW_TAGS)
     B, N, D = src.shape
     if idx.dim() != 3 or idx.shape[0] != B:
         raise ValueError(f"gather_wsum: idx must be [B={B}, M, k]; got "
@@ -178,17 +191,21 @@ def gather_wsum(src, idx, w):
     out = torch.empty(B, M, D, dtype=src.dtype, device=src.device)
     if B * M == 0:
         return out
-    fn = _build.function("moe_dispatch", "gather_wsum_bf16", _WSUM_ARGTYPES)
+    sym = f"gather_wsum_{_tag(src)}"
+    fn = _build.function("moe_dispatch", sym, _WSUM_ARGTYPES)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(src.data_ptr(), idx.data_ptr(), w.data_ptr(),
                  out.data_ptr(), B, N, M, k, D, stream)
-    _build.check(err, "gather_wsum_bf16")
-    _build.count(gather_wsum)
+    _build.check(err, sym)
+    _build.count_dtype(gather_wsum, src.dtype)
     return out
 
 
 gather_wsum.launches = 0
+gather_wsum.launches_bf16 = 0
+gather_wsum.launches_f16 = 0
+gather_wsum.launches_f32 = 0
 
 
 def gather_scale_dot(src, idx, scale, other):
@@ -198,12 +215,13 @@ def gather_scale_dot(src, idx, scale, other):
 
     src [B, N, D]; idx [B, M] int32, PRE-CLIPPED to [0, N); scale [B, M]
     f32; other [B, M, D]. On a CPU tensor: the plain version. On a CUDA
-    tensor: the kernel (bf16 src and other, D a multiple of 8, int32
-    idx, f32 scale); anything else raises. Each launch adds one to
-    `gather_scale_dot.launches`."""
+    tensor: the kernel (src and other of one dtype, bf16, f16 or f32,
+    rows of whole 16-byte vectors, int32 idx, f32 scale); anything else
+    raises. Each launch adds one to `gather_scale_dot.launches` and to
+    its dtype's `launches_bf16`, `launches_f16` or `launches_f32`."""
     if not src.is_cuda:
         return _gather_scale_dot_ref(src, idx, scale, other)
-    _check_src(src, "gather_scale_dot")
+    _check_src(src, "gather_scale_dot", _ROW_TAGS)
     B, N, D = src.shape
     if idx.dim() != 2 or idx.shape[0] != B:
         raise ValueError(f"gather_scale_dot: idx must be [B={B}, M]; got "
@@ -213,27 +231,30 @@ def gather_scale_dot(src, idx, scale, other):
                 "idx")
     _check_like(scale, (B, M), torch.float32, src.device,
                 "gather_scale_dot", "scale")
-    _check_like(other, (B, M, D), torch.bfloat16, src.device,
+    _check_like(other, (B, M, D), src.dtype, src.device,
                 "gather_scale_dot", "other")
     if other.data_ptr() % 16:
         raise TypeError("gather_scale_dot: other must be 16-byte aligned")
-    out =torch.empty(B, M, D, dtype=src.dtype, device=src.device)
+    out = torch.empty(B, M, D, dtype=src.dtype, device=src.device)
     dot = torch.empty(B, M, dtype=torch.float32, device=src.device)
     if B * M == 0:
         return out, dot
-    fn = _build.function("moe_dispatch", "gather_scale_dot_bf16",
-                         _SDOT_ARGTYPES)
+    sym = f"gather_scale_dot_{_tag(src)}"
+    fn = _build.function("moe_dispatch", sym, _SDOT_ARGTYPES)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(src.data_ptr(), idx.data_ptr(), scale.data_ptr(),
                  other.data_ptr(), out.data_ptr(), dot.data_ptr(), B, N, M,
                  D, stream)
-    _build.check(err, "gather_scale_dot_bf16")
-    _build.count(gather_scale_dot)
+    _build.check(err, sym)
+    _build.count_dtype(gather_scale_dot, src.dtype)
     return out, dot
 
 
 gather_scale_dot.launches = 0
+gather_scale_dot.launches_bf16 = 0
+gather_scale_dot.launches_f16 = 0
+gather_scale_dot.launches_f32 = 0
 
 
 def gather_rows_kernel(src, idx):

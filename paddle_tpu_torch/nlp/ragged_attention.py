@@ -43,10 +43,10 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
            "resolve_attention_impl", "split_plan", "split_ranges",
            "query_splits"]
 
-# ragged_paged_attention_bf16(q, k_pool, v_pool, k_scale, v_scale, table,
-#     positions, valid, suffix_k, suffix_v, suffix_vis, out, part_o,
-#     part_ml, R, P, H, KV, hd, N, bs, M, S, narrow, split_keys, n_splits,
-#     scale, stream)
+# ragged_paged_attention_{bf16,f16,f32}(q, k_pool, v_pool, k_scale,
+#     v_scale, table, positions, valid, suffix_k, suffix_v, suffix_vis, out,
+#     part_o, part_ml, R, P, H, KV, hd, N, bs, M, S, narrow, split_keys,
+#     n_splits, scale, stream)
 _ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12 + [
     ctypes.c_float, ctypes.c_void_p]
 # slab rows the kernel folds: one 64-key stage
@@ -268,11 +268,13 @@ def ragged_paged_attention(q, k_pool, v_pool, table, positions, valid=None,
       softmax runs over the visible chain keys and slab rows.
 
     On a CPU tensor: the plain version. On a CUDA tensor: the kernel
-    (bf16 q, bf16 or int8 pools, bf16 slab of at most 64 rows, hd 64 or
-    128, H / KV dividing 64, int32 table and positions, bool valid);
-    anything it does not take raises. Each kernel launch adds one to
-    `ragged_paged_attention.launches`, and one to `launches_int8` when
-    its pools are int8 and to `launches_suffix` when it folds a slab."""
+    (q bf16, f16 or f32; pools in q's dtype or int8; a slab in q's dtype
+    of at most 64 rows; hd 64 or 128, H / KV dividing 64, int32 table and
+    positions, bool valid); anything it does not take raises. Each kernel
+    launch adds one to `ragged_paged_attention.launches`, to q's dtype's
+    `launches_bf16`, `launches_f16` or `launches_f32`, and one to
+    `launches_int8` when its pools are int8 and to `launches_suffix` when
+    it folds a slab."""
     if not q.is_cuda:
         return ragged_paged_attention_ref(
             q, k_pool, v_pool, table, positions, valid, k_scale=k_scale,
@@ -298,8 +300,14 @@ def ragged_paged_attention(q, k_pool, v_pool, table, positions, valid=None,
     q8 = k_scale is not None
     if q8 != (v_scale is not None):
         raise ValueError("k_scale and v_scale go together")
-    pool_dt = torch.int8 if q8 else torch.bfloat16
-    for name, t, dt in (("q", q, torch.bfloat16),
+    # the TPU kernel computes in the pools' dtype: bf16, f16 or f32 (q,
+    # an fp pool and the slab in one dtype)
+    tag = _build.DTYPE_TAGS.get(str(q.dtype))
+    if tag is None:
+        raise TypeError(f"q is {q.dtype}; the kernel takes bf16, f16 and "
+                        f"f32")
+    pool_dt = torch.int8 if q8 else q.dtype
+    for name, t, dt in (("q", q, q.dtype),
                         ("k_pool", k_pool, pool_dt),
                         ("v_pool", v_pool, pool_dt),
                         ("table", table, torch.int32),
@@ -317,8 +325,8 @@ def ragged_paged_attention(q, k_pool, v_pool, table, positions, valid=None,
         S = suffix_k.shape[1]
         if not 1 <= S <= _MAX_SLAB:
             raise ValueError(f"slab of {S} rows (1 to {_MAX_SLAB} taken)")
-        _check("suffix_k", suffix_k, torch.bfloat16, dev, (R, S, KV, hd))
-        _check("suffix_v", suffix_v, torch.bfloat16, dev, (R, S, KV, hd))
+        _check("suffix_k", suffix_k, q.dtype, dev, (R, S, KV, hd))
+        _check("suffix_v", suffix_v, q.dtype, dev, (R, S, KV, hd))
         _check("suffix_vis", suffix_vis, torch.bool, dev, (R, P, S))
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)
            + ((suffix_k, suffix_v) if slab else ())):
@@ -338,8 +346,8 @@ def ragged_paged_attention(q, k_pool, v_pool, table, positions, valid=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    fn = _build.function("ragged_paged_attention",
-                         "ragged_paged_attention_bf16", _ARGTYPES)
+    sym = f"ragged_paged_attention_{tag}"
+    fn = _build.function("ragged_paged_attention", sym, _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -349,13 +357,16 @@ def ragged_paged_attention(q, k_pool, v_pool, table, positions, valid=None,
                  ptr(part_o), ptr(part_ml), R, P, H, KV, hd, N, bs, M, S,
                  int(plan.narrow), plan.split_keys, plan.n_splits,
                  1.0 / math.sqrt(hd), stream)
-    _build.check(err, "ragged_paged_attention_bf16")
-    _build.count(ragged_paged_attention)
+    _build.check(err, sym)
+    _build.count_dtype(ragged_paged_attention, q.dtype)
     _build.count(ragged_paged_attention, "launches_int8", int(q8))
     _build.count(ragged_paged_attention, "launches_suffix", int(slab))
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.launches_bf16 = 0
+ragged_paged_attention.launches_f16 = 0
+ragged_paged_attention.launches_f32 = 0
 ragged_paged_attention.launches_int8 = 0
 ragged_paged_attention.launches_suffix = 0

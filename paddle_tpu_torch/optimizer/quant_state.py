@@ -43,8 +43,8 @@ CHUNK_BLOCKS = 65536
 F8 = torch.float8_e4m3fn
 # e4m3's largest finite value: block maxima are normalised to it
 F8_MAX = 448.0
-# adamw_q_fused_bf16(g, p, mc, ms, vc, vs, scalars, n, nb, b1, 1-b1, b2,
-#                    1-b2, eps, wd, stream)
+# adamw_q_fused_{bf16,f16,f32}(g, p, mc, ms, vc, vs, scalars, n, nb, b1,
+#                              1-b1, b2, 1-b2, eps, wd, stream)
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_long] * 2 + [
     ctypes.c_float] * 6 + [ctypes.c_void_p]
 
@@ -257,21 +257,27 @@ def fused_leaf_update(scalars, g, p, mq: _QTensor, vq: _QTensor, *,
     [gscale, lr, bc1, bc2].
 
     On a CPU tensor: the plain version. On a CUDA tensor: the kernel (p
-    and g bf16 and contiguous, codes float8_e4m3fn [nb, 256], scales f32
-    [nb, 1]); anything else raises. Each launch adds one to
-    `fused_leaf_update.launches`."""
+    bf16, f16 or f32 and g in p's dtype, both contiguous; codes
+    float8_e4m3fn [nb, 256], scales f32 [nb, 1]); anything else raises.
+    Each launch adds one to `fused_leaf_update.launches` and to its
+    dtype's `launches_bf16`, `launches_f16` or `launches_f32`."""
     if not p.is_cuda:
         return fused_leaf_update_ref(scalars, g, p, mq, vq, b1=b1, b2=b2,
                                      eps=eps, wd=wd)
     n = p.numel()
     nb = (n + BLOCK - 1) // BLOCK
+    # the TPU kernel computes in the leaf's dtype: bf16, f16 or f32
+    tag = _build.DTYPE_TAGS.get(str(p.dtype))
+    if tag is None:
+        raise TypeError(f"fused_leaf_update: a {p.dtype} leaf; the kernel "
+                        f"takes bf16, f16 and f32")
     for name, t in (("g", g), ("p", p)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
+        if t.dtype != p.dtype or not t.is_contiguous() \
                 or t.device != p.device or t.data_ptr() % 16 \
                 or t.numel() != n:
             raise TypeError(f"fused_leaf_update: {name} must be a "
-                            f"contiguous, 16-byte aligned bf16 tensor of "
-                            f"{n} values on {p.device}")
+                            f"contiguous, 16-byte aligned {p.dtype} tensor "
+                            f"of {n} values on {p.device}; got {t.dtype}")
     for q in (mq, vq):
         if q.codes.shape != (nb, BLOCK) or q.codes.dtype != F8 \
                 or q.scale.shape != (nb, 1) \
@@ -287,7 +293,8 @@ def fused_leaf_update(scalars, g, p, mq: _QTensor, vq: _QTensor, *,
                         "params' device")
     if n == 0:
         return p, mq, vq
-    fn = _build.function("adamw_q", "adamw_q_fused_bf16", _ARGTYPES)
+    sym = f"adamw_q_fused_{tag}"
+    fn = _build.function("adamw_q", sym, _ARGTYPES)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g.data_ptr(), p.data_ptr(), mq.codes.data_ptr(),
@@ -295,12 +302,15 @@ def fused_leaf_update(scalars, g, p, mq: _QTensor, vq: _QTensor, *,
                  vq.scale.data_ptr(), scalars.data_ptr(), n, nb,
                  float(b1), float(1 - b1), float(b2), float(1 - b2),
                  float(eps), float(wd), stream)
-    _build.check(err, "adamw_q_fused_bf16")
-    _build.count(fused_leaf_update)
+    _build.check(err, sym)
+    _build.count_dtype(fused_leaf_update, p.dtype)
     return p, mq, vq
 
 
 fused_leaf_update.launches = 0
+fused_leaf_update.launches_bf16 = 0
+fused_leaf_update.launches_f16 = 0
+fused_leaf_update.launches_f32 = 0
 
 
 class FusedTransformation(NamedTuple):

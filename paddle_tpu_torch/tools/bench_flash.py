@@ -1,11 +1,12 @@
 """The flash kernels at every shape `chip_smoke.py` holds them, on one GPU.
 
     python -m paddle_tpu_torch.tools.bench_flash [--check] [--label L]
-        [--dtype bf16|f16|f32]
+        [--dtype bf16|f16|f32] [--cases I,J]
 
 Builds `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, prints each one's
 ptxas lines and the `HGMMA` / `UTMALDG` instruction counts that
-`cuobjdump -sass` finds in its library, then, for each held shape, one
+`cuobjdump -sass` finds in its library, then, for each held shape
+(`--cases`: only those of the given indices into `held`), one
 JSON line: the kernel's and SDPA's times (CUDA events, means after one
 warm-up call; `*_graph_ms`: the same calls captured in one CUDA
 graph, the device time with no host cost) and the bound (bytes over
@@ -17,6 +18,11 @@ errors of small and odd shapes (no timing) and exits 1 if any exceeds
 2e-2 (LSE 5e-4) or a backward is not bit-identical twice. `--dtype f16`
 runs every case in f16 (the kernels' f16 option), held to 1.25e-3: the
 same 2.5 ulps of the vector's largest element that 2e-2 is in bf16.
+In f16 each backward also reports `dq_vs_rounded_ds`: its dq against
+the plain dq with dS rounded to f16 before dS·K (as the kernel takes it,
+one f16 A operand), and `dq_f64`: the kernel's and the plain version's
+dq against the same function computed in f64, and the vector where the
+two part most.
 `--dtype f32` runs the f32 option (csrc/flash_f32.cu, TF32 tensor
 cores) held to chip_smoke.py's F32_TOL 2.5e-3 and LSE 1e-4, its bound
 at the TF32 rate (495 TFLOP/s). It uses only
@@ -90,6 +96,36 @@ def _rel(out, ref, valid=None, floor=0.0):
     return (d / r).max().item()
 
 
+def _dq_plain(q, k, v, out, lse, dout, causal=True, key_mask=None,
+              layout="bshd", ds_dtype=None, acc=torch.float32):
+    """The plain backward's dq ('bshd'), computed in `acc` (f32, as the
+    plain version; f64: nearly exact for these inputs) and rounded to
+    q's dtype, or left in `acc` with `ds_dtype` None and acc f64. With
+    `ds_dtype`, dS is rounded to it before dS·K: what a kernel taking dS
+    as one operand of that type computes. Beside the plain dq (an f32 dS,
+    as the JAX kernel multiplies), these show which one the kernel
+    follows, and how far each is from exact."""
+    import math
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    q, k, v, out, dout = (fa._bshd(t, layout) for t in (q, k, v, out, dout))
+    Sq, Sk = q.shape[1], k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    ke, ve = fa._expand_kv(q, k, v)
+    kf, dof = ke.to(acc), dout.to(acc)
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", q.to(acc), kf) * scale
+                  - lse.to(acc)[..., None])
+    vis = fa._visible(Sq, Sk, causal, key_mask, q.device)
+    if vis is not None:
+        p = torch.where(vis, p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, ve.to(acc))
+    dcap = (dof * out.to(acc)).sum(-1).transpose(1, 2)
+    ds = p * (dp - dcap[..., None]) * scale
+    if ds_dtype is not None:
+        ds = ds.to(ds_dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    return dq if acc == torch.float64 else dq.to(q.dtype)
+
+
 def _bound(flops, nbytes):
     return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
 
@@ -136,6 +172,44 @@ def case(B, S, h, kv, hd, causal, layout="bshd", lengths=None, gen=None,
             for n, a, b in zip(("dq", "dk", "dv"), got, rgot)}
         res["repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
         ok = ok and res["repeat"] and max(res["bwd_rel"].values()) <= TOL
+        if _DT == torch.float16:
+            # the kernel's dq against dS rounded to f16 before dS·K, the
+            # one f16 operand the kernel takes, where the plain version
+            # multiplies an f32 dS
+            res["dq_vs_rounded_ds"] = _rel(
+                bshd(got[0]), _dq_plain(q, k, v, out, lse, do,
+                                        ds_dtype=_DT, **kw), rows, FLOOR)
+            # the kernel's and the plain version's dq against the same
+            # function in f64, and where the kernel and the plain version
+            # part most: (batch, query, head), the keys that query sees
+            # and its vector's scale over the largest vector's
+            exact = _dq_plain(q, k, v, out, lse, do, acc=torch.float64,
+                              **kw)
+            kq, pq = bshd(got[0]).double(), bshd(rgot[0]).double()
+            scale_v = exact.abs().amax(-1)
+            floor = torch.clamp(scale_v, min=FLOOR * scale_v.max().item())
+            apart = (kq - pq).abs().amax(-1) / floor
+            apart[~rows] = 0
+            b_, i_, h_ = (int(x) for x in torch.unravel_index(
+                apart.argmax(), apart.shape))
+            sk = k.shape[2 if layout == "bhsd" else 1]
+            res["dq_f64"] = {
+                "kernel": ((kq - exact).abs().amax(-1) / floor)[rows]
+                .max().item(),
+                "plain": ((pq - exact).abs().amax(-1) / floor)[rows]
+                .max().item(),
+                "worst": {"at": [b_, i_, h_],
+                          "keys": min(i_ + 1 + sk - S, sk) if causal
+                          else sk,
+                          "scale_over_max": (scale_v[b_, i_, h_]
+                                             / scale_v.max()).item(),
+                          "kernel_vs_plain": apart[b_, i_, h_].item(),
+                          "kernel_vs_f64": ((kq - exact)[b_, i_, h_].abs()
+                                            .max() / floor[b_, i_, h_])
+                          .item(),
+                          "plain_vs_f64": ((pq - exact)[b_, i_, h_].abs()
+                                           .max() / floor[b_, i_, h_])
+                          .item()}}
         del got, again, rgot
     res["ok"] = ok
     torch.cuda.empty_cache()
@@ -285,6 +359,9 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--label", default="")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
+    ap.add_argument("--cases", default="",
+                    help="comma-separated indices into the held shapes "
+                         "(default: all)")
     args = ap.parse_args(argv)
     global _DT, TOL, LSE_TOL, PEAK_FLOPS
     _DT, TOL, LSE_TOL, PEAK_FLOPS = DTYPES[args.dtype]
@@ -304,7 +381,10 @@ def main(argv=None) -> int:
             ok = ok and r["ok"]
             print(json.dumps(r), flush=True)
     else:
-        for c in held(gen):
+        shapes = held(gen)
+        if args.cases:
+            shapes = [shapes[int(i)] for i in args.cases.split(",")]
+        for c in shapes:
             r = case(gen=gen, **c)
             ok = ok and r["ok"]
             print(json.dumps({"label": args.label, **r}), flush=True)

@@ -51,11 +51,12 @@ the walk's end to the fold's end, which is what the fold adds to the
 call when the two overlap. Row 11 stands beside `F.layer_norm` (the norm
 alone).
 
-`--check` runs small and odd shapes instead (no timing): row 18 at hd 64
-and 128, GQA groups 1 to 32, P 1, 3 and 40, block sizes 16 and 48,
-random live lengths with invalid rows, each over the fp pool, the int8
-pool (a never-written block of scale 0 among them) and with slabs of 1,
-7 and 64 rows of random visibility; rows 7 and 8 at widths off the
+`--check` runs small and odd shapes instead (no timing): row 18 in bf16,
+f16 and f32 (q, the fp pool and the slab in that dtype; held to 2e-2,
+1.25e-3 and 2e-5) at hd 64 and 128, GQA groups 1 to 32, P 1, 3 and 40,
+block sizes 16 and 48, random live lengths with invalid rows, each over
+the fp pool, the int8 pool (a never-written block of scale 0 among them)
+and with slabs of 1, 7 and 64 rows of random visibility; rows 7 and 8 at widths off the
 warp's round and up to 8192, bf16, f32 and f16 weights, 1 to 4099 rows;
 row 10 at D 8 to 8192, f32 and bf16, affine and affine-free, 1 to 4099
 rows; row 12 at B 1 to 5, N 1, 7 and 257, bf16 D 772 (8-byte vectors),
@@ -145,7 +146,7 @@ def bound(flops, nbytes, flops_peak=PEAK_FLOPS):
 
 
 # --------------------------------------------------------------- row 18
-def ragged_batch(kind, h, kv, hd, bs, m, gen, seed=0):
+def ragged_batch(kind, h, kv, hd, bs, m, gen, seed=0, dtype=_BF16):
     """Row 18's inputs at a held shape:
       decode   — 8 rows of 1 query, live lengths 1..1024 with block-size
                  boundaries, one all-invalid row;
@@ -157,8 +158,8 @@ def ragged_batch(kind, h, kv, hd, bs, m, gen, seed=0):
                  crossing its last 4 blocks;
       full8, full32 — 8 or 32 decode rows, every one with m * bs live
                  keys.
-    Returns (q, k_pool, v_pool, table, positions, valid) on the card and
-    the numpy positions and validity."""
+    Returns (q, k_pool, v_pool, table, positions, valid) on the card, q
+    and the pools in `dtype`, and the numpy positions and validity."""
     dev = "cuda"
     maxpos = m * bs - 1
     if kind == "continue":
@@ -186,32 +187,33 @@ def ragged_batch(kind, h, kv, hd, bs, m, gen, seed=0):
     table = np.zeros((R, m), np.int32)
     for r, n in enumerate(need):
         table[r, :n] = [perm.pop() for _ in range(n)]
-    kp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).bfloat16()
-    vp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).bfloat16()
-    q = torch.randn(R, P, h, hd, device=dev, generator=gen).bfloat16()
+    kp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).to(dtype)
+    vp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).to(dtype)
+    q = torch.randn(R, P, h, hd, device=dev, generator=gen).to(dtype)
     t = [torch.from_numpy(a).to(dev) for a in (table, pos, val)]
     return (q, kp, vp, *t), (pos, val)
 
 
-def ragged_work(pos, val, h, kv, hd, bs, opts=None):
+def ragged_work(pos, val, h, kv, hd, bs, opts=None, esize=2):
     """(flops, bytes) this data needs: each row's live K and V once (keys
     up to its largest valid position; an int8 pool's codes and each live
     block's two scales), q of valid queries, every output row, the table
     entries, positions and validity the walk reads; with a slab, its K
     and V rows, the visibility bytes and the products with the slab rows
-    each valid query sees."""
+    each valid query sees. `esize`: the bytes of q's (and an fp pool's
+    and the slab's) element."""
     opts = opts or {}
     R, P = pos.shape
     live = np.where(val, pos + 1, 0).max(axis=1)
     blocks = int(np.ceil(live / bs).sum())
     q8 = opts.get("k_scale") is not None
-    nbytes = ((2 if q8 else 4) * kv * hd * int(live.sum())
-              + 2 * h * hd * (int(val.sum()) + R * P)
+    nbytes = ((2 if q8 else 2 * esize) * kv * hd * int(live.sum())
+              + esize * h * hd * (int(val.sum()) + R * P)
               + (12 if q8 else 4) * blocks + 5 * R * P)
     keys = float(np.where(val, pos + 1, 0).sum())
     if opts.get("suffix_k") is not None:
         S = opts["suffix_k"].shape[1]
-        nbytes += 4 * R * S * kv * hd + R * P * S
+        nbytes += 2 * esize * R * S * kv * hd + R * P * S
         vis = opts["suffix_vis"].cpu().numpy() & val[:, :, None]
         keys += float(vis.sum())
     return 4.0 * h * hd * keys, nbytes
@@ -247,12 +249,13 @@ def tree_vis(tree):
 SPEC_KINDS = ("verify_chain", "verify_tree", "draft")
 
 
-def ragged_spec_batch(kind, h, kv, hd, bs, m, gen, seed=0):
+def ragged_spec_batch(kind, h, kv, hd, bs, m, gen, seed=0, dtype=_BF16):
     """Row 18's suffix-slab inputs at a speculative shape: 8 rows whose
     committed lengths are 1..1000 keys and 0 (an inactive slot, which
     sees only the slab), every query valid at position base_len - 1 (the
     pool is read-only; the slab holds the call's own rows). Returns the
-    batch as `ragged_batch` does, and the options (slab and visibility)."""
+    batch as `ragged_batch` does (q, the pools and the slab in `dtype`),
+    and the options (slab and visibility)."""
     dev = "cuda"
     base = np.array([1, bs, bs + 1, 2 * bs, 300, 511, 1000, 0], np.int32)
     R = len(base)
@@ -275,23 +278,25 @@ def ragged_spec_batch(kind, h, kv, hd, bs, m, gen, seed=0):
     table = np.zeros((R, m), np.int32)
     for r, n in enumerate(need):
         table[r, :n] = [perm.pop() for _ in range(n)]
-    kp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).bfloat16()
-    vp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).bfloat16()
-    q = torch.randn(R, P, h, hd, device=dev, generator=gen).bfloat16()
+    kp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).to(dtype)
+    vp = torch.randn(N, bs, kv, hd, device=dev, generator=gen).to(dtype)
+    q = torch.randn(R, P, h, hd, device=dev, generator=gen).to(dtype)
     t = [torch.from_numpy(a).to(dev) for a in (table, pos, val)]
     opts = {"suffix_k": torch.randn(R, S, kv, hd, device=dev,
-                                    generator=gen).bfloat16(),
+                                    generator=gen).to(dtype),
             "suffix_v": torch.randn(R, S, kv, hd, device=dev,
-                                    generator=gen).bfloat16(),
+                                    generator=gen).to(dtype),
             "suffix_vis": torch.from_numpy(
                 np.ascontiguousarray(np.broadcast_to(vis, (R, P, S)))
             ).to(dev)}
     return (q, kp, vp, *t), (pos, val), opts
 
 
-def ragged_case(args, pos, val, label, timed=True, flush=None, opts=None):
-    """Row 18 against its plain version at one batch, twice; then times.
-    `opts`: the int8 pool's scales and / or the slab, passed to both."""
+def ragged_case(args, pos, val, label, timed=True, flush=None, opts=None,
+                tol=TOL):
+    """Row 18 against its plain version at one batch, twice, within `tol`
+    (TOL in bf16); then times. `opts`: the int8 pool's scales and / or
+    the slab, passed to both."""
     from paddle_tpu_torch.nlp import ragged_attention as ra
     opts = opts or {}
     q, kp = args[0], args[1]
@@ -311,14 +316,17 @@ def ragged_case(args, pos, val, label, timed=True, flush=None, opts=None):
            "zero_exact": not (out.float().abs().amax(-1)[
                valid[:, :, None] & (scale == 0)] != 0).any().item(),
            "repeat": torch.equal(out, again)}
-    res["ok"] = (res["max_rel_err"] <= TOL and res["invalid_zero"]
+    res["ok"] = (res["max_rel_err"] <= tol and res["invalid_zero"]
                  and res["zero_exact"] and res["repeat"])
     del out, again, ref
     if not timed:
         return res
     flops, nbytes = ragged_work(pos, val, q.shape[2], kp.shape[2],
-                                q.shape[3], kp.shape[1], opts)
-    res.update(bound(flops, nbytes))
+                                q.shape[3], kp.shape[1], opts,
+                                q.element_size())
+    # f32: the products on FFMA (67 TFLOP/s); 16-bit: the tensor cores
+    res.update(bound(flops, nbytes, PEAK_F32 if q.dtype == _F32
+                     else PEAK_FLOPS))
     res["ms"] = time_ms(lambda: ra.ragged_paged_attention(*args, **opts), 50,
                         flush)
     pool = 2 * kp.numel() * kp.element_size()
@@ -336,10 +344,10 @@ def ragged_case(args, pos, val, label, timed=True, flush=None, opts=None):
     return res
 
 
-def ragged_random(R, P, h, kv, hd, bs, m, gen, rng):
+def ragged_random(R, P, h, kv, hd, bs, m, gen, rng, dtype=_BF16):
     """A random batch: live lengths in [0, m * bs], P queries a row ending
     at its last key (rows shorter than P left-pad as invalid), row 0 all
-    invalid, distinct random chains."""
+    invalid, distinct random chains; q and the pools in `dtype`."""
     lengths = rng.randint(1, m * bs + 1, size=R)
     lengths[0] = 0
     pos = np.zeros((R, P), np.int32)
@@ -350,9 +358,9 @@ def ragged_random(R, P, h, kv, hd, bs, m, gen, rng):
         val[r] = (j >= 0) & (L > 0)
     N = R * m + 5
     table = rng.permutation(N)[:R * m].reshape(R, m).astype(np.int32)
-    kp = torch.randn(N, bs, kv, hd, device="cuda", generator=gen).bfloat16()
-    vp = torch.randn(N, bs, kv, hd, device="cuda", generator=gen).bfloat16()
-    q = torch.randn(R, P, h, hd, device="cuda", generator=gen).bfloat16()
+    kp = torch.randn(N, bs, kv, hd, device="cuda", generator=gen).to(dtype)
+    vp = torch.randn(N, bs, kv, hd, device="cuda", generator=gen).to(dtype)
+    q = torch.randn(R, P, h, hd, device="cuda", generator=gen).to(dtype)
     t = [torch.from_numpy(a).to("cuda") for a in (table, pos, val)]
     return (q, kp, vp, *t), (pos, val)
 
@@ -360,7 +368,8 @@ def ragged_random(R, P, h, kv, hd, bs, m, gen, rng):
 def ragged_options(args, S, q8, gen, rng):
     """The options of one check: int8 twins of the pools (the first block
     never written) and / or a slab of S rows with random visibility
-    (about half the rows a query, one query row seeing none)."""
+    (about half the rows a query, one query row seeing none) in q's
+    dtype."""
     q, kp, vp = args[:3]
     R, P, _, hd = q.shape
     kv = kp.shape[2]
@@ -373,31 +382,40 @@ def ragged_options(args, S, q8, gen, rng):
         vis[0, 0] = False
         opts.update(
             suffix_k=torch.randn(R, S, kv, hd, device="cuda",
-                                 generator=gen).bfloat16(),
+                                 generator=gen).to(q.dtype),
             suffix_v=torch.randn(R, S, kv, hd, device="cuda",
-                                 generator=gen).bfloat16(),
+                                 generator=gen).to(q.dtype),
             suffix_vis=torch.from_numpy(vis).to("cuda"))
     return args, opts
+
+
+# row 18's options by q's dtype and their tolerances (each output
+# vector's largest error over its scale): bf16 2.5 ulps of the largest
+# element; f16 the same 2.5 ulps (2.5 x 2^-11); f32 on FFMA, the plain
+# version's own f32 arithmetic in another order (~1e-7 of the scale)
+RAGGED_TOLS = {_BF16: TOL, torch.float16: 1.25e-3, _F32: 2e-5}
 
 
 def ragged_checks(gen):
     rng = np.random.RandomState(1)
     out = []
-    for hd in (64, 128):
-        for h, kv in ((8, 8), (32, 8), (16, 1), (32, 1)):
-            for R, P, bs, m in ((3, 1, 16, 8), (40, 1, 48, 6),
-                                (5, 3, 16, 20), (2, 40, 48, 12)):
-                args, (pos, val) = ragged_random(R, P, h, kv, hd, bs, m,
-                                                 gen, rng)
-                label = f"R={R} P={P} H={h} KV={kv} hd={hd} bs={bs} M={m}"
-                # the fp pool alone, then the int8 pool, a slab of 1, 7 or
-                # 64 rows over either pool
-                for q8, S in ((False, 0), (True, 0), (False, 1 + 6 * (R % 2)),
-                              (True, 64)):
-                    a, opts = ragged_options(args, S, q8, gen, rng)
-                    out.append(ragged_case(
-                        a, pos, val, f"{label} int8={q8} S={S}", timed=False,
-                        opts=opts))
+    for dtype, tol in RAGGED_TOLS.items():
+        for hd in (64, 128):
+            for h, kv in ((8, 8), (32, 8), (16, 1), (32, 1)):
+                for R, P, bs, m in ((3, 1, 16, 8), (40, 1, 48, 6),
+                                    (5, 3, 16, 20), (2, 40, 48, 12)):
+                    args, (pos, val) = ragged_random(R, P, h, kv, hd, bs, m,
+                                                     gen, rng, dtype)
+                    label = (f"R={R} P={P} H={h} KV={kv} hd={hd} bs={bs} "
+                             f"M={m} {str(dtype)[6:]}")
+                    # the fp pool alone, then the int8 pool, a slab of 1,
+                    # 7 or 64 rows over either pool
+                    for q8, S in ((False, 0), (True, 0),
+                                  (False, 1 + 6 * (R % 2)), (True, 64)):
+                        a, opts = ragged_options(args, S, q8, gen, rng)
+                        out.append(ragged_case(
+                            a, pos, val, f"{label} int8={q8} S={S}",
+                            timed=False, opts=opts, tol=tol))
     return out
 
 
