@@ -419,13 +419,15 @@ def phase_build():
 
 
 # the flash libraries and gather_mlp must hold Hopper's warpgroup
-# products (HGMMA) and TMA loads (UTMALDG); gather_mlp also its gathered
+# products (HGMMA) and TMA loads (UTMALDG; the f32 library's backward
+# its score products on HGMMA and its second products, and the forward,
+# on mma.sync: HMMA); gather_mlp also its gathered
 # rows' cp.async copies (LDGSTS) and xin's TMA stores (UTMASTG); the
 # ragged library and the three norm libraries (the backward walks' rings)
 # their cp.async copies (LDGSTS)
 _SASS_MARKS = {"flash_fwd": ("HGMMA", "UTMALDG"),
                "flash_bwd": ("HGMMA", "UTMALDG"),
-               "flash_f32": ("HMMA", "UTMALDG"),
+               "flash_f32": ("HMMA", "UTMALDG", "HGMMA"),
                "gather_mlp": ("HGMMA", "UTMALDG", "LDGSTS", "UTMASTG"),
                "ragged_paged_attention": ("LDGSTS",),
                "rms_norm": ("LDGSTS",), "layer_norm": ("LDGSTS",),
@@ -512,6 +514,15 @@ def _sass_counts(_build):
             counts[name]["by_dtype"] = by
             if not all(v for d in by.values() for v in d.values()):
                 raise AssertionError(f"{name}: {by} by dtype in its SASS")
+        if name == "flash_f32":
+            # each backward pass's kernels (dkdv, dq; hd 64, 72, 128)
+            bwd = {head.split("(")[0]: fn.count("HGMMA")
+                   for head, fn in ((f.split("\n", 1)[0], f)
+                                    for f in sass.split("Function : ")[1:])
+                   if "dkdv_kernel" in head or "dq_kernel" in head}
+            counts[name]["bwd_hgmma"] = bwd
+            if len(bwd) != 6 or not all(bwd.values()):
+                raise AssertionError(f"{name}: backward HGMMA {bwd}")
     return counts
 
 
@@ -1095,11 +1106,14 @@ def _rms_fused_cases(rows, D, dtype, w_dtype, peaks, gen, flush,
     """Row 6 at [rows, D] (x in `dtype`; a weight in `w_dtype`, or
     affine-free with None) against its plain version `rms_norm_ref`: per
     row, f32 within RMS_F32_TOL, bf16 within KERNEL_TOL; bit-identical
-    twice. Times with the L2 cache flushed before each call, beside
-    F.rms_norm. `on_path`: the eager Llama step's form, launched 23 times
-    a step (a path name: that path's; True: eager_llama's)."""
+    twice. Host-in-loop times with the L2 cache flushed before each call
+    and one CUDA graph's device time, each beside F.rms_norm's (the
+    weight cast to x's dtype outside the timed span). `on_path`: the
+    eager Llama step's form, launched 23 times a step (a path name: that
+    path's; True: eager_llama's)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import rms_norm as rn
+    from paddle_tpu_torch.tools.bench_flash import _graph_ms
     eps = 1e-5
     x = (torch.randn(rows, D, device="cuda", generator=gen) + 0.3).to(dtype)
     w = None if w_dtype is None else \
@@ -1122,19 +1136,28 @@ def _rms_fused_cases(rows, D, dtype, w_dtype, peaks, gen, flush,
     path = ({"path": on_path if isinstance(on_path, str) else
              "eager_llama", "step_launches": 23} if on_path
             else {"path": None})
-    return {"shape": name, **path,
-            "max_abs_err": (out.float() - ref.float()).abs().max().item(),
-            "max_rel_err": rel,
-            "ms": _time_ms(lambda: rn.rms_norm_fused(x, w, eps), 20, flush),
-            "plain_ms": _time_ms(lambda: rn.rms_norm_ref(x, w, eps), 5,
-                                 flush),
-            "library_ms": _time_ms(lambda: F.rms_norm(x, (D,), wl, eps), 20,
-                                   flush),
-            # x read, out written, the weight read; ~4 f32 operations a
-            # value (square-add, scale, weight)
-            **_bound(4.0 * rows * D, 2.0 * es * rows * D
-                     + (0 if w is None else w.element_size() * D), peaks,
-                     peaks[2])}
+
+    def call():
+        return rn.rms_norm_fused(x, w, eps)
+
+    def lib():
+        return F.rms_norm(x, (D,), wl, eps)
+
+    res = {"shape": name, **path,
+           "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "max_rel_err": rel,
+           "ms": _time_ms(call, 20, flush), "graph_ms": _graph_ms(call, 20),
+           "plain_ms": _time_ms(lambda: rn.rms_norm_ref(x, w, eps), 5,
+                                flush),
+           "library_ms": _time_ms(lib, 20, flush),
+           "library_graph_ms": _graph_ms(lib, 20),
+           # x read, out written, the weight read; ~4 f32 operations a
+           # value (square-add, scale, weight)
+           **_bound(4.0 * rows * D, 2.0 * es * rows * D
+                    + (0 if w is None else w.element_size() * D), peaks,
+                    peaks[2])}
+    res["graph_bound_share"] = res["bound_ms"] / res["graph_ms"]
+    return res
 
 
 def _sdpa_masked_ms(q, k, v, dout, mask4, layout, iters):
@@ -2034,7 +2057,10 @@ def _f32_kernel_cases(peaks, gen, flush):
     keys shifted one position) and backward (control dcap dropped) in f32
     at the eager ERNIE's [64, 512, 12, 64] non-causal (eager_f32), the
     flagship's [F32_TRAIN_BATCH, 2048, 32/8, 128] causal (train_f32) and
-    DiT-XL/2's [96, 256, 16, 72] 'bhsd' (no f32 path: held); the f16
+    DiT-XL/2's [96, 256, 16, 72] 'bhsd' (no f32 path: held) and [1,
+    300, 4/1, 72] causal (held: hd 72, a length off every tile, GQA 4:1,
+    whose first rows see one key, where dS = P (dP - dcap) cancels); the
+    f16
     flash pair at the f16 trainer's shape (train_f16); rows 7-8 at
     [F32_TRAIN_BATCH * 2048, 4096] in f32 (train_f32) and in f16
     (train_f16), each with an f32 weight (control: the weight one column
@@ -2055,6 +2081,7 @@ def _f32_kernel_cases(peaks, gen, flush):
             ("train_f32", f32, (F32_TRAIN_BATCH, 2048, 32, 8, 128, True,
                                 "bshd")),
             ("held", f32, (96, 256, 16, 16, 72, False, "bhsd")),
+            ("held", f32, (1, 300, 4, 1, 72, True, "bshd")),
             ("train_f16", f16, (F32_TRAIN_BATCH, 2048, 32, 8, 128, True,
                                 "bshd")),
             ("train_moe_f32", f32, (MOE_BATCH, 2048, 16, 8, 128, True,

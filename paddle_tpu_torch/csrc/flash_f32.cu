@@ -20,51 +20,108 @@
 // (no atomics: two runs are bit-identical). q, k, v, out, dout, dq, dk
 // and dv are all f32.
 //
-// Precision. Every product runs on mma.sync.m16n8k8 with TF32 operands
-// (10 mantissa bits) and f32 accumulation. Each operand value is rounded
-// to TF32 (cvt.rna: to nearest, ties away) as its fragment is formed in
-// registers; none is left to the tensor core's truncation. The products
-// that give the scores, S = Q K^T in the forward and S, dP = dO V^T in
-// the backward, split each operand into hi = rna(x) and lo = x - hi and
-// sum three products (hi hi + hi lo + lo hi) of each k8 step into a
-// fresh tile, which is then added to the f32 sum on the CUDA cores: the
-// tensor core's own accumulation truncates to f32 against the running
-// sum (~2^-23 of |dP| ~ 11 a step), and dS = P (dP - dcap) cancels where
-// a row sees few keys (causal row 0: dP - dcap is the residue of O's
-// rounding, ~1e-3), so dP must carry f32's accuracy, as the plain
-// version's does. The scores then carry ~2^-22 of their scale: the LSE
-// keeps f32's accuracy, and P and dS no TF32 error of the scores. The
-// second products (O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K)
-// take single TF32 parts, P and dS rounded from their f32 registers:
-// ~2^-11 relative per term (~1e-3 of a vector's scale at most).
+// Precision. Every product runs on TF32 tensor cores (10 mantissa bits)
+// with f32 accumulation; the tensor core reads an f32 operand as TF32 by
+// dropping its low 13 bits. The products that give the scores, S = Q K^T
+// in the forward and S, dP = dO V^T in the backward, split each operand
+// into hi and lo and sum three products (hi hi + hi lo + lo hi): the
+// scores then carry ~2^-21 of their scale, so the LSE keeps f32's
+// accuracy, and P and dS no TF32 error of the scores. The forward takes
+// hi = cvt.rna(x) and lo = x - hi as the tensor core truncates it; the
+// backward the same values, hi rounded by an integer add and mask (rna:
+// sm_90 has no instruction for cvt.rna.tf32.f32, and ptxas expands it
+// into a compare-and-select sequence). dP also keeps its sum out of the
+// tensor core's accumulation, which truncates against its running sum:
+// dS = P (dP - dcap) cancels where a row sees few keys (causal row 0: dP -
+// dcap is the residue of O's rounding, ~1e-3), so the forward sums each
+// k8 step's three parts into a fresh tile and the backward each two k8
+// steps' six, added to the f32 sum on the CUDA cores. On the card
+// (H100 SXM at 700 W), fresh tiles of one k8 step or two gave the same dq
+// at [1, 300, 4/1, 72] causal, four doubled its error there, and dP in
+// one chain brought dq near F32_TOL at [4, 2048, 16/8, 128]. The
+// backward's S chains all its instructions in one accumulator:
+// its error moves P by as much relatively (~1e-5) and no more. The second
+// products (O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K) take single
+// TF32 parts, P and dS rounded from their f32 registers, the other
+// operand rounded once a tile: ~2^-11 relative per term (~1e-3 of a
+// vector's scale at most). tests/test_torch_flash_f32_emulation.py
+// emulates the backward's roundings and grouping in numpy (7.2e-4 of
+// F32_TOL's 2.5e-3 at [1, 300, 4/1, 72] causal, 6.6e-4 at [2, 128, 2/1,
+// 128]; dP with its lo parts dropped 0.67); its model of the accumulation
+// (exact products, the sum truncated once an instruction) is kinder to
+// long groups than the card, which decides them.
 //
 // Bound on the H100: the same flops as the 16-bit kernels (4 hd per
 // visible pair forward, 10 backward) against twice their bytes, at the
-// 495 TFLOP/s TF32 rate: tensor-core bound at training lengths. This is
-// the first f32 design, plain and right rather than fast:
-//   - a block is one producer warpgroup, whose thread 0 issues every TMA
-//     copy into a two-stage mbarrier ring (hopper_core.cuh), and eight
-//     consumer warps of 16 rows each; setmaxnreg gives the producer 24
-//     registers and the consumers 240 (without it nine or twelve warps
-//     cap a thread at 168 registers, and the accumulators spill);
-//   - tiles are 128-byte-swizzled [chunk][rows][32] f32 boxes (32 columns
-//     x 16 rows); a lane reads its fragment values from them with scalar
-//     shared loads, which the swizzle keeps free of bank conflicts;
-//   - P (and dS) go from an m16n8 accumulator into the A fragment of the
-//     next product without a shuffle: the contraction over a tile's 8 keys
-//     is taken in a permuted order (the lane holding columns 2t, 2t + 1
-//     supplies k = t and k = t + 4), and the B fragment reads the value
-//     rows in that same order;
-//   - tile sizes follow the 227 KB a block may hold at hd 128 in f32:
-//     forward 128 query rows a block over 64-key tiles (Q 64 KB, two
-//     stages of K and V 128 KB); dq 128 rows over 32-key tiles (Q and dO
-//     128 KB, the ring 64 KB); dkdv 128 resident keys over 16-query
-//     tiles (K and V 128 KB, the ring 32 KB: at 32 queries its
-//     accumulators spill at hd 128).
-// Not done yet (PERF.md): wgmma, which takes TF32 operands K-major only
-// (V, dO, Q and K would need transposed copies in shared memory),
-// ldmatrix fragment loads, and rounding each tile once instead of once
-// per fragment.
+// 495 TFLOP/s TF32 rate: tensor-core bound at training lengths. The
+// backward's three-part scores and its dq pass make it 15 products where
+// the bound counts 5 (dkdv: S and dP three parts, dV and dK one; dq: S
+// and dP again, dQ).
+//
+// Forward design (the first f32 design, plain and right rather than fast;
+// the next slice's): a block is one producer warpgroup, whose thread 0
+// issues every TMA copy into a two-stage mbarrier ring (hopper_core.cuh),
+// and eight consumer warps of 16 rows each; setmaxnreg gives the producer
+// 24 registers and the consumers 240. Tiles are 128-byte-swizzled
+// [chunk][rows][32] f32 boxes (32 columns x 16 rows), from which a lane
+// reads its fragment values with scalar shared loads, rounding each, for
+// mma.sync.m16n8k8; 128 query rows a block over 64-key tiles (Q 64 KB,
+// two stages of K and V 128 KB at hd 128). P goes from an m16n8
+// accumulator into the A fragment of P V without a shuffle: the
+// contraction over a tile's 8 keys is taken in a permuted order (the lane
+// holding columns 2t, 2t + 1 supplies k = t and k = t + 4), and the B
+// fragment reads the value rows in that same order.
+//
+// Backward design. Three kernels in order on the caller's stream, as
+// flash_bwd.cu's: dcap (one warp a (batch, head, query) row: rowsum(dO
+// O) and lse log2(e) into the f32 scratch), dkdv (a block owns 128 keys of
+// one (batch, KV head), K and V resident, walking the group's query heads
+// and, for each, 32-query tiles from the causal diagonal on) and dq (a
+// block owns 128 query rows of one (batch, head), Q and dO resident,
+// walking 32-key tiles below the diagonal). A block is a producer
+// warpgroup and two consumer warpgroups of 64 resident rows each.
+//   - The score products run on wgmma m64n32k8 (f32 += tf32 x tf32): A the
+//     warpgroup's 64 resident rows, split in registers a k8 step at a time
+//     (four shared loads at offsets fixed a thread, ARows); B the streamed
+//     tile, K-major from shared memory: the [chunk][32][32] TMA tiles with
+//     the 128-byte swizzle are the layout wgmma reads. wgmma takes a TF32
+//     operand from shared memory only K-major, and truncates it, so once
+//     a tile has landed the producer warpgroup's other 127 threads (the
+//     splitters; thread 0 issues the TMA copies) round it in place (hi)
+//     and write its lo parts to a plane of the same layout, then mark the
+//     stage ready. The consumers free the lo planes as soon as their
+//     score products are done, so the next tile's split runs under their
+//     softmax and second products. The resident side's lo planes would
+//     not fit beside the ring at hd 128 (K and V take 128 KB of the 227).
+//   - Two k8 steps' A fragments are in flight; dP's fresh tiles alternate
+//     between two, so one group's adds overlap the next group's products.
+//   - The second products stay on mma.sync m16n8k8, their B operand read
+//     from the rounded tile by scalar shared loads (eight offsets a thread
+//     place every load at a constant from one of them). They contract over
+//     queries (dV, dK) or keys (dQ), so their B operands are MN-major,
+//     which wgmma takes for 16-bit types only. P and dS reach them from the
+//     score accumulators without a shuffle, in the forward's permuted
+//     order.
+//   - Tiles: dkdv's streamed queries were 16, now 32, the N of the score
+//     products; at hd 128 the resident 128 KB, the two-stage ring (32 KB
+//     a stage) and the lo planes (32 KB) take 224 KB. dq stays at 32 keys
+//     for the same sum.
+//   - No atomics: dQ is its own pass, and every sum runs in a fixed order,
+//     so two runs are bit-identical.
+// What held the first backward design back (H100 SXM at 700 W:
+// 41.38 ms at train_f32's [16, 2048, 32/8, 128], 6.7 % of the bound;
+// eager_f32 [64, 512, 12, 64] 4.016 ms, 1.01x SDPA f32's backward): every
+// operand value of every product was a scalar shared load and a cvt.rna,
+// repeated by each of the eight warps for every product it entered, all
+// on mma.sync, over 16-query dkdv tiles. What holds this one (PERF.md
+// §6): the second products on mma.sync, whose TF32 rate on the card is a
+// fraction of wgmma's and whose B loads (each warp reads the whole
+// streamed tile) are most of the shared-memory traffic. Putting them on
+// wgmma needs their B operand K-major, i.e. P^T or dS written to shared
+// memory, and either 64-key dkdv blocks (128 keys' dK and dV accumulators
+// exceed the 168 registers a thread ptxas allocates under 384 threads,
+// and it serializes the wgmma) or room that hd 128 does not leave; both
+// variants ran slower on the card than this design (PERF.md §6).
 #include "hopper_core.cuh"
 
 namespace {
@@ -81,15 +138,15 @@ constexpr int kThreads = 128 + kConsumers;       // + the producer warpgroup
 constexpr int kStages = 2;
 constexpr int kBM = 128;       // forward and dq: query rows a block
 constexpr int kFwdBN = 64;     // forward: keys a tile
-constexpr int kDqBN = 32;      // dq: keys a tile
-constexpr int kKN = 128;       // dkdv: keys a block
-constexpr int kQM = 16;        // dkdv: queries a tile
+constexpr int kKN = 128;       // dkdv: keys a block, 64 a warpgroup
+constexpr int kTN = 32;        // backward: a streamed tile's rows (dkdv's
+                               // queries, dq's keys)
 constexpr int kPad = 128;      // the prep rows' padding of Sq
 constexpr float kPadLse = 1e30f;
 
 static_assert(kCols * 4 == kRowBytes, "a chunk row is one swizzle row");
 static_assert(kBoxRows % 8 == 0 && kFwdBN % kBoxRows == 0 &&
-              kDqBN % kBoxRows == 0 && kQM % kBoxRows == 0 &&
+              kTN % kBoxRows == 0 &&
               kBM % kBoxRows == 0 && kKN % kBoxRows == 0,
               "tiles are whole boxes, boxes whole 8-row swizzle atoms");
 static_assert(kBM == 16 * kWarps && kKN == 16 * kWarps,
@@ -430,22 +487,225 @@ dcap_kernel(const float* __restrict__ o, const float* __restrict__ dout,
   }
 }
 
+// --------------------------------------------- the backward's products
+// The score products (S, dP) on wgmma m64n32k8 with TF32 operands: the
+// warpgroup's 64 rows of X (a resident tile, read raw) by the 32 rows of
+// a streamed tile Y, over head_dim. Y is split once a tile by the
+// splitters (split_tile): its landed TMA tile rounded in place (hi =
+// rna(y)) and lo = y - hi written to a plane of the same layout. X's
+// values are split in registers (ARows) as the A fragments of each k8
+// step.
+
+// D (+)= A B over one k8 step: m64n32k8, f32 += tf32 * tf32. A four TF32
+// registers, the warp's m16k8 fragment (a0 (g, t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4) of its 16 rows, as mma.m16n8k8's); B K-major
+// from shared memory (128-byte swizzle: a k8 step is 32 bytes of a row).
+// scale_d 0: D = A B, a fresh tile.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[kTN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int R>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// x rounded to TF32, to nearest with ties away (cvt.rna's result for
+// every finite x and for inf; a NaN comes out NaN or inf) in two integer
+// operations, where sm_90 has no instruction for cvt.rna.tf32.f32 and
+// ptxas expands it into a compare-and-select sequence
+__device__ __forceinline__ uint32_t rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// A k8 step's split A fragments come from a raw tile of R rows a chunk:
+// rows x0 + g, x0 + g + 8 (x0 a multiple of 16, so both rows are g
+// modulo the swizzle's 8), columns 8 ks + t, 8 ks + t + 4. sw[q] is the
+// thread's offset, in floats, of 16-byte group q of row x0 + g (its
+// swizzled place, plus t), so each value is one shared load at an offset
+// known at compile time from it.
+template <int R>
+struct ARows {
+  int sw[8];
+  __device__ __forceinline__ ARows(int x0, int g, int t4) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      sw[q] = (x0 + g) * kCols + ((q ^ g) << 2) + t4;
+  }
+  // hi = rna(x); lo = x - hi, whose low bits the tensor core drops (its
+  // truncation: ~2^-10 of lo, ~2^-21 of x)
+  __device__ __forceinline__ void split(const float* x, int ks,
+                                        uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) const {
+    const float* c = x + (ks >> 2) * R * kCols;
+    const int q = (2 * ks) & 7;
+    const float v[4] = {c[sw[q]], c[sw[q] + 8 * kCols], c[sw[q + 1]],
+                        c[sw[q + 1] + 8 * kCols]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      hi[e] = rna(v[e]);
+      lo[e] = __float_as_uint(v[e] - __uint_as_float(hi[e]));
+    }
+  }
+};
+
+// acc (m64n32: the warpgroup's rows x0.. of X by Y's 32 rows) = X Y^T over
+// HD columns, three TF32 parts a k8 step (hi hi + hi lo + lo hi). X a raw
+// tile of R rows a chunk; Y's hi (rounded in place) and lo planes at
+// shared addresses yhi, ylo ([chunk][32][32]). kFresh: each kG k8 steps'
+// parts into a fresh tile, added to acc in f32 on the CUDA cores, two
+// tiles in turn so that one group's adds overlap the next group's
+// products (dP: dS = P (dP - dcap) cancels where a row sees few keys,
+// and the tensor core's accumulation truncates against its running sum);
+// else one chain in the tensor core's accumulator (S: an error of the
+// scores moves P by as much relatively, and no more). The A fragments of
+// two steps are in flight at a time.
+template <int HD, int R, bool kFresh>
+__device__ __forceinline__ void score_products(float (&acc)[kTN / 2],
+                                               const float* x, int x0,
+                                               uint32_t yhi, uint32_t ylo,
+                                               int g, int t4) {
+  constexpr int kSteps = HD / 8;
+  constexpr int kG = 2;   // dP: k8 steps a fresh tile
+  const ARows<R> rows(x0, g, t4);
+  uint32_t hi[2][4], lo[2][4];
+  float tmp[2][kTN / 2];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    const int b = ks & 1, tb = (ks / kG) & 1;
+    rows.split(x, ks, hi[b], lo[b]);
+    const uint64_t dh = hop::desc_k(hop::k_step_addr(yhi, kTN, ks));
+    const uint64_t dl = hop::desc_k(hop::k_step_addr(ylo, kTN, ks));
+    hop::wg_fence();
+    if constexpr (kFresh) {
+      wgmma_tf32(tmp[tb], hi[b], dh, ks % kG != 0);
+      wgmma_tf32(tmp[tb], hi[b], dl, 1);
+      wgmma_tf32(tmp[tb], lo[b], dh, 1);
+    } else {
+      wgmma_tf32(acc, hi[b], dh, ks > 0);
+      wgmma_tf32(acc, hi[b], dl, 1);
+      wgmma_tf32(acc, lo[b], dh, 1);
+    }
+    hop::wg_commit();
+    hop::wg_wait_pending<1>();     // step ks - 1 has completed
+    fence_a(hi);
+    fence_a(lo);
+    if constexpr (kFresh) {
+      if (ks > 0 && (ks - 1) % kG == kG - 1) {   // a fresh tile is whole
+        const int pb = ((ks - 1) / kG) & 1;
+        hop::fence_regs(tmp[pb]);
+#pragma unroll
+        for (int i = 0; i < kTN / 2; ++i)
+          acc[i] = ks > kG ? acc[i] + tmp[pb][i] : tmp[pb][i];
+      }
+    }
+  }
+  hop::wg_wait();
+  if constexpr (kFresh) {
+    constexpr int pb = ((kSteps - 1) / kG) & 1;
+    hop::fence_regs(tmp[pb]);
+#pragma unroll
+    for (int i = 0; i < kTN / 2; ++i)
+      acc[i] = kSteps > kG ? acc[i] + tmp[pb][i] : tmp[pb][i];
+  } else {
+    hop::fence_regs(acc);
+  }
+}
+
+// acc[4n..] (16 x HD) += P Y on mma.sync m16n8k8, as p_times (Y a tile
+// of 32 rows a chunk), Y's values TF32 already (a hi plane): taken as
+// they are, no rounding a fragment. Lane (g, t) reads rows 8j + 2t + e,
+// columns 8n + g: with gh = g / 4, their 16-byte group 2 (n % 4) + gh
+// lands at 2 ((n % 4) ^ t) + (gh ^ e) of the row, so eight offsets a
+// thread (e, n % 4) place every load at a constant from one of them.
+// Each k8 step's B fragments are loaded before its products.
+template <int HD, int K>
+__device__ __forceinline__ void p_times_hi(float* acc, const float* p,
+                                           const float* y, int g, int t4) {
+  int off[2][4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      off[e][m] = (2 * t4 + e) * kCols +
+                  (((m ^ t4) << 3) | (((g >> 2) ^ e) << 2)) + (g & 3);
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const uint32_t a0 = rna(p[4 * j + 0]), a1 = rna(p[4 * j + 2]);
+    const uint32_t a2 = rna(p[4 * j + 1]), a3 = rna(p[4 * j + 3]);
+    uint32_t b[HD / 8][2];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const float* c = y + (n >> 2) * kTN * kCols + 8 * j * kCols;
+      b[n][0] = __float_as_uint(c[off[0][n & 3]]);
+      b[n][1] = __float_as_uint(c[off[1][n & 3]]);
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      mma_raw(acc + 4 * n, a0, a1, a2, a3, b[n][0], b[n][1]);
+  }
+}
+
+// The producer warpgroup's threads 1-127 (thread 0 issues the TMA
+// copies) split each landed tile of the backward's ring (split_tile), so
+// the consumers find it ready.
+constexpr int kSplitters = 127;
+
+// A landed tile of n floats rounded to TF32 in place (hi = rna(x)), and
+// lo = x - hi at the same offsets of `lo` (the tensor core drops its low
+// bits as it reads it): the splitters (tid < kSplitters) share it, a
+// 16-byte vector each in turn. The writes are made visible to the tensor
+// core's reads (the async proxy) here, before the splitters arrive on the
+// stage's ready barrier.
+__device__ __forceinline__ void split_tile(float* t, float* lo, int n,
+                                           int tid) {
+  for (int i = tid * 4; i < n; i += kSplitters * 4) {
+    const float4 x = *reinterpret_cast<float4*>(t + i);
+    const float4 h = make_float4(
+        __uint_as_float(rna(x.x)), __uint_as_float(rna(x.y)),
+        __uint_as_float(rna(x.z)), __uint_as_float(rna(x.w)));
+    *reinterpret_cast<float4*>(t + i) = h;
+    *reinterpret_cast<float4*>(lo + i) =
+        make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
+  }
+  hop::fence_proxy_async();
+}
+
 // ---------------------------------------------------------------- dkdv
-// K, V [chunk][128][32]; per stage Q, dO [chunk][16][32]; then the
-// stages' lse2 and dcap slices [16] f32; the barriers.
+// K, V [chunk][128][32] (raw); per stage Q, dO [chunk][32][32] (rounded in
+// place once landed); Q's and dO's lo planes; the stages' lse2 and dcap
+// slices [32] f32; the barriers (K and V landed; per stage landed, ready
+// and empty; the lo planes free).
 template <int HD>
 struct DkdvSmem {
   static constexpr int kC = chunks(HD);
   static constexpr int kKBytes = kC * kKN * kRowBytes;
-  static constexpr int kQBytes = kC * kQM * kRowBytes;
+  static constexpr int kQBytes = kC * kTN * kRowBytes;
   static constexpr int kK = 0;
   static constexpr int kV = kKBytes;
   static constexpr int kQ = 2 * kKBytes;             // + stage * 2 * kQBytes
-  static constexpr int kRows = kQ + kStages * 2 * kQBytes;
-  static constexpr int kBars = kRows + kStages * 2 * kQM * 4;
-  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int kLo = kQ + kStages * 2 * kQBytes;   // Q lo, dO lo
+  static constexpr int kRows = kLo + 2 * kQBytes;
+  static constexpr int kBars = kRows + kStages * 2 * kTN * 4;
+  static constexpr int kBytes = kBars + 8 * (2 + 3 * kStages) + 1024;
   static_assert(kKBytes % 1024 == 0 && kQBytes % 1024 == 0,
                 "tiles keep the swizzle's 1024-byte period");
+  static_assert(kBytes <= 232448, "a block's 227 KB of shared memory");
 };
 
 template <int HD>
@@ -466,6 +726,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kStages;
+  uint64_t* ready = empty + kStages;
+  uint64_t* lo_free = ready + kStages;
+  float* lo_q = reinterpret_cast<float*>(smem + L::kLo);
+  float* lo_do = lo_q + L::kQBytes / 4;
 
   const int bkv = blockIdx.x, b = bkv / KV, kvh = bkv % KV;
   const int rep = H / KV;
@@ -497,19 +761,39 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int s = 0; s < kStages; ++s) {
       hop::mbar_init(&full[s], 1);
       hop::mbar_init(&empty[s], kConsumers);
+      hop::mbar_init(&ready[s], kSplitters);
     }
+    hop::mbar_init(lo_free, kConsumers);
     hop::fence_barrier_init();
   }
   __syncthreads();
 
   // query tiles from the first that can see this block's first key
-  const int qt0 = causal ? max(0, k0 - off) / kQM : 0;
-  const int n_qt = (Sq + kQM - 1) / kQM;
+  const int qt0 = causal ? max(0, k0 - off) / kTN : 0;
+  const int n_qt = (Sq + kTN - 1) / kTN;
 
   if (threadIdx.x < 128) {
     // ------------------------------------------------------- producer
-    hop::reg_dealloc<24>();
-    if (threadIdx.x != 0) return;
+    hop::reg_dealloc<40>();
+    if (threadIdx.x > 0) {
+      // the splitters: each tile once landed, and once the consumers are
+      // past the last tile's reads of the lo planes
+      hop::Ring<kStages> ring;
+      int t = 0;
+      for (int r = 0; r < rep; ++r)
+        for (int qt = qt0; qt < n_qt; ++qt, ++t) {
+          hop::mbar_wait(&full[ring.stage], ring.phase);
+          if (t > 0) hop::mbar_wait(lo_free, (t - 1) & 1);
+          float* qt_ = reinterpret_cast<float*>(smem + L::kQ +
+                                                ring.stage * 2 * L::kQBytes);
+          split_tile(qt_, lo_q, L::kQBytes / 4, threadIdx.x - 1);
+          split_tile(qt_ + L::kQBytes / 4, lo_do, L::kQBytes / 4,
+                     threadIdx.x - 1);
+          hop::mbar_arrive(&ready[ring.stage]);
+          ring.advance();
+        }
+      return;
+    }
     hop::mbar_expect_tx(kv_full, 2 * kC * (kKN / kBoxRows) * kBoxBytes);
     for (int c = 0; c < kC; ++c)
       for (int r = 0; r < kKN / kBoxRows; ++r) {
@@ -526,21 +810,21 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int qt = qt0; qt < n_qt; ++qt) {
         hop::mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
         uint64_t* bar = &full[ring.stage];
-        hop::mbar_expect_tx(bar, 2 * kC * (kQM / kBoxRows) * kBoxBytes +
-                                     2 * kQM * 4);
+        hop::mbar_expect_tx(bar, 2 * kC * (kTN / kBoxRows) * kBoxBytes +
+                                     2 * kTN * 4);
         unsigned char* qb = smem + L::kQ + ring.stage * 2 * L::kQBytes;
         unsigned char* db = qb + L::kQBytes;
         for (int c = 0; c < kC; ++c)
-          for (int rr = 0; rr < kQM / kBoxRows; ++rr) {
-            const int at = (c * kQM + rr * kBoxRows) * kRowBytes;
-            const int q = qt * kQM + rr * kBoxRows;
+          for (int rr = 0; rr < kTN / kBoxRows; ++rr) {
+            const int at = (c * kTN + rr * kBoxRows) * kRowBytes;
+            const int q = qt * kTN + rr * kBoxRows;
             hop::tma_load(&tm_q, bar, qb + at, c * kCols, q, h, b);
             hop::tma_load(&tm_do, bar, db + at, c * kCols, q, h, b);
           }
         float* rows = reinterpret_cast<float*>(smem + L::kRows) +
-                      ring.stage * 2 * kQM;
-        hop::bulk_load(rows, lse2 + prow + qt * kQM, kQM * 4, bar);
-        hop::bulk_load(rows + kQM, dcap + prow + qt * kQM, kQM * 4, bar);
+                      ring.stage * 2 * kTN;
+        hop::bulk_load(rows, lse2 + prow + qt * kTN, kTN * 4, bar);
+        hop::bulk_load(rows + kTN, dcap + prow + qt * kTN, kTN * 4, bar);
         ring.advance();
       }
     }
@@ -548,10 +832,13 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // --------------------------------------------------------- consumers
-  hop::reg_alloc<240>();
-  const int warp = threadIdx.x / 32 - 4, lane = threadIdx.x & 31;
+  hop::reg_alloc<232>();
+  const int tid = threadIdx.x - 128;
+  const int w = tid / 128, warp = (tid / 32) % 4, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int kw0 = k0 + warp * 16;              // the warp's keys
+  const int x0 = w * 64 + warp * 16;           // the warp's rows of K, V
+  const int kg0 = k0 + w * 64;                 // the warpgroup's keys
+  const int kw0 = k0 + x0;                     // the warp's keys
   int key[2];
   bool key_vis[2];   // keys past Sk are never stored: no test needed
 #pragma unroll
@@ -562,6 +849,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const bool warp_vis = __all_sync(0xffffffffu, key_vis[0] && key_vis[1]);
   const float* ks_ = reinterpret_cast<const float*>(smem + L::kK);
   const float* vs_ = reinterpret_cast<const float*>(smem + L::kV);
+  const uint32_t lo_q_addr = hop::smem_u32(lo_q);
+  const uint32_t lo_do_addr = hop::smem_u32(lo_do);
   float dka[HD / 2], dva[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
@@ -570,25 +859,29 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   hop::Ring<kStages> ring;
   for (int r = 0; r < rep; ++r) {
     for (int qt = qt0; qt < n_qt; ++qt) {
-      hop::mbar_wait(&full[ring.stage], ring.phase);
-      const int i0 = qt * kQM;
-      // causal: no query of the tile sees a key of this warp
-      if (!(causal && kw0 > i0 + kQM - 1 + off)) {
-        const float* qt_ = reinterpret_cast<const float*>(
-            smem + L::kQ + ring.stage * 2 * L::kQBytes);
-        const float* dt_ = qt_ + L::kQBytes / 4;
+      hop::mbar_wait(&ready[ring.stage], ring.phase);
+      const int i0 = qt * kTN;
+      const float* qt_ = reinterpret_cast<const float*>(
+          smem + L::kQ + ring.stage * 2 * L::kQBytes);
+      const float* dt_ = qt_ + L::kQBytes / 4;
+      // causal: no query of the tile sees a key of this warpgroup
+      const bool seen = !(causal && kg0 > i0 + kTN - 1 + off);
+      float s[kTN / 2], dp[kTN / 2];   // keys x queries
+      if (seen) {
+        score_products<HD, kKN, false>(s, ks_, x0, hop::smem_u32(qt_),
+                                       lo_q_addr, g, t4);
+        score_products<HD, kKN, true>(dp, vs_, x0, hop::smem_u32(dt_),
+                                      lo_do_addr, g, t4);
+      }
+      hop::mbar_arrive(lo_free);        // the lo planes are read
+      if (seen) {
         const float* rows = reinterpret_cast<const float*>(
-                                smem + L::kRows) + ring.stage * 2 * kQM;
-        float s[kQM / 2], dp[kQM / 2];   // keys x queries
-#pragma unroll
-        for (int i = 0; i < kQM / 2; ++i) s[i] = dp[i] = 0.f;
-        rows_dot<HD, kQM, kKN, kQM>(s, ks_, warp * 16, qt_, g, t4);
-        rows_dot<HD, kQM, kKN, kQM>(dp, vs_, warp * 16, dt_, g, t4);
+                                smem + L::kRows) + ring.stage * 2 * kTN;
         // every query of the tile sees every key of this warp
         const bool all_vis =
             warp_vis && (!causal || kw0 + 15 <= i0 + off);
 #pragma unroll
-        for (int i = 0; i < kQM / 2; ++i) {
+        for (int i = 0; i < kTN / 2; ++i) {
           const int hh = (i >> 1) & 1;
           const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
           float p = hop::exp2_fast(s[i] * scale_log2 - rows[qc]);
@@ -598,10 +891,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             p = vis ? p : 0.f;
           }
           s[i] = p;
-          dp[i] = p * (dp[i] - rows[kQM + qc]) * scale;
+          dp[i] = p * (dp[i] - rows[kTN + qc]) * scale;
         }
-        p_times<HD, kQM, kQM>(dva, s, dt_, g, t4);
-        p_times<HD, kQM, kQM>(dka, dp, qt_, g, t4);
+        p_times_hi<HD, kTN>(dva, s, dt_, g, t4);
+        p_times_hi<HD, kTN>(dka, dp, qt_, g, t4);
       }
       hop::mbar_arrive(&empty[ring.stage]);
       ring.advance();
@@ -625,18 +918,21 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ------------------------------------------------------------------ dq
-// Q, dO [chunk][128][32]; per stage K then V [chunk][32][32]; barriers;
+// Q, dO [chunk][128][32] (raw); per stage K then V [chunk][32][32]
+// (rounded in place once landed); K's and V's lo planes; the barriers (Q
+// and dO landed; per stage landed, ready and empty; the lo planes free);
 // the key-tile states.
 template <int HD>
 struct DqSmem {
   static constexpr int kC = chunks(HD);
   static constexpr int kQBytes = kC * kBM * kRowBytes;
-  static constexpr int kKBytes = kC * kDqBN * kRowBytes;
+  static constexpr int kKBytes = kC * kTN * kRowBytes;
   static constexpr int kQ = 0;
   static constexpr int kDo = kQBytes;
   static constexpr int kKV = 2 * kQBytes;             // + stage * 2 * kKBytes
-  static constexpr int kBars = kKV + kStages * 2 * kKBytes;
-  static constexpr int kState = kBars + 8 * (1 + 2 * kStages);
+  static constexpr int kLo = kKV + kStages * 2 * kKBytes;   // K lo, V lo
+  static constexpr int kBars = kLo + 2 * kKBytes;
+  static constexpr int kState = kBars + 8 * (2 + 3 * kStages);
   static_assert(kQBytes % 1024 == 0 && kKBytes % 1024 == 0,
                 "tiles keep the swizzle's 1024-byte period");
   static int bytes(int n_state) {
@@ -661,6 +957,10 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kStages;
+  uint64_t* ready = empty + kStages;
+  uint64_t* lo_free = ready + kStages;
+  float* lo_k = reinterpret_cast<float*>(smem + L::kLo);
+  float* lo_v = lo_k + L::kKBytes / 4;
   unsigned char* tile_state = smem + L::kState;
 
   const int bh = blockIdx.x, b = bh / H, head = bh % H;
@@ -669,7 +969,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int off = Sk - Sq;
   const int Sq_pad = padded(Sq);
   const float scale_log2 = scale * hop::kLog2e;
-  const int n_tiles = hop::key_tiles(m0, kBM, kDqBN, Sq, Sk, causal);
+  const int n_tiles = hop::key_tiles(m0, kBM, kTN, Sq, Sk, causal);
   const unsigned char* mrow =
       key_mask != nullptr ? key_mask + (size_t)b * Sk : nullptr;
 
@@ -678,21 +978,41 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int s = 0; s < kStages; ++s) {
       hop::mbar_init(&full[s], 1);
       hop::mbar_init(&empty[s], kConsumers);
+      hop::mbar_init(&ready[s], kSplitters);
     }
+    hop::mbar_init(lo_free, kConsumers);
     hop::fence_barrier_init();
   }
   if (mrow != nullptr)
-    hop::scan_key_tiles<kDqBN>(mrow, Sk, n_tiles, tile_state);
+    hop::scan_key_tiles<kTN>(mrow, Sk, n_tiles, tile_state);
   __syncthreads();
   auto state = [&](int t) -> int {
     if (mrow != nullptr) return tile_state[t];
-    return (t + 1) * kDqBN <= Sk ? 2 : 1;
+    return (t + 1) * kTN <= Sk ? 2 : 1;
   };
 
   if (threadIdx.x < 128) {
     // ------------------------------------------------------- producer
-    hop::reg_dealloc<24>();
-    if (threadIdx.x != 0) return;
+    hop::reg_dealloc<40>();
+    if (threadIdx.x > 0) {
+      // the splitters, as dkdv's
+      hop::Ring<kStages> ring;
+      int u = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        if (state(t) == 0) continue;
+        hop::mbar_wait(&full[ring.stage], ring.phase);
+        if (u > 0) hop::mbar_wait(lo_free, (u - 1) & 1);
+        float* kt = reinterpret_cast<float*>(smem + L::kKV +
+                                             ring.stage * 2 * L::kKBytes);
+        split_tile(kt, lo_k, L::kKBytes / 4, threadIdx.x - 1);
+        split_tile(kt + L::kKBytes / 4, lo_v, L::kKBytes / 4,
+                   threadIdx.x - 1);
+        hop::mbar_arrive(&ready[ring.stage]);
+        ring.advance();
+        ++u;
+      }
+      return;
+    }
     hop::mbar_expect_tx(q_full, 2 * kC * (kBM / kBoxRows) * kBoxBytes);
     for (int c = 0; c < kC; ++c)
       for (int r = 0; r < kBM / kBoxRows; ++r) {
@@ -707,12 +1027,12 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (state(t) == 0) continue;
       hop::mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
       uint64_t* bar = &full[ring.stage];
-      hop::mbar_expect_tx(bar, 2 * kC * (kDqBN / kBoxRows) * kBoxBytes);
+      hop::mbar_expect_tx(bar, 2 * kC * (kTN / kBoxRows) * kBoxBytes);
       unsigned char* kb = smem + L::kKV + ring.stage * 2 * L::kKBytes;
       for (int c = 0; c < kC; ++c)
-        for (int r = 0; r < kDqBN / kBoxRows; ++r) {
-          const int at = (c * kDqBN + r * kBoxRows) * kRowBytes;
-          const int key = t * kDqBN + r * kBoxRows;
+        for (int r = 0; r < kTN / kBoxRows; ++r) {
+          const int at = (c * kTN + r * kBoxRows) * kRowBytes;
+          const int key = t * kTN + r * kBoxRows;
           hop::tma_load(&tm_k, bar, kb + at, c * kCols, key, kvh, b);
           hop::tma_load(&tm_v, bar, kb + L::kKBytes + at, c * kCols, key,
                         kvh, b);
@@ -723,13 +1043,21 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // --------------------------------------------------------- consumers
-  hop::reg_alloc<240>();
-  const int warp = threadIdx.x / 32 - 4, lane = threadIdx.x & 31;
+  hop::reg_alloc<232>();
+  const int tid = threadIdx.x - 128;
+  const int w = tid / 128, warp = (tid / 32) % 4, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int r_base = m0 + warp * 16;
-  const int row0 = r_base + g;
+  const int x0 = w * 64 + warp * 16;           // the warp's rows of Q, dO
+  const int r_base = m0 + w * 64;              // the warpgroup's rows
+  const int row0 = m0 + x0 + g;                // this thread's: row0, +8
   const float* qs = reinterpret_cast<const float*>(smem + L::kQ);
   const float* dos = reinterpret_cast<const float*>(smem + L::kDo);
+  const uint32_t lo_k_addr = hop::smem_u32(lo_k);
+  const uint32_t lo_v_addr = hop::smem_u32(lo_v);
+  float dqa[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+
   float lrow[2], crow[2];
   const size_t prow = ((size_t)b * H + head) * Sq_pad;
 #pragma unroll
@@ -737,30 +1065,31 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     lrow[hh] = lse2[prow + row0 + 8 * hh];   // rows < Sq_pad
     crow[hh] = dcap[prow + row0 + 8 * hh];
   }
-  float dqa[HD / 2];
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
 
   hop::mbar_wait(q_full, 0);
   hop::Ring<kStages> ring;
   for (int t = 0; t < n_tiles; ++t) {
     const int st = state(t);
     if (st == 0) continue;
-    hop::mbar_wait(&full[ring.stage], ring.phase);
-    const int k0 = t * kDqBN;
-    if (!(causal && k0 > r_base + 15 + off)) {
-      const float* kt = reinterpret_cast<const float*>(
-          smem + L::kKV + ring.stage * 2 * L::kKBytes);
-      const float* vt = kt + L::kKBytes / 4;
-      float s[kDqBN / 2], dp[kDqBN / 2];   // queries x keys
-#pragma unroll
-      for (int i = 0; i < kDqBN / 2; ++i) s[i] = dp[i] = 0.f;
-      rows_dot<HD, kDqBN, kBM, kDqBN>(s, qs, warp * 16, kt, g, t4);
-      rows_dot<HD, kDqBN, kBM, kDqBN>(dp, dos, warp * 16, vt, g, t4);
+    hop::mbar_wait(&ready[ring.stage], ring.phase);
+    const int k0 = t * kTN;
+    const float* kt = reinterpret_cast<const float*>(
+        smem + L::kKV + ring.stage * 2 * L::kKBytes);
+    const float* vt = kt + L::kKBytes / 4;
+    const bool seen = !(causal && k0 > r_base + 63 + off);
+    float s[kTN / 2], dp[kTN / 2];   // queries x keys
+    if (seen) {
+      score_products<HD, kBM, false>(s, qs, x0, hop::smem_u32(kt),
+                                     lo_k_addr, g, t4);
+      score_products<HD, kBM, true>(dp, dos, x0, hop::smem_u32(vt),
+                                    lo_v_addr, g, t4);
+    }
+    hop::mbar_arrive(lo_free);          // the lo planes are read
+    if (seen) {
       const bool all_vis =
-          st == 2 && (!causal || k0 + kDqBN - 1 <= r_base + off);
+          st == 2 && (!causal || k0 + kTN - 1 <= m0 + x0 + off);
 #pragma unroll
-      for (int i = 0; i < kDqBN / 2; ++i) {
+      for (int i = 0; i < kTN / 2; ++i) {
         const int hh = (i >> 1) & 1;
         float p = hop::exp2_fast(s[i] * scale_log2 - lrow[hh]);
         if (!all_vis) {
@@ -772,7 +1101,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         dp[i] = p * (dp[i] - crow[hh]) * scale;
       }
-      p_times<HD, kDqBN, kDqBN>(dqa, dp, kt, g, t4);
+      p_times_hi<HD, kTN>(dqa, dp, kt, g, t4);
     }
     hop::mbar_arrive(&empty[ring.stage]);
     ring.advance();
@@ -838,7 +1167,7 @@ int launch_bwd(const CUtensorMap* tm, const float* o, const float* dout,
       tm[0], tm[1], tm[2], tm[3], lse2, dcap, mask, dk, dv, Sq, Sk, H, KV,
       st[6], st[7], scale, causal);
   const int smem2 =
-      DqSmem<HD>::bytes(mask != nullptr ? (Sk + kDqBN - 1) / kDqBN : 0);
+      DqSmem<HD>::bytes(mask != nullptr ? (Sk + kTN - 1) / kTN : 0);
   err = hop::allow_smem(dq_kernel<HD>, smem2, granted2);
   if (err != cudaSuccess) return (int)err;
   dim3 g2(B * H, (Sq + kBM - 1) / kBM);

@@ -1,22 +1,33 @@
 // RMSNorm kernels for Hopper (sm_90a): the training stack's forward
 // (saving the reciprocal RMS) and backward, and the eager API's fused
-// forward (row 6, at the end of this file).
+// forward (row 6), which runs the training forward's walk without its
+// statistics.
 //
 // Replaces: paddle_tpu/kernels/rms_norm.py::_rms_fwd_kernel (pallas_call
 // in _rms_fwd_pallas) and ::_rms_bwd_kernel (pallas_call in
 // _rms_bwd_pallas), both run twice per decoder layer
-// (nlp/llama.py::_decoder_layer).
+// (nlp/llama.py::_decoder_layer); and ::_rms_norm_kernel (pallas_call in
+// rms_norm_pallas, reached through the dispatch rms_norm(): the eager
+// API's incubate.nn.functional.fused_rms_norm and the FusedRMSNorm layer
+// of a Llama built from layers).
 //
 //   forward:  r = 1 / sqrt(mean(x^2) + eps), out = x * r * w (x's
 //             dtype), rstd = r (f32, one per row)
 //   backward: dx = r * (w o dy) - x * (r^3 / D) * sum_j dy_j w_j x_j
 //             dw = sum over rows of dy o x o r
+//   row 6:    out = x * r * w, or x * r with no weight; no rstd. Its
+//             backward is not a kernel: the wrapper differentiates the
+//             plain version, as the JAX package's eager tape
+//             differentiates rms_norm.
 // x, out, dy, dx [rows, D] in one dtype T: bf16 (rms_fwd_bf16,
-// rms_bwd_bf16), f16 or f32 (_f16, _f32), one kernel template each, as
-// the TPU kernels write out and dx in x's dtype. Both read w in its own
-// dtype where it is x's or f32 (WT; the wrapper casts any other to f32)
-// and the backward writes dw in it (the f32 sum rounded once); all
-// arithmetic in f32, in the order of the TPU kernels.
+// rms_bwd_bf16, rms_fused_bf16), f16 or f32 (_f16, _f32), one kernel
+// template each, as the TPU kernels write out and dx in x's dtype. All
+// read w in its own dtype where it is x's or f32 (WT; the wrapper casts
+// any other to f32) and the backward writes dw in it (the f32 sum rounded
+// once); all arithmetic in f32, in the order of the TPU kernels: (x * r)
+// * w, rounded once to x's dtype. r is 1 / sqrtf (correctly rounded) in
+// both forwards, where row 6's first design took rsqrtf (~2 ulps): within
+// row 6's bounds either way, and one walk computes both.
 //
 // Bound on the H100: a handful of operations per element against 2 * e
 // (fwd: x read, out written) or 3 * e (bwd: x, dy read, dx written)
@@ -24,36 +35,32 @@
 // ridge: memory bound. The bf16 training steps' [40960, 2048] and
 // [16384, 4096] forwards move 336 and 268 MB, 0.100 and 0.080 ms at 3.35
 // TB/s; their backwards 503 and 403 MB, 0.150 and 0.120 ms; an f32 x
-// doubles each.
+// doubles each. Row 6 at the eager Llama's [4096, 4096]: 67 MB in bf16
+// (0.020 ms), 134 MB in f32 (0.040 ms).
 //
-// Forward design. A row is held in registers by one warp (D <= 2048 in
-// 16 bits, as 8 16-byte vectors a lane; 1024 in f32), two, four or (f32,
-// D > 4096) eight warps, and its sum of squares reduced by warp shuffles
-// alone; a row of several warps adds their sums through shared memory
-// under a named barrier of just those warps, double-buffered by row
-// parity, so no block-wide barrier is taken per row. The grid is
-// persistent: as many blocks (128 threads, or one row of eight warps) as
-// fit on the card at once, whose warp teams walk the rows with a stride,
-// and each lane loads its weights once (16-byte loads, in the weight's
-// dtype) and keeps them in registers. The next row's loads are issued
-// before the current row's reduction, so a row's latency hides behind
-// the one before it.
+// Forward design (both forwards). A row is held in registers by one warp
+// (D <= 2048 in 16 bits, as 8 16-byte vectors a lane; 1024 in f32), two,
+// four or (f32, D > 4096) eight warps, and its sum of squares reduced by
+// warp shuffles alone; a row of several warps adds their sums through
+// shared memory under a named barrier of just those warps,
+// double-buffered by row parity, so no block-wide barrier is taken per
+// row. The grid is persistent: as many blocks (128 threads, or one row of
+// eight warps) as fit on the card at once, whose warp teams walk the rows
+// with a stride, and each lane loads its weights once (16-byte loads, in
+// the weight's dtype) and keeps them in registers. The next row's loads
+// are issued before the current row's reduction, so a row's latency hides
+// behind the one before it. Row 6 instantiates the same walk with the
+// rstd store compiled out and, affine-free, no weight at all. What held
+// row 6's first design back (H100 SXM at 700 W, [4096, 4096] bf16 with a
+// bf16 weight: 0.0403 ms host-timed against F.rms_norm's 0.0332, 49.6 %
+// of the bound): one 256-thread block a row at D 4096 with a block-wide
+// barrier a row and 4096 blocks, so no row's loads were in flight behind
+// another's reduction; the weight re-read per element through scalar
+// loads; and a wrapper that cast every weight but an f16 one to f32 on
+// each call, one more launch a call. This design, in one CUDA graph:
+// bf16 0.0350 -> 0.0260 ms (77 % of the bound), f16 0.0270 -> 0.0256,
+// f32 0.0485 -> 0.0505 (80 %), each below F.rms_norm's.
 //
-// Backward design: the walk of norm_bwd_core.cuh (a persistent grid of
-// warp teams, 1 warp a row up to 32 vectors, 2, 4 or 8 up to D 8192,
-// each lane holding 32 values of a row at most; x, dy and rstd two rows
-// ahead in a cp.async ring; the row's sum(dy w x) by shuffles and the
-// team's named barrier), with the weight loaded once per lane in its own
-// dtype; each block writes one f32 partial row of dw, and rms_dw_kernel
-// folds them in a fixed order and writes dw in the weight's dtype. What
-// held the previous design back (one 256-thread block a row walking 512
-// fixed chunks; H100 SXM at 700 W, one CUDA graph: 0.212 ms at [16384,
-// 4096], 0.226 at [40960, 2048], 57 % and 67 % of the bound): each row's
-// x and dy loaded synchronously with nothing in flight behind them, two
-// block-wide barriers a row, a 16- or 8-block fold whose threads each
-// summed 512 partials in one chain (0.019 / 0.015 ms alone), and two
-// casts of the weight and of dw around the call (0.005 ms). This design:
-// 0.156 and 0.191 ms, 77 % and 79 % of the bound.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -67,40 +74,7 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
-constexpr int kThreads = 256;
-constexpr int kMaxVec = 4;      // 16-byte vectors a thread of 256: D <= 8192
-
-__device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = __bfloat1622float2(h[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float f[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
-}
-
-// Sum of `v` over the block (256 threads); every thread gets the total.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1) v += __shfl_xor_sync(0xffffffffu, v, w);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();              // red[] is free from the previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int i = 0; i < kThreads / 32; ++i) t += red[i];
-  return t;
-}
+constexpr int kMaxD = 8192;      // widest row: 32 values a lane of 256
 
 // A lane's weights of one 16-byte vector of x (kN values of T) in the
 // weight's dtype WT, kept packed in registers for the block's life: one
@@ -136,11 +110,16 @@ __host__ __device__ constexpr int fwd_block() {
   return 32 * WPR > kFwdThreads ? 32 * WPR : kFwdThreads;
 }
 
-template <typename T, typename WT, int WPR, int VPT>
-__global__ void __launch_bounds__(fwd_block<WPR>())
-rms_fwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
-               T* __restrict__ out, float* __restrict__ rstd, int rows,
-               int D, float eps) {
+// The forward walk of both forwards: kStats stores rstd (row 7), and
+// without kAffine the weight is neither read nor applied (row 6's
+// affine-free form; w is then null).
+template <typename T, typename WT, int WPR, int VPT, bool kStats,
+          bool kAffine>
+__device__ __forceinline__ void fwd_walk(const T* __restrict__ x,
+                                         const WT* __restrict__ w,
+                                         T* __restrict__ out,
+                                         float* __restrict__ rstd, int rows,
+                                         int D, float eps) {
   constexpr int kBlock = fwd_block<WPR>();
   constexpr int kN = nbw::Vec<T>::kN;
   constexpr int kTPR = 32 * WPR;              // threads a row
@@ -150,10 +129,12 @@ rms_fwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
   const int team = warp / WPR, t = threadIdx.x % kTPR;
   const int nvec = D / kN;
   WVec<T, WT> wv[VPT];
+  if constexpr (kAffine) {
 #pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int vi = t + i * kTPR;
-    if (vi < nvec) wv[i].load(w + vi * kN);
+    for (int i = 0; i < VPT; ++i) {
+      const int vi = t + i * kTPR;
+      if (vi < nvec) wv[i].load(w + vi * kN);
+    }
   }
   const int stride = gridDim.x * kTeams;
   int row = blockIdx.x * kTeams + team;
@@ -200,18 +181,44 @@ rms_fwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
     for (int i = 0; i < VPT; ++i) {
       const int vi = t + i * kTPR;
       if (vi < nvec) {
-        float f[kN], g[kN], o[kN];
+        float f[kN], o[kN];
         nbw::Vec<T>::unpack(cur[i], f);
-        wv[i].get(g);
+        if constexpr (kAffine) {
+          float g[kN];
+          wv[i].get(g);
 #pragma unroll
-        for (int j = 0; j < kN; ++j) o[j] = f[j] * r * g[j];
+          for (int j = 0; j < kN; ++j) o[j] = f[j] * r * g[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < kN; ++j) o[j] = f[j] * r;
+        }
         orow[vi] = nbw::Vec<T>::pack(o);
       }
     }
-    if (t == 0) rstd[row] = r;
+    if constexpr (kStats) {
+      if (t == 0) rstd[row] = r;
+    }
 #pragma unroll
     for (int i = 0; i < VPT; ++i) cur[i] = nxt[i];
   }
+}
+
+// Row 7: the training forward, saving rstd.
+template <typename T, typename WT, int WPR, int VPT>
+__global__ void __launch_bounds__(fwd_block<WPR>())
+rms_fwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
+               T* __restrict__ out, float* __restrict__ rstd, int rows,
+               int D, float eps) {
+  fwd_walk<T, WT, WPR, VPT, true, true>(x, w, out, rstd, rows, D, eps);
+}
+
+// Row 6: the eager fused norm, no statistics; affine-free without kAffine.
+template <typename T, typename WT, int WPR, int VPT, bool kAffine>
+__global__ void __launch_bounds__(fwd_block<WPR>())
+rms_fused_kernel(const T* __restrict__ x, const WT* __restrict__ w,
+                 T* __restrict__ out, int rows, int D, float eps) {
+  fwd_walk<T, WT, WPR, VPT, false, kAffine>(x, w, out, nullptr, rows, D,
+                                            eps);
 }
 
 // The backward's walk: WPR warps a row, VPT vectors of x a lane, the
@@ -312,12 +319,17 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* rstd,
 }
 
 // The persistent grid: as many blocks as fit on the card at once, asked
-// of the runtime once per kernel and device.
-template <typename T, typename WT, int WPR, int VPT>
+// of the runtime once per kernel and device. kKind: 0 row 7 (rstd
+// stored), 1 row 6, 2 row 6 affine-free (w and rstd unused).
+template <typename T, typename WT, int WPR, int VPT, int kKind>
 cudaError_t launch_fwd(const void* x, const void* w, void* out, void* rstd,
                        int rows, int D, float eps, cudaStream_t s) {
   constexpr int kBlock = fwd_block<WPR>();
   constexpr int kTeams = kBlock / (32 * WPR);
+  auto kernel = [] {
+    if constexpr (kKind == 0) return rms_fwd_kernel<T, WT, WPR, VPT>;
+    else return rms_fused_kernel<T, WT, WPR, VPT, kKind == 1>;
+  }();
   static int resident[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -327,25 +339,30 @@ cudaError_t launch_fwd(const void* x, const void* w, void* out, void* rstd,
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, rms_fwd_kernel<T, WT, WPR, VPT>, kBlock, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kBlock, 0);
     if (err != cudaSuccess) return err;
     full = sms * std::max(per_sm, 1);
     if (dev < 64) resident[dev] = full;
   }
   const int grid = std::max(1, std::min((rows + kTeams - 1) / kTeams, full));
-  rms_fwd_kernel<T, WT, WPR, VPT><<<grid, kBlock, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const WT*>(w),
-      static_cast<T*>(out), static_cast<float*>(rstd), rows, D, eps);
+  if constexpr (kKind == 0)
+    kernel<<<grid, kBlock, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const WT*>(w),
+        static_cast<T*>(out), static_cast<float*>(rstd), rows, D, eps);
+  else
+    kernel<<<grid, kBlock, 0, s>>>(static_cast<const T*>(x),
+                                   static_cast<const WT*>(w),
+                                   static_cast<T*>(out), rows, D, eps);
   return cudaGetLastError();
 }
 
-template <typename T, typename WT>
+template <typename T, typename WT, int kKind>
 cudaError_t dispatch_fwd(const void* x, const void* w, void* out, void* rstd,
                          int rows, int D, float eps, cudaStream_t s) {
   const int nvec = D / nbw::Vec<T>::kN;
 #define PTT_FWD(WPR, VPT) \
-  return launch_fwd<T, WT, WPR, VPT>(x, w, out, rstd, rows, D, eps, s)
+  return launch_fwd<T, WT, WPR, VPT, kKind>(x, w, out, rstd, rows, D, eps, s)
   if (nvec <= 32) PTT_FWD(1, 1);
   if (nvec <= 64) PTT_FWD(1, 2);
   if (nvec <= 128) PTT_FWD(1, 4);
@@ -369,15 +386,19 @@ cudaError_t by_weight(int w_x, F&& f) {
   }
 }
 
+// kKind as launch_fwd's; row 6 (rstd null) is affine-free when w is null
 template <typename T>
 int fwd_entry(const void* x, const void* w, void* out, void* rstd, int rows,
               int D, float eps, int w_x, void* stream) {
-  if (D % 8 || D > kThreads * kMaxVec * 8 || rows < 1)
-    return (int)cudaErrorInvalidValue;
+  if (D % 8 || D > kMaxD || rows < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rstd == nullptr && w == nullptr)
+    return (int)dispatch_fwd<T, T, 2>(x, w, out, rstd, rows, D, eps, s);
   return (int)by_weight<T>(w_x, [&](auto wt) {
     using WT = decltype(wt);
-    return dispatch_fwd<T, WT>(x, w, out, rstd, rows, D, eps, s);
+    return rstd != nullptr
+               ? dispatch_fwd<T, WT, 0>(x, w, out, rstd, rows, D, eps, s)
+               : dispatch_fwd<T, WT, 1>(x, w, out, rstd, rows, D, eps, s);
   });
 }
 
@@ -385,7 +406,7 @@ template <typename T>
 int bwd_entry(const void* x, const void* w, const void* rstd, const void* dy,
               void* dx, void* dw, void* partials, int rows, int D, int w_x,
               int warps, int vpt, int blocks, int cols, void* stream) {
-  if (D % 8 || D > kThreads * kMaxVec * 8 || rows < 1 || blocks < 1 ||
+  if (D % 8 || D > kMaxD || rows < 1 || blocks < 1 ||
       (cols != 8 && cols != 16 && cols != 32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -411,6 +432,19 @@ PTT_RMS_FWD(rms_fwd_bf16, bf16)
 PTT_RMS_FWD(rms_fwd_f16, __half)
 PTT_RMS_FWD(rms_fwd_f32, float)
 #undef PTT_RMS_FWD
+
+// Row 6: the forward without rstd; x and out bf16, f16 or f32 [rows, D]
+// (rms_fused_bf16, _f16, _f32); w as rms_fwd's, or null (affine-free).
+// Returns the launch's cudaError_t (0 on success).
+#define PTT_RMS_FUSED(NAME, T)                                            \
+  extern "C" int NAME(const void* x, const void* w, void* out, int rows,  \
+                      int D, float eps, int w_x, void* stream) {          \
+    return fwd_entry<T>(x, w, out, nullptr, rows, D, eps, w_x, stream);   \
+  }
+PTT_RMS_FUSED(rms_fused_bf16, bf16)
+PTT_RMS_FUSED(rms_fused_f16, __half)
+PTT_RMS_FUSED(rms_fused_f32, float)
+#undef PTT_RMS_FUSED
 
 // The backward with the plan of kernels/norm_bwd.py::bwd_plan: teams of
 // `warps` warps holding `vpt` vectors a lane, `blocks` walk blocks (one
@@ -444,190 +478,4 @@ extern "C" int rms_bwd_resident(int kind, int warps, int vpt, int* per_sm) {
     case 4: return (int)bwd_resident<__half, __half>(warps, vpt, per_sm);
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// ------------------------------------------------------------------ row 6
-// The eager API's fused norm (incubate.nn.functional.fused_rms_norm, the
-// FusedRMSNorm layer of a Llama built from layers).
-//
-// Replaces: paddle_tpu/kernels/rms_norm.py::_rms_norm_kernel (pallas_call
-// in rms_norm_pallas), reached through the dispatch rms_norm().
-//
-//   out = x * rsqrt(mean(x^2) + eps) * w       (no statistics saved)
-// x, out [rows, D] in f32, bf16 or f16 (out in x's dtype; rms_fused_f32,
-// _bf16 and _f16, one kernel template, as the TPU kernel computes in its
-// input's dtype); w f32 [D] (the wrapper casts it) or, with f16 x, f16 or
-// f32 read in its own dtype, or null (no weight); all arithmetic in f32,
-// in the TPU kernel's order: (x * r) * w. Its backward is not a kernel: the
-// wrapper differentiates the plain version, as the JAX package's eager
-// tape differentiates rms_norm.
-//
-// Bound on the H100: ~4 flops per element against 8 (f32) or 4 (bf16)
-// bytes: memory bound. The eager Llama's f32 [4096, 4096] reads and writes
-// 64 MB each, ~0.040 ms at 3.35 TB/s. Design, the LayerNorm forward's
-// (layer_norm.cu): a row of D <= 1024 is one warp's (8 rows a block of 256
-// threads, the sum of squares by warp shuffles only), a wider row (up to
-// 8192) one block's (8 warps, shuffles then shared memory); each row is
-// read once into registers with 16-byte loads (4 f32 or 8 bf16 a vector),
-// at most 32 values a thread, and written once, scaled.
-namespace {
-
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPerThread = 32;       // values of a row a thread holds
-
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static void load(const float* p, float f[4]) {
-    const float4 u = *reinterpret_cast<const float4*>(p);
-    f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float f[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-};
-
-template <>
-struct Vec<bf16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void load(const bf16* p, float f[8]) {
-    unpack8(*reinterpret_cast<const uint4*>(p), f);
-  }
-  __device__ __forceinline__ static void store(bf16* p, const float f[8]) {
-    *reinterpret_cast<uint4*>(p) = pack8(f);
-  }
-};
-
-template <>
-struct Vec<__half> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void load(const __half* p, float f[8]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __half2* h = reinterpret_cast<const __half2*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 q = __half22float2(h[i]);
-      f[2 * i] = q.x;
-      f[2 * i + 1] = q.y;
-    }
-  }
-  __device__ __forceinline__ static void store(__half* p, const float f[8]) {
-    uint4 u;
-    __half2* h = reinterpret_cast<__half2*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = u;
-  }
-};
-
-// one weight as f32, read in its own dtype
-__device__ __forceinline__ float wval(float w) { return w; }
-__device__ __forceinline__ float wval(__half w) { return __half2float(w); }
-
-// Sum of `v` over the 32 * WPR threads of one row; every one of them gets
-// the total. WPR == 1: a warp's shuffles; WPR == kWarps: the whole block.
-template <int WPR>
-__device__ __forceinline__ float row_sum(float v, float* red) {
-  if (WPR != 1) return block_sum(v, red);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// WPR warps a row, VPT 16-byte vectors a thread.
-template <typename T, typename WT, int WPR, int VPT>
-__global__ void __launch_bounds__(kThreads)
-rms_fused_kernel(const T* __restrict__ x, const WT* __restrict__ w,
-                 T* __restrict__ out, int rows, int D, float eps) {
-  constexpr int kN = Vec<T>::kN;
-  constexpr int kTPR = 32 * WPR;
-  __shared__ float red[kWarps];
-  const int t = threadIdx.x % kTPR;
-  const size_t row = (size_t)blockIdx.x * (kThreads / kTPR)
-                     + threadIdx.x / kTPR;
-  if (row >= (size_t)rows) return;   // only when WPR == 1: no block barrier
-  const int nvec = D / kN;
-  const T* xr = x + row * D;
-  float v[VPT][kN];
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int vi = t + i * kTPR;
-    if (vi < nvec) {
-      Vec<T>::load(xr + vi * kN, v[i]);
-#pragma unroll
-      for (int j = 0; j < kN; ++j) ss += v[i][j] * v[i][j];
-    }
-  }
-  const float r = rsqrtf(row_sum<WPR>(ss, red) / D + eps);
-  T* orow = out + row * D;
-#pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int vi = t + i * kTPR;
-    if (vi < nvec) {
-      float o[kN];
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        o[j] = v[i][j] * r;
-        if (w != nullptr) o[j] = o[j] * wval(w[vi * kN + j]);
-      }
-      Vec<T>::store(orow + vi * kN, o);
-    }
-  }
-}
-
-template <typename T, typename WT>
-int launch_fused(const void* x, const void* w, void* out, int rows, int D,
-                 float eps, cudaStream_t s) {
-  constexpr int kN = Vec<T>::kN;
-  if (D % 8 || D > kThreads * kMaxPerThread || rows < 1)
-    return (int)cudaErrorInvalidValue;
-  const int nvec = D / kN;
-  const bool warp_row = nvec <= 32 * (kMaxPerThread / kN);   // D <= 1024
-  const int tpr = warp_row ? 32 : kThreads;
-  const int need = (nvec + tpr - 1) / tpr;   // at most 32 / kN
-  const int vpt = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
-  const int rpb = kThreads / tpr;
-  const int grid = (rows + rpb - 1) / rpb;
-#define PTT_FUSED(WPR, V)                                                  \
-  rms_fused_kernel<T, WT, WPR, V><<<grid, kThreads, 0, s>>>(               \
-      static_cast<const T*>(x), static_cast<const WT*>(w),                \
-      static_cast<T*>(out), rows, D, eps)
-#define PTT_FUSED_VPT(WPR)                                                 \
-  switch (vpt) { case 1: PTT_FUSED(WPR, 1); break;                         \
-                 case 2: PTT_FUSED(WPR, 2); break;                         \
-                 case 4: PTT_FUSED(WPR, 4); break;                         \
-                 default: PTT_FUSED(WPR, 32 / kN); }
-  if (warp_row) { PTT_FUSED_VPT(1) } else { PTT_FUSED_VPT(kWarps) }
-#undef PTT_FUSED_VPT
-#undef PTT_FUSED
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// Each returns the launch's cudaError_t (0 on success). w is f32 [D] or
-// null (no weight).
-extern "C" int rms_fused_f32(const void* x, const void* w, void* out,
-                             int rows, int D, float eps, void* stream) {
-  return launch_fused<float, float>(x, w, out, rows, D, eps,
-                             static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int rms_fused_bf16(const void* x, const void* w, void* out,
-                              int rows, int D, float eps, void* stream) {
-  return launch_fused<bf16, float>(x, w, out, rows, D, eps,
-                                   static_cast<cudaStream_t>(stream));
-}
-
-// f16 x and out; w f16 (w_f16 != 0) or f32 [D], or null.
-extern "C" int rms_fused_f16(const void* x, const void* w, void* out,
-                             int rows, int D, float eps, int w_f16,
-                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return w_f16 ? launch_fused<__half, __half>(x, w, out, rows, D, eps, s)
-               : launch_fused<__half, float>(x, w, out, rows, D, eps, s);
 }

@@ -67,12 +67,13 @@ DKDV_TILES = (128, 64)
 TMA_BOX = (64, 64, 1, 1)
 BWD_PAD = 128
 # The f32 kernels' (csrc/flash_f32.cu): twice the bytes a value, so
-# 64-key forward tiles, 32-key dq tiles and 16-query dkdv tiles; a box of
-# 32 columns (one 128-byte swizzle row of f32) x 16 rows; the same
-# padding of Sq.
+# 64-key forward tiles; the backward streams 32-key dq and 32-query dkdv
+# tiles (the N of its wgmma score products, beside their lo planes); a
+# box of 32 columns (one 128-byte swizzle row of f32) x 16 rows; the
+# same padding of Sq.
 FWD_TILES_F32 = (128, 64)
 DQ_TILES_F32 = (128, 32)
-DKDV_TILES_F32 = (128, 16)
+DKDV_TILES_F32 = (128, 32)
 TMA_BOX_F32 = (32, 16, 1, 1)
 # the dtypes the kernels take, by their entry points' suffix
 KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16",

@@ -42,11 +42,9 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
 #              vpt, blocks, fold_cols, stream)
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
-# rms_fused_<dt>(x, w, out, rows, D, eps, stream); rms_fused_f16 takes
-# an int w_f16 before the stream
+# rms_fused_<dt>(x, w, out, rows, D, eps, w_x, stream); w null: no weight
 _FUSED_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-    ctypes.c_float, ctypes.c_void_p]
-_FUSED_F16_ARGTYPES = _FUSED_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # the x dtypes of the three kernels, by their entry points' suffix
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
            torch.float16: "f16"}
@@ -103,7 +101,8 @@ def _check_rows(x, weight, what):
     if d % 8 or d > 8192:
         raise ValueError(f"{what}: hidden size {d} must be a multiple of 8 "
                          f"and at most 8192")
-    if weight.shape != (d,) or weight.device != x.device:
+    if weight is not None and (weight.shape != (d,)
+                               or weight.device != x.device):
         raise ValueError(f"{what}: weight {tuple(weight.shape)} does not "
                          f"match hidden size {d} on {x.device}")
 
@@ -116,6 +115,12 @@ def _kernel_weight(weight, x):
     if not w.is_contiguous() or w.data_ptr() % 16:
         w = w.clone(memory_format=torch.contiguous_format)
     return w
+
+
+def _fused_weight(weight, x):
+    """The weight as row 6 reads it: `_kernel_weight`'s, or None for the
+    affine-free form (the kernel then reads and applies none)."""
+    return None if weight is None else _kernel_weight(weight, x)
 
 
 def rms_norm_fwd(x, weight, epsilon: float = 1e-6):
@@ -233,44 +238,27 @@ def rms_norm_fused(x, weight=None, epsilon: float = 1e-6):
     """Row 6, the counterpart of `rms_norm_pallas`: x·rsqrt(mean(x²) +
     eps)·weight in x's dtype, no statistics. On a CPU tensor: the plain
     version `rms_norm_ref`. On a CUDA tensor: the kernel (f32, bf16 or
-    f16 x, hidden size a multiple of 8 up to 8192; a weight of any float
-    dtype, read as f32 (with f16 x an f16 weight is read as it is), or
-    None for the affine-free form); anything else raises. Each launch adds
-    one to `rms_norm_fused.launches` and to its x dtype's count."""
+    f16 x, hidden size a multiple of 8 up to 8192; a weight in x's dtype
+    or f32 is read as it is, in the kernel, any other dtype cast to f32
+    first, as `rms_norm_fwd` takes it; None for the affine-free form);
+    anything else raises. Each launch adds one to
+    `rms_norm_fused.launches` and to its x dtype's count."""
     if not x.is_cuda:
         return rms_norm_ref(x, weight, epsilon)
+    _check_rows(x, weight, "rms_norm_fused")
     d = x.shape[-1]
-    if x.dtype not in _DTYPES or not x.is_contiguous() \
-            or x.data_ptr() % 16:
-        raise TypeError(f"rms_norm_fused: x must be a contiguous, 16-byte "
-                        f"aligned f32, bf16 or f16 CUDA tensor, got "
-                        f"{x.dtype}")
-    if d % 8 or d > 8192:
-        raise ValueError(f"rms_norm_fused: hidden size {d} must be a "
-                         f"multiple of 8 and at most 8192")
-    w = None
-    if weight is not None:
-        if tuple(weight.shape) != (d,) or weight.device != x.device:
-            raise ValueError(f"rms_norm_fused: weight {tuple(weight.shape)}"
-                             f" does not match hidden size {d} on "
-                             f"{x.device}")
-        w = weight if x.dtype == weight.dtype == torch.float16 \
-            else weight.float()
-        w = w.contiguous()
+    w = _fused_weight(weight, x)
     rows = x.numel() // d
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    f16 = x.dtype == torch.float16
     sym = f"rms_fused_{_DTYPES[x.dtype]}"
-    fn = _build.function("rms_norm", sym,
-                         _FUSED_F16_ARGTYPES if f16 else _FUSED_ARGTYPES)
-    extra = (int(w is not None and w.dtype == torch.float16),) if f16 \
-        else ()
+    fn = _build.function("rms_norm", sym, _FUSED_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), None if w is None else w.data_ptr(),
-                 out.data_ptr(), rows, d, float(epsilon), *extra, stream)
+                 out.data_ptr(), rows, d, float(epsilon),
+                 int(w is not None and w.dtype == x.dtype), stream)
     _build.check(err, sym)
     _build.count_dtype(rms_norm_fused, x.dtype)
     return out

@@ -3,7 +3,8 @@
     python -m paddle_tpu_torch.tools.bench_flash [--check] [--label L]
         [--dtype bf16|f16|f32] [--cases I,J]
 
-Builds `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, prints each one's
+Builds `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu` (`--dtype f32`:
+`csrc/flash_f32.cu`), prints each one's
 ptxas lines and the `HGMMA` / `UTMALDG` instruction counts that
 `cuobjdump -sass` finds in its library, then, for each held shape
 (`--cases`: only those of the given indices into `held`), one
@@ -264,7 +265,8 @@ def case(B, S, h, kv, hd, causal, layout="bshd", lengths=None, gen=None,
 
 
 def held(gen):
-    """The shapes chip_smoke.py holds the flash kernels at, and S=8192."""
+    """The shapes chip_smoke.py holds the flash kernels at, S=8192, and
+    the f32 trainer's B=16 (index 15)."""
     from paddle_tpu_torch.nlp import ernie
     from paddle_tpu_torch.tools.ernie_finetune import padded_batch
     lengths = padded_batch(ernie.ErnieConfig.ernie3_base(), 64, 512)[2] \
@@ -291,6 +293,7 @@ def held(gen):
              lengths=small.clamp(max=500)),
         dict(B=96, S=256, h=16, kv=16, hd=72, causal=False, layout="bhsd"),
         dict(B=1, S=8192, h=8, kv=2, hd=HD, causal=True),
+        dict(B=16, S=2048, h=H, kv=KV, hd=HD, causal=True),
     ]
 
 
@@ -340,9 +343,11 @@ def sq_lt_sk(gen):
 
 def build_report():
     from paddle_tpu_torch import _build
-    logs = _build.build_all(["flash_fwd", "flash_bwd"])
+    libs = ["flash_f32"] if _DT == torch.float32 else ["flash_fwd",
+                                                       "flash_bwd"]
+    logs = _build.build_all(libs)
     rep = {}
-    for n in ("flash_fwd", "flash_bwd"):
+    for n in libs:
         sass = subprocess.run(
             [_build.cuobjdump(), "-sass", str(_build.library_path(n))],
             capture_output=True, text=True, check=True).stdout

@@ -1,10 +1,11 @@
-"""Rows 7, 8, 10, 11, 12, 16 and 18 of PERF.md's kernel table (the
-RMSNorm forward and backward, the LayerNorm backward, the adaLN forward
-and backward, the gather fused into the MoE expert products and ragged
-paged attention) at every shape `chip_smoke.py` holds them, on one GPU.
+"""Rows 6, 7, 8, 10, 11, 12, 16 and 18 of PERF.md's kernel table (the
+eager fused RMSNorm, the RMSNorm training forward and backward, the
+LayerNorm backward, the adaLN forward and backward, the gather fused
+into the MoE expert products and ragged paged attention) at every shape
+`chip_smoke.py` holds them, on one GPU.
 
     python -m paddle_tpu_torch.tools.bench_kernels [--check]
-        [--rows 7,8,10,11,12,16,18] [--label L]
+        [--rows 6,7,8,10,11,12,16,18] [--label L]
 
 For each held shape one JSON line: the kernel's error against its plain
 version, whether two calls give identical bits, and its times two ways.
@@ -16,7 +17,13 @@ replayed; row 18's calls rotate over copies of the pools that together
 exceed twice the 50 MB L2, so each call finds its K and V cold, as a
 decode step's layers do. Beside them: the bound (bytes over 3.35 TB/s or
 operations over the peak rate, the larger) and its share of each time;
-for row 7 also `F.rms_norm`'s times. Row 18's shapes (Llama-3-8B widths:
+for rows 6 and 7 also `F.rms_norm`'s times (row 6: the weight cast to x's
+dtype outside the timed span, as ATen's fused RMSNorm takes one dtype).
+Row 6's shapes: the eager Llama's [4096, 4096] in f32 (its weight f32),
+bf16 and f16 (weights in x's dtype, the O2 runs' form) and bf16 with an
+f32 weight; bf16 [16384, 4096]; 4099 rows of D 776 in f32 and
+affine-free bf16; affine-free f32 [4096, 4096]; its host-in-loop times
+with the L2 flushed before each call. Row 18's shapes (Llama-3-8B widths:
 H 32, KV 8, hd 128, bs 16, a 64-block table): decode (8 rows, live
 1..1024 keys, one all-invalid), fused (those rows padded to 256 plus a
 prefill row), continue (64 queries at 512..575), full8 and full32 (8 and
@@ -56,7 +63,9 @@ f16 and f32 (q, the fp pool and the slab in that dtype; held to 2e-2,
 1.25e-3 and 2e-5) at hd 64 and 128, GQA groups 1 to 32, P 1, 3 and 40,
 block sizes 16 and 48, random live lengths with invalid rows, each over
 the fp pool, the int8 pool (a never-written block of scale 0 among them)
-and with slabs of 1, 7 and 64 rows of random visibility; rows 7 and 8 at widths off the
+and with slabs of 1, 7 and 64 rows of random visibility; row 6 at the
+widths of row 7's checks in f32, bf16 and f16 x, with weights in x's
+dtype, f32 or bf16 and affine-free; rows 7 and 8 at widths off the
 warp's round and up to 8192, bf16, f32 and f16 weights, 1 to 4099 rows;
 row 10 at D 8 to 8192, f32 and bf16, affine and affine-free, 1 to 4099
 rows; row 12 at B 1 to 5, N 1, 7 and 257, bf16 D 772 (8-byte vectors),
@@ -104,7 +113,15 @@ LN_SHAPES = ((32768, 768, _F32, True), (32768, 768, _BF16, True),
              (32768, 768, _F32, False), (4099, 776, _BF16, True),
              (4099, 1032, _F32, False))
 LN_F32_TOL, LN_SUM_TOL = 1e-5, 1e-4
-ROWS = (7, 8, 10, 11, 12, 16, 18)
+ROWS = (6, 7, 8, 10, 11, 12, 16, 18)
+# row 6 as chip_smoke.py holds it: (rows, D, x dtype, weight dtype or
+# None for affine-free)
+_F16 = torch.float16
+ROW6_SHAPES = ((4096, 4096, _F32, _F32), (4096, 4096, _BF16, _BF16),
+               (4096, 4096, _F16, _F16), (4096, 4096, _BF16, _F32),
+               (16384, 4096, _BF16, _BF16), (4099, 776, _F32, _F32),
+               (4099, 776, _BF16, None), (4096, 4096, _F32, None))
+ROW6_TOLS = {_F32: 1e-5, _BF16: TOL, _F16: 1.25e-3}
 # rows 11 and 12 as chip_smoke.py holds them: DiT-XL/2's [96, 256, 1152]
 # bf16 and an f32 width off the warp's round
 ADALN_SHAPES = ((96, 256, 1152, _BF16), (4, 100, 776, _F32))
@@ -450,6 +467,59 @@ def rms_case(rows, d, eps, gen, w_dtype=torch.bfloat16, timed=True):
     res["bound_share"] = res["bound_ms"] / res["ms"]
     res["graph_bound_share"] = res["bound_ms"] / res["graph_ms"]
     return res
+
+
+def row6_case(rows, d, dtype, w_dtype, gen, flush=None, timed=True):
+    """Row 6 against its plain version `rms_norm_ref` at [rows, d] (x in
+    `dtype`, a weight in `w_dtype` or None), per row within ROW6_TOLS,
+    twice; then times beside F.rms_norm's."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    eps = 1e-5
+    x = (torch.randn(rows, d, device="cuda", generator=gen) + 0.3).to(dtype)
+    w = None if w_dtype is None else \
+        (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(w_dtype)
+    out = rn.rms_norm_fused(x, w, eps)
+    again = rn.rms_norm_fused(x, w, eps)
+    ref = rn.rms_norm_ref(x, w, eps)
+    res = {"kernel": "rms_norm_fused",
+           "shape": f"rows={rows} D={d} {str(dtype)[6:]} "
+                    + ("affine-free" if w is None else f"w={str(w_dtype)[6:]}"),
+           "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "max_rel_err": _rel(out, ref), "repeat": torch.equal(out, again)}
+    res["ok"] = res["max_rel_err"] <= ROW6_TOLS[dtype] and res["repeat"]
+    if not timed:
+        return res
+    es = x.element_size()
+    res.update(bound(4.0 * rows * d, 2.0 * es * rows * d
+                     + (0 if w is None else w.element_size() * d),
+                     PEAK_F32))
+    wl = None if w is None else w.to(dtype)
+
+    def call():
+        return rn.rms_norm_fused(x, w, eps)
+
+    def lib():
+        return F.rms_norm(x, (d,), wl, eps)
+
+    res["ms"] = time_ms(call, 20, flush)
+    res["graph_ms"] = _graph_ms(call, 20)
+    res["library_ms"] = time_ms(lib, 20, flush)
+    res["library_graph_ms"] = _graph_ms(lib, 20)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["graph_bound_share"] = res["bound_ms"] / res["graph_ms"]
+    return res
+
+
+def row6_checks(gen):
+    out = []
+    for rows, d in ((1, 8), (7, 776), (4099, 1024), (4099, 2056),
+                    (333, 4096), (65, 6144), (4099, 8192)):
+        for dt, wdt in ((_F32, _F32), (_F32, _BF16), (_BF16, _BF16),
+                        (_BF16, _F32), (_F16, _F16), (_F16, _F32),
+                        (_BF16, None), (_F32, None)):
+            out.append(row6_case(rows, d, dt, wdt, gen, timed=False))
+    return out
 
 
 def rms_checks(gen):
@@ -897,7 +967,7 @@ def gather_mlp_checks(gen):
 
 def held(gen, rows=ROWS):
     """Every held shape of the table rows `rows`, timed: rows 18, 10, 11
-    and 12, 16, 7, then 8."""
+    and 12, 16, 6, 7, then 8."""
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def flush():                          # 256 MB > the 50 MB L2
@@ -941,6 +1011,8 @@ def held(gen, rows=ROWS):
                              dtype=torch.int32)
         res.append(gather_mlp_case(T, full, 2048, 1024, gen, flush,
                                    label="every slot filled"))
+    for n, d, dt, wdt in ROW6_SHAPES if 6 in rows else ():
+        res.append(row6_case(n, d, dt, wdt, gen, flush))
     del scratch
     torch.cuda.empty_cache()
     if 7 in rows:
@@ -966,6 +1038,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.check:
         cases = ((ragged_checks(gen) if 18 in rows else [])
+                 + (row6_checks(gen) if 6 in rows else [])
                  + (rms_checks(gen) if 7 in rows else [])
                  + (norm_bwd_checks(gen) if {8, 10} & set(rows) else [])
                  + (adaln_checks(gen) if 12 in rows else [])

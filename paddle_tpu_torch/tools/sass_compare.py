@@ -3,7 +3,7 @@ checkout's, function by function, on a machine with the CUDA toolkit.
 
     python -m paddle_tpu_torch.tools.sass_compare --against DIR
         [--libs moe_dispatch,adamw_q,ragged_paged_attention,flash_bwd]
-        [--dtype bf16]
+        [--dtype bf16[,f16,f32]] [--skip REGEX]
 
 Builds `paddle_tpu_torch/csrc/<lib>.cu` of this checkout and of DIR (the
 root of another checkout, such as an unpacked parent under the ignored
@@ -11,8 +11,12 @@ root of another checkout, such as an unpacked parent under the ignored
 at once, and lists each library's functions with `cuobjdump -sass`. A
 function's element type is its template argument (`__nv_bfloat16`,
 `__half` or `float` in its mangled name); a function that names none is
-taken as bf16, the type every kernel took before it had options. For the
-functions of `--dtype` it prints one JSON line a library: how many each
+taken as bf16, the type every kernel took before it had options (so the
+kernels templated on head_dim alone, as flash_f32's, count as bf16).
+`--skip` leaves out, on both sides, the functions whose mangled names
+match REGEX (kernels this checkout redesigned: `--libs rms_norm --skip
+rms_fused_kernel` holds rows 7 and 8 alone). For the functions of each
+type of `--dtype` it prints one JSON line a library: how many each
 build has, and how many of this build's have a function in the other
 build with the same instructions (addresses and encodings stripped; the
 names may differ, since a kernel that became a template gains its type
@@ -65,8 +69,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", required=True)
     ap.add_argument("--libs", default=",".join(LIBS))
-    ap.add_argument("--dtype", default="bf16", choices=sorted(_TAGS.values()))
+    ap.add_argument("--dtype", default="bf16",
+                    help="comma-separated, of " + ", ".join(
+                        sorted(_TAGS.values())))
+    ap.add_argument("--skip", default=None)
     args = ap.parse_args(argv)
+    dtypes = args.dtype.split(",")
+    if not set(dtypes) <= set(_TAGS.values()):
+        ap.error(f"--dtype takes {sorted(_TAGS.values())}")
+    skip = re.compile(args.skip) if args.skip else None
     other = Path(args.against).resolve() / "paddle_tpu_torch" / "csrc"
     here = _build.CSRC
     out_dir = _build.BUILD_DIR / "sass_compare"
@@ -89,12 +100,13 @@ def main(argv=None) -> int:
         sass = subprocess.run([_build.cuobjdump(), "-sass", str(path)],
                               capture_output=True, text=True,
                               check=True).stdout
-        built[(lib, side)] = functions(sass)
-    for lib in libs:
+        built[(lib, side)] = {n: f for n, f in functions(sass).items()
+                              if skip is None or not skip.search(n)}
+    for lib, dtype in ((lib, d) for lib in libs for d in dtypes):
         mine = {n: i for n, (t, i) in built[(lib, "this")].items()
-                if t == args.dtype}
+                if t == dtype}
         theirs = {n: i for n, (t, i) in built[(lib, "other")].items()
-                  if t == args.dtype}
+                  if t == dtype}
         pool = Counter(tuple(i) for i in theirs.values())
         matched = 0
         unmatched = []
@@ -111,7 +123,7 @@ def main(argv=None) -> int:
                 if ops_mine.get(op, 0) != ops_theirs.get(op, 0)}
         same = matched == len(mine) == len(theirs)
         ok = ok and same
-        print(json.dumps({"lib": lib, "dtype": args.dtype,
+        print(json.dumps({"lib": lib, "dtype": dtype,
                           "functions_this": len(mine),
                           "functions_other": len(theirs),
                           "identical": matched, "all_identical": same,

@@ -113,21 +113,35 @@ def test_rms_train_plain_matches_pallas_interpret(x_dt, w_dt):
     _rows_close(dw.numpy()[None], np.asarray(jdw)[None], _TOLS[w_dt], "dw")
 
 
-@pytest.mark.parametrize("x_dt,w_dt,kept", [
-    (torch.float32, torch.float32, torch.float32),
-    (torch.float32, torch.bfloat16, torch.float32),
-    (torch.float16, torch.float16, torch.float16),
-    (torch.float16, torch.float32, torch.float32),
-    (torch.float16, torch.bfloat16, torch.float32),
-    (torch.bfloat16, torch.bfloat16, torch.bfloat16),
-    (torch.bfloat16, torch.float16, torch.float32)])
-def test_rms_kernel_weight_dtype(x_dt, w_dt, kept):
-    """The training kernels read a weight in x's dtype or in f32 as it
-    is, and any other dtype cast to f32 first; the backward's resident
+@pytest.mark.parametrize("row,x_dt,w_dt,kept", [
+    (7, torch.float32, torch.float32, torch.float32),
+    (7, torch.float32, torch.bfloat16, torch.float32),
+    (7, torch.float16, torch.float16, torch.float16),
+    (7, torch.float16, torch.float32, torch.float32),
+    (7, torch.float16, torch.bfloat16, torch.float32),
+    (7, torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (7, torch.bfloat16, torch.float16, torch.float32),
+    (6, torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (6, torch.bfloat16, torch.float32, torch.float32),
+    (6, torch.float16, torch.bfloat16, torch.float32),
+    (6, torch.float32, None, None),
+    (6, torch.bfloat16, None, None),
+    (6, torch.float16, None, None)])
+def test_rms_kernel_weight_dtype(row, x_dt, w_dt, kept):
+    """The RMSNorm kernels (rows 6-8) read a weight in x's dtype or in
+    f32 as it is, and any other dtype cast to f32 first; row 6 also takes
+    none (affine-free). A weight kept as it is is passed without a copy
+    (an O2 bf16 weight costs no cast a call); the backward's resident
     query names each (x, weight) pair the kernels instantiate."""
     x = torch.zeros(2, 16, dtype=x_dt)
-    w = trms._kernel_weight(torch.ones(16, dtype=w_dt), x)
+    weight = None if w_dt is None else torch.ones(16, dtype=w_dt)
+    pick = trms._fused_weight if row == 6 else trms._kernel_weight
+    w = pick(weight, x)
+    if kept is None:
+        assert w is None
+        return
     assert w.dtype == kept
+    assert (w is weight) == (kept == w_dt)
     assert (x.dtype, w.dtype == x.dtype) in trms._BWD_KINDS
 
 

@@ -175,8 +175,9 @@ _WALKS = [  # (sq, sk, causal, mask_row)
     (512, 512, False, [0] * 130 + [1] * 200 + [0] * 182)]
 
 
-@pytest.mark.parametrize("tiles", [tfa.FWD_TILES, tfa.DQ_TILES],
-                         ids=["fwd", "dq"])
+@pytest.mark.parametrize("tiles", [tfa.FWD_TILES, tfa.DQ_TILES,
+                                   tfa.DQ_TILES_F32],
+                         ids=["fwd", "dq", "dq_f32"])
 @pytest.mark.parametrize("sq,sk,causal,mask_row", _WALKS)
 def test_key_tile_walk_covers_visible_pairs_once(sq, sk, causal, mask_row,
                                                  tiles):
@@ -213,21 +214,24 @@ def test_key_tile_walk_covers_visible_pairs_once(sq, sk, causal, mask_row,
     assert (covered[vis] == 1).all()
 
 
+@pytest.mark.parametrize("tiles", [tfa.DKDV_TILES, tfa.DKDV_TILES_F32],
+                         ids=["dkdv", "dkdv_f32"])
 @pytest.mark.parametrize("sq,sk,causal,mask_row", _WALKS)
-def test_query_tile_walk_covers_visible_pairs_once(sq, sk, causal, mask_row):
+def test_query_tile_walk_covers_visible_pairs_once(sq, sk, causal, mask_row,
+                                                   tiles):
     """The backward's dkdv walk: a block of keys visits, for each query
     head of its group, the query tiles from its causal bound to Sq, and
     none when all its keys are masked. Every visible pair lies in exactly
     one walked (key block, query tile); every query before the first
     walked tile sees none of the block's keys; the prep rows (padded to
     BWD_PAD) hold every walked tile and every dq block's rows."""
-    bk, bq = tfa.DKDV_TILES
+    bk, bq = tiles
     vis = _visible(sq, sk, causal, mask_row)
     covered = np.zeros((sq, sk), int)
     pad = tfa.bwd_scratch_numel(1, 1, sq) // 2
     assert pad % tfa.BWD_PAD == 0 and pad >= sq
     for k0 in range(0, sk, bk):
-        walked = tfa.query_tiles(k0, sq, sk, causal, mask_row)
+        walked = tfa.query_tiles(k0, sq, sk, causal, mask_row, tiles)
         if len(walked):
             assert not vis[:walked[0] * bq, k0:k0 + bk].any()
             assert (walked[-1] + 1) * bq <= pad
