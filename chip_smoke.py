@@ -282,18 +282,19 @@ The kernels phase holds those options at the paths' shapes
 for bit, each with a planted control 10 ulps or more off; row 17 over
 every leaf size of the three trees, p within 2 f32 ulps / 1 f16 ulp,
 codes within one e4m3 step, the decay-without-lr control 10 x above;
-row 18 in f16 (F16_TOL) and f32 (RAGGED_F32_TOL, on FFMA) at the decode,
-fused and full32 batches, over int8 pools and with the chain and tree
-verify's slabs, each with a planted control 10 x above; the f16 flash
-backward also at [1, 300, 4/1, 72] causal (held); the build phase
-counts rows 14, 15, 17 and 18's functions by element type and requires
-LDGSTS in every ragged split kernel, HMMA in the bf16 and f16 ones and
-none in the f32 ones.
+row 18 in f16 (F16_TOL) and f32 (RAGGED_F32_TOL, three TF32 parts) at
+the decode, fused and full32 batches, over int8 pools and with the chain
+and tree verify's slabs, each with a planted control 10 x above; the
+f16 flash backward also at [1, 300, 4/1, 72] causal (held); the build
+phase counts rows 14, 15, 17 and 18's functions by element type and
+requires LDGSTS and HMMA in every ragged split kernel (f32's products
+on TF32 mma.sync, three parts).
 
 The kernels phase holds the f32 option of rows 1-5 (within F32_TOL,
 the LSE within F32_LSE_TOL) at the eager ERNIE's [64, 512, 12, 64]
-non-causal, the flagship's [16, 2048, 32/8, 128] causal and DiT's
-[96, 256, 16, 72] 'bhsd', the f16 flash pair at the f16 trainer's
+non-causal (also key-masked in 'bhsd' at the f32 finetune's padded
+lengths, one batch row seeing no key), the flagship's [16, 2048, 32/8,
+128] causal and DiT's [96, 256, 16, 72] 'bhsd', the f16 flash pair at the f16 trainer's
 [16, 2048, 32/8, 128], and rows 7-8 in f32 (within RMS_F32_TOL) and f16
 (within one f16 ulp of each row's scale) at [32768, 4096] with an f32
 weight: each bit-identical on a second call, with a planted control
@@ -419,9 +420,10 @@ def phase_build():
 
 
 # the flash libraries and gather_mlp must hold Hopper's warpgroup
-# products (HGMMA) and TMA loads (UTMALDG; the f32 library's backward
-# its score products on HGMMA and its second products, and the forward,
-# on mma.sync: HMMA); gather_mlp also its gathered
+# products (HGMMA) and TMA loads (UTMALDG; the f32 library's forward
+# every product and its backward its score products on HGMMA, each of
+# those kernels itself, and the backward's second products on mma.sync:
+# HMMA); gather_mlp also its gathered
 # rows' cp.async copies (LDGSTS) and xin's TMA stores (UTMASTG); the
 # ragged library and the three norm libraries (the backward walks' rings)
 # their cp.async copies (LDGSTS)
@@ -456,8 +458,8 @@ def _typed_sass(_build):
     """Rows 14, 15, 17 and 18 by element type: each library's functions
     whose template argument is bf16, f16 or f32, with their instruction
     count and LDGSTS / HMMA / FFMA counts. Raises unless every ragged
-    split kernel holds LDGSTS (its cp.async ring), every bf16 and f16 one
-    HMMA (the mma.sync products), the f32 ones none (FFMA), and every
+    split kernel holds LDGSTS (its cp.async ring) and HMMA (its mma.sync
+    products: bf16 and f16 at k16, f32 in TF32 parts at k8), and every
     library has functions of all three types."""
     out = {}
     marks = ("LDGSTS", "HMMA", "FFMA")
@@ -477,8 +479,7 @@ def _typed_sass(_build):
             for k, v in counts.items():
                 d[k] += v
             if "ragged_split_kernel" in head and (
-                    not counts["LDGSTS"]
-                    or (tag == "f32") == bool(counts["HMMA"])):
+                    not counts["LDGSTS"] or not counts["HMMA"]):
                 raise AssertionError(f"{name}: {head} has {counts}")
         if sorted(by) != ["bf16", "f16", "f32"]:
             raise AssertionError(f"{name}: element types {sorted(by)} in "
@@ -515,14 +516,20 @@ def _sass_counts(_build):
             if not all(v for d in by.values() for v in d.values()):
                 raise AssertionError(f"{name}: {by} by dtype in its SASS")
         if name == "flash_f32":
-            # each backward pass's kernels (dkdv, dq; hd 64, 72, 128)
-            bwd = {head.split("(")[0]: fn.count("HGMMA")
-                   for head, fn in ((f.split("\n", 1)[0], f)
-                                    for f in sass.split("Function : ")[1:])
+            # each backward pass's kernels (dkdv, dq; hd 64, 72, 128) and
+            # each forward kernel (hd 64, 72, 128), by function
+            fns = _sass_by_function(sass, ("HGMMA",))
+            bwd = {head.split("(")[0]: c["HGMMA"]
+                   for head, (_, c, _) in fns.items()
                    if "dkdv_kernel" in head or "dq_kernel" in head}
+            fwd = {head.split("(")[0]: c["HGMMA"]
+                   for head, (_, c, _) in fns.items() if "fwd_kernel" in head}
             counts[name]["bwd_hgmma"] = bwd
+            counts[name]["fwd_hgmma"] = fwd
             if len(bwd) != 6 or not all(bwd.values()):
                 raise AssertionError(f"{name}: backward HGMMA {bwd}")
+            if len(fwd) != 3 or not all(fwd.values()):
+                raise AssertionError(f"{name}: forward HGMMA {fwd}")
     return counts
 
 
@@ -874,10 +881,12 @@ F32_GRAD_TOL = 2e-3
 ADAMW_CODE_FRAC = 1e-3
 ADAMW_PARAM_ULPS = {torch.bfloat16: 1.0, torch.float16: 1.0,
                     torch.float32: 2.0}
-# Row 18's f32 option multiplies on FFMA in full f32, as its plain version
-# does (cuBLAS f32 einsums, TF32 off); the two differ in summation order
-# and in exp2 of log2-scaled scores against exp: ~1e-7 of a vector's
-# scale. 2e-5 leaves a wide margin while one key lost reads ~1e-1.
+# Row 18's f32 option multiplies in three TF32 parts (hi hi + hi lo + lo
+# hi, ~2^-21 of a term), each k8 step's parts summed apart in f32; its
+# plain version in f32 (cuBLAS f32 einsums, TF32 off). The two differ by
+# ~1e-6 of a vector's scale (the CPU emulation, 1.5e-6 at a 1024-key
+# chain); one TF32 part would read ~5e-4. 2e-5 leaves a wide margin while
+# one key lost reads ~1e-1.
 RAGGED_F32_TOL = 2e-5
 _RAGGED_TOLS = {torch.bfloat16: KERNEL_TOL, torch.float16: F16_TOL,
                 torch.float32: RAGGED_F32_TOL}
@@ -1182,7 +1191,8 @@ def _sdpa_masked_ms(q, k, v, dout, mask4, layout, iters):
         return f, _time_ms(both, iters) - _time_ms(fwd, iters)
 
 
-def _masked_flash_cases(B, S, H, hd, layout, lengths, peaks, gen, label=""):
+def _masked_flash_cases(B, S, H, hd, layout, lengths, peaks, gen, label="",
+                        dtype=torch.bfloat16):
     """The non-causal flash forward (+ LSE) and backward with the [B, S]
     key mask of `lengths` (keys j < lengths[b] visible; None: unmasked) in
     `layout`, against the plain versions: output per (position, head)
@@ -1191,11 +1201,18 @@ def _masked_flash_cases(B, S, H, hd, layout, lengths, peaks, gen, label=""):
     for bit twice. A batch row that sees no key must give exactly 0 out,
     an LSE of -1e30 and no gradient, and a masked key dk = dv = 0 exactly
     (the TPU kernel's semantics). Timed beside SDPA given the same
-    boolean mask."""
+    boolean mask. `dtype` f32: the f32 option, held within F32_TOL and
+    F32_LSE_TOL, its bound at the TF32 rate and 4-byte elements, its
+    forward (out and LSE) also bit for bit twice, each with a planted
+    control at least 10 times F32_TOL (the keys shifted one position;
+    the backward without dcap)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
+    f32 = dtype == torch.float32
+    tol, lse_tol = (F32_TOL, F32_LSE_TOL) if f32 else (KERNEL_TOL, LSE_TOL)
     shape = (B, H, S, hd) if layout == "bhsd" else (B, S, H, hd)
     q, k, v, dout = (torch.randn(shape, device="cuda", generator=gen)
-                     .bfloat16() for _ in range(4))
+                     .to(dtype) for _ in range(4))
+    esize = q.element_size()
     km = None if lengths is None else \
         torch.arange(S, device="cuda")[None] < lengths[:, None]
     kw = {"causal": False, "key_mask": km, "layout": layout}
@@ -1211,19 +1228,42 @@ def _masked_flash_cases(B, S, H, hd, layout, lengths, peaks, gen, label=""):
             else km.any(1))
     rows = seen[:, None, None].expand(B, S, H)
     name = (f"B={B} S={S} H={H} hd={hd} {layout} "
-            + ("unmasked" if km is None else "masked") + label)
+            + ("unmasked" if km is None else "masked") + label
+            + _dt_label(dtype))
     rel = _rel_err(bshd(out), bshd(ref), rows)
     lse_err = (lse - lse_r)[seen].abs().max().item()
     brel = {n: _rel_err(bshd(a), bshd(b), rows if n == "dq" else None,
                         floor=GRAD_ROW_FLOOR)
             for n, a, b in zip(("dq", "dk", "dv"), got, rgot)}
-    if not (rel <= KERNEL_TOL and lse_err <= LSE_TOL
-            and all(r <= KERNEL_TOL for r in brel.values())):
+    if not (rel <= tol and lse_err <= lse_tol
+            and all(r <= tol for r in brel.values())):
         raise AssertionError(f"masked flash [{name}]: out {rel}, lse "
                              f"{lse_err}, grads {brel}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"masked flash bwd [{name}]: two runs differ")
     del again
+    planted = None
+    if f32:
+        again = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"masked flash fwd [{name}]: two runs "
+                                 f"differ")
+        del again
+        seq = 2 if layout == "bhsd" else 1
+        shifted = fa.flash_attention_fwd_ref(q, torch.roll(k, 1, seq), v,
+                                             **kw)
+        nodcap = fa.flash_attention_bwd_ref(q, k, v, torch.zeros_like(out),
+                                            lse, dout, **kw)
+        planted = (
+            _planted(name, [("keys_shifted_one",
+                             _rel_err(bshd(out), bshd(shifted), rows))],
+                     tol),
+            _planted(name, [("dcap_dropped", max(
+                _rel_err(bshd(a), bshd(r), rows if i == 0 else None,
+                         floor=GRAD_ROW_FLOOR)
+                for i, (a, r) in enumerate(zip(got[:2], nodcap[:2]))))],
+                tol))
+        del shifted, nodcap
     if km is not None:
         hidden = ~km                                # [B, S] masked keys
         unseen = ~seen
@@ -1250,8 +1290,8 @@ def _masked_flash_cases(B, S, H, hd, layout, lengths, peaks, gen, label=""):
                q, k, v, return_lse=True, **kw), 3),
            "library_ms": lib_f,
            # q, k, v, the mask in; out and the f32 LSE written
-           **_bound(4.0 * H * hd * pairs, 2.0 * B * S * H * hd * 4
-                    + 4.0 * B * H * S + mbytes, peaks)}
+           **_bound(4.0 * H * hd * pairs, esize * B * S * H * hd * 4
+                    + 4.0 * B * H * S + mbytes, peaks, _flops_peak(dtype))}
     bwd = {"shape": name,
            "max_abs_err": max(err(a, b) for a, b in zip(got, rgot)),
            "max_rel_err": max(brel.values()), "rel_err": brel,
@@ -1262,8 +1302,10 @@ def _masked_flash_cases(B, S, H, hd, layout, lengths, peaks, gen, label=""):
            "library_ms": lib_b,
            # five products over the visible pairs; q, k, v, out, dout,
            # lse, the mask in, dq, dk, dv out
-           **_bound(10.0 * H * hd * pairs, 2.0 * B * S * H * hd * 8
-                    + 4.0 * B * H * S + mbytes, peaks)}
+           **_bound(10.0 * H * hd * pairs, esize * B * S * H * hd * 8
+                    + 4.0 * B * H * S + mbytes, peaks, _flops_peak(dtype))}
+    if planted is not None:
+        fwd["planted"], bwd["planted"] = planted
     return _shares(fwd), _shares(bwd)
 
 
@@ -2059,8 +2101,9 @@ def _f32_kernel_cases(peaks, gen, flush):
     flagship's [F32_TRAIN_BATCH, 2048, 32/8, 128] causal (train_f32) and
     DiT-XL/2's [96, 256, 16, 72] 'bhsd' (no f32 path: held) and [1,
     300, 4/1, 72] causal (held: hd 72, a length off every tile, GQA 4:1,
-    whose first rows see one key, where dS = P (dP - dcap) cancels); the
-    f16
+    whose first rows see one key, where dS = P (dP - dcap) cancels), and
+    key-masked at the f32 ERNIE finetune's padded lengths in 'bhsd', a
+    batch row seeing no key (eager_f32: `_masked_flash_cases`); the f16
     flash pair at the f16 trainer's shape (train_f16); rows 7-8 at
     [F32_TRAIN_BATCH * 2048, 4096] in f32 (train_f32) and in f16
     (train_f16), each with an f32 weight (control: the weight one column
@@ -2125,6 +2168,21 @@ def _f32_kernel_cases(peaks, gen, flush):
         torch.cuda.empty_cache()
         fwd.append(f)
         bwd.append(b)
+    # the f32 ERNIE finetune's key-masked head-major attention at its
+    # padded lengths, batch row 0 seeing no key: the tile-state scan and
+    # the skipped tiles (eager_f32's step itself runs unmasked)
+    from paddle_tpu_torch.nlp import ernie
+    from paddle_tpu_torch.tools.ernie_finetune import padded_batch
+    lengths = padded_batch(ernie.ErnieConfig.ernie3_base(), 64, 512)[2] \
+        .sum(1)
+    lengths[0] = 0
+    f, b = _masked_flash_cases(64, 512, 12, 64, "bhsd", lengths, peaks, gen,
+                               " (row 0 sees no key)", dtype=f32)
+    for c in (f, b):
+        c.update(dtype="f32", path="eager_f32", bound=F32_TOL)
+    fwd.append(f)
+    bwd.append(b)
+    torch.cuda.empty_cache()
     rf, rb = [], []
     bf16 = torch.bfloat16
     for path, dt, wdt, rows, D, eps in (
@@ -2537,10 +2595,10 @@ def _logits_check(params, cfg):
     amplify as they amplify bf16's: the yardstick is then a twin
     ("twin": the plain path with the flash operands rounded to TF32),
     and the kernel and fault paths' distances from the plain f32 path
-    are returned as ratios to the twin's. Row 18, on FFMA in f32, is
-    then held on its own, in the chunk and decode steps: the kernel path
-    with the flash prefill on its plain version ("ragged") against the
-    plain path whose ragged attention sits at RAGGED_F32_TOL
+    are returned as ratios to the twin's. Row 18, in three TF32 parts in
+    f32, is then held on its own, in the chunk and decode steps: the
+    kernel path with the flash prefill on its plain version ("ragged")
+    against the plain path whose ragged attention sits at RAGGED_F32_TOL
     ("ragged_at_bound", `_ragged_at_bound`), its distance as
     "ragged_ratio"; the control, the plain ragged attention on TF32
     operands ("ragged_tf32"), as "ragged_control_ratio"."""

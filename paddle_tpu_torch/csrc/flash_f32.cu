@@ -26,51 +26,80 @@
 // in the forward and S, dP = dO V^T in the backward, split each operand
 // into hi and lo and sum three products (hi hi + hi lo + lo hi): the
 // scores then carry ~2^-21 of their scale, so the LSE keeps f32's
-// accuracy, and P and dS no TF32 error of the scores. The forward takes
-// hi = cvt.rna(x) and lo = x - hi as the tensor core truncates it; the
-// backward the same values, hi rounded by an integer add and mask (rna:
-// sm_90 has no instruction for cvt.rna.tf32.f32, and ptxas expands it
-// into a compare-and-select sequence). dP also keeps its sum out of the
+// accuracy, and P and dS no TF32 error of the scores. hi = rna(x) (to
+// nearest, ties away, by an integer add and mask: sm_90 has no
+// instruction for cvt.rna.tf32.f32, and ptxas expands it into a
+// compare-and-select sequence) and lo = x - hi, which the tensor core
+// truncates as it reads it; the forward's Q and K take hi = trunc(x)
+// instead (K: its raw tile as the tensor core reads it; Q: one operation
+// fewer; lo < 2^-10 of x, the dropped lo lo part ~2^-20).
+// The backward's dP keeps its sum out of the
 // tensor core's accumulation, which truncates against its running sum:
-// dS = P (dP - dcap) cancels where a row sees few keys (causal row 0: dP -
-// dcap is the residue of O's rounding, ~1e-3), so the forward sums each
-// k8 step's three parts into a fresh tile and the backward each two k8
-// steps' six, added to the f32 sum on the CUDA cores. On the card
-// (H100 SXM at 700 W), fresh tiles of one k8 step or two gave the same dq
-// at [1, 300, 4/1, 72] causal, four doubled its error there, and dP in
-// one chain brought dq near F32_TOL at [4, 2048, 16/8, 128]. The
-// backward's S chains all its instructions in one accumulator:
-// its error moves P by as much relatively (~1e-5) and no more. The second
+// dS = P (dP - dcap) cancels where a row sees few keys (causal row 0: dP
+// - dcap is the residue of O's rounding, ~1e-3), so each two k8 steps'
+// six parts go into a fresh tile, added to the f32 sum on the CUDA cores.
+// On the card (H100 SXM at 700 W), fresh tiles of one k8 step or two
+// gave the same dq at [1, 300, 4/1, 72] causal, four doubled its error
+// there, and dP in one chain brought dq near F32_TOL at [4, 2048, 16/8,
+// 128]. Both directions' S chain all their instructions in one
+// accumulator (the forward's fresh tiles would take 64 more registers a
+// consumer thread, past the 168 that ptxas allocates under 384 threads):
+// its error moves P, and the forward's LSE, by ~1e-5 and no more. The second
 // products (O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K) take single
 // TF32 parts, P and dS rounded from their f32 registers, the other
 // operand rounded once a tile: ~2^-11 relative per term (~1e-3 of a
 // vector's scale at most). tests/test_torch_flash_f32_emulation.py
-// emulates the backward's roundings and grouping in numpy (7.2e-4 of
-// F32_TOL's 2.5e-3 at [1, 300, 4/1, 72] causal, 6.6e-4 at [2, 128, 2/1,
-// 128]; dP with its lo parts dropped 0.67); its model of the accumulation
-// (exact products, the sum truncated once an instruction) is kinder to
-// long groups than the card, which decides them.
+// emulates both directions' roundings and grouping in numpy (the
+// backward: 7.2e-4 of F32_TOL's 2.5e-3 at [1, 300, 4/1, 72] causal,
+// 6.6e-4 at [2, 128, 2/1, 128]; dP with its lo parts dropped 0.67); its
+// model of the accumulation (exact products, the sum truncated once an
+// instruction) is kinder to long groups than the card, which decides
+// them.
 //
 // Bound on the H100: the same flops as the 16-bit kernels (4 hd per
 // visible pair forward, 10 backward) against twice their bytes, at the
 // 495 TFLOP/s TF32 rate: tensor-core bound at training lengths. The
-// backward's three-part scores and its dq pass make it 15 products where
-// the bound counts 5 (dkdv: S and dP three parts, dV and dK one; dq: S
-// and dP again, dQ).
+// forward's three-part S makes it 4 products where the bound counts 2;
+// the backward's three-part scores and its dq pass make it 15 where the
+// bound counts 5 (dkdv: S and dP three parts, dV and dK one; dq: S and dP
+// again, dQ).
 //
-// Forward design (the first f32 design, plain and right rather than fast;
-// the next slice's): a block is one producer warpgroup, whose thread 0
-// issues every TMA copy into a two-stage mbarrier ring (hopper_core.cuh),
-// and eight consumer warps of 16 rows each; setmaxnreg gives the producer
-// 24 registers and the consumers 240. Tiles are 128-byte-swizzled
-// [chunk][rows][32] f32 boxes (32 columns x 16 rows), from which a lane
-// reads its fragment values with scalar shared loads, rounding each, for
-// mma.sync.m16n8k8; 128 query rows a block over 64-key tiles (Q 64 KB,
-// two stages of K and V 128 KB at hd 128). P goes from an m16n8
-// accumulator into the A fragment of P V without a shuffle: the
-// contraction over a tile's 8 keys is taken in a permuted order (the lane
-// holding columns 2t, 2t + 1 supplies k = t and k = t + 4), and the B
-// fragment reads the value rows in that same order.
+// Forward design. A block owns 128 query rows of one (batch, head): a
+// producer warpgroup and two consumer warpgroups of 64 rows, over 64-key
+// tiles (setmaxnreg: 40 registers for the producer, 232 for the
+// consumers).
+//   - Thread 0 issues every TMA copy, in boxes of 32 x 64 f32: Q once, K
+//     tiles into a two-stage ring, V tiles into one landing buffer.
+//   - S = Q K^T on wgmma m64n64k8 in three TF32 parts, as the backward's
+//     score products (score_products): Q the resident A side, split in
+//     registers a k8 step at a time (ARows); K the streamed B side, read
+//     raw as its hi part (the tensor core truncates it: hi = trunc(k)),
+//     whose lo plane (k - hi) the producer warpgroup's other 127 threads
+//     (the splitters) write once it has landed (split_lo; the backward
+//     rounds its tiles in place, split_tile, which costs a third more
+//     shared-memory traffic). The consumers free the lo plane and the K
+//     stage as soon as S is done.
+//   - O += P V on wgmma m64n{hd}k8, P as A from registers (rounded, in
+//     the permuted key order of its accumulator: the lane holding columns
+//     2t, 2t + 1 supplies k = t and k = t + 4, so no shuffle), V as B
+//     from V^T: TF32 wgmma reads B only K-major, so the splitters also
+//     write each landed V tile transposed and rounded, its K rows (keys)
+//     in that same permuted order (transpose_v), and free V's landing
+//     buffer for the next tile's copy.
+//   - The splitters run one tile ahead: the next K's split under this
+//     tile's softmax and P V, the next V's transpose under the next S.
+//     One lo plane and one V^T buffer suffice for that, which is what
+//     lets hd 128 fit: Q 64 KB, the K ring 64 KB, V's landing, K's lo
+//     plane and V^T 32 KB each (224 KB).
+//   - The online softmax stays in f32 registers; masking, the tile-state
+//     scan of a key mask (tiles past the 1952 that fit at hd 128 take the
+//     per-element test), hop::key_tiles and the heavy-blocks-first order
+//     are the 16-bit forward's. hd 72: S takes 9 k8 steps (the third
+//     chunk's zero-filled tail is never read), P V's N is 72.
+// What holds it (PERF.md §6): not the tensor cores (S in one part
+// instead of three saved ~10 %, no P V ~3 % on the card) but the rest of
+// each tile: its copies, splits and barrier hand-offs (which of them was
+// not measured; 64-row boxes in place of 16-row ones saved ~6 %).
 //
 // Backward design. Three kernels in order on the caller's stream, as
 // flash_bwd.cu's: dcap (one warp a (batch, head, query) row: rowsum(dO
@@ -138,6 +167,9 @@ constexpr int kThreads = 128 + kConsumers;       // + the producer warpgroup
 constexpr int kStages = 2;
 constexpr int kBM = 128;       // forward and dq: query rows a block
 constexpr int kFwdBN = 64;     // forward: keys a tile
+constexpr int kFwdBox = 64;    // forward: TMA box rows (32 x 64 f32, 8 KB:
+                               // a quarter of the copies of 16-row boxes)
+constexpr int kFwdBoxBytes = kCols * kFwdBox * 4;
 constexpr int kKN = 128;       // dkdv: keys a block, 64 a warpgroup
 constexpr int kTN = 32;        // backward: a streamed tile's rows (dkdv's
                                // queries, dq's keys)
@@ -149,6 +181,8 @@ static_assert(kBoxRows % 8 == 0 && kFwdBN % kBoxRows == 0 &&
               kTN % kBoxRows == 0 &&
               kBM % kBoxRows == 0 && kKN % kBoxRows == 0,
               "tiles are whole boxes, boxes whole 8-row swizzle atoms");
+static_assert(kBM % kFwdBox == 0 && kFwdBN % kFwdBox == 0,
+              "the forward's tiles are whole boxes");
 static_assert(kBM == 16 * kWarps && kKN == 16 * kWarps,
               "each consumer warp owns 16 rows of a block");
 
@@ -169,30 +203,11 @@ __device__ __forceinline__ float lds(const float* tile, int r, int col) {
               ((((col >> 2) & 7) ^ (r & 7)) << 2) + (col & 3)];
 }
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t u;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
-  return u;
-}
-
-// One operand value as TF32: hi = rna(x) and, when Split, lo = x - hi
-// (exact in f32; its own low bits are below the products' f32 sums)
-template <bool Split>
-struct Frag;
-template <>
-struct Frag<false> {
-  uint32_t h;
-  __device__ __forceinline__ void set(float x) { h = tf32(x); }
-};
-template <>
-struct Frag<true> {
-  uint32_t h, l;
-  __device__ __forceinline__ void set(float x) {
-    h = tf32(x);
-    l = __float_as_uint(x - __uint_as_float(h));
-  }
-};
-
+// d (an m16n8 accumulator: d[0], d[1] row g, columns 2t, 2t + 1; d[2],
+// d[3] row g + 8) += A B over one k8 step, f32 += tf32 x tf32 on mma.sync.
+// A fragment (m16k8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3
+// (g + 8, t + 4); B (k8n8, col): b0 (t, g), b1 (t + 4, g). g = lane / 4,
+// t = lane % 4.
 __device__ __forceinline__ void mma_raw(float* d, uint32_t a0, uint32_t a1,
                                         uint32_t a2, uint32_t a3,
                                         uint32_t b0, uint32_t b1) {
@@ -203,89 +218,398 @@ __device__ __forceinline__ void mma_raw(float* d, uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// d (an m16n8 accumulator: d[0], d[1] row g, columns 2t, 2t + 1; d[2],
-// d[3] row g + 8) += A B over one k8 step. A fragment (m16k8, row):
-// a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4);
-// B (k8n8, col): b[0] (t, g), b[1] (t + 4, g). g = lane / 4, t = lane % 4.
-template <bool Split>
-__device__ __forceinline__ void mma(float* d, const Frag<Split> (&a)[4],
-                                    const Frag<Split> (&b)[2]) {
-  mma_raw(d, a[0].h, a[1].h, a[2].h, a[3].h, b[0].h, b[1].h);
-  if constexpr (Split) {
-    mma_raw(d, a[0].h, a[1].h, a[2].h, a[3].h, b[0].l, b[1].l);
-    mma_raw(d, a[0].l, a[1].l, a[2].l, a[3].l, b[0].h, b[1].h);
+// ------------------------------------------------- the score products
+// The score products (the forward's S, the backward's S and dP) on wgmma
+// m64nNk8 with TF32 operands: the warpgroup's 64 rows of X (a resident
+// tile, read raw) by the N rows of a streamed tile Y, over head_dim. Y is
+// split once a tile by the splitters (split_tile): its landed TMA tile
+// rounded in place (hi = rna(y)) and lo = y - hi written to a plane of
+// the same layout. X's values are split in registers (ARows) as the A
+// fragments of each k8 step.
+
+// D (+)= A B over one k8 step: m64nNk8, f32 += tf32 * tf32. A four TF32
+// registers, the warp's m16k8 fragment (a0 (g, t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4) of its 16 rows, as mma.m16n8k8's); B K-major
+// from shared memory (128-byte swizzle: a k8 step is 32 bytes of a row).
+// scale_d 0: D = A B, a fresh tile. N 32 and 64 (scores), 64, 72 and 128
+// (the forward's O += P V).
+template <int N>
+struct WgTf32;
+template <>
+struct WgTf32<32> {
+  static __device__ __forceinline__ void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
+};
+
+template <>
+struct WgTf32<64> {
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgTf32<72> {
+  static __device__ __forceinline__ void rs(float (&d)[36],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35"
+        "}, {%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgTf32<128> {
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <int R>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 
-// acc[4n..] += X_w Y^T over HD columns: X a tile of RX rows a chunk whose
-// rows x0.., x0 + 15 are this warp's; Y a tile of RY rows a chunk, N of
-// them (rows 0..N-1). The scores' products: split, each k8 step summed
-// apart and added to acc in f32.
-template <int HD, int N, int RX, int RY>
-__device__ __forceinline__ void rows_dot(float* acc, const float* x, int x0,
-                                         const float* y, int g, int t4) {
+// x rounded to TF32, to nearest with ties away (cvt.rna's result for
+// every finite x and for inf; a NaN comes out NaN or inf) in two integer
+// operations, where sm_90 has no instruction for cvt.rna.tf32.f32 and
+// ptxas expands it into a compare-and-select sequence
+__device__ __forceinline__ uint32_t rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// A k8 step's split A fragments come from a raw tile of R rows a chunk:
+// rows x0 + g, x0 + g + 8 (x0 a multiple of 16, so both rows are g
+// modulo the swizzle's 8), columns 8 ks + t, 8 ks + t + 4. sw[q] is the
+// thread's offset, in floats, of 16-byte group q of row x0 + g (its
+// swizzled place, plus t), so each value is one shared load at an offset
+// known at compile time from it.
+template <int R>
+struct ARows {
+  int sw[8];
+  __device__ __forceinline__ ARows(int x0, int g, int t4) {
 #pragma unroll
-  for (int ks = 0; ks < HD / 8; ++ks) {
-    Frag<true> a[4];
-    a[0].set(lds<RX>(x, x0 + g, 8 * ks + t4));
-    a[1].set(lds<RX>(x, x0 + g + 8, 8 * ks + t4));
-    a[2].set(lds<RX>(x, x0 + g, 8 * ks + t4 + 4));
-    a[3].set(lds<RX>(x, x0 + g + 8, 8 * ks + t4 + 4));
+    for (int q = 0; q < 8; ++q)
+      sw[q] = (x0 + g) * kCols + ((q ^ g) << 2) + t4;
+  }
+  // hi = rna(x) (kTrunc: x with its low 13 bits dropped, one operation
+  // fewer); lo = x - hi, whose low bits the tensor core drops (its
+  // truncation: ~2^-10 of lo, ~2^-21 of x; kTrunc ~2^-20)
+  template <bool kTrunc = false>
+  __device__ __forceinline__ void split(const float* x, int ks,
+                                        uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) const {
+    const float* c = x + (ks >> 2) * R * kCols;
+    const int q = (2 * ks) & 7;
+    const float v[4] = {c[sw[q]], c[sw[q] + 8 * kCols], c[sw[q + 1]],
+                        c[sw[q + 1] + 8 * kCols]};
 #pragma unroll
-    for (int n = 0; n < N / 8; ++n) {
-      Frag<true> b[2];
-      b[0].set(lds<RY>(y, 8 * n + g, 8 * ks + t4));
-      b[1].set(lds<RY>(y, 8 * n + g, 8 * ks + t4 + 4));
-      float step[4] = {0.f, 0.f, 0.f, 0.f};
-      mma<true>(step, a, b);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[4 * n + e] += step[e];
+    for (int e = 0; e < 4; ++e) {
+      hi[e] = kTrunc ? __float_as_uint(v[e]) & 0xFFFFE000u : rna(v[e]);
+      lo[e] = __float_as_uint(v[e] - __uint_as_float(hi[e]));
     }
   }
+};
+
+// acc (m64nN: the warpgroup's rows x0.. of X by Y's N rows) = X Y^T over
+// HD columns, three TF32 parts a k8 step (hi hi + hi lo + lo hi). X a raw
+// tile of R rows a chunk, split in registers (kTruncX: by truncation,
+// ARows::split); Y's hi (rounded in place, or raw and read truncated) and
+// lo planes at shared addresses yhi, ylo ([chunk][N][32]). kFresh: each
+// kG k8 steps'
+// parts into a fresh tile, added to acc in f32 on the CUDA cores, two
+// tiles in turn so that one group's adds overlap the next group's
+// products (dP: dS = P (dP - dcap) cancels where a row sees few keys,
+// and the tensor core's accumulation truncates against its running sum);
+// else one chain in the tensor core's accumulator (S: an error of the
+// scores moves P, and the forward's LSE, by as much relatively, and no
+// more). The A fragments of two steps are in flight at a time.
+template <int HD, int R, bool kFresh, int N = kTN, bool kTruncX = false>
+__device__ __forceinline__ void score_products(float (&acc)[N / 2],
+                                               const float* x, int x0,
+                                               uint32_t yhi, uint32_t ylo,
+                                               int g, int t4) {
+  constexpr int kSteps = HD / 8;
+  constexpr int kG = 2;   // dP: k8 steps a fresh tile
+  const ARows<R> rows(x0, g, t4);
+  uint32_t hi[2][4], lo[2][4];
+  float tmp[2][N / 2];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    const int b = ks & 1, tb = (ks / kG) & 1;
+    rows.template split<kTruncX>(x, ks, hi[b], lo[b]);
+    const uint64_t dh = hop::desc_k(hop::k_step_addr(yhi, N, ks));
+    const uint64_t dl = hop::desc_k(hop::k_step_addr(ylo, N, ks));
+    hop::wg_fence();
+    if constexpr (kFresh) {
+      WgTf32<N>::rs(tmp[tb], hi[b], dh, ks % kG != 0);
+      WgTf32<N>::rs(tmp[tb], hi[b], dl, 1);
+      WgTf32<N>::rs(tmp[tb], lo[b], dh, 1);
+    } else {
+      WgTf32<N>::rs(acc, hi[b], dh, ks > 0);
+      WgTf32<N>::rs(acc, hi[b], dl, 1);
+      WgTf32<N>::rs(acc, lo[b], dh, 1);
+    }
+    hop::wg_commit();
+    hop::wg_wait_pending<1>();     // step ks - 1 has completed
+    fence_a(hi);
+    fence_a(lo);
+    if constexpr (kFresh) {
+      if (ks > 0 && (ks - 1) % kG == kG - 1) {   // a fresh tile is whole
+        const int pb = ((ks - 1) / kG) & 1;
+        hop::fence_regs(tmp[pb]);
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i)
+          acc[i] = ks > kG ? acc[i] + tmp[pb][i] : tmp[pb][i];
+      }
+    }
+  }
+  hop::wg_wait();
+  if constexpr (kFresh) {
+    constexpr int pb = ((kSteps - 1) / kG) & 1;
+    hop::fence_regs(tmp[pb]);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      acc[i] = kSteps > kG ? acc[i] + tmp[pb][i] : tmp[pb][i];
+  } else {
+    hop::fence_regs(acc);
+  }
 }
 
-// acc[4n..] (16 x HD) += P Y: P the warp's 16 x K accumulator (p[4j + e]
-// as acc's layout), Y a tile of RY rows a chunk, rows 0..K-1 contracted.
-// Step j takes keys 8j..8j+7 in the order k = t <-> key 8j + 2t, k = t + 4
-// <-> key 8j + 2t + 1, so p's registers are the A fragment as they are.
-template <int HD, int K, int RY>
-__device__ __forceinline__ void p_times(float* acc, const float* p,
-                                        const float* y, int g, int t4) {
+// acc[4n..] (16 x HD) += P Y on mma.sync m16n8k8: P the warp's 16 x K
+// accumulator (p[4j + e] as acc's layout), Y a tile of 32 rows a chunk,
+// rows 0..K-1 contracted. Step j takes keys 8j..8j+7 in the order k = t
+// <-> row 8j + 2t, k = t + 4 <-> row 8j + 2t + 1, so p's registers are
+// the A fragment as they are (rounded). Y's values are TF32 already (a
+// hi plane): taken as they are. Lane (g, t) reads rows 8j + 2t + e,
+// columns 8n + g: with gh = g / 4, their 16-byte group 2 (n % 4) + gh
+// lands at 2 ((n % 4) ^ t) + (gh ^ e) of the row, so eight offsets a
+// thread (e, n % 4) place every load at a constant from one of them.
+// Each k8 step's B fragments are loaded before its products.
+template <int HD, int K>
+__device__ __forceinline__ void p_times_hi(float* acc, const float* p,
+                                           const float* y, int g, int t4) {
+  int off[2][4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      off[e][m] = (2 * t4 + e) * kCols +
+                  (((m ^ t4) << 3) | (((g >> 2) ^ e) << 2)) + (g & 3);
 #pragma unroll
   for (int j = 0; j < K / 8; ++j) {
-    Frag<false> a[4];
-    a[0].set(p[4 * j + 0]);
-    a[1].set(p[4 * j + 2]);
-    a[2].set(p[4 * j + 1]);
-    a[3].set(p[4 * j + 3]);
+    const uint32_t a0 = rna(p[4 * j + 0]), a1 = rna(p[4 * j + 2]);
+    const uint32_t a2 = rna(p[4 * j + 1]), a3 = rna(p[4 * j + 3]);
+    uint32_t b[HD / 8][2];
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
-      Frag<false> b[2];
-      b[0].set(lds<RY>(y, 8 * j + 2 * t4, 8 * n + g));
-      b[1].set(lds<RY>(y, 8 * j + 2 * t4 + 1, 8 * n + g));
-      mma<false>(acc + 4 * n, a, b);
+      const float* c = y + (n >> 2) * kTN * kCols + 8 * j * kCols;
+      b[n][0] = __float_as_uint(c[off[0][n & 3]]);
+      b[n][1] = __float_as_uint(c[off[1][n & 3]]);
     }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      mma_raw(acc + 4 * n, a0, a1, a2, a3, b[n][0], b[n][1]);
   }
+}
+
+// The producer warpgroup's threads 1-127 (thread 0 issues the TMA
+// copies) split each landed tile of the backward's ring (split_tile), so
+// the consumers find it ready.
+constexpr int kSplitters = 127;
+
+// A landed tile of n floats rounded to TF32 in place (hi = rna(x)), and
+// lo = x - hi at the same offsets of `lo` (the tensor core drops its low
+// bits as it reads it): the splitters (tid < kSplitters) share it, a
+// 16-byte vector each in turn. The writes are made visible to the tensor
+// core's reads (the async proxy) here, before the splitters arrive on the
+// stage's ready barrier.
+__device__ __forceinline__ void split_tile(float* t, float* lo, int n,
+                                           int tid) {
+  for (int i = tid * 4; i < n; i += kSplitters * 4) {
+    const float4 x = *reinterpret_cast<float4*>(t + i);
+    const float4 h = make_float4(
+        __uint_as_float(rna(x.x)), __uint_as_float(rna(x.y)),
+        __uint_as_float(rna(x.z)), __uint_as_float(rna(x.w)));
+    *reinterpret_cast<float4*>(t + i) = h;
+    *reinterpret_cast<float4*>(lo + i) =
+        make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
+  }
+  hop::fence_proxy_async();
 }
 
 // ---------------------------------------------------------------- forward
-// Q [chunk][128][32]; per stage K then V [chunk][64][32]; the barriers;
-// the key-tile states.
+// The forward's landed K tile split for the score products without a
+// write to it: the tensor core reads the raw tile as hi, truncated (hi =
+// k with its low 13 bits dropped), so only lo = k - hi goes to `lo` (the
+// plane of the same layout; < 2^-10 of k, itself read truncated: ~2^-20
+// of k). That saves rna's in-place rewrite of the tile, a third of the
+// split's shared-memory traffic. As split_tile: the splitters share it,
+// and the writes are made visible to the tensor core's reads here.
+__device__ __forceinline__ void split_lo(const float* t, float* lo, int n,
+                                         int tid) {
+  for (int i = tid * 4; i < n; i += kSplitters * 4) {
+    const float4 x = *reinterpret_cast<const float4*>(t + i);
+    auto l = [](float v) {
+      return v - __uint_as_float(__float_as_uint(v) & 0xFFFFE000u);
+    };
+    *reinterpret_cast<float4*>(lo + i) =
+        make_float4(l(x.x), l(x.y), l(x.z), l(x.w));
+  }
+  hop::fence_proxy_async();
+}
+
+// Q [chunk][128][32] (raw); per stage K [chunk][64][32] (raw, read as its
+// truncated hi part); V as it lands [chunk][64][32]; K's lo plane; V^T
+// [key chunk][HD][32] (rounded, keys permuted); the barriers (Q landed;
+// per stage K landed, empty and ready; V landed, V's landing free, V^T
+// ready and free, K's lo plane free); the key-tile states. At hd 128:
+// 64 + 2 x 32 + 32 + 32 + 32 KB = 224 KB of the 227.
 template <int HD>
 struct FwdSmem {
   static constexpr int kC = chunks(HD);
   static constexpr int kQBytes = kC * kBM * kRowBytes;
-  static constexpr int kKVBytes = kC * kFwdBN * kRowBytes;
+  static constexpr int kKBytes = kC * kFwdBN * kRowBytes;
+  static constexpr int kVtBytes = (kFwdBN / kCols) * HD * kRowBytes;
   static constexpr int kQ = 0;
-  static constexpr int kKV = kQBytes;
-  static constexpr int kBars = kKV + kStages * 2 * kKVBytes;
-  static constexpr int kState = kBars + 8 * (1 + 2 * kStages);
-  static_assert(kQBytes % 1024 == 0 && kKVBytes % 1024 == 0,
+  static constexpr int kK = kQBytes;                   // + stage * kKBytes
+  static constexpr int kV = kK + kStages * kKBytes;
+  static constexpr int kLo = kV + kKBytes;
+  static constexpr int kVt = kLo + kKBytes;
+  static constexpr int kBars = kVt + kVtBytes;
+  // the barriers' slots, in the order fwd_kernel lays its pointers out
+  static constexpr int kQFull = 0;
+  static constexpr int kKFull = kQFull + 1;            // + stage
+  static constexpr int kKEmpty = kKFull + kStages;     // + stage
+  static constexpr int kKReady = kKEmpty + kStages;    // + stage
+  static constexpr int kVFull = kKReady + kStages;
+  static constexpr int kVEmpty = kVFull + 1;
+  static constexpr int kVtReady = kVEmpty + 1;
+  static constexpr int kVtFree = kVtReady + 1;
+  static constexpr int kLoFree = kVtFree + 1;
+  static constexpr int kNumBars = kLoFree + 1;
+  static constexpr int kState = kBars + 8 * kNumBars;
+  // key-tile states that fit beside the rest (1952 at hd 128: 124,928
+  // keys); the tiles past them take the per-element test
+  static constexpr int kMaxStates = (232448 - 1024 - kState) & ~15;
+  static_assert(kQBytes % 1024 == 0 && kKBytes % 1024 == 0 &&
+                    kVtBytes % 1024 == 0,
                 "tiles keep the swizzle's 1024-byte period");
+  static_assert(kMaxStates >= 1024, "room for the key-tile states");
   static int bytes(int n_state) {
     return kState + ((n_state + 15) & ~15) + 1024;
   }
 };
+
+// The landed V tile ([chunk][64 keys][32], swizzled) rounded to TF32 and
+// written transposed, as the K-major B operand of O += P V: [key chunk
+// kc][HD rows][32 keys] with the 128-byte swizzle, each 8-key group in
+// the order of P's A fragment (position 4h + i of group j holds key 8j +
+// 2i + h: the lane holding P's columns 2t, 2t + 1 supplies k = t and k =
+// t + 4). A splitter writes one 16-byte vector of a V^T row in turn (four
+// keys of column d), reading its four values where lanes of consecutive d
+// hit distinct banks, and writing where eight consecutive rows' vectors
+// fill the 32 banks.
+template <int HD>
+__device__ __forceinline__ void transpose_v(const float* v, float* vt,
+                                            int tid) {
+  for (int e = tid; e < HD * (kFwdBN / 4); e += kSplitters) {
+    const int d = e % HD, jh = e / HD, j = jh >> 1, h = jh & 1;
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = __uint_as_float(rna(lds<kFwdBN>(v, 8 * j + 2 * i + h, d)));
+    const int kc = j >> 2, q = 2 * (j & 3) + h;
+    *reinterpret_cast<float4*>(vt + (kc * HD + d) * kCols +
+                               ((q ^ (d & 7)) << 2)) =
+        make_float4(x[0], x[1], x[2], x[3]);
+  }
+  hop::fence_proxy_async();
+}
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -294,15 +618,26 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
            const __grid_constant__ CUtensorMap tm_v, float* __restrict__ out,
            float* __restrict__ lse, const unsigned char* __restrict__ key_mask,
            int Sq, int Sk, int H, int KV, Strides os, float scale_log2,
-           int causal) {
+           int causal, int n_state) {
   using L = FwdSmem<HD>;
   constexpr int kC = L::kC;
+  constexpr int kTileTx = kC * (kFwdBN / kFwdBox) * kFwdBoxBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align1024(smem_raw);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kStages;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = bars + L::kQFull;
+  uint64_t* k_full = bars + L::kKFull;
+  uint64_t* k_empty = bars + L::kKEmpty;
+  uint64_t* k_ready = bars + L::kKReady;
+  uint64_t* v_full = bars + L::kVFull;
+  uint64_t* v_empty = bars + L::kVEmpty;
+  uint64_t* vt_ready = bars + L::kVtReady;
+  uint64_t* vt_free = bars + L::kVtFree;
+  uint64_t* lo_free = bars + L::kLoFree;
   unsigned char* tile_state = smem + L::kState;
+  float* lo_k = reinterpret_cast<float*>(smem + L::kLo);
+  float* v_land = reinterpret_cast<float*>(smem + L::kV);
+  float* vt = reinterpret_cast<float*>(smem + L::kVt);
 
   const int bh = blockIdx.x, b = bh / H, head = bh % H;
   const int kvh = head / (H / KV);
@@ -315,58 +650,100 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     hop::mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
-      hop::mbar_init(&full[s], 1);
-      hop::mbar_init(&empty[s], kConsumers);
+      hop::mbar_init(&k_full[s], 1);
+      hop::mbar_init(&k_empty[s], kConsumers);
+      hop::mbar_init(&k_ready[s], kSplitters);
     }
+    hop::mbar_init(v_full, 1);
+    hop::mbar_init(v_empty, kSplitters);
+    hop::mbar_init(vt_ready, kSplitters);
+    hop::mbar_init(vt_free, kConsumers);
+    hop::mbar_init(lo_free, kConsumers);
     hop::fence_barrier_init();
   }
   if (mrow != nullptr)
-    hop::scan_key_tiles<kFwdBN>(mrow, Sk, n_tiles, tile_state);
+    hop::scan_key_tiles<kFwdBN>(mrow, Sk, min(n_tiles, n_state), tile_state);
   __syncthreads();
   // 0: no visible key (not walked); 1: per-element test; 2: all visible
   auto state = [&](int t) -> int {
-    if (mrow != nullptr) return tile_state[t];
+    if (mrow != nullptr) return t < n_state ? tile_state[t] : 1;
     return (t + 1) * kFwdBN <= Sk ? 2 : 1;
   };
 
   if (threadIdx.x < 128) {
     // ------------------------------------------------------- producer
-    hop::reg_dealloc<24>();
-    if (threadIdx.x != 0) return;
-    hop::mbar_expect_tx(q_full, kC * (kBM / kBoxRows) * kBoxBytes);
+    hop::reg_dealloc<40>();
+    if (threadIdx.x > 0) {
+      // the splitters: K once landed and its lo plane free (the last
+      // tile's S done), then V once landed and V^T free (the last tile's
+      // P V done)
+      hop::Ring<kStages> ring;
+      int u = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        if (state(t) == 0) continue;
+        const uint32_t par = u & 1;
+        hop::mbar_wait(&k_full[ring.stage], ring.phase);
+        if (u > 0) hop::mbar_wait(lo_free, par ^ 1u);
+        split_lo(reinterpret_cast<const float*>(smem + L::kK +
+                                                ring.stage * L::kKBytes),
+                 lo_k, L::kKBytes / 4, threadIdx.x - 1);
+        hop::mbar_arrive(&k_ready[ring.stage]);
+        hop::mbar_wait(v_full, par);
+        if (u > 0) hop::mbar_wait(vt_free, par ^ 1u);
+        transpose_v<HD>(v_land, vt, threadIdx.x - 1);
+        hop::mbar_arrive(v_empty);
+        hop::mbar_arrive(vt_ready);
+        ring.advance();
+        ++u;
+      }
+      return;
+    }
+    hop::mbar_expect_tx(q_full, kC * (kBM / kFwdBox) * kFwdBoxBytes);
     for (int c = 0; c < kC; ++c)
-      for (int r = 0; r < kBM / kBoxRows; ++r)
+      for (int r = 0; r < kBM / kFwdBox; ++r)
         hop::tma_load(&tm_q, q_full,
-                      smem + L::kQ + (c * kBM + r * kBoxRows) * kRowBytes,
-                      c * kCols, m0 + r * kBoxRows, head, b);
+                      smem + L::kQ + (c * kBM + r * kFwdBox) * kRowBytes,
+                      c * kCols, m0 + r * kFwdBox, head, b);
     hop::Ring<kStages> ring;
+    int u = 0;
     for (int t = 0; t < n_tiles; ++t) {
       if (state(t) == 0) continue;
-      hop::mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
-      uint64_t* bar = &full[ring.stage];
-      hop::mbar_expect_tx(bar, 2 * kC * (kFwdBN / kBoxRows) * kBoxBytes);
-      unsigned char* kb = smem + L::kKV + ring.stage * 2 * L::kKVBytes;
+      hop::mbar_wait(&k_empty[ring.stage], ring.phase ^ 1u);
+      uint64_t* bar = &k_full[ring.stage];
+      hop::mbar_expect_tx(bar, kTileTx);
+      unsigned char* kb = smem + L::kK + ring.stage * L::kKBytes;
       for (int c = 0; c < kC; ++c)
-        for (int r = 0; r < kFwdBN / kBoxRows; ++r) {
-          const int at = (c * kFwdBN + r * kBoxRows) * kRowBytes;
-          const int key = t * kFwdBN + r * kBoxRows;
-          hop::tma_load(&tm_k, bar, kb + at, c * kCols, key, kvh, b);
-          hop::tma_load(&tm_v, bar, kb + L::kKVBytes + at, c * kCols, key,
-                        kvh, b);
-        }
+        for (int r = 0; r < kFwdBN / kFwdBox; ++r)
+          hop::tma_load(&tm_k, bar, kb + (c * kFwdBN + r * kFwdBox) *
+                                             kRowBytes,
+                        c * kCols, t * kFwdBN + r * kFwdBox, kvh, b);
+      if (u > 0) hop::mbar_wait(v_empty, (u - 1) & 1);
+      hop::mbar_expect_tx(v_full, kTileTx);
+      for (int c = 0; c < kC; ++c)
+        for (int r = 0; r < kFwdBN / kFwdBox; ++r)
+          hop::tma_load(&tm_v, v_full,
+                        smem + L::kV + (c * kFwdBN + r * kFwdBox) *
+                                           kRowBytes,
+                        c * kCols, t * kFwdBN + r * kFwdBox, kvh, b);
       ring.advance();
+      ++u;
     }
     return;
   }
 
   // --------------------------------------------------------- consumers
-  hop::reg_alloc<240>();
-  const int warp = threadIdx.x / 32 - 4, lane = threadIdx.x & 31;
+  hop::reg_alloc<232>();
+  const int tid = threadIdx.x - 128;
+  const int w = tid / 128, warp = (tid / 32) % 4, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int r_base = m0 + warp * 16;             // the warp's 16 rows
-  const int row0 = r_base + g;                   // this thread's rows:
+  const int x0 = w * 64 + warp * 16;             // the warp's rows of Q
+  const int r_base = m0 + w * 64;                // the warpgroup's rows
+  const int r_warp = m0 + x0;                    // the warp's 16 rows
+  const int row0 = r_warp + g;                   // this thread's rows:
                                                  // row0, row0 + 8
   const float* qs = reinterpret_cast<const float*>(smem + L::kQ);
+  const uint32_t lo_addr = hop::smem_u32(lo_k);
+  const uint32_t vt_addr = hop::smem_u32(vt);
   float o[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
@@ -374,21 +751,26 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   float l_run[2] = {0.f, 0.f};   // this thread's part of the row sums
   hop::mbar_wait(q_full, 0);
   hop::Ring<kStages> ring;
+  int u = 0;
   for (int t = 0; t < n_tiles; ++t) {
     const int st = state(t);
     if (st == 0) continue;
-    hop::mbar_wait(&full[ring.stage], ring.phase);
+    const uint32_t par = u & 1;
+    hop::mbar_wait(&k_ready[ring.stage], ring.phase);
     const int k0 = t * kFwdBN;
-    if (!(causal && k0 > r_base + 15 + off)) {
-      const float* kt = reinterpret_cast<const float*>(
-          smem + L::kKV + ring.stage * 2 * L::kKVBytes);
-      const float* vt = kt + L::kKVBytes / 4;
-      float s[kFwdBN / 2];
-#pragma unroll
-      for (int i = 0; i < kFwdBN / 2; ++i) s[i] = 0.f;
-      rows_dot<HD, kFwdBN, kBM, kFwdBN>(s, qs, warp * 16, kt, g, t4);
+    // causal: the warpgroup's rows see no key of the tile
+    const bool seen = !(causal && k0 > r_base + 63 + off);
+    float s[kFwdBN / 2];
+    if (seen)
+      score_products<HD, kBM, false, kFwdBN, true>(
+          s, qs, x0, hop::smem_u32(smem + L::kK + ring.stage * L::kKBytes),
+          lo_addr, g, t4);
+    hop::mbar_arrive(lo_free);                 // K's planes are read
+    hop::mbar_arrive(&k_empty[ring.stage]);
+    uint32_t pa[kFwdBN / 8][4];
+    if (seen) {
       const bool all_vis =
-          st == 2 && (!causal || k0 + kFwdBN - 1 <= r_base + off);
+          st == 2 && (!causal || k0 + kFwdBN - 1 <= r_warp + off);
       float mx[2] = {hop::kNegInf, hop::kNegInf};
 #pragma unroll
       for (int i = 0; i < kFwdBN / 2; ++i) {
@@ -421,10 +803,31 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-      p_times<HD, kFwdBN, kFwdBN>(o, s, vt, g, t4);
+      // P rounded to TF32 as the A fragments of the 8 key steps, in the
+      // permuted order V^T's rows follow
+#pragma unroll
+      for (int j = 0; j < kFwdBN / 8; ++j) {
+        pa[j][0] = rna(s[4 * j + 0]);
+        pa[j][1] = rna(s[4 * j + 2]);
+        pa[j][2] = rna(s[4 * j + 1]);
+        pa[j][3] = rna(s[4 * j + 3]);
+      }
     }
-    hop::mbar_arrive(&empty[ring.stage]);
+    hop::mbar_wait(vt_ready, par);
+    if (seen) {
+      hop::wg_fence();
+#pragma unroll
+      for (int j = 0; j < kFwdBN / 8; ++j)
+        WgTf32<HD>::rs(o, pa[j],
+                       hop::desc_k(hop::k_step_addr(vt_addr, HD, j)), 1);
+      hop::wg_commit();
+      hop::wg_wait();
+      hop::fence_regs(o);
+      hop::fence_regs(pa);
+    }
+    hop::mbar_arrive(vt_free);
     ring.advance();
+    ++u;
   }
 
   // epilogue: the row sums over the quad, O / l, the LSE
@@ -485,205 +888,6 @@ dcap_kernel(const float* __restrict__ o, const float* __restrict__ dout,
     dcap[row] = acc;
     lse2[row] = lse[bh * Sq + i] * hop::kLog2e;
   }
-}
-
-// --------------------------------------------- the backward's products
-// The score products (S, dP) on wgmma m64n32k8 with TF32 operands: the
-// warpgroup's 64 rows of X (a resident tile, read raw) by the 32 rows of
-// a streamed tile Y, over head_dim. Y is split once a tile by the
-// splitters (split_tile): its landed TMA tile rounded in place (hi =
-// rna(y)) and lo = y - hi written to a plane of the same layout. X's
-// values are split in registers (ARows) as the A fragments of each k8
-// step.
-
-// D (+)= A B over one k8 step: m64n32k8, f32 += tf32 * tf32. A four TF32
-// registers, the warp's m16k8 fragment (a0 (g, t), a1 (g + 8, t), a2 (g,
-// t + 4), a3 (g + 8, t + 4) of its 16 rows, as mma.m16n8k8's); B K-major
-// from shared memory (128-byte swizzle: a k8 step is 32 bytes of a row).
-// scale_d 0: D = A B, a fresh tile.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[kTN / 2],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <int R>
-__device__ __forceinline__ void fence_a(uint32_t (&a)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
-}
-
-// x rounded to TF32, to nearest with ties away (cvt.rna's result for
-// every finite x and for inf; a NaN comes out NaN or inf) in two integer
-// operations, where sm_90 has no instruction for cvt.rna.tf32.f32 and
-// ptxas expands it into a compare-and-select sequence
-__device__ __forceinline__ uint32_t rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// A k8 step's split A fragments come from a raw tile of R rows a chunk:
-// rows x0 + g, x0 + g + 8 (x0 a multiple of 16, so both rows are g
-// modulo the swizzle's 8), columns 8 ks + t, 8 ks + t + 4. sw[q] is the
-// thread's offset, in floats, of 16-byte group q of row x0 + g (its
-// swizzled place, plus t), so each value is one shared load at an offset
-// known at compile time from it.
-template <int R>
-struct ARows {
-  int sw[8];
-  __device__ __forceinline__ ARows(int x0, int g, int t4) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-      sw[q] = (x0 + g) * kCols + ((q ^ g) << 2) + t4;
-  }
-  // hi = rna(x); lo = x - hi, whose low bits the tensor core drops (its
-  // truncation: ~2^-10 of lo, ~2^-21 of x)
-  __device__ __forceinline__ void split(const float* x, int ks,
-                                        uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) const {
-    const float* c = x + (ks >> 2) * R * kCols;
-    const int q = (2 * ks) & 7;
-    const float v[4] = {c[sw[q]], c[sw[q] + 8 * kCols], c[sw[q + 1]],
-                        c[sw[q + 1] + 8 * kCols]};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      hi[e] = rna(v[e]);
-      lo[e] = __float_as_uint(v[e] - __uint_as_float(hi[e]));
-    }
-  }
-};
-
-// acc (m64n32: the warpgroup's rows x0.. of X by Y's 32 rows) = X Y^T over
-// HD columns, three TF32 parts a k8 step (hi hi + hi lo + lo hi). X a raw
-// tile of R rows a chunk; Y's hi (rounded in place) and lo planes at
-// shared addresses yhi, ylo ([chunk][32][32]). kFresh: each kG k8 steps'
-// parts into a fresh tile, added to acc in f32 on the CUDA cores, two
-// tiles in turn so that one group's adds overlap the next group's
-// products (dP: dS = P (dP - dcap) cancels where a row sees few keys,
-// and the tensor core's accumulation truncates against its running sum);
-// else one chain in the tensor core's accumulator (S: an error of the
-// scores moves P by as much relatively, and no more). The A fragments of
-// two steps are in flight at a time.
-template <int HD, int R, bool kFresh>
-__device__ __forceinline__ void score_products(float (&acc)[kTN / 2],
-                                               const float* x, int x0,
-                                               uint32_t yhi, uint32_t ylo,
-                                               int g, int t4) {
-  constexpr int kSteps = HD / 8;
-  constexpr int kG = 2;   // dP: k8 steps a fresh tile
-  const ARows<R> rows(x0, g, t4);
-  uint32_t hi[2][4], lo[2][4];
-  float tmp[2][kTN / 2];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const int b = ks & 1, tb = (ks / kG) & 1;
-    rows.split(x, ks, hi[b], lo[b]);
-    const uint64_t dh = hop::desc_k(hop::k_step_addr(yhi, kTN, ks));
-    const uint64_t dl = hop::desc_k(hop::k_step_addr(ylo, kTN, ks));
-    hop::wg_fence();
-    if constexpr (kFresh) {
-      wgmma_tf32(tmp[tb], hi[b], dh, ks % kG != 0);
-      wgmma_tf32(tmp[tb], hi[b], dl, 1);
-      wgmma_tf32(tmp[tb], lo[b], dh, 1);
-    } else {
-      wgmma_tf32(acc, hi[b], dh, ks > 0);
-      wgmma_tf32(acc, hi[b], dl, 1);
-      wgmma_tf32(acc, lo[b], dh, 1);
-    }
-    hop::wg_commit();
-    hop::wg_wait_pending<1>();     // step ks - 1 has completed
-    fence_a(hi);
-    fence_a(lo);
-    if constexpr (kFresh) {
-      if (ks > 0 && (ks - 1) % kG == kG - 1) {   // a fresh tile is whole
-        const int pb = ((ks - 1) / kG) & 1;
-        hop::fence_regs(tmp[pb]);
-#pragma unroll
-        for (int i = 0; i < kTN / 2; ++i)
-          acc[i] = ks > kG ? acc[i] + tmp[pb][i] : tmp[pb][i];
-      }
-    }
-  }
-  hop::wg_wait();
-  if constexpr (kFresh) {
-    constexpr int pb = ((kSteps - 1) / kG) & 1;
-    hop::fence_regs(tmp[pb]);
-#pragma unroll
-    for (int i = 0; i < kTN / 2; ++i)
-      acc[i] = kSteps > kG ? acc[i] + tmp[pb][i] : tmp[pb][i];
-  } else {
-    hop::fence_regs(acc);
-  }
-}
-
-// acc[4n..] (16 x HD) += P Y on mma.sync m16n8k8, as p_times (Y a tile
-// of 32 rows a chunk), Y's values TF32 already (a hi plane): taken as
-// they are, no rounding a fragment. Lane (g, t) reads rows 8j + 2t + e,
-// columns 8n + g: with gh = g / 4, their 16-byte group 2 (n % 4) + gh
-// lands at 2 ((n % 4) ^ t) + (gh ^ e) of the row, so eight offsets a
-// thread (e, n % 4) place every load at a constant from one of them.
-// Each k8 step's B fragments are loaded before its products.
-template <int HD, int K>
-__device__ __forceinline__ void p_times_hi(float* acc, const float* p,
-                                           const float* y, int g, int t4) {
-  int off[2][4];
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      off[e][m] = (2 * t4 + e) * kCols +
-                  (((m ^ t4) << 3) | (((g >> 2) ^ e) << 2)) + (g & 3);
-#pragma unroll
-  for (int j = 0; j < K / 8; ++j) {
-    const uint32_t a0 = rna(p[4 * j + 0]), a1 = rna(p[4 * j + 2]);
-    const uint32_t a2 = rna(p[4 * j + 1]), a3 = rna(p[4 * j + 3]);
-    uint32_t b[HD / 8][2];
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const float* c = y + (n >> 2) * kTN * kCols + 8 * j * kCols;
-      b[n][0] = __float_as_uint(c[off[0][n & 3]]);
-      b[n][1] = __float_as_uint(c[off[1][n & 3]]);
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      mma_raw(acc + 4 * n, a0, a1, a2, a3, b[n][0], b[n][1]);
-  }
-}
-
-// The producer warpgroup's threads 1-127 (thread 0 issues the TMA
-// copies) split each landed tile of the backward's ring (split_tile), so
-// the consumers find it ready.
-constexpr int kSplitters = 127;
-
-// A landed tile of n floats rounded to TF32 in place (hi = rna(x)), and
-// lo = x - hi at the same offsets of `lo` (the tensor core drops its low
-// bits as it reads it): the splitters (tid < kSplitters) share it, a
-// 16-byte vector each in turn. The writes are made visible to the tensor
-// core's reads (the async proxy) here, before the splitters arrive on the
-// stage's ready barrier.
-__device__ __forceinline__ void split_tile(float* t, float* lo, int n,
-                                           int tid) {
-  for (int i = tid * 4; i < n; i += kSplitters * 4) {
-    const float4 x = *reinterpret_cast<float4*>(t + i);
-    const float4 h = make_float4(
-        __uint_as_float(rna(x.x)), __uint_as_float(rna(x.y)),
-        __uint_as_float(rna(x.z)), __uint_as_float(rna(x.w)));
-    *reinterpret_cast<float4*>(t + i) = h;
-    *reinterpret_cast<float4*>(lo + i) =
-        make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
-  }
-  hop::fence_proxy_async();
 }
 
 // ---------------------------------------------------------------- dkdv
@@ -1120,11 +1324,12 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------- host
+// The tensor maps of n tensors, boxes of kCols x box_rows f32
 bool encode_maps(CUtensorMap* tm, const void* const* bases, int n,
-                 const long long* maps) {
+                 const long long* maps, int box_rows = kBoxRows) {
   for (int t = 0; t < n; ++t)
     if (!hop::encode_map(&tm[t], bases[t], maps + 7 * t,
-                         hop::tma_type<float>(), kCols, kBoxRows))
+                         hop::tma_type<float>(), kCols, box_rows))
       return false;
   return true;
 }
@@ -1133,15 +1338,18 @@ template <int HD>
 int launch_fwd(const CUtensorMap* tm, float* o, float* lse,
                const unsigned char* mask, int B, int Sq, int Sk, int H,
                int KV, Strides os, float scale, int causal, cudaStream_t s) {
-  const int n_state = mask != nullptr ? (Sk + kFwdBN - 1) / kFwdBN : 0;
-  const int smem = FwdSmem<HD>::bytes(n_state);
+  using L = FwdSmem<HD>;
+  const int tiles = (Sk + kFwdBN - 1) / kFwdBN;
+  const int n_state =
+      mask == nullptr ? 0 : tiles < L::kMaxStates ? tiles : L::kMaxStates;
+  const int smem = L::bytes(n_state);
   static int granted[64];
   cudaError_t err = hop::allow_smem(fwd_kernel<HD>, smem, granted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Sq + kBM - 1) / kBM);
   fwd_kernel<HD><<<grid, kThreads, smem, s>>>(
       tm[0], tm[1], tm[2], o, lse, mask, Sq, Sk, H, KV, os,
-      scale * hop::kLog2e, causal);
+      scale * hop::kLog2e, causal, n_state);
   return (int)cudaGetLastError();
 }
 
@@ -1195,7 +1403,8 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap tm[3];
   const void* bases[3] = {q, k, v};
-  if (!encode_maps(tm, bases, 3, maps)) return (int)cudaErrorInvalidValue;
+  if (!encode_maps(tm, bases, 3, maps, kFwdBox))
+    return (int)cudaErrorInvalidValue;
   Strides os{out_strides[0], out_strides[1], out_strides[2]};
   float* out = static_cast<float*>(o);
   float* l = static_cast<float*>(lse);

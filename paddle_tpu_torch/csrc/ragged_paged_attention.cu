@@ -27,7 +27,8 @@
 // once, bs * hd * sizeof(T) bytes per block each (bs * hd int8 codes and
 // a 4-byte scale from an int8 pool), for ~4 * rep flops a 16-bit byte
 // (8 * rep int8, 2 * rep f32), far below the ~295 flop/byte ridge of the
-// tensor cores and the ~20 of f32 FFMA; a decode step of 8 rows of 1024
+// tensor cores (f32: ~49 at the TF32 rate over its three parts, ~20 on
+// FFMA); a decode step of 8 rows of 1024
 // keys at Llama-3-8B widths moves 33.5 MB (16-bit), 67.1 MB (f32) or 16.8
 // MB (int8), 0.010, 0.020 or 0.005 ms at 3.35 TB/s. The slab adds
 // S * hd * sizeof(T) bytes of K and V a (row, KV head), at most 64 rows. The TPU kernel reads only the LIVE
@@ -50,14 +51,14 @@
 //    the TPU kernel folds it at its extra chunk c == nchunks.
 //  * The query tile is sized to the work. A narrow tile (P * rep <= 16:
 //    decode, a draft step) is one GQA group of 16 / rep positions, 16 rows
-//    (the mma M); its 4 warps take 16 keys each of every stage and are
-//    merged through shared memory at the end. A wide tile (chunked and
-//    fused prefill, the verify's k + 1 or tree rows) is 64 rows, 16 a
-//    warp, each warp taking all 64 keys of a stage.
+//    (the mma M); its 4 warps take a quarter of the keys of every stage
+//    each and are merged through shared memory at the end. A wide tile
+//    (chunked and fused prefill, the verify's k + 1 or tree rows) is 64
+//    rows, 16 a warp, each warp taking all the keys of a stage.
 //  * The copies are pipelined: a ring of 3 (hd 128) or 4 (hd 64) stages
-//    of 64 keys of K and V (4 or 6 of int8 codes; f32: 2 or 3, since an
-//    f32 stage is twice the bytes and three at hd 128 with the tile's Q
-//    would not fit 227 KB), filled with cp.async (16-byte LDGSTS, which
+//    of 64 keys of K and V (4 or 6 of int8 codes; f32: stages of 32 keys,
+//    3 in a narrow tile and 2 in a wide one at hd 128, 4 at hd 64: Ring),
+//    filled with cp.async (16-byte LDGSTS, which
 //    suits the pool's 256- or 128-byte 16-bit rows, 512- or 256-byte f32
 //    ones and 128- or 64-byte int8 rows; zero-filled past the split), so
 //    all but one stage are in flight while that one's products run. A split's table entries, and an
@@ -85,16 +86,35 @@
 //  * Products: bf16 and f16 on mma.sync m16n8k16 (attention_core.cuh),
 //    V's B fragments by ldmatrix.trans (b16 serves both); online softmax
 //    in f32. The work is memory bound, and wgmma's M of 64 would be
-//    mostly padding in decode. f32 on FFMA in full f32, as the plain
-//    version computes (mma.sync takes 16-bit operands at k16, ldmatrix
-//    moves b16, and TF32 would round q, K, P and V): the same tiles, the
-//    lanes holding the same C-fragment elements (row g or g + 8, key or
-//    column 2t, 2t + 1 of each n8 tile), so the softmax and the outputs
-//    are shared. Q K^T reads the tile's Q rows (staged in shared memory
-//    once, float4) against K rows (float4); P V takes each key's
-//    probabilities from the quad that holds them (shuffles) against V
-//    rows (float2). At decode sizes an f32 step is still bound by its
-//    pool bytes (~2 * rep flops a byte against FFMA's ~20).
+//    mostly padding in decode (the f32 option's reason too).
+//  * f32 on mma.sync m16n8k8 TF32 in three parts (hi hi + hi lo + lo hi,
+//    hi = x with its low 13 bits dropped, lo = x - hi): the plain version
+//    computes in full f32,
+//    and the bound (RAGGED_F32_TOL 2e-5 of each output vector's scale,
+//    chip_smoke.py) leaves no room for one TF32 part (2^-11 relative a
+//    term). Both products take three parts; each k8 step's parts go into
+//    a fresh tile that is added to the f32 sum on the CUDA cores, because
+//    the tensor core rounds its sum toward zero into the accumulator and a
+//    1024-key chain of 128 such steps would drift by ~1.5e-5 of the scale.
+//    The tiles and lanes are the 16-bit options' (C-fragment elements row
+//    g or g + 8, key or column 2t, 2t + 1 of each n8 tile), so the softmax
+//    and the outputs are shared. Q K^T reads the tile's Q rows (staged in
+//    shared memory once) and K's rows, and P V takes P's A fragment from
+//    its score accumulators as they are (the contraction over an n8
+//    tile's keys permuted: k = t <-> key 2t, k = t + 4 <-> key 2t + 1)
+//    against V's rows; every value is split in registers as a lane loads
+//    it, in both tile kinds: in a narrow tile each value is loaded by one
+//    lane of one warp, and in a wide one the four warps' loads and splits
+//    cost less shared-memory traffic than writing split planes once and
+//    reading two parts back. All fragment loads are 32-bit and
+//    conflict-free with rows of HD + 4 floats. Widened int8 codes are
+//    exact in TF32 (|c| <= 127), so their products take two parts (q's or
+//    P's hi and lo against the codes). What holds it (H100 SXM at 700 W,
+//    PERF.md §6): mma.sync's TF32 rate, about one m16n8k8 per 28 cycles
+//    a sub-partition whatever their order, three a product; a wide
+//    tile's 64 rows would fit wgmma's M, at several times that rate, but
+//    its B operands must be K-major swizzled tiles (V transposed), which
+//    this ring's padded rows are not.
 #include "attention_core.cuh"
 #include "hopper_core.cuh"
 
@@ -122,25 +142,39 @@ struct Elem {
 // plus each ring stage's per-key K and V scales; its stages are half the
 // bytes of a 16-bit one, so it runs one (hd 128) or two (hd 64) more of
 // them in about the shared memory of the 16-bit ring (two blocks still
-// fit a multiprocessor). An f32 stage is twice a 16-bit one's bytes: 2
-// (hd 128) or 3 (hd 64) stages, one block a multiprocessor beside the
-// tile's staged Q rows (kQNarrow or kQWide bytes: f32 only, HD + 4
-// floats a row).
-template <int HD, bool Q8, class T>
+// fit a multiprocessor). An f32 stage holds 32 keys (kKeys), half a
+// 16-bit one's, so that its bytes are a 16-bit stage's and two blocks
+// still fit a multiprocessor at hd 128 beside the tile's staged Q rows
+// (kQNarrow or kQWide bytes: f32 only, HD + 4 floats a row): 3 stages in
+// a narrow tile, 2 in a wide one (with 64-key stages one block fit, and
+// its four warps alone could not keep the pool's bytes in flight: full
+// chains of 32 decode rows ran at 42 % of their byte bound, bf16 at 78
+// %). A narrow tile over an int8 pool keeps 64-key stages (one block a
+// multiprocessor): its short decode walks paid more for twice the
+// stages' fixed costs than they gained (0.023 -> 0.032 ms at the decode
+// batch). The slab's split takes one 64-row stage of T: the ring's first
+// stage, the int8 ring's staging stage, or, f32, the ring from its start
+// (kRingBytes leaves it room).
+template <int HD, bool Q8, class T, bool NARROW>
 struct Ring {
   static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
   static constexpr bool kF32 = Elem<T>::kF32;
   static constexpr int kRow = HD + Elem<T>::kVec;
+  static constexpr int kKeys =                            // keys a stage
+      kF32 && !(Q8 && NARROW) ? 32 : kStageKeys;
   static constexpr int kStages =
-      kF32 ? (HD == 128 ? (Q8 ? 4 : 2) : (Q8 ? 6 : 3))
+      kF32 ? (HD == 128 ? (Q8 ? 4 : (NARROW ? 3 : 2)) : (Q8 ? 6 : 4))
            : (HD == 128 ? (Q8 ? 4 : 3) : (Q8 ? 6 : 4));
-  static constexpr int kStage = 2 * kStageKeys * kRow;   // K, then V
+  static constexpr int kStage = 2 * kKeys * kRow;   // K, then V
   static constexpr int kStageBytes = kStage * (int)sizeof(T);
-  static constexpr int kCodeStage = 2 * kStageKeys * HD;  // int8 bytes
-  static constexpr int kRingBytes =
+  static constexpr int kCodeStage = 2 * kKeys * HD;  // int8 bytes
+  static constexpr int kWalkBytes =
       Q8 ? kStages * kCodeStage + kStageBytes : kStages * kStageBytes;
+  static constexpr int kSlabBytes = 2 * kMaxSlab * kRow * (int)sizeof(T);
+  static constexpr int kRingBytes =
+      kF32 && kSlabBytes > kWalkBytes ? kSlabBytes : kWalkBytes;
   static constexpr int kScaleBytes =
-      Q8 ? kStages * 2 * kStageKeys * (int)sizeof(float) : 0;
+      Q8 ? kStages * 2 * kKeys * (int)sizeof(float) : 0;
   static constexpr int kBytes = kRingBytes + kScaleBytes;
   static constexpr int kQRow = HD + 4;
   static constexpr int kQNarrow = kF32 ? 16 * kQRow * (int)sizeof(float) : 0;
@@ -201,9 +235,80 @@ __device__ __forceinline__ float4 widen4_f32(uint32_t w) {
       __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - kMagic);
 }
 
-__device__ __forceinline__ float dot4(const float4& a, const float4& b,
-                                      float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+// The hi TF32 part of an f32 value: x with its low 13 bits dropped, as
+// the tensor core reads an f32 operand (one mask; rounding to nearest
+// would take an add more, and the hi and lo parts sum to x either way)
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  return __float_as_uint(x) & 0xFFFFE000u;
+}
+
+// Four f32 values as TF32 parts: hi = tf32_hi(x), lo = x - hi (exact in
+// f32, < 2^-10 of x; the tensor core drops lo's low 13 bits as it reads
+// it, ~2^-20 of x)
+__device__ __forceinline__ void split4(float x0, float x1, float x2,
+                                       float x3, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const float x[4] = {x0, x1, x2, x3};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = tf32_hi(x[e]);
+    lo[e] = __float_as_uint(x[e] - __uint_as_float(hi[e]));
+  }
+}
+
+// c += A B over one k8 step on mma.sync m16n8k8, f32 += tf32 x tf32. A
+// (m16k8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t +
+// 4); B (k8n8, col): b0 (t, g), b1 (t + 4, g); C as m16n8k16's.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragment values (b0, b1) of one n8 tile as TF32 parts: bh =
+// tf32_hi(b), bl = b - bh; EXACT (widened int8 codes, |c| <= 127, exact
+// in TF32): bh = b, no bl.
+template <bool EXACT>
+struct BParts {
+  uint32_t h[2], l[2];
+  __device__ __forceinline__ void set(float b0, float b1) {
+    const float b[2] = {b0, b1};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      h[e] = EXACT ? __float_as_uint(b[e]) : tf32_hi(b[e]);
+      if constexpr (!EXACT)
+        l[e] = __float_as_uint(b[e] - __uint_as_float(h[e]));
+    }
+  }
+};
+
+// step[i] = A_i B_i, N independent products of one k8 step each, in
+// three TF32 parts (hi hi + hi lo + lo hi; two over EXACT B) summed into
+// fresh tiles (the caller adds each to its f32 sum on the CUDA cores).
+// The parts are issued part by part over the N tiles, so that no
+// mma.sync waits on the one before it (a tile's three parts depend on
+// each other through its accumulator); on the card this order ran no
+// faster than tile by tile: mma.sync's TF32 rate bounds the products.
+template <int N, bool EXACT>
+__device__ __forceinline__ void parts3(float (&step)[N][4],
+                                       const uint32_t (&ah)[N][4],
+                                       const uint32_t (&al)[N][4],
+                                       const BParts<EXACT> (&b)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    step[i][0] = step[i][1] = step[i][2] = step[i][3] = 0.f;
+    mma_tf32(step[i], ah[i], b[i].h[0], b[i].h[1]);
+  }
+  if constexpr (!EXACT) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      mma_tf32(step[i], ah[i], b[i].l[0], b[i].l[1]);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(step[i], al[i], b[i].h[0], b[i].h[1]);
 }
 
 // One warp's 16 query rows: Q's A fragments (16-bit types) or its rows
@@ -222,12 +327,12 @@ struct Rows {
 };
 
 // Fold NK staged keys into a warp's rows: K rows ks, V rows vs (row
-// stride Ring<HD, Q8, T>::kRow), key0 the first key's chain key (slab row
+// stride HD + Elem<T>::kVec), key0 the first key's chain key (slab row
 // for SLAB). Scores are scaled by scale * log2(e) so exp2 gives the
 // weights. Q8: the staged rows are widened codes; kss / vss hold each
 // staged key's K and V scale. Every lane ends holding the C-fragment
 // elements of the mma layout (rows g, g + 8; columns 2t, 2t + 1 of each
-// n8 tile), whether the products ran on mma.sync (16-bit) or FFMA (f32).
+// n8 tile), on mma.sync at k16 (16-bit) or in TF32 parts at k8 (f32).
 template <class T, int HD, int NK, bool Q8, bool SLAB>
 __device__ __forceinline__ void fold(Rows<HD>& st, const T* ks, const T* vs,
                                      int key0, float scale_log2,
@@ -239,25 +344,47 @@ __device__ __forceinline__ void fold(Rows<HD>& st, const T* ks, const T* vs,
   for (int nt = 0; nt < NK / 8; ++nt)
     s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
   if constexpr (Elem<T>::kF32) {
-    // S = Q K^T on FFMA: rows g and g + 8 against keys 2t, 2t + 1 of
-    // each n8 tile, four columns of head_dim a step
+    // S = Q K^T on mma.sync m16n8k8, three TF32 parts a k8 step (two over
+    // widened int8 codes): Q's rows g, g + 8 and K's rows (keys) 8 nt + g
+    // at columns 8 kk + t, + 4, each value split as it is loaded. kKG k8
+    // steps at a time, so that kKG * NK / 8 (8) products are in flight
+    // (each k8 step's fresh tile is added to the score in k order), in a
+    // loop that is not unrolled: fully unrolled, the fold's code outgrew
+    // the instruction cache (the verify batches ran 10 % slower)
     constexpr int kQRow = HD + 4;
+    constexpr int kNT = NK / 8;
+    constexpr int kKG = kNT >= 8 ? 1 : 8 / kNT;
     const float* qa_row = st.qs + g * kQRow;
     const float* qb_row = qa_row + 8 * kQRow;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float4 qa = *reinterpret_cast<const float4*>(qa_row + d);
-      const float4 qb = *reinterpret_cast<const float4*>(qb_row + d);
+#pragma unroll 1
+    for (int k0 = 0; k0 < HD / 8; k0 += kKG) {
+      uint32_t ah[kKG * kNT][4], al[kKG * kNT][4];
+      BParts<Q8> b[kKG * kNT];
+      float step[kKG * kNT][4];
 #pragma unroll
-      for (int nt = 0; nt < NK / 8; ++nt) {
-        const float* kr = ks + (nt * 8 + 2 * t) * kRow + d;
-        const float4 k0 = *reinterpret_cast<const float4*>(kr);
-        const float4 k1 = *reinterpret_cast<const float4*>(kr + kRow);
-        s[nt][0] = dot4(qa, k0, s[nt][0]);
-        s[nt][1] = dot4(qa, k1, s[nt][1]);
-        s[nt][2] = dot4(qb, k0, s[nt][2]);
-        s[nt][3] = dot4(qb, k1, s[nt][3]);
+      for (int j = 0; j < kKG; ++j) {
+        const int c = 8 * (k0 + j) + t;
+        uint32_t h[4], l[4];
+        split4(qa_row[c], qb_row[c], qa_row[c + 4], qb_row[c + 4], h, l);
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int i = j * kNT + nt;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[i][e] = h[e];
+            al[i][e] = l[e];
+          }
+          const float* kr = ks + (nt * 8 + g) * kRow + c;
+          b[i].set(kr[0], kr[4]);
+        }
       }
+      parts3<kKG * kNT, Q8>(step, ah, al, b);
+#pragma unroll
+      for (int j = 0; j < kKG; ++j)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] += step[j * kNT + nt][e];
     }
   } else {
 #pragma unroll
@@ -335,26 +462,38 @@ __device__ __forceinline__ void fold(Rows<HD>& st, const T* ks, const T* vs,
     }
   }
   if constexpr (Elem<T>::kF32) {
-    // O += P V on FFMA: key j's probabilities for rows g and g + 8 sit in
-    // lane j % 8 / 2 of the quad, element j % 2 of n-tile j / 8; each
-    // lane takes columns 2t, 2t + 1 of every head_dim n8 tile of V's row j
-    const int quad = lane & ~3;
+    // O += P V on mma.sync m16n8k8, three TF32 parts a k8 step (two over
+    // widened int8 codes), eight head_dim n8 tiles at a time. The
+    // contraction over n-tile nt's 8 keys runs in a permuted order, k = t
+    // <-> key 8 nt + 2t, k = t + 4 <-> key 8 nt + 2t + 1, so P's A
+    // fragment is its accumulator's registers as they are (split), and
+    // V's B fragment reads rows 8 nt + 2t, + 1 at column 8 dn + g (banks
+    // 8t + g: conflict-free with rows of HD + 4 floats)
+    constexpr int kDG = 8;
 #pragma unroll
     for (int nt = 0; nt < NK / 8; ++nt) {
+      uint32_t h[4], l[4];
+      split4(s[nt][0], s[nt][2], s[nt][1], s[nt][3], h, l);
+      const float* vr = vs + (nt * 8 + 2 * t) * kRow + g;
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int src = quad | (jj >> 1);
-        const float pa = __shfl_sync(0xffffffffu, s[nt][jj & 1], src);
-        const float pb = __shfl_sync(0xffffffffu, s[nt][2 + (jj & 1)], src);
-        const float* vr = vs + (nt * 8 + jj) * kRow + 2 * t;
+      for (int d0 = 0; d0 < HD / 8; d0 += kDG) {
+        uint32_t ph[kDG][4], pl[kDG][4];
+        BParts<Q8> b[kDG];
+        float step[kDG][4];
 #pragma unroll
-        for (int dn = 0; dn < HD / 8; ++dn) {
-          const float2 v = *reinterpret_cast<const float2*>(vr + dn * 8);
-          st.o[dn][0] = fmaf(pa, v.x, st.o[dn][0]);
-          st.o[dn][1] = fmaf(pa, v.y, st.o[dn][1]);
-          st.o[dn][2] = fmaf(pb, v.x, st.o[dn][2]);
-          st.o[dn][3] = fmaf(pb, v.y, st.o[dn][3]);
+        for (int i = 0; i < kDG; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ph[i][e] = h[e];
+            pl[i][e] = l[e];
+          }
+          b[i].set(vr[(d0 + i) * 8], vr[kRow + (d0 + i) * 8]);
         }
+        parts3<kDG, Q8>(step, ph, pl, b);
+#pragma unroll
+        for (int i = 0; i < kDG; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st.o[d0 + i][e] += step[i][e];
       }
     }
   } else {
@@ -481,7 +620,7 @@ struct Sink {
 template <class T, int HD, bool NARROW, bool Q8, bool SLAB>
 __global__ void __launch_bounds__(kThreads)
 ragged_split_kernel(const Args a) {
-  using RG = Ring<HD, Q8, T>;
+  using RG = Ring<HD, Q8, T, NARROW>;
   constexpr int kTileRows = NARROW ? 16 : 64;
   constexpr int kRow = RG::kRow;
   constexpr int kVec = Elem<T>::kVec;
@@ -510,9 +649,25 @@ ragged_split_kernel(const Args a) {
   const int max_keys = M * bs;
   const T* qg = static_cast<const T*>(a.q);
 
+  // f32: a wide tile whose valid queries all lie in its first 16 rows
+  // (the fused step's decode rows, padded to the prefill's width) is
+  // walked lean, as a narrow tile: each warp folds a quarter of every
+  // stage's keys into those 16 rows, and the four are merged at the end
+  // (its other rows are written as the invalid queries they are). Its one
+  // warp of valid rows would otherwise take every key on the mma.sync
+  // rate alone.
+  bool lean = false;
+  if constexpr (Elem<T>::kF32 && !NARROW) {
+    bool v = false;
+    for (int rr = 16 + threadIdx.x; rr < kTileRows; rr += kThreads) {
+      const int p = p0 + rr / rep;
+      v = v || (p < P && a.valid[r * P + p] != 0);
+    }
+    lean = !__syncthreads_or(v);
+  }
   // this warp's rows: tile row rr is position p0 + rr / rep, head
   // kvh * rep + rr % rep
-  const int row0 = NARROW ? 0 : warp * 16;
+  const int row0 = NARROW || lean ? 0 : warp * 16;
   Rows<HD> st;
   auto load_rows = [&]() {
     const T* qr[2];
@@ -577,12 +732,12 @@ ragged_split_kernel(const Args a) {
 
   if (slab) {
     if constexpr (SLAB) {
-    // the slab split: its S rows as one stage, straight into a T stage
-    // (the int8 kernel's staging stage)
-    T* ks = Q8 ? staged : ring;
-    T* vs = ks + kStageKeys * kRow;
+    // the slab split: its S rows as one 64-row stage, straight into a T
+    // stage (the int8 kernel's staging stage; f32: the ring's start)
+    T* ks = Q8 && !Elem<T>::kF32 ? staged : ring;
+    T* vs = ks + kMaxSlab * kRow;
 #pragma unroll
-    for (int j = threadIdx.x / kChunks; j < kStageKeys;
+    for (int j = threadIdx.x / kChunks; j < kMaxSlab;
          j += kThreads / kChunks) {
       const bool in = j < a.S;
       const size_t off =
@@ -596,7 +751,7 @@ ragged_split_kernel(const Args a) {
     load_rows();
     cp_async_wait<0>();
     __syncthreads();
-    if (NARROW)
+    if (NARROW || lean)
       fold<T, HD, 16, false, true>(st, ks + warp * 16 * kRow,
                                    vs + warp * 16 * kRow, warp * 16,
                                    a.scale_log2, nullptr, nullptr);
@@ -639,8 +794,9 @@ ragged_split_kernel(const Args a) {
     // merge writes every output
     if ((split > 0 || SLAB) && k_lo >= live) return;
     const int k_hi = min(k_lo + a.split_keys, live);
-    const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kStageKeys - 1) /
-                                          kStageKeys : 0;
+    constexpr int kKeys = RG::kKeys;
+    constexpr int kNW = kKeys / 4;          // keys a narrow tile's warp folds
+    const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kKeys - 1) / kKeys : 0;
 
     // Stage `tile` of the split into ring slot `slot`. int8: rows of HD
     // bytes, HD / 16 chunks a row; the chunk-0 thread of each key also
@@ -649,8 +805,8 @@ ragged_split_kernel(const Args a) {
       constexpr int kCh = Q8 ? HD / 16 : kChunks;
       const int ch = threadIdx.x % kCh;
 #pragma unroll
-      for (int j = threadIdx.x / kCh; j < kStageKeys; j += kThreads / kCh) {
-        const int key = k_lo + tile * kStageKeys + j;
+      for (int j = threadIdx.x / kCh; j < kKeys; j += kThreads / kCh) {
+        const int key = k_lo + tile * kKeys + j;
         const bool in = key < k_hi;
         size_t off = 0;
         int bi = 0;
@@ -661,19 +817,19 @@ ragged_split_kernel(const Args a) {
         }
         if constexpr (Q8) {
           signed char* ks = codes + slot * RG::kCodeStage;
-          signed char* vs = ks + kStageKeys * HD;
+          signed char* vs = ks + kKeys * HD;
           const signed char* kp = static_cast<const signed char*>(a.k_pool);
           const signed char* vp = static_cast<const signed char*>(a.v_pool);
           cp_async16(ks + j * HD + ch * 16, kp + off + ch * 16, in);
           cp_async16(vs + j * HD + ch * 16, vp + off + ch * 16, in);
           if (ch == 0) {
-            float* sc = key_sc + slot * 2 * kStageKeys;
+            float* sc = key_sc + slot * 2 * kKeys;
             sc[j] = in ? s_ks[bi] : 0.f;
-            sc[kStageKeys + j] = in ? s_vs[bi] : 0.f;
+            sc[kKeys + j] = in ? s_vs[bi] : 0.f;
           }
         } else {
           T* ks = ring + slot * RG::kStage;
-          T* vs = ks + kStageKeys * kRow;
+          T* vs = ks + kKeys * kRow;
           const T* kp = static_cast<const T*>(a.k_pool);
           const T* vp = static_cast<const T*>(a.v_pool);
           cp_async16(ks + j * kRow + ch * kVec, kp + off + ch * kVec, in);
@@ -701,9 +857,9 @@ ragged_split_kernel(const Args a) {
       const float* vss = nullptr;
       if constexpr (Q8) {
         // widen the landed codes to T, 16 codes at a time: in a narrow
-        // tile each warp its own 16 keys of K and V (rows warp * 16.. and
-        // 64 + warp * 16..), which only it reads; in a wide tile the block
-        // the whole stage
+        // tile each warp its own kNW keys of K and V (rows warp * kNW..
+        // and kKeys + warp * kNW..), which only it reads; in a wide tile
+        // the block the whole stage
         const signed char* src = codes + slot * RG::kCodeStage;
         auto widen = [&](int row, int col) {
           const uint4 w =
@@ -725,33 +881,33 @@ ragged_split_kernel(const Args a) {
         };
         constexpr int kCh = HD / 16;          // 16-code chunks a row
         if (NARROW) {
-          for (int c = lane; c < 32 * kCh; c += 32) {
+          for (int c = lane; c < 2 * kNW * kCh; c += 32) {
             const int r = c / kCh;
-            widen((r < 16 ? 0 : kStageKeys - 16) + warp * 16 + r,
+            widen((r < kNW ? 0 : kKeys - kNW) + warp * kNW + r,
                   (c % kCh) * 16);
           }
           __syncwarp();
         } else {
-          for (int c = threadIdx.x; c < 2 * kStageKeys * kCh; c += kThreads)
+          for (int c = threadIdx.x; c < 2 * kKeys * kCh; c += kThreads)
             widen(c / kCh, (c % kCh) * 16);
           __syncthreads();
         }
         ks = staged;
-        kss = key_sc + slot * 2 * kStageKeys;
-        vss = kss + kStageKeys;
+        kss = key_sc + slot * 2 * kKeys;
+        vss = kss + kKeys;
       } else {
         ks = ring + slot * RG::kStage;
       }
-      const T* vs = ks + kStageKeys * kRow;
-      const int key0 = k_lo + tile * kStageKeys;
-      if (NARROW)
-        fold<T, HD, 16, Q8, false>(
-            st, ks + warp * 16 * kRow, vs + warp * 16 * kRow,
-            key0 + warp * 16, a.scale_log2,
-            Q8 ? kss + warp * 16 : nullptr, Q8 ? vss + warp * 16 : nullptr);
+      const T* vs = ks + kKeys * kRow;
+      const int key0 = k_lo + tile * kKeys;
+      if (NARROW || lean)
+        fold<T, HD, kNW, Q8, false>(
+            st, ks + warp * kNW * kRow, vs + warp * kNW * kRow,
+            key0 + warp * kNW, a.scale_log2,
+            Q8 ? kss + warp * kNW : nullptr, Q8 ? vss + warp * kNW : nullptr);
       else
-        fold<T, HD, 64, Q8, false>(st, ks, vs, key0, a.scale_log2, kss,
-                                   vss);
+        fold<T, HD, kKeys, Q8, false>(st, ks, vs, key0, a.scale_log2, kss,
+                                      vss);
     }
   }
   cp_async_wait<0>();
@@ -762,7 +918,7 @@ ragged_split_kernel(const Args a) {
   const Sink sink{a.out, a.part_o, a.part_ml, a.positions, a.valid,
                   (size_t)gridDim.x * P * H, max_keys, a.split_keys, split,
                   SLAB, slab};
-  if (!NARROW) {
+  if (!NARROW && !lean) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int rr = row0 + g + 8 * h, p = p0 + rr / rep;
@@ -777,8 +933,8 @@ ragged_split_kernel(const Args a) {
     }
     return;
   }
-  // narrow: the 4 warps' partials over the same 16 rows, merged in warp
-  // order through shared memory
+  // narrow (or lean): the 4 warps' partials over the same 16 rows,
+  // merged in warp order through shared memory
   constexpr int kLd = HD + 4;
   float* so = reinterpret_cast<float*>(smem);          // [4][16][kLd]
   float* sml = so + 4 * 16 * kLd;                       // [4][16][2]
@@ -795,7 +951,7 @@ ragged_split_kernel(const Args a) {
           make_float2(st.o[nt][2 * h], st.o[nt][2 * h + 1]);
   }
   __syncthreads();
-  const int rows = min(kTileRows, (P - p0) * rep);
+  const int rows = min(NARROW ? kTileRows : 16, (P - p0) * rep);
   for (int i = threadIdx.x; i < rows * (HD / 4); i += kThreads) {
     const int rr = i / (HD / 4), c = (i % (HD / 4)) * 4;
     float mx = kNegInf;
@@ -816,6 +972,18 @@ ragged_split_kernel(const Args a) {
     const int qi = r * P + p0 + rr / rep;
     sink.put<T, HD, 4>(o4, mx, sum, sink.action(qi),
                        (size_t)qi * H + kvh * rep + rr % rep, c);
+  }
+  if constexpr (Elem<T>::kF32 && !NARROW) {
+    // lean: the tile's rows past the first 16 (no valid query) as the
+    // wide epilogue writes them: nothing seen
+    const float z[4] = {0.f, 0.f, 0.f, 0.f};
+    const int past = min(kTileRows, (P - p0) * rep) - 16;
+    for (int i = threadIdx.x; i < past * (HD / 4); i += kThreads) {
+      const int rr = 16 + i / (HD / 4), c = (i % (HD / 4)) * 4;
+      const int qi = r * P + p0 + rr / rep;
+      sink.put<T, HD, 4>(z, kNegInf, 0.f, sink.action(qi),
+                         (size_t)qi * H + kvh * rep + rr % rep, c);
+    }
   }
 }
 
@@ -901,7 +1069,7 @@ cudaError_t launch(const Args& a, int R, cudaStream_t stream) {
   const int n_pt = (a.P + tile_pos - 1) / tile_pos;
   const int n_all = a.n_splits + (SLAB ? 1 : 0);
   const int nb_max = (a.split_keys + a.bs - 1) / a.bs + 1;
-  using RG = Ring<HD, Q8, T>;
+  using RG = Ring<HD, Q8, T, NARROW>;
   const int smem = RG::kBytes + (NARROW ? RG::kQNarrow : RG::kQWide) +
                    4 * nb_max * (Q8 ? 3 : 1);
   cudaError_t err = hop::allow_smem(

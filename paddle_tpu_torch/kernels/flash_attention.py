@@ -69,8 +69,8 @@ BWD_PAD = 128
 # The f32 kernels' (csrc/flash_f32.cu): twice the bytes a value, so
 # 64-key forward tiles; the backward streams 32-key dq and 32-query dkdv
 # tiles (the N of its wgmma score products, beside their lo planes); a
-# box of 32 columns (one 128-byte swizzle row of f32) x 16 rows; the
-# same padding of Sq.
+# box of 32 columns (one 128-byte swizzle row of f32) x 16 rows (the
+# forward's: x 64 rows); the same padding of Sq.
 FWD_TILES_F32 = (128, 64)
 DQ_TILES_F32 = (128, 32)
 DKDV_TILES_F32 = (128, 32)

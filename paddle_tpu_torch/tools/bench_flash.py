@@ -1,7 +1,7 @@
 """The flash kernels at every shape `chip_smoke.py` holds them, on one GPU.
 
     python -m paddle_tpu_torch.tools.bench_flash [--check] [--label L]
-        [--dtype bf16|f16|f32] [--cases I,J]
+        [--dtype bf16|f16|f32] [--cases I,J] [--fwd-only]
 
 Builds `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu` (`--dtype f32`:
 `csrc/flash_f32.cu`), prints each one's
@@ -9,7 +9,8 @@ ptxas lines and the `HGMMA` / `UTMALDG` instruction counts that
 `cuobjdump -sass` finds in its library, then, for each held shape
 (`--cases`: only those of the given indices into `held`), one
 JSON line: the kernel's and SDPA's times (CUDA events, means after one
-warm-up call; `*_graph_ms`: the same calls captured in one CUDA
+warm-up call; `--fwd-only`: the forward alone, no backward checked or
+timed; `*_graph_ms`: the same calls captured in one CUDA
 graph, the device time with no host cost) and the bound (bytes over
 3.35 TB/s or operations over 989 TFLOP/s, the larger), beside the
 forward's largest error relative to each (query, head) output vector's
@@ -265,8 +266,9 @@ def case(B, S, h, kv, hd, causal, layout="bshd", lengths=None, gen=None,
 
 
 def held(gen):
-    """The shapes chip_smoke.py holds the flash kernels at, S=8192, and
-    the f32 trainer's B=16 (index 15)."""
+    """The shapes chip_smoke.py holds the flash kernels at, S=8192, the
+    f32 trainer's B=16 (index 15) and the held causal [1, 300, 4/1, 72]
+    (index 16: hd 72, a length off every tile, GQA 4:1)."""
     from paddle_tpu_torch.nlp import ernie
     from paddle_tpu_torch.tools.ernie_finetune import padded_batch
     lengths = padded_batch(ernie.ErnieConfig.ernie3_base(), 64, 512)[2] \
@@ -294,13 +296,14 @@ def held(gen):
         dict(B=96, S=256, h=16, kv=16, hd=72, causal=False, layout="bhsd"),
         dict(B=1, S=8192, h=8, kv=2, hd=HD, causal=True),
         dict(B=16, S=2048, h=H, kv=KV, hd=HD, causal=True),
+        dict(B=1, S=300, h=4, kv=1, hd=72, causal=True),
     ]
 
 
 def small_cases(gen):
     """Small and odd shapes for --check: one tile, ragged Sq and Sk,
     Sq < Sk (serving's bottom-right diagonal), every head_dim, GQA,
-    both layouts, a mask with an empty row."""
+    both layouts, a mask with an empty row (over 200 and 512 keys)."""
     m = torch.tensor([0, 37, 130, 200], device="cuda")
     out = []
     for hd in (64, 72, 128):
@@ -313,6 +316,10 @@ def small_cases(gen):
                          layout=layout),
                     dict(B=4, S=200, h=2, kv=2, hd=hd, causal=False,
                          layout=layout, lengths=m)]
+    # 512 keys: eight key tiles of 64, each with a state byte of its own
+    m512 = torch.tensor([0, 512, 300, 77], device="cuda")
+    out += [dict(B=4, S=512, h=2, kv=2, hd=hd, causal=False, layout="bhsd",
+                 lengths=m512) for hd in (64, 128)]
     return out
 
 
@@ -364,6 +371,7 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--label", default="")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
+    ap.add_argument("--fwd-only", action="store_true")
     ap.add_argument("--cases", default="",
                     help="comma-separated indices into the held shapes "
                          "(default: all)")
@@ -390,6 +398,8 @@ def main(argv=None) -> int:
         if args.cases:
             shapes = [shapes[int(i)] for i in args.cases.split(",")]
         for c in shapes:
+            if args.fwd_only:
+                c = {**c, "which": ("fwd",)}
             r = case(gen=gen, **c)
             ok = ok and r["ok"]
             print(json.dumps({"label": args.label, **r}), flush=True)

@@ -5,7 +5,7 @@ into the MoE expert products and ragged paged attention) at every shape
 `chip_smoke.py` holds them, on one GPU.
 
     python -m paddle_tpu_torch.tools.bench_kernels [--check]
-        [--rows 6,7,8,10,11,12,16,18] [--label L]
+        [--rows 6,7,8,10,11,12,16,18] [--label L] [--dtype bf16|f16|f32]
 
 For each held shape one JSON line: the kernel's error against its plain
 version, whether two calls give identical bits, and its times two ways.
@@ -31,7 +31,9 @@ prefill row), continue (64 queries at 512..575), full8 and full32 (8 and
 over int8 twins of the pools (one scale a block); and the suffix slab at
 the speculative shapes (8 rows of committed lengths 0..1000): a chain
 verify (P = S = 5), a tree verify of [2, 2, 1] (P = S = 11) and a draft
-step (P 1, S 4). Row 7's and row 8's: the dense
+step (P 1, S 4); `--dtype` gives q's, the fp pools' and the slab's
+element type (bf16 by default; f16 and f32 held to 1.25e-3 and 2e-5, the
+int8 twins' codes under f16 or f32 q). Row 7's and row 8's: the dense
 step's [16384, 4096] and the MoE step's [40960, 2048], bf16 x and
 weight. Row 10's: the eager ERNIE step's f32 [32768, 768] and the other
 forms `chip_smoke.py` holds (bf16, D 4096 and 8192, affine-free, 4099
@@ -63,7 +65,8 @@ f16 and f32 (q, the fp pool and the slab in that dtype; held to 2e-2,
 1.25e-3 and 2e-5) at hd 64 and 128, GQA groups 1 to 32, P 1, 3 and 40,
 block sizes 16 and 48, random live lengths with invalid rows, each over
 the fp pool, the int8 pool (a never-written block of scale 0 among them)
-and with slabs of 1, 7 and 64 rows of random visibility; row 6 at the
+and with slabs of 1, 7 and 64 rows of random visibility, and wide
+batches again with only each row's first query valid; row 6 at the
 widths of row 7's checks in f32, bf16 and f16 x, with weights in x's
 dtype, f32 or bf16 and affine-free; rows 7 and 8 at widths off the
 warp's round and up to 8192, bf16, f32 and f16 weights, 1 to 4099 rows;
@@ -341,7 +344,9 @@ def ragged_case(args, pos, val, label, timed=True, flush=None, opts=None,
     flops, nbytes = ragged_work(pos, val, q.shape[2], kp.shape[2],
                                 q.shape[3], kp.shape[1], opts,
                                 q.element_size())
-    # f32: the products on FFMA (67 TFLOP/s); 16-bit: the tensor cores
+    # f32: the f32 function's operations at the card's f32 rate (67
+    # TFLOP/s; the kernel computes them in three TF32 parts); 16-bit: the
+    # tensor cores
     res.update(bound(flops, nbytes, PEAK_F32 if q.dtype == _F32
                      else PEAK_FLOPS))
     res["ms"] = time_ms(lambda: ra.ragged_paged_attention(*args, **opts), 50,
@@ -382,6 +387,19 @@ def ragged_random(R, P, h, kv, hd, bs, m, gen, rng, dtype=_BF16):
     return (q, kp, vp, *t), (pos, val)
 
 
+def ragged_front(args, pos, val):
+    """The batch with only each row's first query valid, at its row's
+    last live key, as a fused step's decode rows padded to the prefill's
+    width: wide tiles whose valid queries all lie in their first 16
+    rows (the f32 option walks them lean)."""
+    live = np.where(val, pos + 1, 0).max(axis=1)
+    pos2, val2 = pos.copy(), np.zeros_like(val)
+    pos2[:, 0] = np.maximum(live - 1, 0)
+    val2[:, 0] = live > 0
+    t = [torch.from_numpy(x).to("cuda") for x in (pos2, val2)]
+    return (*args[:4], *t), (pos2, val2)
+
+
 def ragged_options(args, S, q8, gen, rng):
     """The options of one check: int8 twins of the pools (the first block
     never written) and / or a slab of S rows with random visibility
@@ -408,8 +426,8 @@ def ragged_options(args, S, q8, gen, rng):
 
 # row 18's options by q's dtype and their tolerances (each output
 # vector's largest error over its scale): bf16 2.5 ulps of the largest
-# element; f16 the same 2.5 ulps (2.5 x 2^-11); f32 on FFMA, the plain
-# version's own f32 arithmetic in another order (~1e-7 of the scale)
+# element; f16 the same 2.5 ulps (2.5 x 2^-11); f32 in three TF32 parts
+# against the plain version's f32 (~1e-6 of the scale; one part ~5e-4)
 RAGGED_TOLS = {_BF16: TOL, torch.float16: 1.25e-3, _F32: 2e-5}
 
 
@@ -433,6 +451,15 @@ def ragged_checks(gen):
                         out.append(ragged_case(
                             a, pos, val, f"{label} int8={q8} S={S}",
                             timed=False, opts=opts, tol=tol))
+                    if P * h // kv > 16:
+                        # wide tiles with only their first rows valid
+                        fa, (fpos, fval) = ragged_front(args, pos, val)
+                        for q8, S in ((False, 0), (True, 7)):
+                            a, opts = ragged_options(fa, S, q8, gen, rng)
+                            out.append(ragged_case(
+                                a, fpos, fval, f"{label} first query "
+                                f"int8={q8} S={S}", timed=False, opts=opts,
+                                tol=tol))
     return out
 
 
@@ -965,37 +992,40 @@ def gather_mlp_checks(gen):
     return out
 
 
-def held(gen, rows=ROWS):
-    """Every held shape of the table rows `rows`, timed: rows 18, 10, 11
-    and 12, 16, 6, 7, then 8."""
+def held(gen, rows=ROWS, dtype=_BF16):
+    """Every held shape of the table rows `rows`, timed: rows 18 (q, its
+    fp pools and slabs in `dtype`), 10, 11 and 12, 16, 6, 7, then 8."""
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def flush():                          # 256 MB > the 50 MB L2
         scratch.zero_()
 
     res = []
+    tol = RAGGED_TOLS[dtype]
+    dt = "" if dtype == _BF16 else f" {str(dtype)[6:]}"
     for kind in RAGGED_KINDS if 18 in rows else ():
-        args, (pos, val) = ragged_batch(kind, H, KV, HD, BS, M, gen)
+        args, (pos, val) = ragged_batch(kind, H, KV, HD, BS, M, gen,
+                                        dtype=dtype)
         R, P = pos.shape
         res.append(ragged_case(
             args, pos, val, f"{kind} R={R} P={P} H={H} KV={KV} hd={HD} "
-            f"bs={BS} M={M}", flush=flush))
+            f"bs={BS} M={M}{dt}", flush=flush, tol=tol))
         if kind in ("decode", "fused", "full32"):
             kc, vc, opts = quantize_pools(args[1], args[2])
             res.append(ragged_case(
                 (args[0], kc, vc, *args[3:]), pos, val, f"int8 {kind} R={R} "
-                f"P={P} H={H} KV={KV} hd={HD} bs={BS} M={M}", flush=flush,
-                opts=opts))
+                f"P={P} H={H} KV={KV} hd={HD} bs={BS} M={M}{dt}",
+                flush=flush, opts=opts, tol=tol))
             del kc, vc, opts
         del args
     for kind in SPEC_KINDS if 18 in rows else ():
         args, (pos, val), opts = ragged_spec_batch(kind, H, KV, HD, BS, M,
-                                                   gen)
+                                                   gen, dtype=dtype)
         R, P = pos.shape
         res.append(ragged_case(
             args, pos, val, f"{kind} R={R} P={P} S="
             f"{opts['suffix_k'].shape[1]} H={H} KV={KV} hd={HD} bs={BS} "
-            f"M={M}", flush=flush, opts=opts))
+            f"M={M}{dt}", flush=flush, opts=opts, tol=tol))
         del args, opts
     for n, d, dt, affine in LN_SHAPES if 10 in rows else ():
         res.append(ln_bwd_case(n, d, dt, affine, gen, flush))
@@ -1028,7 +1058,11 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", default=",".join(map(str, ROWS)),
                     help="table rows to run, of " + ", ".join(map(str, ROWS)))
     ap.add_argument("--label", default="")
+    ap.add_argument("--dtype", default="bf16", choices=("bf16", "f16", "f32"),
+                    help="row 18's held shapes: q's, the fp pools' and the "
+                         "slab's type")
     args = ap.parse_args(argv)
+    dtype = {"bf16": _BF16, "f16": torch.float16, "f32": _F32}[args.dtype]
     rows = tuple(int(r) for r in args.rows.split(","))
     if not set(rows) <= set(ROWS):
         ap.error(f"--rows takes rows of {ROWS}")
@@ -1044,7 +1078,7 @@ def main(argv=None) -> int:
                  + (adaln_checks(gen) if 12 in rows else [])
                  + (gather_mlp_checks(gen) if 16 in rows else []))
     else:
-        cases = held(gen, rows)
+        cases = held(gen, rows, dtype)
     ok = True
     for r in cases:
         ok = ok and r["ok"]

@@ -2,10 +2,12 @@
 
     python -m paddle_tpu_torch.tools.profile_serve [--layers 32]
         [--kw '{"kv_dtype": "int8", "speculative": true, "spec_k": 4}']
-        [--modes graphed,eager]
+        [--modes graphed,eager] [--dtype bf16|f16|f32]
 
-Builds a ContinuousBatcher at Llama-3-8B widths (random bf16 weights
-from a seed) for each of `--modes`: "graphed", the default batcher,
+Builds a ContinuousBatcher at Llama-3-8B widths (random weights in
+`--dtype`, bf16 by default, from a seed; the model's dtype, so the pools,
+activations and the kernels' options follow it, as in chip_smoke.py's
+serve_f16 and serve_f32) for each of `--modes`: "graphed", the default batcher,
 whose steps replay CUDA graphs (captured by `warmup_prefill()` before
 the first traced step, so no capture is timed), and "eager", its eager
 twin (`_graphed=False`: the same steps launched one operation at a
@@ -60,7 +62,8 @@ _HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
 
 
 def _kernel_class(name: str) -> str:
-    if "flash_fwd_kernel" in name:
+    if ("flash_fwd_kernel" in name or "::fwd_kernel" in name
+            or "10fwd_kernel" in name):       # flash_f32.cu's forward too
         return "flash_fwd"
     if "ragged_" in name:            # the split and the merge kernel
         return "ragged_paged_attention"
@@ -119,6 +122,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kw", type=json.loads, default={},
                     help="ContinuousBatcher keyword arguments, as JSON")
+    ap.add_argument("--dtype", default="bf16", choices=("bf16", "f16", "f32"),
+                    help="the model's dtype (weights, pools, activations)")
     ap.add_argument("--modes", default="graphed,eager",
                     help="comma-separated: graphed (the default batcher, "
                     "warmed) and/or eager (its eager twin)")
@@ -132,7 +137,10 @@ def main(argv=None) -> int:
     from ..nlp import llama
     from ..nlp.paged import ContinuousBatcher
 
-    cfg = llama.LlamaConfig.llama3_8b(num_hidden_layers=args.layers)
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16,
+             "f32": torch.float32}[args.dtype]
+    cfg = llama.LlamaConfig.llama3_8b(num_hidden_layers=args.layers,
+                                      dtype=dtype)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     params = llama.init_params(cfg, gen, device="cuda")
     for mode in modes:
@@ -172,7 +180,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(json.dumps({"layers": args.layers,
+    print(json.dumps({"layers": args.layers, "dtype": args.dtype,
                       "chunk": args.kw.get("chunk", 8),
                       "kw": args.kw, "modes": modes,
                       "device": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@
     python -m paddle_tpu_torch.tools.profile_train
         [--model llama|moe|long8k|train05b|eager_ernie|eager_llama|ernie|dit
                  |resnet50]
-        [--layers N]
+        [--layers N] [--dtype bf16|f32]
 
 `--model llama` (default) builds the flagship dense config (bench.py:120:
 D 4096, F 9472, 11 layers, GQA 32/8, V 32000; batch 8 x 2048);
@@ -13,7 +13,11 @@ V 32000; batch 20 x 2048); `--model long8k` the flagship at 2 x 8192
 (bench.py:381). All three: bf16 params, 8-bit AdamW with the clip at
 1.0, lr 1e-4. `--model train05b` is bench.py:372-376's ~0.5B config
 (D 2048, F 5632, 8 layers, GQA 16/8; batch 16 x 2048) with f32 params
-and the tree adamw behind the clip. Each: random weights from a seed,
+and the tree adamw behind the clip. `--dtype f32` runs `llama` and `moe`
+as chip_smoke.py's train_f32 and train_moe_f32 do: dtype = param_dtype =
+f32 (the flash kernels' f32 option, GEMMs in full f32); llama at batch
+16 x 2048 with the tree adamw (f32 moments) behind the clip, moe at its
+batch with the 8-bit AdamW. Each: random weights from a seed,
 full depth unless `--layers` cuts it; they drive
 `train.make_train_step`. The eager models
 drive their `train_step` under O1 bf16 with f32 params and AdamW with
@@ -92,7 +96,9 @@ _PORT_KERNELS = (("flash_fwd_kernel", "flash_fwd"),
                  ("ln_bwd_kernel", "layer_norm"),
                  ("ln_dwdb_kernel", "layer_norm"),
                  ("adaln_", "adaln"), ("gather_rows_kernel", "moe_dispatch"),
-                 ("gather_mlp_kernel", "moe_dispatch"))
+                 ("gather_mlp_kernel", "moe_dispatch"),
+                 # flash_f32.cu's forward (demangled, mangled)
+                 ("::fwd_kernel", "flash_fwd"), ("10fwd_kernel", "flash_fwd"))
 _EAGER_RANGES = ("eager_forward", "eager_backward", "eager_optimizer")
 
 
@@ -113,7 +119,11 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=None,
                     help="decoder depth (default: the config's own)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", default="bf16", choices=("bf16", "f32"),
+                    help="llama and moe: the compute and parameter dtype")
     args = ap.parse_args(argv)
+    if args.dtype != "bf16" and args.model not in ("llama", "moe"):
+        ap.error("--dtype f32 runs llama or moe")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -131,6 +141,9 @@ def main(argv=None) -> int:
 
     over = ({} if args.layers is None
             else {"num_hidden_layers": args.layers})
+    f32 = args.dtype == "f32"
+    if f32:
+        over.update(dtype=torch.float32, param_dtype=torch.float32)
     if args.model == "moe":
         model, cfg = moe, moe.MoeConfig.flagship_moe(**over)
     elif args.model == "train05b":
@@ -139,10 +152,10 @@ def main(argv=None) -> int:
     else:
         model, cfg = llama, llama.LlamaConfig.flagship_2b(
             max_position_embeddings=_SEQ[args.model], **over)
-    batch = _BATCH[args.model]
-    tx = train.make_optimizer(
-        1e-4, state_quant=None if args.model == "train05b" else "8bit",
-        grad_clip=1.0)
+    batch = 16 if f32 and model is llama else _BATCH[args.model]
+    tree = args.model == "train05b" or (f32 and model is llama)
+    tx = train.make_optimizer(1e-4, state_quant=None if tree else "8bit",
+                              grad_clip=1.0)
     state = train.init_state(
         torch.Generator(device="cuda").manual_seed(args.seed), cfg, tx,
         model=model)
@@ -171,7 +184,8 @@ def main(argv=None) -> int:
         by_class["other"] = by_class.get("other", 0.0) - routing_ms
     tok = batch * _SEQ[args.model]
     print(json.dumps({
-        "step": "train", **_summary(by_class, launches, wall, untraced),
+        "step": "train", "dtype": args.dtype, "batch": batch,
+        **_summary(by_class, launches, wall, untraced),
         "port_launches": {n: c.launches for n, c in counters.items()},
         "tokens": tok, "untraced_tokens_per_s": tok / untraced,
         "loss": float(m["loss"])}), flush=True)

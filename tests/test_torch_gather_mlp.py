@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)       # the test workers share the cores
 
 from paddle_tpu_torch.kernels import moe_dispatch as md  # noqa: E402
 

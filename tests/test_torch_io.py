@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)       # the test workers share the cores
 
 import paddle_tpu_torch as paddle  # noqa: E402
 from paddle_tpu_torch.core import device as tdevice  # noqa: E402

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)       # the test workers share the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -163,9 +164,8 @@ def test_moe_block_matches_jax(width):
         return (jnp.sum(y * ct) + 0.3 * aux["load_balance_loss"]
                 + 0.7 * aux["router_z_loss"]), (y, aux)
 
-    (jl, (jy, jaux)), jg = jax.value_and_grad(jf, argnums=(0, 1),
-                                              has_aux=True)(
-        jnp.asarray(x), jlp)
+    (jl, (jy, jaux)), jg = jax.jit(jax.value_and_grad(
+        jf, argnums=(0, 1), has_aux=True))(jnp.asarray(x), jlp)
     tp = tmoe.params_from_numpy(tree, tcfg, device="cpu")
     tlp = {n: tp["layers"][n][0].clone().requires_grad_(True)
            for n in keys}

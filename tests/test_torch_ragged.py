@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)       # the test workers share the cores
 
 from paddle_tpu_torch.nlp import ragged_attention as tra  # noqa: E402
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)       # the test workers share the cores
 
 import paddle_tpu as jp  # noqa: E402
 

@@ -7,7 +7,13 @@ serve a tiny f32 Llama whose weights are the JAX package's (carried
 across with `params_from_numpy`) and hold every routed, streamed,
 failed-over and HTTP-served token to the JAX `ServingEngine`'s greedy
 output for the same prompts. Replicas share one weight tree.
+
+The failover cases' watchdog deadline (2 s) is wall time, and a full
+collection of the heap that earlier test files left in the process
+pauses every thread for over a second; the module freezes that heap
+(`_frozen_heap`), so its collections walk only its own objects.
 """
+import gc
 import http.client
 import importlib.util
 import json
@@ -19,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)       # the test workers share the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -49,6 +56,16 @@ def _engine_threads_finish():
     for t in threading.enumerate():
         if t.name.startswith("paddle-tpu-torch-") and t.is_alive():
             t.join(timeout=30)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """Move every object alive before the module into the permanent
+    generation, out of the collections a watchdog step would pay for."""
+    gc.collect()
+    gc.freeze()
+    yield
+    gc.unfreeze()
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)       # the test workers share the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

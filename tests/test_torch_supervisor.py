@@ -10,8 +10,14 @@ the JAX `ServingEngine`'s greedy output for the same prompts and weights.
 
 The port captures nothing on the CPU, so a respawn here is fast; the
 watchdog deadline (2 s) still sits far above a tiny model's CPU step
-under a loaded machine and far below the injected hangs (6 s).
+under a loaded machine and far below the injected hangs (6 s). The
+deadline is wall time, and a full collection of the heap that earlier
+test files left in the process pauses every thread: over a second at a
+million objects, past 2 s on a loaded machine. So the module freezes
+that heap (`_frozen_heap`), and its collections walk only its own
+objects.
 """
+import gc
 import importlib.util
 import pathlib
 import random
@@ -22,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)       # the test workers share the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -55,6 +62,28 @@ def _engine_threads_finish():
     for t in threading.enumerate():
         if t.name.startswith("paddle-tpu-torch-") and t.is_alive():
             t.join(timeout=30)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """Move every object alive before the module into the permanent
+    generation, out of the collections a watchdog step would pay for."""
+    gc.collect()
+    gc.freeze()
+    yield
+    gc.unfreeze()
+
+
+_ROUTERS = []
+
+
+@pytest.fixture(autouse=True)
+def _routers_shut_down():
+    """A test that fails before its own shutdown leaves its replicas
+    serving; stop them, so they take no time from the tests after it."""
+    yield
+    while _ROUTERS:
+        _ROUTERS.pop().shutdown(drain=False, timeout=10.0)
 
 
 @pytest.fixture(scope="module")
@@ -91,7 +120,7 @@ def _router(setup, injs, **restart_opts):
     opts = {"backoff_s": 0.05, "poll_s": 0.02,
             "probe_timeout_s": 120.0}
     opts.update(restart_opts)
-    return Router(
+    r = Router(
         params, cfg, replicas=2, max_batch=2, block_size=4,
         max_total_len=48, max_new_tokens=MAX_NEW, chunk=3,
         max_queue_depth=32, max_prefill_bucket=16, watchdog_s=2.0,
@@ -99,6 +128,8 @@ def _router(setup, injs, **restart_opts):
                      {"fault_injector": injs[1]}],
         auto_restart=True, restart_opts=opts, start=False,
         device="cpu")
+    _ROUTERS.append(r)
+    return r
 
 
 class TestUnits:
