@@ -223,6 +223,30 @@ non-zero:
   16. beam   — BeamSearchDecoder over an LSTMCell (hidden 512, vocab
                8000, batch 32, beam 4, 32 steps): the best beam's score
                against the teacher-forced sum of its log-probabilities.
+  17. eager_optim — phase 7's ERNIE recipe under each of the nine
+               per-step optimizers of the eager API's second half
+               (Adagrad, RMSProp, Adamax, Lamb, Adadelta, Rprop, ASGD,
+               NAdam, RAdam), 1 warm-up and 2 timed steps each from the
+               same weights, every step under CUDA's sync debug mode at
+               "error": the LayerNorm and flash pairs at exactly the
+               eager counts, losses finite, every parameter moved, step
+               ms and the device ms of the eager_optimizer span (one
+               traced step); an LBFGS linear probe on the pooled
+               features ([64, 768] -> 2, max_iter 20), its loss falling;
+               Lamb under O2 f16 with GradScaler(2**15), every launch
+               in f16, f16 parameters with f32 masters, losses falling.
+               Then grad_check_optim: one step of each of the ten on the
+               card against the port's CPU run over the real gradients
+               of the ERNIE cut to 2 layers (TF32 off), parameters and
+               states within OPTIM_STEP_TOL of their largest move, three
+               planted faults at least 10 x above it. Then
+               autograd_check: paddle.grad of the 2-layer ERNIE's loss
+               for the embedding output bit for bit equal to a hook's
+               record in backward (the kernels' backward launched in
+               both, every .grad untouched), an R1 gradient penalty
+               through create_graph on resnet18 against the CPU, and a
+               user PyLayer over row 6 at [4096, 4096] bf16 against the
+               built-in path.
 
 The f32 and f16 paths (run after phases 5 and 7):
   5a. train_f32 — phase 5's flagship at `LlamaConfig(dtype=float32,
@@ -6899,6 +6923,636 @@ def phase_beam():
     return res
 
 
+# ------------------------------------------------- 17. eager optimizers
+# the nine per-step optimizers of the eager optimizer phase, at learning
+# rates of their use on a finetune (Adadelta at its customary 1.0; RAdam
+# at its paper's 1e-3: its first steps are the unnormalized lr · m̂,
+# which at 2e-5 moves no bit of a LayerNorm weight near 1), each behind
+# the recipe's global-norm clip
+_EAGER_OPTIMIZERS = {
+    "Adagrad": lambda o, ps, clip: o.Adagrad(1e-3, parameters=ps,
+                                             grad_clip=clip),
+    "RMSProp": lambda o, ps, clip: o.RMSProp(
+        1e-4, momentum=0.9, centered=True, parameters=ps, grad_clip=clip),
+    "Adamax": lambda o, ps, clip: o.Adamax(2e-5, parameters=ps,
+                                           grad_clip=clip),
+    "Lamb": lambda o, ps, clip: o.Lamb(2e-5, lamb_weight_decay=0.01,
+                                       parameters=ps, grad_clip=clip),
+    "Adadelta": lambda o, ps, clip: o.Adadelta(1.0, parameters=ps,
+                                               grad_clip=clip),
+    "Rprop": lambda o, ps, clip: o.Rprop(1e-5, parameters=ps,
+                                         grad_clip=clip),
+    "ASGD": lambda o, ps, clip: o.ASGD(1e-3, batch_num=2, parameters=ps,
+                                       grad_clip=clip),
+    "NAdam": lambda o, ps, clip: o.NAdam(2e-5, parameters=ps,
+                                         grad_clip=clip),
+    "RAdam": lambda o, ps, clip: o.RAdam(1e-3, parameters=ps,
+                                         grad_clip=clip),
+}
+# the O2 f16 Lamb run (BERT's LAMB pretraining recipe: f16 with a dynamic
+# loss scale) on the repeated batch: at 1e-3 every tensor moves by 0.1 %
+# of its norm a step and the loss rose (PERF.md §6); at 1e-4 it falls
+LAMB_O2_LR = 1e-4
+
+
+def _no_sync_step(opt):
+    """opt.step under torch.cuda.set_sync_debug_mode("error"): any device
+    read on the host (an item(), a D2H copy, a synchronize) inside the
+    step raises."""
+    step = opt.step
+
+    def checked(*a, **k):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    opt.step = checked
+    return opt
+
+
+def _restore(params, init):
+    with torch.no_grad():
+        for p, v in zip(params, init):
+            p._data.copy_(v)
+
+
+def _optimizer_device_ms(step):
+    """One step traced by torch.profiler, with the eager spans: the
+    device ms of the kernels that start inside its eager_optimizer span
+    (the optimizer's step and clear_grad)."""
+    from paddle_tpu_torch.tools.profile_train import _device_times
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        loss = step(torch.profiler.record_function)
+        torch.cuda.synchronize()
+    _, _, ranges = _device_times(prof, ("eager_optimizer",))
+    return float(loss), ranges["eager_optimizer"]["device_ms"]
+
+
+def _lbfgs_probe(paddle, model, ids, labels):
+    """An LBFGS linear probe, [64, 768] -> 2 classes, on the encoder's
+    pooled features (tanh of the pooler on token 0, under O1 bf16, in
+    eval mode), full batch, max_iter 20 in one step(closure): the losses
+    the closure saw."""
+    F = paddle.nn.functional
+    model.eval()
+    with paddle.no_grad(), paddle.amp.auto_cast(dtype="bfloat16"):
+        x = model.embeddings(ids)
+        for layer in model.layers:
+            x = layer(x)
+        feats = F.tanh(model.pooler(x[:, 0])).astype("float32")
+    model.train()
+    paddle.seed(SEED + 9)
+    probe = paddle.nn.Linear(feats.shape[1], 2)
+    opt = paddle.optimizer.LBFGS(learning_rate=1.0, max_iter=20,
+                                 parameters=probe.parameters())
+    ce = paddle.nn.CrossEntropyLoss()
+    losses = []
+
+    def closure():
+        opt.clear_grad()
+        loss = ce(probe(feats), labels)
+        loss.backward()
+        losses.append(float(loss))
+        return loss
+
+    opt.step(closure)
+    return list(feats.shape), losses
+
+
+def phase_eager_optim(peaks):
+    """Phase eager's recipe (ERNIE-3.0-base composed from layers, BASELINE
+    config 1, 64 x 512, O1 bf16 over f32 parameters, dropout 0.1, the
+    global-norm clip at 1.0, the same batch every step) under each of the
+    nine per-step optimizers of the eager API's second half, from the
+    same initial weights: 1 warm-up and 2 timed steps, each optimizer
+    step under CUDA's sync debug mode at "error" (no device value read
+    on the host), then one step traced for the device ms of its
+    eager_optimizer span. The LayerNorm pair must launch exactly 25 + 25
+    times a timed step and the flash pair 12 + 12; losses finite; every
+    parameter moved by the first step. Then an LBFGS linear probe on the pooled features
+    (its loss must fall), then Lamb under amp.decorate(level="O2",
+    dtype="float16") with GradScaler(2**15), as BERT's LAMB pretraining
+    runs: 1 warm-up and 4 timed steps, every launch in f16, the
+    parameters f16 with f32 masters, the losses falling."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nlp import ernie
+    from paddle_tpu_torch.tools.eager_ernie import build_model, train_step
+
+    cfg = ernie.ErnieConfig.ernie3_base()
+    batch, seq, timed = 64, 512, 2
+    paddle.set_device("gpu")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    paddle.seed(SEED)
+    model = build_model(paddle, cfg, dropout=0.1)
+    params = model.parameters()
+    init = [p._data.detach().clone() for p in params]
+    ce = paddle.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(0)
+    ids = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    labels = paddle.to_tensor(rng.integers(0, cfg.num_labels, (batch,)))
+    counters = _eager_counters()
+    runs, failures = {}, []
+    for name, make in _EAGER_OPTIMIZERS.items():
+        _restore(params, init)
+        opt = _no_sync_step(make(paddle.optimizer, params,
+                                 paddle.nn.ClipGradByGlobalNorm(1.0)))
+
+        def step(span=None, opt=opt):
+            return train_step(paddle, model, ce, opt, ids, labels,
+                              amp_dtype="bfloat16", span=span)
+
+        losses = [float(step())]                # the warm-up step
+        # after one step every parameter has taken an update (later steps
+        # may take an element back: Rprop's sign flips)
+        moved = torch.stack([(p._data != v).any()
+                             for p, v in zip(params, init)])
+        timed_losses, dt, launches, _ = _run_steps(step, counters, 0, timed)
+        losses += timed_losses
+        loss, opt_ms = _optimizer_device_ms(step)
+        runs[name] = {"step_ms": dt / timed * 1e3,
+                      "optimizer_device_ms": opt_ms,
+                      "losses": losses + [loss], "launches": launches,
+                      "params_not_moved": int((~moved).sum()),
+                      "state_keys": sorted(next(iter(
+                          opt._state.values())))}
+        del opt
+        torch.cuda.empty_cache()
+        r = runs[name]
+        if not all(np.isfinite(r["losses"])):
+            failures.append(f"{name}: non-finite loss {r['losses']}")
+        if r["params_not_moved"]:
+            failures.append(f"{name}: {r['params_not_moved']} parameters "
+                            f"did not move")
+        for kernel, per in _EAGER_LAUNCHES_PER_STEP.items():
+            if launches[kernel] != per * timed:
+                failures.append(f"{name}: {kernel} launched "
+                                f"{launches[kernel]} times in {timed} "
+                                f"steps, expected {per} a step")
+    _restore(params, init)
+    probe_shape, probe_losses = _lbfgs_probe(paddle, model, ids, labels)
+    if not (np.isfinite(probe_losses).all()
+            and probe_losses[-1] < probe_losses[0]):
+        failures.append(f"LBFGS probe: the loss did not fall: "
+                        f"{probe_losses}")
+    # Lamb under O2 f16 with a dynamic loss scale
+    opt = paddle.optimizer.Lamb(LAMB_O2_LR, lamb_weight_decay=0.01,
+                                parameters=params,
+                                grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                     dtype="float16")
+    _no_sync_step(opt)
+    scaler = paddle.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    losses, dt, launches, peak = _run_steps(
+        lambda: train_step(paddle, model, ce, opt, ids, labels,
+                           amp_dtype="float16", amp_level="O2",
+                           scaler=scaler), counters, 1, 4)
+    by_dtype = _read_counts(counters)[1]
+    masters = _masters(opt)
+    lamb_o2 = {"lr": LAMB_O2_LR, "step_ms": dt / 4 * 1e3, "losses": losses,
+               "loss_scale": scaler._scale, "launches_by_dtype": by_dtype,
+               "param_dtypes": sorted({str(p.dtype).replace("torch.", "")
+                                       for p in model.parameters()}),
+               "masters": len(masters),
+               "master_dtypes": sorted({str(m.dtype).replace("torch.", "")
+                                        for m in masters}),
+               "peak_memory_bytes": peak}
+    res = {"phase": "eager_optim",
+           "config": "ErnieConfig.ernie3_base (BASELINE config 1, "
+                     "bench.py:134-181), composed from layers, O1 bf16",
+           "batch": batch, "seq": seq, "timed_steps": timed,
+           "optimizers": runs,
+           "lbfgs_probe": {"features": probe_shape, "max_iter": 20,
+                           "losses": probe_losses},
+           "lamb_o2_f16": lamb_o2, "nvidia_smi": _smi_line()}
+    _emit(res)
+    del model, opt, scaler, init, ids, labels
+    torch.cuda.empty_cache()
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        failures.append(f"Lamb O2 f16: the loss did not fall: {losses}")
+    if lamb_o2["param_dtypes"] != ["float16"] or \
+            lamb_o2["master_dtypes"] != ["float32"] or \
+            lamb_o2["masters"] != len(params):
+        failures.append(f"Lamb O2 f16: parameters {lamb_o2['param_dtypes']}"
+                        f", {lamb_o2['masters']} masters "
+                        f"{lamb_o2['master_dtypes']}")
+    try:
+        _check_dtype_launches("eager_optim Lamb O2", by_dtype,
+                              _EAGER_LAUNCHES_PER_STEP, 4, "f16")
+    except AssertionError as e:
+        failures.append(str(e))
+    if failures:
+        raise AssertionError("eager_optim: " + "; ".join(failures))
+    return res
+
+
+# one optimizer step of each of the ten on the card against the port's
+# CPU run from the same parameters and gradients, relative to the largest
+# move of what is compared. Both run the same f32 operations in the same
+# order element by element; they part where the card's square root or
+# its foreach division by a Python scalar (a product with the
+# reciprocal) rounds an ulp off the CPU's, where a reduction sums in
+# another order (Lamb's norms, in f64 on both; LBFGS's dot products) or
+# pow rounds differently (NAdam's and RAdam's schedules): a few ulps of
+# a step, and one ulp of a step can flip the rounding of value - step by
+# one ulp of the value: ~1e-7 of values near 1 against moves of 1e-2 or
+# more
+OPTIM_STEP_TOL = 1e-5
+# learning rates that move the parameters far beyond their own ulps
+_CHECK_OPTIMIZERS = {
+    "Adagrad": lambda o, ps: o.Adagrad(0.1, parameters=ps,
+                                       weight_decay=0.01),
+    "RMSProp": lambda o, ps: o.RMSProp(0.01, momentum=0.9, centered=True,
+                                       parameters=ps, weight_decay=0.01),
+    "Adamax": lambda o, ps: o.Adamax(0.1, parameters=ps, weight_decay=0.01),
+    "Lamb": lambda o, ps: o.Lamb(0.1, lamb_weight_decay=0.01,
+                                 parameters=ps),
+    "Adadelta": lambda o, ps: o.Adadelta(1.0, parameters=ps,
+                                         weight_decay=0.01),
+    "Rprop": lambda o, ps: o.Rprop(0.01, parameters=ps),
+    "ASGD": lambda o, ps: o.ASGD(0.1, batch_num=2, parameters=ps,
+                                 weight_decay=0.01),
+    "NAdam": lambda o, ps: o.NAdam(0.1, parameters=ps, weight_decay=0.01),
+    "RAdam": lambda o, ps: o.RAdam(0.1, parameters=ps, weight_decay=0.01),
+    "LBFGS": lambda o, ps: o.LBFGS(1.0, max_iter=3, parameters=ps),
+}
+
+
+def _planted_optimizers(paddle):
+    """The planted faults: Lamb with its trust ratio forced to 1, RMSProp
+    centered without the mean-gradient term, RAdam rectified at every t
+    (at t = 1 it takes the plain momentum step)."""
+    o = paddle.optimizer
+
+    class LambTrustOne(o.Lamb):
+        @staticmethod
+        def _trust(w_norms, r_norms):
+            return torch.ones(len(w_norms), device=w_norms[0].device)
+
+    class RMSPropUncentered(o.RMSProp):
+        def _steps(self, *args):
+            self._centered = False
+            try:
+                return super()._steps(*args)
+            finally:
+                self._centered = True
+
+    class RAdamAlwaysRectified(o.RAdam):
+        @staticmethod
+        def _rectified(rho_t):
+            return torch.ones_like(rho_t, dtype=torch.bool)
+
+    return {"Lamb": lambda ps: LambTrustOne(
+                0.1, lamb_weight_decay=0.01, parameters=ps),
+            "RMSProp": lambda ps: RMSPropUncentered(
+                0.01, momentum=0.9, centered=True, parameters=ps,
+                weight_decay=0.01),
+            "RAdam": lambda ps: RAdamAlwaysRectified(
+                0.1, parameters=ps, weight_decay=0.01)}
+
+
+def _optim_run(paddle, device, values, grads, make):
+    """Parameters made from `values` on `device`, their `.grad` from
+    `grads` (LBFGS: a closure whose loss Σ p·g + 0.005 Σ p² has the
+    gradients g + 0.01 p), one step of make(parameters) → (the
+    parameters after it, {state key: [each parameter's state after it]},
+    {state key: [each parameter's initial state]}), as numpy."""
+    paddle.set_device(device)
+    params = [paddle.Parameter(v, name=f"p{i}")
+              for i, v in enumerate(values)]
+    opt = make(params)
+    start = {}
+    if isinstance(opt, paddle.optimizer.LBFGS):
+        gs = [paddle.to_tensor(g) for g in grads]
+
+        def closure():
+            opt.clear_grad()
+            loss = None
+            for p, g in zip(params, gs):
+                term = (p * g).sum() + (p * p).sum() * 0.005
+                loss = term if loss is None else loss + term
+            loss.backward()
+            return loss
+
+        opt.step(closure)
+    else:
+        for p, g in zip(params, grads):
+            p.grad = paddle.to_tensor(g)
+            for k, v in opt._init_state(p).items():
+                start.setdefault(k, []).append(v.cpu().numpy())
+        opt.step()
+    states = {}
+    for p in params:
+        for k, v in opt._state.get(id(p), {}).items():
+            states.setdefault(k, []).append(v.cpu().numpy())
+    out = ([p.numpy() for p in params], states, start)
+    paddle.set_device("gpu")
+    return out
+
+
+def _rel_to_move(got, want, start):
+    """max |got - want| over the max |want - start|, both over every
+    tensor of the lists."""
+    move = max(float(np.abs(w.astype(np.float64) - s).max())
+               for w, s in zip(want, start))
+    err = max(float(np.abs(g.astype(np.float64) - w).max())
+              for g, w in zip(got, want))
+    return err / move if move else (0.0 if err == 0 else float("inf"))
+
+
+def phase_grad_check_optim():
+    """One batch's real gradients of the eager ERNIE cut to 2 layers at
+    full width (dropout 0, O1 bf16, batch 4 x 512), then one step of each
+    of the ten optimizers of the eager API's second half on the card
+    against the port's CPU run from the same f32 parameters and
+    gradients (LBFGS: 3 iterations of a closure whose gradients are
+    those plus 0.01 p), with TF32 off: every parameter within
+    OPTIM_STEP_TOL of the parameters' largest move, every state (by key)
+    within it of that state's largest move from its initial value
+    (integer states equal). The planted faults (Lamb's trust ratio 1,
+    RMSProp centered without the mean gradient, RAdam rectified at
+    t = 1) must read at least 10 x the bound on the parameters."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nlp import ernie
+    from paddle_tpu_torch.tools.eager_ernie import build_model
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        layers, batch, seq = 2, 4, 512
+        cfg = ernie.ErnieConfig.ernie3_base(num_hidden_layers=layers)
+        paddle.set_device("gpu")
+        paddle.seed(SEED + 5)
+        model = build_model(paddle, cfg, dropout=0.0)
+        rng = np.random.default_rng(5)
+        ids = paddle.to_tensor(rng.integers(0, cfg.vocab_size,
+                                            (batch, seq)))
+        labels = paddle.to_tensor(rng.integers(0, cfg.num_labels,
+                                               (batch,)))
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            loss = paddle.nn.CrossEntropyLoss()(model(ids), labels)
+        loss.backward()
+        values = [p.numpy().copy() for p in model.parameters()]
+        grads = [p.grad.numpy().copy() for p in model.parameters()]
+        del model, loss
+        torch.cuda.empty_cache()
+        o = paddle.optimizer
+        results, faults = {}, {}
+        planted = _planted_optimizers(paddle)
+        for name, make in _CHECK_OPTIMIZERS.items():
+            cpu = _optim_run(paddle, "cpu", values, grads,
+                             lambda ps: make(o, ps))
+            card = _optim_run(paddle, "gpu", values, grads,
+                              lambda ps: make(o, ps))
+            states = {}
+            for k, want in cpu[1].items():
+                got = card[1][k]
+                if np.issubdtype(want[0].dtype, np.integer):
+                    same = all(np.array_equal(a, b)
+                               for a, b in zip(got, want))
+                    states[k] = 0.0 if same else float("inf")
+                else:
+                    states[k] = _rel_to_move(got, want, cpu[2][k])
+            results[name] = {"param_rel_err": _rel_to_move(
+                card[0], cpu[0], values), "state_rel_err": states}
+            if name in planted:
+                bad = _optim_run(paddle, "gpu", values, grads, planted[name])
+                faults[name] = _rel_to_move(bad[0], cpu[0], values)
+            del cpu, card
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        paddle.set_device("gpu")
+    res = {"phase": "grad_check_optim", "layers": layers, "batch": batch,
+           "seq": seq, "params": int(sum(v.size for v in values)),
+           "tol": OPTIM_STEP_TOL, "optimizers": results,
+           "planted_faults": faults,
+           "faults": {"Lamb": "trust ratio forced to 1",
+                      "RMSProp": "centered without the mean gradient",
+                      "RAdam": "rectified at every t"},
+           "nvidia_smi": _smi_line()}
+    _emit(res)
+    bad = [f"{n}: {r}" for n, r in results.items()
+           if not (r["param_rel_err"] <= OPTIM_STEP_TOL and all(
+               e <= OPTIM_STEP_TOL for e in r["state_rel_err"].values()))]
+    low = [f"{n}: {e}" for n, e in faults.items()
+           if not e >= 10 * OPTIM_STEP_TOL]
+    if bad or low:
+        raise AssertionError(f"grad_check_optim: outside the bound: {bad}; "
+                             f"planted faults within 10 x it: {low}")
+    return res
+
+
+# the user PyLayer of autograd_check (c) against the built-in path: the
+# input and weight gradients within this share of their largest
+# magnitude (bf16 x, the backward's f32 arithmetic in another order)
+PYLAYER_GRAD_TOL = 2e-2
+
+
+def _user_rms_norm(paddle):
+    """A user PyLayer over the fused RMSNorm (row 6's kernel in its
+    forward) whose backward is written from its saved tensors with the
+    eager API's ops, in f32."""
+    F = paddle.incubate.nn.functional
+
+    class UserRMSNorm(paddle.PyLayer):
+        @staticmethod
+        def forward(ctx, x, w, eps):
+            ctx.save_for_backward(x, w)
+            ctx.eps = eps
+            return F.fused_rms_norm(x, w, epsilon=eps)
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, w = ctx.saved_tensor()
+            xf, dyf = x.astype("float32"), dy.astype("float32")
+            r = ((xf * xf).mean(axis=-1, keepdim=True) + ctx.eps) ** -0.5
+            xhat = xf * r
+            g = dyf * w.astype("float32")
+            dx = r * (g - xhat * (g * xhat).mean(axis=-1, keepdim=True))
+            dw = (dyf * xhat).sum(axis=0)
+            return dx.astype(x.dtype), dw.astype(w.dtype)
+
+    return UserRMSNorm
+
+
+def _r1_penalty(paddle, state, x, device):
+    """The R1 penalty ‖∂D/∂x‖² of resnet18 as D (the sum of its logits)
+    at x, through paddle.grad(create_graph=True), then its backward →
+    (the penalty, every parameter's gradient), as numpy."""
+    paddle.set_device(device)
+    model = paddle.vision.models.resnet18(num_classes=1000)
+    model.set_state_dict(state)
+    xt = paddle.to_tensor(x, stop_gradient=False)
+    (gx,) = paddle.grad(model(xt).sum(), [xt], create_graph=True)
+    pen = (gx * gx).sum()
+    pen.backward()
+    # a parameter the penalty does not reach (the last bias) has no grad
+    out = (float(pen), {n: np.zeros(p.shape, np.float32) if p.grad is None
+                        else p.grad.numpy()
+                        for n, p in model.named_parameters()})
+    paddle.set_device("gpu")
+    return out
+
+
+def phase_autograd_check():
+    """The autograd surface on the card.
+    (a) The eager ERNIE at full width cut to 2 layers (dropout 0, O1
+        bf16, batch 4 x 512): paddle.grad(loss, [h]) for the embedding
+        output h equals, bit for bit, what a register_hook on h records
+        during loss.backward(); the flash and LayerNorm backward kernels
+        launch in both; paddle.grad leaves every parameter's .grad as
+        backward left it (bit for bit).
+    (b) An R1 gradient penalty ‖∂D/∂x‖² through
+        paddle.grad(create_graph=True), then backward, on resnet18 at
+        2 x 3 x 64 x 64 f32 with TF32 off, against the port's CPU run:
+        the penalty and every parameter's gradient within
+        RESNET_STEP_TOL of the gradients' largest magnitude.
+    (c) A user PyLayer over F.fused_rms_norm at the eager Llama's
+        [4096, 4096] bf16 (f32 weight), its backward written from saved
+        tensors: the input and weight gradients within PYLAYER_GRAD_TOL
+        of their largest magnitude of the built-in path's, row 6
+        launched once by the PyLayer's forward."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    from paddle_tpu_torch.nlp import ernie
+    from paddle_tpu_torch.tools.eager_ernie import build_model
+
+    res = {"phase": "autograd_check"}
+    failures = []
+    # (a) paddle.grad against a hook, on the kernels' backward
+    cfg = ernie.ErnieConfig.ernie3_base(num_hidden_layers=2)
+    paddle.set_device("gpu")
+    paddle.seed(SEED + 6)
+    model = build_model(paddle, cfg, dropout=0.0)
+    rng = np.random.default_rng(6)
+    ids = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (4, 512)))
+    labels = paddle.to_tensor(rng.integers(0, cfg.num_labels, (4,)))
+    seen, hooked = {}, []
+
+    def grab(layer, inputs, out):
+        seen["h"] = out
+        out.register_hook(lambda g: hooked.append(g._data.clone()))
+
+    handle = model.embeddings.register_forward_post_hook(grab)
+    with paddle.amp.auto_cast(dtype="bfloat16"):
+        loss = paddle.nn.CrossEntropyLoss()(model(ids), labels)
+    handle.remove()
+    counters = {"flash_attention_bwd": fa.flash_attention_bwd,
+                "layer_norm_bwd": ln.layer_norm_bwd}
+    _zero_counts(counters)
+    loss.backward(retain_graph=True)
+    torch.cuda.synchronize()
+    bwd_launches = _read_counts(counters)[0]
+    grads = {n: p.grad._data.clone() for n, p in model.named_parameters()}
+    _zero_counts(counters)
+    (gh,) = paddle.grad(loss, [seen["h"]])
+    torch.cuda.synchronize()
+    grad_launches = _read_counts(counters)[0]
+    untouched = all(torch.equal(p.grad._data, grads[n])
+                    for n, p in model.named_parameters())
+    res["a"] = {"layers": 2, "batch": 4, "seq": 512,
+                "h_shape": seen["h"].shape,
+                "bit_identical": bool(torch.equal(gh._data, hooked[0])),
+                "max_abs_diff": float((gh._data.float()
+                                       - hooked[0].float()).abs().max()),
+                "backward_launches": bwd_launches,
+                "grad_launches": grad_launches,
+                "param_grads_untouched": untouched}
+    if not res["a"]["bit_identical"]:
+        failures.append("(a) paddle.grad differs from the hook's gradient")
+    if not untouched:
+        failures.append("(a) paddle.grad changed a parameter's .grad")
+    for n in counters:
+        if not (bwd_launches[n] >= 1 and grad_launches[n] >= 1):
+            failures.append(f"(a) {n} did not launch in both: "
+                            f"{bwd_launches} {grad_launches}")
+    del model, loss, seen, hooked, grads, gh
+    torch.cuda.empty_cache()
+    # (b) an R1 gradient penalty against the CPU
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        paddle.set_device("cpu")
+        paddle.seed(SEED + 7)
+        state = {k: v.numpy().copy() for k, v in
+                 paddle.vision.models.resnet18(num_classes=1000)
+                 .state_dict().items()}
+        x = np.random.default_rng(SEED + 7).standard_normal(
+            (2, 3, 64, 64)).astype(np.float32)
+        cpu = _r1_penalty(paddle, state, x, "cpu")
+        card = _r1_penalty(paddle, state, x, "gpu")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        paddle.set_device("gpu")
+    scale = max(float(np.abs(g).max()) for g in cpu[1].values())
+    grad_err = max(float(np.abs(card[1][n] - g).max())
+                   for n, g in cpu[1].items()) / scale
+    res["b"] = {"model": "resnet18", "input": [2, 3, 64, 64],
+                "penalty_cpu": cpu[0], "penalty_card": card[0],
+                "penalty_rel_err": abs(card[0] - cpu[0]) / abs(cpu[0]),
+                "grad_rel_err": grad_err, "tol": RESNET_STEP_TOL}
+    if not (res["b"]["penalty_rel_err"] <= RESNET_STEP_TOL
+            and grad_err <= RESNET_STEP_TOL):
+        failures.append(f"(b) the R1 penalty's gradients: {res['b']}")
+    # (c) a user PyLayer over row 6 against the built-in path
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    x0 = torch.randn(4096, 4096, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    w0 = 1 + 0.1 * torch.randn(4096, generator=gen, device="cuda")
+    dy = paddle.Tensor(torch.randn(4096, 4096, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16))
+    out = {}
+    for how in ("built_in", "pylayer"):
+        x = paddle.Tensor(x0.clone(), stop_gradient=False)
+        w = paddle.Tensor(w0.clone(), stop_gradient=False)
+        _zero_counts({"rms_norm_fused": rn.rms_norm_fused})
+        if how == "pylayer":
+            y = _user_rms_norm(paddle).apply(x, w, 1e-6)
+        else:
+            y = paddle.incubate.nn.functional.fused_rms_norm(x, w,
+                                                             epsilon=1e-6)
+        launched = rn.rms_norm_fused.launches
+        (y * dy).astype("float32").sum().backward()
+        out[how] = (y._data, x.grad._data.float(), w.grad._data.float(),
+                    launched)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    res["c"] = {"shape": [4096, 4096], "dtype": "bfloat16",
+                "weight_dtype": "float32",
+                "out_equal": bool(torch.equal(out["pylayer"][0],
+                                              out["built_in"][0])),
+                "dx_rel_err": rel(out["pylayer"][1], out["built_in"][1]),
+                "dw_rel_err": rel(out["pylayer"][2], out["built_in"][2]),
+                "rms_norm_fused_launches": out["pylayer"][3],
+                "tol": PYLAYER_GRAD_TOL}
+    del out, x0, w0, dy
+    torch.cuda.empty_cache()
+    if not (res["c"]["out_equal"] and res["c"]["rms_norm_fused_launches"]
+            == 1 and res["c"]["dx_rel_err"] <= PYLAYER_GRAD_TOL
+            and res["c"]["dw_rel_err"] <= PYLAYER_GRAD_TOL):
+        failures.append(f"(c) the PyLayer over row 6: {res['c']}")
+    res["nvidia_smi"] = _smi_line()
+    _emit(res)
+    if failures:
+        raise AssertionError("autograd_check: " + "; ".join(failures))
+    return res
+
+
 # "main": for each path that launches the kernel, the case at that
 # path's shape whose times the kernels line reports (its index among the
 # kernel's cases, or among those of the path where cases name their
@@ -7209,6 +7863,9 @@ def main() -> int:
     _timed(phase_resnet50, peaks)
     _timed(phase_grad_check_resnet)
     _timed(phase_beam)
+    _timed(phase_eager_optim, peaks)
+    _timed(phase_grad_check_optim)
+    _timed(phase_autograd_check)
     runs = {"serve": serve, "serve_prefix": serve_prefix,
             "serve_quant_spec": quant_spec, "serve_robust": robust,
             "train": train,

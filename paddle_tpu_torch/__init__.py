@@ -31,12 +31,14 @@ eager-API slices):
     optimizer.transform   the optax transformations the train step uses
     serving               ServingEngine over the batcher
     core, ops, autograd,  the Paddle-shaped eager API: Tensor and its
-    amp, nn, optimizer,   operators, Parameter, to_tensor, the eager
-    incubate,             dispatch with AMP casts, torch autograd as the
-    regularizer           tape, Layer and its layers, SGD, Momentum,
-                          Adam(W) with master weights, the clips and
-                          decays, amp.decorate (O2) and GradScaler, the
-                          incubate fused layers
+    amp, nn, optimizer,   operators and in-place ops, Parameter,
+    incubate,             to_tensor, the eager dispatch with AMP casts,
+    regularizer           torch autograd as the tape (backward, grad,
+                          hooks, PyLayer, the functional transforms),
+                          Layer and its layers, the fourteen optimizers
+                          with master weights, the clips and decays,
+                          amp.decorate (O2) and GradScaler, the incubate
+                          fused layers
     kernels.layer_norm    the fused LayerNorm's forward and backward
                           (csrc/layer_norm.cu)
     inference             Config, create_predictor, the LLM predictor
@@ -84,12 +86,16 @@ from .core.flags import set_flags, get_flags  # noqa: F401
 from .core.random import seed  # noqa: F401
 from .core.tensor import Tensor, Parameter, to_tensor  # noqa: F401
 from . import autograd  # noqa: F401
-from .autograd import no_grad, enable_grad, set_grad_enabled  # noqa: F401
+from .autograd import (no_grad, enable_grad, set_grad_enabled,  # noqa: F401
+                       is_grad_enabled, grad, PyLayer)
 from .ops import (zeros, ones, full, arange, add, subtract,  # noqa: F401
                   multiply, divide, matmul, tanh, exp, reshape, transpose,
                   flatten, split, squeeze, unsqueeze, concat, stack, cast,
-                  sum, mean, equal, not_equal)
+                  sum, mean, equal, not_equal, where)
 from . import ops  # noqa: F401
+# the in-place ops (add_, exp_, reshape_, where_, ...), as the JAX
+# package exports them at the top level
+globals().update({_n: getattr(ops, _n) for _n in ops.INPLACE_OPS})
 from . import nn  # noqa: F401
 from .nn.layer import ParamAttr  # noqa: F401
 from . import optimizer  # noqa: F401

@@ -26,7 +26,10 @@ from .device import Place, _device
 
 def _from_numpy(a: np.ndarray, device) -> torch.Tensor:
     """A numpy array (ml_dtypes bfloat16 included) as a torch tensor on
-    `device`, of the array's own shape (0-d stays 0-d)."""
+    `device`, of the array's own shape (0-d stays 0-d). Always a copy:
+    the caller's array and the tensor never share memory (an in-place
+    op on the tensor leaves the array as it was, as in the JAX
+    package)."""
     a = np.asarray(a, order="C")
     if not a.flags.writeable:
         a = a.copy()
@@ -34,7 +37,7 @@ def _from_numpy(a: np.ndarray, device) -> torch.Tensor:
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device)
+    return t.to(device, copy=True)
 
 
 def _is_float(t: torch.Tensor) -> bool:
@@ -48,9 +51,46 @@ def _new_name() -> str:
     return f"generated_tensor_{next(_ids)}"
 
 
+class _HookHandle:
+    """What `Tensor.register_hook` returns; `remove()` takes the hook off.
+    The hook sits on the tensor's current torch tensor while that
+    requires grad, and moves with it when an in-place op gives the
+    Tensor a new one."""
+
+    def __init__(self, tensor: "Tensor", hook):
+        self._tensor, self._hook, self._torch = tensor, hook, None
+
+    def _attach(self) -> None:
+        d = self._tensor._data
+        if self._torch is None and d.requires_grad:
+            self._torch = d.register_hook(self._run)
+
+    def _detach(self) -> None:
+        if self._torch is not None:
+            self._torch.remove()
+            self._torch = None
+
+    def _run(self, g: torch.Tensor):
+        # under create_graph the gradient is itself differentiable, and
+        # the hook's ops on it are recorded
+        out = self._hook(Tensor._wrap(g, not g.requires_grad))
+        if out is None:
+            return None
+        if isinstance(out, Tensor):
+            return out._data
+        return torch.as_tensor(out, dtype=g.dtype, device=g.device)
+
+    def remove(self) -> None:
+        self._detach()
+        t = self._tensor
+        t._hooks = tuple(h for h in t._hooks if h is not self)
+
+
 class Tensor:
     __slots__ = ("_data", "_sg", "_leaf", "name", "__weakref__", "__dict__")
-    _version = 0      # bumped by each in-place write (`__setitem__`)
+    _version = 0      # bumped by each in-place write (`__setitem__`, `*_`)
+    _hooks = ()       # the handles of register_hook, in order
+    _retain = False   # retain_grads() was called
 
     def __init__(self, data, stop_gradient: bool = True,
                  name: Optional[str] = None):
@@ -88,10 +128,13 @@ class Tensor:
         if self._leaf and d.grad_fn is None and _is_float(d) \
                 and d.requires_grad == self._sg:
             d.requires_grad_(not self._sg)
+            for h in self._hooks:
+                h._attach()
 
     @property
     def grad(self) -> Optional["Tensor"]:
-        g = self._data.grad if self._data.is_leaf else None
+        d = self._data
+        g = d.grad if d.is_leaf or self._retain else None
         return None if g is None else Tensor._wrap(g, True)
 
     @grad.setter
@@ -141,11 +184,14 @@ class Tensor:
 
     # ---- conversion -------------------------------------------------------
     def numpy(self) -> np.ndarray:
-        """A host copy; bfloat16 comes back as float32 (numpy has no
-        bfloat16 of its own)."""
+        """A host copy, which later in-place writes to the tensor leave
+        as it is; bfloat16 comes back as float32 (numpy has no bfloat16
+        of its own)."""
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             d = d.float()
+        elif d.device.type == "cpu":
+            d = d.clone()
         return d.cpu().numpy()
 
     def item(self, *args) -> Any:
@@ -173,6 +219,42 @@ class Tensor:
     def backward(self, grad_tensor=None, retain_graph=False) -> None:
         from ..autograd import tape
         tape.backward(self, grad_tensor, retain_graph=retain_graph)
+
+    def register_hook(self, hook) -> _HookHandle:
+        """hook(grad) runs on the gradient flowing into this tensor
+        during `backward()` and `paddle.grad` (a leaf's before it is
+        accumulated into `.grad`); a Tensor it returns replaces the
+        gradient. torch's engine calls it once on the tensor's summed
+        gradient, where the JAX tape calls it on each use's part (a
+        recorded divergence, as in Paddle). Returns a handle whose
+        `remove()` takes it off."""
+        handle = _HookHandle(self, hook)
+        self._hooks = self._hooks + (handle,)
+        handle._attach()
+        return handle
+
+    def retain_grads(self) -> None:
+        """Keep `.grad` on a non-leaf (its gradient accumulates there in
+        backward, as a leaf's does)."""
+        self._retain = True
+        if not self._data.is_leaf:
+            self._data.retain_grad()
+
+    def _set_data(self, data: torch.Tensor) -> None:
+        """`data` becomes this Tensor's torch tensor (an in-place op's
+        result): hooks and retain_grads move along."""
+        for h in self._hooks:
+            h._detach()
+        self._data = data
+        for h in self._hooks:
+            h._attach()
+        if self._retain and not data.is_leaf:
+            data.retain_grad()
+
+    @property
+    def inplace_version(self) -> int:
+        """The number of in-place writes to this tensor."""
+        return self._version
 
     def clear_grad(self) -> None:
         self._data.grad = None

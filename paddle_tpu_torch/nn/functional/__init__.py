@@ -1,6 +1,7 @@
 """paddle_tpu_torch.nn.functional — the functional namespace (F.*) of
 the eager API: port of paddle_tpu/nn/functional/, holding the functions
-the eager path uses."""
+the eager path uses, and the in-place twins of the activations
+(`relu_`, `gelu_`, `silu_`, `swish_`, `tanh_`: `ops.attach_inplace`)."""
 from .activation import (relu, gelu, silu, swish, tanh,  # noqa: F401
                          log_softmax)
 from .common import linear, dropout, embedding  # noqa: F401
@@ -17,3 +18,7 @@ from .conv import (conv1d, conv2d, conv3d, conv1d_transpose,  # noqa: F401
                    adaptive_max_pool2d, adaptive_max_pool3d, max_unpool1d,
                    max_unpool2d, max_unpool3d, lp_pool1d, lp_pool2d,
                    fractional_max_pool2d, fractional_max_pool3d)
+
+from ...ops import attach_inplace as _attach_inplace  # noqa: E402
+
+INPLACE_OPS = _attach_inplace(globals())

@@ -30,9 +30,11 @@ import torch.nn.functional as TF
 
 from ...core.tensor import Tensor
 from ...ops._registry import as_array, eager
+from .activation import _inexact
 
 
 def _layer_norm_raw(x, weight, bias, epsilon, begin_norm_axis):
+    x = _inexact(x)
     axes = tuple(range(begin_norm_axis, x.ndim))
     mean = torch.mean(x, dim=axes, keepdim=True)
     var = torch.mean(torch.square(x - mean), dim=axes, keepdim=True)

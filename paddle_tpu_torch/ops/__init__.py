@@ -5,9 +5,11 @@ path uses. As in the JAX package, every op is exported here and attached
 as a Tensor method, with Paddle's method aliases and the Tensor protocol:
 the arithmetic operators (`+ - * / // % ** @`, unary `-`, `abs`), the
 comparisons and `~ & | ^` (logical on a bool tensor, bitwise otherwise:
-the left operand's dtype decides, as in the JAX package). In-place
-variants (`add_`, ...) arrive with the rest of the eager API (ROADMAP.md
-Queue 1).
+the left operand's dtype decides, as in the JAX package). Each op
+named in the JAX package's in-place lists (`INPLACE`) has its in-place
+variant `name_` here and as a Tensor method, and `where_` writes into x
+(`_registry.adopt_inplace`); the in-place variants of the JAX package's
+other ops come with them (ROADMAP.md Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from ..core.tensor import Tensor
 
-from ._registry import defop, eager, as_array  # noqa: F401
+from ._registry import defop, eager, as_array, adopt_inplace  # noqa: F401
 from .creation import to_tensor, zeros, ones, full, arange  # noqa: F401
 from .creation import assign, clone  # noqa: F401
 from .math import (add, subtract, multiply, divide, exp, tanh,  # noqa: F401
@@ -24,7 +26,7 @@ from .math import (add, subtract, multiply, divide, exp, tanh,  # noqa: F401
                    bitwise_not)
 from .manipulation import (reshape, transpose, flatten,  # noqa: F401
                            squeeze, unsqueeze, cast, concat, stack, split,
-                           getitem, setitem_)
+                           getitem, setitem_, where)
 from .reduction import sum, mean  # noqa: F401
 from .comparison import (equal, not_equal, greater_than,  # noqa: F401
                          greater_equal, less_than, less_equal, logical_and,
@@ -35,6 +37,74 @@ from . import (comparison, creation, math, manipulation,  # noqa: F401
 
 # paddle method aliases
 _ALIASES = {"sub": "subtract", "mul": "multiply", "div": "divide"}
+
+# the ops with an in-place twin `name_` in the JAX package: its _INPLACE
+# (paddle_tpu/ops/__init__.py:54-76) and _MORE_INPLACE
+# (paddle_tpu/ops/method_ext.py:54) lists, in their order
+INPLACE = list(dict.fromkeys([
+    "add", "subtract", "multiply", "divide", "clip", "scale", "exp", "sqrt",
+    "rsqrt", "floor", "ceil", "round", "reciprocal", "abs", "sin", "cos",
+    "tanh", "sigmoid", "relu", "flatten", "reshape", "squeeze", "unsqueeze",
+    "pow", "mod", "floor_divide", "neg", "log", "lerp", "erfinv",
+    "masked_fill", "index_put", "index_add", "put_along_axis",
+    "cast", "transpose",
+    "tan", "asin", "acos", "atan", "sinh", "cosh", "asinh", "acosh",
+    "atanh", "expm1", "log2", "log10", "log1p", "square",
+    "trunc", "frac", "nan_to_num", "logit", "renorm", "copysign", "hypot",
+    "i0", "ldexp", "digamma", "lgamma", "polygamma", "gamma", "erf",
+    "equal", "not_equal", "less_than", "less_equal", "greater_than",
+    "greater_equal", "logical_and", "logical_or", "logical_xor",
+    "logical_not", "bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not",
+    "bitwise_left_shift", "bitwise_right_shift",
+    "tril", "triu", "scatter", "masked_scatter", "cumsum",
+    "cumprod", "fmax", "fmin", "maximum", "minimum", "remainder",
+    "gcd", "lcm", "heaviside", "atan2", "nextafter",
+    # _MORE_INPLACE
+    "deg2rad", "rad2deg", "sign", "relu6", "elu", "celu", "selu", "silu",
+    "gelu", "leaky_relu", "hardtanh", "hardsigmoid", "hardswish",
+    "softplus", "softsign", "tanhshrink", "stanh", "flip",
+    "scatter_nd_add", "maximum", "minimum", "fmax", "fmin", "atan2",
+    "hypot", "copysign", "ldexp", "heaviside", "nextafter", "logit",
+    "lgamma", "digamma", "erf", "i0", "gcd", "lcm", "frac",
+    "nan_to_num", "logical_and", "logical_or", "logical_xor",
+    "logical_not", "roll", "rot90", "take_along_axis", "index_select",
+    "gather", "tile", "repeat_interleave", "broadcast_to", "expand",
+    "diff", "kron", "cross", "dot", "outer", "inner",
+    "thresholded_relu", "hardshrink", "softshrink", "mish",
+    "log_sigmoid", "swish",
+]))
+
+
+def _inplace(fn, name):
+    def inplace(x, *args, **kwargs):
+        return adopt_inplace(x, fn(x, *args, **kwargs))
+
+    inplace.__name__ = name
+    inplace.__doc__ = (f"In-place `{fn.__name__}`: x takes the result "
+                       "(`adopt_inplace`) and is returned.")
+    return inplace
+
+
+def attach_inplace(namespace: dict) -> list:
+    """`name_` for each op of `namespace` named in INPLACE, added to the
+    namespace and, where the Tensor has no such method yet, as a Tensor
+    method. Returns the new names."""
+    made = []
+    for name in INPLACE:
+        fn = namespace.get(name)
+        if callable(fn):
+            ip = _inplace(fn, name + "_")
+            namespace[ip.__name__] = ip
+            if not hasattr(Tensor, ip.__name__):
+                setattr(Tensor, ip.__name__, ip)
+            made.append(ip.__name__)
+    return made
+
+
+def where_(condition, x, y, name=None):
+    """paddle.where_: writes where(condition, x, y) into x, not into the
+    condition (paddle_tpu/ops/__init__.py:129-133)."""
+    return adopt_inplace(x, where(condition, x, y))
 
 
 def _attach():
@@ -97,6 +167,10 @@ def _attach():
         mean(s, axis, keepdim)
     Tensor.split = lambda s, num_or_sections, axis=0, name=None: \
         split(s, num_or_sections, axis)
+    # the condition is the receiver, x is written (as in the JAX package)
+    Tensor.where_ = lambda s, x, y, name=None: where_(s, x, y)
 
 
 _attach()
+# the in-place twins of the ops above: add_, exp_, reshape_, ...
+INPLACE_OPS = attach_inplace(globals()) + ["where_"]

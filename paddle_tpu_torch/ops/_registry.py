@@ -99,6 +99,37 @@ def defop(name: str, raw: Callable) -> Callable:
     return op
 
 
+def adopt_inplace(x: Tensor, out: Tensor) -> Tensor:
+    """An in-place op's result `out` written into x (the JAX package's
+    `adopt_inplace`, paddle_tpu/ops/_registry.py:178). Recorded (grad
+    mode on and a differentiable input): x takes out's tensor and its
+    place in the graph, a non-leaf that is not stop_gradient; the graph
+    keeps x's old tensor as the op's input, so backward runs through the
+    write. Not recorded: a leaf's storage takes the value when the shape
+    and dtype stay (a parameter keeps its tensor), else x takes out's
+    tensor (requiring grad as before); a non-leaf that is not
+    stop_gradient refuses, as in the JAX package, since the write would
+    corrupt the graph it belongs to. x's version goes up by one."""
+    recorded = not out._leaf
+    if not recorded and not x._leaf and not x.stop_gradient:
+        raise RuntimeError(
+            "in-place modification of a non-leaf tensor while gradient "
+            "recording is off would corrupt the autograd graph; detach() "
+            "first or perform the update out-of-place")
+    d, new = x._data, out._data
+    if recorded or not x._leaf:
+        x._set_data(new)
+        x._sg, x._leaf = out._sg, out._leaf
+    elif new.shape == d.shape and new.dtype == d.dtype:
+        with torch.no_grad():
+            d.copy_(new)
+    else:
+        x._set_data(new.detach().requires_grad_(
+            d.requires_grad and _is_float(new)))
+    x._version += 1
+    return x
+
+
 def as_array(x):
     """A Tensor's torch tensor, or a numpy array or python value as a torch
     tensor on the current place: for raw functions that take an argument

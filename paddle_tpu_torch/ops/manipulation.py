@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._registry import defop, eager
+from ._registry import adopt_inplace, as_array, defop, eager
 from ..core.tensor import Tensor
 from ..core import dtype as dtypes
 
@@ -160,10 +160,10 @@ def _setitem_raw(a, nidx, v):
 
 def setitem_(x, idx, value):
     """`x[idx] = value` (paddle_tpu/ops/manipulation.py:437), in x's
-    dtype. As the JAX tape does, the write is recorded when x or value
-    is differentiable under grad mode: x then takes the new value and
-    its place in the graph (a non-leaf). Otherwise a leaf x keeps its
-    storage and the value is copied in. x's `_version` goes up by one."""
+    dtype, written as an in-place op (`_registry.adopt_inplace`): when x
+    or value is differentiable under grad mode the write is recorded and
+    x takes the new value and its place in the graph; otherwise a leaf x
+    keeps its storage and the value is copied in."""
     nidx = _norm_index(idx)
     if isinstance(value, Tensor):
         out = eager(lambda a, v: _setitem_raw(a, nidx, v), (x, value), {},
@@ -171,18 +171,26 @@ def setitem_(x, idx, value):
     else:
         out = eager(lambda a: _setitem_raw(a, nidx, value), (x,), {},
                     name="setitem")
-    recorded = not out._leaf
-    if recorded or not x._leaf:
-        if not recorded and not x.stop_gradient:
-            # as the JAX package's adopt_inplace: an unrecorded write to
-            # a non-leaf would corrupt the graph it belongs to
-            raise RuntimeError(
-                "in-place modification of a non-leaf tensor while gradient "
-                "recording is off would corrupt the autograd graph; "
-                "detach() first or perform the update out-of-place")
-        x._data, x._sg, x._leaf = out._data, out._sg, out._leaf
-    else:
-        with torch.no_grad():
-            x._data.copy_(out._data)
-    x._version += 1
-    return x
+    return adopt_inplace(x, out)
+
+
+def where(condition, x=None, y=None, name=None):
+    """x where `condition` holds, else y (paddle_tpu/ops/manipulation.py
+    :295), in their promoted dtype; a Python scalar takes the other
+    operand's dtype. The one-argument form (the indices of the true
+    elements) is the op long tail's `nonzero` (ROADMAP.md Queue 1, item
+    7)."""
+    if x is None and y is None:
+        raise NotImplementedError(
+            "where(condition) without x and y is nonzero(as_tuple=True), "
+            "which the port does not have yet")
+    cond = as_array(condition).to(torch.bool)
+    tens = tuple(v for v in (x, y) if isinstance(v, Tensor))
+
+    def raw(*arrs):
+        it = iter(arrs)
+        a = next(it) if isinstance(x, Tensor) else x
+        b = next(it) if isinstance(y, Tensor) else y
+        return torch.where(cond, a, b)
+
+    return eager(raw, tens, {}, name="where")

@@ -20,19 +20,49 @@ def _other(y, like):
 
 
 add = defop("add", lambda x, y, name=None: torch.add(x, _other(y, x)))
-subtract = defop("subtract",
-                 lambda x, y, name=None: torch.sub(x, _other(y, x)))
+
+
+def _sub_raw(x, y, name=None):
+    """x - y. torch refuses a bool operand of `sub`; jnp promotes it:
+    `1.0 - mask` is f32, `1 - mask` int64, `x - mask` x's dtype. The
+    bool side is cast to the promoted dtype first (a Python bool becomes
+    an int). Bool minus bool promotes to bool and still raises, as in
+    the JAX package."""
+    y = _other(y, x)
+    if x.dtype == torch.bool or isinstance(y, bool) or (
+            isinstance(y, torch.Tensor) and y.dtype == torch.bool):
+        dt = torch.result_type(x, y)
+        if dt != torch.bool:
+            x = x.to(dt)
+            if isinstance(y, torch.Tensor):
+                y = y.to(dt)
+            elif isinstance(y, bool):
+                y = int(y)
+    return torch.sub(x, y)
+
+
+subtract = defop("subtract", _sub_raw)
 multiply = defop("multiply",
                  lambda x, y, name=None: torch.mul(x, _other(y, x)))
 divide = defop("divide",
                lambda x, y, name=None: torch.true_divide(x, _other(y, x)))
 def _bools_as_int32(x, y):
-    """jnp's floor_divide, mod and power of two bool arrays compute in
-    int32; torch has none of them for bool."""
-    if x.dtype == torch.bool and isinstance(y, torch.Tensor) \
-            and y.dtype == torch.bool:
-        return x.int(), y.int()
+    """jnp's floor_divide, mod and power of a bool array by a bool (a
+    tensor or a Python bool) compute in int32; torch has none of them
+    for bool."""
+    if x.dtype == torch.bool and (isinstance(y, bool) or (
+            isinstance(y, torch.Tensor) and y.dtype == torch.bool)):
+        return x.int(), (y.int() if isinstance(y, torch.Tensor) else int(y))
     return x, y
+
+
+def _pow_raw(x, y, name=None):
+    """jnp.power: a bool array to a Python int (or bool) is int32 too,
+    where torch gives int64 (or bool)."""
+    y = _other(y, x)
+    if x.dtype == torch.bool and isinstance(y, int):
+        return torch.pow(x.int(), int(y))
+    return torch.pow(*_bools_as_int32(x, y))
 
 
 floor_divide = defop("floor_divide", lambda x, y, name=None:
@@ -42,8 +72,7 @@ mod = defop("mod", lambda x, y, name=None:
             torch.remainder(*_bools_as_int32(x, _other(y, x))))
 remainder = mod
 floor_mod = mod
-pow = defop("pow", lambda x, y, name=None:
-            torch.pow(*_bools_as_int32(x, _other(y, x))))
+pow = defop("pow", _pow_raw)
 exp = defop("exp", lambda x, name=None: torch.exp(x))
 tanh = defop("tanh", lambda x, name=None: torch.tanh(x))
 # jnp.abs of a bool array is the array
@@ -74,6 +103,11 @@ def _matmul_raw(x, y, transpose_x=False, transpose_y=False, name=None):
         x = x.transpose(-1, -2)
     if transpose_y and y.ndim > 1:
         y = y.transpose(-1, -2)
+    if x.dtype == y.dtype == torch.bool:
+        # jnp.matmul of two bool arrays is bool (any of the products);
+        # torch has no bool matmul: count the products in f32, exact
+        # below 2^24 terms
+        return torch.matmul(x.float(), y.float()) != 0
     return torch.matmul(*_promote(x, y))
 
 

@@ -19,13 +19,15 @@ def _axis(axis, ndim):
 
 
 def _sum_raw(x, axis=None, dtype=None, keepdim=False, name=None):
+    """Sums in x's dtype (integers and bool in int64) and casts the sum
+    to `dtype`, as the JAX package does: a bf16 sum is rounded to bf16
+    before an f32 `dtype` sees it. A uint8 sum is int64 here and uint64
+    in the JAX package (torch has no uint64 sum): a recorded
+    divergence."""
+    out = torch.sum(x, dim=_axis(axis, x.ndim), keepdim=keepdim)
     if dtype is not None:
-        dt = dtypes.convert_dtype(dtype)
-    elif x.dtype == torch.bool:
-        dt = torch.int64
-    else:
-        dt = None
-    return torch.sum(x, dim=_axis(axis, x.ndim), keepdim=keepdim, dtype=dt)
+        out = out.to(dtypes.convert_dtype(dtype))
+    return out
 
 
 def _mean_raw(x, axis=None, keepdim=False, name=None):

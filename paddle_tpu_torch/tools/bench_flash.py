@@ -1,7 +1,7 @@
 """The flash kernels at every shape `chip_smoke.py` holds them, on one GPU.
 
     python -m paddle_tpu_torch.tools.bench_flash [--check] [--label L]
-        [--dtype bf16|f16|f32] [--cases I,J] [--fwd-only]
+        [--dtype bf16|f16|f32] [--cases I,J] [--fwd-only] [--plain]
 
 Builds `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu` (`--dtype f32`:
 `csrc/flash_f32.cu`), prints each one's
@@ -12,7 +12,8 @@ JSON line: the kernel's and SDPA's times (CUDA events, means after one
 warm-up call; `--fwd-only`: the forward alone, no backward checked or
 timed; `*_graph_ms`: the same calls captured in one CUDA
 graph, the device time with no host cost) and the bound (bytes over
-3.35 TB/s or operations over 989 TFLOP/s, the larger), beside the
+3.35 TB/s or operations over 989 TFLOP/s, the larger; `--plain`: also
+the plain versions' times, `fwd_plain_ms` and `bwd_plain_ms`), beside the
 forward's largest error relative to each (query, head) output vector's
 scale (and the LSE's absolute error) or the backward's (dq, dk, dv; rows below 1e-3 of the largest held
 relative to that) against the plain versions. `--check` stops after the
@@ -50,6 +51,7 @@ DTYPES = {"bf16": (torch.bfloat16, 2e-2, 5e-4, 989e12),
           "f32": (torch.float32, 2.5e-3, 1e-4, 495e12)}
 _DT = torch.bfloat16
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+PLAIN = False                 # --plain: time the plain versions too
 H, KV, HD = 32, 8, 128
 
 
@@ -236,6 +238,9 @@ def case(B, S, h, kv, hd, causal, layout="bshd", lengths=None, gen=None,
             q, k, v, return_lse=True, **kw), 20)
         res["fwd_graph_ms"] = _graph_ms(lambda: fa.flash_attention_fwd(
             q, k, v, return_lse=True, **kw), 20)
+        if PLAIN:
+            res["fwd_plain_ms"] = _time_ms(lambda: fa.flash_attention_fwd_ref(
+                q, k, v, return_lse=True, **kw), 3)
         res["fwd_sdpa_ms"] = _time_ms(sdpa, 20)
         res["fwd_sdpa_graph_ms"] = _graph_ms(sdpa, 20)
         res["fwd_bound_ms"] = _bound(
@@ -246,6 +251,9 @@ def case(B, S, h, kv, hd, causal, layout="bshd", lengths=None, gen=None,
             q, k, v, out, lse, do, **kw), 10)
         res["bwd_graph_ms"] = _graph_ms(lambda: fa.flash_attention_bwd(
             q, k, v, out, lse, do, **kw), 10)
+        if PLAIN:
+            res["bwd_plain_ms"] = _time_ms(lambda: fa.flash_attention_bwd_ref(
+                q, k, v, out, lse, do, **kw), 3)
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
 
         def fwd():
@@ -372,12 +380,15 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--fwd-only", action="store_true")
+    ap.add_argument("--plain", action="store_true",
+                    help="time the plain versions too")
     ap.add_argument("--cases", default="",
                     help="comma-separated indices into the held shapes "
                          "(default: all)")
     args = ap.parse_args(argv)
-    global _DT, TOL, LSE_TOL, PEAK_FLOPS
+    global _DT, TOL, LSE_TOL, PEAK_FLOPS, PLAIN
     _DT, TOL, LSE_TOL, PEAK_FLOPS = DTYPES[args.dtype]
+    PLAIN = args.plain
     if not torch.cuda.is_available():
         print("bench_flash: CUDA is not available", file=sys.stderr)
         return 1

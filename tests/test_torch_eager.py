@@ -287,6 +287,9 @@ _PROMOTE = {
     "add": lambda p: p.to_tensor([1, 2]) + 1.5,
     "rtruediv": lambda p: 1 / p.to_tensor([1, 2]),
     "mean": lambda p: p.mean(p.to_tensor([1, 2])),
+    "exp": lambda p: p.exp(p.to_tensor([1, 2])),
+    "tanh": lambda p: p.tanh(p.to_tensor([1, -2])),
+    "divide": lambda p: p.divide(p.to_tensor([1, 2]), p.to_tensor([3, 3])),
 }
 
 

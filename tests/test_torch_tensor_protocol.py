@@ -14,12 +14,17 @@ here as well: `squeeze` of an axis longer than 1 (F11), the order of
 package's `%` operator, which raises TypeError (`paddle_tpu/ops/
 __init__.py:158` calls the name `mod`, which is a module there); the
 port's `%` is `ops.mod`, held against the JAX package's `ops.mod`.
+The F13-F16 repairs: subtraction with a bool operand, `sum(dtype=)`
+summing before its cast, the bool operands of `//`, `%`, `**` and `@`,
+integer inputs of `gelu`, `log_softmax` and `layer_norm`, and reflected
+Python scalars on narrow tensors (a recorded divergence, as a uint8
+sum's int64).
 
 Tolerances: f32 results are the same expressions in both (1e-6
 relative); bf16 results are rounded once to bf16 in both, from f32
 values that may differ in their last f32 bits: one bf16 ulp (2^-8
-relative of each value, held at 8e-3). Integer and bool results are
-exact.
+relative of each value, held at 8e-3); f16 results likewise within one
+f16 ulp (2^-10, held at 1e-3). Integer and bool results are exact.
 """
 import inspect
 
@@ -38,6 +43,7 @@ from paddle_tpu_torch.ops import math as tmath  # noqa: E402
 DTYPES = ["float32", "bfloat16", "int32", "int64", "bool"]
 F32_TOL = 1e-6
 BF16_TOL = 8e-3
+F16_TOL = 1e-3
 
 
 @pytest.fixture(autouse=True)
@@ -58,7 +64,7 @@ def _values(dtype, seed, divisor=False):
     rng = np.random.default_rng(seed)
     if dtype == "bool":
         return np.ones((2, 3), bool) if divisor else rng.random((2, 3)) < .5
-    if dtype.startswith("int"):
+    if dtype.startswith(("int", "uint")):
         return rng.integers(1, 5, (2, 3))
     return rng.uniform(0.5, 3.0, (2, 3))
 
@@ -83,12 +89,13 @@ def _same(j, t, what):
     if j[0] == "raise":
         return
     assert j[1:3] == t[1:3], f"{what}: JAX {j[1:3]}, port {t[1:3]}"
-    tol = BF16_TOL if j[1] == "bfloat16" else F32_TOL
+    tol = {"bfloat16": BF16_TOL, "float16": F16_TOL}.get(j[1], F32_TOL)
     np.testing.assert_allclose(t[3], j[3], rtol=tol, atol=tol,
                                err_msg=what)
 
 
 BINARY = {
+    "sub": lambda a, b: a - b,
     "floordiv": lambda a, b: a // b,
     "pow": lambda a, b: a ** b,
     "and": lambda a, b: a & b,
@@ -142,23 +149,180 @@ def test_unary_operator_matches_jax(op):
         _same(_outcome(fn, aj), _outcome(fn, at), f"{op} {dtype}")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32", "int64"])
+# (case, reflected, the scalar's kind)
+SCALAR_CASES = [
+    (lambda a: a // 2, False, int), (lambda a: a < 1, False, int),
+    (lambda a: a >= 2, False, int), (lambda a: a ** 2, False, int),
+    (lambda a: 2 ** a, True, int), (lambda a: 7 // a, True, int),
+    (lambda a: -a, False, None), (lambda a: a - 2, False, int),
+    (lambda a: 2 - a, True, int), (lambda a: a.__rsub__(2), True, int),
+    (lambda a: -3 - a, True, int), (lambda a: 0.5 - a, True, float),
+    (lambda a: 2.5 / a, True, float), (lambda a: 2.5 // a, True, float),
+    (lambda a: 0.5 ** a, True, float), (lambda a: a - 0.5, False, float),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int8",
+                                   "uint8", "int32", "int64"])
 def test_python_scalar_operands(dtype):
-    """A python int on either side keeps the tensor's dtype, as JAX's
-    weak types do. The reflected forms on an int32 tensor (`2 ** x`,
-    `7 // x`) are a recorded divergence (F7's family): the JAX package
-    makes the scalar an int64 tensor first and gives int64, the port
-    keeps int32, as Paddle does; the values agree."""
-    cases = [lambda a: a // 2, lambda a: a < 1, lambda a: a >= 2,
-             lambda a: a ** 2, lambda a: 2 ** a, lambda a: 7 // a,
-             lambda a: -a]
-    for i, fn in enumerate(cases):
+    """A python scalar on either side keeps the tensor's dtype, as JAX's
+    weak types do, except where these divergences are recorded:
+    - reflected (F16, F7's family): the JAX package's `_swap` makes the
+      scalar a tensor of the default dtype first, so `0.5 - x`, `2.5 / x`,
+      `2.5 // x` and `0.5 ** x` on bf16 or f16 give f32, and `2 ** x`,
+      `7 // x`, `2 - x`, `-3 - x` on int8, uint8 or int32 give int64; the
+      port keeps the tensor's dtype, as Paddle does, with JAX's value in
+      that dtype (rounded; wrapped in uint8);
+    - a float scalar on an integer tensor (F7): float64 in the JAX
+      package (x64), the default float32 in the port."""
+    for i, (fn, reflected, kind) in enumerate(SCALAR_CASES):
         aj, at = _tensors(_values(dtype, 6), dtype)
         j, t = _outcome(fn, aj), _outcome(fn, at)
-        if dtype == "int32" and i in (4, 5):
-            assert (j[1], t[1]) == ("int64", "int32")
-            j = (j[0], "int32") + j[2:]
-        _same(j, t, f"case {i} on {dtype}")
+        what = f"case {i} on {dtype}"
+        integer = dtype.startswith(("int", "uint"))
+        if kind is float and not reflected and integer:
+            assert (j[1], t[1]) == ("float64", "float32"), what
+            j = (j[0], "float32") + j[2:]
+        elif reflected and ((kind is float and dtype in ("bfloat16",
+                                                         "float16"))
+                            or (kind is int and dtype in ("int8", "uint8",
+                                                          "int32"))):
+            assert (j[1], t[1]) == ("float32" if kind is float
+                                    else "int64", dtype), what
+            src = torch.from_numpy(j[3])
+            if integer:
+                src = src.long()
+            j = (j[0], dtype, j[2],
+                 src.to(getattr(torch, dtype)).double().numpy())
+        _same(j, t, what)
+
+
+# ----------------------------------------------------------------- F13
+BOOL_SUB = {
+    "1.0 - mask": lambda P, m, x: 1.0 - m,
+    "1 - mask": lambda P, m, x: 1 - m,
+    "x - mask": lambda P, m, x: x - m,
+    "mask - x": lambda P, m, x: m - x,
+    "x - True": lambda P, m, x: x - True,
+    "mask - 2": lambda P, m, x: m - 2,
+    "i32 - mask": lambda P, m, x: x.astype("int32") - m,
+    "bf16 - mask": lambda P, m, x: x.astype("bfloat16") - m,
+    "(1.0 - mask) * -1e4": lambda P, m, x: (1.0 - m) * -1e4,
+    "subtract(x, mask)": lambda P, m, x: P.subtract(x, m),
+    "mask - mask": lambda P, m, x: m - m,
+    "mask - True": lambda P, m, x: m - True,
+    "True - mask": lambda P, m, x: True - m,
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOOL_SUB))
+def test_subtract_with_a_bool_operand(case):
+    """The bool side is cast to the promoted dtype (JAX's dtype, shape
+    and values); bool minus bool raises in both packages."""
+    fn = BOOL_SUB[case]
+    args = {P: (P.to_tensor(np.array([True, False, True])),
+                P.to_tensor(np.array([1.0, 2.0, 3.0], np.float32)))
+            for P in (jp, tp)}
+    _same(_outcome(lambda P: fn(P, *args[P]), jp),
+          _outcome(lambda P: fn(P, *args[P]), tp), case)
+
+
+def test_bool_minus_a_python_float_is_f7():
+    """mask - 1.5: float64 in the JAX package (x64), float32 here."""
+    j = jp.to_tensor(np.array([True, False])) - 1.5
+    t = tp.to_tensor(np.array([True, False])) - 1.5
+    assert (_name(j.dtype), _name(t.dtype)) == ("float64", "float32")
+    np.testing.assert_array_equal(t.numpy(), j.numpy())
+
+
+# ----------------------------------------------------------------- F14
+def test_sum_with_dtype_sums_then_casts():
+    """sum(x, dtype=) sums in x's dtype and casts the sum, as the JAX
+    package does: f32 -> int64 truncates each row's f32 sum (casting each
+    element first would give other integers), and a bf16 sum is rounded
+    to bf16 before it becomes f32."""
+    rng = np.random.default_rng(2)
+    x32 = (3 * rng.standard_normal((4, 24))).astype(np.float32)
+    xb = (3 * rng.standard_normal(24)).astype(np.float32)
+    for make in (lambda P: P.sum(P.to_tensor(x32), axis=1, dtype="int64"),
+                 lambda P: P.sum(P.to_tensor(xb).astype("bfloat16"),
+                                 dtype="float32"),
+                 lambda P: P.to_tensor(x32).sum(dtype="float16")):
+        _same(_outcome(make, jp), _outcome(make, tp), "sum dtype")
+    t = tp.sum(tp.to_tensor(x32), axis=1, dtype="int64").numpy()
+    np.testing.assert_array_equal(t, np.trunc(x32.sum(1)).astype(np.int64))
+    assert (t != x32.astype(np.int64).sum(1)).any()
+
+
+def test_uint8_sum_is_a_recorded_divergence():
+    """A uint8 sum is int64 in the port (torch has no uint64 sum) and
+    uint64 in the JAX package; the values agree."""
+    v = np.array([1, 2, 250], np.uint8)
+    j, t = jp.sum(jp.to_tensor(v)), tp.sum(tp.to_tensor(v))
+    assert (_name(j.dtype), _name(t.dtype)) == ("uint64", "int64")
+    assert int(j) == int(t) == 253
+
+
+# ----------------------------------------------------------------- F15
+BOOL_OPS = {
+    "mask // True": lambda P, m: m // True,
+    "mod(mask, True)": lambda P, m: P.ops.mod(m, True),
+    "mask ** 2": lambda P, m: m ** 2,
+    "mask ** True": lambda P, m: m ** True,
+    "mask ** mask": lambda P, m: m ** m,
+    "mask @ mask": lambda P, m: m.reshape([1, 3]) @ m.reshape([3, 1]),
+    "mask2 @ mask2": lambda P, m: P.to_tensor(
+        np.array([[True, False], [False, False]])) @ P.to_tensor(
+            np.array([[False, True], [True, True]])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOOL_OPS))
+def test_bool_operands_match_jax(case):
+    """`//`, mod and `**` of a bool tensor by a bool or an int compute in
+    int32, and a bool matmul is bool, as in the JAX package."""
+    fn = BOOL_OPS[case]
+    m = np.array([True, False, True])
+    _same(_outcome(lambda P: fn(P, P.to_tensor(m)), jp),
+          _outcome(lambda P: fn(P, P.to_tensor(m)), tp), case)
+
+
+INT_FUNCTIONALS = {
+    "gelu": lambda F, x: F.gelu(x),
+    "gelu_tanh": lambda F, x: F.gelu(x, approximate=True),
+    "log_softmax": lambda F, x: F.log_softmax(x),
+    "layer_norm": lambda F, x: F.layer_norm(x, 3),
+}
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64", "bool"])
+@pytest.mark.parametrize("name", sorted(INT_FUNCTIONALS))
+def test_integer_inputs_of_float_functionals(name, dtype):
+    """An integer or bool tensor into gelu, log_softmax or layer_norm
+    computes in the default float dtype. int32 and bool give float32 in
+    both packages; int64 gives float64 in the JAX package (x64), F7's
+    divergence."""
+    fn = INT_FUNCTIONALS[name]
+    v = np.array([[1, 0, 3], [2, 2, 1]])
+    out = {P: _outcome(lambda x: fn(P.nn.functional, x),
+                       P.to_tensor(v).astype(dtype)) for P in (jp, tp)}
+    j, t = out[jp], out[tp]
+    if dtype == "int64":
+        assert (j[1], t[1]) == ("float64", "float32")
+        j = (j[0], "float32") + j[2:]
+    _same(j, t, f"{name} {dtype}")
+
+
+def test_uint8_log_softmax_is_a_recorded_divergence():
+    """The JAX package's log_softmax of a uint8 tensor gives -inf (it
+    computes in uint8); the port gives the float32 values."""
+    v = np.array([1, 2, 3], np.uint8)
+    j = jp.nn.functional.log_softmax(jp.to_tensor(v))
+    t = tp.nn.functional.log_softmax(tp.to_tensor(v))
+    assert np.isneginf(j.numpy()).all()
+    ref = tp.nn.functional.log_softmax(tp.to_tensor(v.astype(np.float32)))
+    assert t.dtype == torch.float32
+    np.testing.assert_array_equal(t.numpy(), ref.numpy())
 
 
 def test_setitem_records_the_gradient():
