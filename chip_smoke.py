@@ -247,6 +247,26 @@ non-zero:
                through create_graph on resnet18 against the CPU, and a
                user PyLayer over row 6 at [4096, 4096] bf16 against the
                built-in path.
+  18. transformer — the Transformer base model of Vaswani et al. 2017
+               (tools/eager_transformer.py: paddle.nn.Transformer at
+               d_model 512, 8 heads, 6 + 6 layers, ffn 2048, dropout 0.1,
+               attention dropout 0, a shared 37,000-token embedding tied
+               to the output projection, the label-smoothed criterion),
+               f32 parameters under O1 bf16, Adam under NoamDecay(512,
+               4000), 2 warm-up and 4 timed steps of 96 x 256 source and
+               target tokens: the non-causal flash pair exactly 12 + 12
+               a step in bf16 (the encoder's self-attention and the
+               cross-attention; the decoder's masked self-attention
+               takes the exact path, as in the JAX package), no
+               LayerNorm kernel; step ms, target tokens/s, MFU, peak
+               memory; finite losses and the batch's dropout-free f32
+               loss falling; CrossEntropyLoss(label_smoothing=0.1)
+               against the criterion. Then grad_check_transformer (2 + 2
+               layers, batch 8 x 256, the dcap fault as the control) and
+               nn_check: every functional and loss of the slice on the
+               card against the CPU (f32, TF32 off, eval mode for the
+               random ones) and one step of the model under sync debug
+               mode "error".
 
 The f32 and f16 paths (run after phases 5 and 7):
   5a. train_f32 — phase 5's flagship at `LlamaConfig(dtype=float32,
@@ -2485,6 +2505,14 @@ def phase_kernels(peaks):
                         gen, dtype=dt)
         c.update(dtype=_dt_label(dt).strip(), path=path)
         (flash if dt == torch.float16 else serve_f32).append(c)
+    # the Transformer's encoder self-attention and cross-attention (phase
+    # transformer): B 96 x 256, 8 heads of 64, non-causal, + LSE
+    flash.append({"path": "transformer", **_flash_case(
+        TRANSFORMER_BATCH, TRANSFORMER_SEQ, 8, 8, 64, peaks, KERNEL_TOL, gen,
+        lse=True, causal=False)})
+    bwd.append({"path": "transformer", **_flash_bwd_case(
+        TRANSFORMER_BATCH, TRANSFORMER_SEQ, 8, 8, 64, peaks, gen,
+        causal=False)})
     del scratch
     torch.cuda.empty_cache()
     cases = {"flash_attention_fwd": flash, "ragged_paged_attention": ragged,
@@ -7553,6 +7581,515 @@ def phase_autograd_check():
     return res
 
 
+# ------------------------------------------------- 18. the Transformer
+# one non-causal flash forward and backward for each encoder layer's
+# self-attention and each decoder layer's cross-attention; the decoder's
+# masked self-attention takes the exact path, and the norms are plain
+_TRANSFORMER_LAUNCHES_PER_STEP = {"flash_attention_fwd": 12,
+                                  "flash_attention_bwd": 12,
+                                  "layer_norm_fwd": 0, "layer_norm_bwd": 0}
+TRANSFORMER_BATCH = 96
+TRANSFORMER_SEQ = 256
+# nn.CrossEntropyLoss(label_smoothing) on hard labels against the
+# criterion's one-hot soft labels: the same sum in another order (f32)
+CE_SMOOTH_TOL = 1e-5
+
+
+def _transformer_data(cfg, batch, seq, seed):
+    """Source ids [batch, seq] and target ids [batch, seq + 1] (shifted
+    into the decoder's input and its labels), uniform over the shared
+    vocabulary, from default_rng(seed)."""
+    import paddle_tpu_torch as paddle
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, cfg.vocab_size, (batch, seq))
+    tgt = rng.integers(0, cfg.vocab_size, (batch, seq + 1))
+    return (paddle.to_tensor(src), paddle.to_tensor(tgt[:, :-1]),
+            paddle.to_tensor(tgt[:, 1:]))
+
+
+def phase_transformer(peaks, warmup: int = 2, timed: int = 4):
+    """The Transformer base model of Vaswani et al. 2017 composed from the
+    eager API's layers (tools/eager_transformer.py: d_model 512, 8 heads
+    of 64, 6 + 6 layers, ffn 2048, relu, post-norm, dropout 0.1,
+    attention dropout 0, the shared 37,000-token embedding tied to the
+    output projection, label smoothing 0.1), f32 parameters under O1
+    bf16 auto_cast, Adam(0.9, 0.98, 1e-9) under NoamDecay(512, 4000),
+    `warmup` + `timed` steps of 96 x 256 source and target tokens (the
+    same seeded batch each step). Launch counters are zeroed before the
+    timed steps: the flash pair exactly 12 + 12 a step, all bf16, no
+    LayerNorm kernel. The step losses must be finite; the batch's
+    dropout-free f32 loss must fall from before the steps to after them
+    (the steps' own losses carry dropout's noise, larger than what six
+    warm-up steps of the schedule move). MFU counts 6 x the matmul MACs
+    a target token (`TransformerConfig.matmul_macs_per_token`) over 989
+    TFLOP/s. Then nn.CrossEntropyLoss(label_smoothing=0.1) on the hard
+    labels against the criterion, within CE_SMOOTH_TOL."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import eager_transformer as et
+    paddle.set_device("gpu")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = et.TransformerConfig.base()
+    B, S = TRANSFORMER_BATCH, TRANSFORMER_SEQ
+    t0 = time.perf_counter()
+    paddle.seed(SEED)
+    model = et.build_model(paddle, cfg)
+    opt = et.make_optimizer(paddle, model, cfg)
+    src, tin, tout = _transformer_data(cfg, B, S, SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def f32_loss():
+        model.eval()
+        with paddle.no_grad():
+            v = float(et.loss_fn(paddle, model, cfg, src, tin, tout, None))
+        model.train()
+        return v
+
+    before = f32_loss()
+    counters = _path_counters(_TRANSFORMER_LAUNCHES_PER_STEP)
+    losses, dt, launches, peak = _run_steps(
+        lambda: et.train_step(paddle, model, cfg, opt, src, tin, tout),
+        counters, warmup, timed)
+    by_dtype = _read_counts(counters)[1]
+    after = f32_loss()
+    # the criterion against CrossEntropyLoss(label_smoothing) on 8 rows
+    model.eval()
+    with paddle.no_grad():
+        logits = model(src[:8], tin[:8])
+        crit = float(et.criterion(paddle, logits, tout[:8], 0.1))
+        ce = float(paddle.nn.CrossEntropyLoss(label_smoothing=0.1)(
+            logits.reshape([-1, cfg.vocab_size]), tout[:8].reshape([-1])))
+    del logits
+    macs = cfg.matmul_macs_per_token(S)
+    tok_s = B * S * timed / dt
+    res = {"phase": "transformer",
+           "config": "Transformer base (Vaswani et al. 2017; the "
+                     "paddle.nn.Transformer defaults), shared vocabulary "
+                     "37000, composed from layers",
+           "widths": {"V": cfg.vocab_size, "D": cfg.d_model,
+                      "H": cfg.nhead, "L_enc": cfg.num_encoder_layers,
+                      "L_dec": cfg.num_decoder_layers,
+                      "F": cfg.dim_feedforward},
+           "params": sum(p.size for p in model.parameters()),
+           "batch": B, "seq": S, "steps": warmup + timed,
+           "timed_steps": timed, "step_ms": dt / timed * 1e3,
+           "target_tokens_per_s": tok_s,
+           "matmul_macs_per_token": macs, "flops_per_token": 6 * macs,
+           "mfu": tok_s * 6 * macs / peaks[0],
+           "losses": losses, "f32_loss_before": before,
+           "f32_loss_after": after, "peak_memory_bytes": peak,
+           "init_s": init_s, "launches": launches,
+           "launches_per_step": {n: c / timed for n, c in launches.items()},
+           "launches_by_dtype": by_dtype, "criterion": crit,
+           "ce_label_smoothing": ce,
+           "ce_rel_diff": abs(ce - crit) / abs(crit),
+           "lr_last": opt.get_lr(), "nvidia_smi": _smi_line()}
+    del model, opt, src, tin, tout
+    torch.cuda.empty_cache()
+    _emit(res)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"transformer: non-finite loss: {losses}")
+    if not after < before:
+        raise AssertionError(f"transformer: the f32 loss of the batch did "
+                             f"not fall: {before} -> {after}")
+    if not res["peak_memory_bytes"] < 80e9:
+        raise AssertionError(f"transformer: peak memory {peak} over 80 GB")
+    for kernel, per in _TRANSFORMER_LAUNCHES_PER_STEP.items():
+        if launches[kernel] != per * timed:
+            raise AssertionError(
+                f"transformer: {kernel} launched {launches[kernel]} times "
+                f"in {timed} steps, expected {per} a step")
+    _check_dtype_launches("transformer",
+                          {n: by_dtype[n] for n in ("flash_attention_fwd",
+                                                    "flash_attention_bwd")},
+                          {"flash_attention_fwd": 12,
+                           "flash_attention_bwd": 12}, timed, "bf16")
+    if not res["ce_rel_diff"] <= CE_SMOOTH_TOL:
+        raise AssertionError(f"transformer: CrossEntropyLoss(label_smoothing"
+                             f"=0.1) {ce} against the criterion {crit}")
+    return res
+
+
+def _transformer_group(name: str) -> str:
+    """The gradient group of a parameter of the tool's Transformer."""
+    if name.startswith("embedding."):
+        return "embed"
+    if ".norm" in name:
+        return "norms"
+    if ".cross_attn." in name:
+        return "cross_attention"
+    if name.startswith("transformer.encoder.") and ".self_attn." in name:
+        return "encoder_self_attention"
+    if ".self_attn." in name:
+        return "decoder_self_attention"
+    return "ffn"
+
+
+# the groups the flash backward's dcap fault reaches first: the two
+# attentions that take the kernels
+_TRANSFORMER_FAULT_GROUPS = ("encoder_self_attention", "cross_attention")
+
+
+def phase_grad_check_transformer(layers: int = 2, batch: int = 8):
+    """One loss + backward of the tool's Transformer at base widths, 2 + 2
+    layers, dropout 0, batch 8 x 256, under O1 bf16 through the kernels,
+    their plain versions, the plain versions with the dcap fault, and an
+    f32 evaluation (no auto_cast, plain versions) of the same f32
+    weights: the relative RMS distance of the decoder's output and of
+    each gradient group from f32. The kernels within GRAD_VS_F32_RATIO x
+    the plain path's distance in every group; the fault above it in the
+    encoder's self-attention and the cross-attention."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import eager_transformer as et
+    paddle.set_device("gpu")
+    cfg = et.TransformerConfig.base(num_encoder_layers=layers,
+                                    num_decoder_layers=layers, dropout=0.0)
+    paddle.seed(SEED + 5)
+    model = et.build_model(paddle, cfg)
+    src, tin, tout = _transformer_data(cfg, batch, TRANSFORMER_SEQ, 5)
+    last = {}
+    hook = model.transformer.register_forward_post_hook(
+        lambda layer, inputs, out: last.__setitem__("out", out))
+
+    def run(amp):
+        loss = et.loss_fn(paddle, model, cfg, src, tin, tout,
+                          "bfloat16" if amp else None)
+        loss.backward()
+        g = {n: p.grad._data.float() for n, p in model.named_parameters()}
+        model.clear_gradients()
+        return (float(loss), last.pop("out")._data.detach().float()
+                .reshape(-1), g)
+
+    res = {"kernel": run(True)}
+    with _plain_kernels():
+        res["ref"] = run(True)
+    with _plain_kernels(fault="dcap"):
+        res["fault"] = run(True)
+    with _plain_kernels():
+        res["f32"] = run(False)
+    hook.remove()
+    groups: dict = {}
+    for n, _ in model.named_parameters():
+        groups.setdefault(_transformer_group(n), []).append(n)
+    del model
+    out = _grad_ratios(res, groups, first="decoder_out")
+    _emit({"phase": "grad_check_transformer", "layers": layers,
+           "batch": batch, "seq": TRANSFORMER_SEQ,
+           "ratio_tol": GRAD_VS_F32_RATIO,
+           "fault_groups": _TRANSFORMER_FAULT_GROUPS, **out})
+    del res
+    torch.cuda.empty_cache()
+    _check_grad_ratios(out, groups, _TRANSFORMER_FAULT_GROUPS, "dcap",
+                       first="decoder_out")
+    return out
+
+
+# ------------------------------------------------------- 18b. nn_check
+# the card against the CPU, f32 with TF32 off: the same expressions on
+# other hardware, within this fraction of each output's largest element
+NN_CHECK_TOL = 1e-5
+# ctc_loss and rnnt_loss chain T (and T x U) steps of log-sum-exp whose
+# exp and log differ from the CPU's in the last bits at each step, and
+# grid_sample's input gradient is summed by atomicAdd in an order that
+# varies: 1e-4 for these three
+NN_CHECK_LOOSE_TOL = 1e-4
+_NN_LOOSE = ("ctc_loss", "rnnt_loss", "grid_sample", "layer:CTCLoss",
+             "layer:RNNTLoss")
+
+
+def _nn_cases():
+    """(name, fn(F, T, *tensors), arrays, differentiable flags): every
+    functional of this slice and every loss layer, at small shapes (T
+    makes a label tensor on the current place); the random ones in eval
+    mode (gumbel_softmax, which has none, is left out)."""
+    rng = np.random.default_rng(SEED + 7)
+
+    def r(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    x, x4, e = r(6, 8, scale=2.0), r(2, 4, 6, 6), [r(6, 8) for _ in range(3)]
+    p = rng.uniform(0.05, 0.95, (6, 5)).astype(np.float32)
+    b = (rng.uniform(size=(6, 5)) > 0.5).astype(np.float32)
+    y, lab = r(6, 5), rng.integers(0, 5, (6,))
+    pm = np.where(rng.uniform(size=6) > 0.5, 1.0, -1.0).astype(np.float32)
+    w5 = rng.uniform(0.5, 2.0, 5).astype(np.float32)
+    ctc = (rng.integers(1, 6, (3, 4)), np.array([12, 10, 7]),
+           np.array([4, 2, 3]))
+    rnnt = (rng.integers(1, 6, (2, 3)), np.array([5, 4]), np.array([3, 2]))
+
+    acts = ["relu", "relu6", "gelu", "silu", "swish", "elu", "selu",
+            "celu", "leaky_relu", "hardshrink", "softshrink", "tanhshrink",
+            "hardtanh", "hardsigmoid", "hardswish", "mish", "softplus",
+            "softsign", "log_sigmoid", "tanh", "sigmoid", "softmax",
+            "log_softmax", "thresholded_relu"]
+    cases = [(n, (lambda n: lambda F, T, a: getattr(F, n)(a))(n), [x], [1])
+             for n in acts]
+    cases += [
+        ("prelu", lambda F, T, a, w: F.prelu(a, w), [x4, r(4)], [1, 1]),
+        ("rrelu", lambda F, T, a: F.rrelu(a, training=False), [x], [1]),
+        ("glu", lambda F, T, a: F.glu(a), [x], [1]),
+        ("maxout", lambda F, T, a: F.maxout(a, 2), [x4], [1]),
+        ("cross_entropy", lambda F, T, a, wt: F.cross_entropy(
+            a, T(lab), weight=wt, label_smoothing=0.1), [y, w5], [1, 0]),
+        ("cross_entropy_soft", lambda F, T, a: F.cross_entropy(
+            a, T(p), soft_label=True), [y], [1]),
+        ("softmax_with_cross_entropy", lambda F, T, a: F.
+         softmax_with_cross_entropy(a, T(lab)), [y], [1]),
+        ("mse_loss", lambda F, T, a, c: F.mse_loss(a, c), [y, p], [1, 1]),
+        ("l1_loss", lambda F, T, a, c: F.l1_loss(a, c), [y, p], [1, 1]),
+        ("smooth_l1_loss", lambda F, T, a, c: F.smooth_l1_loss(a, c),
+         [y, p], [1, 1]),
+        ("nll_loss", lambda F, T, a: F.nll_loss(F.log_softmax(a), T(lab)),
+         [y], [1]),
+        ("binary_cross_entropy", lambda F, T, a, c: F.binary_cross_entropy(
+            a, c), [p, b], [1, 0]),
+        ("binary_cross_entropy_with_logits", lambda F, T, a, c:
+         F.binary_cross_entropy_with_logits(a, c), [y, b], [1, 0]),
+        ("kl_div", lambda F, T, a, c: F.kl_div(a, c), [y, p], [1, 1]),
+        ("margin_ranking_loss", lambda F, T, a, c, l: F.margin_ranking_loss(
+            a, c, l, 0.1), [e[0][:, 0], e[1][:, 0], pm], [1, 1, 0]),
+        ("hinge_embedding_loss", lambda F, T, a, l: F.hinge_embedding_loss(
+            a, l), [y, np.sign(p - 0.5)], [1, 0]),
+        ("cosine_embedding_loss", lambda F, T, a, c, l:
+         F.cosine_embedding_loss(a, c, l), [e[0], e[1], pm], [1, 1, 0]),
+        ("triplet_margin_loss", lambda F, T, a, c, d: F.triplet_margin_loss(
+            a, c, d), e, [1, 1, 1]),
+        ("sigmoid_focal_loss", lambda F, T, a, c: F.sigmoid_focal_loss(a, c),
+         [y, b], [1, 0]),
+        ("square_error_cost", lambda F, T, a, c: F.square_error_cost(a, c),
+         [y, p], [1, 1]),
+        ("poisson_nll_loss", lambda F, T, a, c: F.poisson_nll_loss(a, c),
+         [y, np.round(3 * p)], [1, 0]),
+        ("gaussian_nll_loss", lambda F, T, a, c, v: F.gaussian_nll_loss(
+            a, c, v), [y, r(6, 5), p], [1, 1, 1]),
+        ("dice_loss", lambda F, T, a: F.dice_loss(F.softmax(a), T(
+            lab[:, None])), [y], [1]),
+        ("log_loss", lambda F, T, a, c: F.log_loss(a, c), [p, b], [1, 0]),
+        ("npair_loss", lambda F, T, a, c: F.npair_loss(a, c, T(lab)),
+         [e[0], e[1]], [1, 1]),
+        ("soft_margin_loss", lambda F, T, a, c: F.soft_margin_loss(a, c),
+         [y, np.sign(p - 0.5)], [1, 0]),
+        ("multi_label_soft_margin_loss", lambda F, T, a, c:
+         F.multi_label_soft_margin_loss(a, c), [y, b], [1, 0]),
+        ("multi_margin_loss", lambda F, T, a: F.multi_margin_loss(a, T(lab)),
+         [y], [1]),
+        ("huber_loss", lambda F, T, a, c: F.huber_loss(a, c), [y, p], [1, 1]),
+        ("hsigmoid_loss", lambda F, T, a, wt, bb: F.hsigmoid_loss(
+            a, T(lab[:, None]), 5, wt, bb), [x, r(4, 8), r(4)], [1, 1, 1]),
+        ("triplet_margin_with_distance_loss", lambda F, T, a, c, d:
+         F.triplet_margin_with_distance_loss(a, c, d), e, [1, 1, 1]),
+        ("margin_cross_entropy", lambda F, T, a: F.margin_cross_entropy(
+            a, T(lab)), [np.tanh(y)], [1]),
+        ("adaptive_log_softmax_with_loss", lambda F, T, a, h, a1, b1:
+         F.adaptive_log_softmax_with_loss(a, T(np.array([0, 1, 4, 2, 3,
+                                                         4])), h,
+                                          [[a1, b1]], [2]),
+         [x, r(8, 3), r(8, 4), r(4, 3)], [1, 1, 1, 1]),
+        ("ctc_loss", lambda F, T, a: F.ctc_loss(
+            F.log_softmax(a), T(ctc[0]), T(ctc[1]), T(ctc[2])),
+         [r(12, 3, 6)], [1]),
+        ("ctc_greedy_decoder", lambda F, T, a: F.ctc_greedy_decoder(a),
+         [r(3, 9, 4)], [0]),
+        ("rnnt_loss", lambda F, T, a: F.rnnt_loss(
+            a, T(rnnt[0]), T(rnnt[1]), T(rnnt[2])),
+         [r(2, 5, 4, 6)], [1]),
+        ("dropout2d", lambda F, T, a: F.dropout2d(a, training=False), [x4],
+         [1]),
+        ("dropout3d", lambda F, T, a: F.dropout3d(a[..., None],
+                                               training=False), [x4], [1]),
+        ("alpha_dropout", lambda F, T, a: F.alpha_dropout(a, training=False),
+         [x4], [1]),
+        ("normalize", lambda F, T, a: F.normalize(a), [x4], [1]),
+        ("cosine_similarity", lambda F, T, a, c: F.cosine_similarity(a, c),
+         [e[0], e[1]], [1, 1]),
+        ("interpolate", lambda F, T, a: F.interpolate(
+            a, scale_factor=2, mode="bilinear", align_corners=True), [x4],
+         [1]),
+        ("interpolate_nearest", lambda F, T, a: F.interpolate(a, size=[9, 5]),
+         [x4], [1]),
+        ("interpolate_bicubic", lambda F, T, a: F.interpolate(
+            a, scale_factor=2, mode="bicubic"), [x4], [1]),
+        ("interpolate_area", lambda F, T, a: F.interpolate(
+            a, size=[3, 2], mode="area"), [x4], [1]),
+        ("pixel_shuffle", lambda F, T, a: F.pixel_shuffle(a, 2), [x4], [1]),
+        ("pixel_unshuffle", lambda F, T, a: F.pixel_unshuffle(a, 2), [x4],
+         [1]),
+        ("channel_shuffle", lambda F, T, a: F.channel_shuffle(a, 2), [x4],
+         [1]),
+        ("unfold", lambda F, T, a: F.unfold(a, 3, 2, 1), [x4], [1]),
+        ("fold", lambda F, T, a: F.fold(a, [5, 6], 2), [r(2, 12, 20)], [1]),
+        ("label_smooth", lambda F, T, a: F.label_smooth(a), [p], [1]),
+        ("pairwise_distance", lambda F, T, a, c: F.pairwise_distance(a, c),
+         [e[0], e[1]], [1, 1]),
+        ("zeropad2d", lambda F, T, a: F.zeropad2d(a, [1, 2, 0, 1]), [x4], [1]),
+        ("pad_reflect", lambda F, T, a: F.pad(a, [1, 2, 2, 1],
+                                           mode="reflect"), [x4], [1]),
+        ("pad_circular", lambda F, T, a: F.pad(a, [1, 2, 2, 1],
+                                            mode="circular"), [x4], [1]),
+        ("one_hot", lambda F, T, a: F.one_hot(a, 6), [lab], [0]),
+        ("bilinear", lambda F, T, a, c, wt: F.bilinear(a, c, wt),
+         [e[0][:, :3], e[1][:, :4], r(2, 3, 4)], [1, 1, 1]),
+        ("sequence_mask", lambda F, T, a: F.sequence_mask(a, 7), [lab], [0]),
+        ("temporal_shift", lambda F, T, a: F.temporal_shift(a, 2), [x4],
+         [1]),
+        ("affine_grid", lambda F, T, t: F.affine_grid(t, [2, 4, 5, 6]),
+         [r(2, 2, 3)], [1]),
+        ("grid_sample", lambda F, T, a, g: F.grid_sample(a, g),
+         [x4, np.clip(r(2, 5, 5, 2), -1.2, 1.2)], [1, 1]),
+        ("gather_tree", lambda F, T, i, q: F.gather_tree(i, q),
+         [rng.integers(0, 9, (5, 2, 3)), rng.integers(0, 3, (5, 2, 3))],
+         [0, 0]),
+        ("local_response_norm", lambda F, T, a: F.local_response_norm(a, 3),
+         [x4], [1]),
+        ("spectral_norm", lambda F, T, wt: F.spectral_norm(wt, power_iters=3),
+         [r(5, 7)], [1]),
+    ]
+    # the loss layers, each over its own input and labels
+    e01 = [e[0], e[1]]
+    for name, kw, arrays, diff, labels in (
+            ("CrossEntropyLoss", {"label_smoothing": 0.1}, [y], [1], [lab]),
+            ("MSELoss", {}, [y, p], [1, 1], []),
+            ("L1Loss", {}, [y, p], [1, 1], []),
+            ("NLLLoss", {}, [y], [1], [lab]),
+            ("BCELoss", {}, [p, b], [1, 0], []),
+            ("BCEWithLogitsLoss", {}, [y, b], [1, 0], []),
+            ("SmoothL1Loss", {}, [y, p], [1, 1], []),
+            ("KLDivLoss", {}, [y, p], [1, 1], []),
+            ("MarginRankingLoss", {}, [e[0][:, 0], e[1][:, 0], pm],
+             [1, 1, 0], []),
+            ("TripletMarginLoss", {}, e, [1, 1, 1], []),
+            ("TripletMarginWithDistanceLoss", {}, e, [1, 1, 1], []),
+            ("CosineEmbeddingLoss", {}, e01 + [pm], [1, 1, 0], []),
+            ("HingeEmbeddingLoss", {}, [y, np.sign(p - 0.5)], [1, 0], []),
+            ("HuberLoss", {}, [y, p], [1, 1], []),
+            ("SoftMarginLoss", {}, [y, np.sign(p - 0.5)], [1, 0], []),
+            ("MultiLabelSoftMarginLoss", {}, [y, b], [1, 0], []),
+            ("MultiMarginLoss", {}, [y], [1], [lab]),
+            ("PoissonNLLLoss", {}, [y, np.round(3 * p)], [1, 0], []),
+            ("GaussianNLLLoss", {}, [y, r(6, 5), p], [1, 1, 1], []),
+            ("CTCLoss", {}, [r(12, 3, 6)], [1], list(ctc)),
+            ("RNNTLoss", {}, [r(2, 5, 4, 6)], [1], list(rnnt)),
+            ("HSigmoidLoss", {"feature_size": 8, "num_classes": 5}, [x], [1],
+             [lab[:, None]]),
+            ("AdaptiveLogSoftmaxWithLoss",
+             {"in_features": 8, "n_classes": 5, "cutoffs": [2],
+              "div_value": 2.0}, [x], [1], [np.array([0, 1, 4, 2, 3, 4])])):
+        cases.append((f"layer:{name}", _loss_layer_fn(name, kw, labels),
+                      arrays, diff))
+    return cases
+
+
+def _loss_layer_fn(name, kw, labels):
+    """fn(F, T, *tensors) calling the loss layer `name` (its parameters,
+    if any, set from a fixed draw, so both places hold the same) on the
+    tensors and `labels` (CTCLoss and NLLLoss take log-probabilities)."""
+    def fn(F, T, *ts):
+        import paddle_tpu_torch as paddle
+        layer = getattr(paddle.nn, name)(**kw)
+        prng = np.random.default_rng(SEED + 8)
+        for prm in layer.parameters():
+            prm.set_value((0.3 * prng.standard_normal(prm.shape)).astype(
+                np.float32))
+        if name in ("CTCLoss", "NLLLoss"):
+            ts = (F.log_softmax(ts[0]),) + ts[1:]
+        return layer(*ts, *[T(lb) for lb in labels])
+    return fn
+
+
+def _nn_case_run(paddle, fn, arrays, diff):
+    """fn on Tensors of the current place; (outputs, input grads of
+    Σ out·c over the float outputs), as f64 numpy."""
+    ts = [paddle.to_tensor(a, stop_gradient=not d)
+          for a, d in zip(arrays, diff)]
+    out = fn(paddle.nn.functional, paddle.to_tensor, *ts)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    crng = np.random.default_rng(99)
+    total = None
+    for o in outs:
+        c = crng.standard_normal(o.shape).astype(np.float32) \
+            if o.shape else np.float32(1.0)
+        if o.dtype == torch.float32 and not o.stop_gradient:
+            term = (o * paddle.to_tensor(c)).sum()
+            total = term if total is None else total + term
+    if total is not None:
+        total.backward()
+    return ([np.asarray(o.numpy(), np.float64) for o in outs],
+            [np.asarray(t.grad.numpy(), np.float64)
+             if d and t.grad is not None else None
+             for t, d in zip(ts, diff)])
+
+
+def _no_host_read_step():
+    """One training step of the transformer phase's model (base widths,
+    dropout 0.1, O1 bf16, Adam under NoamDecay) on 8 x 256 tokens, its
+    forward, loss, backward and optimizer step under CUDA's sync debug
+    mode "error": any device value read on the host raises. Returns the
+    loss (read after)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import eager_transformer as et
+    cfg = et.TransformerConfig.base()
+    paddle.seed(SEED + 6)
+    model = et.build_model(paddle, cfg)
+    opt = et.make_optimizer(paddle, model, cfg)
+    src, tin, tout = _transformer_data(cfg, 8, TRANSFORMER_SEQ, 6)
+    model.tgt_mask(TRANSFORMER_SEQ)       # the cached mask made up front
+    et.train_step(paddle, model, cfg, opt, src, tin, tout)    # warm
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = et.train_step(paddle, model, cfg, opt, src, tin, tout)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    v = float(loss)
+    del model, opt
+    torch.cuda.empty_cache()
+    return v
+
+
+def phase_nn_check():
+    """Every functional of this slice and every loss layer (`_nn_cases`)
+    once on CUDA tensors and once on the CPU, f32 with TF32 off: each
+    output and each input gradient within NN_CHECK_TOL of its largest
+    element (NN_CHECK_LOOSE_TOL for the CTC and RNN-T losses and
+    grid_sample); the random functions in eval mode. Then one step of the transformer
+    phase's model under sync debug mode "error" (`_no_host_read_step`)."""
+    import paddle_tpu_torch as paddle
+    cases = _nn_cases()
+    worst, failures = {}, []
+    for name, fn, arrays, diff in cases:
+        got = {}
+        for place in ("gpu", "cpu"):
+            paddle.set_device(place)
+            got[place] = _nn_case_run(paddle, fn, arrays, diff)
+        paddle.set_device("gpu")
+        (go, gg), (co, cg) = got["gpu"], got["cpu"]
+        errs = []
+        for a, b in zip(go + gg, co + cg):
+            if a is None or b is None:
+                continue
+            scale = max(np.abs(b).max(initial=0.0), 1e-30)
+            errs.append(float(np.abs(a - b).max(initial=0.0) / scale))
+        worst[name] = max(errs)
+        tol = NN_CHECK_LOOSE_TOL if name in _NN_LOOSE else NN_CHECK_TOL
+        if not worst[name] <= tol:
+            failures.append(f"{name}: {worst[name]} > {tol}")
+    paddle.set_device("gpu")
+    loss = _no_host_read_step()
+    res = {"phase": "nn_check", "cases": len(cases), "tol": NN_CHECK_TOL,
+           "loose_tol": NN_CHECK_LOOSE_TOL, "loose": _NN_LOOSE,
+           "max_rel_err": worst,
+           "worst": max(worst.items(), key=lambda kv: kv[1]),
+           "no_host_read_step_loss": loss, "nvidia_smi": _smi_line()}
+    _emit(res)
+    if failures:
+        raise AssertionError("nn_check: " + "; ".join(failures))
+    if not np.isfinite(loss):
+        raise AssertionError(f"nn_check: the checked step's loss is {loss}")
+    return res
+
+
 # "main": for each path that launches the kernel, the case at that
 # path's shape whose times the kernels line reports (its index among the
 # kernel's cases, or among those of the path where cases name their
@@ -7588,7 +8125,10 @@ _KERNELS = {
                  # trainer's B=MOE_BATCH S=2048 H=16 + LSE; serve_f16:
                  # B=2 S=512, the top prefill bucket
                  "train_p32": ("train", 3), "train_moe_f16": 20,
-                 "serve_f16": 20}},
+                 "serve_f16": 20,
+                 # the Transformer's B=96 S=256 H=8 hd=64 non-causal + LSE,
+                 # the last case of its path's pool
+                 "transformer": -1}},
     # the f32 option of rows 1-5 (TF32 tensor cores, its own source),
     # counted apart: launches_f32 of the wrappers; eager_f32 at B=64
     # S=512 H=12 hd=64 non-causal, train_f32 at B=F32_TRAIN_BATCH S=2048
@@ -7646,7 +8186,8 @@ _KERNELS = {
                  "ernie": 5, "dit": 10, "long8k": 12, "layer8b_4k": 1,
                  "layer8b_8k": 13, "train05b": 14, "eager_llama_o2_bf16": 4,
                  "eager_llama_o2_f16": 15, "eager_o2": 15, "train_f16": 15,
-                 "train_p32": ("train", 0), "train_moe_f16": 15}},
+                 "train_p32": ("train", 0), "train_moe_f16": 15,
+                 "transformer": -1}},
     "rms_norm_fwd": {
         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/kernels/rms_norm.py:107",
@@ -7866,6 +8407,10 @@ def main() -> int:
     _timed(phase_eager_optim, peaks)
     _timed(phase_grad_check_optim)
     _timed(phase_autograd_check)
+    torch.cuda.empty_cache()
+    transformer = _timed(phase_transformer, peaks)
+    _timed(phase_grad_check_transformer)
+    _timed(phase_nn_check)
     runs = {"serve": serve, "serve_prefix": serve_prefix,
             "serve_quant_spec": quant_spec, "serve_robust": robust,
             "train": train,
@@ -7877,7 +8422,7 @@ def main() -> int:
             "train_f32": train_f32, "train_f16": train_f16,
             "train_p32": train_p32, "train_moe_f32": train_moe_f32,
             "train_moe_f16": train_moe_f16, "serve_f16": serve_f16,
-            "serve_f32": serve_f32}
+            "serve_f32": serve_f32, "transformer": transformer}
     _emit({"phase_seconds": _PHASE_SECONDS,
            "main_s": time.perf_counter() - t0})
     _emit({"kernels": _kernels_line(cases, runs)})

@@ -1,6 +1,6 @@
 """Attention functionals — port of paddle_tpu/nn/functional/attention.py:
-`scaled_dot_product_attention` (:15-32) and Paddle's functional
-`flash_attention` (:35-40). With no mask and dropout_p == 0 the SDPA
+`scaled_dot_product_attention` (:15-32), Paddle's functional
+`flash_attention` (:35-40) and `flash_attn_unpadded`'s refusal (:43-47). With no mask and dropout_p == 0 the SDPA
 runs the port's differentiable flash attention
 (`kernels.flash_attention.flash_attention`: the CUDA forward and backward
 kernels on the card, their plain versions on the CPU); otherwise the
@@ -44,3 +44,11 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     out = eager(lambda q, k, v: _flash(q, k, v, causal=causal),
                 (query, key, value), {}, name="flash_attention")
     return out, None
+
+
+def flash_attn_unpadded(*args, **kwargs):
+    """Refused, as in the JAX package (paddle_tpu/nn/functional/
+    attention.py:43-47): ragged batches are padded and masked instead."""
+    raise NotImplementedError(
+        "flash_attn_unpadded (varlen) is not supported: pad ragged "
+        "batches and pass an attention mask instead")

@@ -1,6 +1,7 @@
 """Normalization functionals — port of paddle_tpu/nn/functional/norm.py
-(:28, :49, :84, :143, :158): the plain layer_norm and rms_norm,
-batch_norm, group_norm and instance_norm. The fused-backward LayerNorm
+(:28, :49, :84, :143, :158, :191, :206), the whole file: the plain
+layer_norm and rms_norm, batch_norm, group_norm, instance_norm,
+local_response_norm and spectral_norm. The fused-backward LayerNorm
 kernels run through incubate.nn.functional.fused_layer_norm, as in the
 JAX package.
 
@@ -170,3 +171,51 @@ def instance_norm(x, running_mean=None, running_var=None, weight=None,
         return TF.instance_norm(xx, weight=w, bias=b, eps=eps)
 
     return eager(raw, tuple(args), {}, name="instance_norm")
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """x / (k + α/size · Σ x² over `size` neighbouring channels)^β, the
+    window centred (size // 2 before), zero outside; channels on axis 1,
+    as the JAX package reads them whatever `data_format` says."""
+
+    def raw(a):
+        sq = torch.square(a)
+        half = size // 2
+        c = a.shape[1]
+        pads = [0, 0] * (a.ndim - 2) + [half, size - 1 - half]
+        sqp = TF.pad(sq, pads)
+        win = sum(sqp.narrow(1, i, c) for i in range(size))
+        return a / torch.pow(k + alpha * win / size, beta)
+
+    return eager(raw, (x,), {}, name="local_response_norm")
+
+
+def spectral_norm(weight, axis=0, power_iters=1, epsilon=1e-12, u=None,
+                  name=None):
+    """weight / σ_max, σ estimated by power iteration in f32 from `u`
+    (the SpectralNorm layer's persistent buffer) or, without it, from
+    the normalized ones vector. Returns the weight, or (weight, the new
+    u) when u is given."""
+
+    def raw(w, u0=None):
+        h = w.shape[axis]
+        mat = w.movedim(axis, 0).reshape(h, -1).to(torch.float32)
+        if u0 is None:
+            uv = torch.ones(h, dtype=torch.float32, device=w.device) / \
+                (h ** 0.5)
+        else:
+            # a copy: the caller writes the new u into u0's storage
+            uv = u0.reshape(h).to(torch.float32, copy=True)
+        for _ in range(max(power_iters, 1)):
+            v = mat.T @ uv
+            v = v / (torch.linalg.vector_norm(v) + epsilon)
+            uv = mat @ v
+            uv = uv / (torch.linalg.vector_norm(uv) + epsilon)
+        sigma = uv @ mat @ v
+        return (w / torch.clamp(sigma, min=epsilon)).to(w.dtype), \
+            uv.to(w.dtype)
+
+    args = (weight,) if u is None else (weight, u)
+    out, u_new = eager(raw, args, {}, name="spectral_norm")
+    return (out, u_new) if u is not None else out

@@ -1,12 +1,28 @@
-"""Core layers: Linear, Embedding, Dropout and the containers — port of
-paddle_tpu/nn/layers_common.py (:25, :47, :69, :270, :301)."""
+"""Core layers and containers — port of paddle_tpu/nn/layers_common.py,
+the whole file: Identity, Linear, Embedding, the dropouts (their masks
+from the port's generators), Flatten/Unflatten, the resampling, pixel
+and padding layers, CosineSimilarity, PairwiseDistance, Sequential,
+LayerList, ParameterList, LayerDict, Bilinear, Fold and Unfold."""
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
+import torch
 
 from .layer import Layer
 from . import functional as F
 from . import initializer as I
+from ..ops._registry import eager
+from ..ops.manipulation import flatten
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
 
 
 class Linear(Layer):
@@ -68,6 +84,192 @@ class Dropout(Layer):
         return f"p={self.p}"
 
 
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, training=self.training)
+
+
+class FeatureAlphaDropout(Layer):
+    """Alpha dropout that drops whole channels (axis 1): the SELU-safe
+    counterpart of Dropout2D/3D. The mask is drawn from the device's
+    generator and the result is recorded for autograd (the JAX package
+    wraps an unrecorded array)."""
+
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        p = self.p
+        alpha_p = -1.7580993408473766
+        a = (1.0 / np.sqrt((alpha_p ** 2 * p + 1) * (1 - p))) \
+            if p < 1 else 0.0
+        b = -a * alpha_p * p
+
+        def raw(d):
+            shape = (d.shape[0], d.shape[1]) + (1,) * (d.ndim - 2)
+            keep = F.common._keep_mask(shape, 1.0 - p, d.device)
+            return (a * torch.where(keep, d, alpha_p) + b).to(d.dtype)
+
+        return eager(raw, (x,), {}, name="feature_alpha_dropout")
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return flatten(x, self.start_axis, self.stop_axis)
+
+
+class Unflatten(Layer):
+    def __init__(self, axis, shape, name=None):
+        super().__init__()
+        self.axis = axis
+        self.shape = shape
+
+    def forward(self, x):
+        new_shape = list(x.shape)
+        new_shape[self.axis:self.axis + 1] = list(self.shape)
+        return x.reshape(new_shape)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, size=self.size, scale_factor=self.scale_factor,
+                             mode=self.mode, align_corners=self.align_corners,
+                             align_mode=self.align_mode,
+                             data_format=self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW", name=None):
+        super().__init__(size, scale_factor, mode="bilinear", align_corners=True,
+                         data_format=data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW", name=None):
+        super().__init__(size, scale_factor, mode="nearest",
+                         data_format=data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor = downscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups = groups
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Pad1D(Layer):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCL", name=None):
+        super().__init__()
+        self.padding, self.mode, self.value, self.data_format = padding, mode, value, data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Pad2D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class PairwiseDistance(Layer):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p, self.epsilon, self.keepdim = p, epsilon, keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
+
+
+# ---- containers ------------------------------------------------------------
+
 class Sequential(Layer):
     def __init__(self, *layers):
         super().__init__()
@@ -110,6 +312,13 @@ class LayerList(Layer):
         self.add_sublayer(str(len(self._sub_layers)), sublayer)
         return self
 
+    def insert(self, index, sublayer):
+        layers = list(self._sub_layers.values())
+        layers.insert(index, sublayer)
+        self._sub_layers.clear()
+        for i, l in enumerate(layers):
+            self._sub_layers[str(i)] = l
+
     def extend(self, sublayers):
         for l in sublayers:
             self.append(l)
@@ -128,3 +337,108 @@ class LayerList(Layer):
 
     def __iter__(self):
         return iter(self._sub_layers.values())
+
+
+class ParameterList(Layer):
+    def __init__(self, parameters=None):
+        super().__init__()
+        if parameters is not None:
+            for i, p in enumerate(parameters):
+                self.add_parameter(str(i), p)
+
+    def append(self, parameter):
+        self.add_parameter(str(len(self._parameters)), parameter)
+        return self
+
+    def __getitem__(self, idx):
+        return self._parameters[str(idx if idx >= 0 else len(self) + idx)]
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())
+
+
+class LayerDict(Layer):
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers:
+            self.update(sublayers)
+
+    def update(self, sublayers):
+        items = sublayers.items() if isinstance(sublayers, (dict, OrderedDict)) else sublayers
+        for name, layer in items:
+            self.add_sublayer(name, layer)
+
+    def __getitem__(self, key):
+        return self._sub_layers[key]
+
+    def __setitem__(self, key, layer):
+        self.add_sublayer(key, layer)
+
+    def __delitem__(self, key):
+        del self._sub_layers[key]
+
+    def __len__(self):
+        return len(self._sub_layers)
+
+    def __iter__(self):
+        return iter(self._sub_layers)
+
+    def __contains__(self, key):
+        return key in self._sub_layers
+
+    def keys(self):
+        return self._sub_layers.keys()
+
+    def values(self):
+        return self._sub_layers.values()
+
+    def items(self):
+        return self._sub_layers.items()
+
+
+class Bilinear(Layer):
+    """out = x1 · W · x2 + b."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr)
+        self.bias = self.create_parameter([out_features], attr=bias_attr,
+                                          is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.a = (output_sizes, kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, *self.a)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.a = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.a)
+
+
+class ZeroPad1D(Pad1D):
+    def __init__(self, padding, data_format="NCL", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class ZeroPad3D(Pad3D):
+    def __init__(self, padding, data_format="NCDHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)

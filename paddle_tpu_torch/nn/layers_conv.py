@@ -5,8 +5,9 @@ functionals of nn/functional/conv.py and norm.py. BatchNorm keeps its
 running statistics as buffers named `_mean` and `_variance`, as the JAX
 package does, so a JAX `state_dict()` carries across as numpy.
 SyncBatchNorm (batch statistics across GPUs) belongs to the multi-GPU
-slice and raises. LocalResponseNorm, SpectralNorm and RMSNorm arrive
-with the rest of the layer zoo.
+slice and raises. RMSNorm runs F.rms_norm's plain route, as in the JAX
+package; SpectralNorm keeps its power-iteration vector as the buffer
+`weight_u`.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from ..core.device import _device
+from ..core.dtype import convert_dtype
 from ..core.tensor import Tensor
 from .layer import Layer
 from . import functional as F
@@ -262,6 +264,22 @@ class LayerNorm(Layer):
                 f"epsilon={self._epsilon}")
 
 
+class RMSNorm(Layer):
+    def __init__(self, normalized_shape, epsilon=1e-6, weight_attr=None,
+                 name=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            self._normalized_shape, attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, epsilon=self._epsilon)
+
+
 class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
@@ -375,6 +393,39 @@ class InstanceNorm2D(Layer):
 
 InstanceNorm1D = InstanceNorm2D
 InstanceNorm3D = InstanceNorm2D
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def forward(self, x):
+        return F.local_response_norm(x, self.size, self.alpha, self.beta,
+                                     self.k)
+
+
+class SpectralNorm(Layer):
+    """Normalizes an incoming weight by its largest singular value,
+    estimated by power iteration whose left singular vector persists
+    across forwards as the buffer `weight_u` (state_dict carries it)."""
+
+    def __init__(self, weight_shape, axis=0, power_iters=1, epsilon=1e-12,
+                 dtype="float32", name=None):
+        super().__init__()
+        self.axis, self.power_iters, self.eps = axis, power_iters, epsilon
+        h = weight_shape[axis]
+        self.register_buffer("weight_u", Tensor(torch.full(
+            (h,), 1.0 / np.sqrt(h), dtype=convert_dtype(dtype),
+            device=_device())))
+
+    def forward(self, weight):
+        out, u_new = F.spectral_norm(
+            weight, axis=self.axis, power_iters=self.power_iters,
+            epsilon=self.eps, u=self.weight_u)
+        self.weight_u.set_value(u_new)  # the persistent iteration state
+        return out
 
 
 class MaxPool3D(Layer):

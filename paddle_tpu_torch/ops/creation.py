@@ -1,5 +1,6 @@
 """Tensor creation ops — port of paddle_tpu/ops/creation.py (the ones the
-eager path uses: to_tensor, zeros, ones, full, arange, assign). Tensors
+eager path uses: to_tensor, zeros, ones, full, arange, assign,
+one_hot). Tensors
 go to the current place (core/device.py)."""
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import torch
 from ..core.tensor import Tensor, to_tensor  # noqa: F401  (re-exported)
 from ..core import dtype as dtypes
 from ..core.device import _device
-from ._registry import eager
+from ._registry import as_array, eager
 
 
 def _dt(dtype, default=None):
@@ -77,3 +78,12 @@ def assign(x, output=None) -> Tensor:
 
 def clone(x) -> Tensor:
     return assign(x)
+
+
+def one_hot(x, num_classes, name=None) -> Tensor:
+    """[..., num_classes] in the default float dtype, as jax.nn.one_hot
+    (paddle_tpu/ops/creation.py:144): an index outside [0, num_classes)
+    gives a row of zeros. Never recorded for autograd."""
+    a = as_array(x)
+    classes = torch.arange(int(num_classes), device=a.device)
+    return Tensor((a[..., None] == classes).to(dtypes.get_default_dtype()))

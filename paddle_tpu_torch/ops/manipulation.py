@@ -1,6 +1,7 @@
 """Shape, layout and indexing ops — port of paddle_tpu/ops/manipulation.py
 (the ones the eager path uses: reshape, transpose, flatten, squeeze,
-unsqueeze, concat, stack, split, cast, getitem and setitem_).
+unsqueeze, concat, stack, split, cast, getitem, setitem_, where and
+pad).
 
 `squeeze(x, axis=k)` on an axis longer than 1 returns x unchanged, as
 Paddle documents; the JAX package raises ValueError there (a recorded
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as TF
 
 from ._registry import adopt_inplace, as_array, defop, eager
 from ..core.tensor import Tensor
@@ -194,3 +196,60 @@ def where(condition, x=None, y=None, name=None):
         return torch.where(cond, a, b)
 
     return eager(raw, tens, {}, name="where")
+
+
+def _pad_widths(pad, nd, data_format):
+    """(lo, hi) per axis from Paddle's pad list (paddle_tpu/ops/
+    manipulation.py:393): 2·ndim entries pad every axis in order; fewer
+    pad the spatial axes, innermost pair first."""
+    pad = [int(p.item()) if isinstance(p, Tensor) else int(p) for p in
+           (pad.numpy().tolist() if isinstance(pad, Tensor) else pad)]
+    if len(pad) == 2 * nd:
+        return [(pad[2 * i], pad[2 * i + 1]) for i in range(nd)]
+    widths = [(0, 0)] * nd
+    k = len(pad) // 2
+    # channels-last layouts: the spatial axes start at 1
+    dims = list(range(1, 1 + k)) if data_format.endswith("C") and nd >= 3 \
+        else list(range(nd - k, nd))
+    for i in range(k):
+        widths[dims[k - 1 - i]] = (pad[2 * i], pad[2 * i + 1])
+    return widths
+
+
+def _pad_raw(x, pad, mode="constant", value=0.0, data_format="NCHW",
+             name=None):
+    """jnp.pad's modes: constant, reflect, replicate ("edge") and
+    circular ("wrap"), over any axes. torch pads at most the last three
+    axes in the three copying modes, so the padded axes are moved last
+    and the others folded into one batch axis for the call."""
+    if mode not in ("constant", "reflect", "replicate", "circular"):
+        raise ValueError(f"pad: unknown mode {mode!r}")
+    widths = _pad_widths(pad, x.ndim, data_format)
+    if mode == "constant":
+        flat = [v for lo_hi in reversed(widths) for v in lo_hi]
+        if x.dtype == torch.bool:
+            return TF.pad(x.to(torch.uint8), flat,
+                          value=int(bool(value))).to(torch.bool)
+        return TF.pad(x, flat, value=value)
+    axes = [d for d, w in enumerate(widths) if w != (0, 0)]
+    # the copying modes pad each axis on its own: up to three at a time
+    for k in range(0, len(axes), 3):
+        x = _pad_copying(x, axes[k:k + 3], widths, mode)
+    return x
+
+
+def _pad_copying(x, axes, widths, mode):
+    rest = [d for d in range(x.ndim) if d not in axes]
+    moved = x.permute(rest + axes)
+    lead = moved.shape[:len(rest)]
+    y = moved.reshape((1, -1) + tuple(moved.shape[len(rest):]))
+    flat = [v for d in reversed(axes) for v in widths[d]]
+    y = TF.pad(y, flat, mode=mode)
+    y = y.reshape(tuple(lead) + tuple(y.shape[2:]))
+    inv = [0] * x.ndim
+    for i, d in enumerate(rest + axes):
+        inv[d] = i
+    return y.permute(inv)
+
+
+pad = defop("pad", _pad_raw)

@@ -1,8 +1,8 @@
 """Where a training step's time goes on one NVIDIA GPU.
 
     python -m paddle_tpu_torch.tools.profile_train
-        [--model llama|moe|long8k|train05b|eager_ernie|eager_llama|ernie|dit
-                 |resnet50]
+        [--model llama|moe|long8k|train05b|eager_ernie|eager_llama
+                 |eager_transformer|ernie|dit|resnet50]
         [--layers N] [--dtype bf16|f32]
 
 `--model llama` (default) builds the flagship dense config (bench.py:120:
@@ -24,7 +24,11 @@ drive their `train_step` under O1 bf16 with f32 params and AdamW with
 the global clip: `--model eager_ernie` the ERNIE-3.0-base encoder
 composed from layers (tools/eager_ernie.py; batch 64 x 512, lr 2e-5),
 `--model eager_llama` the flagship-width Llama composed from layers
-(tools/eager_llama.py; batch 2 x 2048, lr 1e-4). `--model ernie` drives
+(tools/eager_llama.py; batch 2 x 2048, lr 1e-4); `--model
+eager_transformer` the Transformer base model (tools/eager_transformer.py;
+96 x 256 source and target tokens, Adam under NoamDecay(512, 4000), no
+clip; `--layers` cuts both stacks), which also prints the 12 kernels
+that take the most device time. `--model ernie` drives
 the functional ERNIE finetune step over nlp/ernie.py
 (tools/ernie_finetune.py: batch 64 x 512 padded to lengths 128-512,
 adamw 2e-5); `--model dit` the DiT-XL/2 train step of BASELINE config 3
@@ -78,10 +82,10 @@ from torch.autograd import DeviceType
 # bench.py:87 and bench.py:134)
 _BATCH = {"llama": 8, "moe": 20, "eager_ernie": 64, "eager_llama": 2,
           "ernie": 64, "dit": 96, "long8k": 2, "train05b": 16,
-          "resnet50": 256}
+          "resnet50": 256, "eager_transformer": 96}
 _SEQ = {"llama": 2048, "moe": 2048, "eager_ernie": 512, "eager_llama": 2048,
         "ernie": 512, "dit": 256, "long8k": 8192, "train05b": 2048,
-        "resnet50": 224}
+        "resnet50": 224, "eager_transformer": 256}
 _GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet", "cublas")
 # kernel symbol names of csrc/*.cu, by class
 _PORT_KERNELS = (("flash_fwd_kernel", "flash_fwd"),
@@ -127,7 +131,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.model in ("eager_ernie", "eager_llama"):
+    if args.model in ("eager_ernie", "eager_llama", "eager_transformer"):
         return _main_eager(args)
     if args.model in ("ernie", "dit"):
         return _main_step(args)
@@ -299,13 +303,14 @@ def _print_device(args, layers, batch):
 
 
 def _main_eager(args) -> int:
-    """The eager steps (`--model eager_ernie` or `eager_llama`)."""
+    """The eager steps (`--model eager_ernie`, `eager_llama` or
+    `eager_transformer`)."""
     import paddle_tpu_torch as paddle
     from ..kernels import flash_attention as fa
     from ..kernels import layer_norm as ln
     from ..kernels import rms_norm as rn
     from ..nlp import ernie, llama
-    from . import eager_ernie, eager_llama
+    from . import eager_ernie, eager_llama, eager_transformer as et
 
     over = ({} if args.layers is None
             else {"num_hidden_layers": args.layers})
@@ -323,7 +328,7 @@ def _main_eager(args) -> int:
         def run(opt, span):
             return eager_ernie.train_step(paddle, model, loss_fn, opt, ids,
                                           labels, span=span)
-    else:
+    elif args.model == "eager_llama":
         cfg = llama.LlamaConfig.flagship_2b(**over)
         model, lr = eager_llama.build_model(paddle, cfg), 1e-4
         tokens = paddle.to_tensor(rng.integers(0, cfg.vocab_size,
@@ -332,9 +337,26 @@ def _main_eager(args) -> int:
         def run(opt, span):
             return eager_llama.train_step(paddle, model, loss_fn, opt,
                                           tokens, span=span)
-    opt = paddle.optimizer.AdamW(
-        learning_rate=lr, parameters=model.parameters(),
-        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    else:
+        cfg = et.TransformerConfig.base(**(
+            {} if args.layers is None else
+            {"num_encoder_layers": args.layers,
+             "num_decoder_layers": args.layers}))
+        model = et.build_model(paddle, cfg)
+        src = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)))
+        tgt = rng.integers(0, cfg.vocab_size, (batch, seq + 1))
+        tin, tout = paddle.to_tensor(tgt[:, :-1]), paddle.to_tensor(
+            tgt[:, 1:])
+
+        def run(opt, span):
+            return et.train_step(paddle, model, cfg, opt, src, tin, tout,
+                                 span=span)
+    if args.model == "eager_transformer":
+        opt = et.make_optimizer(paddle, model, cfg)
+    else:
+        opt = paddle.optimizer.AdamW(
+            learning_rate=lr, parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
     counters = {"layer_norm_fwd": ln.layer_norm_fwd,
                 "layer_norm_bwd": ln.layer_norm_bwd,
                 "rms_norm_fused": rn.rms_norm_fused,
@@ -342,18 +364,25 @@ def _main_eager(args) -> int:
                 "flash_attention_bwd": fa.flash_attention_bwd}
     loss, untraced, wall, prof = _profile_step(
         lambda span: run(opt, span), counters.values())
-    by_class, launches, ranges = _device_times(prof, _EAGER_RANGES)
+    by_name: dict = {}
+    by_class, launches, ranges = _device_times(prof, _EAGER_RANGES,
+                                               by_name=by_name)
     _backward_rest(by_class, ranges, "eager_backward",
                    ("eager_forward", "eager_optimizer"))
     tok = batch * seq
+    top = {}
+    if args.model == "eager_transformer":
+        top = {"top_kernels_ms": dict(sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:12])}
     print(json.dumps({
         "step": "eager_train", **_summary(by_class, launches, wall, untraced),
-        "ranges": ranges,
+        "ranges": ranges, **top,
         "port_launches": {n: c.launches for n, c in counters.items()},
         "tokens": tok, "untraced_tokens_per_s": tok / untraced,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "loss": float(loss)}), flush=True)
-    _print_device(args, cfg.num_hidden_layers, batch)
+    _print_device(args, getattr(cfg, "num_hidden_layers", None)
+                  or cfg.num_encoder_layers, batch)
     return 0
 
 

@@ -456,7 +456,15 @@ def test_port_imports_no_jax():
         "          'paddle_tpu_torch.serving.router',\n"
         "          'paddle_tpu_torch.serving.supervisor',\n"
         "          'paddle_tpu_torch.serving.frontend',\n"
-        "          'paddle_tpu_torch.serving.profiling'):\n"
+        "          'paddle_tpu_torch.serving.profiling',\n"
+        "          'paddle_tpu_torch.nn.layers_transformer',\n"
+        "          'paddle_tpu_torch.nn.layers_act_loss',\n"
+        "          'paddle_tpu_torch.nn.layers_common',\n"
+        "          'paddle_tpu_torch.nn.functional.loss',\n"
+        "          'paddle_tpu_torch.nn.functional.common',\n"
+        "          'paddle_tpu_torch.nn.functional.activation',\n"
+        "          'paddle_tpu_torch.nn.functional.norm',\n"
+        "          'paddle_tpu_torch.tools.eager_transformer'):\n"
         "    assert n in names, n\n"
         "assert not any(m in ('jax', 'optax')\n"
         "               or m.startswith(('jax.', 'optax.', 'paddle_tpu.'))\n"
